@@ -1,7 +1,7 @@
 """Model/config schema (counterpart of ``repro.configs.base``).
 
-Only the fields the dense family's paged serving path reads are ported;
-the MoE/SSM/multimodal blocks arrive with those families.
+Only the fields the dense family's serving routes (paged and dense) read
+are ported; the MoE/SSM/multimodal blocks arrive with those families.
 """
 
 from __future__ import annotations
@@ -14,11 +14,18 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class AttentionConfig:
     """PASA attention (the reference's ``impl="pasa"``; the flash and naive
-    implementations and the GEMM shift are not ported)."""
+    implementations are not ported)."""
 
     beta: float = 0.984497        # paper's adopted optimal-accuracy beta
     pasa_policy: str = "fp16"     # precision policy (paper: fully fp16)
     block_kv: int = 128           # PASA shift block == KV page size
+    # The dense prefill shifts K with the paper's batched-GEMM M (the
+    # algebraic shift there is not ported: False raises), and attends with
+    # K/V expanded to the query heads in the plain version (the reference's
+    # layout; the grouped layout is not ported: False raises).  The card's
+    # kernels map each query head to its kv head, with the same result.
+    use_gemm_shift: bool = True
+    expand_kv: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

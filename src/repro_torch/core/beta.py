@@ -1,8 +1,8 @@
 """The PASA shifting fraction beta (counterpart of ``repro.core.beta``).
 
-This slice serves with the algebraic key shift, whose recovery multiplier
-is the ideal invariance beta/(1-beta); the rounded-matrix invariance of
-Appendix A belongs to the GEMM-shift path, which is not ported yet.
+The algebraic key shift recovers with the ideal invariance beta/(1-beta);
+the GEMM shift with the invariance its rounded matrix realizes
+(``repro_torch.core.shifting.effective_invariance``, Appendix A).
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """Blocked online PASA / FlashAttention in plain PyTorch.
 
-Counterpart of ``repro.core.pasa``, ported for the algebraic-shift
-conventions the paged serving path uses: ``shift_mask_valid`` (decode),
-``chunk_exact`` (chunked prefill) and beta = 0 (FlashAttention-2 with the
-1/sqrt(d) scale applied after the fp16 score store).  It is the plain
-version of every attention kernel in ``repro_torch.kernels`` and the path
-the engine runs on the CPU.  The paper's GEMM-shift preprocessing
-(``use_gemm_shift``, Algorithm 1 lines 5-7) is not ported yet.
+Counterpart of ``repro.core.pasa``: the paper's GEMM shift (Algorithm 1
+lines 5-7, ``use_gemm_shift=True``, the default, as in the reference), the
+algebraic-shift conventions the serving paths use - ``shift_mask_valid``
+(decode) and ``chunk_exact`` (chunked prefill) - and beta = 0
+(FlashAttention-2 with the 1/sqrt(d) scale applied after the fp16 score
+store).  It is the plain version of every attention kernel in
+``repro_torch.kernels`` and the path the models run on the CPU.
 
 Each intermediate is stored at the dtype the policy names, one torch op
 at a time, so an fp16 policy rounds after every elementwise step exactly
@@ -27,8 +27,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.beta import ideal_invariance
-from repro_torch.core.precision import FP32, PrecisionPolicy, reduce_dtype
+from repro_torch.core.beta import DEFAULT_BETA, ideal_invariance
+from repro_torch.core.precision import FP16, FP32, PrecisionPolicy, reduce_dtype
+from repro_torch.core.shifting import (
+    effective_invariance,
+    shift_kv_blocks,
+    shifting_matrix,
+)
 
 # Finite stand-in for -inf that survives fp16 arithmetic (|x| < 65504) and
 # underflows exp() to exactly 0 in every policy.
@@ -243,20 +248,23 @@ def blocked_attention(
     causal: bool = False,
     kv_len: Optional[torch.Tensor] = None,
     q_offset: Optional[torch.Tensor] = None,
-    use_gemm_shift: bool = False,
+    use_gemm_shift: bool = True,
     shift_mask_valid: bool = False,
     chunk_exact: bool = False,
 ) -> torch.Tensor:
     """PASA (beta > 0) or FlashAttention-2 (beta == 0) over KV blocks.
 
-    Arguments as in the reference's ``blocked_attention``.  The key shift
-    is the algebraic one, ``(k - beta * blockmean) / sqrt(d)`` with the
-    ideal invariance beta/(1-beta); ``shift_mask_valid`` takes the block
-    mean and row pseudo-average over the valid (col < kv_len) columns only
+    Arguments as in the reference's ``blocked_attention``.
+    ``use_gemm_shift=True`` shifts K by the rounded shifting matrix M per
+    block (the paper's batched GEMM) and recovers with the invariance M
+    realizes (:func:`~repro_torch.core.shifting.effective_invariance`);
+    ``False`` is the algebraic ``(k - beta * blockmean) / sqrt(d)`` with
+    the ideal beta/(1-beta).  ``shift_mask_valid`` takes the block mean
+    and row pseudo-average over the valid (col < kv_len) columns only
     (decode), and ``chunk_exact`` extends that to causal query chunks with
-    per-row dead-block no-ops (chunked prefill).  ``use_gemm_shift=True``
-    with beta > 0 (the paper's batched-GEMM preprocessing) is not ported
-    yet and raises NotImplementedError.
+    per-row dead-block no-ops (chunked prefill); both need the algebraic
+    shift when beta > 0 (a fixed M cannot mask) and raise ValueError with
+    the GEMM shift, as the reference does.
 
     Returns (..., S1, D) at ``policy.out_dtype``.
     """
@@ -264,10 +272,9 @@ def blocked_attention(
         raise ValueError(f"beta must be in [0, 1), got {beta}")
     if chunk_exact:
         shift_mask_valid = True
-    if use_gemm_shift and beta > 0.0:
-        raise NotImplementedError(
-            "the GEMM shift (Algorithm 1 lines 5-7) is not ported yet; "
-            "pass use_gemm_shift=False for the algebraic shift"
+    if shift_mask_valid and use_gemm_shift and beta > 0.0:
+        raise ValueError(
+            "shift_mask_valid needs the algebraic shift (use_gemm_shift=False)"
         )
     if shift_mask_valid and causal and not chunk_exact:
         raise ValueError("shift_mask_valid is decode-only (causal=False)")
@@ -291,7 +298,11 @@ def blocked_attention(
 
     post_scale = 1.0
     inva = ideal_invariance(beta)
-    if beta > 0.0:
+    if beta > 0.0 and use_gemm_shift:
+        inva = effective_invariance(block_kv, d, beta, policy.input_dtype)
+        m_mat = shifting_matrix(block_kv, d, beta, policy.input_dtype)
+        k = shift_kv_blocks(k, m_mat.to(dev), block_kv).to(policy.input_dtype)
+    elif beta > 0.0:
         wide = reduce_dtype(policy.stat_dtype)
         scale = _scalar(1.0 / math.sqrt(d), wide, dev)
         kb = k.reshape(*k.shape[:-2], n_blocks, block_kv, d).to(wide)
@@ -352,3 +363,18 @@ def blocked_attention(
             sbar_mask=sbar_mask, dead_rows_noop=chunk_exact,
         )
     return finalize_state(state, policy, zero_empty_rows=chunk_exact)
+
+
+def pasa_attention(q, k, v, *, beta: float = DEFAULT_BETA,
+                   policy: PrecisionPolicy = FP16, block_kv: int = 128,
+                   **kw) -> torch.Tensor:
+    """The paper's headline configuration: PASA at the fully-fp16 policy."""
+    return blocked_attention(q, k, v, beta=beta, policy=policy,
+                             block_kv=block_kv, **kw)
+
+
+def flash_attention(q, k, v, *, policy: PrecisionPolicy = FP32,
+                    block_kv: int = 128, **kw) -> torch.Tensor:
+    """FlashAttention-2 baseline (PASA with beta = 0)."""
+    return blocked_attention(q, k, v, beta=0.0, policy=policy,
+                             block_kv=block_kv, **kw)

@@ -26,7 +26,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("pasa_paged_decode", "pasa_paged_prefill")
+SOURCES = ("pasa_paged_decode", "pasa_paged_prefill", "pasa_decode",
+           "shift_kv", "pasa_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,0 +1,135 @@
+// PASA flash-decode over a CONTIGUOUS KV cache, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/pasa_decode.py (_decode_kernel /
+// masked_block_update, launched by decode_kernel_call through
+// pl.pallas_call).
+//
+// What it computes: one new token per sequence against its dense cache;
+// the GQA group's G query heads are the rows.  One CTA per (sequence,
+// kv-head) folds the cache's blocks of `block` rows IN ORDER up to kv_len
+// through decode_block_update - the function the paged decode kernel
+// folds each page with - so on the same rows, contiguous (block == page)
+// and paged decode agree bit for bit, as the reference's shared
+// masked_block_update makes them agree there.  Convention
+// (shift_mask_valid): the algebraic valid-column shift with the ideal
+// invariance beta / (1 - beta).
+//
+// The cache is read in its stored layout and dtype (the dense route's
+// (B, S2, KVH, D) bf16 cache, seen as (B, KVH, S2, D) through strides)
+// and converted to fp16 in registers: no per-step transpose, cast or pad
+// copy.  Rows at or past kv_len are never read (their K and V enter
+// shared memory as zeros), so stale or non-finite bytes there are inert
+// and a cache whose length is not a multiple of the block needs no pad.
+//
+// What bounds it on an H100: bytes.  Each live K and V row is read once
+// (2 x 128 x 2 bytes per kv-head and position); the arithmetic is ~4 G
+// flops per byte read.  It is the simple version, with the paged kernel's
+// limits: B x KVH CTAs (16 at batch 4) leave most SMs idle, and the
+// scores use scalar fp32 FMAs.
+
+#include "pasa_decode_block.cuh"
+
+namespace pasa {
+
+template <typename CacheT>
+__global__ void __launch_bounds__(DEC_THREADS)
+contiguous_decode_kernel(const __half* __restrict__ q,    // (B, KVH, G, D)
+                         const CacheT* __restrict__ k,    // (B, KVH, S2, D)
+                         const CacheT* __restrict__ v,    //   strided
+                         const int* __restrict__ kv_len,  // (B,)
+                         __half* __restrict__ out,        // (B, KVH, G, D)
+                         int kv_heads, int G, int s2, int block,
+                         long long sb, long long sh, long long ss, Policy P) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DecodeSmem& S = *reinterpret_cast<DecodeSmem*>(smem_raw);
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int t = threadIdx.x;
+
+  const __half* qbh = q + ((size_t)b * kv_heads + h) * G * HEAD_DIM;
+  for (int g = 0; g < G; ++g) S.q[g][t] = qbh[g * HEAD_DIM + t];
+  float acc[DEC_MAX_G];
+  decode_state_init(S, acc);
+
+  const int L = max(0, min(kv_len[b], s2));
+  const int n_blocks = (L + block - 1) / block;
+  const CacheT* kbh = k + b * sb + h * sh;
+  const CacheT* vbh = v + b * sb + h * sh;
+  // 16-byte loads: thread t moves 8 elements of row (t / 16) + 8i.
+  const int r0 = t >> 4;
+  const int c8 = (t & 15) * 8;
+  for (int j = 0; j < n_blocks; ++j) {
+    const int valid = min(block, L - j * block);
+    __syncthreads();  // the previous block is fully consumed
+    for (int r = r0; r < block; r += DEC_THREADS / 16) {
+      uint4 kk = make_uint4(0u, 0u, 0u, 0u);   // rows past kv_len: zeros
+      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+      if (r < valid) {
+        const long long off = (long long)(j * block + r) * ss + c8;
+        kk = load8_half(kbh + off);
+        vv = load8_half(vbh + off);
+      }
+      const __half2* k2 = reinterpret_cast<const __half2*>(&kk);
+      __half2* kd = reinterpret_cast<__half2*>(&S.k[r][c8]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) kd[i] = k2[i];
+      *reinterpret_cast<uint4*>(&S.v[r][c8]) = vv;
+    }
+    __syncthreads();
+    decode_block_update(S, valid, block, G, j, P, acc);
+  }
+  __syncthreads();
+
+  __half* obh = out + ((size_t)b * kv_heads + h) * G * HEAD_DIM;
+#pragma unroll
+  for (int g = 0; g < DEC_MAX_G; ++g) {
+    if (g < G) {
+      // O = acc / l at the accumulator dtype, stored at fp16
+      obh[g * HEAD_DIM + t] =
+          __float2half_rn(rnd(__fdiv_rn(acc[g], S.l[g]), P.acc_half));
+    }
+  }
+}
+
+template <typename CacheT>
+static int launch(const void* q, const void* k, const void* v,
+                  const void* kv_len, void* out, int batch, int kv_heads,
+                  int G, int s2, int block, long long sb, long long sh,
+                  long long ss, const Policy& P, cudaStream_t stream) {
+  const size_t smem = sizeof(DecodeSmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      contiguous_decode_kernel<CacheT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(batch, kv_heads);
+  contiguous_decode_kernel<CacheT><<<grid, DEC_THREADS, smem, stream>>>(
+      static_cast<const __half*>(q), static_cast<const CacheT*>(k),
+      static_cast<const CacheT*>(v), static_cast<const int*>(kv_len),
+      static_cast<__half*>(out), kv_heads, G, s2, block, sb, sh, ss, P);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace pasa
+
+// Plain C entry point (bound with ctypes).  Strides are in elements, for
+// the (batch, kv-head, row) dims shared by k and v; returns the
+// cudaError_t of the launch (0: queued on `stream`).
+extern "C" int pasa_decode_launch(
+    const void* q, const void* k, const void* v, const void* kv_len,
+    void* out, int batch, int kv_heads, int group, int s2, int block,
+    long long sb, long long sh, long long ss, int cache_is_bf16, float beta,
+    float inva, float shift_scale, float post_scale, int stat_half,
+    int acc_half, void* stream) {
+  using namespace pasa;
+  if (group < 1 || group > DEC_MAX_G || block < 1 || block > DEC_MAX_BLOCK ||
+      batch < 1 || kv_heads < 1 || s2 < 1)
+    return (int)cudaErrorInvalidValue;
+  const Policy P = make_policy(beta, inva, shift_scale, post_scale, stat_half,
+                               acc_half);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cache_is_bf16)
+    return launch<__nv_bfloat16>(q, k, v, kv_len, out, batch, kv_heads, group,
+                                 s2, block, sb, sh, ss, P, s);
+  return launch<__half>(q, k, v, kv_len, out, batch, kv_heads, group, s2,
+                        block, sb, sh, ss, P, s);
+}

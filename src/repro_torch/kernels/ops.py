@@ -1,16 +1,18 @@
 """Public entry points of the attention kernels (counterpart of
-``repro.kernels.ops``, paged ops of this slice).
+``repro.kernels.ops``).
 
 Dispatch is by the device of the tensors: a CPU tensor goes to the
 kernel's plain PyTorch version, a CUDA tensor to the CUDA kernel - or the
-call raises (unsupported shape, dtype or policy).  There is no fall back
-from the card to the plain version.  Each wrapper counts its kernel
-launches in a plain integer attribute, ``<wrapper>.launches``.
+call raises (unsupported shape, dtype, policy or block size).  There is
+no fall back from the card to the plain version.  Each wrapper counts the
+kernel launches it makes in a plain integer attribute,
+``<wrapper>.launches`` (``pasa_attention`` with beta > 0 also launches the
+shift kernel, counted in ``shift_kv.launches``).
 
 The reference's ``interpret`` and ``use_kernel`` switches have no
-counterpart: the plain versions are ``paged_decode_plain`` and
-``paged_prefill_plain`` in the kernel modules.  Quantized pools (the four
-sidecar arguments) are not ported yet and raise NotImplementedError.
+counterpart: the plain versions live beside each kernel in its module.
+Quantized pools (the four sidecar arguments of the paged ops) are not
+ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,8 +23,12 @@ import torch
 
 from repro_torch.core.beta import DEFAULT_BETA
 from repro_torch.core.precision import FP16, PrecisionPolicy
+from repro_torch.core.shifting import effective_invariance, shifting_matrix
+from repro_torch.kernels import pasa_attention as _attn
+from repro_torch.kernels import pasa_decode as _cdecode
 from repro_torch.kernels import pasa_paged_decode as _decode
 from repro_torch.kernels import pasa_paged_prefill as _prefill
+from repro_torch.kernels import shift_kv as _shift
 
 
 def _no_sidecars(*quant) -> None:
@@ -198,7 +204,205 @@ def pasa_paged_prefill(
 pasa_paged_prefill.launches = 0
 
 
+def _check(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("expected (B, H, S, D) tensors")
+    if k.shape != v.shape:
+        raise ValueError(f"k/v shape mismatch: {tuple(k.shape)} vs {tuple(v.shape)}")
+    if q.shape[0] != k.shape[0] or q.shape[-1] != k.shape[-1]:
+        raise ValueError(f"q {tuple(q.shape)} incompatible with kv {tuple(k.shape)}")
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"q heads {q.shape[1]} % kv heads {k.shape[1]} != 0")
+
+
+def _cuda_block(name: str, block: int) -> None:
+    if block % 16 or not 16 <= block <= _decode.MAX_PAGE:
+        raise NotImplementedError(
+            f"the CUDA kernels take {name} a multiple of 16 up to "
+            f"{_decode.MAX_PAGE}, got {block}"
+        )
+
+
+def _cuda_rows(name: str, x: torch.Tensor, dev) -> None:
+    """The kernels read 16-byte row segments through the strides."""
+    if x.device != dev:
+        raise ValueError(f"{name} is on {x.device}, q on {dev}")
+    if x.shape[-1] != _decode.HEAD_DIM:
+        raise NotImplementedError(
+            f"the CUDA kernels are written for head_dim {_decode.HEAD_DIM}, "
+            f"got {x.shape[-1]}"
+        )
+    if x.stride(-1) != 1 or any(st % 8 for st in x.stride()[:-1]) \
+            or x.data_ptr() % 16:
+        raise ValueError(
+            f"{name} needs unit stride on the head dim, other strides that "
+            f"are multiples of 8 and a 16-byte aligned start"
+        )
+
+
+def shift_kv(
+    k: torch.Tensor,            # (B, KVH, S2, D)
+    *,
+    beta: float = DEFAULT_BETA,
+    block_kv: int = 128,
+    policy: PrecisionPolicy = FP16,
+) -> torch.Tensor:
+    """Standalone K pre-processing (Algorithm 1 lines 5-7): K'_j = M K_j
+    with the shifting matrix at ``policy.input_dtype``."""
+    if k.dim() != 4:
+        raise ValueError("k must be (B, KVH, S2, D)")
+    if k.shape[2] % block_kv:
+        raise ValueError(f"S2={k.shape[2]} not divisible by block_kv={block_kv}")
+    d = k.shape[-1]
+    if k.device.type == "cpu":
+        m = shifting_matrix(block_kv, d, beta, policy.input_dtype)
+        return _shift.shift_kv_plain(m, k.to(policy.input_dtype), block_kv,
+                                     out_dtype=policy.input_dtype)
+    if k.device.type != "cuda":
+        raise ValueError(f"no shift_kv for device {k.device}")
+    if policy.input_dtype != torch.float16:
+        raise NotImplementedError(
+            f"the CUDA shift kernel stores fp16, not {policy.input_dtype}")
+    if k.dtype not in (torch.bfloat16, torch.float16):
+        k = k.to(torch.float16)
+    _cuda_block("block_kv", block_kv)
+    _cuda_rows("k", k, k.device)
+    m = _shift.device_matrix(block_kv, d, float(beta), torch.float16, k.device)
+    out = _shift.kernel_call(m, k, block_kv=block_kv)
+    shift_kv.launches += 1
+    return out
+
+
+shift_kv.launches = 0
+
+
+def _attention(q, k, v, *, beta, policy, block_q, block_kv, causal, wrapper):
+    """The shift-KV pass (beta > 0) then the fused attention sweep."""
+    _check(q, k, v)
+    if q.shape[2] % block_q or k.shape[2] % block_kv:
+        raise ValueError(
+            f"S1={q.shape[2]} % block_q={block_q} and S2={k.shape[2]} % "
+            f"block_kv={block_kv} must be 0 (the dense layer pads)"
+        )
+    if q.device.type == "cpu":
+        return _attn.attention_plain(q, k, v, beta=beta, policy=policy,
+                                     block_kv=block_kv, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    _cuda_block("block_q", block_q)
+    _cuda_block("block_kv", block_kv)
+    d = q.shape[-1]
+    half = torch.float16
+    # the recovery multiplier of the GEMM shift is the invariance the
+    # rounded M realizes, not the ideal beta/(1-beta)
+    inva = (effective_invariance(block_kv, d, beta, policy.input_dtype)
+            if beta > 0.0 else 0.0)
+    _decode.policy_scalars(beta, policy, d, inva)   # raises before a launch
+    q, v = q.to(half), v.to(half)
+    for name, x in (("q", q), ("v", v)):
+        _cuda_rows(name, x, q.device)
+    if beta > 0.0:
+        k_sh = shift_kv(k, beta=beta, block_kv=block_kv, policy=policy)
+    else:
+        k_sh = k.to(half)
+        _cuda_rows("k", k_sh, q.device)
+    out = _attn.kernel_call(q, k_sh, v, beta=beta, inva=inva, policy=policy,
+                            causal=causal, block_q=block_q, block_kv=block_kv)
+    wrapper.launches += 1
+    return out
+
+
+def pasa_attention(
+    q: torch.Tensor,            # (B, H, S1, D)
+    k: torch.Tensor,            # (B, KVH, S2, D) RAW keys
+    v: torch.Tensor,
+    *,
+    beta: float = DEFAULT_BETA,
+    policy: PrecisionPolicy = FP16,
+    block_q: int = 128,
+    block_kv: int = 128,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Fused PASA attention: shift-KV GEMM pass + online-recovery sweep.
+    S1 % block_q == 0 and S2 % block_kv == 0, else ValueError."""
+    return _attention(q, k, v, beta=beta, policy=policy, block_q=block_q,
+                      block_kv=block_kv, causal=causal, wrapper=pasa_attention)
+
+
+pasa_attention.launches = 0
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    policy: PrecisionPolicy = FP16,
+    block_q: int = 128,
+    block_kv: int = 128,
+    causal: bool = False,
+) -> torch.Tensor:
+    """FlashAttention-2 baseline: the attention kernel at beta = 0."""
+    return _attention(q, k, v, beta=0.0, policy=policy, block_q=block_q,
+                      block_kv=block_kv, causal=causal, wrapper=flash_attention)
+
+
+flash_attention.launches = 0
+
+
+def pasa_decode(
+    q: torch.Tensor,            # (B, KVH, G, D) grouped query heads, one token
+    k_cache: torch.Tensor,      # (B, KVH, S2, D) raw cache, any row strides
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,       # (B,)
+    *,
+    beta: float = DEFAULT_BETA,
+    policy: PrecisionPolicy = FP16,
+    block_kv: int = 256,
+) -> torch.Tensor:
+    """GQA flash-decode with the algebraic valid-column shift (ideal
+    invariance beta/(1-beta)).  Positions at or past ``kv_len`` are never
+    read on the card and are inert in the plain version."""
+    if q.dim() != 4:
+        raise ValueError("q must be (B, KVH, G, D)")
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
+            or k_cache.shape[:2] != q.shape[:2] \
+            or k_cache.shape[-1] != q.shape[-1]:
+        raise ValueError(
+            f"caches must be (B, KVH, S2, D) matching q {tuple(q.shape)}; "
+            f"got {tuple(k_cache.shape)} / {tuple(v_cache.shape)}"
+        )
+    if q.device.type == "cpu":
+        return _cdecode.decode_plain(q, k_cache, v_cache, kv_len, beta=beta,
+                                     policy=policy, block_kv=block_kv)
+    if q.device.type != "cuda":
+        raise ValueError(f"no pasa_decode for device {q.device}")
+    _cuda_block("block_kv", block_kv)
+    if q.shape[2] > _decode.MAX_GROUP:
+        raise NotImplementedError(f"GQA group {q.shape[2]} > {_decode.MAX_GROUP}")
+    if k_cache.dtype not in (torch.bfloat16, torch.float16) \
+            or v_cache.dtype != k_cache.dtype \
+            or v_cache.stride() != k_cache.stride():
+        raise NotImplementedError(
+            "the CUDA decode kernel reads bf16 or fp16 caches of one layout")
+    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+        _cuda_rows(name, x, q.device)
+    if kv_len.device != q.device or kv_len.shape != (q.shape[0],):
+        raise ValueError(f"kv_len must be ({q.shape[0]},) on {q.device}")
+    q = q.to(policy.input_dtype).contiguous()
+    out = _cdecode.kernel_call(
+        q, k_cache, v_cache, kv_len.to(torch.int32).contiguous(),
+        beta=beta, policy=policy, block_kv=block_kv,
+    )
+    pasa_decode.launches += 1
+    return out
+
+
+pasa_decode.launches = 0
+
+
 def reset_launches() -> None:
     """Set every wrapper's launch count to 0."""
-    pasa_paged_decode.launches = 0
-    pasa_paged_prefill.launches = 0
+    for wrapper in (pasa_paged_decode, pasa_paged_prefill, pasa_attention,
+                    flash_attention, pasa_decode, shift_kv):
+        wrapper.launches = 0

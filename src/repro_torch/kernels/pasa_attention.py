@@ -1,0 +1,92 @@
+"""Fused PASA / FlashAttention-2 over pre-shifted keys: CUDA kernel and
+plain version.
+
+Counterpart of ``repro.kernels.pasa_attention`` (Algorithm 1 lines 8-23).
+
+  * :func:`kernel_call` launches ``csrc/pasa_attention.cu``: one CTA per
+    (b * head, query tile) walks the key tiles in order with the state at
+    the policy's dtypes; GQA maps query head h to kv head h // group, so
+    K'/V are never expanded; a causal tile wholly above the diagonal is
+    skipped.  With ``beta = 0`` (inva 0, 1/sqrt(d) applied after the fp16
+    score store) it is the FlashAttention-2 baseline.
+  * :func:`attention_plain` is the port of the reference's
+    ``ref.attention_ref``: RAW keys, the GEMM shift and
+    ``core.pasa.blocked_attention`` on K/V expanded to the H query heads.
+    It is the oracle of the shift + attention pipeline
+    (``ops.pasa_attention``) and the path every CPU tensor takes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.pasa import blocked_attention
+from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.kernels import _build
+from repro_torch.kernels.pasa_paged_decode import policy_scalars
+
+
+def _expand_kv(x: torch.Tensor, h: int) -> torch.Tensor:
+    """(B, KVH, S, D) -> (B, H, S, D), each kv head repeated over its group."""
+    b, kvh, s, d = x.shape
+    return x[:, :, None].expand(b, kvh, h // kvh, s, d).reshape(b, h, s, d)
+
+
+def attention_plain(
+    q: torch.Tensor,   # (B, H, S1, D)
+    k: torch.Tensor,   # (B, KVH, S2, D) RAW keys
+    v: torch.Tensor,
+    *,
+    beta: float,
+    policy: PrecisionPolicy,
+    block_kv: int,
+    causal: bool = False,
+) -> torch.Tensor:
+    """GEMM-shift PASA (FlashAttention-2 at beta = 0) on expanded K/V."""
+    h = q.shape[1]
+    return blocked_attention(
+        q, _expand_kv(k, h), _expand_kv(v, h), beta=beta, policy=policy,
+        block_kv=block_kv, causal=causal, use_gemm_shift=True,
+    )
+
+
+def _entry() -> ctypes._CFuncPtr:
+    fn = _build.load("pasa_attention").pasa_attention_launch
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
+        + [ctypes.c_float] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_call(
+    q: torch.Tensor,          # (B, H, S1, 128) fp16
+    k_shifted: torch.Tensor,  # (B, KVH, S2, 128) fp16 (raw keys at beta 0)
+    v: torch.Tensor,          # (B, KVH, S2, 128) fp16
+    *,
+    beta: float,
+    inva: float,
+    policy: PrecisionPolicy,
+    causal: bool,
+    block_q: int,
+    block_kv: int,
+) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream.  Each input is read
+    through its strides (unit stride on the head dim).  Arguments are
+    validated by :func:`repro_torch.kernels.ops.pasa_attention`."""
+    b, h, s1, d = q.shape
+    _, kvh, s2, _ = k_shifted.shape
+    out = torch.empty((b, h, s1, d), dtype=torch.float16, device=q.device)
+    strides = [x.stride(i) for x in (q, k_shifted, v) for i in range(3)]
+    err = _entry()(
+        q.data_ptr(), k_shifted.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, kvh, s1, s2, block_q, block_kv, int(causal), *strides,
+        *policy_scalars(beta, policy, d, inva),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"pasa_attention launch failed: cudaError {err}")
+    return out

@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import torch
 
@@ -55,17 +56,21 @@ def paged_decode_plain(
     return blocked_attention(
         q.to(policy.input_dtype), ks, vs, beta=beta, policy=policy,
         block_kv=block_kv, causal=False, kv_len=kv_len.reshape(b, 1),
-        shift_mask_valid=True,
+        use_gemm_shift=False, shift_mask_valid=True,
     )
 
 
-@functools.lru_cache(maxsize=8)
-def policy_scalars(beta: float, policy: PrecisionPolicy, d: int):
+@functools.lru_cache(maxsize=16)
+def policy_scalars(beta: float, policy: PrecisionPolicy, d: int,
+                   inva: Optional[float] = None):
     """The policy and beta as the kernels' launch arguments: (beta, inva
     rounded to the statistic dtype, fp32 1/sqrt(d), fp16 1/sqrt(d),
-    stat_half, acc_half).  Raises NotImplementedError for a policy the
-    kernels do not implement (fp16 inputs, scores and outputs are
-    required; statistics and accumulator may be fp16 or fp32)."""
+    stat_half, acc_half).  ``inva`` defaults to the ideal beta/(1-beta) of
+    the algebraic shift; the GEMM-shift attention kernel passes the
+    invariance its rounded matrix realizes.  Raises NotImplementedError
+    for a policy the kernels do not implement (fp16 inputs, scores and
+    outputs are required; statistics and accumulator may be fp16 or
+    fp32)."""
     half, f32 = torch.float16, torch.float32
     if (policy.input_dtype, policy.score_dtype, policy.out_dtype) != (half,) * 3 \
             or policy.stat_dtype not in (half, f32) \
@@ -74,7 +79,8 @@ def policy_scalars(beta: float, policy: PrecisionPolicy, d: int):
             f"the CUDA PASA kernels implement the fp16 and fp16_fp32 "
             f"policies, not {policy.name!r}"
         )
-    inva = ideal_invariance(beta)
+    if inva is None:
+        inva = ideal_invariance(beta)
     return (
         float(beta),
         float(torch.tensor(inva, dtype=policy.stat_dtype)),

@@ -53,7 +53,7 @@ def paged_prefill_plain(
         beta=beta, policy=policy, block_kv=page, causal=True,
         kv_len=kv_len.reshape(b, 1, 1),
         q_offset=chunk_start.reshape(b, 1, 1, 1),
-        chunk_exact=True,
+        use_gemm_shift=False, chunk_exact=True,
     )
     return out.reshape(b, h, cs, d)
 

@@ -1,15 +1,21 @@
-"""Where the device time of the two serving calls goes, on the card.
+"""Where the device time of the serving calls goes, on the card.
 
-Builds qwen2-7b (full width; ``--layers`` cuts depth) with random weights,
-prefills four prompts of 1000/517/300/129 tokens in 512-token chunks
-through ``prefill_step_paged`` exactly as ``ServeEngine`` batches them,
-then decodes.  The first prefill call and ``--decode-calls`` decode calls
+Builds qwen2-7b (full width; ``--layers`` cuts depth) with random weights
+and profiles the device calls of both serving routes:
+
+  * paged: four prompts of 1000/517/300/129 tokens prefilled in 512-token
+    chunks through ``prefill_step_paged`` exactly as ``ServeEngine``
+    batches them, then decoded (``serve_step_paged``);
+  * dense (the default route of ``launch/serve.py``): four prompts of
+    1000 tokens in one fused prefill (``prefill_logits``), then decoded on
+    the dense cache (``serve_step``) from kv 1001.
+
+The first prefill call and ``--decode-calls`` decode calls of each route
 run under ``torch.profiler`` (CPU + CUDA activities, after a warm-up of
 each).  For each call type it prints the wall time per call (timed once
 without the profiler, then under it), the device time per call by kernel
-category (the two PASA kernels, GEMMs, the rest) and the device's idle
-share of the unprofiled wall time, and writes the Chrome traces under
-``--out``.
+category (each PASA kernel, GEMMs, the rest) and the device's idle share
+of the unprofiled wall time, and writes the Chrome traces under ``--out``.
 
 Run on one card from the repository root:
   PYTHONPATH=src python -m repro_torch.launch.profile_steps --out build/profile
@@ -27,14 +33,23 @@ from pathlib import Path
 PROMPTS = (1000, 517, 300, 129)
 CHUNK = 512
 PAGE = 128
+DENSE_BATCH, DENSE_PROMPT = 4, 1000
+
+# kernel-name fragment -> category, first match wins
+_KERNELS = (
+    ("paged_decode_kernel", "pasa_paged_decode"),
+    ("paged_prefill_kernel", "pasa_paged_prefill"),
+    ("contiguous_decode_kernel", "pasa_decode"),
+    ("shift_kv_kernel", "shift_kv"),
+    ("pasa_attention_kernel", "pasa_attention"),
+)
 
 
 def _category(name: str) -> str:
     low = name.lower()
-    if "paged_decode_kernel" in low:
-        return "pasa_paged_decode"
-    if "paged_prefill_kernel" in low:
-        return "pasa_paged_prefill"
+    for fragment, cat in _KERNELS:
+        if fragment in low:
+            return cat
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
                               "cublas", "sm90_")):
         return "gemm"
@@ -166,6 +181,32 @@ def main(argv=None):
     report["decode"] = _profile(call_decode, args.decode_calls,
                                 out / "trace_decode.json")
     report["decode"]["kv_len_at_first_call"] = kv_start
+    del pool
+
+    # the dense route: one fused prefill, then decode on the dense cache
+    dense = rng.integers(0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT))
+    dense = to(dense.astype(np.int32))
+    max_len = DENSE_PROMPT + args.decode_calls + 16
+    cache = bundle.init_cache(DENSE_BATCH, max_len, device=dev)
+    call_dense_prefill = lambda: bundle.prefill(params, dense, cache)
+    call_dense_prefill()                             # warm-up
+    report["dense_prefill"] = _profile(call_dense_prefill, 1,
+                                       out / "trace_dense_prefill.json")
+    dpos = torch.full((DENSE_BATCH,), DENSE_PROMPT, dtype=torch.int32,
+                      device=dev)
+    dtok = torch.zeros(DENSE_BATCH, dtype=torch.int32, device=dev)
+
+    def call_dense_decode():
+        nonlocal dpos, dtok
+        logits, _ = bundle.serve_step(params, dtok, dpos, cache)
+        dtok = torch.argmax(logits, -1).to(torch.int32)
+        dpos = dpos + 1
+
+    call_dense_decode()                              # warm-up
+    dkv = int(dpos[0]) + 1
+    report["dense_decode"] = _profile(call_dense_decode, args.decode_calls,
+                                      out / "trace_dense_decode.json")
+    report["dense_decode"]["kv_len_at_first_call"] = [dkv] * DENSE_BATCH
     print(json.dumps(report))
     return report
 

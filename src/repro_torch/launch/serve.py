@@ -1,19 +1,26 @@
-"""Paged serving entry point: random weights, random prompts, greedy decode.
+"""Serving entry point: random weights, random prompts, greedy decode.
 
-Counterpart of the ``--paged`` route of ``repro.launch.serve``: builds the
-model, draws its weights on the device from ``--seed``, draws
-``--batch`` prompts of ``--prompt-len`` tokens from
-``np.random.default_rng(seed)`` (as the reference does) and serves them
-through :class:`repro_torch.runtime.ServeEngine`.  Runs on the GPU by
-default (``--device cpu`` for the plain PyTorch path).
+Counterpart of ``repro.launch.serve``: builds the model, draws its
+weights on the device from ``--seed`` and ``--batch`` prompts of
+``--prompt-len`` tokens from ``np.random.default_rng(seed)`` (as the
+reference does), then serves them on one of two routes:
 
-Example (one H100, full-width qwen2-7b, random weights):
+  * dense (the default, as in the reference): one ``(L, B, max_len,
+    kv_dim)`` cache; the whole prompt in ONE fused prefill call
+    (``bundle.prefill``), then ``gen - 1`` greedy decode steps
+    (``launch.steps.make_serve_step``);
+  * paged (``--paged``): :class:`repro_torch.runtime.ServeEngine`.
+
+Runs on the GPU by default (``--device cpu`` for the plain PyTorch path).
+
+Examples (one H100, full-width qwen2-7b, random weights):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
+      --batch 4 --prompt-len 1000 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
       --paged --batch 4 --prompt-len 512 --gen 32 --prefill-chunk 512
 CPU smoke at the reduced config:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
-      --reduced --paged --batch 4 --prompt-len 16 --gen 8 --page-size 16 \
-      --device cpu
+      --reduced --batch 4 --prompt-len 16 --gen 8 --device cpu
 """
 
 from __future__ import annotations
@@ -29,12 +36,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
                     help="the tiny same-family config of the CPU tests")
-    ap.add_argument("--paged", action="store_true", required=True,
-                    help="serve through the paged-KV engine (the only "
-                         "route ported so far)")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve through the paged-KV engine (default: the "
+                         "dense-cache route)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="dense route: cache length (default: prompt-len "
+                         "+ gen + 8)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--page-size", type=int, default=None,
                     help="tokens per KV page (default: the PASA block "
@@ -62,20 +72,15 @@ def main(argv=None):
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import build
-    from repro_torch.runtime import ServeEngine
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    page_size = (
-        args.page_size if args.page_size is not None
-        else cfg.attention.block_kv
-    )
-    if page_size != cfg.attention.block_kv:
-        cfg = dataclasses.replace(
-            cfg, attention=dataclasses.replace(cfg.attention, block_kv=page_size)
-        )
+    if args.paged and args.page_size is not None \
+            and args.page_size != cfg.attention.block_kv:
+        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, block_kv=args.page_size))
     bundle = build(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = bundle.init(gen, dev)
@@ -83,7 +88,51 @@ def main(argv=None):
     prompts = rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32
     )
+    if args.paged:
+        return _serve_paged(args, bundle, params, prompts, dev)
+    return _serve_dense(args, bundle, params, prompts, dev)
 
+
+def _serve_dense(args, bundle, params, prompts, dev):
+    """Fused prefill, then ``gen - 1`` decode steps on the dense cache."""
+    import torch
+
+    from repro_torch.launch.steps import make_serve_step
+
+    max_len = args.max_len or (args.prompt_len + args.gen + 8)
+    cache = bundle.init_cache(args.batch, max_len, device=dev)
+    step = make_serve_step(bundle)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    logits, cache = bundle.prefill(
+        params, torch.from_numpy(prompts).to(dev), cache)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    generated = [tok.cpu()]                  # the readback ends the call
+    t_first = time.perf_counter() - t0
+    for i in range(args.prompt_len, args.prompt_len + args.gen - 1):
+        pos = torch.full((args.batch,), i, dtype=torch.int32, device=dev)
+        tok, _, cache = step(params, tok, pos, cache)
+        generated.append(tok.cpu())
+    dt = time.perf_counter() - t0
+    out = torch.stack(generated, dim=1).numpy()
+    n_steps = args.gen
+    print(f"[dense] {dev} generated {out.shape} tokens in {dt:.3f}s "
+          f"({1000 * dt / max(n_steps, 1):.1f} ms/step, "
+          f"{out.size / max(dt, 1e-9):.1f} tok/s wall-clock incl. first-call "
+          f"set-up), cache {max_len} rows {cache['k'].dtype}, "
+          f"TTFT {1000 * t_first:.1f} ms")
+    print("sample:", out[0][:16])
+    return out
+
+
+def _serve_paged(args, bundle, params, prompts, dev):
+    """The same workload through the paged-KV engine."""
+    import numpy as np
+
+    from repro_torch.runtime import ServeEngine
+
+    page_size = bundle.cfg.attention.block_kv
     total = args.prompt_len + args.gen
     num_pages = args.num_pages or math.ceil(total / page_size) * args.batch + 1
     eng = ServeEngine(

@@ -1,18 +1,28 @@
-"""GQA attention of the dense family, paged serving branches.
+"""GQA attention of the dense family: dense-cache and paged serving branches.
 
-Counterpart of the paged-prefill and paged-decode branches of
-``repro.models.attention.attention`` (raw pools).  Both write the step's
-K/V into the layer's page pool IN PLACE first and then attend through the
-page table with a kernel op - the pool is never gathered on the card:
+Counterpart of the cache branches of ``repro.models.attention.attention``
+(raw caches).  Every branch writes the step's K/V into the layer's cache
+IN PLACE first and then attends with a kernel op - a cache is never
+gathered, cast or copied on the card:
 
-  * prefill (``prefill_cache=True``): a prompt chunk per row at absolute
-    positions ``pos + [0, S)``; positions at or past ``prefill_len`` write
-    to the null page.  Queries keep the reference's full-head (B, H, S, D)
-    layout and attend at the chunk-exact convention with shift blocks ==
-    pages (``ops.pasa_paged_prefill``).
-  * decode: one token per row written at ``pos``; the grouped (B, KVH, G,
-    D) query attends over ``pos + 1`` positions at the ``shift_mask_valid``
-    convention (``ops.pasa_paged_decode``).
+  * dense prefill (``prefill_cache=True``, no page table): the prompt's
+    K/V go to cache rows ``[0, S)``; attention is over the fresh K/V,
+    causal, with the paper's GEMM shift (``ops.pasa_attention``: the shift
+    kernel, then the attention kernel).  The op takes whole blocks, so q,
+    k and v get zero rows up to the next multiple of ``block_kv`` and the
+    output is cut back to S rows - the reference pads K/V the same way
+    inside ``blocked_attention``, and under the causal mask no row below
+    S sees a pad column.
+  * dense decode: one token per row written at ``pos``; the grouped
+    (B, KVH, G, D) query attends over the cache with ``kv_len = pos + 1``
+    at the ``shift_mask_valid`` convention (``ops.pasa_decode``, reading
+    the cache through a strided view).
+  * paged prefill (``prefill_cache=True`` with a page table): a prompt
+    chunk per row at absolute positions ``pos + [0, S)``; positions at or
+    past ``prefill_len`` write to the null page.  Chunk-exact convention
+    with shift blocks == pages (``ops.pasa_paged_prefill``).
+  * paged decode: one token per row written at ``pos``, attending over
+    ``pos + 1`` positions (``ops.pasa_paged_decode``).
 
 The attention runs PASA at the policy and beta of ``cfg.attention`` (the
 paper's fp16 allocation by default).
@@ -23,6 +33,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import get_policy
@@ -36,15 +47,18 @@ def attention(
     p: dict,                      # one layer's attention params
     cfg: ModelConfig,
     *,
-    cache: dict,                  # {"k", "v": (P, page, kv_dim)} this layer
-    pos: torch.Tensor,            # (B,) write position / chunk start
-    page_table: torch.Tensor,     # (B, max_pages) int32
+    cache: dict,                  # {"k", "v"}: this layer's (B, max_len,
+                                  # kv_dim) dense cache or (P, page, kv_dim)
+                                  # page pool
+    pos: Optional[torch.Tensor] = None,   # (B,) write position / chunk
+                                          # start (None: dense prefill at 0)
+    page_table: Optional[torch.Tensor] = None,    # (B, max_pages) -> paged
     prefill_cache: bool = False,
     prefill_len: Optional[torch.Tensor] = None,   # (B,) valid KV after chunk
 ) -> torch.Tensor:
     cd = cfg.torch_compute_dtype()
     b, s, _ = x.shape
-    h, kvh, hd, g = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.group
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = x.to(cd)
 
     q = x @ p["wq"].to(cd)
@@ -59,22 +73,86 @@ def attention(
     v = v.reshape(b, s, kvh, hd)
 
     # RoPE at per-row absolute positions pos + [0, S)
+    if pos is None:
+        pos = torch.zeros(b, dtype=torch.int32, device=x.device)
+    pos = pos.to(torch.int32)
     cos, sin = rope_angles(pos, s, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
+    if page_table is not None:
+        out = _paged(q, k, v, cfg, cache, pos, page_table, prefill_cache,
+                     prefill_len)
+    elif prefill_cache:
+        out = _dense_prefill(q, k, v, cfg, cache)
+    else:
+        out = _dense_decode(q, k, v, cfg, cache, pos)
+    return out.to(cd) @ p["wo"].to(cd)
+
+
+def _dense_prefill(q, k, v, cfg: ModelConfig, cache: dict) -> torch.Tensor:
+    """Write rows [0, S) of the dense cache, then causal GEMM-shift PASA
+    over the fresh K/V.  q (B, S, H, hd), k/v (B, S, KVH, hd)."""
+    ac = cfg.attention
+    if not (ac.use_gemm_shift and ac.expand_kv):
+        raise NotImplementedError(
+            "the dense prefill is ported for use_gemm_shift=True, "
+            "expand_kv=True (the reference's defaults) only"
+        )
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    cache["k"][:, :s].copy_(k.reshape(b, s, kvh * hd))
+    cache["v"][:, :s].copy_(v.reshape(b, s, kvh * hd))
+    pad = (-s) % ac.block_kv
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    out = ops.pasa_attention(
+        q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1),
+        beta=ac.beta, policy=get_policy(ac.pasa_policy),
+        block_q=ac.block_kv, block_kv=ac.block_kv, causal=True,
+    )                                                  # (B, H, S_pad, hd)
+    return out[:, :, :s].movedim(1, 2).reshape(b, s, h * hd)
+
+
+def _dense_decode(q, k, v, cfg: ModelConfig, cache: dict,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """Write row ``pos`` of the dense cache, then decode over ``pos + 1``
+    rows.  q (B, 1, H, hd), k/v (B, 1, KVH, hd)."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    if s != 1:
+        raise ValueError(f"dense decode takes one token per row, got {s}")
+    ck, cv = cache["k"], cache["v"]
+    rows = torch.arange(b, device=q.device)
+    ck.index_put_((rows, pos.long()), k.reshape(b, kvh * hd).to(ck.dtype))
+    cv.index_put_((rows, pos.long()), v.reshape(b, kvh * hd).to(cv.dtype))
+    s2 = ck.shape[1]
+    out = ops.pasa_decode(
+        q.reshape(b, kvh, h // kvh, hd),
+        ck.view(b, s2, kvh, hd).transpose(1, 2),
+        cv.view(b, s2, kvh, hd).transpose(1, 2),
+        pos + 1, beta=cfg.attention.beta,
+        policy=get_policy(cfg.attention.pasa_policy),
+        block_kv=cfg.attention.block_kv,
+    )                                                  # (B, KVH, G, hd)
+    return out.reshape(b, 1, h * hd)
+
+
+def _paged(q, k, v, cfg: ModelConfig, cache: dict, pos, page_table,
+           prefill_cache: bool, prefill_len) -> torch.Tensor:
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
     ck, cv = cache["k"], cache["v"]
     n_pages, page = ck.shape[0], ck.shape[1]
     k_pages = ck.view(n_pages, page, kvh, hd)
     v_pages = cv.view(n_pages, page, kvh, hd)
     policy, beta = get_policy(cfg.attention.pasa_policy), cfg.attention.beta
-    pos = pos.to(torch.int32)
     if prefill_cache:
         if prefill_len is None:
             raise ValueError("paged prefill needs prefill_len")
         mp = page_table.shape[1]
         positions = pos[:, None] + torch.arange(
-            s, dtype=torch.int32, device=x.device
+            s, dtype=torch.int32, device=q.device
         )[None, :]                                     # (B, S)
         limit = prefill_len.to(torch.int32)
         valid = positions < limit[:, None]
@@ -90,18 +168,16 @@ def attention(
             q.movedim(2, 1), k_pages, v_pages, page_table, pos, limit,
             beta=beta, policy=policy,
         )                                              # (B, H, S, hd)
-        out = out.movedim(1, 2).reshape(b, s, h * hd)
-    else:
-        if s != 1:
-            raise ValueError(f"paged decode takes one token per row, got {s}")
-        rows = torch.arange(b, device=x.device)
-        phys = page_table[rows, (pos // page).long()].long()
-        slot = (pos % page).long()
-        ck.index_put_((phys, slot), k.reshape(b, kvh * hd).to(ck.dtype))
-        cv.index_put_((phys, slot), v.reshape(b, kvh * hd).to(cv.dtype))
-        out = ops.pasa_paged_decode(
-            q.reshape(b, kvh, g, hd), k_pages, v_pages, page_table, pos + 1,
-            beta=beta, policy=policy, block_kv=cfg.attention.block_kv,
-        )                                              # (B, KVH, G, hd)
-        out = out.reshape(b, 1, h * hd)
-    return out.to(cd) @ p["wo"].to(cd)
+        return out.movedim(1, 2).reshape(b, s, h * hd)
+    if s != 1:
+        raise ValueError(f"paged decode takes one token per row, got {s}")
+    rows = torch.arange(b, device=q.device)
+    phys = page_table[rows, (pos // page).long()].long()
+    slot = (pos % page).long()
+    ck.index_put_((phys, slot), k.reshape(b, kvh * hd).to(ck.dtype))
+    cv.index_put_((phys, slot), v.reshape(b, kvh * hd).to(cv.dtype))
+    out = ops.pasa_paged_decode(
+        q.reshape(b, kvh, h // kvh, hd), k_pages, v_pages, page_table,
+        pos + 1, beta=beta, policy=policy, block_kv=cfg.attention.block_kv,
+    )                                                  # (B, KVH, G, hd)
+    return out.reshape(b, 1, h * hd)

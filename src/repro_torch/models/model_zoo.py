@@ -1,8 +1,9 @@
 """build(cfg) -> ModelBundle (counterpart of ``repro.models.model_zoo``).
 
-Only the dense family's paged serving interface is ported: the engine
-needs ``init_paged_cache``, ``paged_serve_step`` and
-``paged_prefill_step``.
+Only the dense family's serving interfaces are ported: the dense route
+(``launch/serve.py``) needs ``init_cache``, ``serve_step`` and
+``prefill``; the paged engine ``init_paged_cache``, ``paged_serve_step``
+and ``paged_prefill_step``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,12 @@ class ModelBundle:
     cfg: ModelConfig
     #   (generator, device) -> params
     init: Callable[..., dict]
+    #   (batch, max_len, dtype=..., device=...) -> dense cache
+    init_cache: Callable[..., dict]
+    #   (params, token (B,), pos (B,), cache) -> (logits (B, V), cache)
+    serve_step: Callable[..., tuple]
+    #   (params, tokens (B, S), cache) -> (last-position logits (B, V), cache)
+    prefill: Callable[..., tuple]
     #   (num_pages, page_size, dtype=..., device=...) -> pool
     init_paged_cache: Callable[..., dict]
     #   (params, token (B,), pos (B,), pool, page_table (B, mp))
@@ -40,6 +47,13 @@ def build(cfg: ModelConfig) -> ModelBundle:
         init=lambda generator, device=None: convert.init_lm(
             cfg, generator, device
         ),
+        init_cache=lambda batch, max_len, dtype=torch.bfloat16, *, device: (
+            transformer.init_cache(cfg, batch, max_len, dtype, device=device)
+        ),
+        serve_step=lambda p, t, pos, c: transformer.serve_step(
+            p, cfg, t, pos, c
+        ),
+        prefill=lambda p, t, c: transformer.prefill_logits(p, cfg, t, c),
         init_paged_cache=lambda num_pages, page_size, dtype=torch.bfloat16, *,
         device: transformer.init_paged_cache(
             cfg, num_pages, page_size, dtype, device=device

@@ -1,0 +1,251 @@
+"""The contiguous-path attention ops of repro_torch.kernels - shift-KV, PASA
+attention and its FlashAttention-2 setting, contiguous decode - against
+the reference's ``repro.kernels`` Pallas kernels in interpret mode (and
+its oracles in ``repro.kernels.ref``), at the reference's own tolerances
+(tests/test_kernels.py).  On the CPU the port's ops run their plain
+PyTorch versions; tests/test_torch_cuda_kernels.py compares the CUDA
+kernels with those plain versions on a card.
+
+Inputs are drawn with numpy at explicit float32 and handed to both
+packages.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.kernels as RK
+from repro.core import FP16 as R_FP16
+from repro.core import FP16_FP32 as R_FP16_FP32
+from repro.core import FP32 as R_FP32
+from repro.kernels import ref as RREF
+from repro_torch.core.naive import naive_attention
+from repro_torch.core.precision import FP16, FP16_FP32, FP32
+from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import ops
+
+torch.set_num_threads(1)
+
+BETA = 0.984497
+I = dict(interpret=True)
+# tests/test_kernels.py: attention kernel vs oracle (non-causal, causal),
+# flash vs oracle, shift-KV vs oracle, decode vs oracle
+ATTN_TOL = dict(atol=8e-3, rtol=2e-2)
+CAUSAL_TOL = dict(atol=2e-3, rtol=2e-2)
+FLASH_TOL = dict(atol=2e-3, rtol=2e-2)
+SHIFT_ATOL = 1e-2
+DECODE_TOL = dict(atol=3e-3, rtol=3e-2)
+
+# (B, H, KVH, S, D, block_q, block_kv): two of test_kernels.py's SWEEP
+SWEEP = [(1, 2, 2, 128, 64, 64, 64), (2, 8, 4, 256, 64, 128, 128)]
+
+
+def _mk(seed, b, h, kvh, s, d, mean=0.0):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, h, s, d)) + mean).astype(np.float32)
+    k = (rng.standard_normal((b, kvh, s, d)) + mean).astype(np.float32)
+    v = rng.standard_normal((b, kvh, s, d)).astype(np.float32)
+    return q, k, v
+
+
+def _both(*arrays):
+    return ([jnp.asarray(a) for a in arrays],
+            [torch.from_numpy(a) for a in arrays])
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,h,kvh,s,d,bq,bkv", SWEEP)
+def test_pasa_attention_matches_reference_kernel(b, h, kvh, s, d, bq, bkv,
+                                                 causal):
+    # the reference's fixtures: mean 2 (non-causal), mean 1 (causal)
+    q, k, v = _mk(0, b, h, kvh, s, d, mean=1.0 if causal else 2.0)
+    (jq, jk, jv), (tq, tk, tv) = _both(q, k, v)
+    want = RK.pasa_attention(jq, jk, jv, beta=BETA, policy=R_FP16,
+                             block_q=bq, block_kv=bkv, causal=causal, **I)
+    got = ops.pasa_attention(tq, tk, tv, beta=BETA, policy=FP16, block_q=bq,
+                             block_kv=bkv, causal=causal)
+    assert got.dtype == torch.float16 and got.shape == (b, h, s, d)
+    np.testing.assert_allclose(_np(got), _np(want),
+                               **(CAUSAL_TOL if causal else ATTN_TOL))
+    oracle = RREF.attention_ref(jq, jk, jv, beta=BETA, policy=R_FP16,
+                                block_kv=bkv, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(oracle),
+                               **(CAUSAL_TOL if causal else ATTN_TOL))
+
+
+def test_pasa_attention_against_fp64_gold():
+    q, k, v = _mk(1, 1, 4, 4, 256, 64, mean=3.0)
+    got = ops.pasa_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                             beta=BETA, policy=FP16)
+    gold = naive_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                           dtype=torch.float64)
+    assert float((got.double() - gold).norm() / gold.norm()) < 0.02
+
+
+@pytest.mark.parametrize("pols", [(FP16, R_FP16), (FP16_FP32, R_FP16_FP32),
+                                  (FP32, R_FP32)],
+                         ids=["fp16", "fp16_fp32", "fp32"])
+def test_flash_attention_policies(pols):
+    pol, rpol = pols
+    q, k, v = _mk(2, 1, 4, 2, 256, 64)
+    (jq, jk, jv), (tq, tk, tv) = _both(q, k, v)
+    want = RK.flash_attention(jq, jk, jv, policy=rpol, **I)
+    got = flash_mod.flash_attention(tq, tk, tv, policy=pol)
+    np.testing.assert_allclose(_np(got), _np(want), **FLASH_TOL)
+
+
+def test_shift_kv_matches_reference_kernel():
+    rng = np.random.default_rng(3)
+    k = (rng.standard_normal((2, 4, 512, 64)) + 5.0).astype(np.float32)
+    want = RK.shift_kv(jnp.asarray(k), beta=BETA, block_kv=128,
+                       policy=R_FP16, **I)
+    got = ops.shift_kv(torch.from_numpy(k), beta=BETA, block_kv=128,
+                       policy=FP16)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(_np(got), _np(want), atol=SHIFT_ATOL)
+
+
+def _decode_case(kv_lens, seed=4, stale=0.0):
+    b, kvh, g, d, s2 = 2, 2, 4, 64, 512
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, kvh, g, d)) + 1.0).astype(np.float32)
+    k = (rng.standard_normal((b, kvh, s2, d)) + 2.0).astype(np.float32)
+    v = rng.standard_normal((b, kvh, s2, d)).astype(np.float32)
+    for i, n in enumerate(kv_lens):
+        k[i, :, n:] = stale
+        v[i, :, n:] = stale
+    return q, k, v, np.asarray(kv_lens, np.int32)
+
+
+@pytest.mark.parametrize("kv_lens", [[300, 77], [512, 512]])
+@pytest.mark.parametrize("beta", [0.0, 0.9375])
+def test_pasa_decode_matches_reference(kv_lens, beta):
+    q, k, v, kv_len = _decode_case(kv_lens)
+    (jq, jk, jv, jl), (tq, tk, tv, tl) = _both(q, k, v, kv_len)
+    got = ops.pasa_decode(tq, tk, tv, tl, beta=beta, policy=FP16,
+                          block_kv=128)
+    want = RK.pasa_decode(jq, jk, jv, jl, beta=beta, policy=R_FP16,
+                          block_kv=128, **I)
+    np.testing.assert_allclose(_np(got), _np(want), **DECODE_TOL)
+    oracle = RREF.decode_ref(jq.astype(jnp.float16), jk.astype(jnp.float16),
+                             jv.astype(jnp.float16), jl, beta=beta,
+                             policy=R_FP16, block_kv=128)
+    np.testing.assert_allclose(_np(got), _np(oracle), **DECODE_TOL)
+    for i, n in enumerate(kv_lens):
+        gold = naive_attention(tq[i:i + 1], tk[i:i + 1, :, :n],
+                               tv[i:i + 1, :, :n], dtype=torch.float64)
+        assert float((got[i:i + 1].double() - gold).norm() / gold.norm()) < 0.03
+
+
+def test_pasa_decode_default_block_and_stale_rows_are_inert():
+    """The op's default block (256, as the reference's) on the plain path,
+    and NaN past kv_len changing nothing, bit for bit."""
+    q, k, v, kv_len = _decode_case([300, 77])
+    zero = ops.pasa_decode(*(torch.from_numpy(x) for x in (q, k, v, kv_len)),
+                           beta=BETA)
+    q, k, v, kv_len = _decode_case([300, 77], stale=np.nan)
+    nan = ops.pasa_decode(*(torch.from_numpy(x) for x in (q, k, v, kv_len)),
+                          beta=BETA)
+    assert torch.isfinite(nan.float()).all()
+    assert torch.equal(zero, nan)
+
+
+def test_contiguous_decode_equals_paged_decode_bit_for_bit():
+    """The same rows as a contiguous cache and as a shuffled page pool
+    (page == block): the two plain versions agree bit for bit, as the two
+    CUDA kernels do (they share decode_block_update)."""
+    page, kvh, g, d = 16, 2, 3, 64
+    kv_lens = [70, 33, 1]
+    b, s2 = len(kv_lens), 80
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((b, kvh, g, d)).astype(np.float32))
+    kc = torch.from_numpy(
+        (rng.standard_normal((b, s2, kvh, d)) + 30.0).astype(np.float32)
+    ).to(torch.bfloat16)
+    vc = torch.from_numpy(
+        rng.standard_normal((b, s2, kvh, d)).astype(np.float32)
+    ).to(torch.bfloat16)
+    for i, n in enumerate(kv_lens):
+        kc[i, n:] = float("nan")
+        vc[i, n:] = float("nan")
+    n_pages = [math.ceil(n / page) for n in kv_lens]
+    ids = rng.permutation(np.arange(1, 1 + sum(n_pages)))
+    kp = torch.full((1 + sum(n_pages), page, kvh, d), float("nan"),
+                    dtype=torch.bfloat16)
+    vp = kp.clone()
+    table = torch.zeros((b, max(n_pages)), dtype=torch.int32)
+    nxt = 0
+    for i, npg in enumerate(n_pages):
+        for j in range(npg):
+            pid = int(ids[nxt])
+            nxt += 1
+            table[i, j] = pid
+            kp[pid] = kc[i, j * page:(j + 1) * page]
+            vp[pid] = vc[i, j * page:(j + 1) * page]
+    kv_len = torch.tensor(kv_lens, dtype=torch.int32)
+    for beta in (0.0, BETA):
+        contiguous = ops.pasa_decode(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                                     kv_len, beta=beta, block_kv=page)
+        paged = ops.pasa_paged_decode(q, kp, vp, table, kv_len, beta=beta)
+        assert torch.isfinite(contiguous.float()).all()
+        assert torch.equal(contiguous, paged)
+
+
+def test_shape_guards_raise_as_the_reference():
+    q = torch.zeros((1, 4, 100, 64), dtype=torch.float16)  # 100 % 128 != 0
+    k = torch.zeros((1, 2, 128, 64), dtype=torch.float16)
+    with pytest.raises(ValueError):
+        RK.pasa_attention(jnp.zeros((1, 4, 100, 64), jnp.float16),
+                          jnp.zeros((1, 2, 128, 64), jnp.float16),
+                          jnp.zeros((1, 2, 128, 64), jnp.float16), **I)
+    with pytest.raises(ValueError):
+        ops.pasa_attention(q, k, k)
+    with pytest.raises(ValueError):
+        ops.pasa_attention(torch.zeros((1, 3, 128, 64), dtype=torch.float16),
+                           k, k)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError):
+        ops.shift_kv(torch.zeros((1, 2, 100, 64)), block_kv=128)
+    with pytest.raises(ValueError):
+        ops.pasa_decode(torch.zeros((1, 3, 4, 64)), k, k,   # 3 kv heads vs 2
+                        torch.tensor([1], dtype=torch.int32))
+
+
+def test_overflow_headline_through_the_plain_versions():
+    """The paper's headline: inputs near 30 overflow the fp16 score store
+    of FlashAttention-2 (NaN), while PASA at the all-fp16 policy stays
+    finite - in both packages."""
+    rng = np.random.default_rng(6)
+    shape = (1, 2, 256, 128)
+    q, k, v = (rng.uniform(29.5, 30.5, shape).astype(np.float32)
+               for _ in range(3))
+    (jq, jk, jv), (tq, tk, tv) = _both(q, k, v)
+    bad = ops.flash_attention(tq, tk, tv, policy=FP16_FP32)
+    good = ops.pasa_attention(tq, tk, tv, beta=BETA, policy=FP16)
+    assert bool(torch.isnan(bad.float()).any())
+    assert bool(torch.isfinite(good.float()).all())
+    ref_bad = RK.flash_attention(jq, jk, jv, policy=R_FP16_FP32, **I)
+    assert bool(jnp.isnan(ref_bad).any())
+
+
+def test_launch_counters_stay_zero_on_the_cpu():
+    """The plain versions are not kernel launches."""
+    ops.reset_launches()
+    q, k, v = _mk(7, 1, 2, 2, 128, 64)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    ops.pasa_attention(*t)
+    ops.flash_attention(*t)
+    ops.shift_kv(t[1])
+    for name in ("shift_kv", "pasa_attention", "flash_attention",
+                 "pasa_decode", "pasa_paged_decode", "pasa_paged_prefill"):
+        assert getattr(ops, name).launches == 0

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: both kernels against their plain versions and
-the engine's bit contract at a small size.  Every test is marked ``cuda``
+"""The port on a CUDA card: every kernel against its plain version, the
+contiguous decode kernel bit for bit against the paged one, and both
+serving routes' contracts at a small size.  Every test is marked ``cuda``
 and skips without a card.  The file imports neither jax nor the reference
 package, so it runs where only PyTorch is installed:
 
@@ -17,8 +18,12 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.precision import FP16, FP16_FP32, FP32
 from repro_torch.kernels import ops
+from repro_torch.kernels import pasa_attention as amod
+from repro_torch.kernels import pasa_decode as cmod
 from repro_torch.kernels import pasa_paged_decode as dmod
 from repro_torch.kernels import pasa_paged_prefill as pmod
+from repro_torch.kernels import shift_kv as smod
+from repro_torch.launch.steps import make_serve_step
 from repro_torch.models.convert import init_lm
 from repro_torch.models.model_zoo import build
 from repro_torch.runtime import ServeEngine
@@ -28,6 +33,9 @@ BETA = 0.984497
 # prefill (tests/test_prefix_cache.py)
 DECODE_TOL = dict(atol=3e-3, rtol=3e-2)
 PREFILL_TOL = dict(atol=1e-2, rtol=3e-2)
+# tests/test_kernels.py: shift-KV, attention (causal / not), flash
+SHIFT_TOL = dict(atol=1e-2, rtol=0.0)
+ATTN_TOL = {True: dict(atol=2e-3, rtol=2e-2), False: dict(atol=8e-3, rtol=2e-2)}
 
 
 def _card() -> torch.device:
@@ -143,3 +151,133 @@ def test_engine_on_card_batched_equals_one_at_a_time():
         solo = alone.submit(p, 6)
         alone.run_to_completion()
         assert solo.generated == r.generated
+
+
+def _randn(rng, shape, mean, dev, dtype=torch.float16):
+    x = rng.standard_normal(shape).astype(np.float32) + mean
+    return torch.from_numpy(x).to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("policy", [FP16, FP16_FP32])
+def test_dense_kernels_match_plain_versions(policy, causal):
+    dev = _card()
+    rng = np.random.default_rng(9)
+    b, h, kvh, s, d = 2, 8, 4, 256, 128
+    # keys as the dense prefill holds them: bf16 (B, S, KVH, D), strided
+    k = _randn(rng, (b, s, kvh, d), 2.0, dev, torch.bfloat16).transpose(1, 2)
+    got = ops.shift_kv(k, beta=BETA, policy=policy)
+    m = smod.device_matrix(128, d, BETA, torch.float16, dev)
+    torch.testing.assert_close(
+        got.float(), smod.shift_kv_plain(m, k.half(), 128).float(), **SHIFT_TOL)
+
+    q = _randn(rng, (b, h, s, d), 0.0, dev)
+    v = _randn(rng, (b, kvh, s, d), 0.0, dev)
+    for beta in (BETA, 0.0):
+        fn = (ops.flash_attention if beta == 0.0 else
+              lambda *a, **kw: ops.pasa_attention(*a, beta=BETA, **kw))
+        got = fn(q, k, v, policy=policy, causal=causal)
+        want = amod.attention_plain(q, k, v, beta=beta, policy=policy,
+                                    block_kv=128, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **ATTN_TOL[causal])
+
+    kv_len = torch.tensor([300, 1], dtype=torch.int32, device=dev)
+    kc = _randn(rng, (b, 320, kvh, d), 2.0, dev, torch.bfloat16)
+    vc = _randn(rng, (b, 320, kvh, d), 0.0, dev, torch.bfloat16)
+    kc[0, 300:] = float("nan")
+    vc[1, 1:] = float("nan")
+    qd = _randn(rng, (b, kvh, 7, d), 0.0, dev)
+    got = ops.pasa_decode(qd, kc.transpose(1, 2), vc.transpose(1, 2), kv_len,
+                          beta=BETA, policy=policy, block_kv=128)
+    want = cmod.decode_plain(qd, kc.transpose(1, 2), vc.transpose(1, 2),
+                             kv_len, beta=BETA, policy=policy, block_kv=128)
+    torch.testing.assert_close(got.float(), want.float(), **DECODE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [64, 128])
+def test_contiguous_decode_equals_paged_decode_bit_for_bit(block):
+    dev = _card()
+    rng = np.random.default_rng(10)
+    kvh, g, d = 4, 7, 128
+    kv_lens = [300, block, 1]
+    kp, vp, table = _pool(rng, kv_lens, kvh, block, dev)
+    n = table.shape[1] * block
+    # the same rows laid out contiguously: (B, n, KVH, D), NaN past kv_len
+    kc = kp[table.long()].reshape(len(kv_lens), n, kvh, d)
+    vc = vp[table.long()].reshape(len(kv_lens), n, kvh, d)
+    q = _randn(rng, (len(kv_lens), kvh, g, d), 0.0, dev)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    for beta in (0.0, BETA):
+        paged = ops.pasa_paged_decode(q, kp, vp, table, kvl, beta=beta)
+        contiguous = ops.pasa_decode(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                                     kvl, beta=beta, block_kv=block)
+        assert torch.isfinite(contiguous.float()).all()
+        assert torch.equal(contiguous, paged)
+
+
+@pytest.mark.cuda
+def test_unsupported_dense_inputs_raise_before_any_launch():
+    dev = _card()
+    q = torch.zeros((1, 4, 128, 128), dtype=torch.float16, device=dev)
+    k = torch.zeros((1, 2, 128, 128), dtype=torch.float16, device=dev)
+    ops.reset_launches()
+    with pytest.raises(NotImplementedError):
+        ops.pasa_attention(q, k, k, policy=FP32)
+    q2, k2 = torch.cat([q, q], 2), torch.cat([k, k], 2)      # 256 rows
+    with pytest.raises(NotImplementedError):
+        ops.pasa_attention(q2, k2, k2, block_q=256, block_kv=256)
+    with pytest.raises(NotImplementedError):
+        ops.pasa_attention(q[..., :64], k[..., :64], k[..., :64])
+    with pytest.raises(ValueError):
+        ops.pasa_attention(q[:, :, :100], k, k)
+    qd = torch.zeros((1, 2, 2, 128), dtype=torch.float16, device=dev)
+    kvl = torch.tensor([5], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError):
+        ops.pasa_decode(qd, k, k, kvl)             # the default block 256
+    assert ops.shift_kv.launches == ops.pasa_attention.launches == 0
+    assert ops.pasa_decode.launches == 0
+
+
+@pytest.mark.cuda
+def test_dense_route_on_card_batched_equals_one_at_a_time():
+    """A two-layer dense model at head_dim 128 on the dense route: each
+    prefill call launches shift-KV and PASA attention once per layer, each
+    decode step the contiguous decode kernel once per layer, and every
+    prompt's stream in the batch equals its stream served alone."""
+    dev = _card()
+    base = get_config("qwen2-7b")
+    cfg = dataclasses.replace(
+        base, n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, head_dim=128,
+        d_ff=512, vocab_size=512,
+    )
+    bundle = build(cfg)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    step = make_serve_step(bundle)
+    rng = np.random.default_rng(11)
+    prompts = torch.from_numpy(rng.integers(0, 512, (3, 200), dtype=np.int32)
+                               ).to(dev)
+    gen = 6
+
+    def run(tokens):
+        b, s = tokens.shape
+        cache = bundle.init_cache(b, s + gen + 8, device=dev)
+        logits, cache = bundle.prefill(params, tokens, cache)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        out = [tok]
+        for i in range(s, s + gen - 1):
+            pos = torch.full((b,), i, dtype=torch.int32, device=dev)
+            tok, logits, cache = step(params, tok, pos, cache)
+            assert torch.isfinite(logits).all()
+            out.append(tok)
+        return torch.stack(out, 1)
+
+    ops.reset_launches()
+    streams = run(prompts)
+    assert ops.shift_kv.launches == ops.pasa_attention.launches == cfg.n_layers
+    assert ops.pasa_decode.launches == cfg.n_layers * (gen - 1)
+    assert ops.pasa_paged_decode.launches == ops.pasa_paged_prefill.launches == 0
+    for i in range(prompts.shape[0]):
+        assert torch.equal(run(prompts[i:i + 1])[0], streams[i])

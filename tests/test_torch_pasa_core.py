@@ -1,6 +1,7 @@
 """repro_torch.core.pasa.blocked_attention against the reference's, at the
 paged serving path's conventions (decode ``shift_mask_valid`` and prefill
-``chunk_exact``), across precision policies, and against fp64 gold.
+``chunk_exact``, both with the algebraic shift), at the default arguments
+(the paper's GEMM shift), across precision policies, and against fp64 gold.
 
 Inputs are drawn once with numpy at explicit float32 and handed to both
 packages (the suite runs JAX with 64-bit floats enabled)."""
@@ -74,7 +75,8 @@ def _run_decode(policy, beta, q, k, v, kv_len, block=16):
     got = pt_pasa.blocked_attention(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         beta=beta, policy=pt_prec.get_policy(policy), block_kv=block,
-        kv_len=torch.from_numpy(kv_len).reshape(b, 1), shift_mask_valid=True,
+        kv_len=torch.from_numpy(kv_len).reshape(b, 1), use_gemm_shift=False,
+        shift_mask_valid=True,
     )
     return np.asarray(ref, np.float64), got.double().numpy()
 
@@ -92,7 +94,8 @@ def _run_prefill(policy, beta, q, k, v, start, kv_len, block=16):
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         beta=beta, policy=pt_prec.get_policy(policy), block_kv=block,
         causal=True, kv_len=torch.from_numpy(kv_len).reshape(b, 1, 1),
-        q_offset=torch.from_numpy(start).reshape(b, 1, 1, 1), chunk_exact=True,
+        q_offset=torch.from_numpy(start).reshape(b, 1, 1, 1),
+        use_gemm_shift=False, chunk_exact=True,
     )
     return np.asarray(ref, np.float64), got.double().numpy()
 
@@ -163,6 +166,49 @@ def test_pasa_fp16_survives_keys_biased_to_30():
 
 
 def test_gemm_shift_is_not_ported():
-    x = torch.zeros((1, 4, 8), dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
-        pt_pasa.blocked_attention(x, x, x, beta=BETA, use_gemm_shift=True)
+    """The GEMM shift is not ported to the masked conventions - in neither
+    package: a fixed M cannot mask, so the default ``use_gemm_shift=True``
+    with ``shift_mask_valid`` or ``chunk_exact`` at beta > 0 raises the
+    same ValueError in both (at beta = 0 there is no shift to mask)."""
+    x = np.zeros((1, 4, 8), np.float32)
+    for kw in (dict(shift_mask_valid=True), dict(chunk_exact=True, causal=True)):
+        with pytest.raises(ValueError, match="algebraic shift") as ref_err:
+            ref_pasa.blocked_attention(jnp.asarray(x), jnp.asarray(x),
+                                       jnp.asarray(x), beta=BETA, **kw)
+        t = torch.from_numpy(x)
+        with pytest.raises(ValueError, match="algebraic shift") as got_err:
+            pt_pasa.blocked_attention(t, t, t, beta=BETA, **kw)
+        assert str(got_err.value) == str(ref_err.value)
+    t = torch.from_numpy(x)
+    out = pt_pasa.blocked_attention(t, t, t, beta=0.0, shift_mask_valid=True)
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("policy", ["fp16", "fp32", "f64"])
+def test_default_arguments_match_reference(policy, causal):
+    """One call with the default arguments - the paper's GEMM shift with
+    the invariance of the rounded M - in both packages, on an unaligned
+    key length (both pad it inside): within fp16 tolerance (the
+    reference's kernel-vs-oracle bars, tests/test_kernels.py), f64 to
+    1e-10."""
+    rng = np.random.default_rng(4)
+    q = (rng.standard_normal((2, 3, 40, 32)) + 1.0).astype(np.float32)
+    k = (rng.standard_normal((2, 3, 40, 32)) + 2.0).astype(np.float32)
+    v = rng.standard_normal((2, 3, 40, 32)).astype(np.float32)
+    kw = dict(beta=BETA, block_kv=16, causal=causal)
+    ref = np.asarray(ref_pasa.blocked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        policy=ref_prec.get_policy(policy), **kw), np.float64)
+    got = pt_pasa.blocked_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        policy=pt_prec.get_policy(policy), **kw).double().numpy()
+    if policy == "f64":
+        np.testing.assert_allclose(got, ref, atol=F64_ATOL, rtol=0)
+    else:
+        tol = dict(atol=2e-3, rtol=2e-2) if causal else dict(atol=8e-3, rtol=2e-2)
+        np.testing.assert_allclose(got, ref, **tol)
+    gold = np.asarray(naive_attention(
+        jnp.asarray(q, jnp.float64), jnp.asarray(k, jnp.float64),
+        jnp.asarray(v, jnp.float64), causal=causal, dtype=jnp.float64))
+    assert rmse(got, gold) < RMSE_MAX
