@@ -18,10 +18,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the PASA attention kernel (with its FlashAttention-2 setting and the
      paper's fp16 overflow headline) and the contiguous decode kernel
      (bit for bit against the paged one on the same rows);
+     The quantized mode of the two paged kernels follows: the decode and
+     prefill fixtures quantized per page to int8 and fp8_e4m3 codes with
+     scale/shift sidecars, each kernel against its plain version under
+     the fp16 and fp16_fp32 policies, relative RMSE against float64
+     attention on the unquantized K/V within the per-dtype bounds, and
+     NaN debris past kv_len and NaN sidecars on dead pages inert bit for
+     bit;
   3. the paged serving path: qwen2-7b at full width (28 layers, random
      weights) answers four requests through ServeEngine, with both paged
      kernels' launch counts checked per device call; the same requests
-     served one at a time must give identical streams;
+     served one at a time must give identical streams; then the same
+     serve from an int8 and from an fp8_e4m3 page pool (the quantized
+     kernels, 28 launches per call, batched == one-at-a-time streams);
   4. the dense serving path (the default route of launch/serve.py) with
      the same weights: four 1000-token prompts in one fused prefill, then
      greedy decode to 32 tokens each; shift-KV and PASA attention launch
@@ -72,6 +81,11 @@ ATTN_RMSE_MAX = 0.02
 # shift-KV's fp16 output vs the float64 algebraic shift: the rounding of
 # M's two entries and of the store, a few 1e-4 relative
 SHIFT_RMSE_MAX = 1e-2
+# quantized pools: relative RMSE vs float64 attention on the unquantized
+# K/V at the fp16_fp32 policy (tests/test_kv_quant.py RMSE_BOUND); at the
+# fp16 policy, within max(2 x the raw pool's RMSE, the bound)
+QUANT_DTYPES = ("int8", "fp8_e4m3")
+QUANT_RMSE_BOUND = {"int8": 0.03, "fp8_e4m3": 0.09}
 
 
 def _cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -154,6 +168,30 @@ def _gathered(pages, table, n):
     return flat.movedim(0, 1).to(torch.float64)
 
 
+def _decode_fixture(dev):
+    """The paged decode fixture: a shuffled bf16 pool of five sequences
+    (kv_len DECODE_KV_LENS, KVH 4, D 128, page 128, keys of mean 30, NaN
+    past kv_len); returns (rng, kp, vp, table, kv_len, gold_of)."""
+    import numpy as np
+    import torch
+
+    kvh, d, page = 4, 128, 128
+    rng = np.random.default_rng(1)
+    kp, vp, table = _paged_pool(rng, DECODE_KV_LENS, kvh, d, page, 30.0, 3, dev)
+    kv_len = torch.tensor(DECODE_KV_LENS, dtype=torch.int32, device=dev)
+
+    def gold_of(q):
+        golds = []
+        for i, n in enumerate(DECODE_KV_LENS):
+            kk = _gathered(kp, table[i], n)
+            vv = _gathered(vp, table[i], n)
+            s = q[i].double() @ kk.transpose(-1, -2) / math.sqrt(d)
+            golds.append(torch.softmax(s, -1) @ vv)
+        return torch.stack(golds)
+
+    return rng, kp, vp, table, kv_len, gold_of
+
+
 def check_decode(dev):
     import numpy as np
     import torch
@@ -164,20 +202,9 @@ def check_decode(dev):
 
     kvh, g, d, page = 4, 7, 128, 128
     b = len(DECODE_KV_LENS)
-    rng = np.random.default_rng(1)
-    kp, vp, table = _paged_pool(rng, DECODE_KV_LENS, kvh, d, page, 30.0, 3, dev)
-    kv_len = torch.tensor(DECODE_KV_LENS, dtype=torch.int32, device=dev)
+    rng, kp, vp, table, kv_len, gold_of = _decode_fixture(dev)
     plain_args = lambda *t: mod.paged_decode_plain(
         *t, beta=BETA, policy=FP16, block_kv=page)
-
-    def gold_of(q):
-        golds = []
-        for i, n in enumerate(DECODE_KV_LENS):
-            kk = _gathered(kp, table[i], n)
-            vv = _gathered(vp, table[i], n)
-            s = q[i].double() @ kk.transpose(-1, -2) / math.sqrt(d)
-            golds.append(torch.softmax(s, -1) @ vv)
-        return torch.stack(golds)
 
     stress = {}
     for q_mean in (1.0, 0.0):      # the held fixture last: timed below
@@ -245,8 +272,53 @@ def check_decode(dev):
     )
 
 
-def check_prefill(dev):
+# full chunks at 0 and 512, a ragged last chunk at 1024, one pad row
+PREFILL_ROWS = (list(PREFILL_STARTS) + [0], [512, 1024, 1024 + 300, 0])
+
+
+def _prefill_fixture(dev):
+    """The paged prefill fixture: 4 rows x 28 heads x 512 queries of mean
+    1 at PREFILL_ROWS, a shuffled bf16 pool (KVH 4, page 128, keys of mean
+    2, NaN past kv_len), the pad row's table all null; returns (q, kp, vp,
+    table, start, kv_len)."""
     import numpy as np
+    import torch
+
+    h, kvh, d, page, cs = 28, 4, 128, 128, PREFILL_CHUNK
+    starts, kv_lens = PREFILL_ROWS
+    rng = np.random.default_rng(2)
+    kp, vp, table = _paged_pool(rng, kv_lens, kvh, d, page, 2.0, 2, dev)
+    table[3] = 0                                   # pad row: all-null table
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    kv_len = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    q = torch.from_numpy(
+        rng.standard_normal((len(starts), h, cs, d)).astype(np.float32) + 1.0
+    ).to(device=dev, dtype=torch.float16)
+    return q, kp, vp, table, start, kv_len
+
+
+def _prefill_gold(q, kp, vp, table):
+    """float64 causal attention of the three live rows of the prefill
+    fixture over its bf16 K/V."""
+    import torch
+
+    starts, kv_lens = PREFILL_ROWS
+    _, h, cs, d = q.shape
+    g = h // kp.shape[2]
+    golds = []
+    for i in range(3):
+        n = kv_lens[i]
+        kk = _gathered(kp, table[i], n).repeat_interleave(g, 0)
+        vv = _gathered(vp, table[i], n).repeat_interleave(g, 0)
+        s = q[i].double() @ kk.transpose(-1, -2) / math.sqrt(d)
+        qpos = starts[i] + torch.arange(cs, device=q.device)[:, None]
+        s = s.masked_fill(qpos < torch.arange(n, device=q.device)[None, :],
+                          -math.inf)
+        golds.append(torch.softmax(s, -1) @ vv)
+    return torch.stack(golds)
+
+
+def check_prefill(dev):
     import torch
     import torch.nn.functional as F
 
@@ -254,18 +326,9 @@ def check_prefill(dev):
     from repro_torch.kernels import ops, pasa_paged_prefill as mod
 
     h, kvh, d, page, cs = 28, 4, 128, 128, PREFILL_CHUNK
-    starts = list(PREFILL_STARTS) + [0]
-    # full chunks at 0 and 512, a ragged last chunk at 1024, one pad row
-    kv_lens = [512, 1024, 1024 + 300, 0]
+    starts, kv_lens = PREFILL_ROWS
     b = len(starts)
-    rng = np.random.default_rng(2)
-    kp, vp, table = _paged_pool(rng, kv_lens, kvh, d, page, 2.0, 2, dev)
-    table[3] = 0                                   # pad row: all-null table
-    start = torch.tensor(starts, dtype=torch.int32, device=dev)
-    kv_len = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
-    q = torch.from_numpy(
-        rng.standard_normal((b, h, cs, d)).astype(np.float32) + 1.0
-    ).to(device=dev, dtype=torch.float16)
+    q, kp, vp, table, start, kv_len = _prefill_fixture(dev)
 
     got = ops.pasa_paged_prefill(q, kp, vp, table, start, kv_len, beta=BETA,
                                  policy=FP16)
@@ -279,16 +342,7 @@ def check_prefill(dev):
     err_cpu = float((got.cpu().float() - cpu.float()).abs().max())
     if got[3].abs().max() != 0:
         raise AssertionError("prefill pad row (kv_len 0) is not zero")
-    golds = []
-    for i in range(3):
-        n = kv_lens[i]
-        kk = _gathered(kp, table[i], n).repeat_interleave(h // kvh, 0)
-        vv = _gathered(vp, table[i], n).repeat_interleave(h // kvh, 0)
-        s = q[i].double() @ kk.transpose(-1, -2) / math.sqrt(d)
-        qpos = starts[i] + torch.arange(cs, device=dev)[:, None]
-        s = s.masked_fill(qpos < torch.arange(n, device=dev)[None, :], -math.inf)
-        golds.append(torch.softmax(s, -1) @ vv)
-    gold = torch.stack(golds)
+    gold = _prefill_gold(q, kp, vp, table)
     rmse = _rel_rmse(got[:3], gold)
     rmse_plain = _rel_rmse(plain[:3], gold)
     if not (rmse < RMSE_MAX and rmse_plain < RMSE_MAX):
@@ -322,14 +376,9 @@ def check_prefill(dev):
     lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
         q, kg, vg, attn_mask=mask[:, None]
     ), 10)
-    visible = 0
-    for s0, n in zip(starts, kv_lens):
-        if n > 0:
-            visible += sum(min(s0 + i + 1, n) for i in range(cs))
     live = sum(kv_lens)
     nbytes = (2 * live * kvh * d * 2 + 2 * q.numel() * 2
               + table.numel() * 4 + 2 * b * 4)
-    flops = 4 * d * h * visible
     return dict(
         name="pasa_paged_prefill", route="cuda",
         source="src/repro_torch/kernels/csrc/pasa_paged_prefill.cu",
@@ -337,8 +386,226 @@ def check_prefill(dev):
         max_abs_err=max_err, rmse=rmse, rmse_plain=rmse_plain,
         max_abs_err_cpu_plain=err_cpu,
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        **_bound(nbytes, _prefill_flops(h, d)),
+    )
+
+
+def _prefill_flops(h, d) -> int:
+    """Both GEMMs over the causally visible (query, key) pairs of the
+    prefill fixture's rows."""
+    visible = 0
+    for s0, n in zip(*PREFILL_ROWS):
+        if n > 0:
+            visible += sum(min(s0 + i + 1, n) for i in range(PREFILL_CHUNK))
+    return 4 * d * h * visible
+
+
+def _quantize_pool(kp, vp, table, kv_lens, dtype):
+    """Quantize a fixture's pool per page with the port's quantize_kv_page
+    (valid rows only; dead pages all invalid).  Returns (k codes, v codes,
+    sidecars, valid (P, page) bool)."""
+    import torch
+
+    from repro_torch.runtime.paged_cache import quantize_kv_page
+
+    page = kp.shape[1]
+    valid = torch.zeros(kp.shape[:2], dtype=torch.bool, device=kp.device)
+    tab = table.cpu().tolist()
+    for b, n in enumerate(kv_lens):
+        for j in range(math.ceil(n / page)):
+            valid[tab[b][j], :min(page, n - j * page)] = True
+    kq, ks, kh = quantize_kv_page(kp, valid, dtype)
+    vq, vs, vh = quantize_kv_page(vp, valid, dtype)
+    return kq, vq, dict(k_scale=ks, k_shift=kh, v_scale=vs, v_shift=vh), valid
+
+
+def _poison(kq, vq, quant, valid):
+    """The same pool with debris: codes past kv_len NaN (fp8) or 127
+    (int8), every sidecar of a page with no valid row NaN."""
+    import torch
+
+    bad = float("nan") if kq.dtype == torch.float8_e4m3fn else 127.0
+    stale = ~valid[..., None, None]
+    kq2, vq2 = (torch.where(stale, bad, x.float()).to(x.dtype) for x in (kq, vq))
+    dead = ~valid.any(1)
+    q2 = {}
+    for name, x in quant.items():
+        q2[name] = torch.where(dead.reshape((-1,) + (1,) * (x.dim() - 1)),
+                               float("nan"), x)
+    return kq2, vq2, q2
+
+
+def _mode_entry(name, per_dtype, keys):
+    """One entry for the quantized mode of a kernel in the ``kernels``
+    line: kernel, plain and library times all of the dtype whose kernel is
+    slower, the larger error and launch count of the two (each dtype's
+    numbers under ``by_dtype``).  The bound is the same for both: one byte
+    per code and the same sidecars."""
+    slower = max(per_dtype, key=lambda k: k["ms"])
+    entry = {key: slower[key] for key in keys}
+    entry["name"] = f"{name}/" + "|".join(QUANT_DTYPES)
+    for key in ("launches", "max_abs_err"):
+        entry[key] = max(k[key] for k in per_dtype)
+    entry["by_dtype"] = {
+        k["name"].partition("/")[2]: {key: k[key] for key in (
+            "launches", "max_abs_err", "ms", "plain_ms", "library_ms")}
+        for k in per_dtype}
+    return entry
+
+
+def _quant_mode_entry(name, dtype, held, ms, plain_ms, lib_ms, nbytes, flops):
+    return dict(
+        name=f"{name}/{dtype}", route="cuda",
+        source=f"src/repro_torch/kernels/csrc/{name}.cu",
+        replaces=("src/repro/kernels/pasa_paged_decode.py:196"
+                  if name == "pasa_paged_decode"
+                  else "src/repro/kernels/pasa_paged_prefill.py:368"),
+        max_abs_err=held["max_abs_err_fp16"], rmse=held["rmse_fp16"],
+        detail=held, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         **_bound(nbytes, flops),
     )
+
+
+def _check_quant_policies(name, run, plain_of, gold, raw_fp16, dtype, tol,
+                          rows=slice(None)):
+    """Kernel vs plain version on the card under fp16 and fp16_fp32, and
+    relative RMSE vs float64 attention on the unquantized K/V: within
+    the dtype's bound at fp16_fp32, within max(2 x the raw pool's RMSE,
+    the bound) at fp16."""
+    import torch
+
+    from repro_torch.core.precision import FP16, FP16_FP32
+
+    held = {}
+    bound = QUANT_RMSE_BOUND[dtype]
+    raw_rmse = _rel_rmse(raw_fp16[rows], gold)
+    for tag, policy in (("fp16_fp32", FP16_FP32), ("fp16", FP16)):
+        got, plain = run(policy), plain_of(policy)
+        torch.cuda.synchronize()
+        held[f"max_abs_err_{tag}"] = _close(f"{name}/{dtype} ({tag})", got,
+                                            plain, **tol)
+        rmse, rmse_plain = _rel_rmse(got[rows], gold), _rel_rmse(plain[rows], gold)
+        limit = bound if tag == "fp16_fp32" else max(2.0 * raw_rmse, bound)
+        if not (rmse <= limit and rmse_plain <= limit):
+            raise AssertionError(f"{name}/{dtype} ({tag}) RMSE {rmse:.4f} / "
+                                 f"plain {rmse_plain:.4f} > {limit:.4f}")
+        held[f"rmse_{tag}"] = rmse
+        held[f"rmse_plain_{tag}"] = rmse_plain
+    held["rmse_raw_pool_fp16"] = raw_rmse
+    return held, got
+
+
+def check_decode_quant(dev, dtype):
+    """The quantized mode of the paged decode kernel on the decode fixture
+    quantized per page (queries of mean 0)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import FP16
+    from repro_torch.kernels import ops, pasa_paged_decode as mod
+
+    kvh, g, d, page = 4, 7, 128, 128
+    b = len(DECODE_KV_LENS)
+    rng, kp, vp, table, kv_len, gold_of = _decode_fixture(dev)
+    q = torch.from_numpy(
+        rng.standard_normal((b, kvh, g, d)).astype(np.float32)
+    ).to(device=dev, dtype=torch.float16)
+    kq, vq, quant, valid = _quantize_pool(kp, vp, table, DECODE_KV_LENS, dtype)
+    run = lambda policy, kq=kq, vq=vq, quant=quant: ops.pasa_paged_decode(
+        q, kq, vq, table, kv_len, beta=BETA, policy=policy, **quant)
+    plain_of = lambda policy: mod.paged_decode_plain(
+        q, kq, vq, table, kv_len, beta=BETA, policy=policy, block_kv=page,
+        **quant)
+    raw = ops.pasa_paged_decode(q, kp, vp, table, kv_len, beta=BETA,
+                                policy=FP16)
+    held, got = _check_quant_policies("pasa_paged_decode", run, plain_of,
+                                      gold_of(q), raw, dtype, DECODE_TOL)
+    kq2, vq2, quant2 = _poison(kq, vq, quant, valid)
+    if not torch.equal(run(FP16, kq2, vq2, quant2), got):
+        raise AssertionError(f"pasa_paged_decode/{dtype}: debris past kv_len "
+                             f"or dead-page sidecars changed the output")
+    held["debris_inert"] = True
+
+    ms = _cuda_time_ms(lambda: run(FP16), 50)
+    plain_ms = _cuda_time_ms(lambda: plain_of(FP16), 3, warmup=1)
+    # yardstick: SDPA over the gathered, already dequantized K/V (neither
+    # the gather nor the dequantization is timed)
+    mp = table.shape[1]
+    kg, vg = (
+        torch.nan_to_num(mod._gather_dequant(
+            x, quant[f"{side}_scale"], quant[f"{side}_shift"], table,
+            torch.float16).reshape(b, mp * page, kvh, d).movedim(1, 2)
+        ).repeat_interleave(g, 1)
+        for side, x in (("k", kq), ("v", vq))
+    )
+    mask = (torch.arange(mp * page, device=dev)[None, :] < kv_len[:, None])
+    lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q.reshape(b, kvh * g, 1, d), kg, vg, attn_mask=mask[:, None, None, :]
+    ), 20)
+    live = sum(DECODE_KV_LENS)
+    live_pages = sum(math.ceil(n / page) for n in DECODE_KV_LENS)
+    nbytes = (2 * live * kvh * d                      # live K and V codes
+              + 2 * live_pages * kvh * (1 + d) * 4    # their sidecars
+              + 2 * q.numel() * 2 + table.numel() * 4 + b * 4)
+    return _quant_mode_entry("pasa_paged_decode", dtype, held, ms, plain_ms,
+                             lib_ms, nbytes, 4 * g * d * live * kvh)
+
+
+def check_prefill_quant(dev, dtype):
+    """The quantized mode of the paged prefill kernel on the prefill
+    fixture quantized per page."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import FP16
+    from repro_torch.kernels import ops, pasa_paged_prefill as mod
+    from repro_torch.kernels.pasa_paged_decode import _gather_dequant
+
+    h, kvh, d, page, cs = 28, 4, 128, 128, PREFILL_CHUNK
+    starts, kv_lens = PREFILL_ROWS
+    b = len(starts)
+    q, kp, vp, table, start, kv_len = _prefill_fixture(dev)
+    kq, vq, quant, valid = _quantize_pool(kp, vp, table, kv_lens, dtype)
+    run = lambda policy, kq=kq, vq=vq, quant=quant: ops.pasa_paged_prefill(
+        q, kq, vq, table, start, kv_len, beta=BETA, policy=policy, **quant)
+    plain_of = lambda policy: mod.paged_prefill_plain(
+        q, kq, vq, table, start, kv_len, beta=BETA, policy=policy, **quant)
+    raw = ops.pasa_paged_prefill(q, kp, vp, table, start, kv_len, beta=BETA,
+                                 policy=FP16)
+    held, got = _check_quant_policies(
+        "pasa_paged_prefill", run, plain_of, _prefill_gold(q, kp, vp, table),
+        raw, dtype, PREFILL_TOL, rows=slice(0, 3))
+    if got[3].abs().max() != 0:
+        raise AssertionError(f"pasa_paged_prefill/{dtype}: pad row not zero")
+    kq2, vq2, quant2 = _poison(kq, vq, quant, valid)
+    if not torch.equal(run(FP16, kq2, vq2, quant2), got):
+        raise AssertionError(f"pasa_paged_prefill/{dtype}: debris past kv_len "
+                             f"or dead-page sidecars changed the output")
+    held["debris_inert"] = True
+
+    ms = _cuda_time_ms(lambda: run(FP16), 20)
+    plain_ms = _cuda_time_ms(lambda: plain_of(FP16), 3, warmup=1)
+    mp = table.shape[1]
+    kg, vg = (
+        torch.nan_to_num(_gather_dequant(
+            x, quant[f"{side}_scale"], quant[f"{side}_shift"], table,
+            torch.float16).reshape(b, mp * page, kvh, d).movedim(1, 2)
+        ).repeat_interleave(h // kvh, 1)
+        for side, x in (("k", kq), ("v", vq))
+    )
+    col = torch.arange(mp * page, device=dev)
+    qpos = start[:, None] + torch.arange(cs, device=dev)[None, :]
+    mask = (col[None, None, :] <= qpos[:, :, None]) & (
+        col[None, None, :] < kv_len[:, None, None])
+    lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, kg, vg, attn_mask=mask[:, None]), 10)
+    live = sum(kv_lens)
+    live_pages = sum(math.ceil(n / page) for n in kv_lens)
+    nbytes = (2 * live * kvh * d + 2 * live_pages * kvh * (1 + d) * 4
+              + 2 * q.numel() * 2 + table.numel() * 4 + 2 * b * 4)
+    return _quant_mode_entry("pasa_paged_prefill", dtype, held, ms, plain_ms,
+                             lib_ms, nbytes, _prefill_flops(h, d))
 
 
 def _randn(rng, shape, mean, dev, dtype):
@@ -624,15 +891,16 @@ def build_model(dev):
     return bundle, params, time.perf_counter() - t0
 
 
-def serve(dev, bundle, params):
-    """qwen2-7b at full width through the engine; returns the report."""
+def serve(dev, bundle, params, cache_dtype="bf16"):
+    """qwen2-7b at full width through the engine from a ``cache_dtype``
+    page pool; returns the report."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.runtime import ServeEngine
+    from repro_torch.runtime import ServeEngine, paged_bytes
 
     cfg = bundle.cfg
     torch.cuda.reset_peak_memory_stats()
@@ -657,7 +925,7 @@ def serve(dev, bundle, params):
     kw = dict(max_batch=4, page_size=128, prefill_chunk=512, prefill_batch=4,
               num_pages=1 + sum(math.ceil((n + SERVE_GEN - 1) / 128)
                                 for n in SERVE_PROMPTS),
-              max_seq_len=total)
+              max_seq_len=total, cache_dtype=cache_dtype)
 
     def run(prompt_list):
         eng = ServeEngine(bundle, params, **kw)
@@ -679,16 +947,17 @@ def serve(dev, bundle, params):
     launches = {"pasa_paged_prefill": ops.pasa_paged_prefill.launches,
                 "pasa_paged_decode": ops.pasa_paged_decode.launches}
     n_layers = cfg.n_layers
-    if launches["pasa_paged_prefill"] != n_layers * eng.prefill_calls or \
-            launches["pasa_paged_decode"] != n_layers * eng.decode_calls:
+    n_prefill, n_decode = eng.prefill_calls, eng.decode_calls
+    if launches["pasa_paged_prefill"] != n_layers * n_prefill or \
+            launches["pasa_paged_decode"] != n_layers * n_decode:
         raise AssertionError(
-            f"launch counts {launches} != {n_layers} x "
-            f"({eng.prefill_calls} prefill, {eng.decode_calls} decode) calls"
+            f"{cache_dtype} pool: launch counts {launches} != {n_layers} x "
+            f"({n_prefill} prefill, {n_decode} decode) calls"
         )
-    if eng.prefill_calls == 0 or eng.decode_calls == 0:
+    if n_prefill == 0 or n_decode == 0:
         raise AssertionError("the serve made no prefill or no decode call")
     if not bool(torch.stack(finite).all()):
-        raise AssertionError("non-finite logits in the serve")
+        raise AssertionError(f"{cache_dtype} pool: non-finite logits")
     streams = [r.generated for r in reqs]
     for s in streams:
         if len(s) != SERVE_GEN or not all(0 <= t < cfg.vocab_size for t in s):
@@ -701,23 +970,26 @@ def serve(dev, bundle, params):
         for i in range(len(marks))
         if marks[i][2][0] == marks[i][1][0] and marks[i][2][1] > marks[i][1][1]
     ]
+    pool_bytes = paged_bytes(eng.pool)
+    del eng
     # one at a time: identical streams
     for p, want in zip(prompts, streams):
         _, (r,), _ = run([p])
         if r.generated != want:
             raise AssertionError(
-                f"batched vs one-at-a-time streams differ: {want} vs "
-                f"{r.generated}"
+                f"{cache_dtype} pool: batched vs one-at-a-time streams "
+                f"differ: {want} vs {r.generated}"
             )
     n_tok = sum(len(s) for s in streams)
     return dict(
         arch=cfg.arch_id, layers=n_layers, d_model=cfg.d_model,
-        prompts=list(SERVE_PROMPTS), gen=SERVE_GEN, steps=eng.steps,
-        prefill_calls=eng.prefill_calls, decode_calls=eng.decode_calls,
+        cache_dtype=cache_dtype, pool_bytes=pool_bytes,
+        prompts=list(SERVE_PROMPTS), gen=SERVE_GEN, steps=len(marks),
+        prefill_calls=n_prefill, decode_calls=n_decode,
         launches=launches, wall_s=wall, tok_per_s=n_tok / wall,
         ttft_ms=[1e3 * t for t in ttft],
         decode_ms_per_step=1e3 * sum(decode_only) / max(len(decode_only), 1),
-        peak_gb=peak / 1e9,
+        peak_gb=peak / 1e9, streams=streams,
     )
 
 
@@ -838,6 +1110,8 @@ def main() -> int:
 
     kernels = [check_decode(dev), check_prefill(dev), check_shift_kv(dev),
                check_attention(dev), check_contiguous_decode(dev)]
+    kernels += [check(dev, dtype) for dtype in QUANT_DTYPES
+                for check in (check_decode_quant, check_prefill_quant)]
     for k in kernels:
         extra = (f"; max abs diff vs the plain version on the CPU "
                  f"{k['max_abs_err_cpu_plain']:.3e}"
@@ -856,15 +1130,29 @@ def main() -> int:
     # before it and read just after
     rep = serve(dev, bundle, params)
     print("serve: " + json.dumps(rep))
+    reps = {"bf16": rep}
+    for dtype in QUANT_DTYPES:
+        rq = serve(dev, bundle, params, cache_dtype=dtype)
+        same = sum(a == b for sa, sb in zip(rq["streams"], rep["streams"])
+                   for a, b in zip(sa, sb))
+        rq["tokens_equal_to_bf16_serve"] = f"{same}/{SERVE_GEN * len(SERVE_PROMPTS)}"
+        rq["pool_bytes_vs_bf16"] = rq["pool_bytes"] / rep["pool_bytes"]
+        print(f"serve_{dtype}: " + json.dumps(rq))
+        reps[dtype] = rq
     rep_dense = serve_dense(dev, bundle, params)
     print("serve_dense: " + json.dumps(rep_dense))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:
-        paged = k["name"].startswith("pasa_paged_")
-        k["launches"] = (rep if paged else rep_dense)["launches"][k["name"]]
-    print(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                  for k in kernels]}))
+        name, _, dtype = k["name"].partition("/")
+        serve_rep = (reps[dtype or "bf16"] if name.startswith("pasa_paged_")
+                     else rep_dense)
+        k["launches"] = serve_rep["launches"][name]
+    line = [{key: k[key] for key in keys} for k in kernels if "/" not in k["name"]]
+    for name in ("pasa_paged_decode", "pasa_paged_prefill"):
+        line.append(_mode_entry(name, [k for k in kernels
+                                       if k["name"].startswith(name + "/")], keys))
+    print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

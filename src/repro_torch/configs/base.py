@@ -26,6 +26,11 @@ class AttentionConfig:
     # kernels map each query head to its kv head, with the same result.
     use_gemm_shift: bool = True
     expand_kv: bool = True
+    # Scale statistic of quantized KV pools (runtime/paged_cache.py
+    # quantize_kv_page): "absmax" (exact range, the attention-accuracy
+    # default) or "quantile" (clipped absmax: finer bulk resolution, worse
+    # attention on outlier-heavy pages).
+    kv_quant_scale: str = "absmax"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,24 @@
-"""Numerics core: precision policies, beta, blocked PASA attention."""
+"""Numerics core: precision policies, beta, blocked PASA attention,
+numerical-quality instruments."""
 
-from repro_torch.core.beta import DEFAULT_BETA, ideal_invariance
+from repro_torch.core.beta import (
+    DEFAULT_BETA,
+    PAPER_BETAS,
+    ideal_invariance,
+    invariance_rel_err,
+    optimal_beta,
+    practical_invariance,
+    solve_paper_betas,
+)
 from repro_torch.core.naive import naive_attention
+from repro_torch.core.numerics import (
+    FP16_MAX,
+    make_resonant_qk,
+    overflow_stats,
+    resonance_index,
+    rmse,
+    score_overflow_probe,
+)
 from repro_torch.core.pasa import (
     NEG_BIG,
     AttnState,
@@ -32,9 +49,12 @@ from repro_torch.core.shifting import (
 
 __all__ = [
     "AttnState", "BF16_FP32", "DEFAULT_BETA", "F64", "FP16", "FP16_FP32",
-    "FP32", "NEG_BIG", "POLICIES", "PrecisionPolicy", "blocked_attention",
-    "effective_invariance", "finalize_state", "flash_attention",
-    "get_policy", "ideal_invariance", "init_state", "naive_attention",
-    "pasa_attention", "reduce_dtype", "shift_kv_blocks",
-    "shift_kv_reference", "shifting_matrix", "update_state",
+    "FP16_MAX", "FP32", "NEG_BIG", "PAPER_BETAS", "POLICIES",
+    "PrecisionPolicy", "blocked_attention", "effective_invariance",
+    "finalize_state", "flash_attention", "get_policy", "ideal_invariance",
+    "init_state", "invariance_rel_err", "make_resonant_qk",
+    "naive_attention", "optimal_beta", "overflow_stats", "pasa_attention",
+    "practical_invariance", "reduce_dtype", "resonance_index", "rmse",
+    "score_overflow_probe", "shift_kv_blocks", "shift_kv_reference",
+    "shifting_matrix", "solve_paper_betas", "update_state",
 ]

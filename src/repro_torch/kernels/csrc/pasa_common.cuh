@@ -16,6 +16,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -61,6 +62,80 @@ __device__ __forceinline__ uint4 load8_half(const __nv_bfloat16* src) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) o[i] = to_half(in[i]);
   return out;
+}
+
+// Pool element types, as the paged ops' ``pool_kind`` launch argument
+// names them: raw values (fp16, bf16) or 8-bit codes (int8, fp8 e4m3).
+enum PoolKind : int { POOL_FP16 = 0, POOL_BF16 = 1, POOL_INT8 = 2, POOL_FP8 = 3 };
+
+template <typename T>
+constexpr bool kIsCode = false;
+template <>
+constexpr bool kIsCode<int8_t> = true;
+template <>
+constexpr bool kIsCode<__nv_fp8_e4m3> = true;
+
+// One 8-bit code -> fp32, exactly (e4m3 values are a subset of fp16's).
+__device__ __forceinline__ float code_to_float(int8_t c) { return (float)c; }
+__device__ __forceinline__ float code_to_float(__nv_fp8_e4m3 c) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(c.__x, __NV_E4M3)));
+}
+
+// The dequantization sidecars of one (page, kv-head) of an 8-bit pool,
+// staged in shared memory before the page's codes are converted: side 0
+// is K, side 1 is V.
+struct PageSidecars {
+  float shift[2][HEAD_DIM];
+  float scale[2];
+};
+
+struct SidecarPtrs {
+  const float* scale[2];  // (P, KVH)
+  const float* shift[2];  // (P, KVH, HEAD_DIM)
+};
+
+// Copy the sidecars of physical page `pid`, kv head `h` into Q (every
+// thread of the CTA takes part; callers sync after).  Called for live
+// pages only: a dead page's sidecars may be NaN and are never read.
+__device__ __forceinline__ void stage_sidecars(PageSidecars& Q,
+                                               const SidecarPtrs& sc, int pid,
+                                               int kv_heads, int h) {
+  const size_t ph = (size_t)pid * kv_heads + h;
+  for (int i = threadIdx.x; i < 2 * HEAD_DIM; i += blockDim.x) {
+    const int side = i / HEAD_DIM, d = i % HEAD_DIM;
+    Q.shift[side][d] = sc.shift[side][ph * HEAD_DIM + d];
+  }
+  if (threadIdx.x < 2) Q.scale[threadIdx.x] = sc.scale[threadIdx.x][ph];
+}
+
+// Eight consecutive codes (one 8-byte load) -> eight fp16 values
+// fp16(code * scale + shift[i]): the product and the sum each rounded in
+// fp32 (the _rn intrinsics keep -O3 from fusing them into an FMA), then
+// one rounding to fp16 - the plain version's arithmetic.
+template <typename CodeT>
+__device__ __forceinline__ uint4 load8_dequant(const CodeT* src, float scale,
+                                               const float* shift) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const CodeT* c = reinterpret_cast<const CodeT*>(&raw);
+  uint4 out;
+  __half* o = reinterpret_cast<__half*>(&out);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    o[i] = __float2half_rn(
+        __fadd_rn(__fmul_rn(code_to_float(c[i]), scale), shift[i]));
+  return out;
+}
+
+// Eight consecutive pool elements of row segment (side, column c8) as fp16:
+// raw pools convert, 8-bit pools dequantize with the staged sidecars.
+template <typename PoolT>
+__device__ __forceinline__ uint4 load_pool8(const PoolT* src, int side, int c8,
+                                            const PageSidecars& Q) {
+  if constexpr (kIsCode<PoolT>) {
+    return load8_dequant(src, Q.scale[side], &Q.shift[side][c8]);
+  } else {
+    return load8_half(src);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float x) {

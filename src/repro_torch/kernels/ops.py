@@ -11,8 +11,10 @@ shift kernel, counted in ``shift_kv.launches``).
 
 The reference's ``interpret`` and ``use_kernel`` switches have no
 counterpart: the plain versions live beside each kernel in its module.
-Quantized pools (the four sidecar arguments of the paged ops) are not
-ported yet and raise NotImplementedError.
+The paged ops take a quantized pool (int8 or float8_e4m3fn codes) with
+its four f32 sidecars ``k_scale``/``v_scale`` (P, KVH) and
+``k_shift``/``v_shift`` (P, KVH, D) - all four or none - and count its
+launches in the same counters as raw pools.
 """
 
 from __future__ import annotations
@@ -31,11 +33,23 @@ from repro_torch.kernels import pasa_paged_prefill as _prefill
 from repro_torch.kernels import shift_kv as _shift
 
 
-def _no_sidecars(*quant) -> None:
-    if any(x is not None for x in quant):
-        raise NotImplementedError(
-            "quantized (fp8/int8) pools are not ported to repro_torch yet"
-        )
+_QUANT_NAMES = ("k_scale", "k_shift", "v_scale", "v_shift")
+
+
+def _check_quant(k_pages: torch.Tensor, quant) -> dict:
+    """The all-or-none sidecar bundle, shapes checked (the reference's
+    ``_check_quant``); returns ``{name: tensor}``, empty for a raw pool."""
+    given = [x is not None for x in quant]
+    if not any(given):
+        return {}
+    if not all(given):
+        raise ValueError(f"quantized pool needs all of {_QUANT_NAMES}")
+    p, _, kvh, d = k_pages.shape
+    for name, x, want in zip(_QUANT_NAMES, quant,
+                             ((p, kvh), (p, kvh, d), (p, kvh), (p, kvh, d))):
+        if tuple(x.shape) != want:
+            raise ValueError(f"{name} shape {tuple(x.shape)} != {want}")
+    return dict(zip(_QUANT_NAMES, quant))
 
 
 def _check_pages(k_pages: torch.Tensor, v_pages: torch.Tensor) -> None:
@@ -46,23 +60,32 @@ def _check_pages(k_pages: torch.Tensor, v_pages: torch.Tensor) -> None:
         )
 
 
-def _cuda_inputs(q, k_pages, v_pages, ints, policy):
+def _cuda_inputs(q, k_pages, v_pages, ints, policy, quant):
     """Validate and normalize the kernel inputs: everything on q's CUDA
-    device, q at fp16, pools bf16/fp16 contiguous, index tensors int32
-    contiguous (small copies only; the pool is never copied)."""
+    device, q at fp16, pools contiguous - bf16/fp16 values without
+    sidecars, int8/fp8 codes with them (f32, contiguous) - index tensors
+    int32 contiguous (small copies only; the pool is never copied)."""
+    _decode.policy_scalars(0.0, policy, _decode.HEAD_DIM)  # policy check
     dev = q.device
     for name, x in (("k_pages", k_pages), ("v_pages", v_pages)) + tuple(
         ints.items()
-    ):
+    ) + tuple(quant.items()):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, q on {dev}")
-    if k_pages.dtype not in (torch.bfloat16, torch.float16) \
-            or v_pages.dtype != k_pages.dtype:
+    raw = (torch.bfloat16, torch.float16)
+    codes = (torch.int8, torch.float8_e4m3fn)
+    if v_pages.dtype != k_pages.dtype \
+            or k_pages.dtype not in (codes if quant else raw):
         raise NotImplementedError(
-            f"the CUDA kernels read bf16 or fp16 pools, got {k_pages.dtype}"
+            f"the CUDA kernels read bf16/fp16 pools without sidecars and "
+            f"int8/fp8_e4m3 pools with them, got {k_pages.dtype} "
+            f"{'with' if quant else 'without'} sidecars"
         )
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("page pools must be contiguous")
+    for name, x in quant.items():
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
     if q.shape[-1] != _decode.HEAD_DIM:
         raise NotImplementedError(
             f"the CUDA kernels are written for head_dim {_decode.HEAD_DIM}, "
@@ -104,11 +127,13 @@ def pasa_paged_decode(
     ``block_kv`` is the PASA shift-block length (default: the page size).
     The plain version shifts in blocks of ``block_kv`` over the gathered
     view, as the reference's attention layer does; the CUDA kernel shifts
-    per page and raises unless ``block_kv`` is the page size."""
+    per page and raises unless ``block_kv`` is the page size.  The four
+    sidecars select the quantized mode (codes dequantized at
+    ``policy.input_dtype``)."""
     if q.dim() != 4:
         raise ValueError("q must be (B, KVH, G, D)")
     _check_pages(k_pages, v_pages)
-    _no_sidecars(k_scale, k_shift, v_scale, v_shift)
+    quant = _check_quant(k_pages, (k_scale, k_shift, v_scale, v_shift))
     if q.shape[1] != k_pages.shape[2]:
         raise ValueError(
             f"q has {q.shape[1]} kv heads, the pages {k_pages.shape[2]}"
@@ -118,7 +143,7 @@ def pasa_paged_decode(
     if q.device.type == "cpu":
         return _decode.paged_decode_plain(
             q, k_pages, v_pages, page_table, kv_len,
-            beta=beta, policy=policy, block_kv=block_kv,
+            beta=beta, policy=policy, block_kv=block_kv, **quant,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no pasa_paged_decode for device {q.device}")
@@ -133,11 +158,11 @@ def pasa_paged_decode(
         )
     q, ints = _cuda_inputs(
         q, k_pages, v_pages,
-        {"page_table": page_table, "kv_len": kv_len}, policy,
+        {"page_table": page_table, "kv_len": kv_len}, policy, quant,
     )
     out = _decode.kernel_call(
         q, k_pages, v_pages, ints["page_table"], ints["kv_len"],
-        beta=beta, policy=policy,
+        beta=beta, policy=policy, quant=quant,
     )
     pasa_paged_decode.launches += 1
     return out
@@ -165,11 +190,11 @@ def pasa_paged_prefill(
 
     The chunk's K/V must already be written into its pages; the B rows may
     belong to different requests, and a pad row (``kv_len == 0``) emits
-    zeros."""
+    zeros.  The four sidecars select the quantized mode."""
     if q.dim() != 4:
         raise ValueError("q must be (B, H, CS, D)")
     _check_pages(k_pages, v_pages)
-    _no_sidecars(k_scale, k_shift, v_scale, v_shift)
+    quant = _check_quant(k_pages, (k_scale, k_shift, v_scale, v_shift))
     if q.shape[1] % k_pages.shape[2]:
         raise ValueError(
             f"q heads {q.shape[1]} not a multiple of kv heads "
@@ -178,7 +203,7 @@ def pasa_paged_prefill(
     if q.device.type == "cpu":
         return _prefill.paged_prefill_plain(
             q, k_pages, v_pages, page_table, chunk_start, kv_len,
-            beta=beta, policy=policy,
+            beta=beta, policy=policy, **quant,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no pasa_paged_prefill for device {q.device}")
@@ -191,11 +216,11 @@ def pasa_paged_prefill(
         q, k_pages, v_pages,
         {"page_table": page_table, "chunk_start": chunk_start,
          "kv_len": kv_len},
-        policy,
+        policy, quant,
     )
     out = _prefill.kernel_call(
         q, k_pages, v_pages, ints["page_table"], ints["chunk_start"],
-        ints["kv_len"], beta=beta, policy=policy,
+        ints["kv_len"], beta=beta, policy=policy, quant=quant,
     )
     pasa_paged_prefill.launches += 1
     return out

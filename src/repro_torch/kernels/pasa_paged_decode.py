@@ -4,16 +4,21 @@ Counterpart of ``repro.kernels.pasa_paged_decode``.
 
   * :func:`kernel_call` launches ``csrc/pasa_paged_decode.cu`` (one CTA
     per (sequence, kv-head), pages folded in order by the block update
-    the contiguous decode kernel will share; see the source's note).
+    the contiguous decode kernel shares; see the source's note).
   * :func:`paged_decode_plain` is the port of the reference's
-    ``paged_decode_xla``: a gather of the pages, then
+    ``paged_decode_xla``: a gather of the pages (dequantized for 8-bit
+    pools by :func:`_gather_dequant`), then
     :func:`repro_torch.core.pasa.blocked_attention` at the
     ``shift_mask_valid`` convention.  It is the kernel's oracle and the
     path every CPU tensor takes.
 
 Both compute one new token per sequence with the GQA group as rows: q
 (B, KVH, G, D) against pages (P, page, KVH, D) through a (B, max_pages)
-page table, ``kv_len`` (B,) valid positions per sequence.
+page table, ``kv_len`` (B,) valid positions per sequence.  Raw pools are
+bf16 or fp16; quantized pools (``runtime/paged_cache.py``) are int8 or
+float8_e4m3fn codes with per-(page, kv-head) sidecars ``scale`` (P, KVH)
+and ``shift`` (P, KVH, D), f32, dequantized as ``codes * scale + shift``
+in f32 and rounded once to the policy's input dtype.
 """
 
 from __future__ import annotations
@@ -29,11 +34,32 @@ from repro_torch.core.beta import ideal_invariance
 from repro_torch.core.pasa import blocked_attention
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels import _build
-from repro_torch.runtime.paged_cache import gather_pages
+from repro_torch.runtime.paged_cache import gather_pages, gather_pages_dequant
 
 HEAD_DIM = 128       # the head width the kernels are written for
 MAX_GROUP = 16       # query heads per kv head the decode kernel holds
 MAX_PAGE = 128       # rows per page the kernels hold in shared memory
+
+# The kernels' pool-kind launch argument (csrc/pasa_common.cuh PoolKind).
+POOL_KINDS = {torch.float16: 0, torch.bfloat16: 1, torch.int8: 2,
+              torch.float8_e4m3fn: 3}
+
+
+def _gather_dequant(pages: torch.Tensor, scale: Optional[torch.Tensor],
+                    shift: Optional[torch.Tensor], page_table: torch.Tensor,
+                    deq_dtype: torch.dtype) -> torch.Tensor:
+    """Page gather (+ dequantization when sidecars are given) to
+    (B, max_pages * page, KVH, D) at ``deq_dtype``.  The f32 values of
+    :func:`gather_pages_dequant` are the kernels' own (product and sum
+    rounded separately); one rounding to ``deq_dtype`` follows, as in the
+    kernels' loader, so the plain versions see the same values bit for
+    bit."""
+    if scale is None:
+        return gather_pages(pages, page_table).to(deq_dtype)
+    n, page, kvh, d = pages.shape
+    deq = gather_pages_dequant(pages.reshape(n, page, kvh * d), scale,
+                               shift.reshape(n, kvh * d), page_table)
+    return deq.reshape(*deq.shape[:2], kvh, d).to(deq_dtype)
 
 
 def paged_decode_plain(
@@ -46,13 +72,18 @@ def paged_decode_plain(
     beta: float,
     policy: PrecisionPolicy,
     block_kv: int,
+    k_scale: Optional[torch.Tensor] = None,   # (P, KVH) f32 } 8-bit pools:
+    k_shift: Optional[torch.Tensor] = None,   # (P, KVH, D)  } all four
+    v_scale: Optional[torch.Tensor] = None,
+    v_shift: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Gather-then-attend at the ``shift_mask_valid`` convention, with the
     shift computed in blocks of ``block_kv`` over the gathered view (the
     kernel's per-page shift equals it when ``block_kv`` is the page)."""
     b = q.shape[0]
-    ks = gather_pages(k_pages, page_table).to(policy.input_dtype).movedim(2, 1)
-    vs = gather_pages(v_pages, page_table).to(policy.input_dtype).movedim(2, 1)
+    dt = policy.input_dtype
+    ks = _gather_dequant(k_pages, k_scale, k_shift, page_table, dt).movedim(2, 1)
+    vs = _gather_dequant(v_pages, v_scale, v_shift, page_table, dt).movedim(2, 1)
     return blocked_attention(
         q.to(policy.input_dtype), ks, vs, beta=beta, policy=policy,
         block_kv=block_kv, causal=False, kv_len=kv_len.reshape(b, 1),
@@ -91,10 +122,19 @@ def policy_scalars(beta: float, policy: PrecisionPolicy, d: int,
     )
 
 
+def sidecar_ptrs(quant: Optional[dict]) -> list:
+    """Device pointers of (k_scale, k_shift, v_scale, v_shift); None for
+    a raw pool (the kernels never read them then)."""
+    if not quant:
+        return [None] * 4
+    return [quant[n].data_ptr()
+            for n in ("k_scale", "k_shift", "v_scale", "v_shift")]
+
+
 def _entry() -> ctypes._CFuncPtr:
     fn = _build.load("pasa_paged_decode").pasa_paged_decode_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
         + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -103,13 +143,14 @@ def _entry() -> ctypes._CFuncPtr:
 
 def kernel_call(
     q: torch.Tensor,           # (B, KVH, G, 128) fp16, contiguous
-    k_pages: torch.Tensor,     # (P, page, KVH, 128) bf16 or fp16, contiguous
-    v_pages: torch.Tensor,
+    k_pages: torch.Tensor,     # (P, page, KVH, 128) bf16/fp16 values or
+    v_pages: torch.Tensor,     #   int8/fp8 codes, contiguous
     page_table: torch.Tensor,  # (B, max_pages) int32, contiguous
     kv_len: torch.Tensor,      # (B,) int32
     *,
     beta: float,
     policy: PrecisionPolicy,
+    quant: Optional[dict] = None,   # 8-bit pools: the four f32 sidecars
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream.  Arguments are
     validated by :func:`repro_torch.kernels.ops.pasa_paged_decode`."""
@@ -118,9 +159,9 @@ def kernel_call(
     out = torch.empty_like(q)
     err = _entry()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        *sidecar_ptrs(quant),
         page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        b, kvh, g, page, page_table.shape[1],
-        int(k_pages.dtype == torch.bfloat16),
+        b, kvh, g, page, page_table.shape[1], POOL_KINDS[k_pages.dtype],
         *policy_scalars(beta, policy, d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -10,6 +10,11 @@ and profiles the device calls of both serving routes:
     1000 tokens in one fused prefill (``prefill_logits``), then decoded on
     the dense cache (``serve_step``) from kv 1001.
 
+``--kv-dtype int8`` or ``fp8_e4m3`` serves the paged route from a
+quantized page pool (the quantized mode of the paged kernels; the
+quantize-on-write and tail-page re-quantization ops land in "other");
+the dense route, which has no quantized cache, is then left out.
+
 The first prefill call and ``--decode-calls`` decode calls of each route
 run under ``torch.profiler`` (CPU + CUDA activities, after a warm-up of
 each).  For each call type it prints the wall time per call (timed once
@@ -19,6 +24,8 @@ of the unprofiled wall time, and writes the Chrome traces under ``--out``.
 
 Run on one card from the repository root:
   PYTHONPATH=src python -m repro_torch.launch.profile_steps --out build/profile
+  PYTHONPATH=src python -m repro_torch.launch.profile_steps --kv-dtype int8 \
+      --out build/profile_int8
 """
 
 from __future__ import annotations
@@ -112,6 +119,10 @@ def main(argv=None):
     ap.add_argument("--decode-calls", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--kv-dtype", default="bf16",
+                    choices=("bf16", "fp8_e4m3", "int8"),
+                    help="the paged route's pool dtype (a quantized one "
+                         "leaves the dense route out)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -130,7 +141,8 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPTS]
     n_pages = [math.ceil((n + args.decode_calls + 8) / PAGE) for n in PROMPTS]
-    pool = bundle.init_paged_cache(1 + sum(n_pages), PAGE, device=dev)
+    pool = bundle.init_paged_cache(1 + sum(n_pages), PAGE, args.kv_dtype,
+                                   device=dev)
     mp = max(n_pages)
     table = np.zeros((len(PROMPTS), mp), np.int32)
     nxt = 1
@@ -162,7 +174,8 @@ def main(argv=None):
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     report = {"arch": cfg.arch_id, "layers": cfg.n_layers,
-              "device": torch.cuda.get_device_name(0)}
+              "device": torch.cuda.get_device_name(0),
+              "kv_dtype": args.kv_dtype}
     report["prefill"] = _profile(call_prefill, 1, out / "trace_prefill.json")
     for c0 in range(CHUNK, max(PROMPTS), CHUNK):      # finish every prompt
         nxt_in = prefill_inputs(c0)
@@ -182,6 +195,9 @@ def main(argv=None):
                                 out / "trace_decode.json")
     report["decode"]["kv_len_at_first_call"] = kv_start
     del pool
+    if args.kv_dtype != "bf16":
+        print(json.dumps(report))
+        return report
 
     # the dense route: one fused prefill, then decode on the dense cache
     dense = rng.integers(0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT))

@@ -18,6 +18,8 @@ Examples (one H100, full-width qwen2-7b, random weights):
       --batch 4 --prompt-len 1000 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
       --paged --batch 4 --prompt-len 512 --gen 32 --prefill-chunk 512
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
+      --paged --kv-dtype int8 --batch 4 --prompt-len 512 --gen 32
 CPU smoke at the reduced config:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
       --reduced --batch 4 --prompt-len 16 --gen 8 --device cpu
@@ -58,13 +60,27 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-batch", type=int, default=None,
                     help="still-prefilling requests per prefill call "
                          "(default: --batch)")
+    ap.add_argument("--kv-dtype", default="bf16",
+                    choices=("bf16", "fp8_e4m3", "int8"),
+                    help="paged route: KV page pool storage dtype; "
+                         "fp8_e4m3/int8 store shift-centered 8-bit codes "
+                         "with per-page scale/shift sidecars")
+    ap.add_argument("--kv-quant-scale", default="absmax",
+                    choices=("absmax", "quantile"),
+                    help="quantized pools: the page scale statistic, absmax "
+                         "(exact range, the default) or quantile (clipped "
+                         "absmax: finer bulk resolution, worse attention "
+                         "on outlier-heavy pages)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.kv_dtype != "bf16" and not args.paged:
+        ap.error("--kv-dtype applies to the paged route (--paged)")
 
     import numpy as np
     import torch
@@ -81,6 +97,9 @@ def main(argv=None):
             and args.page_size != cfg.attention.block_kv:
         cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
             cfg.attention, block_kv=args.page_size))
+    if args.kv_quant_scale != cfg.attention.kv_quant_scale:
+        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, kv_quant_scale=args.kv_quant_scale))
     bundle = build(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = bundle.init(gen, dev)
@@ -139,6 +158,7 @@ def _serve_paged(args, bundle, params, prompts, dev):
         bundle, params, max_batch=args.batch, num_pages=num_pages,
         page_size=page_size, max_seq_len=total,
         prefill_chunk=args.prefill_chunk, prefill_batch=args.prefill_batch,
+        cache_dtype=args.kv_dtype,
     )
     reqs = [eng.submit(list(p), args.gen) for p in prompts]
     t0 = time.perf_counter()

@@ -24,6 +24,19 @@ gathered, cast or copied on the card:
   * paged decode: one token per row written at ``pos``, attending over
     ``pos + 1`` positions (``ops.pasa_paged_decode``).
 
+On a quantized pool (int8 / fp8_e4m3 codes with scale/shift sidecars,
+``runtime/paged_cache.py``) the writes quantize, as the reference's
+attention layer does with XLA ops (plain PyTorch ops here):
+
+  * prefill quantizes whole pages: the chunk is a page multiple starting
+    on a page boundary, so every page of it has all its valid rows in
+    hand, and its codes and sidecars are a function of the token prefix;
+    all-pad pages write to the null page;
+  * decode re-quantizes the tail page: dequantize it, splice the new row
+    in, quantize again over rows ``0..slot``;
+
+then the paged ops read the codes and dequantize in the kernels.
+
 The attention runs PASA at the policy and beta of ``cfg.attention`` (the
 paper's fp16 allocation by default).
 """
@@ -39,7 +52,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import get_policy
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, rope_angles
-from repro_torch.runtime.paged_cache import NULL_PAGE
+from repro_torch.runtime.paged_cache import (
+    NULL_PAGE,
+    dequantize_kv_page,
+    quantize_kv_page,
+)
 
 
 def attention(
@@ -49,7 +66,8 @@ def attention(
     *,
     cache: dict,                  # {"k", "v"}: this layer's (B, max_len,
                                   # kv_dim) dense cache or (P, page, kv_dim)
-                                  # page pool
+                                  # page pool (+ the sidecars of a
+                                  # quantized pool)
     pos: Optional[torch.Tensor] = None,   # (B,) write position / chunk
                                           # start (None: dense prefill at 0)
     page_table: Optional[torch.Tensor] = None,    # (B, max_pages) -> paged
@@ -147,6 +165,15 @@ def _paged(q, k, v, cfg: ModelConfig, cache: dict, pos, page_table,
     k_pages = ck.view(n_pages, page, kvh, hd)
     v_pages = cv.view(n_pages, page, kvh, hd)
     policy, beta = get_policy(cfg.attention.pasa_policy), cfg.attention.beta
+    quantized = "k_scale" in cache
+    sidecars = {}
+    if quantized:
+        sidecars = dict(
+            k_scale=cache["k_scale"],
+            k_shift=cache["k_shift"].view(n_pages, kvh, hd),
+            v_scale=cache["v_scale"],
+            v_shift=cache["v_shift"].view(n_pages, kvh, hd),
+        )
     if prefill_cache:
         if prefill_len is None:
             raise ValueError("paged prefill needs prefill_len")
@@ -156,17 +183,20 @@ def _paged(q, k, v, cfg: ModelConfig, cache: dict, pos, page_table,
         )[None, :]                                     # (B, S)
         limit = prefill_len.to(torch.int32)
         valid = positions < limit[:, None]
-        pidx = torch.clamp(positions // page, max=mp - 1).long()
-        slot = (positions % page).long()
-        phys = torch.gather(page_table.long(), 1, pidx)
-        # pad positions (past the real chunk) land in the null write sink
-        phys = torch.where(valid, phys, NULL_PAGE)
-        idx = (phys.reshape(-1), slot.reshape(-1))
-        ck.index_put_(idx, k.reshape(b * s, kvh * hd).to(ck.dtype))
-        cv.index_put_(idx, v.reshape(b * s, kvh * hd).to(cv.dtype))
+        if quantized:
+            _write_pages_quantized(k, v, cfg, cache, pos, page_table, valid)
+        else:
+            pidx = torch.clamp(positions // page, max=mp - 1).long()
+            slot = (positions % page).long()
+            phys = torch.gather(page_table.long(), 1, pidx)
+            # pad positions (past the real chunk) land in the null write sink
+            phys = torch.where(valid, phys, NULL_PAGE)
+            idx = (phys.reshape(-1), slot.reshape(-1))
+            ck.index_put_(idx, k.reshape(b * s, kvh * hd).to(ck.dtype))
+            cv.index_put_(idx, v.reshape(b * s, kvh * hd).to(cv.dtype))
         out = ops.pasa_paged_prefill(
             q.movedim(2, 1), k_pages, v_pages, page_table, pos, limit,
-            beta=beta, policy=policy,
+            beta=beta, policy=policy, **sidecars,
         )                                              # (B, H, S, hd)
         return out.movedim(1, 2).reshape(b, s, h * hd)
     if s != 1:
@@ -174,10 +204,74 @@ def _paged(q, k, v, cfg: ModelConfig, cache: dict, pos, page_table,
     rows = torch.arange(b, device=q.device)
     phys = page_table[rows, (pos // page).long()].long()
     slot = (pos % page).long()
-    ck.index_put_((phys, slot), k.reshape(b, kvh * hd).to(ck.dtype))
-    cv.index_put_((phys, slot), v.reshape(b, kvh * hd).to(cv.dtype))
+    if quantized:
+        _requantize_tail_pages(k, v, cfg, cache, phys, slot)
+    else:
+        ck.index_put_((phys, slot), k.reshape(b, kvh * hd).to(ck.dtype))
+        cv.index_put_((phys, slot), v.reshape(b, kvh * hd).to(cv.dtype))
     out = ops.pasa_paged_decode(
         q.reshape(b, kvh, h // kvh, hd), k_pages, v_pages, page_table,
         pos + 1, beta=beta, policy=policy, block_kv=cfg.attention.block_kv,
+        **sidecars,
     )                                                  # (B, KVH, G, hd)
     return out.reshape(b, 1, h * hd)
+
+
+def _write_pages_quantized(k, v, cfg: ModelConfig, cache: dict, pos,
+                           page_table, valid) -> None:
+    """Quantize a prefill chunk's K/V per page and write codes and
+    sidecars into the pool in place.  k/v (B, S, KVH, hd); valid (B, S).
+    The chunk start ``pos`` must be page-aligned (the engine's chunks are
+    page multiples starting from 0); it is a device tensor and is not
+    checked here."""
+    b, s, kvh, hd = k.shape
+    page = cache["k"].shape[1]
+    mp = page_table.shape[1]
+    if s % page:
+        raise ValueError(
+            f"quantized pool needs page-multiple chunks ({s} % {page})"
+        )
+    n_cp = s // page
+    validp = valid.reshape(b, n_cp, page)
+    page_idx = (pos[:, None] // page + torch.arange(
+        n_cp, dtype=torch.int32, device=k.device)[None, :]).long()
+    phys = torch.gather(page_table.long(), 1, torch.clamp(page_idx, max=mp - 1))
+    # all-pad pages (past the real chunk) land in the null write sink
+    phys = torch.where(validp.any(-1), phys, NULL_PAGE).reshape(-1)
+    for side, x in (("k", k), ("v", v)):
+        codes, scale, shift = quantize_kv_page(
+            x.float().reshape(b, n_cp, page, kvh, hd), validp,
+            cache[side].dtype, scale_mode=cfg.attention.kv_quant_scale,
+        )
+        cache[side].index_put_((phys,), codes.reshape(b * n_cp, page, kvh * hd))
+        cache[f"{side}_scale"].index_put_((phys,), scale.reshape(-1, kvh))
+        cache[f"{side}_shift"].index_put_((phys,), shift.reshape(-1, kvh * hd))
+
+
+def _requantize_tail_pages(k, v, cfg: ModelConfig, cache: dict, phys,
+                           slot) -> None:
+    """Append one decode row per sequence to its tail page ``phys`` at
+    ``slot``: dequantize the page, splice the row in, re-quantize over rows
+    0..slot and write codes and sidecars back in place.  Earlier rows of
+    the tail page are rounded again (bounded drift); full pages written by
+    prefill never pass through here.  k/v (B, 1, KVH, hd)."""
+    b, _, kvh, hd = k.shape
+    page = cache["k"].shape[1]
+    sl = torch.arange(page, device=k.device)[None, :]          # (1, page)
+    is_new = (sl == slot[:, None])[..., None, None]            # (B, page, 1, 1)
+    valid_rows = sl <= slot[:, None]                           # (B, page)
+    for side, x in (("k", k), ("v", v)):
+        codes, scale, shift = (cache[side], cache[f"{side}_scale"],
+                               cache[f"{side}_shift"])
+        old = dequantize_kv_page(
+            codes[phys].reshape(b, page, kvh, hd),
+            scale[phys], shift[phys].reshape(b, kvh, hd),
+        )
+        raw = torch.where(is_new, x.float().reshape(b, 1, kvh, hd), old)
+        qc, qs, qh = quantize_kv_page(
+            raw, valid_rows, codes.dtype,
+            scale_mode=cfg.attention.kv_quant_scale,
+        )
+        codes.index_put_((phys,), qc.reshape(b, page, kvh * hd))
+        scale.index_put_((phys,), qs)
+        shift.index_put_((phys,), qh.reshape(b, kvh * hd))

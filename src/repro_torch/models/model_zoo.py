@@ -28,7 +28,8 @@ class ModelBundle:
     serve_step: Callable[..., tuple]
     #   (params, tokens (B, S), cache) -> (last-position logits (B, V), cache)
     prefill: Callable[..., tuple]
-    #   (num_pages, page_size, dtype=..., device=...) -> pool
+    #   (num_pages, page_size, dtype=..., device=...) -> pool (a quantized
+    #   dtype adds the scale/shift sidecars)
     init_paged_cache: Callable[..., dict]
     #   (params, token (B,), pos (B,), pool, page_table (B, mp))
     #   -> (logits (B, V), pool)

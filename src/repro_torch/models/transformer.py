@@ -34,7 +34,7 @@ def _blocks(x, blocks: dict, cfg: ModelConfig, *, cache: dict, pos=None,
         lp = _layer(blocks, i)
         h = attn_mod.attention(
             L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["attn"], cfg,
-            cache={"k": cache["k"][i], "v": cache["v"][i]}, pos=pos,
+            cache={name: leaf[i] for name, leaf in cache.items()}, pos=pos,
             page_table=page_table, prefill_cache=prefill_cache,
             prefill_len=prefill_len,
         )
@@ -56,9 +56,12 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      dtype=torch.bfloat16, *, device) -> dict:
     """Physical page pool for all layers: (L, num_pages, page_size, kv_dim).
     Keep ``page_size == cfg.attention.block_kv`` (one page = one PASA
-    shift block; the CUDA decode kernel requires it)."""
+    shift block; the CUDA decode kernel requires it).  ``dtype`` may be a
+    quantized pool dtype ("fp8_e4m3", "int8"): the pool then carries the
+    per-(page, kv-head) scale/shift sidecars."""
     return init_paged_pool(
-        cfg.n_layers, num_pages, page_size, cfg.kv_dim, dtype, device=device
+        cfg.n_layers, num_pages, page_size, cfg.kv_dim, dtype,
+        n_kv_heads=cfg.n_kv_heads, device=device,
     )
 
 

@@ -46,6 +46,7 @@ from repro_torch.runtime.paged_cache import (
     NULL_PAGE,
     PageAllocator,
     paged_bytes,
+    pool_dtype_name,
     resolve_pool_dtype,
 )
 from repro_torch.runtime.scheduler import RequestView, get_scheduler
@@ -119,7 +120,10 @@ class ServeEngine:
     block); ``max_seq_len`` longest prompt + generation (sets the page-table
     width; default: the pool's capacity); ``prefill_chunk`` per-row chunk
     width, a multiple of ``page_size`` (default ``8 * page_size``);
-    ``cache_dtype`` pool dtype; ``scheduler`` a policy name or instance;
+    ``cache_dtype`` pool dtype, a torch dtype or one of ``"bf16"``,
+    ``"fp8_e4m3"``, ``"int8"`` (the last two store quantized pages with
+    sidecars; chunk starts stay page-aligned, as their page-granular
+    writes require); ``scheduler`` a policy name or instance;
     ``prefill_batch`` rows of the prefill call (default ``max_batch``).
 
     The engine runs on the device its parameters live on.
@@ -454,7 +458,7 @@ class ServeEngine:
             "live_pages": self.allocator.live_pages,
             "cache_bytes": paged_bytes(self.pool),
             "page_size": self.page_size,
-            "pool_dtype": str(self.cache_dtype).replace("torch.", ""),
+            "pool_dtype": pool_dtype_name(self.cache_dtype),
             "scheduler": self._policy.name,
             "prefill_batch": self.prefill_batch,
             "prefill_calls": self.prefill_calls,

@@ -1,6 +1,7 @@
-"""The port on a CUDA card: every kernel against its plain version, the
-contiguous decode kernel bit for bit against the paged one, and both
-serving routes' contracts at a small size.  Every test is marked ``cuda``
+"""The port on a CUDA card: every kernel against its plain version (the
+paged kernels in both modes: raw and quantized pools), the contiguous
+decode kernel bit for bit against the paged one, and both serving routes'
+contracts at a small size.  Every test is marked ``cuda``
 and skips without a card.  The file imports neither jax nor the reference
 package, so it runs where only PyTorch is installed:
 
@@ -26,7 +27,7 @@ from repro_torch.kernels import shift_kv as smod
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models.convert import init_lm
 from repro_torch.models.model_zoo import build
-from repro_torch.runtime import ServeEngine
+from repro_torch.runtime import ServeEngine, quantize_kv_page
 
 BETA = 0.984497
 # the reference's kernel-vs-oracle bars: decode (tests/test_paged.py),
@@ -116,6 +117,130 @@ def test_unsupported_inputs_raise_instead_of_falling_back():
     with pytest.raises(NotImplementedError):
         ops.pasa_paged_decode(q[..., :64], kp[..., :64].contiguous(),
                               vp[..., :64].contiguous(), table, kvl)
+
+
+def _quantized(kp, vp, table, seq_lens, dtype):
+    """The pool quantized per page by the port (valid rows only)."""
+    page = kp.shape[1]
+    valid = torch.zeros(kp.shape[:2], dtype=torch.bool, device=kp.device)
+    for b, n in enumerate(seq_lens):
+        for j in range(math.ceil(n / page)):
+            valid[int(table[b, j]), :min(page, n - j * page)] = True
+    kq, ks, kh = quantize_kv_page(kp, valid, dtype)
+    vq, vs, vh = quantize_kv_page(vp, valid, dtype)
+    return kq, vq, dict(k_scale=ks, k_shift=kh, v_scale=vs, v_shift=vh), valid
+
+
+@pytest.mark.cuda
+def test_quantized_pool_mode_raises_before_any_launch():
+    """A quantized call the kernels do not take raises, and nothing is
+    launched: an fp32 policy, sidecars with a raw pool, an 8-bit pool
+    without sidecars, a page over 128 rows."""
+    dev = _card()
+    rng = np.random.default_rng(12)
+    kp, vp, table = _pool(rng, [10], 4, 128, dev)
+    kq, vq, quant, _ = _quantized(kp, vp, table, [10], "int8")
+    q = torch.zeros((1, 4, 7, 128), dtype=torch.float16, device=dev)
+    qp = torch.zeros((1, 28, 16, 128), dtype=torch.float16, device=dev)
+    kvl = torch.tensor([10], dtype=torch.int32, device=dev)
+    st = torch.zeros(1, dtype=torch.int32, device=dev)
+    ops.reset_launches()
+    with pytest.raises(NotImplementedError):
+        ops.pasa_paged_decode(q, kq, vq, table, kvl, policy=FP32, **quant)
+    with pytest.raises(NotImplementedError):
+        ops.pasa_paged_prefill(qp, kq, vq, table, st, kvl, policy=FP32, **quant)
+    with pytest.raises(NotImplementedError):
+        ops.pasa_paged_decode(q, kp, vp, table, kvl, **quant)
+    with pytest.raises(NotImplementedError):
+        ops.pasa_paged_decode(q, kq, vq, table, kvl)
+    big = torch.zeros((2, 256, 4, 128), dtype=torch.int8, device=dev)
+    side = dict(k_scale=torch.ones(2, 4, device=dev),
+                k_shift=torch.zeros(2, 4, 128, device=dev))
+    side.update(v_scale=side["k_scale"], v_shift=side["k_shift"])
+    with pytest.raises(NotImplementedError):
+        ops.pasa_paged_decode(q, big, big, table[:, :1], kvl, block_kv=256,
+                              **side)
+    assert ops.pasa_paged_decode.launches == ops.pasa_paged_prefill.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("policy", [FP16, FP16_FP32])
+def test_quantized_kernels_match_plain_versions(policy, dtype):
+    """The quantized mode of both paged kernels against their plain
+    versions on the same codes and sidecars (a shuffled pool with keys of
+    mean 2, NaN past kv_len before quantization)."""
+    dev = _card()
+    rng = np.random.default_rng(13)
+    kvh, g, page = 4, 7, 128
+    kv_len = [300, page, 1]
+    kp, vp, table = _pool(rng, kv_len, kvh, page, dev)
+    kq, vq, quant, _ = _quantized(kp, vp, table, kv_len, dtype)
+    q = torch.from_numpy(
+        rng.standard_normal((3, kvh, g, 128)).astype(np.float32)
+    ).to(dev, torch.float16)
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    ops.reset_launches()
+    got = ops.pasa_paged_decode(q, kq, vq, table, kvl, beta=BETA,
+                                policy=policy, **quant)
+    want = dmod.paged_decode_plain(q, kq, vq, table, kvl, beta=BETA,
+                                   policy=policy, block_kv=page, **quant)
+    torch.testing.assert_close(got.float(), want.float(), **DECODE_TOL)
+
+    start, plen = [0, 128, 0], [128, 300, 0]
+    kp, vp, table = _pool(rng, plen, kvh, page, dev)
+    table[2] = 0
+    kq, vq, quant, _ = _quantized(kp, vp, table, plen, dtype)
+    q = torch.from_numpy(
+        rng.standard_normal((3, kvh * g, 200, 128)).astype(np.float32)
+    ).to(dev, torch.float16)
+    st = torch.tensor(start, dtype=torch.int32, device=dev)
+    pl = torch.tensor(plen, dtype=torch.int32, device=dev)
+    got = ops.pasa_paged_prefill(q, kq, vq, table, st, pl, beta=BETA,
+                                 policy=policy, **quant)
+    want = pmod.paged_prefill_plain(q, kq, vq, table, st, pl, beta=BETA,
+                                    policy=policy, **quant)
+    torch.testing.assert_close(got.float(), want.float(), **PREFILL_TOL)
+    assert not got[2].any()
+    assert ops.pasa_paged_decode.launches == ops.pasa_paged_prefill.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
+def test_quantized_debris_and_dead_sidecars_are_inert(dtype):
+    """Codes past kv_len set to NaN (fp8) or 127 (int8) and NaN sidecars
+    on every dead page change no bit of either kernel's output."""
+    dev = _card()
+    rng = np.random.default_rng(14)
+    kvh, g, page = 4, 7, 128
+    kv_len = [300, 1]
+    kp, vp, table = _pool(rng, kv_len, kvh, page, dev)
+    kq, vq, quant, valid = _quantized(kp, vp, table, kv_len, dtype)
+    bad = float("nan") if dtype == "fp8_e4m3" else 127.0
+    stale = ~valid[..., None, None]
+    kq2, vq2 = (torch.where(stale, bad, x.float()).to(x.dtype) for x in (kq, vq))
+    dead = ~valid.any(1)
+    quant2 = {n: torch.where(dead.reshape((-1,) + (1,) * (x.dim() - 1)),
+                             float("nan"), x) for n, x in quant.items()}
+    q = torch.from_numpy(
+        rng.standard_normal((2, kvh, g, 128)).astype(np.float32)
+    ).to(dev, torch.float16)
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    clean = ops.pasa_paged_decode(q, kq, vq, table, kvl, beta=BETA, **quant)
+    dirty = ops.pasa_paged_decode(q, kq2, vq2, table, kvl, beta=BETA, **quant2)
+    assert torch.isfinite(clean.float()).all()
+    assert torch.equal(clean, dirty)
+    qp = torch.from_numpy(
+        rng.standard_normal((2, kvh * g, 64, 128)).astype(np.float32)
+    ).to(dev, torch.float16)
+    st = torch.tensor([256, 0], dtype=torch.int32, device=dev)
+    pl = torch.tensor([300, 1], dtype=torch.int32, device=dev)
+    clean = ops.pasa_paged_prefill(qp, kq, vq, table, st, pl, beta=BETA,
+                                   **quant)
+    dirty = ops.pasa_paged_prefill(qp, kq2, vq2, table, st, pl, beta=BETA,
+                                   **quant2)
+    assert torch.isfinite(clean.float()).all()
+    assert torch.equal(clean, dirty)
 
 
 @pytest.mark.cuda

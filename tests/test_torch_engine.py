@@ -148,6 +148,8 @@ def test_pages_and_slots_are_released(served):
     assert st["live_pages"] == 0
     assert st["free_pages"] == ENGINE_KW["num_pages"] - 1
     assert st["prefill_calls"] > 0 and st["decode_calls"] > 0
+    # the reference's name of the pool dtype
+    assert st["pool_dtype"] == served["ref_eng"].stats()["pool_dtype"] == "bf16"
 
 
 def test_entry_points_need_cuda_or_explicit_cpu():

@@ -144,8 +144,18 @@ def test_stale_pages_are_inert():
 
 
 def test_unported_modes_raise():
+    """The quantized mode takes all four sidecars or none (the reference's
+    ``_check_quant``): three of four raise ValueError, in both ops."""
     q, k, v, table, kv_len = _t(*_decode_case())
     sc = torch.zeros(k.shape[0], k.shape[2])
-    with pytest.raises(NotImplementedError):
+    sh = torch.zeros(k.shape[0], k.shape[2], k.shape[3])
+    with pytest.raises(ValueError):
         ops.pasa_paged_decode(q, k, v, table, kv_len, k_scale=sc,
-                              k_shift=sc, v_scale=sc, v_shift=sc)
+                              k_shift=sh, v_scale=sc)
+    qp, kp, vp, tp, start, kvl = _t(*_prefill_case())
+    with pytest.raises(ValueError):
+        ops.pasa_paged_prefill(
+            qp, kp, vp, tp, start, kvl,
+            k_shift=torch.zeros(kp.shape[0], kp.shape[2], kp.shape[3]),
+            v_scale=torch.zeros(kp.shape[0], kp.shape[2]),
+            v_shift=torch.zeros(kp.shape[0], kp.shape[2], kp.shape[3]))
