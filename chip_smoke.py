@@ -17,7 +17,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      never calls).  The paged decode and prefill kernels, then shift-KV,
      the PASA attention kernel (with its FlashAttention-2 setting and the
      paper's fp16 overflow headline) and the contiguous decode kernel
-     (bit for bit against the paged one on the same rows);
+     (bit for bit against the paged one on the same rows); the paged
+     decode kernel is timed also at a paged serve's decode call (batch 4,
+     kv 1002/519/302/131) from each pool dtype;
      The quantized mode of the two paged kernels follows: the decode and
      prefill fixtures quantized per page to int8 and fp8_e4m3 codes with
      scale/shift sidecars, each kernel against its plain version under
@@ -62,6 +64,7 @@ PREFILL_STARTS = (0, 512, 1024)
 PREFILL_CHUNK = 512
 SERVE_PROMPTS = (1000, 517, 300, 129)
 SERVE_GEN = 32
+SERVE_DECODE_KV = (1002, 519, 302, 131)   # a paged serve decode call's kv
 DENSE_BATCH, DENSE_PROMPT = 4, 1000
 ATTN_SHAPE = (4, 28, 4, 1024, 128)   # B, H, KVH, S, D: the dense prefill's
 # tolerances of the reference's own kernel tests: decode kernel vs oracle
@@ -192,6 +195,44 @@ def _decode_fixture(dev):
     return rng, kp, vp, table, kv_len, gold_of
 
 
+def _serve_shape_decode(dev, dtype):
+    """The paged decode kernel at a paged serve's own decode call: batch 4,
+    kv SERVE_DECODE_KV, KVH 4, G 7, page 128, a shuffled pool of
+    ``dtype`` (bf16, or the bf16 pool quantized per page); kernel and
+    SDPA (on the gathered, dequantized K/V, not timed) ms."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import FP16
+    from repro_torch.kernels import ops, pasa_paged_decode as mod
+
+    kvh, g, d, page = 4, 7, 128, 128
+    b = len(SERVE_DECODE_KV)
+    rng = np.random.default_rng(6)
+    kp, vp, table = _paged_pool(rng, SERVE_DECODE_KV, kvh, d, page, 2.0, 3, dev)
+    kv_len = torch.tensor(SERVE_DECODE_KV, dtype=torch.int32, device=dev)
+    q = _randn(rng, (b, kvh, g, d), 0.0, dev, torch.float16)
+    quant = {}
+    if dtype != "bf16":
+        kp, vp, quant, _ = _quantize_pool(kp, vp, table, SERVE_DECODE_KV, dtype)
+    ms = _cuda_time_ms(lambda: ops.pasa_paged_decode(
+        q, kp, vp, table, kv_len, beta=BETA, policy=FP16, **quant), 50)
+    mp = table.shape[1]
+    kg, vg = (
+        torch.nan_to_num(mod._gather_dequant(
+            x, quant.get(f"{side}_scale"), quant.get(f"{side}_shift"), table,
+            torch.float16).reshape(b, mp * page, kvh, d).movedim(1, 2)
+        ).repeat_interleave(g, 1)
+        for side, x in (("k", kp), ("v", vp))
+    )
+    mask = (torch.arange(mp * page, device=dev)[None, :] < kv_len[:, None])
+    lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q.reshape(b, kvh * g, 1, d), kg, vg, attn_mask=mask[:, None, None, :]
+    ), 20)
+    return dict(serve_shape_ms=ms, serve_shape_library_ms=lib_ms)
+
+
 def check_decode(dev):
     import numpy as np
     import torch
@@ -268,7 +309,7 @@ def check_decode(dev):
         max_abs_err=max_err, rmse=rmse, rmse_plain=rmse_plain,
         max_abs_err_cpu_plain=err_cpu, stress=stress,
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        **_bound(nbytes, flops),
+        **_serve_shape_decode(dev, "bf16"), **_bound(nbytes, flops),
     )
 
 
@@ -548,8 +589,10 @@ def check_decode_quant(dev, dtype):
     nbytes = (2 * live * kvh * d                      # live K and V codes
               + 2 * live_pages * kvh * (1 + d) * 4    # their sidecars
               + 2 * q.numel() * 2 + table.numel() * 4 + b * 4)
-    return _quant_mode_entry("pasa_paged_decode", dtype, held, ms, plain_ms,
-                             lib_ms, nbytes, 4 * g * d * live * kvh)
+    entry = _quant_mode_entry("pasa_paged_decode", dtype, held, ms, plain_ms,
+                              lib_ms, nbytes, 4 * g * d * live * kvh)
+    entry.update(_serve_shape_decode(dev, dtype))
+    return entry
 
 
 def check_prefill_quant(dev, dtype):
@@ -1101,12 +1144,15 @@ def main() -> int:
     built = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)} "
           f"into {_build.build_dir()}")
+    # ptxas: each kernel instance's registers, stack and spills
     for name in _build.SOURCES:
         log = _build.library_path(name).with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}")
+                if "Compiling entry function" in line:
+                    print(f"  {name}: {line.split(chr(39))[1]}")
+                elif "registers" in line or "spill" in line:
+                    print(f"  {name}:   {line.strip()}")
 
     kernels = [check_decode(dev), check_prefill(dev), check_shift_kv(dev),
                check_attention(dev), check_contiguous_decode(dev)]
@@ -1116,6 +1162,9 @@ def main() -> int:
         extra = (f"; max abs diff vs the plain version on the CPU "
                  f"{k['max_abs_err_cpu_plain']:.3e}"
                  if "max_abs_err_cpu_plain" in k else "")
+        if "serve_shape_ms" in k:
+            extra += (f"; at the serve's decode shape {k['serve_shape_ms']:.4f}"
+                      f" ms, library {k['serve_shape_library_ms']:.4f} ms")
         print(f"{k['name']}: max_abs_err {k['max_abs_err']:.3e}, rmse "
               f"{k['rmse']:.2e}, {k['ms']:.4f} ms vs plain "
               f"{k['plain_ms']:.3f} ms, library {k['library_ms']:.4f} ms, "

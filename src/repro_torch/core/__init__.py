@@ -22,11 +22,16 @@ from repro_torch.core.numerics import (
 from repro_torch.core.pasa import (
     NEG_BIG,
     AttnState,
+    BlockedProblem,
+    BlockPartials,
+    block_partials,
     blocked_attention,
     finalize_state,
     flash_attention,
+    fold_partials,
     init_state,
     pasa_attention,
+    prepare_blocks,
     update_state,
 )
 from repro_torch.core.precision import (
@@ -48,13 +53,15 @@ from repro_torch.core.shifting import (
 )
 
 __all__ = [
-    "AttnState", "BF16_FP32", "DEFAULT_BETA", "F64", "FP16", "FP16_FP32",
-    "FP16_MAX", "FP32", "NEG_BIG", "PAPER_BETAS", "POLICIES",
-    "PrecisionPolicy", "blocked_attention", "effective_invariance",
-    "finalize_state", "flash_attention", "get_policy", "ideal_invariance",
-    "init_state", "invariance_rel_err", "make_resonant_qk",
-    "naive_attention", "optimal_beta", "overflow_stats", "pasa_attention",
-    "practical_invariance", "reduce_dtype", "resonance_index", "rmse",
-    "score_overflow_probe", "shift_kv_blocks", "shift_kv_reference",
-    "shifting_matrix", "solve_paper_betas", "update_state",
+    "AttnState", "BF16_FP32", "BlockPartials", "BlockedProblem",
+    "DEFAULT_BETA", "F64", "FP16", "FP16_FP32", "FP16_MAX", "FP32",
+    "NEG_BIG", "PAPER_BETAS", "POLICIES", "PrecisionPolicy",
+    "block_partials", "blocked_attention", "effective_invariance",
+    "finalize_state", "flash_attention", "fold_partials", "get_policy",
+    "ideal_invariance", "init_state", "invariance_rel_err",
+    "make_resonant_qk", "naive_attention", "optimal_beta", "overflow_stats",
+    "pasa_attention", "practical_invariance", "prepare_blocks",
+    "reduce_dtype", "resonance_index", "rmse", "score_overflow_probe",
+    "shift_kv_blocks", "shift_kv_reference", "shifting_matrix",
+    "solve_paper_betas", "update_state",
 ]

@@ -88,30 +88,38 @@ def _scalar(x: float, dtype, device) -> torch.Tensor:
     return torch.tensor(x, dtype=dtype, device=device)
 
 
-def update_state(
-    state: AttnState,
+@dataclasses.dataclass
+class BlockPartials:
+    """What one KV block contributes before the running state is read
+    (Algorithm 1 lines 11-13 and the block's P V of line 20).
+
+    sbar, m_loc, l_loc: (..., S1, 1) at ``stat_dtype`` (row pseudo-average,
+    local max, local sum); pv: (..., S1, D) at ``acc_dtype``; row_live:
+    (..., S1, 1) bool, rows with a live column (None without a mask).
+    Blocks can be reduced to partials in any order or in parallel; the
+    order-dependent F-bar recurrence lives in :func:`fold_partials` alone.
+    """
+
+    sbar: torch.Tensor
+    m_loc: torch.Tensor
+    l_loc: torch.Tensor
+    pv: torch.Tensor
+    row_live: Optional[torch.Tensor] = None
+
+
+def block_partials(
     q: torch.Tensor,
     k_shifted: torch.Tensor,
     v: torch.Tensor,
     *,
-    inva: float,
     policy: PrecisionPolicy,
     mask: Optional[torch.Tensor],
     post_scale: float = 1.0,
     sbar_over_mask: bool = False,
     sbar_mask: Optional[torch.Tensor] = None,
-    dead_rows_noop: bool = False,
-) -> AttnState:
-    """Fold one KV block into the running state (Algorithm 1 lines 11-20).
-
-    Same arguments and conventions as the reference's ``update_state``:
-    ``mask`` (..., S1, s2) is True where a query attends; the row
-    pseudo-average is over all columns, over ``mask`` (``sbar_over_mask``,
-    the decode convention) or over the row-uniform ``sbar_mask`` (the
-    chunk-exact convention, whose causal structure lives in ``mask`` only);
-    ``dead_rows_noop`` keeps rows with no live column bit-unchanged and
-    uncounted (needs a per-row ``cnt``).
-    """
+) -> BlockPartials:
+    """The state-free part of :func:`update_state`: scores, the row
+    pseudo-average, the local softmax statistics and P V of one block."""
     st = policy.stat_dtype
     gemm_t = _gemm_dtype(policy)
     dev = q.device
@@ -153,6 +161,41 @@ def update_state(
         p = torch.where(mask, p, _scalar(0.0, p.dtype, dev))
     l_loc = p.to(wide).sum(-1, keepdim=True).to(st)
 
+    # lines 19-20: zero v at invalid columns before the PV GEMM (p is 0
+    # there, but 0 * NaN = NaN inside the contraction).
+    if sbar_mask is not None:
+        v = torch.where(
+            sbar_mask.transpose(-1, -2), v, _scalar(0.0, v.dtype, dev)
+        )
+    elif sbar_over_mask and mask is not None:
+        col_live = mask.any(-2, keepdim=True)
+        v = torch.where(
+            col_live.transpose(-1, -2), v, _scalar(0.0, v.dtype, dev)
+        )
+    pv = torch.matmul(
+        p.to(gemm_t), v.to(p.dtype).to(gemm_t)
+    ).to(policy.acc_dtype)
+    row_live = None if mask is None else mask.any(-1, keepdim=True)
+    return BlockPartials(sbar=sbar, m_loc=m_loc, l_loc=l_loc, pv=pv,
+                         row_live=row_live)
+
+
+def fold_partials(
+    state: AttnState,
+    parts: BlockPartials,
+    *,
+    inva: float,
+    policy: PrecisionPolicy,
+    dead_rows_noop: bool = False,
+) -> AttnState:
+    """Fold one block's partials into the running state (Algorithm 1 lines
+    14-20): the online recovery of m, l, F-bar and the accumulator.
+    Folding every block's partials in block order performs the operations
+    of the sequential :func:`update_state` walk, so it gives the same bits."""
+    st = policy.stat_dtype
+    dev = state.m.device
+    sbar, m_loc = parts.sbar, parts.m_loc
+
     first = state.cnt == 0
     if inva != 0.0:
         # line 14: global pseudo-average F-bar (running mean of sbar).
@@ -176,36 +219,22 @@ def update_state(
     e_prev = torch.exp(cand_prev - m_new)
     e_cur = torch.exp(m_loc + dm_cur_c - m_new)
     # line 18: corrected running sum.
-    l_new = e_prev * state.l + e_cur * l_loc
-
-    # lines 19-20: zero v at invalid columns before the PV GEMM (p is 0
-    # there, but 0 * NaN = NaN inside the contraction), then accumulate.
-    if sbar_mask is not None:
-        v = torch.where(
-            sbar_mask.transpose(-1, -2), v, _scalar(0.0, v.dtype, dev)
-        )
-    elif sbar_over_mask and mask is not None:
-        col_live = mask.any(-2, keepdim=True)
-        v = torch.where(
-            col_live.transpose(-1, -2), v, _scalar(0.0, v.dtype, dev)
-        )
-    pv = torch.matmul(
-        p.to(gemm_t), v.to(p.dtype).to(gemm_t)
-    ).to(policy.acc_dtype)
+    l_new = e_prev * state.l + e_cur * parts.l_loc
+    # line 20: accumulate the block's P V.
     acc_new = (
         e_prev.to(policy.acc_dtype) * state.acc
-        + e_cur.to(policy.acc_dtype) * pv
+        + e_cur.to(policy.acc_dtype) * parts.pv
     )
 
     if dead_rows_noop:
-        if mask is None:
+        if parts.row_live is None:
             raise ValueError("dead_rows_noop needs a mask")
         if state.cnt.dim() == 0:
             raise ValueError(
                 "dead_rows_noop needs a per-row cnt "
                 "(init_state(per_row_cnt=True))"
             )
-        row_live = mask.any(-1, keepdim=True)
+        row_live = parts.row_live
         return AttnState(
             m=torch.where(row_live, m_new, state.m),
             l=torch.where(row_live, l_new, state.l),
@@ -214,6 +243,41 @@ def update_state(
             cnt=state.cnt + row_live.to(torch.int32),
         )
     return AttnState(m=m_new, l=l_new, acc=acc_new, f=f_new, cnt=state.cnt + 1)
+
+
+def update_state(
+    state: AttnState,
+    q: torch.Tensor,
+    k_shifted: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    inva: float,
+    policy: PrecisionPolicy,
+    mask: Optional[torch.Tensor],
+    post_scale: float = 1.0,
+    sbar_over_mask: bool = False,
+    sbar_mask: Optional[torch.Tensor] = None,
+    dead_rows_noop: bool = False,
+) -> AttnState:
+    """Fold one KV block into the running state (Algorithm 1 lines 11-20):
+    :func:`block_partials` then :func:`fold_partials`.
+
+    Same arguments and conventions as the reference's ``update_state``:
+    ``mask`` (..., S1, s2) is True where a query attends; the row
+    pseudo-average is over all columns, over ``mask`` (``sbar_over_mask``,
+    the decode convention) or over the row-uniform ``sbar_mask`` (the
+    chunk-exact convention, whose causal structure lives in ``mask`` only);
+    ``dead_rows_noop`` keeps rows with no live column bit-unchanged and
+    uncounted (needs a per-row ``cnt``).
+    """
+    if dead_rows_noop and mask is None:
+        raise ValueError("dead_rows_noop needs a mask")
+    parts = block_partials(
+        q, k_shifted, v, policy=policy, mask=mask, post_scale=post_scale,
+        sbar_over_mask=sbar_over_mask, sbar_mask=sbar_mask,
+    )
+    return fold_partials(state, parts, inva=inva, policy=policy,
+                         dead_rows_noop=dead_rows_noop)
 
 
 def finalize_state(state: AttnState, policy: PrecisionPolicy, *,
@@ -237,7 +301,59 @@ def _pad_to_multiple(x: torch.Tensor, block: int, dim: int):
     return torch.cat([x, x.new_zeros(shape)], dim=dim), n
 
 
-def blocked_attention(
+@dataclasses.dataclass
+class BlockedProblem:
+    """:func:`blocked_attention`'s inputs after the shift, cut into KV
+    blocks: what :func:`block_partials` / :func:`update_state` take for
+    block j is :meth:`block_args` (j)."""
+
+    q: torch.Tensor                  # (..., S1, D), broadcast to K's lead
+    kb: torch.Tensor                 # (..., n_blocks, block_kv, D) shifted
+    vb: torch.Tensor
+    inva: float
+    post_scale: float
+    causal: bool
+    need_mask: bool
+    shift_mask_valid: bool
+    chunk_exact: bool
+    q_pos: Optional[torch.Tensor]    # (..., S1, 1) under causal
+    limit_b: torch.Tensor            # valid-column limit, (..., 1, 1)
+
+    @property
+    def n_blocks(self) -> int:
+        return self.kb.shape[-3]
+
+    def init_state(self, policy: PrecisionPolicy) -> AttnState:
+        return init_state(self.q.shape[:-1], self.q.shape[-1], policy,
+                          per_row_cnt=self.chunk_exact, device=self.q.device)
+
+    def block_args(self, j: int) -> dict:
+        dev = self.q.device
+        s1, block_kv = self.q.shape[-2], self.kb.shape[-2]
+        mask = None
+        sbar_mask = None
+        if self.need_mask:
+            col = j * block_kv + torch.arange(
+                block_kv, dtype=torch.int32, device=dev
+            )
+            mask = torch.ones((s1, block_kv), dtype=torch.bool, device=dev)
+            if self.causal:
+                mask = self.q_pos >= col
+            col_ok = col < self.limit_b
+            mask = mask & col_ok
+            if self.chunk_exact:
+                # shift/sbar column set = valid columns (row-uniform); the
+                # causal structure lives only in the softmax mask
+                sbar_mask = col_ok
+        return dict(
+            q=self.q, k_shifted=self.kb[..., j, :, :],
+            v=self.vb[..., j, :, :], mask=mask, post_scale=self.post_scale,
+            sbar_over_mask=self.shift_mask_valid and not self.chunk_exact,
+            sbar_mask=sbar_mask,
+        )
+
+
+def prepare_blocks(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
@@ -251,23 +367,9 @@ def blocked_attention(
     use_gemm_shift: bool = True,
     shift_mask_valid: bool = False,
     chunk_exact: bool = False,
-) -> torch.Tensor:
-    """PASA (beta > 0) or FlashAttention-2 (beta == 0) over KV blocks.
-
-    Arguments as in the reference's ``blocked_attention``.
-    ``use_gemm_shift=True`` shifts K by the rounded shifting matrix M per
-    block (the paper's batched GEMM) and recovers with the invariance M
-    realizes (:func:`~repro_torch.core.shifting.effective_invariance`);
-    ``False`` is the algebraic ``(k - beta * blockmean) / sqrt(d)`` with
-    the ideal beta/(1-beta).  ``shift_mask_valid`` takes the block mean
-    and row pseudo-average over the valid (col < kv_len) columns only
-    (decode), and ``chunk_exact`` extends that to causal query chunks with
-    per-row dead-block no-ops (chunked prefill); both need the algebraic
-    shift when beta > 0 (a fixed M cannot mask) and raise ValueError with
-    the GEMM shift, as the reference does.
-
-    Returns (..., S1, D) at ``policy.out_dtype``.
-    """
+) -> BlockedProblem:
+    """The shift and the block cut of :func:`blocked_attention` (same
+    arguments); the blocks are then folded in order."""
     if not 0.0 <= beta < 1.0:
         raise ValueError(f"beta must be in [0, 1), got {beta}")
     if chunk_exact:
@@ -336,33 +438,57 @@ def blocked_attention(
         q_pos = qp[..., :, None]                         # (..., S1, 1)
 
     lead = torch.broadcast_shapes(q.shape[:-2], k.shape[:-2])
-    qs = q.expand(lead + q.shape[-2:])
-    state = init_state(
-        qs.shape[:-1], d, policy, per_row_cnt=chunk_exact, device=dev
+    return BlockedProblem(
+        q=q.expand(lead + q.shape[-2:]), kb=kb, vb=vb, inva=inva,
+        post_scale=post_scale, causal=causal, need_mask=need_mask,
+        shift_mask_valid=shift_mask_valid, chunk_exact=chunk_exact,
+        q_pos=q_pos, limit_b=limit_b,
     )
-    for j in range(n_blocks):
-        mask = None
-        sbar_mask = None
-        if need_mask:
-            col = j * block_kv + torch.arange(
-                block_kv, dtype=torch.int32, device=dev
-            )
-            mask = torch.ones((s1, block_kv), dtype=torch.bool, device=dev)
-            if causal:
-                mask = q_pos >= col
-            col_ok = col < limit_b
-            mask = mask & col_ok
-            if chunk_exact:
-                # shift/sbar column set = valid columns (row-uniform); the
-                # causal structure lives only in the softmax mask
-                sbar_mask = col_ok
+
+
+def blocked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    beta: float = 0.0,
+    policy: PrecisionPolicy = FP32,
+    block_kv: int = 128,
+    causal: bool = False,
+    kv_len: Optional[torch.Tensor] = None,
+    q_offset: Optional[torch.Tensor] = None,
+    use_gemm_shift: bool = True,
+    shift_mask_valid: bool = False,
+    chunk_exact: bool = False,
+) -> torch.Tensor:
+    """PASA (beta > 0) or FlashAttention-2 (beta == 0) over KV blocks.
+
+    Arguments as in the reference's ``blocked_attention``.
+    ``use_gemm_shift=True`` shifts K by the rounded shifting matrix M per
+    block (the paper's batched GEMM) and recovers with the invariance M
+    realizes (:func:`~repro_torch.core.shifting.effective_invariance`);
+    ``False`` is the algebraic ``(k - beta * blockmean) / sqrt(d)`` with
+    the ideal beta/(1-beta).  ``shift_mask_valid`` takes the block mean
+    and row pseudo-average over the valid (col < kv_len) columns only
+    (decode), and ``chunk_exact`` extends that to causal query chunks with
+    per-row dead-block no-ops (chunked prefill); both need the algebraic
+    shift when beta > 0 (a fixed M cannot mask) and raise ValueError with
+    the GEMM shift, as the reference does.
+
+    Returns (..., S1, D) at ``policy.out_dtype``.
+    """
+    prob = prepare_blocks(
+        q, k, v, beta=beta, policy=policy, block_kv=block_kv, causal=causal,
+        kv_len=kv_len, q_offset=q_offset, use_gemm_shift=use_gemm_shift,
+        shift_mask_valid=shift_mask_valid, chunk_exact=chunk_exact,
+    )
+    state = prob.init_state(policy)
+    for j in range(prob.n_blocks):
         state = update_state(
-            state, qs, kb[..., j, :, :], vb[..., j, :, :], inva=inva,
-            policy=policy, mask=mask, post_scale=post_scale,
-            sbar_over_mask=shift_mask_valid and not chunk_exact,
-            sbar_mask=sbar_mask, dead_rows_noop=chunk_exact,
+            state, **prob.block_args(j), inva=prob.inva, policy=policy,
+            dead_rows_noop=prob.chunk_exact,
         )
-    return finalize_state(state, policy, zero_empty_rows=chunk_exact)
+    return finalize_state(state, policy, zero_empty_rows=prob.chunk_exact)
 
 
 def pasa_attention(q, k, v, *, beta: float = DEFAULT_BETA,

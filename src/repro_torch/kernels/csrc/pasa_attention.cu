@@ -12,213 +12,614 @@
 // walks the key tiles IN ORDER - the F-bar recurrence is order-dependent
 // - keeping m, l, F-bar and the accumulator at the policy's dtypes and
 // ONE block count for the whole tile.  Per key tile:
-//   1. S = Q K'^T on the tensor cores, stored at fp16 (the paper's
-//      overflow point); at beta = 0 the 1/sqrt(d) scale follows the store
-//      (FlashAttention-2, Eq. 2), so raw fp16 overflow is reproduced;
+//   1. S = Q K'^T, stored at fp16 (the paper's overflow point); at
+//      beta = 0 the 1/sqrt(d) scale follows the store (FlashAttention-2,
+//      Eq. 2), so raw fp16 overflow is reproduced;
 //   2. the row pseudo-average over ALL block_kv columns (the shift used
 //      them all), an fp32 sum rounded once to the statistic dtype;
 //   3. only then the causal mask; a tile wholly above the diagonal
 //      ((i+1) * block_q - 1 < j * block_kv) is skipped and not counted;
-//   4. the online recovery (row_update of pasa_common.cuh) and P V on the
-//      tensor cores folded into the accumulator.
+//   4. the online recovery (row_update of pasa_common.cuh), and P V into
+//      a FRESH fp32 sum, rounded to the accumulator dtype before it is
+//      folded into the accumulator (acc_update), as the reference rounds
+//      pv before combining - the fp16 policy depends on it.
 // With inva = 0 and beta = 0 it is the FlashAttention-2 baseline.
 //
 // What bounds it on an H100: operations.  The two GEMMs are 4 x S1 x S2 x
 // 128 flops per head (halved by the causal skip) against q, K', V and O
-// read or written once - at S = 1024 that is ~250 flops per byte on
-// bytes that fit in L2.  The tensor cores (WMMA m16n16k16, fp16 in, fp32
-// sum) do both GEMMs; the per-row softmax steps, which the fp16 policy
-// must round one at a time, run on the CUDA cores, one warp per row.  It
-// is the simple version: no TMA or wgmma, no pipelining of the next key
-// tile behind the current tile's math, one CTA per SM at ~205 KB of
-// shared memory.
+// read or written once - at S = 1024 that is ~250 flops per byte on bytes
+// that fit in L2; and beside the GEMMs, the fp16 policy's per-element
+// softmax steps (each rounded on its own) on the CUDA cores.  The design
+// is Hopper's flash-attention shape:
+//   * a CTA is one producer warpgroup and block_q / 64 consumer
+//     warpgroups of 64 query rows each (setmaxnreg moves the producer's
+//     registers to the consumers);
+//   * the producer's one thread loads Q once, and K'/V tiles into a ring
+//     of two stages, by TMA (tensor maps from the strides, 128-byte
+//     swizzle) with mbarriers: the next tile arrives while the current
+//     one is computed;
+//   * both GEMMs are wgmma (m64n{block_kv}k16 for S from shared memory,
+//     m64n128k16 for P V with P as the register operand and V read
+//     MN-major); S stays in registers, 64 per thread, and each row's
+//     statistics are reduced over the 4 threads that hold it; row_update
+//     runs redundantly in those 4 threads;
+//   * under the all-fp16 policy the per-element softmax and accumulator
+//     steps, which bound the kernel beside the tensor cores, run on fp16
+//     pairs with the same bits (see "fp16 pairs" below);
+//   * the longest causal query tiles are issued first.
 
-#include <mma.h>
+#include <cuda.h>
 
 #include "pasa_common.cuh"
 
 namespace pasa {
 
-constexpr int AT_MAX_BQ = 128;
-constexpr int AT_MAX_BKV = 128;
-constexpr int AT_THREADS = 256;                 // 8 warps
-constexpr int AT_WARPS = AT_THREADS / 32;
-constexpr int AT_LDH = HEAD_DIM + 8;            // fp16 row stride (272 B)
-constexpr int AT_LDF = HEAD_DIM + 4;            // fp32 row stride
-constexpr int AT_ACC = AT_MAX_BQ * HEAD_DIM / AT_THREADS;  // acc per thread
+constexpr int AT_STAGES = 2;                  // K'/V ring depth
+constexpr int AT_HALF_BYTES = 64 * 2;         // one 64-column half-row, fp16
 
-struct AttnSmem {
-  __half q[AT_MAX_BQ][AT_LDH];
-  __half k[AT_MAX_BKV][AT_LDH];
-  __half v[AT_MAX_BKV][AT_LDH];
-  __half p[AT_MAX_BQ][AT_LDH];     // probabilities at fp16 (block_kv used)
-  float s[AT_MAX_BQ][AT_LDF];      // fp32 GEMM results (scores, then PV)
-  float m[AT_MAX_BQ], l[AT_MAX_BQ], f[AT_MAX_BQ];
-  float e_prev[AT_MAX_BQ], e_cur[AT_MAX_BQ];
-};
+// ---- shared-memory addresses, mbarriers, TMA --------------------------
 
-// rows x 128 fp16 tile from global (row stride `ld` elements) to shared.
-__device__ __forceinline__ void load_tile(__half (*dst)[AT_LDH],
-                                          const __half* src, long long ld,
-                                          int rows) {
-  for (int e = threadIdx.x; e < rows * (HEAD_DIM / 8); e += AT_THREADS) {
-    const int r = e / (HEAD_DIM / 8), c8 = (e % (HEAD_DIM / 8)) * 8;
-    *reinterpret_cast<uint4*>(&dst[r][c8]) =
-        *reinterpret_cast<const uint4*>(src + r * ld + c8);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a rank-4 tensor map (innermost coordinate first) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma -------------------------------------------------------------
+
+// Shared-memory matrix descriptor, 128-byte swizzle (the TMA boxes'
+// layout): byte offsets of the leading and stride dimensions.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of wgmma registers across
+// the asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The register A operand is read by the product after its issue: keep
+// the registers live (unreused) until the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// D (m64 x n64, f32) (+)= A (smem, K-major) * B (smem, K-major)^T.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (m64 x n128, f32) (+)= A (smem, K-major) * B (smem, K-major)^T.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (m64 x n128, f32) (+)= A (registers, fp16 fragments) * B (smem,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, "
+      "1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <int BKV>
+__device__ __forceinline__ void wgmma_scores(float* s, uint64_t da, uint64_t db,
+                                             int accumulate) {
+  if constexpr (BKV == 128) wgmma_ss_n128(s, da, db, accumulate);
+  else wgmma_ss_n64(s, da, db, accumulate);
+}
+
+// Scores of one tile as the policy stores them, with the row sums over
+// all columns (before the mask) and, after the causal mask when MASK, the
+// row maxima.  s[4 g + e] holds row e >> 1 (of the thread's two) at tile
+// column 8 g + 2 quad + (e & 1); col0 = the tile's first column + 2 quad.
+template <int NS, bool MASK>
+__device__ __forceinline__ void tile_scores(float* s, float* ssum, float* mx,
+                                            int col0, const int* row,
+                                            const Policy& P) {
+#pragma unroll
+  for (int e = 0; e < NS; ++e) {
+    const int r = (e >> 1) & 1;
+    float v = store_score(s[e], P);
+    ssum[r] += v;                                    // all columns
+    if (MASK && col0 + 8 * (e >> 2) + (e & 1) > row[r]) v = NEG_BIG;
+    s[e] = v;
+    mx[r] = fmaxf(mx[r], v);
   }
 }
 
-__global__ void __launch_bounds__(AT_THREADS)
-pasa_attention_kernel(const __half* __restrict__ q,   // (B, H, S1, D)
-                      const __half* __restrict__ k,   // (B, KVH, S2, D) K'
-                      const __half* __restrict__ v,   // (B, KVH, S2, D)
-                      __half* __restrict__ out,       // (B, H, S1, D)
-                      int heads, int kv_heads, int s1, int s2, int bq,
-                      int bkv, int causal, long long qsb, long long qsh,
-                      long long qss, long long ksb, long long ksh,
-                      long long kss, long long vsb, long long vsh,
-                      long long vss, Policy P) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  AttnSmem& S = *reinterpret_cast<AttnSmem*>(smem_raw);
+// ---- fp16 pairs --------------------------------------------------------
+//
+// Under the all-fp16 policy every elementwise step of the softmax and the
+// accumulator takes fp16 operands and stores at fp16.  One f16x2
+// operation rounded once (.rn: never contracted into an fma) gives the
+// bits of the fp32 operation rounded to fp16: the fp32 product of two fp16
+// values is exact, and so is their fp32 sum or difference wherever its
+// rounding could move the fp16 result.  So two elements take one
+// instruction where the fp32 route takes three.
+
+__device__ __forceinline__ uint32_t h2_bits(__half2 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+__device__ __forceinline__ __half2 h2_of(uint32_t x) {
+  return *reinterpret_cast<__half2*>(&x);
+}
+__device__ __forceinline__ uint32_t h2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t h2_add(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t h2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+// Both halves x, for x already an fp16 value.
+__device__ __forceinline__ uint32_t h2_splat(float x) {
+  return h2_bits(__float2half2_rn(x));
+}
+
+// ---- the kernel --------------------------------------------------------
+
+template <int NWG, int BKV>
+struct AttnLayout {
+  static constexpr int BQ = 64 * NWG;
+  static constexpr int Q_BYTES = BQ * HEAD_DIM * 2;      // two 64-col halves
+  static constexpr int KV_BYTES = BKV * HEAD_DIM * 2;    // one K' or V tile
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + Q_BYTES;
+  static constexpr int V_OFF = K_OFF + AT_STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + AT_STAGES * KV_BYTES;
+  // barriers: Q full, then per stage K full, V full, empty
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * AT_STAGES);
+  static constexpr int THREADS = 128 * (NWG + 1);
+};
+
+// H16: statistics and accumulator at fp16 (the paper's policy): the
+// softmax and accumulator steps run on fp16 pairs.
+template <int NWG, int BKV, bool H16>
+__global__ void __launch_bounds__(AttnLayout<NWG, BKV>::THREADS, 1)
+pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
+                      const __grid_constant__ CUtensorMap tk,  // K' (B,KVH,S2,D)
+                      const __grid_constant__ CUtensorMap tv,  // (B,KVH,S2,D)
+                      __half* __restrict__ out,                // (B,H,S1,D)
+                      int heads, int kv_heads, int s1, int s2, int causal,
+                      Policy P) {
+  using L = AttnLayout<NWG, BKV>;
+  constexpr int BQ = L::BQ;
+  constexpr int NS = BKV / 2;            // score registers per thread
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled tiles want 1024-byte aligned bases
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t s_base = smem_u32(sm);
+  const uint32_t bar_q = s_base + L::BAR_OFF;
+  const uint32_t bar_k = bar_q + 8;                    // + 8 * stage
+  const uint32_t bar_v = bar_k + 8 * AT_STAGES;
+  const uint32_t bar_e = bar_v + 8 * AT_STAGES;
+
   const int bh = blockIdx.x;
-  const int i = blockIdx.y;
+  const int i = s1 / BQ - 1 - blockIdx.y;   // longest causal tiles first
   const int b = bh / heads, h = bh % heads;
   const int kh = h / (heads / kv_heads);
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const bool sh = P.stat_half;
+  const int n_kv = s2 / BKV;
+  const int n_live = causal ? min(n_kv, ((i + 1) * BQ - 1) / BKV + 1) : n_kv;
 
-  load_tile(S.q, q + b * qsb + h * qsh + (long long)i * bq * qss, qss, bq);
-  if (t < AT_MAX_BQ) {
-    S.m[t] = NEG_BIG;
-    S.l[t] = 0.0f;
-    S.f[t] = 0.0f;
-  }
-  float acc[AT_ACC];
-#pragma unroll
-  for (int e = 0; e < AT_ACC; ++e) acc[e] = 0.0f;
-
-  const int n_kv = s2 / bkv;
-  const int row_last = (i + 1) * bq - 1;
-  const int n_live = causal ? min(n_kv, row_last / bkv + 1) : n_kv;
-  const __half* kbase = k + b * ksb + kh * ksh;
-  const __half* vbase = v + b * vsb + kh * vsh;
-  for (int j = 0; j < n_live; ++j) {
-    __syncthreads();   // the previous tile is fully consumed
-    load_tile(S.k, kbase + (long long)j * bkv * kss, kss, bkv);
-    load_tile(S.v, vbase + (long long)j * bkv * vss, vss, bkv);
-    __syncthreads();
-
-    // 1. S = Q K'^T: (bq x 128) x (128 x bkv), fp32 sums
-    {
-      const int ntn = bkv / 16;
-      for (int tile = warp; tile < (bq / 16) * ntn; tile += AT_WARPS) {
-        const int tm = tile / ntn, tn = tile % ntn;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-        wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-        for (int k0 = 0; k0 < HEAD_DIM; k0 += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __half, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __half, wmma::col_major> bk;
-          wmma::load_matrix_sync(a, &S.q[tm * 16][k0], AT_LDH);
-          wmma::load_matrix_sync(bk, &S.k[tn * 16][k0], AT_LDH);
-          wmma::mma_sync(c, a, bk, c);
-        }
-        wmma::store_matrix_sync(&S.s[tm * 16][tn * 16], c, AT_LDF,
-                                wmma::mem_row_major);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < AT_STAGES; ++st) {
+      mbar_init(bar_k + 8 * st, 1);
+      mbar_init(bar_v + 8 * st, 1);
+      mbar_init(bar_e + 8 * st, 4 * NWG);   // lane 0 of every consumer warp
     }
-    __syncthreads();
-
-    // 2-4. per row: score store, full-tile pseudo-average, causal mask,
-    // local softmax, online recovery.  Warp w owns rows w, w + 8, ...
-    const int col0 = j * bkv;
-    for (int rr = warp; rr < bq; rr += AT_WARPS) {
-      const int row = i * bq + rr;
-      float ssum = 0.0f, mx = -INFINITY;
-      for (int c = lane; c < bkv; c += 32) {
-        float s = store_score(S.s[rr][c], P);
-        ssum += s;                                   // all columns, pre-mask
-        if (causal && col0 + c > row) s = NEG_BIG;   // then the mask
-        S.s[rr][c] = s;
-        mx = fmaxf(mx, s);
-      }
-      ssum = warp_sum(ssum);
-      mx = warp_max(mx);
-      float lsum = 0.0f;
-      for (int c = lane; c < bkv; c += 32) {
-        const float p = h2f(__float2half_rn(
-            rnd(expf(rnd(__fsub_rn(S.s[rr][c], mx), sh)), sh)));
-        S.p[rr][c] = __float2half_rn(p);
-        lsum += p;
-      }
-      lsum = warp_sum(lsum);
-      if (lane == 0) {
-        const float sbar = rnd(__fdiv_rn(ssum, (float)bkv), sh);
-        const RowStep r = row_update(S.m[rr], S.l[rr], S.f[rr], j, sbar, mx,
-                                     rnd(lsum, sh), P);
-        S.m[rr] = r.m;
-        S.l[rr] = r.l;
-        S.f[rr] = r.f;
-        S.e_prev[rr] = r.e_prev;
-        S.e_cur[rr] = r.e_cur;
-      }
-    }
-    __syncthreads();
-
-    // 5. PV = P V: (bq x bkv) x (bkv x 128) -> S.s
-    {
-      constexpr int NTN = HEAD_DIM / 16;
-      for (int tile = warp; tile < (bq / 16) * NTN; tile += AT_WARPS) {
-        const int tm = tile / NTN, tn = tile % NTN;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-        wmma::fill_fragment(c, 0.0f);
-        for (int k0 = 0; k0 < bkv; k0 += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __half, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __half, wmma::row_major> bv;
-          wmma::load_matrix_sync(a, &S.p[tm * 16][k0], AT_LDH);
-          wmma::load_matrix_sync(bv, &S.v[k0][tn * 16], AT_LDH);
-          wmma::mma_sync(c, a, bv, c);
-        }
-        wmma::store_matrix_sync(&S.s[tm * 16][tn * 16], c, AT_LDF,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-
-    // 6. acc <- e_prev * acc + e_cur * pv at the accumulator dtype
-#pragma unroll
-    for (int e = 0; e < AT_ACC; ++e) {
-      const int idx = t + AT_THREADS * e;
-      const int row = idx / HEAD_DIM, col = idx % HEAD_DIM;
-      if (row < bq)
-        acc[e] = acc_update(acc[e], rnd(S.s[row][col], P.acc_half),
-                            S.e_prev[row], S.e_cur[row], P.acc_half);
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // O = acc / l at the accumulator dtype, stored at fp16 (contiguous)
-  __half* ob = out + ((size_t)bh * s1 + (size_t)i * bq) * HEAD_DIM;
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every load ----
+    if constexpr (NWG > 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, L::Q_BYTES);
+      for (int half = 0; half < 2; ++half)
+        tma_load_4d(s_base + L::Q_OFF + half * BQ * AT_HALF_BYTES, &tq, bar_q,
+                    64 * half, i * BQ, h, b);
+      for (int j = 0; j < n_live; ++j) {
+        const int st = j % AT_STAGES;
+        const uint32_t phase = (j / AT_STAGES) & 1;
+        mbar_wait(bar_e + 8 * st, phase ^ 1);   // the stage is free
+        const uint32_t kdst = s_base + L::K_OFF + st * L::KV_BYTES;
+        const uint32_t vdst = s_base + L::V_OFF + st * L::KV_BYTES;
+        mbar_expect_tx(bar_k + 8 * st, L::KV_BYTES);
+        for (int half = 0; half < 2; ++half)
+          tma_load_4d(kdst + half * BKV * AT_HALF_BYTES, &tk, bar_k + 8 * st,
+                      64 * half, j * BKV, kh, b);
+        mbar_expect_tx(bar_v + 8 * st, L::KV_BYTES);
+        for (int half = 0; half < 2; ++half)
+          tma_load_4d(vdst + half * BKV * AT_HALF_BYTES, &tv, bar_v + 8 * st,
+                      64 * half, j * BKV, kh, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    if constexpr (NWG > 1)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int t = threadIdx.x - 128;
+    const int cw = t >> 7;                 // consumer warpgroup
+    const int lane = t & 31;
+    const int quad = lane & 3;
+    // this thread's two rows (local to the CTA tile) and its columns
+    const int r_lo = 64 * cw + 16 * ((t >> 5) & 3) + (lane >> 2);
+    const int row[2] = {i * BQ + r_lo, i * BQ + r_lo + 8};
+    const bool sh = P.stat_half, ah = P.acc_half;
+
+    float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.0f, 0.0f}, f[2] = {0.0f, 0.0f};
+    // the accumulator: s[]'s layout over the 128 head-dim columns, as
+    // fp32 values or (H16) fp16 pairs (acc2[2 g + r] = the pair acc[4 g +
+    // 2 r], acc[4 g + 2 r + 1])
+    float acc[H16 ? 1 : 64];
+    uint32_t acc2[H16 ? 32 : 1];
 #pragma unroll
-  for (int e = 0; e < AT_ACC; ++e) {
-    const int idx = t + AT_THREADS * e;
-    const int row = idx / HEAD_DIM, col = idx % HEAD_DIM;
-    if (row < bq) {
-      const float l = rnd(S.l[row], P.acc_half);
-      ob[(size_t)row * HEAD_DIM + col] =
-          __float2half_rn(rnd(__fdiv_rn(acc[e], l), P.acc_half));
+    for (int e = 0; e < (H16 ? 1 : 64); ++e) acc[e] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < (H16 ? 32 : 1); ++e) acc2[e] = 0u;
+
+    const uint32_t q_addr = s_base + L::Q_OFF + cw * 64 * AT_HALF_BYTES;
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < n_live; ++j) {
+      const int st = j % AT_STAGES;
+      const uint32_t phase = (j / AT_STAGES) & 1;
+      const uint32_t k_addr = s_base + L::K_OFF + st * L::KV_BYTES;
+      const uint32_t v_addr = s_base + L::V_OFF + st * L::KV_BYTES;
+
+      // 1. S = Q K'^T (8 steps of k16 over the two 64-column halves)
+      float s[NS];
+      mbar_wait(bar_k + 8 * st, phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HEAD_DIM / 16; ++kk) {
+        const uint32_t off = (kk >> 2), in = (kk & 3) * 32;
+        wgmma_scores<BKV>(
+            s, gmma_desc(q_addr + off * BQ * AT_HALF_BYTES + in, 16, 1024),
+            gmma_desc(k_addr + off * BKV * AT_HALF_BYTES + in, 16, 1024),
+            kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<NS>(s);
+
+      // 2-3. score store, full-tile pseudo-average, then the causal mask
+      // (only on tiles that reach past this warpgroup's first row) and
+      // the local max
+      const int col0 = j * BKV + 2 * quad;
+      float ssum[2] = {0.0f, 0.0f}, mx[2] = {-INFINITY, -INFINITY};
+      if (causal && (j + 1) * BKV - 1 > i * BQ + 64 * cw)
+        tile_scores<NS, true>(s, ssum, mx, col0, row, P);
+      else
+        tile_scores<NS, false>(s, ssum, mx, col0, row, P);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int o = 1; o <= 2; o <<= 1) {
+          ssum[r] += __shfl_xor_sync(0xffffffffu, ssum[r], o);
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
+        }
+      }
+      // 4. local softmax at the statistic dtype, P at fp16 packed as the
+      // A fragments of the P V product (k16 step kk: pa[4 kk .. 4 kk + 3])
+      float lsum[2] = {0.0f, 0.0f};
+      uint32_t pa[NS / 2];
+      if constexpr (H16) {
+        const uint32_t mx2[2] = {h2_splat(mx[0]), h2_splat(mx[1])};
+#pragma unroll
+        for (int e = 0; e < NS; e += 2) {
+          const int r = (e >> 1) & 1;
+          const float2 d = __half22float2(
+              h2_of(h2_sub(h2_bits(__floats2half2_rn(s[e], s[e + 1])), mx2[r])));
+          const __half2 pp = __floats2half2_rn(expf(d.x), expf(d.y));
+          lsum[r] += __low2float(pp);
+          lsum[r] += __high2float(pp);
+          pa[e / 2] = h2_bits(pp);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < NS; e += 2) {
+          const int r = (e >> 1) & 1;
+          const __half p0 = __float2half_rn(
+              rnd(expf(rnd(__fsub_rn(s[e], mx[r]), sh)), sh));
+          const __half p1 = __float2half_rn(
+              rnd(expf(rnd(__fsub_rn(s[e + 1], mx[r]), sh)), sh));
+          lsum[r] += h2f(p0);
+          lsum[r] += h2f(p1);
+          pa[e / 2] = h2_bits(__halves2half2(p0, p1));
+        }
+      }
+
+      // 5. P V into a fresh fp32 sum (V MN-major: its two 64-column halves
+      // are the descriptor's leading-dimension step), issued before the
+      // row statistics' recovery so that the two overlap
+      float pv[64];
+      mbar_wait(bar_v + 8 * st, phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+        wgmma_rs_n128(pv, &pa[4 * kk],
+                      gmma_desc(v_addr + kk * 16 * AT_HALF_BYTES,
+                                BKV * AT_HALF_BYTES, 1024),
+                      kk > 0);
+      wgmma_commit();
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int o = 1; o <= 2; o <<= 1)
+          lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], o);
+      }
+      RowStep rs[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float sbar = rnd(__fdiv_rn(ssum[r], (float)BKV), sh);
+        rs[r] = row_update(m[r], l[r], f[r], j, sbar, mx[r], rnd(lsum[r], sh), P);
+        m[r] = rs[r].m;
+        l[r] = rs[r].l;
+        f[r] = rs[r].f;
+      }
+
+      wgmma_wait_all();
+      fence_regs<64>(pv);
+      fence_regs<NS / 2>(pa);
+      if (lane == 0) mbar_arrive(bar_e + 8 * st);   // the stage is consumed
+
+      // 6. acc <- e_prev * acc + e_cur * pv at the accumulator dtype
+      if constexpr (H16) {
+        const uint32_t ep[2] = {h2_splat(rs[0].e_prev), h2_splat(rs[1].e_prev)};
+        const uint32_t ec[2] = {h2_splat(rs[0].e_cur), h2_splat(rs[1].e_cur)};
+#pragma unroll
+        for (int i2 = 0; i2 < 32; ++i2) {
+          const int r = i2 & 1;
+          const uint32_t pv2 =
+              h2_bits(__floats2half2_rn(pv[2 * i2], pv[2 * i2 + 1]));
+          acc2[i2] = h2_add(h2_mul(ep[r], acc2[i2]), h2_mul(ec[r], pv2));
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 64; ++e) {
+          const int r = (e >> 1) & 1;
+          acc[e] = acc_update(acc[e], rnd(pv[e], ah), rs[r].e_prev,
+                              rs[r].e_cur, ah);
+        }
+      }
+    }
+
+    // O = acc / l at the accumulator dtype, stored at fp16 (contiguous)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lr = rnd(l[r], ah);
+      __half* orow = out + ((size_t)bh * s1 + row[r]) * HEAD_DIM + 2 * quad;
+#pragma unroll
+      for (int g = 0; g < 16; ++g) {
+        float a0, a1;
+        if constexpr (H16) {
+          const float2 a = __half22float2(h2_of(acc2[2 * g + r]));
+          a0 = a.x;
+          a1 = a.y;
+        } else {
+          a0 = acc[4 * g + 2 * r];
+          a1 = acc[4 * g + 2 * r + 1];
+        }
+        const float o0 = rnd(__fdiv_rn(a0, lr), ah);
+        const float o1 = rnd(__fdiv_rn(a1, lr), ah);
+        *reinterpret_cast<__half2*>(orow + 8 * g) =
+            __halves2half2(__float2half_rn(o0), __float2half_rn(o1));
+      }
     }
   }
+}
+
+// ---- host side ----------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (the build
+// does not link libcuda).
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// Rank-4 map of an fp16 (B, heads, rows, 128) tensor read through its
+// element strides; boxes of `box_rows` x 64 columns, 128-byte swizzle.
+static bool make_map(CUtensorMap* map, const void* ptr, int batch, int heads,
+                     int rows, long long sb, long long sh, long long ss,
+                     int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  // a dimension of extent 1 may carry any stride (0 for an expanded
+  // view): give it a valid one
+  if (heads == 1) sh = (long long)rows * ss;
+  if (batch == 1) sb = (long long)heads * sh;
+  const cuuint64_t dims[4] = {(cuuint64_t)HEAD_DIM, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NWG, int BKV, bool H16>
+static int launch(const void* q, const void* k, const void* v, void* out,
+                  int batch, int heads, int kv_heads, int s1, int s2,
+                  int causal, const long long* st, const Policy& P,
+                  cudaStream_t stream) {
+  using L = AttnLayout<NWG, BKV>;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, batch, heads, s1, st[0], st[1], st[2], L::BQ) ||
+      !make_map(&tk, k, batch, kv_heads, s2, st[3], st[4], st[5], BKV) ||
+      !make_map(&tv, v, batch, kv_heads, s2, st[6], st[7], st[8], BKV))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = pasa_attention_kernel<NWG, BKV, H16>;
+  const int smem = L::BYTES + 1024;       // + the 1024-byte alignment
+  static int ready = 0;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    ready = 1;
+  }
+  dim3 grid(batch * heads, s1 / L::BQ);
+  kernel<<<grid, L::THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__half*>(out), heads, kv_heads, s1, s2, causal,
+      P);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace pasa
 
 // Plain C entry point (bound with ctypes).  Strides are in elements, for
-// the (batch, head, row) dims of q, K' and v; returns the cudaError_t of
-// the launch (0: queued on `stream`).
+// the (batch, head, row) dims of q, K' and v (each a multiple of 8, the
+// rows of 128 unit-stride fp16 values, 16-byte aligned starts); block_q
+// and block_kv are 64 or 128.  Returns the cudaError_t of the launch (0:
+// queued on `stream`).
 extern "C" int pasa_attention_launch(
     const void* q, const void* k, const void* v, void* out, int batch,
     int heads, int kv_heads, int s1, int s2, int block_q, int block_kv,
@@ -227,24 +628,33 @@ extern "C" int pasa_attention_launch(
     float beta, float inva, float shift_scale, float post_scale,
     int stat_half, int acc_half, void* stream) {
   using namespace pasa;
-  if (batch < 1 || heads < 1 || kv_heads < 1 || heads % kv_heads ||
-      block_q < 16 || block_q > AT_MAX_BQ || block_q % 16 ||
-      block_kv < 16 || block_kv > AT_MAX_BKV || block_kv % 16 ||
-      s1 < block_q || s1 % block_q || s2 < block_kv || s2 % block_kv)
-    return (int)cudaErrorInvalidValue;
+  const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
+  bool ok = batch >= 1 && heads >= 1 && kv_heads >= 1 && !(heads % kv_heads) &&
+            (block_q == 64 || block_q == 128) &&
+            (block_kv == 64 || block_kv == 128) && s1 >= block_q &&
+            !(s1 % block_q) && s2 >= block_kv && !(s2 % block_kv) &&
+            !(reinterpret_cast<uintptr_t>(q) % 16) &&
+            !(reinterpret_cast<uintptr_t>(k) % 16) &&
+            !(reinterpret_cast<uintptr_t>(v) % 16);
+  for (int n = 0; n < 9; ++n) ok = ok && st[n] >= 0 && !(st[n] % 8);
+  if (!ok) return (int)cudaErrorInvalidValue;
   const Policy P = make_policy(beta, inva, shift_scale, post_scale, stat_half,
                                acc_half);
-  const size_t smem = sizeof(AttnSmem);
-  cudaError_t err = cudaFuncSetAttribute(
-      pasa_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(batch * heads, s1 / block_q);
-  pasa_attention_kernel<<<grid, AT_THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __half*>(q), static_cast<const __half*>(k),
-      static_cast<const __half*>(v), static_cast<__half*>(out), heads,
-      kv_heads, s1, s2, block_q, block_kv, causal, qsb, qsh, qss, ksb, ksh,
-      kss, vsb, vsh, vss, P);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cfg = (block_q == 128) * 4 + (block_kv == 128) * 2 +
+                  (P.stat_half && P.acc_half);
+#define PASA_ATTN_LAUNCH(NWG, BKV, H16)                                    \
+  launch<NWG, BKV, H16>(q, k, v, out, batch, heads, kv_heads, s1, s2, causal, \
+                        st, P, s)
+  switch (cfg) {
+    case 0: return PASA_ATTN_LAUNCH(1, 64, false);
+    case 1: return PASA_ATTN_LAUNCH(1, 64, true);
+    case 2: return PASA_ATTN_LAUNCH(1, 128, false);
+    case 3: return PASA_ATTN_LAUNCH(1, 128, true);
+    case 4: return PASA_ATTN_LAUNCH(2, 64, false);
+    case 5: return PASA_ATTN_LAUNCH(2, 64, true);
+    case 6: return PASA_ATTN_LAUNCH(2, 128, false);
+    default: return PASA_ATTN_LAUNCH(2, 128, true);
+  }
+#undef PASA_ATTN_LAUNCH
 }

@@ -21,17 +21,24 @@
 // shared memory as zeros), so stale or non-finite bytes there are inert
 // and a cache whose length is not a multiple of the block needs no pad.
 //
-// What bounds it on an H100: bytes.  Each live K and V row is read once
-// (2 x 128 x 2 bytes per kv-head and position); the arithmetic is ~4 G
-// flops per byte read.  It is the simple version, with the paged kernel's
-// limits: B x KVH CTAs (16 at batch 4) leave most SMs idle, and the
-// scores use scalar fp32 FMAs.
+// It stays the sequential walk: one CTA per (sequence, kv-head) folds
+// block after block through decode_block_update.  The paged decode kernel
+// spreads its pages over a CTA cluster and folds per-page partials in
+// order with the same row_update / acc_update calls, so this kernel is its
+// bit-for-bit oracle on the same rows.
+//
+// What bounds it on an H100: latency.  Each live K and V row is read once
+// (2 x 128 x 2 bytes per kv-head and position, ~1 us at 3.35 TB/s for a
+// 1,000-token batch of 4), but B x KVH CTAs (16 at batch 4) walk their
+// blocks one after another, each block a few thousand dependent shared-
+// memory loads and FMAs per thread.  The row count of the register arrays
+// is a template (8 or 16 rows: dec_rows), so a group of 7 carries 8.
 
 #include "pasa_decode_block.cuh"
 
 namespace pasa {
 
-template <typename CacheT>
+template <typename CacheT, int NG>
 __global__ void __launch_bounds__(DEC_THREADS)
 contiguous_decode_kernel(const __half* __restrict__ q,    // (B, KVH, G, D)
                          const CacheT* __restrict__ k,    // (B, KVH, S2, D)
@@ -48,8 +55,8 @@ contiguous_decode_kernel(const __half* __restrict__ q,    // (B, KVH, G, D)
 
   const __half* qbh = q + ((size_t)b * kv_heads + h) * G * HEAD_DIM;
   for (int g = 0; g < G; ++g) S.q[g][t] = qbh[g * HEAD_DIM + t];
-  float acc[DEC_MAX_G];
-  decode_state_init(S, acc);
+  float acc[NG];
+  decode_state_init<NG>(S, acc);
 
   const int L = max(0, min(kv_len[b], s2));
   const int n_blocks = (L + block - 1) / block;
@@ -76,13 +83,13 @@ contiguous_decode_kernel(const __half* __restrict__ q,    // (B, KVH, G, D)
       *reinterpret_cast<uint4*>(&S.v[r][c8]) = vv;
     }
     __syncthreads();
-    decode_block_update(S, valid, block, G, j, P, acc);
+    decode_block_update<NG>(S, valid, block, G, j, P, acc);
   }
   __syncthreads();
 
   __half* obh = out + ((size_t)b * kv_heads + h) * G * HEAD_DIM;
 #pragma unroll
-  for (int g = 0; g < DEC_MAX_G; ++g) {
+  for (int g = 0; g < NG; ++g) {
     if (g < G) {
       // O = acc / l at the accumulator dtype, stored at fp16
       obh[g * HEAD_DIM + t] =
@@ -91,22 +98,35 @@ contiguous_decode_kernel(const __half* __restrict__ q,    // (B, KVH, G, D)
   }
 }
 
-template <typename CacheT>
-static int launch(const void* q, const void* k, const void* v,
+template <typename CacheT, int NG>
+static int launch_rows(const void* q, const void* k, const void* v,
                   const void* kv_len, void* out, int batch, int kv_heads,
                   int G, int s2, int block, long long sb, long long sh,
                   long long ss, const Policy& P, cudaStream_t stream) {
   const size_t smem = sizeof(DecodeSmem);
   cudaError_t err = cudaFuncSetAttribute(
-      contiguous_decode_kernel<CacheT>,
+      contiguous_decode_kernel<CacheT, NG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(batch, kv_heads);
-  contiguous_decode_kernel<CacheT><<<grid, DEC_THREADS, smem, stream>>>(
+  contiguous_decode_kernel<CacheT, NG><<<grid, DEC_THREADS, smem, stream>>>(
       static_cast<const __half*>(q), static_cast<const CacheT*>(k),
       static_cast<const CacheT*>(v), static_cast<const int*>(kv_len),
       static_cast<__half*>(out), kv_heads, G, s2, block, sb, sh, ss, P);
   return (int)cudaGetLastError();
+}
+
+template <typename CacheT>
+static int launch(const void* q, const void* k, const void* v,
+                  const void* kv_len, void* out, int batch, int kv_heads,
+                  int G, int s2, int block, long long sb, long long sh,
+                  long long ss, const Policy& P, cudaStream_t stream) {
+  if (G <= dec_rows(1))
+    return launch_rows<CacheT, dec_rows(1)>(q, k, v, kv_len, out, batch,
+                                            kv_heads, G, s2, block, sb, sh,
+                                            ss, P, stream);
+  return launch_rows<CacheT, DEC_MAX_G>(q, k, v, kv_len, out, batch, kv_heads,
+                                        G, s2, block, sb, sh, ss, P, stream);
 }
 
 }  // namespace pasa

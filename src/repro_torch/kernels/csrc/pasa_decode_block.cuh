@@ -1,10 +1,27 @@
-// One KV block folded into the running PASA decode state of one
-// (sequence, kv-head): the GQA group's G query rows against one block of
-// keys/values already in shared memory.  The paged decode kernel calls it
-// once per live page; the contiguous decode kernel (repro's
-// kernels/pasa_decode.py, a later slice of the port) must call the same
-// function per block, so that paged == contiguous holds bit for bit, as
-// the reference's shared masked_block_update makes it hold there.
+// One KV block of PASA decode for one (sequence, kv-head): the GQA group's
+// G query rows against one block of keys/values already in shared memory,
+// in two parts.
+//
+//  * decode_block_partials: what the block contributes before the running
+//    state is read - the masked key mean and shift, the fp16 scores, the
+//    row pseudo-average s-bar, the local max and sum (Algorithm 1 lines
+//    11-13) and P V rounded to the accumulator dtype.  None of it depends
+//    on earlier blocks, so blocks can be reduced to partials in parallel.
+//  * the fold: row_update (the order-dependent F-bar recurrence) and
+//    acc_update of pasa_common.cuh, block after block in order.
+//
+// decode_block_update is the two in sequence.  The contiguous decode
+// kernel walks its blocks through it; the paged decode kernel spreads the
+// pages of a sequence over a CTA cluster, reduces each to its partials and
+// folds them in page order with decode_fold_step (the same row_update and
+// acc_update calls on the same values), so paged == contiguous holds bit
+// for bit, as the reference's shared masked_block_update makes it hold
+// there.  What bounds a block on an H100 is latency, not bytes: per block
+// each thread runs G dot products of 128 and G sums of `block` products
+// out of shared memory, plus the barriers between the steps; the loops
+// below run every row of the group in one pass over the key row (scores)
+// or value column (P V), so the G chains are independent and each shared
+// load is used G times - each chain keeps its own order of operations.
 //
 // Convention (shift_mask_valid): the key mean and the row pseudo-average
 // are over the block's `valid` leading columns; keys are shifted to
@@ -34,9 +51,17 @@ struct DecodeSmem {
   float km[HEAD_DIM];
   float m[DEC_MAX_G], l[DEC_MAX_G], f[DEC_MAX_G];
   float e_prev[DEC_MAX_G], e_cur[DEC_MAX_G];
+  // the block's partials per row: s-bar, local max, local sum (each at
+  // the statistic dtype)
+  float sbar[DEC_MAX_G], m_loc[DEC_MAX_G], l_loc[DEC_MAX_G];
 };
 
+// Row capacity of a launch: the group padded to 8 or 16 rows, a
+// compile-time bound for the per-thread register arrays (acc, pv, dot).
+__host__ __device__ constexpr int dec_rows(int G) { return G <= 8 ? 8 : DEC_MAX_G; }
+
 // Reset the running state (thread-cooperative; callers sync after).
+template <int NG>
 __device__ __forceinline__ void decode_state_init(DecodeSmem& S, float* acc) {
   const int t = threadIdx.x;
   if (t < DEC_MAX_G) {
@@ -45,16 +70,20 @@ __device__ __forceinline__ void decode_state_init(DecodeSmem& S, float* acc) {
     S.f[t] = 0.0f;
   }
 #pragma unroll
-  for (int g = 0; g < DEC_MAX_G; ++g) acc[g] = 0.0f;
+  for (int g = 0; g < NG; ++g) acc[g] = 0.0f;
 }
 
-// Fold the block in S.k/S.v (`block` rows, the first `valid` >= 1 of them
-// live) into the state after `cnt` folded blocks.  Thread t owns head-dim
-// column t of the accumulator: acc[g] for the G rows.
-__device__ __forceinline__ void decode_block_update(DecodeSmem& S, int valid,
-                                                    int block, int G, int cnt,
-                                                    const Policy& P,
-                                                    float* acc) {
+// Partials of the block in S.k/S.v (`block` rows, the first `valid` >= 1
+// of them live): S.sbar/S.m_loc/S.l_loc[g] (written by lane 0 of the warp
+// that owns row g: warp w owns rows w, w + 4, ...) and, in registers,
+// pv[g] = P V of row g at head-dim column t (thread t), rounded to the
+// accumulator dtype (G <= NG).  The last step reads S.v and S.p after the last
+// barrier: the caller syncs before it overwrites them.
+template <int NG>
+__device__ __forceinline__ void decode_block_partials(DecodeSmem& S, int valid,
+                                                      int block, int G,
+                                                      const Policy& P,
+                                                      float* pv) {
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -72,27 +101,36 @@ __device__ __forceinline__ void decode_block_update(DecodeSmem& S, int valid,
   }
   __syncthreads();
 
-  // 2. scores: thread c computes column c for all G rows (fp32 sum of
-  //    exact fp16 products, stored at fp16).
+  // 2. scores: thread c computes column c for all G rows in one pass over
+  //    its key row (per row: an fp32 sum of exact fp16 products in d
+  //    order, stored at fp16).
   if (t < block) {
     const __half2* krow = reinterpret_cast<const __half2*>(&S.k[t][0]);
-    for (int g = 0; g < G; ++g) {
-      const __half2* qrow = reinterpret_cast<const __half2*>(&S.q[g][0]);
-      float dot = 0.0f;
-#pragma unroll 8
-      for (int d2 = 0; d2 < HEAD_DIM / 2; ++d2) {
-        const float2 a = __half22float2(qrow[d2]);
-        const float2 b = __half22float2(krow[d2]);
-        dot = fmaf(a.x, b.x, dot);
-        dot = fmaf(a.y, b.y, dot);
+    float dot[NG];
+#pragma unroll
+    for (int g = 0; g < NG; ++g) dot[g] = 0.0f;
+#pragma unroll 4
+    for (int d2 = 0; d2 < HEAD_DIM / 2; ++d2) {
+      const float2 b = __half22float2(krow[d2]);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        if (g < G) {
+          const float2 a = __half22float2(
+              reinterpret_cast<const __half2*>(&S.q[g][0])[d2]);
+          dot[g] = fmaf(a.x, b.x, dot[g]);
+          dot[g] = fmaf(a.y, b.y, dot[g]);
+        }
       }
-      S.s[g][t] = __float2half_rn(t < valid ? store_score(dot, P) : NEG_BIG);
     }
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+      if (g < G)
+        S.s[g][t] = __float2half_rn(t < valid ? store_score(dot[g], P) : NEG_BIG);
   }
   __syncthreads();
 
   // 3. per-row statistics: warp w owns rows w, w + 4, ...; lanes stride
-  //    the columns.  Lane 0 then runs the online recovery for the row.
+  //    the columns.
   const bool sh = P.stat_half;
   for (int g = warp; g < G; g += DEC_WARPS) {
     float ssum = 0.0f, mx = -INFINITY;   // masked columns hold NEG_BIG
@@ -114,9 +152,75 @@ __device__ __forceinline__ void decode_block_update(DecodeSmem& S, int valid,
     }
     lsum = warp_sum(lsum);
     if (lane == 0) {
-      const float sbar = rnd(__fdiv_rn(ssum, (float)valid), sh);
-      const RowStep r = row_update(S.m[g], S.l[g], S.f[g], cnt, sbar, mx,
-                                   rnd(lsum, sh), P);
+      S.sbar[g] = rnd(__fdiv_rn(ssum, (float)valid), sh);
+      S.m_loc[g] = mx;
+      S.l_loc[g] = rnd(lsum, sh);
+    }
+  }
+  __syncthreads();
+
+  // 4. PV: thread t = head-dim column t, all G rows in one pass over the
+  //    value column (per row: products summed in c order).
+#pragma unroll
+  for (int g = 0; g < NG; ++g) pv[g] = 0.0f;
+  for (int c = 0; c < block; ++c) {
+    const float vv = h2f(S.v[c][t]);
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+      if (g < G) pv[g] = fmaf(h2f(S.p[g][c]), vv, pv[g]);
+  }
+#pragma unroll
+  for (int g = 0; g < NG; ++g) pv[g] = rnd(pv[g], P.acc_half);
+}
+
+// The running state of one query row at one head-dim column, as one
+// thread folds it.
+struct FoldState {
+  float m, l, f, acc;
+};
+
+__device__ __forceinline__ FoldState fold_state_init() {
+  FoldState st;
+  st.m = NEG_BIG;
+  st.l = 0.0f;
+  st.f = 0.0f;
+  st.acc = 0.0f;
+  return st;
+}
+
+// Fold one block's partials of the row (after `cnt` folded blocks) into
+// the state: row_update, then acc_update - the calls decode_block_update
+// makes, on the same values.
+__device__ __forceinline__ void decode_fold_step(FoldState& st, int cnt,
+                                                 float sbar, float m_loc,
+                                                 float l_loc, float pv,
+                                                 const Policy& P) {
+  const RowStep r = row_update(st.m, st.l, st.f, cnt, sbar, m_loc, l_loc, P);
+  st.acc = acc_update(st.acc, pv, r.e_prev, r.e_cur, P.acc_half);
+  st.m = r.m;
+  st.l = r.l;
+  st.f = r.f;
+}
+
+// Fold the block in S.k/S.v into the state after `cnt` folded blocks
+// (the sequential walk): partials, then row_update per row (lane 0 of the
+// row's warp, state in S.m/S.l/S.f) and acc_update per column.  Thread t
+// owns head-dim column t of the accumulator: acc[g] for the G rows.
+template <int NG>
+__device__ __forceinline__ void decode_block_update(DecodeSmem& S, int valid,
+                                                    int block, int G, int cnt,
+                                                    const Policy& P,
+                                                    float* acc) {
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  float pv[NG];
+  decode_block_partials<NG>(S, valid, block, G, P, pv);
+
+  if (lane == 0) {
+    for (int g = warp; g < G; g += DEC_WARPS) {
+      const RowStep r = row_update(S.m[g], S.l[g], S.f[g], cnt, S.sbar[g],
+                                   S.m_loc[g], S.l_loc[g], P);
       S.m[g] = r.m;
       S.l[g] = r.l;
       S.f[g] = r.f;
@@ -126,17 +230,11 @@ __device__ __forceinline__ void decode_block_update(DecodeSmem& S, int valid,
   }
   __syncthreads();
 
-  // 4. PV: thread t = head-dim column t; acc <- e_prev*acc + e_cur*pv.
-  // (static trip count so acc[] stays in registers)
+  // acc <- e_prev*acc + e_cur*pv (static trip count: acc[] in registers)
 #pragma unroll
-  for (int g = 0; g < DEC_MAX_G; ++g) {
-    if (g < G) {
-      float pv = 0.0f;
-      for (int c = 0; c < block; ++c) pv = fmaf(h2f(S.p[g][c]), h2f(S.v[c][t]), pv);
-      acc[g] = acc_update(acc[g], rnd(pv, P.acc_half), S.e_prev[g], S.e_cur[g],
-                          P.acc_half);
-    }
-  }
+  for (int g = 0; g < NG; ++g)
+    if (g < G)
+      acc[g] = acc_update(acc[g], pv[g], S.e_prev[g], S.e_cur[g], P.acc_half);
 }
 
 }  // namespace pasa

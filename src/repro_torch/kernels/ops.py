@@ -314,8 +314,11 @@ def _attention(q, k, v, *, beta, policy, block_q, block_kv, causal, wrapper):
                                      block_kv=block_kv, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
-    _cuda_block("block_q", block_q)
-    _cuda_block("block_kv", block_kv)
+    for name, block in (("block_q", block_q), ("block_kv", block_kv)):
+        if block not in (64, 128):
+            raise NotImplementedError(
+                f"the CUDA attention kernel takes {name} 64 or 128, got {block}"
+            )
     d = q.shape[-1]
     half = torch.float16
     # the recovery multiplier of the GEMM shift is the invariance the

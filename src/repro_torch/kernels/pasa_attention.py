@@ -5,10 +5,13 @@ Counterpart of ``repro.kernels.pasa_attention`` (Algorithm 1 lines 8-23).
 
   * :func:`kernel_call` launches ``csrc/pasa_attention.cu``: one CTA per
     (b * head, query tile) walks the key tiles in order with the state at
-    the policy's dtypes; GQA maps query head h to kv head h // group, so
-    K'/V are never expanded; a causal tile wholly above the diagonal is
-    skipped.  With ``beta = 0`` (inva 0, 1/sqrt(d) applied after the fp16
-    score store) it is the FlashAttention-2 baseline.
+    the policy's dtypes - a producer warp loads K'/V tiles by TMA into a
+    two-stage ring, consumer warpgroups of 64 query rows run both GEMMs
+    as wgmma with the scores in registers; GQA maps query head h to kv
+    head h // group, so K'/V are never expanded; a causal tile wholly
+    above the diagonal is skipped.  With ``beta = 0`` (inva 0, 1/sqrt(d)
+    applied after the fp16 score store) it is the FlashAttention-2
+    baseline.  ``block_q`` and ``block_kv`` are 64 or 128.
   * :func:`attention_plain` is the port of the reference's
     ``ref.attention_ref``: RAW keys, the GEMM shift and
     ``core.pasa.blocked_attention`` on K/V expanded to the H query heads.
@@ -75,8 +78,9 @@ def kernel_call(
     block_kv: int,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream.  Each input is read
-    through its strides (unit stride on the head dim).  Arguments are
-    validated by :func:`repro_torch.kernels.ops.pasa_attention`."""
+    through its strides (unit stride on the head dim; the tensor maps need
+    the others to be multiples of 8 elements).  Arguments are validated by
+    :func:`repro_torch.kernels.ops.pasa_attention`."""
     b, h, s1, d = q.shape
     _, kvh, s2, _ = k_shifted.shape
     out = torch.empty((b, h, s1, d), dtype=torch.float16, device=q.device)

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.kernels.pasa_paged_decode``.
 
-  * :func:`kernel_call` launches ``csrc/pasa_paged_decode.cu`` (one CTA
-    per (sequence, kv-head), pages folded in order by the block update
-    the contiguous decode kernel shares; see the source's note).
+  * :func:`kernel_call` launches ``csrc/pasa_paged_decode.cu``: a cluster
+    of 8 CTAs per (sequence, kv-head) reduces the live pages to per-page
+    partials in parallel, then folds them exactly in page order (see the
+    source's note), into a workspace the wrapper allocates.
   * :func:`paged_decode_plain` is the port of the reference's
     ``paged_decode_xla``: a gather of the pages (dequantized for 8-bit
     pools by :func:`_gather_dequant`), then
@@ -134,7 +135,7 @@ def sidecar_ptrs(quant: Optional[dict]) -> list:
 def _entry() -> ctypes._CFuncPtr:
     fn = _build.load("pasa_paged_decode").pasa_paged_decode_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
         + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -156,12 +157,18 @@ def kernel_call(
     validated by :func:`repro_torch.kernels.ops.pasa_paged_decode`."""
     b, kvh, g, d = q.shape
     _, page, _, _ = k_pages.shape
+    max_pages = page_table.shape[1]
     out = torch.empty_like(q)
+    # the pages' partials: P V (B, KVH, max_pages, G, D) then the row
+    # statistics (B, KVH, max_pages, 3, G), f32
+    workspace = torch.empty(b * kvh * max_pages * g * (d + 3),
+                            dtype=torch.float32, device=q.device)
     err = _entry()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         *sidecar_ptrs(quant),
         page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        b, kvh, g, page, page_table.shape[1], POOL_KINDS[k_pages.dtype],
+        workspace.data_ptr(),
+        b, kvh, g, page, max_pages, POOL_KINDS[k_pages.dtype],
         *policy_scalars(beta, policy, d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -51,7 +51,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import get_policy
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, rope_angles
+from repro_torch.models.layers import apply_rope, matmuls, rope_angles
 from repro_torch.runtime.paged_cache import (
     NULL_PAGE,
     dequantize_kv_page,
@@ -79,9 +79,7 @@ def attention(
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = x.to(cd)
 
-    q = x @ p["wq"].to(cd)
-    k = x @ p["wk"].to(cd)
-    v = x @ p["wv"].to(cd)
+    q, k, v = matmuls(x, p["wq"].to(cd), p["wk"].to(cd), p["wv"].to(cd))
     if cfg.qkv_bias:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
@@ -105,7 +103,7 @@ def attention(
         out = _dense_prefill(q, k, v, cfg, cache)
     else:
         out = _dense_decode(q, k, v, cfg, cache, pos)
-    return out.to(cd) @ p["wo"].to(cd)
+    return matmuls(out.to(cd), p["wo"].to(cd))[0]
 
 
 def _dense_prefill(q, k, v, cfg: ModelConfig, cache: dict) -> torch.Tensor:

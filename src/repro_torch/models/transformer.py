@@ -66,7 +66,7 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def _logits(h: torch.Tensor, params: dict) -> torch.Tensor:
-    return h.float() @ params["lm_head"].float()
+    return L.matmuls(h.float(), params["lm_head"].float())[0]
 
 
 def forward(params, cfg: ModelConfig, tokens, *, cache: dict, pos=None,

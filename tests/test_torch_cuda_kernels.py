@@ -10,6 +10,7 @@ package, so it runs where only PyTorch is installed:
 """
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -406,3 +407,108 @@ def test_dense_route_on_card_batched_equals_one_at_a_time():
     assert ops.pasa_paged_decode.launches == ops.pasa_paged_prefill.launches == 0
     for i in range(prompts.shape[0]):
         assert torch.equal(run(prompts[i:i + 1])[0], streams[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [7, 12])
+@pytest.mark.parametrize("page", [64, 128])
+def test_paged_decode_equals_contiguous_at_cluster_boundaries(page, g):
+    """The paged kernel spreads a sequence's pages over a cluster of 8
+    CTAs and folds their partials in order; the contiguous kernel walks
+    the same rows one block after another.  Bit for bit equal at 1, 7, 8,
+    9, 16, 17 and 33 live pages (full and ragged last pages), at both
+    policies, PASA and FlashAttention-2, for groups of up to 8 and of up
+    to 16 rows (the kernels' two register layouts)."""
+    dev = _card()
+    rng = np.random.default_rng(15)
+    kvh, d = 4, 128
+    n_pages = [1, 7, 8, 9, 16, 17, 33]
+    kv_lens = [n * page - (i % 2) * (page // 3) for i, n in enumerate(n_pages)]
+    kp, vp, table = _pool(rng, kv_lens, kvh, page, dev)
+    n = table.shape[1] * page
+    kc = kp[table.long()].reshape(len(kv_lens), n, kvh, d)
+    vc = vp[table.long()].reshape(len(kv_lens), n, kvh, d)
+    q = _randn(rng, (len(kv_lens), kvh, g, d), 0.0, dev)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    for policy in (FP16, FP16_FP32):
+        for beta in (0.0, BETA):
+            paged = ops.pasa_paged_decode(q, kp, vp, table, kvl, beta=beta,
+                                          policy=policy)
+            contiguous = ops.pasa_decode(q, kc.transpose(1, 2),
+                                         vc.transpose(1, 2), kvl, beta=beta,
+                                         policy=policy, block_kv=page)
+            assert torch.isfinite(paged.float()).all()
+            assert torch.equal(contiguous, paged), (policy.name, beta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
+def test_quantized_paged_decode_is_invariant_to_page_placement(dtype):
+    """The same quantized pages (codes and sidecars) at other physical
+    places, the page table rewritten to match: the same bits."""
+    dev = _card()
+    rng = np.random.default_rng(16)
+    kvh, g, page = 4, 7, 128
+    kv_len = [17 * 128 + 5, 300, 1, 1000]
+    kp, vp, table = _pool(rng, kv_len, kvh, page, dev)
+    kq, vq, quant, _ = _quantized(kp, vp, table, kv_len, dtype)
+    perm = torch.from_numpy(rng.permutation(kp.shape[0])).to(dev)
+
+    def moved(x):          # page p of x at perm[p] (fp8 moved as bytes)
+        y = x.view(torch.uint8) if x.dtype == torch.float8_e4m3fn else x
+        return torch.empty_like(y).index_copy_(0, perm, y).view(x.dtype)
+
+    kq2, vq2 = moved(kq), moved(vq)
+    quant2 = {n: moved(x) for n, x in quant.items()}
+    table2 = perm[table.long()].to(torch.int32)
+    q = _randn(rng, (len(kv_len), kvh, g, 128), 0.0, dev)
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    for policy in (FP16, FP16_FP32):
+        a = ops.pasa_paged_decode(q, kq, vq, table, kvl, beta=BETA,
+                                  policy=policy, **quant)
+        b = ops.pasa_paged_decode(q, kq2, vq2, table2, kvl, beta=BETA,
+                                  policy=policy, **quant2)
+        assert torch.isfinite(a.float()).all()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(128, 128), (64, 64), (128, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("group", [1, 7])
+@pytest.mark.parametrize("s", [128, 1024])
+def test_attention_kernel_matches_plain_version(s, group, causal, blocks):
+    """PASA and FlashAttention-2 from the attention kernel against the
+    plain version: one key tile (S = 128) and the dense prefill's 1024,
+    GQA groups 1 and 7, each supported (block_q, block_kv)."""
+    dev = _card()
+    rng = np.random.default_rng(17)
+    bq, bkv = blocks
+    b, kvh, d = 2, 2, 128
+    q = _randn(rng, (b, kvh * group, s, d), 0.0, dev)
+    k = _randn(rng, (b, kvh, s, d), 2.0, dev)
+    v = _randn(rng, (b, kvh, s, d), 0.0, dev)
+    for beta, policy in ((BETA, FP16), (0.0, FP16_FP32)):
+        fn = ops.flash_attention if beta == 0.0 else functools.partial(
+            ops.pasa_attention, beta=BETA)
+        got = fn(q, k, v, policy=policy, causal=causal, block_q=bq,
+                 block_kv=bkv)
+        want = amod.attention_plain(q, k, v, beta=beta, policy=policy,
+                                    block_kv=bkv, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **ATTN_TOL[causal])
+
+
+@pytest.mark.cuda
+def test_attention_kernel_overflow_headline():
+    """Inputs near 30: FlashAttention-2's fp16 score store overflows in
+    the kernel, PASA at the all-fp16 policy stays finite."""
+    dev = _card()
+    rng = np.random.default_rng(18)
+    u = lambda shape: torch.from_numpy(
+        rng.uniform(29.5, 30.5, shape).astype(np.float32)).to(dev, torch.half)
+    q, k, v = u((1, 7, 256, 128)), u((1, 1, 256, 128)), u((1, 1, 256, 128))
+    bad = ops.flash_attention(q, k, v, policy=FP16_FP32)
+    good = ops.pasa_attention(q, k, v, beta=BETA, policy=FP16)
+    assert not torch.isfinite(bad.float()).all()
+    assert torch.isfinite(good.float()).all()

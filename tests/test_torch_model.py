@@ -137,3 +137,30 @@ def test_init_lm_has_reference_layout_and_scales(models):
     assert abs(float(mine["embed"].float().std()) - 1.0) < 0.05
     assert torch.equal(mine["blocks"]["ln1"].float(),
                        torch.ones_like(mine["blocks"]["ln1"].float()))
+
+
+def test_few_row_products_and_norms_do_not_depend_on_the_row_count():
+    """A decode step's rows (one per sequence) go through the norms and
+    products padded to MIN_ROWS rows: row i alone gives the bits it gives
+    among four, and the values are the plain product's and norm's."""
+    from repro_torch.models import layers as L
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4, 1, 64)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((64, 48)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal(64).astype(np.float32)
+                         ).to(torch.bfloat16)
+    (y,) = L.matmuls(x, w)
+    n = L.rms_norm(x, g, 1e-6)
+    assert y.shape == (4, 1, 48) and n.shape == x.shape
+    torch.testing.assert_close(y.float(), (x.float() @ w.float()),
+                               atol=0.1, rtol=2e-2)
+    xf = x.float()
+    plain = (xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+             ).to(torch.bfloat16) * g
+    assert torch.equal(n, plain)
+    for i in range(4):
+        assert torch.equal(L.matmuls(x[i:i + 1], w)[0][0], y[i])
+        assert torch.equal(L.rms_norm(x[i:i + 1], g, 1e-6)[0], n[i])
