@@ -17,9 +17,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      never calls).  The paged decode and prefill kernels, then shift-KV,
      the PASA attention kernel (with its FlashAttention-2 setting and the
      paper's fp16 overflow headline) and the contiguous decode kernel
-     (bit for bit against the paged one on the same rows); the paged
-     decode kernel is timed also at a paged serve's decode call (batch 4,
-     kv 1002/519/302/131) from each pool dtype;
+     (bit for bit against its sequential walk and the paged one on the
+     same rows); the paged decode kernel is timed also at a paged serve's
+     decode call (batch 4, kv 1002/519/302/131) from each pool dtype, the
+     contiguous one at the dense serve's (batch 4, kv 1002, 1040 rows);
      The quantized mode of the two paged kernels follows: the decode and
      prefill fixtures quantized per page to int8 and fp8_e4m3 codes with
      scale/shift sidecars, each kernel against its plain version under
@@ -866,11 +867,18 @@ def check_contiguous_decode(dev):
         plain = plain_of(q)
         paged = ops.pasa_paged_decode(q, kp, vp, table, kv_len, beta=BETA,
                                       policy=FP16)
+        # the sequential walk: the oracle of both cluster kernels
+        walk = mod._walk_call(q, kview, vview, kv_len, beta=BETA,
+                              policy=FP16, block_kv=block)
         torch.cuda.synchronize()
-        if not torch.equal(got, paged):
-            raise AssertionError(
-                f"contiguous decode != paged decode (q mean {q_mean}): max "
-                f"diff {float((got.float() - paged.float()).abs().max()):.3e}")
+        for name, other in (("the walk", walk), ("paged decode", paged)):
+            if not torch.equal(got, other):
+                diff = float((got.float() - other.float()).abs().max())
+                raise AssertionError(
+                    f"contiguous decode != {name} (q mean {q_mean}): max "
+                    f"diff {diff:.3e}")
+        if not torch.equal(paged, walk):
+            raise AssertionError(f"paged decode != the walk (q mean {q_mean})")
         golds = []
         for i, n in enumerate(lens):
             kk = torch.from_numpy(kc[i, :n]).to(dev).to(torch.bfloat16)
@@ -897,6 +905,8 @@ def check_contiguous_decode(dev):
     qh = q.reshape(b, kvh * g, 1, d)
     lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qh, ke, ve, attn_mask=mask[:, None, None, :]), 20)
+    walk_ms = _cuda_time_ms(lambda: mod._walk_call(
+        q, kview, vview, kv_len, beta=BETA, policy=FP16, block_kv=block), 50)
     live = sum(lens)
     nbytes = 2 * live * kvh * d * 2 + 2 * q.numel() * 2 + b * 4
     flops = 4 * g * d * live * kvh
@@ -904,9 +914,37 @@ def check_contiguous_decode(dev):
         name="pasa_decode", route="cuda",
         source="src/repro_torch/kernels/csrc/pasa_decode.cu",
         replaces="src/repro/kernels/pasa_decode.py:268",
-        max_abs_err=max_err, paged_bit_equal=True, ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, **report, **_bound(nbytes, flops),
+        max_abs_err=max_err, walk_and_paged_bit_equal=True, ms=ms,
+        walk_ms=walk_ms, plain_ms=plain_ms, library_ms=lib_ms, **report,
+        **_serve_shape_contiguous_decode(dev), **_bound(nbytes, flops),
     )
+
+
+def _serve_shape_contiguous_decode(dev):
+    """The contiguous decode kernel at the dense serve's own decode call:
+    batch 4 at kv DENSE_PROMPT + 2 in a cache of DENSE_PROMPT + SERVE_GEN +
+    8 rows (bf16 (B, S2, KVH, D), read through strides), G 7, block 128;
+    kernel and SDPA (on the expanded K/V, not timed) ms."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import FP16
+    from repro_torch.kernels import ops
+
+    kvh, g, d = 4, 7, 128
+    b, s2, n = DENSE_BATCH, DENSE_PROMPT + SERVE_GEN + 8, DENSE_PROMPT + 2
+    rng = np.random.default_rng(7)
+    kc = _randn(rng, (b, s2, kvh, d), 2.0, dev, torch.bfloat16).transpose(1, 2)
+    vc = _randn(rng, (b, s2, kvh, d), 0.0, dev, torch.bfloat16).transpose(1, 2)
+    q = _randn(rng, (b, kvh, g, d), 0.0, dev, torch.float16)
+    kv_len = torch.full((b,), n, dtype=torch.int32, device=dev)
+    ms = _cuda_time_ms(lambda: ops.pasa_decode(
+        q, kc, vc, kv_len, beta=BETA, policy=FP16, block_kv=128), 50)
+    ke, ve = (x[:, :, :n].half().repeat_interleave(g, 1) for x in (kc, vc))
+    lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q.reshape(b, kvh * g, 1, d), ke, ve), 20)
+    return dict(serve_shape_ms=ms, serve_shape_library_ms=lib_ms)
 
 
 def _bound(nbytes: int, flops: int) -> dict:
@@ -1162,6 +1200,8 @@ def main() -> int:
         extra = (f"; max abs diff vs the plain version on the CPU "
                  f"{k['max_abs_err_cpu_plain']:.3e}"
                  if "max_abs_err_cpu_plain" in k else "")
+        if "walk_ms" in k:
+            extra += f"; its sequential walk {k['walk_ms']:.4f} ms"
         if "serve_shape_ms" in k:
             extra += (f"; at the serve's decode shape {k['serve_shape_ms']:.4f}"
                       f" ms, library {k['serve_shape_library_ms']:.4f} ms")

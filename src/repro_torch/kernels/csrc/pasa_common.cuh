@@ -94,20 +94,6 @@ struct SidecarPtrs {
   const float* shift[2];  // (P, KVH, HEAD_DIM)
 };
 
-// Copy the sidecars of physical page `pid`, kv head `h` into Q (every
-// thread of the CTA takes part; callers sync after).  Called for live
-// pages only: a dead page's sidecars may be NaN and are never read.
-__device__ __forceinline__ void stage_sidecars(PageSidecars& Q,
-                                               const SidecarPtrs& sc, int pid,
-                                               int kv_heads, int h) {
-  const size_t ph = (size_t)pid * kv_heads + h;
-  for (int i = threadIdx.x; i < 2 * HEAD_DIM; i += blockDim.x) {
-    const int side = i / HEAD_DIM, d = i % HEAD_DIM;
-    Q.shift[side][d] = sc.shift[side][ph * HEAD_DIM + d];
-  }
-  if (threadIdx.x < 2) Q.scale[threadIdx.x] = sc.scale[threadIdx.x][ph];
-}
-
 // Eight consecutive codes (one 8-byte load) -> eight fp16 values
 // fp16(code * scale + shift[i]): the product and the sum each rounded in
 // fp32 (the _rn intrinsics keep -O3 from fusing them into an FMA), then

@@ -5,36 +5,39 @@
 // pl.pallas_call).
 //
 // What it computes: one new token per sequence against its dense cache;
-// the GQA group's G query heads are the rows.  One CTA per (sequence,
-// kv-head) folds the cache's blocks of `block` rows IN ORDER up to kv_len
-// through decode_block_update - the function the paged decode kernel
-// folds each page with - so on the same rows, contiguous (block == page)
-// and paged decode agree bit for bit, as the reference's shared
-// masked_block_update makes them agree there.  Convention
-// (shift_mask_valid): the algebraic valid-column shift with the ideal
-// invariance beta / (1 - beta).
+// the GQA group's G query heads are the rows; the cache is cut into
+// blocks of `block` rows up to kv_len.  Convention (shift_mask_valid):
+// the algebraic valid-column shift with the ideal invariance beta / (1 -
+// beta).
 //
 // The cache is read in its stored layout and dtype (the dense route's
 // (B, S2, KVH, D) bf16 cache, seen as (B, KVH, S2, D) through strides)
-// and converted to fp16 in registers: no per-step transpose, cast or pad
-// copy.  Rows at or past kv_len are never read (their K and V enter
-// shared memory as zeros), so stale or non-finite bytes there are inert
-// and a cache whose length is not a multiple of the block needs no pad.
+// and converted to fp16 on chip: no per-step transpose, cast or pad copy.
+// Rows at or past kv_len are never read (their K and V enter shared
+// memory as zeros), so stale or non-finite bytes there are inert and a
+// cache whose length is not a multiple of the block needs no pad.
 //
-// It stays the sequential walk: one CTA per (sequence, kv-head) folds
-// block after block through decode_block_update.  The paged decode kernel
-// spreads its pages over a CTA cluster and folds per-page partials in
-// order with the same row_update / acc_update calls, so this kernel is its
-// bit-for-bit oracle on the same rows.
+// Two entry points:
+//  * pasa_decode_launch, the main path: the cluster kernel of
+//    pasa_decode_cluster.cuh with block j = rows [j * block, (j + 1) *
+//    block) of the strided cache (StridedBlocks) - a cluster of 8 CTAs per
+//    (sequence, kv-head) reduces the blocks to partials in parallel and
+//    folds them exactly in order; the paged decode kernel is the same
+//    template over a page pool.
+//  * pasa_decode_walk_launch, the on-card oracle only (tests and
+//    chip_smoke.py; no wrapper calls it): one CTA per (sequence,
+//    kv-head) walks the blocks in order through decode_block_update.
+//    Both cluster kernels equal it bit for bit.
 //
 // What bounds it on an H100: latency.  Each live K and V row is read once
 // (2 x 128 x 2 bytes per kv-head and position, ~1 us at 3.35 TB/s for a
-// 1,000-token batch of 4), but B x KVH CTAs (16 at batch 4) walk their
-// blocks one after another, each block a few thousand dependent shared-
-// memory loads and FMAs per thread.  The row count of the register arrays
-// is a template (8 or 16 rows: dec_rows), so a group of 7 carries 8.
+// 1,000-token batch of 4), but the walk's B x KVH CTAs (16 at batch 4)
+// fold their blocks one after another, each block a few thousand
+// dependent shared-memory loads and FMAs per thread; the cluster runs 8
+// times as many CTAs, each on 1/8 of the blocks, and leaves the fold's
+// n_blocks dependent row_update steps.
 
-#include "pasa_decode_block.cuh"
+#include "pasa_decode_cluster.cuh"
 
 namespace pasa {
 
@@ -99,10 +102,10 @@ contiguous_decode_kernel(const __half* __restrict__ q,    // (B, KVH, G, D)
 }
 
 template <typename CacheT, int NG>
-static int launch_rows(const void* q, const void* k, const void* v,
-                  const void* kv_len, void* out, int batch, int kv_heads,
-                  int G, int s2, int block, long long sb, long long sh,
-                  long long ss, const Policy& P, cudaStream_t stream) {
+static int walk_rows(const void* q, const void* k, const void* v,
+                     const void* kv_len, void* out, int batch, int kv_heads,
+                     int G, int s2, int block, long long sb, long long sh,
+                     long long ss, const Policy& P, cudaStream_t stream) {
   const size_t smem = sizeof(DecodeSmem);
   cudaError_t err = cudaFuncSetAttribute(
       contiguous_decode_kernel<CacheT, NG>,
@@ -117,24 +120,68 @@ static int launch_rows(const void* q, const void* k, const void* v,
 }
 
 template <typename CacheT>
-static int launch(const void* q, const void* k, const void* v,
-                  const void* kv_len, void* out, int batch, int kv_heads,
-                  int G, int s2, int block, long long sb, long long sh,
-                  long long ss, const Policy& P, cudaStream_t stream) {
+static int walk(const void* q, const void* k, const void* v,
+                const void* kv_len, void* out, int batch, int kv_heads,
+                int G, int s2, int block, long long sb, long long sh,
+                long long ss, const Policy& P, cudaStream_t stream) {
   if (G <= dec_rows(1))
-    return launch_rows<CacheT, dec_rows(1)>(q, k, v, kv_len, out, batch,
-                                            kv_heads, G, s2, block, sb, sh,
-                                            ss, P, stream);
-  return launch_rows<CacheT, DEC_MAX_G>(q, k, v, kv_len, out, batch, kv_heads,
-                                        G, s2, block, sb, sh, ss, P, stream);
+    return walk_rows<CacheT, dec_rows(1)>(q, k, v, kv_len, out, batch,
+                                          kv_heads, G, s2, block, sb, sh, ss,
+                                          P, stream);
+  return walk_rows<CacheT, DEC_MAX_G>(q, k, v, kv_len, out, batch, kv_heads,
+                                      G, s2, block, sb, sh, ss, P, stream);
+}
+
+template <typename CacheT>
+static int cluster(const void* q, const void* k, const void* v,
+                   const void* kv_len, void* out, void* workspace, int batch,
+                   int kv_heads, int G, int s2, int block, long long sb,
+                   long long sh, long long ss, const Policy& P,
+                   cudaStream_t stream) {
+  StridedBlocks<CacheT> A;
+  A.k = static_cast<const CacheT*>(k);
+  A.v = static_cast<const CacheT*>(v);
+  A.sb = sb;
+  A.sh = sh;
+  A.ss = ss;
+  A.block = block;
+  A.max_blocks = (s2 + block - 1) / block;
+  A.s2 = s2;
+  return launch_cluster(q, A, kv_len, out, workspace, batch, kv_heads, G, P,
+                        stream);
 }
 
 }  // namespace pasa
 
-// Plain C entry point (bound with ctypes).  Strides are in elements, for
-// the (batch, kv-head, row) dims shared by k and v; returns the
-// cudaError_t of the launch (0: queued on `stream`).
+// Plain C entry points (bound with ctypes).  Strides are in elements, for
+// the (batch, kv-head, row) dims shared by k and v; each returns the
+// cudaError_t of the launch (0: queued on `stream`).  `workspace` holds
+// batch * kv_heads * ceil(s2 / block) * group * (128 + 3) floats (the
+// blocks' partials).
 extern "C" int pasa_decode_launch(
+    const void* q, const void* k, const void* v, const void* kv_len,
+    void* out, void* workspace, int batch, int kv_heads, int group, int s2,
+    int block, long long sb, long long sh, long long ss, int cache_is_bf16,
+    float beta, float inva, float shift_scale, float post_scale,
+    int stat_half, int acc_half, void* stream) {
+  using namespace pasa;
+  if (group < 1 || group > DEC_MAX_G || block < 1 || block > DEC_MAX_BLOCK ||
+      batch < 1 || batch > 65535 || kv_heads < 1 || kv_heads > 65535 ||
+      s2 < 1 || !workspace)
+    return (int)cudaErrorInvalidValue;
+  const Policy P = make_policy(beta, inva, shift_scale, post_scale, stat_half,
+                               acc_half);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cache_is_bf16)
+    return cluster<__nv_bfloat16>(q, k, v, kv_len, out, workspace, batch,
+                                  kv_heads, group, s2, block, sb, sh, ss, P, s);
+  return cluster<__half>(q, k, v, kv_len, out, workspace, batch, kv_heads,
+                         group, s2, block, sb, sh, ss, P, s);
+}
+
+// The sequential walk, the oracle of the cluster kernels on the card: the
+// arguments of pasa_decode_launch without the workspace.
+extern "C" int pasa_decode_walk_launch(
     const void* q, const void* k, const void* v, const void* kv_len,
     void* out, int batch, int kv_heads, int group, int s2, int block,
     long long sb, long long sh, long long ss, int cache_is_bf16, float beta,
@@ -148,8 +195,8 @@ extern "C" int pasa_decode_launch(
                                acc_half);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cache_is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, kv_len, out, batch, kv_heads, group,
-                                 s2, block, sb, sh, ss, P, s);
-  return launch<__half>(q, k, v, kv_len, out, batch, kv_heads, group, s2,
-                        block, sb, sh, ss, P, s);
+    return walk<__nv_bfloat16>(q, k, v, kv_len, out, batch, kv_heads, group,
+                               s2, block, sb, sh, ss, P, s);
+  return walk<__half>(q, k, v, kv_len, out, batch, kv_heads, group, s2, block,
+                      sb, sh, ss, P, s);
 }

@@ -1,0 +1,323 @@
+// PASA flash-decode with a sequence's KV blocks spread over a CTA cluster
+// and folded exactly in order (sm_90a), shared by the paged decode kernel
+// (pasa_paged_decode.cu: block j is page table[b, j] of a pool) and the
+// contiguous decode kernel (pasa_decode.cu: block j is rows [j * block,
+// (j + 1) * block) of a cache read through strides).  The two differ only
+// in the addressing parameter of the kernel template: PagedBlocks or
+// StridedBlocks give the address of a block's first row and its row
+// stride.
+//
+// The F-bar recurrence of PASA is order-dependent, so the usual split-KV
+// log-sum-exp combine would be a new convention.  But what a block
+// contributes before the running state is read - s-bar, the local max and
+// sum, and P V at the accumulator dtype (decode_block_partials) - does
+// not depend on earlier blocks.  So each (sequence, kv-head) gets a
+// cluster of DEC_CLUSTER CTAs:
+//   1. rank r reduces the live blocks j = r, r + 8, ... to their partials
+//      and writes them to a workspace in device memory (the wrapper's
+//      torch.empty); inside the CTA the next block's K/V bytes - and, for
+//      8-bit pools, its sidecars - arrive by cp.async into a staging
+//      buffer while the current block is computed, so neither the load
+//      nor the sidecar -> code dependency stands in the block's path;
+//   2. a cluster barrier (release / acquire at cluster scope);
+//   3. rank r folds head-dim columns [16 r, 16 r + 16) of every row over
+//      j = 0 .. n_live - 1 in order (decode_fold_step: row_update, run
+//      redundantly by each of the row's threads, then acc_update), and
+//      writes O = acc / l.
+// Step 3 performs the floating-point operations of the sequential walk
+// (decode_block_update, block after block) on the same values, so the
+// result equals the walk's bit for bit; pasa_decode.cu keeps the walk as
+// a second entry point, the on-card oracle of both cluster kernels.
+//
+// Rules kept from the walk: blocks past kv_len are never read; K and V
+// rows past `valid` are not loaded (both enter shared memory as zeros);
+// a dead page's sidecars are never read; a rank with no live block still
+// arrives at the cluster barrier.
+#pragma once
+
+#include "pasa_decode_block.cuh"
+
+namespace pasa {
+
+constexpr int DEC_CLUSTER = 8;                             // CTAs per (b, h)
+constexpr int DEC_FOLD_COLS = HEAD_DIM / DEC_CLUSTER;      // 16 per rank
+static_assert(DEC_THREADS % DEC_FOLD_COLS == 0, "fold mapping");
+
+// A block as it arrives from device memory, before conversion to fp16.
+template <typename T>
+struct PageStage {
+  T k[DEC_MAX_BLOCK][HEAD_DIM];
+  T v[DEC_MAX_BLOCK][HEAD_DIM];
+  PageSidecars sc;   // 8-bit pools only
+};
+
+constexpr size_t DEC_STAGE_OFF = (sizeof(DecodeSmem) + 127) / 128 * 128;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync_release_acquire() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Block j of (b, h) is page table[b, j] of a (P, page, KVH, D) pool of
+// raw values or 8-bit codes (with per-(page, kv-head) sidecars).
+template <typename T>
+struct PagedBlocks {
+  using Elem = T;
+  const T* k;
+  const T* v;
+  SidecarPtrs sc;        // 8-bit pools only
+  const int* table;      // (B, max_blocks)
+  int block, max_blocks, kv_heads;
+
+  __device__ int length(int b, const int* kv_len) const { return kv_len[b]; }
+  __device__ int count(int L) const {
+    return L > 0 ? min(max_blocks, (L + block - 1) / block) : 0;
+  }
+  __device__ int page_id(int b, int j) const {
+    return table[(size_t)b * max_blocks + j];
+  }
+  // element offset of the block's first row, and the row stride
+  __device__ size_t offset(int b, int h, int j) const {
+    return ((size_t)page_id(b, j) * block * kv_heads + h) * HEAD_DIM;
+  }
+  __device__ long long row_stride() const { return (long long)kv_heads * HEAD_DIM; }
+};
+
+// Block j of (b, h) is rows [j * block, (j + 1) * block) of a (B, KVH, S2,
+// D) cache read through the element strides sb, sh, ss (raw values only).
+template <typename T>
+struct StridedBlocks {
+  using Elem = T;
+  const T* k;
+  const T* v;
+  long long sb, sh, ss;
+  int block, max_blocks, s2;
+
+  __device__ int length(int b, const int* kv_len) const {
+    return max(0, min(kv_len[b], s2));
+  }
+  __device__ int count(int L) const { return (L + block - 1) / block; }
+  __device__ size_t offset(int b, int h, int j) const {
+    return (size_t)(b * sb + h * sh + (long long)j * block * ss);
+  }
+  __device__ long long row_stride() const { return ss; }
+};
+
+// Start the copy of live block j's first `valid` K and V rows of (b, h)
+// (and, for 8-bit pools, its page's sidecars) into `st`.
+template <typename Blocks>
+__device__ __forceinline__ void issue_block(PageStage<typename Blocks::Elem>& st,
+                                            const Blocks& A, int b, int h,
+                                            int j, int valid) {
+  using T = typename Blocks::Elem;
+  constexpr int EPC = 16 / sizeof(T);            // elements per 16 bytes
+  constexpr int CPR = HEAD_DIM / EPC;            // 16-byte chunks per row
+  const int t = threadIdx.x;
+  const size_t off = A.offset(b, h, j);
+  const long long rs = A.row_stride();
+  for (int i = t; i < valid * CPR; i += DEC_THREADS) {
+    const int r = i / CPR, c = (i % CPR) * EPC;
+    cp_async16(&st.k[r][c], A.k + off + r * rs + c);
+    cp_async16(&st.v[r][c], A.v + off + r * rs + c);
+  }
+  if constexpr (kIsCode<T>) {
+    const size_t ph = (size_t)A.page_id(b, j) * A.kv_heads + h;
+    // (the side is picked by a select: a runtime index into the pointer
+    // arrays would copy them to local memory)
+    if (t < 2 * HEAD_DIM / 4) {
+      const int side = t / (HEAD_DIM / 4), c = (t % (HEAD_DIM / 4)) * 4;
+      const float* shift = side ? A.sc.shift[1] : A.sc.shift[0];
+      cp_async16(&st.sc.shift[side][c], shift + ph * HEAD_DIM + c);
+    } else if (t < 2 * HEAD_DIM / 4 + 2) {
+      const int side = t - 2 * HEAD_DIM / 4;
+      cp_async4(&st.sc.scale[side], (side ? A.sc.scale[1] : A.sc.scale[0]) + ph);
+    }
+  }
+  cp_async_commit();
+}
+
+// Staged block -> S.k / S.v at fp16: raw values convert, 8-bit codes
+// dequantize with the staged sidecars; rows past `valid` become zeros.
+template <typename T>
+__device__ __forceinline__ void convert_block(DecodeSmem& S,
+                                              const PageStage<T>& st,
+                                              int valid, int block) {
+  const int t = threadIdx.x;
+  const int c8 = (t & 15) * 8;
+  for (int r = t >> 4; r < block; r += DEC_THREADS / 16) {
+    uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
+    if (r < valid) {
+      kk = load_pool8(&st.k[r][c8], 0, c8, st.sc);
+      vv = load_pool8(&st.v[r][c8], 1, c8, st.sc);
+    }
+    const __half2* k2 = reinterpret_cast<const __half2*>(&kk);
+    __half2* kd = reinterpret_cast<__half2*>(&S.k[r][c8]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) kd[i] = k2[i];
+    *reinterpret_cast<uint4*>(&S.v[r][c8]) = vv;
+  }
+}
+
+template <typename Blocks, int NG>
+__global__ void __launch_bounds__(DEC_THREADS)
+cluster_decode_kernel(const __half* __restrict__ q,      // (B, KVH, G, D)
+                      const Blocks A,
+                      const int* __restrict__ kv_len,    // (B,)
+                      __half* __restrict__ out,          // (B, KVH, G, D)
+                      float* __restrict__ ws_pv,     // (B, KVH, max_blocks, G, D)
+                      float* __restrict__ ws_stats,  // (B, KVH, max_blocks, 3, G)
+                      int kv_heads, int G, Policy P) {
+  using T = typename Blocks::Elem;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  DecodeSmem& S = *reinterpret_cast<DecodeSmem*>(smem_raw);
+  PageStage<T>& st = *reinterpret_cast<PageStage<T>*>(smem_raw + DEC_STAGE_OFF);
+  const int rank = blockIdx.x;            // == the CTA's rank in its cluster
+  const int b = blockIdx.y;
+  const int h = blockIdx.z;
+  const int t = threadIdx.x;
+  const size_t bh = (size_t)b * kv_heads + h;
+  const int block = A.block, max_blocks = A.max_blocks;
+
+  const int L = A.length(b, kv_len);
+  const int n_live = A.count(L);
+
+  // 1. this rank's blocks to partials, the next block in flight meanwhile
+  if (rank < n_live) {
+    issue_block(st, A, b, h, rank, min(block, L - rank * block));
+    const __half* qbh = q + bh * G * HEAD_DIM;
+    for (int g = 0; g < G; ++g) S.q[g][t] = qbh[g * HEAD_DIM + t];
+  }
+  for (int j = rank; j < n_live; j += DEC_CLUSTER) {
+    const int valid = min(block, L - j * block);
+    cp_async_wait_all();
+    __syncthreads();   // block j staged; the previous block's math is done
+    convert_block(S, st, valid, block);
+    __syncthreads();   // the staging buffer is free again
+    const int jn = j + DEC_CLUSTER;
+    if (jn < n_live) issue_block(st, A, b, h, jn, min(block, L - jn * block));
+    float pv[NG];
+    decode_block_partials<NG>(S, valid, block, G, P, pv);
+    float* pvj = ws_pv + ((bh * max_blocks + j) * G) * HEAD_DIM + t;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+      if (g < G) pvj[g * HEAD_DIM] = pv[g];
+    if (t < G) {
+      float* sj = ws_stats + (bh * max_blocks + j) * 3 * G;
+      sj[t] = S.sbar[t];
+      sj[G + t] = S.m_loc[t];
+      sj[2 * G + t] = S.l_loc[t];
+    }
+  }
+
+  // 2. every block's partials are written
+  __threadfence();
+  cluster_sync_release_acquire();
+
+  // 3. the fold of this rank's 16 columns, blocks in order
+  const int col = rank * DEC_FOLD_COLS + t % DEC_FOLD_COLS;
+  for (int g = t / DEC_FOLD_COLS; g < G; g += DEC_THREADS / DEC_FOLD_COLS) {
+    FoldState fs = fold_state_init();
+    const float* sj = ws_stats + bh * max_blocks * 3 * G + g;
+    const float* pj = ws_pv + (bh * max_blocks * G + g) * HEAD_DIM + col;
+    float sbar = 0.0f, m_loc = 0.0f, l_loc = 0.0f, pv = 0.0f;
+    if (n_live > 0) {
+      sbar = __ldcg(sj);
+      m_loc = __ldcg(sj + G);
+      l_loc = __ldcg(sj + 2 * G);
+      pv = __ldcg(pj);
+    }
+    for (int j = 0; j < n_live; ++j) {
+      // the next block's partials load while this one folds
+      float sbar_n = 0.0f, m_loc_n = 0.0f, l_loc_n = 0.0f, pv_n = 0.0f;
+      if (j + 1 < n_live) {
+        const float* sn = sj + (size_t)(j + 1) * 3 * G;
+        sbar_n = __ldcg(sn);
+        m_loc_n = __ldcg(sn + G);
+        l_loc_n = __ldcg(sn + 2 * G);
+        pv_n = __ldcg(pj + (size_t)(j + 1) * G * HEAD_DIM);
+      }
+      decode_fold_step(fs, j, sbar, m_loc, l_loc, pv, P);
+      sbar = sbar_n;
+      m_loc = m_loc_n;
+      l_loc = l_loc_n;
+      pv = pv_n;
+    }
+    // O = acc / l at the accumulator dtype, stored at fp16
+    out[(bh * G + g) * HEAD_DIM + col] =
+        __float2half_rn(rnd(__fdiv_rn(fs.acc, fs.l), P.acc_half));
+  }
+}
+
+template <typename Blocks, int NG>
+static int launch_cluster_rows(const void* q, const Blocks& A,
+                               const void* kv_len, void* out, void* workspace,
+                               int batch, int kv_heads, int G, const Policy& P,
+                               cudaStream_t stream) {
+  const size_t smem = DEC_STAGE_OFF + sizeof(PageStage<typename Blocks::Elem>);
+  auto kernel = cluster_decode_kernel<Blocks, NG>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(DEC_CLUSTER, batch, kv_heads);
+  cfg.blockDim = dim3(DEC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = DEC_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // once per instance: the attribute, and a cluster that fits on a GPC
+  static int ready = 0;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    ready = 1;
+  }
+  float* ws = static_cast<float*>(workspace);
+  float* ws_stats = ws + (size_t)batch * kv_heads * A.max_blocks * G * HEAD_DIM;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __half*>(q), A,
+      static_cast<const int*>(kv_len), static_cast<__half*>(out), ws, ws_stats,
+      kv_heads, G, P);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// One launch of the cluster kernel over the blocks A names; `workspace`
+// holds batch * kv_heads * A.max_blocks * G * (128 + 3) floats (the
+// blocks' partials).  The row count of the register arrays is a template
+// (8 or 16 rows: dec_rows), so a group of 7 carries 8.
+template <typename Blocks>
+static int launch_cluster(const void* q, const Blocks& A, const void* kv_len,
+                          void* out, void* workspace, int batch, int kv_heads,
+                          int G, const Policy& P, cudaStream_t stream) {
+  if (G <= dec_rows(1))
+    return launch_cluster_rows<Blocks, dec_rows(1)>(
+        q, A, kv_len, out, workspace, batch, kv_heads, G, P, stream);
+  return launch_cluster_rows<Blocks, DEC_MAX_G>(
+      q, A, kv_len, out, workspace, batch, kv_heads, G, P, stream);
+}
+
+}  // namespace pasa

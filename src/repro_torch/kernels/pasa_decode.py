@@ -3,12 +3,18 @@ version.
 
 Counterpart of ``repro.kernels.pasa_decode``.
 
-  * :func:`kernel_call` launches ``csrc/pasa_decode.cu``: one CTA per
-    (sequence, kv-head) folds blocks of ``block_kv`` rows in order up to
-    ``kv_len`` through ``decode_block_update``, the block update the paged
-    decode kernel runs per page - so paged == contiguous bit for bit when
-    page == block.  The cache is read in its stored layout and dtype
-    (bf16) through its strides; rows at or past ``kv_len`` are never read.
+  * :func:`kernel_call` launches ``csrc/pasa_decode.cu``: a cluster of 8
+    CTAs per (sequence, kv-head) reduces the blocks of ``block_kv`` rows up
+    to ``kv_len`` to partials in parallel, then folds them exactly in
+    block order, into a workspace the wrapper allocates - the paged decode
+    kernel's template over a strided cache, so paged == contiguous bit for
+    bit when page == block.  The cache is read in its stored layout and
+    dtype (bf16) through its strides; rows at or past ``kv_len`` are never
+    read.
+  * :func:`_walk_call` launches the same source's sequential walk (one CTA
+    per (sequence, kv-head), blocks in order): the on-card oracle that
+    both cluster kernels equal bit for bit.  Only the card tests and
+    ``chip_smoke.py`` call it; no wrapper does.
   * :func:`decode_plain` is what the dense decode layer runs:
     ``core.pasa.blocked_attention`` at the ``shift_mask_valid``
     convention over the cache (``paged_decode_plain`` without the
@@ -52,12 +58,13 @@ def decode_plain(
     )
 
 
-def _entry() -> ctypes._CFuncPtr:
-    fn = _build.load("pasa_decode").pasa_decode_launch
+def _entry(name: str = "pasa_decode_launch") -> ctypes._CFuncPtr:
+    fn = getattr(_build.load("pasa_decode"), name)
+    n_ptrs = 6 if name == "pasa_decode_launch" else 5   # + the workspace
     fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
-        + [ctypes.c_int] + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
-        + [ctypes.c_void_p]
+        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
+        + [ctypes.c_longlong] * 3 + [ctypes.c_int] + [ctypes.c_float] * 4
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
@@ -76,16 +83,37 @@ def kernel_call(
     """Launch the CUDA kernel on the current stream.  Arguments are
     validated by :func:`repro_torch.kernels.ops.pasa_decode`."""
     b, kvh, g, d = q.shape
-    s2 = k_cache.shape[2]
+    n_blocks = -(-k_cache.shape[2] // block_kv)
+    # the blocks' partials: P V (B, KVH, n_blocks, G, D) then the row
+    # statistics (B, KVH, n_blocks, 3, G), f32
+    workspace = torch.empty(b * kvh * n_blocks * g * (d + 3),
+                            dtype=torch.float32, device=q.device)
+    return _launch("pasa_decode_launch", q, k_cache, v_cache, kv_len,
+                   workspace, beta=beta, policy=policy, block_kv=block_kv)
+
+
+def _walk_call(q, k_cache, v_cache, kv_len, *, beta: float,
+               policy: PrecisionPolicy, block_kv: int) -> torch.Tensor:
+    """The sequential walk on the card (inputs as :func:`kernel_call`
+    takes them): the bit-for-bit oracle of the cluster kernels, for tests
+    and ``chip_smoke.py`` only."""
+    return _launch("pasa_decode_walk_launch", q, k_cache, v_cache, kv_len,
+                   None, beta=beta, policy=policy, block_kv=block_kv)
+
+
+def _launch(name, q, k_cache, v_cache, kv_len, workspace, *, beta, policy,
+            block_kv):
+    b, kvh, g, d = q.shape
     out = torch.empty_like(q)
-    err = _entry()(
+    ws = [] if workspace is None else [workspace.data_ptr()]
+    err = _entry(name)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(),
-        b, kvh, g, s2, block_kv, *k_cache.stride()[:3],
+        kv_len.data_ptr(), out.data_ptr(), *ws,
+        b, kvh, g, k_cache.shape[2], block_kv, *k_cache.stride()[:3],
         int(k_cache.dtype == torch.bfloat16),
         *policy_scalars(beta, policy, d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"pasa_decode launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} failed: cudaError {err}")
     return out

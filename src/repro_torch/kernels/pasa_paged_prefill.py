@@ -2,9 +2,11 @@
 
 Counterpart of ``repro.kernels.pasa_paged_prefill``.
 
-  * :func:`kernel_call` launches ``csrc/pasa_paged_prefill.cu`` (one CTA
-    per (row * head, 64-query tile), tensor-core GEMMs; see the source's
-    note).
+  * :func:`kernel_call` launches ``csrc/pasa_paged_prefill.cu``: one CTA
+    per (row * head, 128-query tile), longest causal tiles first; each
+    visible page arrives by TMA, a converter warpgroup turns it into the
+    shifted fp16 operands one page ahead, two consumer warpgroups run both
+    GEMMs as wgmma with the scores in registers (see the source's note).
   * :func:`paged_prefill_plain` is the port of the reference's
     ``paged_prefill_xla``: a gather of the pages (dequantized for 8-bit
     pools, as in ``pasa_paged_decode``), then
@@ -72,7 +74,7 @@ def paged_prefill_plain(
 def _entry() -> ctypes._CFuncPtr:
     fn = _build.load("pasa_paged_prefill").pasa_paged_prefill_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
         + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -101,7 +103,8 @@ def kernel_call(
         *sidecar_ptrs(quant),
         page_table.data_ptr(), chunk_start.data_ptr(), kv_len.data_ptr(),
         out.data_ptr(),
-        b, h, kvh, cs, page, page_table.shape[1], POOL_KINDS[k_pages.dtype],
+        b, h, kvh, cs, page, page_table.shape[1], k_pages.shape[0],
+        POOL_KINDS[k_pages.dtype],
         *policy_scalars(beta, policy, d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -44,9 +44,10 @@ DENSE_BATCH, DENSE_PROMPT = 4, 1000
 
 # kernel-name fragment -> category, first match wins
 _KERNELS = (
-    ("paged_decode_kernel", "pasa_paged_decode"),
+    ("pagedblocks", "pasa_paged_decode"),         # cluster_decode_kernel<
+    ("stridedblocks", "pasa_decode"),             #   PagedBlocks | Strided..>
     ("paged_prefill_kernel", "pasa_paged_prefill"),
-    ("contiguous_decode_kernel", "pasa_decode"),
+    ("contiguous_decode_kernel", "pasa_decode"),  # the walk (not on a path)
     ("shift_kv_kernel", "shift_kv"),
     ("pasa_attention_kernel", "pasa_attention"),
 )

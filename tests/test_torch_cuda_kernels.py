@@ -1,6 +1,7 @@
 """The port on a CUDA card: every kernel against its plain version (the
 paged kernels in both modes: raw and quantized pools), the contiguous
-decode kernel bit for bit against the paged one, and both serving routes'
+decode kernel bit for bit against the paged one and its sequential walk,
+the prefill kernel's chunk-schedule invariance, and both serving routes'
 contracts at a small size.  Every test is marked ``cuda``
 and skips without a card.  The file imports neither jax nor the reference
 package, so it runs where only PyTorch is installed:
@@ -340,8 +341,11 @@ def test_contiguous_decode_equals_paged_decode_bit_for_bit(block):
         paged = ops.pasa_paged_decode(q, kp, vp, table, kvl, beta=beta)
         contiguous = ops.pasa_decode(q, kc.transpose(1, 2), vc.transpose(1, 2),
                                      kvl, beta=beta, block_kv=block)
+        walk = cmod._walk_call(q, kc.transpose(1, 2), vc.transpose(1, 2), kvl,
+                               beta=beta, policy=FP16, block_kv=block)
         assert torch.isfinite(contiguous.float()).all()
         assert torch.equal(contiguous, paged)
+        assert torch.equal(contiguous, walk)
 
 
 @pytest.mark.cuda
@@ -413,12 +417,14 @@ def test_dense_route_on_card_batched_equals_one_at_a_time():
 @pytest.mark.parametrize("g", [7, 12])
 @pytest.mark.parametrize("page", [64, 128])
 def test_paged_decode_equals_contiguous_at_cluster_boundaries(page, g):
-    """The paged kernel spreads a sequence's pages over a cluster of 8
-    CTAs and folds their partials in order; the contiguous kernel walks
-    the same rows one block after another.  Bit for bit equal at 1, 7, 8,
-    9, 16, 17 and 33 live pages (full and ragged last pages), at both
-    policies, PASA and FlashAttention-2, for groups of up to 8 and of up
-    to 16 rows (the kernels' two register layouts)."""
+    """Both decode kernels spread a sequence's blocks over a cluster of 8
+    CTAs and fold their partials in order - the paged one over a page
+    pool, the contiguous one over a strided cache; the contiguous
+    source's sequential walk folds the same rows one block after another.
+    All three bit for bit equal at 1, 7, 8, 9, 16, 17 and 33 live blocks
+    (full and ragged last blocks), at both policies, PASA and
+    FlashAttention-2, for groups of up to 8 and of up to 16 rows (the
+    kernels' two register layouts)."""
     dev = _card()
     rng = np.random.default_rng(15)
     kvh, d = 4, 128
@@ -437,8 +443,12 @@ def test_paged_decode_equals_contiguous_at_cluster_boundaries(page, g):
             contiguous = ops.pasa_decode(q, kc.transpose(1, 2),
                                          vc.transpose(1, 2), kvl, beta=beta,
                                          policy=policy, block_kv=page)
+            walk = cmod._walk_call(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                                   kvl, beta=beta, policy=policy,
+                                   block_kv=page)
             assert torch.isfinite(paged.float()).all()
-            assert torch.equal(contiguous, paged), (policy.name, beta)
+            assert torch.equal(contiguous, walk), (policy.name, beta)
+            assert torch.equal(paged, walk), (policy.name, beta)
 
 
 @pytest.mark.cuda
@@ -512,3 +522,81 @@ def test_attention_kernel_overflow_headline():
     good = ops.pasa_attention(q, k, v, beta=BETA, policy=FP16)
     assert not torch.isfinite(bad.float()).all()
     assert torch.isfinite(good.float()).all()
+
+
+def _prefill_pool(rng, seq_lens, kvh, page, dev, pool):
+    """A shuffled pool for prefill rows (NaN past each length), raw bf16
+    or quantized per page to ``pool``; returns (k, v, table, sidecars)."""
+    kp, vp, table = _pool(rng, seq_lens, kvh, page, dev)
+    if pool == "bf16":
+        return kp, vp, table, {}
+    kq, vq, quant, _ = _quantized(kp, vp, table, seq_lens, pool)
+    return kq, vq, table, quant
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("group", [1, 7])
+@pytest.mark.parametrize("page", [16, 64, 128])
+def test_prefill_kernel_matches_plain_version(page, group, pool):
+    """The paged prefill kernel against its plain version at pages 16, 64
+    and 128 (wgmma at N = 64 and 128, surplus columns masked), GQA
+    groups 1 and 7, raw and 8-bit pools, both policies, PASA and
+    FlashAttention-2, with chunks that start off the kernel's 128-row
+    query tiles (37, 130), a chunk of 100 queries and a pad row.  Keys
+    have mean 2; PASA is held at queries of mean 1, FlashAttention-2 at
+    mean 0: it stores the raw scores (~256 at mean 1, fp16 ulp 0.25) at
+    fp16 before the 1/sqrt(d) scale, and two summation orders then part
+    by more than the tolerance on rows that see a few keys."""
+    dev = _card()
+    rng = np.random.default_rng(19)
+    kvh = 2
+    start, plen = [0, 37, 130, 0], [100, 137, 230, 0]
+    kp, vp, table, quant = _prefill_pool(rng, plen, kvh, page, dev, pool)
+    table[3] = 0
+    qs = {BETA: _randn(rng, (4, kvh * group, 100, 128), 1.0, dev),
+          0.0: _randn(rng, (4, kvh * group, 100, 128), 0.0, dev)}
+    st = torch.tensor(start, dtype=torch.int32, device=dev)
+    pl = torch.tensor(plen, dtype=torch.int32, device=dev)
+    for policy in (FP16, FP16_FP32):
+        for beta, q in qs.items():
+            got = ops.pasa_paged_prefill(q, kp, vp, table, st, pl, beta=beta,
+                                         policy=policy, **quant)
+            want = pmod.paged_prefill_plain(q, kp, vp, table, st, pl,
+                                            beta=beta, policy=policy, **quant)
+            assert torch.isfinite(got.float()).all()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **PREFILL_TOL)
+            assert not got[3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("page", [16, 64, 128])
+def test_prefill_kernel_is_chunk_schedule_and_batch_invariant(page, pool):
+    """A 300-query prompt (290 valid) prefilled in one chunk, or as two
+    chunks split at a page-aligned cut or at 37 / 130 (off the kernel's
+    query tiles and, for pages over 1, inside a page): the second chunk's
+    rows are bit-identical to the same rows of the single chunk, and at a
+    page-aligned cut the first chunk's too.  The prompt's output is also
+    the same whether it is prefilled alone or beside other rows."""
+    dev = _card()
+    rng = np.random.default_rng(20)
+    kvh, g, n = 2, 7, 290
+    kp, vp, table, quant = _prefill_pool(rng, [n, 200], kvh, page, dev, pool)
+    q = _randn(rng, (2, kvh * g, 300, 128), 1.0, dev)
+    run = lambda qq, rows, s0, kvl: ops.pasa_paged_prefill(
+        qq, kp, vp, table[rows],
+        torch.tensor(s0, dtype=torch.int32, device=dev),
+        torch.tensor(kvl, dtype=torch.int32, device=dev), beta=BETA,
+        **quant)
+    one = run(q[:1], [0], [0], [n])
+    both = run(q, [0, 1], [0, 0], [n, 200])
+    assert torch.isfinite(one.float()).all()
+    assert torch.equal(both[:1], one)
+    for cut in (37, 130, 2 * page):
+        first = run(q[:1, :, :cut], [0], [0], [cut])
+        second = run(q[:1, :, cut:], [0], [cut], [n])
+        assert torch.equal(second, one[:, :, cut:]), cut
+        if cut % page == 0:
+            assert torch.equal(first, one[:, :, :cut]), cut

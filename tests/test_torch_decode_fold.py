@@ -1,4 +1,4 @@
-"""The exact in-order fold behind the paged decode kernel's page split.
+"""The exact in-order fold behind the decode kernels' cluster split.
 
 The CUDA paged decode kernel reduces the pages of one (sequence, kv head)
 to per-page partials in parallel - row pseudo-average, local max, local
@@ -10,7 +10,10 @@ cluster take them (page j on rank j mod 8), then folded in page order.
 The result must equal the sequential walk of ``paged_decode_plain`` bit
 for bit, at three policies, from a bf16 and an int8 pool, at kv_len on
 either side of a page and of the cluster's 8 pages; and it must agree
-with the reference's gather fallback at the decode tolerance.
+with the reference's gather fallback at the decode tolerance.  The
+contiguous decode kernel's split over a strided dense cache is held the
+same way against ``decode_plain`` and the reference's contiguous decode
+kernel (interpret mode).
 """
 
 import math
@@ -32,6 +35,7 @@ from repro_torch.core.pasa import (
     prepare_blocks,
 )
 from repro_torch.core.precision import FP16, FP16_FP32, FP32
+from repro_torch.kernels import pasa_decode as cmod
 from repro_torch.kernels import pasa_paged_decode as dmod
 
 torch.set_num_threads(1)
@@ -123,5 +127,74 @@ def test_fold_of_page_partials_equals_sequential_walk(policy, pool, kv_len):
         jnp.asarray(q), kr, vr, jnp.asarray(table),
         jnp.asarray([kv_len], jnp.int32), beta=BETA, policy=ref_pol,
         use_kernel=False, **ref_quant)
+    np.testing.assert_allclose(folded.float().numpy(),
+                               np.asarray(ref, np.float32), **DECODE_TOL)
+
+
+# The contiguous decode kernel runs the same cluster split over a strided
+# (B, KVH, S2, D) view of the dense route's (B, S2, KVH, D) cache: block j
+# is rows [j * block, (j + 1) * block), only the live blocks (j * block <
+# kv_len) are reduced, and S2 need not be a multiple of the block.
+S2 = 1040                      # the dense serve's cache: 1000 + 32 + 8 rows
+CONTIGUOUS_KV_LENS = [1, 127, 128, 1002]
+
+
+def _strided_case(kv_len, seed=0):
+    """One sequence's bf16 cache (1, S2, KVH, D), NaN past kv_len, seen as
+    (1, KVH, S2, D) through strides; numpy q and the zero-filled float32
+    cache (1, KVH, S2, D) that the reference's kernel is given."""
+    rng = np.random.default_rng(seed + kv_len)
+    k = (rng.standard_normal((1, S2, KVH, D)) + 2.0).astype(np.float32)
+    v = rng.standard_normal((1, S2, KVH, D)).astype(np.float32)
+    k[:, kv_len:] = np.nan
+    v[:, kv_len:] = np.nan
+    kt, vt = (torch.from_numpy(x).to(torch.bfloat16).transpose(1, 2)
+              for x in (k, v))
+    q = rng.standard_normal((1, KVH, G, D)).astype(np.float32)
+    ref_k, ref_v = (np.nan_to_num(x.float().numpy()) for x in (kt, vt))
+    return q, kt, vt, ref_k, ref_v
+
+
+def _fold_of_block_partials(q, kc, vc, kv_len, policy, block):
+    """decode_plain with its block loop split in two, over the live blocks
+    only: every block's partials first (rank by rank, as the kernel's
+    cluster takes them), then the fold in block order."""
+    dt = policy.input_dtype
+    cast = lambda x: x.to(dt).contiguous()
+    prob = prepare_blocks(
+        cast(q), cast(kc), cast(vc), beta=BETA, policy=policy,
+        block_kv=block, causal=False, kv_len=kv_len.reshape(-1, 1),
+        use_gemm_shift=False, shift_mask_valid=True,
+    )
+    n_live = math.ceil(int(kv_len[0]) / block)
+    parts = {}
+    for rank in range(CLUSTER):
+        for j in range(rank, n_live, CLUSTER):
+            parts[j] = block_partials(policy=policy, **prob.block_args(j))
+    state = prob.init_state(policy)
+    for j in range(n_live):
+        state = fold_partials(state, parts[j], inva=prob.inva, policy=policy)
+    return finalize_state(state, policy)
+
+
+@pytest.mark.parametrize("kv_len", CONTIGUOUS_KV_LENS)
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_fold_of_block_partials_over_strided_cache_equals_walk(policy, block,
+                                                               kv_len):
+    pol, ref_pol = POLICIES[policy]
+    q, kc, vc, ref_k, ref_v = _strided_case(kv_len)
+    qt = torch.from_numpy(q)
+    kvl = torch.tensor([kv_len], dtype=torch.int32)
+    folded = _fold_of_block_partials(qt, kc, vc, kvl, pol, block)
+    walk = cmod.decode_plain(qt, kc, vc, kvl, beta=BETA, policy=pol,
+                             block_kv=block)
+    assert torch.isfinite(folded.float()).all()
+    assert torch.equal(folded, walk)
+
+    ref = RK.pasa_decode(
+        jnp.asarray(q), jnp.asarray(ref_k), jnp.asarray(ref_v),
+        jnp.asarray([kv_len], jnp.int32), beta=BETA, policy=ref_pol,
+        block_kv=block, interpret=True)
     np.testing.assert_allclose(folded.float().numpy(),
                                np.asarray(ref, np.float32), **DECODE_TOL)

@@ -131,6 +131,33 @@ def test_prefill_is_bit_invariant_to_chunk_schedule():
         assert torch.equal(torch.cat([a, c], dim=2), one), cut
 
 
+@pytest.mark.parametrize("cut", [37, 48, 130, 144])
+def test_prefill_chunk_starting_off_the_row_tiles_is_bit_invariant(cut):
+    """A chunk may start anywhere, not only at a multiple of the kernel's
+    64- or 128-row query tiles: one 160-query prompt (150 valid, page 16)
+    prefilled in one chunk, or as two chunks split at ``cut``.  The
+    second chunk's rows (same kv_len) are bit-identical to the same rows
+    of the single chunk; at a page-aligned cut (48, 144) the first
+    chunk's are too.  A cut inside a page (37, 130) changes the first
+    chunk's last page: its valid column set ends at the cut, and the key
+    mean and pseudo-average are over that set."""
+    rng = np.random.default_rng(11)
+    page, n = 16, 150
+    k, v, table = _t(*_pool(rng, [n], 2, 32, page))
+    q = torch.from_numpy(
+        (rng.standard_normal((1, 4, 160, 32)) + 1.0).astype(np.float32))
+    run = lambda qq, s0, kvl: ops.pasa_paged_prefill(
+        qq, k, v, table, torch.tensor([s0]), torch.tensor([kvl]), beta=BETA,
+        policy=FP16)
+    one = run(q, 0, n)
+    first = run(q[:, :, :cut], 0, cut)
+    second = run(q[:, :, cut:], cut, n)
+    assert torch.isfinite(second.float()).all()
+    assert torch.equal(second, one[:, :, cut:])
+    if cut % page == 0:
+        assert torch.equal(first, one[:, :, :cut])
+
+
 def test_stale_pages_are_inert():
     """Replacing every stale byte (NaN) by other garbage changes nothing."""
     q, k, v, table, kv_len = _decode_case()
