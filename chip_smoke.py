@@ -7,7 +7,9 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card's name and power limit (nvidia-smi), then the build of every
-     CUDA kernel with nvcc from the sources in the checkout;
+     CUDA kernel with nvcc from the sources in the checkout, and the
+     package's exports (``from repro_torch.kernels import pasa_attention``
+     gives the op);
   2. each kernel against its plain PyTorch version on the card, at the
      serving paths' shapes (qwen2-7b: H 28, KVH 4, G 7, D 128, block and
      page 128, fp16 PASA policy, beta 0.984497), and against a float64
@@ -18,9 +20,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the PASA attention kernel (with its FlashAttention-2 setting and the
      paper's fp16 overflow headline) and the contiguous decode kernel
      (bit for bit against its sequential walk and the paged one on the
-     same rows); the paged decode kernel is timed also at a paged serve's
-     decode call (batch 4, kv 1002/519/302/131) from each pool dtype, the
-     contiguous one at the dense serve's (batch 4, kv 1002, 1040 rows);
+     same rows, and at the op's default block of 256 rows against its
+     plain version and its walk); shift-KV in each of its modes (bf16 and
+     fp16 keys under fp16 operands, bf16 operands under the bf16_fp32
+     policy, blocks 128 and 64); the paged decode kernel is timed also
+     at a paged serve's decode call (batch 4, kv 1002/519/302/131) from
+     each pool dtype, the contiguous one at the dense serve's (batch 4,
+     kv 1002, 1040 rows);
      The quantized mode of the two paged kernels follows: the decode and
      prefill fixtures quantized per page to int8 and fp8_e4m3 codes with
      scale/shift sidecars, each kernel against its plain version under
@@ -39,7 +45,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      greedy decode to 32 tokens each; shift-KV and PASA attention launch
      28 times per prefill call, the contiguous decode kernel 28 times per
      decode call, the paged kernels never; each prompt served alone gives
-     the same stream as in the batch.
+     the same stream as in the batch.  Shift-KV's launches are counted per
+     mode: in the kernels line each mode has its own count, 0 for the
+     modes the serve does not run.
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -82,14 +90,23 @@ ATTN_CAUSAL_TOL = dict(atol=2e-3, rtol=2e-2)
 ATTN_TOL = dict(atol=8e-3, rtol=2e-2)
 FLASH_TOL = dict(atol=2e-3, rtol=2e-2)
 ATTN_RMSE_MAX = 0.02
-# shift-KV's fp16 output vs the float64 algebraic shift: the rounding of
-# M's two entries and of the store, a few 1e-4 relative
+# shift-KV vs the float64 product with the same M (every mode) and, at
+# fp16 operands, vs the float64 algebraic shift: the rounding of M's two
+# entries and of the store, a few 1e-4 relative at fp16
 SHIFT_RMSE_MAX = 1e-2
 # quantized pools: relative RMSE vs float64 attention on the unquantized
 # K/V at the fp16_fp32 policy (tests/test_kv_quant.py RMSE_BOUND); at the
 # fp16 policy, within max(2 x the raw pool's RMSE, the bound)
 QUANT_DTYPES = ("int8", "fp8_e4m3")
 QUANT_RMSE_BOUND = {"int8": 0.03, "fp8_e4m3": 0.09}
+
+
+def _kernel_module(name: str):
+    """The module ``repro_torch.kernels.<name>``: the package binds the
+    kernels' names to their ops, as ``repro.kernels`` does."""
+    import importlib
+
+    return importlib.import_module(f"repro_torch.kernels.{name}")
 
 
 def _cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -206,7 +223,8 @@ def _serve_shape_decode(dev, dtype):
     import torch.nn.functional as F
 
     from repro_torch.core.precision import FP16
-    from repro_torch.kernels import ops, pasa_paged_decode as mod
+    from repro_torch.kernels import ops
+    mod = _kernel_module("pasa_paged_decode")
 
     kvh, g, d, page = 4, 7, 128, 128
     b = len(SERVE_DECODE_KV)
@@ -240,7 +258,8 @@ def check_decode(dev):
     import torch.nn.functional as F
 
     from repro_torch.core.precision import FP16
-    from repro_torch.kernels import ops, pasa_paged_decode as mod
+    from repro_torch.kernels import ops
+    mod = _kernel_module("pasa_paged_decode")
 
     kvh, g, d, page = 4, 7, 128, 128
     b = len(DECODE_KV_LENS)
@@ -365,7 +384,8 @@ def check_prefill(dev):
     import torch.nn.functional as F
 
     from repro_torch.core.precision import FP16
-    from repro_torch.kernels import ops, pasa_paged_prefill as mod
+    from repro_torch.kernels import ops
+    mod = _kernel_module("pasa_paged_prefill")
 
     h, kvh, d, page, cs = 28, 4, 128, 128, PREFILL_CHUNK
     starts, kv_lens = PREFILL_ROWS
@@ -477,21 +497,23 @@ def _poison(kq, vq, quant, valid):
     return kq2, vq2, q2
 
 
-def _mode_entry(name, per_dtype, keys):
-    """One entry for the quantized mode of a kernel in the ``kernels``
-    line: kernel, plain and library times all of the dtype whose kernel is
-    slower, the larger error and launch count of the two (each dtype's
-    numbers under ``by_dtype``).  The bound is the same for both: one byte
-    per code and the same sidecars."""
-    slower = max(per_dtype, key=lambda k: k["ms"])
+def _mode_entry(name, per_mode, keys):
+    """One entry for the other modes of a kernel in the ``kernels`` line
+    (the quantized pools of the paged kernels, the other operand modes and
+    block of shift-KV): kernel, plain and library times and the bound all
+    of the mode whose kernel is slowest, the larger error and launch count
+    (each mode's numbers under ``by_mode``)."""
+    slower = max(per_mode, key=lambda k: k["ms"])
     entry = {key: slower[key] for key in keys}
-    entry["name"] = f"{name}/" + "|".join(QUANT_DTYPES)
+    entry["name"] = f"{name}/" + "|".join(
+        k["name"].partition("/")[2] for k in per_mode)
     for key in ("launches", "max_abs_err"):
-        entry[key] = max(k[key] for k in per_dtype)
-    entry["by_dtype"] = {
+        entry[key] = max(k[key] for k in per_mode)
+    entry["by_mode"] = {
         k["name"].partition("/")[2]: {key: k[key] for key in (
-            "launches", "max_abs_err", "ms", "plain_ms", "library_ms")}
-        for k in per_dtype}
+            "launches", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms")}
+        for k in per_mode}
     return entry
 
 
@@ -545,7 +567,8 @@ def check_decode_quant(dev, dtype):
     import torch.nn.functional as F
 
     from repro_torch.core.precision import FP16
-    from repro_torch.kernels import ops, pasa_paged_decode as mod
+    from repro_torch.kernels import ops
+    mod = _kernel_module("pasa_paged_decode")
 
     kvh, g, d, page = 4, 7, 128, 128
     b = len(DECODE_KV_LENS)
@@ -603,8 +626,9 @@ def check_prefill_quant(dev, dtype):
     import torch.nn.functional as F
 
     from repro_torch.core.precision import FP16
-    from repro_torch.kernels import ops, pasa_paged_prefill as mod
+    from repro_torch.kernels import ops
     from repro_torch.kernels.pasa_paged_decode import _gather_dequant
+    mod = _kernel_module("pasa_paged_prefill")
 
     h, kvh, d, page, cs = 28, 4, 128, 128, PREFILL_CHUNK
     starts, kv_lens = PREFILL_ROWS
@@ -661,39 +685,69 @@ def _randn(rng, shape, mean, dev, dtype):
 
 
 def check_shift_kv(dev):
+    """The shift kernel in each of its modes at the dense prefill's keys
+    (4, 4, 1024, 128), bf16 (B, S, KVH, D) read through strides (fp16 in
+    the fp16-keys modes): the path's own (bf16 keys under fp16 operands,
+    block 128) first, then fp16 keys and the bf16_fp32 policy's bf16
+    operands, each at blocks 128 and 64.  Each against its plain version
+    and the float64 product with the same rounded M; the fp16 modes also
+    against the float64 algebraic shift (bf16's M rounds beta far enough
+    to move that one: its plain version's figure is reported beside it).
+    Timed beside torch.matmul(M, K blocks) on contiguous keys at the
+    operand dtype and the bytes bound."""
     import numpy as np
     import torch
 
-    from repro_torch.core.precision import FP16
+    from repro_torch.core.precision import BF16_FP32, FP16
     from repro_torch.core.shifting import shift_kv_reference
-    from repro_torch.kernels import ops, shift_kv as mod
+    from repro_torch.kernels import ops
+    mod = _kernel_module("shift_kv")
 
     b, _, kvh, s, d = ATTN_SHAPE
     rng = np.random.default_rng(3)
-    # the dense prefill's keys: bf16 (B, S, KVH, D), read as (B, KVH, S, D)
-    k = _randn(rng, (b, s, kvh, d), 5.0, dev, torch.bfloat16).transpose(1, 2)
-    m = mod.device_matrix(128, d, BETA, torch.float16, dev)
-    got = ops.shift_kv(k, beta=BETA, block_kv=128, policy=FP16)
-    plain = mod.shift_kv_plain(m, k.to(torch.float16), 128)
-    torch.cuda.synchronize()
-    max_err = _close("shift_kv", got, plain, **SHIFT_TOL)
-    rmse = _rel_rmse(got, shift_kv_reference(k.to(torch.float16), d, BETA, 128))
-    if not rmse < SHIFT_RMSE_MAX:
-        raise AssertionError(f"shift_kv RMSE {rmse:.2e} vs float64")
-    ms = _cuda_time_ms(lambda: ops.shift_kv(k, beta=BETA, policy=FP16), 50)
-    plain_ms = _cuda_time_ms(
-        lambda: mod.shift_kv_plain(m, k.to(torch.float16), 128), 20)
-    kb = k.to(torch.float16).contiguous().reshape(b, kvh, s // 128, 128, d)
-    lib_ms = _cuda_time_ms(lambda: torch.matmul(m, kb), 50)
-    nbytes = 2 * k.numel() * 2 + m.numel() * 2    # bf16 in, fp16 out, M
-    flops = 2 * 128 * k.numel()
-    return dict(
-        name="shift_kv", route="cuda",
-        source="src/repro_torch/kernels/csrc/shift_kv.cu",
-        replaces="src/repro/kernels/shift_kv.py:48",
-        max_abs_err=max_err, rmse=rmse, ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, **_bound(nbytes, flops),
-    )
+    keys = _randn(rng, (b, s, kvh, d), 5.0, dev, torch.float32)
+    modes = []
+    for block in (128, 64):
+        for tag, kdt, policy in (("", torch.bfloat16, FP16),
+                                 ("fp16_keys", torch.float16, FP16),
+                                 ("bf16_fp32", torch.bfloat16, BF16_FP32)):
+            tag = "_".join(x for x in (tag, "" if block == 128 else
+                                       f"block{block}") if x)
+            op = policy.input_dtype
+            k = keys.to(kdt).transpose(1, 2)
+            m = mod.device_matrix(block, d, BETA, op, dev)
+            run = lambda k=k, block=block, policy=policy: ops.shift_kv(
+                k, beta=BETA, block_kv=block, policy=policy)
+            plain_of = lambda k=k, m=m, block=block, op=op: mod.shift_kv_plain(
+                m, k.to(op), block, out_dtype=op)
+            got, plain = run(), plain_of()
+            torch.cuda.synchronize()
+            name = "shift_kv" + (f"/{tag}" if tag else "")
+            max_err = _close(name, got, plain, **SHIFT_TOL)
+            kb = k.to(op).contiguous().reshape(b, kvh, s // block, block, d)
+            gold = torch.matmul(m.double(), kb.double()).reshape(got.shape)
+            rmse = _rel_rmse(got, gold)
+            ref = shift_kv_reference(k.to(op), d, BETA, block)
+            rmse_alg, rmse_alg_plain = _rel_rmse(got, ref), _rel_rmse(plain, ref)
+            if not rmse < SHIFT_RMSE_MAX or (
+                    op == torch.float16 and not rmse_alg < SHIFT_RMSE_MAX):
+                raise AssertionError(f"{name} RMSE {rmse:.2e} vs float64 "
+                                     f"(algebraic shift {rmse_alg:.2e})")
+            ms = _cuda_time_ms(run, 50)
+            plain_ms = _cuda_time_ms(plain_of, 20)
+            lib_ms = _cuda_time_ms(lambda m=m, kb=kb: torch.matmul(m, kb), 50)
+            # keys in, K' out at the operand dtype, M
+            nbytes = k.numel() * k.element_size() + got.numel() * 2 \
+                + m.numel() * 2
+            modes.append(dict(
+                name=name, mode=mod.mode_name(kdt, op, block), route="cuda",
+                source="src/repro_torch/kernels/csrc/shift_kv.cu",
+                replaces="src/repro/kernels/shift_kv.py:48",
+                max_abs_err=max_err, rmse=rmse, rmse_algebraic=rmse_alg,
+                rmse_algebraic_plain=rmse_alg_plain, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **_bound(nbytes, 2 * block * k.numel()),
+            ))
+    return modes
 
 
 def _gold_attention(q, k, v, causal):
@@ -724,7 +778,8 @@ def check_attention(dev):
 
     from repro_torch.core.precision import FP16, FP16_FP32
     from repro_torch.core.shifting import effective_invariance
-    from repro_torch.kernels import ops, pasa_attention as mod
+    from repro_torch.kernels import ops
+    mod = _kernel_module("pasa_attention")
 
     b, h, kvh, s, d = ATTN_SHAPE
     rng = np.random.default_rng(4)
@@ -821,7 +876,8 @@ def check_contiguous_decode(dev):
     import torch.nn.functional as F
 
     from repro_torch.core.precision import FP16
-    from repro_torch.kernels import ops, pasa_decode as mod
+    from repro_torch.kernels import ops
+    mod = _kernel_module("pasa_decode")
 
     kvh, g, d, block = 4, 7, 128, 128
     lens = DECODE_KV_LENS
@@ -897,6 +953,25 @@ def check_contiguous_decode(dev):
             report["stress"] = dict(
                 q_mean=q_mean, rmse=rmse, rmse_plain=rmse_plain,
                 max_abs_err=float((got.float() - plain.float()).abs().max()))
+    # the op's defaults: block 256 (the reference's), beta and policy
+    got = ops.pasa_decode(q, kview, vview, kv_len)
+    plain = mod.decode_plain(q, kview, vview, kv_len, beta=BETA, policy=FP16,
+                             block_kv=256)
+    walk = mod._walk_call(q, kview, vview, kv_len, beta=BETA, policy=FP16,
+                          block_kv=256)
+    torch.cuda.synchronize()
+    if not torch.equal(got, walk):
+        raise AssertionError("contiguous decode at block 256 != the walk")
+    report["block_256"] = dict(
+        max_abs_err=_close("pasa_decode (block 256)", got, plain, **DECODE_TOL),
+        rmse=_rel_rmse(got, gold), rmse_plain=_rel_rmse(plain, gold),
+        walk_bit_equal=True,
+        ms=_cuda_time_ms(lambda: ops.pasa_decode(q, kview, vview, kv_len), 50),
+        walk_ms=_cuda_time_ms(lambda: mod._walk_call(
+            q, kview, vview, kv_len, beta=BETA, policy=FP16, block_kv=256), 50))
+    if not report["block_256"]["rmse"] < RMSE_MAX:
+        raise AssertionError(
+            f"contiguous decode at block 256 RMSE {report['block_256']['rmse']:.4f}")
     ms = _cuda_time_ms(lambda: run(q), 50)
     plain_ms = _cuda_time_ms(lambda: plain_of(q), 3, warmup=1)
     ke, ve = (torch.nan_to_num(x.half()).repeat_interleave(g, 1)
@@ -915,7 +990,8 @@ def check_contiguous_decode(dev):
         source="src/repro_torch/kernels/csrc/pasa_decode.cu",
         replaces="src/repro/kernels/pasa_decode.py:268",
         max_abs_err=max_err, walk_and_paged_bit_equal=True, ms=ms,
-        walk_ms=walk_ms, plain_ms=plain_ms, library_ms=lib_ms, **report,
+        walk_ms=walk_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        detail=report.pop("block_256"), **report,
         **_serve_shape_contiguous_decode(dev), **_bound(nbytes, flops),
     )
 
@@ -945,6 +1021,20 @@ def _serve_shape_contiguous_decode(dev):
     lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
         q.reshape(b, kvh * g, 1, d), ke, ve), 20)
     return dict(serve_shape_ms=ms, serve_shape_library_ms=lib_ms)
+
+
+def check_exports():
+    """``from repro_torch.kernels import pasa_attention`` (and the other
+    exported names) gives the op, as ``repro.kernels`` does."""
+    import repro_torch.kernels as kernels
+    from repro_torch.kernels import ops, pasa_attention
+
+    if pasa_attention is not ops.pasa_attention:
+        raise AssertionError("repro_torch.kernels.pasa_attention is not the op")
+    for name in kernels.__all__:
+        if getattr(kernels, name) is not getattr(ops, name):
+            raise AssertionError(f"repro_torch.kernels.{name} is not the op")
+    return sorted(kernels.__all__)
 
 
 def _bound(nbytes: int, flops: int) -> dict:
@@ -1138,6 +1228,10 @@ def serve_dense(dev, bundle, params):
             "pasa_paged_prefill": 0, "pasa_paged_decode": 0}
     if launches != want:
         raise AssertionError(f"dense launch counts {launches} != {want}")
+    shift_by_mode = dict(ops.shift_kv.launches_by_mode)
+    if sum(shift_by_mode.values()) != launches["shift_kv"]:
+        raise AssertionError(f"shift_kv launches by mode {shift_by_mode} do "
+                             f"not add up to {launches['shift_kv']}")
     if not bool(torch.stack(finite).all()):
         raise AssertionError("non-finite logits in the dense serve")
     if not bool(((streams >= 0) & (streams < cfg.vocab_size)).all()):
@@ -1155,7 +1249,7 @@ def serve_dense(dev, bundle, params):
         arch=cfg.arch_id, layers=cfg.n_layers, batch=DENSE_BATCH,
         prompt_len=DENSE_PROMPT, gen=SERVE_GEN, max_len=max_len,
         prefill_calls=n_prefill, decode_calls=n_decode, launches=launches,
-        wall_s=wall, tok_per_s=streams.numel() / wall, ttft_ms=1e3 * marks[0],
+        shift_kv_launches_by_mode=shift_by_mode, wall_s=wall, tok_per_s=streams.numel() / wall, ttft_ms=1e3 * marks[0],
         decode_ms_per_step=1e3 * sum(steps) / len(steps),
         peak_gb=peak / 1e9, sample=streams[0, :16].tolist(),
     )
@@ -1192,7 +1286,8 @@ def main() -> int:
                 elif "registers" in line or "spill" in line:
                     print(f"  {name}:   {line.strip()}")
 
-    kernels = [check_decode(dev), check_prefill(dev), check_shift_kv(dev),
+    print("exports: " + ", ".join(check_exports()))
+    kernels = [check_decode(dev), check_prefill(dev), *check_shift_kv(dev),
                check_attention(dev), check_contiguous_decode(dev)]
     kernels += [check(dev, dtype) for dtype in QUANT_DTYPES
                 for check in (check_decode_quant, check_prefill_quant)]
@@ -1205,6 +1300,9 @@ def main() -> int:
         if "serve_shape_ms" in k:
             extra += (f"; at the serve's decode shape {k['serve_shape_ms']:.4f}"
                       f" ms, library {k['serve_shape_library_ms']:.4f} ms")
+        if "rmse_algebraic" in k:
+            extra += (f"; rmse vs the algebraic shift {k['rmse_algebraic']:.2e}"
+                      f" (plain {k['rmse_algebraic_plain']:.2e})")
         print(f"{k['name']}: max_abs_err {k['max_abs_err']:.3e}, rmse "
               f"{k['rmse']:.2e}, {k['ms']:.4f} ms vs plain "
               f"{k['plain_ms']:.3f} ms, library {k['library_ms']:.4f} ms, "
@@ -1232,13 +1330,23 @@ def main() -> int:
     print("serve_dense: " + json.dumps(rep_dense))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # each mode of shift-KV has the dense serve's count of that mode (0 for
+    # the modes the serve does not run); the paged kernels' quantized modes
+    # have their own serve's count
     for k in kernels:
         name, _, dtype = k["name"].partition("/")
+        if name == "shift_kv":
+            k["launches"] = rep_dense["shift_kv_launches_by_mode"].get(
+                k["mode"], 0)
+            continue
         serve_rep = (reps[dtype or "bf16"] if name.startswith("pasa_paged_")
                      else rep_dense)
         k["launches"] = serve_rep["launches"][name]
     line = [{key: k[key] for key in keys} for k in kernels if "/" not in k["name"]]
-    for name in ("pasa_paged_decode", "pasa_paged_prefill"):
+    for k in line:
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} was not launched on its serve")
+    for name in ("pasa_paged_decode", "pasa_paged_prefill", "shift_kv"):
         line.append(_mode_entry(name, [k for k in kernels
                                        if k["name"].startswith(name + "/")], keys))
     print(json.dumps({"kernels": line}))

@@ -1,11 +1,13 @@
 // Hopper building blocks shared by the wgmma kernels (sm_90a): shared-
 // memory barriers (mbarrier), TMA and bulk copies, wgmma with its shared-
 // memory descriptors, the fp16-pair steps of the all-fp16 policy, and the
-// host-side tensor-map encoding.  Included by pasa_attention.cu and
-// pasa_paged_prefill.cu.
+// host-side tensor-map encoding.  Included by pasa_attention.cu,
+// pasa_paged_prefill.cu and shift_kv.cu.
 #pragma once
 
 #include <cuda.h>
+
+#include <type_traits>
 
 #include "pasa_common.cuh"
 
@@ -45,6 +47,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
+// Bring a tensor map (a __grid_constant__ kernel parameter) into the TMA
+// unit's cache ahead of its first use.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // One box of a rank-4 tensor map (innermost coordinate first) into shared
 // memory; completion is counted in bytes on `bar`.
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
@@ -56,6 +66,25 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One box from shared memory to a rank-4 tensor map (innermost coordinate
+// first), tracked in the issuing thread's bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // One contiguous run of `bytes` (a multiple of 16, 16-byte aligned ends)
@@ -82,6 +111,30 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 
 // ---- wgmma -------------------------------------------------------------
 
+// Four 8 x 8 matrices of 16-bit elements, transposed, between shared
+// memory and registers: lane i gives the address of (16-byte) row i % 8
+// of matrix i / 8; register m holds matrix m's pair (row lane / 4, columns
+// 2 (lane % 4), + 1) of the TRANSPOSED matrix.  So a row-major tile
+// loads as the column-major fragment of an mma operand, and the
+// accumulator's pairs store as rows of the transposed tile.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr,
+                                                  const uint32_t* r) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
+      "%4};\n" ::"r"(addr),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+
 // Shared-memory matrix descriptor, 128-byte swizzle (the TMA boxes'
 // layout): byte offsets of the leading and stride dimensions.
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
@@ -99,6 +152,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Keep the compiler from moving reads or writes of wgmma registers across
 // the asynchronous product.
@@ -190,6 +248,45 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+#define PASA_WGMMA_D32 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// D (m64 x n64, f32) (+)= A (registers: 16-bit pairs) * B (smem, K-major),
+// on fp16 operands or, with BF16, bf16 ones.
+template <bool BF16>
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db, int accumulate) {
+  if constexpr (BF16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+        "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : PASA_WGMMA_D32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+        "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : PASA_WGMMA_D32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate));
+  }
+}
+#undef PASA_WGMMA_D32
+
 template <int BKV>
 __device__ __forceinline__ void wgmma_scores(float* s, uint64_t da, uint64_t db,
                                              int accumulate) {
@@ -277,11 +374,21 @@ static bool encode_map(CUtensorMap* map, CUtensorMapDataType dtype,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Rank-4 map of an fp16 (B, heads, rows, 128) tensor read through its
-// element strides; boxes of `box_rows` x 64 columns, 128-byte swizzle.
+// The tensor-map element type of a 2-byte operand type.
+template <typename T>
+constexpr CUtensorMapDataType tma_dtype() {
+  return std::is_same<T, __nv_bfloat16>::value
+             ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+             : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+
+// Rank-4 map of a (B, heads, rows, 128) tensor of 2-byte elements (fp16
+// unless `dtype` says otherwise) read through its element strides; boxes
+// of `box_rows` x 64 columns, 128-byte swizzle.
 static bool make_map(CUtensorMap* map, const void* ptr, int batch, int heads,
                      int rows, long long sb, long long sh, long long ss,
-                     int box_rows) {
+                     int box_rows,
+                     CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_FLOAT16) {
   // a dimension of extent 1 may carry any stride (0 for an expanded
   // view): give it a valid one
   if (heads == 1) sh = (long long)rows * ss;
@@ -291,8 +398,8 @@ static bool make_map(CUtensorMap* map, const void* ptr, int batch, int heads,
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
                                  (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, ptr, dims, strides,
-                    box, CU_TENSOR_MAP_SWIZZLE_128B);
+  return encode_map(map, dtype, ptr, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace pasa

@@ -345,12 +345,14 @@ static int launch(const void* q, const void* k, const void* v, void* out,
     return (int)cudaErrorInvalidValue;
   auto kernel = pasa_attention_kernel<NWG, BKV, H16>;
   const int smem = L::BYTES + 1024;       // + the 1024-byte alignment
-  static int ready = 0;
-  if (!ready) {
+  static OncePerDevice ready;             // the attribute, per device
+  bool* set = ready.current();
+  if (!set) return (int)cudaErrorInvalidDevice;
+  if (!*set) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    ready = 1;
+    *set = true;
   }
   dim3 grid(batch * heads, s1 / L::BQ);
   kernel<<<grid, L::THREADS, smem, stream>>>(

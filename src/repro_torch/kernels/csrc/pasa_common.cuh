@@ -208,4 +208,21 @@ __host__ __forceinline__ Policy make_policy(float beta, float inva,
   return P;
 }
 
+// A launch's one-time set-up (a kernel's dynamic shared-memory attribute,
+// its cluster check), done once per kernel instance AND device: the
+// attribute belongs to the device's context, so a second card needs its
+// own.  The launcher keeps one static OncePerDevice per instance.
+constexpr int MAX_DEVICES = 64;
+
+struct OncePerDevice {
+  bool done[MAX_DEVICES] = {};
+  // The current device's flag; nullptr if the device cannot be read.
+  bool* current() {
+    int dev = -1;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
+      return nullptr;
+    return &done[dev];
+  }
+};
+
 }  // namespace pasa

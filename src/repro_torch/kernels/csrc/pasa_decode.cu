@@ -6,8 +6,11 @@
 //
 // What it computes: one new token per sequence against its dense cache;
 // the GQA group's G query heads are the rows; the cache is cut into
-// blocks of `block` rows up to kv_len.  Convention (shift_mask_valid):
-// the algebraic valid-column shift with the ideal invariance beta / (1 -
+// blocks of `block` rows up to kv_len, a multiple of 16 up to 256 (the
+// reference's default block is 256; a block of more than 128 rows
+// reaches the cluster kernel's shared memory in pieces of 128, and its
+// math runs once over all its rows).  Convention (shift_mask_valid): the
+// algebraic valid-column shift with the ideal invariance beta / (1 -
 // beta).
 //
 // The cache is read in its stored layout and dtype (the dense route's
@@ -42,7 +45,7 @@
 namespace pasa {
 
 template <typename CacheT, int NG>
-__global__ void __launch_bounds__(DEC_THREADS)
+__global__ void __launch_bounds__(DEC_THREADS, 1)
 contiguous_decode_kernel(const __half* __restrict__ q,    // (B, KVH, G, D)
                          const CacheT* __restrict__ k,    // (B, KVH, S2, D)
                          const CacheT* __restrict__ v,    //   strided
@@ -50,8 +53,9 @@ contiguous_decode_kernel(const __half* __restrict__ q,    // (B, KVH, G, D)
                          __half* __restrict__ out,        // (B, KVH, G, D)
                          int kv_heads, int G, int s2, int block,
                          long long sb, long long sh, long long ss, Policy P) {
+  using Smem = DecodeSmem<DEC_MAX_BLOCK>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  DecodeSmem& S = *reinterpret_cast<DecodeSmem*>(smem_raw);
+  Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int t = threadIdx.x;
@@ -106,7 +110,7 @@ static int walk_rows(const void* q, const void* k, const void* v,
                      const void* kv_len, void* out, int batch, int kv_heads,
                      int G, int s2, int block, long long sb, long long sh,
                      long long ss, const Policy& P, cudaStream_t stream) {
-  const size_t smem = sizeof(DecodeSmem);
+  const size_t smem = sizeof(DecodeSmem<DEC_MAX_BLOCK>);
   cudaError_t err = cudaFuncSetAttribute(
       contiguous_decode_kernel<CacheT, NG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

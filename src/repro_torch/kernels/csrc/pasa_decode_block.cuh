@@ -37,17 +37,22 @@ namespace pasa {
 constexpr int DEC_THREADS = HEAD_DIM;  // one thread per head-dim column
 constexpr int DEC_WARPS = DEC_THREADS / 32;
 constexpr int DEC_MAX_G = 16;
-constexpr int DEC_MAX_BLOCK = 128;
+constexpr int DEC_PAGE_ROWS = 128;   // rows of a page (and of a staged load)
+constexpr int DEC_MAX_BLOCK = 256;   // rows of a contiguous-cache block
 // K row stride in halves: 65 words, so thread c reading row c walks
 // distinct banks across a warp.
 constexpr int DEC_K_LD = HEAD_DIM + 2;
 
+// One block of up to MAXB rows: 79,360 bytes at 128 rows (pages),
+// 153,600 at 256 (the contiguous cache's default block).
+template <int MAXB>
 struct DecodeSmem {
+  static constexpr int kRows = MAXB;
   __half q[DEC_MAX_G][HEAD_DIM];
-  __half k[DEC_MAX_BLOCK][DEC_K_LD];  // raw K on entry, shifted K after
-  __half v[DEC_MAX_BLOCK][HEAD_DIM];  // rows >= valid zeroed by the caller
-  __half s[DEC_MAX_G][DEC_MAX_BLOCK]; // scores at fp16 (masked: NEG_BIG)
-  __half p[DEC_MAX_G][DEC_MAX_BLOCK]; // probabilities at fp16
+  __half k[MAXB][DEC_K_LD];           // raw K on entry, shifted K after
+  __half v[MAXB][HEAD_DIM];           // rows >= valid zeroed by the caller
+  __half s[DEC_MAX_G][MAXB];          // scores at fp16 (masked: NEG_BIG)
+  __half p[DEC_MAX_G][MAXB];          // probabilities at fp16
   float km[HEAD_DIM];
   float m[DEC_MAX_G], l[DEC_MAX_G], f[DEC_MAX_G];
   float e_prev[DEC_MAX_G], e_cur[DEC_MAX_G];
@@ -61,8 +66,8 @@ struct DecodeSmem {
 __host__ __device__ constexpr int dec_rows(int G) { return G <= 8 ? 8 : DEC_MAX_G; }
 
 // Reset the running state (thread-cooperative; callers sync after).
-template <int NG>
-__device__ __forceinline__ void decode_state_init(DecodeSmem& S, float* acc) {
+template <int NG, typename Smem>
+__device__ __forceinline__ void decode_state_init(Smem& S, float* acc) {
   const int t = threadIdx.x;
   if (t < DEC_MAX_G) {
     S.m[t] = NEG_BIG;
@@ -79,8 +84,8 @@ __device__ __forceinline__ void decode_state_init(DecodeSmem& S, float* acc) {
 // pv[g] = P V of row g at head-dim column t (thread t), rounded to the
 // accumulator dtype (G <= NG).  The last step reads S.v and S.p after the last
 // barrier: the caller syncs before it overwrites them.
-template <int NG>
-__device__ __forceinline__ void decode_block_partials(DecodeSmem& S, int valid,
+template <int NG, typename Smem>
+__device__ __forceinline__ void decode_block_partials(Smem& S, int valid,
                                                       int block, int G,
                                                       const Policy& P,
                                                       float* pv) {
@@ -101,11 +106,15 @@ __device__ __forceinline__ void decode_block_partials(DecodeSmem& S, int valid,
   }
   __syncthreads();
 
-  // 2. scores: thread c computes column c for all G rows in one pass over
-  //    its key row (per row: an fp32 sum of exact fp16 products in d
-  //    order, stored at fp16).
-  if (t < block) {
-    const __half2* krow = reinterpret_cast<const __half2*>(&S.k[t][0]);
+  // 2. scores: thread t computes columns c = t (and t + 128 in a block of
+  //    more than 128 rows) for all G rows in one pass over each key row
+  //    (per row: an fp32 sum of exact fp16 products in d order, stored at
+  //    fp16).
+#pragma unroll
+  for (int c0 = 0; c0 < Smem::kRows; c0 += DEC_THREADS) {
+    const int c = c0 + t;
+    if (c >= block) break;
+    const __half2* krow = reinterpret_cast<const __half2*>(&S.k[c][0]);
     float dot[NG];
 #pragma unroll
     for (int g = 0; g < NG; ++g) dot[g] = 0.0f;
@@ -125,7 +134,7 @@ __device__ __forceinline__ void decode_block_partials(DecodeSmem& S, int valid,
 #pragma unroll
     for (int g = 0; g < NG; ++g)
       if (g < G)
-        S.s[g][t] = __float2half_rn(t < valid ? store_score(dot[g], P) : NEG_BIG);
+        S.s[g][c] = __float2half_rn(c < valid ? store_score(dot[g], P) : NEG_BIG);
   }
   __syncthreads();
 
@@ -206,8 +215,8 @@ __device__ __forceinline__ void decode_fold_step(FoldState& st, int cnt,
 // (the sequential walk): partials, then row_update per row (lane 0 of the
 // row's warp, state in S.m/S.l/S.f) and acc_update per column.  Thread t
 // owns head-dim column t of the accumulator: acc[g] for the G rows.
-template <int NG>
-__device__ __forceinline__ void decode_block_update(DecodeSmem& S, int valid,
+template <int NG, typename Smem>
+__device__ __forceinline__ void decode_block_update(Smem& S, int valid,
                                                     int block, int G, int cnt,
                                                     const Policy& P,
                                                     float* acc) {

@@ -33,6 +33,15 @@
 // rows past `valid` are not loaded (both enter shared memory as zeros);
 // a dead page's sidecars are never read; a rank with no live block still
 // arrives at the cluster barrier.
+//
+// Block sizes: a page holds at most 128 rows; a block of the contiguous
+// cache up to 256 (DEC_MAX_BLOCK, the reference's default).  The staging
+// buffer holds 128 rows, so a block of more rows arrives as pieces of 128
+// that land one after another in the block's shared-memory tile; the
+// block's math then runs once over all its rows - one key mean, one s-bar
+// and one set of partials per block, as the walk computes them.  Shared
+// memory: 79,360 + 66,568 bytes per CTA over pages (bf16), 153,600 +
+// 66,568 over the contiguous cache.
 #pragma once
 
 #include "pasa_decode_block.cuh"
@@ -43,15 +52,26 @@ constexpr int DEC_CLUSTER = 8;                             // CTAs per (b, h)
 constexpr int DEC_FOLD_COLS = HEAD_DIM / DEC_CLUSTER;      // 16 per rank
 static_assert(DEC_THREADS % DEC_FOLD_COLS == 0, "fold mapping");
 
-// A block as it arrives from device memory, before conversion to fp16.
+// One piece of a block (up to 128 rows) as it arrives from device memory,
+// before conversion to fp16.
 template <typename T>
 struct PageStage {
-  T k[DEC_MAX_BLOCK][HEAD_DIM];
-  T v[DEC_MAX_BLOCK][HEAD_DIM];
+  T k[DEC_PAGE_ROWS][HEAD_DIM];
+  T v[DEC_PAGE_ROWS][HEAD_DIM];
   PageSidecars sc;   // 8-bit pools only
 };
 
-constexpr size_t DEC_STAGE_OFF = (sizeof(DecodeSmem) + 127) / 128 * 128;
+// Byte offset of the staging buffer behind a block tile of MAXB rows.
+template <int MAXB>
+__host__ __device__ constexpr size_t dec_stage_off() {
+  return (sizeof(DecodeSmem<MAXB>) + 127) / 128 * 128;
+}
+
+// Rows of piece `piece` (rows [128 piece, 128 piece + 128) of a block) that
+// lie before the block's `valid`.
+__device__ __forceinline__ int piece_valid(int valid, int piece) {
+  return max(0, min(DEC_PAGE_ROWS, valid - piece * DEC_PAGE_ROWS));
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -79,6 +99,7 @@ __device__ __forceinline__ void cluster_sync_release_acquire() {
 template <typename T>
 struct PagedBlocks {
   using Elem = T;
+  static constexpr int kMaxBlock = DEC_PAGE_ROWS;
   const T* k;
   const T* v;
   SidecarPtrs sc;        // 8-bit pools only
@@ -104,6 +125,7 @@ struct PagedBlocks {
 template <typename T>
 struct StridedBlocks {
   using Elem = T;
+  static constexpr int kMaxBlock = DEC_MAX_BLOCK;
   const T* k;
   const T* v;
   long long sb, sh, ss;
@@ -119,18 +141,18 @@ struct StridedBlocks {
   __device__ long long row_stride() const { return ss; }
 };
 
-// Start the copy of live block j's first `valid` K and V rows of (b, h)
-// (and, for 8-bit pools, its page's sidecars) into `st`.
+// Start the copy of `valid` K and V rows of live block j of (b, h), from
+// its row `row0` on (and, for 8-bit pools, its page's sidecars) into `st`.
 template <typename Blocks>
 __device__ __forceinline__ void issue_block(PageStage<typename Blocks::Elem>& st,
                                             const Blocks& A, int b, int h,
-                                            int j, int valid) {
+                                            int j, int row0, int valid) {
   using T = typename Blocks::Elem;
   constexpr int EPC = 16 / sizeof(T);            // elements per 16 bytes
   constexpr int CPR = HEAD_DIM / EPC;            // 16-byte chunks per row
   const int t = threadIdx.x;
-  const size_t off = A.offset(b, h, j);
   const long long rs = A.row_stride();
+  const size_t off = A.offset(b, h, j) + (size_t)(row0 * rs);
   for (int i = t; i < valid * CPR; i += DEC_THREADS) {
     const int r = i / CPR, c = (i % CPR) * EPC;
     cp_async16(&st.k[r][c], A.k + off + r * rs + c);
@@ -152,30 +174,31 @@ __device__ __forceinline__ void issue_block(PageStage<typename Blocks::Elem>& st
   cp_async_commit();
 }
 
-// Staged block -> S.k / S.v at fp16: raw values convert, 8-bit codes
-// dequantize with the staged sidecars; rows past `valid` become zeros.
-template <typename T>
-__device__ __forceinline__ void convert_block(DecodeSmem& S,
-                                              const PageStage<T>& st,
-                                              int valid, int block) {
+// Staged piece -> rows [row0, row0 + rows) of S.k / S.v at fp16: raw
+// values convert, 8-bit codes dequantize with the staged sidecars; rows
+// past the piece's `valid` become zeros.
+template <typename Smem, typename T>
+__device__ __forceinline__ void convert_block(Smem& S, const PageStage<T>& st,
+                                              int row0, int rows, int valid) {
   const int t = threadIdx.x;
   const int c8 = (t & 15) * 8;
-  for (int r = t >> 4; r < block; r += DEC_THREADS / 16) {
+  for (int r = t >> 4; r < rows; r += DEC_THREADS / 16) {
     uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
     if (r < valid) {
       kk = load_pool8(&st.k[r][c8], 0, c8, st.sc);
       vv = load_pool8(&st.v[r][c8], 1, c8, st.sc);
     }
     const __half2* k2 = reinterpret_cast<const __half2*>(&kk);
-    __half2* kd = reinterpret_cast<__half2*>(&S.k[r][c8]);
+    __half2* kd = reinterpret_cast<__half2*>(&S.k[row0 + r][c8]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) kd[i] = k2[i];
-    *reinterpret_cast<uint4*>(&S.v[r][c8]) = vv;
+    *reinterpret_cast<uint4*>(&S.v[row0 + r][c8]) = vv;
   }
 }
 
+// (min blocks 1: without it ptxas keeps to ~80 registers and spills)
 template <typename Blocks, int NG>
-__global__ void __launch_bounds__(DEC_THREADS)
+__global__ void __launch_bounds__(DEC_THREADS, 1)
 cluster_decode_kernel(const __half* __restrict__ q,      // (B, KVH, G, D)
                       const Blocks A,
                       const int* __restrict__ kv_len,    // (B,)
@@ -184,9 +207,11 @@ cluster_decode_kernel(const __half* __restrict__ q,      // (B, KVH, G, D)
                       float* __restrict__ ws_stats,  // (B, KVH, max_blocks, 3, G)
                       int kv_heads, int G, Policy P) {
   using T = typename Blocks::Elem;
+  using Smem = DecodeSmem<Blocks::kMaxBlock>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  DecodeSmem& S = *reinterpret_cast<DecodeSmem*>(smem_raw);
-  PageStage<T>& st = *reinterpret_cast<PageStage<T>*>(smem_raw + DEC_STAGE_OFF);
+  Smem& S = *reinterpret_cast<Smem*>(smem_raw);
+  PageStage<T>& st = *reinterpret_cast<PageStage<T>*>(
+      smem_raw + dec_stage_off<Blocks::kMaxBlock>());
   const int rank = blockIdx.x;            // == the CTA's rank in its cluster
   const int b = blockIdx.y;
   const int h = blockIdx.z;
@@ -197,20 +222,31 @@ cluster_decode_kernel(const __half* __restrict__ q,      // (B, KVH, G, D)
   const int L = A.length(b, kv_len);
   const int n_live = A.count(L);
 
-  // 1. this rank's blocks to partials, the next block in flight meanwhile
+  // 1. this rank's blocks to partials, the next block's first piece in
+  //    flight meanwhile
+  constexpr int MAX_PIECES = Blocks::kMaxBlock / DEC_PAGE_ROWS;
   if (rank < n_live) {
-    issue_block(st, A, b, h, rank, min(block, L - rank * block));
+    issue_block(st, A, b, h, rank, 0, piece_valid(min(block, L - rank * block), 0));
     const __half* qbh = q + bh * G * HEAD_DIM;
     for (int g = 0; g < G; ++g) S.q[g][t] = qbh[g * HEAD_DIM + t];
   }
   for (int j = rank; j < n_live; j += DEC_CLUSTER) {
     const int valid = min(block, L - j * block);
-    cp_async_wait_all();
-    __syncthreads();   // block j staged; the previous block's math is done
-    convert_block(S, st, valid, block);
-    __syncthreads();   // the staging buffer is free again
-    const int jn = j + DEC_CLUSTER;
-    if (jn < n_live) issue_block(st, A, b, h, jn, min(block, L - jn * block));
+#pragma unroll
+    for (int pc = 0; pc < MAX_PIECES; ++pc) {
+      const int row0 = pc * DEC_PAGE_ROWS;
+      if (row0 >= block) break;
+      cp_async_wait_all();
+      __syncthreads();   // the piece is staged; the previous block's math is done
+      convert_block(S, st, row0, min(DEC_PAGE_ROWS, block - row0),
+                    piece_valid(valid, pc));
+      __syncthreads();   // the staging buffer is free again
+      const int jn = j + DEC_CLUSTER;
+      if (pc + 1 < MAX_PIECES && row0 + DEC_PAGE_ROWS < block)
+        issue_block(st, A, b, h, j, row0 + DEC_PAGE_ROWS, piece_valid(valid, pc + 1));
+      else if (jn < n_live)
+        issue_block(st, A, b, h, jn, 0, piece_valid(min(block, L - jn * block), 0));
+    }
     float pv[NG];
     decode_block_partials<NG>(S, valid, block, G, P, pv);
     float* pvj = ws_pv + ((bh * max_blocks + j) * G) * HEAD_DIM + t;
@@ -269,7 +305,8 @@ static int launch_cluster_rows(const void* q, const Blocks& A,
                                const void* kv_len, void* out, void* workspace,
                                int batch, int kv_heads, int G, const Policy& P,
                                cudaStream_t stream) {
-  const size_t smem = DEC_STAGE_OFF + sizeof(PageStage<typename Blocks::Elem>);
+  const size_t smem = dec_stage_off<Blocks::kMaxBlock>() +
+                      sizeof(PageStage<typename Blocks::Elem>);
   auto kernel = cluster_decode_kernel<Blocks, NG>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(DEC_CLUSTER, batch, kv_heads);
@@ -283,9 +320,12 @@ static int launch_cluster_rows(const void* q, const Blocks& A,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // once per instance: the attribute, and a cluster that fits on a GPC
-  static int ready = 0;
-  if (!ready) {
+  // once per instance and device: the attribute, and a cluster that fits
+  // on a GPC
+  static OncePerDevice ready;
+  bool* set = ready.current();
+  if (!set) return (int)cudaErrorInvalidDevice;
+  if (!*set) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -293,7 +333,7 @@ static int launch_cluster_rows(const void* q, const Blocks& A,
     err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (err != cudaSuccess) return (int)err;
     if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-    ready = 1;
+    *set = true;
   }
   float* ws = static_cast<float*>(workspace);
   float* ws_stats = ws + (size_t)batch * kv_heads * A.max_blocks * G * HEAD_DIM;

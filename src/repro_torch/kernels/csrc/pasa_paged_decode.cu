@@ -64,7 +64,7 @@ extern "C" int pasa_paged_decode_launch(
     int max_pages, int pool_kind, float beta, float inva, float shift_scale,
     float post_scale, int stat_half, int acc_half, void* stream) {
   using namespace pasa;
-  if (group < 1 || group > DEC_MAX_G || page < 1 || page > DEC_MAX_BLOCK ||
+  if (group < 1 || group > DEC_MAX_G || page < 1 || page > DEC_PAGE_ROWS ||
       batch < 1 || batch > 65535 || kv_heads < 1 || kv_heads > 65535 ||
       max_pages < 1 || !workspace)
     return (int)cudaErrorInvalidValue;

@@ -580,12 +580,14 @@ static int launch(const void* q, const void* k_pages, const void* v_pages,
     return (int)cudaErrorInvalidValue;
   auto kernel = paged_prefill_kernel<PoolT, BKV, H16>;
   const int smem = L::BYTES + 1024;       // + the 1024-byte alignment
-  static int ready = 0;
-  if (!ready) {
+  static OncePerDevice ready;             // the attribute, per device
+  bool* set = ready.current();
+  if (!set) return (int)cudaErrorInvalidDevice;
+  if (!*set) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    ready = 1;
+    *set = true;
   }
   dim3 grid(batch * heads, (chunk + PF_BQ - 1) / PF_BQ);
   kernel<<<grid, PF_THREADS, smem, stream>>>(

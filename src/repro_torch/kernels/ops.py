@@ -7,7 +7,9 @@ call raises (unsupported shape, dtype, policy or block size).  There is
 no fall back from the card to the plain version.  Each wrapper counts the
 kernel launches it makes in a plain integer attribute,
 ``<wrapper>.launches`` (``pasa_attention`` with beta > 0 also launches the
-shift kernel, counted in ``shift_kv.launches``).
+shift kernel, counted in ``shift_kv.launches``).  The shift wrapper also
+counts each of its kernel's modes apart, in ``shift_kv.launches_by_mode``
+(keys from ``shift_kv.mode_name``).
 
 The reference's ``interpret`` and ``use_kernel`` switches have no
 counterpart: the plain versions live beside each kernel in its module.
@@ -26,6 +28,10 @@ import torch
 from repro_torch.core.beta import DEFAULT_BETA
 from repro_torch.core.precision import FP16, PrecisionPolicy
 from repro_torch.core.shifting import effective_invariance, shifting_matrix
+# the kernel modules (flash_attention's at the end of this file, as it
+# imports an op from here): imported while the package initialises, before
+# its __init__ binds these names to the ops below, so that a later import
+# of one finds it loaded and leaves the package's names alone
 from repro_torch.kernels import pasa_attention as _attn
 from repro_torch.kernels import pasa_decode as _cdecode
 from repro_torch.kernels import pasa_paged_decode as _decode
@@ -240,11 +246,11 @@ def _check(q, k, v) -> None:
         raise ValueError(f"q heads {q.shape[1]} % kv heads {k.shape[1]} != 0")
 
 
-def _cuda_block(name: str, block: int) -> None:
-    if block % 16 or not 16 <= block <= _decode.MAX_PAGE:
+def _cuda_block(name: str, block: int, limit: int) -> None:
+    if block % 16 or not 16 <= block <= limit:
         raise NotImplementedError(
-            f"the CUDA kernels take {name} a multiple of 16 up to "
-            f"{_decode.MAX_PAGE}, got {block}"
+            f"the CUDA kernel takes {name} a multiple of 16 up to {limit}, "
+            f"got {block}"
         )
 
 
@@ -285,20 +291,27 @@ def shift_kv(
                                      out_dtype=policy.input_dtype)
     if k.device.type != "cuda":
         raise ValueError(f"no shift_kv for device {k.device}")
-    if policy.input_dtype != torch.float16:
+    op = policy.input_dtype
+    if op not in (torch.float16, torch.bfloat16):
         raise NotImplementedError(
-            f"the CUDA shift kernel stores fp16, not {policy.input_dtype}")
-    if k.dtype not in (torch.bfloat16, torch.float16):
-        k = k.to(torch.float16)
-    _cuda_block("block_kv", block_kv)
+            f"the CUDA shift kernel takes fp16 or bf16 operands, not {op}")
+    if block_kv not in (64, 128):
+        raise NotImplementedError(
+            f"the CUDA shift kernel takes block_kv 64 or 128, got {block_kv}")
+    # bf16 keys under fp16 operands are rounded on chip
+    if k.dtype != op and not (op == torch.float16 and k.dtype == torch.bfloat16):
+        k = k.to(op)
     _cuda_rows("k", k, k.device)
-    m = _shift.device_matrix(block_kv, d, float(beta), torch.float16, k.device)
+    m = _shift.device_matrix(block_kv, d, float(beta), op, k.device)
     out = _shift.kernel_call(m, k, block_kv=block_kv)
     shift_kv.launches += 1
+    mode = _shift.mode_name(k.dtype, op, block_kv)
+    shift_kv.launches_by_mode[mode] = shift_kv.launches_by_mode.get(mode, 0) + 1
     return out
 
 
 shift_kv.launches = 0
+shift_kv.launches_by_mode = {}
 
 
 def _attention(q, k, v, *, beta, policy, block_q, block_kv, causal, wrapper):
@@ -405,7 +418,7 @@ def pasa_decode(
                                      policy=policy, block_kv=block_kv)
     if q.device.type != "cuda":
         raise ValueError(f"no pasa_decode for device {q.device}")
-    _cuda_block("block_kv", block_kv)
+    _cuda_block("block_kv", block_kv, _cdecode.MAX_BLOCK)
     if q.shape[2] > _decode.MAX_GROUP:
         raise NotImplementedError(f"GQA group {q.shape[2]} > {_decode.MAX_GROUP}")
     if k_cache.dtype not in (torch.bfloat16, torch.float16) \
@@ -434,3 +447,8 @@ def reset_launches() -> None:
     for wrapper in (pasa_paged_decode, pasa_paged_prefill, pasa_attention,
                     flash_attention, pasa_decode, shift_kv):
         wrapper.launches = 0
+    shift_kv.launches_by_mode = {}
+
+
+# last: the flash_attention module imports the op defined above
+from repro_torch.kernels import flash_attention as _flash  # noqa: E402,F401

@@ -4,9 +4,10 @@ version.
 Counterpart of ``repro.kernels.pasa_decode``.
 
   * :func:`kernel_call` launches ``csrc/pasa_decode.cu``: a cluster of 8
-    CTAs per (sequence, kv-head) reduces the blocks of ``block_kv`` rows up
-    to ``kv_len`` to partials in parallel, then folds them exactly in
-    block order, into a workspace the wrapper allocates - the paged decode
+    CTAs per (sequence, kv-head) reduces the blocks of ``block_kv`` rows (a
+    multiple of 16 up to 256, the op's default 256 included) up to
+    ``kv_len`` to partials in parallel, then folds them exactly in block
+    order, into a workspace the wrapper allocates - the paged decode
     kernel's template over a strided cache, so paged == contiguous bit for
     bit when page == block.  The cache is read in its stored layout and
     dtype (bf16) through its strides; rows at or past ``kv_len`` are never
@@ -35,6 +36,8 @@ from repro_torch.core.pasa import blocked_attention
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels import _build
 from repro_torch.kernels.pasa_paged_decode import policy_scalars
+
+MAX_BLOCK = 256      # rows per block the kernels hold (pages: MAX_PAGE)
 
 
 def decode_plain(

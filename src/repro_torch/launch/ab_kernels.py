@@ -15,12 +15,16 @@ this, other, on the same seeded inputs at ``chip_smoke.py``'s fixtures:
   * ``pasa_paged_decode`` on the same rows in a shuffled bf16 page pool;
   * ``pasa_paged_prefill``: 4 rows x 28 heads x 512 queries at chunk
     starts {0, 512, 1024} plus a pad row, page 128, from a bf16 pool and
-    the same pool quantized per page to int8 and fp8_e4m3.
+    the same pool quantized per page to int8 and fp8_e4m3;
+  * ``shift_kv`` at fp16 operands on the dense prefill's keys (4, 4,
+    1024, 128), bf16 (B, S, KVH, D) read through strides, blocks 128 and
+    64, and the same keys at fp16.
 
 It prints one line per kernel: the ms of each run (CUDA events around
 warm calls queued behind a spin kernel, as ``chip_smoke.py`` times them)
-and whether the two trees' outputs are equal bit for bit (else their max
-abs difference), then the card's name and power limit.  Output files go
+and whether the two trees' outputs are equal bit for bit (else how many
+elements differ and their max abs difference), then the card's name and
+power limit.  Output files go
 under ``--out``.  Needs one CUDA card; imports neither jax nor ``repro``.
 """
 
@@ -160,6 +164,14 @@ def _cases(dev):
         cases[f"pasa_paged_prefill/{dtype}"] = (
             lambda kq=kq, vq=vq, side=side: ops.pasa_paged_prefill(
                 qp, kq, vq, ptab, st, pl, beta=BETA, **side), 20)
+
+    keys = randn((4, 1024, 4, 128), 5.0, torch.bfloat16).transpose(1, 2)
+    keys16 = keys.to(torch.float16)
+    for name, kk, block in (("shift_kv", keys, 128),
+                            ("shift_kv/block64", keys, 64),
+                            ("shift_kv/fp16_keys", keys16, 128)):
+        cases[name] = (lambda kk=kk, block=block: ops.shift_kv(
+            kk, beta=BETA, block_kv=block, policy=FP16), 50)
     return cases
 
 
@@ -215,6 +227,7 @@ def main(argv=None) -> int:
     for name in times[0]:
         same = torch.equal(a[name], b[name])
         diff = "bits equal" if same else (
+            f"{int((a[name] != b[name]).sum())} of {a[name].numel()} differ, "
             f"max abs diff {float((a[name].float() - b[name].float()).abs().max()):.3e}")
         ms = " / ".join(f"{t[name]:.4f}" for t in times)
         print(f"{name}: ms other, this, this, other = {ms}; {diff}")

@@ -10,6 +10,7 @@ Inputs are drawn with numpy at explicit float32 and handed to both
 packages.
 """
 
+import importlib
 import math
 
 import jax.numpy as jnp
@@ -18,14 +19,17 @@ import pytest
 import torch
 
 import repro.kernels as RK
+from repro.core import BF16_FP32 as R_BF16_FP32
 from repro.core import FP16 as R_FP16
 from repro.core import FP16_FP32 as R_FP16_FP32
 from repro.core import FP32 as R_FP32
 from repro.kernels import ref as RREF
 from repro_torch.core.naive import naive_attention
-from repro_torch.core.precision import FP16, FP16_FP32, FP32
-from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.core.precision import BF16_FP32, FP16, FP16_FP32, FP32
 from repro_torch.kernels import ops
+
+# the kernel module (the package binds the name to the op)
+flash_mod = importlib.import_module("repro_torch.kernels.flash_attention")
 
 torch.set_num_threads(1)
 
@@ -103,14 +107,19 @@ def test_flash_attention_policies(pols):
     np.testing.assert_allclose(_np(got), _np(want), **FLASH_TOL)
 
 
-def test_shift_kv_matches_reference_kernel():
+@pytest.mark.parametrize("pols", [(FP16, R_FP16), (BF16_FP32, R_BF16_FP32)],
+                         ids=["fp16", "bf16_fp32"])
+def test_shift_kv_matches_reference_kernel(pols):
+    """M and K' at the policy's input dtype: fp16, or bf16 under
+    bf16_fp32 (the modes of the CUDA shift kernel)."""
+    pol, rpol = pols
     rng = np.random.default_rng(3)
     k = (rng.standard_normal((2, 4, 512, 64)) + 5.0).astype(np.float32)
     want = RK.shift_kv(jnp.asarray(k), beta=BETA, block_kv=128,
-                       policy=R_FP16, **I)
+                       policy=rpol, **I)
     got = ops.shift_kv(torch.from_numpy(k), beta=BETA, block_kv=128,
-                       policy=FP16)
-    assert got.dtype == torch.float16
+                       policy=pol)
+    assert got.dtype == pol.input_dtype
     np.testing.assert_allclose(_np(got), _np(want), atol=SHIFT_ATOL)
 
 
@@ -126,19 +135,22 @@ def _decode_case(kv_lens, seed=4, stale=0.0):
     return q, k, v, np.asarray(kv_lens, np.int32)
 
 
+@pytest.mark.parametrize("block_kv", [128, 256])
 @pytest.mark.parametrize("kv_lens", [[300, 77], [512, 512]])
 @pytest.mark.parametrize("beta", [0.0, 0.9375])
-def test_pasa_decode_matches_reference(kv_lens, beta):
+def test_pasa_decode_matches_reference(kv_lens, beta, block_kv):
+    """At block 128 (the served block) and 256 (the op's default, as the
+    reference's)."""
     q, k, v, kv_len = _decode_case(kv_lens)
     (jq, jk, jv, jl), (tq, tk, tv, tl) = _both(q, k, v, kv_len)
     got = ops.pasa_decode(tq, tk, tv, tl, beta=beta, policy=FP16,
-                          block_kv=128)
+                          block_kv=block_kv)
     want = RK.pasa_decode(jq, jk, jv, jl, beta=beta, policy=R_FP16,
-                          block_kv=128, **I)
+                          block_kv=block_kv, **I)
     np.testing.assert_allclose(_np(got), _np(want), **DECODE_TOL)
     oracle = RREF.decode_ref(jq.astype(jnp.float16), jk.astype(jnp.float16),
                              jv.astype(jnp.float16), jl, beta=beta,
-                             policy=R_FP16, block_kv=128)
+                             policy=R_FP16, block_kv=block_kv)
     np.testing.assert_allclose(_np(got), _np(oracle), **DECODE_TOL)
     for i, n in enumerate(kv_lens):
         gold = naive_attention(tq[i:i + 1], tk[i:i + 1, :, :n],
@@ -238,6 +250,41 @@ def test_overflow_headline_through_the_plain_versions():
     assert bool(jnp.isnan(ref_bad).any())
 
 
+@pytest.mark.parametrize("name", ["flash_attention", "pasa_attention",
+                                  "pasa_decode", "pasa_paged_decode",
+                                  "pasa_paged_prefill", "shift_kv"])
+def test_kernels_package_exports_the_ops(name):
+    """repro_torch.kernels binds each name of its __all__ to the op, as
+    repro.kernels does; the kernel module stays reachable by its path."""
+    import repro_torch.kernels as kernels
+
+    assert name in kernels.__all__ and name in RK.__all__
+    assert getattr(kernels, name) is getattr(ops, name)
+    assert callable(getattr(kernels, name))
+    module = importlib.import_module(f"repro_torch.kernels.{name}")
+    assert module.__name__ == f"repro_torch.kernels.{name}"
+
+
+def test_quickstart_kernel_call_through_the_export():
+    """examples/quickstart.py's kernel section through the port's export,
+    at a small size: ``from repro_torch.kernels import pasa_attention`` on
+    fp16 GQA inputs of mean 30 (4 query heads, 2 kv heads), against
+    ``repro.kernels.pasa_attention(..., interpret=True)``."""
+    from repro_torch.kernels import pasa_attention as kernel_attention
+
+    rng = np.random.default_rng(8)
+    q, k, v = (rng.uniform(29.5, 30.5, (1, h, 256, 64)).astype(np.float32)
+               for h in (4, 2, 2))
+    (jq, jk, jv), (tq, tk, tv) = _both(q, k, v)
+    want = RK.pasa_attention(*(x.astype(jnp.float16) for x in (jq, jk, jv)),
+                             beta=BETA, policy=R_FP16, **I)
+    got = kernel_attention(*(x.half() for x in (tq, tk, tv)), beta=BETA,
+                           policy=FP16)
+    assert got.dtype == torch.float16 and got.shape == (1, 4, 256, 64)
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(_np(got), _np(want), **ATTN_TOL)
+
+
 def test_launch_counters_stay_zero_on_the_cpu():
     """The plain versions are not kernel launches."""
     ops.reset_launches()
@@ -249,3 +296,32 @@ def test_launch_counters_stay_zero_on_the_cpu():
     for name in ("shift_kv", "pasa_attention", "flash_attention",
                  "pasa_decode", "pasa_paged_decode", "pasa_paged_prefill"):
         assert getattr(ops, name).launches == 0
+    assert ops.shift_kv.launches_by_mode == {}
+
+
+def test_shift_kernel_mode_names():
+    """Each shift kernel mode has its own launch counter key."""
+    smod = importlib.import_module("repro_torch.kernels.shift_kv")
+    names = {smod.mode_name(kdt, op, block)
+             for kdt, op in ((torch.float16, torch.float16),
+                             (torch.bfloat16, torch.float16),
+                             (torch.bfloat16, torch.bfloat16))
+             for block in (64, 128)}
+    assert len(names) == 6
+    assert smod.mode_name(torch.bfloat16, torch.float16, 128) == \
+        "bf16_keys/fp16_ops/block128"
+
+
+def test_shift_kernel_matrix_must_be_symmetric(monkeypatch):
+    """The kernel computes K'^T = K^T M, so device_matrix refuses an M that
+    is not symmetric (and builds the shifting matrix, which is)."""
+    smod = importlib.import_module("repro_torch.kernels.shift_kv")
+    cpu = torch.device("cpu")
+    for dtype in (torch.float16, torch.bfloat16):
+        m = smod.device_matrix(64, 128, BETA, dtype, cpu)
+        assert torch.equal(m, m.T)
+    skew = torch.eye(64, dtype=torch.float16)
+    skew[0, 1] = 1.0
+    monkeypatch.setattr(smod, "shifting_matrix", lambda *a: skew)
+    with pytest.raises(ValueError, match="symmetric"):
+        smod.device_matrix.__wrapped__(64, 128, 0.5, torch.float16, cpu)

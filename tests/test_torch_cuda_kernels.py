@@ -12,6 +12,7 @@ package, so it runs where only PyTorch is installed:
 
 import dataclasses
 import functools
+import importlib
 import math
 
 import numpy as np
@@ -19,17 +20,20 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.precision import FP16, FP16_FP32, FP32
+from repro_torch.core.beta import DEFAULT_BETA
+from repro_torch.core.precision import BF16_FP32, FP16, FP16_FP32, FP32
+from repro_torch.core.shifting import shift_kv_reference
 from repro_torch.kernels import ops
-from repro_torch.kernels import pasa_attention as amod
-from repro_torch.kernels import pasa_decode as cmod
-from repro_torch.kernels import pasa_paged_decode as dmod
-from repro_torch.kernels import pasa_paged_prefill as pmod
-from repro_torch.kernels import shift_kv as smod
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models.convert import init_lm
 from repro_torch.models.model_zoo import build
 from repro_torch.runtime import ServeEngine, quantize_kv_page
+
+# the kernel modules (the package binds these names to the ops)
+amod, cmod, dmod, pmod, smod = (
+    importlib.import_module(f"repro_torch.kernels.{name}")
+    for name in ("pasa_attention", "pasa_decode", "pasa_paged_decode",
+                 "pasa_paged_prefill", "shift_kv"))
 
 BETA = 0.984497
 # the reference's kernel-vs-oracle bars: decode (tests/test_paged.py),
@@ -38,6 +42,8 @@ DECODE_TOL = dict(atol=3e-3, rtol=3e-2)
 PREFILL_TOL = dict(atol=1e-2, rtol=3e-2)
 # tests/test_kernels.py: shift-KV, attention (causal / not), flash
 SHIFT_TOL = dict(atol=1e-2, rtol=0.0)
+# shift-KV vs float64 (chip_smoke.py's bar): relative RMSE
+SHIFT_RMSE_MAX = 1e-2
 ATTN_TOL = {True: dict(atol=2e-3, rtol=2e-2), False: dict(atol=8e-3, rtol=2e-2)}
 
 
@@ -365,10 +371,111 @@ def test_unsupported_dense_inputs_raise_before_any_launch():
         ops.pasa_attention(q[:, :, :100], k, k)
     qd = torch.zeros((1, 2, 2, 128), dtype=torch.float16, device=dev)
     kvl = torch.tensor([5], dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):
-        ops.pasa_decode(qd, k, k, kvl)             # the default block 256
+    k3 = torch.zeros((1, 2, 544, 128), dtype=torch.float16, device=dev)
+    for block in (272, 200):        # over 256; not a multiple of 16
+        with pytest.raises(NotImplementedError):
+            ops.pasa_decode(qd, k3, k3, kvl, block_kv=block)
+    for block in (32, 256):         # the shift kernel takes 64 or 128
+        with pytest.raises(NotImplementedError):
+            ops.shift_kv(k2, block_kv=block)
     assert ops.shift_kv.launches == ops.pasa_attention.launches == 0
     assert ops.pasa_decode.launches == 0
+
+
+def _decode_gold(q, kc, vc, kv_lens):
+    """float64 softmax(q k^T / sqrt(d)) v per sequence over its first
+    kv_len rows of the (B, S2, KVH, D) cache."""
+    golds = []
+    for i, n in enumerate(kv_lens):
+        kk, vv = kc[i, :n].double(), vc[i, :n].double()
+        sc = q[i].double() @ kk.permute(1, 2, 0) / math.sqrt(q.shape[-1])
+        golds.append(torch.softmax(sc, -1) @ vv.transpose(0, 1))
+    return torch.stack(golds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [7, 12])
+def test_contiguous_decode_runs_at_the_default_block(g):
+    """ops.pasa_decode(q, k, v, kv_len) at its default block of 256 rows
+    (the reference's): a block reaches the cluster kernel in two pieces of
+    128 rows and its math runs once over all 256.  Within the decode bar
+    of the plain version at block 256, within relative RMSE 0.03 of
+    float64 attention, and equal bit for bit to the sequential walk at
+    256 - at both policies, PASA and FlashAttention-2, at kv_len 1, 255,
+    256, 257, 1000 and 4095 (NaN past kv_len)."""
+    dev = _card()
+    rng = np.random.default_rng(16)
+    kvh, d = 4, 128
+    kv_lens = [1, 255, 256, 257, 1000, 4095]
+    b, s2 = len(kv_lens), 4096
+    kc = _randn(rng, (b, s2, kvh, d), 2.0, dev, torch.bfloat16)
+    vc = _randn(rng, (b, s2, kvh, d), 0.0, dev, torch.bfloat16)
+    for i, n in enumerate(kv_lens):
+        kc[i, n:] = float("nan")
+        vc[i, n:] = float("nan")
+    kview, vview = kc.transpose(1, 2), vc.transpose(1, 2)
+    q = _randn(rng, (b, kvh, g, d), 0.0, dev)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    ops.reset_launches()
+    got = ops.pasa_decode(q, kview, vview, kvl)          # the defaults
+    assert ops.pasa_decode.launches == 1
+    want = cmod.decode_plain(q, kview, vview, kvl, beta=DEFAULT_BETA,
+                             policy=FP16, block_kv=256)
+    torch.testing.assert_close(got.float(), want.float(), **DECODE_TOL)
+    gold = _decode_gold(q, kc, vc, kv_lens)
+    assert float((got.double() - gold).norm() / gold.norm()) < 0.03
+    for policy in (FP16, FP16_FP32):
+        for beta in (0.0, BETA):
+            cluster = ops.pasa_decode(q, kview, vview, kvl, beta=beta,
+                                      policy=policy, block_kv=256)
+            walk = cmod._walk_call(q, kview, vview, kvl, beta=beta,
+                                   policy=policy, block_kv=256)
+            assert torch.isfinite(cluster.float()).all()
+            assert torch.equal(cluster, walk), (policy.name, beta)
+            plain = cmod.decode_plain(q, kview, vview, kvl, beta=beta,
+                                      policy=policy, block_kv=256)
+            torch.testing.assert_close(cluster.float(), plain.float(),
+                                       **DECODE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+@pytest.mark.parametrize("mode", ["fp16", "bf16_keys", "bf16_fp32"])
+@pytest.mark.parametrize("block", [64, 128])
+def test_shift_kernel_matches_plain_version(block, mode, layout):
+    """The shift kernel (TMA + wgmma) against its plain version at blocks
+    64 and 128: fp16 keys and bf16 keys (rounded to fp16 on chip) under
+    fp16 operands, and bf16 operands (the bf16_fp32 policy); keys as the
+    dense prefill holds them ((B, S, KVH, D), read through strides) or
+    contiguous; a grid of many blocks, a single block, and B * KVH = 1.
+    Within the reference's shift bar of the plain version and within
+    relative RMSE 1e-2 of the float64 product with the same M."""
+    dev = _card()
+    rng = np.random.default_rng(17)
+    policy = BF16_FP32 if mode == "bf16_fp32" else FP16
+    kdt = torch.float16 if mode == "fp16" else torch.bfloat16
+    op = policy.input_dtype
+    for b, kvh, s in ((2, 4, 512), (1, 2, block), (1, 1, 3 * block)):
+        k = _randn(rng, (b, s, kvh, 128), 5.0, dev, kdt)
+        k = k.transpose(1, 2) if layout == "strided" else \
+            k.transpose(1, 2).contiguous()
+        ops.reset_launches()
+        got = ops.shift_kv(k, beta=BETA, block_kv=block, policy=policy)
+        assert ops.shift_kv.launches == 1
+        assert ops.shift_kv.launches_by_mode == {
+            smod.mode_name(kdt, op, block): 1}
+        assert got.dtype == op and got.is_contiguous()
+        m = smod.device_matrix(block, 128, BETA, op, dev)
+        want = smod.shift_kv_plain(m, k.to(op), block, out_dtype=op)
+        torch.testing.assert_close(got.float(), want.float(), **SHIFT_TOL)
+        gold = torch.matmul(m.double(), k.to(op).double().reshape(
+            b, kvh, s // block, block, 128)).reshape(b, kvh, s, 128)
+        assert float((got.double() - gold).norm() / gold.norm()) \
+            < SHIFT_RMSE_MAX
+        if op == torch.float16:
+            ref = shift_kv_reference(k.to(op), 128, BETA, block)
+            assert float((got.double() - ref).norm() / ref.norm()) \
+                < SHIFT_RMSE_MAX
 
 
 @pytest.mark.cuda
@@ -407,6 +514,7 @@ def test_dense_route_on_card_batched_equals_one_at_a_time():
     ops.reset_launches()
     streams = run(prompts)
     assert ops.shift_kv.launches == ops.pasa_attention.launches == cfg.n_layers
+    assert sum(ops.shift_kv.launches_by_mode.values()) == cfg.n_layers
     assert ops.pasa_decode.launches == cfg.n_layers * (gen - 1)
     assert ops.pasa_paged_decode.launches == ops.pasa_paged_prefill.launches == 0
     for i in range(prompts.shape[0]):

@@ -16,6 +16,7 @@ same way against ``decode_plain`` and the reference's contiguous decode
 kernel (interpret mode).
 """
 
+import importlib
 import math
 
 import jax.numpy as jnp
@@ -35,8 +36,10 @@ from repro_torch.core.pasa import (
     prepare_blocks,
 )
 from repro_torch.core.precision import FP16, FP16_FP32, FP32
-from repro_torch.kernels import pasa_decode as cmod
-from repro_torch.kernels import pasa_paged_decode as dmod
+
+# the kernel modules (the package binds these names to the ops)
+cmod = importlib.import_module("repro_torch.kernels.pasa_decode")
+dmod = importlib.import_module("repro_torch.kernels.pasa_paged_decode")
 
 torch.set_num_threads(1)
 
