@@ -27,11 +27,18 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      at a paged serve's decode call (batch 4, kv 1002/519/302/131) from
      each pool dtype, the contiguous one at the dense serve's (batch 4,
      kv 1002, 1040 rows);
-     The quantized mode of the two paged kernels follows: the decode and
-     prefill fixtures quantized per page to int8 and fp8_e4m3 codes with
-     scale/shift sidecars, each kernel against its plain version under
-     the fp16 and fp16_fp32 policies, relative RMSE against float64
-     attention on the unquantized K/V within the per-dtype bounds, and
+     each of the four attention kernels also in its fp32 and bf16_fp32
+     modes (the policies of the reference's flash impl) at the same
+     fixtures and bars, at beta 0 (FlashAttention-2) and at the path's
+     beta, output at the policy's dtype, timed beside SDPA at the
+     policy's input dtype (contiguous decode again bit for bit against
+     its walk and paged decode; FlashAttention-2 finite on the overflow
+     inputs).  The quantized mode of the two paged kernels follows: the
+     decode and prefill fixtures quantized per page to int8 and fp8_e4m3
+     codes with scale/shift sidecars, each kernel against its plain
+     version under the fp32, bf16_fp32, fp16_fp32 and fp16 policies,
+     relative RMSE against float64 attention on the unquantized K/V
+     within the per-dtype bounds (at fp32: the reference's own bar), and
      NaN debris past kv_len and NaN sidecars on dead pages inert bit for
      bit;
   3. the paged serving path: qwen2-7b at full width (28 layers, random
@@ -47,7 +54,14 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      decode call, the paged kernels never; each prompt served alone gives
      the same stream as in the batch.  Shift-KV's launches are counted per
      mode: in the kernels line each mode has its own count, 0 for the
-     modes the serve does not run.
+     modes the serve does not run;
+  5. the reference's attention switch at impl="flash" (FlashAttention-2
+     at its default policy, bf16_fp32) with the same weights: the paged
+     serve from a bf16 pool and the dense serve again, each launch in the
+     kernels' bf16_fp32 mode (28 per call), batched == one-at-a-time
+     streams; how many greedy tokens equal the PASA serve's is reported.
+     In the kernels line each new mode has its flash serve's count (0 for
+     the fp32 modes, which no serve runs).
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -99,6 +113,11 @@ SHIFT_RMSE_MAX = 1e-2
 # fp16 policy, within max(2 x the raw pool's RMSE, the bound)
 QUANT_DTYPES = ("int8", "fp8_e4m3")
 QUANT_RMSE_BOUND = {"int8": 0.03, "fp8_e4m3": 0.09}
+# the fp32 and bf16_fp32 modes of the four attention kernels (fp16
+# operands with fp32 scores, statistics and accumulator; bf16 operands and
+# output with the rest fp32): held at the same bars, timed at beta = 0 (the
+# flash route serves bf16_fp32 at beta 0) and at the path's beta
+NEW_POLICIES = ("fp32", "bf16_fp32")
 
 
 def _kernel_module(name: str):
@@ -152,6 +171,97 @@ def _close(name, got, want, atol, rtol) -> float:
             f"{rtol}; max abs error {float(err.max()):.3e}"
         )
     return float(err.max())
+
+
+# each kernel's CUDA source and the TPU kernel it replaces
+KERNEL_FILES = {
+    "pasa_paged_decode": ("src/repro_torch/kernels/csrc/pasa_paged_decode.cu",
+                          "src/repro/kernels/pasa_paged_decode.py:196"),
+    "pasa_paged_prefill": ("src/repro_torch/kernels/csrc/pasa_paged_prefill.cu",
+                           "src/repro/kernels/pasa_paged_prefill.py:368"),
+    "pasa_decode": ("src/repro_torch/kernels/csrc/pasa_decode.cu",
+                    "src/repro/kernels/pasa_decode.py:268"),
+    "pasa_attention": ("src/repro_torch/kernels/csrc/pasa_attention.cu",
+                       "src/repro/kernels/pasa_attention.py:218"),
+}
+
+
+def _caster(*tensors):
+    """``at(policy)``: the tensors cast to the policy's input dtype, once
+    per dtype (so a timed call does not time the cast)."""
+    cast = {}
+
+    def at(policy):
+        op = policy.input_dtype
+        if op not in cast:
+            cast[op] = [x.to(op) for x in tensors]
+        return cast[op]
+
+    return at
+
+
+def _sdpa_at(inputs, **kw):
+    """SDPA on ``inputs`` (q, k, v) at a policy's input dtype."""
+    import torch.nn.functional as F
+
+    at = _caster(*inputs)
+    return lambda policy: F.scaled_dot_product_attention(*at(policy), **kw)
+
+
+def _is_new_mode(entry) -> bool:
+    """An entry of the fp32 or bf16_fp32 mode of one of the four attention
+    kernels (shift-KV's bf16_fp32 mode is one of its own modes)."""
+    name, _, tag = entry["name"].partition("/")
+    return name in KERNEL_FILES and tag in NEW_POLICIES
+
+
+def _new_mode_entries(name, run, plain, gold, tol, rmse_max, library_of,
+                      nbytes, flops, rows=slice(None), extra=None):
+    """One ``kernels`` entry per new policy mode of a kernel.  For each
+    policy, at beta 0 (FlashAttention-2, the flash route's setting) and at
+    BETA: ``run(policy, beta)`` (the kernel) against ``plain(policy,
+    beta)`` at ``tol``, the output at the policy's dtype, and both within
+    relative RMSE ``rmse_max`` of ``gold`` (float64, over ``rows``);
+    ``extra(policy)`` adds the kernel's own checks to the report.  Times:
+    the kernel at beta 0 (``ms``) and at BETA (``ms_pasa``), the plain
+    version and ``library_of(policy)`` (one PyTorch call computing the
+    same function at the policy's input dtype) at beta 0."""
+    import torch
+
+    from repro_torch.core.precision import get_policy
+
+    source, replaces = KERNEL_FILES[name]
+    entries = []
+    for tag in NEW_POLICIES:
+        policy = get_policy(tag)
+        rep = {}
+        for case, beta in (("flash", 0.0), ("pasa", BETA)):
+            got, want = run(policy, beta), plain(policy, beta)
+            torch.cuda.synchronize()
+            if got.dtype != policy.out_dtype:
+                raise AssertionError(f"{name}/{tag}: output {got.dtype}")
+            rep[f"max_abs_err_{case}"] = _close(f"{name}/{tag} ({case})",
+                                                got, want, **tol)
+            rmse = _rel_rmse(got[rows], gold)
+            rmse_plain = _rel_rmse(want[rows], gold)
+            if not (rmse < rmse_max and rmse_plain < rmse_max):
+                raise AssertionError(f"{name}/{tag} ({case}) RMSE {rmse:.4f} "
+                                     f"/ plain {rmse_plain:.4f}")
+            rep[f"rmse_{case}"], rep[f"rmse_plain_{case}"] = rmse, rmse_plain
+        if extra is not None:
+            rep.update(extra(policy))
+        entries.append(dict(
+            name=f"{name}/{tag}", route="cuda", source=source,
+            replaces=replaces,
+            max_abs_err=max(rep["max_abs_err_flash"], rep["max_abs_err_pasa"]),
+            rmse=rep["rmse_flash"], detail=rep,
+            ms=_cuda_time_ms(lambda: run(policy, 0.0), 20),
+            ms_pasa=_cuda_time_ms(lambda: run(policy, BETA), 20),
+            plain_ms=_cuda_time_ms(lambda: plain(policy, 0.0), 3, warmup=1),
+            library_ms=_cuda_time_ms(lambda: library_of(policy), 20),
+            **_bound(nbytes, flops),
+        ))
+    return entries
 
 
 def _paged_pool(rng, seq_lens, kvh, d, page, mean_k, n_extra, dev):
@@ -322,7 +432,7 @@ def check_decode(dev):
               + 2 * q.numel() * 2             # q in, out
               + table.numel() * 4 + b * 4)
     flops = 4 * g * d * live * kvh
-    return dict(
+    main = dict(
         name="pasa_paged_decode", route="cuda",
         source="src/repro_torch/kernels/csrc/pasa_paged_decode.cu",
         replaces="src/repro/kernels/pasa_paged_decode.py:196",
@@ -331,6 +441,16 @@ def check_decode(dev):
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         **_serve_shape_decode(dev, "bf16"), **_bound(nbytes, flops),
     )
+    modes = _new_mode_entries(
+        "pasa_paged_decode",
+        lambda policy, beta: ops.pasa_paged_decode(
+            q, kp, vp, table, kv_len, beta=beta, policy=policy),
+        lambda policy, beta: mod.paged_decode_plain(
+            q, kp, vp, table, kv_len, beta=beta, policy=policy,
+            block_kv=page),
+        gold_of(q), DECODE_TOL, RMSE_MAX,
+        _sdpa_at((qh, kg, vg), attn_mask=mask), nbytes, flops)
+    return [main, *modes]
 
 
 # full chunks at 0 and 512, a ragged last chunk at 1024, one pad row
@@ -441,7 +561,7 @@ def check_prefill(dev):
     live = sum(kv_lens)
     nbytes = (2 * live * kvh * d * 2 + 2 * q.numel() * 2
               + table.numel() * 4 + 2 * b * 4)
-    return dict(
+    main = dict(
         name="pasa_paged_prefill", route="cuda",
         source="src/repro_torch/kernels/csrc/pasa_paged_prefill.cu",
         replaces="src/repro/kernels/pasa_paged_prefill.py:368",
@@ -450,6 +570,27 @@ def check_prefill(dev):
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         **_bound(nbytes, _prefill_flops(h, d)),
     )
+
+    def pad_row_zero(policy):
+        run = ops.pasa_paged_prefill(q, kp, vp, table, start, kv_len,
+                                     beta=0.0, policy=policy)
+        if run[3].abs().max() != 0:
+            raise AssertionError(f"prefill pad row not zero ({policy.name})")
+        return {"pad_row_zero": True}
+
+    qa = _caster(q)          # q at the policy's input dtype
+    modes = _new_mode_entries(
+        "pasa_paged_prefill",
+        lambda policy, beta: ops.pasa_paged_prefill(
+            *qa(policy), kp, vp, table, start, kv_len, beta=beta,
+            policy=policy),
+        lambda policy, beta: mod.paged_prefill_plain(
+            *qa(policy), kp, vp, table, start, kv_len, beta=beta,
+            policy=policy),
+        gold, PREFILL_TOL, RMSE_MAX,
+        _sdpa_at((q, kg, vg), attn_mask=mask[:, None]), nbytes,
+        _prefill_flops(h, d), rows=slice(0, 3), extra=pad_row_zero)
+    return [main, *modes]
 
 
 def _prefill_flops(h, d) -> int:
@@ -518,12 +659,10 @@ def _mode_entry(name, per_mode, keys):
 
 
 def _quant_mode_entry(name, dtype, held, ms, plain_ms, lib_ms, nbytes, flops):
+    source, replaces = KERNEL_FILES[name]
     return dict(
-        name=f"{name}/{dtype}", route="cuda",
-        source=f"src/repro_torch/kernels/csrc/{name}.cu",
-        replaces=("src/repro/kernels/pasa_paged_decode.py:196"
-                  if name == "pasa_paged_decode"
-                  else "src/repro/kernels/pasa_paged_prefill.py:368"),
+        name=f"{name}/{dtype}", route="cuda", source=source,
+        replaces=replaces,
         max_abs_err=held["max_abs_err_fp16"], rmse=held["rmse_fp16"],
         detail=held, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         **_bound(nbytes, flops),
@@ -532,24 +671,26 @@ def _quant_mode_entry(name, dtype, held, ms, plain_ms, lib_ms, nbytes, flops):
 
 def _check_quant_policies(name, run, plain_of, gold, raw_fp16, dtype, tol,
                           rows=slice(None)):
-    """Kernel vs plain version on the card under fp16 and fp16_fp32, and
-    relative RMSE vs float64 attention on the unquantized K/V: within
-    the dtype's bound at fp16_fp32, within max(2 x the raw pool's RMSE,
-    the bound) at fp16."""
+    """Kernel vs plain version on the card under every policy the kernels
+    run, and relative RMSE vs float64 attention on the unquantized K/V:
+    within the dtype's bound at fp32 (the reference's own bar), bf16_fp32
+    and fp16_fp32, within max(2 x the raw pool's RMSE, the bound) at
+    fp16.  Returns the report and the fp16 output."""
     import torch
 
-    from repro_torch.core.precision import FP16, FP16_FP32
+    from repro_torch.core.precision import BF16_FP32, FP16, FP16_FP32, FP32
 
     held = {}
     bound = QUANT_RMSE_BOUND[dtype]
     raw_rmse = _rel_rmse(raw_fp16[rows], gold)
-    for tag, policy in (("fp16_fp32", FP16_FP32), ("fp16", FP16)):
+    for tag, policy in (("fp32", FP32), ("bf16_fp32", BF16_FP32),
+                        ("fp16_fp32", FP16_FP32), ("fp16", FP16)):
         got, plain = run(policy), plain_of(policy)
         torch.cuda.synchronize()
         held[f"max_abs_err_{tag}"] = _close(f"{name}/{dtype} ({tag})", got,
                                             plain, **tol)
         rmse, rmse_plain = _rel_rmse(got[rows], gold), _rel_rmse(plain[rows], gold)
-        limit = bound if tag == "fp16_fp32" else max(2.0 * raw_rmse, bound)
+        limit = bound if tag != "fp16" else max(2.0 * raw_rmse, bound)
         if not (rmse <= limit and rmse_plain <= limit):
             raise AssertionError(f"{name}/{dtype} ({tag}) RMSE {rmse:.4f} / "
                                  f"plain {rmse_plain:.4f} > {limit:.4f}")
@@ -859,7 +1000,7 @@ def check_attention(dev):
         q, ke, ve, is_causal=True), 20)
     nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2   # q, out, K', V at fp16
     flops = 4 * d * b * h * (s * (s + 1) // 2)        # causal: visible pairs
-    return dict(
+    main = dict(
         name="pasa_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/pasa_attention.cu",
         replaces="src/repro/kernels/pasa_attention.py:218",
@@ -868,6 +1009,38 @@ def check_attention(dev):
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         **_bound(nbytes, flops),
     )
+
+    # the new modes on the causal prefill, queries of mean 0: q, K, V
+    # at the policy's input dtype before the calls, so ``ms`` at beta 0
+    # is the FA2 kernel alone and ``ms_pasa`` shift-KV + the PASA kernel
+    args = _caster(q, k, v)
+
+    def run(policy, beta):
+        if beta == 0.0:
+            return ops.flash_attention(*args(policy), policy=policy,
+                                       causal=True)
+        return ops.pasa_attention(*args(policy), beta=beta, policy=policy,
+                                  causal=True)
+
+    def overflow_finite(policy):
+        # inputs near 30: the fp32 score store keeps FA2 finite
+        out = ops.flash_attention(qo, ko, vo, policy=policy)
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"FlashAttention-2 at {policy.name} is not "
+                                 f"finite on inputs near 30")
+        return {"overflow_headline": "flash finite"}
+
+    ke = k.repeat_interleave(h // kvh, 1)
+    ve = v.repeat_interleave(h // kvh, 1)
+    modes = _new_mode_entries(
+        "pasa_attention", run,
+        lambda policy, beta: mod.attention_plain(
+            *args(policy), beta=beta, policy=policy, block_kv=128,
+            causal=True),
+        _gold_attention(q, k, v, True), ATTN_CAUSAL_TOL, ATTN_RMSE_MAX,
+        _sdpa_at((q, ke, ve), is_causal=True), nbytes, flops,
+        extra=overflow_finite)
+    return [main, *modes]
 
 
 def check_contiguous_decode(dev):
@@ -985,7 +1158,7 @@ def check_contiguous_decode(dev):
     live = sum(lens)
     nbytes = 2 * live * kvh * d * 2 + 2 * q.numel() * 2 + b * 4
     flops = 4 * g * d * live * kvh
-    return dict(
+    main = dict(
         name="pasa_decode", route="cuda",
         source="src/repro_torch/kernels/csrc/pasa_decode.cu",
         replaces="src/repro/kernels/pasa_decode.py:268",
@@ -994,6 +1167,40 @@ def check_contiguous_decode(dev):
         detail=report.pop("block_256"), **report,
         **_serve_shape_contiguous_decode(dev), **_bound(nbytes, flops),
     )
+
+    def bit_equal(policy):
+        """contiguous == walk == paged at block 128, contiguous == walk at
+        the op's default block 256, PASA and FlashAttention-2."""
+        qp = q.to(policy.input_dtype)
+        for beta in (0.0, BETA):
+            for blk in (block, 256):
+                got = ops.pasa_decode(q, kview, vview, kv_len, beta=beta,
+                                      policy=policy, block_kv=blk)
+                walk = mod._walk_call(qp, kview, vview, kv_len, beta=beta,
+                                      policy=policy, block_kv=blk)
+                others = [("the walk", walk)]
+                if blk == block:
+                    others.append(("paged decode", ops.pasa_paged_decode(
+                        q, kp, vp, table, kv_len, beta=beta, policy=policy)))
+                for what, other in others:
+                    if not torch.equal(got, other):
+                        raise AssertionError(
+                            f"contiguous decode ({policy.name}, beta {beta}, "
+                            f"block {blk}) != {what}")
+        return {"walk_and_paged_bit_equal": True}
+
+    modes = _new_mode_entries(
+        "pasa_decode",
+        lambda policy, beta: ops.pasa_decode(
+            q, kview, vview, kv_len, beta=beta, policy=policy,
+            block_kv=block),
+        lambda policy, beta: mod.decode_plain(
+            q, kview, vview, kv_len, beta=beta, policy=policy,
+            block_kv=block),
+        gold, DECODE_TOL, RMSE_MAX,
+        _sdpa_at((qh, ke, ve), attn_mask=mask[:, None, None, :]), nbytes,
+        flops, extra=bit_equal)
+    return [main, *modes]
 
 
 def _serve_shape_contiguous_decode(dev):
@@ -1062,9 +1269,41 @@ def build_model(dev):
     return bundle, params, time.perf_counter() - t0
 
 
+def _served_mode(cfg, cache_dtype) -> str:
+    """The launch-counter key of the kernels' mode a serve of ``cfg``
+    runs: its impl's policy (``pasa_policy`` for PASA, ``policy`` for
+    flash) over a pool or cache of ``cache_dtype``."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.kernels.pasa_paged_decode import mode_name
+    from repro_torch.runtime.paged_cache import resolve_pool_dtype
+
+    ac = cfg.attention
+    policy = get_policy(ac.pasa_policy if ac.impl == "pasa" else ac.policy)
+    return mode_name(policy, resolve_pool_dtype(cache_dtype))
+
+
+def _by_mode(names):
+    """Each named op's launch counts by mode, as plain dicts."""
+    from repro_torch.kernels import ops
+
+    return {name: dict(getattr(ops, name).launches_by_mode) for name in names}
+
+
+def _flash_bundle(bundle):
+    """The same model with the attention switch at impl="flash" (its
+    default policy, bf16_fp32)."""
+    import dataclasses
+
+    from repro_torch.models.model_zoo import build
+
+    return build(dataclasses.replace(bundle.cfg, attention=dataclasses.replace(
+        bundle.cfg.attention, impl="flash")))
+
+
 def serve(dev, bundle, params, cache_dtype="bf16"):
     """qwen2-7b at full width through the engine from a ``cache_dtype``
-    page pool; returns the report."""
+    page pool (the attention impl and policy of ``bundle.cfg``); returns
+    the report."""
     import dataclasses
 
     import numpy as np
@@ -1127,6 +1366,13 @@ def serve(dev, bundle, params, cache_dtype="bf16"):
         )
     if n_prefill == 0 or n_decode == 0:
         raise AssertionError("the serve made no prefill or no decode call")
+    # every launch in the mode of the serve's impl, policy and pool
+    by_mode = _by_mode(launches)
+    mode = _served_mode(cfg, cache_dtype)
+    for name, n in launches.items():
+        if by_mode[name] != {mode: n}:
+            raise AssertionError(f"{cache_dtype} pool: {name} launches by "
+                                 f"mode {by_mode[name]} != {{{mode!r}: {n}}}")
     if not bool(torch.stack(finite).all()):
         raise AssertionError(f"{cache_dtype} pool: non-finite logits")
     streams = [r.generated for r in reqs]
@@ -1154,10 +1400,11 @@ def serve(dev, bundle, params, cache_dtype="bf16"):
     n_tok = sum(len(s) for s in streams)
     return dict(
         arch=cfg.arch_id, layers=n_layers, d_model=cfg.d_model,
-        cache_dtype=cache_dtype, pool_bytes=pool_bytes,
-        prompts=list(SERVE_PROMPTS), gen=SERVE_GEN, steps=len(marks),
-        prefill_calls=n_prefill, decode_calls=n_decode,
-        launches=launches, wall_s=wall, tok_per_s=n_tok / wall,
+        impl=cfg.attention.impl, cache_dtype=cache_dtype,
+        pool_bytes=pool_bytes, prompts=list(SERVE_PROMPTS), gen=SERVE_GEN,
+        steps=len(marks), prefill_calls=n_prefill, decode_calls=n_decode,
+        launches=launches, launches_by_mode=by_mode, wall_s=wall,
+        tok_per_s=n_tok / wall,
         ttft_ms=[1e3 * t for t in ttft],
         decode_ms_per_step=1e3 * sum(decode_only) / max(len(decode_only), 1),
         peak_gb=peak / 1e9, streams=streams,
@@ -1167,7 +1414,8 @@ def serve(dev, bundle, params, cache_dtype="bf16"):
 def serve_dense(dev, bundle, params):
     """The dense route of launch/serve.py at full width: one fused prefill
     of four 1000-token prompts, then greedy decode steps on the dense
-    cache; returns the report."""
+    cache (the attention impl and policy of ``bundle.cfg``); returns the
+    report."""
     import dataclasses
 
     import numpy as np
@@ -1219,19 +1467,27 @@ def serve_dense(dev, bundle, params):
     ops.reset_launches()
     streams, marks = run(prompts)
     launches = {name: getattr(ops, name).launches for name in (
-        "shift_kv", "pasa_attention", "pasa_decode", "pasa_paged_prefill",
-        "pasa_paged_decode")}
+        "shift_kv", "pasa_attention", "flash_attention", "pasa_decode",
+        "pasa_paged_prefill", "pasa_paged_decode")}
     n_prefill, n_decode = 1, SERVE_GEN - 1
-    want = {"shift_kv": cfg.n_layers * n_prefill,
-            "pasa_attention": cfg.n_layers * n_prefill,
-            "pasa_decode": cfg.n_layers * n_decode,
-            "pasa_paged_prefill": 0, "pasa_paged_decode": 0}
+    # PASA: shift-KV then the PASA kernel; flash: FlashAttention-2 alone
+    pasa = cfg.attention.impl == "pasa"
+    prefill_ops = ("shift_kv", "pasa_attention") if pasa else ("flash_attention",)
+    want = {name: cfg.n_layers * n_prefill if name in prefill_ops else 0
+            for name in launches}
+    want["pasa_decode"] = cfg.n_layers * n_decode
     if launches != want:
         raise AssertionError(f"dense launch counts {launches} != {want}")
-    shift_by_mode = dict(ops.shift_kv.launches_by_mode)
+    by_mode = _by_mode(launches)
+    shift_by_mode = by_mode.pop("shift_kv")
     if sum(shift_by_mode.values()) != launches["shift_kv"]:
         raise AssertionError(f"shift_kv launches by mode {shift_by_mode} do "
                              f"not add up to {launches['shift_kv']}")
+    mode = _served_mode(cfg, "bf16")
+    for name, counts in by_mode.items():
+        if counts != ({mode: launches[name]} if launches[name] else {}):
+            raise AssertionError(f"dense {name} launches by mode {counts} "
+                                 f"!= {mode!r}: {launches[name]}")
     if not bool(torch.stack(finite).all()):
         raise AssertionError("non-finite logits in the dense serve")
     if not bool(((streams >= 0) & (streams < cfg.vocab_size)).all()):
@@ -1248,10 +1504,13 @@ def serve_dense(dev, bundle, params):
     return dict(
         arch=cfg.arch_id, layers=cfg.n_layers, batch=DENSE_BATCH,
         prompt_len=DENSE_PROMPT, gen=SERVE_GEN, max_len=max_len,
-        prefill_calls=n_prefill, decode_calls=n_decode, launches=launches,
-        shift_kv_launches_by_mode=shift_by_mode, wall_s=wall, tok_per_s=streams.numel() / wall, ttft_ms=1e3 * marks[0],
+        impl=cfg.attention.impl, prefill_calls=n_prefill,
+        decode_calls=n_decode, launches=launches,
+        shift_kv_launches_by_mode=shift_by_mode, launches_by_mode=by_mode,
+        wall_s=wall, tok_per_s=streams.numel() / wall,
+        ttft_ms=1e3 * marks[0],
         decode_ms_per_step=1e3 * sum(steps) / len(steps),
-        peak_gb=peak / 1e9, sample=streams[0, :16].tolist(),
+        peak_gb=peak / 1e9, streams=streams.tolist(),
     )
 
 
@@ -1261,7 +1520,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    from repro_torch.core.precision import get_policy
     from repro_torch.kernels import _build
+    from repro_torch.kernels.pasa_paged_decode import mode_name
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1287,8 +1548,8 @@ def main() -> int:
                     print(f"  {name}:   {line.strip()}")
 
     print("exports: " + ", ".join(check_exports()))
-    kernels = [check_decode(dev), check_prefill(dev), *check_shift_kv(dev),
-               check_attention(dev), check_contiguous_decode(dev)]
+    kernels = [*check_decode(dev), *check_prefill(dev), *check_shift_kv(dev),
+               *check_attention(dev), *check_contiguous_decode(dev)]
     kernels += [check(dev, dtype) for dtype in QUANT_DTYPES
                 for check in (check_decode_quant, check_prefill_quant)]
     for k in kernels:
@@ -1300,6 +1561,8 @@ def main() -> int:
         if "serve_shape_ms" in k:
             extra += (f"; at the serve's decode shape {k['serve_shape_ms']:.4f}"
                       f" ms, library {k['serve_shape_library_ms']:.4f} ms")
+        if "ms_pasa" in k:
+            extra += f"; at beta {BETA} {k['ms_pasa']:.4f} ms"
         if "rmse_algebraic" in k:
             extra += (f"; rmse vs the algebraic shift {k['rmse_algebraic']:.2e}"
                       f" (plain {k['rmse_algebraic_plain']:.2e})")
@@ -1328,27 +1591,54 @@ def main() -> int:
         reps[dtype] = rq
     rep_dense = serve_dense(dev, bundle, params)
     print("serve_dense: " + json.dumps(rep_dense))
+    # the reference's attention switch at its default policy: impl="flash"
+    # (FlashAttention-2 at bf16_fp32) with the same weights, on the paged
+    # engine from a bf16 pool and on the dense route; how many greedy
+    # tokens equal the PASA serve's is reported, not held
+    flash = _flash_bundle(bundle)
+    rep_fp = serve(dev, flash, params)
+    rep_fd = serve_dense(dev, flash, params)
+    for r, base in ((rep_fp, rep), (rep_fd, rep_dense)):
+        same = sum(a == b for sa, sb in zip(r["streams"], base["streams"])
+                   for a, b in zip(sa, sb))
+        total = sum(len(x) for x in base["streams"])
+        r["tokens_equal_to_pasa_serve"] = f"{same}/{total}"
+    print("serve_flash: " + json.dumps(rep_fp))
+    print("serve_dense_flash: " + json.dumps(rep_fd))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each mode of shift-KV has the dense serve's count of that mode (0 for
     # the modes the serve does not run); the paged kernels' quantized modes
-    # have their own serve's count
+    # have their own serve's count; the fp32 and bf16_fp32 modes the flash
+    # serves' counts of that mode (the attention kernel's from both its ops)
     for k in kernels:
-        name, _, dtype = k["name"].partition("/")
+        name, _, tag = k["name"].partition("/")
         if name == "shift_kv":
             k["launches"] = rep_dense["shift_kv_launches_by_mode"].get(
                 k["mode"], 0)
-            continue
-        serve_rep = (reps[dtype or "bf16"] if name.startswith("pasa_paged_")
-                     else rep_dense)
-        k["launches"] = serve_rep["launches"][name]
+        elif _is_new_mode(k):
+            mode = mode_name(get_policy(tag), torch.bfloat16)
+            by_mode = (rep_fp if name.startswith("pasa_paged_")
+                       else rep_fd)["launches_by_mode"]
+            names = (("pasa_attention", "flash_attention")
+                     if name == "pasa_attention" else (name,))
+            k["launches"] = sum(by_mode[n].get(mode, 0) for n in names)
+            if tag == "bf16_fp32" and k["launches"] == 0:
+                raise AssertionError(f"{k['name']} was not launched on the "
+                                     f"flash serve")
+        else:
+            serve_rep = (reps[tag or "bf16"] if name.startswith("pasa_paged_")
+                         else rep_dense)
+            k["launches"] = serve_rep["launches"][name]
     line = [{key: k[key] for key in keys} for k in kernels if "/" not in k["name"]]
     for k in line:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on its serve")
+    line += [{key: k[key] for key in keys} for k in kernels if _is_new_mode(k)]
     for name in ("pasa_paged_decode", "pasa_paged_prefill", "shift_kv"):
-        line.append(_mode_entry(name, [k for k in kernels
-                                       if k["name"].startswith(name + "/")], keys))
+        line.append(_mode_entry(name, [
+            k for k in kernels if k["name"].startswith(name + "/")
+            and not _is_new_mode(k)], keys))
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

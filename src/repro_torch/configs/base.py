@@ -11,13 +11,21 @@ import dataclasses
 import torch
 
 
+IMPLS = ("pasa", "flash", "naive")
+
+
 @dataclasses.dataclass(frozen=True)
 class AttentionConfig:
-    """PASA attention (the reference's ``impl="pasa"``; the flash and naive
-    implementations are not ported)."""
+    """The attention implementation switch, as the reference's:
+    ``impl="pasa"`` runs PASA at ``pasa_policy`` and ``beta``;
+    ``"flash"`` runs FlashAttention-2 (beta = 0) at ``policy``, the
+    paper's safe baseline; ``"naive"`` the materialized softmax
+    (``core.naive``, plain PyTorch on every device)."""
 
+    impl: str = "pasa"            # "pasa" | "flash" | "naive"
     beta: float = 0.984497        # paper's adopted optimal-accuracy beta
-    pasa_policy: str = "fp16"     # precision policy (paper: fully fp16)
+    policy: str = "bf16_fp32"     # precision policy when impl == "flash"
+    pasa_policy: str = "fp16"     # policy when impl == "pasa" (paper: fully fp16)
     block_kv: int = 128           # PASA shift block == KV page size
     # The dense prefill shifts K with the paper's batched-GEMM M (the
     # algebraic shift there is not ported: False raises), and attends with
@@ -76,6 +84,10 @@ class ModelConfig:
             )
         if self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
+        if self.attention.impl not in IMPLS:
+            raise ValueError(
+                f"unknown attention impl {self.attention.impl!r}; have {IMPLS}"
+            )
         return self
 
     def reduced(self) -> "ModelConfig":

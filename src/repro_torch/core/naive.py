@@ -4,7 +4,7 @@
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -16,11 +16,17 @@ def naive_attention(
     *,
     causal: bool = False,
     kv_len: Optional[torch.Tensor] = None,
-    q_offset: int = 0,
+    q_offset: Union[int, torch.Tensor] = 0,
     dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """O(S1*S2)-memory exact attention; ``dtype=torch.float64`` is the
-    oracle of every equivalence test.  q (..., S1, D), k/v (..., S2, D)."""
+    oracle of every equivalence test.  q (..., S1, D), k/v (..., S2, D).
+
+    ``q_offset`` is the absolute position of query row 0 under ``causal``:
+    an int, or a tensor that broadcasts as (..., S1, 1) against the
+    column ids - per-row chunk starts of a chunked prefill, e.g. (B, 1, 1,
+    1) for q (B, H, S1, D), as the reference's attention layer passes
+    them."""
     d = q.shape[-1]
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     s = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)

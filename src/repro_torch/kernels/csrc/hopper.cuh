@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the wgmma kernels (sm_90a): shared-
 // memory barriers (mbarrier), TMA and bulk copies, wgmma with its shared-
-// memory descriptors, the fp16-pair steps of the all-fp16 policy, and the
-// host-side tensor-map encoding.  Included by pasa_attention.cu,
+// memory descriptors (fp16 and bf16 operands), the fp16-pair steps of the
+// all-fp16 policy, and the host-side tensor-map encoding.  Included by pasa_attention.cu,
 // pasa_paged_prefill.cu and shift_kv.cu.
 #pragma once
 
@@ -173,81 +173,6 @@ __device__ __forceinline__ void fence_regs(uint32_t* a) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
-// D (m64 x n64, f32) (+)= A (smem, K-major) * B (smem, K-major)^T.
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (m64 x n128, f32) (+)= A (smem, K-major) * B (smem, K-major)^T.
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (m64 x n128, f32) (+)= A (registers, fp16 fragments) * B (smem,
-// MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, "
-      "1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
 #define PASA_WGMMA_D32 \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
   "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
@@ -257,41 +182,127 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
   "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
   "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
   "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define PASA_WGMMA_D64 PASA_WGMMA_D32, \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define PASA_WGMMA_R32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31}"
+#define PASA_WGMMA_R64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63}"
 
-// D (m64 x n64, f32) (+)= A (registers: 16-bit pairs) * B (smem, K-major),
-// on fp16 operands or, with BF16, bf16 ones.
+// Each product below takes fp16 operands or, with BF16, bf16 ones, into
+// an fp32 sum.
+
+// D (m64 x n64, f32) (+)= A (smem, K-major) * B (smem, K-major)^T.
+template <bool BF16>
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                             int accumulate) {
+  if constexpr (BF16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PASA_WGMMA_R32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : PASA_WGMMA_D32
+        : "l"(da), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " PASA_WGMMA_R32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : PASA_WGMMA_D32
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+}
+
+// D (m64 x n128, f32) (+)= A (smem, K-major) * B (smem, K-major)^T.
+template <bool BF16>
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
+                                              int accumulate) {
+  if constexpr (BF16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PASA_WGMMA_R64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : PASA_WGMMA_D64
+        : "l"(da), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " PASA_WGMMA_R64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : PASA_WGMMA_D64
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+}
+
+// D (m64 x n128, f32) (+)= A (registers: 16-bit pairs) * B (smem,
+// MN-major).
+template <bool BF16>
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db, int accumulate) {
+  if constexpr (BF16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PASA_WGMMA_R64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : PASA_WGMMA_D64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " PASA_WGMMA_R64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : PASA_WGMMA_D64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate));
+  }
+}
+
+// D (m64 x n64, f32) (+)= A (registers: 16-bit pairs) * B (smem, K-major).
 template <bool BF16>
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
                                              uint64_t db, int accumulate) {
   if constexpr (BF16) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-        "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PASA_WGMMA_R32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
         : PASA_WGMMA_D32
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
           "r"(accumulate));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-        "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " PASA_WGMMA_R32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
         : PASA_WGMMA_D32
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
           "r"(accumulate));
   }
 }
 #undef PASA_WGMMA_D32
+#undef PASA_WGMMA_D64
+#undef PASA_WGMMA_R32
+#undef PASA_WGMMA_R64
 
-template <int BKV>
+template <int BKV, bool BF16>
 __device__ __forceinline__ void wgmma_scores(float* s, uint64_t da, uint64_t db,
                                              int accumulate) {
-  if constexpr (BKV == 128) wgmma_ss_n128(s, da, db, accumulate);
-  else wgmma_ss_n64(s, da, db, accumulate);
+  if constexpr (BKV == 128) wgmma_ss_n128<BF16>(s, da, db, accumulate);
+  else wgmma_ss_n64<BF16>(s, da, db, accumulate);
 }
 
 // ---- fp16 pairs --------------------------------------------------------
@@ -331,6 +342,14 @@ __device__ __forceinline__ uint32_t h2_splat(float x) {
 }
 
 // ---- host side ----------------------------------------------------------
+
+// The instance kind of a wgmma kernel's launch (attention, paged
+// prefill): 0 the fp16 pair steps (the fp16 policy), 1 fp16 scores, 2 fp32
+// scores on fp16 operands, 3 fp32 scores on bf16 operands (`mode`: ModeId).
+static inline int wgmma_kind(int mode, const Policy& P) {
+  if (mode == MODE_F16) return (P.stat_half && P.acc_half) ? 0 : 1;
+  return mode == MODE_F32 ? 2 : 3;
+}
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   void*, const cuuint64_t*, const cuuint64_t*,

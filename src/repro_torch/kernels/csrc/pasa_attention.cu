@@ -6,15 +6,17 @@
 //
 // What it computes: full-head queries q (B, H, S1, 128) against keys
 // K' = M K already shifted and scaled by the shift kernel (B, KVH, S2,
-// 128) and values v (B, KVH, S2, 128), all fp16 and read through their
-// strides; GQA maps query head h to kv head h / (H / KVH), so K'/V are
+// 128) and values v (B, KVH, S2, 128), all at the policy's input dtype
+// (fp16, or bf16 under bf16_fp32) and read through their strides; GQA maps query head h to kv head h / (H / KVH), so K'/V are
 // never expanded.  One CTA per (b * H + h, query tile of block_q rows)
 // walks the key tiles IN ORDER - the F-bar recurrence is order-dependent
 // - keeping m, l, F-bar and the accumulator at the policy's dtypes and
 // ONE block count for the whole tile.  Per key tile:
-//   1. S = Q K'^T, stored at fp16 (the paper's overflow point); at
-//      beta = 0 the 1/sqrt(d) scale follows the store (FlashAttention-2,
-//      Eq. 2), so raw fp16 overflow is reproduced;
+//   1. S = Q K'^T, stored at the score dtype: fp16 under the fp16 and
+//      fp16_fp32 policies (the paper's overflow point), while under fp32
+//      and bf16_fp32 it stays in the fp32 wgmma sum; at beta = 0 the
+//      1/sqrt(d) scale follows the store (FlashAttention-2, Eq. 2), so raw
+//      fp16 overflow is reproduced;
 //   2. the row pseudo-average over ALL block_kv columns (the shift used
 //      them all), an fp32 sum rounded once to the statistic dtype;
 //   3. only then the causal mask; a tile wholly above the diagonal
@@ -24,6 +26,23 @@
 //      folded into the accumulator (acc_update), as the reference rounds
 //      pv before combining - the fp16 policy depends on it.
 // With inva = 0 and beta = 0 it is the FlashAttention-2 baseline.
+//
+// P V at fp32 scores (the fp32 and bf16_fp32 policies): the reference
+// multiplies the fp32 P by V widened to fp32.  Here P is the register A
+// operand of the fp16 / bf16 wgmma at the operand type; the row sum l is
+// taken over the unrounded fp32 P.  Under fp32 P is rounded once to fp16
+// (2^-12 relative), as CUDA FlashAttention-2 does.  Under bf16_fp32 one
+// bf16 rounding (2^-9) moved outputs of causal rows that see a few keys
+// past the reference's tolerance (by 4e-4 at the dense prefill's shape),
+// so P goes in as two bf16 terms, hi = bf16(p) and lo = bf16(p - hi),
+// over two products into the same fp32 sum (SPLIT_P): P to ~2^-17, for a
+// second P V product on tensor cores that the softmax leaves idle and 32
+// more registers per consumer thread (240 have room; the paged prefill
+// kernel's 224 do not, and rounds P once).
+// (tf32 wgmma would keep P at 2^-11 but takes only K-major B operands,
+// and V lies MN-major in the ring: a transposed V tile would cost shared
+// memory or a pass.)  Both are held to the reference's tolerances against
+// the plain version and to relative RMSE 0.02 against float64.
 //
 // What bounds it on an H100: operations.  The two GEMMs are 4 x S1 x S2 x
 // 128 flops per head (halved by the causal skip) against q, K', V and O
@@ -45,7 +64,8 @@
 //     runs redundantly in those 4 threads;
 //   * under the all-fp16 policy the per-element softmax and accumulator
 //     steps, which bound the kernel beside the tensor cores, run on fp16
-//     pairs with the same bits (see "fp16 pairs" in hopper.cuh);
+//     pairs with the same bits (see "fp16 pairs" in hopper.cuh); every
+//     other policy runs them in fp32, rounding where the policy stores;
 //   * the longest causal query tiles are issued first.
 
 #include "hopper.cuh"
@@ -53,20 +73,21 @@
 namespace pasa {
 
 constexpr int AT_STAGES = 2;                  // K'/V ring depth
-constexpr int AT_HALF_BYTES = 64 * 2;         // one 64-column half-row, fp16
+constexpr int AT_HALF_BYTES = 64 * 2;         // one 64-column half-row (2 B)
 
-// Scores of one tile as the policy stores them, with the row sums over
-// all columns (before the mask) and, after the causal mask when MASK, the
-// row maxima.  s[4 g + e] holds row e >> 1 (of the thread's two) at tile
-// column 8 g + 2 quad + (e & 1); col0 = the tile's first column + 2 quad.
-template <int NS, bool MASK>
+// Scores of one tile as the policy stores them (at fp16 if SH), with the
+// row sums over all columns (before the mask) and, after the causal mask
+// when MASK, the row maxima.  s[4 g + e] holds row e >> 1 (of the thread's
+// two) at tile column 8 g + 2 quad + (e & 1); col0 = the tile's first
+// column + 2 quad.
+template <int NS, bool MASK, bool SH>
 __device__ __forceinline__ void tile_scores(float* s, float* ssum, float* mx,
                                             int col0, const int* row,
                                             const Policy& P) {
 #pragma unroll
   for (int e = 0; e < NS; ++e) {
     const int r = (e >> 1) & 1;
-    float v = store_score(s[e], P);
+    float v = store_score<SH>(s[e], P);
     ssum[r] += v;                                    // all columns
     if (MASK && col0 + 8 * (e >> 2) + (e & 1) > row[r]) v = NEG_BIG;
     s[e] = v;
@@ -90,17 +111,22 @@ struct AttnLayout {
   static constexpr int THREADS = 128 * (NWG + 1);
 };
 
-// H16: statistics and accumulator at fp16 (the paper's policy): the
+// M: the policy's mode (operand type, score store).  H16 (only with
+// ModeF16): statistics and accumulator at fp16 (the paper's policy): the
 // softmax and accumulator steps run on fp16 pairs.
-template <int NWG, int BKV, bool H16>
+template <int NWG, int BKV, bool H16, typename M>
 __global__ void __launch_bounds__(AttnLayout<NWG, BKV>::THREADS, 1)
 pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
                       const __grid_constant__ CUtensorMap tk,  // K' (B,KVH,S2,D)
                       const __grid_constant__ CUtensorMap tv,  // (B,KVH,S2,D)
-                      __half* __restrict__ out,                // (B,H,S1,D)
+                      typename M::Op* __restrict__ out,        // (B,H,S1,D)
                       int heads, int kv_heads, int s1, int s2, int causal,
                       Policy P) {
+  static_assert(!H16 || M::kScoreHalf, "the fp16 pair steps need fp16 scores");
+  using OpT = typename M::Op;
   using L = AttnLayout<NWG, BKV>;
+  // P V from the fp32 P as two bf16 terms (bf16_fp32; see the note above)
+  constexpr bool SPLIT_P = M::kBF16 && !M::kScoreHalf;
   constexpr int BQ = L::BQ;
   constexpr int NS = BKV / 2;            // score registers per thread
   extern __shared__ unsigned char smem_raw[];
@@ -195,7 +221,7 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
 #pragma unroll
       for (int kk = 0; kk < HEAD_DIM / 16; ++kk) {
         const uint32_t off = (kk >> 2), in = (kk & 3) * 32;
-        wgmma_scores<BKV>(
+        wgmma_scores<BKV, M::kBF16>(
             s, gmma_desc(q_addr + off * BQ * AT_HALF_BYTES + in, 16, 1024),
             gmma_desc(k_addr + off * BKV * AT_HALF_BYTES + in, 16, 1024),
             kk > 0);
@@ -210,9 +236,9 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
       const int col0 = j * BKV + 2 * quad;
       float ssum[2] = {0.0f, 0.0f}, mx[2] = {-INFINITY, -INFINITY};
       if (causal && (j + 1) * BKV - 1 > i * BQ + 64 * cw)
-        tile_scores<NS, true>(s, ssum, mx, col0, row, P);
+        tile_scores<NS, true, M::kScoreHalf>(s, ssum, mx, col0, row, P);
       else
-        tile_scores<NS, false>(s, ssum, mx, col0, row, P);
+        tile_scores<NS, false, M::kScoreHalf>(s, ssum, mx, col0, row, P);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
 #pragma unroll
@@ -221,10 +247,12 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
         }
       }
-      // 4. local softmax at the statistic dtype, P at fp16 packed as the
-      // A fragments of the P V product (k16 step kk: pa[4 kk .. 4 kk + 3])
+      // 4. local softmax at the statistic dtype, P at the score dtype, then
+      // at the operand type packed as the A fragments of the P V product
+      // (k16 step kk: pa[4 kk .. 4 kk + 3])
       float lsum[2] = {0.0f, 0.0f};
       uint32_t pa[NS / 2];
+      uint32_t pa_lo[SPLIT_P ? NS / 2 : 1];   // P - hi (bf16_fp32)
       if constexpr (H16) {
         const uint32_t mx2[2] = {h2_splat(mx[0]), h2_splat(mx[1])};
 #pragma unroll
@@ -241,13 +269,23 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
 #pragma unroll
         for (int e = 0; e < NS; e += 2) {
           const int r = (e >> 1) & 1;
-          const __half p0 = __float2half_rn(
-              rnd(expf(rnd(__fsub_rn(s[e], mx[r]), sh)), sh));
-          const __half p1 = __float2half_rn(
-              rnd(expf(rnd(__fsub_rn(s[e + 1], mx[r]), sh)), sh));
-          lsum[r] += h2f(p0);
-          lsum[r] += h2f(p1);
-          pa[e / 2] = h2_bits(__halves2half2(p0, p1));
+          float p0 = rnd(expf(rnd(__fsub_rn(s[e], mx[r]), sh)), sh);
+          float p1 = rnd(expf(rnd(__fsub_rn(s[e + 1], mx[r]), sh)), sh);
+          if constexpr (M::kScoreHalf) {   // P stored at fp16
+            const __half h0 = __float2half_rn(p0), h1 = __float2half_rn(p1);
+            lsum[r] += h2f(h0);
+            lsum[r] += h2f(h1);
+            pa[e / 2] = h2_bits(__halves2half2(h0, h1));
+          } else {
+            lsum[r] += p0;
+            lsum[r] += p1;
+            pa[e / 2] = pack2<OpT>(p0, p1);
+            if constexpr (SPLIT_P) {
+              const float2 hi = unpack2<OpT>(pa[e / 2]);
+              pa_lo[e / 2] =
+                  pack2<OpT>(__fsub_rn(p0, hi.x), __fsub_rn(p1, hi.y));
+            }
+          }
         }
       }
 
@@ -259,10 +297,18 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
-        wgmma_rs_n128(pv, &pa[4 * kk],
+        wgmma_rs_n128<M::kBF16>(pv, &pa[4 * kk],
                       gmma_desc(v_addr + kk * 16 * AT_HALF_BYTES,
                                 BKV * AT_HALF_BYTES, 1024),
                       kk > 0);
+      if constexpr (SPLIT_P) {      // + (P - hi) V, bf16_fp32
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+          wgmma_rs_n128<M::kBF16>(pv, &pa_lo[4 * kk],
+                                  gmma_desc(v_addr + kk * 16 * AT_HALF_BYTES,
+                                            BKV * AT_HALF_BYTES, 1024),
+                                  1);
+      }
       wgmma_commit();
 
 #pragma unroll
@@ -284,6 +330,7 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
       wgmma_wait_all();
       fence_regs<64>(pv);
       fence_regs<NS / 2>(pa);
+      if constexpr (SPLIT_P) fence_regs<NS / 2>(pa_lo);
       if (lane == 0) mbar_arrive(bar_e + 8 * st);   // the stage is consumed
 
       // 6. acc <- e_prev * acc + e_cur * pv at the accumulator dtype
@@ -307,11 +354,12 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
       }
     }
 
-    // O = acc / l at the accumulator dtype, stored at fp16 (contiguous)
+    // O = acc / l at the accumulator dtype, stored at the output dtype
+    // (contiguous)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float lr = rnd(l[r], ah);
-      __half* orow = out + ((size_t)bh * s1 + row[r]) * HEAD_DIM + 2 * quad;
+      OpT* orow = out + ((size_t)bh * s1 + row[r]) * HEAD_DIM + 2 * quad;
 #pragma unroll
       for (int g = 0; g < 16; ++g) {
         float a0, a1;
@@ -325,25 +373,26 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
         }
         const float o0 = rnd(__fdiv_rn(a0, lr), ah);
         const float o1 = rnd(__fdiv_rn(a1, lr), ah);
-        *reinterpret_cast<__half2*>(orow + 8 * g) =
-            __halves2half2(__float2half_rn(o0), __float2half_rn(o1));
+        *reinterpret_cast<uint32_t*>(orow + 8 * g) = pack2<OpT>(o0, o1);
       }
     }
   }
 }
 
-template <int NWG, int BKV, bool H16>
+template <int NWG, int BKV, bool H16, typename M>
 static int launch(const void* q, const void* k, const void* v, void* out,
                   int batch, int heads, int kv_heads, int s1, int s2,
                   int causal, const long long* st, const Policy& P,
                   cudaStream_t stream) {
   using L = AttnLayout<NWG, BKV>;
+  using OpT = typename M::Op;
+  constexpr CUtensorMapDataType dt = tma_dtype<OpT>();
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, batch, heads, s1, st[0], st[1], st[2], L::BQ) ||
-      !make_map(&tk, k, batch, kv_heads, s2, st[3], st[4], st[5], BKV) ||
-      !make_map(&tv, v, batch, kv_heads, s2, st[6], st[7], st[8], BKV))
+  if (!make_map(&tq, q, batch, heads, s1, st[0], st[1], st[2], L::BQ, dt) ||
+      !make_map(&tk, k, batch, kv_heads, s2, st[3], st[4], st[5], BKV, dt) ||
+      !make_map(&tv, v, batch, kv_heads, s2, st[6], st[7], st[8], BKV, dt))
     return (int)cudaErrorInvalidValue;
-  auto kernel = pasa_attention_kernel<NWG, BKV, H16>;
+  auto kernel = pasa_attention_kernel<NWG, BKV, H16, M>;
   const int smem = L::BYTES + 1024;       // + the 1024-byte alignment
   static OncePerDevice ready;             // the attribute, per device
   bool* set = ready.current();
@@ -356,27 +405,47 @@ static int launch(const void* q, const void* k, const void* v, void* out,
   }
   dim3 grid(batch * heads, s1 / L::BQ);
   kernel<<<grid, L::THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__half*>(out), heads, kv_heads, s1, s2, causal,
+      tq, tk, tv, static_cast<OpT*>(out), heads, kv_heads, s1, s2, causal,
       P);
   return (int)cudaGetLastError();
+}
+
+// The instance of a tile shape for the launch's kind (wgmma_kind).
+template <int NWG, int BKV>
+static int launch_kind(int kind, const void* q, const void* k, const void* v,
+                       void* out, int batch, int heads, int kv_heads, int s1,
+                       int s2, int causal, const long long* st,
+                       const Policy& P, cudaStream_t stream) {
+#define PASA_ATTN_LAUNCH(H16, M)                                          \
+  launch<NWG, BKV, H16, M>(q, k, v, out, batch, heads, kv_heads, s1, s2,   \
+                           causal, st, P, stream)
+  switch (kind) {
+    case 0: return PASA_ATTN_LAUNCH(true, ModeF16);
+    case 1: return PASA_ATTN_LAUNCH(false, ModeF16);
+    case 2: return PASA_ATTN_LAUNCH(false, ModeF32);
+    default: return PASA_ATTN_LAUNCH(false, ModeBF16);
+  }
+#undef PASA_ATTN_LAUNCH
 }
 
 }  // namespace pasa
 
 // Plain C entry point (bound with ctypes).  Strides are in elements, for
 // the (batch, head, row) dims of q, K' and v (each a multiple of 8, the
-// rows of 128 unit-stride fp16 values, 16-byte aligned starts); block_q
-// and block_kv are 64 or 128.  Returns the cudaError_t of the launch (0:
-// queued on `stream`).
+// rows of 128 unit-stride values, 16-byte aligned starts); q, K', v and
+// out are at the policy's input dtype (bf16 if op_bf16, else fp16),
+// scores at fp16 if score_half (else fp32); block_q and block_kv are 64
+// or 128.  Returns the cudaError_t of the launch (0: queued on `stream`).
 extern "C" int pasa_attention_launch(
     const void* q, const void* k, const void* v, void* out, int batch,
     int heads, int kv_heads, int s1, int s2, int block_q, int block_kv,
     int causal, long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh, long long vss,
     float beta, float inva, float shift_scale, float post_scale,
-    int stat_half, int acc_half, void* stream) {
+    int stat_half, int acc_half, int score_half, int op_bf16, void* stream) {
   using namespace pasa;
   const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
+  const int mode = mode_id(score_half, op_bf16);
   bool ok = batch >= 1 && heads >= 1 && kv_heads >= 1 && !(heads % kv_heads) &&
             (block_q == 64 || block_q == 128) &&
             (block_kv == 64 || block_kv == 128) && s1 >= block_q &&
@@ -385,24 +454,20 @@ extern "C" int pasa_attention_launch(
             !(reinterpret_cast<uintptr_t>(k) % 16) &&
             !(reinterpret_cast<uintptr_t>(v) % 16);
   for (int n = 0; n < 9; ++n) ok = ok && st[n] >= 0 && !(st[n] % 8);
-  if (!ok) return (int)cudaErrorInvalidValue;
+  if (!ok || mode < 0) return (int)cudaErrorInvalidValue;
   const Policy P = make_policy(beta, inva, shift_scale, post_scale, stat_half,
                                acc_half);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cfg = (block_q == 128) * 4 + (block_kv == 128) * 2 +
-                  (P.stat_half && P.acc_half);
-#define PASA_ATTN_LAUNCH(NWG, BKV, H16)                                    \
-  launch<NWG, BKV, H16>(q, k, v, out, batch, heads, kv_heads, s1, s2, causal, \
-                        st, P, s)
+  const int kind = wgmma_kind(mode, P);
+  const int cfg = (block_q == 128) * 2 + (block_kv == 128);
+#define PASA_ATTN_SHAPE(NWG, BKV)                                          \
+  launch_kind<NWG, BKV>(kind, q, k, v, out, batch, heads, kv_heads, s1, s2, \
+                        causal, st, P, s)
   switch (cfg) {
-    case 0: return PASA_ATTN_LAUNCH(1, 64, false);
-    case 1: return PASA_ATTN_LAUNCH(1, 64, true);
-    case 2: return PASA_ATTN_LAUNCH(1, 128, false);
-    case 3: return PASA_ATTN_LAUNCH(1, 128, true);
-    case 4: return PASA_ATTN_LAUNCH(2, 64, false);
-    case 5: return PASA_ATTN_LAUNCH(2, 64, true);
-    case 6: return PASA_ATTN_LAUNCH(2, 128, false);
-    default: return PASA_ATTN_LAUNCH(2, 128, true);
+    case 0: return PASA_ATTN_SHAPE(1, 64);
+    case 1: return PASA_ATTN_SHAPE(1, 128);
+    case 2: return PASA_ATTN_SHAPE(2, 64);
+    default: return PASA_ATTN_SHAPE(2, 128);
   }
-#undef PASA_ATTN_LAUNCH
+#undef PASA_ATTN_SHAPE
 }

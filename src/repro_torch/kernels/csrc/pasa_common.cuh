@@ -1,9 +1,11 @@
 // Shared numerics of the PASA attention kernels (sm_90a).
 //
 // The policy's storage rules, read from repro.core.pasa.update_state:
-//  * the score GEMM takes fp16 operands into an fp32 sum and STORES the
-//    result at fp16 before anything else touches it (the paper's overflow
-//    point);
+//  * the score GEMM takes operands at the policy's input dtype (fp16, or
+//    bf16 under bf16_fp32) into an fp32 sum and STORES the result at the
+//    score dtype before anything else touches it - fp16 under the fp16
+//    and fp16_fp32 policies (the paper's overflow point), fp32 under fp32
+//    and bf16_fp32, where the score stays in the fp32 sum;
 //  * sums feeding cross-block state (key mean, row pseudo-average, softmax
 //    sum) accumulate in fp32 and round once to the statistic dtype; the
 //    max stays at the statistic dtype;
@@ -21,6 +23,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace pasa {
 
 constexpr float NEG_BIG = -30000.0f;   // finite -inf stand-in, exact in fp16
@@ -30,10 +34,33 @@ struct Policy {
   float beta;         // PASA shifting fraction (0 = FlashAttention-2)
   float inva;         // beta/(1-beta) rounded to the statistic dtype
   float shift_scale;  // fp32(1/sqrt(d)), folded into the shifted keys
-  float post_scale;   // fp16(1/sqrt(d)), applied after the score store (beta = 0)
+  float post_scale;   // 1/sqrt(d) at the score dtype (fp16 or fp32), applied
+                      // after the score store (beta = 0)
   bool stat_half;     // m, l, F-bar stored at fp16 (else fp32)
   bool acc_half;      // accumulator stored at fp16 (else fp32)
 };
+
+// A policy's storage types, fixed per kernel instance: the operand type of
+// both GEMMs (the policy's input dtype, which is also its output dtype:
+// fp16, or bf16 under bf16_fp32) and whether scores and probabilities are
+// stored at fp16 (score dtype fp16) or stay fp32.
+template <typename OpT, bool SCORE_HALF>
+struct Mode {
+  using Op = OpT;
+  static constexpr bool kScoreHalf = SCORE_HALF;
+  static constexpr bool kBF16 = std::is_same<OpT, __nv_bfloat16>::value;
+};
+using ModeF16 = Mode<__half, true>;           // fp16, fp16_fp32
+using ModeF32 = Mode<__half, false>;          // fp32
+using ModeBF16 = Mode<__nv_bfloat16, false>;  // bf16_fp32
+
+// The mode named by the launch arguments (score_half, op_bf16); -1 for a
+// pair no policy has (bf16 operands with fp16 scores).
+enum ModeId : int { MODE_F16 = 0, MODE_F32 = 1, MODE_BF16 = 2 };
+__host__ inline int mode_id(int score_half, int op_bf16) {
+  if (op_bf16) return score_half ? -1 : MODE_BF16;
+  return score_half ? MODE_F16 : MODE_F32;
+}
 
 // Round to fp16 and back when the intermediate is stored at fp16.
 __device__ __forceinline__ float rnd(float x, bool half_store) {
@@ -42,26 +69,68 @@ __device__ __forceinline__ float rnd(float x, bool half_store) {
 
 __device__ __forceinline__ float h2f(__half x) { return __half2float(x); }
 
-// Pool element -> fp16, elementwise: the same value the reference gets by
-// casting the whole pool to the policy's input dtype.
-__device__ __forceinline__ __half to_half(__half x) { return x; }
-__device__ __forceinline__ __half to_half(__nv_bfloat16 x) {
-  return __float2half_rn(__bfloat162float(x));
+// A 2-byte value widened (exactly) to fp32, and an fp32 value rounded to
+// the 2-byte type T.
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
 
-// Eight consecutive pool elements (16 bytes of fp16, 16 bytes of bf16) ->
-// eight fp16 values packed in a uint4.
-__device__ __forceinline__ uint4 load8_half(const __half* src) {
-  return *reinterpret_cast<const uint4*>(src);
+// Two fp32 values rounded to a pair of T, as the bits of a 32-bit register
+// (the first value in the low half).
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&x);
+  } else {
+    __half2 x = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&x);
+  }
 }
-__device__ __forceinline__ uint4 load8_half(const __nv_bfloat16* src) {
+// A pair of T (low half first) widened to fp32.
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t bits) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&bits));
+  else
+    return __half22float2(*reinterpret_cast<__half2*>(&bits));
+}
+
+// Pool element -> the operand type OpT, elementwise: the same value the
+// reference gets by casting the whole pool to the policy's input dtype
+// (one rounding; none when the pool holds OpT).
+template <typename OpT, typename PoolT>
+__device__ __forceinline__ OpT to_op(PoolT x) {
+  if constexpr (std::is_same<PoolT, OpT>::value) return x;
+  else return from_float<OpT>(to_float(x));
+}
+
+// Eight consecutive pool elements (16 bytes of fp16 or bf16) -> eight
+// OpT values packed in a uint4.
+template <typename OpT, typename PoolT>
+__device__ __forceinline__ uint4 load8_op(const PoolT* src) {
   uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat16* in = reinterpret_cast<const __nv_bfloat16*>(&raw);
-  uint4 out;
-  __half* o = reinterpret_cast<__half*>(&out);
+  if constexpr (std::is_same<PoolT, OpT>::value) {
+    return raw;
+  } else {
+    const PoolT* in = reinterpret_cast<const PoolT*>(&raw);
+    uint4 out;
+    OpT* o = reinterpret_cast<OpT*>(&out);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) o[i] = to_half(in[i]);
-  return out;
+    for (int i = 0; i < 8; ++i) o[i] = to_op<OpT>(in[i]);
+    return out;
+  }
 }
 
 // Pool element types, as the paged ops' ``pool_kind`` launch argument
@@ -94,33 +163,33 @@ struct SidecarPtrs {
   const float* shift[2];  // (P, KVH, HEAD_DIM)
 };
 
-// Eight consecutive codes (one 8-byte load) -> eight fp16 values
-// fp16(code * scale + shift[i]): the product and the sum each rounded in
+// Eight consecutive codes (one 8-byte load) -> eight OpT values
+// OpT(code * scale + shift[i]): the product and the sum each rounded in
 // fp32 (the _rn intrinsics keep -O3 from fusing them into an FMA), then
-// one rounding to fp16 - the plain version's arithmetic.
-template <typename CodeT>
+// one rounding to the operand type - the plain version's arithmetic.
+template <typename OpT, typename CodeT>
 __device__ __forceinline__ uint4 load8_dequant(const CodeT* src, float scale,
                                                const float* shift) {
   const uint2 raw = *reinterpret_cast<const uint2*>(src);
   const CodeT* c = reinterpret_cast<const CodeT*>(&raw);
   uint4 out;
-  __half* o = reinterpret_cast<__half*>(&out);
+  OpT* o = reinterpret_cast<OpT*>(&out);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
-    o[i] = __float2half_rn(
+    o[i] = from_float<OpT>(
         __fadd_rn(__fmul_rn(code_to_float(c[i]), scale), shift[i]));
   return out;
 }
 
-// Eight consecutive pool elements of row segment (side, column c8) as fp16:
-// raw pools convert, 8-bit pools dequantize with the staged sidecars.
-template <typename PoolT>
+// Eight consecutive pool elements of row segment (side, column c8) as
+// OpT: raw pools convert, 8-bit pools dequantize with the staged sidecars.
+template <typename OpT, typename PoolT>
 __device__ __forceinline__ uint4 load_pool8(const PoolT* src, int side, int c8,
                                             const PageSidecars& Q) {
   if constexpr (kIsCode<PoolT>) {
-    return load8_dequant(src, Q.scale[side], &Q.shift[side][c8]);
+    return load8_dequant<OpT>(src, Q.scale[side], &Q.shift[side][c8]);
   } else {
-    return load8_half(src);
+    return load8_op<OpT>(src);
   }
 }
 
@@ -137,18 +206,26 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Shifted key element: fp16((k - beta * km) * scale), all in fp32.
-__device__ __forceinline__ __half shift_key(float k, float km, const Policy& P) {
-  return __float2half_rn(
+// Shifted key element: OpT((k - beta * km) * scale), all in fp32, rounded
+// once to the input dtype.
+template <typename OpT>
+__device__ __forceinline__ OpT shift_key(float k, float km, const Policy& P) {
+  return from_float<OpT>(
       __fmul_rn(__fsub_rn(k, __fmul_rn(P.beta, km)), P.shift_scale));
 }
 
-// Score as it leaves the GEMM: stored at fp16; at beta = 0 the 1/sqrt(d)
-// scale follows the store (Eq. 2), again rounded to fp16.
+// Score as it leaves the GEMM, stored at the score dtype: at fp16 (SH)
+// rounded, at fp32 the GEMM's own sum; at beta = 0 the 1/sqrt(d) scale
+// follows the store (Eq. 2), rounded again at the score dtype.
+template <bool SH>
 __device__ __forceinline__ float store_score(float dot, const Policy& P) {
-  float s = h2f(__float2half_rn(dot));
-  if (P.beta == 0.0f) s = h2f(__float2half_rn(__fmul_rn(s, P.post_scale)));
-  return s;
+  if constexpr (SH) {
+    float s = h2f(__float2half_rn(dot));
+    if (P.beta == 0.0f) s = h2f(__float2half_rn(__fmul_rn(s, P.post_scale)));
+    return s;
+  } else {
+    return P.beta == 0.0f ? __fmul_rn(dot, P.post_scale) : dot;
+  }
 }
 
 struct RowStep {

@@ -15,7 +15,13 @@
 //
 // The cache is read in its stored layout and dtype (the dense route's
 // (B, S2, KVH, D) bf16 cache, seen as (B, KVH, S2, D) through strides)
-// and converted to fp16 on chip: no per-step transpose, cast or pad copy.
+// and converted to the policy's input dtype on chip (fp16; none for a bf16
+// cache under bf16_fp32): no per-step transpose, cast or pad copy.
+//
+// Policies: fp16 and fp16_fp32 (fp16 operands and scores), fp32 (fp16
+// operands, fp32 scores) and bf16_fp32 (bf16 operands and output, fp32
+// scores); statistics and accumulator at fp16 or fp32 - each policy mode
+// an instance of the template (pasa_common.cuh Mode).
 // Rows at or past kv_len are never read (their K and V enter shared
 // memory as zeros), so stale or non-finite bytes there are inert and a
 // cache whose length is not a multiple of the block needs no pad.
@@ -44,23 +50,24 @@
 
 namespace pasa {
 
-template <typename CacheT, int NG>
+template <typename CacheT, int NG, typename M>
 __global__ void __launch_bounds__(DEC_THREADS, 1)
-contiguous_decode_kernel(const __half* __restrict__ q,    // (B, KVH, G, D)
+contiguous_decode_kernel(const typename M::Op* __restrict__ q,  // (B,KVH,G,D)
                          const CacheT* __restrict__ k,    // (B, KVH, S2, D)
                          const CacheT* __restrict__ v,    //   strided
                          const int* __restrict__ kv_len,  // (B,)
-                         __half* __restrict__ out,        // (B, KVH, G, D)
+                         typename M::Op* __restrict__ out,  // (B, KVH, G, D)
                          int kv_heads, int G, int s2, int block,
                          long long sb, long long sh, long long ss, Policy P) {
-  using Smem = DecodeSmem<DEC_MAX_BLOCK>;
+  using OpT = typename M::Op;
+  using Smem = DecodeSmem<OpT, DEC_MAX_BLOCK>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int t = threadIdx.x;
 
-  const __half* qbh = q + ((size_t)b * kv_heads + h) * G * HEAD_DIM;
+  const OpT* qbh = q + ((size_t)b * kv_heads + h) * G * HEAD_DIM;
   for (int g = 0; g < G; ++g) S.q[g][t] = qbh[g * HEAD_DIM + t];
   float acc[NG];
   decode_state_init<NG>(S, acc);
@@ -80,67 +87,86 @@ contiguous_decode_kernel(const __half* __restrict__ q,    // (B, KVH, G, D)
       uint4 vv = make_uint4(0u, 0u, 0u, 0u);
       if (r < valid) {
         const long long off = (long long)(j * block + r) * ss + c8;
-        kk = load8_half(kbh + off);
-        vv = load8_half(vbh + off);
+        kk = load8_op<OpT>(kbh + off);
+        vv = load8_op<OpT>(vbh + off);
       }
-      const __half2* k2 = reinterpret_cast<const __half2*>(&kk);
-      __half2* kd = reinterpret_cast<__half2*>(&S.k[r][c8]);
+      const uint32_t* k2 = reinterpret_cast<const uint32_t*>(&kk);
+      uint32_t* kd = reinterpret_cast<uint32_t*>(&S.k[r][c8]);
 #pragma unroll
       for (int i = 0; i < 4; ++i) kd[i] = k2[i];
       *reinterpret_cast<uint4*>(&S.v[r][c8]) = vv;
     }
     __syncthreads();
-    decode_block_update<NG>(S, valid, block, G, j, P, acc);
+    decode_block_update<NG, M>(S, valid, block, G, j, P, acc);
   }
   __syncthreads();
 
-  __half* obh = out + ((size_t)b * kv_heads + h) * G * HEAD_DIM;
+  OpT* obh = out + ((size_t)b * kv_heads + h) * G * HEAD_DIM;
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
     if (g < G) {
-      // O = acc / l at the accumulator dtype, stored at fp16
+      // O = acc / l at the accumulator dtype, stored at the output dtype
       obh[g * HEAD_DIM + t] =
-          __float2half_rn(rnd(__fdiv_rn(acc[g], S.l[g]), P.acc_half));
+          from_float<OpT>(rnd(__fdiv_rn(acc[g], S.l[g]), P.acc_half));
     }
   }
 }
 
-template <typename CacheT, int NG>
+template <typename CacheT, int NG, typename M>
 static int walk_rows(const void* q, const void* k, const void* v,
                      const void* kv_len, void* out, int batch, int kv_heads,
                      int G, int s2, int block, long long sb, long long sh,
                      long long ss, const Policy& P, cudaStream_t stream) {
-  const size_t smem = sizeof(DecodeSmem<DEC_MAX_BLOCK>);
+  using OpT = typename M::Op;
+  const size_t smem = sizeof(DecodeSmem<OpT, DEC_MAX_BLOCK>);
   cudaError_t err = cudaFuncSetAttribute(
-      contiguous_decode_kernel<CacheT, NG>,
+      contiguous_decode_kernel<CacheT, NG, M>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(batch, kv_heads);
-  contiguous_decode_kernel<CacheT, NG><<<grid, DEC_THREADS, smem, stream>>>(
-      static_cast<const __half*>(q), static_cast<const CacheT*>(k),
+  contiguous_decode_kernel<CacheT, NG, M><<<grid, DEC_THREADS, smem, stream>>>(
+      static_cast<const OpT*>(q), static_cast<const CacheT*>(k),
       static_cast<const CacheT*>(v), static_cast<const int*>(kv_len),
-      static_cast<__half*>(out), kv_heads, G, s2, block, sb, sh, ss, P);
+      static_cast<OpT*>(out), kv_heads, G, s2, block, sb, sh, ss, P);
   return (int)cudaGetLastError();
+}
+
+template <typename CacheT, typename M>
+static int walk_mode(const void* q, const void* k, const void* v,
+                     const void* kv_len, void* out, int batch, int kv_heads,
+                     int G, int s2, int block, long long sb, long long sh,
+                     long long ss, const Policy& P, cudaStream_t stream) {
+  if (G <= dec_rows(1))
+    return walk_rows<CacheT, dec_rows(1), M>(q, k, v, kv_len, out, batch,
+                                             kv_heads, G, s2, block, sb, sh,
+                                             ss, P, stream);
+  return walk_rows<CacheT, DEC_MAX_G, M>(q, k, v, kv_len, out, batch,
+                                         kv_heads, G, s2, block, sb, sh, ss, P,
+                                         stream);
 }
 
 template <typename CacheT>
 static int walk(const void* q, const void* k, const void* v,
                 const void* kv_len, void* out, int batch, int kv_heads,
                 int G, int s2, int block, long long sb, long long sh,
-                long long ss, const Policy& P, cudaStream_t stream) {
-  if (G <= dec_rows(1))
-    return walk_rows<CacheT, dec_rows(1)>(q, k, v, kv_len, out, batch,
-                                          kv_heads, G, s2, block, sb, sh, ss,
-                                          P, stream);
-  return walk_rows<CacheT, DEC_MAX_G>(q, k, v, kv_len, out, batch, kv_heads,
-                                      G, s2, block, sb, sh, ss, P, stream);
+                long long ss, int mode, const Policy& P, cudaStream_t stream) {
+#define PASA_WALK(M)                                                       \
+  walk_mode<CacheT, M>(q, k, v, kv_len, out, batch, kv_heads, G, s2, block, \
+                       sb, sh, ss, P, stream)
+  switch (mode) {
+    case MODE_F16: return PASA_WALK(ModeF16);
+    case MODE_F32: return PASA_WALK(ModeF32);
+    case MODE_BF16: return PASA_WALK(ModeBF16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PASA_WALK
 }
 
 template <typename CacheT>
 static int cluster(const void* q, const void* k, const void* v,
                    const void* kv_len, void* out, void* workspace, int batch,
                    int kv_heads, int G, int s2, int block, long long sb,
-                   long long sh, long long ss, const Policy& P,
+                   long long sh, long long ss, int mode, const Policy& P,
                    cudaStream_t stream) {
   StridedBlocks<CacheT> A;
   A.k = static_cast<const CacheT*>(k);
@@ -151,36 +177,39 @@ static int cluster(const void* q, const void* k, const void* v,
   A.block = block;
   A.max_blocks = (s2 + block - 1) / block;
   A.s2 = s2;
-  return launch_cluster(q, A, kv_len, out, workspace, batch, kv_heads, G, P,
-                        stream);
+  return launch_cluster(q, A, kv_len, out, workspace, batch, kv_heads, G,
+                        mode, P, stream);
 }
 
 }  // namespace pasa
 
 // Plain C entry points (bound with ctypes).  Strides are in elements, for
-// the (batch, kv-head, row) dims shared by k and v; each returns the
-// cudaError_t of the launch (0: queued on `stream`).  `workspace` holds
-// batch * kv_heads * ceil(s2 / block) * group * (128 + 3) floats (the
-// blocks' partials).
+// the (batch, kv-head, row) dims shared by k and v; q and out are at the
+// policy's input dtype (bf16 if op_bf16, else fp16), scores at fp16 if
+// score_half (else fp32).  Each returns the cudaError_t of the launch (0:
+// queued on `stream`).  `workspace` holds batch * kv_heads * ceil(s2 /
+// block) * group * (128 + 3) floats (the blocks' partials).
 extern "C" int pasa_decode_launch(
     const void* q, const void* k, const void* v, const void* kv_len,
     void* out, void* workspace, int batch, int kv_heads, int group, int s2,
     int block, long long sb, long long sh, long long ss, int cache_is_bf16,
     float beta, float inva, float shift_scale, float post_scale,
-    int stat_half, int acc_half, void* stream) {
+    int stat_half, int acc_half, int score_half, int op_bf16, void* stream) {
   using namespace pasa;
+  const int mode = mode_id(score_half, op_bf16);
   if (group < 1 || group > DEC_MAX_G || block < 1 || block > DEC_MAX_BLOCK ||
       batch < 1 || batch > 65535 || kv_heads < 1 || kv_heads > 65535 ||
-      s2 < 1 || !workspace)
+      s2 < 1 || !workspace || mode < 0)
     return (int)cudaErrorInvalidValue;
   const Policy P = make_policy(beta, inva, shift_scale, post_scale, stat_half,
                                acc_half);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cache_is_bf16)
     return cluster<__nv_bfloat16>(q, k, v, kv_len, out, workspace, batch,
-                                  kv_heads, group, s2, block, sb, sh, ss, P, s);
+                                  kv_heads, group, s2, block, sb, sh, ss, mode,
+                                  P, s);
   return cluster<__half>(q, k, v, kv_len, out, workspace, batch, kv_heads,
-                         group, s2, block, sb, sh, ss, P, s);
+                         group, s2, block, sb, sh, ss, mode, P, s);
 }
 
 // The sequential walk, the oracle of the cluster kernels on the card: the
@@ -190,17 +219,18 @@ extern "C" int pasa_decode_walk_launch(
     void* out, int batch, int kv_heads, int group, int s2, int block,
     long long sb, long long sh, long long ss, int cache_is_bf16, float beta,
     float inva, float shift_scale, float post_scale, int stat_half,
-    int acc_half, void* stream) {
+    int acc_half, int score_half, int op_bf16, void* stream) {
   using namespace pasa;
+  const int mode = mode_id(score_half, op_bf16);
   if (group < 1 || group > DEC_MAX_G || block < 1 || block > DEC_MAX_BLOCK ||
-      batch < 1 || kv_heads < 1 || s2 < 1)
+      batch < 1 || kv_heads < 1 || s2 < 1 || mode < 0)
     return (int)cudaErrorInvalidValue;
   const Policy P = make_policy(beta, inva, shift_scale, post_scale, stat_half,
                                acc_half);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cache_is_bf16)
     return walk<__nv_bfloat16>(q, k, v, kv_len, out, batch, kv_heads, group,
-                               s2, block, sb, sh, ss, P, s);
+                               s2, block, sb, sh, ss, mode, P, s);
   return walk<__half>(q, k, v, kv_len, out, batch, kv_heads, group, s2, block,
-                      sb, sh, ss, P, s);
+                      sb, sh, ss, mode, P, s);
 }

@@ -3,9 +3,9 @@
 // in two parts.
 //
 //  * decode_block_partials: what the block contributes before the running
-//    state is read - the masked key mean and shift, the fp16 scores, the
-//    row pseudo-average s-bar, the local max and sum (Algorithm 1 lines
-//    11-13) and P V rounded to the accumulator dtype.  None of it depends
+//    state is read - the masked key mean and shift, the scores at the
+//    score dtype, the row pseudo-average s-bar, the local max and sum
+//    (Algorithm 1 lines 11-13) and P V rounded to the accumulator dtype.  None of it depends
 //    on earlier blocks, so blocks can be reduced to partials in parallel.
 //  * the fold: row_update (the order-dependent F-bar recurrence) and
 //    acc_update of pasa_common.cuh, block after block in order.
@@ -28,6 +28,12 @@
 // (k - beta * km) / sqrt(d); masked scores are NEG_BIG and masked
 // probabilities exact zeros; V rows past `valid` must be zero on entry, so
 // stale NaN/Inf bytes of recycled pages never enter the PV product.
+//
+// The policy's mode (pasa_common.cuh Mode) fixes the types: q, K and V
+// are held at the operand type (fp16, or bf16 under bf16_fp32); scores
+// and probabilities at fp16 (fp16, fp16_fp32) or fp32 (fp32, bf16_fp32).
+// Products are summed in fp32 on the CUDA cores, so P V takes the fp32
+// probabilities as they are.
 #pragma once
 
 #include "pasa_common.cuh"
@@ -43,16 +49,26 @@ constexpr int DEC_MAX_BLOCK = 256;   // rows of a contiguous-cache block
 // distinct banks across a warp.
 constexpr int DEC_K_LD = HEAD_DIM + 2;
 
-// One block of up to MAXB rows: 79,360 bytes at 128 rows (pages),
-// 153,600 at 256 (the contiguous cache's default block).
-template <int MAXB>
+// One block of up to MAXB rows at operand type OpT (fp16 or bf16, both
+// two bytes): 79,360 bytes at 128 rows (pages), 153,600 at 256 (the
+// contiguous cache's default block), in every mode.
+template <typename OpT, int MAXB>
 struct DecodeSmem {
   static constexpr int kRows = MAXB;
-  __half q[DEC_MAX_G][HEAD_DIM];
-  __half k[MAXB][DEC_K_LD];           // raw K on entry, shifted K after
-  __half v[MAXB][HEAD_DIM];           // rows >= valid zeroed by the caller
-  __half s[DEC_MAX_G][MAXB];          // scores at fp16 (masked: NEG_BIG)
-  __half p[DEC_MAX_G][MAXB];          // probabilities at fp16
+  OpT q[DEC_MAX_G][HEAD_DIM];
+  OpT k[MAXB][DEC_K_LD];              // raw K on entry, shifted K after
+  OpT v[MAXB][HEAD_DIM];              // rows >= valid zeroed by the caller
+  // the rows' scores (masked: NEG_BIG) and probabilities: at fp16 two
+  // arrays; at fp32 one, each probability overwriting its score in place
+  // (the same bytes, so a 256-row block still fits beside the staging
+  // buffer)
+  union {
+    struct {
+      __half s[DEC_MAX_G][MAXB];
+      __half p[DEC_MAX_G][MAXB];
+    } h;
+    float f[DEC_MAX_G][MAXB];
+  } sc;
   float km[HEAD_DIM];
   float m[DEC_MAX_G], l[DEC_MAX_G], f[DEC_MAX_G];
   float e_prev[DEC_MAX_G], e_cur[DEC_MAX_G];
@@ -82,13 +98,16 @@ __device__ __forceinline__ void decode_state_init(Smem& S, float* acc) {
 // of them live): S.sbar/S.m_loc/S.l_loc[g] (written by lane 0 of the warp
 // that owns row g: warp w owns rows w, w + 4, ...) and, in registers,
 // pv[g] = P V of row g at head-dim column t (thread t), rounded to the
-// accumulator dtype (G <= NG).  The last step reads S.v and S.p after the last
-// barrier: the caller syncs before it overwrites them.
-template <int NG, typename Smem>
+// accumulator dtype (G <= NG).  The last step reads S.v and the
+// probabilities after the last barrier: the caller syncs before it
+// overwrites them.
+template <int NG, typename M, typename Smem>
 __device__ __forceinline__ void decode_block_partials(Smem& S, int valid,
                                                       int block, int G,
                                                       const Policy& P,
                                                       float* pv) {
+  using OpT = typename M::Op;
+  constexpr bool SH = M::kScoreHalf;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -97,54 +116,60 @@ __device__ __forceinline__ void decode_block_partials(Smem& S, int valid,
   //    rows past `valid` become zero keys (their scores are masked).
   if (P.beta > 0.0f) {
     float sum = 0.0f;
-    for (int r = 0; r < valid; ++r) sum += h2f(S.k[r][t]);
+    for (int r = 0; r < valid; ++r) sum += to_float(S.k[r][t]);
     const float km = __fdiv_rn(sum, (float)valid);
     for (int r = 0; r < block; ++r)
-      S.k[r][t] = r < valid ? shift_key(h2f(S.k[r][t]), km, P) : __float2half_rn(0.0f);
+      S.k[r][t] = r < valid ? shift_key<OpT>(to_float(S.k[r][t]), km, P)
+                            : from_float<OpT>(0.0f);
   } else {
-    for (int r = valid; r < block; ++r) S.k[r][t] = __float2half_rn(0.0f);
+    for (int r = valid; r < block; ++r) S.k[r][t] = from_float<OpT>(0.0f);
   }
   __syncthreads();
 
   // 2. scores: thread t computes columns c = t (and t + 128 in a block of
   //    more than 128 rows) for all G rows in one pass over each key row
-  //    (per row: an fp32 sum of exact fp16 products in d order, stored at
-  //    fp16).
+  //    (per row: an fp32 sum of exact products in d order, stored at the
+  //    score dtype).
 #pragma unroll
   for (int c0 = 0; c0 < Smem::kRows; c0 += DEC_THREADS) {
     const int c = c0 + t;
     if (c >= block) break;
-    const __half2* krow = reinterpret_cast<const __half2*>(&S.k[c][0]);
+    const uint32_t* krow = reinterpret_cast<const uint32_t*>(&S.k[c][0]);
     float dot[NG];
 #pragma unroll
     for (int g = 0; g < NG; ++g) dot[g] = 0.0f;
 #pragma unroll 4
     for (int d2 = 0; d2 < HEAD_DIM / 2; ++d2) {
-      const float2 b = __half22float2(krow[d2]);
+      const float2 b = unpack2<OpT>(krow[d2]);
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
         if (g < G) {
-          const float2 a = __half22float2(
-              reinterpret_cast<const __half2*>(&S.q[g][0])[d2]);
+          const float2 a = unpack2<OpT>(
+              reinterpret_cast<const uint32_t*>(&S.q[g][0])[d2]);
           dot[g] = fmaf(a.x, b.x, dot[g]);
           dot[g] = fmaf(a.y, b.y, dot[g]);
         }
       }
     }
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
-      if (g < G)
-        S.s[g][c] = __float2half_rn(c < valid ? store_score(dot[g], P) : NEG_BIG);
+    for (int g = 0; g < NG; ++g) {
+      if (g < G) {
+        const float sc = c < valid ? store_score<SH>(dot[g], P) : NEG_BIG;
+        if constexpr (SH) S.sc.h.s[g][c] = __float2half_rn(sc);
+        else S.sc.f[g][c] = sc;
+      }
+    }
   }
   __syncthreads();
 
   // 3. per-row statistics: warp w owns rows w, w + 4, ...; lanes stride
-  //    the columns.
+  //    the columns; at fp32 scores each probability replaces its score,
+  //    read by the same lane.
   const bool sh = P.stat_half;
   for (int g = warp; g < G; g += DEC_WARPS) {
     float ssum = 0.0f, mx = -INFINITY;   // masked columns hold NEG_BIG
     for (int c = lane; c < block; c += 32) {
-      const float s = h2f(S.s[g][c]);
+      const float s = SH ? h2f(S.sc.h.s[g][c]) : S.sc.f[g][c];
       if (c < valid) ssum += s;
       mx = fmaxf(mx, s);
     }
@@ -153,10 +178,15 @@ __device__ __forceinline__ void decode_block_partials(Smem& S, int valid,
     float lsum = 0.0f;
     for (int c = lane; c < block; c += 32) {
       float p = 0.0f;
-      if (c < valid)
-        p = h2f(__float2half_rn(
-            rnd(expf(rnd(__fsub_rn(h2f(S.s[g][c]), mx), sh)), sh)));
-      S.p[g][c] = __float2half_rn(p);
+      if constexpr (SH) {
+        if (c < valid)
+          p = h2f(__float2half_rn(
+              rnd(expf(rnd(__fsub_rn(h2f(S.sc.h.s[g][c]), mx), sh)), sh)));
+        S.sc.h.p[g][c] = __float2half_rn(p);
+      } else {
+        if (c < valid) p = rnd(expf(rnd(__fsub_rn(S.sc.f[g][c], mx), sh)), sh);
+        S.sc.f[g][c] = p;
+      }
       lsum += p;
     }
     lsum = warp_sum(lsum);
@@ -173,10 +203,11 @@ __device__ __forceinline__ void decode_block_partials(Smem& S, int valid,
 #pragma unroll
   for (int g = 0; g < NG; ++g) pv[g] = 0.0f;
   for (int c = 0; c < block; ++c) {
-    const float vv = h2f(S.v[c][t]);
+    const float vv = to_float(S.v[c][t]);
 #pragma unroll
     for (int g = 0; g < NG; ++g)
-      if (g < G) pv[g] = fmaf(h2f(S.p[g][c]), vv, pv[g]);
+      if (g < G)
+        pv[g] = fmaf(SH ? h2f(S.sc.h.p[g][c]) : S.sc.f[g][c], vv, pv[g]);
   }
 #pragma unroll
   for (int g = 0; g < NG; ++g) pv[g] = rnd(pv[g], P.acc_half);
@@ -215,7 +246,7 @@ __device__ __forceinline__ void decode_fold_step(FoldState& st, int cnt,
 // (the sequential walk): partials, then row_update per row (lane 0 of the
 // row's warp, state in S.m/S.l/S.f) and acc_update per column.  Thread t
 // owns head-dim column t of the accumulator: acc[g] for the G rows.
-template <int NG, typename Smem>
+template <int NG, typename M, typename Smem>
 __device__ __forceinline__ void decode_block_update(Smem& S, int valid,
                                                     int block, int G, int cnt,
                                                     const Policy& P,
@@ -224,7 +255,7 @@ __device__ __forceinline__ void decode_block_update(Smem& S, int valid,
   const int lane = t & 31;
   const int warp = t >> 5;
   float pv[NG];
-  decode_block_partials<NG>(S, valid, block, G, P, pv);
+  decode_block_partials<NG, M>(S, valid, block, G, P, pv);
 
   if (lane == 0) {
     for (int g = warp; g < G; g += DEC_WARPS) {

@@ -41,7 +41,14 @@
 // block's math then runs once over all its rows - one key mean, one s-bar
 // and one set of partials per block, as the walk computes them.  Shared
 // memory: 79,360 + 66,568 bytes per CTA over pages (bf16), 153,600 +
-// 66,568 over the contiguous cache.
+// 66,568 over the contiguous cache, in every policy mode (the block tile
+// holds its operands at two bytes, and fp32 probabilities overwrite their
+// scores: DecodeSmem).
+//
+// The kernel template takes the policy's mode (pasa_common.cuh Mode): q,
+// the block's K and V, and the output at the operand type (fp16, or bf16
+// under bf16_fp32), scores at fp16 or fp32; the pool or cache elements
+// are converted to the operand type as they leave the staging buffer.
 #pragma once
 
 #include "pasa_decode_block.cuh"
@@ -53,7 +60,7 @@ constexpr int DEC_FOLD_COLS = HEAD_DIM / DEC_CLUSTER;      // 16 per rank
 static_assert(DEC_THREADS % DEC_FOLD_COLS == 0, "fold mapping");
 
 // One piece of a block (up to 128 rows) as it arrives from device memory,
-// before conversion to fp16.
+// before conversion to the operand type.
 template <typename T>
 struct PageStage {
   T k[DEC_PAGE_ROWS][HEAD_DIM];
@@ -62,9 +69,9 @@ struct PageStage {
 };
 
 // Byte offset of the staging buffer behind a block tile of MAXB rows.
-template <int MAXB>
+template <typename OpT, int MAXB>
 __host__ __device__ constexpr size_t dec_stage_off() {
-  return (sizeof(DecodeSmem<MAXB>) + 127) / 128 * 128;
+  return (sizeof(DecodeSmem<OpT, MAXB>) + 127) / 128 * 128;
 }
 
 // Rows of piece `piece` (rows [128 piece, 128 piece + 128) of a block) that
@@ -174,10 +181,10 @@ __device__ __forceinline__ void issue_block(PageStage<typename Blocks::Elem>& st
   cp_async_commit();
 }
 
-// Staged piece -> rows [row0, row0 + rows) of S.k / S.v at fp16: raw
-// values convert, 8-bit codes dequantize with the staged sidecars; rows
-// past the piece's `valid` become zeros.
-template <typename Smem, typename T>
+// Staged piece -> rows [row0, row0 + rows) of S.k / S.v at the operand
+// type OpT: raw values convert, 8-bit codes dequantize with the staged
+// sidecars; rows past the piece's `valid` become zeros.
+template <typename OpT, typename Smem, typename T>
 __device__ __forceinline__ void convert_block(Smem& S, const PageStage<T>& st,
                                               int row0, int rows, int valid) {
   const int t = threadIdx.x;
@@ -185,11 +192,12 @@ __device__ __forceinline__ void convert_block(Smem& S, const PageStage<T>& st,
   for (int r = t >> 4; r < rows; r += DEC_THREADS / 16) {
     uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
     if (r < valid) {
-      kk = load_pool8(&st.k[r][c8], 0, c8, st.sc);
-      vv = load_pool8(&st.v[r][c8], 1, c8, st.sc);
+      kk = load_pool8<OpT>(&st.k[r][c8], 0, c8, st.sc);
+      vv = load_pool8<OpT>(&st.v[r][c8], 1, c8, st.sc);
     }
-    const __half2* k2 = reinterpret_cast<const __half2*>(&kk);
-    __half2* kd = reinterpret_cast<__half2*>(&S.k[row0 + r][c8]);
+    // (K rows are 260 bytes apart: four 4-byte stores)
+    const uint32_t* k2 = reinterpret_cast<const uint32_t*>(&kk);
+    uint32_t* kd = reinterpret_cast<uint32_t*>(&S.k[row0 + r][c8]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) kd[i] = k2[i];
     *reinterpret_cast<uint4*>(&S.v[row0 + r][c8]) = vv;
@@ -197,21 +205,22 @@ __device__ __forceinline__ void convert_block(Smem& S, const PageStage<T>& st,
 }
 
 // (min blocks 1: without it ptxas keeps to ~80 registers and spills)
-template <typename Blocks, int NG>
+template <typename Blocks, int NG, typename M>
 __global__ void __launch_bounds__(DEC_THREADS, 1)
-cluster_decode_kernel(const __half* __restrict__ q,      // (B, KVH, G, D)
+cluster_decode_kernel(const typename M::Op* __restrict__ q,  // (B, KVH, G, D)
                       const Blocks A,
-                      const int* __restrict__ kv_len,    // (B,)
-                      __half* __restrict__ out,          // (B, KVH, G, D)
+                      const int* __restrict__ kv_len,        // (B,)
+                      typename M::Op* __restrict__ out,      // (B, KVH, G, D)
                       float* __restrict__ ws_pv,     // (B, KVH, max_blocks, G, D)
                       float* __restrict__ ws_stats,  // (B, KVH, max_blocks, 3, G)
                       int kv_heads, int G, Policy P) {
   using T = typename Blocks::Elem;
-  using Smem = DecodeSmem<Blocks::kMaxBlock>;
+  using OpT = typename M::Op;
+  using Smem = DecodeSmem<OpT, Blocks::kMaxBlock>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   PageStage<T>& st = *reinterpret_cast<PageStage<T>*>(
-      smem_raw + dec_stage_off<Blocks::kMaxBlock>());
+      smem_raw + dec_stage_off<OpT, Blocks::kMaxBlock>());
   const int rank = blockIdx.x;            // == the CTA's rank in its cluster
   const int b = blockIdx.y;
   const int h = blockIdx.z;
@@ -227,7 +236,7 @@ cluster_decode_kernel(const __half* __restrict__ q,      // (B, KVH, G, D)
   constexpr int MAX_PIECES = Blocks::kMaxBlock / DEC_PAGE_ROWS;
   if (rank < n_live) {
     issue_block(st, A, b, h, rank, 0, piece_valid(min(block, L - rank * block), 0));
-    const __half* qbh = q + bh * G * HEAD_DIM;
+    const OpT* qbh = q + bh * G * HEAD_DIM;
     for (int g = 0; g < G; ++g) S.q[g][t] = qbh[g * HEAD_DIM + t];
   }
   for (int j = rank; j < n_live; j += DEC_CLUSTER) {
@@ -238,8 +247,8 @@ cluster_decode_kernel(const __half* __restrict__ q,      // (B, KVH, G, D)
       if (row0 >= block) break;
       cp_async_wait_all();
       __syncthreads();   // the piece is staged; the previous block's math is done
-      convert_block(S, st, row0, min(DEC_PAGE_ROWS, block - row0),
-                    piece_valid(valid, pc));
+      convert_block<OpT>(S, st, row0, min(DEC_PAGE_ROWS, block - row0),
+                         piece_valid(valid, pc));
       __syncthreads();   // the staging buffer is free again
       const int jn = j + DEC_CLUSTER;
       if (pc + 1 < MAX_PIECES && row0 + DEC_PAGE_ROWS < block)
@@ -248,7 +257,7 @@ cluster_decode_kernel(const __half* __restrict__ q,      // (B, KVH, G, D)
         issue_block(st, A, b, h, jn, 0, piece_valid(min(block, L - jn * block), 0));
     }
     float pv[NG];
-    decode_block_partials<NG>(S, valid, block, G, P, pv);
+    decode_block_partials<NG, M>(S, valid, block, G, P, pv);
     float* pvj = ws_pv + ((bh * max_blocks + j) * G) * HEAD_DIM + t;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
@@ -294,20 +303,21 @@ cluster_decode_kernel(const __half* __restrict__ q,      // (B, KVH, G, D)
       l_loc = l_loc_n;
       pv = pv_n;
     }
-    // O = acc / l at the accumulator dtype, stored at fp16
+    // O = acc / l at the accumulator dtype, stored at the output dtype
     out[(bh * G + g) * HEAD_DIM + col] =
-        __float2half_rn(rnd(__fdiv_rn(fs.acc, fs.l), P.acc_half));
+        from_float<OpT>(rnd(__fdiv_rn(fs.acc, fs.l), P.acc_half));
   }
 }
 
-template <typename Blocks, int NG>
+template <typename Blocks, int NG, typename M>
 static int launch_cluster_rows(const void* q, const Blocks& A,
                                const void* kv_len, void* out, void* workspace,
                                int batch, int kv_heads, int G, const Policy& P,
                                cudaStream_t stream) {
-  const size_t smem = dec_stage_off<Blocks::kMaxBlock>() +
+  using OpT = typename M::Op;
+  const size_t smem = dec_stage_off<OpT, Blocks::kMaxBlock>() +
                       sizeof(PageStage<typename Blocks::Elem>);
-  auto kernel = cluster_decode_kernel<Blocks, NG>;
+  auto kernel = cluster_decode_kernel<Blocks, NG, M>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(DEC_CLUSTER, batch, kv_heads);
   cfg.blockDim = dim3(DEC_THREADS);
@@ -338,8 +348,8 @@ static int launch_cluster_rows(const void* q, const Blocks& A,
   float* ws = static_cast<float*>(workspace);
   float* ws_stats = ws + (size_t)batch * kv_heads * A.max_blocks * G * HEAD_DIM;
   cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const __half*>(q), A,
-      static_cast<const int*>(kv_len), static_cast<__half*>(out), ws, ws_stats,
+      &cfg, kernel, static_cast<const OpT*>(q), A,
+      static_cast<const int*>(kv_len), static_cast<OpT*>(out), ws, ws_stats,
       kv_heads, G, P);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -348,16 +358,38 @@ static int launch_cluster_rows(const void* q, const Blocks& A,
 // One launch of the cluster kernel over the blocks A names; `workspace`
 // holds batch * kv_heads * A.max_blocks * G * (128 + 3) floats (the
 // blocks' partials).  The row count of the register arrays is a template
-// (8 or 16 rows: dec_rows), so a group of 7 carries 8.
+// (8 or 16 rows: dec_rows), so a group of 7 carries 8; so is the policy's
+// mode (`mode`: ModeId).
+template <typename Blocks, typename M>
+static int launch_cluster_mode(const void* q, const Blocks& A,
+                               const void* kv_len, void* out, void* workspace,
+                               int batch, int kv_heads, int G, const Policy& P,
+                               cudaStream_t stream) {
+  if (G <= dec_rows(1))
+    return launch_cluster_rows<Blocks, dec_rows(1), M>(
+        q, A, kv_len, out, workspace, batch, kv_heads, G, P, stream);
+  return launch_cluster_rows<Blocks, DEC_MAX_G, M>(
+      q, A, kv_len, out, workspace, batch, kv_heads, G, P, stream);
+}
+
 template <typename Blocks>
 static int launch_cluster(const void* q, const Blocks& A, const void* kv_len,
                           void* out, void* workspace, int batch, int kv_heads,
-                          int G, const Policy& P, cudaStream_t stream) {
-  if (G <= dec_rows(1))
-    return launch_cluster_rows<Blocks, dec_rows(1)>(
-        q, A, kv_len, out, workspace, batch, kv_heads, G, P, stream);
-  return launch_cluster_rows<Blocks, DEC_MAX_G>(
-      q, A, kv_len, out, workspace, batch, kv_heads, G, P, stream);
+                          int G, int mode, const Policy& P,
+                          cudaStream_t stream) {
+  switch (mode) {
+    case MODE_F16:
+      return launch_cluster_mode<Blocks, ModeF16>(
+          q, A, kv_len, out, workspace, batch, kv_heads, G, P, stream);
+    case MODE_F32:
+      return launch_cluster_mode<Blocks, ModeF32>(
+          q, A, kv_len, out, workspace, batch, kv_heads, G, P, stream);
+    case MODE_BF16:
+      return launch_cluster_mode<Blocks, ModeBF16>(
+          q, A, kv_len, out, workspace, batch, kv_heads, G, P, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace pasa

@@ -7,6 +7,10 @@
 //
 // What it computes: one new token per sequence; the GQA group's G query
 // heads are the rows; each page is one PASA block (page_size == block_kv).
+// Policies: fp16 and fp16_fp32, fp32 (fp32 scores) and bf16_fp32 (bf16
+// operands and output, fp32 scores), each an instance of the template
+// (pasa_common.cuh Mode); pages convert or dequantize once to the input
+// dtype.
 //
 // Design: the cluster kernel of pasa_decode_cluster.cuh with block j =
 // page table[b, j] (PagedBlocks): the pages of a (sequence, kv-head) are
@@ -35,7 +39,7 @@ template <typename PoolT>
 static int launch(const void* q, const void* k_pages, const void* v_pages,
                   const SidecarPtrs& sc, const void* page_table,
                   const void* kv_len, void* out, void* workspace, int batch,
-                  int kv_heads, int G, int page, int max_pages,
+                  int kv_heads, int G, int page, int max_pages, int mode,
                   const Policy& P, cudaStream_t stream) {
   PagedBlocks<PoolT> A;
   A.k = static_cast<const PoolT*>(k_pages);
@@ -45,14 +49,16 @@ static int launch(const void* q, const void* k_pages, const void* v_pages,
   A.block = page;
   A.max_blocks = max_pages;
   A.kv_heads = kv_heads;
-  return launch_cluster(q, A, kv_len, out, workspace, batch, kv_heads, G, P,
-                        stream);
+  return launch_cluster(q, A, kv_len, out, workspace, batch, kv_heads, G,
+                        mode, P, stream);
 }
 
 }  // namespace pasa
 
 // Plain C entry point (bound with ctypes).  The four sidecar pointers are
-// read only for an 8-bit pool_kind (PoolKind).  `workspace` holds
+// read only for an 8-bit pool_kind (PoolKind).  q and out are at the
+// policy's input dtype (bf16 if op_bf16, else fp16), scores at fp16 if
+// score_half (else fp32).  `workspace` holds
 // batch * kv_heads * max_pages * group * (128 + 3) floats (the pages'
 // partials).  Returns the cudaError_t of the launch; 0 means it was
 // queued on `stream`.
@@ -62,11 +68,13 @@ extern "C" int pasa_paged_decode_launch(
     const void* v_shift, const void* page_table, const void* kv_len, void* out,
     void* workspace, int batch, int kv_heads, int group, int page,
     int max_pages, int pool_kind, float beta, float inva, float shift_scale,
-    float post_scale, int stat_half, int acc_half, void* stream) {
+    float post_scale, int stat_half, int acc_half, int score_half,
+    int op_bf16, void* stream) {
   using namespace pasa;
+  const int mode = mode_id(score_half, op_bf16);
   if (group < 1 || group > DEC_MAX_G || page < 1 || page > DEC_PAGE_ROWS ||
       batch < 1 || batch > 65535 || kv_heads < 1 || kv_heads > 65535 ||
-      max_pages < 1 || !workspace)
+      max_pages < 1 || !workspace || mode < 0)
     return (int)cudaErrorInvalidValue;
   const bool quant = pool_kind == POOL_INT8 || pool_kind == POOL_FP8;
   if (quant && !(k_scale && k_shift && v_scale && v_shift))
@@ -80,19 +88,19 @@ extern "C" int pasa_paged_decode_launch(
     case POOL_FP16:
       return launch<__half>(q, k_pages, v_pages, sc, page_table, kv_len, out,
                             workspace, batch, kv_heads, group, page,
-                            max_pages, P, s);
+                            max_pages, mode, P, s);
     case POOL_BF16:
       return launch<__nv_bfloat16>(q, k_pages, v_pages, sc, page_table, kv_len,
                                    out, workspace, batch, kv_heads, group,
-                                   page, max_pages, P, s);
+                                   page, max_pages, mode, P, s);
     case POOL_INT8:
       return launch<int8_t>(q, k_pages, v_pages, sc, page_table, kv_len, out,
                             workspace, batch, kv_heads, group, page,
-                            max_pages, P, s);
+                            max_pages, mode, P, s);
     case POOL_FP8:
       return launch<__nv_fp8_e4m3>(q, k_pages, v_pages, sc, page_table, kv_len,
                                    out, workspace, batch, kv_heads, group,
-                                   page, max_pages, P, s);
+                                   page, max_pages, mode, P, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -42,18 +42,26 @@
 //    shift sidecars by bulk copy, and are dequantized into two operand
 //    stages; the next page's codes are requested as soon as the current
 //    page is converted;
-//  * the converter warpgroup turns the raw page into the fp16 operands:
-//    km per column in row order (an fp32 sum rounded once), then K' =
-//    (K - beta km) / sqrt(d) and V at fp16 (shift_key's arithmetic), rows
-//    past `valid` zeroed; for 8-bit pools the dequantization is
-//    load_pool8's (code * scale + shift in fp32, one rounding to fp16);
+//  * the converter warpgroup turns the raw page into the operands at the
+//    policy's input dtype (fp16, or bf16 under bf16_fp32): km per column
+//    in row order (an fp32 sum rounded once), then K' = (K - beta km) /
+//    sqrt(d) and V at the input dtype (shift_key's arithmetic), rows past
+//    `valid` zeroed; for 8-bit pools the dequantization is load_pool8's
+//    (code * scale + shift in fp32, one rounding to the input dtype);
 //    it runs a page ahead of the consumers, so the conversion overlaps
 //    the previous page's GEMMs;
 //  * both GEMMs are wgmma (m64n{64|128}k16 for S from shared memory,
 //    m64n128k16 for P V with P as the register operand and V read
 //    MN-major): pages of up to 64 rows run at N = 64, larger ones at
 //    N = 128, the surplus columns masked like columns past `valid`.  S
-//    stays in registers and is stored at fp16 before anything reads it;
+//    stays in registers and is stored at the score dtype before anything
+//    reads it (fp16, or the fp32 wgmma sum itself under fp32 and
+//    bf16_fp32; there P enters the P V wgmma rounded once to the operand
+//    type, fp16 or bf16, while l sums the fp32 P - a deviation from the
+//    reference's fp32 P V held to its prefill bar (atol 1e-2, rtol
+//    3e-2); the attention kernel's two-term bf16 P (pasa_attention.cu)
+//    costs 32 registers the consumers here do not have: ptxas spills at
+//    224, and the converter at 40);
 //    each row's statistics are reduced over the 4 threads that hold it,
 //    each row keeps its own block count and live flag; under the
 //    all-fp16 policy the per-element softmax and accumulator steps run on
@@ -68,7 +76,7 @@ namespace pasa {
 constexpr int PF_NWG = 2;                       // consumer warpgroups
 constexpr int PF_BQ = 64 * PF_NWG;              // query rows per CTA
 constexpr int PF_THREADS = 128 * (PF_NWG + 1);
-constexpr int PF_HALF = 64 * 2;                 // a 64-column half-row, fp16
+constexpr int PF_HALF = 64 * 2;                 // a 64-column half-row (2 B)
 constexpr int PF_MAX_PAGE = 128;
 
 template <typename PoolT, int BKV>
@@ -104,43 +112,44 @@ __device__ __forceinline__ uint32_t swz(int r, int c8) {
 }
 
 // Raw element (r, c) of a staged K or V page (`tile`: 2-byte values in
-// the operand layout, or codes [BKV][128]) as fp16 (returned widened):
-// the value load_pool8 gives it.
-template <typename PoolT, int BKV>
+// the operand layout, or codes [BKV][128]) at the operand type OpT
+// (returned widened): the value load_pool8 gives it.
+template <typename OpT, typename PoolT, int BKV>
 __device__ __forceinline__ float raw_elem(const unsigned char* tile, int r,
                                           int c, float scale,
                                           const float* shift) {
   if constexpr (kIsCode<PoolT>) {
     const PoolT code = reinterpret_cast<const PoolT*>(tile)[r * HEAD_DIM + c];
-    return h2f(__float2half_rn(
+    return to_float(from_float<OpT>(
         __fadd_rn(__fmul_rn(code_to_float(code), scale), shift[c])));
   } else {
-    return h2f(to_half(*reinterpret_cast<const PoolT*>(
+    return to_float(to_op<OpT>(*reinterpret_cast<const PoolT*>(
         tile + swz<BKV>(r, c & ~7) + (c & 7) * 2)));
   }
 }
 
-// Raw elements (r, c8 .. c8 + 7) of a staged page as eight fp16 values.
-template <typename PoolT, int BKV>
+// Raw elements (r, c8 .. c8 + 7) of a staged page as eight OpT values.
+template <typename OpT, typename PoolT, int BKV>
 __device__ __forceinline__ uint4 raw_chunk(const unsigned char* tile, int r,
                                            int c8, float scale,
                                            const float* shift) {
   if constexpr (kIsCode<PoolT>) {
-    return load8_dequant(
+    return load8_dequant<OpT>(
         reinterpret_cast<const PoolT*>(tile + r * HEAD_DIM + c8), scale,
         shift + c8);
   } else {
-    return load8_half(reinterpret_cast<const PoolT*>(tile + swz<BKV>(r, c8)));
+    return load8_op<OpT>(reinterpret_cast<const PoolT*>(tile + swz<BKV>(r, c8)));
   }
 }
 
-// Scores of one page as the policy stores them, with the row sums over the
-// valid columns (before the causal mask) and the row maxima after it
+// Scores of one page as the policy stores them (at fp16 if SH), with the
+// row sums over the valid columns (before the causal mask) and the row
+// maxima after it
 // (masked columns enter as NEG_BIG).  Masked scores become -inf, so their
 // probabilities are exact zeros.  s[4 g + e] holds row e >> 1 (of the
 // thread's two) at page column lc0 + 8 g + (e & 1); without MASK every
 // column is valid and visible to every row.
-template <int NS, bool MASK>
+template <int NS, bool MASK, bool SH>
 __device__ __forceinline__ void page_scores(float* s, float* ssum, float* mx,
                                             int lc0, int valid, int col0,
                                             const int* rowpos,
@@ -148,7 +157,7 @@ __device__ __forceinline__ void page_scores(float* s, float* ssum, float* mx,
 #pragma unroll
   for (int e = 0; e < NS; ++e) {
     const int r = (e >> 1) & 1;
-    const float v = store_score(s[e], P);
+    const float v = store_score<SH>(s[e], P);
     if constexpr (MASK) {
       const int lc = lc0 + 8 * (e >> 2) + (e & 1);
       if (lc < valid) ssum[r] += v;
@@ -163,20 +172,23 @@ __device__ __forceinline__ void page_scores(float* s, float* ssum, float* mx,
   }
 }
 
-// H16: statistics and accumulator at fp16 (the paper's policy): the
+// M: the policy's mode (operand type, score store).  H16 (only with
+// ModeF16): statistics and accumulator at fp16 (the paper's policy): the
 // softmax and accumulator steps run on fp16 pairs.
-template <typename PoolT, int BKV, bool H16>
+template <typename PoolT, int BKV, bool H16, typename M>
 __global__ void __launch_bounds__(PF_THREADS, 1)
-paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D) fp16
+paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
                      const __grid_constant__ CUtensorMap tk,  // (P,page,KVH,D)
                      const __grid_constant__ CUtensorMap tv,
                      SidecarPtrs sc,                      // 8-bit pools only
                      const int* __restrict__ page_table,  // (B, max_pages)
                      const int* __restrict__ chunk_start, // (B,)
                      const int* __restrict__ kv_len,      // (B,)
-                     __half* __restrict__ out,            // (B, H, CS, D)
+                     typename M::Op* __restrict__ out,    // (B, H, CS, D)
                      int heads, int kv_heads, int chunk, int page,
                      int max_pages, Policy P) {
+  static_assert(!H16 || M::kScoreHalf, "the fp16 pair steps need fp16 scores");
+  using OpT = typename M::Op;
   using L = PrefillLayout<PoolT, BKV>;
   constexpr int NS = BKV / 2;            // score registers per thread
   extern __shared__ unsigned char smem_raw[];
@@ -292,7 +304,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D) fp16
       if (P.beta > 0.0f) {
         float sum = 0.0f;
         for (int r = 0; r < valid; ++r)
-          sum += raw_elem<PoolT, BKV>(rk, r, ct, sck, shift);
+          sum += raw_elem<OpT, PoolT, BKV>(rk, r, ct, sck, shift);
         km_s[ct] = __fdiv_rn(sum, (float)valid);
       }
       named_sync(1, 128);
@@ -301,9 +313,10 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D) fp16
 #pragma unroll
       for (int e = 0; e < 8; ++e)
         bkm[e] = P.beta > 0.0f ? __fmul_rn(P.beta, km_s[c8 + e]) : 0.0f;
-      // 2. K' = (K - beta km) / sqrt(d) and V at fp16 into stage st (in
-      //    place for 2-byte pools; for codes once the consumers release
-      //    the stage); rows past `valid` (and past the page) become zeros
+      // 2. K' = (K - beta km) / sqrt(d) and V at the operand type into
+      //    stage st (in place for 2-byte pools; for codes once the
+      //    consumers release the stage); rows past `valid` (and past the
+      //    page) become zeros
       //    (one row per step: the converter runs at 56 registers, and
       //    unrolled steps spill)
       if constexpr (L::CODE) mbar_wait(bar_e + 8 * st, ((j / NST) & 1) ^ 1);
@@ -311,14 +324,14 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D) fp16
       for (int r = ct >> 4; r < BKV; r += 128 / 16) {
         uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
         if (r < valid) {
-          kk = raw_chunk<PoolT, BKV>(rk, r, c8, sck, shift);
-          vv = raw_chunk<PoolT, BKV>(rv, r, c8, scv, shift + HEAD_DIM);
+          kk = raw_chunk<OpT, PoolT, BKV>(rk, r, c8, sck, shift);
+          vv = raw_chunk<OpT, PoolT, BKV>(rv, r, c8, scv, shift + HEAD_DIM);
           if (P.beta > 0.0f) {
-            __half* kh = reinterpret_cast<__half*>(&kk);
+            OpT* kh = reinterpret_cast<OpT*>(&kk);
 #pragma unroll
             for (int e = 0; e < 8; ++e)
-              kh[e] = __float2half_rn(__fmul_rn(__fsub_rn(h2f(kh[e]), bkm[e]),
-                                                P.shift_scale));
+              kh[e] = from_float<OpT>(__fmul_rn(
+                  __fsub_rn(to_float(kh[e]), bkm[e]), P.shift_scale));
           }
         }
         *reinterpret_cast<uint4*>(opk + swz<BKV>(r, c8)) = kk;
@@ -387,7 +400,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D) fp16
 #pragma unroll
         for (int kk = 0; kk < HEAD_DIM / 16; ++kk) {
           const uint32_t off = (kk >> 2), in = (kk & 3) * 32;
-          wgmma_scores<BKV>(
+          wgmma_scores<BKV, M::kBF16>(
               s, gmma_desc(q_addr + off * PF_BQ * PF_HALF + in, 16, 1024),
               gmma_desc(k_addr + off * BKV * PF_HALF + in, 16, 1024), kk > 0);
         }
@@ -400,9 +413,11 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D) fp16
         // is invalid or in some row's future)
         float ssum[2] = {0.0f, 0.0f}, mx[2] = {-INFINITY, -INFINITY};
         if (valid < BKV || col0 + valid - 1 > wg_first)
-          page_scores<NS, true>(s, ssum, mx, 2 * quad, valid, col0, rowpos, P);
+          page_scores<NS, true, M::kScoreHalf>(s, ssum, mx, 2 * quad, valid,
+                                               col0, rowpos, P);
         else
-          page_scores<NS, false>(s, ssum, mx, 2 * quad, valid, col0, rowpos, P);
+          page_scores<NS, false, M::kScoreHalf>(s, ssum, mx, 2 * quad, valid,
+                                                col0, rowpos, P);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
 #pragma unroll
@@ -411,8 +426,9 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D) fp16
             mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
           }
         }
-        // 4. local softmax at the statistic dtype, P at fp16 packed as
-        // the A fragments of the P V product (k16 step kk: pa[4 kk ..])
+        // 4. local softmax at the statistic dtype, P at the score dtype,
+        // then at the operand type packed as the A fragments of the P V
+        // product (k16 step kk: pa[4 kk ..])
         float lsum[2] = {0.0f, 0.0f};
         uint32_t pa[NS / 2];
         if constexpr (H16) {
@@ -431,13 +447,18 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D) fp16
 #pragma unroll
           for (int e = 0; e < NS; e += 2) {
             const int r = (e >> 1) & 1;
-            const __half p0 = __float2half_rn(
-                rnd(expf(rnd(__fsub_rn(s[e], mx[r]), sh)), sh));
-            const __half p1 = __float2half_rn(
-                rnd(expf(rnd(__fsub_rn(s[e + 1], mx[r]), sh)), sh));
-            lsum[r] += h2f(p0);
-            lsum[r] += h2f(p1);
-            pa[e / 2] = h2_bits(__halves2half2(p0, p1));
+            float p0 = rnd(expf(rnd(__fsub_rn(s[e], mx[r]), sh)), sh);
+            float p1 = rnd(expf(rnd(__fsub_rn(s[e + 1], mx[r]), sh)), sh);
+            if constexpr (M::kScoreHalf) {   // P stored at fp16
+              const __half h0 = __float2half_rn(p0), h1 = __float2half_rn(p1);
+              lsum[r] += h2f(h0);
+              lsum[r] += h2f(h1);
+              pa[e / 2] = h2_bits(__halves2half2(h0, h1));
+            } else {
+              lsum[r] += p0;
+              lsum[r] += p1;
+              pa[e / 2] = pack2<OpT>(p0, p1);
+            }
           }
         }
 
@@ -448,7 +469,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D) fp16
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BKV / 16; ++kk)
-          wgmma_rs_n128(pv, &pa[4 * kk],
+          wgmma_rs_n128<M::kBF16>(pv, &pa[4 * kk],
                         gmma_desc(v_addr + kk * 16 * PF_HALF, BKV * PF_HALF,
                                   1024),
                         kk > 0);
@@ -510,13 +531,13 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D) fp16
       }
     }
 
-    // O = acc / l at the accumulator dtype, stored at fp16 (contiguous);
-    // rows that folded nothing (l == 0) emit 0, not 0/0
+    // O = acc / l at the accumulator dtype, stored at the output dtype
+    // (contiguous); rows that folded nothing (l == 0) emit 0, not 0/0
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (tile * PF_BQ + rl[r] >= chunk) continue;
       const float lr = l[r] > 0.0f ? l[r] : 1.0f;
-      __half* orow =
+      OpT* orow =
           out + ((size_t)bh * chunk + tile * PF_BQ + rl[r]) * HEAD_DIM + 2 * quad;
 #pragma unroll
       for (int g = 0; g < 16; ++g) {
@@ -531,8 +552,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D) fp16
         }
         const float o0 = rnd(__fdiv_rn(a0, lr), ah);
         const float o1 = rnd(__fdiv_rn(a1, lr), ah);
-        *reinterpret_cast<__half2*>(orow + 8 * g) =
-            __halves2half2(__float2half_rn(o0), __float2half_rn(o1));
+        *reinterpret_cast<uint32_t*>(orow + 8 * g) = pack2<OpT>(o0, o1);
       }
     }
   }
@@ -564,7 +584,7 @@ static bool make_pool_map(CUtensorMap* map, const void* pool, int num_pages,
                             : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <typename PoolT, int BKV, bool H16>
+template <typename PoolT, int BKV, bool H16, typename M>
 static int launch(const void* q, const void* k_pages, const void* v_pages,
                   const SidecarPtrs& sc, const void* page_table,
                   const void* chunk_start, const void* kv_len, void* out,
@@ -572,13 +592,15 @@ static int launch(const void* q, const void* k_pages, const void* v_pages,
                   int max_pages, int num_pages, const Policy& P,
                   cudaStream_t stream) {
   using L = PrefillLayout<PoolT, BKV>;
+  using OpT = typename M::Op;
   CUtensorMap tq, tk, tv;
   const long long sh = (long long)chunk * HEAD_DIM;
-  if (!make_map(&tq, q, batch, heads, chunk, heads * sh, sh, HEAD_DIM, PF_BQ) ||
+  if (!make_map(&tq, q, batch, heads, chunk, heads * sh, sh, HEAD_DIM, PF_BQ,
+                tma_dtype<OpT>()) ||
       !make_pool_map<PoolT>(&tk, k_pages, num_pages, page, kv_heads) ||
       !make_pool_map<PoolT>(&tv, v_pages, num_pages, page, kv_heads))
     return (int)cudaErrorInvalidValue;
-  auto kernel = paged_prefill_kernel<PoolT, BKV, H16>;
+  auto kernel = paged_prefill_kernel<PoolT, BKV, H16, M>;
   const int smem = L::BYTES + 1024;       // + the 1024-byte alignment
   static OncePerDevice ready;             // the attribute, per device
   bool* set = ready.current();
@@ -593,7 +615,7 @@ static int launch(const void* q, const void* k_pages, const void* v_pages,
   kernel<<<grid, PF_THREADS, smem, stream>>>(
       tq, tk, tv, sc, static_cast<const int*>(page_table),
       static_cast<const int*>(chunk_start), static_cast<const int*>(kv_len),
-      static_cast<__half*>(out), heads, kv_heads, chunk, page, max_pages, P);
+      static_cast<OpT*>(out), heads, kv_heads, chunk, page, max_pages, P);
   return (int)cudaGetLastError();
 }
 
@@ -602,18 +624,22 @@ static int launch_pool(const void* q, const void* k_pages, const void* v_pages,
                        const SidecarPtrs& sc, const void* page_table,
                        const void* chunk_start, const void* kv_len, void* out,
                        int batch, int heads, int kv_heads, int chunk, int page,
-                       int max_pages, int num_pages, const Policy& P,
-                       cudaStream_t stream) {
-  const int cfg = (page > 64) * 2 + (P.stat_half && P.acc_half);
-#define PASA_PREFILL_LAUNCH(BKV, H16)                                      \
-  launch<PoolT, BKV, H16>(q, k_pages, v_pages, sc, page_table, chunk_start, \
-                          kv_len, out, batch, heads, kv_heads, chunk, page, \
-                          max_pages, num_pages, P, stream)
+                       int max_pages, int num_pages, int mode,
+                       const Policy& P, cudaStream_t stream) {
+  const int cfg = (page > 64) * 4 + wgmma_kind(mode, P);
+#define PASA_PREFILL_LAUNCH(BKV, H16, M)                                      \
+  launch<PoolT, BKV, H16, M>(q, k_pages, v_pages, sc, page_table, chunk_start, \
+                             kv_len, out, batch, heads, kv_heads, chunk, page, \
+                             max_pages, num_pages, P, stream)
   switch (cfg) {
-    case 0: return PASA_PREFILL_LAUNCH(64, false);
-    case 1: return PASA_PREFILL_LAUNCH(64, true);
-    case 2: return PASA_PREFILL_LAUNCH(128, false);
-    default: return PASA_PREFILL_LAUNCH(128, true);
+    case 0: return PASA_PREFILL_LAUNCH(64, true, ModeF16);
+    case 1: return PASA_PREFILL_LAUNCH(64, false, ModeF16);
+    case 2: return PASA_PREFILL_LAUNCH(64, false, ModeF32);
+    case 3: return PASA_PREFILL_LAUNCH(64, false, ModeBF16);
+    case 4: return PASA_PREFILL_LAUNCH(128, true, ModeF16);
+    case 5: return PASA_PREFILL_LAUNCH(128, false, ModeF16);
+    case 6: return PASA_PREFILL_LAUNCH(128, false, ModeF32);
+    default: return PASA_PREFILL_LAUNCH(128, false, ModeBF16);
   }
 #undef PASA_PREFILL_LAUNCH
 }
@@ -622,9 +648,10 @@ static int launch_pool(const void* q, const void* k_pages, const void* v_pages,
 
 // Plain C entry point (bound with ctypes).  q, the pools and the sidecars
 // are contiguous (pools (num_pages, page, kv_heads, 128)); the four
-// sidecar pointers are read only for an 8-bit pool_kind (PoolKind).
-// Returns the cudaError_t of the launch; 0 means it was queued on
-// `stream`.
+// sidecar pointers are read only for an 8-bit pool_kind (PoolKind).  q
+// and out are at the policy's input dtype (bf16 if op_bf16, else fp16),
+// scores at fp16 if score_half (else fp32).  Returns the cudaError_t of
+// the launch; 0 means it was queued on `stream`.
 extern "C" int pasa_paged_prefill_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* k_shift, const void* v_scale,
@@ -632,11 +659,13 @@ extern "C" int pasa_paged_prefill_launch(
     const void* kv_len, void* out, int batch, int heads, int kv_heads,
     int chunk, int page, int max_pages, int num_pages, int pool_kind,
     float beta, float inva, float shift_scale, float post_scale,
-    int stat_half, int acc_half, void* stream) {
+    int stat_half, int acc_half, int score_half, int op_bf16, void* stream) {
   using namespace pasa;
+  const int mode = mode_id(score_half, op_bf16);
   if (batch < 1 || heads < 1 || kv_heads < 1 || heads % kv_heads ||
       chunk < 1 || page < 16 || page > PF_MAX_PAGE || page % 16 ||
-      max_pages < 1 || num_pages < 1 || (chunk + PF_BQ - 1) / PF_BQ > 65535)
+      max_pages < 1 || num_pages < 1 || (chunk + PF_BQ - 1) / PF_BQ > 65535 ||
+      mode < 0)
     return (int)cudaErrorInvalidValue;
   const bool quant = pool_kind == POOL_INT8 || pool_kind == POOL_FP8;
   if (quant && !(k_scale && k_shift && v_scale && v_shift))
@@ -649,7 +678,7 @@ extern "C" int pasa_paged_prefill_launch(
 #define PASA_PREFILL_POOL(T)                                                  \
   launch_pool<T>(q, k_pages, v_pages, sc, page_table, chunk_start, kv_len,    \
                  out, batch, heads, kv_heads, chunk, page, max_pages,         \
-                 num_pages, P, s)
+                 num_pages, mode, P, s)
   switch (pool_kind) {
     case POOL_FP16: return PASA_PREFILL_POOL(__half);
     case POOL_BF16: return PASA_PREFILL_POOL(__nv_bfloat16);

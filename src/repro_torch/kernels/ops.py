@@ -7,9 +7,14 @@ call raises (unsupported shape, dtype, policy or block size).  There is
 no fall back from the card to the plain version.  Each wrapper counts the
 kernel launches it makes in a plain integer attribute,
 ``<wrapper>.launches`` (``pasa_attention`` with beta > 0 also launches the
-shift kernel, counted in ``shift_kv.launches``).  The shift wrapper also
-counts each of its kernel's modes apart, in ``shift_kv.launches_by_mode``
-(keys from ``shift_kv.mode_name``).
+shift kernel, counted in ``shift_kv.launches``), and each of its kernel's
+modes apart in ``<wrapper>.launches_by_mode``: the attention and decode
+ops keyed by the policy and the dtype of the pool or cache they read
+(``pasa_paged_decode.mode_name``, e.g. ``"bf16_fp32/bfloat16"``), the
+shift op by its own modes (``shift_kv.mode_name``).  The four attention
+kernels run the fp16, fp16_fp32, fp32 and bf16_fp32 policies, with the
+output at the policy's output dtype; the float64 oracle policy raises on
+the card.
 
 The reference's ``interpret`` and ``use_kernel`` switches have no
 counterpart: the plain versions live beside each kernel in its module.
@@ -66,11 +71,18 @@ def _check_pages(k_pages: torch.Tensor, v_pages: torch.Tensor) -> None:
         )
 
 
+def _count(wrapper, mode: str) -> None:
+    """One launch of ``wrapper``'s kernel in mode ``mode``."""
+    wrapper.launches += 1
+    wrapper.launches_by_mode[mode] = wrapper.launches_by_mode.get(mode, 0) + 1
+
+
 def _cuda_inputs(q, k_pages, v_pages, ints, policy, quant):
     """Validate and normalize the kernel inputs: everything on q's CUDA
-    device, q at fp16, pools contiguous - bf16/fp16 values without
-    sidecars, int8/fp8 codes with them (f32, contiguous) - index tensors
-    int32 contiguous (small copies only; the pool is never copied)."""
+    device, q at the policy's input dtype, pools contiguous - bf16/fp16
+    values without sidecars, int8/fp8 codes with them (f32, contiguous) -
+    index tensors int32 contiguous (small copies only; the pool is never
+    copied)."""
     _decode.policy_scalars(0.0, policy, _decode.HEAD_DIM)  # policy check
     dev = q.device
     for name, x in (("k_pages", k_pages), ("v_pages", v_pages)) + tuple(
@@ -170,11 +182,12 @@ def pasa_paged_decode(
         q, k_pages, v_pages, ints["page_table"], ints["kv_len"],
         beta=beta, policy=policy, quant=quant,
     )
-    pasa_paged_decode.launches += 1
+    _count(pasa_paged_decode, _decode.mode_name(policy, k_pages.dtype))
     return out
 
 
 pasa_paged_decode.launches = 0
+pasa_paged_decode.launches_by_mode = {}
 
 
 def pasa_paged_prefill(
@@ -228,11 +241,12 @@ def pasa_paged_prefill(
         q, k_pages, v_pages, ints["page_table"], ints["chunk_start"],
         ints["kv_len"], beta=beta, policy=policy, quant=quant,
     )
-    pasa_paged_prefill.launches += 1
+    _count(pasa_paged_prefill, _decode.mode_name(policy, k_pages.dtype))
     return out
 
 
 pasa_paged_prefill.launches = 0
+pasa_paged_prefill.launches_by_mode = {}
 
 
 def _check(q, k, v) -> None:
@@ -304,9 +318,7 @@ def shift_kv(
     _cuda_rows("k", k, k.device)
     m = _shift.device_matrix(block_kv, d, float(beta), op, k.device)
     out = _shift.kernel_call(m, k, block_kv=block_kv)
-    shift_kv.launches += 1
-    mode = _shift.mode_name(k.dtype, op, block_kv)
-    shift_kv.launches_by_mode[mode] = shift_kv.launches_by_mode.get(mode, 0) + 1
+    _count(shift_kv, _shift.mode_name(k.dtype, op, block_kv))
     return out
 
 
@@ -333,23 +345,24 @@ def _attention(q, k, v, *, beta, policy, block_q, block_kv, causal, wrapper):
                 f"the CUDA attention kernel takes {name} 64 or 128, got {block}"
             )
     d = q.shape[-1]
-    half = torch.float16
+    op = policy.input_dtype
     # the recovery multiplier of the GEMM shift is the invariance the
     # rounded M realizes, not the ideal beta/(1-beta)
-    inva = (effective_invariance(block_kv, d, beta, policy.input_dtype)
+    inva = (effective_invariance(block_kv, d, beta, op)
             if beta > 0.0 else 0.0)
     _decode.policy_scalars(beta, policy, d, inva)   # raises before a launch
-    q, v = q.to(half), v.to(half)
+    mode = _decode.mode_name(policy, k.dtype)
+    q, v = q.to(op), v.to(op)
     for name, x in (("q", q), ("v", v)):
         _cuda_rows(name, x, q.device)
     if beta > 0.0:
         k_sh = shift_kv(k, beta=beta, block_kv=block_kv, policy=policy)
     else:
-        k_sh = k.to(half)
+        k_sh = k.to(op)
         _cuda_rows("k", k_sh, q.device)
     out = _attn.kernel_call(q, k_sh, v, beta=beta, inva=inva, policy=policy,
                             causal=causal, block_q=block_q, block_kv=block_kv)
-    wrapper.launches += 1
+    _count(wrapper, mode)
     return out
 
 
@@ -371,6 +384,7 @@ def pasa_attention(
 
 
 pasa_attention.launches = 0
+pasa_attention.launches_by_mode = {}
 
 
 def flash_attention(
@@ -389,6 +403,7 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_mode = {}
 
 
 def pasa_decode(
@@ -435,19 +450,22 @@ def pasa_decode(
         q, k_cache, v_cache, kv_len.to(torch.int32).contiguous(),
         beta=beta, policy=policy, block_kv=block_kv,
     )
-    pasa_decode.launches += 1
+    _count(pasa_decode, _decode.mode_name(policy, k_cache.dtype))
     return out
 
 
 pasa_decode.launches = 0
+pasa_decode.launches_by_mode = {}
+
+WRAPPERS = (pasa_paged_decode, pasa_paged_prefill, pasa_attention,
+            flash_attention, pasa_decode, shift_kv)
 
 
 def reset_launches() -> None:
-    """Set every wrapper's launch count to 0."""
-    for wrapper in (pasa_paged_decode, pasa_paged_prefill, pasa_attention,
-                    flash_attention, pasa_decode, shift_kv):
+    """Set every wrapper's launch counts to 0."""
+    for wrapper in WRAPPERS:
         wrapper.launches = 0
-    shift_kv.launches_by_mode = {}
+        wrapper.launches_by_mode = {}
 
 
 # last: the flash_attention module imports the op defined above

@@ -10,8 +10,11 @@ Counterpart of ``repro.kernels.pasa_attention`` (Algorithm 1 lines 8-23).
     as wgmma with the scores in registers; GQA maps query head h to kv
     head h // group, so K'/V are never expanded; a causal tile wholly
     above the diagonal is skipped.  With ``beta = 0`` (inva 0, 1/sqrt(d)
-    applied after the fp16 score store) it is the FlashAttention-2
-    baseline.  ``block_q`` and ``block_kv`` are 64 or 128.
+    applied after the score store) it is the FlashAttention-2 baseline.
+    ``block_q`` and ``block_kv`` are 64 or 128.  Operands and output are at
+    the policy's input dtype (fp16, or bf16 under bf16_fp32); at fp32
+    scores P enters the P V product rounded to that dtype (the source's
+    note).
   * :func:`attention_plain` is the port of the reference's
     ``ref.attention_ref``: RAW keys, the GEMM shift and
     ``core.pasa.blocked_attention`` on K/V expanded to the H query heads.
@@ -59,16 +62,16 @@ def _entry() -> ctypes._CFuncPtr:
     fn = _build.load("pasa_attention").pasa_attention_launch
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
-        + [ctypes.c_float] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_float] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
 def kernel_call(
-    q: torch.Tensor,          # (B, H, S1, 128) fp16
-    k_shifted: torch.Tensor,  # (B, KVH, S2, 128) fp16 (raw keys at beta 0)
-    v: torch.Tensor,          # (B, KVH, S2, 128) fp16
+    q: torch.Tensor,          # (B, H, S1, 128) }
+    k_shifted: torch.Tensor,  # (B, KVH, S2, 128) } at the policy's input
+    v: torch.Tensor,          # (B, KVH, S2, 128) } dtype (raw keys at beta 0)
     *,
     beta: float,
     inva: float,
@@ -83,7 +86,7 @@ def kernel_call(
     :func:`repro_torch.kernels.ops.pasa_attention`."""
     b, h, s1, d = q.shape
     _, kvh, s2, _ = k_shifted.shape
-    out = torch.empty((b, h, s1, d), dtype=torch.float16, device=q.device)
+    out = torch.empty((b, h, s1, d), dtype=policy.out_dtype, device=q.device)
     strides = [x.stride(i) for x in (q, k_shifted, v) for i in range(3)]
     err = _entry()(
         q.data_ptr(), k_shifted.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -67,14 +67,14 @@ def _entry(name: str = "pasa_decode_launch") -> ctypes._CFuncPtr:
     fn.argtypes = (
         [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
         + [ctypes.c_longlong] * 3 + [ctypes.c_int] + [ctypes.c_float] * 4
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
 def kernel_call(
-    q: torch.Tensor,        # (B, KVH, G, 128) fp16, contiguous
+    q: torch.Tensor,        # (B, KVH, G, 128) input dtype, contiguous
     k_cache: torch.Tensor,  # (B, KVH, S2, 128) bf16 or fp16, strided
     v_cache: torch.Tensor,  # same dtype and strides as k_cache
     kv_len: torch.Tensor,   # (B,) int32

@@ -96,20 +96,27 @@ def paged_decode_plain(
 def policy_scalars(beta: float, policy: PrecisionPolicy, d: int,
                    inva: Optional[float] = None):
     """The policy and beta as the kernels' launch arguments: (beta, inva
-    rounded to the statistic dtype, fp32 1/sqrt(d), fp16 1/sqrt(d),
-    stat_half, acc_half).  ``inva`` defaults to the ideal beta/(1-beta) of
-    the algebraic shift; the GEMM-shift attention kernel passes the
-    invariance its rounded matrix realizes.  Raises NotImplementedError
-    for a policy the kernels do not implement (fp16 inputs, scores and
-    outputs are required; statistics and accumulator may be fp16 or
-    fp32)."""
-    half, f32 = torch.float16, torch.float32
-    if (policy.input_dtype, policy.score_dtype, policy.out_dtype) != (half,) * 3 \
-            or policy.stat_dtype not in (half, f32) \
-            or policy.acc_dtype not in (half, f32):
+    rounded to the statistic dtype, fp32 1/sqrt(d), 1/sqrt(d) at the score
+    dtype, stat_half, acc_half, score_half, op_bf16).  ``inva`` defaults
+    to the ideal beta/(1-beta) of the algebraic shift; the GEMM-shift
+    attention kernel passes the invariance its rounded matrix realizes.
+
+    The kernels implement every policy of ``core.precision`` but the
+    float64 oracle: inputs and output at fp16 or bf16 (one dtype), scores
+    stored at fp16 (fp16 inputs only) or fp32, statistics and accumulator
+    at fp16 or fp32 (fp32 beside fp32 scores).  Any other policy raises
+    NotImplementedError."""
+    half, bf16, f32 = torch.float16, torch.bfloat16, torch.float32
+    op = policy.input_dtype
+    score_half = policy.score_dtype == half
+    ok = (op in (half, bf16) and policy.out_dtype == op
+          and policy.score_dtype in ((half, f32) if op == half else (f32,))
+          and policy.stat_dtype in ((half, f32) if score_half else (f32,))
+          and policy.acc_dtype in ((half, f32) if score_half else (f32,)))
+    if not ok:
         raise NotImplementedError(
-            f"the CUDA PASA kernels implement the fp16 and fp16_fp32 "
-            f"policies, not {policy.name!r}"
+            f"the CUDA PASA kernels implement the fp16, fp16_fp32, fp32 and "
+            f"bf16_fp32 policies, not {policy.name!r}"
         )
     if inva is None:
         inva = ideal_invariance(beta)
@@ -117,10 +124,19 @@ def policy_scalars(beta: float, policy: PrecisionPolicy, d: int,
         float(beta),
         float(torch.tensor(inva, dtype=policy.stat_dtype)),
         float(torch.tensor(1.0 / math.sqrt(d), dtype=f32)),
-        float(torch.tensor(1.0 / math.sqrt(d), dtype=half)),
+        float(torch.tensor(1.0 / math.sqrt(d), dtype=policy.score_dtype)),
         int(policy.stat_dtype == half),
         int(policy.acc_dtype == half),
+        int(score_half),
+        int(op == bf16),
     )
+
+
+def mode_name(policy: PrecisionPolicy, pool_dtype: torch.dtype) -> str:
+    """The key of a kernel mode in the ops' ``launches_by_mode`` counters:
+    the policy's name and the dtype of the pool or cache read, e.g.
+    ``"bf16_fp32/bfloat16"``."""
+    return f"{policy.name}/{str(pool_dtype).removeprefix('torch.')}"
 
 
 def sidecar_ptrs(quant: Optional[dict]) -> list:
@@ -136,14 +152,14 @@ def _entry() -> ctypes._CFuncPtr:
     fn = _build.load("pasa_paged_decode").pasa_paged_decode_launch
     fn.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
 def kernel_call(
-    q: torch.Tensor,           # (B, KVH, G, 128) fp16, contiguous
+    q: torch.Tensor,           # (B, KVH, G, 128) at the input dtype, contiguous
     k_pages: torch.Tensor,     # (P, page, KVH, 128) bf16/fp16 values or
     v_pages: torch.Tensor,     #   int8/fp8 codes, contiguous
     page_table: torch.Tensor,  # (B, max_pages) int32, contiguous

@@ -5,7 +5,7 @@ Counterpart of ``repro.kernels.pasa_paged_prefill``.
   * :func:`kernel_call` launches ``csrc/pasa_paged_prefill.cu``: one CTA
     per (row * head, 128-query tile), longest causal tiles first; each
     visible page arrives by TMA, a converter warpgroup turns it into the
-    shifted fp16 operands one page ahead, two consumer warpgroups run both
+    shifted operands (at the policy's input dtype) one page ahead, two consumer warpgroups run both
     GEMMs as wgmma with the scores in registers (see the source's note).
   * :func:`paged_prefill_plain` is the port of the reference's
     ``paged_prefill_xla``: a gather of the pages (dequantized for 8-bit
@@ -75,14 +75,14 @@ def _entry() -> ctypes._CFuncPtr:
     fn = _build.load("pasa_paged_prefill").pasa_paged_prefill_launch
     fn.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
 def kernel_call(
-    q: torch.Tensor,            # (B, H, CS, 128) fp16, contiguous
+    q: torch.Tensor,            # (B, H, CS, 128) input dtype, contiguous
     k_pages: torch.Tensor,      # (P, page, KVH, 128) bf16/fp16 values or
     v_pages: torch.Tensor,      #   int8/fp8 codes, contiguous
     page_table: torch.Tensor,   # (B, max_pages) int32, contiguous

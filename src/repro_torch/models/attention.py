@@ -37,8 +37,18 @@ attention layer does with XLA ops (plain PyTorch ops here):
 
 then the paged ops read the codes and dequantize in the kernels.
 
-The attention runs PASA at the policy and beta of ``cfg.attention`` (the
-paper's fp16 allocation by default).
+``cfg.attention.impl`` picks the attention of every branch, as the
+reference's ``_attend`` does (:func:`_policy_beta`):
+
+  * ``"pasa"`` (the default): PASA at ``pasa_policy`` and ``beta`` (the
+    paper's fp16 allocation);
+  * ``"flash"``: FlashAttention-2 at ``policy`` (bf16_fp32 by default),
+    beta 0 - ``ops.flash_attention`` on the dense prefill (no shift pass),
+    the decode and paged ops at beta 0;
+  * ``"naive"``: the materialized softmax of ``core.naive`` at f32 over
+    the K/V the branch attends to (for a paged branch the gathered, and
+    dequantized, pages at the compute dtype), in plain PyTorch on every
+    device, as the reference's naive branch.
 """
 
 from __future__ import annotations
@@ -49,12 +59,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.precision import get_policy
+from repro_torch.core.naive import naive_attention
+from repro_torch.core.precision import PrecisionPolicy, get_policy
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, matmuls, rope_angles
 from repro_torch.runtime.paged_cache import (
     NULL_PAGE,
     dequantize_kv_page,
+    gather_pages,
+    gather_pages_dequant,
     quantize_kv_page,
 )
 
@@ -106,9 +119,38 @@ def attention(
     return matmuls(out.to(cd), p["wo"].to(cd))[0]
 
 
+def _policy_beta(cfg: ModelConfig) -> tuple[PrecisionPolicy, float]:
+    """The precision policy and beta of ``cfg.attention.impl`` (the
+    reference's ``_attend``): PASA at ``pasa_policy`` and ``beta``,
+    FlashAttention-2 at ``policy`` and beta 0."""
+    ac = cfg.attention
+    if ac.impl == "pasa":
+        return get_policy(ac.pasa_policy), ac.beta
+    return get_policy(ac.policy), 0.0
+
+
+def _naive(q, k, v, *, causal: bool, kv_len=None, q_offset=0) -> torch.Tensor:
+    """The naive impl: ``core.naive_attention`` at f32 on K/V expanded to
+    the query heads, returned at q's dtype.  q (B, S1, H, hd), k/v (B, S2,
+    KVH, hd); ``kv_len`` (B,) valid columns, ``q_offset`` (B,) absolute
+    position of query row 0 (causal).  Returns (B, S1, H * hd)."""
+    b, s1, h, hd = q.shape
+    g = h // k.shape[2]
+    heads = lambda x: x.repeat_interleave(g, 2).movedim(2, 1)
+    if isinstance(q_offset, torch.Tensor):
+        q_offset = q_offset.reshape(b, 1, 1, 1)    # (..., S1, 1) per row
+    out = naive_attention(
+        q.movedim(2, 1), heads(k), heads(v), causal=causal,
+        kv_len=None if kv_len is None else kv_len.reshape(b, 1),
+        q_offset=q_offset,
+    )                                                  # (B, H, S1, hd) f32
+    return out.to(q.dtype).movedim(1, 2).reshape(b, s1, h * hd)
+
+
 def _dense_prefill(q, k, v, cfg: ModelConfig, cache: dict) -> torch.Tensor:
-    """Write rows [0, S) of the dense cache, then causal GEMM-shift PASA
-    over the fresh K/V.  q (B, S, H, hd), k/v (B, S, KVH, hd)."""
+    """Write rows [0, S) of the dense cache, then causal attention over
+    the fresh K/V: GEMM-shift PASA, FlashAttention-2 or naive.  q (B, S,
+    H, hd), k/v (B, S, KVH, hd)."""
     ac = cfg.attention
     if not (ac.use_gemm_shift and ac.expand_kv):
         raise NotImplementedError(
@@ -119,14 +161,19 @@ def _dense_prefill(q, k, v, cfg: ModelConfig, cache: dict) -> torch.Tensor:
     kvh = k.shape[2]
     cache["k"][:, :s].copy_(k.reshape(b, s, kvh * hd))
     cache["v"][:, :s].copy_(v.reshape(b, s, kvh * hd))
+    if ac.impl == "naive":
+        return _naive(q, k, v, causal=True)
+    policy, beta = _policy_beta(cfg)
     pad = (-s) % ac.block_kv
     if pad:
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
-    out = ops.pasa_attention(
-        q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1),
-        beta=ac.beta, policy=get_policy(ac.pasa_policy),
-        block_q=ac.block_kv, block_kv=ac.block_kv, causal=True,
-    )                                                  # (B, H, S_pad, hd)
+    args = (q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1))
+    blocks = dict(block_q=ac.block_kv, block_kv=ac.block_kv, causal=True)
+    if ac.impl == "flash":
+        out = ops.flash_attention(*args, policy=policy, **blocks)
+    else:
+        out = ops.pasa_attention(*args, beta=beta, policy=policy, **blocks)
+    # (B, H, S_pad, hd)
     return out[:, :, :s].movedim(1, 2).reshape(b, s, h * hd)
 
 
@@ -143,13 +190,17 @@ def _dense_decode(q, k, v, cfg: ModelConfig, cache: dict,
     ck.index_put_((rows, pos.long()), k.reshape(b, kvh * hd).to(ck.dtype))
     cv.index_put_((rows, pos.long()), v.reshape(b, kvh * hd).to(cv.dtype))
     s2 = ck.shape[1]
+    if cfg.attention.impl == "naive":
+        cd = q.dtype
+        return _naive(q, ck.view(b, s2, kvh, hd).to(cd),
+                      cv.view(b, s2, kvh, hd).to(cd), causal=False,
+                      kv_len=pos + 1)
+    policy, beta = _policy_beta(cfg)
     out = ops.pasa_decode(
         q.reshape(b, kvh, h // kvh, hd),
         ck.view(b, s2, kvh, hd).transpose(1, 2),
         cv.view(b, s2, kvh, hd).transpose(1, 2),
-        pos + 1, beta=cfg.attention.beta,
-        policy=get_policy(cfg.attention.pasa_policy),
-        block_kv=cfg.attention.block_kv,
+        pos + 1, beta=beta, policy=policy, block_kv=cfg.attention.block_kv,
     )                                                  # (B, KVH, G, hd)
     return out.reshape(b, 1, h * hd)
 
@@ -162,7 +213,9 @@ def _paged(q, k, v, cfg: ModelConfig, cache: dict, pos, page_table,
     n_pages, page = ck.shape[0], ck.shape[1]
     k_pages = ck.view(n_pages, page, kvh, hd)
     v_pages = cv.view(n_pages, page, kvh, hd)
-    policy, beta = get_policy(cfg.attention.pasa_policy), cfg.attention.beta
+    naive = cfg.attention.impl == "naive"
+    if not naive:
+        policy, beta = _policy_beta(cfg)
     quantized = "k_scale" in cache
     sidecars = {}
     if quantized:
@@ -192,6 +245,9 @@ def _paged(q, k, v, cfg: ModelConfig, cache: dict, pos, page_table,
             idx = (phys.reshape(-1), slot.reshape(-1))
             ck.index_put_(idx, k.reshape(b * s, kvh * hd).to(ck.dtype))
             cv.index_put_(idx, v.reshape(b * s, kvh * hd).to(cv.dtype))
+        if naive:
+            kg, vg = _gathered(cache, page_table, kvh, hd, q.dtype)
+            return _naive(q, kg, vg, causal=True, kv_len=limit, q_offset=pos)
         out = ops.pasa_paged_prefill(
             q.movedim(2, 1), k_pages, v_pages, page_table, pos, limit,
             beta=beta, policy=policy, **sidecars,
@@ -207,12 +263,30 @@ def _paged(q, k, v, cfg: ModelConfig, cache: dict, pos, page_table,
     else:
         ck.index_put_((phys, slot), k.reshape(b, kvh * hd).to(ck.dtype))
         cv.index_put_((phys, slot), v.reshape(b, kvh * hd).to(cv.dtype))
+    if naive:
+        kg, vg = _gathered(cache, page_table, kvh, hd, q.dtype)
+        return _naive(q, kg, vg, causal=False, kv_len=pos + 1)
     out = ops.pasa_paged_decode(
         q.reshape(b, kvh, h // kvh, hd), k_pages, v_pages, page_table,
         pos + 1, beta=beta, policy=policy, block_kv=cfg.attention.block_kv,
         **sidecars,
     )                                                  # (B, KVH, G, hd)
     return out.reshape(b, 1, h * hd)
+
+
+def _gathered(cache: dict, page_table, kvh: int, hd: int, dtype):
+    """The pages of each row's table gathered in order (dequantized in
+    f32 for a quantized pool) at ``dtype``: (B, max_pages * page, KVH, hd)
+    K and V, as the reference's paged branches gather them."""
+    out = []
+    for side in ("k", "v"):
+        if f"{side}_scale" in cache:
+            x = gather_pages_dequant(cache[side], cache[f"{side}_scale"],
+                                     cache[f"{side}_shift"], page_table)
+        else:
+            x = gather_pages(cache[side], page_table)
+        out.append(x.reshape(*x.shape[:2], kvh, hd).to(dtype))
+    return out
 
 
 def _write_pages_quantized(k, v, cfg: ModelConfig, cache: dict, pos,

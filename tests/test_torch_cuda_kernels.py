@@ -1,8 +1,9 @@
 """The port on a CUDA card: every kernel against its plain version (the
 paged kernels in both modes: raw and quantized pools), the contiguous
 decode kernel bit for bit against the paged one and its sequential walk,
-the prefill kernel's chunk-schedule invariance, and both serving routes'
-contracts at a small size.  Every test is marked ``cuda``
+the prefill kernel's chunk-schedule invariance, the four attention
+kernels in their fp32 and bf16_fp32 modes, and both serving routes'
+contracts at a small size (also at ``impl="flash"``).  Every test is marked ``cuda``
 and skips without a card.  The file imports neither jax nor the reference
 package, so it runs where only PyTorch is installed:
 
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.beta import DEFAULT_BETA
-from repro_torch.core.precision import BF16_FP32, FP16, FP16_FP32, FP32
+from repro_torch.core.precision import BF16_FP32, F64, FP16, FP16_FP32, FP32
 from repro_torch.core.shifting import shift_kv_reference
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import make_serve_step
@@ -119,7 +120,7 @@ def test_unsupported_inputs_raise_instead_of_falling_back():
     q = torch.zeros((1, 4, 7, 128), dtype=torch.float16, device=dev)
     kvl = torch.tensor([10], dtype=torch.int32, device=dev)
     with pytest.raises(NotImplementedError):
-        ops.pasa_paged_decode(q, kp, vp, table, kvl, policy=FP32)
+        ops.pasa_paged_decode(q, kp, vp, table, kvl, policy=F64)
     with pytest.raises(ValueError):
         ops.pasa_paged_decode(q, kp, vp, table, kvl, block_kv=64)
     with pytest.raises(NotImplementedError):
@@ -142,8 +143,8 @@ def _quantized(kp, vp, table, seq_lens, dtype):
 @pytest.mark.cuda
 def test_quantized_pool_mode_raises_before_any_launch():
     """A quantized call the kernels do not take raises, and nothing is
-    launched: an fp32 policy, sidecars with a raw pool, an 8-bit pool
-    without sidecars, a page over 128 rows."""
+    launched: the float64 oracle policy, sidecars with a raw pool, an
+    8-bit pool without sidecars, a page over 128 rows."""
     dev = _card()
     rng = np.random.default_rng(12)
     kp, vp, table = _pool(rng, [10], 4, 128, dev)
@@ -154,9 +155,9 @@ def test_quantized_pool_mode_raises_before_any_launch():
     st = torch.zeros(1, dtype=torch.int32, device=dev)
     ops.reset_launches()
     with pytest.raises(NotImplementedError):
-        ops.pasa_paged_decode(q, kq, vq, table, kvl, policy=FP32, **quant)
+        ops.pasa_paged_decode(q, kq, vq, table, kvl, policy=F64, **quant)
     with pytest.raises(NotImplementedError):
-        ops.pasa_paged_prefill(qp, kq, vq, table, st, kvl, policy=FP32, **quant)
+        ops.pasa_paged_prefill(qp, kq, vq, table, st, kvl, policy=F64, **quant)
     with pytest.raises(NotImplementedError):
         ops.pasa_paged_decode(q, kp, vp, table, kvl, **quant)
     with pytest.raises(NotImplementedError):
@@ -361,7 +362,11 @@ def test_unsupported_dense_inputs_raise_before_any_launch():
     k = torch.zeros((1, 2, 128, 128), dtype=torch.float16, device=dev)
     ops.reset_launches()
     with pytest.raises(NotImplementedError):
-        ops.pasa_attention(q, k, k, policy=FP32)
+        ops.pasa_attention(q, k, k, policy=F64)
+    qd0 = torch.zeros((1, 2, 2, 128), dtype=torch.float16, device=dev)
+    with pytest.raises(NotImplementedError):
+        ops.pasa_decode(qd0, k, k, torch.tensor([5], dtype=torch.int32,
+                                                device=dev), policy=F64)
     q2, k2 = torch.cat([q, q], 2), torch.cat([k, k], 2)      # 256 rows
     with pytest.raises(NotImplementedError):
         ops.pasa_attention(q2, k2, k2, block_q=256, block_kv=256)
@@ -708,3 +713,319 @@ def test_prefill_kernel_is_chunk_schedule_and_batch_invariant(page, pool):
         assert torch.equal(second, one[:, :, cut:]), cut
         if cut % page == 0:
             assert torch.equal(first, one[:, :, :cut]), cut
+
+
+# ---- the fp32 and bf16_fp32 policy modes of the four attention kernels --
+#
+# fp32: fp16 operands, scores, statistics and accumulator fp32, fp16
+# output; bf16_fp32: bf16 operands and output, the rest fp32.  Each kernel
+# against its plain version at the reference's bars and within relative
+# RMSE 0.02 (attention) / 0.03 (decode, prefill) of float64 attention.
+
+NEW_MODES = [FP32, BF16_FP32]
+# tests/test_kv_quant.py RMSE_BOUND: the 8-bit pools vs float64 attention
+# on the unquantized K/V at the FP32 policy
+QUANT_RMSE_BOUND = {"int8": 0.03, "fp8_e4m3": 0.09}
+
+
+def _rel_rmse(got, gold) -> float:
+    return float((got.double() - gold).norm() / gold.norm())
+
+
+def _paged_gold(q, kp, vp, table, starts, kv_lens, causal):
+    """float64 attention of each row of q (B, H, S, D) (or a decode's (B,
+    KVH, G, D)) over its first kv_len positions of the pool; ``causal``
+    with the rows' chunk starts."""
+    golds = []
+    for i, n in enumerate(kv_lens):
+        flat = lambda x: x[table[i].long()].reshape(-1, *x.shape[2:])[:n]
+        kk = flat(kp).movedim(0, 1).double()            # (KVH, n, D)
+        vv = flat(vp).movedim(0, 1).double()
+        g = q.shape[1] // kk.shape[0] if causal else 1
+        kk, vv = kk.repeat_interleave(g, 0), vv.repeat_interleave(g, 0)
+        sc = q[i].double() @ kk.transpose(-1, -2) / math.sqrt(q.shape[-1])
+        if causal:
+            qpos = starts[i] + torch.arange(q.shape[2], device=q.device)
+            sc = sc.masked_fill(
+                qpos[:, None] < torch.arange(n, device=q.device)[None, :],
+                -math.inf)
+        golds.append(torch.softmax(sc, -1) @ vv)
+    return torch.stack(golds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [64, 128])
+@pytest.mark.parametrize("policy", NEW_MODES, ids=lambda p: p.name)
+def test_paged_kernels_in_new_modes(policy, page):
+    """Paged decode and prefill at fp32 and bf16_fp32 from a bf16 pool,
+    PASA and FlashAttention-2: output at the policy's dtype, within the
+    decode / prefill bars of the plain version and relative RMSE 0.03 of
+    float64 attention."""
+    dev = _card()
+    rng = np.random.default_rng(21)
+    kvh, g = 4, 7
+    kv_len = [300, page, 1, 1000]
+    kp, vp, table = _pool(rng, kv_len, kvh, page, dev)
+    q = _randn(rng, (4, kvh, g, 128), 0.0, dev)
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    for beta in (0.0, BETA):
+        got = ops.pasa_paged_decode(q, kp, vp, table, kvl, beta=beta,
+                                    policy=policy)
+        want = dmod.paged_decode_plain(q, kp, vp, table, kvl, beta=beta,
+                                       policy=policy, block_kv=page)
+        assert got.dtype == policy.out_dtype
+        torch.testing.assert_close(got.float(), want.float(), **DECODE_TOL)
+        gold = _paged_gold(q, kp, vp, table, None, kv_len, False)
+        assert _rel_rmse(got, gold) < 0.03
+
+    start, plen = [0, 37, 130, 0], [100, 137, 230, 0]
+    kp, vp, table = _pool(rng, plen, kvh, page, dev)
+    table[3] = 0
+    st = torch.tensor(start, dtype=torch.int32, device=dev)
+    pl = torch.tensor(plen, dtype=torch.int32, device=dev)
+    for beta, q_mean in ((0.0, 0.0), (BETA, 1.0)):
+        q = _randn(rng, (4, kvh * g, 100, 128), q_mean, dev)
+        got = ops.pasa_paged_prefill(q, kp, vp, table, st, pl, beta=beta,
+                                     policy=policy)
+        want = pmod.paged_prefill_plain(q, kp, vp, table, st, pl, beta=beta,
+                                        policy=policy)
+        assert got.dtype == policy.out_dtype
+        torch.testing.assert_close(got.float(), want.float(), **PREFILL_TOL)
+        assert not got[3].any()
+        gold = _paged_gold(q[:3], kp, vp, table, start, plen[:3], True)
+        assert _rel_rmse(got[:3], gold) < 0.03
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("policy", NEW_MODES, ids=lambda p: p.name)
+def test_quantized_kernels_in_new_modes(policy, dtype):
+    """The quantized mode of both paged kernels at fp32 and bf16_fp32 (the
+    codes dequantized once to the input dtype): within the bars of the
+    plain version, and at fp32 within the reference's per-pool RMSE
+    bound of float64 attention on the unquantized K/V."""
+    dev = _card()
+    rng = np.random.default_rng(22)
+    kvh, g, page = 4, 7, 128
+    kv_len = [300, 128, 1, 1000]
+    kp, vp, table = _pool(rng, kv_len, kvh, page, dev)
+    kq, vq, quant, _ = _quantized(kp, vp, table, kv_len, dtype)
+    q = _randn(rng, (4, kvh, g, 128), 0.0, dev)
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    got = ops.pasa_paged_decode(q, kq, vq, table, kvl, beta=BETA,
+                                policy=policy, **quant)
+    want = dmod.paged_decode_plain(q, kq, vq, table, kvl, beta=BETA,
+                                   policy=policy, block_kv=page, **quant)
+    assert got.dtype == policy.out_dtype
+    torch.testing.assert_close(got.float(), want.float(), **DECODE_TOL)
+    if policy is FP32:
+        gold = _paged_gold(q, kp, vp, table, None, kv_len, False)
+        assert _rel_rmse(got, gold) < QUANT_RMSE_BOUND[dtype]
+
+    start, plen = [0, 37, 0], [100, 137, 0]
+    kp, vp, table = _pool(rng, plen, kvh, page, dev)
+    table[2] = 0
+    kq, vq, quant, _ = _quantized(kp, vp, table, plen, dtype)
+    q = _randn(rng, (3, kvh * g, 100, 128), 1.0, dev)
+    st = torch.tensor(start, dtype=torch.int32, device=dev)
+    pl = torch.tensor(plen, dtype=torch.int32, device=dev)
+    got = ops.pasa_paged_prefill(q, kq, vq, table, st, pl, beta=BETA,
+                                 policy=policy, **quant)
+    want = pmod.paged_prefill_plain(q, kq, vq, table, st, pl, beta=BETA,
+                                    policy=policy, **quant)
+    assert got.dtype == policy.out_dtype
+    torch.testing.assert_close(got.float(), want.float(), **PREFILL_TOL)
+    assert not got[2].any()
+    if policy is FP32:
+        gold = _paged_gold(q[:2], kp, vp, table, start, plen[:2], True)
+        assert _rel_rmse(got[:2], gold) < QUANT_RMSE_BOUND[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.float16],
+                         ids=["bf16_cache", "fp16_cache"])
+@pytest.mark.parametrize("policy", NEW_MODES, ids=lambda p: p.name)
+def test_contiguous_decode_in_new_modes(policy, cache):
+    """Contiguous decode at fp32 and bf16_fp32, blocks 128 and 256, from a
+    bf16 or fp16 cache read through strides (NaN past kv_len): within the
+    decode bar of the plain version and relative RMSE 0.03 of float64."""
+    dev = _card()
+    rng = np.random.default_rng(23)
+    kvh, g, d = 4, 7, 128
+    kv_lens = [1, 300, 1000]
+    kc = _randn(rng, (3, 1024, kvh, d), 2.0, dev, cache)
+    vc = _randn(rng, (3, 1024, kvh, d), 0.0, dev, cache)
+    for i, n in enumerate(kv_lens):
+        kc[i, n:] = float("nan")
+        vc[i, n:] = float("nan")
+    kview, vview = kc.transpose(1, 2), vc.transpose(1, 2)
+    q = _randn(rng, (3, kvh, g, d), 0.0, dev)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    gold = _decode_gold(q, kc, vc, kv_lens)
+    for block in (128, 256):
+        for beta in (0.0, BETA):
+            got = ops.pasa_decode(q, kview, vview, kvl, beta=beta,
+                                  policy=policy, block_kv=block)
+            want = cmod.decode_plain(q, kview, vview, kvl, beta=beta,
+                                     policy=policy, block_kv=block)
+            assert got.dtype == policy.out_dtype
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **DECODE_TOL)
+            assert _rel_rmse(got, gold) < 0.03
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("policy", NEW_MODES, ids=lambda p: p.name)
+def test_decodes_bit_equal_in_new_modes(policy, block):
+    """Contiguous decode == its sequential walk bit for bit at fp32 and
+    bf16_fp32, and at block 128 == paged decode over the same rows, at
+    kv_len 1, 255, 256, 257 and 4095, PASA and FlashAttention-2."""
+    dev = _card()
+    rng = np.random.default_rng(24)
+    kvh, g, d = 4, 7, 128
+    kv_lens = [1, 255, 256, 257, 4095]
+    page = 128
+    kp, vp, table = _pool(rng, kv_lens, kvh, page, dev)
+    n = table.shape[1] * page
+    kc = kp[table.long()].reshape(len(kv_lens), n, kvh, d)
+    vc = vp[table.long()].reshape(len(kv_lens), n, kvh, d)
+    kview, vview = kc.transpose(1, 2), vc.transpose(1, 2)
+    q = _randn(rng, (len(kv_lens), kvh, g, d), 0.0, dev)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    for beta in (0.0, BETA):
+        contiguous = ops.pasa_decode(q, kview, vview, kvl, beta=beta,
+                                     policy=policy, block_kv=block)
+        walk = cmod._walk_call(q.to(policy.input_dtype), kview, vview, kvl,
+                               beta=beta, policy=policy, block_kv=block)
+        assert torch.isfinite(contiguous.float()).all()
+        assert torch.equal(contiguous, walk), beta
+        if block == page:
+            paged = ops.pasa_paged_decode(q, kp, vp, table, kvl, beta=beta,
+                                          policy=policy)
+            assert torch.equal(contiguous, paged), beta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(128, 128), (64, 64), (128, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("policy", NEW_MODES, ids=lambda p: p.name)
+def test_attention_kernel_in_new_modes(policy, causal, blocks):
+    """PASA (queries of mean 0, keys of mean 2) and FlashAttention-2 at
+    fp32 and bf16_fp32 at the dense prefill's S = 1024, GQA group 7: the
+    output at the policy's dtype, within the reference's bars of the plain
+    version (P enters the P V product rounded to the operand type) and
+    relative RMSE 0.02 of float64 attention."""
+    dev = _card()
+    rng = np.random.default_rng(25)
+    bq, bkv = blocks
+    b, kvh, group, s, d = 2, 2, 7, 1024, 128
+    q = _randn(rng, (b, kvh * group, s, d), 0.0, dev)
+    k = _randn(rng, (b, kvh, s, d), 2.0, dev, torch.bfloat16)
+    v = _randn(rng, (b, kvh, s, d), 0.0, dev, torch.bfloat16)
+    kk = k.double().repeat_interleave(group, 1)
+    sc = q.double() @ kk.transpose(-1, -2) / math.sqrt(d)
+    if causal:
+        sc = sc.masked_fill(torch.ones(s, s, dtype=torch.bool,
+                                       device=dev).triu(1), -math.inf)
+    gold = torch.softmax(sc, -1) @ v.double().repeat_interleave(group, 1)
+    for beta in (BETA, 0.0):
+        fn = ops.flash_attention if beta == 0.0 else functools.partial(
+            ops.pasa_attention, beta=BETA)
+        got = fn(q, k, v, policy=policy, causal=causal, block_q=bq,
+                 block_kv=bkv)
+        want = amod.attention_plain(q, k, v, beta=beta, policy=policy,
+                                    block_kv=bkv, causal=causal)
+        assert got.dtype == policy.out_dtype
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **ATTN_TOL[causal or beta == 0.0])
+        assert _rel_rmse(got, gold) < 0.02
+
+
+@pytest.mark.cuda
+def test_overflow_ordering_across_policies():
+    """The paper's Table 4 ordering on the card, inputs uniform around
+    x0 = 30: FlashAttention-2 at fp16_fp32 overflows its fp16 score store,
+    at fp32 and bf16_fp32 (scores kept in fp32) it stays finite, and so
+    does PASA at the all-fp16 policy; each launch reaches its kernel."""
+    dev = _card()
+    rng = np.random.default_rng(26)
+    u = lambda shape: torch.from_numpy(
+        rng.uniform(29.5, 30.5, shape).astype(np.float32)).to(dev, torch.half)
+    q, k, v = u((1, 7, 256, 128)), u((1, 1, 256, 128)), u((1, 1, 256, 128))
+    ops.reset_launches()
+    assert not torch.isfinite(
+        ops.flash_attention(q, k, v, policy=FP16_FP32).float()).all()
+    for policy in (FP32, BF16_FP32):
+        out = ops.flash_attention(q, k, v, policy=policy)
+        assert out.dtype == policy.out_dtype
+        assert torch.isfinite(out.float()).all(), policy.name
+    assert torch.isfinite(
+        ops.pasa_attention(q, k, v, beta=BETA, policy=FP16).float()).all()
+    assert ops.flash_attention.launches_by_mode == {
+        "fp16_fp32/float16": 1, "fp32/float16": 1, "bf16_fp32/float16": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["dense", "paged"])
+def test_flash_serve_on_card_batched_equals_one_at_a_time(route):
+    """impl="flash" at the bf16_fp32 policy on a two-layer model at head
+    dim 128: the dense route launches FlashAttention-2 once per prefill
+    and contiguous decode once per step, the engine both paged kernels
+    once per call, each kernel only in its bf16_fp32 mode (no shift-KV);
+    every prompt's stream in the batch equals its stream served alone."""
+    dev = _card()
+    base = get_config("qwen2-7b")
+    cfg = dataclasses.replace(
+        base, n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, head_dim=128,
+        d_ff=512, vocab_size=512,
+        attention=dataclasses.replace(base.attention, impl="flash",
+                                      block_kv=64),
+    )
+    bundle = build(cfg)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(27)
+    gen = 6
+    mode = "bf16_fp32/bfloat16"
+    ops.reset_launches()
+    if route == "dense":
+        step = make_serve_step(bundle)
+        prompts = torch.from_numpy(
+            rng.integers(0, 512, (3, 200), dtype=np.int32)).to(dev)
+
+        def run(tokens):
+            b, s = tokens.shape
+            cache = bundle.init_cache(b, s + gen + 8, device=dev)
+            logits, cache = bundle.prefill(params, tokens, cache)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            out = [tok]
+            for i in range(s, s + gen - 1):
+                pos = torch.full((b,), i, dtype=torch.int32, device=dev)
+                tok, logits, cache = step(params, tok, pos, cache)
+                assert torch.isfinite(logits).all()
+                out.append(tok)
+            return torch.stack(out, 1)
+
+        streams = run(prompts)
+        assert ops.flash_attention.launches_by_mode == {mode: cfg.n_layers}
+        assert ops.pasa_decode.launches_by_mode == {
+            mode: cfg.n_layers * (gen - 1)}
+        assert ops.shift_kv.launches == ops.pasa_attention.launches == 0
+        for i in range(prompts.shape[0]):
+            assert torch.equal(run(prompts[i:i + 1])[0], streams[i])
+        return
+    kw = dict(max_batch=3, num_pages=24, page_size=64, prefill_chunk=128,
+              prefill_batch=2)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (150, 40, 260)]
+    eng = ServeEngine(bundle, params, **kw)
+    reqs = [eng.submit(p, gen) for p in prompts]
+    eng.run_to_completion()
+    assert ops.pasa_paged_prefill.launches_by_mode == {
+        mode: cfg.n_layers * eng.prefill_calls}
+    assert ops.pasa_paged_decode.launches_by_mode == {
+        mode: cfg.n_layers * eng.decode_calls}
+    for p, r in zip(prompts, reqs):
+        alone = ServeEngine(bundle, params, **kw)
+        solo = alone.submit(p, gen)
+        alone.run_to_completion()
+        assert solo.generated == r.generated
