@@ -61,7 +61,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      kernels' bf16_fp32 mode (28 per call), batched == one-at-a-time
      streams; how many greedy tokens equal the PASA serve's is reported.
      In the kernels line each new mode has its flash serve's count (0 for
-     the fp32 modes, which no serve runs).
+     the fp32 modes, which no serve runs);
+  6. the engine's other modes with the same weights, each phase on a
+     line of its own, every launch checked (28 per call, on the paged
+     kernels only) and every stream held exactly: token-by-token mode
+     (``serve_tbt``: prompts of 257 and 129 tokens through the paged
+     decode kernel, no prefill call) against ``dense_greedy_reference``
+     (the dense B=1 cache through the contiguous decode kernel); the
+     prefix cache (``serve_prefix_<pool>`` at bf16, int8, fp8_e4m3: three
+     prompts sharing a 768-token prefix, cold then hits, then a repeat)
+     against ``chunked_cold_reference``, with the cached pages' bytes
+     unchanged by the hits and TTFT hit against cold; preemption
+     (``serve_preempt_<pool>`` at bf16 and int8: a 1000-token request
+     paged out by a 900-token one in 12 pages, resumed by a partial hit,
+     a re-prefill and a replay) against ``chunked_cold_reference``; and
+     the paged phase's prompts under the SJF and Mixed policies (Mixed
+     with a step token budget of 640) against the FCFS serve's streams.
+     Before the serves, the paged prefill kernel is held bit for bit to
+     itself across chunk starts at page boundaries that are not chunk
+     boundaries (``prefill_chunk_starts``), as a prefix hit starts.
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -118,6 +136,17 @@ QUANT_RMSE_BOUND = {"int8": 0.03, "fp8_e4m3": 0.09}
 # output with the rest fp32): held at the same bars, timed at beta = 0 (the
 # flash route serves bf16_fp32 at beta 0) and at the path's beta
 NEW_POLICIES = ("fp32", "bf16_fp32")
+# the engine's features at full width (each with the weights every phase
+# shares): token-by-token mode, two prompts against the dense B=1 oracle;
+# the prefix cache, three prompts sharing a 768-token (six-page) prefix,
+# the first served cold, the other two together, then the first again;
+# preemption, a 1000-token prompt (9 pages) paged out by a 900-token one
+# (8 pages) in 12 allocatable pages; the paged phase's prompts under the
+# two other policies (mixed with a step token budget)
+TBT_PROMPTS, TBT_GEN = (257, 129), 16
+PREFIX_SHARED, PREFIX_SUFFIXES, PREFIX_GEN = 768, (232, 105, 40), 16
+PREEMPT_PROMPTS, PREEMPT_GEN, PREEMPT_PAGES = (1000, 900), 32, 12
+POLICY_SERVES = (("sjf", None), ("mixed", 640))
 
 
 def _kernel_module(name: str):
@@ -530,6 +559,7 @@ def check_prefill(dev):
     if not (rmse < RMSE_MAX and rmse_plain < RMSE_MAX):
         raise AssertionError(f"prefill RMSE {rmse:.4f} / plain {rmse_plain:.4f}")
     # bits inside the port: the kernel is invariant to the chunk schedule
+    # (check_prefill_starts: at every page boundary a prefix hit starts at)
     half = cs // 2
     a = ops.pasa_paged_prefill(q[:1, :, :half], kp, vp, table[:1], start[:1],
                                start[:1] + half, beta=BETA, policy=FP16)
@@ -1300,13 +1330,45 @@ def _flash_bundle(bundle):
         bundle.cfg.attention, impl="flash")))
 
 
+def _finite_bundle(bundle, finite):
+    """The bundle with its serving steps recording whether their logits
+    are finite (one device flag per call, read at the end)."""
+    import dataclasses
+
+    import torch
+
+    def checked(step):
+        def run(*a):
+            logits, state = step(*a)
+            finite.append(torch.isfinite(logits).all())
+            return logits, state
+        return run
+
+    return dataclasses.replace(
+        bundle, prefill=checked(bundle.prefill),
+        serve_step=checked(bundle.serve_step),
+        paged_serve_step=checked(bundle.paged_serve_step),
+        paged_prefill_step=checked(bundle.paged_prefill_step))
+
+
+def _paged_workload(cfg, cache_dtype):
+    """The paged phase's four prompts (seed 0) and engine arguments."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in SERVE_PROMPTS]
+    kw = dict(max_batch=4, page_size=128, prefill_chunk=512, prefill_batch=4,
+              num_pages=1 + sum(math.ceil((n + SERVE_GEN - 1) / 128)
+                                for n in SERVE_PROMPTS),
+              max_seq_len=max(SERVE_PROMPTS) + SERVE_GEN,
+              cache_dtype=cache_dtype)
+    return prompts, kw
+
+
 def serve(dev, bundle, params, cache_dtype="bf16"):
     """qwen2-7b at full width through the engine from a ``cache_dtype``
     page pool (the attention impl and policy of ``bundle.cfg``); returns
     the report."""
-    import dataclasses
-
-    import numpy as np
     import torch
 
     from repro_torch.kernels import ops
@@ -1314,29 +1376,10 @@ def serve(dev, bundle, params, cache_dtype="bf16"):
 
     cfg = bundle.cfg
     torch.cuda.reset_peak_memory_stats()
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in SERVE_PROMPTS]
+    prompts, kw = _paged_workload(cfg, cache_dtype)
 
     finite = []
-
-    def checked(step):
-        def run(*a):
-            logits, pool = step(*a)
-            finite.append(torch.isfinite(logits).all())
-            return logits, pool
-        return run
-
-    bundle = dataclasses.replace(
-        bundle,
-        paged_serve_step=checked(bundle.paged_serve_step),
-        paged_prefill_step=checked(bundle.paged_prefill_step),
-    )
-    total = max(SERVE_PROMPTS) + SERVE_GEN
-    kw = dict(max_batch=4, page_size=128, prefill_chunk=512, prefill_batch=4,
-              num_pages=1 + sum(math.ceil((n + SERVE_GEN - 1) / 128)
-                                for n in SERVE_PROMPTS),
-              max_seq_len=total, cache_dtype=cache_dtype)
-
+    bundle = _finite_bundle(bundle, finite)
     def run(prompt_list):
         eng = ServeEngine(bundle, params, **kw)
         reqs = [eng.submit(p, SERVE_GEN) for p in prompt_list]
@@ -1416,8 +1459,6 @@ def serve_dense(dev, bundle, params):
     of four 1000-token prompts, then greedy decode steps on the dense
     cache (the attention impl and policy of ``bundle.cfg``); returns the
     report."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -1426,16 +1467,7 @@ def serve_dense(dev, bundle, params):
 
     cfg = bundle.cfg
     finite = []
-
-    def checked(step):
-        def run(*a):
-            logits, cache = step(*a)
-            finite.append(torch.isfinite(logits).all())
-            return logits, cache
-        return run
-
-    bundle = dataclasses.replace(bundle, prefill=checked(bundle.prefill),
-                                 serve_step=checked(bundle.serve_step))
+    bundle = _finite_bundle(bundle, finite)
     step = make_serve_step(bundle)
     max_len = DENSE_PROMPT + SERVE_GEN + 8
 
@@ -1514,6 +1546,369 @@ def serve_dense(dev, bundle, params):
     )
 
 
+def check_prefill_starts(dev):
+    """The paged prefill kernel is invariant to where a chunk starts, bit
+    for bit, at the page boundaries a prefix hit starts at: row 1 of the
+    prefill fixture (queries 512..1023) split after 128, 256 and 384
+    queries - second parts starting at 640, 768 and 896, page multiples
+    that are not chunk multiples - equals the whole row, from the bf16
+    pool and from its int8 and fp8_e4m3 quantization.  A query tile is
+    128 rows, counted from the chunk's start: with 128-row pages every
+    such split keeps each row in the tile it has in the whole call."""
+    import torch
+
+    from repro_torch.core.precision import FP16
+    from repro_torch.kernels import ops
+
+    q, kp, vp, table, start, kv_len = _prefill_fixture(dev)
+    pools = {"bf16": (kp, vp, {})}
+    for dtype in QUANT_DTYPES:
+        kq, vq, quant, _ = _quantize_pool(kp, vp, table, PREFILL_ROWS[1],
+                                          dtype)
+        pools[dtype] = (kq, vq, quant)
+    q1, t1, s1, n1 = q[1:2], table[1:2], start[1:2], kv_len[1:2]
+    held = {}
+    for dtype, (k, v, quant) in pools.items():
+        run = lambda qq, s0, n: ops.pasa_paged_prefill(
+            qq, k, v, t1, s0, n, beta=BETA, policy=FP16, **quant)
+        whole = run(q1, s1, n1)
+        cuts = []
+        for cut in (128, 256, 384):
+            a = run(q1[:, :, :cut], s1, s1 + cut)
+            c = run(q1[:, :, cut:], s1 + cut, n1)
+            if not torch.equal(torch.cat([a, c], 2), whole):
+                raise AssertionError(
+                    f"pasa_paged_prefill/{dtype}: a chunk starting at "
+                    f"{int(s1) + cut} differs from the whole chunk")
+            cuts.append(int(s1) + cut)
+        held[dtype] = cuts
+    return held
+
+
+def _launch_counts():
+    from repro_torch.kernels import ops
+
+    return {name: getattr(ops, name).launches
+            for name in ("pasa_paged_prefill", "pasa_paged_decode",
+                         "pasa_decode")}
+
+
+def _check_engine_launches(tag, eng, cache_dtype):
+    """Since the last reset: each paged kernel launched 28 times per call
+    of the engine, all in the mode of the served impl, policy and pool,
+    and the contiguous decode kernel never."""
+    launches = _launch_counts()
+    n = eng.bundle.cfg.n_layers
+    want = {"pasa_paged_prefill": n * eng.prefill_calls,
+            "pasa_paged_decode": n * eng.decode_calls, "pasa_decode": 0}
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counts {launches} != {want} "
+                             f"({eng.prefill_calls} prefill, "
+                             f"{eng.decode_calls} decode calls)")
+    mode = _served_mode(eng.bundle.cfg, cache_dtype)
+    by_mode = _by_mode(("pasa_paged_prefill", "pasa_paged_decode"))
+    for name, counts in by_mode.items():
+        if counts != ({mode: launches[name]} if launches[name] else {}):
+            raise AssertionError(f"{tag}: {name} launches by mode {counts}")
+    return launches
+
+
+def _drive(eng):
+    """Step the engine until it drains; returns the wall time (s) at the
+    end of each step, each step ending in its readback."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks = []
+    while not eng.idle:
+        eng.step()
+        marks.append(time.perf_counter() - t0)
+    return marks
+
+
+def _all_finite(tag, finite):
+    import torch
+
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{tag}: non-finite logits")
+    finite.clear()
+
+
+def serve_tbt(dev, bundle, params):
+    """Token-by-token mode at full width: two prompts (257 and 129 tokens,
+    16 greedy tokens each) teacher-forced one token per step through the
+    paged decode kernel, no prefill call; each stream equals
+    ``dense_greedy_reference``, the dense B=1 cache through the contiguous
+    decode kernel, token for token (paged and contiguous decode are
+    bit-identical, and norms and GEMMs run padded to 16 rows)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ServeEngine, dense_greedy_reference
+
+    cfg = bundle.cfg
+    finite = []
+    bundle = _finite_bundle(bundle, finite)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in TBT_PROMPTS]
+    kw = dict(max_batch=2, page_size=128, chunked_prefill=False,
+              num_pages=1 + sum(math.ceil((n + TBT_GEN - 1) / 128)
+                                for n in TBT_PROMPTS),
+              max_seq_len=max(TBT_PROMPTS) + TBT_GEN)
+    warm = ServeEngine(bundle, params, **kw)
+    warm.submit(prompts[1][:4], 2)
+    warm.run_to_completion()
+    ops.reset_launches()
+    eng = ServeEngine(bundle, params, **kw)
+    reqs = [eng.submit(p, TBT_GEN) for p in prompts]
+    marks = _drive(eng)
+    launches = _check_engine_launches("serve_tbt", eng, "bf16")
+    if eng.prefill_calls != 0 or eng.decode_calls != eng.steps:
+        raise AssertionError(f"serve_tbt: {eng.prefill_calls} prefill calls, "
+                             f"{eng.decode_calls} decode / {eng.steps} steps")
+    _all_finite("serve_tbt", finite)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    oracle = [dense_greedy_reference(bundle, params, p, TBT_GEN)
+              for p in prompts]
+    oracle_s = time.perf_counter() - t0
+    dense_steps = sum(n + TBT_GEN - 1 for n in TBT_PROMPTS)
+    if _launch_counts() != {"pasa_paged_prefill": 0, "pasa_paged_decode": 0,
+                            "pasa_decode": cfg.n_layers * dense_steps}:
+        raise AssertionError(f"dense_greedy_reference launches "
+                             f"{_launch_counts()} != {cfg.n_layers} x "
+                             f"{dense_steps} contiguous decodes")
+    _all_finite("dense_greedy_reference", finite)
+    for r, want in zip(reqs, oracle):
+        if r.generated != want:
+            raise AssertionError(f"serve_tbt: request {r.req_id} "
+                                 f"{r.generated} != dense_greedy_reference "
+                                 f"{want}")
+    wall = marks[-1]
+    return dict(
+        prompts=list(TBT_PROMPTS), gen=TBT_GEN, max_batch=2,
+        steps=eng.steps, decode_calls=eng.decode_calls,
+        prefill_calls=eng.prefill_calls, launches=launches,
+        wall_s=wall, tok_per_s=TBT_GEN * len(prompts) / wall,
+        ms_per_step=1e3 * wall / len(marks),
+        ttft_ms=[1e3 * marks[r.first_token_step] for r in reqs],
+        oracle_wall_s=oracle_s, oracle_pasa_decode_launches=(
+            cfg.n_layers * dense_steps),
+        equal_to_dense_greedy_reference=True,
+        streams=[r.generated for r in reqs],
+    )
+
+
+def _page_bytes(pool, pages):
+    """Every pool leaf (K, V and an 8-bit pool's sidecars) at ``pages``,
+    as bytes."""
+    import torch
+
+    idx = torch.tensor(pages, dtype=torch.long, device=pool["k"].device)
+    return {name: x[:, idx].contiguous().view(torch.uint8).clone()
+            for name, x in pool.items()}
+
+
+def serve_prefix(dev, bundle, params, cache_dtype):
+    """The prefix cache at full width from a ``cache_dtype`` pool: three
+    prompts sharing a 768-token prefix (suffixes 232, 105, 40; 16 tokens
+    each).  The first is served cold and donates its seven full prompt
+    pages; the other two hit six of them together (prefill chunks starting
+    at 768, a page multiple but not a chunk multiple); the first again hits
+    seven.  Every stream equals ``chunked_cold_reference`` (a fresh engine,
+    cache off), and the cached pages' bytes, sidecars included, are the
+    same after the hits as after the cold serve."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ServeEngine, chunked_cold_reference
+
+    cfg = bundle.cfg
+    finite = []
+    bundle = _finite_bundle(bundle, finite)
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, cfg.vocab_size, PREFIX_SHARED).tolist()
+    prompts = [shared + rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PREFIX_SUFFIXES]
+    page = 128
+    kw = dict(page_size=page, prefill_chunk=512, cache_dtype=cache_dtype)
+    ops.reset_launches()
+    eng = ServeEngine(bundle, params, max_batch=2, num_pages=40,
+                      max_seq_len=max(len(p) for p in prompts) + PREFIX_GEN,
+                      prefix_cache=True, **kw)
+    cold = eng.submit(prompts[0], PREFIX_GEN)
+    m_cold = _drive(eng)
+    nodes = eng.prefix_cache.match(prompts[0])
+    cached = [n.page for n in nodes]
+    eng.prefix_cache.release(nodes)
+    before = _page_bytes(eng.pool, cached)
+    s0 = eng.steps
+    hits = [eng.submit(p, PREFIX_GEN) for p in prompts[1:]]
+    m_hits = _drive(eng)
+    s1 = eng.steps
+    again = eng.submit(prompts[0], PREFIX_GEN)
+    m_again = _drive(eng)
+    launches = _check_engine_launches(f"serve_prefix_{cache_dtype}", eng,
+                                      cache_dtype)
+    _all_finite(f"serve_prefix_{cache_dtype}", finite)
+    after = _page_bytes(eng.pool, cached)
+    for name in before:
+        if not torch.equal(before[name], after[name]):
+            raise AssertionError(f"serve_prefix_{cache_dtype}: cached pages' "
+                                 f"{name} bytes changed under the hits")
+    want_cached = [0, PREFIX_SHARED, PREFIX_SHARED,
+                   (len(prompts[0]) - 1) // page * page]
+    reqs = [cold, *hits, again]
+    if [r.cached_len for r in reqs] != want_cached:
+        raise AssertionError(f"serve_prefix_{cache_dtype}: cached_len "
+                             f"{[r.cached_len for r in reqs]} != {want_cached}")
+    st = eng.stats()["prefix_cache"]
+    if st["hits"] != sum(want_cached) // page or st["evictions"]:
+        raise AssertionError(f"serve_prefix_{cache_dtype}: stats {st}")
+    if len(cached) != len(prompts[0]) // page:
+        raise AssertionError(f"serve_prefix_{cache_dtype}: {len(cached)} "
+                             f"pages cached after the cold serve")
+    # the oracle: each prompt alone on a fresh engine with the cache off
+    for p, r in zip(prompts + [prompts[0]], reqs):
+        want = chunked_cold_reference(bundle, params, p, PREFIX_GEN, **kw)
+        if r.generated != want:
+            raise AssertionError(f"serve_prefix_{cache_dtype}: request "
+                                 f"{r.req_id} (cached {r.cached_len}) "
+                                 f"{r.generated} != cold {want}")
+    _all_finite(f"chunked_cold_reference ({cache_dtype})", finite)
+    ttft = lambda marks, r, s: 1e3 * marks[r.first_token_step - s]
+    n_tok = PREFIX_GEN * len(reqs)
+    wall = m_cold[-1] + m_hits[-1] + m_again[-1]
+    return dict(
+        cache_dtype=cache_dtype, shared=PREFIX_SHARED,
+        prompts=[len(p) for p in prompts], gen=PREFIX_GEN,
+        cached_len=[r.cached_len for r in reqs],
+        ttft_cold_ms=ttft(m_cold, cold, 0),
+        ttft_hit_ms=ttft(m_again, again, s1),
+        ttft_shared_hits_ms=[ttft(m_hits, r, s0) for r in hits],
+        prefix_cache=st, cached_page_bytes_equal=True,
+        equal_to_chunked_cold_reference=True,
+        steps=eng.steps, prefill_calls=eng.prefill_calls,
+        decode_calls=eng.decode_calls, launches=launches,
+        wall_s=wall, tok_per_s=n_tok / wall,
+        streams=[r.generated for r in reqs],
+    )
+
+
+def serve_preempt(dev, bundle, params, cache_dtype):
+    """Preemption at full width (the reference's test_scheduler.py
+    preempt-resume case): max batch 2, 12 allocatable pages, prefix cache
+    on, patience 2.  A (1000 + 32 tokens, 9 pages) decodes 4 tokens; B
+    (900 + 32, 8 pages) arrives and is page-starved; A is paged out (its
+    seven prompt pages donated), B evicts three of them and runs; A
+    resumes with a partial hit, re-prefills its tail and replays its
+    recorded tokens through the decode kernel.  Both streams equal
+    ``chunked_cold_reference``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ServeEngine, chunked_cold_reference
+
+    cfg = bundle.cfg
+    tag = f"serve_preempt_{cache_dtype}"
+    finite = []
+    bundle = _finite_bundle(bundle, finite)
+    rng = np.random.default_rng(4)
+    pa, pb = (rng.integers(0, cfg.vocab_size, n).tolist()
+              for n in PREEMPT_PROMPTS)
+    kw = dict(page_size=128, prefill_chunk=512, cache_dtype=cache_dtype)
+    ops.reset_launches()
+    eng = ServeEngine(bundle, params, max_batch=2,
+                      num_pages=1 + PREEMPT_PAGES,
+                      max_seq_len=max(PREEMPT_PROMPTS) + PREEMPT_GEN,
+                      prefix_cache=True, preemption=True, preempt_patience=2,
+                      **kw)
+    ra = eng.submit(pa, PREEMPT_GEN)
+    marks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while len(ra.generated) < 4:
+        eng.step()
+        marks.append(time.perf_counter() - t0)
+    rb = eng.submit(pb, PREEMPT_GEN)
+    while not eng.idle:
+        eng.step()
+        marks.append(time.perf_counter() - t0)
+    launches = _check_engine_launches(tag, eng, cache_dtype)
+    _all_finite(tag, finite)
+    if eng.preemptions < 1 or ra.preempt_count < 1:
+        raise AssertionError(f"{tag}: no preemption ({eng.stats()})")
+    if not ra.first_token_step < ra.preempt_step:
+        raise AssertionError(f"{tag}: first token at {ra.first_token_step}, "
+                             f"preempted at {ra.preempt_step}")
+    for p, r in ((pa, ra), (pb, rb)):
+        want = chunked_cold_reference(bundle, params, p, PREEMPT_GEN, **kw)
+        if r.generated != want:
+            raise AssertionError(f"{tag}: request {r.req_id} {r.generated} "
+                                 f"!= uninterrupted {want}")
+    _all_finite(f"chunked_cold_reference ({cache_dtype})", finite)
+    wall = marks[-1]
+    return dict(
+        cache_dtype=cache_dtype, prompts=list(PREEMPT_PROMPTS),
+        gen=PREEMPT_GEN, allocatable_pages=PREEMPT_PAGES,
+        preemptions=eng.preemptions, preempt_step=ra.preempt_step,
+        resume_admit_step=ra.admit_step, resume_cached_len=ra.cached_len,
+        replayed=len(ra.replay), prefix_cache=eng.stats()["prefix_cache"],
+        first_token_step={"A": ra.first_token_step, "B": rb.first_token_step},
+        finish_step={"A": ra.finish_step, "B": rb.finish_step},
+        equal_to_chunked_cold_reference=True,
+        steps=eng.steps, prefill_calls=eng.prefill_calls,
+        decode_calls=eng.decode_calls, launches=launches,
+        wall_s=wall, tok_per_s=2 * PREEMPT_GEN / wall,
+        ttft_ms={"A": 1e3 * marks[ra.first_token_step],
+                 "B": 1e3 * marks[rb.first_token_step]},
+        streams=[ra.generated, rb.generated],
+    )
+
+
+def serve_policy(dev, bundle, params, scheduler, budget, fcfs_streams):
+    """The paged phase's four prompts from a bf16 pool under ``scheduler``
+    (and ``step_token_budget``): the streams equal the FCFS serve's
+    (scheduling moves latency, never tokens), and no step spends more than
+    the budget."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ServeEngine
+
+    tag = f"serve_{scheduler}"
+    finite = []
+    bundle = _finite_bundle(bundle, finite)
+    prompts, kw = _paged_workload(bundle.cfg, "bf16")
+    ops.reset_launches()
+    eng = ServeEngine(bundle, params, scheduler=scheduler,
+                      step_token_budget=budget, **kw)
+    reqs = [eng.submit(p, SERVE_GEN) for p in prompts]
+    marks = _drive(eng)
+    launches = _check_engine_launches(tag, eng, "bf16")
+    _all_finite(tag, finite)
+    streams = [r.generated for r in reqs]
+    if streams != fcfs_streams:
+        raise AssertionError(f"{tag}: streams differ from the FCFS serve's")
+    st = eng.stats()
+    if budget is not None and st["max_step_tokens"] > budget:
+        raise AssertionError(f"{tag}: a step spent {st['max_step_tokens']} "
+                             f"tokens > budget {budget}")
+    wall = marks[-1]
+    return dict(
+        scheduler=scheduler, step_token_budget=budget,
+        max_step_tokens=st["max_step_tokens"], steps=eng.steps,
+        prefill_calls=eng.prefill_calls, decode_calls=eng.decode_calls,
+        launches=launches, wall_s=wall,
+        tok_per_s=SERVE_GEN * len(prompts) / wall,
+        ttft_ms=[1e3 * marks[r.first_token_step] for r in reqs],
+        equal_to_fcfs_streams=True,
+    )
+
+
 def main() -> int:
     import torch
 
@@ -1552,6 +1947,7 @@ def main() -> int:
                *check_attention(dev), *check_contiguous_decode(dev)]
     kernels += [check(dev, dtype) for dtype in QUANT_DTYPES
                 for check in (check_decode_quant, check_prefill_quant)]
+    print("prefill_chunk_starts: " + json.dumps(check_prefill_starts(dev)))
     for k in kernels:
         extra = (f"; max abs diff vs the plain version on the CPU "
                  f"{k['max_abs_err_cpu_plain']:.3e}"
@@ -1605,6 +2001,20 @@ def main() -> int:
         r["tokens_equal_to_pasa_serve"] = f"{same}/{total}"
     print("serve_flash: " + json.dumps(rep_fp))
     print("serve_dense_flash: " + json.dumps(rep_fd))
+    # the engine's token-by-token mode, prefix cache, preemption and
+    # policies, each driven with the launch counts set to 0 just before it
+    t_new = time.perf_counter()
+    print("serve_tbt: " + json.dumps(serve_tbt(dev, bundle, params)))
+    for dtype in ("bf16", *QUANT_DTYPES):
+        print(f"serve_prefix_{dtype}: "
+              + json.dumps(serve_prefix(dev, bundle, params, dtype)))
+    for dtype in ("bf16", "int8"):
+        print(f"serve_preempt_{dtype}: "
+              + json.dumps(serve_preempt(dev, bundle, params, dtype)))
+    for scheduler, budget in POLICY_SERVES:
+        print(f"serve_{scheduler}: " + json.dumps(serve_policy(
+            dev, bundle, params, scheduler, budget, rep["streams"])))
+    print(f"engine features: {time.perf_counter() - t_new:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each mode of shift-KV has the dense serve's count of that mode (0 for

@@ -9,7 +9,12 @@ reference does), then serves them on one of two routes:
     kv_dim)`` cache; the whole prompt in ONE fused prefill call
     (``bundle.prefill``), then ``gen - 1`` greedy decode steps
     (``launch.steps.make_serve_step``);
-  * paged (``--paged``): :class:`repro_torch.runtime.ServeEngine`.
+  * paged (``--paged``): :class:`repro_torch.runtime.ServeEngine` -
+    chunked prefill (default) or token by token (``--no-chunked-prefill``),
+    with the radix prefix cache (``--prefix-cache``), preemption
+    (``--preemption``, ``--preempt-patience``), a scheduling policy
+    (``--scheduler fcfs|sjf|mixed``) and a per-step token budget
+    (``--step-token-budget``).
 
 Runs on the GPU by default (``--device cpu`` for the plain PyTorch path).
 
@@ -23,6 +28,10 @@ Examples (one H100, full-width qwen2-7b, random weights):
 CPU smoke at the reduced config:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
       --reduced --batch 4 --prompt-len 16 --gen 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
+      --reduced --paged --page-size 8 --batch 2 --prompt-len 40 --gen 8 \
+      --num-pages 9 --prefix-cache --preemption --preempt-patience 1 \
+      --device cpu
 """
 
 from __future__ import annotations
@@ -54,12 +63,46 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--num-pages", type=int, default=None,
                     help="physical pages in the pool (default: sized to "
                          "fit the requested batch exactly)")
+    ap.add_argument("--chunked-prefill", dest="chunked_prefill",
+                    action="store_true", default=True,
+                    help="paged route: prefill prompts in chunks through "
+                         "the paged prefill call (default)")
+    ap.add_argument("--no-chunked-prefill", dest="chunked_prefill",
+                    action="store_false",
+                    help="paged route: consume prompts token by token "
+                         "through the decode call")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="per-row chunk width of the batched prefill call; "
                          "a multiple of the page size (default: 8 pages)")
+    ap.add_argument("--scheduler", default="fcfs",
+                    choices=("fcfs", "sjf", "mixed"),
+                    help="paged route: scheduling policy - fcfs (arrival "
+                         "order, head-of-line blocking; default), sjf "
+                         "(shortest-job-first, aging guard), mixed "
+                         "(fair-share token-budget mixing); outputs are "
+                         "identical across policies")
     ap.add_argument("--prefill-batch", type=int, default=None,
                     help="still-prefilling requests per prefill call "
                          "(default: --batch)")
+    ap.add_argument("--step-token-budget", type=int, default=None,
+                    help="paged route: per-step token budget split between "
+                         "decode rows (1 each) and prefill chunk tokens "
+                         "(default: unlimited)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="paged route: let a page-starved admission page a "
+                         "running request out to the prefix cache (its "
+                         "resumed stream equals an uninterrupted serve)")
+    ap.add_argument("--preempt-patience", type=int, default=4,
+                    help="consecutive page-starved steps before a "
+                         "preemption may trigger")
+    ap.add_argument("--prefix-cache", dest="prefix_cache",
+                    action="store_true", default=False,
+                    help="paged route: share identical prompt-prefix KV "
+                         "pages across requests (radix cache; needs "
+                         "chunked prefill)")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false",
+                    help="no prompt-prefix page sharing (default)")
     ap.add_argument("--kv-dtype", default="bf16",
                     choices=("bf16", "fp8_e4m3", "int8"),
                     help="paged route: KV page pool storage dtype; "
@@ -157,8 +200,12 @@ def _serve_paged(args, bundle, params, prompts, dev):
     eng = ServeEngine(
         bundle, params, max_batch=args.batch, num_pages=num_pages,
         page_size=page_size, max_seq_len=total,
-        prefill_chunk=args.prefill_chunk, prefill_batch=args.prefill_batch,
-        cache_dtype=args.kv_dtype,
+        chunked_prefill=args.chunked_prefill,
+        prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
+        cache_dtype=args.kv_dtype, scheduler=args.scheduler,
+        prefill_batch=args.prefill_batch,
+        step_token_budget=args.step_token_budget,
+        preemption=args.preemption, preempt_patience=args.preempt_patience,
     )
     reqs = [eng.submit(list(p), args.gen) for p in prompts]
     t0 = time.perf_counter()
@@ -166,13 +213,23 @@ def _serve_paged(args, bundle, params, prompts, dev):
     dt = time.perf_counter() - t0
     st = eng.stats()
     out = np.asarray([r.generated for r in reqs], np.int32)
+    # from submission, so queueing counts; a resumed request keeps the
+    # step of its first emission
     ttft = [r.first_token_step - r.submit_step + 1 for r in reqs]
-    print(f"[paged/{st['scheduler']}] {dev} generated {out.shape} tokens in "
-          f"{dt:.3f}s ({1000 * dt / max(st['steps'], 1):.1f} ms/step, "
+    mode = "chunked" if args.chunked_prefill else "token-by-token"
+    print(f"[paged/{mode}/sync/{st['scheduler']}] {dev} generated "
+          f"{out.shape} tokens in {dt:.3f}s "
+          f"({1000 * dt / max(st['steps'], 1):.1f} ms/step, "
           f"{out.size / max(dt, 1e-9):.1f} tok/s wall-clock incl. first-call "
           f"set-up), {st['prefill_calls']} prefill + {st['decode_calls']} "
           f"decode calls, pool {st['cache_bytes'] / 1e6:.2f} MB "
-          f"{st['pool_dtype']}, TTFT {np.mean(ttft):.1f} engine steps")
+          f"{st['pool_dtype']}, TTFT {np.mean(ttft):.1f} engine steps, "
+          f"{st['preemptions']} preemptions")
+    if st["prefix_cache"] is not None:
+        pc = st["prefix_cache"]
+        print(f"[prefix-cache] {pc['cached_pages']} pages cached, "
+              f"{pc['hits']} page hits / {pc['misses']} misses, "
+              f"{pc['evictions']} evictions, {pc['donations']} donations")
     print("sample:", out[0][:16])
     return out
 

@@ -1,9 +1,14 @@
-"""Serving runtime of the port: paged KV cache, scheduler, engine."""
+"""Serving runtime of the port: paged KV cache, radix prefix cache,
+scheduler, engine."""
 
 from repro_torch.runtime.engine import (
+    FINISHED,
+    RUNNING,
+    WAITING,
     Request,
     ServeEngine,
     chunked_cold_reference,
+    dense_greedy_reference,
 )
 from repro_torch.runtime.paged_cache import (
     NULL_PAGE,
@@ -20,18 +25,23 @@ from repro_torch.runtime.paged_cache import (
     quantize_kv_page,
     resolve_pool_dtype,
 )
+from repro_torch.runtime.prefix_cache import RadixPrefixCache
 from repro_torch.runtime.scheduler import (
+    POLICIES,
     FCFSPolicy,
+    MixedPolicy,
     RequestView,
     SchedulerPolicy,
+    SJFPolicy,
     get_scheduler,
 )
 
 __all__ = [
-    "FCFSPolicy", "NULL_PAGE", "POOL_DTYPES", "PageAllocator", "QMAX",
-    "Request", "RequestView", "SchedulerPolicy", "ServeEngine",
-    "chunked_cold_reference", "dequantize_kv_page", "gather_pages",
-    "gather_pages_dequant", "get_scheduler", "init_paged_pool",
-    "is_quantized_dtype", "paged_bytes", "pool_dtype_name",
-    "quantize_kv_page", "resolve_pool_dtype",
+    "FCFSPolicy", "FINISHED", "MixedPolicy", "NULL_PAGE", "POLICIES",
+    "POOL_DTYPES", "PageAllocator", "QMAX", "RUNNING", "RadixPrefixCache",
+    "Request", "RequestView", "SJFPolicy", "SchedulerPolicy", "ServeEngine",
+    "WAITING", "chunked_cold_reference", "dense_greedy_reference",
+    "dequantize_kv_page", "gather_pages", "gather_pages_dequant",
+    "get_scheduler", "init_paged_pool", "is_quantized_dtype", "paged_bytes",
+    "pool_dtype_name", "quantize_kv_page", "resolve_pool_dtype",
 ]

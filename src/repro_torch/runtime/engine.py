@@ -3,33 +3,68 @@
 Counterpart of ``repro.runtime.engine.ServeEngine`` in its synchronous
 mode (``pipeline_depth=0``) with greedy decoding.  The engine owns the
 host-side mechanism - request queue, batch slots, page accounting,
-per-request cursors - around at most two device calls per step: one
-BATCHED chunked-prefill call (``bundle.paged_prefill_step``) and one
-batched decode call (``bundle.paged_serve_step``), both at static shapes
-``(prefill_batch, prefill_chunk)`` and ``(max_batch,)``.  Scheduling
-decisions come from a :class:`~repro_torch.runtime.scheduler
-.SchedulerPolicy` (FCFS with head-of-line blocking).
+prefix-cache references, per-request cursors, preemption - around at most
+two device calls per step: one BATCHED chunked-prefill call
+(``bundle.paged_prefill_step``) and one batched decode call
+(``bundle.paged_serve_step``), both at static shapes ``(prefill_batch,
+prefill_chunk)`` and ``(max_batch,)``.  Every scheduling decision comes
+from a :class:`~repro_torch.runtime.scheduler.SchedulerPolicy`
+(``scheduler=`` "fcfs" | "sjf" | "mixed").
+
+Request lifecycle::
+
+    submit() -> WAITING --admission--> RUNNING(prefill) -> RUNNING(decode)
+                 ^  |          (slot + pages granted,            |
+                 |  |           shared prefix pages referenced)  v
+                 |  +<---- insufficient slot/pages     FINISHED (owned pages
+                 |                                     freed or donated to the
+                 +--- preempt-to-page-out              prefix cache, slot
+                      (pages donated/freed,            reusable next step)
+                       request re-queued)
 
   * **Admission** at the top of every :meth:`step`, in policy order: a
-    free slot plus the request's worst-case page count, granted
-    all-or-nothing (conservative).
-  * **Chunked prefill**: each step runs prompt chunks of up to
-    ``prefill_batch`` still-prefilling requests through one call; each row
-    carries its own start, valid length and page-table row; ragged tails
-    and missing rows are padded and write to the null page.  A row whose
-    chunk ends its prompt yields the request's first token, fed to the
-    same step's decode on the device.
+    free slot plus the request's worst-case page count, all-or-nothing.
+    With the prefix cache (``prefix_cache=True``) the longest cached
+    page-prefix of the prompt, capped at ``len(prompt) - 1`` tokens, is
+    referenced instead of recomputed, only the non-shared pages are
+    charged, and refcount-0 cache pages are evicted when that covers the
+    shortfall.  FCFS and mixed block at the head of the line; SJF skips.
+  * **Chunked prefill** (default): each step runs prompt chunks of up to
+    ``prefill_batch`` still-prefilling requests through one call, starting
+    after any cached prefix; each row carries its own start, valid length
+    and page-table row; ragged tails and missing rows are padded and write
+    to the null page.  The policy splits ``step_token_budget`` (decode rows
+    charge one token each) across the rows.  A row whose chunk ends its
+    prompt yields the request's first token.
+  * **Token-by-token mode** (``chunked_prefill=False``): prompts are
+    consumed one token per step through the decode call, the prompt's
+    tokens teacher-forced; its oracle is :func:`dense_greedy_reference`.
   * **Decode**: every request past its prompt decodes one token; slots
     not decoding this step get a null page-table row, so their writes land
     in the null page.
-  * **Finish** is decided by count (no EOS): the request's pages are
-    freed (recycled without scrubbing) and its slot is reusable next step.
+  * **Preemption** (``preemption=True``): when the head admission
+    candidate has been page-starved for ``preempt_patience`` steps, the
+    policy picks a running victim; its full prompt pages are donated to the
+    prefix cache (their bytes are a function of the token prefix), the
+    rest freed, and it re-queues at the back with its generated tokens
+    recorded.  Resume is a prefix hit, a re-prefill of the private prompt
+    tail, and a decode replay of the recorded tokens: the resumed stream
+    equals the uninterrupted one bit for bit.
+  * **Finish** is decided by count (no EOS): the slot is reusable next
+    step; full prompt pages are donated to the prefix cache when it is on,
+    the rest recycled without scrubbing.  ``trim_high`` / ``trim_low``
+    watermarks evict refcount-0 cache pages at the top of a step.
 
-The device keeps the next-token feed between the two calls of a step; the
-host reads the step's sampled tokens back once, at the end of the step -
-the synchronous mode's contract.  The prefix cache, preemption, sampling,
-speculation, async pipelining, telemetry and mesh branches of the
-reference are not ported yet.
+The decode feed is split: slots whose next input the host knows (a prompt
+start or a teacher-forced prompt token in token-by-token mode, a replayed
+token after a resume) read ``_next_token`` where ``_next_known`` is set;
+the others read ``_next_dev``, the previous call's sampled token, which
+stays on the device.  One ``torch.where`` composes them
+(:meth:`_compose_feed`), so the feed needs no readback.  The host reads
+each step's sampled tokens back once, at the end of the step - the
+synchronous mode's contract; preemption records a victim's tokens from
+that readback.  Sampling, speculation, async pipelining, telemetry, the
+tenant policy and the mesh branches of the reference are not ported yet.
 """
 
 from __future__ import annotations
@@ -49,6 +84,7 @@ from repro_torch.runtime.paged_cache import (
     pool_dtype_name,
     resolve_pool_dtype,
 )
+from repro_torch.runtime.prefix_cache import RadixPrefixCache
 from repro_torch.runtime.scheduler import RequestView, get_scheduler
 
 WAITING = "waiting"
@@ -56,14 +92,45 @@ RUNNING = "running"
 FINISHED = "finished"
 
 
+def dense_greedy_reference(bundle, params, prompt, max_new_tokens: int):
+    """Token-by-token greedy decode of one request on a fresh DENSE (B=1)
+    cache; returns its tokens.
+
+    The oracle of the token-by-token engine mode (``chunked_prefill=
+    False``): it runs only ``bundle.serve_step`` on the dense cache, none
+    of the paged machinery, and must give the same greedy tokens as the
+    request served through :class:`ServeEngine` in that mode.  Chunked
+    prefill rounds interior rows differently; its oracle is
+    :func:`chunked_cold_reference`.  The prompt's tokens are fed from the
+    device and the tokens read back once, at the end."""
+    dev = params["embed"].device
+    total = len(prompt) + max_new_tokens
+    cache = bundle.init_cache(1, total, device=dev)
+    feed = torch.tensor(prompt, dtype=torch.int32, device=dev)
+    tok = feed[:1]
+    out = []
+    for i in range(total - 1):
+        pos = torch.full((1,), i, dtype=torch.int32, device=dev)
+        logits, cache = bundle.serve_step(params, tok, pos, cache)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if i + 1 < len(prompt):
+            tok = feed[i + 1:i + 2]
+        else:
+            tok = nxt
+            out.append(nxt)
+    return torch.cat(out).cpu().tolist()
+
+
 def chunked_cold_reference(bundle, params, prompt, max_new_tokens: int, *,
                            page_size: int = 16,
                            prefill_chunk: Optional[int] = None,
                            cache_dtype=torch.bfloat16, **engine_kwargs):
-    """Serve one request alone on a fresh engine; returns its tokens.
+    """Serve one request alone on a fresh engine with an empty prefix
+    cache; returns its tokens.
 
-    The oracle of batched serving: a request's stream in any batch, under
-    any chunk schedule, must equal this token for token."""
+    The oracle of batched, prefix-hit and preempted serving: a request's
+    stream in any batch, under any chunk schedule, policy or preemption,
+    must equal this token for token."""
     total = len(prompt) + max_new_tokens
     eng = ServeEngine(
         bundle, params, max_batch=1,
@@ -93,9 +160,16 @@ class Request:
     finish_step: int = -1
     # placement while RUNNING
     slot: int = -1
-    pages: List[int] = dataclasses.field(default_factory=list)
+    pages: List[int] = dataclasses.field(default_factory=list)  # owned only
     cursor: int = 0        # next cache position written by decode
     prefill_pos: int = 0   # next prompt position whose K/V is not written
+    cached_len: int = 0    # prompt tokens served from the prefix cache
+    prefix_nodes: list = dataclasses.field(default_factory=list)
+    # preemption bookkeeping
+    replay: List[int] = dataclasses.field(default_factory=list)
+    blocked_steps: int = 0   # consecutive page-starved admission attempts
+    preempt_count: int = 0
+    preempt_step: int = -1
 
     @property
     def total_len(self) -> int:
@@ -118,13 +192,23 @@ class ServeEngine:
     physical pages including the null page 0; ``page_size`` tokens per
     page (default: the model's PASA block length, one page = one shift
     block); ``max_seq_len`` longest prompt + generation (sets the page-table
-    width; default: the pool's capacity); ``prefill_chunk`` per-row chunk
-    width, a multiple of ``page_size`` (default ``8 * page_size``);
+    width; default: the pool's capacity); ``chunked_prefill`` prefill in
+    chunks (default) or token by token through the decode call;
+    ``prefill_chunk`` per-row chunk width, a multiple of ``page_size``
+    (default ``8 * page_size``); ``prefix_cache`` share full prompt pages
+    through a :class:`RadixPrefixCache` (needs ``chunked_prefill``);
     ``cache_dtype`` pool dtype, a torch dtype or one of ``"bf16"``,
     ``"fp8_e4m3"``, ``"int8"`` (the last two store quantized pages with
     sidecars; chunk starts stay page-aligned, as their page-granular
     writes require); ``scheduler`` a policy name or instance;
-    ``prefill_batch`` rows of the prefill call (default ``max_batch``).
+    ``prefill_batch`` rows of the prefill call (default ``max_batch``);
+    ``step_token_budget`` tokens per step the policy splits between decode
+    rows (one each) and prefill chunks (None = unlimited; at least
+    ``page_size``); ``preemption`` / ``preempt_patience`` page out a
+    running request when the head admission candidate has been
+    page-starved that many steps; ``trim_high`` / ``trim_low`` prefix-cache
+    trimming watermarks as fractions of the allocatable pool (both or
+    neither; need ``prefix_cache``).
 
     The engine runs on the device its parameters live on.
     """
@@ -132,9 +216,15 @@ class ServeEngine:
     def __init__(self, bundle, params, *, max_batch: int = 4,
                  num_pages: int = 64, page_size: Optional[int] = None,
                  max_seq_len: Optional[int] = None,
+                 chunked_prefill: bool = True,
                  prefill_chunk: Optional[int] = None,
+                 prefix_cache: bool = False,
                  cache_dtype=torch.bfloat16, scheduler="fcfs",
-                 prefill_batch: Optional[int] = None):
+                 prefill_batch: Optional[int] = None,
+                 step_token_budget: Optional[int] = None,
+                 preemption: bool = False, preempt_patience: int = 4,
+                 trim_high: Optional[float] = None,
+                 trim_low: Optional[float] = None):
         self.bundle = bundle
         self.params = params
         self.device = params["embed"].device
@@ -157,6 +247,7 @@ class ServeEngine:
                 math.ceil(max_seq_len / self.page_size), self.num_pages - 1
             )
             self.max_seq_len = int(max_seq_len)
+        self.chunked_prefill = bool(chunked_prefill)
         if prefill_chunk is None:
             prefill_chunk = 8 * self.page_size
         if prefill_chunk < 1 or prefill_chunk % self.page_size:
@@ -166,12 +257,46 @@ class ServeEngine:
                 "chunk boundaries are what make chunked prefill bit-exact"
             )
         self.prefill_chunk = int(prefill_chunk)
+        if prefix_cache and not self.chunked_prefill:
+            raise ValueError(
+                "prefix_cache requires chunked_prefill: cached page contents "
+                "are defined by the chunk-exact convention, which the "
+                "token-by-token decode path does not produce"
+            )
         self._policy = get_scheduler(scheduler)
         if prefill_batch is None:
             prefill_batch = self.max_batch
         if prefill_batch < 1:
             raise ValueError(f"prefill_batch must be >= 1, got {prefill_batch}")
         self.prefill_batch = min(int(prefill_batch), self.max_batch)
+        if step_token_budget is not None and step_token_budget < self.page_size:
+            raise ValueError(
+                f"step_token_budget ({step_token_budget}) below page_size "
+                f"({self.page_size}) could never grant a page-aligned chunk"
+            )
+        self.step_token_budget = (
+            None if step_token_budget is None else int(step_token_budget)
+        )
+        self.preemption = bool(preemption)
+        if preempt_patience < 1:
+            raise ValueError(
+                f"preempt_patience must be >= 1, got {preempt_patience}"
+            )
+        self.preempt_patience = int(preempt_patience)
+        if (trim_high is None) != (trim_low is None):
+            raise ValueError("trim_high and trim_low must be set together")
+        self._trim_high_pages = self._trim_low_pages = None
+        if trim_high is not None:
+            if not prefix_cache:
+                raise ValueError("cache trimming requires prefix_cache=True")
+            if not 0.0 <= trim_low <= trim_high <= 1.0:
+                raise ValueError(
+                    f"need 0 <= trim_low <= trim_high <= 1, got "
+                    f"{trim_low}/{trim_high}"
+                )
+            allocatable = self.num_pages - 1
+            self._trim_high_pages = int(trim_high * allocatable)
+            self._trim_low_pages = int(trim_low * allocatable)
 
         self.cache_dtype = resolve_pool_dtype(cache_dtype)
         self.pool = bundle.init_paged_cache(
@@ -179,6 +304,10 @@ class ServeEngine:
             device=self.device,
         )
         self.allocator = PageAllocator(self.num_pages)
+        self.prefix_cache = (
+            RadixPrefixCache(self.allocator, self.page_size)
+            if prefix_cache else None
+        )
         self.page_table = np.full(
             (self.max_batch, self.max_pages_per_seq), NULL_PAGE, np.int32
         )
@@ -188,10 +317,18 @@ class ServeEngine:
         self.steps = 0
         self.prefill_calls = 0
         self.decode_calls = 0
+        self.preemptions = 0
+        self.trimmed_pages = 0
+        # per-step token spend (decode rows + real prefill tokens): the
+        # observable the step_token_budget contract is held to
+        self.last_step_tokens = 0
+        self.max_step_tokens = 0
         self._req_counter = 0
-        # decode feed: the host knows no token values between steps except
-        # through the readback; the previous step's sampled tokens stay on
-        # the device (``_next_dev``) and feed the next decode call.
+        # the decode feed (module doc): host-known tokens where
+        # _next_known is set, else the previous call's sampled token kept
+        # on the device
+        self._next_token = np.zeros((self.max_batch,), np.int32)
+        self._next_known = np.ones((self.max_batch,), bool)
         self._next_dev = torch.zeros(
             (self.max_batch,), dtype=torch.int32, device=self.device
         )
@@ -227,10 +364,12 @@ class ServeEngine:
         return r
 
     def _view(self, r: Request) -> RequestView:
-        rem_prefill = (
-            max(len(r.prompt) - r.prefill_pos, 0) if r.state == RUNNING
-            else len(r.prompt)
-        )
+        if r.state == RUNNING and self.chunked_prefill:
+            rem_prefill = max(len(r.prompt) - r.prefill_pos, 0)
+        elif r.state == RUNNING:
+            rem_prefill = max(len(r.prompt) - 1 - r.cursor, 0)
+        else:
+            rem_prefill = len(r.prompt)
         return RequestView(
             req_id=r.req_id,
             prompt_len=len(r.prompt),
@@ -240,35 +379,77 @@ class ServeEngine:
             admit_step=r.admit_step if r.state == RUNNING else -1,
             slot=r.slot,
             pages_needed=r.pages_needed(self.page_size),
+            preempt_count=r.preempt_count,
+            preempt_step=r.preempt_step,
         )
 
     # --------------------------------------------------------- admission --
 
     def _admit_one(self, r: Request) -> str:
-        """Place one waiting request: "admitted", "no_slot" or "no_pages"."""
+        """Place one waiting request: "admitted", "no_slot" or "no_pages".
+        With the prefix cache, matched prefix pages are referenced and only
+        the non-shared pages are charged."""
         slot = next(
             (i for i, s in enumerate(self._slots) if s is None), None
         )
         if slot is None:
             return "no_slot"
-        pages = self.allocator.alloc(r.pages_needed(self.page_size))
+        nodes = []
+        if self.prefix_cache is not None:
+            # cap at len(prompt) - 1: the last prompt position is always
+            # computed (its logits are the first token) and the partial
+            # page stays private
+            nodes = self.prefix_cache.match(
+                r.prompt, max_tokens=len(r.prompt) - 1
+            )
+        need_new = r.pages_needed(self.page_size) - len(nodes)
+        if self.prefix_cache is not None:
+            short = need_new - self.allocator.free_pages
+            # evict only when that covers the shortfall: otherwise
+            # admission fails anyway and the cache would lose resident
+            # prefixes for nothing
+            if 0 < short <= self.prefix_cache.evictable_pages:
+                self.prefix_cache.evict(short)
+        pages = self.allocator.alloc(need_new)
         if pages is None:
+            if nodes:
+                self.prefix_cache.release(nodes)
             return "no_pages"
         self.waiting.remove(r)
+        if self.prefix_cache is not None:
+            self.prefix_cache.record_match(
+                r.prompt, nodes, max_tokens=len(r.prompt) - 1
+            )
         r.state = RUNNING
         r.slot = slot
         r.pages = pages
+        r.prefix_nodes = nodes
+        r.cached_len = len(nodes) * self.page_size
         r.admit_step = self.steps
-        r.prefill_pos = 0
-        r.cursor = len(r.prompt)   # decode starts after the prompt
+        r.blocked_steps = 0
         self._slots[slot] = r
         row = self.page_table[slot]
         row[:] = NULL_PAGE
-        row[: len(pages)] = pages
+        shared = [n.page for n in nodes]
+        row[: len(shared)] = shared
+        row[len(shared): len(shared) + len(pages)] = pages
+        if self.chunked_prefill:
+            r.prefill_pos = r.cached_len
+            r.cursor = len(r.prompt)     # decode starts after the prompt
+        else:
+            r.prefill_pos = len(r.prompt)  # unused in this mode
+            r.cursor = 0
+            self._next_token[slot] = r.prompt[0]
+            self._next_known[slot] = True
         return "admitted"
 
-    def _try_admit(self) -> None:
-        """Admit everything the policy can place this step."""
+    def _admit_pass(self) -> Optional[Request]:
+        """Admit everything the policy can place this step; returns the
+        first page-blocked candidate (the preemption trigger) or None.
+        Free pages never grow within a pass, so a candidate that failed on
+        pages is not tried again in it."""
+        blocked: Optional[Request] = None
+        page_failed: set = set()
         while self.waiting:
             order = self._policy.plan_admission(
                 [self._view(r) for r in self.waiting],
@@ -278,24 +459,128 @@ class ServeEngine:
             by_id = {r.req_id: r for r in self.waiting}
             admitted = False
             for v in order:
-                status = self._admit_one(by_id[v.req_id])
+                if v.req_id in page_failed:
+                    continue
+                r = by_id[v.req_id]
+                status = self._admit_one(r)
                 if status == "admitted":
                     admitted = True
                     break
-                if status == "no_slot" or self._policy.hol_blocking:
-                    return
+                if status == "no_slot":
+                    return blocked
+                page_failed.add(r.req_id)
+                if blocked is None:
+                    blocked = r
+                if self._policy.hol_blocking:
+                    return blocked
             if not admitted:
-                return
+                return blocked
+        return blocked
 
-    def _finish(self, r: Request) -> None:
-        self.allocator.free(r.pages)
-        self.page_table[r.slot, :] = NULL_PAGE
+    def _try_admit(self) -> None:
+        """Admission, then preemption when the blocked head has run out of
+        patience."""
+        blocked = self._admit_pass()
+        if blocked is None:
+            return
+        blocked.blocked_steps += 1
+        if (not self.preemption
+                or blocked.blocked_steps < self.preempt_patience):
+            return
+        if blocked.preempt_count > 0:
+            # anti-thrash: a request that was paged out itself never
+            # triggers another preemption; it waits for running work
+            return
+        victim_view = self._policy.choose_victim(
+            [self._view(r) for r in self._slots if r is not None],
+            now=self.steps,
+        )
+        if victim_view is None:
+            return
+        victim = next(
+            (s for s in self._slots
+             if s is not None and s.req_id == victim_view.req_id), None
+        )
+        if victim is None:
+            return
+        # preempt only when paging the victim out can unblock the
+        # candidate: its owned pages are freed or become refcount-0 cache
+        # pages, both reclaimable by admission
+        avail = self.allocator.free_pages + len(victim.pages)
+        if self.prefix_cache is not None:
+            avail += self.prefix_cache.evictable_pages
+        if avail < blocked.pages_needed(self.page_size):
+            return
+        self._preempt(victim)
+        blocked.blocked_steps = 0
+        self._admit_pass()
+
+    # -------------------------------------------------- page-out / finish --
+
+    def _release_slot(self, r: Request) -> None:
+        """Free the request's slot and pages.  With the prefix cache its
+        prefill-written FULL prompt pages are donated (their contents are a
+        function of the token prefix; decode-written pages never qualify
+        and are freed)."""
+        row = self.page_table[r.slot]
+        if self.prefix_cache is not None:
+            n_share = min(r.prefill_pos, len(r.prompt)) // self.page_size
+            adopted = set(self.prefix_cache.insert(
+                r.prompt[: n_share * self.page_size], list(row[:n_share])
+            ))
+            if r.prefix_nodes:
+                self.prefix_cache.release(r.prefix_nodes)
+            self.allocator.free([p for p in r.pages if p not in adopted])
+        else:
+            self.allocator.free(r.pages)
+        row[:] = NULL_PAGE
         self._slots[r.slot] = None
         r.pages = []
+        r.prefix_nodes = []
         r.slot = -1
+
+    def _preempt(self, r: Request) -> None:
+        """Page a running request out: donate / free its pages, record its
+        generated tokens for replay (already on the host: the engine reads
+        every step back before the next one plans), and re-queue it at the
+        BACK of the queue (a paged-out request yields its seniority)."""
+        self._release_slot(r)
+        # a request preempted again mid-replay keeps the recorded suffix it
+        # has not replayed yet (generated[i] == replay[i] while replaying)
+        r.replay = r.generated + r.replay[len(r.generated):]
+        r.generated = []
+        r.state = WAITING
+        r.preempt_count += 1
+        r.preempt_step = self.steps
+        r.prefill_pos = 0
+        r.cursor = 0
+        r.cached_len = 0
+        r.blocked_steps = 0
+        self.preemptions += 1
+        self.waiting.append(r)
+
+    def _finish(self, r: Request) -> None:
+        self._release_slot(r)
         r.state = FINISHED
         r.finish_step = self.steps
         self.finished[r.req_id] = r
+
+    def _account_step_tokens(self, n: int) -> None:
+        self.last_step_tokens = int(n)
+        self.max_step_tokens = max(self.max_step_tokens, int(n))
+
+    def _maybe_trim(self) -> None:
+        """Watermark trim: when live pages exceed the high watermark,
+        evict refcount-0 cache pages down toward the low one (an O(1)
+        probe every step)."""
+        if self._trim_high_pages is None:
+            return
+        if self.allocator.live_pages <= self._trim_high_pages:
+            return
+        excess = self.allocator.live_pages - self._trim_low_pages
+        n = min(excess, self.prefix_cache.evictable_pages)
+        if n > 0:
+            self.trimmed_pages += self.prefix_cache.evict(n)
 
     # -------------------------------------------------------------- step --
 
@@ -311,7 +596,9 @@ class ServeEngine:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     def _run_prefill(self, plan, emits: List[Tuple[torch.Tensor, List[_Emit]]]):
-        """One batched prefill call over the planned chunk rows."""
+        """One batched prefill call over the planned chunk rows.  Returns
+        ``(tokens_spent, completed)``: the real prompt tokens advanced and
+        the requests whose prompt ended in this call."""
         by_id = {
             r.req_id: r for r in self._slots
             if r is not None and r.prefill_pos < len(r.prompt)
@@ -323,7 +610,7 @@ class ServeEngine:
                 continue
             rows.append((r, min(grant, len(r.prompt) - r.prefill_pos)))
         if not rows:
-            return
+            return 0, []
         pb, cs = self.prefill_batch, self.prefill_chunk
         tokens = np.zeros((pb, cs), np.int32)
         start = np.zeros((pb,), np.int32)
@@ -345,17 +632,27 @@ class ServeEngine:
         self.prefill_calls += 1
         first = torch.argmax(logits, dim=-1).to(torch.int32)
         out: List[_Emit] = []
+        completed = []
         slots, srcs = [], []
         for i, (r, real) in enumerate(rows):
             r.prefill_pos += real
             if r.prefill_pos < len(r.prompt):
                 continue
             # this chunk held the last prompt token: its logits row is the
-            # first generated token, which the same step's decode consumes
+            # first generated token
             out.append((r, len(r.generated), i))
             r.generated.append(None)           # value filled at readback
-            slots.append(r.slot)
-            srcs.append(i)
+            completed.append(r)
+            if r.replay:
+                # a resumed request feeds its recorded token (bit-equal to
+                # the one just recomputed): a host-known value
+                self._next_token[r.slot] = r.replay[0]
+                self._next_known[r.slot] = True
+            else:
+                # the same step's decode consumes it on the device
+                self._next_known[r.slot] = False
+                slots.append(r.slot)
+                srcs.append(i)
             if len(r.generated) >= r.max_new_tokens:
                 self._finish(r)
         if slots:
@@ -363,6 +660,16 @@ class ServeEngine:
                 self._tensor(np.asarray(srcs, np.int64))
             ]
         emits.append((first, out))
+        return sum(real for _, real in rows), completed
+
+    def _compose_feed(self) -> torch.Tensor:
+        """This step's decode inputs: host-known tokens over the on-device
+        sampled ones, in one ``torch.where`` (exact; no readback)."""
+        host = self._tensor(self._next_token)
+        if self._next_known.all():
+            return host
+        return torch.where(self._tensor(self._next_known), host,
+                           self._next_dev)
 
     def _run_decode(self, dec: List[Request],
                     emits: List[Tuple[torch.Tensor, List[_Emit]]]) -> None:
@@ -375,7 +682,7 @@ class ServeEngine:
                 table[i, :] = NULL_PAGE   # writes of idle slots -> null page
         for r in dec:
             pos[r.slot] = r.cursor
-        feed = self._next_dev.clone()
+        feed = self._compose_feed()
         logits, self.pool = self.bundle.paged_serve_step(
             self.params, feed, self._tensor(pos), self.pool, self._tensor(table)
         )
@@ -383,19 +690,34 @@ class ServeEngine:
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         mask = np.zeros((self.max_batch,), bool)
         mask[list(dec_slots)] = True
+        # decoding slots keep their sampled token on the device for the
+        # next step's feed; the others keep their value
         self._next_dev = torch.where(self._tensor(mask), nxt, feed)
         out: List[_Emit] = []
         for r in dec:
+            p = r.cursor
             r.cursor += 1
-            out.append((r, len(r.generated), r.slot))
+            if not self.chunked_prefill and p + 1 < len(r.prompt):
+                self._next_token[r.slot] = r.prompt[p + 1]  # teacher forcing
+                self._next_known[r.slot] = True
+                continue
+            gen_idx = len(r.generated)
+            out.append((r, gen_idx, r.slot))
             r.generated.append(None)
+            if gen_idx < len(r.replay):
+                self._next_token[r.slot] = r.replay[gen_idx]
+                self._next_known[r.slot] = True
+            else:
+                self._next_known[r.slot] = False   # the value is on the device
             if len(r.generated) >= r.max_new_tokens:
                 self._finish(r)
         emits.append((nxt, out))
 
     def _read_back(self, step_no: int,
                    emits: List[Tuple[torch.Tensor, List[_Emit]]]) -> None:
-        """The step's one device readback: fill the generated tokens."""
+        """The step's one device readback: fill the generated tokens.  A
+        request keeps the first-token step of its first emission across a
+        preemption."""
         if not emits:
             return
         vals = torch.cat([t for t, _ in emits]).cpu().tolist()
@@ -408,29 +730,52 @@ class ServeEngine:
             base += t.shape[0]
 
     def step(self) -> int:
-        """One engine step: admission, the batched prefill call, one
-        batched decode call, then the readback.  Returns the number of
-        requests live this step; ``steps`` advances on every call."""
+        """One engine step: trim, admission (and preemption), the batched
+        prefill call, one batched decode call, then the readback.  Returns
+        the number of requests live this step; ``steps`` advances on every
+        call."""
+        self._maybe_trim()
         self._try_admit()
         live = [r for r in self._slots if r is not None]
         if not live:
+            self._account_step_tokens(0)
             self.steps += 1
             return 0
         emits: List[Tuple[torch.Tensor, List[_Emit]]] = []
-        prefilling = [r for r in live if r.prefill_pos < len(r.prompt)]
-        if prefilling:
-            plan = self._policy.plan_prefill(
-                [self._view(r) for r in prefilling],
-                n_decode=len(live) - len(prefilling), budget=None,
-                chunk=self.prefill_chunk, page_size=self.page_size,
-                max_rows=self.prefill_batch,
-            )
-            if plan:
-                self._run_prefill(plan, emits)
-        dec = [
-            r for r in self._slots
-            if r is not None and r.prefill_pos >= len(r.prompt)
-        ]
+        if self.chunked_prefill:
+            prefilling = [r for r in live if r.prefill_pos < len(r.prompt)]
+            prefill_spent, completed = 0, []
+            if prefilling:
+                plan = self._policy.plan_prefill(
+                    [self._view(r) for r in prefilling],
+                    n_decode=len(live) - len(prefilling),
+                    budget=self.step_token_budget,
+                    chunk=self.prefill_chunk, page_size=self.page_size,
+                    max_rows=self.prefill_batch,
+                )
+                if plan:
+                    prefill_spent, completed = self._run_prefill(plan, emits)
+            dec = [
+                r for r in self._slots
+                if r is not None and r.prefill_pos >= len(r.prompt)
+            ]
+            if self.step_token_budget is not None:
+                # a row whose prompt ended in this step's prefill call
+                # joined ``dec`` after the policy counted the decode rows:
+                # defer the first decode of just enough of them (latest
+                # grants first) to keep the step within budget
+                over = len(dec) + prefill_spent - self.step_token_budget
+                if over > 0:
+                    in_dec = {r.req_id for r in dec}
+                    deferrable = [
+                        r.req_id for r in completed if r.req_id in in_dec
+                    ]
+                    defer = set(deferrable[max(len(deferrable) - over, 0):])
+                    dec = [r for r in dec if r.req_id not in defer]
+            self._account_step_tokens(len(dec) + prefill_spent)
+        else:
+            dec = live
+            self._account_step_tokens(len(dec))
         if dec:
             self._run_decode(dec, emits)
         self._read_back(self.steps, emits)
@@ -438,7 +783,8 @@ class ServeEngine:
         return len(live)
 
     def run_to_completion(self, max_steps: int = 100_000) -> Dict[int, Request]:
-        """Drive :meth:`step` until queue and slots drain."""
+        """Drive :meth:`step` until queue and slots drain (``max_steps``
+        bounds this call)."""
         start = self.steps
         while not self.idle:
             if self.steps - start >= max_steps:
@@ -447,7 +793,8 @@ class ServeEngine:
         return self.finished
 
     def stats(self) -> dict:
-        """A subset of the reference's ``stats()`` schema, plus the device
+        """The reference's ``stats()`` keys of the ported features (the
+        prefix cache's sub-dict is None when it is off), plus the device
         call counts."""
         return {
             "steps": self.steps,
@@ -459,8 +806,18 @@ class ServeEngine:
             "cache_bytes": paged_bytes(self.pool),
             "page_size": self.page_size,
             "pool_dtype": pool_dtype_name(self.cache_dtype),
+            "chunked_prefill": self.chunked_prefill,
             "scheduler": self._policy.name,
             "prefill_batch": self.prefill_batch,
+            "step_token_budget": self.step_token_budget,
+            "preemptions": self.preemptions,
+            "trimmed_pages": self.trimmed_pages,
+            "last_step_tokens": self.last_step_tokens,
+            "max_step_tokens": self.max_step_tokens,
+            "prefix_cache": (
+                None if self.prefix_cache is None
+                else self.prefix_cache.stats()
+            ),
             "prefill_calls": self.prefill_calls,
             "decode_calls": self.decode_calls,
         }

@@ -1,14 +1,26 @@
 """Scheduling policies of the paged serving engine (counterpart of
-``repro.runtime.scheduler``; the FCFS policy of this slice).
+``repro.runtime.scheduler``; the tenant-quota policy is not ported yet).
 
-The engine owns the mechanism - slots, pages, the two device calls - and
-asks a :class:`SchedulerPolicy` for every decision: the order in which
-waiting requests are tried for admission (and whether a request that does
-not fit blocks those behind it), and which still-prefilling requests'
-chunks ride this step's batched prefill call with how many tokens each.
-Policies are pure host functions over immutable :class:`RequestView`
-snapshots.  Scheduling changes latency, never output bits: the chunk-exact
-prefill makes every request's output invariant to its chunk schedule.
+The engine owns the mechanism - slots, pages, the two device calls,
+preemption - and asks a :class:`SchedulerPolicy` for every decision: the
+order in which waiting requests are tried for admission (and whether a
+request that does not fit blocks those behind it), which still-prefilling
+requests' chunks ride this step's batched prefill call with how many
+tokens each under the per-step token budget, and which running request is
+paged out when an admission has been page-starved past the engine's
+patience.  Policies are pure host functions over immutable
+:class:`RequestView` snapshots.  Scheduling changes latency, never output
+bits: the chunk-exact prefill makes every request's output invariant to
+its chunk schedule, and a decode step reads only its own page-table row.
+
+  * :class:`FCFSPolicy` (``"fcfs"``, default): arrival order with
+    head-of-line blocking; chunks go to the oldest-admitted requests.
+  * :class:`SJFPolicy` (``"sjf"``): short prompts first, no head-of-line
+    blocking, an aging guard that promotes a request waiting ``patience``
+    steps to strict FIFO; the preemption victim is the straggler.
+  * :class:`MixedPolicy` (``"mixed"``): FCFS admission; the step's
+    prefill budget is dealt round-robin in page-size quanta across every
+    prefilling request.
 """
 
 from __future__ import annotations
@@ -33,6 +45,16 @@ class RequestView:
     admit_step: int = -1
     slot: int = -1
     pages_needed: int = 0
+    preempt_count: int = 0
+    #: engine step of the most recent page-out (-1 = never preempted).
+    preempt_step: int = -1
+
+    @property
+    def wait_anchor(self) -> int:
+        """The step this request's current wait began: submission, or the
+        most recent page-out if later (a paged-out request re-queues at
+        the back and forfeits its seniority)."""
+        return max(self.submit_step, self.preempt_step)
 
 
 # (req_id, token allowance this step).  Allowances are page multiples
@@ -56,18 +78,39 @@ class SchedulerPolicy:
     #: request behind it this step.
     hol_blocking = True
 
+    def admission_order(self, waiting: Sequence[RequestView],
+                        now: int = 0) -> List[RequestView]:
+        """Waiting requests in try order.  The default keeps queue order,
+        not submit order, so a preempted request re-queued at the back
+        stays at the back."""
+        del now
+        return list(waiting)
+
     def plan_admission(self, waiting: Sequence[RequestView],
                        running: Sequence[RequestView],
                        now: int = 0) -> List[RequestView]:
-        """Admission candidates for this step, in try order (default: queue
-        order)."""
-        del running, now
-        return list(waiting)
+        """Admission candidates for this step, in try order (default:
+        :meth:`admission_order`, the running set ignored)."""
+        del running
+        return self.admission_order(waiting, now=now)
 
     def prefill_order(self, prefilling: Sequence[RequestView]
                       ) -> List[RequestView]:
         """Still-prefilling requests in chunk-grant priority order."""
         return sorted(prefilling, key=lambda v: (v.admit_step, v.req_id))
+
+    def choose_victim(self, running: Sequence[RequestView],
+                      now: int = 0) -> Optional[RequestView]:
+        """Preemption victim among RUNNING requests admitted before
+        ``now`` (None = do not preempt).  Default: the youngest-admitted.
+        Requests never paged out are preferred, so a just-resumed request
+        is not the first pick again (victim-side anti-thrash); it stays
+        eligible when it is the only candidate."""
+        cands = [v for v in running if v.admit_step < now]
+        if not cands:
+            return None
+        fresh = [v for v in cands if v.preempt_count == 0]
+        return max(fresh or cands, key=lambda v: (v.admit_step, v.req_id))
 
     def plan_prefill(self, prefilling: Sequence[RequestView], *,
                      n_decode: int, budget: Optional[int], chunk: int,
@@ -99,7 +142,90 @@ class FCFSPolicy(SchedulerPolicy):
     hol_blocking = True
 
 
-POLICIES = {"fcfs": FCFSPolicy}
+class SJFPolicy(SchedulerPolicy):
+    """Shortest-job-first with an anti-starvation aging guard.
+
+    Admission prefers short prompts and skips candidates that do not fit;
+    a request whose wait (from :attr:`RequestView.wait_anchor`) reaches
+    ``patience`` steps goes ahead of every other in FIFO order, so a long
+    prompt is delayed, never starved.  Chunks go to the requests closest
+    to finishing their prompt."""
+
+    name = "sjf"
+    hol_blocking = False
+
+    def __init__(self, patience: int = 64):
+        if patience < 1:
+            raise ValueError(f"patience must be >= 1, got {patience}")
+        self.patience = int(patience)
+
+    def admission_order(self, waiting, now: int = 0):
+        starved = [v for v in waiting if now - v.wait_anchor >= self.patience]
+        fresh = [v for v in waiting if now - v.wait_anchor < self.patience]
+        starved.sort(key=lambda v: (v.wait_anchor, v.req_id))
+        fresh.sort(key=lambda v: (v.prompt_len, v.req_id))
+        return starved + fresh
+
+    def prefill_order(self, prefilling):
+        return sorted(
+            prefilling, key=lambda v: (v.remaining_prefill, v.req_id)
+        )
+
+    def choose_victim(self, running, now: int = 0):
+        """The straggler: most work remaining, never-preempted requests
+        first (the base policy's anti-thrash rule)."""
+        cands = [v for v in running if v.admit_step < now]
+        if not cands:
+            return None
+        fresh = [v for v in cands if v.preempt_count == 0]
+        return max(
+            fresh or cands,
+            key=lambda v: (v.remaining_prefill + v.remaining_decode, v.req_id),
+        )
+
+
+class MixedPolicy(SchedulerPolicy):
+    """Sarathi-style token-budget mixing: FCFS admission; the step's
+    prefill budget (the global budget minus one token per decode row) is
+    dealt round-robin in ``page_size`` quanta across the prefilling
+    requests, so concurrent long prompts advance together in one batched
+    prefill call."""
+
+    name = "mixed"
+    hol_blocking = True
+
+    def plan_prefill(self, prefilling, *, n_decode, budget, chunk,
+                     page_size, max_rows):
+        order = self.prefill_order(prefilling)[:max_rows]
+        if not order:
+            return []
+        left = None if budget is None else max(budget - n_decode, 0)
+        alloc = {v.req_id: 0 for v in order}
+        remaining = {v.req_id: v.remaining_prefill for v in order}
+        progress = True
+        while progress and (left is None or left > 0):
+            progress = False
+            for v in order:
+                rid = v.req_id
+                cap = min(remaining[rid], chunk - alloc[rid])
+                if cap <= 0:
+                    continue
+                quantum = min(page_size, cap)
+                # a sub-page grant is legal only as the prompt tail
+                if quantum < page_size and quantum < remaining[rid]:
+                    continue
+                if left is not None and quantum > left:
+                    continue
+                alloc[rid] += quantum
+                remaining[rid] -= quantum
+                if left is not None:
+                    left -= quantum
+                progress = True
+        return [(v.req_id, alloc[v.req_id]) for v in order
+                if alloc[v.req_id] > 0]
+
+
+POLICIES = {"fcfs": FCFSPolicy, "sjf": SJFPolicy, "mixed": MixedPolicy}
 
 
 def get_scheduler(policy) -> SchedulerPolicy:

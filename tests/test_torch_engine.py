@@ -169,3 +169,59 @@ def test_entry_points_need_cuda_or_explicit_cpu():
                       "--page-size", "16", "--prefill-chunk", "16",
                       "--device", "cpu"])
     assert out.shape == (2, 3) and ((out >= 0) & (out < tc.vocab_size)).all()
+
+
+CLI_BASE = ["--arch", "qwen2-7b", "--reduced", "--paged", "--page-size", "8",
+            "--batch", "2"]
+CLI_CASES = {
+    "token_by_token": ["--no-chunked-prefill", "--prompt-len", "12",
+                       "--gen", "4"],
+    # 2 requests of 40 + 8 tokens (6 pages each) in 8 allocatable pages:
+    # the second is page-starved, the first is paged out and resumes
+    "prefix_cache_preemption": ["--prompt-len", "40", "--gen", "8",
+                                "--num-pages", "9", "--prefix-cache",
+                                "--preemption", "--preempt-patience", "1"],
+    "preemption": ["--prompt-len", "40", "--gen", "8", "--num-pages", "9",
+                   "--preemption", "--preempt-patience", "1"],
+    "mixed_budget": ["--prompt-len", "40", "--gen", "4", "--scheduler",
+                     "mixed", "--step-token-budget", "16",
+                     "--no-prefix-cache"],
+}
+
+
+def _cli_report(out: str):
+    """The serve line's mode tag and preemption count, and the
+    prefix-cache line, as the CLI printed them."""
+    import re
+
+    (line,) = [x for x in out.splitlines() if x.startswith("[paged/")]
+    tag = line.split("]")[0] + "]"
+    pre = int(re.search(r"(\d+) preemptions", line).group(1))
+    cache = [x for x in out.splitlines() if x.startswith("[prefix-cache]")]
+    return tag, pre, cache
+
+
+@pytest.mark.parametrize("case", list(CLI_CASES))
+def test_serve_cli_modes_match_reference_cli(case, capsys):
+    """The paged CLI's token-by-token mode, prefix cache, preemption and
+    policies: the printed mode, preemption count and prefix-cache tallies
+    (hits, misses, evictions, donations) equal the reference CLI's on the
+    same arguments (they depend on counts only; the weights differ)."""
+    from repro.launch import serve as ref_serve
+    from repro_torch.launch import serve
+
+    argv = CLI_BASE + CLI_CASES[case]
+    out = serve.main(argv + ["--device", "cpu"])
+    mine = _cli_report(capsys.readouterr().out)
+    ref_out = ref_serve.main(argv)
+    want = _cli_report(capsys.readouterr().out)
+    assert out.shape == np.asarray(ref_out).shape == (2, int(argv[argv.index(
+        "--gen") + 1]))
+    assert mine == want
+    tag, pre, cache = mine
+    assert tag == ("[paged/token-by-token/sync/fcfs]"
+                   if case == "token_by_token" else
+                   "[paged/chunked/sync/mixed]" if case == "mixed_budget"
+                   else "[paged/chunked/sync/fcfs]")
+    assert pre == (1 if "preemption" in case else 0)
+    assert bool(cache) == (case == "prefix_cache_preemption")

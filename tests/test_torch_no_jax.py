@@ -30,6 +30,7 @@ def _forbidden(name: str) -> bool:
 def test_the_scan_sees_the_port():
     assert len(FILES) > 15
     assert any(p.name == "engine.py" for p in FILES)
+    assert any(p.name == "prefix_cache.py" for p in FILES)
 
 
 @pytest.mark.parametrize(
