@@ -79,13 +79,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      with a step token budget of 640) against the FCFS serve's streams.
      Before the serves, the paged prefill kernel is held bit for bit to
      itself across chunk starts at page boundaries that are not chunk
-     boundaries (``prefill_chunk_starts``), as a prefix hit starts.
+     boundaries (``prefill_chunk_starts``), as a prefix hit starts;
+  7. the hybrid family: zamba2-1.2b at full width (38 Mamba-2 layers, a
+     shared attention block applied 7 times, head_dim 64; random weights
+     from seed 0) serves four 200-token prompts, 32 greedy tokens each,
+     token by token through launch/serve.py's route on a 240-row cache
+     (``serve_hybrid``): the contiguous decode kernel at head_dim 64 7
+     times per step and no other kernel, batched == one-at-a-time
+     streams, the first generated step's logits against the plain
+     versions' on the card.  Before it, in phase 2, ``check_decode_hd64``
+     holds both decode kernels at head_dim 64 (KVH 32, G 1 and KVH 4, G 8;
+     all four policies; blocks 128 and 256; raw, int8 and fp8_e4m3 pools)
+     to their plain versions and float64, contiguous == paged == walk bit
+     for bit; in the kernels line each decode kernel has a ``/d64`` entry
+     with the hybrid serve's count (0 for paged decode).
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -147,6 +161,17 @@ TBT_PROMPTS, TBT_GEN = (257, 129), 16
 PREFIX_SHARED, PREFIX_SUFFIXES, PREFIX_GEN = 768, (232, 105, 40), 16
 PREEMPT_PROMPTS, PREEMPT_GEN, PREEMPT_PAGES = (1000, 900), 32, 12
 POLICY_SERVES = (("sjf", None), ("mixed", 640))
+# head_dim 64 (zamba2-1.2b's shared attention block): both decode kernels
+# at zamba2's shape (KVH 32, G 1) and at a GQA group (KVH 4, G 8); the
+# hybrid serve: four 200-token prompts, 32 greedy tokens each, token by
+# token on a 240-row cache (block 128: decode crosses a block boundary),
+# and its first generated step's logits held to the same step through the
+# kernels' plain versions on the card within 0.1 (the bar of the CPU
+# parity tests between two bf16 stacks, tests/test_torch_dense_route.py)
+HD64_SHAPES = ((32, 1), (4, 8))
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_MAX_LEN = 4, 200, 240
+HYBRID_ALONE = (0, 3)
+HYBRID_LOGIT_ATOL = 0.1
 
 
 def _kernel_module(name: str):
@@ -235,6 +260,11 @@ def _sdpa_at(inputs, **kw):
 
     at = _caster(*inputs)
     return lambda policy: F.scaled_dot_product_attention(*at(policy), **kw)
+
+
+def _is_hd64(entry) -> bool:
+    """An entry of a decode kernel's head_dim 64 mode."""
+    return entry["name"].endswith("/d64")
 
 
 def _is_new_mode(entry) -> bool:
@@ -1260,6 +1290,189 @@ def _serve_shape_contiguous_decode(dev):
     return dict(serve_shape_ms=ms, serve_shape_library_ms=lib_ms)
 
 
+def check_decode_hd64(dev):
+    """Both decode kernels at head_dim 64, at zamba2's shape (KVH 32, G 1)
+    and a GQA group (KVH 4, G 8): the decode fixture's lengths (kv_len
+    DECODE_KV_LENS, NaN past kv_len, keys of mean 30, queries of mean 0)
+    in a shuffled bf16 page pool, and the same rows as a (B, S2, KVH, D)
+    cache read through strides.  Under the four policies at beta 0 and
+    BETA: paged decode and contiguous decode (blocks 128 and 256) against
+    their plain versions (DECODE_TOL) and float64 (RMSE_MAX); contiguous
+    == paged == the walk at block 128, contiguous == the walk at 256, bit
+    for bit.  The paged kernel from int8 and fp8_e4m3 pools under the four
+    policies (the quantized bars of ``_check_quant_policies``), debris
+    inert.  Times at zamba2's shape (fp16 policy, BETA): both kernels,
+    their plain versions, SDPA at the same shape, and the contiguous kernel
+    at the hybrid serve's decode call (batch 4, kv HYBRID_PROMPT + 1 in a
+    HYBRID_MAX_LEN-row cache, block 128).  Returns the two kernels'
+    ``/d64`` entries."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import BF16_FP32, FP16, FP16_FP32, FP32
+    from repro_torch.kernels import ops
+    cmod = _kernel_module("pasa_decode")
+    pmod = _kernel_module("pasa_paged_decode")
+
+    d, page = 64, 128
+    lens = DECODE_KV_LENS
+    b = len(lens)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(8)
+    detail = {"pasa_decode": {}, "pasa_paged_decode": {}}
+    errs = {"pasa_decode": [], "pasa_paged_decode": []}
+    for kvh, g in HD64_SHAPES:
+        tag = f"kvh{kvh}_g{g}"
+        kp, vp, table = _paged_pool(rng, lens, kvh, d, page, 30.0, 3, dev)
+        n = table.shape[1] * page
+        kc = kp[table.long()].reshape(b, n, kvh, d)
+        vc = vp[table.long()].reshape(b, n, kvh, d)
+        kview, vview = kc.transpose(1, 2), vc.transpose(1, 2)
+        q = _randn(rng, (b, kvh, g, d), 0.0, dev, torch.float16)
+        gold = []
+        for i, n_i in enumerate(lens):
+            kk, vv = _gathered(kp, table[i], n_i), _gathered(vp, table[i], n_i)
+            sc = q[i].double() @ kk.transpose(-1, -2) / math.sqrt(d)
+            gold.append(torch.softmax(sc, -1) @ vv)
+        gold = torch.stack(gold)
+        rmse = {}
+        for policy in (FP16, FP16_FP32, FP32, BF16_FP32):
+            qp = q.to(policy.input_dtype)
+            for beta in (0.0, BETA):
+                case = f"{tag} {policy.name} beta {beta}"
+                paged = ops.pasa_paged_decode(q, kp, vp, table, kv_len,
+                                              beta=beta, policy=policy)
+                outs = {"pasa_paged_decode": (paged, pmod.paged_decode_plain(
+                    q, kp, vp, table, kv_len, beta=beta, policy=policy,
+                    block_kv=page))}
+                for block in (page, 256):
+                    got = ops.pasa_decode(q, kview, vview, kv_len, beta=beta,
+                                          policy=policy, block_kv=block)
+                    walk = cmod._walk_call(qp, kview, vview, kv_len,
+                                           beta=beta, policy=policy,
+                                           block_kv=block)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, walk):
+                        raise AssertionError(f"pasa_decode/d64 ({case}, block "
+                                             f"{block}) != the walk")
+                    if block == page and not torch.equal(got, paged):
+                        raise AssertionError(f"pasa_decode/d64 ({case}) != "
+                                             f"paged decode")
+                    outs[f"pasa_decode@{block}"] = (got, cmod.decode_plain(
+                        q, kview, vview, kv_len, beta=beta, policy=policy,
+                        block_kv=block))
+                for key, (got, plain) in outs.items():
+                    name = key.partition("@")[0]
+                    if got.dtype != policy.out_dtype:
+                        raise AssertionError(f"{key}/d64 ({case}): {got.dtype}")
+                    errs[name].append(_close(f"{key}/d64 ({case})", got, plain,
+                                             **DECODE_TOL))
+                    r, rp = _rel_rmse(got, gold), _rel_rmse(plain, gold)
+                    if not (r < RMSE_MAX and rp < RMSE_MAX):
+                        raise AssertionError(f"{key}/d64 ({case}) RMSE {r:.4f}"
+                                             f" / plain {rp:.4f}")
+                    rmse[f"{key} {policy.name} beta {beta}"] = r
+        detail["pasa_decode"][tag] = dict(
+            walk_and_paged_bit_equal=True,
+            rmse_max=max(v for k, v in rmse.items() if k.startswith("pasa_decode")))
+        quant = {}
+        raw = ops.pasa_paged_decode(q, kp, vp, table, kv_len, beta=BETA,
+                                    policy=FP16)
+        for dtype in QUANT_DTYPES:
+            kq, vq, sc, valid = _quantize_pool(kp, vp, table, lens, dtype)
+            run = lambda policy, kq=kq, vq=vq, sc=sc: ops.pasa_paged_decode(
+                q, kq, vq, table, kv_len, beta=BETA, policy=policy, **sc)
+            plain_of = lambda policy, kq=kq, vq=vq, sc=sc: \
+                pmod.paged_decode_plain(q, kq, vq, table, kv_len, beta=BETA,
+                                        policy=policy, block_kv=page, **sc)
+            held, got = _check_quant_policies(
+                f"pasa_paged_decode/d64 {tag}", run, plain_of, gold, raw,
+                dtype, DECODE_TOL)
+            kq2, vq2, sc2 = _poison(kq, vq, sc, valid)
+            if not torch.equal(run(FP16, kq2, vq2, sc2), got):
+                raise AssertionError(f"pasa_paged_decode/d64 {tag} {dtype}: "
+                                     f"debris changed the output")
+            held["debris_inert"] = True
+            quant[dtype] = held
+            errs["pasa_paged_decode"].append(held["max_abs_err_fp16"])
+        detail["pasa_paged_decode"][tag] = dict(
+            rmse_max=max(v for k, v in rmse.items()
+                         if k.startswith("pasa_paged_decode")), quantized=quant)
+        if (kvh, g) != HD64_SHAPES[0]:
+            continue
+        # times at zamba2's shape, fp16 PASA (the hybrid serve's mode)
+        qh = q.reshape(b, kvh * g, 1, d)
+        ke, ve = (torch.nan_to_num(x.half()).repeat_interleave(g, 1)
+                  for x in (kview, vview))
+        mask = (torch.arange(n, device=dev)[None, :] < kv_len[:, None])
+        lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qh, ke, ve, attn_mask=mask[:, None, None, :]), 20)
+        live = sum(lens)
+        nbytes = 2 * live * kvh * d * 2 + 2 * q.numel() * 2 + b * 4
+        bound = _bound(nbytes, 4 * g * d * live * kvh)
+        timed = {
+            "pasa_decode": dict(
+                ms=_cuda_time_ms(lambda: ops.pasa_decode(
+                    q, kview, vview, kv_len, beta=BETA, policy=FP16,
+                    block_kv=page), 50),
+                ms_block_256=_cuda_time_ms(lambda: ops.pasa_decode(
+                    q, kview, vview, kv_len, beta=BETA, policy=FP16,
+                    block_kv=256), 50),
+                walk_ms=_cuda_time_ms(lambda: cmod._walk_call(
+                    q, kview, vview, kv_len, beta=BETA, policy=FP16,
+                    block_kv=page), 50),
+                plain_ms=_cuda_time_ms(lambda: cmod.decode_plain(
+                    q, kview, vview, kv_len, beta=BETA, policy=FP16,
+                    block_kv=page), 3, warmup=1),
+                rmse=rmse[f"pasa_decode@{page} fp16 beta {BETA}"],
+                **_serve_shape_hybrid_decode(dev), **bound),
+            "pasa_paged_decode": dict(
+                ms=_cuda_time_ms(lambda: ops.pasa_paged_decode(
+                    q, kp, vp, table, kv_len, beta=BETA, policy=FP16), 50),
+                plain_ms=_cuda_time_ms(lambda: pmod.paged_decode_plain(
+                    q, kp, vp, table, kv_len, beta=BETA, policy=FP16,
+                    block_kv=page), 3, warmup=1),
+                rmse=rmse[f"pasa_paged_decode fp16 beta {BETA}"],
+                **bound),
+        }
+    entries = []
+    for name in ("pasa_paged_decode", "pasa_decode"):
+        source, replaces = KERNEL_FILES[name]
+        entries.append(dict(
+            name=f"{name}/d64", route="cuda", source=source, replaces=replaces,
+            max_abs_err=max(errs[name]), library_ms=lib_ms, detail=detail[name],
+            **timed[name]))
+    return entries
+
+
+def _serve_shape_hybrid_decode(dev):
+    """The contiguous decode kernel at head_dim 64 at the hybrid serve's
+    decode call: batch HYBRID_BATCH at kv HYBRID_PROMPT + 1 in a
+    HYBRID_MAX_LEN-row cache (bf16 (B, S2, KVH, D) read through strides),
+    KVH 32, G 1, block 128; kernel and SDPA ms."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import FP16
+    from repro_torch.kernels import ops
+
+    kvh, d, b, n = 32, 64, HYBRID_BATCH, HYBRID_PROMPT + 1
+    rng = np.random.default_rng(9)
+    shape = (b, HYBRID_MAX_LEN, kvh, d)
+    kc = _randn(rng, shape, 2.0, dev, torch.bfloat16).transpose(1, 2)
+    vc = _randn(rng, shape, 0.0, dev, torch.bfloat16).transpose(1, 2)
+    q = _randn(rng, (b, kvh, 1, d), 0.0, dev, torch.float16)
+    kv_len = torch.full((b,), n, dtype=torch.int32, device=dev)
+    ms = _cuda_time_ms(lambda: ops.pasa_decode(
+        q, kc, vc, kv_len, beta=BETA, policy=FP16, block_kv=128), 50)
+    ke, ve = (x[:, :, :n].half() for x in (kc, vc))
+    lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q.reshape(b, kvh, 1, d), ke, ve), 20)
+    return dict(serve_shape_ms=ms, serve_shape_library_ms=lib_ms)
+
+
 def check_exports():
     """``from repro_torch.kernels import pasa_attention`` (and the other
     exported names) gives the op, as ``repro.kernels`` does."""
@@ -1344,11 +1557,10 @@ def _finite_bundle(bundle, finite):
             return logits, state
         return run
 
-    return dataclasses.replace(
-        bundle, prefill=checked(bundle.prefill),
-        serve_step=checked(bundle.serve_step),
-        paged_serve_step=checked(bundle.paged_serve_step),
-        paged_prefill_step=checked(bundle.paged_prefill_step))
+    names = ("prefill", "serve_step", "paged_serve_step", "paged_prefill_step")
+    return dataclasses.replace(bundle, **{
+        name: checked(getattr(bundle, name)) for name in names
+        if getattr(bundle, name) is not None})
 
 
 def _paged_workload(cfg, cache_dtype):
@@ -1909,6 +2121,139 @@ def serve_policy(dev, bundle, params, scheduler, budget, fcfs_streams):
     )
 
 
+@contextlib.contextmanager
+def _plain_decode():
+    """``ops.pasa_decode`` replaced by its plain version (on any device)
+    inside the block: the model's dense decode then runs the plain PyTorch
+    attention on the card."""
+    from repro_torch.kernels import ops
+    mod = _kernel_module("pasa_decode")
+
+    kernel_op = ops.pasa_decode
+    ops.pasa_decode = lambda q, k, v, kv_len, *, beta, policy, block_kv: (
+        mod.decode_plain(q, k, v, kv_len, beta=beta, policy=policy,
+                         block_kv=block_kv))
+    try:
+        yield
+    finally:
+        ops.pasa_decode = kernel_op
+
+
+def serve_hybrid(dev):
+    """zamba2-1.2b at full width (38 Mamba-2 layers, the shared attention
+    block applied 7 times, head_dim 64) with random weights (seed 0): bf16
+    weights, an fp32 lm_head and fp32 Mamba conv / SSM parameters.
+    HYBRID_BATCH prompts of HYBRID_PROMPT tokens, SERVE_GEN greedy tokens
+    each, through launch/serve.py's token-by-token route on a
+    HYBRID_MAX_LEN-row cache.  Every logit finite; the contiguous decode
+    kernel launched 7 times per step, all at head_dim 64, and no other
+    kernel; the prompts HYBRID_ALONE served alone give their batched
+    streams; the first generated step's logits within HYBRID_LOGIT_ATOL of
+    the same step through the kernels' plain versions on the card from the
+    same cache.  Returns the report."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import get_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pasa_paged_decode import mode_name
+    from repro_torch.launch.serve import cache_bytes, token_by_token
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.hybrid import n_shared_apps
+    from repro_torch.models.model_zoo import build
+
+    cfg = get_config("zamba2-1.2b")
+    bundle = build(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = lambda tree: [x for v in tree.values() for x in (
+        leaves(v) if isinstance(v, dict) else [v])]
+    weights = leaves(params)
+    finite = []
+    checked = _finite_bundle(bundle, finite)
+    rng = np.random.default_rng(3)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (HYBRID_BATCH, HYBRID_PROMPT), dtype=np.int32)).to(dev)
+
+    def run(rows):
+        cache = bundle.init_cache(rows.shape[0], HYBRID_MAX_LEN, device=dev)
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out, cache, times = token_by_token(checked, params, rows, SERVE_GEN,
+                                           cache)
+        return out, cache, [t - t_start for t in times]
+
+    run(prompts[:1, :8])                  # warm-up (cuBLAS first calls)
+    finite.clear()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    streams, cache, times = run(prompts)
+    names = [w.__name__ for w in ops.WRAPPERS]
+    launches = {name: getattr(ops, name).launches for name in names}
+    by_mode = _by_mode(names)
+    n_steps = HYBRID_PROMPT + SERVE_GEN - 1
+    apps = n_shared_apps(cfg)
+    want = {name: apps * n_steps if name == "pasa_decode" else 0
+            for name in names}
+    if launches != want:
+        raise AssertionError(f"serve_hybrid: launch counts {launches} != "
+                             f"{want}")
+    mode = mode_name(get_policy(cfg.attention.pasa_policy), torch.bfloat16,
+                     cfg.head_dim)
+    if by_mode["pasa_decode"] != {mode: apps * n_steps}:
+        raise AssertionError(f"serve_hybrid: contiguous decode launches by "
+                             f"mode {by_mode['pasa_decode']} != {mode!r}")
+    _all_finite("serve_hybrid", finite)
+    if streams.shape != (HYBRID_BATCH, SERVE_GEN) or not (
+            (streams >= 0) & (streams < cfg.vocab_size)).all():
+        raise AssertionError(f"serve_hybrid: bad streams {streams}")
+    peak = torch.cuda.max_memory_allocated()
+    cache_mb = {part: cache_bytes(cache[part]) / 1e6 for part in cache}
+    del cache
+    for i in HYBRID_ALONE:
+        alone, _, _ = run(prompts[i:i + 1])
+        if not np.array_equal(alone[0], streams[i]):
+            raise AssertionError(
+                f"serve_hybrid: batched vs one-at-a-time streams differ: "
+                f"{streams[i].tolist()} vs {alone[0].tolist()}")
+    # the first generated step from one cache: the kernel, then the plain
+    # versions on the card
+    cache = bundle.init_cache(HYBRID_BATCH, HYBRID_MAX_LEN, device=dev)
+    step = make_serve_step(bundle)
+    for i in range(HYBRID_PROMPT - 1):
+        pos = torch.full((HYBRID_BATCH,), i, dtype=torch.int32, device=dev)
+        _, _, cache = step(params, prompts[:, i], pos, cache)
+    saved = {part: {k: v.clone() for k, v in cache[part].items()}
+             for part in cache}
+    pos = torch.full((HYBRID_BATCH,), HYBRID_PROMPT - 1, dtype=torch.int32,
+                     device=dev)
+    kernel_logits, _ = bundle.serve_step(params, prompts[:, -1], pos, cache)
+    with _plain_decode():
+        plain_logits, _ = bundle.serve_step(params, prompts[:, -1], pos, saved)
+    err = float((kernel_logits - plain_logits).abs().max())
+    if not err <= HYBRID_LOGIT_ATOL:
+        raise AssertionError(f"serve_hybrid: first-step logits differ from "
+                             f"the plain route's by {err:.3e}")
+    wall = times[-1]
+    return dict(
+        arch=cfg.arch_id, layers=cfg.n_layers, d_model=cfg.d_model,
+        head_dim=cfg.head_dim, shared_block_applications=apps,
+        params=sum(x.numel() for x in weights),
+        param_gb=sum(x.numel() * x.element_size() for x in weights) / 1e9,
+        weights_s=init_s, batch=HYBRID_BATCH, prompt_len=HYBRID_PROMPT,
+        gen=SERVE_GEN, max_len=HYBRID_MAX_LEN, steps=n_steps,
+        launches=launches, launches_by_mode=by_mode, wall_s=wall,
+        tok_per_s=streams.size / wall, ms_per_step=1e3 * wall / n_steps,
+        ttft_ms=1e3 * times[0],
+        decode_ms_per_step=1e3 * (times[-1] - times[0]) / (SERVE_GEN - 1),
+        peak_gb=peak / 1e9, cache_mb=cache_mb,
+        first_step_logit_err_vs_plain=err, streams=streams.tolist(),
+    )
+
+
 def main() -> int:
     import torch
 
@@ -1944,7 +2289,8 @@ def main() -> int:
 
     print("exports: " + ", ".join(check_exports()))
     kernels = [*check_decode(dev), *check_prefill(dev), *check_shift_kv(dev),
-               *check_attention(dev), *check_contiguous_decode(dev)]
+               *check_attention(dev), *check_contiguous_decode(dev),
+               *check_decode_hd64(dev)]
     kernels += [check(dev, dtype) for dtype in QUANT_DTYPES
                 for check in (check_decode_quant, check_prefill_quant)]
     print("prefill_chunk_starts: " + json.dumps(check_prefill_starts(dev)))
@@ -1954,6 +2300,8 @@ def main() -> int:
                  if "max_abs_err_cpu_plain" in k else "")
         if "walk_ms" in k:
             extra += f"; its sequential walk {k['walk_ms']:.4f} ms"
+        if "ms_block_256" in k:
+            extra += f"; at block 256 {k['ms_block_256']:.4f} ms"
         if "serve_shape_ms" in k:
             extra += (f"; at the serve's decode shape {k['serve_shape_ms']:.4f}"
                       f" ms, library {k['serve_shape_library_ms']:.4f} ms")
@@ -2015,15 +2363,28 @@ def main() -> int:
         print(f"serve_{scheduler}: " + json.dumps(serve_policy(
             dev, bundle, params, scheduler, budget, rep["streams"])))
     print(f"engine features: {time.perf_counter() - t_new:.1f} s")
+    # the hybrid family (zamba2-1.2b) on the token-by-token dense route,
+    # driven with the launch counts set to 0 just before it
+    t_hybrid = time.perf_counter()
+    del bundle, params, flash
+    torch.cuda.empty_cache()
+    rep_hybrid = serve_hybrid(dev)
+    print("serve_hybrid: " + json.dumps(rep_hybrid))
+    print(f"hybrid: {time.perf_counter() - t_hybrid:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each mode of shift-KV has the dense serve's count of that mode (0 for
     # the modes the serve does not run); the paged kernels' quantized modes
     # have their own serve's count; the fp32 and bf16_fp32 modes the flash
     # serves' counts of that mode (the attention kernel's from both its ops)
+    # the head_dim 64 entries have the hybrid serve's count of that mode
+    # (0 for paged decode, which no hybrid serve runs)
     for k in kernels:
         name, _, tag = k["name"].partition("/")
-        if name == "shift_kv":
+        if _is_hd64(k):
+            mode = mode_name(get_policy("fp16"), torch.bfloat16, 64)
+            k["launches"] = rep_hybrid["launches_by_mode"][name].get(mode, 0)
+        elif name == "shift_kv":
             k["launches"] = rep_dense["shift_kv_launches_by_mode"].get(
                 k["mode"], 0)
         elif _is_new_mode(k):
@@ -2048,7 +2409,12 @@ def main() -> int:
     for name in ("pasa_paged_decode", "pasa_paged_prefill", "shift_kv"):
         line.append(_mode_entry(name, [
             k for k in kernels if k["name"].startswith(name + "/")
-            and not _is_new_mode(k)], keys))
+            and not _is_new_mode(k) and not _is_hd64(k)], keys))
+    hd64 = [{key: k[key] for key in keys} for k in kernels if _is_hd64(k)]
+    if not any(k["launches"] for k in hd64 if k["name"] == "pasa_decode/d64"):
+        raise AssertionError("pasa_decode/d64 was not launched on the hybrid "
+                             "serve")
+    line += hd64
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,11 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-from repro_torch.configs.base import AttentionConfig, ModelConfig
+from repro_torch.configs.base import AttentionConfig, ModelConfig, SSMConfig
 
 _ID_TO_MODULE = {
     "qwen2-7b": "qwen2_7b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 ALL_ARCHS: List[str] = list(_ID_TO_MODULE)
@@ -25,4 +26,5 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG.validate()
 
 
-__all__ = ["ALL_ARCHS", "AttentionConfig", "ModelConfig", "get_config"]
+__all__ = ["ALL_ARCHS", "AttentionConfig", "ModelConfig", "SSMConfig",
+           "get_config"]

@@ -1,7 +1,9 @@
 """Model/config schema (counterpart of ``repro.configs.base``).
 
-Only the fields the dense family's serving routes (paged and dense) read
-are ported; the MoE/SSM/multimodal blocks arrive with those families.
+The fields the serving routes of the dense family (paged and dense) and
+of the hybrid family (Mamba-2 + a shared attention block, dense route)
+read are ported; the MoE and multimodal blocks arrive with those
+families.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import torch
 
 
 IMPLS = ("pasa", "flash", "naive")
+FAMILIES = ("dense", "hybrid")    # the families ported so far
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,9 +45,22 @@ class AttentionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """The state-space block's shape (the reference's fields and
+    defaults; only ``version`` 2, Mamba-2, is ported)."""
+
+    state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    version: int = 1              # 1 = Mamba-1 (falcon-mamba), 2 = Mamba-2 (zamba2)
+    head_p: int = 64              # mamba2 head size
+    chunk: int = 128              # mamba2 SSD chunk length
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # dense (the only family ported so far)
+    family: str                   # dense | hybrid (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -58,7 +74,12 @@ class ModelConfig:
     rope_theta: float = 1.0e6
     norm_eps: float = 1.0e-6
 
+    ssm: SSMConfig = SSMConfig()
     attention: AttentionConfig = AttentionConfig()
+
+    # hybrid (zamba2): a weight-shared attention block every `attn_every`
+    # SSM layers (applied before layers 0, attn_every, 2*attn_every, ...).
+    attn_every: int = 0
 
     compute_dtype: str = "bfloat16"
 
@@ -78,9 +99,15 @@ class ModelConfig:
         return self.n_heads // max(self.n_kv_heads, 1)
 
     def validate(self) -> "ModelConfig":
-        if self.family != "dense":
+        if self.family not in FAMILIES:
             raise ValueError(
                 f"family {self.family!r} is not ported to repro_torch yet"
+            )
+        if self.family == "hybrid" and (self.ssm.version != 2
+                                        or self.attn_every < 1):
+            raise ValueError(
+                "the hybrid family is ported with Mamba-2 (ssm.version 2) "
+                "and attn_every >= 1"
             )
         if self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
@@ -101,4 +128,8 @@ class ModelConfig:
             head_dim=16,
             d_ff=128,
             vocab_size=512,
+            ssm=dataclasses.replace(
+                self.ssm, state=min(self.ssm.state, 8), head_p=8, chunk=16,
+            ),
+            attn_every=min(self.attn_every, 2) if self.attn_every else 0,
         )

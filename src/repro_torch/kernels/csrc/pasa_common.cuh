@@ -28,7 +28,10 @@
 namespace pasa {
 
 constexpr float NEG_BIG = -30000.0f;   // finite -inf stand-in, exact in fp16
-constexpr int HEAD_DIM = 128;          // the only head width ported so far
+// The head width of the wgmma kernels (attention, shift-KV, paged
+// prefill); the decode kernels take it as a template parameter D (64 or
+// 128, pasa_decode_block.cuh).
+constexpr int HEAD_DIM = 128;
 
 struct Policy {
   float beta;         // PASA shifting fraction (0 = FlashAttention-2)
@@ -150,17 +153,18 @@ __device__ __forceinline__ float code_to_float(__nv_fp8_e4m3 c) {
   return __half2float(__half(__nv_cvt_fp8_to_halfraw(c.__x, __NV_E4M3)));
 }
 
-// The dequantization sidecars of one (page, kv-head) of an 8-bit pool,
-// staged in shared memory before the page's codes are converted: side 0
-// is K, side 1 is V.
+// The dequantization sidecars of one (page, kv-head) of an 8-bit pool at
+// head width D, staged in shared memory before the page's codes are
+// converted: side 0 is K, side 1 is V.
+template <int D>
 struct PageSidecars {
-  float shift[2][HEAD_DIM];
+  float shift[2][D];
   float scale[2];
 };
 
 struct SidecarPtrs {
   const float* scale[2];  // (P, KVH)
-  const float* shift[2];  // (P, KVH, HEAD_DIM)
+  const float* shift[2];  // (P, KVH, D)
 };
 
 // Eight consecutive codes (one 8-byte load) -> eight OpT values
@@ -183,9 +187,9 @@ __device__ __forceinline__ uint4 load8_dequant(const CodeT* src, float scale,
 
 // Eight consecutive pool elements of row segment (side, column c8) as
 // OpT: raw pools convert, 8-bit pools dequantize with the staged sidecars.
-template <typename OpT, typename PoolT>
+template <typename OpT, typename PoolT, int D>
 __device__ __forceinline__ uint4 load_pool8(const PoolT* src, int side, int c8,
-                                            const PageSidecars& Q) {
+                                            const PageSidecars<D>& Q) {
   if constexpr (kIsCode<PoolT>) {
     return load8_dequant<OpT>(src, Q.scale[side], &Q.shift[side][c8]);
   } else {

@@ -17,11 +17,22 @@
 // acc_update calls on the same values), so paged == contiguous holds bit
 // for bit, as the reference's shared masked_block_update makes it hold
 // there.  What bounds a block on an H100 is latency, not bytes: per block
-// each thread runs G dot products of 128 and G sums of `block` products
-// out of shared memory, plus the barriers between the steps; the loops
-// below run every row of the group in one pass over the key row (scores)
-// or value column (P V), so the G chains are independent and each shared
-// load is used G times - each chain keeps its own order of operations.
+// each thread runs G dot products of D for each of its block / D key rows
+// and G sums of `block` products out of shared memory, plus the barriers
+// between the steps; the loops below run every row of the group in one
+// pass over the key row (scores) or value column (P V), so the G chains
+// are independent and each shared load is used G times - each chain keeps
+// its own order of operations.
+//
+// The head width D (64 or 128) is a template parameter of the block tile
+// (DecodeSmem): a block runs D threads, one per head-dim column, so D 64
+// runs two warps where D 128 runs four.  Per block a thread at D 64 owns
+// the same number of score products as at D 128 (twice the key rows, dot
+// products half as long) and the same P V column sum, so a block's
+// latency changes little (two warps hide less of it than four) while its
+// bytes halve.  Keeping 128 threads at D 64, two per column, would split
+// each P V sum and change its order of operations between the widths;
+// one thread per column keeps one code path.
 //
 // Convention (shift_mask_valid): the key mean and the row pseudo-average
 // are over the block's `valid` leading columns; keys are shifted to
@@ -40,24 +51,28 @@
 
 namespace pasa {
 
-constexpr int DEC_THREADS = HEAD_DIM;  // one thread per head-dim column
-constexpr int DEC_WARPS = DEC_THREADS / 32;
 constexpr int DEC_MAX_G = 16;
 constexpr int DEC_PAGE_ROWS = 128;   // rows of a page (and of a staged load)
 constexpr int DEC_MAX_BLOCK = 256;   // rows of a contiguous-cache block
-// K row stride in halves: 65 words, so thread c reading row c walks
-// distinct banks across a warp.
-constexpr int DEC_K_LD = HEAD_DIM + 2;
 
-// One block of up to MAXB rows at operand type OpT (fp16 or bf16, both
-// two bytes): 79,360 bytes at 128 rows (pages), 153,600 at 256 (the
-// contiguous cache's default block), in every mode.
-template <typename OpT, int MAXB>
+// One block of up to MAXB rows of head width D at operand type OpT (fp16
+// or bf16, both two bytes): at D 128 78,848 bytes at 128 rows (pages) and
+// 153,088 at 256 (the contiguous cache's default block); at D 64 44,032
+// and 85,504; in every mode.  The block runs kThreads = D threads.
+template <typename OpT, int MAXB, int D>
 struct DecodeSmem {
+  static_assert(D == 64 || D == 128, "decode head width");
   static constexpr int kRows = MAXB;
-  OpT q[DEC_MAX_G][HEAD_DIM];
-  OpT k[MAXB][DEC_K_LD];              // raw K on entry, shifted K after
-  OpT v[MAXB][HEAD_DIM];              // rows >= valid zeroed by the caller
+  static constexpr int kD = D;
+  static constexpr int kThreads = D;          // one per head-dim column
+  static constexpr int kWarps = D / 32;
+  // K row stride in halves: D / 2 + 1 words (65 at D 128, 33 at D 64), an
+  // odd count, so thread c reading word w of row c hits bank (c + w) mod
+  // 32: distinct across a warp.
+  static constexpr int kLd = D + 2;
+  OpT q[DEC_MAX_G][D];
+  OpT k[MAXB][kLd];                   // raw K on entry, shifted K after
+  OpT v[MAXB][D];                     // rows >= valid zeroed by the caller
   // the rows' scores (masked: NEG_BIG) and probabilities: at fp16 two
   // arrays; at fp32 one, each probability overwriting its score in place
   // (the same bytes, so a 256-row block still fits beside the staging
@@ -69,7 +84,6 @@ struct DecodeSmem {
     } h;
     float f[DEC_MAX_G][MAXB];
   } sc;
-  float km[HEAD_DIM];
   float m[DEC_MAX_G], l[DEC_MAX_G], f[DEC_MAX_G];
   float e_prev[DEC_MAX_G], e_cur[DEC_MAX_G];
   // the block's partials per row: s-bar, local max, local sum (each at
@@ -96,7 +110,7 @@ __device__ __forceinline__ void decode_state_init(Smem& S, float* acc) {
 
 // Partials of the block in S.k/S.v (`block` rows, the first `valid` >= 1
 // of them live): S.sbar/S.m_loc/S.l_loc[g] (written by lane 0 of the warp
-// that owns row g: warp w owns rows w, w + 4, ...) and, in registers,
+// that owns row g: warp w owns rows w, w + kWarps, ...) and, in registers,
 // pv[g] = P V of row g at head-dim column t (thread t), rounded to the
 // accumulator dtype (G <= NG).  The last step reads S.v and the
 // probabilities after the last barrier: the caller syncs before it
@@ -108,6 +122,7 @@ __device__ __forceinline__ void decode_block_partials(Smem& S, int valid,
                                                       float* pv) {
   using OpT = typename M::Op;
   constexpr bool SH = M::kScoreHalf;
+  constexpr int D = Smem::kD;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -126,12 +141,11 @@ __device__ __forceinline__ void decode_block_partials(Smem& S, int valid,
   }
   __syncthreads();
 
-  // 2. scores: thread t computes columns c = t (and t + 128 in a block of
-  //    more than 128 rows) for all G rows in one pass over each key row
-  //    (per row: an fp32 sum of exact products in d order, stored at the
-  //    score dtype).
+  // 2. scores: thread t computes columns c = t, t + D, ... (those below
+  //    `block`) for all G rows in one pass over each key row (per row: an
+  //    fp32 sum of exact products in d order, stored at the score dtype).
 #pragma unroll
-  for (int c0 = 0; c0 < Smem::kRows; c0 += DEC_THREADS) {
+  for (int c0 = 0; c0 < Smem::kRows; c0 += Smem::kThreads) {
     const int c = c0 + t;
     if (c >= block) break;
     const uint32_t* krow = reinterpret_cast<const uint32_t*>(&S.k[c][0]);
@@ -139,7 +153,7 @@ __device__ __forceinline__ void decode_block_partials(Smem& S, int valid,
 #pragma unroll
     for (int g = 0; g < NG; ++g) dot[g] = 0.0f;
 #pragma unroll 4
-    for (int d2 = 0; d2 < HEAD_DIM / 2; ++d2) {
+    for (int d2 = 0; d2 < D / 2; ++d2) {
       const float2 b = unpack2<OpT>(krow[d2]);
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
@@ -162,11 +176,11 @@ __device__ __forceinline__ void decode_block_partials(Smem& S, int valid,
   }
   __syncthreads();
 
-  // 3. per-row statistics: warp w owns rows w, w + 4, ...; lanes stride
-  //    the columns; at fp32 scores each probability replaces its score,
-  //    read by the same lane.
+  // 3. per-row statistics: warp w owns rows w, w + kWarps, ...; lanes
+  //    stride the columns; at fp32 scores each probability replaces its
+  //    score, read by the same lane.
   const bool sh = P.stat_half;
-  for (int g = warp; g < G; g += DEC_WARPS) {
+  for (int g = warp; g < G; g += Smem::kWarps) {
     float ssum = 0.0f, mx = -INFINITY;   // masked columns hold NEG_BIG
     for (int c = lane; c < block; c += 32) {
       const float s = SH ? h2f(S.sc.h.s[g][c]) : S.sc.f[g][c];
@@ -258,7 +272,7 @@ __device__ __forceinline__ void decode_block_update(Smem& S, int valid,
   decode_block_partials<NG, M>(S, valid, block, G, P, pv);
 
   if (lane == 0) {
-    for (int g = warp; g < G; g += DEC_WARPS) {
+    for (int g = warp; g < G; g += Smem::kWarps) {
       const RowStep r = row_update(S.m[g], S.l[g], S.f[g], cnt, S.sbar[g],
                                    S.m_loc[g], S.l_loc[g], P);
       S.m[g] = r.m;

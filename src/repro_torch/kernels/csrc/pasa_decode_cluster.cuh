@@ -20,10 +20,10 @@
 //      buffer while the current block is computed, so neither the load
 //      nor the sidecar -> code dependency stands in the block's path;
 //   2. a cluster barrier (release / acquire at cluster scope);
-//   3. rank r folds head-dim columns [16 r, 16 r + 16) of every row over
-//      j = 0 .. n_live - 1 in order (decode_fold_step: row_update, run
-//      redundantly by each of the row's threads, then acc_update), and
-//      writes O = acc / l.
+//   3. rank r folds head-dim columns [D r / 8, D (r + 1) / 8) of every
+//      row (16 columns at D 128, 8 at D 64) over j = 0 .. n_live - 1 in
+//      order (decode_fold_step: row_update, run redundantly by each of
+//      the row's threads, then acc_update), and writes O = acc / l.
 // Step 3 performs the floating-point operations of the sequential walk
 // (decode_block_update, block after block) on the same values, so the
 // result equals the walk's bit for bit; pasa_decode.cu keeps the walk as
@@ -40,10 +40,15 @@
 // that land one after another in the block's shared-memory tile; the
 // block's math then runs once over all its rows - one key mean, one s-bar
 // and one set of partials per block, as the walk computes them.  Shared
-// memory: 79,360 + 66,568 bytes per CTA over pages (bf16), 153,600 +
-// 66,568 over the contiguous cache, in every policy mode (the block tile
-// holds its operands at two bytes, and fp32 probabilities overwrite their
-// scores: DecodeSmem).
+// memory at D 128: 78,848 + 66,568 bytes per CTA over pages (bf16),
+// 153,088 + 66,568 over the contiguous cache; at D 64: 44,032 + 33,288
+// and 85,504 + 33,288; in every policy mode (the block tile holds its
+// operands at two bytes, and fp32 probabilities overwrite their scores:
+// DecodeSmem).
+//
+// The head width D (64 or 128) is a template parameter of the addressing
+// (PagedBlocks, StridedBlocks), and through it of the block tile, the
+// staging buffer and the kernel's D threads.
 //
 // The kernel template takes the policy's mode (pasa_common.cuh Mode): q,
 // the block's K and V, and the output at the operand type (fp16, or bf16
@@ -56,22 +61,20 @@
 namespace pasa {
 
 constexpr int DEC_CLUSTER = 8;                             // CTAs per (b, h)
-constexpr int DEC_FOLD_COLS = HEAD_DIM / DEC_CLUSTER;      // 16 per rank
-static_assert(DEC_THREADS % DEC_FOLD_COLS == 0, "fold mapping");
 
-// One piece of a block (up to 128 rows) as it arrives from device memory,
-// before conversion to the operand type.
-template <typename T>
+// One piece of a block (up to 128 rows) of head width D as it arrives
+// from device memory, before conversion to the operand type.
+template <typename T, int D>
 struct PageStage {
-  T k[DEC_PAGE_ROWS][HEAD_DIM];
-  T v[DEC_PAGE_ROWS][HEAD_DIM];
-  PageSidecars sc;   // 8-bit pools only
+  T k[DEC_PAGE_ROWS][D];
+  T v[DEC_PAGE_ROWS][D];
+  PageSidecars<D> sc;   // 8-bit pools only
 };
 
 // Byte offset of the staging buffer behind a block tile of MAXB rows.
-template <typename OpT, int MAXB>
+template <typename OpT, int MAXB, int D>
 __host__ __device__ constexpr size_t dec_stage_off() {
-  return (sizeof(DecodeSmem<OpT, MAXB>) + 127) / 128 * 128;
+  return (sizeof(DecodeSmem<OpT, MAXB, D>) + 127) / 128 * 128;
 }
 
 // Rows of piece `piece` (rows [128 piece, 128 piece + 128) of a block) that
@@ -103,10 +106,11 @@ __device__ __forceinline__ void cluster_sync_release_acquire() {
 
 // Block j of (b, h) is page table[b, j] of a (P, page, KVH, D) pool of
 // raw values or 8-bit codes (with per-(page, kv-head) sidecars).
-template <typename T>
+template <typename T, int D>
 struct PagedBlocks {
   using Elem = T;
   static constexpr int kMaxBlock = DEC_PAGE_ROWS;
+  static constexpr int kD = D;
   const T* k;
   const T* v;
   SidecarPtrs sc;        // 8-bit pools only
@@ -122,17 +126,18 @@ struct PagedBlocks {
   }
   // element offset of the block's first row, and the row stride
   __device__ size_t offset(int b, int h, int j) const {
-    return ((size_t)page_id(b, j) * block * kv_heads + h) * HEAD_DIM;
+    return ((size_t)page_id(b, j) * block * kv_heads + h) * D;
   }
-  __device__ long long row_stride() const { return (long long)kv_heads * HEAD_DIM; }
+  __device__ long long row_stride() const { return (long long)kv_heads * D; }
 };
 
 // Block j of (b, h) is rows [j * block, (j + 1) * block) of a (B, KVH, S2,
 // D) cache read through the element strides sb, sh, ss (raw values only).
-template <typename T>
+template <typename T, int D>
 struct StridedBlocks {
   using Elem = T;
   static constexpr int kMaxBlock = DEC_MAX_BLOCK;
+  static constexpr int kD = D;
   const T* k;
   const T* v;
   long long sb, sh, ss;
@@ -151,16 +156,17 @@ struct StridedBlocks {
 // Start the copy of `valid` K and V rows of live block j of (b, h), from
 // its row `row0` on (and, for 8-bit pools, its page's sidecars) into `st`.
 template <typename Blocks>
-__device__ __forceinline__ void issue_block(PageStage<typename Blocks::Elem>& st,
-                                            const Blocks& A, int b, int h,
-                                            int j, int row0, int valid) {
+__device__ __forceinline__ void issue_block(
+    PageStage<typename Blocks::Elem, Blocks::kD>& st, const Blocks& A, int b,
+    int h, int j, int row0, int valid) {
   using T = typename Blocks::Elem;
+  constexpr int D = Blocks::kD;                  // also the thread count
   constexpr int EPC = 16 / sizeof(T);            // elements per 16 bytes
-  constexpr int CPR = HEAD_DIM / EPC;            // 16-byte chunks per row
+  constexpr int CPR = D / EPC;                   // 16-byte chunks per row
   const int t = threadIdx.x;
   const long long rs = A.row_stride();
   const size_t off = A.offset(b, h, j) + (size_t)(row0 * rs);
-  for (int i = t; i < valid * CPR; i += DEC_THREADS) {
+  for (int i = t; i < valid * CPR; i += D) {
     const int r = i / CPR, c = (i % CPR) * EPC;
     cp_async16(&st.k[r][c], A.k + off + r * rs + c);
     cp_async16(&st.v[r][c], A.v + off + r * rs + c);
@@ -169,12 +175,12 @@ __device__ __forceinline__ void issue_block(PageStage<typename Blocks::Elem>& st
     const size_t ph = (size_t)A.page_id(b, j) * A.kv_heads + h;
     // (the side is picked by a select: a runtime index into the pointer
     // arrays would copy them to local memory)
-    if (t < 2 * HEAD_DIM / 4) {
-      const int side = t / (HEAD_DIM / 4), c = (t % (HEAD_DIM / 4)) * 4;
+    if (t < 2 * D / 4) {
+      const int side = t / (D / 4), c = (t % (D / 4)) * 4;
       const float* shift = side ? A.sc.shift[1] : A.sc.shift[0];
-      cp_async16(&st.sc.shift[side][c], shift + ph * HEAD_DIM + c);
-    } else if (t < 2 * HEAD_DIM / 4 + 2) {
-      const int side = t - 2 * HEAD_DIM / 4;
+      cp_async16(&st.sc.shift[side][c], shift + ph * D + c);
+    } else if (t < 2 * D / 4 + 2) {
+      const int side = t - 2 * D / 4;
       cp_async4(&st.sc.scale[side], (side ? A.sc.scale[1] : A.sc.scale[0]) + ph);
     }
   }
@@ -184,18 +190,19 @@ __device__ __forceinline__ void issue_block(PageStage<typename Blocks::Elem>& st
 // Staged piece -> rows [row0, row0 + rows) of S.k / S.v at the operand
 // type OpT: raw values convert, 8-bit codes dequantize with the staged
 // sidecars; rows past the piece's `valid` become zeros.
-template <typename OpT, typename Smem, typename T>
-__device__ __forceinline__ void convert_block(Smem& S, const PageStage<T>& st,
+template <typename OpT, typename Smem, typename Stage>
+__device__ __forceinline__ void convert_block(Smem& S, const Stage& st,
                                               int row0, int rows, int valid) {
+  constexpr int C8 = Smem::kD / 8;     // 8-element segments per row
   const int t = threadIdx.x;
-  const int c8 = (t & 15) * 8;
-  for (int r = t >> 4; r < rows; r += DEC_THREADS / 16) {
+  const int c8 = (t % C8) * 8;
+  for (int r = t / C8; r < rows; r += Smem::kThreads / C8) {
     uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
     if (r < valid) {
       kk = load_pool8<OpT>(&st.k[r][c8], 0, c8, st.sc);
       vv = load_pool8<OpT>(&st.v[r][c8], 1, c8, st.sc);
     }
-    // (K rows are 260 bytes apart: four 4-byte stores)
+    // (K rows are 2 D + 4 bytes apart: four 4-byte stores)
     const uint32_t* k2 = reinterpret_cast<const uint32_t*>(&kk);
     uint32_t* kd = reinterpret_cast<uint32_t*>(&S.k[row0 + r][c8]);
 #pragma unroll
@@ -206,7 +213,7 @@ __device__ __forceinline__ void convert_block(Smem& S, const PageStage<T>& st,
 
 // (min blocks 1: without it ptxas keeps to ~80 registers and spills)
 template <typename Blocks, int NG, typename M>
-__global__ void __launch_bounds__(DEC_THREADS, 1)
+__global__ void __launch_bounds__(Blocks::kD, 1)
 cluster_decode_kernel(const typename M::Op* __restrict__ q,  // (B, KVH, G, D)
                       const Blocks A,
                       const int* __restrict__ kv_len,        // (B,)
@@ -216,11 +223,14 @@ cluster_decode_kernel(const typename M::Op* __restrict__ q,  // (B, KVH, G, D)
                       int kv_heads, int G, Policy P) {
   using T = typename Blocks::Elem;
   using OpT = typename M::Op;
-  using Smem = DecodeSmem<OpT, Blocks::kMaxBlock>;
+  constexpr int D = Blocks::kD;
+  constexpr int FC = D / DEC_CLUSTER;    // columns each rank folds
+  static_assert(D % DEC_CLUSTER == 0, "fold mapping");
+  using Smem = DecodeSmem<OpT, Blocks::kMaxBlock, D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
-  PageStage<T>& st = *reinterpret_cast<PageStage<T>*>(
-      smem_raw + dec_stage_off<OpT, Blocks::kMaxBlock>());
+  PageStage<T, D>& st = *reinterpret_cast<PageStage<T, D>*>(
+      smem_raw + dec_stage_off<OpT, Blocks::kMaxBlock, D>());
   const int rank = blockIdx.x;            // == the CTA's rank in its cluster
   const int b = blockIdx.y;
   const int h = blockIdx.z;
@@ -236,8 +246,8 @@ cluster_decode_kernel(const typename M::Op* __restrict__ q,  // (B, KVH, G, D)
   constexpr int MAX_PIECES = Blocks::kMaxBlock / DEC_PAGE_ROWS;
   if (rank < n_live) {
     issue_block(st, A, b, h, rank, 0, piece_valid(min(block, L - rank * block), 0));
-    const OpT* qbh = q + bh * G * HEAD_DIM;
-    for (int g = 0; g < G; ++g) S.q[g][t] = qbh[g * HEAD_DIM + t];
+    const OpT* qbh = q + bh * G * D;
+    for (int g = 0; g < G; ++g) S.q[g][t] = qbh[g * D + t];
   }
   for (int j = rank; j < n_live; j += DEC_CLUSTER) {
     const int valid = min(block, L - j * block);
@@ -258,10 +268,10 @@ cluster_decode_kernel(const typename M::Op* __restrict__ q,  // (B, KVH, G, D)
     }
     float pv[NG];
     decode_block_partials<NG, M>(S, valid, block, G, P, pv);
-    float* pvj = ws_pv + ((bh * max_blocks + j) * G) * HEAD_DIM + t;
+    float* pvj = ws_pv + ((bh * max_blocks + j) * G) * D + t;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
-      if (g < G) pvj[g * HEAD_DIM] = pv[g];
+      if (g < G) pvj[g * D] = pv[g];
     if (t < G) {
       float* sj = ws_stats + (bh * max_blocks + j) * 3 * G;
       sj[t] = S.sbar[t];
@@ -274,12 +284,12 @@ cluster_decode_kernel(const typename M::Op* __restrict__ q,  // (B, KVH, G, D)
   __threadfence();
   cluster_sync_release_acquire();
 
-  // 3. the fold of this rank's 16 columns, blocks in order
-  const int col = rank * DEC_FOLD_COLS + t % DEC_FOLD_COLS;
-  for (int g = t / DEC_FOLD_COLS; g < G; g += DEC_THREADS / DEC_FOLD_COLS) {
+  // 3. the fold of this rank's FC columns, blocks in order
+  const int col = rank * FC + t % FC;
+  for (int g = t / FC; g < G; g += D / FC) {
     FoldState fs = fold_state_init();
     const float* sj = ws_stats + bh * max_blocks * 3 * G + g;
-    const float* pj = ws_pv + (bh * max_blocks * G + g) * HEAD_DIM + col;
+    const float* pj = ws_pv + (bh * max_blocks * G + g) * D + col;
     float sbar = 0.0f, m_loc = 0.0f, l_loc = 0.0f, pv = 0.0f;
     if (n_live > 0) {
       sbar = __ldcg(sj);
@@ -295,7 +305,7 @@ cluster_decode_kernel(const typename M::Op* __restrict__ q,  // (B, KVH, G, D)
         sbar_n = __ldcg(sn);
         m_loc_n = __ldcg(sn + G);
         l_loc_n = __ldcg(sn + 2 * G);
-        pv_n = __ldcg(pj + (size_t)(j + 1) * G * HEAD_DIM);
+        pv_n = __ldcg(pj + (size_t)(j + 1) * G * D);
       }
       decode_fold_step(fs, j, sbar, m_loc, l_loc, pv, P);
       sbar = sbar_n;
@@ -304,7 +314,7 @@ cluster_decode_kernel(const typename M::Op* __restrict__ q,  // (B, KVH, G, D)
       pv = pv_n;
     }
     // O = acc / l at the accumulator dtype, stored at the output dtype
-    out[(bh * G + g) * HEAD_DIM + col] =
+    out[(bh * G + g) * D + col] =
         from_float<OpT>(rnd(__fdiv_rn(fs.acc, fs.l), P.acc_half));
   }
 }
@@ -315,12 +325,13 @@ static int launch_cluster_rows(const void* q, const Blocks& A,
                                int batch, int kv_heads, int G, const Policy& P,
                                cudaStream_t stream) {
   using OpT = typename M::Op;
-  const size_t smem = dec_stage_off<OpT, Blocks::kMaxBlock>() +
-                      sizeof(PageStage<typename Blocks::Elem>);
+  constexpr int D = Blocks::kD;
+  const size_t smem = dec_stage_off<OpT, Blocks::kMaxBlock, D>() +
+                      sizeof(PageStage<typename Blocks::Elem, D>);
   auto kernel = cluster_decode_kernel<Blocks, NG, M>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(DEC_CLUSTER, batch, kv_heads);
-  cfg.blockDim = dim3(DEC_THREADS);
+  cfg.blockDim = dim3(D);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -346,7 +357,7 @@ static int launch_cluster_rows(const void* q, const Blocks& A,
     *set = true;
   }
   float* ws = static_cast<float*>(workspace);
-  float* ws_stats = ws + (size_t)batch * kv_heads * A.max_blocks * G * HEAD_DIM;
+  float* ws_stats = ws + (size_t)batch * kv_heads * A.max_blocks * G * D;
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const OpT*>(q), A,
       static_cast<const int*>(kv_len), static_cast<OpT*>(out), ws, ws_stats,
@@ -356,8 +367,8 @@ static int launch_cluster_rows(const void* q, const Blocks& A,
 }
 
 // One launch of the cluster kernel over the blocks A names; `workspace`
-// holds batch * kv_heads * A.max_blocks * G * (128 + 3) floats (the
-// blocks' partials).  The row count of the register arrays is a template
+// holds batch * kv_heads * A.max_blocks * G * (D + 3) floats (the blocks'
+// partials).  The row count of the register arrays is a template
 // (8 or 16 rows: dec_rows), so a group of 7 carries 8; so is the policy's
 // mode (`mode`: ModeId).
 template <typename Blocks, typename M>

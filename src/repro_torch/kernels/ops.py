@@ -14,7 +14,10 @@ ops keyed by the policy and the dtype of the pool or cache they read
 shift op by its own modes (``shift_kv.mode_name``).  The four attention
 kernels run the fp16, fp16_fp32, fp32 and bf16_fp32 policies, with the
 output at the policy's output dtype; the float64 oracle policy raises on
-the card.
+the card.  The two decode ops take head_dim 64 or 128 on the card and
+count a launch at 64 under a mode of its own (``"fp16/bfloat16/d64"``);
+the attention, shift and paged prefill ops take 128 and raise before any
+launch for another width.
 
 The reference's ``interpret`` and ``use_kernel`` switches have no
 counterpart: the plain versions live beside each kernel in its module.
@@ -77,12 +80,21 @@ def _count(wrapper, mode: str) -> None:
     wrapper.launches_by_mode[mode] = wrapper.launches_by_mode.get(mode, 0) + 1
 
 
-def _cuda_inputs(q, k_pages, v_pages, ints, policy, quant):
-    """Validate and normalize the kernel inputs: everything on q's CUDA
-    device, q at the policy's input dtype, pools contiguous - bf16/fp16
-    values without sidecars, int8/fp8 codes with them (f32, contiguous) -
-    index tensors int32 contiguous (small copies only; the pool is never
-    copied)."""
+def _head_dim(op: str, d: int, head_dims) -> None:
+    """Raise (before any launch) unless the kernel of ``op`` is built for
+    head width ``d``."""
+    if d not in head_dims:
+        widths = " or ".join(str(w) for w in head_dims)
+        raise NotImplementedError(
+            f"the CUDA {op} kernel is written for head_dim {widths}, got {d}")
+
+
+def _cuda_inputs(op, q, k_pages, v_pages, ints, policy, quant, head_dims):
+    """Validate and normalize the inputs of the paged kernel of ``op``:
+    everything on q's CUDA device, head width in ``head_dims``, q at the
+    policy's input dtype, pools contiguous - bf16/fp16 values without
+    sidecars, int8/fp8 codes with them (f32, contiguous) - index tensors
+    int32 contiguous (small copies only; the pool is never copied)."""
     _decode.policy_scalars(0.0, policy, _decode.HEAD_DIM)  # policy check
     dev = q.device
     for name, x in (("k_pages", k_pages), ("v_pages", v_pages)) + tuple(
@@ -104,11 +116,7 @@ def _cuda_inputs(q, k_pages, v_pages, ints, policy, quant):
     for name, x in quant.items():
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
-    if q.shape[-1] != _decode.HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA kernels are written for head_dim {_decode.HEAD_DIM}, "
-            f"got {q.shape[-1]}"
-        )
+    _head_dim(op, q.shape[-1], head_dims)
     if k_pages.shape[1] > _decode.MAX_PAGE:
         raise NotImplementedError(
             f"page size {k_pages.shape[1]} > {_decode.MAX_PAGE}"
@@ -175,14 +183,16 @@ def pasa_paged_decode(
             f"GQA group {q.shape[2]} > {_decode.MAX_GROUP}"
         )
     q, ints = _cuda_inputs(
-        q, k_pages, v_pages,
+        "paged decode", q, k_pages, v_pages,
         {"page_table": page_table, "kv_len": kv_len}, policy, quant,
+        _decode.DECODE_HEAD_DIMS,
     )
     out = _decode.kernel_call(
         q, k_pages, v_pages, ints["page_table"], ints["kv_len"],
         beta=beta, policy=policy, quant=quant,
     )
-    _count(pasa_paged_decode, _decode.mode_name(policy, k_pages.dtype))
+    _count(pasa_paged_decode,
+           _decode.mode_name(policy, k_pages.dtype, q.shape[-1]))
     return out
 
 
@@ -232,10 +242,10 @@ def pasa_paged_prefill(
             f"of 16, got {k_pages.shape[1]}"
         )
     q, ints = _cuda_inputs(
-        q, k_pages, v_pages,
+        "paged prefill", q, k_pages, v_pages,
         {"page_table": page_table, "chunk_start": chunk_start,
          "kv_len": kv_len},
-        policy, quant,
+        policy, quant, (_decode.HEAD_DIM,),
     )
     out = _prefill.kernel_call(
         q, k_pages, v_pages, ints["page_table"], ints["chunk_start"],
@@ -269,14 +279,10 @@ def _cuda_block(name: str, block: int, limit: int) -> None:
 
 
 def _cuda_rows(name: str, x: torch.Tensor, dev) -> None:
-    """The kernels read 16-byte row segments through the strides."""
+    """The kernels read 16-byte row segments through the strides (the
+    caller has checked the head width)."""
     if x.device != dev:
         raise ValueError(f"{name} is on {x.device}, q on {dev}")
-    if x.shape[-1] != _decode.HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA kernels are written for head_dim {_decode.HEAD_DIM}, "
-            f"got {x.shape[-1]}"
-        )
     if x.stride(-1) != 1 or any(st % 8 for st in x.stride()[:-1]) \
             or x.data_ptr() % 16:
         raise ValueError(
@@ -312,6 +318,7 @@ def shift_kv(
     if block_kv not in (64, 128):
         raise NotImplementedError(
             f"the CUDA shift kernel takes block_kv 64 or 128, got {block_kv}")
+    _head_dim("shift", d, (_decode.HEAD_DIM,))
     # bf16 keys under fp16 operands are rounded on chip
     if k.dtype != op and not (op == torch.float16 and k.dtype == torch.bfloat16):
         k = k.to(op)
@@ -345,6 +352,7 @@ def _attention(q, k, v, *, beta, policy, block_q, block_kv, causal, wrapper):
                 f"the CUDA attention kernel takes {name} 64 or 128, got {block}"
             )
     d = q.shape[-1]
+    _head_dim("attention", d, (_decode.HEAD_DIM,))
     op = policy.input_dtype
     # the recovery multiplier of the GEMM shift is the invariance the
     # rounded M realizes, not the ideal beta/(1-beta)
@@ -434,6 +442,7 @@ def pasa_decode(
     if q.device.type != "cuda":
         raise ValueError(f"no pasa_decode for device {q.device}")
     _cuda_block("block_kv", block_kv, _cdecode.MAX_BLOCK)
+    _head_dim("decode", q.shape[-1], _decode.DECODE_HEAD_DIMS)
     if q.shape[2] > _decode.MAX_GROUP:
         raise NotImplementedError(f"GQA group {q.shape[2]} > {_decode.MAX_GROUP}")
     if k_cache.dtype not in (torch.bfloat16, torch.float16) \
@@ -450,7 +459,7 @@ def pasa_decode(
         q, k_cache, v_cache, kv_len.to(torch.int32).contiguous(),
         beta=beta, policy=policy, block_kv=block_kv,
     )
-    _count(pasa_decode, _decode.mode_name(policy, k_cache.dtype))
+    _count(pasa_decode, _decode.mode_name(policy, k_cache.dtype, q.shape[-1]))
     return out
 
 

@@ -24,6 +24,7 @@ Counterpart of ``repro.kernels.pasa_decode``.
 
 Both compute one new token per sequence with the GQA group as rows: q
 (B, KVH, G, D) against k/v (B, KVH, S2, D), ``kv_len`` (B,) valid rows.
+The kernel takes D 64 or 128 (one instance per width).
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ def _entry(name: str = "pasa_decode_launch") -> ctypes._CFuncPtr:
     fn = getattr(_build.load("pasa_decode"), name)
     n_ptrs = 6 if name == "pasa_decode_launch" else 5   # + the workspace
     fn.argtypes = (
-        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
         + [ctypes.c_longlong] * 3 + [ctypes.c_int] + [ctypes.c_float] * 4
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
@@ -74,8 +75,8 @@ def _entry(name: str = "pasa_decode_launch") -> ctypes._CFuncPtr:
 
 
 def kernel_call(
-    q: torch.Tensor,        # (B, KVH, G, 128) input dtype, contiguous
-    k_cache: torch.Tensor,  # (B, KVH, S2, 128) bf16 or fp16, strided
+    q: torch.Tensor,        # (B, KVH, G, D) input dtype, contiguous
+    k_cache: torch.Tensor,  # (B, KVH, S2, D) bf16 or fp16, strided
     v_cache: torch.Tensor,  # same dtype and strides as k_cache
     kv_len: torch.Tensor,   # (B,) int32
     *,
@@ -83,8 +84,8 @@ def kernel_call(
     policy: PrecisionPolicy,
     block_kv: int,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream.  Arguments are
-    validated by :func:`repro_torch.kernels.ops.pasa_decode`."""
+    """Launch the CUDA kernel on the current stream (D 64 or 128).
+    Arguments are validated by :func:`repro_torch.kernels.ops.pasa_decode`."""
     b, kvh, g, d = q.shape
     n_blocks = -(-k_cache.shape[2] // block_kv)
     # the blocks' partials: P V (B, KVH, n_blocks, G, D) then the row
@@ -112,7 +113,7 @@ def _launch(name, q, k_cache, v_cache, kv_len, workspace, *, beta, policy,
     err = _entry(name)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         kv_len.data_ptr(), out.data_ptr(), *ws,
-        b, kvh, g, k_cache.shape[2], block_kv, *k_cache.stride()[:3],
+        b, kvh, g, d, k_cache.shape[2], block_kv, *k_cache.stride()[:3],
         int(k_cache.dtype == torch.bfloat16),
         *policy_scalars(beta, policy, d),
         torch.cuda.current_stream(q.device).cuda_stream,

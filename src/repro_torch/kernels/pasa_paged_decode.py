@@ -19,7 +19,8 @@ page table, ``kv_len`` (B,) valid positions per sequence.  Raw pools are
 bf16 or fp16; quantized pools (``runtime/paged_cache.py``) are int8 or
 float8_e4m3fn codes with per-(page, kv-head) sidecars ``scale`` (P, KVH)
 and ``shift`` (P, KVH, D), f32, dequantized as ``codes * scale + shift``
-in f32 and rounded once to the policy's input dtype.
+in f32 and rounded once to the policy's input dtype.  The kernel takes
+D 64 or 128 (``DECODE_HEAD_DIMS``; one instance per width).
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels import _build
 from repro_torch.runtime.paged_cache import gather_pages, gather_pages_dequant
 
-HEAD_DIM = 128       # the head width the kernels are written for
+HEAD_DIM = 128       # the head width of the wgmma kernels
+DECODE_HEAD_DIMS = (64, 128)   # the head widths of both decode kernels
 MAX_GROUP = 16       # query heads per kv head the decode kernel holds
 MAX_PAGE = 128       # rows per page the kernels hold in shared memory
 
@@ -132,11 +134,14 @@ def policy_scalars(beta: float, policy: PrecisionPolicy, d: int,
     )
 
 
-def mode_name(policy: PrecisionPolicy, pool_dtype: torch.dtype) -> str:
+def mode_name(policy: PrecisionPolicy, pool_dtype: torch.dtype,
+              head_dim: int = HEAD_DIM) -> str:
     """The key of a kernel mode in the ops' ``launches_by_mode`` counters:
     the policy's name and the dtype of the pool or cache read, e.g.
-    ``"bf16_fp32/bfloat16"``."""
-    return f"{policy.name}/{str(pool_dtype).removeprefix('torch.')}"
+    ``"bf16_fp32/bfloat16"``, and a head width other than 128 after them,
+    e.g. ``"fp16/bfloat16/d64"``."""
+    name = f"{policy.name}/{str(pool_dtype).removeprefix('torch.')}"
+    return name if head_dim == HEAD_DIM else f"{name}/d{head_dim}"
 
 
 def sidecar_ptrs(quant: Optional[dict]) -> list:
@@ -151,7 +156,7 @@ def sidecar_ptrs(quant: Optional[dict]) -> list:
 def _entry() -> ctypes._CFuncPtr:
     fn = _build.load("pasa_paged_decode").pasa_paged_decode_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -159,8 +164,8 @@ def _entry() -> ctypes._CFuncPtr:
 
 
 def kernel_call(
-    q: torch.Tensor,           # (B, KVH, G, 128) at the input dtype, contiguous
-    k_pages: torch.Tensor,     # (P, page, KVH, 128) bf16/fp16 values or
+    q: torch.Tensor,           # (B, KVH, G, D) at the input dtype, contiguous
+    k_pages: torch.Tensor,     # (P, page, KVH, D) bf16/fp16 values or
     v_pages: torch.Tensor,     #   int8/fp8 codes, contiguous
     page_table: torch.Tensor,  # (B, max_pages) int32, contiguous
     kv_len: torch.Tensor,      # (B,) int32
@@ -169,8 +174,8 @@ def kernel_call(
     policy: PrecisionPolicy,
     quant: Optional[dict] = None,   # 8-bit pools: the four f32 sidecars
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream.  Arguments are
-    validated by :func:`repro_torch.kernels.ops.pasa_paged_decode`."""
+    """Launch the CUDA kernel on the current stream (D 64 or 128).
+    Arguments are validated by :func:`repro_torch.kernels.ops.pasa_paged_decode`."""
     b, kvh, g, d = q.shape
     _, page, _, _ = k_pages.shape
     max_pages = page_table.shape[1]
@@ -184,7 +189,7 @@ def kernel_call(
         *sidecar_ptrs(quant),
         page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
         workspace.data_ptr(),
-        b, kvh, g, page, max_pages, POOL_KINDS[k_pages.dtype],
+        b, kvh, g, d, page, max_pages, POOL_KINDS[k_pages.dtype],
         *policy_scalars(beta, policy, d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

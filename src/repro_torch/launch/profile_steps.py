@@ -1,7 +1,8 @@
 """Where the device time of the serving calls goes, on the card.
 
-Builds qwen2-7b (full width; ``--layers`` cuts depth) with random weights
-and profiles the device calls of both serving routes:
+Builds ``--arch`` (qwen2-7b by default; full width, ``--layers`` cuts
+depth) with random weights and profiles the device calls of its serving
+routes.  qwen2-7b, both routes:
 
   * paged: four prompts of 1000/517/300/129 tokens prefilled in 512-token
     chunks through ``prefill_step_paged`` exactly as ``ServeEngine``
@@ -9,6 +10,10 @@ and profiles the device calls of both serving routes:
   * dense (the default route of ``launch/serve.py``): four prompts of
     1000 tokens in one fused prefill (``prefill_logits``), then decoded on
     the dense cache (``serve_step``) from kv 1001.
+
+``--arch zamba2-1.2b`` (the hybrid family, served token by token on the
+dense cache): four prompts of 200 tokens fed through ``serve_step`` into
+a 240-row cache, then the decode call (``hybrid_decode``) from kv 201.
 
 ``--kv-dtype int8`` or ``fp8_e4m3`` serves the paged route from a
 quantized page pool (the quantized mode of the paged kernels; the
@@ -24,6 +29,8 @@ of the unprofiled wall time, and writes the Chrome traces under ``--out``.
 
 Run on one card from the repository root:
   PYTHONPATH=src python -m repro_torch.launch.profile_steps --out build/profile
+  PYTHONPATH=src python -m repro_torch.launch.profile_steps \
+      --arch zamba2-1.2b --out build/profile_hybrid
   PYTHONPATH=src python -m repro_torch.launch.profile_steps --kv-dtype int8 \
       --out build/profile_int8
 """
@@ -41,6 +48,7 @@ PROMPTS = (1000, 517, 300, 129)
 CHUNK = 512
 PAGE = 128
 DENSE_BATCH, DENSE_PROMPT = 4, 1000
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_MAX_LEN = 4, 200, 240
 
 # kernel-name fragment -> category, first match wins
 _KERNELS = (
@@ -115,8 +123,10 @@ def _profile(fn, n_calls: int, trace: Path) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen2-7b",
+                    choices=("qwen2-7b", "zamba2-1.2b"))
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the depth to N layers (default: all 28)")
+                    help="cut the depth to N layers (default: all)")
     ap.add_argument("--decode-calls", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="build/profile")
@@ -134,12 +144,18 @@ def main(argv=None):
     from repro_torch.models.model_zoo import build
 
     dev = resolve_device("cuda")
-    cfg = get_config("qwen2-7b")
+    cfg = get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     bundle = build(cfg)
     params = bundle.init(torch.Generator(device=dev).manual_seed(args.seed), dev)
     rng = np.random.default_rng(args.seed)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    if bundle.prefill is None:
+        report = _profile_token_by_token(args, bundle, params, rng, dev, out)
+        print(json.dumps(report))
+        return report
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPTS]
     n_pages = [math.ceil((n + args.decode_calls + 8) / PAGE) for n in PROMPTS]
     pool = bundle.init_paged_cache(1 + sum(n_pages), PAGE, args.kv_dtype,
@@ -172,8 +188,6 @@ def main(argv=None):
     call_prefill = lambda: bundle.paged_prefill_step(
         params, *first[:4], pool, first[4])
     call_prefill()                                   # warm-up
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
     report = {"arch": cfg.arch_id, "layers": cfg.n_layers,
               "device": torch.cuda.get_device_name(0),
               "kv_dtype": args.kv_dtype}
@@ -225,6 +239,43 @@ def main(argv=None):
                                       out / "trace_dense_decode.json")
     report["dense_decode"]["kv_len_at_first_call"] = [dkv] * DENSE_BATCH
     print(json.dumps(report))
+    return report
+
+
+def _profile_token_by_token(args, bundle, params, rng, dev, out: Path) -> dict:
+    """A family served token by token (the hybrid): HYBRID_BATCH prompts
+    of HYBRID_PROMPT tokens through ``serve_step`` into a
+    HYBRID_MAX_LEN-row cache, then ``--decode-calls`` decode calls under
+    the profiler (after one warm-up call)."""
+    import numpy as np
+    import torch
+
+    cfg = bundle.cfg
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (HYBRID_BATCH, HYBRID_PROMPT)).astype(np.int32)).to(dev)
+    cache = bundle.init_cache(HYBRID_BATCH, HYBRID_MAX_LEN, device=dev)
+    pos = torch.zeros(HYBRID_BATCH, dtype=torch.int32, device=dev)
+    for i in range(HYBRID_PROMPT):
+        logits, cache = bundle.serve_step(params, prompts[:, i], pos, cache)
+        pos = pos + 1
+    token = torch.argmax(logits, -1).to(torch.int32)
+
+    def call_decode():
+        nonlocal pos, token
+        logits, _ = bundle.serve_step(params, token, pos, cache)
+        token = torch.argmax(logits, -1).to(torch.int32)
+        pos = pos + 1
+
+    call_decode()                                    # warm-up
+    if int(pos[0]) + args.decode_calls > HYBRID_MAX_LEN:
+        raise ValueError(f"--decode-calls {args.decode_calls} overruns the "
+                         f"{HYBRID_MAX_LEN}-row cache")
+    kv = int(pos[0]) + 1
+    report = {"arch": cfg.arch_id, "layers": cfg.n_layers,
+              "device": torch.cuda.get_device_name(0)}
+    report["hybrid_decode"] = _profile(call_decode, args.decode_calls,
+                                       out / "trace_hybrid_decode.json")
+    report["hybrid_decode"]["kv_len_at_first_call"] = [kv] * HYBRID_BATCH
     return report
 
 

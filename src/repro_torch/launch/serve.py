@@ -8,13 +8,18 @@ reference does), then serves them on one of two routes:
   * dense (the default, as in the reference): one ``(L, B, max_len,
     kv_dim)`` cache; the whole prompt in ONE fused prefill call
     (``bundle.prefill``), then ``gen - 1`` greedy decode steps
-    (``launch.steps.make_serve_step``);
+    (``launch.steps.make_serve_step``).  A family without a fused prefill
+    (``bundle.prefill is None``: the hybrid zamba2) takes the
+    family-generic token-by-token route instead: every prompt token is
+    fed through the decode step, ``prompt_len + gen - 1`` steps, TTFT at
+    the first sampled token;
   * paged (``--paged``): :class:`repro_torch.runtime.ServeEngine` -
     chunked prefill (default) or token by token (``--no-chunked-prefill``),
     with the radix prefix cache (``--prefix-cache``), preemption
     (``--preemption``, ``--preempt-patience``), a scheduling policy
     (``--scheduler fcfs|sjf|mixed``) and a per-step token budget
-    (``--step-token-budget``).
+    (``--step-token-budget``).  A family without a paged interface
+    (zamba2) refuses it with the engine's ValueError.
 
 Runs on the GPU by default (``--device cpu`` for the plain PyTorch path).
 
@@ -25,9 +30,13 @@ Examples (one H100, full-width qwen2-7b, random weights):
       --paged --batch 4 --prompt-len 512 --gen 32 --prefill-chunk 512
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
       --paged --kv-dtype int8 --batch 4 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --batch 4 --prompt-len 200 --gen 32 --max-len 240
 CPU smoke at the reduced config:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
       --reduced --batch 4 --prompt-len 16 --gen 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --reduced --batch 2 --prompt-len 12 --gen 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
       --reduced --paged --page-size 8 --batch 2 --prompt-len 40 --gen 8 \
       --num-pages 9 --prefix-cache --preemption --preempt-patience 1 \
@@ -155,8 +164,43 @@ def main(argv=None):
     return _serve_dense(args, bundle, params, prompts, dev)
 
 
+def cache_bytes(cache) -> int:
+    """Bytes of every tensor of a (nested) cache dict."""
+    if isinstance(cache, dict):
+        return sum(cache_bytes(x) for x in cache.values())
+    return cache.numel() * cache.element_size()
+
+
+def token_by_token(bundle, params, prompts, gen: int, cache, *, step=None):
+    """The family-generic token-by-token route on the dense cache: every
+    token of ``prompts`` (B, S), on the device, through the decode step,
+    then ``gen`` greedy tokens - ``S + gen - 1`` steps, a step that samples
+    ending in its token's readback.  Returns (generated (B, gen) int32
+    numpy, cache, the ``time.perf_counter()`` at each readback)."""
+    import torch
+
+    from repro_torch.launch.steps import make_serve_step
+
+    step = step or make_serve_step(bundle)
+    b, s = prompts.shape
+    tok = prompts[:, 0]
+    out, times = [], []
+    for i in range(s + gen - 1):
+        pos = torch.full((b,), i, dtype=torch.int32, device=prompts.device)
+        nxt, _, cache = step(params, tok, pos, cache)
+        if i + 1 < s:
+            tok = prompts[:, i + 1]
+        else:
+            out.append(nxt.cpu())
+            times.append(time.perf_counter())
+            tok = nxt
+    return torch.stack(out, dim=1).numpy(), cache, times
+
+
 def _serve_dense(args, bundle, params, prompts, dev):
-    """Fused prefill, then ``gen - 1`` decode steps on the dense cache."""
+    """Fused prefill, then ``gen - 1`` decode steps on the dense cache; or,
+    for a family without a fused prefill, every prompt token through the
+    decode step (``prompt_len + gen - 1`` steps)."""
     import torch
 
     from repro_torch.launch.steps import make_serve_step
@@ -164,25 +208,33 @@ def _serve_dense(args, bundle, params, prompts, dev):
     max_len = args.max_len or (args.prompt_len + args.gen + 8)
     cache = bundle.init_cache(args.batch, max_len, device=dev)
     step = make_serve_step(bundle)
+    prompt_t = torch.from_numpy(prompts).to(dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    logits, cache = bundle.prefill(
-        params, torch.from_numpy(prompts).to(dev), cache)
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    generated = [tok.cpu()]                  # the readback ends the call
-    t_first = time.perf_counter() - t0
-    for i in range(args.prompt_len, args.prompt_len + args.gen - 1):
-        pos = torch.full((args.batch,), i, dtype=torch.int32, device=dev)
-        tok, _, cache = step(params, tok, pos, cache)
-        generated.append(tok.cpu())
+    if bundle.prefill is not None:
+        route = "dense"
+        logits, cache = bundle.prefill(params, prompt_t, cache)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        generated = [tok.cpu()]              # the readback ends the call
+        t_first = time.perf_counter() - t0
+        for i in range(args.prompt_len, args.prompt_len + args.gen - 1):
+            pos = torch.full((args.batch,), i, dtype=torch.int32, device=dev)
+            tok, _, cache = step(params, tok, pos, cache)
+            generated.append(tok.cpu())
+        out = torch.stack(generated, dim=1).numpy()
+        n_steps = args.gen
+    else:
+        route = "dense/token-by-token"
+        out, cache, times = token_by_token(bundle, params, prompt_t, args.gen,
+                                           cache, step=step)
+        t_first = times[0] - t0
+        n_steps = args.prompt_len + args.gen - 1
     dt = time.perf_counter() - t0
-    out = torch.stack(generated, dim=1).numpy()
-    n_steps = args.gen
-    print(f"[dense] {dev} generated {out.shape} tokens in {dt:.3f}s "
-          f"({1000 * dt / max(n_steps, 1):.1f} ms/step, "
+    print(f"[{route}] {dev} generated {out.shape} tokens in {dt:.3f}s "
+          f"({1000 * dt / max(n_steps, 1):.1f} ms/step over {n_steps} steps, "
           f"{out.size / max(dt, 1e-9):.1f} tok/s wall-clock incl. first-call "
-          f"set-up), cache {max_len} rows {cache['k'].dtype}, "
+          f"set-up), cache {max_len} rows {cache_bytes(cache) / 1e6:.2f} MB, "
           f"TTFT {1000 * t_first:.1f} ms")
     print("sample:", out[0][:16])
     return out

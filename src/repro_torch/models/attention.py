@@ -1,9 +1,9 @@
 """GQA attention of the dense family: dense-cache and paged serving branches.
 
-Counterpart of the cache branches of ``repro.models.attention.attention``
-(raw caches).  Every branch writes the step's K/V into the layer's cache
-IN PLACE first and then attends with a kernel op - a cache is never
-gathered, cast or copied on the card:
+Counterpart of the self-attention branches of
+``repro.models.attention.attention``.  Every cache branch writes the
+step's K/V into the layer's cache IN PLACE first and then attends with a
+kernel op - a cache is never gathered, cast or copied on the card:
 
   * dense prefill (``prefill_cache=True``, no page table): the prompt's
     K/V go to cache rows ``[0, S)``; attention is over the fresh K/V,
@@ -23,6 +23,9 @@ gathered, cast or copied on the card:
     with shift blocks == pages (``ops.pasa_paged_prefill``).
   * paged decode: one token per row written at ``pos``, attending over
     ``pos + 1`` positions (``ops.pasa_paged_decode``).
+  * no cache (``cache=None``, the hybrid family's whole-sequence
+    forward): the dense prefill's causal attention over the fresh K/V,
+    with nothing written.
 
 On a quantized pool (int8 / fp8_e4m3 codes with scale/shift sidecars,
 ``runtime/paged_cache.py``) the writes quantize, as the reference's
@@ -77,10 +80,11 @@ def attention(
     p: dict,                      # one layer's attention params
     cfg: ModelConfig,
     *,
-    cache: dict,                  # {"k", "v"}: this layer's (B, max_len,
+    cache: Optional[dict] = None,  # {"k", "v"}: this layer's (B, max_len,
                                   # kv_dim) dense cache or (P, page, kv_dim)
                                   # page pool (+ the sidecars of a
-                                  # quantized pool)
+                                  # quantized pool); None: causal attention
+                                  # over the fresh K/V
     pos: Optional[torch.Tensor] = None,   # (B,) write position / chunk
                                           # start (None: dense prefill at 0)
     page_table: Optional[torch.Tensor] = None,    # (B, max_pages) -> paged
@@ -112,7 +116,7 @@ def attention(
     if page_table is not None:
         out = _paged(q, k, v, cfg, cache, pos, page_table, prefill_cache,
                      prefill_len)
-    elif prefill_cache:
+    elif prefill_cache or cache is None:
         out = _dense_prefill(q, k, v, cfg, cache)
     else:
         out = _dense_decode(q, k, v, cfg, cache, pos)
@@ -147,10 +151,11 @@ def _naive(q, k, v, *, causal: bool, kv_len=None, q_offset=0) -> torch.Tensor:
     return out.to(q.dtype).movedim(1, 2).reshape(b, s1, h * hd)
 
 
-def _dense_prefill(q, k, v, cfg: ModelConfig, cache: dict) -> torch.Tensor:
-    """Write rows [0, S) of the dense cache, then causal attention over
-    the fresh K/V: GEMM-shift PASA, FlashAttention-2 or naive.  q (B, S,
-    H, hd), k/v (B, S, KVH, hd)."""
+def _dense_prefill(q, k, v, cfg: ModelConfig,
+                   cache: Optional[dict]) -> torch.Tensor:
+    """Write rows [0, S) of the dense cache (if any), then causal
+    attention over the fresh K/V: GEMM-shift PASA, FlashAttention-2 or
+    naive.  q (B, S, H, hd), k/v (B, S, KVH, hd)."""
     ac = cfg.attention
     if not (ac.use_gemm_shift and ac.expand_kv):
         raise NotImplementedError(
@@ -159,8 +164,9 @@ def _dense_prefill(q, k, v, cfg: ModelConfig, cache: dict) -> torch.Tensor:
         )
     b, s, h, hd = q.shape
     kvh = k.shape[2]
-    cache["k"][:, :s].copy_(k.reshape(b, s, kvh * hd))
-    cache["v"][:, :s].copy_(v.reshape(b, s, kvh * hd))
+    if cache is not None:
+        cache["k"][:, :s].copy_(k.reshape(b, s, kvh * hd))
+        cache["v"][:, :s].copy_(v.reshape(b, s, kvh * hd))
     if ac.impl == "naive":
         return _naive(q, k, v, causal=True)
     policy, beta = _policy_beta(cfg)

@@ -1,5 +1,5 @@
-"""Parameters of the dense transformer: carried across from the reference,
-or drawn at random on the device.
+"""Parameters of the dense transformer and of the hybrid (zamba2) model:
+carried across from the reference, or drawn at random on the device.
 
 Both produce the layout of the reference's ``transformer.init_lm``::
 
@@ -9,13 +9,26 @@ Both produce the layout of the reference's ``transformer.init_lm``::
                          "wo": (L, H*hd, D), "bq"/"bk"/"bv": (L, n)},
                 "mlp": {"w1"/"w3": (L, D, F), "w2": (L, F, D)}}}
 
+or of its ``hybrid.init_hybrid`` (Di = expand * D, NH = Di / head_p,
+N = the SSM state, K = d_conv)::
+
+    {"embed": (V, D), "final_norm": (D,), "lm_head": (D, V),
+     "mamba": {"in_proj": (L, D, 2 Di + 2 N + NH), "conv_w": (L, Di, K),
+               "conv_b": (L, Di), "a_log", "dt_bias", "d_skip": (L, NH),
+               "norm_w": (L, Di), "out_proj": (L, Di, D)},
+     "mamba_ln": (L, D),
+     "shared": {"ln1", "ln2": (D,), "attn": {"wq", "wk", "wv", "wo"},
+                "mlp": {"w1", "w3", "w2"}}}
+
 Each weight is stored at the dtype the reference casts it to before use,
 not at the reference's fp32 parameter dtype: the compute dtype (bf16) for
 the projections, MLP, embedding, norms and biases, and fp32 for
-``lm_head`` (the logits GEMM runs in fp32).  Rounding fp32 -> bf16 once at
-load gives the same values as rounding at every use, and halves the
-memory of a full-width model (about 14 GB in bf16 for qwen2-7b, plus
-2.2 GB for the fp32 head).
+``lm_head`` (the logits GEMM runs in fp32) and for the Mamba weights the
+reference reads in fp32 (``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``,
+``d_skip``).  Rounding fp32 -> bf16 once at load gives the same values as
+rounding at every use, and halves the memory of a full-width model (about
+14 GB in bf16 for qwen2-7b, plus 2.2 GB for the fp32 head; 2.4 GB for
+zamba2-1.2b, plus 0.26 GB for its head).
 """
 
 from __future__ import annotations
@@ -29,13 +42,20 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 
 
+# the leaves the reference reads in fp32 whatever the compute dtype
+FP32_LEAVES = (("lm_head",), ("mamba", "conv_w"), ("mamba", "conv_b"),
+               ("mamba", "a_log"), ("mamba", "dt_bias"), ("mamba", "d_skip"))
+
+
 def _leaf_dtype(path: tuple, cfg: ModelConfig) -> torch.dtype:
-    return torch.float32 if path == ("lm_head",) else cfg.torch_compute_dtype()
+    return (torch.float32 if path in FP32_LEAVES
+            else cfg.torch_compute_dtype())
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
-    """The reference's ``init_lm`` pytree, given as nested dicts of numpy
-    arrays, -> the port's parameters on ``device``."""
+    """The reference's ``init_lm`` or ``init_hybrid`` pytree, given as
+    nested dicts of numpy arrays, -> the port's parameters on
+    ``device``."""
     dev = resolve_device(device)
 
     def conv(node, path):
@@ -62,44 +82,102 @@ def _normal(shape, scale, dtype, generator, device) -> torch.Tensor:
     return out
 
 
+class _Draw:
+    """Random leaves on one device from one generator, with the
+    reference's distributions: N(0, scale^2) drawn in fp32 (projections
+    N(0, 1/d_in)), constants for norms and biases."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
+        self.cd = cfg.torch_compute_dtype()
+        self.gen = generator
+        self.dev = device
+
+    def normal(self, shape, scale, dtype=None):
+        return _normal(shape, scale, dtype or self.cd, self.gen, self.dev)
+
+    def dense(self, d_in, d_out, n_stack=None, dtype=None):
+        shape = (d_in, d_out) if n_stack is None else (n_stack, d_in, d_out)
+        return self.normal(shape, 1.0 / math.sqrt(d_in), dtype)
+
+    def const(self, shape, value, dtype=None):
+        return torch.full(shape, value, dtype=dtype or self.cd,
+                          device=self.dev)
+
+    def attention(self, cfg: ModelConfig, n_stack=None) -> dict:
+        """The reference's ``init_attention`` layout (one layer, or
+        stacked over ``n_stack`` layers)."""
+        d = cfg.d_model
+        stack = lambda n: (n,) if n_stack is None else (n_stack, n)
+        attn = {
+            "wq": self.dense(d, cfg.q_dim, n_stack),
+            "wk": self.dense(d, cfg.kv_dim, n_stack),
+            "wv": self.dense(d, cfg.kv_dim, n_stack),
+            "wo": self.dense(cfg.q_dim, d, n_stack),
+        }
+        if cfg.qkv_bias:
+            attn["bq"] = self.const(stack(cfg.q_dim), 0.0)
+            attn["bk"] = self.const(stack(cfg.kv_dim), 0.0)
+            attn["bv"] = self.const(stack(cfg.kv_dim), 0.0)
+        return attn
+
+    def mlp(self, d, f, n_stack=None) -> dict:
+        return {"w1": self.dense(d, f, n_stack), "w3": self.dense(d, f, n_stack),
+                "w2": self.dense(f, d, n_stack)}
+
+
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
     """Random parameters with the reference's distributions: embedding
     N(0, 1); projections N(0, 1/d_in); norm weights 1; biases 0.  The
     generator must live on ``device``.  Different draws from the
     reference's (jax.random vs torch), same distributions."""
-    dev = resolve_device(device)
-    cd = cfg.torch_compute_dtype()
-    nl, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
-
-    def dense(d_in, d_out, n_stack=None, dtype=cd):
-        shape = (d_in, d_out) if n_stack is None else (n_stack, d_in, d_out)
-        return _normal(shape, 1.0 / math.sqrt(d_in), dtype, generator, dev)
-
-    def const(shape, value):
-        return torch.full(shape, value, dtype=cd, device=dev)
-
-    attn = {
-        "wq": dense(d, cfg.q_dim, nl),
-        "wk": dense(d, cfg.kv_dim, nl),
-        "wv": dense(d, cfg.kv_dim, nl),
-        "wo": dense(cfg.q_dim, d, nl),
-    }
-    if cfg.qkv_bias:
-        attn["bq"] = const((nl, cfg.q_dim), 0.0)
-        attn["bk"] = const((nl, cfg.kv_dim), 0.0)
-        attn["bv"] = const((nl, cfg.kv_dim), 0.0)
+    r = _Draw(cfg, generator, resolve_device(device))
+    nl, d = cfg.n_layers, cfg.d_model
+    attn = r.attention(cfg, nl)        # drawn first, then the embedding
     return {
-        "embed": _normal((cfg.vocab_size, d), 1.0, cd, generator, dev),
+        "embed": r.normal((cfg.vocab_size, d), 1.0),
         "blocks": {
-            "ln1": const((nl, d), 1.0),
-            "ln2": const((nl, d), 1.0),
+            "ln1": r.const((nl, d), 1.0),
+            "ln2": r.const((nl, d), 1.0),
             "attn": attn,
-            "mlp": {
-                "w1": dense(d, f, nl),
-                "w3": dense(d, f, nl),
-                "w2": dense(f, d, nl),
-            },
+            "mlp": r.mlp(d, cfg.d_ff, nl),
         },
-        "final_norm": const((d,), 1.0),
-        "lm_head": dense(d, cfg.vocab_size, dtype=torch.float32),
+        "final_norm": r.const((d,), 1.0),
+        "lm_head": r.dense(d, cfg.vocab_size, dtype=torch.float32),
+    }
+
+
+def init_hybrid(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random parameters of the hybrid model with the reference's
+    distributions (``hybrid.init_hybrid``, ``ssm.init_mamba2``): as
+    :func:`init_lm` for the embedding, the shared block and the head;
+    Mamba ``in_proj`` / ``out_proj`` N(0, 1/d_in), ``conv_w``
+    N(0, 1/d_conv), ``conv_b`` and ``a_log`` 0, ``dt_bias`` -4, ``d_skip``
+    and the norm weights 1."""
+    r = _Draw(cfg, generator, resolve_device(device))
+    nl, d = cfg.n_layers, cfg.d_model
+    di, n, k = cfg.ssm.expand * d, cfg.ssm.state, cfg.ssm.d_conv
+    nh = di // cfg.ssm.head_p
+    f32 = torch.float32
+    return {
+        "embed": r.normal((cfg.vocab_size, d), 1.0),
+        "mamba": {
+            "in_proj": r.dense(d, 2 * di + 2 * n + nh, nl),
+            "conv_w": r.normal((nl, di, k), 1.0 / math.sqrt(k), f32),
+            "conv_b": r.const((nl, di), 0.0, f32),
+            "a_log": r.const((nl, nh), 0.0, f32),
+            "dt_bias": r.const((nl, nh), -4.0, f32),
+            "d_skip": r.const((nl, nh), 1.0, f32),
+            "norm_w": r.const((nl, di), 1.0),
+            "out_proj": r.dense(di, d, nl),
+        },
+        "mamba_ln": r.const((nl, d), 1.0),
+        "shared": {
+            "ln1": r.const((d,), 1.0),
+            "attn": r.attention(cfg),
+            "ln2": r.const((d,), 1.0),
+            "mlp": r.mlp(d, cfg.d_ff),
+        },
+        "final_norm": r.const((d,), 1.0),
+        "lm_head": r.dense(d, cfg.vocab_size, dtype=f32),
     }

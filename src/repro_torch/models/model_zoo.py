@@ -1,20 +1,24 @@
 """build(cfg) -> ModelBundle (counterpart of ``repro.models.model_zoo``).
 
-Only the dense family's serving interfaces are ported: the dense route
-(``launch/serve.py``) needs ``init_cache``, ``serve_step`` and
-``prefill``; the paged engine ``init_paged_cache``, ``paged_serve_step``
-and ``paged_prefill_step``.
+Two families are ported.  The dense family has both serving routes: the
+dense route (``launch/serve.py``) needs ``init_cache``, ``serve_step``
+and ``prefill``; the paged engine ``init_paged_cache``,
+``paged_serve_step`` and ``paged_prefill_step``.  The hybrid family
+(zamba2: Mamba-2 + a shared attention block) has the dense cache only,
+served token by token: ``init_cache`` and ``serve_step``; its ``prefill``
+and the three paged fields are None (its Mamba state is O(1) per
+sequence, nothing to page), as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import convert, transformer
+from repro_torch.models import convert, hybrid, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,22 +31,45 @@ class ModelBundle:
     #   (params, token (B,), pos (B,), cache) -> (logits (B, V), cache)
     serve_step: Callable[..., tuple]
     #   (params, tokens (B, S), cache) -> (last-position logits (B, V), cache)
-    prefill: Callable[..., tuple]
+    #   Fused whole-prompt prefill on the dense cache; None: the dense
+    #   route feeds the prompt token by token through serve_step.
+    prefill: Optional[Callable[..., tuple]] = None
     #   (num_pages, page_size, dtype=..., device=...) -> pool (a quantized
     #   dtype adds the scale/shift sidecars)
-    init_paged_cache: Callable[..., dict]
+    init_paged_cache: Optional[Callable[..., dict]] = None
     #   (params, token (B,), pos (B,), pool, page_table (B, mp))
     #   -> (logits (B, V), pool)
-    paged_serve_step: Callable[..., tuple]
+    paged_serve_step: Optional[Callable[..., tuple]] = None
     #   (params, tokens (B, CS), start (B,), kv_len (B,), last_idx (B,),
     #    pool, page_table (B, mp)) -> (logits (B, V), pool)
-    paged_prefill_step: Callable[..., tuple]
+    paged_prefill_step: Optional[Callable[..., tuple]] = None
+
+    @property
+    def supports_paged(self) -> bool:
+        return self.init_paged_cache is not None
+
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        return self.paged_prefill_step is not None
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
     cfg.validate()
     if cfg.qk_norm:
         raise NotImplementedError("qk-norm attention is not ported yet")
+    if cfg.family == "hybrid":
+        return ModelBundle(
+            cfg=cfg,
+            init=lambda generator, device=None: convert.init_hybrid(
+                cfg, generator, device
+            ),
+            init_cache=lambda batch, max_len, dtype=torch.bfloat16, *, device: (
+                hybrid.init_cache(cfg, batch, max_len, dtype, device=device)
+            ),
+            serve_step=lambda p, t, pos, c: hybrid.serve_step(
+                p, cfg, t, pos, c
+            ),
+        )
     return ModelBundle(
         cfg=cfg,
         init=lambda generator, device=None: convert.init_lm(

@@ -225,6 +225,11 @@ class ServeEngine:
                  preemption: bool = False, preempt_patience: int = 4,
                  trim_high: Optional[float] = None,
                  trim_low: Optional[float] = None):
+        if not bundle.supports_paged:
+            raise ValueError(
+                f"family {bundle.cfg.family!r} has no paged serving path; "
+                "use the dense cache (launch/serve.py default)"
+            )
         self.bundle = bundle
         self.params = params
         self.device = params["embed"].device

@@ -123,8 +123,8 @@ def test_shift_kv_matches_reference_kernel(pols):
     np.testing.assert_allclose(_np(got), _np(want), atol=SHIFT_ATOL)
 
 
-def _decode_case(kv_lens, seed=4, stale=0.0):
-    b, kvh, g, d, s2 = 2, 2, 4, 64, 512
+def _decode_case(kv_lens, seed=4, stale=0.0, kvh=2, g=4):
+    b, d, s2 = 2, 64, 512
     rng = np.random.default_rng(seed)
     q = (rng.standard_normal((b, kvh, g, d)) + 1.0).astype(np.float32)
     k = (rng.standard_normal((b, kvh, s2, d)) + 2.0).astype(np.float32)
@@ -153,6 +153,25 @@ def test_pasa_decode_matches_reference(kv_lens, beta, block_kv):
                              policy=R_FP16, block_kv=block_kv)
     np.testing.assert_allclose(_np(got), _np(oracle), **DECODE_TOL)
     for i, n in enumerate(kv_lens):
+        gold = naive_attention(tq[i:i + 1], tk[i:i + 1, :, :n],
+                               tv[i:i + 1, :, :n], dtype=torch.float64)
+        assert float((got[i:i + 1].double() - gold).norm() / gold.norm()) < 0.03
+
+
+@pytest.mark.parametrize("block_kv", [128, 256])
+@pytest.mark.parametrize("beta", [0.0, 0.9375])
+def test_pasa_decode_matches_reference_at_zamba2_group(beta, block_kv):
+    """head_dim 64 with one query head per kv head (zamba2-1.2b's shared
+    attention block: 32 / 32 heads), 8 kv heads, a ragged and a full row,
+    against the reference's interpret-mode Pallas decode and float64."""
+    q, k, v, kv_len = _decode_case([300, 512], seed=6, kvh=8, g=1)
+    (jq, jk, jv, jl), (tq, tk, tv, tl) = _both(q, k, v, kv_len)
+    got = ops.pasa_decode(tq, tk, tv, tl, beta=beta, policy=FP16,
+                          block_kv=block_kv)
+    want = RK.pasa_decode(jq, jk, jv, jl, beta=beta, policy=R_FP16,
+                          block_kv=block_kv, **I)
+    np.testing.assert_allclose(_np(got), _np(want), **DECODE_TOL)
+    for i, n in enumerate([300, 512]):
         gold = naive_attention(tq[i:i + 1], tk[i:i + 1, :, :n],
                                tv[i:i + 1, :, :n], dtype=torch.float64)
         assert float((got[i:i + 1].double() - gold).norm() / gold.norm()) < 0.03

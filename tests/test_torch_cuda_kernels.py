@@ -124,8 +124,8 @@ def test_unsupported_inputs_raise_instead_of_falling_back():
     with pytest.raises(ValueError):
         ops.pasa_paged_decode(q, kp, vp, table, kvl, block_kv=64)
     with pytest.raises(NotImplementedError):
-        ops.pasa_paged_decode(q[..., :64], kp[..., :64].contiguous(),
-                              vp[..., :64].contiguous(), table, kvl)
+        ops.pasa_paged_decode(q[..., :32], kp[..., :32].contiguous(),
+                              vp[..., :32].contiguous(), table, kvl)
 
 
 def _quantized(kp, vp, table, seq_lens, dtype):
@@ -383,8 +383,26 @@ def test_unsupported_dense_inputs_raise_before_any_launch():
     for block in (32, 256):         # the shift kernel takes 64 or 128
         with pytest.raises(NotImplementedError):
             ops.shift_kv(k2, block_kv=block)
+    # head widths: the decodes take 64 and 128; attention, shift-KV and
+    # paged prefill 128 only
+    with pytest.raises(NotImplementedError):
+        ops.shift_kv(k[..., :64].contiguous())
+    with pytest.raises(NotImplementedError):
+        ops.flash_attention(q[..., :64], k[..., :64], k[..., :64])
+    pool = torch.zeros((2, 128, 2, 64), dtype=torch.bfloat16, device=dev)
+    table = torch.ones((1, 1), dtype=torch.int32, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError):
+        ops.pasa_paged_prefill(q[:, :, :16, :64].contiguous(), pool, pool,
+                               table, zero, kvl)
+    with pytest.raises(NotImplementedError):
+        ops.pasa_decode(qd[..., :32], k[..., :32], k[..., :32], kvl)
+    with pytest.raises(NotImplementedError):
+        ops.pasa_paged_decode(qd[..., :32], pool[..., :32].contiguous(),
+                              pool[..., :32].contiguous(), table, kvl)
     assert ops.shift_kv.launches == ops.pasa_attention.launches == 0
-    assert ops.pasa_decode.launches == 0
+    assert ops.flash_attention.launches == ops.pasa_paged_prefill.launches == 0
+    assert ops.pasa_decode.launches == ops.pasa_paged_decode.launches == 0
 
 
 def _decode_gold(q, kc, vc, kv_lens):
@@ -1029,3 +1047,101 @@ def test_flash_serve_on_card_batched_equals_one_at_a_time(route):
         solo = alone.submit(p, gen)
         alone.run_to_completion()
         assert solo.generated == r.generated
+
+
+# head_dim 64 (zamba2-1.2b's shared attention block): both decode kernels,
+# every policy mode, at zamba2's shape (KVH 32, G 1) and a GQA group (KVH
+# 4, G 8)
+HD64_SHAPES = [(32, 1), (4, 8)]
+ALL_MODES = [FP16, FP16_FP32, FP32, BF16_FP32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvh,g", HD64_SHAPES, ids=["kvh32_g1", "kvh4_g8"])
+@pytest.mark.parametrize("policy", ALL_MODES, ids=lambda p: p.name)
+def test_decodes_at_head_dim_64(policy, kvh, g):
+    """At head_dim 64 paged decode == contiguous decode == the walk, bit
+    for bit, at block 128 (and contiguous == walk at 256), each within the
+    decode bar of its plain version and relative RMSE 0.03 of float64, at
+    kv_len 1, 127, 128, 1000 and 4095 (NaN past kv_len), PASA and
+    FlashAttention-2; launches counted under the d64 mode."""
+    dev = _card()
+    rng = np.random.default_rng(31)
+    d, page = 64, 128
+    kv_lens = [1, 127, 128, 1000, 4095]
+    kp, vp, table = _pool(rng, kv_lens, kvh, page, dev, d=d)
+    n = table.shape[1] * page
+    kc = kp[table.long()].reshape(len(kv_lens), n, kvh, d)
+    vc = vp[table.long()].reshape(len(kv_lens), n, kvh, d)
+    kview, vview = kc.transpose(1, 2), vc.transpose(1, 2)
+    q = _randn(rng, (len(kv_lens), kvh, g, d), 0.0, dev)
+    qp = q.to(policy.input_dtype)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    gold = _decode_gold(q, kc, vc, kv_lens)
+    ops.reset_launches()
+    for beta in (0.0, BETA):
+        paged = ops.pasa_paged_decode(q, kp, vp, table, kvl, beta=beta,
+                                      policy=policy)
+        assert paged.dtype == policy.out_dtype
+        assert torch.isfinite(paged.float()).all()
+        for block in (page, 256):
+            contiguous = ops.pasa_decode(q, kview, vview, kvl, beta=beta,
+                                         policy=policy, block_kv=block)
+            walk = cmod._walk_call(qp, kview, vview, kvl, beta=beta,
+                                   policy=policy, block_kv=block)
+            assert torch.equal(contiguous, walk), (beta, block)
+            if block == page:
+                assert torch.equal(contiguous, paged), beta
+            plain = cmod.decode_plain(q, kview, vview, kvl, beta=beta,
+                                      policy=policy, block_kv=block)
+            torch.testing.assert_close(contiguous.float(), plain.float(),
+                                       **DECODE_TOL)
+            assert _rel_rmse(contiguous, gold) < 0.03
+        plain = dmod.paged_decode_plain(q, kp, vp, table, kvl, beta=beta,
+                                        policy=policy, block_kv=page)
+        torch.testing.assert_close(paged.float(), plain.float(), **DECODE_TOL)
+    mode = dmod.mode_name(policy, torch.bfloat16, d)
+    assert mode.endswith("/d64")
+    assert ops.pasa_paged_decode.launches_by_mode == {mode: 2}
+    assert ops.pasa_decode.launches_by_mode == {mode: 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("policy", ALL_MODES, ids=lambda p: p.name)
+def test_quantized_paged_decode_at_head_dim_64(policy, dtype):
+    """The quantized mode of paged decode at head_dim 64 (KVH 32, G 1):
+    within the decode bar of its plain version on the same codes and
+    sidecars, within the dtype's RMSE bound of float64 attention on the
+    unquantized K/V (fp16: within max(2 x the raw pool's, the bound)), and
+    NaN debris past kv_len and NaN sidecars on dead pages inert bit for
+    bit."""
+    dev = _card()
+    rng = np.random.default_rng(32)
+    kvh, g, d, page = 32, 1, 64, 128
+    kv_len = [1, 300, 1000]
+    kp, vp, table = _pool(rng, kv_len, kvh, page, dev, d=d)
+    kq, vq, quant, valid = _quantized(kp, vp, table, kv_len, dtype)
+    q = _randn(rng, (3, kvh, g, d), 0.0, dev)
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    gold = _paged_gold(q, kp, vp, table, [0] * 3, kv_len, causal=False)
+    raw = ops.pasa_paged_decode(q, kp, vp, table, kvl, beta=BETA, policy=FP16)
+    got = ops.pasa_paged_decode(q, kq, vq, table, kvl, beta=BETA,
+                                policy=policy, **quant)
+    want = dmod.paged_decode_plain(q, kq, vq, table, kvl, beta=BETA,
+                                   policy=policy, block_kv=page, **quant)
+    torch.testing.assert_close(got.float(), want.float(), **DECODE_TOL)
+    bound = QUANT_RMSE_BOUND[dtype]
+    if policy is FP16:
+        bound = max(2.0 * _rel_rmse(raw, gold), bound)
+    assert _rel_rmse(got, gold) <= bound
+    assert _rel_rmse(want, gold) <= bound
+    bad = float("nan") if dtype == "fp8_e4m3" else 127.0
+    stale = ~valid[..., None, None]
+    kq2, vq2 = (torch.where(stale, bad, x.float()).to(x.dtype) for x in (kq, vq))
+    dead = ~valid.any(1)
+    quant2 = {n: torch.where(dead.reshape((-1,) + (1,) * (x.dim() - 1)),
+                             float("nan"), x) for n, x in quant.items()}
+    dirty = ops.pasa_paged_decode(q, kq2, vq2, table, kvl, beta=BETA,
+                                  policy=policy, **quant2)
+    assert torch.equal(got, dirty)

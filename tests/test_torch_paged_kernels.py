@@ -55,9 +55,9 @@ def _t(*arrs):
     return [torch.from_numpy(np.asarray(a)) for a in arrs]
 
 
-def _decode_case(seed=0):
+def _decode_case(seed=0, kvh=2, g=3, d=32):
     rng = np.random.default_rng(seed)
-    kvh, g, d, page = 2, 3, 32, 16
+    page = 16
     kv_len = np.array([37, 16, 1], np.int32)
     k, v, table = _pool(rng, kv_len, kvh, d, page)
     q = (rng.standard_normal((3, kvh, g, d)) + 1.0).astype(np.float32)
@@ -80,7 +80,20 @@ def _prefill_case(seed=1):
 @pytest.mark.parametrize("beta", [0.0, BETA])
 @pytest.mark.parametrize("ref_route", ["xla", "pallas_interpret"])
 def test_decode_plain_matches_reference(ref_route, beta):
-    q, k, v, table, kv_len = _decode_case()
+    _check_decode_plain(_decode_case(), ref_route, beta)
+
+
+# head_dim 64, the card's second decode width: zamba2's shared attention
+# block (one query head per kv head) and a GQA group
+@pytest.mark.parametrize("kvh,g", [(4, 1), (2, 8)], ids=["g1", "g8"])
+@pytest.mark.parametrize("beta", [0.0, BETA])
+@pytest.mark.parametrize("ref_route", ["xla", "pallas_interpret"])
+def test_decode_plain_matches_reference_at_head_dim_64(ref_route, beta, kvh, g):
+    _check_decode_plain(_decode_case(kvh=kvh, g=g, d=64), ref_route, beta)
+
+
+def _check_decode_plain(case, ref_route, beta):
+    q, k, v, table, kv_len = case
     kw = (dict(use_kernel=False) if ref_route == "xla"
           else dict(interpret=True))
     ref = RK.pasa_paged_decode(
