@@ -92,7 +92,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      all four policies; blocks 128 and 256; raw, int8 and fp8_e4m3 pools)
      to their plain versions and float64, contiguous == paged == walk bit
      for bit; in the kernels line each decode kernel has a ``/d64`` entry
-     with the hybrid serve's count (0 for paged decode).
+     with the hybrid serve's count (0 for paged decode);
+  8. the audio family: whisper-large-v3 at full width and depth (32
+     encoder and 32 decoder layers, d 1280, 20 / 20 heads of 64; random
+     weights from seed 0) encodes four clips of 1,500 frame embeddings
+     once into the cache's ``enc_out``, then serves four 64-token
+     prompts, 32 greedy tokens each, token by token (``serve_whisper``):
+     per step 32 contiguous decodes, 32 shift-KV and 32 attention
+     launches (the cross-attention), per encode 32 + 32, all at head_dim
+     64 and no other kernel; batched == one-at-a-time streams; the first
+     generated step's logits against the plain versions' on the card.
+     Before it, in phase 2, ``check_shift_kv_hd64`` (every shift mode at
+     the encoder's keys) and ``check_attention_hd64`` (the four policies
+     at beta 0 and BETA on the encoder's call with the column limit
+     kv_valid 1500 of 1536 rows, the one-query cross call, a limit of S2
+     - 127, no limit, causal), each timed beside its library call; in the
+     kernels line ``shift_kv/d64`` and ``pasa_attention/d64`` have the
+     whisper serve's count (its encode included), and one entry each
+     gathers their other d64 modes.
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -172,6 +189,27 @@ HD64_SHAPES = ((32, 1), (4, 8))
 HYBRID_BATCH, HYBRID_PROMPT, HYBRID_MAX_LEN = 4, 200, 240
 HYBRID_ALONE = (0, 3)
 HYBRID_LOGIT_ATOL = 0.1
+# head_dim 64 of shift-KV and attention (whisper-large-v3: 20 / 20 heads
+# of 64): the encoder's shape, (B 4, H 20, 1536 rows, D 64) with the
+# column limit at its 1500 frames; the cross-attention's, one query row
+# padded to 64 against the same keys; a limit of S2 - block_kv + 1; no
+# limit.  The whisper serve: four 64-token prompts, 32 greedy tokens each,
+# token by token (95 steps) on a 104-row cache, from the encoder output of
+# (4, 1500, 1280) frames drawn from seed 0, first-step logits held to the
+# plain versions' within HYBRID_LOGIT_ATOL
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_S2 = 4, 1500, 1536
+WHISPER_PROMPT, WHISPER_MAX_LEN = 64, 104
+WHISPER_ALONE = (0, 3)
+# PASA at bf16 operands (bf16_fp32, beta 0.984497) on the non-causal
+# whisper fixtures: the reference's algorithm itself (the plain version)
+# is 0.027 from float64 at the encoder's shape (queries of mean 0, keys of
+# mean 2; measured on the CPU), 0.056 on one query row at a smaller shape,
+# past ATTN_RMSE_MAX - K' rounded to bf16, its s-bar error multiplied by
+# inva ~ 63, on a flat softmax whose output is small against V.  There
+# the kernel is held to the plain version (ATTN_TOL) and within
+# BF16_PASA_RMSE_RATIO x the plain version's RMSE, which is reported;
+# every other mode within ATTN_RMSE_MAX
+BF16_PASA_RMSE_RATIO = 1.25
 
 
 def _kernel_module(name: str):
@@ -264,7 +302,7 @@ def _sdpa_at(inputs, **kw):
 
 def _is_hd64(entry) -> bool:
     """An entry of a decode kernel's head_dim 64 mode."""
-    return entry["name"].endswith("/d64")
+    return entry["name"] in ("pasa_paged_decode/d64", "pasa_decode/d64")
 
 
 def _is_new_mode(entry) -> bool:
@@ -1473,6 +1511,217 @@ def _serve_shape_hybrid_decode(dev):
     return dict(serve_shape_ms=ms, serve_shape_library_ms=lib_ms)
 
 
+def check_shift_kv_hd64(dev):
+    """The shift kernel at head_dim 64 in each of its modes at the
+    whisper encoder's keys (4, 20, 1536, 64), bf16 (B, S, KVH, D) read
+    through strides (fp16 in the fp16-keys modes): the path's mode (bf16
+    keys under fp16 operands, block 128) first, then fp16 keys and the
+    bf16_fp32 policy's bf16 operands, each at blocks 128 and 64.  Each
+    against its plain version (SHIFT_TOL) and the float64 product with the
+    same M (relative RMSE SHIFT_RMSE_MAX; the fp16 modes also against the
+    float64 algebraic shift).  Timed beside torch.matmul(M, K blocks) on
+    contiguous keys at the operand dtype and the bytes bound.  Each entry
+    names the launch counter key of its mode (``whisper_mode``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.precision import BF16_FP32, FP16
+    from repro_torch.core.shifting import shift_kv_reference
+    from repro_torch.kernels import ops
+    mod = _kernel_module("shift_kv")
+
+    b, kvh, s, d = WHISPER_BATCH, 20, WHISPER_S2, 64
+    rng = np.random.default_rng(10)
+    keys = _randn(rng, (b, s, kvh, d), 5.0, dev, torch.float32)
+    modes = []
+    for block in (128, 64):
+        for tag, kdt, policy in (("", torch.bfloat16, FP16),
+                                 ("fp16_keys", torch.float16, FP16),
+                                 ("bf16_fp32", torch.bfloat16, BF16_FP32)):
+            tag = "_".join(x for x in ("d64", tag, "" if block == 128 else
+                                       f"block{block}") if x)
+            op = policy.input_dtype
+            k = keys.to(kdt).transpose(1, 2)
+            m = mod.device_matrix(block, d, BETA, op, dev)
+            run = lambda k=k, block=block, policy=policy: ops.shift_kv(
+                k, beta=BETA, block_kv=block, policy=policy)
+            plain_of = lambda k=k, m=m, block=block, op=op: mod.shift_kv_plain(
+                m, k.to(op), block, out_dtype=op)
+            got, plain = run(), plain_of()
+            torch.cuda.synchronize()
+            name = f"shift_kv/{tag}"
+            max_err = _close(name, got, plain, **SHIFT_TOL)
+            kb = k.to(op).contiguous().reshape(b, kvh, s // block, block, d)
+            gold = torch.matmul(m.double(), kb.double()).reshape(got.shape)
+            rmse = _rel_rmse(got, gold)
+            ref = shift_kv_reference(k.to(op), d, BETA, block)
+            rmse_alg, rmse_alg_plain = _rel_rmse(got, ref), _rel_rmse(plain, ref)
+            if not rmse < SHIFT_RMSE_MAX or (
+                    op == torch.float16 and not rmse_alg < SHIFT_RMSE_MAX):
+                raise AssertionError(f"{name} RMSE {rmse:.2e} vs float64 "
+                                     f"(algebraic shift {rmse_alg:.2e})")
+            nbytes = k.numel() * k.element_size() + got.numel() * 2 \
+                + m.numel() * 2
+            modes.append(dict(
+                name=name, whisper_mode=("shift_kv", mod.mode_name(
+                    kdt, op, block, d)),
+                route="cuda", source="src/repro_torch/kernels/csrc/shift_kv.cu",
+                replaces="src/repro/kernels/shift_kv.py:48",
+                max_abs_err=max_err, rmse=rmse, rmse_algebraic=rmse_alg,
+                rmse_algebraic_plain=rmse_alg_plain,
+                ms=_cuda_time_ms(run, 50), plain_ms=_cuda_time_ms(plain_of, 20),
+                library_ms=_cuda_time_ms(lambda m=m, kb=kb: torch.matmul(m, kb),
+                                         50),
+                **_bound(nbytes, 2 * block * k.numel()),
+            ))
+    return modes
+
+
+def _hd64_cases(rng, dev):
+    """check_attention_hd64's inputs: {case: (q, k, v, kv_valid, causal,
+    block_q)}, fp16, queries of mean 0 and keys of mean 2, rows past
+    kv_valid zero (the attention layer's padding)."""
+    import torch
+
+    b, h, s, d = WHISPER_BATCH, 20, WHISPER_S2, 64
+    pad = lambda x, n: torch.nn.functional.pad(x[:, :, :n], (0, 0, 0, s - n))
+    q = _randn(rng, (b, h, s, d), 0.0, dev, torch.float16)
+    k = _randn(rng, (b, h, s, d), 2.0, dev, torch.float16)
+    v = _randn(rng, (b, h, s, d), 0.0, dev, torch.float16)
+    n, edge = WHISPER_FRAMES, s - 128 + 1
+    q1 = torch.nn.functional.pad(q[:, :, :1], (0, 0, 0, 63))
+    return {
+        "encoder": (pad(q, n), pad(k, n), pad(v, n), n, False, 128),
+        "cross": (q1, pad(k, n), pad(v, n), n, False, 64),
+        "edge": (pad(q, edge), pad(k, edge), pad(v, edge), edge, False, 128),
+        "unmasked": (q, k, v, None, False, 128),
+        "causal": (pad(q, n), pad(k, n), pad(v, n), n, True, 128),
+    }
+
+
+def check_attention_hd64(dev):
+    """The attention kernel at head_dim 64 with the column limit, at the
+    whisper encoder's shape (4, 20, 1536, 64): ``encoder`` (kv_valid 1500,
+    rows past it zero), ``cross`` (one query row padded to 64 rows,
+    block_q 64, against the same keys), ``edge`` (kv_valid S2 - block_kv +
+    1), ``unmasked`` (no limit) and ``causal`` (kv_valid 1500, causal).
+    Under the four policies at beta 0 (FlashAttention-2) and BETA: against
+    the plain version (ATTN_TOL, causal ATTN_CAUSAL_TOL) on the real rows
+    and within relative RMSE ATTN_RMSE_MAX of float64 attention on the
+    unpadded keys.  Times at the encoder's and the cross-attention's calls
+    (fp16 PASA, the path's mode): the attention kernel alone on the
+    shifted keys, the plain version (with its shift), and SDPA on the
+    unpadded 1,500 keys.  Returns the path's entry and one per other
+    policy mode, each naming its launch counter key."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import get_policy
+    from repro_torch.core.shifting import effective_invariance
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pasa_paged_decode import mode_name
+    mod = _kernel_module("pasa_attention")
+
+    rng = np.random.default_rng(11)
+    cases = _hd64_cases(rng, dev)
+    errs, rmse = {}, {}
+    for case, (q, k, v, valid, causal, bq) in cases.items():
+        n = q.shape[2] if case == "unmasked" else valid
+        rows = 1 if case == "cross" else n
+        gold = _gold_attention(q[:, :, :rows], k[:, :, :n], v[:, :, :n],
+                               causal)
+        tol = ATTN_CAUSAL_TOL if causal else ATTN_TOL
+        for tag in ("fp16", "fp16_fp32", "fp32", "bf16_fp32"):
+            policy = get_policy(tag)
+            for beta in (0.0, BETA):
+                kw = dict(policy=policy, block_q=bq, causal=causal,
+                          kv_valid=valid)
+                got = (ops.pasa_attention(q, k, v, beta=beta, **kw) if beta
+                       else ops.flash_attention(q, k, v, **kw))
+                plain = mod.attention_plain(q, k, v, beta=beta, policy=policy,
+                                            block_kv=128, causal=causal,
+                                            kv_valid=valid)
+                torch.cuda.synchronize()
+                label = f"pasa_attention/d64 ({case}, {tag}, beta {beta})"
+                if got.dtype != policy.out_dtype:
+                    raise AssertionError(f"{label}: output {got.dtype}")
+                key = (tag, beta)
+                errs[key] = max(errs.get(key, 0.0), _close(
+                    label, got[:, :, :rows], plain[:, :, :rows], **tol))
+                r = _rel_rmse(got[:, :, :rows], gold)
+                rp = _rel_rmse(plain[:, :, :rows], gold)
+                if tag == "bf16_fp32" and beta:
+                    held = r <= BF16_PASA_RMSE_RATIO * rp
+                    rmse[f"{case} {tag} beta {beta} plain"] = rp
+                else:
+                    held = r < ATTN_RMSE_MAX and rp < ATTN_RMSE_MAX
+                if not held:
+                    raise AssertionError(f"{label} RMSE {r:.4f} / plain "
+                                         f"{rp:.4f}")
+                rmse[f"{case} {tag} beta {beta}"] = r
+        del gold
+
+    def timed(case):
+        """kernel (shifted keys), plain, SDPA ms and the bound at a case,
+        fp16 PASA."""
+        q, k, v, valid, _, bq = cases[case]
+        rows = 1 if case == "cross" else valid
+        k_sh = ops.shift_kv(k, beta=BETA, policy=get_policy("fp16"))
+        inva = effective_invariance(128, 64, BETA, torch.float16)
+        fp16 = get_policy("fp16")
+        ms = _cuda_time_ms(lambda: mod.kernel_call(
+            q, k_sh, v, beta=BETA, inva=inva, policy=fp16, causal=False,
+            block_q=bq, block_kv=128, kv_valid=valid), 20)
+        plain_ms = _cuda_time_ms(lambda: mod.attention_plain(
+            q, k, v, beta=BETA, policy=fp16, block_kv=128, kv_valid=valid),
+            3, warmup=1)
+        qs, ks, vs = (x[:, :, :n].contiguous()
+                      for x, n in ((q, rows), (k, valid), (v, valid)))
+        lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs), 20)
+        bh = q.shape[0] * q.shape[1]
+        # q and out over the real rows, K' and V over the valid ones, fp16
+        nbytes = 2 * 2 * bh * 64 * (rows + valid)
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    **_bound(nbytes, 4 * 64 * bh * rows * valid))
+
+    enc, cross = timed("encoder"), timed("cross")
+    source, replaces = KERNEL_FILES["pasa_attention"]
+    path_key = ("pasa_attention", mode_name(get_policy("fp16"),
+                                            torch.bfloat16, 64))
+    entries = [dict(
+        name="pasa_attention/d64", whisper_mode=path_key, route="cuda",
+        source=source, replaces=replaces, max_abs_err=errs[("fp16", BETA)],
+        rmse=rmse[f"encoder fp16 beta {BETA}"],
+        detail=dict(rmse=rmse, cross_shape=cross,
+                    cases={c: dict(kv_valid=x[3], causal=x[4], block_q=x[5])
+                           for c, x in cases.items()}),
+        **enc)]
+    for tag in ("fp16_fp32", "fp32", "bf16_fp32"):
+        policy = get_policy(tag)
+        q, k, v, valid, _, _ = cases["encoder"]
+        at = _caster(q, k, v)
+        entries.append(dict(
+            name=f"pasa_attention/d64_{tag}",
+            whisper_mode=("flash_attention", mode_name(policy, torch.bfloat16,
+                                                       64)),
+            route="cuda", source=source, replaces=replaces,
+            max_abs_err=max(errs[(tag, 0.0)], errs[(tag, BETA)]),
+            rmse=rmse[f"encoder {tag} beta 0.0"],
+            ms=_cuda_time_ms(lambda: ops.flash_attention(
+                *at(policy), policy=policy, kv_valid=valid), 20),
+            ms_pasa=_cuda_time_ms(lambda: ops.pasa_attention(
+                *at(policy), beta=BETA, policy=policy, kv_valid=valid), 20),
+            plain_ms=_cuda_time_ms(lambda: mod.attention_plain(
+                *at(policy), beta=0.0, policy=policy, block_kv=128,
+                kv_valid=valid), 3, warmup=1),
+            library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                *(x[:, :, :valid] for x in at(policy))), 20),
+            bound_ms=enc["bound_ms"], bound_by=enc["bound_by"]))
+    return entries
+
+
 def check_exports():
     """``from repro_torch.kernels import pasa_attention`` (and the other
     exported names) gives the op, as ``repro.kernels`` does."""
@@ -2254,6 +2503,177 @@ def serve_hybrid(dev):
     )
 
 
+@contextlib.contextmanager
+def _plain_attention():
+    """``ops.pasa_decode`` and ``ops.pasa_attention`` replaced by their
+    plain versions (on any device) inside the block: the model's decode
+    and its whole-sequence attention (with its shift) then run the plain
+    PyTorch attention on the card."""
+    from repro_torch.kernels import ops
+    amod = _kernel_module("pasa_attention")
+
+    kernel_op = ops.pasa_attention
+    ops.pasa_attention = lambda q, k, v, *, beta, policy, block_q, block_kv, \
+        causal, kv_valid: amod.attention_plain(
+            q, k, v, beta=beta, policy=policy, block_kv=block_kv,
+            causal=causal, kv_valid=kv_valid)
+    try:
+        with _plain_decode():
+            yield
+    finally:
+        ops.pasa_attention = kernel_op
+
+
+def serve_whisper(dev):
+    """whisper-large-v3 at full width and depth (32 encoder and 32 decoder
+    layers, d 1280, 20 / 20 heads of 64) with random weights (seed 0):
+    bf16 weights, an fp32 lm_head.  WHISPER_BATCH clips of WHISPER_FRAMES
+    frame embeddings (d_model wide, drawn from seed 0) encoded once into
+    the cache's ``enc_out`` (shift-KV and the attention kernel at head_dim
+    64 with kv_valid 1500 of 1536 rows, 32 each); then WHISPER_PROMPT-token
+    prompts and SERVE_GEN greedy tokens each, token by token through
+    launch/serve.py's route on a WHISPER_MAX_LEN-row cache: per step 32
+    contiguous decodes (self-attention), 32 shift-KV and 32 attention
+    launches (the cross-attention: one query row padded to 64, 1,500 keys
+    in 1,536 rows), all in the d64 modes, and no other kernel.  Every
+    logit finite; the prompts WHISPER_ALONE served alone from their rows
+    of ``enc_out`` give their batched streams; the first generated step's
+    logits within HYBRID_LOGIT_ATOL of the same step through the kernels'
+    plain versions on the card from the same cache.  Returns the report
+    (TTFT counts the encode)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import get_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pasa_paged_decode import mode_name
+    from repro_torch.kernels.shift_kv import mode_name as shift_mode
+    from repro_torch.launch.serve import cache_bytes, token_by_token
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.model_zoo import build
+    from repro_torch.models.multimodal import whisper_encode
+
+    cfg = get_config("whisper-large-v3")
+    bundle = build(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = lambda tree: [x for v in tree.values() for x in (
+        leaves(v) if isinstance(v, dict) else [v])]
+    weights = leaves(params)
+    finite = []
+    checked = _finite_bundle(bundle, finite)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal(
+        (WHISPER_BATCH, WHISPER_FRAMES, cfg.d_model)).astype(np.float32)).to(dev)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT),
+        dtype=np.int32)).to(dev)
+    names = [w.__name__ for w in ops.WRAPPERS]
+    fp16 = get_policy(cfg.attention.pasa_policy)
+    modes = {"pasa_decode": mode_name(fp16, torch.bfloat16, cfg.head_dim),
+             "pasa_attention": mode_name(fp16, torch.bfloat16, cfg.head_dim),
+             "shift_kv": shift_mode(torch.bfloat16, torch.float16,
+                                    cfg.attention.block_kv, cfg.head_dim)}
+
+    def check(tag, per_op):
+        launches = {name: getattr(ops, name).launches for name in names}
+        want = {name: per_op if name in per_op_names else 0
+                for name in names}
+        if launches != want:
+            raise AssertionError(f"serve_whisper ({tag}): launch counts "
+                                 f"{launches} != {want}")
+        by_mode = _by_mode(names)
+        for name in per_op_names:
+            if by_mode[name] != ({modes[name]: per_op} if per_op else {}):
+                raise AssertionError(f"serve_whisper ({tag}): {name} "
+                                     f"launches by mode {by_mode[name]}")
+        return launches, by_mode
+
+    def encode(x):
+        enc = whisper_encode(params, cfg, x)
+        torch.cuda.synchronize()
+        return enc
+
+    def run(rows, enc_rows):
+        cache = bundle.init_cache(rows.shape[0], WHISPER_MAX_LEN, device=dev)
+        cache["enc_out"].copy_(enc_rows)
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out, cache, times = token_by_token(checked, params, rows, SERVE_GEN,
+                                           cache)
+        return out, cache, [t - t_start for t in times]
+
+    encode(frames[:1])                    # warm-up (cuBLAS first calls)
+    run(prompts[:1, :8], torch.zeros(1, WHISPER_FRAMES, cfg.d_model,
+                                     device=dev))
+    finite.clear()
+    torch.cuda.reset_peak_memory_stats()
+    per_op_names = ("shift_kv", "pasa_attention")
+    ops.reset_launches()
+    t_enc = time.perf_counter()
+    enc = encode(frames)
+    encode_s = time.perf_counter() - t_enc
+    enc_launches, enc_by_mode = check("encode", cfg.n_encoder_layers)
+    if not bool(torch.isfinite(enc).all()):
+        raise AssertionError("serve_whisper: non-finite encoder output")
+    per_op_names = ("pasa_decode", "shift_kv", "pasa_attention")
+    ops.reset_launches()
+    streams, cache, times = run(prompts, enc)
+    n_steps = WHISPER_PROMPT + SERVE_GEN - 1
+    launches, by_mode = check("serve", cfg.n_layers * n_steps)
+    _all_finite("serve_whisper", finite)
+    if streams.shape != (WHISPER_BATCH, SERVE_GEN) or not (
+            (streams >= 0) & (streams < cfg.vocab_size)).all():
+        raise AssertionError(f"serve_whisper: bad streams {streams}")
+    peak = torch.cuda.max_memory_allocated()
+    cache_mb = {part: cache_bytes(cache[part]) / 1e6 for part in cache}
+    del cache
+    for i in WHISPER_ALONE:
+        alone, _, _ = run(prompts[i:i + 1], enc[i:i + 1])
+        if not np.array_equal(alone[0], streams[i]):
+            raise AssertionError(
+                f"serve_whisper: batched vs one-at-a-time streams differ: "
+                f"{streams[i].tolist()} vs {alone[0].tolist()}")
+    # the first generated step from one cache: the kernels, then the plain
+    # versions on the card
+    cache = bundle.init_cache(WHISPER_BATCH, WHISPER_MAX_LEN, device=dev)
+    cache["enc_out"].copy_(enc)
+    step = make_serve_step(bundle)
+    for i in range(WHISPER_PROMPT - 1):
+        pos = torch.full((WHISPER_BATCH,), i, dtype=torch.int32, device=dev)
+        _, _, cache = step(params, prompts[:, i], pos, cache)
+    saved = {k: v.clone() for k, v in cache.items()}
+    pos = torch.full((WHISPER_BATCH,), WHISPER_PROMPT - 1, dtype=torch.int32,
+                     device=dev)
+    kernel_logits, _ = bundle.serve_step(params, prompts[:, -1], pos, cache)
+    with _plain_attention():
+        plain_logits, _ = bundle.serve_step(params, prompts[:, -1], pos, saved)
+    err = float((kernel_logits - plain_logits).abs().max())
+    if not err <= HYBRID_LOGIT_ATOL:
+        raise AssertionError(f"serve_whisper: first-step logits differ from "
+                             f"the plain route's by {err:.3e}")
+    wall = times[-1]
+    return dict(
+        arch=cfg.arch_id, encoder_layers=cfg.n_encoder_layers,
+        layers=cfg.n_layers, d_model=cfg.d_model, head_dim=cfg.head_dim,
+        params=sum(x.numel() for x in weights),
+        param_gb=sum(x.numel() * x.element_size() for x in weights) / 1e9,
+        weights_s=init_s, batch=WHISPER_BATCH, frames=WHISPER_FRAMES,
+        prompt_len=WHISPER_PROMPT, gen=SERVE_GEN, max_len=WHISPER_MAX_LEN,
+        steps=n_steps, encode_launches=enc_launches,
+        encode_launches_by_mode=enc_by_mode, launches=launches,
+        launches_by_mode=by_mode, encode_ms=1e3 * encode_s, wall_s=wall,
+        tok_per_s=streams.size / wall, ms_per_step=1e3 * wall / n_steps,
+        ttft_ms=1e3 * (encode_s + times[0]),
+        decode_ms_per_step=1e3 * (times[-1] - times[0]) / (SERVE_GEN - 1),
+        peak_gb=peak / 1e9, cache_mb=cache_mb,
+        first_step_logit_err_vs_plain=err, streams=streams.tolist(),
+    )
+
+
 def main() -> int:
     import torch
 
@@ -2290,7 +2710,8 @@ def main() -> int:
     print("exports: " + ", ".join(check_exports()))
     kernels = [*check_decode(dev), *check_prefill(dev), *check_shift_kv(dev),
                *check_attention(dev), *check_contiguous_decode(dev),
-               *check_decode_hd64(dev)]
+               *check_decode_hd64(dev), *check_shift_kv_hd64(dev),
+               *check_attention_hd64(dev)]
     kernels += [check(dev, dtype) for dtype in QUANT_DTYPES
                 for check in (check_decode_quant, check_prefill_quant)]
     print("prefill_chunk_starts: " + json.dumps(check_prefill_starts(dev)))
@@ -2371,17 +2792,32 @@ def main() -> int:
     rep_hybrid = serve_hybrid(dev)
     print("serve_hybrid: " + json.dumps(rep_hybrid))
     print(f"hybrid: {time.perf_counter() - t_hybrid:.1f} s")
+    # the audio family (whisper-large-v3): one encode, then the
+    # token-by-token dense route, each driven with the launch counts set
+    # to 0 just before it
+    t_whisper = time.perf_counter()
+    torch.cuda.empty_cache()
+    rep_whisper = serve_whisper(dev)
+    print("serve_whisper: " + json.dumps(rep_whisper))
+    print(f"whisper: {time.perf_counter() - t_whisper:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each mode of shift-KV has the dense serve's count of that mode (0 for
     # the modes the serve does not run); the paged kernels' quantized modes
     # have their own serve's count; the fp32 and bf16_fp32 modes the flash
     # serves' counts of that mode (the attention kernel's from both its ops)
-    # the head_dim 64 entries have the hybrid serve's count of that mode
-    # (0 for paged decode, which no hybrid serve runs)
+    # the head_dim 64 entries of the decodes have the hybrid serve's count
+    # of that mode (0 for paged decode, which no hybrid serve runs); those
+    # of shift-KV and attention the whisper serve's count of their mode,
+    # the encode's included (0 for the modes it does not run)
     for k in kernels:
         name, _, tag = k["name"].partition("/")
-        if _is_hd64(k):
+        if "whisper_mode" in k:
+            op, mode = k["whisper_mode"]
+            k["launches"] = (rep_whisper["launches_by_mode"][op].get(mode, 0)
+                             + rep_whisper["encode_launches_by_mode"][op].get(
+                                 mode, 0))
+        elif _is_hd64(k):
             mode = mode_name(get_policy("fp16"), torch.bfloat16, 64)
             k["launches"] = rep_hybrid["launches_by_mode"][name].get(mode, 0)
         elif name == "shift_kv":
@@ -2409,12 +2845,24 @@ def main() -> int:
     for name in ("pasa_paged_decode", "pasa_paged_prefill", "shift_kv"):
         line.append(_mode_entry(name, [
             k for k in kernels if k["name"].startswith(name + "/")
-            and not _is_new_mode(k) and not _is_hd64(k)], keys))
+            and not _is_new_mode(k) and not _is_hd64(k)
+            and "whisper_mode" not in k], keys))
     hd64 = [{key: k[key] for key in keys} for k in kernels if _is_hd64(k)]
     if not any(k["launches"] for k in hd64 if k["name"] == "pasa_decode/d64"):
         raise AssertionError("pasa_decode/d64 was not launched on the hybrid "
                              "serve")
     line += hd64
+    # head_dim 64 of shift-KV and attention: the whisper path's mode of
+    # each, then the other modes of each in one entry
+    for name in ("shift_kv", "pasa_attention"):
+        path = [k for k in kernels if k["name"] == f"{name}/d64"]
+        if not path or not path[0]["launches"]:
+            raise AssertionError(f"{name}/d64 was not launched on the "
+                                 f"whisper serve")
+        line.append({key: path[0][key] for key in keys})
+        line.append(_mode_entry(name, [
+            k for k in kernels if "whisper_mode" in k
+            and k["name"].startswith(f"{name}/d64_")], keys))
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

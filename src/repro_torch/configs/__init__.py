@@ -10,6 +10,7 @@ from repro_torch.configs.base import AttentionConfig, ModelConfig, SSMConfig
 _ID_TO_MODULE = {
     "qwen2-7b": "qwen2_7b",
     "zamba2-1.2b": "zamba2_1_2b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 ALL_ARCHS: List[str] = list(_ID_TO_MODULE)

@@ -1,9 +1,9 @@
 """Model/config schema (counterpart of ``repro.configs.base``).
 
-The fields the serving routes of the dense family (paged and dense) and
-of the hybrid family (Mamba-2 + a shared attention block, dense route)
-read are ported; the MoE and multimodal blocks arrive with those
-families.
+The fields the serving routes of the dense family (paged and dense), of
+the hybrid family (Mamba-2 + a shared attention block, dense route) and
+of the audio family (the Whisper encoder-decoder, dense route) read are
+ported; the MoE and vision blocks arrive with those families.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import torch
 
 
 IMPLS = ("pasa", "flash", "naive")
-FAMILIES = ("dense", "hybrid")    # the families ported so far
+FAMILIES = ("dense", "hybrid", "audio")    # the families ported so far
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +60,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # dense | hybrid (the families ported so far)
+    family: str                   # dense | hybrid | audio (ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -80,6 +80,10 @@ class ModelConfig:
     # hybrid (zamba2): a weight-shared attention block every `attn_every`
     # SSM layers (applied before layers 0, attn_every, 2*attn_every, ...).
     attn_every: int = 0
+
+    # audio (whisper): encoder depth + precomputed-frame-embedding count.
+    n_encoder_layers: int = 0
+    n_audio_frames: int = 0
 
     compute_dtype: str = "bfloat16"
 
@@ -132,4 +136,7 @@ class ModelConfig:
                 self.ssm, state=min(self.ssm.state, 8), head_p=8, chunk=16,
             ),
             attn_every=min(self.attn_every, 2) if self.attn_every else 0,
+            n_encoder_layers=min(self.n_encoder_layers, 2)
+            if self.n_encoder_layers else 0,
+            n_audio_frames=min(self.n_audio_frames, 16) or 0,
         )

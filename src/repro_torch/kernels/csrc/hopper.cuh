@@ -271,26 +271,27 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
   }
 }
 
-// D (m64 x n64, f32) (+)= A (registers: 16-bit pairs) * B (smem, K-major).
-template <bool BF16>
+// D (m64 x n64, f32) (+)= A (registers: 16-bit pairs) * B (smem, K-major,
+// or MN-major with TRANS_B = 1).
+template <bool BF16, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
                                              uint64_t db, int accumulate) {
   if constexpr (BF16) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PASA_WGMMA_R32
-        ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : PASA_WGMMA_D32
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(accumulate));
+          "r"(accumulate), "n"(TRANS_B));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " PASA_WGMMA_R32
-        ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : PASA_WGMMA_D32
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(accumulate));
+          "r"(accumulate), "n"(TRANS_B));
   }
 }
 #undef PASA_WGMMA_D32
@@ -303,6 +304,15 @@ __device__ __forceinline__ void wgmma_scores(float* s, uint64_t da, uint64_t db,
                                              int accumulate) {
   if constexpr (BKV == 128) wgmma_ss_n128<BF16>(s, da, db, accumulate);
   else wgmma_ss_n64<BF16>(s, da, db, accumulate);
+}
+
+// P V at head width D (64 or 128): P the register A operand, V MN-major
+// from shared memory.
+template <int D, bool BF16>
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* p,
+                                         uint64_t dv, int accumulate) {
+  if constexpr (D == 128) wgmma_rs_n128<BF16>(o, p, dv, accumulate);
+  else wgmma_rs_n64<BF16, 1>(o, p, dv, accumulate);
 }
 
 // ---- fp16 pairs --------------------------------------------------------
@@ -401,18 +411,21 @@ constexpr CUtensorMapDataType tma_dtype() {
              : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 }
 
-// Rank-4 map of a (B, heads, rows, 128) tensor of 2-byte elements (fp16
-// unless `dtype` says otherwise) read through its element strides; boxes
-// of `box_rows` x 64 columns, 128-byte swizzle.
+// Rank-4 map of a (B, heads, rows, head_dim) tensor of 2-byte elements
+// (fp16 unless `dtype` says otherwise) read through its element strides;
+// boxes of `box_rows` x 64 columns, 128-byte swizzle.  A box reaching past
+// `rows` is filled with zeros there (and still counts its full bytes on
+// the barrier).
 static bool make_map(CUtensorMap* map, const void* ptr, int batch, int heads,
                      int rows, long long sb, long long sh, long long ss,
                      int box_rows,
-                     CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_FLOAT16) {
+                     CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                     int head_dim = HEAD_DIM) {
   // a dimension of extent 1 may carry any stride (0 for an expanded
   // view): give it a valid one
   if (heads == 1) sh = (long long)rows * ss;
   if (batch == 1) sb = (long long)heads * sh;
-  const cuuint64_t dims[4] = {(cuuint64_t)HEAD_DIM, (cuuint64_t)rows,
+  const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)rows,
                               (cuuint64_t)heads, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
                                  (cuuint64_t)sb * 2};

@@ -4,9 +4,10 @@
 // Replaces the TPU kernel repro/kernels/pasa_attention.py (_attn_kernel,
 // launched by attention_kernel_call through pl.pallas_call).
 //
-// What it computes: full-head queries q (B, H, S1, 128) against keys
-// K' = M K already shifted and scaled by the shift kernel (B, KVH, S2,
-// 128) and values v (B, KVH, S2, 128), all at the policy's input dtype
+// What it computes: full-head queries q (B, H, S1, D) against keys
+// K' = M K already shifted and scaled by the shift kernel (B, KVH, S2, D)
+// and values v (B, KVH, S2, D), head width D 64 or 128 (a template
+// parameter), all at the policy's input dtype
 // (fp16, or bf16 under bf16_fp32) and read through their strides; GQA maps query head h to kv head h / (H / KVH), so K'/V are
 // never expanded.  One CTA per (b * H + h, query tile of block_q rows)
 // walks the key tiles IN ORDER - the F-bar recurrence is order-dependent
@@ -19,8 +20,15 @@
 //      fp16 overflow is reproduced;
 //   2. the row pseudo-average over ALL block_kv columns (the shift used
 //      them all), an fp32 sum rounded once to the statistic dtype;
-//   3. only then the causal mask; a tile wholly above the diagonal
-//      ((i+1) * block_q - 1 < j * block_kv) is skipped and not counted;
+//   3. only then the causal mask and the column limit kv_valid (columns
+//      at or past it are padding: the caller's zero rows, which the shift
+//      has mixed into every K' row of the last block, so they count in
+//      step 2, as the reference pads and masks); a tile wholly above the
+//      diagonal ((i+1) * block_q - 1 < j * block_kv) is skipped and not
+//      counted.  Past kv_valid, P is forced to exactly 0 (the score
+//      becomes -inf once the tile's max is taken) and V is read as zero
+//      (its tensor map ends at kv_valid: TMA fills the rest of the box
+//      with zeros), as the reference zeroes both before P V;
 //   4. the online recovery (row_update of pasa_common.cuh), and P V into
 //      a FRESH fp32 sum, rounded to the accumulator dtype before it is
 //      folded into the accumulator (acc_update), as the reference rounds
@@ -45,7 +53,7 @@
 // the plain version and to relative RMSE 0.02 against float64.
 //
 // What bounds it on an H100: operations.  The two GEMMs are 4 x S1 x S2 x
-// 128 flops per head (halved by the causal skip) against q, K', V and O
+// D flops per head (halved by the causal skip) against q, K', V and O
 // read or written once - at S = 1024 that is ~250 flops per byte on bytes
 // that fit in L2; and beside the GEMMs, the fp16 policy's per-element
 // softmax steps (each rounded on its own) on the CUDA cores.  The design
@@ -58,8 +66,9 @@
 //     swizzle) with mbarriers: the next tile arrives while the current
 //     one is computed;
 //   * both GEMMs are wgmma (m64n{block_kv}k16 for S from shared memory,
-//     m64n128k16 for P V with P as the register operand and V read
-//     MN-major); S stays in registers, 64 per thread, and each row's
+//     m64n{D}k16 for P V with P as the register operand and V read
+//     MN-major); S stays in registers, block_kv / 2 per thread, and each
+//     row's
 //     statistics are reduced over the 4 threads that hold it; row_update
 //     runs redundantly in those 4 threads;
 //   * under the all-fp16 policy the per-element softmax and accumulator
@@ -76,20 +85,21 @@ constexpr int AT_STAGES = 2;                  // K'/V ring depth
 constexpr int AT_HALF_BYTES = 64 * 2;         // one 64-column half-row (2 B)
 
 // Scores of one tile as the policy stores them (at fp16 if SH), with the
-// row sums over all columns (before the mask) and, after the causal mask
-// when MASK, the row maxima.  s[4 g + e] holds row e >> 1 (of the thread's
-// two) at tile column 8 g + 2 quad + (e & 1); col0 = the tile's first
-// column + 2 quad.
+// row sums over all columns (before the mask) and, after the mask when
+// MASK (columns at or past lim[r]: the causal limit row + 1 and the
+// valid-column limit), the row maxima.  s[4 g + e] holds row e >> 1 (of
+// the thread's two) at tile column 8 g + 2 quad + (e & 1); col0 = the
+// tile's first column + 2 quad.
 template <int NS, bool MASK, bool SH>
 __device__ __forceinline__ void tile_scores(float* s, float* ssum, float* mx,
-                                            int col0, const int* row,
+                                            int col0, const int* lim,
                                             const Policy& P) {
 #pragma unroll
   for (int e = 0; e < NS; ++e) {
     const int r = (e >> 1) & 1;
     float v = store_score<SH>(s[e], P);
     ssum[r] += v;                                    // all columns
-    if (MASK && col0 + 8 * (e >> 2) + (e & 1) > row[r]) v = NEG_BIG;
+    if (MASK && col0 + 8 * (e >> 2) + (e & 1) >= lim[r]) v = NEG_BIG;
     s[e] = v;
     mx[r] = fmaxf(mx[r], v);
   }
@@ -97,11 +107,12 @@ __device__ __forceinline__ void tile_scores(float* s, float* ssum, float* mx,
 
 // ---- the kernel --------------------------------------------------------
 
-template <int NWG, int BKV>
+template <int NWG, int BKV, int D>
 struct AttnLayout {
+  static constexpr int NH = D / 64;                      // 64-col halves
   static constexpr int BQ = 64 * NWG;
-  static constexpr int Q_BYTES = BQ * HEAD_DIM * 2;      // two 64-col halves
-  static constexpr int KV_BYTES = BKV * HEAD_DIM * 2;    // one K' or V tile
+  static constexpr int Q_BYTES = BQ * D * 2;             // NH 64-col halves
+  static constexpr int KV_BYTES = BKV * D * 2;           // one K' or V tile
   static constexpr int Q_OFF = 0;
   static constexpr int K_OFF = Q_OFF + Q_BYTES;
   static constexpr int V_OFF = K_OFF + AT_STAGES * KV_BYTES;
@@ -113,18 +124,20 @@ struct AttnLayout {
 
 // M: the policy's mode (operand type, score store).  H16 (only with
 // ModeF16): statistics and accumulator at fp16 (the paper's policy): the
-// softmax and accumulator steps run on fp16 pairs.
-template <int NWG, int BKV, bool H16, typename M>
-__global__ void __launch_bounds__(AttnLayout<NWG, BKV>::THREADS, 1)
+// softmax and accumulator steps run on fp16 pairs.  D: the head width.
+// Columns at or past kv_valid (> s2 - BKV: only the last tile has any)
+// are padding.
+template <int NWG, int BKV, int D, bool H16, typename M>
+__global__ void __launch_bounds__(AttnLayout<NWG, BKV, D>::THREADS, 1)
 pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
                       const __grid_constant__ CUtensorMap tk,  // K' (B,KVH,S2,D)
                       const __grid_constant__ CUtensorMap tv,  // (B,KVH,S2,D)
                       typename M::Op* __restrict__ out,        // (B,H,S1,D)
-                      int heads, int kv_heads, int s1, int s2, int causal,
-                      Policy P) {
+                      int heads, int kv_heads, int s1, int s2, int kv_valid,
+                      int causal, Policy P) {
   static_assert(!H16 || M::kScoreHalf, "the fp16 pair steps need fp16 scores");
   using OpT = typename M::Op;
-  using L = AttnLayout<NWG, BKV>;
+  using L = AttnLayout<NWG, BKV, D>;
   // P V from the fp32 P as two bf16 terms (bf16_fp32; see the note above)
   constexpr bool SPLIT_P = M::kBF16 && !M::kScoreHalf;
   constexpr int BQ = L::BQ;
@@ -163,7 +176,7 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_q, L::Q_BYTES);
-      for (int half = 0; half < 2; ++half)
+      for (int half = 0; half < L::NH; ++half)
         tma_load_4d(s_base + L::Q_OFF + half * BQ * AT_HALF_BYTES, &tq, bar_q,
                     64 * half, i * BQ, h, b);
       for (int j = 0; j < n_live; ++j) {
@@ -173,11 +186,11 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
         const uint32_t kdst = s_base + L::K_OFF + st * L::KV_BYTES;
         const uint32_t vdst = s_base + L::V_OFF + st * L::KV_BYTES;
         mbar_expect_tx(bar_k + 8 * st, L::KV_BYTES);
-        for (int half = 0; half < 2; ++half)
+        for (int half = 0; half < L::NH; ++half)
           tma_load_4d(kdst + half * BKV * AT_HALF_BYTES, &tk, bar_k + 8 * st,
                       64 * half, j * BKV, kh, b);
         mbar_expect_tx(bar_v + 8 * st, L::KV_BYTES);
-        for (int half = 0; half < 2; ++half)
+        for (int half = 0; half < L::NH; ++half)
           tma_load_4d(vdst + half * BKV * AT_HALF_BYTES, &tv, bar_v + 8 * st,
                       64 * half, j * BKV, kh, b);
       }
@@ -193,18 +206,21 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
     // this thread's two rows (local to the CTA tile) and its columns
     const int r_lo = 64 * cw + 16 * ((t >> 5) & 3) + (lane >> 2);
     const int row[2] = {i * BQ + r_lo, i * BQ + r_lo + 8};
+    // each row's first masked column (tiles that reach past it)
+    const int lim[2] = {causal ? min(row[0] + 1, kv_valid) : kv_valid,
+                        causal ? min(row[1] + 1, kv_valid) : kv_valid};
     const bool sh = P.stat_half, ah = P.acc_half;
 
     float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.0f, 0.0f}, f[2] = {0.0f, 0.0f};
-    // the accumulator: s[]'s layout over the 128 head-dim columns, as
-    // fp32 values or (H16) fp16 pairs (acc2[2 g + r] = the pair acc[4 g +
-    // 2 r], acc[4 g + 2 r + 1])
-    float acc[H16 ? 1 : 64];
-    uint32_t acc2[H16 ? 32 : 1];
+    // the accumulator: s[]'s layout over the D head-dim columns, as fp32
+    // values or (H16) fp16 pairs (acc2[2 g + r] = the pair acc[4 g + 2 r],
+    // acc[4 g + 2 r + 1])
+    float acc[H16 ? 1 : D / 2];
+    uint32_t acc2[H16 ? D / 4 : 1];
 #pragma unroll
-    for (int e = 0; e < (H16 ? 1 : 64); ++e) acc[e] = 0.0f;
+    for (int e = 0; e < (H16 ? 1 : D / 2); ++e) acc[e] = 0.0f;
 #pragma unroll
-    for (int e = 0; e < (H16 ? 32 : 1); ++e) acc2[e] = 0u;
+    for (int e = 0; e < (H16 ? D / 4 : 1); ++e) acc2[e] = 0u;
 
     const uint32_t q_addr = s_base + L::Q_OFF + cw * 64 * AT_HALF_BYTES;
     mbar_wait(bar_q, 0);
@@ -214,12 +230,12 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
       const uint32_t k_addr = s_base + L::K_OFF + st * L::KV_BYTES;
       const uint32_t v_addr = s_base + L::V_OFF + st * L::KV_BYTES;
 
-      // 1. S = Q K'^T (8 steps of k16 over the two 64-column halves)
+      // 1. S = Q K'^T (D / 16 steps of k16 over the 64-column halves)
       float s[NS];
       mbar_wait(bar_k + 8 * st, phase);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HEAD_DIM / 16; ++kk) {
+      for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk >> 2), in = (kk & 3) * 32;
         wgmma_scores<BKV, M::kBF16>(
             s, gmma_desc(q_addr + off * BQ * AT_HALF_BYTES + in, 16, 1024),
@@ -230,15 +246,16 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
       wgmma_wait_all();
       fence_regs<NS>(s);
 
-      // 2-3. score store, full-tile pseudo-average, then the causal mask
-      // (only on tiles that reach past this warpgroup's first row) and
-      // the local max
+      // 2-3. score store, full-tile pseudo-average, then the mask (only
+      // on tiles that reach past this warpgroup's first row, and on the
+      // tile that holds padding) and the local max
       const int col0 = j * BKV + 2 * quad;
+      const bool pad_tile = j == n_kv - 1 && kv_valid < s2;
       float ssum[2] = {0.0f, 0.0f}, mx[2] = {-INFINITY, -INFINITY};
-      if (causal && (j + 1) * BKV - 1 > i * BQ + 64 * cw)
-        tile_scores<NS, true, M::kScoreHalf>(s, ssum, mx, col0, row, P);
+      if ((causal && (j + 1) * BKV - 1 > i * BQ + 64 * cw) || pad_tile)
+        tile_scores<NS, true, M::kScoreHalf>(s, ssum, mx, col0, lim, P);
       else
-        tile_scores<NS, false, M::kScoreHalf>(s, ssum, mx, col0, row, P);
+        tile_scores<NS, false, M::kScoreHalf>(s, ssum, mx, col0, lim, P);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
 #pragma unroll
@@ -246,6 +263,11 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
           ssum[r] += __shfl_xor_sync(0xffffffffu, ssum[r], o);
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
         }
+      }
+      if (pad_tile) {       // P of a padding column: exp(-inf) = 0 exactly
+#pragma unroll
+        for (int e = 0; e < NS; ++e)
+          if (col0 + 8 * (e >> 2) + (e & 1) >= kv_valid) s[e] = -INFINITY;
       }
       // 4. local softmax at the statistic dtype, P at the score dtype, then
       // at the operand type packed as the A fragments of the P V product
@@ -289,25 +311,25 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
         }
       }
 
-      // 5. P V into a fresh fp32 sum (V MN-major: its two 64-column halves
-      // are the descriptor's leading-dimension step), issued before the
-      // row statistics' recovery so that the two overlap
-      float pv[64];
+      // 5. P V into a fresh fp32 sum (V MN-major: at D 128 its two
+      // 64-column halves are the descriptor's leading-dimension step),
+      // issued before the row statistics' recovery so that the two overlap
+      float pv[D / 2];
       mbar_wait(bar_v + 8 * st, phase);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
-        wgmma_rs_n128<M::kBF16>(pv, &pa[4 * kk],
-                      gmma_desc(v_addr + kk * 16 * AT_HALF_BYTES,
-                                BKV * AT_HALF_BYTES, 1024),
-                      kk > 0);
+        wgmma_pv<D, M::kBF16>(pv, &pa[4 * kk],
+                              gmma_desc(v_addr + kk * 16 * AT_HALF_BYTES,
+                                        BKV * AT_HALF_BYTES, 1024),
+                              kk > 0);
       if constexpr (SPLIT_P) {      // + (P - hi) V, bf16_fp32
 #pragma unroll
         for (int kk = 0; kk < BKV / 16; ++kk)
-          wgmma_rs_n128<M::kBF16>(pv, &pa_lo[4 * kk],
-                                  gmma_desc(v_addr + kk * 16 * AT_HALF_BYTES,
-                                            BKV * AT_HALF_BYTES, 1024),
-                                  1);
+          wgmma_pv<D, M::kBF16>(pv, &pa_lo[4 * kk],
+                                gmma_desc(v_addr + kk * 16 * AT_HALF_BYTES,
+                                          BKV * AT_HALF_BYTES, 1024),
+                                1);
       }
       wgmma_commit();
 
@@ -328,7 +350,7 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
       }
 
       wgmma_wait_all();
-      fence_regs<64>(pv);
+      fence_regs<D / 2>(pv);
       fence_regs<NS / 2>(pa);
       if constexpr (SPLIT_P) fence_regs<NS / 2>(pa_lo);
       if (lane == 0) mbar_arrive(bar_e + 8 * st);   // the stage is consumed
@@ -338,7 +360,7 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
         const uint32_t ep[2] = {h2_splat(rs[0].e_prev), h2_splat(rs[1].e_prev)};
         const uint32_t ec[2] = {h2_splat(rs[0].e_cur), h2_splat(rs[1].e_cur)};
 #pragma unroll
-        for (int i2 = 0; i2 < 32; ++i2) {
+        for (int i2 = 0; i2 < D / 4; ++i2) {
           const int r = i2 & 1;
           const uint32_t pv2 =
               h2_bits(__floats2half2_rn(pv[2 * i2], pv[2 * i2 + 1]));
@@ -346,7 +368,7 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
         }
       } else {
 #pragma unroll
-        for (int e = 0; e < 64; ++e) {
+        for (int e = 0; e < D / 2; ++e) {
           const int r = (e >> 1) & 1;
           acc[e] = acc_update(acc[e], rnd(pv[e], ah), rs[r].e_prev,
                               rs[r].e_cur, ah);
@@ -359,9 +381,9 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float lr = rnd(l[r], ah);
-      OpT* orow = out + ((size_t)bh * s1 + row[r]) * HEAD_DIM + 2 * quad;
+      OpT* orow = out + ((size_t)bh * s1 + row[r]) * D + 2 * quad;
 #pragma unroll
-      for (int g = 0; g < 16; ++g) {
+      for (int g = 0; g < D / 8; ++g) {
         float a0, a1;
         if constexpr (H16) {
           const float2 a = __half22float2(h2_of(acc2[2 * g + r]));
@@ -379,20 +401,24 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
   }
 }
 
-template <int NWG, int BKV, bool H16, typename M>
+template <int NWG, int BKV, int D, bool H16, typename M>
 static int launch(const void* q, const void* k, const void* v, void* out,
                   int batch, int heads, int kv_heads, int s1, int s2,
-                  int causal, const long long* st, const Policy& P,
-                  cudaStream_t stream) {
-  using L = AttnLayout<NWG, BKV>;
+                  int kv_valid, int causal, const long long* st,
+                  const Policy& P, cudaStream_t stream) {
+  using L = AttnLayout<NWG, BKV, D>;
   using OpT = typename M::Op;
   constexpr CUtensorMapDataType dt = tma_dtype<OpT>();
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, batch, heads, s1, st[0], st[1], st[2], L::BQ, dt) ||
-      !make_map(&tk, k, batch, kv_heads, s2, st[3], st[4], st[5], BKV, dt) ||
-      !make_map(&tv, v, batch, kv_heads, s2, st[6], st[7], st[8], BKV, dt))
+  // V's map ends at kv_valid: the padding rows of its last tile load as
+  // zeros
+  if (!make_map(&tq, q, batch, heads, s1, st[0], st[1], st[2], L::BQ, dt, D) ||
+      !make_map(&tk, k, batch, kv_heads, s2, st[3], st[4], st[5], BKV, dt,
+                D) ||
+      !make_map(&tv, v, batch, kv_heads, kv_valid, st[6], st[7], st[8], BKV,
+                dt, D))
     return (int)cudaErrorInvalidValue;
-  auto kernel = pasa_attention_kernel<NWG, BKV, H16, M>;
+  auto kernel = pasa_attention_kernel<NWG, BKV, D, H16, M>;
   const int smem = L::BYTES + 1024;       // + the 1024-byte alignment
   static OncePerDevice ready;             // the attribute, per device
   bool* set = ready.current();
@@ -405,20 +431,21 @@ static int launch(const void* q, const void* k, const void* v, void* out,
   }
   dim3 grid(batch * heads, s1 / L::BQ);
   kernel<<<grid, L::THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<OpT*>(out), heads, kv_heads, s1, s2, causal,
-      P);
+      tq, tk, tv, static_cast<OpT*>(out), heads, kv_heads, s1, s2, kv_valid,
+      causal, P);
   return (int)cudaGetLastError();
 }
 
-// The instance of a tile shape for the launch's kind (wgmma_kind).
-template <int NWG, int BKV>
+// The instance of a tile shape and head width for the launch's kind
+// (wgmma_kind).
+template <int NWG, int BKV, int D>
 static int launch_kind(int kind, const void* q, const void* k, const void* v,
                        void* out, int batch, int heads, int kv_heads, int s1,
-                       int s2, int causal, const long long* st,
+                       int s2, int kv_valid, int causal, const long long* st,
                        const Policy& P, cudaStream_t stream) {
-#define PASA_ATTN_LAUNCH(H16, M)                                          \
-  launch<NWG, BKV, H16, M>(q, k, v, out, batch, heads, kv_heads, s1, s2,   \
-                           causal, st, P, stream)
+#define PASA_ATTN_LAUNCH(H16, M)                                            \
+  launch<NWG, BKV, D, H16, M>(q, k, v, out, batch, heads, kv_heads, s1, s2, \
+                              kv_valid, causal, st, P, stream)
   switch (kind) {
     case 0: return PASA_ATTN_LAUNCH(true, ModeF16);
     case 1: return PASA_ATTN_LAUNCH(false, ModeF16);
@@ -432,13 +459,16 @@ static int launch_kind(int kind, const void* q, const void* k, const void* v,
 
 // Plain C entry point (bound with ctypes).  Strides are in elements, for
 // the (batch, head, row) dims of q, K' and v (each a multiple of 8, the
-// rows of 128 unit-stride values, 16-byte aligned starts); q, K', v and
-// out are at the policy's input dtype (bf16 if op_bf16, else fp16),
-// scores at fp16 if score_half (else fp32); block_q and block_kv are 64
-// or 128.  Returns the cudaError_t of the launch (0: queued on `stream`).
+// rows of head_dim (64 or 128) unit-stride values, 16-byte aligned
+// starts); q, K', v and out are at the policy's input dtype (bf16 if
+// op_bf16, else fp16), scores at fp16 if score_half (else fp32); block_q
+// and block_kv are 64 or 128; columns at or past kv_valid (s2 - block_kv
+// < kv_valid <= s2) are padding.  Returns the cudaError_t of the launch
+// (0: queued on `stream`).
 extern "C" int pasa_attention_launch(
     const void* q, const void* k, const void* v, void* out, int batch,
-    int heads, int kv_heads, int s1, int s2, int block_q, int block_kv,
+    int heads, int kv_heads, int s1, int s2, int head_dim, int kv_valid,
+    int block_q, int block_kv,
     int causal, long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh, long long vss,
     float beta, float inva, float shift_scale, float post_scale,
@@ -450,6 +480,8 @@ extern "C" int pasa_attention_launch(
             (block_q == 64 || block_q == 128) &&
             (block_kv == 64 || block_kv == 128) && s1 >= block_q &&
             !(s1 % block_q) && s2 >= block_kv && !(s2 % block_kv) &&
+            (head_dim == 64 || head_dim == 128) && kv_valid <= s2 &&
+            kv_valid > s2 - block_kv &&
             !(reinterpret_cast<uintptr_t>(q) % 16) &&
             !(reinterpret_cast<uintptr_t>(k) % 16) &&
             !(reinterpret_cast<uintptr_t>(v) % 16);
@@ -459,15 +491,20 @@ extern "C" int pasa_attention_launch(
                                acc_half);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int kind = wgmma_kind(mode, P);
-  const int cfg = (block_q == 128) * 2 + (block_kv == 128);
-#define PASA_ATTN_SHAPE(NWG, BKV)                                          \
-  launch_kind<NWG, BKV>(kind, q, k, v, out, batch, heads, kv_heads, s1, s2, \
-                        causal, st, P, s)
+  const int cfg = (head_dim == 128) * 4 + (block_q == 128) * 2 +
+                  (block_kv == 128);
+#define PASA_ATTN_SHAPE(NWG, BKV, D)                                       \
+  launch_kind<NWG, BKV, D>(kind, q, k, v, out, batch, heads, kv_heads, s1, \
+                           s2, kv_valid, causal, st, P, s)
   switch (cfg) {
-    case 0: return PASA_ATTN_SHAPE(1, 64);
-    case 1: return PASA_ATTN_SHAPE(1, 128);
-    case 2: return PASA_ATTN_SHAPE(2, 64);
-    default: return PASA_ATTN_SHAPE(2, 128);
+    case 0: return PASA_ATTN_SHAPE(1, 64, 64);
+    case 1: return PASA_ATTN_SHAPE(1, 128, 64);
+    case 2: return PASA_ATTN_SHAPE(2, 64, 64);
+    case 3: return PASA_ATTN_SHAPE(2, 128, 64);
+    case 4: return PASA_ATTN_SHAPE(1, 64, 128);
+    case 5: return PASA_ATTN_SHAPE(1, 128, 128);
+    case 6: return PASA_ATTN_SHAPE(2, 64, 128);
+    default: return PASA_ATTN_SHAPE(2, 128, 128);
   }
 #undef PASA_ATTN_SHAPE
 }

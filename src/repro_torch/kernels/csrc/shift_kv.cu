@@ -6,13 +6,13 @@
 //
 // What it computes: for every (batch, kv-head) and every block of `block`
 // (64 or 128) key rows, the product of the shifting matrix M (block x
-// block, the 1/sqrt(d) scale folded in) with the block's keys (block x
-// 128), as the matrix engine does it: operands at M's dtype (fp16, or
+// block, the 1/sqrt(d) scale folded in) with the block's keys (block x D,
+// head width D 64 or 128), as the matrix engine does it: operands at M's dtype (fp16, or
 // bf16 under the bf16_fp32 policy), an fp32 sum, ONE rounding to M's
 // dtype on the store.  Keys are read through their strides (the prefill's
 // (B, S, KVH, D) projection is read where it lies); bf16 keys under an
 // fp16 M are rounded to fp16 first, as the reference casts K to M's dtype
-// before the product.  The output is (B, KVH, S2, 128) at M's dtype,
+// before the product.  The output is (B, KVH, S2, D) at M's dtype,
 // contiguous.
 //
 // What bounds it on an H100: bytes.  Each key is read once and written
@@ -22,10 +22,10 @@
 // between a key half's arrival and its product but registers:
 //   * M is symmetric (a I - b J, Eq. 10, rounded entrywise), so the block
 //     is computed transposed: K'^T = K^T M.  One CTA per (b * kvh, block
-//     j) of two warpgroups; warpgroup w owns head-dim columns [64 w, 64 w
-//     + 64), i.e. 64 rows of K'^T, and needs only its own 64-column half
-//     of the key block;
-//   * thread 0 issues every load by TMA at once: the key block's two
+//     j) of D / 64 warpgroups (two at D 128, one at 64); warpgroup w owns
+//     head-dim columns [64 w, 64 w + 64), i.e. 64 rows of K'^T, and needs
+//     only its own 64-column half of the key block;
+//   * thread 0 issues every load by TMA at once: the key block's D / 64
 //     64-column halves (each on its own mbarrier, through a tensor map
 //     over the strided keys) and M (block rows x 64-column halves, from
 //     L2), all 128-byte swizzled;
@@ -38,8 +38,8 @@
 //     (stmatrix .trans) into a swizzled 64 x 64 box of K', which one
 //     thread of the warpgroup stores by TMA; the first product's rounding
 //     and store overlap the second product (block 128);
-//   * shared memory: M block^2 x 2 bytes, keys and output block x 256 each
-//     (96 KB at block 128), so two CTAs fit on an SM.
+//   * shared memory: M block^2 x 2 bytes, keys and output block x 2 D
+//     bytes each (96 KB at block 128 and D 128), so two CTAs fit on an SM.
 
 #include "hopper.cuh"
 
@@ -47,19 +47,20 @@ namespace pasa {
 
 constexpr int SK_HALF_BYTES = 64 * 2;     // one 64-column half-row
 
-constexpr int SK_THREADS = 256;          // two warpgroups: the head-dim halves
-
-template <int BLOCK>
+// One warpgroup per 64-column half of the head width D.
+template <int BLOCK, int D>
 struct ShiftLayout {
+  static constexpr int NH = D / 64;                         // head-dim halves
+  static constexpr int THREADS = 128 * NH;
   static constexpr int NB = BLOCK / 64;                     // 64-row blocks
   static constexpr int M_BYTES = BLOCK * BLOCK * 2;         // NB halves
   static constexpr int K_HALF = BLOCK * SK_HALF_BYTES;      // one key half
   static constexpr int BOX = 64 * SK_HALF_BYTES;            // one output box
   static constexpr int M_OFF = 0;
   static constexpr int K_OFF = M_OFF + M_BYTES;
-  static constexpr int O_OFF = K_OFF + 2 * K_HALF;          // 2 x NB boxes
-  static constexpr int BAR_OFF = O_OFF + 2 * NB * BOX;
-  static constexpr int BYTES = BAR_OFF + 8 * 3;             // M, key halves
+  static constexpr int O_OFF = K_OFF + NH * K_HALF;         // NH x NB boxes
+  static constexpr int BAR_OFF = O_OFF + NH * NB * BOX;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + NH);      // M, key halves
 };
 
 // Byte address of row `row`'s 16-byte chunk `chunk` in a 128-byte swizzled
@@ -85,14 +86,15 @@ __device__ __forceinline__ uint32_t pack2(float a, float b, __nv_bfloat16) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-// OpT: the operand and output dtype (M's); KeyT: the keys as stored.
-template <typename OpT, typename KeyT, int BLOCK>
-__global__ void __launch_bounds__(SK_THREADS)
+// OpT: the operand and output dtype (M's); KeyT: the keys as stored; D:
+// the head width.
+template <typename OpT, typename KeyT, int BLOCK, int D>
+__global__ void __launch_bounds__(128 * (D / 64))
 shift_kv_kernel(const __grid_constant__ CUtensorMap tm,  // M (block, block)
                 const __grid_constant__ CUtensorMap tk,  // K (B, KVH, S2, D)
                 const __grid_constant__ CUtensorMap to,  // K' (B, KVH, S2, D)
                 int kv_heads) {
-  using L = ShiftLayout<BLOCK>;
+  using L = ShiftLayout<BLOCK, D>;
   constexpr int NB = L::NB;
   constexpr int KS = BLOCK / 16;                      // k16 steps
   constexpr bool BF16 = std::is_same<OpT, __nv_bfloat16>::value;
@@ -114,10 +116,9 @@ shift_kv_kernel(const __grid_constant__ CUtensorMap tm,  // M (block, block)
     prefetch_map(&tm);
     prefetch_map(&to);
     mbar_init(bar_m, 1);
-    mbar_init(bar_k, 1);
-    mbar_init(bar_k + 8, 1);
+    for (int hf = 0; hf < L::NH; ++hf) mbar_init(bar_k + 8 * hf, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int hf = 0; hf < 2; ++hf) {
+    for (int hf = 0; hf < L::NH; ++hf) {
       mbar_expect_tx(bar_k + 8 * hf, L::K_HALF);
       tma_load_4d(s_base + L::K_OFF + hf * L::K_HALF, &tk, bar_k + 8 * hf,
                   64 * hf, j * BLOCK, h, b);
@@ -198,26 +199,26 @@ shift_kv_kernel(const __grid_constant__ CUtensorMap tm,  // M (block, block)
   if ((t & 127) == 0) bulk_wait_read();   // the boxes outlive the stores
 }
 
-template <typename OpT, typename KeyT, int BLOCK>
+template <typename OpT, typename KeyT, int BLOCK, int D>
 static int launch(const void* m, const void* k, void* out, int batch,
                   int kv_heads, int s2, long long sb, long long sh,
                   long long ss, cudaStream_t stream) {
-  using L = ShiftLayout<BLOCK>;
+  using L = ShiftLayout<BLOCK, D>;
   CUtensorMap tm, tk, to;
   const cuuint64_t m_dims[4] = {BLOCK, BLOCK, 1, 1};
   const cuuint64_t m_strides[3] = {BLOCK * 2, BLOCK * BLOCK * 2,
                                    BLOCK * BLOCK * 2};
   const cuuint32_t m_box[4] = {64, BLOCK, 1, 1};
-  const long long os = HEAD_DIM, oh = (long long)s2 * os,
+  const long long os = D, oh = (long long)s2 * os,
                   ob = (long long)kv_heads * oh;   // K' is contiguous
   if (!encode_map(&tm, tma_dtype<OpT>(), m, m_dims, m_strides, m_box,
                   CU_TENSOR_MAP_SWIZZLE_128B) ||
       !make_map(&tk, k, batch, kv_heads, s2, sb, sh, ss, BLOCK,
-                tma_dtype<KeyT>()) ||
+                tma_dtype<KeyT>(), D) ||
       !make_map(&to, out, batch, kv_heads, s2, ob, oh, os, 64,
-                tma_dtype<OpT>()))
+                tma_dtype<OpT>(), D))
     return (int)cudaErrorInvalidValue;
-  auto kernel = shift_kv_kernel<OpT, KeyT, BLOCK>;
+  auto kernel = shift_kv_kernel<OpT, KeyT, BLOCK, D>;
   const int smem = L::BYTES + 1024;       // + the 1024-byte alignment
   static OncePerDevice ready;             // the attribute, per device
   bool* set = ready.current();
@@ -228,20 +229,24 @@ static int launch(const void* m, const void* k, void* out, int batch,
     if (err != cudaSuccess) return (int)err;
     *set = true;
   }
-  kernel<<<dim3(batch * kv_heads, s2 / BLOCK), SK_THREADS, smem, stream>>>(
+  kernel<<<dim3(batch * kv_heads, s2 / BLOCK), L::THREADS, smem, stream>>>(
       tm, tk, to, kv_heads);
   return (int)cudaGetLastError();
 }
 
 template <typename OpT, typename KeyT>
 static int launch_block(const void* m, const void* k, void* out, int batch,
-                        int kv_heads, int s2, int block, long long sb,
-                        long long sh, long long ss, cudaStream_t stream) {
-  if (block == 128)
-    return launch<OpT, KeyT, 128>(m, k, out, batch, kv_heads, s2, sb, sh, ss,
-                                  stream);
-  return launch<OpT, KeyT, 64>(m, k, out, batch, kv_heads, s2, sb, sh, ss,
-                               stream);
+                        int kv_heads, int s2, int block, int head_dim,
+                        long long sb, long long sh, long long ss,
+                        cudaStream_t stream) {
+#define PASA_SHIFT_LAUNCH(BLOCK, D)                                        \
+  launch<OpT, KeyT, BLOCK, D>(m, k, out, batch, kv_heads, s2, sb, sh, ss, \
+                              stream)
+  if (head_dim == 128)
+    return block == 128 ? PASA_SHIFT_LAUNCH(128, 128)
+                        : PASA_SHIFT_LAUNCH(64, 128);
+  return block == 128 ? PASA_SHIFT_LAUNCH(128, 64) : PASA_SHIFT_LAUNCH(64, 64);
+#undef PASA_SHIFT_LAUNCH
 }
 
 }  // namespace pasa
@@ -253,15 +258,17 @@ static int launch_block(const void* m, const void* k, void* out, int batch,
 // are bf16 or fp16 (bf16 keys need no conversion under a bf16 M; fp16
 // keys under a bf16 M are not taken), read through the element strides
 // sb, sh, ss (multiples of 8, unit stride on the head dim, 16-byte
-// aligned start); block is 64 or 128 and divides s2.  The output is
-// (B, KVH, S2, 128) at M's dtype, contiguous.  Returns the cudaError_t of
-// the launch (0: queued on `stream`).
+// aligned start); block is 64 or 128 and divides s2; head_dim is 64 or
+// 128.  The output is (B, KVH, S2, head_dim) at M's dtype, contiguous.
+// Returns the cudaError_t of the launch (0: queued on `stream`).
 extern "C" int shift_kv_launch(const void* m, const void* k, void* out,
                                int batch, int kv_heads, int s2, int block,
-                               long long sb, long long sh, long long ss,
-                               int m_is_bf16, int k_is_bf16, void* stream) {
+                               int head_dim, long long sb, long long sh,
+                               long long ss, int m_is_bf16, int k_is_bf16,
+                               void* stream) {
   using namespace pasa;
   bool ok = batch >= 1 && kv_heads >= 1 && (block == 64 || block == 128) &&
+            (head_dim == 64 || head_dim == 128) &&
             s2 >= block && !(s2 % block) && s2 / block <= 65535 &&
             !(m_is_bf16 && !k_is_bf16) &&
             !(reinterpret_cast<uintptr_t>(m) % 16) &&
@@ -273,10 +280,10 @@ extern "C" int shift_kv_launch(const void* m, const void* k, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m_is_bf16)
     return launch_block<__nv_bfloat16, __nv_bfloat16>(
-        m, k, out, batch, kv_heads, s2, block, sb, sh, ss, s);
+        m, k, out, batch, kv_heads, s2, block, head_dim, sb, sh, ss, s);
   if (k_is_bf16)
     return launch_block<__half, __nv_bfloat16>(m, k, out, batch, kv_heads, s2,
-                                               block, sb, sh, ss, s);
+                                               block, head_dim, sb, sh, ss, s);
   return launch_block<__half, __half>(m, k, out, batch, kv_heads, s2, block,
-                                      sb, sh, ss, s);
+                                      head_dim, sb, sh, ss, s);
 }

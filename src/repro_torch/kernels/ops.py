@@ -14,10 +14,14 @@ ops keyed by the policy and the dtype of the pool or cache they read
 shift op by its own modes (``shift_kv.mode_name``).  The four attention
 kernels run the fp16, fp16_fp32, fp32 and bf16_fp32 policies, with the
 output at the policy's output dtype; the float64 oracle policy raises on
-the card.  The two decode ops take head_dim 64 or 128 on the card and
-count a launch at 64 under a mode of its own (``"fp16/bfloat16/d64"``);
-the attention, shift and paged prefill ops take 128 and raise before any
-launch for another width.
+the card.  The decode, attention and shift ops take head_dim 64 or 128
+on the card and count a launch at 64 under a mode of its own
+(``"fp16/bfloat16/d64"``, ``"bf16_keys/fp16_ops/block128/d64"``); the
+paged prefill op takes 128; each raises before any launch for another
+width.  The attention ops take ``kv_valid``: the keys' columns at or past
+it are padding (zero rows the caller added to reach a whole block), which
+the row pseudo-average counts and the softmax masks, as the reference's
+``blocked_attention`` pads and masks.
 
 The reference's ``interpret`` and ``use_kernel`` switches have no
 counterpart: the plain versions live beside each kernel in its module.
@@ -318,14 +322,14 @@ def shift_kv(
     if block_kv not in (64, 128):
         raise NotImplementedError(
             f"the CUDA shift kernel takes block_kv 64 or 128, got {block_kv}")
-    _head_dim("shift", d, (_decode.HEAD_DIM,))
+    _head_dim("shift", d, _shift.HEAD_DIMS)
     # bf16 keys under fp16 operands are rounded on chip
     if k.dtype != op and not (op == torch.float16 and k.dtype == torch.bfloat16):
         k = k.to(op)
     _cuda_rows("k", k, k.device)
     m = _shift.device_matrix(block_kv, d, float(beta), op, k.device)
     out = _shift.kernel_call(m, k, block_kv=block_kv)
-    _count(shift_kv, _shift.mode_name(k.dtype, op, block_kv))
+    _count(shift_kv, _shift.mode_name(k.dtype, op, block_kv, d))
     return out
 
 
@@ -333,17 +337,25 @@ shift_kv.launches = 0
 shift_kv.launches_by_mode = {}
 
 
-def _attention(q, k, v, *, beta, policy, block_q, block_kv, causal, wrapper):
+def _attention(q, k, v, *, beta, policy, block_q, block_kv, causal,
+               kv_valid, wrapper):
     """The shift-KV pass (beta > 0) then the fused attention sweep."""
     _check(q, k, v)
-    if q.shape[2] % block_q or k.shape[2] % block_kv:
+    s2 = k.shape[2]
+    if q.shape[2] % block_q or s2 % block_kv:
         raise ValueError(
-            f"S1={q.shape[2]} % block_q={block_q} and S2={k.shape[2]} % "
+            f"S1={q.shape[2]} % block_q={block_q} and S2={s2} % "
             f"block_kv={block_kv} must be 0 (the dense layer pads)"
+        )
+    if kv_valid is not None and not s2 - block_kv < kv_valid <= s2:
+        raise ValueError(
+            f"kv_valid={kv_valid} must pad less than one block: "
+            f"{s2 - block_kv} < kv_valid <= S2={s2}"
         )
     if q.device.type == "cpu":
         return _attn.attention_plain(q, k, v, beta=beta, policy=policy,
-                                     block_kv=block_kv, causal=causal)
+                                     block_kv=block_kv, causal=causal,
+                                     kv_valid=kv_valid)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     for name, block in (("block_q", block_q), ("block_kv", block_kv)):
@@ -352,14 +364,14 @@ def _attention(q, k, v, *, beta, policy, block_q, block_kv, causal, wrapper):
                 f"the CUDA attention kernel takes {name} 64 or 128, got {block}"
             )
     d = q.shape[-1]
-    _head_dim("attention", d, (_decode.HEAD_DIM,))
+    _head_dim("attention", d, _attn.HEAD_DIMS)
     op = policy.input_dtype
     # the recovery multiplier of the GEMM shift is the invariance the
     # rounded M realizes, not the ideal beta/(1-beta)
     inva = (effective_invariance(block_kv, d, beta, op)
             if beta > 0.0 else 0.0)
     _decode.policy_scalars(beta, policy, d, inva)   # raises before a launch
-    mode = _decode.mode_name(policy, k.dtype)
+    mode = _decode.mode_name(policy, k.dtype, d)
     q, v = q.to(op), v.to(op)
     for name, x in (("q", q), ("v", v)):
         _cuda_rows(name, x, q.device)
@@ -369,7 +381,8 @@ def _attention(q, k, v, *, beta, policy, block_q, block_kv, causal, wrapper):
         k_sh = k.to(op)
         _cuda_rows("k", k_sh, q.device)
     out = _attn.kernel_call(q, k_sh, v, beta=beta, inva=inva, policy=policy,
-                            causal=causal, block_q=block_q, block_kv=block_kv)
+                            causal=causal, block_q=block_q, block_kv=block_kv,
+                            kv_valid=kv_valid)
     _count(wrapper, mode)
     return out
 
@@ -384,11 +397,14 @@ def pasa_attention(
     block_q: int = 128,
     block_kv: int = 128,
     causal: bool = False,
+    kv_valid: Optional[int] = None,
 ) -> torch.Tensor:
     """Fused PASA attention: shift-KV GEMM pass + online-recovery sweep.
-    S1 % block_q == 0 and S2 % block_kv == 0, else ValueError."""
+    S1 % block_q == 0 and S2 % block_kv == 0, else ValueError; key columns
+    at or past ``kv_valid`` (S2 - block_kv < kv_valid <= S2) are padding."""
     return _attention(q, k, v, beta=beta, policy=policy, block_q=block_q,
-                      block_kv=block_kv, causal=causal, wrapper=pasa_attention)
+                      block_kv=block_kv, causal=causal, kv_valid=kv_valid,
+                      wrapper=pasa_attention)
 
 
 pasa_attention.launches = 0
@@ -404,10 +420,12 @@ def flash_attention(
     block_q: int = 128,
     block_kv: int = 128,
     causal: bool = False,
+    kv_valid: Optional[int] = None,
 ) -> torch.Tensor:
     """FlashAttention-2 baseline: the attention kernel at beta = 0."""
     return _attention(q, k, v, beta=0.0, policy=policy, block_q=block_q,
-                      block_kv=block_kv, causal=causal, wrapper=flash_attention)
+                      block_kv=block_kv, causal=causal, kv_valid=kv_valid,
+                      wrapper=flash_attention)
 
 
 flash_attention.launches = 0

@@ -4,8 +4,9 @@ plain version.
 Counterpart of ``repro.kernels.shift_kv``.
 
   * :func:`kernel_call` launches ``csrc/shift_kv.cu``: ``K'_j = M K_j``
-    per block of ``block_kv`` (64 or 128) rows, one CTA per (b * kv-head,
-    block): TMA loads of M and of the block's two 64-column halves, wgmma
+    per block of ``block_kv`` (64 or 128) rows at head width 64 or 128,
+    one CTA per (b * kv-head, block) of one warpgroup per 64-column half
+    of the head: TMA loads of M and of the block's key halves, wgmma
     with operands at M's dtype (fp16, or bf16 under the bf16_fp32 policy),
     fp32 sums in registers, one rounding to M's dtype, TMA stores.  It
     reads K through its strides (bf16 or fp16; bf16 keys under an fp16 M
@@ -26,6 +27,8 @@ import torch
 from repro_torch.core.shifting import shift_kv_blocks, shifting_matrix
 from repro_torch.kernels import _build
 
+HEAD_DIMS = (64, 128)      # the head widths of the kernel's instances
+
 
 def shift_kv_plain(m: torch.Tensor, k: torch.Tensor, block_kv: int,
                    out_dtype: torch.dtype = torch.float16) -> torch.Tensor:
@@ -34,12 +37,13 @@ def shift_kv_plain(m: torch.Tensor, k: torch.Tensor, block_kv: int,
 
 
 def mode_name(key_dtype: torch.dtype, op_dtype: torch.dtype,
-              block_kv: int) -> str:
+              block_kv: int, head_dim: int = 128) -> str:
     """The kernel mode a launch runs, e.g. ``"bf16_keys/fp16_ops/block128"``:
-    the keys' dtype as the kernel reads them, the operand dtype, the block."""
+    the keys' dtype as the kernel reads them, the operand dtype, the block,
+    and a head width other than 128 after them (``".../block128/d64"``)."""
     short = {torch.float16: "fp16", torch.bfloat16: "bf16"}
-    return (f"{short[key_dtype]}_keys/{short[op_dtype]}_ops/"
-            f"block{block_kv}")
+    name = f"{short[key_dtype]}_keys/{short[op_dtype]}_ops/block{block_kv}"
+    return name if head_dim == 128 else f"{name}/d{head_dim}"
 
 
 @functools.lru_cache(maxsize=16)
@@ -58,7 +62,7 @@ def device_matrix(block_kv: int, d: int, beta: float, dtype: torch.dtype,
 def _entry() -> ctypes._CFuncPtr:
     fn = _build.load("shift_kv").shift_kv_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
         + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -71,15 +75,15 @@ def kernel_call(m: torch.Tensor, k: torch.Tensor, *,
 
     m: (block_kv, block_kv) fp16 or bf16, contiguous and symmetric (the
     kernel computes K'^T = K^T M; :func:`device_matrix` builds and checks
-    it); k: (B, KVH, S2, 128) bf16 or fp16 (bf16 under a bf16 m), unit
-    stride on the last dim, other strides multiples of 8.  Returns (B, KVH, S2, 128) at m's dtype,
-    contiguous.  Arguments are validated by
+    it); k: (B, KVH, S2, D) bf16 or fp16 (bf16 under a bf16 m), D 64 or
+    128, unit stride on the last dim, other strides multiples of 8.
+    Returns (B, KVH, S2, D) at m's dtype, contiguous.  Arguments are validated by
     :func:`repro_torch.kernels.ops.shift_kv`."""
     b, kvh, s2, d = k.shape
     out = torch.empty((b, kvh, s2, d), dtype=m.dtype, device=k.device)
     err = _entry()(
         m.data_ptr(), k.data_ptr(), out.data_ptr(),
-        b, kvh, s2, block_kv, k.stride(0), k.stride(1), k.stride(2),
+        b, kvh, s2, block_kv, d, k.stride(0), k.stride(1), k.stride(2),
         int(m.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
         torch.cuda.current_stream(k.device).cuda_stream,
     )

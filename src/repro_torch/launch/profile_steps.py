@@ -14,6 +14,11 @@ routes.  qwen2-7b, both routes:
 ``--arch zamba2-1.2b`` (the hybrid family, served token by token on the
 dense cache): four prompts of 200 tokens fed through ``serve_step`` into
 a 240-row cache, then the decode call (``hybrid_decode``) from kv 201.
+``--arch whisper-large-v3`` (the audio family, the same route): one
+encode of four clips of 1500 frame embeddings (``whisper_encode``, the
+call profiled as such), its output written into the cache's ``enc_out``,
+four prompts of 64 tokens fed through ``serve_step`` into a 104-row
+cache, then the decode call (``whisper_decode``) from kv 66.
 
 ``--kv-dtype int8`` or ``fp8_e4m3`` serves the paged route from a
 quantized page pool (the quantized mode of the paged kernels; the
@@ -31,6 +36,8 @@ Run on one card from the repository root:
   PYTHONPATH=src python -m repro_torch.launch.profile_steps --out build/profile
   PYTHONPATH=src python -m repro_torch.launch.profile_steps \
       --arch zamba2-1.2b --out build/profile_hybrid
+  PYTHONPATH=src python -m repro_torch.launch.profile_steps \
+      --arch whisper-large-v3 --out build/profile_whisper
   PYTHONPATH=src python -m repro_torch.launch.profile_steps --kv-dtype int8 \
       --out build/profile_int8
 """
@@ -48,7 +55,8 @@ PROMPTS = (1000, 517, 300, 129)
 CHUNK = 512
 PAGE = 128
 DENSE_BATCH, DENSE_PROMPT = 4, 1000
-HYBRID_BATCH, HYBRID_PROMPT, HYBRID_MAX_LEN = 4, 200, 240
+# token-by-token families: (batch, prompt tokens, cache rows) of each
+TOKEN_BY_TOKEN = {"hybrid": (4, 200, 240), "audio": (4, 64, 104)}
 
 # kernel-name fragment -> category, first match wins
 _KERNELS = (
@@ -124,7 +132,7 @@ def _profile(fn, n_calls: int, trace: Path) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-7b",
-                    choices=("qwen2-7b", "zamba2-1.2b"))
+                    choices=("qwen2-7b", "zamba2-1.2b", "whisper-large-v3"))
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to N layers (default: all)")
     ap.add_argument("--decode-calls", type=int, default=5)
@@ -146,7 +154,9 @@ def main(argv=None):
     dev = resolve_device("cuda")
     cfg = get_config(args.arch)
     if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = dataclasses.replace(
+            cfg, n_layers=args.layers,
+            n_encoder_layers=min(cfg.n_encoder_layers, args.layers))
     bundle = build(cfg)
     params = bundle.init(torch.Generator(device=dev).manual_seed(args.seed), dev)
     rng = np.random.default_rng(args.seed)
@@ -243,19 +253,35 @@ def main(argv=None):
 
 
 def _profile_token_by_token(args, bundle, params, rng, dev, out: Path) -> dict:
-    """A family served token by token (the hybrid): HYBRID_BATCH prompts
-    of HYBRID_PROMPT tokens through ``serve_step`` into a
-    HYBRID_MAX_LEN-row cache, then ``--decode-calls`` decode calls under
-    the profiler (after one warm-up call)."""
+    """A family served token by token (``TOKEN_BY_TOKEN``): its prompts
+    through ``serve_step`` into its cache, then ``--decode-calls`` decode
+    calls under the profiler (after one warm-up call).  For the audio
+    family first one ``whisper_encode`` call (profiled after a warm-up),
+    whose output fills the cache's ``enc_out``."""
     import numpy as np
     import torch
 
     cfg = bundle.cfg
+    batch, prompt, max_len = TOKEN_BY_TOKEN[cfg.family]
     prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (HYBRID_BATCH, HYBRID_PROMPT)).astype(np.int32)).to(dev)
-    cache = bundle.init_cache(HYBRID_BATCH, HYBRID_MAX_LEN, device=dev)
-    pos = torch.zeros(HYBRID_BATCH, dtype=torch.int32, device=dev)
-    for i in range(HYBRID_PROMPT):
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).to(dev)
+    cache = bundle.init_cache(batch, max_len, device=dev)
+    report = {"arch": cfg.arch_id, "layers": cfg.n_layers,
+              "device": torch.cuda.get_device_name(0)}
+    name = "hybrid" if cfg.family == "hybrid" else "whisper"
+    if cfg.family == "audio":
+        from repro_torch.models.multimodal import whisper_encode
+
+        frames = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)).to(dev)
+        call_encode = lambda: whisper_encode(params, cfg, frames)
+        call_encode()                                # warm-up
+        report["encoder_layers"] = cfg.n_encoder_layers
+        report["whisper_encode"] = _profile(call_encode, 1,
+                                            out / "trace_whisper_encode.json")
+        cache["enc_out"].copy_(call_encode())
+    pos = torch.zeros(batch, dtype=torch.int32, device=dev)
+    for i in range(prompt):
         logits, cache = bundle.serve_step(params, prompts[:, i], pos, cache)
         pos = pos + 1
     token = torch.argmax(logits, -1).to(torch.int32)
@@ -267,15 +293,13 @@ def _profile_token_by_token(args, bundle, params, rng, dev, out: Path) -> dict:
         pos = pos + 1
 
     call_decode()                                    # warm-up
-    if int(pos[0]) + args.decode_calls > HYBRID_MAX_LEN:
+    if int(pos[0]) + args.decode_calls > max_len:
         raise ValueError(f"--decode-calls {args.decode_calls} overruns the "
-                         f"{HYBRID_MAX_LEN}-row cache")
+                         f"{max_len}-row cache")
     kv = int(pos[0]) + 1
-    report = {"arch": cfg.arch_id, "layers": cfg.n_layers,
-              "device": torch.cuda.get_device_name(0)}
-    report["hybrid_decode"] = _profile(call_decode, args.decode_calls,
-                                       out / "trace_hybrid_decode.json")
-    report["hybrid_decode"]["kv_len_at_first_call"] = [kv] * HYBRID_BATCH
+    report[f"{name}_decode"] = _profile(call_decode, args.decode_calls,
+                                        out / f"trace_{name}_decode.json")
+    report[f"{name}_decode"]["kv_len_at_first_call"] = [kv] * batch
     return report
 
 

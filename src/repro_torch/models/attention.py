@@ -1,7 +1,10 @@
-"""GQA attention of the dense family: dense-cache and paged serving branches.
+"""GQA attention: dense-cache and paged serving branches, and the
+no-cache branch (whole sequences, self- or cross-attention).
 
-Counterpart of the self-attention branches of
-``repro.models.attention.attention``.  Every cache branch writes the
+Counterpart of ``repro.models.attention.attention``, with its ``causal``,
+``use_rope`` and ``cross_x`` arguments: K/V come from ``cross_x`` when it
+is given (cross-attention, no RoPE), from ``x`` otherwise; RoPE is skipped
+when ``use_rope`` is False.  Every cache branch writes the
 step's K/V into the layer's cache IN PLACE first and then attends with a
 kernel op - a cache is never gathered, cast or copied on the card:
 
@@ -23,9 +26,17 @@ kernel op - a cache is never gathered, cast or copied on the card:
     with shift blocks == pages (``ops.pasa_paged_prefill``).
   * paged decode: one token per row written at ``pos``, attending over
     ``pos + 1`` positions (``ops.pasa_paged_decode``).
-  * no cache (``cache=None``, the hybrid family's whole-sequence
-    forward): the dense prefill's causal attention over the fresh K/V,
-    with nothing written.
+  * no cache (``cache=None``: the hybrid family's whole-sequence forward,
+    the Whisper encoder, every cross-attention): the dense prefill's
+    attention over the fresh K/V with nothing written, causal or not as
+    asked.  Not causal, nothing hides the pad rows: the op gets
+    ``kv_valid = S2`` and masks the pad columns after the row
+    pseudo-average, which counts them, as the reference's
+    ``blocked_attention`` does with its own zero pad.  One query row (a
+    decode step's cross-attention) is padded to 64 rows only; the rows do
+    not interact.  Cross K/V are projected one sequence at a time (1,500
+    rows each for Whisper), so that a sequence's K/V do not depend on how
+    many sequences share the call.
 
 On a quantized pool (int8 / fp8_e4m3 codes with scale/shift sidecars,
 ``runtime/paged_cache.py``) the writes quantize, as the reference's
@@ -80,11 +91,14 @@ def attention(
     p: dict,                      # one layer's attention params
     cfg: ModelConfig,
     *,
+    causal: bool = True,
+    use_rope: bool = True,
+    cross_x: Optional[torch.Tensor] = None,   # (B, S_kv, D) for cross-attn
     cache: Optional[dict] = None,  # {"k", "v"}: this layer's (B, max_len,
                                   # kv_dim) dense cache or (P, page, kv_dim)
                                   # page pool (+ the sidecars of a
-                                  # quantized pool); None: causal attention
-                                  # over the fresh K/V
+                                  # quantized pool); None: attention over
+                                  # the fresh K/V
     pos: Optional[torch.Tensor] = None,   # (B,) write position / chunk
                                           # start (None: dense prefill at 0)
     page_table: Optional[torch.Tensor] = None,    # (B, max_pages) -> paged
@@ -96,27 +110,38 @@ def attention(
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = x.to(cd)
 
-    q, k, v = matmuls(x, p["wq"].to(cd), p["wk"].to(cd), p["wv"].to(cd))
+    wq, wk, wv = (p[name].to(cd) for name in ("wq", "wk", "wv"))
+    if cross_x is None:
+        q, k, v = matmuls(x, wq, wk, wv)
+    else:
+        (q,) = matmuls(x, wq)
+        src = cross_x.to(cd)
+        kv = [matmuls(src[i], wk, wv) for i in range(b)]
+        k, v = (torch.stack([t[n] for t in kv]) for n in (0, 1))
+    s_kv = k.shape[1]
     if cfg.qkv_bias:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
     q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kvh, hd)
-    v = v.reshape(b, s, kvh, hd)
+    k = k.reshape(b, s_kv, kvh, hd)
+    v = v.reshape(b, s_kv, kvh, hd)
 
     # RoPE at per-row absolute positions pos + [0, S)
     if pos is None:
         pos = torch.zeros(b, dtype=torch.int32, device=x.device)
     pos = pos.to(torch.int32)
-    cos, sin = rope_angles(pos, s, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if use_rope and cross_x is None:
+        cos, sin = rope_angles(pos, s, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
     if page_table is not None:
         out = _paged(q, k, v, cfg, cache, pos, page_table, prefill_cache,
                      prefill_len)
-    elif prefill_cache or cache is None:
+    elif cache is None:
+        out = _dense_prefill(q, k, v, cfg, None, causal=causal)
+    elif prefill_cache:
         out = _dense_prefill(q, k, v, cfg, cache)
     else:
         out = _dense_decode(q, k, v, cfg, cache, pos)
@@ -151,11 +176,12 @@ def _naive(q, k, v, *, causal: bool, kv_len=None, q_offset=0) -> torch.Tensor:
     return out.to(q.dtype).movedim(1, 2).reshape(b, s1, h * hd)
 
 
-def _dense_prefill(q, k, v, cfg: ModelConfig,
-                   cache: Optional[dict]) -> torch.Tensor:
-    """Write rows [0, S) of the dense cache (if any), then causal
-    attention over the fresh K/V: GEMM-shift PASA, FlashAttention-2 or
-    naive.  q (B, S, H, hd), k/v (B, S, KVH, hd)."""
+def _dense_prefill(q, k, v, cfg: ModelConfig, cache: Optional[dict], *,
+                   causal: bool = True) -> torch.Tensor:
+    """Write rows [0, S) of the dense cache (if any), then attention over
+    the fresh K/V, causal or not: GEMM-shift PASA, FlashAttention-2 or
+    naive.  q (B, S1, H, hd), k/v (B, S2, KVH, hd) (S2 != S1 only for
+    cross-attention, without a cache)."""
     ac = cfg.attention
     if not (ac.use_gemm_shift and ac.expand_kv):
         raise NotImplementedError(
@@ -163,18 +189,22 @@ def _dense_prefill(q, k, v, cfg: ModelConfig,
             "expand_kv=True (the reference's defaults) only"
         )
     b, s, h, hd = q.shape
-    kvh = k.shape[2]
+    s2, kvh = k.shape[1], k.shape[2]
     if cache is not None:
         cache["k"][:, :s].copy_(k.reshape(b, s, kvh * hd))
         cache["v"][:, :s].copy_(v.reshape(b, s, kvh * hd))
     if ac.impl == "naive":
-        return _naive(q, k, v, causal=True)
+        return _naive(q, k, v, causal=causal)
     policy, beta = _policy_beta(cfg)
-    pad = (-s) % ac.block_kv
-    if pad:
-        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    # zero rows up to whole blocks (one query row: up to 64 rows)
+    block_q = min(ac.block_kv, 64) if s == 1 and not causal else ac.block_kv
+    pad_rows = lambda t, n: F.pad(t, (0, 0, 0, 0, 0, n)) if n else t
+    q = pad_rows(q, (-s) % block_q)
+    k, v = (pad_rows(t, (-s2) % ac.block_kv) for t in (k, v))
     args = (q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1))
-    blocks = dict(block_q=ac.block_kv, block_kv=ac.block_kv, causal=True)
+    # causal, no real row sees a pad column; otherwise the op masks them
+    blocks = dict(block_q=block_q, block_kv=ac.block_kv, causal=causal,
+                  kv_valid=None if causal else s2)
     if ac.impl == "flash":
         out = ops.flash_attention(*args, policy=policy, **blocks)
     else:

@@ -1,5 +1,6 @@
-"""Parameters of the dense transformer and of the hybrid (zamba2) model:
-carried across from the reference, or drawn at random on the device.
+"""Parameters of the dense transformer, the hybrid (zamba2) model and
+Whisper: carried across from the reference, or drawn at random on the
+device.
 
 Both produce the layout of the reference's ``transformer.init_lm``::
 
@@ -20,6 +21,15 @@ N = the SSM state, K = d_conv)::
      "shared": {"ln1", "ln2": (D,), "attn": {"wq", "wk", "wv", "wo"},
                 "mlp": {"w1", "w3", "w2"}}}
 
+or of its ``multimodal.init_whisper`` (Le encoder and L decoder layers,
+T audio frames)::
+
+    {"embed": (V, D), "pos_embed": (T, D), "enc_norm", "final_norm": (D,),
+     "lm_head": (D, V),
+     "enc": {"ln1", "ln2": (Le, D), "attn": {...}, "mlp": {...}},
+     "dec": {"ln1", "ln_x", "ln2": (L, D), "self_attn": {...},
+             "cross_attn": {...}, "mlp": {...}}}
+
 Each weight is stored at the dtype the reference casts it to before use,
 not at the reference's fp32 parameter dtype: the compute dtype (bf16) for
 the projections, MLP, embedding, norms and biases, and fp32 for
@@ -28,7 +38,8 @@ reference reads in fp32 (``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``,
 ``d_skip``).  Rounding fp32 -> bf16 once at load gives the same values as
 rounding at every use, and halves the memory of a full-width model (about
 14 GB in bf16 for qwen2-7b, plus 2.2 GB for the fp32 head; 2.4 GB for
-zamba2-1.2b, plus 0.26 GB for its head).
+zamba2-1.2b, plus 0.26 GB for its head; 3.9 GB for whisper-large-v3, plus
+0.27 GB for its head).
 """
 
 from __future__ import annotations
@@ -53,9 +64,9 @@ def _leaf_dtype(path: tuple, cfg: ModelConfig) -> torch.dtype:
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
-    """The reference's ``init_lm`` or ``init_hybrid`` pytree, given as
-    nested dicts of numpy arrays, -> the port's parameters on
-    ``device``."""
+    """The reference's ``init_lm``, ``init_hybrid`` or ``init_whisper``
+    pytree, given as nested dicts of numpy arrays, -> the port's
+    parameters on ``device``."""
     dev = resolve_device(device)
 
     def conv(node, path):
@@ -180,4 +191,35 @@ def init_hybrid(cfg: ModelConfig, generator: torch.Generator,
         },
         "final_norm": r.const((d,), 1.0),
         "lm_head": r.dense(d, cfg.vocab_size, dtype=f32),
+    }
+
+
+def init_whisper(cfg: ModelConfig, generator: torch.Generator,
+                 device=None) -> dict:
+    """Random parameters of Whisper with the reference's distributions
+    (``multimodal.init_whisper``): as :func:`init_lm` for the embedding,
+    the attention and MLP stacks of both halves and the head; the learned
+    frame positions ``pos_embed`` N(0, 0.01^2)."""
+    r = _Draw(cfg, generator, resolve_device(device))
+    ne, nd, d = cfg.n_encoder_layers, cfg.n_layers, cfg.d_model
+    return {
+        "enc": {
+            "ln1": r.const((ne, d), 1.0),
+            "attn": r.attention(cfg, ne),
+            "ln2": r.const((ne, d), 1.0),
+            "mlp": r.mlp(d, cfg.d_ff, ne),
+        },
+        "dec": {
+            "ln1": r.const((nd, d), 1.0),
+            "self_attn": r.attention(cfg, nd),
+            "ln_x": r.const((nd, d), 1.0),
+            "cross_attn": r.attention(cfg, nd),
+            "ln2": r.const((nd, d), 1.0),
+            "mlp": r.mlp(d, cfg.d_ff, nd),
+        },
+        "embed": r.normal((cfg.vocab_size, d), 1.0),
+        "pos_embed": r.normal((cfg.n_audio_frames, d), 0.01),
+        "enc_norm": r.const((d,), 1.0),
+        "final_norm": r.const((d,), 1.0),
+        "lm_head": r.dense(d, cfg.vocab_size, dtype=torch.float32),
     }

@@ -1,13 +1,16 @@
 """build(cfg) -> ModelBundle (counterpart of ``repro.models.model_zoo``).
 
-Two families are ported.  The dense family has both serving routes: the
+Three families are ported.  The dense family has both serving routes: the
 dense route (``launch/serve.py``) needs ``init_cache``, ``serve_step``
 and ``prefill``; the paged engine ``init_paged_cache``,
 ``paged_serve_step`` and ``paged_prefill_step``.  The hybrid family
 (zamba2: Mamba-2 + a shared attention block) has the dense cache only,
 served token by token: ``init_cache`` and ``serve_step``; its ``prefill``
 and the three paged fields are None (its Mamba state is O(1) per
-sequence, nothing to page), as in the reference.
+sequence, nothing to page), as in the reference.  The audio family
+(Whisper) has the same two fields over its own cache (the decoder's
+self-attention K/V and the encoder output ``enc_out``), and no prefill or
+paged interface either, as in the reference.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import convert, hybrid, transformer
+from repro_torch.models import convert, hybrid, multimodal, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +70,20 @@ def build(cfg: ModelConfig) -> ModelBundle:
                 hybrid.init_cache(cfg, batch, max_len, dtype, device=device)
             ),
             serve_step=lambda p, t, pos, c: hybrid.serve_step(
+                p, cfg, t, pos, c
+            ),
+        )
+    if cfg.family == "audio":
+        return ModelBundle(
+            cfg=cfg,
+            init=lambda generator, device=None: convert.init_whisper(
+                cfg, generator, device
+            ),
+            init_cache=lambda batch, max_len, dtype=torch.bfloat16, *, device: (
+                multimodal.whisper_init_cache(cfg, batch, max_len, dtype,
+                                              device=device)
+            ),
+            serve_step=lambda p, t, pos, c: multimodal.whisper_serve_step(
                 p, cfg, t, pos, c
             ),
         )

@@ -86,6 +86,88 @@ def test_pasa_attention_matches_reference_kernel(b, h, kvh, s, d, bq, bkv,
                                **(CAUSAL_TOL if causal else ATTN_TOL))
 
 
+def _padded(x: np.ndarray, rows: int) -> np.ndarray:
+    """x (B, H, S, D) with zero rows appended up to ``rows``."""
+    out = np.zeros(x.shape[:2] + (rows,) + x.shape[3:], x.dtype)
+    out[:, :, :x.shape[2]] = x
+    return out
+
+
+# (op, policy of the port, of the reference, beta): PASA at the paper's
+# policy, FlashAttention-2 at its overflow-safe one
+KV_VALID_OPS = {"pasa": (FP16, R_FP16, BETA), "flash": (FP16_FP32, R_FP16_FP32,
+                                                        0.0)}
+
+
+@pytest.mark.parametrize("op", ["pasa", "flash"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kv_valid", [16, 200, 256])
+@pytest.mark.parametrize("d", [16, 64])
+def test_kv_valid_on_padded_keys_equals_reference_on_unpadded(d, kv_valid,
+                                                              causal, op):
+    """The ops' column limit: q / K / V padded with zero rows to whole
+    blocks (128 key rows, 64 query rows), ``kv_valid`` = the real length,
+    output cut back - against the reference's ``blocked_attention`` (the
+    GEMM shift) on the unpadded rows, which pads with zeros and masks past
+    them itself.  kv_valid 16 pads 112 key rows, 200 pads 56, 256 none."""
+    from repro.core import blocked_attention as ref_blocked
+
+    pol, rpol, beta = KV_VALID_OPS[op]
+    h, kvh = 4, 2
+    q, k, v = _mk(11, 1, h, kvh, kv_valid, d, mean=1.0)
+    s2 = -(-kv_valid // 128) * 128
+    s1 = -(-kv_valid // 64) * 64
+    tq, tk, tv = (torch.from_numpy(_padded(x, n))
+                  for x, n in ((q, s1), (k, s2), (v, s2)))
+    fn = ops.pasa_attention if op == "pasa" else ops.flash_attention
+    kw = dict(beta=beta) if op == "pasa" else {}
+    got = fn(tq, tk, tv, policy=pol, block_q=64, block_kv=128, causal=causal,
+             kv_valid=kv_valid, **kw)[:, :, :kv_valid]
+    expand = lambda x: jnp.asarray(np.repeat(x, h // kvh, axis=1))
+    want = ref_blocked(jnp.asarray(q), expand(k), expand(v), beta=beta,
+                       policy=rpol, block_kv=128, causal=causal,
+                       use_gemm_shift=True)
+    tol = (FLASH_TOL if op == "flash" else
+           CAUSAL_TOL if causal else ATTN_TOL)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def test_kv_valid_out_of_range_raises():
+    """kv_valid must pad less than one block: S2 - block_kv < kv_valid <=
+    S2, on every device (as _pad_to_multiple pads)."""
+    q, k, v = (torch.from_numpy(x) for x in _mk(12, 1, 2, 2, 256, 64))
+    for bad in (128, 0, 257):
+        with pytest.raises(ValueError, match="kv_valid"):
+            ops.pasa_attention(q, k, v, kv_valid=bad)
+        with pytest.raises(ValueError, match="kv_valid"):
+            ops.flash_attention(q, k, v, kv_valid=bad)
+    out = ops.pasa_attention(q, k, v, kv_valid=129)
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("pols", [(FP16, R_FP16), (BF16_FP32, R_BF16_FP32)],
+                         ids=["fp16", "bf16_fp32"])
+@pytest.mark.parametrize("block", [64, 128])
+def test_head_dim_64_kernels_match_reference_interpret(block, pols):
+    """Whisper's head width (64, one query head per kv head) at aligned
+    lengths: shift-KV and the attention op against the reference's
+    ``shift_kv_kernel_call`` and ``attention_kernel_call`` in interpret
+    mode (through ``repro.kernels``), at blocks 64 and 128, not causal."""
+    pol, rpol = pols
+    q, k, v = _mk(13, 2, 4, 4, 256, 64, mean=1.0)
+    (jq, jk, jv), (tq, tk, tv) = _both(q, k, v)
+    want = RK.shift_kv(jk, beta=BETA, block_kv=block, policy=rpol, **I)
+    got = ops.shift_kv(tk, beta=BETA, block_kv=block, policy=pol)
+    assert got.dtype == pol.input_dtype
+    np.testing.assert_allclose(_np(got), _np(want), atol=SHIFT_ATOL)
+    want = RK.pasa_attention(jq, jk, jv, beta=BETA, policy=rpol,
+                             block_q=block, block_kv=block, **I)
+    got = ops.pasa_attention(tq, tk, tv, beta=BETA, policy=pol,
+                             block_q=block, block_kv=block)
+    assert got.dtype == pol.out_dtype and got.shape == (2, 4, 256, 64)
+    np.testing.assert_allclose(_np(got), _np(want), **ATTN_TOL)
+
+
 def test_pasa_attention_against_fp64_gold():
     q, k, v = _mk(1, 1, 4, 4, 256, 64, mean=3.0)
     got = ops.pasa_attention(*(torch.from_numpy(x) for x in (q, k, v)),
@@ -329,6 +411,8 @@ def test_shift_kernel_mode_names():
     assert len(names) == 6
     assert smod.mode_name(torch.bfloat16, torch.float16, 128) == \
         "bf16_keys/fp16_ops/block128"
+    assert smod.mode_name(torch.bfloat16, torch.float16, 128, 64) == \
+        "bf16_keys/fp16_ops/block128/d64"
 
 
 def test_shift_kernel_matrix_must_be_symmetric(monkeypatch):

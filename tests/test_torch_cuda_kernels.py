@@ -371,9 +371,11 @@ def test_unsupported_dense_inputs_raise_before_any_launch():
     with pytest.raises(NotImplementedError):
         ops.pasa_attention(q2, k2, k2, block_q=256, block_kv=256)
     with pytest.raises(NotImplementedError):
-        ops.pasa_attention(q[..., :64], k[..., :64], k[..., :64])
+        ops.pasa_attention(q[..., :32], k[..., :32], k[..., :32])
     with pytest.raises(ValueError):
         ops.pasa_attention(q[:, :, :100], k, k)
+    with pytest.raises(ValueError):                 # a pad of a whole block
+        ops.pasa_attention(q, k, k, kv_valid=0)
     qd = torch.zeros((1, 2, 2, 128), dtype=torch.float16, device=dev)
     kvl = torch.tensor([5], dtype=torch.int32, device=dev)
     k3 = torch.zeros((1, 2, 544, 128), dtype=torch.float16, device=dev)
@@ -383,12 +385,12 @@ def test_unsupported_dense_inputs_raise_before_any_launch():
     for block in (32, 256):         # the shift kernel takes 64 or 128
         with pytest.raises(NotImplementedError):
             ops.shift_kv(k2, block_kv=block)
-    # head widths: the decodes take 64 and 128; attention, shift-KV and
+    # head widths: the decodes, attention and shift-KV take 64 and 128;
     # paged prefill 128 only
     with pytest.raises(NotImplementedError):
-        ops.shift_kv(k[..., :64].contiguous())
+        ops.shift_kv(k[..., :32].contiguous())
     with pytest.raises(NotImplementedError):
-        ops.flash_attention(q[..., :64], k[..., :64], k[..., :64])
+        ops.flash_attention(q[..., :32], k[..., :32], k[..., :32])
     pool = torch.zeros((2, 128, 2, 64), dtype=torch.bfloat16, device=dev)
     table = torch.ones((1, 1), dtype=torch.int32, device=dev)
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -1145,3 +1147,168 @@ def test_quantized_paged_decode_at_head_dim_64(policy, dtype):
     dirty = ops.pasa_paged_decode(q, kq2, vq2, table, kvl, beta=BETA,
                                   policy=policy, **quant2)
     assert torch.equal(got, dirty)
+
+
+# head_dim 64 (whisper-large-v3: 20 / 20 heads of 64) of shift-KV and the
+# attention kernel, and the attention kernel's column limit kv_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fp16", "bf16_keys", "bf16_fp32"])
+@pytest.mark.parametrize("block", [64, 128])
+def test_shift_kernel_at_head_dim_64(block, mode):
+    """The shift kernel at head_dim 64 (one warpgroup) against its plain
+    version and the float64 product with the same M, keys read through
+    the (B, S, KVH, D) strides of a projection, several grids; launches
+    counted under the ``/d64`` mode."""
+    dev = _card()
+    rng = np.random.default_rng(41)
+    policy = BF16_FP32 if mode == "bf16_fp32" else FP16
+    kdt = torch.float16 if mode == "fp16" else torch.bfloat16
+    op, d = policy.input_dtype, 64
+    for b, kvh, s in ((4, 20, 1536), (1, 1, block), (2, 3, 3 * block)):
+        k = _randn(rng, (b, s, kvh, d), 5.0, dev, kdt).transpose(1, 2)
+        ops.reset_launches()
+        got = ops.shift_kv(k, beta=BETA, block_kv=block, policy=policy)
+        assert ops.shift_kv.launches_by_mode == {
+            smod.mode_name(kdt, op, block, d): 1}
+        assert got.dtype == op and got.is_contiguous()
+        assert got.shape == (b, kvh, s, d)
+        m = smod.device_matrix(block, d, BETA, op, dev)
+        want = smod.shift_kv_plain(m, k.to(op), block, out_dtype=op)
+        torch.testing.assert_close(got.float(), want.float(), **SHIFT_TOL)
+        gold = torch.matmul(m.double(), k.to(op).double().reshape(
+            b, kvh, s // block, block, d)).reshape(b, kvh, s, d)
+        assert float((got.double() - gold).norm() / gold.norm()) \
+            < SHIFT_RMSE_MAX
+
+
+def _padded_rows(x, rows):
+    """(B, H, S, D) -> zero rows appended up to ``rows``."""
+    return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(128, 128), (64, 64), (64, 128), (128, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("policy", ALL_MODES, ids=lambda p: p.name)
+def test_attention_kernel_at_head_dim_64(policy, causal, blocks):
+    """The attention kernel at head_dim 64 (20 heads, GQA group 1 and a
+    group of 5) against the plain version, PASA at BETA and
+    FlashAttention-2, with the keys whole (kv_valid None) and zero-padded
+    past kv_valid = S2 - block_kv + 1 and 1500 (the encoder's frames in
+    1536 rows); launches counted under the ``/d64`` mode."""
+    dev = _card()
+    rng = np.random.default_rng(42)
+    bq, bkv = blocks
+    b, d = 2, 64
+    for kvh, group in ((20, 1), (4, 5)):
+        for valid in (None, 1536 - bkv + 1, 1500):
+            n = 1536 if valid is None else valid
+            q = _padded_rows(_randn(rng, (b, kvh * group, n, d), 0.0, dev),
+                             1536)
+            k = _padded_rows(_randn(rng, (b, kvh, n, d), 2.0, dev), 1536)
+            v = _padded_rows(_randn(rng, (b, kvh, n, d), 0.0, dev), 1536)
+            for beta in (0.0, BETA):
+                ops.reset_launches()
+                fn = ops.flash_attention if beta == 0.0 else \
+                    functools.partial(ops.pasa_attention, beta=BETA)
+                got = fn(q, k, v, policy=policy, causal=causal, block_q=bq,
+                         block_kv=bkv, kv_valid=valid)
+                want = amod.attention_plain(q, k, v, beta=beta, policy=policy,
+                                            block_kv=bkv, causal=causal,
+                                            kv_valid=valid)
+                assert got.dtype == policy.out_dtype
+                torch.testing.assert_close(got[:, :, :n].float(),
+                                           want[:, :, :n].float(),
+                                           **ATTN_TOL[causal or beta == 0.0])
+                wrapper = ops.flash_attention if beta == 0.0 \
+                    else ops.pasa_attention
+                assert wrapper.launches_by_mode == {
+                    dmod.mode_name(policy, torch.float16, d): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_kernel_column_limit(d):
+    """kv_valid on the card: values past it are never read (NaN there
+    leaves the output unchanged, bit for bit), keys past it count in the
+    row pseudo-average (K' rows mixed by the shift), kv_valid = S2 is the
+    call without a limit, bit for bit; at head_dim 128 as at 64; the
+    one-query cross-attention shape (1 row padded to block_q 64) against
+    the plain version."""
+    dev = _card()
+    rng = np.random.default_rng(43)
+    b, h, s2, valid = 2, 4, 512, 450
+    q = _randn(rng, (b, h, 128, d), 0.0, dev)
+    k = _padded_rows(_randn(rng, (b, h, valid, d), 2.0, dev), s2)
+    v = _padded_rows(_randn(rng, (b, h, valid, d), 0.0, dev), s2)
+    for causal in (False, True):
+        kw = dict(beta=BETA, policy=FP16, causal=causal)
+        got = ops.pasa_attention(q, k, v, kv_valid=valid, **kw)
+        v_nan = v.clone()
+        v_nan[:, :, valid:] = float("nan")
+        assert torch.equal(ops.pasa_attention(q, k, v_nan, kv_valid=valid,
+                                              **kw), got)
+        want = amod.attention_plain(q, k, v, beta=BETA, policy=FP16,
+                                    block_kv=128, causal=causal,
+                                    kv_valid=valid)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **ATTN_TOL[causal])
+        whole = ops.pasa_attention(q, k, v, **kw)
+        assert torch.equal(ops.pasa_attention(q, k, v, kv_valid=s2, **kw),
+                           whole)
+    # the cross-attention's one query row, padded to 64 rows
+    q1 = _padded_rows(_randn(rng, (b, h, 1, d), 0.0, dev), 64)
+    got = ops.pasa_attention(q1, k, v, beta=BETA, policy=FP16, block_q=64,
+                             kv_valid=valid)
+    want = amod.attention_plain(q1, k, v, beta=BETA, policy=FP16,
+                                block_kv=128, kv_valid=valid)
+    torch.testing.assert_close(got[:, :, :1].float(), want[:, :, :1].float(),
+                               **ATTN_TOL[False])
+
+
+@pytest.mark.cuda
+def test_whisper_on_card_batched_equals_one_at_a_time():
+    """A two-layer Whisper at head_dim 64 (d 256, 4 / 4 heads, 200
+    frames) on the card: the encoder (shift-KV + attention, not causal,
+    kv_valid 200 of 256) and token-by-token decode (contiguous decode +
+    the cross-attention's shift-KV and attention every layer); launches
+    per step and per encode as the layers say, all in the d64 modes;
+    each prompt served alone from its row of the encoder output gives its
+    batched stream."""
+    from repro_torch.launch.serve import token_by_token
+    from repro_torch.models.multimodal import whisper_encode
+
+    dev = _card()
+    base = get_config("whisper-large-v3")
+    cfg = dataclasses.replace(base, n_layers=2, n_encoder_layers=2,
+                              d_model=256, n_heads=4, n_kv_heads=4,
+                              head_dim=64, d_ff=512, n_audio_frames=200)
+    bundle = build(cfg)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(44)
+    frames = _randn(rng, (3, 200, 256), 0.0, dev, torch.float32)
+    ops.reset_launches()
+    enc = whisper_encode(params, cfg, frames)
+    assert ops.shift_kv.launches == ops.pasa_attention.launches == 2
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 10),
+                                            dtype=np.int32)).to(dev)
+
+    def run(rows, enc_rows):
+        cache = bundle.init_cache(rows.shape[0], 24, device=dev)
+        cache["enc_out"].copy_(enc_rows)
+        out, _, _ = token_by_token(bundle, params, rows, 6, cache)
+        return out
+
+    ops.reset_launches()
+    streams = run(prompts, enc)
+    steps = 10 + 6 - 1
+    mode = dmod.mode_name(FP16, torch.bfloat16, 64)
+    assert ops.pasa_decode.launches_by_mode == {mode: 2 * steps}
+    assert ops.pasa_attention.launches_by_mode == {mode: 2 * steps}
+    assert ops.shift_kv.launches_by_mode == {
+        smod.mode_name(torch.bfloat16, torch.float16, 128, 64): 2 * steps}
+    for i in range(3):
+        alone = run(prompts[i:i + 1], enc[i:i + 1])
+        np.testing.assert_array_equal(alone[0], streams[i])
