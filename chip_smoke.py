@@ -109,7 +109,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      - 127, no limit, causal), each timed beside its library call; in the
      kernels line ``shift_kv/d64`` and ``pasa_attention/d64`` have the
      whisper serve's count (its encode included), and one entry each
-     gathers their other d64 modes.
+     gathers their other d64 modes;
+  9. sampling and self-speculative decoding on the paged engine, qwen2-7b
+     with the same weights.  In phase 2, ``check_verify`` holds
+     ``pasa_paged_verify`` at W = K + 1 = 5 columns on the serve-shape
+     decode pools (bf16, int8, fp8_e4m3): five decode-kernel launches a
+     call, each column bit-equal to a one-token kernel decode at its
+     position and within the decode bars of the plain version, timed
+     beside five single decode calls.  ``serve_sample_<pool>`` (bf16,
+     int8; temperature 0.8, top-k 50, seed 7, the paged phase's prompts):
+     batched == one at a time, prefill chunk 256 == 512, preempt-resume ==
+     each request alone, top-k 1 == the greedy serve, temperature 0 == the
+     greedy serve, some token differs from greedy, the card's uniforms
+     equal the CPU's (the CPU sampler's tokens on the same logits are
+     counted).  ``serve_spec_<pool>`` (bf16, int8, fp8_e4m3; K = 4, prompts
+     repeating one 64-token segment, 16 tokens each): with the n-gram
+     drafter, and on bf16 and int8 also with an oracle drafter (every
+     draft accepted) and a wrong one (every draft rolled back), streams
+     and every non-null page of the pool equal the plain serve's bit for
+     bit; on bf16 a sampled serve with speculation equals its serve
+     without.  Every serve's launches are checked: 28 per prefill call,
+     28 per decode call, 28 per verify sub-step (K + 1 per call).
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -178,6 +198,15 @@ TBT_PROMPTS, TBT_GEN = (257, 129), 16
 PREFIX_SHARED, PREFIX_SUFFIXES, PREFIX_GEN = 768, (232, 105, 40), 16
 PREEMPT_PROMPTS, PREEMPT_GEN, PREEMPT_PAGES = (1000, 900), 32, 12
 POLICY_SERVES = (("sjf", None), ("mixed", 640))
+# sampling and speculation on the paged engine: the verify op at
+# W = SPEC_K + 1 columns on the serve-shape decode pools; the sampled
+# serves at SAMPLE_KW on the paged workload; the speculative serves at
+# K = SPEC_K on four prompts (the paged workload's lengths) repeating one
+# 64-token segment drawn from seed 5, so that the n-gram drafter proposes,
+# SPEC_GEN tokens each
+SPEC_K = 4
+SAMPLE_KW = dict(temperature=0.8, top_k=50, sample_seed=7)
+SPEC_SEGMENT, SPEC_GEN = 64, 16
 # head_dim 64 (zamba2-1.2b's shared attention block): both decode kernels
 # at zamba2's shape (KVH 32, G 1) and at a GQA group (KVH 4, G 8); the
 # hybrid serve: four 200-token prompts, 32 greedy tokens each, token by
@@ -2056,16 +2085,19 @@ def _launch_counts():
 
 def _check_engine_launches(tag, eng, cache_dtype):
     """Since the last reset: each paged kernel launched 28 times per call
-    of the engine, all in the mode of the served impl, policy and pool,
-    and the contiguous decode kernel never."""
+    of the engine (the decode kernel 28 times per sub-step of a verify
+    call: K + 1 per call), all in the mode of the served impl, policy and
+    pool, and the contiguous decode kernel never."""
     launches = _launch_counts()
     n = eng.bundle.cfg.n_layers
+    sub_steps = eng.decode_calls + (eng.speculate + 1) * eng.verify_calls
     want = {"pasa_paged_prefill": n * eng.prefill_calls,
-            "pasa_paged_decode": n * eng.decode_calls, "pasa_decode": 0}
+            "pasa_paged_decode": n * sub_steps, "pasa_decode": 0}
     if launches != want:
         raise AssertionError(f"{tag}: launch counts {launches} != {want} "
                              f"({eng.prefill_calls} prefill, "
-                             f"{eng.decode_calls} decode calls)")
+                             f"{eng.decode_calls} decode, "
+                             f"{eng.verify_calls} verify calls)")
     mode = _served_mode(eng.bundle.cfg, cache_dtype)
     by_mode = _by_mode(("pasa_paged_prefill", "pasa_paged_decode"))
     for name, counts in by_mode.items():
@@ -2074,18 +2106,27 @@ def _check_engine_launches(tag, eng, cache_dtype):
     return launches
 
 
-def _drive(eng):
-    """Step the engine until it drains; returns the wall time (s) at the
-    end of each step, each step ending in its readback."""
+def _drive_calls(eng):
+    """Step the engine until it drains; per step the wall time (s) at its
+    end (each step ends in its readback) and the (prefill, decode, verify)
+    calls it made."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     marks = []
     while not eng.idle:
+        before = (eng.prefill_calls, eng.decode_calls, eng.verify_calls)
         eng.step()
-        marks.append(time.perf_counter() - t0)
+        after = (eng.prefill_calls, eng.decode_calls, eng.verify_calls)
+        marks.append((time.perf_counter() - t0,
+                      tuple(a - b for a, b in zip(after, before))))
     return marks
+
+
+def _drive(eng):
+    """:func:`_drive_calls`'s wall times alone."""
+    return [t for t, _ in _drive_calls(eng)]
 
 
 def _all_finite(tag, finite):
@@ -2368,6 +2409,351 @@ def serve_policy(dev, bundle, params, scheduler, budget, fcfs_streams):
         ttft_ms=[1e3 * marks[r.first_token_step] for r in reqs],
         equal_to_fcfs_streams=True,
     )
+
+
+def check_verify(dev):
+    """``pasa_paged_verify`` at W = SPEC_K + 1 columns on the serve-shape
+    decode pools (batch 4, kv 1002 / 519 / 302 / 131, KVH 4, G 7, page
+    128; bf16 and the same pool quantized to int8 and fp8_e4m3), the
+    columns ending at each row's last position: W launches of the paged
+    decode kernel, each column bit-equal to a one-token kernel decode at
+    its position and within the decode bars of the plain version; timed
+    beside the W single decode calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.precision import FP16
+    from repro_torch.kernels import ops
+    mod = _kernel_module("pasa_paged_decode")
+
+    kvh, g, d, page = 4, 7, 128, 128
+    w = SPEC_K + 1
+    b = len(SERVE_DECODE_KV)
+    rng = np.random.default_rng(6)
+    kp0, vp0, table = _paged_pool(rng, SERVE_DECODE_KV, kvh, d, page, 2.0, 3,
+                                  dev)
+    kv_len = torch.tensor(SERVE_DECODE_KV, dtype=torch.int32, device=dev)
+    start = kv_len - w
+    q = _randn(rng, (b, kvh, g, w, d), 0.0, dev, torch.float16)
+    cols = [q[:, :, :, j].contiguous() for j in range(w)]
+    lens = [start + 1 + j for j in range(w)]
+    out = {}
+    for dtype in ("bf16", *QUANT_DTYPES):
+        kp, vp, quant = kp0, vp0, {}
+        if dtype != "bf16":
+            kp, vp, quant, _ = _quantize_pool(kp0, vp0, table,
+                                              SERVE_DECODE_KV, dtype)
+        verify = lambda: ops.pasa_paged_verify(
+            q, kp, vp, table, start, beta=BETA, policy=FP16, **quant)
+        n0 = ops.pasa_paged_decode.launches
+        got = verify()
+        if ops.pasa_paged_decode.launches - n0 != w:
+            raise AssertionError(f"pasa_paged_verify/{dtype}: "
+                                 f"{ops.pasa_paged_decode.launches - n0} "
+                                 f"decode launches for {w} columns")
+        max_err = 0.0
+        for j in range(w):
+            one = ops.pasa_paged_decode(cols[j], kp, vp, table, lens[j],
+                                        beta=BETA, policy=FP16, **quant)
+            if not torch.equal(got[:, :, :, j], one):
+                raise AssertionError(f"pasa_paged_verify/{dtype}: column {j} "
+                                     f"differs from a one-token decode")
+            plain = mod.paged_decode_plain(
+                cols[j], kp, vp, table, lens[j], beta=BETA, policy=FP16,
+                block_kv=page, **quant)
+            max_err = max(max_err, _close(
+                f"pasa_paged_verify/{dtype} column {j}", one, plain,
+                **DECODE_TOL))
+        ms = _cuda_time_ms(verify, 20)
+        singles_ms = _cuda_time_ms(lambda: [
+            ops.pasa_paged_decode(cols[j], kp, vp, table, lens[j], beta=BETA,
+                                  policy=FP16, **quant) for j in range(w)], 20)
+        out[dtype] = dict(columns=w, launches_per_call=w,
+                          columns_equal_to_decode=True, max_abs_err=max_err,
+                          ms=ms, ms_of_w_decode_calls=singles_ms)
+    return out
+
+
+def _call_ms(marks):
+    """Mean wall ms of the steps that made one decode call and no other,
+    and of those that made one verify call and no other."""
+    out = {}
+    for name, calls in (("decode", (0, 1, 0)), ("verify", (0, 0, 1))):
+        dts = [t - (marks[i - 1][0] if i else 0.0)
+               for i, (t, c) in enumerate(marks) if c == calls]
+        out[name] = 1e3 * sum(dts) / len(dts) if dts else None
+    return out
+
+
+def _pools_equal(a, b) -> bool:
+    """Every leaf bit for bit on every page but the null page 0 (the
+    write sink of idle rows)."""
+    import torch
+
+    return set(a) == set(b) and all(
+        torch.equal(a[n][:, 1:].contiguous().view(torch.uint8),
+                    b[n][:, 1:].contiguous().view(torch.uint8)) for n in a)
+
+
+def _sampler_vs_cpu(calls):
+    """The card's sampler against the CPU's on the recorded calls' logits
+    and keys: the uniforms must be equal bit for bit; the tokens are
+    counted (near-ties may part: ``log`` may round differently)."""
+    import torch
+
+    from repro_torch.runtime.engine import make_sampler, sample_uniforms
+
+    seed = SAMPLE_KW["sample_seed"]
+    cpu_sample = make_sampler(SAMPLE_KW["temperature"], SAMPLE_KW["top_k"],
+                              seed)
+    same = total = 0
+    for logits, rids, idxs, toks in calls:
+        vocab = logits.shape[-1]
+        card_u = sample_uniforms(seed, rids, idxs, vocab).cpu()
+        if not torch.equal(card_u, sample_uniforms(seed, rids.cpu(),
+                                                   idxs.cpu(), vocab)):
+            raise AssertionError("the sampler's uniforms differ between the "
+                                 "card and the CPU")
+        want = cpu_sample(logits.cpu(), rids.cpu(), idxs.cpu())
+        same += int((toks.cpu() == want).sum())
+        total += toks.numel()
+    return f"{same}/{total}"
+
+
+def serve_sample(dev, bundle, params, cache_dtype, greedy_streams):
+    """Sampling (SAMPLE_KW) at full width on the paged workload from a
+    ``cache_dtype`` pool.  Held exactly: batched (max batch 4) == one at a
+    time (max batch 1, the same request ids); prefill chunk 256 == 512;
+    preempt-resume (``serve_preempt``'s prompts and 12 pages) == each
+    request served alone (``chunked_cold_reference`` with its request id);
+    top-k 1 == the greedy serve (``greedy_streams``); temperature 0 == the
+    greedy serve; some sampled token differs from the greedy one; the
+    card's uniforms equal the CPU's on every call of the batched serve.
+    Reported: how many of its sampled tokens the CPU sampler draws too on
+    the same logits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ServeEngine, chunked_cold_reference
+
+    tag = f"serve_sample_{cache_dtype}"
+    finite = []
+    bundle = _finite_bundle(bundle, finite)
+    prompts, kw = _paged_workload(bundle.cfg, cache_dtype)
+    calls = []
+
+    def run(record=False, **extra):
+        ops.reset_launches()
+        eng = ServeEngine(bundle, params, **{**kw, **SAMPLE_KW, **extra})
+        if record:
+            sample = eng._sampler
+
+            def recorded(logits, rids, idxs):
+                toks = sample(logits, rids, idxs)
+                calls.append((logits.clone(), rids, idxs, toks))
+                return toks
+            eng._sampler = recorded
+        reqs = [eng.submit(p, SERVE_GEN) for p in prompts]
+        marks = _drive_calls(eng)
+        _check_engine_launches(tag, eng, cache_dtype)
+        return [r.generated for r in reqs], eng, marks
+
+    streams, eng, marks = run(record=True)
+    wall, steps = marks[-1][0], eng.steps
+    checks = {"max_batch_1": run(max_batch=1)[0],
+              "prefill_chunk_256": run(prefill_chunk=256)[0]}
+    for name, got in checks.items():
+        if got != streams:
+            raise AssertionError(f"{tag}: {name} streams differ from the "
+                                 f"batched serve's")
+    if run(top_k=1)[0] != greedy_streams:
+        raise AssertionError(f"{tag}: top-k 1 differs from the greedy serve")
+    greedy, _, greedy_marks = run(temperature=0.0)
+    if greedy != greedy_streams:
+        raise AssertionError(f"{tag}: temperature 0 differs from the greedy "
+                             f"serve")
+    differ = sum(a != b for s, g in zip(streams, greedy_streams)
+                 for a, b in zip(s, g))
+    if not differ:
+        raise AssertionError(f"{tag}: every sampled token is the greedy one")
+    cpu_equal = _sampler_vs_cpu(calls)
+    calls.clear()
+    # preempt-resume: A (1000 + 32) paged out by B (900 + 32) in 12 pages
+    rng = np.random.default_rng(4)
+    pa, pb = (rng.integers(0, bundle.cfg.vocab_size, n).tolist()
+              for n in PREEMPT_PROMPTS)
+    pkw = dict(page_size=128, prefill_chunk=512, cache_dtype=cache_dtype,
+               **SAMPLE_KW)
+    ops.reset_launches()
+    peng = ServeEngine(bundle, params, max_batch=2,
+                       num_pages=1 + PREEMPT_PAGES,
+                       max_seq_len=max(PREEMPT_PROMPTS) + PREEMPT_GEN,
+                       prefix_cache=True, preemption=True, preempt_patience=2,
+                       **pkw)
+    ra = peng.submit(pa, PREEMPT_GEN)
+    while len(ra.generated) < 4:
+        peng.step()
+    rb = peng.submit(pb, PREEMPT_GEN)
+    peng.run_to_completion()
+    _check_engine_launches(f"{tag} preemption", peng, cache_dtype)
+    if peng.preemptions < 1:
+        raise AssertionError(f"{tag}: no preemption ({peng.stats()})")
+    for p, r in ((pa, ra), (pb, rb)):
+        want = chunked_cold_reference(bundle, params, p, PREEMPT_GEN,
+                                      req_id=r.req_id, **pkw)
+        if r.generated != want:
+            raise AssertionError(f"{tag}: preempted request {r.req_id} "
+                                 f"{r.generated} != uninterrupted {want}")
+    _all_finite(tag, finite)
+    n_tok = SERVE_GEN * len(prompts)
+    return dict(
+        cache_dtype=cache_dtype, **SAMPLE_KW, prompts=list(SERVE_PROMPTS),
+        gen=SERVE_GEN, steps=steps, wall_s=wall, tok_per_s=n_tok / wall,
+        ms_per_step=1e3 * wall / steps, tokens_per_step=n_tok / steps,
+        ms_per_decode_call=_call_ms(marks)["decode"],
+        greedy_ms_per_decode_call=_call_ms(greedy_marks)["decode"],
+        greedy_wall_s=greedy_marks[-1][0],
+        tokens_differing_from_greedy=f"{differ}/{n_tok}",
+        card_tokens_equal_to_cpu_sampler=cpu_equal,
+        uniforms_equal_to_cpu=True,
+        equal_one_at_a_time=True, equal_prefill_chunk_256=True,
+        top_k_1_equal_to_greedy=True, temperature_0_equal_to_greedy=True,
+        preemptions=peng.preemptions, preempt_resume_equal_to_alone=True,
+        streams=streams,
+    )
+
+
+def _spec_workload(cfg, cache_dtype):
+    """The speculative serves' prompts (the paged workload's lengths, each
+    one 64-token segment from seed 5 repeated) and engine arguments: all
+    four admitted at step 0."""
+    import numpy as np
+
+    seg = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, SPEC_SEGMENT).tolist()
+    prompts = [(seg * math.ceil(n / SPEC_SEGMENT))[:n] for n in SERVE_PROMPTS]
+    kw = dict(max_batch=4, page_size=128, prefill_chunk=512, prefill_batch=4,
+              num_pages=1 + sum(math.ceil((n + SPEC_GEN - 1) / 128)
+                                for n in SERVE_PROMPTS),
+              max_seq_len=max(SERVE_PROMPTS) + SPEC_GEN,
+              cache_dtype=cache_dtype)
+    return prompts, kw
+
+
+def _known_drafter(kind, prompts, streams, vocab):
+    """A drafter that knows the plain serve's streams: ``"oracle"``
+    proposes their continuation (every draft accepted), ``"wrong"`` each
+    of its tokens plus one (every draft rejected).  A history belongs to
+    the request whose whole prompt it starts with (the prompts are
+    prefixes of one another)."""
+    from repro_torch.runtime.spec_decode import DraftProposer
+
+    trajectories = [(len(p), p + g) for p, g in zip(prompts, streams)]
+
+    class Known(DraftProposer):
+        name = kind
+
+        def propose(self, history, k, skip=0):
+            for n, traj in trajectories:
+                if len(history) >= n and history == traj[:len(history)]:
+                    d = traj[len(history) + skip:len(history) + skip + k]
+                    return [(t + 1) % vocab for t in d] if kind == "wrong" else d
+            return []
+
+    return Known()
+
+
+def serve_spec(dev, bundle, params, cache_dtype, drafters=(), sampled=False):
+    """Self-speculative decoding (K = SPEC_K) at full width from a
+    ``cache_dtype`` pool on the speculative workload: with the n-gram
+    drafter, and each of ``drafters`` ("oracle": the plain serve's own
+    continuation, every draft accepted; "wrong": each token plus one,
+    every draft rolled back), the token streams and every non-null page of
+    the pool (codes and sidecars) equal the plain serve's bit for bit, and
+    no page stays allocated; with ``sampled``, the same at SAMPLE_KW.
+    Every launch is checked: 28 per prefill call, 28 per decode call and
+    28 per verify sub-step (K + 1 per call)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ServeEngine
+
+    tag = f"serve_spec_{cache_dtype}"
+    finite = []
+    bundle = _finite_bundle(bundle, finite)
+    prompts, kw = _spec_workload(bundle.cfg, cache_dtype)
+
+    def run(**extra):
+        ops.reset_launches()
+        eng = ServeEngine(bundle, params, **kw, **extra)
+        reqs = [eng.submit(p, SPEC_GEN) for p in prompts]
+        marks = _drive_calls(eng)
+        launches = _check_engine_launches(tag, eng, cache_dtype)
+        if eng.stats()["live_pages"]:
+            raise AssertionError(f"{tag}: pages left allocated")
+        return [r.generated for r in reqs], eng, marks, launches
+
+    def report(eng, marks, launches, base):
+        wall = marks[-1][0]
+        n_tok = SPEC_GEN * len(prompts)
+        st = eng.stats()
+        return dict(
+            steps=eng.steps, plain_steps=base.steps,
+            prefill_calls=eng.prefill_calls, decode_calls=eng.decode_calls,
+            verify_calls=eng.verify_calls, spec=st["spec"],
+            launches=launches, wall_s=wall, tok_per_s=n_tok / wall,
+            ms_per_step=1e3 * wall / eng.steps,
+            ms_per_verify_call=_call_ms(marks)["verify"],
+            tokens_per_step=n_tok / eng.steps,
+        )
+
+    plain, base, base_marks, _ = run()
+    base_pool = {name: x.clone() for name, x in base.pool.items()}
+    base_wall = base_marks[-1][0]
+    out = dict(cache_dtype=cache_dtype, k=SPEC_K, prompts=list(SERVE_PROMPTS),
+               segment=SPEC_SEGMENT, gen=SPEC_GEN, plain=dict(
+                   steps=base.steps, wall_s=base_wall,
+                   tok_per_s=SPEC_GEN * len(prompts) / base_wall,
+                   ms_per_step=1e3 * base_wall / base.steps,
+                   ms_per_decode_call=_call_ms(base_marks)["decode"]))
+    vocab = bundle.cfg.vocab_size
+    runs = [("ngram", "ngram")] + [
+        (name, _known_drafter(name, prompts, plain, vocab))
+        for name in drafters]
+    for name, draft in runs:
+        got, eng, marks, launches = run(speculate=SPEC_K, draft=draft)
+        if got != plain:
+            raise AssertionError(f"{tag}/{name}: streams differ from the "
+                                 f"plain serve's: {got} vs {plain}")
+        if not _pools_equal(eng.pool, base_pool):
+            raise AssertionError(f"{tag}/{name}: pool bytes differ from the "
+                                 f"plain serve's")
+        sp = eng.stats()["spec"]
+        if eng.verify_calls < 1 or sp["proposed"] < 1:
+            raise AssertionError(f"{tag}/{name}: nothing was drafted ({sp})")
+        if name == "oracle" and not sp["accepted"] == sp["proposed"] > 0:
+            raise AssertionError(f"{tag}/oracle: {sp}")
+        if name == "wrong" and not (sp["accepted"] == 0
+                                    and sp["rollbacks"] > 0):
+            raise AssertionError(f"{tag}/wrong: {sp}")
+        out[name] = report(eng, marks, launches, base)
+        del eng
+    if sampled:
+        want, _, _, _ = run(**SAMPLE_KW)
+        got, eng, marks, launches = run(speculate=SPEC_K, **SAMPLE_KW)
+        if got != want:
+            raise AssertionError(f"{tag}/sampled: streams differ from the "
+                                 f"sampled serve without speculation")
+        if got == plain:
+            raise AssertionError(f"{tag}/sampled: equal to the greedy serve")
+        out["sampled"] = dict(**SAMPLE_KW, **report(eng, marks, launches,
+                                                    base))
+    _all_finite(tag, finite)
+    del base_pool
+    torch.cuda.empty_cache()
+    out.update(streams_equal_to_plain=True, pools_equal_to_plain=True)
+    return out
 
 
 @contextlib.contextmanager
@@ -2715,6 +3101,7 @@ def main() -> int:
     kernels += [check(dev, dtype) for dtype in QUANT_DTYPES
                 for check in (check_decode_quant, check_prefill_quant)]
     print("prefill_chunk_starts: " + json.dumps(check_prefill_starts(dev)))
+    print("check_verify: " + json.dumps(check_verify(dev)))
     for k in kernels:
         extra = (f"; max abs diff vs the plain version on the CPU "
                  f"{k['max_abs_err_cpu_plain']:.3e}"
@@ -2784,6 +3171,18 @@ def main() -> int:
         print(f"serve_{scheduler}: " + json.dumps(serve_policy(
             dev, bundle, params, scheduler, budget, rep["streams"])))
     print(f"engine features: {time.perf_counter() - t_new:.1f} s")
+    # sampling and speculation on the paged engine, each serve driven with
+    # the launch counts set to 0 just before it and checked just after
+    t_spec = time.perf_counter()
+    for dtype in ("bf16", "int8"):
+        print(f"serve_sample_{dtype}: " + json.dumps(serve_sample(
+            dev, bundle, params, dtype, reps[dtype]["streams"])))
+    for dtype in ("bf16", *QUANT_DTYPES):
+        print(f"serve_spec_{dtype}: " + json.dumps(serve_spec(
+            dev, bundle, params, dtype,
+            drafters=("oracle", "wrong") if dtype != "fp8_e4m3" else (),
+            sampled=dtype == "bf16")))
+    print(f"sampling and speculation: {time.perf_counter() - t_spec:.1f} s")
     # the hybrid family (zamba2-1.2b) on the token-by-token dense route,
     # driven with the launch counts set to 0 just before it
     t_hybrid = time.perf_counter()

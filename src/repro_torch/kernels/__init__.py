@@ -8,8 +8,9 @@ the same name as attributes of the package: reach a module through
 ``importlib.import_module("repro_torch.kernels.<name>")`` (or
 ``from repro_torch.kernels.<name> import ...``).
 
-The reference's ``pasa_paged_decode_sharded``, ``pasa_paged_prefill_sharded``
-and ``pasa_paged_verify`` are not ported yet.
+``pasa_paged_verify`` is W calls of ``pasa_paged_decode``; it needs no
+kernel of its own.  The reference's ``pasa_paged_decode_sharded`` and
+``pasa_paged_prefill_sharded`` are not ported yet.
 """
 
 # ops loads every kernel module before the names below rebind them.
@@ -19,6 +20,7 @@ from repro_torch.kernels.ops import (
     pasa_decode,
     pasa_paged_decode,
     pasa_paged_prefill,
+    pasa_paged_verify,
     shift_kv,
 )
 
@@ -28,5 +30,6 @@ __all__ = [
     "pasa_decode",
     "pasa_paged_decode",
     "pasa_paged_prefill",
+    "pasa_paged_verify",
     "shift_kv",
 ]

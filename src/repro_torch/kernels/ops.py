@@ -204,6 +204,44 @@ pasa_paged_decode.launches = 0
 pasa_paged_decode.launches_by_mode = {}
 
 
+def pasa_paged_verify(
+    q: torch.Tensor,           # (B, KVH, G, W, D) grouped queries, W positions
+    k_pages: torch.Tensor,     # (num_pages, page, KVH, D) raw physical pages,
+    v_pages: torch.Tensor,     #   or int8 / fp8 codes with the sidecars
+    page_table: torch.Tensor,  # (B, max_pages) int32
+    start: torch.Tensor,       # (B,) absolute position of query column 0
+    *,
+    beta: float = DEFAULT_BETA,
+    policy: PrecisionPolicy = FP16,
+    k_scale: Optional[torch.Tensor] = None,
+    k_shift: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    v_shift: Optional[torch.Tensor] = None,
+    block_kv: Optional[int] = None,
+) -> torch.Tensor:
+    """Speculative-verify attention: W consecutive decode positions per
+    row over a paged pool -> (B, KVH, G, W, D).
+
+    Column j is :func:`pasa_paged_decode` at ``kv_len = start + 1 + j``
+    (its K/V already in its page), so each column equals the one-token
+    decode at that position bit for bit: W decode calls, each a kernel
+    launch on the card (counted in ``pasa_paged_decode.launches``) and the
+    plain version on the CPU.  The decode shift convention
+    (``shift_mask_valid``), not the chunk-exact prefill one.  The engine's
+    verify chains whole decode steps and does not call this."""
+    if q.dim() != 5:
+        raise ValueError("q must be (B, KVH, G, W, D)")
+    cols = [
+        pasa_paged_decode(
+            q[:, :, :, j], k_pages, v_pages, page_table, start + 1 + j,
+            beta=beta, policy=policy, k_scale=k_scale, k_shift=k_shift,
+            v_scale=v_scale, v_shift=v_shift, block_kv=block_kv,
+        )
+        for j in range(q.shape[3])
+    ]
+    return torch.stack(cols, dim=3)
+
+
 def pasa_paged_prefill(
     q: torch.Tensor,            # (B, H, CS, D) chunk queries, full query heads
     k_pages: torch.Tensor,      # (num_pages, page, KVH, D) raw physical pages

@@ -20,6 +20,14 @@ call profiled as such), its output written into the cache's ``enc_out``,
 four prompts of 64 tokens fed through ``serve_step`` into a 104-row
 cache, then the decode call (``whisper_decode``) from kv 66.
 
+``--speculate K`` (qwen2-7b) adds the paged route's verify call
+(``runtime.engine.paged_verify_step``, what ``ServeEngine(speculate=K)``
+runs as its decode when a row has drafts): K + 1 chained
+``serve_step_paged`` sub-steps with every row drafting K tokens (the
+model's own previous choice repeated, so most are rejected and rolled
+back), profiled as ``verify`` beside the plain decode call at the same
+batch and pool.
+
 ``--kv-dtype int8`` or ``fp8_e4m3`` serves the paged route from a
 quantized page pool (the quantized mode of the paged kernels; the
 quantize-on-write and tail-page re-quantization ops land in "other");
@@ -40,6 +48,8 @@ Run on one card from the repository root:
       --arch whisper-large-v3 --out build/profile_whisper
   PYTHONPATH=src python -m repro_torch.launch.profile_steps --kv-dtype int8 \
       --out build/profile_int8
+  PYTHONPATH=src python -m repro_torch.launch.profile_steps --speculate 4 \
+      --out build/profile_verify
 """
 
 from __future__ import annotations
@@ -142,7 +152,12 @@ def main(argv=None):
                     choices=("bf16", "fp8_e4m3", "int8"),
                     help="the paged route's pool dtype (a quantized one "
                          "leaves the dense route out)")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="also profile the paged route's verify call with "
+                         "K drafts per row (qwen2-7b)")
     args = ap.parse_args(argv)
+    if args.speculate < 0:
+        ap.error("--speculate must be >= 0")
 
     import numpy as np
     import torch
@@ -167,7 +182,12 @@ def main(argv=None):
         print(json.dumps(report))
         return report
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPTS]
-    n_pages = [math.ceil((n + args.decode_calls + 8) / PAGE) for n in PROMPTS]
+    # each profiled call type runs 2 * --decode-calls + 1 times (warm-up,
+    # unprofiled, profiled): decode calls, then verify calls writing up to
+    # K + 1 positions each
+    calls = 2 * args.decode_calls + 1
+    grow = calls * (1 + (args.speculate + 1 if args.speculate else 0))
+    n_pages = [math.ceil((n + grow + 8) / PAGE) for n in PROMPTS]
     pool = bundle.init_paged_cache(1 + sum(n_pages), PAGE, args.kv_dtype,
                                    device=dev)
     mp = max(n_pages)
@@ -219,6 +239,9 @@ def main(argv=None):
     report["decode"] = _profile(call_decode, args.decode_calls,
                                 out / "trace_decode.json")
     report["decode"]["kv_len_at_first_call"] = kv_start
+    if args.speculate:
+        report["verify"] = _profile_verify(args, bundle, params, pool,
+                                           table_t, pos, token, out)
     del pool
     if args.kv_dtype != "bf16":
         print(json.dumps(report))
@@ -250,6 +273,41 @@ def main(argv=None):
     report["dense_decode"]["kv_len_at_first_call"] = [dkv] * DENSE_BATCH
     print(json.dumps(report))
     return report
+
+
+def _profile_verify(args, bundle, params, pool, table, pos, token, out):
+    """``--decode-calls`` verify calls (after a warm-up) from where the
+    decode calls left the pool: every row active at all K + 1 sub-steps,
+    its drafts the model's previous token repeated; each call advances
+    the rows by their accepted counts, on the device."""
+    import torch
+
+    from repro_torch.runtime.engine import _argmax, paged_verify_step
+
+    k = args.speculate
+    active = torch.ones((pos.shape[0], k + 1), dtype=torch.bool,
+                        device=pos.device)
+    state = {"pos": pos, "token": token, "accepted": []}
+
+    def call_verify():
+        tokens = state["token"][:, None].expand(-1, k + 1).contiguous()
+        nxt, _, m, _ = paged_verify_step(
+            bundle.paged_serve_step, params, tokens, state["pos"], active,
+            pool, table, page_size=PAGE, choose=lambda lg, i: _argmax(lg))
+        state["pos"] = state["pos"] + m
+        state["token"] = nxt
+        state["accepted"].append(m)
+
+    call_verify()                                    # warm-up
+    kv = [int(x) + 1 for x in state["pos"].tolist()]
+    state["accepted"].clear()
+    rep = _profile(call_verify, args.decode_calls, out / "trace_verify.json")
+    rep["k"] = k
+    rep["sub_steps_per_call"] = k + 1
+    rep["kv_len_at_first_call"] = kv
+    rep["tokens_accepted_per_call"] = (
+        torch.stack(state["accepted"]).sum().item() / len(state["accepted"]))
+    return rep
 
 
 def _profile_token_by_token(args, bundle, params, rng, dev, out: Path) -> dict:

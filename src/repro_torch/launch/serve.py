@@ -17,8 +17,11 @@ reference does), then serves them on one of two routes:
     chunked prefill (default) or token by token (``--no-chunked-prefill``),
     with the radix prefix cache (``--prefix-cache``), preemption
     (``--preemption``, ``--preempt-patience``), a scheduling policy
-    (``--scheduler fcfs|sjf|mixed``) and a per-step token budget
-    (``--step-token-budget``).  A family without a paged interface
+    (``--scheduler fcfs|sjf|mixed``), a per-step token budget
+    (``--step-token-budget``), sampling (``--temperature``, ``--top-k``,
+    ``--sample-seed``; 0 = greedy) and self-speculative decoding
+    (``--speculate K``, ``--draft ngram``), the last two on this route
+    only, as in the reference.  A family without a paged interface
     (zamba2) refuses it with the engine's ValueError.
 
 Runs on the GPU by default (``--device cpu`` for the plain PyTorch path).
@@ -41,6 +44,9 @@ CPU smoke at the reduced config:
       --reduced --paged --page-size 8 --batch 2 --prompt-len 40 --gen 8 \
       --num-pages 9 --prefix-cache --preemption --preempt-patience 1 \
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
+      --reduced --paged --batch 4 --prompt-len 16 --gen 8 --speculate 3 \
+      --temperature 0.8 --top-k 8 --device cpu
 """
 
 from __future__ import annotations
@@ -112,6 +118,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-prefix-cache", dest="prefix_cache",
                     action="store_false",
                     help="no prompt-prefix page sharing (default)")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="paged route: self-speculative decoding - propose "
+                         "up to K draft tokens per decoding row from a "
+                         "host-side prompt-lookup drafter and verify them "
+                         "in ONE widened device step; greedy accept keeps "
+                         "the longest prefix matching argmax, so streams "
+                         "AND page bytes are bit-identical to K=0. "
+                         "Requires chunked prefill (0 = off)")
+    ap.add_argument("--draft", default="ngram", choices=("ngram",),
+                    help="--speculate draft proposer: ngram = longest-"
+                         "suffix prompt/output lookup (no second model)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="paged route: sampling temperature (0 = greedy "
+                         "argmax, bit-exact default)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="paged route: top-k truncation for sampling "
+                         "(0 = full distribution; needs --temperature > 0 "
+                         "to matter)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="base seed for per-request sampling keys")
     ap.add_argument("--kv-dtype", default="bf16",
                     choices=("bf16", "fp8_e4m3", "int8"),
                     help="paged route: KV page pool storage dtype; "
@@ -258,6 +284,9 @@ def _serve_paged(args, bundle, params, prompts, dev):
         prefill_batch=args.prefill_batch,
         step_token_budget=args.step_token_budget,
         preemption=args.preemption, preempt_patience=args.preempt_patience,
+        temperature=args.temperature, top_k=args.top_k,
+        sample_seed=args.sample_seed, speculate=args.speculate,
+        draft=args.draft,
     )
     reqs = [eng.submit(list(p), args.gen) for p in prompts]
     t0 = time.perf_counter()
@@ -274,9 +303,18 @@ def _serve_paged(args, bundle, params, prompts, dev):
           f"({1000 * dt / max(st['steps'], 1):.1f} ms/step, "
           f"{out.size / max(dt, 1e-9):.1f} tok/s wall-clock incl. first-call "
           f"set-up), {st['prefill_calls']} prefill + {st['decode_calls']} "
-          f"decode calls, pool {st['cache_bytes'] / 1e6:.2f} MB "
+          f"decode + {st['verify_calls']} verify calls, pool {st['cache_bytes'] / 1e6:.2f} MB "
           f"{st['pool_dtype']}, TTFT {np.mean(ttft):.1f} engine steps, "
           f"{st['preemptions']} preemptions")
+    if args.speculate:
+        sp = st["spec"]
+        n_tokens = int(out.size)
+        print(f"[speculate k={args.speculate}/{args.draft}] "
+              f"{sp['proposed']} drafts proposed, {sp['accepted']} accepted "
+              f"({sp['accepted'] / max(sp['proposed'], 1):.2f} accept rate), "
+              f"{sp['verify_steps']} verify steps, "
+              f"{sp['rollbacks']} rollbacks; "
+              f"{st['steps'] / max(n_tokens, 1):.2f} engine steps/token")
     if st["prefix_cache"] is not None:
         pc = st["prefix_cache"]
         print(f"[prefix-cache] {pc['cached_pages']} pages cached, "

@@ -1,5 +1,5 @@
 """Serving runtime of the port: paged KV cache, radix prefix cache,
-scheduler, engine."""
+scheduler, draft proposers, engine."""
 
 from repro_torch.runtime.engine import (
     FINISHED,
@@ -35,13 +35,20 @@ from repro_torch.runtime.scheduler import (
     SJFPolicy,
     get_scheduler,
 )
+from repro_torch.runtime.spec_decode import (
+    DRAFTERS,
+    DraftProposer,
+    NgramProposer,
+    get_drafter,
+)
 
 __all__ = [
-    "FCFSPolicy", "FINISHED", "MixedPolicy", "NULL_PAGE", "POLICIES",
-    "POOL_DTYPES", "PageAllocator", "QMAX", "RUNNING", "RadixPrefixCache",
-    "Request", "RequestView", "SJFPolicy", "SchedulerPolicy", "ServeEngine",
-    "WAITING", "chunked_cold_reference", "dense_greedy_reference",
-    "dequantize_kv_page", "gather_pages", "gather_pages_dequant",
-    "get_scheduler", "init_paged_pool", "is_quantized_dtype", "paged_bytes",
-    "pool_dtype_name", "quantize_kv_page", "resolve_pool_dtype",
+    "DRAFTERS", "DraftProposer", "FCFSPolicy", "FINISHED", "MixedPolicy",
+    "NULL_PAGE", "NgramProposer", "POLICIES", "POOL_DTYPES", "PageAllocator",
+    "QMAX", "RUNNING", "RadixPrefixCache", "Request", "RequestView",
+    "SJFPolicy", "SchedulerPolicy", "ServeEngine", "WAITING",
+    "chunked_cold_reference", "dense_greedy_reference", "dequantize_kv_page",
+    "gather_pages", "gather_pages_dequant", "get_drafter", "get_scheduler",
+    "init_paged_pool", "is_quantized_dtype", "paged_bytes", "pool_dtype_name",
+    "quantize_kv_page", "resolve_pool_dtype",
 ]

@@ -1,10 +1,10 @@
 """Continuous-batching serving engine over the paged KV cache.
 
 Counterpart of ``repro.runtime.engine.ServeEngine`` in its synchronous
-mode (``pipeline_depth=0``) with greedy decoding.  The engine owns the
-host-side mechanism - request queue, batch slots, page accounting,
-prefix-cache references, per-request cursors, preemption - around at most
-two device calls per step: one BATCHED chunked-prefill call
+mode (``pipeline_depth=0``).  The engine owns the host-side mechanism -
+request queue, batch slots, page accounting, prefix-cache references,
+per-request cursors, preemption - around at most two device calls per
+step: one BATCHED chunked-prefill call
 (``bundle.paged_prefill_step``) and one batched decode call
 (``bundle.paged_serve_step``), both at static shapes ``(prefill_batch,
 prefill_chunk)`` and ``(max_batch,)``.  Every scheduling decision comes
@@ -63,8 +63,35 @@ stays on the device.  One ``torch.where`` composes them
 (:meth:`_compose_feed`), so the feed needs no readback.  The host reads
 each step's sampled tokens back once, at the end of the step - the
 synchronous mode's contract; preemption records a victim's tokens from
-that readback.  Sampling, speculation, async pipelining, telemetry, the
-tenant policy and the mesh branches of the reference are not ported yet.
+that readback.
+
+**Sampling** (``temperature > 0``): the logits are divided by the
+temperature in fp32, truncated to the ``top_k`` largest (ties at the k-th
+value stay in) and sampled as ``argmax(logits + Gumbel noise)``, what
+``jax.random.categorical`` computes.  The noise is a pure function of
+(``sample_seed``, request id, token index, vocabulary index): an integer
+counter hash computed on the device from two int32 rows
+(:func:`sample_uniforms`), so a request's stream does not depend on its
+batch, its chunk schedule, the policy or a preemption.  The reference
+keys ``jax.random`` the same way (``fold_in`` of the request id and the
+token index); its bits cannot be reproduced in torch, so sampled streams
+are held to the reference's invariances, not to its streams.
+``temperature == 0`` is the argmax path.
+
+**Speculation** (``speculate = K > 0``): a host-side drafter
+(``runtime/spec_decode.py``) proposes up to K tokens per decode row from
+the request's own history, the policy grants them under the step budget,
+and the step's decode becomes ONE verify (:func:`paged_verify_step`):
+K + 1 chained calls of the unmodified ``paged_serve_step`` (feed, then
+the drafts), each sub-step's touched page captured first.  The accepted
+count ``m`` (1 + the longest draft prefix equal to the model's own
+choices) is computed on the device and every sub-step at or past ``m`` is
+restored, in reverse order, codes and sidecars alike: token streams and
+non-null page bytes equal the non-speculative serve's bit for bit.  A
+verify row's cursor advance, its ``generated`` growth and its finish wait
+for the step's readback, which reads ``m`` with the tokens.  Async
+pipelining, telemetry, the tenant policy and the mesh branches of the
+reference are not ported yet.
 """
 
 from __future__ import annotations
@@ -80,12 +107,16 @@ import torch
 from repro_torch.runtime.paged_cache import (
     NULL_PAGE,
     PageAllocator,
+    capture_pages,
     paged_bytes,
     pool_dtype_name,
     resolve_pool_dtype,
+    restore_pages,
+    touched_pages,
 )
 from repro_torch.runtime.prefix_cache import RadixPrefixCache
 from repro_torch.runtime.scheduler import RequestView, get_scheduler
+from repro_torch.runtime.spec_decode import get_drafter
 
 WAITING = "waiting"
 RUNNING = "running"
@@ -124,13 +155,15 @@ def dense_greedy_reference(bundle, params, prompt, max_new_tokens: int):
 def chunked_cold_reference(bundle, params, prompt, max_new_tokens: int, *,
                            page_size: int = 16,
                            prefill_chunk: Optional[int] = None,
-                           cache_dtype=torch.bfloat16, **engine_kwargs):
+                           cache_dtype=torch.bfloat16,
+                           req_id: Optional[int] = None, **engine_kwargs):
     """Serve one request alone on a fresh engine with an empty prefix
     cache; returns its tokens.
 
     The oracle of batched, prefix-hit and preempted serving: a request's
     stream in any batch, under any chunk schedule, policy or preemption,
-    must equal this token for token."""
+    must equal this token for token.  A sampled stream is keyed by its
+    request id: pass the id the request had (``req_id``)."""
     total = len(prompt) + max_new_tokens
     eng = ServeEngine(
         bundle, params, max_batch=1,
@@ -139,9 +172,120 @@ def chunked_cold_reference(bundle, params, prompt, max_new_tokens: int, *,
         prefill_chunk=prefill_chunk, cache_dtype=cache_dtype,
         **engine_kwargs,
     )
-    r = eng.submit(prompt, max_new_tokens)
+    r = eng.submit(prompt, max_new_tokens, req_id=req_id)
     eng.run_to_completion()
     return r.generated
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A 32-bit integer mix (xor-shift / multiply rounds) on values in
+    [0, 2**32): int64 tensors, or a Python int.  Each product is a 32-bit
+    value times a constant below 2**31, so it stays below 2**63: no step
+    relies on signed overflow, and every device computes the same bits."""
+    x = x ^ (x >> 16)
+    x = (x * 0x045D9F3B) & _M32
+    x = x ^ (x >> 16)
+    x = (x * 0x045D9F3B) & _M32
+    return x ^ (x >> 16)
+
+
+def sample_uniforms(seed: int, req_ids: torch.Tensor, token_idx: torch.Tensor,
+                    vocab: int) -> torch.Tensor:
+    """(B,) request ids x (B,) token indices -> (B, vocab) fp32 uniforms
+    in (0, 1), a pure function of (seed, request id, token index,
+    vocabulary index), computed on the ids' device.
+
+    The row key folds the request id, then the token index, into the
+    mixed seed (as the reference's ``fold_in`` chain does); each
+    vocabulary index is hashed against it in two more rounds.  The top 23
+    bits of the hash map to ``(h + 0.5) * 2**-23``, exact in fp32 and
+    never 0 or 1 (24 bits would round ``2**24 - 0.5`` up to 1)."""
+    dev = req_ids.device
+    base = _mix32(int(seed) & _M32)           # a Python int: no host copy
+    rid = req_ids.to(torch.int64) & _M32
+    idx = token_idx.to(torch.int64) & _M32
+    key = _mix32(_mix32(base ^ rid) ^ idx)[:, None]             # (B, 1)
+    key2 = _mix32(key ^ 0x6A09E667)
+    v = torch.arange(vocab, dtype=torch.int64, device=dev)[None, :]
+    h = _mix32((v * 0x27D4EB2F + key) & _M32)
+    h = _mix32(h ^ key2)
+    return ((h >> 9).to(torch.float32) + 0.5) * 2.0 ** -23
+
+
+def make_sampler(temperature: float, top_k: int, seed: int):
+    """``(logits (B, V), req_ids (B,), token_idx (B,)) -> tokens (B,)
+    int32``: the logits over the temperature in fp32, then the ``top_k``
+    largest kept (``top_k`` 0: all; ties at the k-th value stay in), then
+    ``argmax(logits + g)`` with Gumbel noise ``g = -log(-log(u))`` from
+    :func:`sample_uniforms` - the reference's ``_make_sampler`` with a
+    counter hash in place of jax's keys."""
+    temp = float(temperature)
+    # the temperature as a device tensor, made once per device: a Python
+    # scalar divisor may be turned into a product with its reciprocal on
+    # the card (one ulp from the CPU's quotient), and a fresh host copy per
+    # call would wait for the device
+    temps = {}
+
+    def sample(logits, req_ids, token_idx):
+        dev = logits.device
+        if dev not in temps:
+            temps[dev] = torch.tensor(temp, dtype=torch.float32, device=dev)
+        lg = logits.float() / temps[dev]
+        if top_k > 0:
+            kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
+            lg = lg.masked_fill(lg < kth, -math.inf)
+        u = sample_uniforms(seed, req_ids, token_idx, lg.shape[-1])
+        return torch.argmax(lg - torch.log(-torch.log(u)), dim=-1).to(
+            torch.int32)
+
+    return sample
+
+
+def _argmax(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def paged_verify_step(step, params, tokens, pos0, active, pool, table, *,
+                      page_size: int, choose):
+    """The speculative verify: K + 1 chained decode sub-steps on the page
+    pool, then the accepted count and the rollback, all on the device.
+
+    tokens (B, K+1): each row's feed token, then its drafts; pos0 (B,):
+    the feed's position; active (B, K+1) bool: row b runs sub-step i
+    (``active[:, 0]`` = the row decodes this step; a row with k drafts is
+    active at 0..k); ``table`` the decode view of the page table.
+    Sub-step i runs the unmodified ``step`` (``paged_serve_step``) with
+    inactive rows at a nulled table row and position 0, as the plain
+    decode runs its idle slots, after capturing the page each row's
+    append touches; ``choose(logits, i)`` picks its tokens ``g[:, i]``.
+    Then ``m = 1 + cumprod(active[:, 1:] & (tokens[:, 1:] ==
+    g[:, :-1])).sum(1)`` (0 for rows not decoding), and sub-steps
+    ``i >= m`` are restored in reverse order (two sub-steps of a row may
+    touch one page).  Returns ``(nxt, g, m, pool)``: ``nxt = g[b, m - 1]``
+    is the next feed."""
+    n = tokens.shape[1]
+    gs, pre_images = [], []
+    for i in range(n):
+        act = active[:, i]
+        tbl = torch.where(act[:, None], table, NULL_PAGE)
+        pos = torch.where(act, pos0 + i, 0).to(torch.int32)
+        phys = touched_pages(tbl, pos, page_size)
+        pre_images.append((phys, capture_pages(pool, phys)))
+        logits, pool = step(params, tokens[:, i].contiguous(), pos, pool, tbl)
+        gs.append(choose(logits, i))
+    g = torch.stack(gs, dim=1)                                 # (B, K+1)
+    match = active[:, 1:] & (tokens[:, 1:] == g[:, :-1])
+    m = 1 + torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+    m = torch.where(active[:, 0], m, 0).to(torch.int32)
+    for i in reversed(range(n)):
+        phys, pre = pre_images[i]
+        pool = restore_pages(pool, phys, pre, i >= m)
+    last = torch.clamp(m.long() - 1, 0, n - 1)[:, None]
+    nxt = torch.gather(g, 1, last)[:, 0]
+    return nxt, g, m, pool
 
 
 @dataclasses.dataclass
@@ -208,7 +352,13 @@ class ServeEngine:
     running request when the head admission candidate has been
     page-starved that many steps; ``trim_high`` / ``trim_low`` prefix-cache
     trimming watermarks as fractions of the allocatable pool (both or
-    neither; need ``prefix_cache``).
+    neither; need ``prefix_cache``); ``temperature`` / ``top_k`` /
+    ``sample_seed`` sampling (0 = greedy argmax; ``top_k`` 0 = no
+    truncation, beyond the vocabulary = no truncation); ``speculate`` draft
+    tokens per decode row per step (0 = off; needs ``chunked_prefill``) and
+    ``draft`` the proposer (a ``spec_decode.DRAFTERS`` name, a
+    :class:`~repro_torch.runtime.spec_decode.DraftProposer` class or an
+    instance).  Draft quality moves latency only, never output bits.
 
     The engine runs on the device its parameters live on.
     """
@@ -224,7 +374,9 @@ class ServeEngine:
                  step_token_budget: Optional[int] = None,
                  preemption: bool = False, preempt_patience: int = 4,
                  trim_high: Optional[float] = None,
-                 trim_low: Optional[float] = None):
+                 trim_low: Optional[float] = None,
+                 temperature: float = 0.0, top_k: int = 0,
+                 sample_seed: int = 0, speculate: int = 0, draft="ngram"):
         if not bundle.supports_paged:
             raise ValueError(
                 f"family {bundle.cfg.family!r} has no paged serving path; "
@@ -302,6 +454,32 @@ class ServeEngine:
             allocatable = self.num_pages - 1
             self._trim_high_pages = int(trim_high * allocatable)
             self._trim_low_pages = int(trim_low * allocatable)
+        if temperature < 0.0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
+        self.temperature = float(temperature)
+        # top_k beyond the vocabulary is "no truncation"
+        self.top_k = min(int(top_k), bundle.cfg.vocab_size)
+        self._sampler = (
+            make_sampler(self.temperature, self.top_k, int(sample_seed))
+            if self.temperature > 0.0 else None
+        )
+        if speculate < 0:
+            raise ValueError(f"speculate must be >= 0, got {speculate}")
+        if speculate > 0 and not self.chunked_prefill:
+            raise ValueError(
+                "speculate requires chunked_prefill: the verify rides the "
+                "decode-phase cursor convention, which the token-by-token "
+                "mode does not keep"
+            )
+        self.speculate = int(speculate)
+        self._drafter = get_drafter(draft) if self.speculate > 0 else None
+        # the reference's speculation tallies (stats()["spec"])
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_rollbacks = 0
+        self.spec_verify_steps = 0
 
         self.cache_dtype = resolve_pool_dtype(cache_dtype)
         self.pool = bundle.init_paged_cache(
@@ -322,6 +500,7 @@ class ServeEngine:
         self.steps = 0
         self.prefill_calls = 0
         self.decode_calls = 0
+        self.verify_calls = 0
         self.preemptions = 0
         self.trimmed_pages = 0
         # per-step token spend (decode rows + real prefill tokens): the
@@ -600,6 +779,27 @@ class ServeEngine:
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _sample_rows(self, pairs):
+        """(request id, token index) int32 rows of the sampler, or None
+        when the engine is greedy; a row whose pair is None (a dead or pad
+        row) gets zeros - its sample is never read.  Made before the
+        device call: a host copy after it would wait for the device."""
+        if self._sampler is None:
+            return None
+        rids = np.zeros((len(pairs),), np.int32)
+        idxs = np.zeros((len(pairs),), np.int32)
+        for i, pair in enumerate(pairs):
+            if pair is not None:
+                rids[i], idxs[i] = pair
+        return self._tensor(rids), self._tensor(idxs)
+
+    def _pick(self, logits: torch.Tensor, rows, offset: int = 0):
+        """The tokens of one call's logits: argmax, or the sampler keyed by
+        ``rows`` (:meth:`_sample_rows`), token indices plus ``offset``."""
+        if rows is None:
+            return _argmax(logits)
+        return self._sampler(logits, rows[0], rows[1] + offset)
+
     def _run_prefill(self, plan, emits: List[Tuple[torch.Tensor, List[_Emit]]]):
         """One batched prefill call over the planned chunk rows.  Returns
         ``(tokens_spent, completed)``: the real prompt tokens advanced and
@@ -622,6 +822,7 @@ class ServeEngine:
         kv_len = np.zeros((pb,), np.int32)
         last = np.zeros((pb,), np.int32)
         table = np.full((pb, self.max_pages_per_seq), NULL_PAGE, np.int32)
+        pairs = [None] * pb
         for i, (r, real) in enumerate(rows):
             c0 = r.prefill_pos
             tokens[i, :real] = r.prompt[c0: c0 + real]
@@ -629,13 +830,16 @@ class ServeEngine:
             kv_len[i] = c0 + real
             last[i] = real - 1
             table[i] = self.page_table[r.slot]
+            # the first token's key: (request, its index), as every row's
+            pairs[i] = (r.req_id, len(r.generated))
+        rows_key = self._sample_rows(pairs)
         logits, self.pool = self.bundle.paged_prefill_step(
             self.params, self._tensor(tokens), self._tensor(start),
             self._tensor(kv_len), self._tensor(last), self.pool,
             self._tensor(table),
         )
         self.prefill_calls += 1
-        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        first = self._pick(logits, rows_key)
         out: List[_Emit] = []
         completed = []
         slots, srcs = [], []
@@ -676,30 +880,111 @@ class ServeEngine:
         return torch.where(self._tensor(self._next_known), host,
                            self._next_dev)
 
+    def _plan_speculation(self, dec: List[Request], prefill_spent: int):
+        """Drafts and the policy's grants for this step's decode rows:
+        ``[(request, k, drafts)]`` for the rows that verify k drafts (the
+        others decode one token).  Eligible: at least 2 tokens left (k <=
+        remaining - 1 keeps every verify write inside the pages admission
+        reserved, so speculation never allocates) and not replaying.  The
+        drafter reads the materialized history; the first token of a prompt
+        that ended in this step's prefill call is still on the device (a
+        None placeholder), and the draft starts past it (``skip``), as the
+        reference's does."""
+        cands, drafts = [], {}
+        for r in dec:
+            remaining = r.max_new_tokens - len(r.generated)
+            if remaining < 2 or len(r.generated) < len(r.replay):
+                continue
+            pending = sum(t is None for t in r.generated)
+            hist = r.prompt + r.generated[:len(r.generated) - pending]
+            d = self._drafter.propose(
+                hist, min(self.speculate, remaining - 1), skip=pending
+            )
+            if d:
+                cands.append(r)
+                drafts[r.req_id] = [int(t) for t in d]
+        if not cands:
+            return []
+        left = None
+        if self.step_token_budget is not None:
+            left = max(self.step_token_budget - len(dec) - prefill_spent, 0)
+        grants = self._policy.plan_speculation(
+            [self._view(r) for r in cands], k=self.speculate, budget_left=left,
+        )
+        by_id = {r.req_id: r for r in cands}
+        out = []
+        for rid, g in grants:
+            r = by_id.get(rid)
+            if r is None or g < 1:
+                continue
+            d = drafts[rid][:g]
+            if d:
+                out.append((r, len(d), d))
+        return out
+
     def _run_decode(self, dec: List[Request],
-                    emits: List[Tuple[torch.Tensor, List[_Emit]]]) -> None:
-        """One batched decode call over the decoding slots."""
+                    emits: List[Tuple[torch.Tensor, List[_Emit]]],
+                    spec_plan=()):
+        """One batched decode call over the decoding slots, or, when a row
+        has drafts (``spec_plan``), one verify call of K + 1 sub-steps in
+        which every other decoding row is active at sub-step 0 only (that
+        sub-step is its plain decode).  Returns the verify's ``(g, m,
+        rows)`` for the readback, or None."""
         dec_slots = {r.slot for r in dec}
         table = np.array(self.page_table)
         pos = np.zeros((self.max_batch,), np.int32)
+        pairs = [None] * self.max_batch
         for i in range(self.max_batch):
             if i not in dec_slots:
                 table[i, :] = NULL_PAGE   # writes of idle slots -> null page
         for r in dec:
             pos[r.slot] = r.cursor
+            pairs[r.slot] = (r.req_id, len(r.generated))
         feed = self._compose_feed()
-        logits, self.pool = self.bundle.paged_serve_step(
-            self.params, feed, self._tensor(pos), self.pool, self._tensor(table)
-        )
-        self.decode_calls += 1
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        rows = self._sample_rows(pairs)
         mask = np.zeros((self.max_batch,), bool)
         mask[list(dec_slots)] = True
-        # decoding slots keep their sampled token on the device for the
-        # next step's feed; the others keep their value
-        self._next_dev = torch.where(self._tensor(mask), nxt, feed)
+        mask = self._tensor(mask)
+        verify = None
+        if spec_plan:
+            k = self.speculate
+            drafts = np.zeros((self.max_batch, k), np.int32)
+            active = np.zeros((self.max_batch, k + 1), bool)
+            for r in dec:
+                active[r.slot, 0] = True
+            for r, n, d in spec_plan:
+                drafts[r.slot, :n] = d
+                active[r.slot, 1:1 + n] = True
+            tokens = torch.cat([feed[:, None], self._tensor(drafts)], dim=1)
+            nxt, g, m, self.pool = paged_verify_step(
+                self.bundle.paged_serve_step, self.params, tokens,
+                self._tensor(pos), self._tensor(active), self.pool,
+                self._tensor(table), page_size=self.page_size,
+                choose=lambda logits, i: self._pick(logits, rows, i),
+            )
+            self.verify_calls += 1
+            self.spec_proposed += sum(n for _, n, _ in spec_plan)
+            self.spec_verify_steps += len(spec_plan)
+            first = g[:, 0]
+            verify = (g, m, [(r, r.slot, n) for r, n, _ in spec_plan])
+        else:
+            logits, self.pool = self.bundle.paged_serve_step(
+                self.params, feed, self._tensor(pos), self.pool,
+                self._tensor(table)
+            )
+            self.decode_calls += 1
+            nxt = first = self._pick(logits, rows)
+        # decoding slots keep their sampled token (a verify row: its last
+        # accepted one) on the device for the next step's feed; the others
+        # keep their value
+        self._next_dev = torch.where(mask, nxt, feed)
+        spec_ids = {r.req_id for r, _, _ in spec_plan}
         out: List[_Emit] = []
         for r in dec:
+            if r.req_id in spec_ids:
+                # cursor, tokens and finish wait for the accepted count
+                self._next_known[r.slot] = False
+                continue
             p = r.cursor
             r.cursor += 1
             if not self.chunked_prefill and p + 1 < len(r.prompt):
@@ -716,16 +1001,23 @@ class ServeEngine:
                 self._next_known[r.slot] = False   # the value is on the device
             if len(r.generated) >= r.max_new_tokens:
                 self._finish(r)
-        emits.append((nxt, out))
+        emits.append((first, out))
+        return verify
 
     def _read_back(self, step_no: int,
-                   emits: List[Tuple[torch.Tensor, List[_Emit]]]) -> None:
-        """The step's one device readback: fill the generated tokens.  A
-        request keeps the first-token step of its first emission across a
-        preemption."""
+                   emits: List[Tuple[torch.Tensor, List[_Emit]]],
+                   verify=None) -> None:
+        """The step's one device readback: fill the generated tokens, then
+        a verify's accepted tokens, with the cursor advance, the tallies and
+        the finish they decide.  A request keeps the first-token step of its
+        first emission across a preemption."""
         if not emits:
             return
-        vals = torch.cat([t for t, _ in emits]).cpu().tolist()
+        parts = [t for t, _ in emits]
+        if verify is not None:
+            g, m, _ = verify
+            parts += [g.reshape(-1), m]
+        vals = torch.cat(parts).cpu().tolist()
         base = 0
         for t, out in emits:
             for r, gen_idx, row in out:
@@ -733,12 +1025,27 @@ class ServeEngine:
                 if gen_idx == 0 and r.first_token_step < 0:
                     r.first_token_step = step_no
             base += t.shape[0]
+        if verify is None:
+            return
+        g, m, rows = verify
+        width = g.shape[1]
+        g_vals = vals[base:base + g.numel()]
+        m_vals = vals[base + g.numel():]
+        for r, slot, k in rows:
+            n = int(m_vals[slot])
+            r.generated.extend(g_vals[slot * width: slot * width + n])
+            r.cursor += n
+            self.spec_accepted += n - 1
+            if n <= k:
+                self.spec_rollbacks += 1   # a draft was rejected and restored
+            if len(r.generated) >= r.max_new_tokens:
+                self._finish(r)
 
     def step(self) -> int:
         """One engine step: trim, admission (and preemption), the batched
-        prefill call, one batched decode call, then the readback.  Returns
-        the number of requests live this step; ``steps`` advances on every
-        call."""
+        prefill call, one batched decode (or verify) call, then the
+        readback.  Returns the number of requests live this step; ``steps``
+        advances on every call."""
         self._maybe_trim()
         self._try_admit()
         live = [r for r in self._slots if r is not None]
@@ -747,6 +1054,7 @@ class ServeEngine:
             self.steps += 1
             return 0
         emits: List[Tuple[torch.Tensor, List[_Emit]]] = []
+        spec_plan = []
         if self.chunked_prefill:
             prefilling = [r for r in live if r.prefill_pos < len(r.prompt)]
             prefill_spent, completed = 0, []
@@ -777,13 +1085,16 @@ class ServeEngine:
                     ]
                     defer = set(deferrable[max(len(deferrable) - over, 0):])
                     dec = [r for r in dec if r.req_id not in defer]
-            self._account_step_tokens(len(dec) + prefill_spent)
+            # drafts only spend what decode and prefill leave of the budget
+            if self.speculate > 0 and dec:
+                spec_plan = self._plan_speculation(dec, prefill_spent)
+            n_draft = sum(n for _, n, _ in spec_plan)
+            self._account_step_tokens(len(dec) + prefill_spent + n_draft)
         else:
             dec = live
             self._account_step_tokens(len(dec))
-        if dec:
-            self._run_decode(dec, emits)
-        self._read_back(self.steps, emits)
+        verify = self._run_decode(dec, emits, spec_plan) if dec else None
+        self._read_back(self.steps, emits, verify)
         self.steps += 1
         return len(live)
 
@@ -799,8 +1110,10 @@ class ServeEngine:
 
     def stats(self) -> dict:
         """The reference's ``stats()`` keys of the ported features (the
-        prefix cache's sub-dict is None when it is off), plus the device
-        call counts."""
+        prefix cache's sub-dict is None when it is off; ``spec`` is zeros
+        when speculation is off), plus the device call counts: a verify
+        call (K + 1 decode sub-steps) counts in ``verify_calls``, not in
+        ``decode_calls``."""
         return {
             "steps": self.steps,
             "running": self.num_running,
@@ -823,6 +1136,15 @@ class ServeEngine:
                 None if self.prefix_cache is None
                 else self.prefix_cache.stats()
             ),
+            "temperature": self.temperature,
+            "speculate": self.speculate,
+            "spec": {
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "rollbacks": self.spec_rollbacks,
+                "verify_steps": self.spec_verify_steps,
+            },
             "prefill_calls": self.prefill_calls,
             "decode_calls": self.decode_calls,
+            "verify_calls": self.verify_calls,
         }

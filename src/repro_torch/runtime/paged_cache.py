@@ -1,7 +1,7 @@
 """Paged KV cache: fixed-size pages + per-sequence page tables.
 
-Counterpart of ``repro.runtime.paged_cache`` (one device; the
-speculation snapshots and the sharding helpers are not ported).
+Counterpart of ``repro.runtime.paged_cache`` (one device; the sharding
+helpers are not ported).
 
   * **Pool**: ``k``/``v`` tensors of shape ``(n_layers, num_pages,
     page_size, kv_dim)``; one physical page id addresses the same slot in
@@ -261,6 +261,51 @@ def gather_pages(pool_layer: torch.Tensor,
     page = pool_layer.shape[1]
     out = pool_layer[page_table.reshape(-1).long()]
     return out.reshape(b, mp * page, *pool_layer.shape[2:])
+
+
+# Speculative-verify page snapshot and rollback (the engine's verify).
+#
+# A K-draft verify chains K+1 decode sub-steps; each sub-step's append
+# touches exactly one physical page per row, the page holding its write
+# position (a quantized pool rewrites that page's codes and sidecars
+# whole, a raw pool one slot).  Rolling back rejected sub-steps is a byte
+# restore of those per-sub-step pre-images in reverse order: no allocator
+# traffic, no re-quantization.
+
+
+def touched_pages(page_table: torch.Tensor, pos: torch.Tensor,
+                  page_size: int) -> torch.Tensor:
+    """(B, max_pages) table x (B,) write positions -> the (B,) physical
+    page each row's decode append at ``pos`` lands in (a nulled table row
+    resolves to the null page)."""
+    idx = (pos.long() // page_size)[:, None]
+    return torch.gather(page_table, 1, idx)[:, 0]
+
+
+def capture_pages(pool: dict, phys: torch.Tensor) -> dict:
+    """Pre-image of physical pages ``phys`` (B,) across every pool leaf:
+    per leaf a (layers, B, ...) slice of the page dim (axis 1), codes and
+    the 8-bit pools' scale/shift sidecars alike.  The pool is written in
+    place by the next sub-step, so this gathers a copy (advanced indexing
+    never returns a view)."""
+    idx = phys.long()
+    return {name: leaf[:, idx] for name, leaf in pool.items()}
+
+
+def restore_pages(pool: dict, phys: torch.Tensor, pre: dict,
+                  undo: torch.Tensor) -> dict:
+    """Write the :func:`capture_pages` pre-image back into pages ``phys``
+    where ``undo`` (B,) holds, in place; returns the pool.  Kept rows are
+    redirected to the null page with an identity write.  Several rows may
+    then target page 0 in one write, and which of them lands there is
+    unspecified; that does not matter, because page 0 is never attended
+    (inactive rows and pad positions write there)."""
+    b = phys.shape[0]
+    tgt = torch.where(undo, phys, NULL_PAGE).long()
+    for name, leaf in pool.items():
+        keep = undo.reshape((1, b) + (1,) * (leaf.dim() - 2))
+        leaf[:, tgt] = torch.where(keep, pre[name], leaf[:, tgt])
+    return pool
 
 
 def paged_bytes(pool: dict) -> int:

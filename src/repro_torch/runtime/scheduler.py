@@ -6,9 +6,10 @@ preemption - and asks a :class:`SchedulerPolicy` for every decision: the
 order in which waiting requests are tried for admission (and whether a
 request that does not fit blocks those behind it), which still-prefilling
 requests' chunks ride this step's batched prefill call with how many
-tokens each under the per-step token budget, and which running request is
-paged out when an admission has been page-starved past the engine's
-patience.  Policies are pure host functions over immutable
+tokens each under the per-step token budget, how many draft tokens each
+decode row may verify under what the budget leaves, and which running
+request is paged out when an admission has been page-starved past the
+engine's patience.  Policies are pure host functions over immutable
 :class:`RequestView` snapshots.  Scheduling changes latency, never output
 bits: the chunk-exact prefill makes every request's output invariant to
 its chunk schedule, and a decode step reads only its own page-table row.
@@ -127,6 +128,35 @@ class SchedulerPolicy:
             allow = min(chunk, v.remaining_prefill)
             if left is not None and allow > left:
                 allow = _aligned(left, v.remaining_prefill, page_size)
+            if allow <= 0:
+                continue
+            plan.append((v.req_id, allow))
+            if left is not None:
+                left -= allow
+        return plan
+
+    def plan_speculation(self, decoding: Sequence[RequestView], *, k: int,
+                         budget_left: Optional[int] = None
+                         ) -> List[Tuple[int, int]]:
+        """Draft-token grants for this step's speculative verify.
+
+        ``decoding`` holds the decode rows the engine found eligible and
+        draftable (the proposer had a guess); each gets at most ``k``
+        drafts under the leftover step budget (``budget_left``: the budget
+        minus decode and prefill spend; None = unlimited), so drafts never
+        displace a decode row or a prefill chunk.  A row omitted or granted
+        0 decodes one token.  Grants move latency only: rejected drafts are
+        restored byte for byte and accepted ones matched the model's own
+        choice.  Default: ``min(k, remaining_decode - 1)`` greedily in the
+        given order until the budget runs out."""
+        left = budget_left
+        plan: List[Tuple[int, int]] = []
+        for v in decoding:
+            if left is not None and left <= 0:
+                break
+            allow = min(k, max(v.remaining_decode - 1, 0))
+            if left is not None:
+                allow = min(allow, left)
             if allow <= 0:
                 continue
             plan.append((v.req_id, allow))
