@@ -129,7 +129,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      and every non-null page of the pool equal the plain serve's bit for
      bit; on bf16 a sampled serve with speculation equals its serve
      without.  Every serve's launches are checked: 28 per prefill call,
-     28 per decode call, 28 per verify sub-step (K + 1 per call).
+     28 per decode call, 28 per verify sub-step (K + 1 per call);
+ 10. async pipelining and telemetry on the paged engine, qwen2-7b with the
+     same weights.  ``serve_async_<pool>`` (bf16, int8, fp8_e4m3): the
+     paged workload served sync, async (``pipeline_depth=1``), async,
+     sync, each timed (tok/s, decode ms a step): every stream equal to
+     phase 3's, every non-null pool page equal between the depths,
+     launches equal per kernel and per call, ``on_token`` in order and
+     gapless, lagging the host's count at depth 1 only; every serve under
+     ``torch.cuda.set_sync_debug_mode("warn")``, its synchronizing calls
+     per step outside the engine's drain points held at 0 and printed
+     beside the count in all.  ``serve_async_spec_bf16``: K = 4 at depth 1
+     with the n-gram, oracle and wrong drafters, each equal to the depth-0
+     serve without speculation in streams and pool pages.
+     ``serve_async_preempt_bf16``: ``serve_preempt`` at depth 1.
+     ``serve_cancel_bf16``: request 0 cancelled after 8 tokens at depth 1
+     with the prefix cache (its prompt pages donated, free + resident ==
+     allocatable, the other streams unchanged, the same prompt again a
+     hit).  ``serve_telemetry_<pool>`` (bf16, int8): trace, metrics and
+     the probe every 4 steps on against off at depths 0 and 1 (streams and
+     pool pages equal; the Chrome trace's spans and lifecycle instants
+     counted; each probe reading on the card equal to the numpy probe on
+     the same pages copied out).
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -207,6 +228,11 @@ POLICY_SERVES = (("sjf", None), ("mixed", 640))
 SPEC_K = 4
 SAMPLE_KW = dict(temperature=0.8, top_k=50, sample_seed=7)
 SPEC_SEGMENT, SPEC_GEN = 64, 16
+# async pipelining and telemetry on the paged engine: request 0 of the
+# cancel serve hangs up after CANCEL_AFTER tokens; the telemetry serves
+# probe every TELEMETRY_PROBE_EVERY steps
+CANCEL_AFTER = 8
+TELEMETRY_PROBE_EVERY = 4
 # head_dim 64 (zamba2-1.2b's shared attention block): both decode kernels
 # at zamba2's shape (KVH 32, G 1) and at a GQA group (KVH 4, G 8); the
 # hybrid serve: four 200-token prompts, 32 greedy tokens each, token by
@@ -2106,10 +2132,11 @@ def _check_engine_launches(tag, eng, cache_dtype):
     return launches
 
 
-def _drive_calls(eng):
-    """Step the engine until it drains; per step the wall time (s) at its
-    end (each step ends in its readback) and the (prefill, decode, verify)
-    calls it made."""
+def _drive_calls(eng, check=None):
+    """Step the engine until it drains (at any pipeline depth: ``idle``
+    counts the steps in flight); per step the wall time (s) at its end
+    (at depth 0 each step ends in its readback) and the (prefill, decode,
+    verify) calls it made; ``check()`` runs after every step."""
     import torch
 
     torch.cuda.synchronize()
@@ -2121,6 +2148,8 @@ def _drive_calls(eng):
         after = (eng.prefill_calls, eng.decode_calls, eng.verify_calls)
         marks.append((time.perf_counter() - t0,
                       tuple(a - b for a, b in zip(after, before))))
+        if check is not None:
+            check()
     return marks
 
 
@@ -2301,10 +2330,11 @@ def serve_prefix(dev, bundle, params, cache_dtype):
     )
 
 
-def serve_preempt(dev, bundle, params, cache_dtype):
+def serve_preempt(dev, bundle, params, cache_dtype, depth=0):
     """Preemption at full width (the reference's test_scheduler.py
     preempt-resume case): max batch 2, 12 allocatable pages, prefix cache
-    on, patience 2.  A (1000 + 32 tokens, 9 pages) decodes 4 tokens; B
+    on, patience 2, ``pipeline_depth`` ``depth`` (at 1 the preemption
+    drains the pipeline before it records the victim's tokens).  A (1000 + 32 tokens, 9 pages) decodes 4 tokens; B
     (900 + 32, 8 pages) arrives and is page-starved; A is paged out (its
     seven prompt pages donated), B evicts three of them and runs; A
     resumes with a partial hit, re-prefills its tail and replays its
@@ -2317,7 +2347,7 @@ def serve_preempt(dev, bundle, params, cache_dtype):
     from repro_torch.runtime import ServeEngine, chunked_cold_reference
 
     cfg = bundle.cfg
-    tag = f"serve_preempt_{cache_dtype}"
+    tag = f"serve_{'async_' if depth else ''}preempt_{cache_dtype}"
     finite = []
     bundle = _finite_bundle(bundle, finite)
     rng = np.random.default_rng(4)
@@ -2329,7 +2359,7 @@ def serve_preempt(dev, bundle, params, cache_dtype):
                       num_pages=1 + PREEMPT_PAGES,
                       max_seq_len=max(PREEMPT_PROMPTS) + PREEMPT_GEN,
                       prefix_cache=True, preemption=True, preempt_patience=2,
-                      **kw)
+                      pipeline_depth=depth, **kw)
     ra = eng.submit(pa, PREEMPT_GEN)
     marks = []
     torch.cuda.synchronize()
@@ -2356,7 +2386,8 @@ def serve_preempt(dev, bundle, params, cache_dtype):
     _all_finite(f"chunked_cold_reference ({cache_dtype})", finite)
     wall = marks[-1]
     return dict(
-        cache_dtype=cache_dtype, prompts=list(PREEMPT_PROMPTS),
+        cache_dtype=cache_dtype, pipeline_depth=depth,
+        prompts=list(PREEMPT_PROMPTS),
         gen=PREEMPT_GEN, allocatable_pages=PREEMPT_PAGES,
         preemptions=eng.preemptions, preempt_step=ra.preempt_step,
         resume_admit_step=ra.admit_step, resume_cached_len=ra.cached_len,
@@ -2753,6 +2784,368 @@ def serve_spec(dev, bundle, params, cache_dtype, drafters=(), sampled=False):
     del base_pool
     torch.cuda.empty_cache()
     out.update(streams_equal_to_plain=True, pools_equal_to_plain=True)
+    return out
+
+
+def _async_drive(eng, streamed=None):
+    """:func:`_drive_calls`, holding the async contract after every step:
+    no token is pending at depth 0, and the tokens ``on_token`` delivered
+    so far (``streamed``: request id -> its tokens, from
+    :func:`_streamer`) are the read-back ones.  Returns the marks and
+    whether a token was ever pending after a step."""
+    lagged = []
+
+    def check():
+        for r in [x for x in eng._slots if x is not None] + list(
+                eng.finished.values()):
+            if eng.pipeline_depth == 0 and r.pending:
+                raise AssertionError(f"depth 0: request {r.req_id} has "
+                                     f"{r.pending} tokens pending")
+            lagged.append(r.pending > 0)
+            if streamed is not None and len(streamed.get(r.req_id, ())) \
+                    != len(r.generated) - r.pending:
+                raise AssertionError(
+                    f"request {r.req_id}: on_token delivered "
+                    f"{len(streamed.get(r.req_id, ()))} of "
+                    f"{len(r.generated) - r.pending} read-back tokens")
+
+    return _drive_calls(eng, check), any(lagged)
+
+
+def _streamer():
+    """An ``on_token`` that holds each stream in order and gapless, and
+    the per-request counts it delivered."""
+    streams = {}
+
+    def on_token(r, idx, tok):
+        got = streams.setdefault(r.req_id, [])
+        if idx != len(got) or not isinstance(tok, int):
+            raise AssertionError(f"on_token: request {r.req_id} index {idx} "
+                                 f"after {len(got)} tokens")
+        got.append(tok)
+
+    return on_token, streams
+
+
+def serve_async(dev, bundle, params, cache_dtype, sync_streams):
+    """Async pipelining (``pipeline_depth=1``) at full width on the paged
+    workload from a ``cache_dtype`` pool, beside the synchronous serve of
+    the same workload: sync, async, async, sync, each timed.  Held: every
+    stream equals the sync serve's (``sync_streams``, the phase-3 serve)
+    and every non-null pool page equals the first sync serve's bit for
+    bit; each serve's launches are 28 per call, and the async serves'
+    equal the sync serves' per kernel and per call; ``on_token`` delivers
+    every stream in order and gapless, equal to ``generated``, lagging the
+    host's count at depth 1 (never at depth 0).  Counted under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the synchronizing calls
+    outside the engine's drain points (held at 0 at both depths) and in
+    all.  Returns the report and the two depths' pools."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_steps import count_syncs
+    from repro_torch.runtime import ServeEngine
+
+    tag = f"serve_async_{cache_dtype}"
+    finite = []
+    bundle = _finite_bundle(bundle, finite)
+    prompts, kw = _paged_workload(bundle.cfg, cache_dtype)
+    runs, pools = [], {}
+    for depth in (0, 1, 1, 0):
+        on_token, streamed = _streamer()
+        ops.reset_launches()
+        eng = ServeEngine(bundle, params, pipeline_depth=depth,
+                          on_token=on_token, **kw)
+        reqs = [eng.submit(p, SERVE_GEN) for p in prompts]
+        with count_syncs(eng) as syncs:
+            marks, lagged = _async_drive(eng, streamed)
+        launches = _check_engine_launches(f"{tag}/depth {depth}", eng,
+                                          cache_dtype)
+        streams = [r.generated for r in reqs]
+        if streams != sync_streams:
+            raise AssertionError(f"{tag}/depth {depth}: streams differ from "
+                                 f"the sync serve's")
+        if [streamed.get(r.req_id) for r in reqs] != streams:
+            raise AssertionError(f"{tag}/depth {depth}: on_token streams "
+                                 f"differ from generated")
+        if lagged != (depth == 1):
+            raise AssertionError(f"{tag}/depth {depth}: emission lag "
+                                 f"{lagged}")
+        if syncs["outside"]:
+            raise AssertionError(f"{tag}/depth {depth}: {syncs['outside']} "
+                                 f"synchronizing calls outside the drain "
+                                 f"points: {syncs['where']}")
+        if depth not in pools:
+            pools[depth] = {name: x.clone() for name, x in eng.pool.items()}
+        elif not _pools_equal(eng.pool, pools[depth]):
+            raise AssertionError(f"{tag}/depth {depth}: pool bytes differ "
+                                 f"between two serves")
+        wall = marks[-1][0]
+        runs.append(dict(
+            depth=depth, steps=eng.steps, prefill_calls=eng.prefill_calls,
+            decode_calls=eng.decode_calls, launches=launches, wall_s=wall,
+            tok_per_s=SERVE_GEN * len(prompts) / wall,
+            decode_ms_per_step=_call_ms(marks)["decode"],
+            syncs_per_step_outside_drain_points=syncs["outside"] / eng.steps,
+            syncs_per_step_all=syncs["all"] / eng.steps,
+            sync_sites=syncs["where"]))
+        del eng
+    if not _pools_equal(pools[0], pools[1]):
+        raise AssertionError(f"{tag}: async pool bytes differ from sync")
+    by_depth = {d: [r for r in runs if r["depth"] == d] for d in (0, 1)}
+    for key in ("launches", "prefill_calls", "decode_calls"):
+        if {str(r[key]) for r in runs} != {str(runs[0][key])}:
+            raise AssertionError(f"{tag}: {key} differ between depths: "
+                                 f"{[r[key] for r in runs]}")
+    _all_finite(tag, finite)
+    return dict(
+        cache_dtype=cache_dtype, prompts=list(SERVE_PROMPTS), gen=SERVE_GEN,
+        order="sync, async, async, sync", runs=runs,
+        tok_per_s={d: [r["tok_per_s"] for r in by_depth[d]] for d in (0, 1)},
+        decode_ms_per_step={d: [r["decode_ms_per_step"] for r in by_depth[d]]
+                            for d in (0, 1)},
+        syncs_per_step_outside_drain_points={
+            d: max(r["syncs_per_step_outside_drain_points"]
+                   for r in by_depth[d]) for d in (0, 1)},
+        syncs_per_step_all={d: max(r["syncs_per_step_all"]
+                                   for r in by_depth[d]) for d in (0, 1)},
+        streams_equal_to_sync=True, pools_equal_to_sync=True,
+        on_token_equal_to_generated=True,
+    ), pools
+
+
+def serve_async_spec(dev, bundle, params):
+    """Speculation (K = SPEC_K) at depth 1 on the speculative workload from
+    a bf16 pool, with the n-gram, oracle and wrong drafters: each serve's
+    streams and non-null pool pages equal the depth-0 serve without
+    speculation; launches 28 per prefill, decode call and verify
+    sub-step; no synchronizing call outside the drain points (the
+    verify's page capture and restore included)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_steps import count_syncs
+    from repro_torch.runtime import ServeEngine
+
+    tag = "serve_async_spec_bf16"
+    finite = []
+    bundle = _finite_bundle(bundle, finite)
+    prompts, kw = _spec_workload(bundle.cfg, "bf16")
+
+    def run(**extra):
+        ops.reset_launches()
+        eng = ServeEngine(bundle, params, **kw, **extra)
+        reqs = [eng.submit(p, SPEC_GEN) for p in prompts]
+        with count_syncs(eng) as syncs:
+            marks, _ = _async_drive(eng)
+        if syncs["outside"]:
+            raise AssertionError(f"{tag}: {syncs['outside']} synchronizing "
+                                 f"calls outside the drain points: "
+                                 f"{syncs['where']}")
+        launches = _check_engine_launches(tag, eng, "bf16")
+        if eng.stats()["live_pages"]:
+            raise AssertionError(f"{tag}: pages left allocated")
+        return [r.generated for r in reqs], eng, marks, launches
+
+    plain, base, _, _ = run()
+    base_pool = {name: x.clone() for name, x in base.pool.items()}
+    del base
+    out = dict(k=SPEC_K, gen=SPEC_GEN, pipeline_depth=1)
+    vocab = bundle.cfg.vocab_size
+    for name in ("ngram", "oracle", "wrong"):
+        draft = name if name == "ngram" else _known_drafter(
+            name, prompts, plain, vocab)
+        got, eng, marks, launches = run(speculate=SPEC_K, draft=draft,
+                                        pipeline_depth=1)
+        if got != plain:
+            raise AssertionError(f"{tag}/{name}: streams differ from the "
+                                 f"depth-0 serve without speculation")
+        if not _pools_equal(eng.pool, base_pool):
+            raise AssertionError(f"{tag}/{name}: pool bytes differ")
+        sp = eng.stats()["spec"]
+        if eng.verify_calls < 1:
+            raise AssertionError(f"{tag}/{name}: no verify call ({sp})")
+        if name == "oracle" and not sp["accepted"] == sp["proposed"] > 0:
+            raise AssertionError(f"{tag}/oracle: {sp}")
+        if name == "wrong" and not (sp["accepted"] == 0
+                                    and sp["rollbacks"] > 0):
+            raise AssertionError(f"{tag}/wrong: {sp}")
+        wall = marks[-1][0]
+        out[name] = dict(steps=eng.steps, verify_calls=eng.verify_calls,
+                         decode_calls=eng.decode_calls, spec=sp,
+                         launches=launches, wall_s=wall,
+                         tok_per_s=SPEC_GEN * len(prompts) / wall)
+        del eng
+    _all_finite(tag, finite)
+    out.update(streams_equal_to_depth_0=True, pools_equal_to_depth_0=True)
+    return out
+
+
+def serve_cancel(dev, bundle, params, sync_streams):
+    """Cancellation at depth 1 on the paged workload from a bf16 pool with
+    the prefix cache: request 0's client hangs up after CANCEL_AFTER
+    tokens (``on_token`` flags it; the serve loop cancels between steps).
+    Held: its full prompt pages are donated; its tokens are a prefix of
+    the uncancelled stream; the other three streams equal the uncancelled
+    serve's (``sync_streams``); free + resident pages == allocatable; the
+    same prompt again hits the donated pages and streams as before."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import CANCELLED, ServeEngine
+
+    tag = "serve_cancel_bf16"
+    finite = []
+    bundle = _finite_bundle(bundle, finite)
+    prompts, kw = _paged_workload(bundle.cfg, "bf16")
+    hangup = []
+
+    def on_token(r, idx, tok):
+        if r.req_id == 0 and idx + 1 >= CANCEL_AFTER and not hangup:
+            hangup.append(r.req_id)
+
+    ops.reset_launches()
+    eng = ServeEngine(bundle, params, prefix_cache=True, pipeline_depth=1,
+                      on_token=on_token, **kw)
+    reqs = [eng.submit(p, SERVE_GEN) for p in prompts]
+    cancelled_at = None
+    while not eng.idle:
+        eng.step()
+        if hangup and cancelled_at is None:
+            if not eng.cancel(hangup[0]):
+                raise AssertionError(f"{tag}: cancel returned False")
+            cancelled_at = len(reqs[0].generated)
+            resident = eng.prefix_cache.cached_pages
+    eng.drain()
+    if cancelled_at is None:
+        raise AssertionError(f"{tag}: request 0 was never cancelled")
+    victim = reqs[0]
+    if victim.state != CANCELLED or eng.cancellations != 1:
+        raise AssertionError(f"{tag}: state {victim.state}, "
+                             f"{eng.cancellations} cancellations")
+    n = len(victim.generated)
+    if n < CANCEL_AFTER or victim.generated != sync_streams[0][:n]:
+        raise AssertionError(f"{tag}: the cancelled stream {victim.generated}"
+                             f" is not a prefix of {sync_streams[0]}")
+    if n >= SERVE_GEN:
+        raise AssertionError(f"{tag}: request 0 ran to its end")
+    if resident < len(prompts[0]) // 128:
+        raise AssertionError(f"{tag}: {resident} pages cached after the "
+                             f"cancel")
+    others = [r.generated for r in reqs[1:]]
+    if others != sync_streams[1:]:
+        raise AssertionError(f"{tag}: the other streams changed")
+    allocatable = eng.num_pages - 1
+    cached = eng.prefix_cache.cached_pages
+    if eng.allocator.free_pages + cached != allocatable:
+        raise AssertionError(f"{tag}: free {eng.allocator.free_pages} + "
+                             f"cached {cached} != {allocatable}")
+    again = eng.submit(prompts[0], SERVE_GEN)
+    eng.run_to_completion()
+    launches = _check_engine_launches(tag, eng, "bf16")
+    want_hit = (len(prompts[0]) - 1) // 128 * 128
+    if again.cached_len != want_hit or again.generated != sync_streams[0]:
+        raise AssertionError(f"{tag}: the same prompt again: cached "
+                             f"{again.cached_len}, stream {again.generated}")
+    _all_finite(tag, finite)
+    return dict(cancel_after=CANCEL_AFTER, tokens_at_cancel=cancelled_at,
+                tokens_read_back=n, pages_resident_after_cancel=resident,
+                free_plus_cached=eng.allocator.free_pages
+                + eng.prefix_cache.cached_pages,
+                allocatable=allocatable, again_cached_len=again.cached_len,
+                cancellations=eng.cancellations, launches=launches,
+                others_equal_to_uncancelled=True, again_equal=True)
+
+
+def serve_telemetry(dev, bundle, params, cache_dtype, sync_streams, pools):
+    """Telemetry fully on (trace, metrics, the probe every
+    TELEMETRY_PROBE_EVERY steps) against fully off (``pools``: the async
+    phase's pools at depths 0 and 1) on the paged workload from a
+    ``cache_dtype`` pool: streams and non-null pool pages equal at both
+    depths; the Chrome trace parses with one plan and one retire span per
+    step and 4 submit / first-token / finish instants; every probe
+    reading on the card equals the numpy probe on the same pages copied
+    out; no synchronizing call outside the drain points (the probe's
+    reads are inside one, counted in all)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_steps import count_syncs
+    from repro_torch.runtime import NumericsProbe, ServeEngine, Telemetry
+
+    tag = f"serve_telemetry_{cache_dtype}"
+    finite = []
+    bundle = _finite_bundle(bundle, finite)
+    prompts, kw = _paged_workload(bundle.cfg, cache_dtype)
+    out = dict(cache_dtype=cache_dtype, probe_every=TELEMETRY_PROBE_EVERY)
+    for depth in (0, 1):
+        tel = Telemetry(tracing=True, metrics=True,
+                        numerics_every=TELEMETRY_PROBE_EVERY)
+        checked = []
+        sample = tel.probe.sample
+
+        def probe_and_hold(pool, pages_valid, *, n_kv_heads):
+            reading = sample(pool, pages_valid, n_kv_heads=n_kv_heads)
+            pages = [(p, v) for p, v in pages_valid
+                     if v > 0][:tel.probe.max_pages]
+            if reading is None or not pages:
+                return reading
+            layer = tel.probe.layer
+            idx = [p for p, _ in pages]
+            host = {name: pool[name][layer:layer + 1][:, idx].cpu()
+                    for name in ("k", "k_scale", "k_shift") if name in pool}
+            want = NumericsProbe(max_pages=tel.probe.max_pages).sample(
+                host, [(i, v) for i, (_, v) in enumerate(pages)],
+                n_kv_heads=n_kv_heads)
+            if want != reading:
+                raise AssertionError(f"{tag}: the probe's reading on the "
+                                     f"card {reading} != numpy's {want}")
+            checked.append(reading)
+            return reading
+
+        tel.probe.sample = probe_and_hold
+        ops.reset_launches()
+        eng = ServeEngine(bundle, params, pipeline_depth=depth,
+                          telemetry=tel, **kw)
+        reqs = [eng.submit(p, SERVE_GEN) for p in prompts]
+        with count_syncs(eng) as syncs:
+            marks, _ = _async_drive(eng)
+        if syncs["outside"]:
+            raise AssertionError(f"{tag}/depth {depth}: {syncs['outside']} "
+                                 f"synchronizing calls outside the drain "
+                                 f"points: {syncs['where']}")
+        _check_engine_launches(f"{tag}/depth {depth}", eng, cache_dtype)
+        if [r.generated for r in reqs] != sync_streams:
+            raise AssertionError(f"{tag}/depth {depth}: streams differ")
+        if not _pools_equal(eng.pool, pools[depth]):
+            raise AssertionError(f"{tag}/depth {depth}: pool bytes differ "
+                                 f"from the serve without telemetry")
+        path = ROOT / "build" / f"smoke_trace_{cache_dtype}_d{depth}.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        n_events = tel.tracer.write_chrome_trace(str(path))
+        doc = json.loads(path.read_text())
+        spans = [(e["name"], e["args"]["step"]) for e in doc["traceEvents"]
+                 if e["ph"] == "X"]
+        for name in ("plan", "retire"):
+            got = sorted(st for n, st in spans if n == name)
+            if got != list(range(eng.steps)):
+                raise AssertionError(f"{tag}/depth {depth}: {name} spans at "
+                                     f"steps {got}, {eng.steps} steps")
+        instants = [e["name"] for e in doc["traceEvents"] if e["ph"] == "i"]
+        life = {n: instants.count(n) for n in ("submit", "first_token",
+                                               "finish")}
+        if life != {"submit": 4, "first_token": 4, "finish": 4}:
+            raise AssertionError(f"{tag}/depth {depth}: lifecycle {life}")
+        if not checked:
+            raise AssertionError(f"{tag}/depth {depth}: the probe never ran")
+        snap = tel.metrics_snapshot()
+        wall = marks[-1][0]
+        out[f"depth_{depth}"] = dict(
+            steps=eng.steps, wall_s=wall,
+            tok_per_s=SERVE_GEN * len(prompts) / wall,
+            trace_events=n_events, lifecycle=life,
+            syncs_per_step_outside_drain_points=syncs["outside"] / eng.steps,
+            syncs_per_step_all=syncs["all"] / eng.steps,
+            probe_readings_checked=len(checked), last_reading=checked[-1],
+            ttft_steps=snap["histograms"]["serve.ttft_steps"],
+            step_seconds_p50=snap["histograms"]["serve.step_seconds"]["p50"],
+            tokens_emitted=snap["counters"]["serve.tokens_emitted"]["value"])
+        del eng
+    _all_finite(tag, finite)
+    out.update(streams_equal_to_off=True, pools_equal_to_off=True,
+               probe_equal_to_numpy=True)
     return out
 
 
@@ -3183,6 +3576,28 @@ def main() -> int:
             drafters=("oracle", "wrong") if dtype != "fp8_e4m3" else (),
             sampled=dtype == "bf16")))
     print(f"sampling and speculation: {time.perf_counter() - t_spec:.1f} s")
+    # async pipelining, cancellation and telemetry on the paged engine,
+    # each serve driven with the launch counts set to 0 just before it and
+    # checked just after
+    t_async = time.perf_counter()
+    async_pools = {}
+    for dtype in ("bf16", *QUANT_DTYPES):
+        rep_async, async_pools[dtype] = serve_async(
+            dev, bundle, params, dtype, reps[dtype]["streams"])
+        print(f"serve_async_{dtype}: " + json.dumps(rep_async))
+    print("serve_async_spec_bf16: "
+          + json.dumps(serve_async_spec(dev, bundle, params)))
+    print("serve_async_preempt_bf16: "
+          + json.dumps(serve_preempt(dev, bundle, params, "bf16", depth=1)))
+    print("serve_cancel_bf16: " + json.dumps(
+        serve_cancel(dev, bundle, params, reps["bf16"]["streams"])))
+    for dtype in ("bf16", "int8"):
+        print(f"serve_telemetry_{dtype}: " + json.dumps(serve_telemetry(
+            dev, bundle, params, dtype, reps[dtype]["streams"],
+            async_pools[dtype])))
+    del async_pools
+    torch.cuda.empty_cache()
+    print(f"async and telemetry: {time.perf_counter() - t_async:.1f} s")
     # the hybrid family (zamba2-1.2b) on the token-by-token dense route,
     # driven with the launch counts set to 0 just before it
     t_hybrid = time.perf_counter()

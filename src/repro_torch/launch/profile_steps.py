@@ -28,6 +28,17 @@ model's own previous choice repeated, so most are rejected and rolled
 back), profiled as ``verify`` beside the plain decode call at the same
 batch and pool.
 
+``--engine-steps N`` (qwen2-7b) profiles the paged ENGINE instead of
+bare calls: ``ServeEngine`` serves the four paged prompts at each
+``--pipeline-depth`` (0 = synchronous, 1 = async; both by default).  Two
+windows per depth, each ended by ``drain()`` and a synchronize: the first
+step (the batched prefill call, then the decode call of the rows whose
+prompt ended) and N steady decode steps (from the third step on).  For
+each it prints the wall time per step (timed without the profiler), the
+device busy time and the device's idle share, and the synchronizing CUDA
+calls per step outside the engine's drain points (counted under
+``torch.cuda.set_sync_debug_mode("warn")``, :func:`count_syncs`).
+
 ``--kv-dtype int8`` or ``fp8_e4m3`` serves the paged route from a
 quantized page pool (the quantized mode of the paged kernels; the
 quantize-on-write and tail-page re-quantization ops land in "other");
@@ -50,15 +61,19 @@ Run on one card from the repository root:
       --out build/profile_int8
   PYTHONPATH=src python -m repro_torch.launch.profile_steps --speculate 4 \
       --out build/profile_verify
+  PYTHONPATH=src python -m repro_torch.launch.profile_steps \
+      --engine-steps 16 --pipeline-depth 0 1 --out build/profile_engine
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
 import time
+import warnings
 from pathlib import Path
 
 PROMPTS = (1000, 517, 300, 129)
@@ -90,6 +105,78 @@ def _category(name: str) -> str:
     return "other"
 
 
+def _busy_us(prof) -> float:
+    """Device busy time of a profile: the union of its kernel intervals
+    (one stream: they do not overlap)."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for s, e in spans:
+        if s >= end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+@contextlib.contextmanager
+def count_syncs(eng):
+    """Count the synchronizing CUDA calls made while the block runs, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: yields a dict whose
+    ``"outside"`` is the count outside the engine's drain points
+    (``_retire_one``, ``drain`` and, with telemetry, the numerics probe),
+    ``"all"`` the count in all and ``"where"`` their sites, filled when
+    the block exits.  The mode flags blocking copies and readbacks
+    (``.cpu()``, ``.item()``, a ``.to(device)`` from pageable memory),
+    not ``torch.cuda.synchronize()`` or an event's ``synchronize()``."""
+    import torch
+
+    counts = {"outside": 0, "all": 0}
+    inside = {"depth": 0, "n": 0}
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+
+        def marked(fn):
+            def run(*a, **kw):
+                n0 = len(seen)
+                inside["depth"] += 1
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    inside["depth"] -= 1
+                    if inside["depth"] == 0:
+                        inside["n"] += len(seen) - n0
+            return run
+
+        wrapped = [(eng, "_retire_one"), (eng, "drain")]
+        probe = getattr(eng.telemetry, "probe", None)
+        if probe is not None:
+            wrapped.append((probe, "sample"))
+        for obj, name in wrapped:
+            setattr(obj, name, marked(getattr(obj, name)))
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield counts
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+            for obj, name in wrapped:
+                delattr(obj, name)
+            # the mode's own one-time notice ("a prototype feature ...")
+            # is not a synchronizing call
+            syncs = [w for w in seen if "called a synchronizing CUDA "
+                     "operation" in str(w.message)]
+            counts["all"] = len(syncs)
+            counts["outside"] = len(syncs) - inside["n"]
+            counts["where"] = sorted({f"{w.filename}:{w.lineno}"
+                                      for w in syncs})
+
+
 def _profile(fn, n_calls: int, trace: Path) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -108,23 +195,12 @@ def _profile(fn, n_calls: int, trace: Path) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     prof.export_chrome_trace(str(trace))
     by_cat = {}
-    spans = []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        dur = e.time_range.elapsed_us()
         cat = _category(e.name)
-        by_cat[cat] = by_cat.get(cat, 0.0) + dur
-        spans.append((e.time_range.start, e.time_range.end))
-    # busy time = union of kernel intervals (one stream: they do not overlap)
-    busy, end = 0.0, -math.inf
-    for s, e in sorted(spans):
-        if s >= end:
-            busy += e - s
-            end = e
-        elif e > end:
-            busy += e - end
-            end = e
+        by_cat[cat] = by_cat.get(cat, 0.0) + e.time_range.elapsed_us()
+    busy = _busy_us(prof)
     # the profiler slows the host; the idle share is taken against the
     # wall time of the same calls run without it
     return {
@@ -155,9 +231,19 @@ def main(argv=None):
     ap.add_argument("--speculate", type=int, default=0, metavar="K",
                     help="also profile the paged route's verify call with "
                          "K drafts per row (qwen2-7b)")
+    ap.add_argument("--engine-steps", type=int, default=0, metavar="N",
+                    help="profile the paged engine's first step and N "
+                         "steady decode steps instead of bare calls "
+                         "(qwen2-7b)")
+    ap.add_argument("--pipeline-depth", type=int, nargs="+", default=[0, 1],
+                    choices=(0, 1),
+                    help="--engine-steps: the engine's pipeline depths "
+                         "(default: both)")
     args = ap.parse_args(argv)
     if args.speculate < 0:
         ap.error("--speculate must be >= 0")
+    if args.engine_steps < 0:
+        ap.error("--engine-steps must be >= 0")
 
     import numpy as np
     import torch
@@ -182,6 +268,10 @@ def main(argv=None):
         print(json.dumps(report))
         return report
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPTS]
+    if args.engine_steps:
+        report = _profile_engine(args, bundle, params, prompts, out)
+        print(json.dumps(report))
+        return report
     # each profiled call type runs 2 * --decode-calls + 1 times (warm-up,
     # unprofiled, profiled): decode calls, then verify calls writing up to
     # K + 1 positions each
@@ -272,6 +362,87 @@ def main(argv=None):
                                       out / "trace_dense_decode.json")
     report["dense_decode"]["kv_len_at_first_call"] = [dkv] * DENSE_BATCH
     print(json.dumps(report))
+    return report
+
+
+def _profile_engine(args, bundle, params, prompts, out: Path) -> dict:
+    """The paged engine at each ``--pipeline-depth``: the first step and
+    ``--engine-steps`` steady decode steps, each window ended by
+    ``drain()`` and a synchronize; timed, then profiled on a fresh engine
+    serving the same requests (the same work), then counted for
+    synchronizing calls on a third."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import ServeEngine
+
+    n = args.engine_steps
+    gen = n + 4
+    kw = dict(max_batch=len(PROMPTS), page_size=PAGE, prefill_chunk=CHUNK,
+              num_pages=1 + sum(math.ceil((len(p) + gen) / PAGE)
+                                for p in prompts),
+              max_seq_len=max(len(p) for p in prompts) + gen,
+              cache_dtype=args.kv_dtype)
+    warm = ServeEngine(bundle, params, **kw)
+    warm.submit(prompts[-1][:64].tolist(), 4)
+    warm.run_to_completion()                         # first calls
+    del warm
+
+    def windows(depth, wrap):
+        """[(steps, wall_s, wrap's result)] of the two windows."""
+        eng = ServeEngine(bundle, params, pipeline_depth=depth, **kw)
+        for p in prompts:
+            eng.submit(p.tolist(), gen)
+        res = []
+        for i, steps in enumerate((1, n)):
+            if i:
+                eng.step()                           # the second prefill chunk
+                eng.drain()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with wrap(eng) as w:
+                for _ in range(steps):
+                    eng.step()
+                eng.drain()
+                torch.cuda.synchronize()
+            res.append((steps, time.perf_counter() - t0, w))
+            if i == 0 and eng.prefill_calls != 1:
+                raise AssertionError("the first step made no prefill call")
+        if eng.prefill_calls != 2 or eng.decode_calls != 2 + n:
+            raise AssertionError(f"calls {eng.prefill_calls} prefill, "
+                                 f"{eng.decode_calls} decode")
+        return res
+
+    @contextlib.contextmanager
+    def nothing(eng):
+        yield None
+
+    def profiled(eng):
+        return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    report = {"arch": bundle.cfg.arch_id, "layers": bundle.cfg.n_layers,
+              "device": torch.cuda.get_device_name(0),
+              "kv_dtype": args.kv_dtype, "prompts": list(PROMPTS),
+              "engine_steps": n}
+    for depth in args.pipeline_depth:
+        timed = windows(depth, nothing)
+        profs = windows(depth, profiled)
+        syncs = windows(depth, count_syncs)
+        rep = {}
+        for name, (steps, wall, _), (_, _, prof), (_, _, cnt) in zip(
+                ("first_step", "decode_steps"), timed, profs, syncs):
+            prof.export_chrome_trace(str(out / f"trace_engine_d{depth}_"
+                                               f"{name}.json"))
+            busy = _busy_us(prof) / 1e6
+            rep[name] = {
+                "steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
+                "device_busy_ms_per_step": 1e3 * busy / steps,
+                "device_idle_share": 1.0 - busy / wall,
+                "syncs_per_step_outside_drain_points": cnt["outside"] / steps,
+                "syncs_per_step_all": cnt["all"] / steps,
+                "sync_sites": cnt["where"],
+            }
+        report[f"depth_{depth}"] = rep
     return report
 
 

@@ -21,8 +21,13 @@ reference does), then serves them on one of two routes:
     (``--step-token-budget``), sampling (``--temperature``, ``--top-k``,
     ``--sample-seed``; 0 = greedy) and self-speculative decoding
     (``--speculate K``, ``--draft ngram``), the last two on this route
-    only, as in the reference.  A family without a paged interface
-    (zamba2) refuses it with the engine's ValueError.
+    only, as in the reference; async pipelining (``--async``: one step in
+    flight, streams equal to ``--sync``), streaming (``--stream`` prints
+    each token as it is read back; ``--disconnect-after N`` cancels
+    request 0 after N tokens, between steps) and telemetry (``--trace
+    FILE`` with ``--trace-format chrome|jsonl``, ``--metrics``,
+    ``--numerics-probe N``; bit-neutral).  A family without a paged
+    interface (zamba2) refuses it with the engine's ValueError.
 
 Runs on the GPU by default (``--device cpu`` for the plain PyTorch path).
 
@@ -47,6 +52,10 @@ CPU smoke at the reduced config:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
       --reduced --paged --batch 4 --prompt-len 16 --gen 8 --speculate 3 \
       --temperature 0.8 --top-k 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
+      --reduced --paged --page-size 8 --batch 4 --prompt-len 40 --gen 12 \
+      --prefix-cache --async --stream --disconnect-after 4 \
+      --trace /tmp/t.json --metrics --numerics-probe 4 --device cpu
 """
 
 from __future__ import annotations
@@ -149,6 +158,39 @@ def build_parser() -> argparse.ArgumentParser:
                          "(exact range, the default) or quantile (clipped "
                          "absmax: finer bulk resolution, worse attention "
                          "on outlier-heavy pages)")
+    ap.add_argument("--async", dest="pipelined", action="store_true",
+                    default=False,
+                    help="paged route: async pipelined serving "
+                         "(pipeline_depth=1) - the host plans step N+1 "
+                         "while step N runs; streams stay bit-identical "
+                         "to --sync")
+    ap.add_argument("--sync", dest="pipelined", action="store_false",
+                    help="paged route: synchronous stepping (default)")
+    ap.add_argument("--stream", action="store_true",
+                    help="paged route: print each token as it is read "
+                         "back (the on_token callback)")
+    ap.add_argument("--disconnect-after", type=int, default=0,
+                    help="paged route: request 0's client disconnects "
+                         "after N tokens - the serve loop cancels it between "
+                         "steps (pages freed, prompt pages donated to the "
+                         "prefix cache)")
+    ap.add_argument("--trace", default=None, metavar="FILE",
+                    help="paged route: write the step trace (plan / "
+                         "dispatch / retire spans and request lifecycle "
+                         "events) to FILE - Chrome trace_event JSON for "
+                         "Perfetto, or JSON lines with --trace-format "
+                         "jsonl; bit-neutral")
+    ap.add_argument("--trace-format", default="chrome",
+                    choices=("chrome", "jsonl"),
+                    help="--trace file format (default: chrome)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="paged route: collect the metrics registry and "
+                         "print its JSON snapshot after the serve")
+    ap.add_argument("--numerics-probe", type=int, default=0, metavar="N",
+                    help="paged route: sample the numerics probe every N "
+                         "engine steps (0 = off) - score amplitude against "
+                         "the fp16 ceiling, per-page PASA shift magnitude, "
+                         "K resonance on live pages, read at drain points")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
@@ -270,11 +312,30 @@ def _serve_paged(args, bundle, params, prompts, dev):
     """The same workload through the paged-KV engine."""
     import numpy as np
 
-    from repro_torch.runtime import ServeEngine
+    from repro_torch.runtime import ServeEngine, Telemetry
 
     page_size = bundle.cfg.attention.block_kv
     total = args.prompt_len + args.gen
     num_pages = args.num_pages or math.ceil(total / page_size) * args.batch + 1
+    # telemetry: one per serve, its layers switched by the flags
+    telemetry = None
+    if args.trace or args.metrics or args.numerics_probe:
+        telemetry = Telemetry(tracing=args.trace is not None,
+                              metrics=args.metrics,
+                              numerics_every=args.numerics_probe)
+    # streaming: tokens arrive through on_token as they are read back (one
+    # step behind dispatch with --async).  The callback only flags request
+    # 0's disconnect; the serve loop cancels between steps, never inside a
+    # retirement.
+    hangup = []
+    on_token = None
+    if args.stream or args.disconnect_after:
+        def on_token(r, idx, tok):
+            if args.stream:
+                print(f"[stream] req {r.req_id} #{idx}: {tok}")
+            if (args.disconnect_after and r.req_id == 0
+                    and idx + 1 >= args.disconnect_after and not hangup):
+                hangup.append(0)
     eng = ServeEngine(
         bundle, params, max_batch=args.batch, num_pages=num_pages,
         page_size=page_size, max_seq_len=total,
@@ -286,29 +347,49 @@ def _serve_paged(args, bundle, params, prompts, dev):
         preemption=args.preemption, preempt_patience=args.preempt_patience,
         temperature=args.temperature, top_k=args.top_k,
         sample_seed=args.sample_seed, speculate=args.speculate,
-        draft=args.draft,
+        draft=args.draft, pipeline_depth=1 if args.pipelined else 0,
+        on_token=on_token, telemetry=telemetry,
     )
     reqs = [eng.submit(list(p), args.gen) for p in prompts]
     t0 = time.perf_counter()
-    eng.run_to_completion()
+    if on_token is not None:
+        cancelled = set()
+        while not eng.idle:
+            eng.step()
+            while hangup:
+                rid = hangup.pop()
+                if rid not in cancelled and eng.cancel(rid):
+                    cancelled.add(rid)
+                    print(f"[stream] req {rid} client disconnected -> "
+                          "cancelled (pages reclaimed)")
+        eng.drain()       # the stream's boundary: the last tokens
+    else:
+        eng.run_to_completion()
     dt = time.perf_counter() - t0
     st = eng.stats()
-    out = np.asarray([r.generated for r in reqs], np.int32)
+    # a cancelled request's stream is short: its row is right-padded with
+    # -1, one row per submitted request
+    out = np.asarray([list(r.generated) + [-1] * (args.gen - len(r.generated))
+                      for r in reqs], np.int32)
+    n_tokens = int(sum(len(r.generated) for r in reqs))
     # from submission, so queueing counts; a resumed request keeps the
-    # step of its first emission
-    ttft = [r.first_token_step - r.submit_step + 1 for r in reqs]
+    # step of its first emission; a request cancelled before its first
+    # token has none
+    ttft = [r.first_token_step - r.submit_step + 1 for r in reqs
+            if r.first_token_step >= 0]
     mode = "chunked" if args.chunked_prefill else "token-by-token"
-    print(f"[paged/{mode}/sync/{st['scheduler']}] {dev} generated "
+    mode += "/async" if args.pipelined else "/sync"
+    print(f"[paged/{mode}/{st['scheduler']}] {dev} generated "
           f"{out.shape} tokens in {dt:.3f}s "
           f"({1000 * dt / max(st['steps'], 1):.1f} ms/step, "
-          f"{out.size / max(dt, 1e-9):.1f} tok/s wall-clock incl. first-call "
+          f"{n_tokens / max(dt, 1e-9):.1f} tok/s wall-clock incl. first-call "
           f"set-up), {st['prefill_calls']} prefill + {st['decode_calls']} "
-          f"decode + {st['verify_calls']} verify calls, pool {st['cache_bytes'] / 1e6:.2f} MB "
-          f"{st['pool_dtype']}, TTFT {np.mean(ttft):.1f} engine steps, "
-          f"{st['preemptions']} preemptions")
+          f"decode + {st['verify_calls']} verify calls, pool "
+          f"{st['cache_bytes'] / 1e6:.2f} MB {st['pool_dtype']}, TTFT "
+          f"{np.mean(ttft):.1f} engine steps, {st['preemptions']} "
+          f"preemptions, {st['cancellations']} cancellations")
     if args.speculate:
         sp = st["spec"]
-        n_tokens = int(out.size)
         print(f"[speculate k={args.speculate}/{args.draft}] "
               f"{sp['proposed']} drafts proposed, {sp['accepted']} accepted "
               f"({sp['accepted'] / max(sp['proposed'], 1):.2f} accept rate), "
@@ -320,8 +401,34 @@ def _serve_paged(args, bundle, params, prompts, dev):
         print(f"[prefix-cache] {pc['cached_pages']} pages cached, "
               f"{pc['hits']} page hits / {pc['misses']} misses, "
               f"{pc['evictions']} evictions, {pc['donations']} donations")
+    if telemetry is not None:
+        _report_telemetry(args, telemetry)
     print("sample:", out[0][:16])
     return out
+
+
+def _report_telemetry(args, telemetry):
+    """Write the trace file and print the metrics snapshot and the
+    probe's last reading, as the flags ask."""
+    import json
+
+    if args.trace:
+        if args.trace_format == "jsonl":
+            n = telemetry.tracer.write_jsonl(args.trace)
+        else:
+            n = telemetry.tracer.write_chrome_trace(args.trace)
+        print(f"[trace] {n} events -> {args.trace} ({args.trace_format}; "
+              f"{telemetry.tracer.dropped} dropped by the ring)")
+    if args.metrics:
+        print("[metrics]", json.dumps(telemetry.metrics_snapshot(), indent=2,
+                                      sort_keys=True))
+    last = telemetry.probe.last if telemetry.probe is not None else None
+    if last is not None:
+        print(f"[numerics] fp16_margin={last['fp16_margin']:.1f} "
+              f"score_amp_max={last['score_amp_max']:.1f} "
+              f"shift_mag_max={last['shift_mag_max']:.3f} "
+              f"resonance_max={last['resonance_max']:.3f} "
+              f"({last['pages_sampled']} pages sampled)")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """Serving runtime of the port: paged KV cache, radix prefix cache,
-scheduler, draft proposers, engine."""
+scheduler, draft proposers, telemetry, engine."""
 
 from repro_torch.runtime.engine import (
+    CANCELLED,
     FINISHED,
     RUNNING,
+    STATS_SCHEMA,
     WAITING,
     Request,
     ServeEngine,
@@ -41,14 +43,28 @@ from repro_torch.runtime.spec_decode import (
     NgramProposer,
     get_drafter,
 )
+from repro_torch.runtime.telemetry import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    NumericsProbe,
+    StepTracer,
+    Telemetry,
+    TraceEvent,
+    aggregate_snapshots,
+)
 
 __all__ = [
-    "DRAFTERS", "DraftProposer", "FCFSPolicy", "FINISHED", "MixedPolicy",
-    "NULL_PAGE", "NgramProposer", "POLICIES", "POOL_DTYPES", "PageAllocator",
-    "QMAX", "RUNNING", "RadixPrefixCache", "Request", "RequestView",
-    "SJFPolicy", "SchedulerPolicy", "ServeEngine", "WAITING",
-    "chunked_cold_reference", "dense_greedy_reference", "dequantize_kv_page",
-    "gather_pages", "gather_pages_dequant", "get_drafter", "get_scheduler",
-    "init_paged_pool", "is_quantized_dtype", "paged_bytes", "pool_dtype_name",
+    "CANCELLED", "Counter", "DRAFTERS", "DraftProposer", "FCFSPolicy",
+    "FINISHED", "Gauge", "Histogram", "MetricsRegistry", "MixedPolicy", "NULL_PAGE",
+    "NgramProposer", "NumericsProbe", "POLICIES", "POOL_DTYPES",
+    "PageAllocator", "QMAX", "RUNNING", "RadixPrefixCache", "Request",
+    "RequestView", "SJFPolicy", "STATS_SCHEMA", "SchedulerPolicy",
+    "ServeEngine", "StepTracer", "Telemetry", "TraceEvent", "WAITING",
+    "aggregate_snapshots", "chunked_cold_reference",
+    "dense_greedy_reference", "dequantize_kv_page", "gather_pages",
+    "gather_pages_dequant", "get_drafter", "get_scheduler", "init_paged_pool",
+    "is_quantized_dtype", "paged_bytes", "pool_dtype_name",
     "quantize_kv_page", "resolve_pool_dtype",
 ]

@@ -1,15 +1,15 @@
 """Continuous-batching serving engine over the paged KV cache.
 
-Counterpart of ``repro.runtime.engine.ServeEngine`` in its synchronous
-mode (``pipeline_depth=0``).  The engine owns the host-side mechanism -
-request queue, batch slots, page accounting, prefix-cache references,
-per-request cursors, preemption - around at most two device calls per
-step: one BATCHED chunked-prefill call
-(``bundle.paged_prefill_step``) and one batched decode call
-(``bundle.paged_serve_step``), both at static shapes ``(prefill_batch,
-prefill_chunk)`` and ``(max_batch,)``.  Every scheduling decision comes
-from a :class:`~repro_torch.runtime.scheduler.SchedulerPolicy`
-(``scheduler=`` "fcfs" | "sjf" | "mixed").
+Counterpart of ``repro.runtime.engine.ServeEngine`` on one device.  The
+engine owns the host-side mechanism - request queue, batch slots, page
+accounting, prefix-cache references, per-request cursors, preemption,
+cancellation - around at most two device calls per step: one BATCHED
+chunked-prefill call (``bundle.paged_prefill_step``) and one batched
+decode call (``bundle.paged_serve_step``), both at static shapes
+``(prefill_batch, prefill_chunk)`` and ``(max_batch,)``.  Every
+scheduling decision comes from a
+:class:`~repro_torch.runtime.scheduler.SchedulerPolicy` (``scheduler=``
+"fcfs" | "sjf" | "mixed").
 
 Request lifecycle::
 
@@ -54,16 +54,44 @@ Request lifecycle::
     step; full prompt pages are donated to the prefix cache when it is on,
     the rest recycled without scrubbing.  ``trim_high`` / ``trim_low``
     watermarks evict refcount-0 cache pages at the top of a step.
+  * **Cancellation** (:meth:`cancel`, a client disconnect): a waiting
+    request leaves the queue; a running one is released as on finish
+    (full prompt pages donated, the rest freed) after the pipeline is
+    drained.  Its state becomes CANCELLED.
 
 The decode feed is split: slots whose next input the host knows (a prompt
 start or a teacher-forced prompt token in token-by-token mode, a replayed
 token after a resume) read ``_next_token`` where ``_next_known`` is set;
 the others read ``_next_dev``, the previous call's sampled token, which
 stays on the device.  One ``torch.where`` composes them
-(:meth:`_compose_feed`), so the feed needs no readback.  The host reads
-each step's sampled tokens back once, at the end of the step - the
-synchronous mode's contract; preemption records a victim's tokens from
-that readback.
+(:meth:`_compose_feed`), so the feed needs no readback.
+
+**Async pipelining** (``pipeline_depth``): every step is a host PLAN
+(trim, admission, policy decisions, page-table assembly), a DISPATCH of
+the device calls, and a RETIRE of the steps beyond ``pipeline_depth``
+still in flight (:meth:`_retire_backlog`).  Nothing on the plan and
+dispatch path waits for the device: host inputs reach the card through
+pinned memory with ``non_blocking=True`` (the caching host allocator
+holds each pinned block until its copy has run), and a step's outputs -
+the prefill's first tokens, the decode tokens, a verify's ``g`` and
+``m`` - are copied back into pinned memory at dispatch, followed by a
+CUDA event.  Finish decisions are counts (every decode row emits one
+token), so ``len(generated)`` advances at dispatch with ``None``
+placeholders (``Request.pending``); :meth:`_retire_one` waits on the
+oldest step's event and fills them in dispatch order, firing
+``on_token``.  Depth 0 retires every step before :meth:`step` returns
+(the synchronous engine); depth 1 retires step N after step N+1 was
+dispatched, so the host's planning overlaps the device.  The only legal
+synchronizing sites are marked ``@_drain_point``
+(``runtime/telemetry.py``; held by tests/test_torch_async_guard.py):
+retirement, :meth:`drain`, and the numerics probe.  :meth:`drain` runs
+before a decision that needs token VALUES (preemption records the
+victim's tokens for replay; :meth:`cancel`), on an idle tick, when only
+verifying rows are live, and at the end of :meth:`run_to_completion`.
+Both modes run the same device calls on the same inputs (every host
+array is copied when it crosses to the device, so a later plan cannot
+change a step in flight, and the pool is written in stream order), so
+their token streams and page bytes are equal bit for bit.
 
 **Sampling** (``temperature > 0``): the logits are divided by the
 temperature in fp32, truncated to the ``top_k`` largest (ties at the k-th
@@ -88,10 +116,17 @@ count ``m`` (1 + the longest draft prefix equal to the model's own
 choices) is computed on the device and every sub-step at or past ``m`` is
 restored, in reverse order, codes and sidecars alike: token streams and
 non-null page bytes equal the non-speculative serve's bit for bit.  A
-verify row's cursor advance, its ``generated`` growth and its finish wait
-for the step's readback, which reads ``m`` with the tokens.  Async
-pipelining, telemetry, the tenant policy and the mesh branches of the
-reference are not ported yet.
+verify row freezes until its retirement (``Request.verifying``): its
+cursor advance, its ``generated`` growth and its finish wait for the
+accepted count.
+
+**Telemetry** (``telemetry=``, :class:`~repro_torch.runtime.telemetry
+.Telemetry`): step spans, lifecycle instants, the metrics registry
+(threaded through the allocator and the prefix cache) and the numerics
+probe, at the reference's sites.  Bit-neutral: every hook reads host
+state the engine keeps anyway, and the probe reads the pool at a drain
+point.  The tenant policy and the mesh branches of the reference are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -99,7 +134,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,12 +152,21 @@ from repro_torch.runtime.paged_cache import (
 from repro_torch.runtime.prefix_cache import RadixPrefixCache
 from repro_torch.runtime.scheduler import RequestView, get_scheduler
 from repro_torch.runtime.spec_decode import get_drafter
+from repro_torch.runtime.telemetry import Telemetry, _drain_point
 
 WAITING = "waiting"
 RUNNING = "running"
 FINISHED = "finished"
+CANCELLED = "cancelled"
+
+#: Version of the ``stats()`` schema, the reference's (``repro.runtime
+#: .engine.STATS_SCHEMA``): v2 has ``speculate`` and the ``spec`` tallies.
+#: The port adds three keys of its own, the device call counts
+#: ``prefill_calls``, ``decode_calls`` and ``verify_calls``.
+STATS_SCHEMA = 2
 
 
+@_drain_point
 def dense_greedy_reference(bundle, params, prompt, max_new_tokens: int):
     """Token-by-token greedy decode of one request on a fresh DENSE (B=1)
     cache; returns its tokens.
@@ -133,11 +177,12 @@ def dense_greedy_reference(bundle, params, prompt, max_new_tokens: int):
     request served through :class:`ServeEngine` in that mode.  Chunked
     prefill rounds interior rows differently; its oracle is
     :func:`chunked_cold_reference`.  The prompt's tokens are fed from the
-    device and the tokens read back once, at the end."""
+    device and the tokens read back once, at the end (a drain point: the
+    oracle is a whole serve, its readback the stream's boundary)."""
     dev = params["embed"].device
     total = len(prompt) + max_new_tokens
     cache = bundle.init_cache(1, total, device=dev)
-    feed = torch.tensor(prompt, dtype=torch.int32, device=dev)
+    feed = torch.tensor(prompt, dtype=torch.int32).to(dev)
     tok = feed[:1]
     out = []
     for i in range(total - 1):
@@ -223,16 +268,17 @@ def make_sampler(temperature: float, top_k: int, seed: int):
     :func:`sample_uniforms` - the reference's ``_make_sampler`` with a
     counter hash in place of jax's keys."""
     temp = float(temperature)
-    # the temperature as a device tensor, made once per device: a Python
+    # the temperature as a device tensor, filled once per device: a Python
     # scalar divisor may be turned into a product with its reciprocal on
-    # the card (one ulp from the CPU's quotient), and a fresh host copy per
-    # call would wait for the device
+    # the card (one ulp from the CPU's quotient), and a copy from the host
+    # would wait for the device
     temps = {}
 
     def sample(logits, req_ids, token_idx):
         dev = logits.device
         if dev not in temps:
-            temps[dev] = torch.tensor(temp, dtype=torch.float32, device=dev)
+            temps[dev] = torch.full((), temp, dtype=torch.float32,
+                                    device=dev)
         lg = logits.float() / temps[dev]
         if top_k > 0:
             kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
@@ -314,6 +360,15 @@ class Request:
     blocked_steps: int = 0   # consecutive page-starved admission attempts
     preempt_count: int = 0
     preempt_step: int = -1
+    # async pipelining: entries of ``generated`` whose value is still on
+    # the device (None placeholders, filled in dispatch order at
+    # retirement).  The count len(generated) advances at dispatch, so
+    # finish, budget and policy decisions never wait for a readback.
+    pending: int = 0
+    # speculation: True from dispatching this request's verify to its
+    # retirement; the accepted count is on the device, so the request sits
+    # the plans out meanwhile (its cursor and ``generated`` frozen)
+    verifying: bool = False
 
     @property
     def total_len(self) -> int:
@@ -325,8 +380,37 @@ class Request:
         return math.ceil(max(self.total_len - 1, 1) / page_size)
 
 
-# (request, index into its ``generated``, row of the step's token tensor)
+# (request, index into its ``generated``, index into the step's outputs)
 _Emit = Tuple[Request, int, int]
+
+
+@dataclasses.dataclass
+class _InflightStep:
+    """One dispatched engine step whose outputs are not read back yet.
+
+    ``parts`` are the step's int32 device outputs in order (the prefill's
+    first tokens, then the decode tokens or a verify's ``g`` flattened and
+    its ``m``); :meth:`ServeEngine._ship` concatenates them and copies them
+    to the host at dispatch (``host``; pinned memory and an ``event`` on a
+    card).  ``emits`` and ``spec_rows`` say where each value goes, fixed at
+    dispatch, so retirement is a fill-in."""
+
+    step_no: int
+    parts: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    size: int = 0
+    emits: List[_Emit] = dataclasses.field(default_factory=list)
+    # a verify: (request, drafts k, index of g[slot, 0], index of m[slot])
+    spec_rows: List[Tuple[Request, int, int, int]] = dataclasses.field(
+        default_factory=list)
+    host: Optional[torch.Tensor] = None
+    event: Optional["torch.cuda.Event"] = None
+
+    def add(self, t: torch.Tensor) -> int:
+        """Append a 1-D output; returns its offset in the step's outputs."""
+        base = self.size
+        self.parts.append(t)
+        self.size += t.numel()
+        return base
 
 
 class ServeEngine:
@@ -358,7 +442,13 @@ class ServeEngine:
     tokens per decode row per step (0 = off; needs ``chunked_prefill``) and
     ``draft`` the proposer (a ``spec_decode.DRAFTERS`` name, a
     :class:`~repro_torch.runtime.spec_decode.DraftProposer` class or an
-    instance).  Draft quality moves latency only, never output bits.
+    instance).  Draft quality moves latency only, never output bits;
+    ``pipeline_depth`` steps kept in flight ahead of their readback (0 =
+    synchronous, 1 = async pipelining; module doc); ``on_token(request,
+    index, token)`` called as each token is read back, in dispatch order
+    (one step behind dispatch at depth 1; :meth:`drain` flushes);
+    ``telemetry`` a :class:`~repro_torch.runtime.telemetry.Telemetry`
+    (bit-neutral).
 
     The engine runs on the device its parameters live on.
     """
@@ -376,7 +466,10 @@ class ServeEngine:
                  trim_high: Optional[float] = None,
                  trim_low: Optional[float] = None,
                  temperature: float = 0.0, top_k: int = 0,
-                 sample_seed: int = 0, speculate: int = 0, draft="ngram"):
+                 sample_seed: int = 0, speculate: int = 0, draft="ngram",
+                 pipeline_depth: int = 0,
+                 on_token: Optional[Callable[[Request, int, int], None]] = None,
+                 telemetry: Optional[Telemetry] = None):
         if not bundle.supports_paged:
             raise ValueError(
                 f"family {bundle.cfg.family!r} has no paged serving path; "
@@ -486,9 +579,11 @@ class ServeEngine:
             self.num_pages, self.page_size, self.cache_dtype,
             device=self.device,
         )
-        self.allocator = PageAllocator(self.num_pages)
+        self.telemetry = telemetry
+        metrics = telemetry.metrics if telemetry is not None else None
+        self.allocator = PageAllocator(self.num_pages, metrics=metrics)
         self.prefix_cache = (
-            RadixPrefixCache(self.allocator, self.page_size)
+            RadixPrefixCache(self.allocator, self.page_size, metrics=metrics)
             if prefix_cache else None
         )
         self.page_table = np.full(
@@ -516,6 +611,16 @@ class ServeEngine:
         self._next_dev = torch.zeros(
             (self.max_batch,), dtype=torch.int32, device=self.device
         )
+        if pipeline_depth < 0:
+            raise ValueError(
+                f"pipeline_depth must be >= 0, got {pipeline_depth}"
+            )
+        self.pipeline_depth = int(pipeline_depth)
+        self.on_token = on_token
+        self.cancellations = 0
+        # dispatched steps not retired yet, oldest first; at most
+        # pipeline_depth of them at the end of every step()
+        self._inflight: deque = deque()
 
     # ------------------------------------------------------------- queue --
 
@@ -545,6 +650,8 @@ class ServeEngine:
             )
         r.submit_step = self.steps
         self.waiting.append(r)
+        if self.telemetry is not None:
+            self.telemetry.on_submit(r.req_id, self.steps)
         return r
 
     def _view(self, r: Request) -> RequestView:
@@ -565,6 +672,7 @@ class ServeEngine:
             pages_needed=r.pages_needed(self.page_size),
             preempt_count=r.preempt_count,
             preempt_step=r.preempt_step,
+            pending_tokens=r.pending,
         )
 
     # --------------------------------------------------------- admission --
@@ -625,6 +733,9 @@ class ServeEngine:
             r.cursor = 0
             self._next_token[slot] = r.prompt[0]
             self._next_known[slot] = True
+        if self.telemetry is not None:
+            self.telemetry.on_admit(r.req_id, self.steps,
+                                    resumed=r.preempt_count > 0)
         return "admitted"
 
     def _admit_pass(self) -> Optional[Request]:
@@ -668,6 +779,8 @@ class ServeEngine:
         if blocked is None:
             return
         blocked.blocked_steps += 1
+        if self.telemetry is not None:
+            self.telemetry.on_admission_blocked(self.steps)
         if (not self.preemption
                 or blocked.blocked_steps < self.preempt_patience):
             return
@@ -695,7 +808,14 @@ class ServeEngine:
             avail += self.prefix_cache.evictable_pages
         if avail < blocked.pages_needed(self.page_size):
             return
-        self._preempt(victim)
+        # preemption records the victim's token VALUES for replay: the one
+        # plan decision that needs them, so the pipeline drains first (the
+        # trigger above is count-based)
+        self.drain()
+        # the drain may have finished the victim (a retiring verify's
+        # accepted count reached max_new_tokens): its pages are free already
+        if victim.state == RUNNING:
+            self._preempt(victim)
         blocked.blocked_steps = 0
         self._admit_pass()
 
@@ -725,9 +845,9 @@ class ServeEngine:
 
     def _preempt(self, r: Request) -> None:
         """Page a running request out: donate / free its pages, record its
-        generated tokens for replay (already on the host: the engine reads
-        every step back before the next one plans), and re-queue it at the
-        BACK of the queue (a paged-out request yields its seniority)."""
+        generated tokens for replay (on the host: the caller drained the
+        pipeline), and re-queue it at the BACK of the queue (a paged-out
+        request yields its seniority)."""
         self._release_slot(r)
         # a request preempted again mid-replay keeps the recorded suffix it
         # has not replayed yet (generated[i] == replay[i] while replaying)
@@ -742,12 +862,19 @@ class ServeEngine:
         r.blocked_steps = 0
         self.preemptions += 1
         self.waiting.append(r)
+        if self.telemetry is not None:
+            self.telemetry.on_preempt(r.req_id, self.steps)
 
-    def _finish(self, r: Request) -> None:
+    def _finish(self, r: Request, step: Optional[int] = None) -> None:
+        """Finish a request; ``step`` stamps a finish decided at retirement
+        (a verify's accepted count) with the step that dispatched it, as
+        the synchronous engine records it."""
         self._release_slot(r)
         r.state = FINISHED
-        r.finish_step = self.steps
+        r.finish_step = self.steps if step is None else step
         self.finished[r.req_id] = r
+        if self.telemetry is not None:
+            self.telemetry.on_finish(r.req_id, r.finish_step)
 
     def _account_step_tokens(self, n: int) -> None:
         self.last_step_tokens = int(n)
@@ -766,6 +893,106 @@ class ServeEngine:
         if n > 0:
             self.trimmed_pages += self.prefix_cache.evict(n)
 
+    # ------------------------------------------------- retire / cancel --
+
+    @_drain_point
+    def _retire_one(self) -> None:
+        """Read the OLDEST in-flight step back: wait for its event, fill
+        the placeholders it dispatched and fire ``on_token`` in dispatch
+        order (prefill completions, then decode rows), then a verify's
+        accepted tokens with the cursor advance, the tallies and the finish
+        they decide.  The engine's one per-token readback; at depth 1 it
+        runs after the next step was dispatched.
+
+        The one site that stamps ``first_token_step``: the step that
+        DISPATCHED a request's first token, so the stamp is the same at
+        every depth, and a resumed request keeps its original stamp."""
+        st = self._inflight.popleft()
+        if st.event is not None:
+            st.event.synchronize()
+        vals = st.host.tolist() if st.host is not None else []
+        tel = self.telemetry
+        emitted = 0
+        for r, gen_idx, at in st.emits:
+            tok = int(vals[at])
+            r.generated[gen_idx] = tok
+            r.pending -= 1
+            emitted += 1
+            if gen_idx == 0 and r.first_token_step < 0:
+                r.first_token_step = st.step_no
+                if tel is not None:
+                    tel.on_first_token(r.req_id, r.submit_step, st.step_no)
+            if self.on_token is not None:
+                self.on_token(r, gen_idx, tok)
+        for r, k, g_at, m_at in st.spec_rows:
+            m = int(vals[m_at])
+            gen_idx0 = len(r.generated)
+            for j in range(m):
+                tok = int(vals[g_at + j])
+                r.generated.append(tok)
+                emitted += 1
+                if self.on_token is not None:
+                    self.on_token(r, gen_idx0 + j, tok)
+            r.cursor += m
+            r.verifying = False
+            self.spec_accepted += m - 1
+            rb_pages = 0
+            if m <= k:
+                # a draft was rejected: its pages were restored on the device
+                self.spec_rollbacks += 1
+                c0 = r.cursor - m
+                rb_pages = len({(c0 + j) // self.page_size
+                                for j in range(m, k + 1)})
+            if tel is not None:
+                tel.on_spec_retire(k, m - 1, rb_pages)
+            if len(r.generated) >= r.max_new_tokens:
+                self._finish(r, step=st.step_no)
+        if emitted and tel is not None:
+            tel.on_tokens_emitted(emitted)
+
+    def _retire_backlog(self) -> None:
+        """Retire down to ``pipeline_depth`` steps in flight (the tail of
+        every :meth:`step`; depth 0 = synchronous)."""
+        while len(self._inflight) > self.pipeline_depth:
+            self._retire_one()
+
+    @_drain_point
+    def drain(self) -> None:
+        """Retire every in-flight step: the pipeline barrier (stream
+        boundaries, preemption's replay record, :meth:`cancel`)."""
+        while self._inflight:
+            self._retire_one()
+
+    def cancel(self, req_id: int) -> bool:
+        """Cancel a request mid-stream (a client disconnect).  A waiting
+        request leaves the queue; a running one is released through
+        :meth:`_release_slot` after the pipeline is drained (so no
+        retirement touches it later): its full prompt pages are donated to
+        the prefix cache, the rest freed.  Returns True if the request was
+        live, False otherwise - also when the drain's verify finished it."""
+        for r in self.waiting:
+            if r.req_id == req_id:
+                self.waiting.remove(r)
+                self._cancelled(r)
+                return True
+        r = next((s for s in self._slots
+                  if s is not None and s.req_id == req_id), None)
+        if r is None:
+            return False
+        self.drain()
+        if r.state != RUNNING:
+            return False
+        self._release_slot(r)
+        self._cancelled(r)
+        return True
+
+    def _cancelled(self, r: Request) -> None:
+        r.state = CANCELLED
+        r.finish_step = self.steps
+        self.cancellations += 1
+        if self.telemetry is not None:
+            self.telemetry.on_cancel(r.req_id, self.steps)
+
     # -------------------------------------------------------------- step --
 
     @property
@@ -774,16 +1001,43 @@ class ServeEngine:
 
     @property
     def idle(self) -> bool:
-        return not self.waiting and self.num_running == 0
+        """No queued work, no live request and no step in flight: a
+        ``while not eng.idle: eng.step()`` loop ends with every
+        placeholder read back, at every depth."""
+        return (not self.waiting and self.num_running == 0
+                and not self._inflight)
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        """A copy of a host array on the engine's device, never waiting for
+        the device: on a card through pinned memory with ``non_blocking``
+        (the caching host allocator keeps the pinned block until the copy
+        has run); on the CPU a copy, so a later plan's writes to ``arr``
+        cannot reach a step in flight."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = t.pin_memory() if self.device.type == "cuda" else t.clone()
+        return t.to(self.device, non_blocking=True)
+
+    def _ship(self, st: _InflightStep) -> None:
+        """Queue the step for retirement with its outputs copied to the
+        host: one int32 vector, into pinned memory with ``non_blocking``
+        and a CUDA event on a card."""
+        if st.parts:
+            out = torch.cat(st.parts) if len(st.parts) > 1 else st.parts[0]
+            if out.device.type == "cuda":
+                st.host = torch.empty(out.shape, dtype=out.dtype,
+                                      pin_memory=True)
+                st.host.copy_(out, non_blocking=True)
+                st.event = torch.cuda.Event()
+                st.event.record()
+            else:
+                st.host = out
+        st.parts = []
+        self._inflight.append(st)
 
     def _sample_rows(self, pairs):
         """(request id, token index) int32 rows of the sampler, or None
         when the engine is greedy; a row whose pair is None (a dead or pad
-        row) gets zeros - its sample is never read.  Made before the
-        device call: a host copy after it would wait for the device."""
+        row) gets zeros - its sample is never read."""
         if self._sampler is None:
             return None
         rids = np.zeros((len(pairs),), np.int32)
@@ -800,8 +1054,12 @@ class ServeEngine:
             return _argmax(logits)
         return self._sampler(logits, rows[0], rows[1] + offset)
 
-    def _run_prefill(self, plan, emits: List[Tuple[torch.Tensor, List[_Emit]]]):
-        """One batched prefill call over the planned chunk rows.  Returns
+    def _run_prefill(self, plan, st: _InflightStep):
+        """Dispatch one batched prefill call over the planned chunk rows;
+        every index tensor is made before the call.  A row whose chunk
+        ends its prompt gets its first token as a placeholder emission, and
+        (unless it replays a recorded token) that token moves into
+        ``_next_dev`` on the device for this step's decode.  Returns
         ``(tokens_spent, completed)``: the real prompt tokens advanced and
         the requests whose prompt ended in this call."""
         by_id = {
@@ -822,6 +1080,10 @@ class ServeEngine:
         kv_len = np.zeros((pb,), np.int32)
         last = np.zeros((pb,), np.int32)
         table = np.full((pb, self.max_pages_per_seq), NULL_PAGE, np.int32)
+        # slots whose first token feeds this step's decode on the device:
+        # the prefill row each one takes it from
+        take = np.zeros((self.max_batch,), bool)
+        src = np.zeros((self.max_batch,), np.int64)
         pairs = [None] * pb
         for i, (r, real) in enumerate(rows):
             c0 = r.prefill_pos
@@ -832,25 +1094,33 @@ class ServeEngine:
             table[i] = self.page_table[r.slot]
             # the first token's key: (request, its index), as every row's
             pairs[i] = (r.req_id, len(r.generated))
+            if c0 + real >= len(r.prompt) and not r.replay:
+                take[r.slot] = True
+                src[r.slot] = i
         rows_key = self._sample_rows(pairs)
+        args = [self._tensor(x) for x in (tokens, start, kv_len, last)]
+        table_t = self._tensor(table)
+        take_t = self._tensor(take) if take.any() else None
+        src_t = self._tensor(src) if take_t is not None else None
         logits, self.pool = self.bundle.paged_prefill_step(
-            self.params, self._tensor(tokens), self._tensor(start),
-            self._tensor(kv_len), self._tensor(last), self.pool,
-            self._tensor(table),
+            self.params, *args, self.pool, table_t,
         )
         self.prefill_calls += 1
         first = self._pick(logits, rows_key)
-        out: List[_Emit] = []
+        base = st.add(first)
+        if take_t is not None:
+            self._next_dev = torch.where(
+                take_t, first.index_select(0, src_t), self._next_dev)
         completed = []
-        slots, srcs = [], []
         for i, (r, real) in enumerate(rows):
             r.prefill_pos += real
             if r.prefill_pos < len(r.prompt):
                 continue
             # this chunk held the last prompt token: its logits row is the
             # first generated token
-            out.append((r, len(r.generated), i))
-            r.generated.append(None)           # value filled at readback
+            st.emits.append((r, len(r.generated), base + i))
+            r.generated.append(None)           # filled at retirement
+            r.pending += 1
             completed.append(r)
             if r.replay:
                 # a resumed request feeds its recorded token (bit-equal to
@@ -860,20 +1130,15 @@ class ServeEngine:
             else:
                 # the same step's decode consumes it on the device
                 self._next_known[r.slot] = False
-                slots.append(r.slot)
-                srcs.append(i)
             if len(r.generated) >= r.max_new_tokens:
                 self._finish(r)
-        if slots:
-            self._next_dev[self._tensor(np.asarray(slots, np.int64))] = first[
-                self._tensor(np.asarray(srcs, np.int64))
-            ]
-        emits.append((first, out))
         return sum(real for _, real in rows), completed
 
     def _compose_feed(self) -> torch.Tensor:
         """This step's decode inputs: host-known tokens over the on-device
-        sampled ones, in one ``torch.where`` (exact; no readback)."""
+        sampled ones, in one ``torch.where`` (exact; no readback).  The
+        host rows are copied (:meth:`_tensor`), so the arrays may change
+        while the step is in flight."""
         host = self._tensor(self._next_token)
         if self._next_known.all():
             return host
@@ -886,19 +1151,18 @@ class ServeEngine:
         others decode one token).  Eligible: at least 2 tokens left (k <=
         remaining - 1 keeps every verify write inside the pages admission
         reserved, so speculation never allocates) and not replaying.  The
-        drafter reads the materialized history; the first token of a prompt
-        that ended in this step's prefill call is still on the device (a
-        None placeholder), and the draft starts past it (``skip``), as the
-        reference's does."""
+        drafter reads the materialized history; tokens still on the device
+        (``pending``: a step in flight, or the first token of a prompt that
+        ended in this step's prefill call) are skipped over (``skip``), as
+        the reference's drafter does."""
         cands, drafts = [], {}
         for r in dec:
             remaining = r.max_new_tokens - len(r.generated)
             if remaining < 2 or len(r.generated) < len(r.replay):
                 continue
-            pending = sum(t is None for t in r.generated)
-            hist = r.prompt + r.generated[:len(r.generated) - pending]
+            hist = r.prompt + r.generated[:len(r.generated) - r.pending]
             d = self._drafter.propose(
-                hist, min(self.speculate, remaining - 1), skip=pending
+                hist, min(self.speculate, remaining - 1), skip=r.pending
             )
             if d:
                 cands.append(r)
@@ -922,14 +1186,14 @@ class ServeEngine:
                 out.append((r, len(d), d))
         return out
 
-    def _run_decode(self, dec: List[Request],
-                    emits: List[Tuple[torch.Tensor, List[_Emit]]],
+    def _run_decode(self, dec: List[Request], st: _InflightStep,
                     spec_plan=()):
-        """One batched decode call over the decoding slots, or, when a row
-        has drafts (``spec_plan``), one verify call of K + 1 sub-steps in
-        which every other decoding row is active at sub-step 0 only (that
-        sub-step is its plain decode).  Returns the verify's ``(g, m,
-        rows)`` for the readback, or None."""
+        """Dispatch one batched decode call over the decoding slots, or,
+        when a row has drafts (``spec_plan``), one verify call of K + 1
+        sub-steps in which every other decoding row is active at sub-step
+        0 only (that sub-step is its plain decode).  Then the optimistic
+        host advance: cursors, placeholder tokens and finishes by count;
+        a verifying row freezes until its retirement."""
         dec_slots = {r.slot for r in dec}
         table = np.array(self.page_table)
         pos = np.zeros((self.max_batch,), np.int32)
@@ -940,12 +1204,11 @@ class ServeEngine:
         for r in dec:
             pos[r.slot] = r.cursor
             pairs[r.slot] = (r.req_id, len(r.generated))
-        feed = self._compose_feed()
-        rows = self._sample_rows(pairs)
         mask = np.zeros((self.max_batch,), bool)
         mask[list(dec_slots)] = True
-        mask = self._tensor(mask)
-        verify = None
+        feed = self._compose_feed()
+        rows = self._sample_rows(pairs)
+        mask_t, pos_t, table_t = (self._tensor(x) for x in (mask, pos, table))
         if spec_plan:
             k = self.speculate
             drafts = np.zeros((self.max_batch, k), np.int32)
@@ -956,33 +1219,40 @@ class ServeEngine:
                 drafts[r.slot, :n] = d
                 active[r.slot, 1:1 + n] = True
             tokens = torch.cat([feed[:, None], self._tensor(drafts)], dim=1)
+            active_t = self._tensor(active)
             nxt, g, m, self.pool = paged_verify_step(
-                self.bundle.paged_serve_step, self.params, tokens,
-                self._tensor(pos), self._tensor(active), self.pool,
-                self._tensor(table), page_size=self.page_size,
+                self.bundle.paged_serve_step, self.params, tokens, pos_t,
+                active_t, self.pool, table_t, page_size=self.page_size,
                 choose=lambda logits, i: self._pick(logits, rows, i),
             )
             self.verify_calls += 1
-            self.spec_proposed += sum(n for _, n, _ in spec_plan)
+            n_draft = sum(n for _, n, _ in spec_plan)
+            self.spec_proposed += n_draft
             self.spec_verify_steps += len(spec_plan)
-            first = g[:, 0]
-            verify = (g, m, [(r, r.slot, n) for r, n, _ in spec_plan])
+            if self.telemetry is not None:
+                self.telemetry.on_spec_dispatch(len(spec_plan), n_draft)
+            g_base = st.add(g.reshape(-1))
+            m_base = st.add(m)
+            at = lambda slot: g_base + slot * (k + 1)    # g[slot, 0]
+            for r, n, _ in spec_plan:
+                st.spec_rows.append((r, n, at(r.slot), m_base + r.slot))
         else:
             logits, self.pool = self.bundle.paged_serve_step(
-                self.params, feed, self._tensor(pos), self.pool,
-                self._tensor(table)
+                self.params, feed, pos_t, self.pool, table_t
             )
             self.decode_calls += 1
-            nxt = first = self._pick(logits, rows)
+            nxt = self._pick(logits, rows)
+            base = st.add(nxt)
+            at = lambda slot: base + slot
         # decoding slots keep their sampled token (a verify row: its last
         # accepted one) on the device for the next step's feed; the others
         # keep their value
-        self._next_dev = torch.where(mask, nxt, feed)
+        self._next_dev = torch.where(mask_t, nxt, feed)
         spec_ids = {r.req_id for r, _, _ in spec_plan}
-        out: List[_Emit] = []
         for r in dec:
             if r.req_id in spec_ids:
                 # cursor, tokens and finish wait for the accepted count
+                r.verifying = True
                 self._next_known[r.slot] = False
                 continue
             p = r.cursor
@@ -992,8 +1262,9 @@ class ServeEngine:
                 self._next_known[r.slot] = True
                 continue
             gen_idx = len(r.generated)
-            out.append((r, gen_idx, r.slot))
-            r.generated.append(None)
+            st.emits.append((r, gen_idx, at(r.slot)))
+            r.generated.append(None)           # filled at retirement
+            r.pending += 1
             if gen_idx < len(r.replay):
                 self._next_token[r.slot] = r.replay[gen_idx]
                 self._next_known[r.slot] = True
@@ -1001,76 +1272,53 @@ class ServeEngine:
                 self._next_known[r.slot] = False   # the value is on the device
             if len(r.generated) >= r.max_new_tokens:
                 self._finish(r)
-        emits.append((first, out))
-        return verify
-
-    def _read_back(self, step_no: int,
-                   emits: List[Tuple[torch.Tensor, List[_Emit]]],
-                   verify=None) -> None:
-        """The step's one device readback: fill the generated tokens, then
-        a verify's accepted tokens, with the cursor advance, the tallies and
-        the finish they decide.  A request keeps the first-token step of its
-        first emission across a preemption."""
-        if not emits:
-            return
-        parts = [t for t, _ in emits]
-        if verify is not None:
-            g, m, _ = verify
-            parts += [g.reshape(-1), m]
-        vals = torch.cat(parts).cpu().tolist()
-        base = 0
-        for t, out in emits:
-            for r, gen_idx, row in out:
-                r.generated[gen_idx] = int(vals[base + row])
-                if gen_idx == 0 and r.first_token_step < 0:
-                    r.first_token_step = step_no
-            base += t.shape[0]
-        if verify is None:
-            return
-        g, m, rows = verify
-        width = g.shape[1]
-        g_vals = vals[base:base + g.numel()]
-        m_vals = vals[base + g.numel():]
-        for r, slot, k in rows:
-            n = int(m_vals[slot])
-            r.generated.extend(g_vals[slot * width: slot * width + n])
-            r.cursor += n
-            self.spec_accepted += n - 1
-            if n <= k:
-                self.spec_rollbacks += 1   # a draft was rejected and restored
-            if len(r.generated) >= r.max_new_tokens:
-                self._finish(r)
 
     def step(self) -> int:
-        """One engine step: trim, admission (and preemption), the batched
-        prefill call, one batched decode (or verify) call, then the
-        readback.  Returns the number of requests live this step; ``steps``
-        advances on every call."""
+        """One engine step: the host PLAN (trim, admission and preemption,
+        the policy's grants, page-table assembly), the DISPATCH of the
+        batched prefill call and one batched decode (or verify) call with
+        the host's optimistic advance, then the retirement of any step
+        beyond ``pipeline_depth`` (depth 0: this very step).  Returns the
+        number of requests live this step; ``steps`` advances on every
+        call."""
+        tel = self.telemetry
+        t0 = tel.clock() if tel is not None else 0.0
         self._maybe_trim()
         self._try_admit()
+        t_plan = tel.clock() if tel is not None else 0.0
         live = [r for r in self._slots if r is not None]
         if not live:
             self._account_step_tokens(0)
+            # nothing to dispatch, nothing to overlap: drain, so a
+            # ``while not eng.idle`` loop ends with every token read back
+            self.drain()
+            if tel is not None:
+                tel.end_step(self, t0, t_plan, t_plan, 0)
             self.steps += 1
             return 0
-        emits: List[Tuple[torch.Tensor, List[_Emit]]] = []
+        st = _InflightStep(step_no=self.steps)
         spec_plan = []
+        prefill_spent = 0
         if self.chunked_prefill:
             prefilling = [r for r in live if r.prefill_pos < len(r.prompt)]
-            prefill_spent, completed = 0, []
+            # a row whose verify is in flight sits this plan out and spends
+            # no budget
+            n_verifying = sum(r.verifying for r in live)
+            completed = []
             if prefilling:
                 plan = self._policy.plan_prefill(
                     [self._view(r) for r in prefilling],
-                    n_decode=len(live) - len(prefilling),
+                    n_decode=len(live) - len(prefilling) - n_verifying,
                     budget=self.step_token_budget,
                     chunk=self.prefill_chunk, page_size=self.page_size,
                     max_rows=self.prefill_batch,
                 )
                 if plan:
-                    prefill_spent, completed = self._run_prefill(plan, emits)
+                    prefill_spent, completed = self._run_prefill(plan, st)
             dec = [
                 r for r in self._slots
                 if r is not None and r.prefill_pos >= len(r.prompt)
+                and not r.verifying
             ]
             if self.step_token_budget is not None:
                 # a row whose prompt ended in this step's prefill call
@@ -1093,35 +1341,60 @@ class ServeEngine:
         else:
             dec = live
             self._account_step_tokens(len(dec))
-        verify = self._run_decode(dec, emits, spec_plan) if dec else None
-        self._read_back(self.steps, emits, verify)
+        if dec:
+            self._run_decode(dec, st, spec_plan)
+            self._ship(st)
+        elif st.emits:
+            # a prefill-only step (its completions' decodes were deferred)
+            # still owes their first tokens
+            self._ship(st)
+        elif prefill_spent == 0:
+            # only verifying rows are live and nothing was dispatched: at
+            # depth >= 1 the backlog alone would never retire them
+            self.drain()
+        t_disp = tel.clock() if tel is not None else 0.0
+        self._retire_backlog()
+        if tel is not None:
+            tel.end_step(self, t0, t_plan, t_disp, len(live))
         self.steps += 1
         return len(live)
 
     def run_to_completion(self, max_steps: int = 100_000) -> Dict[int, Request]:
-        """Drive :meth:`step` until queue and slots drain (``max_steps``
-        bounds this call)."""
+        """Drive :meth:`step` until queue, slots and pipeline drain
+        (``max_steps`` bounds this call)."""
         start = self.steps
         while not self.idle:
             if self.steps - start >= max_steps:
                 raise RuntimeError(f"engine did not drain in {max_steps} steps")
             self.step()
+        self.drain()   # the stream's boundary: read back the last tokens
         return self.finished
 
+    def metrics_snapshot(self) -> Optional[dict]:
+        """The metrics registry's scrape payload (plain JSON-serializable
+        dicts), or None without telemetry or its metrics layer."""
+        if self.telemetry is None:
+            return None
+        return self.telemetry.metrics_snapshot()
+
     def stats(self) -> dict:
-        """The reference's ``stats()`` keys of the ported features (the
-        prefix cache's sub-dict is None when it is off; ``spec`` is zeros
-        when speculation is off), plus the device call counts: a verify
-        call (K + 1 decode sub-steps) counts in ``verify_calls``, not in
-        ``decode_calls``."""
+        """The reference's ``stats()`` at schema :data:`STATS_SCHEMA`,
+        every key always present (the prefix cache's sub-dict is None when
+        it is off; ``spec`` is zeros when speculation is off;
+        ``cache_bytes_per_device`` is ``cache_bytes`` on one device), plus
+        the port's device call counts: a verify call (K + 1 decode
+        sub-steps) counts in ``verify_calls``, not in ``decode_calls``."""
+        cache_bytes = paged_bytes(self.pool)
         return {
+            "schema": STATS_SCHEMA,
             "steps": self.steps,
             "running": self.num_running,
             "waiting": len(self.waiting),
             "finished": len(self.finished),
             "free_pages": self.allocator.free_pages,
             "live_pages": self.allocator.live_pages,
-            "cache_bytes": paged_bytes(self.pool),
+            "cache_bytes": cache_bytes,
+            "cache_bytes_per_device": cache_bytes,
             "page_size": self.page_size,
             "pool_dtype": pool_dtype_name(self.cache_dtype),
             "chunked_prefill": self.chunked_prefill,
@@ -1130,13 +1403,12 @@ class ServeEngine:
             "step_token_budget": self.step_token_budget,
             "preemptions": self.preemptions,
             "trimmed_pages": self.trimmed_pages,
+            "temperature": self.temperature,
             "last_step_tokens": self.last_step_tokens,
             "max_step_tokens": self.max_step_tokens,
-            "prefix_cache": (
-                None if self.prefix_cache is None
-                else self.prefix_cache.stats()
-            ),
-            "temperature": self.temperature,
+            "pipeline_depth": self.pipeline_depth,
+            "inflight": len(self._inflight),
+            "cancellations": self.cancellations,
             "speculate": self.speculate,
             "spec": {
                 "proposed": self.spec_proposed,
@@ -1144,6 +1416,10 @@ class ServeEngine:
                 "rollbacks": self.spec_rollbacks,
                 "verify_steps": self.spec_verify_steps,
             },
+            "prefix_cache": (
+                None if self.prefix_cache is None
+                else self.prefix_cache.stats()
+            ),
             "prefill_calls": self.prefill_calls,
             "decode_calls": self.decode_calls,
             "verify_calls": self.verify_calls,

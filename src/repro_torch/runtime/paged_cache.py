@@ -89,14 +89,17 @@ class PageAllocator:
 
     Invariants: the free list and the live set partition
     ``{1..num_pages-1}``; page 0 is never allocated or freed; ``alloc`` is
-    all-or-nothing; double and foreign frees raise."""
+    all-or-nothing; double and foreign frees raise.  ``metrics`` (a
+    ``runtime.telemetry.MetricsRegistry``, optional) counts
+    ``pages.allocated`` and ``pages.freed``."""
 
-    def __init__(self, num_pages: int):
+    def __init__(self, num_pages: int, metrics=None):
         if num_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is the null sink)")
         self.num_pages = num_pages
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
         self._live = set()
+        self.metrics = metrics
 
     @property
     def free_pages(self) -> int:
@@ -114,9 +117,12 @@ class PageAllocator:
             return None
         pages = [self._free.pop() for _ in range(n)]
         self._live.update(pages)
+        if self.metrics is not None and pages:
+            self.metrics.counter("pages.allocated").inc(len(pages))
         return pages
 
     def free(self, pages) -> None:
+        n = 0
         for p in pages:
             if p == NULL_PAGE:
                 raise ValueError("cannot free the null page")
@@ -124,6 +130,9 @@ class PageAllocator:
                 raise ValueError(f"double/foreign free of page {p}")
             self._live.remove(p)
             self._free.append(p)
+            n += 1
+        if self.metrics is not None and n:
+            self.metrics.counter("pages.freed").inc(n)
 
 
 def init_paged_pool(n_layers: int, num_pages: int, page_size: int,

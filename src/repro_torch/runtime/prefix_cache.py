@@ -1,7 +1,7 @@
 """Radix prefix cache: shared prompt-prefix K/V pages over the page pool.
 
-Counterpart of ``repro.runtime.prefix_cache`` (without the metrics
-registry hook, which comes with telemetry).
+Counterpart of ``repro.runtime.prefix_cache`` (without ``probe_len``,
+which only the replica group's routing reads).
 
 A trie over token ids at **page granularity**: each edge is the tuple of
 ``page_size`` token ids that fills one KV page, and each node owns one
@@ -34,7 +34,10 @@ Ownership and refcounts (the engine side is runtime/engine.py):
 
 The allocator counts cached pages as live; ``evictable_pages`` is the
 slack admission may reclaim on demand.  Donation moves page ids only:
-the bytes (and sidecars) stay where the prefill wrote them.
+the bytes (and sidecars) stay where the prefill wrote them.  Under async
+pipelining (engine ``pipeline_depth >= 1``) donation and recycling need
+no deferral: every write to the pool is enqueued on one stream, so a
+page's earlier writes land before any later step reads or rewrites it.
 """
 
 from __future__ import annotations
@@ -66,7 +69,8 @@ class _Node:
 class RadixPrefixCache:
     """Page-granular radix tree of prompt prefixes over ``allocator``."""
 
-    def __init__(self, allocator: PageAllocator, page_size: int):
+    def __init__(self, allocator: PageAllocator, page_size: int,
+                 metrics=None):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         self.allocator = allocator
@@ -80,7 +84,10 @@ class RadixPrefixCache:
         self.hits = 0          # pages served from cache across all matches
         self.misses = 0        # pages a match could not serve
         self.evictions = 0
-        self.donations = 0     # pages adopted from finish / page-out
+        self.donations = 0     # pages adopted from finish / page-out / cancel
+        # optional runtime.telemetry.MetricsRegistry mirror of the
+        # counters above (prefix.* names)
+        self.metrics = metrics
 
     # ------------------------------------------------------------- sizing --
 
@@ -190,7 +197,13 @@ class RadixPrefixCache:
         self.hits += len(nodes)
         want = (len(tokens) if max_tokens is None
                 else min(len(tokens), int(max_tokens))) // self.page_size
-        self.misses += max(0, want - len(nodes))
+        missed = max(0, want - len(nodes))
+        self.misses += missed
+        if self.metrics is not None:
+            if nodes:
+                self.metrics.counter("prefix.hits").inc(len(nodes))
+            if missed:
+                self.metrics.counter("prefix.misses").inc(missed)
 
     def release(self, nodes: List[_Node]) -> None:
         for n in nodes:
@@ -236,6 +249,8 @@ class RadixPrefixCache:
                 nxt.last_use = self._clock
             node = nxt
         self.donations += len(adopted)
+        if self.metrics is not None and adopted:
+            self.metrics.counter("prefix.donations").inc(len(adopted))
         return adopted
 
     # ------------------------------------------------------------ eviction --
@@ -265,6 +280,8 @@ class RadixPrefixCache:
             if (parent is not self._root and not parent.children
                     and parent.refcount == 0):
                 heapq.heappush(heap, (parent.last_use, id(parent), parent))
+        if self.metrics is not None and freed:
+            self.metrics.counter("prefix.evictions").inc(freed)
         return freed
 
     def stats(self) -> dict:

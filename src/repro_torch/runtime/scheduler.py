@@ -36,7 +36,10 @@ class RequestView:
 
     ``remaining_prefill``: prompt tokens whose K/V is not written yet (0
     in the decode phase); ``remaining_decode``: tokens still to generate;
-    ``slot``/``admit_step`` are -1 while waiting."""
+    ``slot``/``admit_step`` are -1 while waiting.  Under async pipelining
+    the counts advance at dispatch, so a policy sees the same counts at
+    every pipeline depth; ``pending_tokens`` counts the generated tokens
+    whose values are still on the device (0 in synchronous mode)."""
 
     req_id: int
     prompt_len: int
@@ -49,6 +52,7 @@ class RequestView:
     preempt_count: int = 0
     #: engine step of the most recent page-out (-1 = never preempted).
     preempt_step: int = -1
+    pending_tokens: int = 0
 
     @property
     def wait_anchor(self) -> int:

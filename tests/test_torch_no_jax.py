@@ -31,6 +31,7 @@ def test_the_scan_sees_the_port():
     assert len(FILES) > 15
     assert any(p.name == "engine.py" for p in FILES)
     assert any(p.name == "prefix_cache.py" for p in FILES)
+    assert any(p.name == "telemetry.py" for p in FILES)
     assert any(p.name == "multimodal.py" for p in FILES)
 
 
