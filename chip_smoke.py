@@ -52,9 +52,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      greedy decode to 32 tokens each; shift-KV and PASA attention launch
      28 times per prefill call, the contiguous decode kernel 28 times per
      decode call, the paged kernels never; each prompt served alone gives
-     the same stream as in the batch.  Shift-KV's launches are counted per
-     mode: in the kernels line each mode has its own count, 0 for the
-     modes the serve does not run;
+     the same stream as in the batch; the first step (the fused
+     prefill's logits) through the kernels within DENSE_LOGIT_ATOL of
+     the same step through their plain versions, and no farther from the
+     plain versions at fp32 than DENSE_FP32_RATIO x theirs.  Shift-KV's
+     launches are counted per mode: in the kernels line each mode has its
+     own count, 0 for the modes the serve does not run;
   5. the reference's attention switch at impl="flash" (FlashAttention-2
      at its default policy, bf16_fp32) with the same weights: the paged
      serve from a bf16 pool and the dense serve again, each launch in the
@@ -150,7 +153,38 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the probe every 4 steps on against off at depths 0 and 1 (streams and
      pool pages equal; the Chrome trace's spans and lifecycle instants
      counted; each probe reading on the card equal to the numpy probe on
-     the same pages copied out).
+     the same pages copied out);
+ 11. the tenant policy and the qwen3 dense configs.  Right after phase
+     10, with qwen2-7b's weights, ``serve_tenant_bf16``: the paged
+     workload on 2 slots under TenantQuotaPolicy (requests 0 and 2
+     tenant "interactive" at class "latency", 1 and 3 tenant "bulk" at
+     "throughput", submitted first, with a page quota below their joint
+     need and a prefill token cap a step; preemption armed): streams
+     equal phase 3's FCFS streams, the latency requests admitted and
+     given their first token before the bulk ones, the cap and the quota
+     never exceeded, the quota made a bulk request wait with a slot free
+     and caused no preemption, the per-tenant series sum to
+     the aggregates, and the same at K = 4 (n-gram) and at depth 1.  After
+     phase 8, ``check_groups``: each kernel at the GQA groups of the dense
+     configs (head_dim 128; G 4 KVH 8 qwen3-4b, G 5 qwen3-14b, G 8
+     qwen3-32b, G 1 KVH 40 qwen1.5-32b): both paged kernels and the
+     contiguous decode at each group (contiguous == paged bit for bit), at
+     G 4 also their 8-bit pools, shift-KV on 8 kv heads and the causal
+     attention kernel (4, 32, 8, 1024, 128); each timed beside its plain
+     version and library call.
+     Then qwen3-4b at full width and depth (36 layers, d 2560, 32 / 8
+     heads, qk-norm, vocab 151,936; random weights from seed 0):
+     ``serve_qwen3_4b_<pool>`` (bf16, int8, fp8_e4m3: phase 3's workload,
+     36 launches a call, requests 0 and 3 alone == batched, every logit
+     finite), ``serve_qwen3_4b_dense`` (phase 4's workload; its first
+     step within DENSE_LOGIT_ATOL of the plain versions and no farther
+     from them at fp32 than theirs, as qwen2-7b's in phase 4; its
+     streams equal to the paged engine's on the same prompts up to each
+     row's first flip, at a top-2 margin under STREAM_GUARD) and
+     ``serve_qwen3_4b_tbt``
+     (prompts of 160 / 129 / 64 / 17 tokens token by token ==
+     ``dense_greedy_reference``).  In the kernels line each group entry has
+     its qwen3-4b serve's count (0 at G 5, 8 and 1, which no serve runs).
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -265,6 +299,35 @@ WHISPER_ALONE = (0, 3)
 # BF16_PASA_RMSE_RATIO x the plain version's RMSE, which is reported;
 # every other mode within ATTN_RMSE_MAX
 BF16_PASA_RMSE_RATIO = 1.25
+# phase 11: the GQA groups of the dense configs at head_dim 128, (arch,
+# KVH, G): qwen3-4b's 4, qwen3-14b's 5, qwen3-32b's 8, qwen1.5-32b's 1
+# (KVH 40); qwen3-4b served at full width and depth on both routes, the
+# requests QWEN3_ALONE one at a time, token by token on QWEN3_TBT_PROMPTS;
+# the tenant serve (qwen2-7b): requests TENANT_LATENCY are tenant
+# "interactive" at class "latency", the others tenant "bulk" at
+# "throughput" under TENANT_QUOTA (its two requests need 5 + 2 pages), on
+# TENANT_SLOTS slots, so that the class rank decides who runs first
+GROUP_SHAPES = (("qwen3-4b", 8, 4), ("qwen3-14b", 8, 5), ("qwen3-32b", 8, 8),
+                ("qwen1.5-32b", 40, 1))
+QWEN3_ALONE = (0, 3)
+QWEN3_TBT_PROMPTS = (160, 129, 64, 17)
+# the dense route's first step (the fused prefill's logits, qwen2-7b and
+# qwen3-4b) through the kernels held within DENSE_LOGIT_ATOL of the plain
+# versions and no farther than DENSE_FP32_RATIO x the plain versions' own
+# distance from the plain versions at fp32; qwen3-4b's dense streams held
+# to the paged engine's (bf16 pool) on the same prompts: first-step
+# logits within DENSE_PAGED_LOGIT_ATOL, each row equal up to its first
+# flip, whose top-2 margin is under STREAM_GUARD.  On the H100: kernels vs
+# plain 0.107 / 0.110 (qwen2-7b / qwen3-4b), the plain versions themselves
+# 0.100 / 0.112 from fp32 and the kernels 0.102 / 0.112 (ratios 1.02 /
+# 1.00); dense vs paged 0.109, flips at margins 0.052 / 0.045 / 0.010
+DENSE_LOGIT_ATOL = 0.15
+DENSE_FP32_RATIO = 1.25
+DENSE_PAGED_LOGIT_ATOL = 0.15
+STREAM_GUARD = 2 * DENSE_PAGED_LOGIT_ATOL
+TENANT_LATENCY = (0, 2)
+TENANT_QUOTA = dict(max_pages=6, max_step_tokens=256)
+TENANT_SLOTS = 2
 
 
 def _kernel_module(name: str):
@@ -1881,10 +1944,12 @@ def _paged_workload(cfg, cache_dtype):
     return prompts, kw
 
 
-def serve(dev, bundle, params, cache_dtype="bf16"):
-    """qwen2-7b at full width through the engine from a ``cache_dtype``
-    page pool (the attention impl and policy of ``bundle.cfg``); returns
-    the report."""
+def serve(dev, bundle, params, cache_dtype="bf16", alone=None):
+    """The bundle's model (qwen2-7b, qwen3-4b) at full width through the
+    engine from a ``cache_dtype`` page pool (the attention impl and
+    policy of ``bundle.cfg``); the requests ``alone`` (default: all)
+    served one at a time give their batched streams; returns the
+    report."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1949,7 +2014,8 @@ def serve(dev, bundle, params, cache_dtype="bf16"):
     pool_bytes = paged_bytes(eng.pool)
     del eng
     # one at a time: identical streams
-    for p, want in zip(prompts, streams):
+    for i in range(len(prompts)) if alone is None else alone:
+        p, want = prompts[i], streams[i]
         _, (r,), _ = run([p])
         if r.generated != want:
             raise AssertionError(
@@ -1962,6 +2028,7 @@ def serve(dev, bundle, params, cache_dtype="bf16"):
         impl=cfg.attention.impl, cache_dtype=cache_dtype,
         pool_bytes=pool_bytes, prompts=list(SERVE_PROMPTS), gen=SERVE_GEN,
         steps=len(marks), prefill_calls=n_prefill, decode_calls=n_decode,
+        served_alone=list(range(len(prompts)) if alone is None else alone),
         launches=launches, launches_by_mode=by_mode, wall_s=wall,
         tok_per_s=n_tok / wall,
         ttft_ms=[1e3 * t for t in ttft],
@@ -1970,11 +2037,12 @@ def serve(dev, bundle, params, cache_dtype="bf16"):
     )
 
 
-def serve_dense(dev, bundle, params):
+def serve_dense(dev, bundle, params, alone=range(DENSE_BATCH)):
     """The dense route of launch/serve.py at full width: one fused prefill
     of four 1000-token prompts, then greedy decode steps on the dense
-    cache (the attention impl and policy of ``bundle.cfg``); returns the
-    report."""
+    cache (the attention impl and policy of ``bundle.cfg``); the prompts
+    ``alone`` served one at a time give their batched streams; returns
+    the report."""
     import numpy as np
     import torch
 
@@ -2041,12 +2109,12 @@ def serve_dense(dev, bundle, params):
     if not bool(((streams >= 0) & (streams < cfg.vocab_size)).all()):
         raise AssertionError(f"bad dense streams {streams}")
     peak = torch.cuda.max_memory_allocated()
-    for i in range(DENSE_BATCH):
-        alone, _ = run(prompts[i:i + 1])
-        if not torch.equal(alone[0], streams[i]):
+    for i in alone:
+        one, _ = run(prompts[i:i + 1])
+        if not torch.equal(one[0], streams[i]):
             raise AssertionError(
                 f"dense batched vs one-at-a-time streams differ: "
-                f"{streams[i].tolist()} vs {alone[0].tolist()}")
+                f"{streams[i].tolist()} vs {one[0].tolist()}")
     wall = marks[-1]
     steps = [b - a for a, b in zip(marks, marks[1:])]
     return dict(
@@ -2166,9 +2234,10 @@ def _all_finite(tag, finite):
     finite.clear()
 
 
-def serve_tbt(dev, bundle, params):
-    """Token-by-token mode at full width: two prompts (257 and 129 tokens,
-    16 greedy tokens each) teacher-forced one token per step through the
+def serve_tbt(dev, bundle, params, lens=TBT_PROMPTS):
+    """Token-by-token mode at full width: prompts of ``lens`` tokens (257
+    and 129 by default), 16 greedy tokens each, all in one batch,
+    teacher-forced one token per step through the
     paged decode kernel, no prefill call; each stream equals
     ``dense_greedy_reference``, the dense B=1 cache through the contiguous
     decode kernel, token for token (paged and contiguous decode are
@@ -2183,11 +2252,11 @@ def serve_tbt(dev, bundle, params):
     finite = []
     bundle = _finite_bundle(bundle, finite)
     rng = np.random.default_rng(2)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in TBT_PROMPTS]
-    kw = dict(max_batch=2, page_size=128, chunked_prefill=False,
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    kw = dict(max_batch=len(lens), page_size=128, chunked_prefill=False,
               num_pages=1 + sum(math.ceil((n + TBT_GEN - 1) / 128)
-                                for n in TBT_PROMPTS),
-              max_seq_len=max(TBT_PROMPTS) + TBT_GEN)
+                                for n in lens),
+              max_seq_len=max(lens) + TBT_GEN)
     warm = ServeEngine(bundle, params, **kw)
     warm.submit(prompts[1][:4], 2)
     warm.run_to_completion()
@@ -2206,7 +2275,7 @@ def serve_tbt(dev, bundle, params):
     oracle = [dense_greedy_reference(bundle, params, p, TBT_GEN)
               for p in prompts]
     oracle_s = time.perf_counter() - t0
-    dense_steps = sum(n + TBT_GEN - 1 for n in TBT_PROMPTS)
+    dense_steps = sum(n + TBT_GEN - 1 for n in lens)
     if _launch_counts() != {"pasa_paged_prefill": 0, "pasa_paged_decode": 0,
                             "pasa_decode": cfg.n_layers * dense_steps}:
         raise AssertionError(f"dense_greedy_reference launches "
@@ -2220,7 +2289,8 @@ def serve_tbt(dev, bundle, params):
                                  f"{want}")
     wall = marks[-1]
     return dict(
-        prompts=list(TBT_PROMPTS), gen=TBT_GEN, max_batch=2,
+        arch=cfg.arch_id, prompts=list(lens), gen=TBT_GEN,
+        max_batch=len(lens),
         steps=eng.steps, decode_calls=eng.decode_calls,
         prefill_calls=eng.prefill_calls, launches=launches,
         wall_s=wall, tok_per_s=TBT_GEN * len(prompts) / wall,
@@ -3150,16 +3220,17 @@ def serve_telemetry(dev, bundle, params, cache_dtype, sync_streams, pools):
 
 
 @contextlib.contextmanager
-def _plain_decode():
+def _plain_decode(at=None):
     """``ops.pasa_decode`` replaced by its plain version (on any device)
-    inside the block: the model's dense decode then runs the plain PyTorch
+    inside the block, at the policy ``at`` if one is given, else at the
+    caller's: the model's dense decode then runs the plain PyTorch
     attention on the card."""
     from repro_torch.kernels import ops
     mod = _kernel_module("pasa_decode")
 
     kernel_op = ops.pasa_decode
     ops.pasa_decode = lambda q, k, v, kv_len, *, beta, policy, block_kv: (
-        mod.decode_plain(q, k, v, kv_len, beta=beta, policy=policy,
+        mod.decode_plain(q, k, v, kv_len, beta=beta, policy=at or policy,
                          block_kv=block_kv))
     try:
         yield
@@ -3283,21 +3354,21 @@ def serve_hybrid(dev):
 
 
 @contextlib.contextmanager
-def _plain_attention():
+def _plain_attention(at=None):
     """``ops.pasa_decode`` and ``ops.pasa_attention`` replaced by their
-    plain versions (on any device) inside the block: the model's decode
-    and its whole-sequence attention (with its shift) then run the plain
-    PyTorch attention on the card."""
+    plain versions (on any device) inside the block, at the policy ``at``
+    if one is given: the model's decode and its whole-sequence attention
+    (with its shift) then run the plain PyTorch attention on the card."""
     from repro_torch.kernels import ops
     amod = _kernel_module("pasa_attention")
 
     kernel_op = ops.pasa_attention
     ops.pasa_attention = lambda q, k, v, *, beta, policy, block_q, block_kv, \
         causal, kv_valid: amod.attention_plain(
-            q, k, v, beta=beta, policy=policy, block_kv=block_kv,
+            q, k, v, beta=beta, policy=at or policy, block_kv=block_kv,
             causal=causal, kv_valid=kv_valid)
     try:
-        with _plain_decode():
+        with _plain_decode(at):
             yield
     finally:
         ops.pasa_attention = kernel_op
@@ -3453,6 +3524,606 @@ def serve_whisper(dev):
     )
 
 
+# ---------------------------------------------------------------- phase 11 --
+
+
+def _group_decode(dev, rng, kvh, g, lens):
+    """A shuffled bf16 pool of sequences of ``lens`` (KVH ``kvh``, D 128,
+    page 128, keys of mean 30, NaN past kv_len), the same rows as a
+    (B, S2, KVH, D) cache read through strides, queries of mean 0 at
+    group ``g``, and their float64 gold."""
+    import torch
+
+    d, page = 128, 128
+    b = len(lens)
+    kp, vp, table = _paged_pool(rng, lens, kvh, d, page, 30.0, 3, dev)
+    n = table.shape[1] * page
+    kview = kp[table.long()].reshape(b, n, kvh, d).transpose(1, 2)
+    vview = vp[table.long()].reshape(b, n, kvh, d).transpose(1, 2)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = _randn(rng, (b, kvh, g, d), 0.0, dev, torch.float16)
+    gold = []
+    for i, n_i in enumerate(lens):
+        kk, vv = _gathered(kp, table[i], n_i), _gathered(vp, table[i], n_i)
+        sc = q[i].double() @ kk.transpose(-1, -2) / math.sqrt(d)
+        gold.append(torch.softmax(sc, -1) @ vv)
+    return kp, vp, table, kview, vview, kv_len, q, torch.stack(gold)
+
+
+def _decode_library_ms(q, kview, vview, kv_len, quant=None, table=None):
+    """SDPA over the expanded (and, from an 8-bit pool, dequantized) K/V,
+    neither step timed."""
+    import torch
+    import torch.nn.functional as F
+
+    b, kvh, g, d = q.shape
+    if quant:
+        mod = _kernel_module("pasa_paged_decode")
+        mp, page = table.shape[1], kview.shape[1]
+        kview, vview = (mod._gather_dequant(
+            x, quant[f"{side}_scale"], quant[f"{side}_shift"], table,
+            torch.float16).reshape(b, mp * page, kvh, d).movedim(1, 2)
+            for side, x in (("k", kview), ("v", vview)))
+    ke, ve = (torch.nan_to_num(x.half()).repeat_interleave(g, 1)
+              for x in (kview, vview))
+    s2 = ke.shape[2]
+    mask = (torch.arange(s2, device=q.device)[None, :] < kv_len[:, None])
+    return _cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q.reshape(b, kvh * g, 1, d), ke, ve,
+        attn_mask=mask[:, None, None, :]), 20)
+
+
+def _group_entry(name, tag, arch, kvh, g, **fields):
+    source, replaces = KERNEL_FILES.get(name, (
+        "src/repro_torch/kernels/csrc/shift_kv.cu",
+        "src/repro/kernels/shift_kv.py:48"))
+    return dict(name=f"{name}/{tag}", route="cuda", source=source,
+                replaces=replaces, arch=arch, kvh=kvh, group=g, **fields)
+
+
+def check_groups(dev):
+    """Each kernel at the GQA groups of the dense configs (GROUP_SHAPES,
+    head_dim 128, fp16 PASA at BETA): the paged decode kernel at a paged
+    serve's decode call (batch 4, kv SERVE_DECODE_KV, keys of mean 30,
+    queries of mean 0), the contiguous decode kernel at the dense serve's
+    kv (four rows at DENSE_PROMPT + 2, bit-equal to paged decode on the
+    same rows), the paged prefill kernel on the prefill fixture's rows (4
+    x 512 queries of mean 1 at starts 0 / 512 / 1024 and a pad row, keys
+    of mean 2), each against its plain version (DECODE_TOL / PREFILL_TOL)
+    and within RMSE_MAX of float64.  At qwen3-4b's group 4 also both paged
+    kernels from int8 and fp8_e4m3 pools (``_check_quant_policies``,
+    debris inert), shift-KV on its dense prefill's keys (4, 8, 1024, 128)
+    and the causal attention kernel at (4, 32, 8, 1024, 128) (queries of
+    mean 0, keys of mean 2).  Every entry timed beside its plain version
+    and its library call, with its bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import FP16
+    from repro_torch.core.shifting import effective_invariance
+    from repro_torch.kernels import ops
+    pmod = _kernel_module("pasa_paged_decode")
+    cmod = _kernel_module("pasa_decode")
+    fmod = _kernel_module("pasa_paged_prefill")
+    smod = _kernel_module("shift_kv")
+    amod = _kernel_module("pasa_attention")
+
+    d, page = 128, 128
+    rng = np.random.default_rng(11)
+    entries = []
+    for arch, kvh, g in GROUP_SHAPES:
+        tag = f"g{g}"
+        # paged decode at the paged serve's call
+        lens = SERVE_DECODE_KV
+        b = len(lens)
+        kp, vp, table, kview, vview, kv_len, q, gold = _group_decode(
+            dev, rng, kvh, g, lens)
+        run = lambda policy=FP16, kp=kp, vp=vp, quant={}: \
+            ops.pasa_paged_decode(q, kp, vp, table, kv_len, beta=BETA,
+                                  policy=policy, **quant)
+        plain_of = lambda policy=FP16, kp=kp, vp=vp, quant={}: \
+            pmod.paged_decode_plain(q, kp, vp, table, kv_len, beta=BETA,
+                                    policy=policy, block_kv=page, **quant)
+        got, plain = run(), plain_of()
+        torch.cuda.synchronize()
+        err = _close(f"pasa_paged_decode/{tag}", got, plain, **DECODE_TOL)
+        rmse, rmse_plain = _rel_rmse(got, gold), _rel_rmse(plain, gold)
+        if not (rmse < RMSE_MAX and rmse_plain < RMSE_MAX):
+            raise AssertionError(f"pasa_paged_decode/{tag} RMSE {rmse:.4f} / "
+                                 f"plain {rmse_plain:.4f}")
+        live = sum(lens)
+        flops = 4 * g * d * live * kvh
+        nbytes = (2 * live * kvh * d * 2 + 2 * q.numel() * 2
+                  + table.numel() * 4 + b * 4)
+        entries.append(_group_entry(
+            "pasa_paged_decode", tag, arch, kvh, g, max_abs_err=err,
+            rmse=rmse, rmse_plain=rmse_plain, ms=_cuda_time_ms(run, 50),
+            plain_ms=_cuda_time_ms(plain_of, 3, warmup=1),
+            library_ms=_decode_library_ms(q, kview, vview, kv_len),
+            **_bound(nbytes, flops)))
+        if g == 4:
+            for dtype in QUANT_DTYPES:
+                kq, vq, quant, valid = _quantize_pool(kp, vp, table, lens,
+                                                      dtype)
+                held, got_q = _check_quant_policies(
+                    f"pasa_paged_decode/{tag}", lambda p: run(p, kq, vq, quant),
+                    lambda p: plain_of(p, kq, vq, quant), gold, got, dtype,
+                    DECODE_TOL)
+                kq2, vq2, quant2 = _poison(kq, vq, quant, valid)
+                if not torch.equal(run(FP16, kq2, vq2, quant2), got_q):
+                    raise AssertionError(f"pasa_paged_decode/{tag}_{dtype}: "
+                                         f"debris changed the output")
+                live_pages = sum(math.ceil(n / page) for n in lens)
+                qbytes = (2 * live * kvh * d + 2 * live_pages * kvh * (1 + d)
+                          * 4 + 2 * q.numel() * 2 + table.numel() * 4 + b * 4)
+                entries.append(_group_entry(
+                    "pasa_paged_decode", f"{tag}_{dtype}", arch, kvh, g,
+                    max_abs_err=held["max_abs_err_fp16"],
+                    rmse=held["rmse_fp16"], detail=held,
+                    ms=_cuda_time_ms(lambda: run(FP16, kq, vq, quant), 50),
+                    plain_ms=_cuda_time_ms(
+                        lambda: plain_of(FP16, kq, vq, quant), 3, warmup=1),
+                    library_ms=_decode_library_ms(q, kq, vq, kv_len, quant,
+                                                  table),
+                    **_bound(qbytes, flops)))
+        del kp, vp, kview, vview
+        # contiguous decode at the dense serve's kv, == paged decode
+        lens = (DENSE_PROMPT + 2,) * DENSE_BATCH
+        b = len(lens)
+        kp, vp, table, kview, vview, kv_len, q, gold = _group_decode(
+            dev, rng, kvh, g, lens)
+        run = lambda: ops.pasa_decode(q, kview, vview, kv_len, beta=BETA,
+                                      policy=FP16, block_kv=page)
+        plain_of = lambda: cmod.decode_plain(q, kview, vview, kv_len,
+                                             beta=BETA, policy=FP16,
+                                             block_kv=page)
+        got, plain = run(), plain_of()
+        paged = ops.pasa_paged_decode(q, kp, vp, table, kv_len, beta=BETA,
+                                      policy=FP16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, paged):
+            raise AssertionError(f"pasa_decode/{tag} != paged decode")
+        err = _close(f"pasa_decode/{tag}", got, plain, **DECODE_TOL)
+        rmse, rmse_plain = _rel_rmse(got, gold), _rel_rmse(plain, gold)
+        if not (rmse < RMSE_MAX and rmse_plain < RMSE_MAX):
+            raise AssertionError(f"pasa_decode/{tag} RMSE {rmse:.4f} / "
+                                 f"plain {rmse_plain:.4f}")
+        live = sum(lens)
+        entries.append(_group_entry(
+            "pasa_decode", tag, arch, kvh, g, max_abs_err=err, rmse=rmse,
+            rmse_plain=rmse_plain, paged_bit_equal=True,
+            ms=_cuda_time_ms(run, 50),
+            plain_ms=_cuda_time_ms(plain_of, 3, warmup=1),
+            library_ms=_decode_library_ms(q, kview, vview, kv_len),
+            **_bound(2 * live * kvh * d * 2 + 2 * q.numel() * 2 + b * 4,
+                     4 * g * d * live * kvh)))
+        del kp, vp, kview, vview
+        # paged prefill on the prefill fixture's rows
+        h, cs = kvh * g, PREFILL_CHUNK
+        starts, kv_lens = PREFILL_ROWS
+        b = len(starts)
+        kp, vp, table = _paged_pool(rng, kv_lens, kvh, d, page, 2.0, 2, dev)
+        table[3] = 0                               # pad row: all-null table
+        start = torch.tensor(starts, dtype=torch.int32, device=dev)
+        kv_len = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+        q = _randn(rng, (b, h, cs, d), 1.0, dev, torch.float16)
+        run = lambda policy=FP16, kp=kp, vp=vp, quant={}: \
+            ops.pasa_paged_prefill(q, kp, vp, table, start, kv_len,
+                                   beta=BETA, policy=policy, **quant)
+        plain_of = lambda policy=FP16, kp=kp, vp=vp, quant={}: \
+            fmod.paged_prefill_plain(q, kp, vp, table, start, kv_len,
+                                     beta=BETA, policy=policy, **quant)
+        got, plain = run(), plain_of()
+        torch.cuda.synchronize()
+        err = _close(f"pasa_paged_prefill/{tag}", got, plain, **PREFILL_TOL)
+        if got[3].abs().max() != 0:
+            raise AssertionError(f"pasa_paged_prefill/{tag}: pad row not zero")
+        gold = _prefill_gold(q, kp, vp, table)
+        rmse, rmse_plain = _rel_rmse(got[:3], gold), _rel_rmse(plain[:3], gold)
+        if not (rmse < RMSE_MAX and rmse_plain < RMSE_MAX):
+            raise AssertionError(f"pasa_paged_prefill/{tag} RMSE {rmse:.4f} "
+                                 f"/ plain {rmse_plain:.4f}")
+        mp = table.shape[1]
+        col = torch.arange(mp * page, device=dev)
+        qpos = start[:, None] + torch.arange(cs, device=dev)[None, :]
+        mask = ((col[None, None, :] <= qpos[:, :, None])
+                & (col[None, None, :] < kv_len[:, None, None]))[:, None]
+
+        def library(quant={}, kp=kp, vp=vp):
+            kg, vg = (
+                torch.nan_to_num(pmod._gather_dequant(
+                    x, quant.get(f"{side}_scale"), quant.get(f"{side}_shift"),
+                    table, torch.float16).reshape(b, mp * page, kvh, d)
+                    .movedim(1, 2)).repeat_interleave(g, 1)
+                for side, x in (("k", kp), ("v", vp)))
+            return _cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, kg, vg, attn_mask=mask), 10)
+
+        live = sum(kv_lens)
+        nbytes = (2 * live * kvh * d * 2 + 2 * q.numel() * 2
+                  + table.numel() * 4 + 2 * b * 4)
+        entries.append(_group_entry(
+            "pasa_paged_prefill", tag, arch, kvh, g, max_abs_err=err,
+            rmse=rmse, rmse_plain=rmse_plain, ms=_cuda_time_ms(run, 20),
+            plain_ms=_cuda_time_ms(plain_of, 3, warmup=1),
+            library_ms=library(), **_bound(nbytes, _prefill_flops(h, d))))
+        if g == 4:
+            for dtype in QUANT_DTYPES:
+                kq, vq, quant, valid = _quantize_pool(kp, vp, table, kv_lens,
+                                                      dtype)
+                held, got_q = _check_quant_policies(
+                    f"pasa_paged_prefill/{tag}",
+                    lambda p: run(p, kq, vq, quant),
+                    lambda p: plain_of(p, kq, vq, quant), gold, got, dtype,
+                    PREFILL_TOL, rows=slice(0, 3))
+                kq2, vq2, quant2 = _poison(kq, vq, quant, valid)
+                if not torch.equal(run(FP16, kq2, vq2, quant2), got_q):
+                    raise AssertionError(f"pasa_paged_prefill/{tag}_{dtype}: "
+                                         f"debris changed the output")
+                live_pages = sum(math.ceil(n / page) for n in kv_lens)
+                qbytes = (2 * live * kvh * d + 2 * live_pages * kvh * (1 + d)
+                          * 4 + 2 * q.numel() * 2 + table.numel() * 4
+                          + 2 * b * 4)
+                entries.append(_group_entry(
+                    "pasa_paged_prefill", f"{tag}_{dtype}", arch, kvh, g,
+                    max_abs_err=held["max_abs_err_fp16"],
+                    rmse=held["rmse_fp16"], detail=held,
+                    ms=_cuda_time_ms(lambda: run(FP16, kq, vq, quant), 20),
+                    plain_ms=_cuda_time_ms(
+                        lambda: plain_of(FP16, kq, vq, quant), 3, warmup=1),
+                    library_ms=library(quant, kq, vq),
+                    **_bound(qbytes, _prefill_flops(h, d))))
+        del kp, vp, q
+        if g != 4:
+            continue
+        # shift-KV on qwen3-4b's dense-prefill keys: bf16 (B, S, KVH, D)
+        # read through strides, fp16 operands, block 128
+        b, s = DENSE_BATCH, ATTN_SHAPE[3]
+        k = _randn(rng, (b, s, kvh, d), 5.0, dev,
+                   torch.bfloat16).transpose(1, 2)
+        m = smod.device_matrix(page, d, BETA, torch.float16, dev)
+        run = lambda: ops.shift_kv(k, beta=BETA, block_kv=page, policy=FP16)
+        plain_of = lambda: smod.shift_kv_plain(m, k.half(), page,
+                                               out_dtype=torch.float16)
+        got, plain = run(), plain_of()
+        torch.cuda.synchronize()
+        err = _close(f"shift_kv/{tag}", got, plain, **SHIFT_TOL)
+        kb = k.half().contiguous().reshape(b, kvh, s // page, page, d)
+        rmse = _rel_rmse(got, torch.matmul(m.double(), kb.double())
+                         .reshape(got.shape))
+        if not rmse < SHIFT_RMSE_MAX:
+            raise AssertionError(f"shift_kv/{tag} RMSE {rmse:.2e}")
+        entries.append(_group_entry(
+            "shift_kv", tag, arch, kvh, g, max_abs_err=err, rmse=rmse,
+            ms=_cuda_time_ms(run, 50), plain_ms=_cuda_time_ms(plain_of, 20),
+            library_ms=_cuda_time_ms(lambda: torch.matmul(m, kb), 50),
+            **_bound(k.numel() * 2 + got.numel() * 2 + m.numel() * 2,
+                     2 * page * k.numel())))
+        # causal attention at qwen3-4b's dense prefill
+        q = _randn(rng, (b, h, s, d), 0.0, dev, torch.float16)
+        k = _randn(rng, (b, kvh, s, d), 2.0, dev, torch.float16)
+        v = _randn(rng, (b, kvh, s, d), 0.0, dev, torch.float16)
+        got = ops.pasa_attention(q, k, v, beta=BETA, policy=FP16, causal=True)
+        plain = amod.attention_plain(q, k, v, beta=BETA, policy=FP16,
+                                     block_kv=page, causal=True)
+        torch.cuda.synchronize()
+        err = _close(f"pasa_attention/{tag}", got, plain, **ATTN_CAUSAL_TOL)
+        gold = _gold_attention(q, k, v, True)
+        rmse, rmse_plain = _rel_rmse(got, gold), _rel_rmse(plain, gold)
+        del gold, plain
+        if not (rmse < ATTN_RMSE_MAX and rmse_plain < ATTN_RMSE_MAX):
+            raise AssertionError(f"pasa_attention/{tag} RMSE {rmse:.4f} / "
+                                 f"plain {rmse_plain:.4f}")
+        k_sh = ops.shift_kv(k, beta=BETA, policy=FP16)
+        inva = effective_invariance(page, d, BETA, torch.float16)
+        ke, ve = (x.repeat_interleave(g, 1) for x in (k_sh, v))
+        entries.append(_group_entry(
+            "pasa_attention", tag, arch, kvh, g,
+            max_abs_err=err, rmse=rmse, rmse_plain=rmse_plain,
+            ms=_cuda_time_ms(lambda: amod.kernel_call(
+                q, k_sh, v, beta=BETA, inva=inva, policy=FP16, causal=True,
+                block_q=page, block_kv=page), 20),
+            plain_ms=_cuda_time_ms(lambda: amod.attention_plain(
+                q, k, v, beta=BETA, policy=FP16, block_kv=page, causal=True),
+                3, warmup=1),
+            library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, ke, ve, is_causal=True), 20),
+            **_bound(2 * q.numel() * 2 + 2 * k.numel() * 2,
+                     4 * d * b * h * (s * (s + 1) // 2))))
+        del q, k, v, k_sh, ke, ve
+    torch.cuda.empty_cache()
+    return entries
+
+
+def build_qwen3(dev):
+    """qwen3-4b at full width and depth (36 layers, d 2560, 32 / 8 heads
+    of 128, qk-norm, vocab 151,936) with random weights from seed 0."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build
+
+    bundle = build(get_config("qwen3-4b"))
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    return bundle, params, time.perf_counter() - t0
+
+
+def _dense_prompts(cfg, dev):
+    """serve_dense's prompts (seed 1) on ``dev``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    return torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT), dtype=np.int32)).to(dev)
+
+
+def dense_first_step(dev, bundle, params):
+    """The dense route's first step (the fused prefill's logits on
+    serve_dense's prompts), each time from a fresh cache: through the
+    kernels, through their plain versions at the serve's policy, and
+    through the plain versions at fp32.  Held: the kernels within
+    DENSE_LOGIT_ATOL of the plain versions, and no farther from the fp32
+    ones than DENSE_FP32_RATIO x the plain versions' own distance.
+    Returns the report and the kernels' logits."""
+    import torch
+
+    from repro_torch.core.precision import FP32
+
+    toks = _dense_prompts(bundle.cfg, dev)
+    max_len = DENSE_PROMPT + SERVE_GEN + 8
+    first = lambda: bundle.prefill(
+        params, toks, bundle.init_cache(DENSE_BATCH, max_len, device=dev))[0]
+    kernel = first()
+    with _plain_attention():
+        plain = first()
+    with _plain_attention(FP32):
+        plain32 = first()
+    gap = lambda a, b: float((a - b).abs().max())
+    rep = dict(first_step_logit_err_vs_plain=gap(kernel, plain),
+               first_step_logit_err_vs_fp32_plain=gap(kernel, plain32),
+               plain_logit_err_vs_fp32_plain=gap(plain, plain32),
+               first_step_logit_absmax=float(kernel.abs().max()))
+    if not all(bool(torch.isfinite(x).all()) for x in (kernel, plain, plain32)):
+        raise AssertionError(f"{bundle.cfg.arch_id}: non-finite first-step "
+                             f"logits")
+    if not (rep["first_step_logit_err_vs_plain"] <= DENSE_LOGIT_ATOL
+            and rep["first_step_logit_err_vs_fp32_plain"] <= DENSE_FP32_RATIO
+            * rep["plain_logit_err_vs_fp32_plain"]):
+        raise AssertionError(f"{bundle.cfg.arch_id}: dense first step {rep}")
+    return rep, kernel
+
+
+def dense_vs_paged(dev, bundle, params, dense_streams, dense_first):
+    """The dense route's prompts served by the paged engine (bf16 pool;
+    its chunks shift with the algebraic chunk-exact shift, the dense
+    route's fused prefill with the GEMM, so near-ties may flip).  Held:
+    the two routes' first-step logits (``dense_first``, the paged
+    engine's last prefill call) within DENSE_PAGED_LOGIT_ATOL; the dense
+    route, re-run with the top-2 margin of each step's logits, gives
+    ``dense_streams`` again; each row's greedy stream equals the paged
+    engine's up to its first flip, and the dense margin there is under
+    STREAM_GUARD (two routes within a logit gap g can only part where
+    the margin is under 2 g).  Returns the report."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.runtime import ServeEngine
+
+    prefills = []
+
+    def recorded(*a):
+        logits, pool = bundle.paged_prefill_step(*a)
+        prefills.append(logits)
+        return logits, pool
+
+    toks = _dense_prompts(bundle.cfg, dev)
+    eng = ServeEngine(dataclasses.replace(bundle, paged_prefill_step=recorded),
+                      params, max_batch=DENSE_BATCH, page_size=128,
+                      prefill_chunk=512, prefill_batch=DENSE_BATCH,
+                      num_pages=1 + DENSE_BATCH * math.ceil(
+                          (DENSE_PROMPT + SERVE_GEN - 1) / 128),
+                      max_seq_len=DENSE_PROMPT + SERVE_GEN)
+    reqs = [eng.submit(p, SERVE_GEN) for p in toks.tolist()]
+    eng.run_to_completion()
+    paged = [r.generated for r in reqs]
+    del eng
+    # four prompts of one length: the last call's rows are their last
+    # chunks, in submission order
+    paged_first = prefills[-1][:DENSE_BATCH]
+    if torch.argmax(paged_first, -1).tolist() != [s[0] for s in paged]:
+        raise AssertionError("dense_vs_paged: the paged prefill's logit rows "
+                             "are not the requests' first tokens")
+    step = make_serve_step(bundle)
+    cache = bundle.init_cache(DENSE_BATCH, DENSE_PROMPT + SERVE_GEN + 8,
+                              device=dev)
+    logits, cache = bundle.prefill(params, toks, cache)
+    out, margins = [], []
+    for i in range(DENSE_PROMPT, DENSE_PROMPT + SERVE_GEN):
+        top2 = torch.topk(logits, 2, dim=-1).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+        if i < DENSE_PROMPT + SERVE_GEN - 1:
+            pos = torch.full((DENSE_BATCH,), i, dtype=torch.int32, device=dev)
+            _, logits, cache = step(params, tok, pos, cache)
+    streams = torch.stack(out, 1).tolist()
+    margins = torch.stack(margins, 1).tolist()
+    if streams != [list(s) for s in dense_streams]:
+        raise AssertionError("dense_vs_paged: the dense route's re-run "
+                             "differs from its serve")
+    # each row is compared up to its first flip (past it the two routes
+    # feed different tokens); tokens there whose margin clears the guard
+    # are the ones held
+    before, flips, held = [], [], 0
+    for row, (a, b) in enumerate(zip(streams, paged)):
+        t = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 SERVE_GEN)
+        before.append(t)
+        held += sum(m >= STREAM_GUARD for m in margins[row][:t + 1])
+        if t < SERVE_GEN:
+            flips.append(dict(row=row, step=t, dense_margin=margins[row][t]))
+    gap = float((dense_first - paged_first).abs().max())
+    rep = dict(
+        first_step_logit_err_vs_paged=gap, tokens_before_first_flip=before,
+        flips=flips, tokens_above_guard=held,
+        smallest_dense_margin=min(min(m) for m in margins),
+        tokens_equal_to_paged_bf16=sum(
+            x == y for a, b in zip(streams, paged) for x, y in zip(a, b)))
+    if not (gap <= DENSE_PAGED_LOGIT_ATOL
+            and all(f["dense_margin"] < STREAM_GUARD for f in flips)):
+        raise AssertionError(f"dense_vs_paged: {rep}")
+    return rep
+
+
+def serve_tenant(dev, bundle, params, fcfs_streams):
+    """The paged workload (qwen2-7b, bf16 pool) under TenantQuotaPolicy at
+    its default aging patience, on TENANT_SLOTS decode slots: requests
+    TENANT_LATENCY are tenant "interactive" at class "latency", the
+    others tenant "bulk" at "throughput", submitted first, with
+    TENANT_QUOTA ("bulk" may hold fewer pages than its two requests need
+    together, and gets at most its ``max_step_tokens`` prefill tokens a
+    step); preemption armed at patience 1 on a pool that fits everything.
+    Held: streams equal the FCFS serve's; the latency requests take the
+    slots first (admitted, and given their first token, before any bulk
+    request; in FIFO order the bulk ones would go first); no step grants
+    "bulk" more than its cap or leaves its running requests holding more
+    than its page quota; a bulk request was withheld on the quota while a
+    slot was free, yet 0 preemptions; the per-tenant
+    ``serve.tenant.<t>.*`` counters sum to the ``serve.*`` aggregates; the
+    same serve with speculation (K = SPEC_K, n-gram) and at
+    ``pipeline_depth=1`` gives the same streams.  Every launch checked."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import (
+        ServeEngine,
+        Telemetry,
+        TenantQuota,
+        TenantQuotaPolicy,
+    )
+
+    tag = "serve_tenant_bf16"
+    finite = []
+    bundle = _finite_bundle(bundle, finite)
+    prompts, kw = _paged_workload(bundle.cfg, "bf16")
+    kw.update(max_batch=TENANT_SLOTS, prefill_batch=TENANT_SLOTS)
+    tenant_of = lambda i: "interactive" if i in TENANT_LATENCY else "bulk"
+    cap, quota = TENANT_QUOTA["max_step_tokens"], TENANT_QUOTA["max_pages"]
+    order = sorted(range(len(prompts)), key=lambda i: i in TENANT_LATENCY)
+
+    def run(**extra):
+        policy = TenantQuotaPolicy({"bulk": TenantQuota(**TENANT_QUOTA)})
+        grants, withheld = [], []
+        plan_prefill, plan_admission = policy.plan_prefill, policy.plan_admission
+
+        def recorded(prefilling, **args):
+            plan = plan_prefill(prefilling, **args)
+            tenants = {v.req_id: v.tenant for v in prefilling}
+            step = {}
+            for rid, n in plan:
+                step[tenants[rid]] = step.get(tenants[rid], 0) + n
+            grants.append(step)
+            return plan
+
+        def admission(waiting, running, **args):
+            # a bulk candidate left out of the plan while a slot is free
+            # waits on its quota alone (the pool fits everything)
+            plan = plan_admission(waiting, running, **args)
+            placed = {v.req_id for v in plan}
+            withheld.append(len(running) < TENANT_SLOTS and any(
+                v.tenant == "bulk" and v.req_id not in placed
+                for v in waiting))
+            return plan
+
+        policy.plan_prefill, policy.plan_admission = recorded, admission
+        telemetry = Telemetry(tracing=False, metrics=True)
+        ops.reset_launches()
+        eng = ServeEngine(bundle, params, scheduler=policy, preemption=True,
+                          preempt_patience=1, telemetry=telemetry, **kw,
+                          **extra)
+        reqs = [None] * len(prompts)
+        for i in order:
+            reqs[i] = eng.submit(prompts[i], SERVE_GEN, tenant=tenant_of(i),
+                                 priority="latency" if i in TENANT_LATENCY
+                                 else "throughput")
+        pages = []
+
+        def check():
+            running = [r for r in eng._slots if r is not None]
+            pages.append(sum(r.pages_needed(eng.page_size) for r in running
+                             if r.tenant == "bulk"))
+
+        marks = _drive_calls(eng, check)
+        launches = _check_engine_launches(tag, eng, "bf16")
+        return eng, reqs, marks, launches, grants, pages, withheld, telemetry
+
+    eng, reqs, marks, launches, grants, pages, withheld, telemetry = run()
+    _all_finite(tag, finite)
+    streams = [r.generated for r in reqs]
+    if streams != fcfs_streams:
+        raise AssertionError(f"{tag}: streams differ from the FCFS serve's")
+    bulk_grant = max(step.get("bulk", 0) for step in grants)
+    if bulk_grant > cap or max(pages) > quota:
+        raise AssertionError(f"{tag}: bulk granted {bulk_grant} tokens in a "
+                             f"step (cap {cap}), held {max(pages)} pages "
+                             f"(quota {quota})")
+    if not any(withheld) or eng.preemptions:
+        raise AssertionError(f"{tag}: quota wait {any(withheld)}, "
+                             f"{eng.preemptions} preemptions")
+    steps_of = lambda field, latency: [
+        getattr(r, field) for i, r in enumerate(reqs)
+        if (i in TENANT_LATENCY) == latency]
+    for field in ("admit_step", "first_token_step"):
+        if not max(steps_of(field, True)) < min(steps_of(field, False)):
+            raise AssertionError(f"{tag}: {field} of the latency requests "
+                                 f"{steps_of(field, True)}, of the bulk ones "
+                                 f"{steps_of(field, False)}")
+    snap = telemetry.metrics_snapshot()["counters"]
+    series = {}
+    for leaf, total in (("submitted", "serve.requests_submitted"),
+                        ("finished", "serve.requests_finished"),
+                        ("tokens_emitted", "serve.tokens_emitted")):
+        parts = {t: snap[f"serve.tenant.{t}.{leaf}"]["value"]
+                 for t in ("interactive", "bulk")}
+        if sum(parts.values()) != snap[total]["value"]:
+            raise AssertionError(f"{tag}: {leaf} by tenant {parts} != "
+                                 f"{total} {snap[total]['value']}")
+        series[leaf] = parts
+    wall = marks[-1][0]
+    out = dict(
+        tenants={tenant_of(i): "latency" if i in TENANT_LATENCY
+                 else "throughput" for i in range(len(prompts))},
+        quota=dict(bulk=TENANT_QUOTA),
+        bulk_pages_needed=sum(r.pages_needed(eng.page_size) for r in reqs
+                              if r.tenant == "bulk"),
+        slots=TENANT_SLOTS, submitted=order,
+        admit_step=[r.admit_step for r in reqs],
+        first_token_step=[r.first_token_step for r in reqs],
+        max_bulk_step_grant=bulk_grant, max_bulk_pages=max(pages),
+        quota_waits=sum(withheld), preemptions=eng.preemptions,
+        per_tenant=series, steps=eng.steps, prefill_calls=eng.prefill_calls,
+        decode_calls=eng.decode_calls, launches=launches, wall_s=wall,
+        tok_per_s=SERVE_GEN * len(prompts) / wall,
+        ttft_ms=[1e3 * marks[r.first_token_step][0] for r in reqs],
+        equal_to_fcfs_streams=True)
+    del eng
+    for name, extra in (("spec", dict(speculate=SPEC_K, draft="ngram")),
+                        ("depth_1", dict(pipeline_depth=1))):
+        eng, reqs, marks, launches = run(**extra)[:4]
+        if [r.generated for r in reqs] != streams:
+            raise AssertionError(f"{tag}/{name}: streams differ")
+        out[name] = dict(steps=eng.steps, verify_calls=eng.verify_calls,
+                         spec=eng.stats()["spec"], launches=launches,
+                         wall_s=marks[-1][0], equal=True)
+        del eng
+    _all_finite(tag, finite)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3535,6 +4206,7 @@ def main() -> int:
         print(f"serve_{dtype}: " + json.dumps(rq))
         reps[dtype] = rq
     rep_dense = serve_dense(dev, bundle, params)
+    rep_dense.update(dense_first_step(dev, bundle, params)[0])
     print("serve_dense: " + json.dumps(rep_dense))
     # the reference's attention switch at its default policy: impl="flash"
     # (FlashAttention-2 at bf16_fp32) with the same weights, on the paged
@@ -3598,6 +4270,12 @@ def main() -> int:
     del async_pools
     torch.cuda.empty_cache()
     print(f"async and telemetry: {time.perf_counter() - t_async:.1f} s")
+    # phase 11, first part: the tenant policy on qwen2-7b's weights,
+    # driven with the launch counts set to 0 just before each serve
+    t_tenant = time.perf_counter()
+    print("serve_tenant_bf16: " + json.dumps(serve_tenant(
+        dev, bundle, params, reps["bf16"]["streams"])))
+    tenant_s = time.perf_counter() - t_tenant
     # the hybrid family (zamba2-1.2b) on the token-by-token dense route,
     # driven with the launch counts set to 0 just before it
     t_hybrid = time.perf_counter()
@@ -3614,6 +4292,37 @@ def main() -> int:
     rep_whisper = serve_whisper(dev)
     print("serve_whisper: " + json.dumps(rep_whisper))
     print(f"whisper: {time.perf_counter() - t_whisper:.1f} s")
+    # phase 11: the kernels at the dense configs' GQA groups, then
+    # qwen3-4b on both routes, each serve driven with the launch counts
+    # set to 0 just before it
+    t_q3 = time.perf_counter()
+    torch.cuda.empty_cache()
+    groups = check_groups(dev)
+    for k in groups:
+        print(f"{k['name']} ({k['arch']}, KVH {k['kvh']}, G {k['group']}): "
+              f"max_abs_err {k['max_abs_err']:.3e}, rmse {k['rmse']:.2e}, "
+              f"{k['ms']:.4f} ms vs plain {k['plain_ms']:.3f} ms, library "
+              f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']})")
+    q3, q3_params, q3_init = build_qwen3(dev)
+    print(f"qwen3-4b weights: {q3_init:.1f} s")
+    q3_reps = {}
+    for dtype in ("bf16", *QUANT_DTYPES):
+        q3_reps[dtype] = serve(dev, q3, q3_params, cache_dtype=dtype,
+                               alone=QWEN3_ALONE)
+        print(f"serve_qwen3_4b_{dtype}: " + json.dumps(q3_reps[dtype]))
+    q3_dense = serve_dense(dev, q3, q3_params, alone=QWEN3_ALONE)
+    gaps, q3_first = dense_first_step(dev, q3, q3_params)
+    q3_dense.update(gaps)
+    q3_dense.update(dense_vs_paged(dev, q3, q3_params, q3_dense["streams"],
+                                   q3_first))
+    print("serve_qwen3_4b_dense: " + json.dumps(q3_dense))
+    print("serve_qwen3_4b_tbt: " + json.dumps(serve_tbt(
+        dev, q3, q3_params, lens=QWEN3_TBT_PROMPTS)))
+    del q3, q3_params
+    torch.cuda.empty_cache()
+    print(f"phase 11: {tenant_s + time.perf_counter() - t_q3:.1f} s "
+          f"(tenant {tenant_s:.1f} s)")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each mode of shift-KV has the dense serve's count of that mode (0 for
@@ -3677,6 +4386,20 @@ def main() -> int:
         line.append(_mode_entry(name, [
             k for k in kernels if "whisper_mode" in k
             and k["name"].startswith(f"{name}/d64_")], keys))
+    # the GQA group entries: at G 4 the qwen3-4b serve's count (the paged
+    # kernels that of the pool in the tag), 0 at the groups no serve runs
+    for k in groups:
+        name, _, tag = k["name"].partition("/")
+        if k["group"] != 4:
+            k["launches"] = 0
+            continue
+        rep_q3 = (q3_reps[tag.partition("_")[2] or "bf16"]
+                  if name.startswith("pasa_paged_") else q3_dense)
+        k["launches"] = rep_q3["launches"][name]
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']} was not launched on its "
+                                 f"qwen3-4b serve")
+    line += [{key: k[key] for key in keys} for k in groups]
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,10 @@ from repro_torch.configs.base import AttentionConfig, ModelConfig, SSMConfig
 
 _ID_TO_MODULE = {
     "qwen2-7b": "qwen2_7b",
+    "qwen3-4b": "qwen3_4b",
+    "qwen3-14b": "qwen3_14b",
+    "qwen3-32b": "qwen3_32b",
+    "qwen1.5-32b": "qwen1_5_32b",
     "zamba2-1.2b": "zamba2_1_2b",
     "whisper-large-v3": "whisper_large_v3",
 }

@@ -31,10 +31,11 @@ class AttentionConfig:
     pasa_policy: str = "fp16"     # policy when impl == "pasa" (paper: fully fp16)
     block_kv: int = 128           # PASA shift block == KV page size
     # The dense prefill shifts K with the paper's batched-GEMM M (the
-    # algebraic shift there is not ported: False raises), and attends with
-    # K/V expanded to the query heads in the plain version (the reference's
-    # layout; the grouped layout is not ported: False raises).  The card's
-    # kernels map each query head to its kv head, with the same result.
+    # algebraic shift there has no kernel: False raises, ROADMAP A12b), and
+    # its plain version attends with K/V expanded to the query heads
+    # (True, the reference's default) or in the grouped (B, KVH, G, S, hd)
+    # layout (False).  The card's kernel maps each query head to its kv
+    # head in both.
     use_gemm_shift: bool = True
     expand_kv: bool = True
     # Scale statistic of quantized KV pools (runtime/paged_cache.py

@@ -50,6 +50,7 @@ from repro_torch.core.shifting import (
     shift_kv_blocks,
     shift_kv_reference,
     shifting_matrix,
+    shifting_matrix_inverse,
 )
 
 __all__ = [
@@ -63,5 +64,5 @@ __all__ = [
     "pasa_attention", "practical_invariance", "prepare_blocks",
     "reduce_dtype", "resonance_index", "rmse", "score_overflow_probe",
     "shift_kv_blocks", "shift_kv_reference", "shifting_matrix",
-    "solve_paper_betas", "update_state",
+    "shifting_matrix_inverse", "solve_paper_betas", "update_state",
 ]

@@ -47,6 +47,21 @@ def shifting_matrix(s2: int, d: int, beta: float,
     return _round_from_f64(m, dtype)
 
 
+def shifting_matrix_inverse(s2: int, d: int, beta: float,
+                            dtype: torch.dtype = torch.float64
+                            ) -> torch.Tensor:
+    """Closed-form inverse of M (Theorem 2.1): M = (I - lam J) / alpha with
+    lam = beta / s2 gives M^-1 = alpha (I + lam / (1 - lam s2) J).
+    Raises ValueError at beta == 1, where M is singular."""
+    if beta == 1.0:
+        raise ValueError("M is singular at beta == 1 (Theorem 2.1)")
+    lam = beta / s2
+    alpha = math.sqrt(d)
+    eye = torch.eye(s2, dtype=dtype)
+    ones = torch.ones((s2, s2), dtype=dtype)
+    return alpha * (eye + (lam / (1.0 - lam * s2)) * ones)
+
+
 def effective_invariance(s2: int, d: int, beta: float,
                          dtype: torch.dtype = torch.float16) -> float:
     """The invariance the STORED M realizes, alpha fold-in included.

@@ -2,7 +2,8 @@
 
 Builds ``--arch`` (qwen2-7b by default; full width, ``--layers`` cuts
 depth) with random weights and profiles the device calls of its serving
-routes.  qwen2-7b, both routes:
+routes.  The dense family (qwen2-7b, qwen3-4b, ...; the two 32B configs
+need ``--layers`` to fit one card), both routes:
 
   * paged: four prompts of 1000/517/300/129 tokens prefilled in 512-token
     chunks through ``prefill_step_paged`` exactly as ``ServeEngine``
@@ -20,7 +21,7 @@ call profiled as such), its output written into the cache's ``enc_out``,
 four prompts of 64 tokens fed through ``serve_step`` into a 104-row
 cache, then the decode call (``whisper_decode``) from kv 66.
 
-``--speculate K`` (qwen2-7b) adds the paged route's verify call
+``--speculate K`` (the dense family) adds the paged route's verify call
 (``runtime.engine.paged_verify_step``, what ``ServeEngine(speculate=K)``
 runs as its decode when a row has drafts): K + 1 chained
 ``serve_step_paged`` sub-steps with every row drafting K tokens (the
@@ -28,7 +29,7 @@ model's own previous choice repeated, so most are rejected and rolled
 back), profiled as ``verify`` beside the plain decode call at the same
 batch and pool.
 
-``--engine-steps N`` (qwen2-7b) profiles the paged ENGINE instead of
+``--engine-steps N`` (the dense family) profiles the paged ENGINE instead of
 bare calls: ``ServeEngine`` serves the four paged prompts at each
 ``--pipeline-depth`` (0 = synchronous, 1 = async; both by default).  Two
 windows per depth, each ended by ``drain()`` and a synchronize: the first
@@ -54,6 +55,8 @@ of the unprofiled wall time, and writes the Chrome traces under ``--out``.
 Run on one card from the repository root:
   PYTHONPATH=src python -m repro_torch.launch.profile_steps --out build/profile
   PYTHONPATH=src python -m repro_torch.launch.profile_steps \
+      --arch qwen3-4b --out build/profile_qwen3
+  PYTHONPATH=src python -m repro_torch.launch.profile_steps \
       --arch zamba2-1.2b --out build/profile_hybrid
   PYTHONPATH=src python -m repro_torch.launch.profile_steps \
       --arch whisper-large-v3 --out build/profile_whisper
@@ -75,6 +78,8 @@ import math
 import time
 import warnings
 from pathlib import Path
+
+from repro_torch.configs import ALL_ARCHS
 
 PROMPTS = (1000, 517, 300, 129)
 CHUNK = 512
@@ -217,8 +222,7 @@ def _profile(fn, n_calls: int, trace: Path) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="qwen2-7b",
-                    choices=("qwen2-7b", "zamba2-1.2b", "whisper-large-v3"))
+    ap.add_argument("--arch", default="qwen2-7b", choices=ALL_ARCHS)
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to N layers (default: all)")
     ap.add_argument("--decode-calls", type=int, default=5)
@@ -230,11 +234,11 @@ def main(argv=None):
                          "leaves the dense route out)")
     ap.add_argument("--speculate", type=int, default=0, metavar="K",
                     help="also profile the paged route's verify call with "
-                         "K drafts per row (qwen2-7b)")
+                         "K drafts per row (the dense family)")
     ap.add_argument("--engine-steps", type=int, default=0, metavar="N",
                     help="profile the paged engine's first step and N "
                          "steady decode steps instead of bare calls "
-                         "(qwen2-7b)")
+                         "(the dense family)")
     ap.add_argument("--pipeline-depth", type=int, nargs="+", default=[0, 1],
                     choices=(0, 1),
                     help="--engine-steps: the engine's pipeline depths "

@@ -17,7 +17,9 @@ reference does), then serves them on one of two routes:
     chunked prefill (default) or token by token (``--no-chunked-prefill``),
     with the radix prefix cache (``--prefix-cache``), preemption
     (``--preemption``, ``--preempt-patience``), a scheduling policy
-    (``--scheduler fcfs|sjf|mixed``), a per-step token budget
+    (``--scheduler fcfs|sjf|mixed|tenant``, with ``--tenant-quotas``
+    for the tenant policy; every request is the default tenant's, as in
+    the reference's CLI), a per-step token budget
     (``--step-token-budget``), sampling (``--temperature``, ``--top-k``,
     ``--sample-seed``; 0 = greedy) and self-speculative decoding
     (``--speculate K``, ``--draft ngram``), the last two on this route
@@ -52,6 +54,9 @@ CPU smoke at the reduced config:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
       --reduced --paged --batch 4 --prompt-len 16 --gen 8 --speculate 3 \
       --temperature 0.8 --top-k 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
+      --reduced --paged --page-size 8 --batch 4 --prompt-len 40 --gen 8 \
+      --scheduler tenant --tenant-quotas 'default=12:16' --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
       --reduced --paged --page-size 8 --batch 4 --prompt-len 40 --gen 12 \
       --prefix-cache --async --stream --disconnect-after 4 \
@@ -64,6 +69,38 @@ import argparse
 import dataclasses
 import math
 import time
+
+
+def parse_tenant_quotas(spec):
+    """Parse a ``--tenant-quotas`` spec into ``{tenant: TenantQuota}``:
+    comma-separated ``tenant=max_pages[:max_step_tokens]`` entries, an
+    empty field meaning unlimited, e.g. ``bulk=8:32,interactive=16,
+    best-effort=:64``."""
+    from repro_torch.runtime import TenantQuota
+
+    quotas = {}
+    for entry in spec.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        name, sep, body = entry.partition("=")
+        name = name.strip()
+        if not sep or not name:
+            raise ValueError(
+                f"bad --tenant-quotas entry {entry!r}: expected "
+                "tenant=max_pages[:max_step_tokens]"
+            )
+        pages_s, _, toks_s = body.partition(":")
+        try:
+            max_pages = int(pages_s) if pages_s.strip() else None
+            max_toks = int(toks_s) if toks_s.strip() else None
+        except ValueError:
+            raise ValueError(
+                f"bad --tenant-quotas entry {entry!r}: fields must be ints"
+            ) from None
+        quotas[name] = TenantQuota(max_pages=max_pages,
+                                   max_step_tokens=max_toks)
+    return quotas
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -99,12 +136,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-row chunk width of the batched prefill call; "
                          "a multiple of the page size (default: 8 pages)")
     ap.add_argument("--scheduler", default="fcfs",
-                    choices=("fcfs", "sjf", "mixed"),
+                    choices=("fcfs", "sjf", "mixed", "tenant"),
                     help="paged route: scheduling policy - fcfs (arrival "
                          "order, head-of-line blocking; default), sjf "
                          "(shortest-job-first, aging guard), mixed "
-                         "(fair-share token-budget mixing); outputs are "
+                         "(fair-share token-budget mixing), tenant "
+                         "(per-tenant quotas and latency / throughput "
+                         "classes; see --tenant-quotas); outputs are "
                          "identical across policies")
+    ap.add_argument("--tenant-quotas", default=None, metavar="SPEC",
+                    help="per-tenant quotas for --scheduler tenant: "
+                         "comma-separated tenant=max_pages[:max_step_"
+                         "tokens] entries, e.g. 'bulk=8:32,interactive=16'"
+                         " (empty field = unlimited)")
     ap.add_argument("--prefill-batch", type=int, default=None,
                     help="still-prefilling requests per prefill call "
                          "(default: --batch)")
@@ -317,6 +361,16 @@ def _serve_paged(args, bundle, params, prompts, dev):
     page_size = bundle.cfg.attention.block_kv
     total = args.prompt_len + args.gen
     num_pages = args.num_pages or math.ceil(total / page_size) * args.batch + 1
+    scheduler = args.scheduler
+    if args.tenant_quotas is not None:
+        if args.scheduler != "tenant":
+            raise ValueError("--tenant-quotas requires --scheduler tenant")
+        from repro_torch.runtime import TenantQuotaPolicy
+
+        scheduler = TenantQuotaPolicy(
+            parse_tenant_quotas(args.tenant_quotas),
+            patience=max(args.preempt_patience, 1),
+        )
     # telemetry: one per serve, its layers switched by the flags
     telemetry = None
     if args.trace or args.metrics or args.numerics_probe:
@@ -341,7 +395,7 @@ def _serve_paged(args, bundle, params, prompts, dev):
         page_size=page_size, max_seq_len=total,
         chunked_prefill=args.chunked_prefill,
         prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
-        cache_dtype=args.kv_dtype, scheduler=args.scheduler,
+        cache_dtype=args.kv_dtype, scheduler=scheduler,
         prefill_batch=args.prefill_batch,
         step_token_budget=args.step_token_budget,
         preemption=args.preemption, preempt_patience=args.preempt_patience,

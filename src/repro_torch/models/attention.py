@@ -4,9 +4,12 @@ no-cache branch (whole sequences, self- or cross-attention).
 Counterpart of ``repro.models.attention.attention``, with its ``causal``,
 ``use_rope`` and ``cross_x`` arguments: K/V come from ``cross_x`` when it
 is given (cross-attention, no RoPE), from ``x`` otherwise; RoPE is skipped
-when ``use_rope`` is False.  Every cache branch writes the
-step's K/V into the layer's cache IN PLACE first and then attends with a
-kernel op - a cache is never gathered, cast or copied on the card:
+when ``use_rope`` is False.  With ``cfg.qk_norm`` (qwen3) q and k are
+RMS-normalized per head (``q_norm`` / ``k_norm``, width head_dim) after
+the QKV bias and before RoPE, as in the reference.  Every cache branch
+writes the step's K/V into the layer's cache IN PLACE first and then
+attends with a kernel op - a cache is never gathered, cast or copied on
+the card:
 
   * dense prefill (``prefill_cache=True``, no page table): the prompt's
     K/V go to cache rows ``[0, S)``; attention is over the fresh K/V,
@@ -76,7 +79,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.naive import naive_attention
 from repro_torch.core.precision import PrecisionPolicy, get_policy
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, matmuls, rope_angles
+from repro_torch.models.layers import apply_rope, matmuls, rms_norm, rope_angles
 from repro_torch.runtime.paged_cache import (
     NULL_PAGE,
     dequantize_kv_page,
@@ -126,6 +129,9 @@ def attention(
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s_kv, kvh, hd)
     v = v.reshape(b, s_kv, kvh, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
 
     # RoPE at per-row absolute positions pos + [0, S)
     if pos is None:
@@ -181,12 +187,14 @@ def _dense_prefill(q, k, v, cfg: ModelConfig, cache: Optional[dict], *,
     """Write rows [0, S) of the dense cache (if any), then attention over
     the fresh K/V, causal or not: GEMM-shift PASA, FlashAttention-2 or
     naive.  q (B, S1, H, hd), k/v (B, S2, KVH, hd) (S2 != S1 only for
-    cross-attention, without a cache)."""
+    cross-attention, without a cache).  ``expand_kv`` (the reference's
+    K/V layout flag) changes nothing here: the op reads K/V at KVH heads
+    and maps query head h to kv head h // G in either layout."""
     ac = cfg.attention
-    if not (ac.use_gemm_shift and ac.expand_kv):
+    if not ac.use_gemm_shift:
         raise NotImplementedError(
-            "the dense prefill is ported for use_gemm_shift=True, "
-            "expand_kv=True (the reference's defaults) only"
+            "the algebraic-shift dense prefill (use_gemm_shift=False) is not "
+            "ported: no kernel computes it (ROADMAP A12b)"
         )
     b, s, h, hd = q.shape
     s2, kvh = k.shape[1], k.shape[2]

@@ -7,7 +7,8 @@ Both produce the layout of the reference's ``transformer.init_lm``::
     {"embed": (V, D), "final_norm": (D,), "lm_head": (D, V),
      "blocks": {"ln1", "ln2": (L, D),
                 "attn": {"wq": (L, D, H*hd), "wk"/"wv": (L, D, KVH*hd),
-                         "wo": (L, H*hd, D), "bq"/"bk"/"bv": (L, n)},
+                         "wo": (L, H*hd, D), "bq"/"bk"/"bv": (L, n),
+                         "q_norm"/"k_norm": (L, hd)},
                 "mlp": {"w1"/"w3": (L, D, F), "w2": (L, F, D)}}}
 
 or of its ``hybrid.init_hybrid`` (Di = expand * D, NH = Di / head_p,
@@ -129,6 +130,9 @@ class _Draw:
             attn["bq"] = self.const(stack(cfg.q_dim), 0.0)
             attn["bk"] = self.const(stack(cfg.kv_dim), 0.0)
             attn["bv"] = self.const(stack(cfg.kv_dim), 0.0)
+        if cfg.qk_norm:
+            attn["q_norm"] = self.const(stack(cfg.head_dim), 1.0)
+            attn["k_norm"] = self.const(stack(cfg.head_dim), 1.0)
         return attn
 
     def mlp(self, d, f, n_stack=None) -> dict:

@@ -1,6 +1,7 @@
 """build(cfg) -> ModelBundle (counterpart of ``repro.models.model_zoo``).
 
-Three families are ported.  The dense family has both serving routes: the
+Three families are ported.  The dense family (qwen2-7b, the qwen3 configs
+with qk-norm, qwen1.5-32b) has both serving routes: the
 dense route (``launch/serve.py``) needs ``init_cache``, ``serve_step``
 and ``prefill``; the paged engine ``init_paged_cache``,
 ``paged_serve_step`` and ``paged_prefill_step``.  The hybrid family
@@ -58,8 +59,6 @@ class ModelBundle:
 
 def build(cfg: ModelConfig) -> ModelBundle:
     cfg.validate()
-    if cfg.qk_norm:
-        raise NotImplementedError("qk-norm attention is not ported yet")
     if cfg.family == "hybrid":
         return ModelBundle(
             cfg=cfg,

@@ -29,12 +29,16 @@ from repro_torch.runtime.paged_cache import (
 )
 from repro_torch.runtime.prefix_cache import RadixPrefixCache
 from repro_torch.runtime.scheduler import (
+    DEFAULT_TENANT,
     POLICIES,
+    PRIORITY_CLASSES,
     FCFSPolicy,
     MixedPolicy,
     RequestView,
     SchedulerPolicy,
     SJFPolicy,
+    TenantQuota,
+    TenantQuotaPolicy,
     get_scheduler,
 )
 from repro_torch.runtime.spec_decode import (
@@ -56,12 +60,14 @@ from repro_torch.runtime.telemetry import (
 )
 
 __all__ = [
-    "CANCELLED", "Counter", "DRAFTERS", "DraftProposer", "FCFSPolicy",
+    "CANCELLED", "Counter", "DEFAULT_TENANT", "DRAFTERS", "DraftProposer", "FCFSPolicy",
     "FINISHED", "Gauge", "Histogram", "MetricsRegistry", "MixedPolicy", "NULL_PAGE",
     "NgramProposer", "NumericsProbe", "POLICIES", "POOL_DTYPES",
+    "PRIORITY_CLASSES",
     "PageAllocator", "QMAX", "RUNNING", "RadixPrefixCache", "Request",
     "RequestView", "SJFPolicy", "STATS_SCHEMA", "SchedulerPolicy",
-    "ServeEngine", "StepTracer", "Telemetry", "TraceEvent", "WAITING",
+    "ServeEngine", "StepTracer", "Telemetry", "TenantQuota",
+    "TenantQuotaPolicy", "TraceEvent", "WAITING",
     "aggregate_snapshots", "chunked_cold_reference",
     "dense_greedy_reference", "dequantize_kv_page", "gather_pages",
     "gather_pages_dequant", "get_drafter", "get_scheduler", "init_paged_pool",

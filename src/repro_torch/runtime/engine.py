@@ -125,8 +125,14 @@ accepted count.
 (threaded through the allocator and the prefix cache) and the numerics
 probe, at the reference's sites.  Bit-neutral: every hook reads host
 state the engine keeps anyway, and the probe reads the pool at a drain
-point.  The tenant policy and the mesh branches of the reference are not
-ported yet.
+point.  The mesh branches of the reference are not ported yet.
+
+**Tenants** (``submit(tenant=, priority=)``): host-only labels read by
+the tenant policy (``scheduler="tenant"``, :class:`~repro_torch.runtime
+.scheduler.TenantQuotaPolicy`) and by the per-tenant telemetry series.
+Nothing tenant-shaped reaches the device, so a tenant's tokens are the
+same under any quota; a quota-withheld request is never tried for
+admission, so it is never page-starved and never triggers preemption.
 """
 
 from __future__ import annotations
@@ -150,7 +156,12 @@ from repro_torch.runtime.paged_cache import (
     touched_pages,
 )
 from repro_torch.runtime.prefix_cache import RadixPrefixCache
-from repro_torch.runtime.scheduler import RequestView, get_scheduler
+from repro_torch.runtime.scheduler import (
+    DEFAULT_TENANT,
+    PRIORITY_CLASSES,
+    RequestView,
+    get_scheduler,
+)
 from repro_torch.runtime.spec_decode import get_drafter
 from repro_torch.runtime.telemetry import Telemetry, _drain_point
 
@@ -369,6 +380,9 @@ class Request:
     # retirement; the accepted count is on the device, so the request sits
     # the plans out meanwhile (its cursor and ``generated`` frozen)
     verifying: bool = False
+    # tenant attribution: quota accounting, priority class, telemetry
+    tenant: str = DEFAULT_TENANT
+    priority: str = "throughput"
 
     @property
     def total_len(self) -> int:
@@ -625,18 +639,30 @@ class ServeEngine:
     # ------------------------------------------------------------- queue --
 
     def submit(self, prompt, max_new_tokens: int,
-               req_id: Optional[int] = None) -> Request:
+               req_id: Optional[int] = None, *,
+               tenant: str = DEFAULT_TENANT,
+               priority: str = "throughput") -> Request:
         """Enqueue a request; admission happens inside :meth:`step`.
-        Raises ValueError for a request that could never be served."""
+        ``tenant`` and ``priority`` (one of ``PRIORITY_CLASSES``) are read
+        by the tenant policy and the per-tenant telemetry only.  Raises
+        ValueError for a bad label or a request that could never be
+        served."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if not tenant or not isinstance(tenant, str):
+            raise ValueError(f"tenant must be a non-empty string: {tenant!r}")
+        if priority not in PRIORITY_CLASSES:
+            raise ValueError(
+                f"priority must be one of {PRIORITY_CLASSES}, got {priority!r}"
+            )
         if req_id is None:
             req_id = self._req_counter
         self._req_counter = max(self._req_counter + 1, req_id + 1)
-        r = Request(req_id=req_id, prompt=prompt, max_new_tokens=max_new_tokens)
+        r = Request(req_id=req_id, prompt=prompt, max_new_tokens=max_new_tokens,
+                    tenant=tenant, priority=priority)
         if r.total_len > self.max_seq_len:
             raise ValueError(
                 f"request needs {len(prompt)} prompt + {max_new_tokens} new "
@@ -651,7 +677,8 @@ class ServeEngine:
         r.submit_step = self.steps
         self.waiting.append(r)
         if self.telemetry is not None:
-            self.telemetry.on_submit(r.req_id, self.steps)
+            self.telemetry.on_submit(r.req_id, self.steps, tenant=r.tenant,
+                                     priority=r.priority)
         return r
 
     def _view(self, r: Request) -> RequestView:
@@ -673,6 +700,8 @@ class ServeEngine:
             preempt_count=r.preempt_count,
             preempt_step=r.preempt_step,
             pending_tokens=r.pending,
+            tenant=r.tenant,
+            priority=r.priority,
         )
 
     # --------------------------------------------------------- admission --
@@ -863,7 +892,7 @@ class ServeEngine:
         self.preemptions += 1
         self.waiting.append(r)
         if self.telemetry is not None:
-            self.telemetry.on_preempt(r.req_id, self.steps)
+            self.telemetry.on_preempt(r.req_id, self.steps, tenant=r.tenant)
 
     def _finish(self, r: Request, step: Optional[int] = None) -> None:
         """Finish a request; ``step`` stamps a finish decided at retirement
@@ -874,7 +903,8 @@ class ServeEngine:
         r.finish_step = self.steps if step is None else step
         self.finished[r.req_id] = r
         if self.telemetry is not None:
-            self.telemetry.on_finish(r.req_id, r.finish_step)
+            self.telemetry.on_finish(r.req_id, r.finish_step,
+                                     tenant=r.tenant)
 
     def _account_step_tokens(self, n: int) -> None:
         self.last_step_tokens = int(n)
@@ -913,15 +943,18 @@ class ServeEngine:
         vals = st.host.tolist() if st.host is not None else []
         tel = self.telemetry
         emitted = 0
+        by_tenant: Dict[str, int] = {}
         for r, gen_idx, at in st.emits:
             tok = int(vals[at])
             r.generated[gen_idx] = tok
             r.pending -= 1
             emitted += 1
+            by_tenant[r.tenant] = by_tenant.get(r.tenant, 0) + 1
             if gen_idx == 0 and r.first_token_step < 0:
                 r.first_token_step = st.step_no
                 if tel is not None:
-                    tel.on_first_token(r.req_id, r.submit_step, st.step_no)
+                    tel.on_first_token(r.req_id, r.submit_step, st.step_no,
+                                       tenant=r.tenant)
             if self.on_token is not None:
                 self.on_token(r, gen_idx, tok)
         for r, k, g_at, m_at in st.spec_rows:
@@ -931,6 +964,7 @@ class ServeEngine:
                 tok = int(vals[g_at + j])
                 r.generated.append(tok)
                 emitted += 1
+                by_tenant[r.tenant] = by_tenant.get(r.tenant, 0) + 1
                 if self.on_token is not None:
                     self.on_token(r, gen_idx0 + j, tok)
             r.cursor += m
@@ -948,7 +982,7 @@ class ServeEngine:
             if len(r.generated) >= r.max_new_tokens:
                 self._finish(r, step=st.step_no)
         if emitted and tel is not None:
-            tel.on_tokens_emitted(emitted)
+            tel.on_tokens_emitted(emitted, by_tenant=by_tenant)
 
     def _retire_backlog(self) -> None:
         """Retire down to ``pipeline_depth`` steps in flight (the tail of

@@ -1,5 +1,5 @@
 """Scheduling policies of the paged serving engine (counterpart of
-``repro.runtime.scheduler``; the tenant-quota policy is not ported yet).
+``repro.runtime.scheduler``).
 
 The engine owns the mechanism - slots, pages, the two device calls,
 preemption - and asks a :class:`SchedulerPolicy` for every decision: the
@@ -22,12 +22,23 @@ its chunk schedule, and a decode step reads only its own page-table row.
   * :class:`MixedPolicy` (``"mixed"``): FCFS admission; the step's
     prefill budget is dealt round-robin in page-size quanta across every
     prefilling request.
+  * :class:`TenantQuotaPolicy` (``"tenant"``): per-tenant page and token
+    quotas and two priority classes (``"latency"`` admitted and prefilled
+    first; ``"throughput"`` kept from starving by the aging guard), with
+    a class-aware preemption victim.  Quotas shape when a tenant's tokens
+    arrive, never which tokens.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+#: Priority classes a request may declare at submit time: ``"latency"``
+#: goes ahead of ``"throughput"`` (the default, and the preferred
+#: preemption victim class).
+PRIORITY_CLASSES = ("latency", "throughput")
+DEFAULT_TENANT = "default"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +64,9 @@ class RequestView:
     #: engine step of the most recent page-out (-1 = never preempted).
     preempt_step: int = -1
     pending_tokens: int = 0
+    #: tenant attribution (quota accounting and priority ordering).
+    tenant: str = DEFAULT_TENANT
+    priority: str = "throughput"
 
     @property
     def wait_anchor(self) -> int:
@@ -259,7 +273,162 @@ class MixedPolicy(SchedulerPolicy):
                 if alloc[v.req_id] > 0]
 
 
-POLICIES = {"fcfs": FCFSPolicy, "sjf": SJFPolicy, "mixed": MixedPolicy}
+@dataclasses.dataclass(frozen=True)
+class TenantQuota:
+    """Resource ceilings of one tenant (None = unlimited).
+
+    ``max_pages`` caps the KV pages the tenant's running requests hold at
+    once, counted at the ``pages_needed`` the engine charges on
+    admission; ``max_step_tokens`` caps the prefill (and draft) tokens
+    granted to the tenant in one engine step."""
+
+    max_pages: Optional[int] = None
+    max_step_tokens: Optional[int] = None
+
+    def __post_init__(self):
+        if self.max_pages is not None and self.max_pages < 1:
+            raise ValueError(f"max_pages must be >= 1, got {self.max_pages}")
+        if self.max_step_tokens is not None and self.max_step_tokens < 1:
+            raise ValueError(
+                f"max_step_tokens must be >= 1, got {self.max_step_tokens}"
+            )
+
+
+class TenantQuotaPolicy(SchedulerPolicy):
+    """Multi-tenant scheduling: quotas and priority classes.
+
+    Admission (:meth:`plan_admission`): candidates whose wait reaches
+    ``patience`` steps go first in FIFO order (from ``wait_anchor``),
+    whatever their class; then the ``"latency"`` class, then
+    ``"throughput"``, FIFO within each.  A candidate that would lift its
+    tenant's running page footprint above ``max_pages`` is withheld (not
+    returned); the pass charges each returned candidate in turn, so one
+    step cannot overshoot a quota.  A withheld request is not
+    page-starved: quota waits never trigger preemption.
+
+    Prefill: latency class first, then fewest remaining tokens, each
+    tenant's grants in a step capped at ``max_step_tokens`` (page-aligned
+    as the base plan's).  Speculation: latency class first, each tenant's
+    drafts capped the same way.  Preemption victim: never-preempted first
+    (the base policy's anti-thrash rule), then throughput over latency,
+    then the largest page footprint, then the youngest-admitted."""
+
+    name = "tenant"
+    hol_blocking = False
+
+    def __init__(self, quotas: Optional[Mapping[str, TenantQuota]] = None,
+                 patience: int = 64):
+        if patience < 1:
+            raise ValueError(f"patience must be >= 1, got {patience}")
+        self.patience = int(patience)
+        self.quotas: Dict[str, TenantQuota] = {}
+        for tenant, q in (quotas or {}).items():
+            if not isinstance(q, TenantQuota):
+                q = TenantQuota(**dict(q))
+            self.quotas[str(tenant)] = q
+
+    def _class_rank(self, v: RequestView) -> int:
+        return 0 if v.priority == "latency" else 1
+
+    def _cap(self, tenant: str, field: str) -> Optional[int]:
+        quota = self.quotas.get(tenant)
+        return None if quota is None else getattr(quota, field)
+
+    def admission_order(self, waiting, now: int = 0):
+        starved = [v for v in waiting if now - v.wait_anchor >= self.patience]
+        fresh = [v for v in waiting if now - v.wait_anchor < self.patience]
+        starved.sort(key=lambda v: (v.wait_anchor, v.req_id))
+        fresh.sort(
+            key=lambda v: (self._class_rank(v), v.wait_anchor, v.req_id)
+        )
+        return starved + fresh
+
+    def plan_admission(self, waiting, running, now: int = 0):
+        used: Dict[str, int] = {}
+        for v in running:
+            used[v.tenant] = used.get(v.tenant, 0) + v.pages_needed
+        plan: List[RequestView] = []
+        for v in self.admission_order(waiting, now=now):
+            cap = self._cap(v.tenant, "max_pages")
+            if cap is not None and used.get(v.tenant, 0) + v.pages_needed > cap:
+                continue
+            # charged as if admitted: later candidates of the same tenant
+            # in this pass see its footprint
+            used[v.tenant] = used.get(v.tenant, 0) + v.pages_needed
+            plan.append(v)
+        return plan
+
+    def prefill_order(self, prefilling):
+        return sorted(
+            prefilling,
+            key=lambda v: (self._class_rank(v), v.remaining_prefill, v.req_id),
+        )
+
+    def plan_prefill(self, prefilling, *, n_decode, budget, chunk,
+                     page_size, max_rows):
+        left = None if budget is None else max(budget - n_decode, 0)
+        spent: Dict[str, int] = {}
+        plan: List[PrefillGrant] = []
+        for v in self.prefill_order(prefilling):
+            if len(plan) >= max_rows or (left is not None and left <= 0):
+                break
+            allow = min(chunk, v.remaining_prefill)
+            if left is not None and allow > left:
+                allow = left
+            cap = self._cap(v.tenant, "max_step_tokens")
+            if cap is not None:
+                allow = min(allow, cap - spent.get(v.tenant, 0))
+            allow = _aligned(allow, v.remaining_prefill, page_size)
+            if allow <= 0:
+                continue
+            plan.append((v.req_id, allow))
+            spent[v.tenant] = spent.get(v.tenant, 0) + allow
+            if left is not None:
+                left -= allow
+        return plan
+
+    def plan_speculation(self, decoding, *, k, budget_left=None):
+        """Latency-class rows draft first, and each tenant's drafts in a
+        step are capped at its ``max_step_tokens``, as its prefill
+        grants are."""
+        order = sorted(
+            decoding,
+            key=lambda v: (self._class_rank(v), v.wait_anchor, v.req_id),
+        )
+        left = budget_left
+        spent: Dict[str, int] = {}
+        plan: List[Tuple[int, int]] = []
+        for v in order:
+            if left is not None and left <= 0:
+                break
+            allow = min(k, max(v.remaining_decode - 1, 0))
+            if left is not None:
+                allow = min(allow, left)
+            cap = self._cap(v.tenant, "max_step_tokens")
+            if cap is not None:
+                allow = min(allow, max(cap - spent.get(v.tenant, 0), 0))
+            if allow <= 0:
+                continue
+            plan.append((v.req_id, allow))
+            spent[v.tenant] = spent.get(v.tenant, 0) + allow
+            if left is not None:
+                left -= allow
+        return plan
+
+    def choose_victim(self, running, now: int = 0):
+        cands = [v for v in running if v.admit_step < now]
+        if not cands:
+            return None
+        fresh = [v for v in cands if v.preempt_count == 0]
+        return max(
+            fresh or cands,
+            key=lambda v: (self._class_rank(v), v.pages_needed,
+                           v.admit_step, v.req_id),
+        )
+
+
+POLICIES = {"fcfs": FCFSPolicy, "sjf": SJFPolicy, "mixed": MixedPolicy,
+            "tenant": TenantQuotaPolicy}
 
 
 def get_scheduler(policy) -> SchedulerPolicy:

@@ -608,9 +608,9 @@ class Telemetry:
     parent's tracer (events carry the replica index, exported as separate
     Chrome processes) while keeping their own metrics registries; the
     parent's :meth:`metrics_snapshot` aggregates them
-    (:func:`aggregate_snapshots`).  The per-tenant series take
-    ``tenant=None`` from the port's engine until the tenant policy is
-    ported.
+    (:func:`aggregate_snapshots`).  The per-tenant series
+    (``serve.tenant.<t>.*``) take the request's tenant from the engine
+    and appear only for tenants other than ``"default"``.
 
     Every ``on_*`` hook and :meth:`end_step` is host-only (wall clocks +
     integers the engine already tracks).  The numerics probe is invoked

@@ -160,14 +160,27 @@ def test_greedy_streams_equal_reference(models, s, seed):
 
 
 def test_dense_prefill_raises_for_unported_layouts(models):
+    """The algebraic-shift dense prefill has no kernel (ROADMAP A12b) and
+    raises; the grouped layout (``expand_kv=False``) is ported: the same
+    op call as the expanded one, so the same logits
+    (tests/test_torch_dense_configs.py holds it against the reference's
+    grouped layout)."""
     _, _, tc, tp = models
-    for field in ("use_gemm_shift", "expand_kv"):
+    tokens = torch.zeros((1, 16), dtype=torch.int32)
+    cfg = dataclasses.replace(tc, attention=dataclasses.replace(
+        tc.attention, use_gemm_shift=False))
+    bundle = build(cfg)
+    cache = bundle.init_cache(1, 24, device="cpu")
+    with pytest.raises(NotImplementedError, match="A12b"):
+        bundle.prefill(tp, tokens, cache)
+    logits = {}
+    for expand in (True, False):
         cfg = dataclasses.replace(tc, attention=dataclasses.replace(
-            tc.attention, **{field: False}))
+            tc.attention, expand_kv=expand))
         bundle = build(cfg)
         cache = bundle.init_cache(1, 24, device="cpu")
-        with pytest.raises(NotImplementedError):
-            bundle.prefill(tp, torch.zeros((1, 16), dtype=torch.int32), cache)
+        logits[expand] = bundle.prefill(tp, tokens, cache)[0].float()
+    assert torch.equal(logits[False], logits[True])
 
 
 @pytest.mark.parametrize("route", [[], ["--paged", "--page-size", "16"]],

@@ -228,14 +228,15 @@ def test_policy_decisions_match_reference(name, hook):
 
 
 def test_policy_registry():
-    assert sorted(POLICIES) == ["fcfs", "mixed", "sjf"]
+    assert sorted(POLICIES) == sorted(R.POLICIES) == ["fcfs", "mixed", "sjf",
+                                                      "tenant"]
     for name, cls in POLICIES.items():
         assert isinstance(get_scheduler(name), cls)
         assert isinstance(get_scheduler(cls), cls)
         inst = cls()
         assert get_scheduler(inst) is inst
     with pytest.raises(ValueError):
-        get_scheduler("tenant")
+        get_scheduler("lifo")
     with pytest.raises(TypeError):
         get_scheduler(42)
     with pytest.raises(ValueError):

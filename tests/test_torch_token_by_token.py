@@ -161,5 +161,4 @@ def test_constructor_errors_match_reference(models, case):
         RefEngine(models["rb"], models["rp"], **kw)
     with pytest.raises(ValueError) as got:
         ServeEngine(models["bundle"], models["tp"], **kw)
-    # the port lists its policies, which lack the tenant policy (queued)
-    assert str(got.value) == str(want.value).replace(", 'tenant'", "")
+    assert str(got.value) == str(want.value)
