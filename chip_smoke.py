@@ -185,6 +185,33 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      (prompts of 160 / 129 / 64 / 17 tokens token by token ==
      ``dense_greedy_reference``).  In the kernels line each group entry has
      its qwen3-4b serve's count (0 at G 5, 8 and 1, which no serve runs).
+ 12. the vlm and ssm families, token by token.  ``check_vlm_cross``:
+     shift-KV and the attention kernel at llama-3.2-vision-90b's image
+     cross call (bf16 keys (4, 8, 1664, 128), 1,601 image tokens, rows
+     past them zero; one query row padded to 64, 64 query heads over 8
+     kv heads, G 8, kv_valid 1601; fp16 PASA at beta 0.984497 and FA2 at
+     beta 0), each against its plain version and float64, NaN past
+     kv_valid inert, timed beside its library call; and contiguous
+     decode at G 8 at the self layers' call (kv 48 of a 72-row cache).
+     ``serve_vlm``:
+     llama-3.2-vision-90b at full width with its depth cut to 20 of its
+     100 layers (4 groups of one cross and 4 self layers; random weights
+     from seed 0, the tanh gates set to 0.5 - at the reference's init, 0,
+     no cross layer would reach the logits), four 32-token prompts with
+     their images (vision_embeds (4, 1601, 1280) from seed 0), 32 greedy
+     tokens each: per step 16 contiguous decodes at G 8, 4 shift-KV and 4
+     attention launches and no other kernel; batched == one-at-a-time
+     streams; the first generated step within HYBRID_LOGIT_ATOL of the
+     plain versions and no farther from them at fp32 than
+     DENSE_FP32_RATIO x theirs; another image moves those logits.
+     ``serve_falcon_mamba``: falcon-mamba-7b at full width and depth (64
+     Mamba-1 layers; random weights from seed 0), four 64-token prompts,
+     32 greedy tokens each: no kernel launched, batched == one-at-a-time,
+     the last prompt step's decode logits within the reference's
+     decode-vs-forward bar of ``_ssm_forward`` on the whole prompt.  In
+     the kernels line the contiguous decode's G 8 entry has the vlm
+     serve's count, and the three entries of ``check_vlm_cross`` their
+     modes' counts.
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -328,6 +355,30 @@ STREAM_GUARD = 2 * DENSE_PAGED_LOGIT_ATOL
 TENANT_LATENCY = (0, 2)
 TENANT_QUOTA = dict(max_pages=6, max_step_tokens=256)
 TENANT_SLOTS = 2
+# phase 12: llama-3.2-vision-90b at full width with its depth cut to
+# VLM_LAYERS of 100 (4 groups: 4 cross + 16 self layers, ~40.5 GB of bf16
+# weights and fp32 head; 100 layers would be ~180 GB), its gates set to
+# VLM_GATE (at the reference's init, 0, no cross layer reaches the
+# logits); its image cross call: one query row padded to 64, 64 query
+# heads over 8 kv heads (G 8), VLM_IMAGE_TOKENS keys in VLM_S2 rows.  The
+# serve: VLM_BATCH prompts of VLM_PROMPT tokens, SERVE_GEN greedy tokens
+# each, token by token on a VLM_MAX_LEN-row cache, from vision_embeds
+# (4, 1601, 1280) N(0, 1) drawn from seed 0; its first generated step
+# through the kernels within HYBRID_LOGIT_ATOL of the plain versions and
+# no farther from the plain versions at fp32 than DENSE_FP32_RATIO x
+# theirs; another image moves those logits by more than HYBRID_LOGIT_ATOL.
+# falcon-mamba-7b at full width and depth (64 Mamba-1 layers, no
+# attention): MAMBA_BATCH prompts of MAMBA_PROMPT tokens, SERVE_GEN each;
+# the last prompt step's logits through the decode within MAMBA_FWD_TOL
+# (the reference's test_ssm_decode_matches_forward) of _ssm_forward on
+# the whole prompt
+VLM_LAYERS, VLM_GATE = 20, 0.5
+VLM_IMAGE_TOKENS, VLM_S2 = 1601, 1664
+VLM_BATCH, VLM_PROMPT, VLM_MAX_LEN = 4, 32, 72
+VLM_ALONE = (0, 3)
+MAMBA_BATCH, MAMBA_PROMPT = 4, 64
+MAMBA_ALONE = (0, 3)
+MAMBA_FWD_TOL = dict(atol=0.25, rtol=0.1)
 
 
 def _kernel_module(name: str):
@@ -1854,6 +1905,12 @@ def check_exports():
     return sorted(kernels.__all__)
 
 
+def _leaves(tree):
+    """Every tensor of a (nested) parameter dict."""
+    return [x for v in tree.values() for x in (
+        _leaves(v) if isinstance(v, dict) else [v])]
+
+
 def _bound(nbytes: int, flops: int) -> dict:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_FP16_FLOPS * 1e3
@@ -1918,8 +1975,8 @@ def _finite_bundle(bundle, finite):
     import torch
 
     def checked(step):
-        def run(*a):
-            logits, state = step(*a)
+        def run(*a, **kw):
+            logits, state = step(*a, **kw)
             finite.append(torch.isfinite(logits).all())
             return logits, state
         return run
@@ -3268,9 +3325,7 @@ def serve_hybrid(dev):
     params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = lambda tree: [x for v in tree.values() for x in (
-        leaves(v) if isinstance(v, dict) else [v])]
-    weights = leaves(params)
+    weights = _leaves(params)
     finite = []
     checked = _finite_bundle(bundle, finite)
     rng = np.random.default_rng(3)
@@ -3410,9 +3465,7 @@ def serve_whisper(dev):
     params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = lambda tree: [x for v in tree.values() for x in (
-        leaves(v) if isinstance(v, dict) else [v])]
-    weights = leaves(params)
+    weights = _leaves(params)
     finite = []
     checked = _finite_bundle(bundle, finite)
     rng = np.random.default_rng(0)
@@ -3861,22 +3914,17 @@ def _dense_prompts(cfg, dev):
         0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT), dtype=np.int32)).to(dev)
 
 
-def dense_first_step(dev, bundle, params):
-    """The dense route's first step (the fused prefill's logits on
-    serve_dense's prompts), each time from a fresh cache: through the
-    kernels, through their plain versions at the serve's policy, and
+def _first_step_gaps(first, tag, atol):
+    """``first()`` (a first step's logits from fresh state) through the
+    kernels, through their plain versions at the serve's policy and
     through the plain versions at fp32.  Held: the kernels within
-    DENSE_LOGIT_ATOL of the plain versions, and no farther from the fp32
-    ones than DENSE_FP32_RATIO x the plain versions' own distance.
-    Returns the report and the kernels' logits."""
+    ``atol`` of the plain versions, and no farther from the fp32 ones
+    than DENSE_FP32_RATIO x the plain versions' own distance.  Returns
+    the report and the kernels' logits."""
     import torch
 
     from repro_torch.core.precision import FP32
 
-    toks = _dense_prompts(bundle.cfg, dev)
-    max_len = DENSE_PROMPT + SERVE_GEN + 8
-    first = lambda: bundle.prefill(
-        params, toks, bundle.init_cache(DENSE_BATCH, max_len, device=dev))[0]
     kernel = first()
     with _plain_attention():
         plain = first()
@@ -3888,13 +3936,24 @@ def dense_first_step(dev, bundle, params):
                plain_logit_err_vs_fp32_plain=gap(plain, plain32),
                first_step_logit_absmax=float(kernel.abs().max()))
     if not all(bool(torch.isfinite(x).all()) for x in (kernel, plain, plain32)):
-        raise AssertionError(f"{bundle.cfg.arch_id}: non-finite first-step "
-                             f"logits")
-    if not (rep["first_step_logit_err_vs_plain"] <= DENSE_LOGIT_ATOL
+        raise AssertionError(f"{tag}: non-finite first-step logits")
+    if not (rep["first_step_logit_err_vs_plain"] <= atol
             and rep["first_step_logit_err_vs_fp32_plain"] <= DENSE_FP32_RATIO
             * rep["plain_logit_err_vs_fp32_plain"]):
-        raise AssertionError(f"{bundle.cfg.arch_id}: dense first step {rep}")
+        raise AssertionError(f"{tag}: first step {rep}")
     return rep, kernel
+
+
+def dense_first_step(dev, bundle, params):
+    """The dense route's first step (the fused prefill's logits on
+    serve_dense's prompts, each time from a fresh cache) held by
+    ``_first_step_gaps`` at DENSE_LOGIT_ATOL.  Returns the report and the
+    kernels' logits."""
+    toks = _dense_prompts(bundle.cfg, dev)
+    max_len = DENSE_PROMPT + SERVE_GEN + 8
+    first = lambda: bundle.prefill(
+        params, toks, bundle.init_cache(DENSE_BATCH, max_len, device=dev))[0]
+    return _first_step_gaps(first, bundle.cfg.arch_id, DENSE_LOGIT_ATOL)
 
 
 def dense_vs_paged(dev, bundle, params, dense_streams, dense_first):
@@ -4124,6 +4183,404 @@ def serve_tenant(dev, bundle, params, fcfs_streams):
     return out
 
 
+# ---------------------------------------------------------------- phase 12 --
+
+
+def check_vlm_cross(dev):
+    """Shift-KV and the attention kernel at llama-3.2-vision-90b's image
+    cross call (fp16 PASA at BETA, the path's mode): bf16 keys (VLM_BATCH,
+    VLM_S2, 8, 128) read through strides, rows past VLM_IMAGE_TOKENS zero
+    (the attention layer's padding); one query row (mean 0) padded to 64
+    rows, 64 query heads over the 8 kv heads (G 8), not causal, kv_valid
+    VLM_IMAGE_TOKENS.  Shift-KV against its plain version (SHIFT_TOL) and
+    the float64 product with the same M (SHIFT_RMSE_MAX); the attention
+    kernel at BETA and at beta 0 (FlashAttention-2) against its plain
+    version (ATTN_TOL) on the real row and within ATTN_RMSE_MAX of float64
+    attention on the unpadded keys, NaN values past kv_valid inert bit for
+    bit.  Timed: shift-KV beside torch.matmul(M, K blocks); the attention
+    kernel alone on the shifted keys, its plain version (with its shift)
+    and SDPA on the 1,601 keys expanded to the query heads.  Then the
+    self layers' call: contiguous decode at G 8, (VLM_BATCH, 8, 8, 128)
+    queries over a bf16 (VLM_BATCH, VLM_MAX_LEN, 1024) cache read through
+    strides at kv VLM_PROMPT + SERVE_GEN / 2 (mid-serve), against its
+    plain version (DECODE_TOL) and float64 (RMSE_MAX), timed beside SDPA.
+    Each entry names the launch counter key of its mode (``vlm_mode``)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import FP16
+    from repro_torch.core.shifting import effective_invariance
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pasa_paged_decode import mode_name
+    smod = _kernel_module("shift_kv")
+    amod = _kernel_module("pasa_attention")
+    cmod = _kernel_module("pasa_decode")
+
+    b, kvh, g, d = VLM_BATCH, 8, 8, 128
+    n, s2, h = VLM_IMAGE_TOKENS, VLM_S2, 8 * 8
+    rng = np.random.default_rng(12)
+    pad = lambda x: F.pad(x, (0, 0, 0, s2 - n))
+    # shift-KV on the layer's keys: (B, S2, KVH, D) bf16 seen as (B, KVH,
+    # S2, D), zero rows past the image tokens
+    keys = pad(_randn(rng, (b, kvh, n, d), 2.0, dev, torch.bfloat16)
+               ).transpose(1, 2).contiguous().transpose(1, 2)
+    m = smod.device_matrix(128, d, BETA, torch.float16, dev)
+    run = lambda: ops.shift_kv(keys, beta=BETA, block_kv=128, policy=FP16)
+    plain_of = lambda: smod.shift_kv_plain(m, keys.half(), 128,
+                                           out_dtype=torch.float16)
+    got, plain = run(), plain_of()
+    torch.cuda.synchronize()
+    err = _close("shift_kv/vlm_cross", got, plain, **SHIFT_TOL)
+    kb = keys.half().contiguous().reshape(b, kvh, s2 // 128, 128, d)
+    rmse = _rel_rmse(got, torch.matmul(m.double(), kb.double())
+                     .reshape(got.shape))
+    if not rmse < SHIFT_RMSE_MAX:
+        raise AssertionError(f"shift_kv/vlm_cross RMSE {rmse:.2e}")
+    source, replaces = KERNEL_FILES["pasa_attention"]
+    entries = [dict(
+        name="shift_kv/vlm_cross", vlm_mode=("shift_kv", smod.mode_name(
+            torch.bfloat16, torch.float16, 128)),
+        route="cuda", source="src/repro_torch/kernels/csrc/shift_kv.cu",
+        replaces="src/repro/kernels/shift_kv.py:48", max_abs_err=err,
+        rmse=rmse, ms=_cuda_time_ms(run, 50),
+        plain_ms=_cuda_time_ms(plain_of, 20),
+        library_ms=_cuda_time_ms(lambda: torch.matmul(m, kb), 50),
+        **_bound(keys.numel() * 2 + got.numel() * 2 + m.numel() * 2,
+                 2 * 128 * keys.numel()))]
+    del got, plain, kb
+    # the attention kernel at the cross call
+    q = F.pad(_randn(rng, (b, h, 1, d), 0.0, dev, torch.float16),
+              (0, 0, 0, 63))
+    k = pad(_randn(rng, (b, kvh, n, d), 2.0, dev, torch.float16))
+    v = pad(_randn(rng, (b, kvh, n, d), 0.0, dev, torch.float16))
+    gold = _gold_attention(q[:, :, :1], k[:, :, :n], v[:, :, :n], False)
+    kw = dict(policy=FP16, block_q=64, kv_valid=n)
+    detail = {}
+    for case, beta in (("flash", 0.0), ("pasa", BETA)):
+        attend = (lambda vv, beta=beta: ops.pasa_attention(
+            q, k, vv, beta=beta, **kw)) if beta else (
+            lambda vv: ops.flash_attention(q, k, vv, **kw))
+        got = attend(v)
+        plain = amod.attention_plain(q, k, v, beta=beta, policy=FP16,
+                                     block_kv=128, kv_valid=n)
+        v_nan = v.clone()
+        v_nan[:, :, n:] = float("nan")
+        torch.cuda.synchronize()
+        label = f"pasa_attention/vlm_cross ({case})"
+        detail[f"max_abs_err_{case}"] = _close(label, got[:, :, :1],
+                                               plain[:, :, :1], **ATTN_TOL)
+        r, rp = _rel_rmse(got[:, :, :1], gold), _rel_rmse(plain[:, :, :1], gold)
+        if not (r < ATTN_RMSE_MAX and rp < ATTN_RMSE_MAX):
+            raise AssertionError(f"{label} RMSE {r:.4f} / plain {rp:.4f}")
+        if not torch.equal(attend(v_nan), got):
+            raise AssertionError(f"{label}: NaN past kv_valid changed the "
+                                 f"output")
+        detail[f"rmse_{case}"], detail[f"rmse_plain_{case}"] = r, rp
+        del v_nan
+    k_sh = ops.shift_kv(k, beta=BETA, policy=FP16)
+    inva = effective_invariance(128, d, BETA, torch.float16)
+    q1, ke, ve = (q[:, :, :1].contiguous(),
+                  *(x[:, :, :n].repeat_interleave(g, 1) for x in (k, v)))
+    entries.append(dict(
+        name="pasa_attention/vlm_cross",
+        vlm_mode=("pasa_attention", mode_name(FP16, torch.bfloat16)),
+        route="cuda", source=source, replaces=replaces,
+        max_abs_err=detail["max_abs_err_pasa"], rmse=detail["rmse_pasa"],
+        detail=detail,
+        ms=_cuda_time_ms(lambda: amod.kernel_call(
+            q, k_sh, v, beta=BETA, inva=inva, policy=FP16, causal=False,
+            block_q=64, block_kv=128, kv_valid=n), 50),
+        plain_ms=_cuda_time_ms(lambda: amod.attention_plain(
+            q, k, v, beta=BETA, policy=FP16, block_kv=128, kv_valid=n),
+            3, warmup=1),
+        library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q1, ke, ve), 50),
+        # the real query row and its output, K' and V over the image tokens
+        **_bound(2 * 2 * b * h * d + 2 * 2 * b * kvh * n * d,
+                 4 * d * b * h * n)))
+    del q, k, v, k_sh, ke, ve, gold
+    # contiguous decode at the self layers' call
+    live = VLM_PROMPT + SERVE_GEN // 2
+    ck, cv = (_randn(rng, (b, VLM_MAX_LEN, kvh * d), mean, dev,
+                     torch.bfloat16) for mean in (30.0, 0.0))
+    kview, vview = (c.view(b, VLM_MAX_LEN, kvh, d).transpose(1, 2)
+                    for c in (ck, cv))
+    q = _randn(rng, (b, kvh, g, d), 0.0, dev, torch.float16)
+    kv_len = torch.full((b,), live, dtype=torch.int32, device=dev)
+    run = lambda: ops.pasa_decode(q, kview, vview, kv_len, beta=BETA,
+                                  policy=FP16, block_kv=128)
+    plain_of = lambda: cmod.decode_plain(q, kview, vview, kv_len, beta=BETA,
+                                         policy=FP16, block_kv=128)
+    got, plain = run(), plain_of()
+    torch.cuda.synchronize()
+    err = _close("pasa_decode/vlm_self", got, plain, **DECODE_TOL)
+    kk, vv = (x[:, :, :live].double().repeat_interleave(g, 1)
+              for x in (kview, vview))
+    gold = torch.softmax(q.double().reshape(b, h, 1, d) @ kk.transpose(-1, -2)
+                         / math.sqrt(d), -1) @ vv
+    rmse = _rel_rmse(got.reshape(gold.shape), gold)
+    rmse_plain = _rel_rmse(plain.reshape(gold.shape), gold)
+    if not (rmse < RMSE_MAX and rmse_plain < RMSE_MAX):
+        raise AssertionError(f"pasa_decode/vlm_self RMSE {rmse:.4f} / plain "
+                             f"{rmse_plain:.4f}")
+    source, replaces = KERNEL_FILES["pasa_decode"]
+    entries.append(dict(
+        name="pasa_decode/vlm_self",
+        vlm_mode=("pasa_decode", mode_name(FP16, torch.bfloat16)),
+        route="cuda", source=source, replaces=replaces, max_abs_err=err,
+        rmse=rmse, detail=dict(rmse_plain=rmse_plain, kv_len=live),
+        ms=_cuda_time_ms(run, 50), plain_ms=_cuda_time_ms(plain_of, 3,
+                                                          warmup=1),
+        library_ms=_decode_library_ms(q, kview, vview, kv_len),
+        **_bound(2 * b * live * kvh * d * 2 + 2 * q.numel() * 2 + b * 4,
+                 4 * g * d * b * live * kvh)))
+    del ck, cv, kview, vview, kk, vv, gold
+    torch.cuda.empty_cache()
+    return entries
+
+
+def serve_vlm(dev):
+    """llama-3.2-vision-90b at full width (d 8192, 64 / 8 heads of 128, G
+    8, d_ff 28672, vocab 128,256) with its depth cut to VLM_LAYERS (4
+    groups of one image cross-attention layer and 4 self layers), random
+    weights from seed 0 (bf16, an fp32 head and fp32 gates), the gates set
+    to VLM_GATE.  VLM_BATCH prompts of VLM_PROMPT tokens and images
+    (vision_embeds (B, 1601, 1280) in bf16, N(0, 1) from seed 0),
+    SERVE_GEN greedy tokens each, token by token through launch/serve.py's
+    route on a VLM_MAX_LEN-row cache: per step 16 contiguous decodes (the
+    self layers, G 8), 4 shift-KV and 4 attention launches (the cross
+    layers: one query row padded to 64, 1,601 keys in 1,664 rows), all
+    fp16 PASA over bf16 at head_dim 128, and no other kernel.  Every logit
+    finite; the prompts VLM_ALONE served alone from their images give
+    their batched streams; the first generated step against the plain
+    versions (``_first_step_gaps`` at HYBRID_LOGIT_ATOL, each from a copy
+    of one cache); another image moves those logits by
+    more than HYBRID_LOGIT_ATOL (the cross path is live).  Returns the
+    report."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import get_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pasa_paged_decode import mode_name
+    from repro_torch.kernels.shift_kv import mode_name as shift_mode
+    from repro_torch.launch.serve import cache_bytes, token_by_token
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.model_zoo import build
+
+    full = get_config("llama-3.2-vision-90b")
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    bundle = build(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
+    for name in ("gate_attn", "gate_mlp"):
+        params["cross"][name].fill_(VLM_GATE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = _leaves(params)
+    n_params = sum(x.numel() for x in weights)
+    param_gb = sum(x.numel() * x.element_size() for x in weights) / 1e9
+    del weights
+    finite = []
+    checked = _finite_bundle(bundle, finite)
+    rng = np.random.default_rng(0)
+    image = lambda: torch.from_numpy(rng.standard_normal(
+        (VLM_BATCH, cfg.n_image_tokens, cfg.vision_dim)).astype(np.float32)
+    ).to(dev, torch.bfloat16)
+    vis = image()
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (VLM_BATCH, VLM_PROMPT), dtype=np.int32)).to(dev)
+    names = [w.__name__ for w in ops.WRAPPERS]
+    fp16 = get_policy(cfg.attention.pasa_policy)
+    modes = {"pasa_decode": mode_name(fp16, torch.bfloat16),
+             "pasa_attention": mode_name(fp16, torch.bfloat16),
+             "shift_kv": shift_mode(torch.bfloat16, torch.float16,
+                                    cfg.attention.block_kv)}
+    groups = cfg.n_layers // cfg.cross_attn_every
+    per_step = {"pasa_decode": groups * (cfg.cross_attn_every - 1),
+                "shift_kv": groups, "pasa_attention": groups}
+
+    def run(rows, images):
+        cache = bundle.init_cache(rows.shape[0], VLM_MAX_LEN, device=dev)
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out, cache, times = token_by_token(checked, params, rows, SERVE_GEN,
+                                           cache, vision_embeds=images)
+        return out, cache, [t - t_start for t in times]
+
+    run(prompts[:1, :4], vis[:1])          # warm-up (cuBLAS first calls)
+    finite.clear()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    streams, cache, times = run(prompts, vis)
+    n_steps = VLM_PROMPT + SERVE_GEN - 1
+    launches = {name: getattr(ops, name).launches for name in names}
+    want = {name: per_step.get(name, 0) * n_steps for name in names}
+    if launches != want:
+        raise AssertionError(f"serve_vlm: launch counts {launches} != {want}")
+    by_mode = _by_mode(names)
+    for name, mode in modes.items():
+        if by_mode[name] != {mode: want[name]}:
+            raise AssertionError(f"serve_vlm: {name} launches by mode "
+                                 f"{by_mode[name]}")
+    _all_finite("serve_vlm", finite)
+    if streams.shape != (VLM_BATCH, SERVE_GEN) or not (
+            (streams >= 0) & (streams < cfg.vocab_size)).all():
+        raise AssertionError(f"serve_vlm: bad streams {streams}")
+    peak = torch.cuda.max_memory_allocated()
+    cache_mb = cache_bytes(cache) / 1e6
+    del cache
+    for i in VLM_ALONE:
+        alone, _, _ = run(prompts[i:i + 1], vis[i:i + 1])
+        if not np.array_equal(alone[0], streams[i]):
+            raise AssertionError(
+                f"serve_vlm: batched vs one-at-a-time streams differ: "
+                f"{streams[i].tolist()} vs {alone[0].tolist()}")
+    # the first generated step from one cache: kernels, plain versions,
+    # plain versions at fp32; then the kernels with another image
+    cache = bundle.init_cache(VLM_BATCH, VLM_MAX_LEN, device=dev)
+    step = make_serve_step(bundle)
+    for i in range(VLM_PROMPT - 1):
+        pos = torch.full((VLM_BATCH,), i, dtype=torch.int32, device=dev)
+        _, _, cache = step(params, prompts[:, i], pos, cache,
+                           vision_embeds=vis)
+    pos = torch.full((VLM_BATCH,), VLM_PROMPT - 1, dtype=torch.int32,
+                     device=dev)
+    first = lambda images=vis: bundle.serve_step(
+        params, prompts[:, -1], pos, {k: v.clone() for k, v in cache.items()},
+        vision_embeds=images)[0]
+    gaps, kernel_logits = _first_step_gaps(first, "serve_vlm",
+                                           HYBRID_LOGIT_ATOL)
+    other = first(image())
+    moved = float((other - kernel_logits).abs().max())
+    if not moved > HYBRID_LOGIT_ATOL:
+        raise AssertionError(f"serve_vlm: another image moved the first-step "
+                             f"logits by {moved:.3e} only")
+    wall = times[-1]
+    del params, cache, other, kernel_logits
+    torch.cuda.empty_cache()
+    return dict(
+        arch=cfg.arch_id, layers=f"{cfg.n_layers} of {full.n_layers}",
+        groups=groups, d_model=cfg.d_model, heads=cfg.n_heads,
+        kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        image_tokens=cfg.n_image_tokens, gate=VLM_GATE,
+        params=n_params, param_gb=param_gb, weights_s=init_s, batch=VLM_BATCH,
+        prompt_len=VLM_PROMPT, gen=SERVE_GEN, max_len=VLM_MAX_LEN,
+        steps=n_steps, launches=launches, launches_by_mode=by_mode,
+        wall_s=wall, tok_per_s=streams.size / wall,
+        ms_per_step=1e3 * wall / n_steps, ttft_ms=1e3 * times[0],
+        decode_ms_per_step=1e3 * (times[-1] - times[0]) / (SERVE_GEN - 1),
+        peak_gb=peak / 1e9, cache_mb=cache_mb,
+        image_moves_first_step_logits_by=moved, **gaps,
+        streams=streams.tolist(),
+    )
+
+
+def serve_falcon_mamba(dev):
+    """falcon-mamba-7b at full width and depth (64 Mamba-1 layers, d 4096,
+    d_inner 8192, state 16, vocab 65,024; no attention) with random
+    weights from seed 0 (bf16, fp32 head, fp32 conv / dt / SSM
+    parameters).  MAMBA_BATCH prompts of MAMBA_PROMPT tokens, SERVE_GEN
+    greedy tokens each, token by token through launch/serve.py's route
+    (the state is O(1) per sequence).  No kernel launched; every logit
+    finite; the prompts MAMBA_ALONE served alone give their batched
+    streams; the last prompt step's logits through the decode within
+    MAMBA_FWD_TOL of ``_ssm_forward`` on the whole prompt.  Returns the
+    report."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import cache_bytes, token_by_token
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import _ssm_forward, build
+
+    cfg = get_config("falcon-mamba-7b")
+    bundle = build(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = _leaves(params)
+    n_params = sum(x.numel() for x in weights)
+    param_gb = sum(x.numel() * x.element_size() for x in weights) / 1e9
+    del weights
+    finite = []
+    checked = _finite_bundle(bundle, finite)
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MAMBA_BATCH, MAMBA_PROMPT), dtype=np.int32)).to(dev)
+    names = [w.__name__ for w in ops.WRAPPERS]
+
+    def run(rows):
+        cache = bundle.init_cache(rows.shape[0], 0, device=dev)
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out, cache, times = token_by_token(checked, params, rows, SERVE_GEN,
+                                           cache)
+        return out, cache, [t - t_start for t in times]
+
+    run(prompts[:1, :4])                   # warm-up (cuBLAS first calls)
+    finite.clear()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    streams, cache, times = run(prompts)
+    n_steps = MAMBA_PROMPT + SERVE_GEN - 1
+    launches = {name: getattr(ops, name).launches for name in names}
+    if any(launches.values()):
+        raise AssertionError(f"serve_falcon_mamba: kernels launched "
+                             f"{launches}")
+    _all_finite("serve_falcon_mamba", finite)
+    if streams.shape != (MAMBA_BATCH, SERVE_GEN) or not (
+            (streams >= 0) & (streams < cfg.vocab_size)).all():
+        raise AssertionError(f"serve_falcon_mamba: bad streams {streams}")
+    peak = torch.cuda.max_memory_allocated()
+    cache_mb = {part: cache_bytes(cache[part]) / 1e6 for part in cache}
+    del cache
+    for i in MAMBA_ALONE:
+        alone, _, _ = run(prompts[i:i + 1])
+        if not np.array_equal(alone[0], streams[i]):
+            raise AssertionError(
+                f"serve_falcon_mamba: batched vs one-at-a-time streams "
+                f"differ: {streams[i].tolist()} vs {alone[0].tolist()}")
+    # the decode's logits at the last prompt token vs the whole-prompt
+    # forward
+    cache = bundle.init_cache(MAMBA_BATCH, 0, device=dev)
+    for t in range(MAMBA_PROMPT):
+        pos = torch.full((MAMBA_BATCH,), t, dtype=torch.int32, device=dev)
+        decoded, cache = bundle.serve_step(params, prompts[:, t], pos, cache)
+    h, _ = _ssm_forward(params, cfg, prompts)
+    forward = L.matmuls(h[:, -1].float(), params["lm_head"].float())[0]
+    err = (decoded - forward).abs()
+    bad = err > MAMBA_FWD_TOL["atol"] + MAMBA_FWD_TOL["rtol"] * forward.abs()
+    if bad.any() or not bool(torch.isfinite(forward).all()):
+        raise AssertionError(f"serve_falcon_mamba: decode vs forward: "
+                             f"{int(bad.sum())} logits outside "
+                             f"{MAMBA_FWD_TOL}, max {float(err.max()):.3e}")
+    wall = times[-1]
+    del params, cache, h
+    torch.cuda.empty_cache()
+    return dict(
+        arch=cfg.arch_id, layers=cfg.n_layers, d_model=cfg.d_model,
+        d_inner=cfg.ssm.expand * cfg.d_model, state=cfg.ssm.state,
+        params=n_params, param_gb=param_gb, weights_s=init_s,
+        batch=MAMBA_BATCH, prompt_len=MAMBA_PROMPT, gen=SERVE_GEN,
+        steps=n_steps, launches=launches, wall_s=wall,
+        tok_per_s=streams.size / wall, ms_per_step=1e3 * wall / n_steps,
+        ttft_ms=1e3 * times[0],
+        decode_ms_per_step=1e3 * (times[-1] - times[0]) / (SERVE_GEN - 1),
+        peak_gb=peak / 1e9, cache_mb=cache_mb,
+        decode_vs_forward_logit_err=float(err.max()),
+        forward_logit_absmax=float(forward.abs().max()),
+        streams=streams.tolist(),
+    )
+
+
 def main() -> int:
     import torch
 
@@ -4323,6 +4780,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase 11: {tenant_s + time.perf_counter() - t_q3:.1f} s "
           f"(tenant {tenant_s:.1f} s)")
+    # phase 12: the kernels at the vlm's image cross call, then
+    # llama-3.2-vision-90b (depth 20) and falcon-mamba-7b token by token,
+    # each serve driven with the launch counts set to 0 just before it
+    t_p12 = time.perf_counter()
+    cross = check_vlm_cross(dev)
+    for k in cross:
+        print(f"{k['name']}: max_abs_err {k['max_abs_err']:.3e}, rmse "
+              f"{k['rmse']:.2e}, {k['ms']:.4f} ms vs plain "
+              f"{k['plain_ms']:.3f} ms, library {k['library_ms']:.4f} ms, "
+              f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+        if k.get("detail"):
+            print(f"  {k['name']} detail: {json.dumps(k['detail'])}")
+    rep_vlm = serve_vlm(dev)
+    print("serve_vlm: " + json.dumps(rep_vlm))
+    print("serve_falcon_mamba: " + json.dumps(serve_falcon_mamba(dev)))
+    print(f"phase 12: {time.perf_counter() - t_p12:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each mode of shift-KV has the dense serve's count of that mode (0 for
@@ -4387,9 +4860,17 @@ def main() -> int:
             k for k in kernels if "whisper_mode" in k
             and k["name"].startswith(f"{name}/d64_")], keys))
     # the GQA group entries: at G 4 the qwen3-4b serve's count (the paged
-    # kernels that of the pool in the tag), 0 at the groups no serve runs
+    # kernels that of the pool in the tag), contiguous decode at G 8 the
+    # vlm serve's count of its mode, 0 at the groups no serve runs
     for k in groups:
         name, _, tag = k["name"].partition("/")
+        if name == "pasa_decode" and k["group"] == 8:
+            k["launches"] = rep_vlm["launches_by_mode"][name].get(
+                mode_name(get_policy("fp16"), torch.bfloat16), 0)
+            if not k["launches"]:
+                raise AssertionError(f"{k['name']} was not launched on the "
+                                     f"vlm serve")
+            continue
         if k["group"] != 4:
             k["launches"] = 0
             continue
@@ -4400,6 +4881,15 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was not launched on its "
                                  f"qwen3-4b serve")
     line += [{key: k[key] for key in keys} for k in groups]
+    # the vlm's image cross call and its self layers' decode: each entry
+    # the vlm serve's count of its mode
+    for k in cross:
+        op, mode = k["vlm_mode"]
+        k["launches"] = rep_vlm["launches_by_mode"][op].get(mode, 0)
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']} was not launched on the vlm "
+                                 f"serve")
+    line += [{key: k[key] for key in keys} for k in cross]
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

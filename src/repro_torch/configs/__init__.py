@@ -15,6 +15,8 @@ _ID_TO_MODULE = {
     "qwen1.5-32b": "qwen1_5_32b",
     "zamba2-1.2b": "zamba2_1_2b",
     "whisper-large-v3": "whisper_large_v3",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 ALL_ARCHS: List[str] = list(_ID_TO_MODULE)

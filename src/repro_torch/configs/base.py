@@ -1,9 +1,11 @@
 """Model/config schema (counterpart of ``repro.configs.base``).
 
 The fields the serving routes of the dense family (paged and dense), of
-the hybrid family (Mamba-2 + a shared attention block, dense route) and
-of the audio family (the Whisper encoder-decoder, dense route) read are
-ported; the MoE and vision blocks arrive with those families.
+the hybrid family (Mamba-2 + a shared attention block, dense route), of
+the vlm family (Llama-3.2-Vision: gated image cross-attention, dense
+route), of the ssm family (Mamba-1, dense route) and of the audio family
+(the Whisper encoder-decoder, dense route) read are ported; the MoE
+block arrives with its family.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 
 
 IMPLS = ("pasa", "flash", "naive")
-FAMILIES = ("dense", "hybrid", "audio")    # the families ported so far
+FAMILIES = ("dense", "vlm", "hybrid", "ssm", "audio")  # ported so far
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +50,8 @@ class AttentionConfig:
 @dataclasses.dataclass(frozen=True)
 class SSMConfig:
     """The state-space block's shape (the reference's fields and
-    defaults; only ``version`` 2, Mamba-2, is ported)."""
+    defaults): ``version`` 1 is Mamba-1 (the ssm family), 2 Mamba-2 (the
+    hybrid family)."""
 
     state: int = 16
     d_conv: int = 4
@@ -61,7 +64,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # dense | hybrid | audio (ported so far)
+    family: str                   # dense | vlm | hybrid | ssm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -81,6 +84,12 @@ class ModelConfig:
     # hybrid (zamba2): a weight-shared attention block every `attn_every`
     # SSM layers (applied before layers 0, attn_every, 2*attn_every, ...).
     attn_every: int = 0
+
+    # vlm (llama-3.2-vision): a cross-attention layer every `cross_attn_every`
+    # layers (layer i is cross-attn iff i % cross_attn_every == 0).
+    cross_attn_every: int = 0
+    n_image_tokens: int = 0
+    vision_dim: int = 0
 
     # audio (whisper): encoder depth + precomputed-frame-embedding count.
     n_encoder_layers: int = 0
@@ -114,7 +123,14 @@ class ModelConfig:
                 "the hybrid family is ported with Mamba-2 (ssm.version 2) "
                 "and attn_every >= 1"
             )
-        if self.n_heads % self.n_kv_heads:
+        if self.family == "vlm" and self.cross_attn_every < 1:
+            raise ValueError("the vlm family needs cross_attn_every >= 1")
+        if self.family == "ssm" and self.ssm.version != 1:
+            raise ValueError(
+                "the ssm family is ported with Mamba-1 (ssm.version 1)"
+            )
+        if self.family != "ssm" and self.n_kv_heads \
+                and self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
         if self.attention.impl not in IMPLS:
             raise ValueError(
@@ -126,10 +142,10 @@ class ModelConfig:
         """Tiny same-family config for CPU tests (the reference's sizes)."""
         return dataclasses.replace(
             self,
-            n_layers=min(self.n_layers, 2),
+            n_layers=min(self.n_layers, 2 if self.family != "vlm" else 4),
             d_model=64,
             n_heads=4,
-            n_kv_heads=min(self.n_kv_heads, 2),
+            n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else 0,
             head_dim=16,
             d_ff=128,
             vocab_size=512,
@@ -137,6 +153,10 @@ class ModelConfig:
                 self.ssm, state=min(self.ssm.state, 8), head_p=8, chunk=16,
             ),
             attn_every=min(self.attn_every, 2) if self.attn_every else 0,
+            cross_attn_every=min(self.cross_attn_every, 2)
+            if self.cross_attn_every else 0,
+            n_image_tokens=min(self.n_image_tokens, 16) or 0,
+            vision_dim=min(self.vision_dim, 32) or 0,
             n_encoder_layers=min(self.n_encoder_layers, 2)
             if self.n_encoder_layers else 0,
             n_audio_frames=min(self.n_audio_frames, 16) or 0,

@@ -20,6 +20,15 @@ encode of four clips of 1500 frame embeddings (``whisper_encode``, the
 call profiled as such), its output written into the cache's ``enc_out``,
 four prompts of 64 tokens fed through ``serve_step`` into a 104-row
 cache, then the decode call (``whisper_decode``) from kv 66.
+``--arch llama-3.2-vision-90b --layers 20`` (the vlm family, the same
+route; 100 layers do not fit one card, and ``--layers`` must be a
+multiple of its ``cross_attn_every``, 5): image inputs (4, 1601, 1280)
+drawn N(0, 1) in bf16, four prompts of 32 tokens fed through
+``serve_step`` into a 72-row cache, then the decode call (``vlm_decode``:
+the image projection, the cross K/V of every cross layer, every layer's
+step) from kv 33.  ``--arch falcon-mamba-7b`` (the ssm family, the same
+route, no attention kernel): four prompts of 64 tokens, then the decode
+call (``ssm_decode``) from the state after them.
 
 ``--speculate K`` (the dense family) adds the paged route's verify call
 (``runtime.engine.paged_verify_step``, what ``ServeEngine(speculate=K)``
@@ -60,6 +69,10 @@ Run on one card from the repository root:
       --arch zamba2-1.2b --out build/profile_hybrid
   PYTHONPATH=src python -m repro_torch.launch.profile_steps \
       --arch whisper-large-v3 --out build/profile_whisper
+  PYTHONPATH=src python -m repro_torch.launch.profile_steps \
+      --arch llama-3.2-vision-90b --layers 20 --out build/profile_vlm
+  PYTHONPATH=src python -m repro_torch.launch.profile_steps \
+      --arch falcon-mamba-7b --out build/profile_ssm
   PYTHONPATH=src python -m repro_torch.launch.profile_steps --kv-dtype int8 \
       --out build/profile_int8
   PYTHONPATH=src python -m repro_torch.launch.profile_steps --speculate 4 \
@@ -86,7 +99,8 @@ CHUNK = 512
 PAGE = 128
 DENSE_BATCH, DENSE_PROMPT = 4, 1000
 # token-by-token families: (batch, prompt tokens, cache rows) of each
-TOKEN_BY_TOKEN = {"hybrid": (4, 200, 240), "audio": (4, 64, 104)}
+TOKEN_BY_TOKEN = {"hybrid": (4, 200, 240), "audio": (4, 64, 104),
+                  "vlm": (4, 32, 72), "ssm": (4, 64, 104)}
 
 # kernel-name fragment -> category, first match wins
 _KERNELS = (
@@ -259,6 +273,9 @@ def main(argv=None):
     dev = resolve_device("cuda")
     cfg = get_config(args.arch)
     if args.layers:
+        if cfg.family == "vlm" and args.layers % cfg.cross_attn_every:
+            ap.error(f"--layers must be a multiple of cross_attn_every "
+                     f"({cfg.cross_attn_every}) for {cfg.arch_id}")
         cfg = dataclasses.replace(
             cfg, n_layers=args.layers,
             n_encoder_layers=min(cfg.n_encoder_layers, args.layers))
@@ -490,7 +507,8 @@ def _profile_token_by_token(args, bundle, params, rng, dev, out: Path) -> dict:
     through ``serve_step`` into its cache, then ``--decode-calls`` decode
     calls under the profiler (after one warm-up call).  For the audio
     family first one ``whisper_encode`` call (profiled after a warm-up),
-    whose output fills the cache's ``enc_out``."""
+    whose output fills the cache's ``enc_out``; the vlm family's steps
+    take image inputs drawn N(0, 1)."""
     import numpy as np
     import torch
 
@@ -501,7 +519,12 @@ def _profile_token_by_token(args, bundle, params, rng, dev, out: Path) -> dict:
     cache = bundle.init_cache(batch, max_len, device=dev)
     report = {"arch": cfg.arch_id, "layers": cfg.n_layers,
               "device": torch.cuda.get_device_name(0)}
-    name = "hybrid" if cfg.family == "hybrid" else "whisper"
+    name = "whisper" if cfg.family == "audio" else cfg.family
+    extras = {}
+    if cfg.family == "vlm":
+        extras["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_image_tokens, cfg.vision_dim)).astype(np.float32)
+        ).to(dev, torch.bfloat16)
     if cfg.family == "audio":
         from repro_torch.models.multimodal import whisper_encode
 
@@ -515,13 +538,14 @@ def _profile_token_by_token(args, bundle, params, rng, dev, out: Path) -> dict:
         cache["enc_out"].copy_(call_encode())
     pos = torch.zeros(batch, dtype=torch.int32, device=dev)
     for i in range(prompt):
-        logits, cache = bundle.serve_step(params, prompts[:, i], pos, cache)
+        logits, cache = bundle.serve_step(params, prompts[:, i], pos, cache,
+                                          **extras)
         pos = pos + 1
     token = torch.argmax(logits, -1).to(torch.int32)
 
     def call_decode():
         nonlocal pos, token
-        logits, _ = bundle.serve_step(params, token, pos, cache)
+        logits, _ = bundle.serve_step(params, token, pos, cache, **extras)
         token = torch.argmax(logits, -1).to(torch.int32)
         pos = pos + 1
 

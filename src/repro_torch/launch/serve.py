@@ -9,10 +9,13 @@ reference does), then serves them on one of two routes:
     kv_dim)`` cache; the whole prompt in ONE fused prefill call
     (``bundle.prefill``), then ``gen - 1`` greedy decode steps
     (``launch.steps.make_serve_step``).  A family without a fused prefill
-    (``bundle.prefill is None``: the hybrid zamba2) takes the
+    (``bundle.prefill is None``: the hybrid zamba2, the vlm
+    llama-3.2-vision, the ssm falcon-mamba, the audio whisper) takes the
     family-generic token-by-token route instead: every prompt token is
     fed through the decode step, ``prompt_len + gen - 1`` steps, TTFT at
-    the first sampled token;
+    the first sampled token.  The vlm is served from zero
+    ``vision_embeds`` (B, 1601, 1280) in bf16, as the reference's CLI
+    serves it;
   * paged (``--paged``): :class:`repro_torch.runtime.ServeEngine` -
     chunked prefill (default) or token by token (``--no-chunked-prefill``),
     with the radix prefix cache (``--prefix-cache``), preemption
@@ -29,7 +32,8 @@ reference does), then serves them on one of two routes:
     request 0 after N tokens, between steps) and telemetry (``--trace
     FILE`` with ``--trace-format chrome|jsonl``, ``--metrics``,
     ``--numerics-probe N``; bit-neutral).  A family without a paged
-    interface (zamba2) refuses it with the engine's ValueError.
+    interface (zamba2, llama-3.2-vision, falcon-mamba, whisper) refuses
+    it with the engine's ValueError.
 
 Runs on the GPU by default (``--device cpu`` for the plain PyTorch path).
 
@@ -42,10 +46,19 @@ Examples (one H100, full-width qwen2-7b, random weights):
       --paged --kv-dtype int8 --batch 4 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --batch 4 --prompt-len 200 --gen 32 --max-len 240
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+      --batch 4 --prompt-len 64 --gen 32
+(llama-3.2-vision-90b at its 100 layers does not fit one card: serve it
+at --reduced, or profile it with ``launch.profile_steps --layers 20``.)
 CPU smoke at the reduced config:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
       --reduced --batch 4 --prompt-len 16 --gen 8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --reduced --batch 2 --prompt-len 12 --gen 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-90b --reduced --batch 2 --prompt-len 12 \
+      --gen 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
       --reduced --batch 2 --prompt-len 12 --gen 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
       --reduced --paged --page-size 8 --batch 2 --prompt-len 40 --gen 8 \
@@ -283,12 +296,27 @@ def cache_bytes(cache) -> int:
     return cache.numel() * cache.element_size()
 
 
-def token_by_token(bundle, params, prompts, gen: int, cache, *, step=None):
+def serve_extras(cfg, batch: int, device) -> dict:
+    """The extra inputs of a family's decode step as the CLI serves them:
+    the vlm's ``vision_embeds``, zeros (B, n_image_tokens, vision_dim) in
+    bf16 (the reference's CLI); nothing for the other families."""
+    import torch
+
+    if cfg.family != "vlm":
+        return {}
+    return {"vision_embeds": torch.zeros(
+        (batch, cfg.n_image_tokens, cfg.vision_dim), dtype=torch.bfloat16,
+        device=device)}
+
+
+def token_by_token(bundle, params, prompts, gen: int, cache, *, step=None,
+                   **extras):
     """The family-generic token-by-token route on the dense cache: every
-    token of ``prompts`` (B, S), on the device, through the decode step,
-    then ``gen`` greedy tokens - ``S + gen - 1`` steps, a step that samples
-    ending in its token's readback.  Returns (generated (B, gen) int32
-    numpy, cache, the ``time.perf_counter()`` at each readback)."""
+    token of ``prompts`` (B, S), on the device, through the decode step
+    (with ``extras``, e.g. the vlm's ``vision_embeds``), then ``gen``
+    greedy tokens - ``S + gen - 1`` steps, a step that samples ending in
+    its token's readback.  Returns (generated (B, gen) int32 numpy,
+    cache, the ``time.perf_counter()`` at each readback)."""
     import torch
 
     from repro_torch.launch.steps import make_serve_step
@@ -299,7 +327,7 @@ def token_by_token(bundle, params, prompts, gen: int, cache, *, step=None):
     out, times = [], []
     for i in range(s + gen - 1):
         pos = torch.full((b,), i, dtype=torch.int32, device=prompts.device)
-        nxt, _, cache = step(params, tok, pos, cache)
+        nxt, _, cache = step(params, tok, pos, cache, **extras)
         if i + 1 < s:
             tok = prompts[:, i + 1]
         else:
@@ -338,8 +366,9 @@ def _serve_dense(args, bundle, params, prompts, dev):
         n_steps = args.gen
     else:
         route = "dense/token-by-token"
-        out, cache, times = token_by_token(bundle, params, prompt_t, args.gen,
-                                           cache, step=step)
+        out, cache, times = token_by_token(
+            bundle, params, prompt_t, args.gen, cache, step=step,
+            **serve_extras(bundle.cfg, args.batch, dev))
         t_first = times[0] - t0
         n_steps = args.prompt_len + args.gen - 1
     dt = time.perf_counter() - t0

@@ -1,6 +1,6 @@
-"""Parameters of the dense transformer, the hybrid (zamba2) model and
-Whisper: carried across from the reference, or drawn at random on the
-device.
+"""Parameters of the dense transformer, the hybrid (zamba2) model,
+Llama-3.2-Vision, the Mamba-1 LM (falcon-mamba) and Whisper: carried
+across from the reference, or drawn at random on the device.
 
 Both produce the layout of the reference's ``transformer.init_lm``::
 
@@ -22,6 +22,25 @@ N = the SSM state, K = d_conv)::
      "shared": {"ln1", "ln2": (D,), "attn": {"wq", "wk", "wv", "wo"},
                 "mlp": {"w1", "w3", "w2"}}}
 
+or of its ``multimodal.init_vlm`` (G = L / cross_attn_every groups of one
+cross-attention layer and per = cross_attn_every - 1 self-attention
+layers, Dv the vision width)::
+
+    {"embed": (V, D), "vision_proj": (Dv, D), "final_norm": (D,),
+     "lm_head": (D, V),
+     "self": {"ln1", "ln2": (G, per, D), "attn": {"wq": (G, per, D, H*hd),
+              ...}, "mlp": {...}},
+     "cross": {"ln1", "ln2": (G, D), "attn": {...}, "mlp": {...},
+               "gate_attn", "gate_mlp": (G,)}}
+
+or of its ``model_zoo._ssm_init`` (Mamba-1; R = the dt rank D / 16)::
+
+    {"embed": (V, D), "ln": (L, D), "final_norm": (D,), "lm_head": (D, V),
+     "mamba": {"in_proj": (L, D, 2 Di), "conv_w": (L, Di, K),
+               "conv_b", "dt_bias", "d_skip": (L, Di),
+               "x_proj": (L, Di, R + 2 N), "dt_proj": (L, R, Di),
+               "a_log": (L, Di, N), "out_proj": (L, Di, D)}}
+
 or of its ``multimodal.init_whisper`` (Le encoder and L decoder layers,
 T audio frames)::
 
@@ -34,13 +53,17 @@ T audio frames)::
 Each weight is stored at the dtype the reference casts it to before use,
 not at the reference's fp32 parameter dtype: the compute dtype (bf16) for
 the projections, MLP, embedding, norms and biases, and fp32 for
-``lm_head`` (the logits GEMM runs in fp32) and for the Mamba weights the
+``lm_head`` (the logits GEMM runs in fp32), for the Mamba weights the
 reference reads in fp32 (``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``,
-``d_skip``).  Rounding fp32 -> bf16 once at load gives the same values as
-rounding at every use, and halves the memory of a full-width model (about
-14 GB in bf16 for qwen2-7b, plus 2.2 GB for the fp32 head; 2.4 GB for
-zamba2-1.2b, plus 0.26 GB for its head; 3.9 GB for whisper-large-v3, plus
-0.27 GB for its head).
+``d_skip``, Mamba-1's ``dt_proj``) and for the vlm's cross-attention gates
+(``gate_attn``, ``gate_mlp``: the reference takes their tanh at fp32 and
+only then casts to the compute dtype).  Rounding fp32 -> bf16 once at
+load gives the same values as rounding at every use, and halves the
+memory of a full-width model (about 14 GB in bf16 for qwen2-7b, plus 2.2
+GB for the fp32 head; 2.4 GB for zamba2-1.2b, plus 0.26 GB for its head;
+3.9 GB for whisper-large-v3, plus 0.27 GB for its head; 13.5 GB for
+falcon-mamba-7b, plus 1.07 GB for its head; 1.71 GB a layer for
+llama-3.2-vision-90b, plus 2.1 GB of embedding and 4.2 GB for its head).
 """
 
 from __future__ import annotations
@@ -56,7 +79,9 @@ from repro_torch.configs.base import ModelConfig
 
 # the leaves the reference reads in fp32 whatever the compute dtype
 FP32_LEAVES = (("lm_head",), ("mamba", "conv_w"), ("mamba", "conv_b"),
-               ("mamba", "a_log"), ("mamba", "dt_bias"), ("mamba", "d_skip"))
+               ("mamba", "a_log"), ("mamba", "dt_bias"), ("mamba", "d_skip"),
+               ("mamba", "dt_proj"), ("cross", "gate_attn"),
+               ("cross", "gate_mlp"))
 
 
 def _leaf_dtype(path: tuple, cfg: ModelConfig) -> torch.dtype:
@@ -65,9 +90,10 @@ def _leaf_dtype(path: tuple, cfg: ModelConfig) -> torch.dtype:
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
-    """The reference's ``init_lm``, ``init_hybrid`` or ``init_whisper``
-    pytree, given as nested dicts of numpy arrays, -> the port's
-    parameters on ``device``."""
+    """The reference's ``init_lm``, ``init_hybrid``, ``init_vlm``,
+    ``_ssm_init`` or ``init_whisper`` pytree, given as nested dicts of
+    numpy arrays (any number of stacking axes), -> the port's parameters
+    on ``device``."""
     dev = resolve_device(device)
 
     def conv(node, path):
@@ -83,9 +109,10 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
 
 def _normal(shape, scale, dtype, generator, device) -> torch.Tensor:
     """N(0, scale^2) drawn in fp32, stored at ``dtype``; stacked (L, ...)
-    leaves are drawn one layer at a time to bound the fp32 temporary."""
+    or (G, per, ...) matrices are drawn one matrix at a time to bound the
+    fp32 temporary."""
     out = torch.empty(shape, dtype=dtype, device=device)
-    parts = out if len(shape) == 3 else out[None]
+    parts = out.view(-1, *shape[-2:]) if len(shape) >= 3 else out[None]
     for part in parts:
         part.copy_(
             torch.randn(part.shape, generator=generator, dtype=torch.float32,
@@ -94,10 +121,18 @@ def _normal(shape, scale, dtype, generator, device) -> torch.Tensor:
     return out
 
 
+def _lead(n_stack) -> tuple:
+    """The stacking axes: none, one (L,) or several, e.g. (G, per)."""
+    if n_stack is None:
+        return ()
+    return tuple(n_stack) if isinstance(n_stack, tuple) else (n_stack,)
+
+
 class _Draw:
     """Random leaves on one device from one generator, with the
     reference's distributions: N(0, scale^2) drawn in fp32 (projections
-    N(0, 1/d_in)), constants for norms and biases."""
+    N(0, 1/d_in)), constants for norms and biases.  ``n_stack`` is the
+    leading stacking axes: None, a layer count or a tuple of them."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
         self.cd = cfg.torch_compute_dtype()
@@ -108,8 +143,8 @@ class _Draw:
         return _normal(shape, scale, dtype or self.cd, self.gen, self.dev)
 
     def dense(self, d_in, d_out, n_stack=None, dtype=None):
-        shape = (d_in, d_out) if n_stack is None else (n_stack, d_in, d_out)
-        return self.normal(shape, 1.0 / math.sqrt(d_in), dtype)
+        return self.normal(_lead(n_stack) + (d_in, d_out),
+                           1.0 / math.sqrt(d_in), dtype)
 
     def const(self, shape, value, dtype=None):
         return torch.full(shape, value, dtype=dtype or self.cd,
@@ -119,7 +154,7 @@ class _Draw:
         """The reference's ``init_attention`` layout (one layer, or
         stacked over ``n_stack`` layers)."""
         d = cfg.d_model
-        stack = lambda n: (n,) if n_stack is None else (n_stack, n)
+        stack = lambda n: _lead(n_stack) + (n,)
         attn = {
             "wq": self.dense(d, cfg.q_dim, n_stack),
             "wk": self.dense(d, cfg.kv_dim, n_stack),
@@ -226,4 +261,70 @@ def init_whisper(cfg: ModelConfig, generator: torch.Generator,
         "enc_norm": r.const((d,), 1.0),
         "final_norm": r.const((d,), 1.0),
         "lm_head": r.dense(d, cfg.vocab_size, dtype=torch.float32),
+    }
+
+
+def init_vlm(cfg: ModelConfig, generator: torch.Generator,
+             device=None) -> dict:
+    """Random parameters of Llama-3.2-Vision with the reference's
+    distributions and layout (``multimodal.init_vlm``): as
+    :func:`init_lm` for the embedding, the blocks and the head;
+    ``vision_proj`` N(0, 1/vision_dim); the self-attention blocks stacked
+    (G, per, ...), the cross-attention blocks (G, ...) with their gates
+    ``gate_attn`` / ``gate_mlp`` at zeros in fp32 (tanh(0) = 0: at this
+    init no cross layer reaches the logits)."""
+    r = _Draw(cfg, generator, resolve_device(device))
+    d = cfg.d_model
+    g = cfg.n_layers // cfg.cross_attn_every
+    per = cfg.cross_attn_every - 1
+
+    def block(lead):
+        return {"ln1": r.const(lead + (d,), 1.0),
+                "attn": r.attention(cfg, lead),
+                "ln2": r.const(lead + (d,), 1.0),
+                "mlp": r.mlp(d, cfg.d_ff, lead)}
+
+    cross = block((g,))
+    cross["gate_attn"] = r.const((g,), 0.0, torch.float32)
+    cross["gate_mlp"] = r.const((g,), 0.0, torch.float32)
+    return {
+        "embed": r.normal((cfg.vocab_size, d), 1.0),
+        "vision_proj": r.dense(cfg.vision_dim, d),
+        "self": block((g, per)),
+        "cross": cross,
+        "final_norm": r.const((d,), 1.0),
+        "lm_head": r.dense(d, cfg.vocab_size, dtype=torch.float32),
+    }
+
+
+def init_ssm(cfg: ModelConfig, generator: torch.Generator,
+             device=None) -> dict:
+    """Random parameters of the Mamba-1 LM with the reference's
+    distributions (``model_zoo._ssm_init``, ``ssm.init_mamba1``): as
+    :func:`init_lm` for the embedding and the head; ``in_proj``,
+    ``x_proj``, ``dt_proj``, ``out_proj`` N(0, 1/d_in), ``conv_w``
+    N(0, 1/d_conv), ``conv_b`` 0, ``dt_bias`` -4, ``a_log`` log(1..N)
+    along the state, ``d_skip`` and the norm weights 1."""
+    r = _Draw(cfg, generator, resolve_device(device))
+    nl, d = cfg.n_layers, cfg.d_model
+    di, n, k = cfg.ssm.expand * d, cfg.ssm.state, cfg.ssm.d_conv
+    dr = max(d // 16, 1)
+    f32 = torch.float32
+    a_log = torch.log(torch.arange(1, n + 1, dtype=f32, device=r.dev))
+    return {
+        "embed": r.normal((cfg.vocab_size, d), 1.0),
+        "mamba": {
+            "in_proj": r.dense(d, 2 * di, nl),
+            "conv_w": r.normal((nl, di, k), 1.0 / math.sqrt(k), f32),
+            "conv_b": r.const((nl, di), 0.0, f32),
+            "x_proj": r.dense(di, dr + 2 * n, nl),
+            "dt_proj": r.dense(dr, di, nl, dtype=f32),
+            "dt_bias": r.const((nl, di), -4.0, f32),
+            "a_log": a_log.expand(nl, di, n).contiguous(),
+            "d_skip": r.const((nl, di), 1.0, f32),
+            "out_proj": r.dense(di, d, nl),
+        },
+        "ln": r.const((nl, d), 1.0),
+        "final_norm": r.const((d,), 1.0),
+        "lm_head": r.dense(d, cfg.vocab_size, dtype=f32),
     }

@@ -1,24 +1,26 @@
-"""Mamba-2 selective state-space block (zamba2's backbone).
+"""Selective state-space blocks: Mamba-1 (falcon-mamba) and Mamba-2
+(zamba2's backbone).
 
-Counterpart of the Mamba-2 half of ``repro.models.ssm`` (Mamba-1 is not
-ported yet): ``d_inner``, ``mamba2_heads``, ``_causal_conv``,
-``_ssd_chunked``, ``mamba2_block`` (the no-cache and the decode branch)
-and ``mamba2_cache``.  The block is attention-free: PASA does not apply
-here, and it runs in plain PyTorch on every device.
+Counterpart of ``repro.models.ssm``: ``_dt_rank``, ``d_inner``,
+``_causal_conv``, ``_mamba1_inner``, ``mamba1_block`` and ``mamba1_cache``
+(Mamba-1); ``mamba2_heads``, ``_ssd_chunked``, ``mamba2_block`` and
+``mamba2_cache`` (Mamba-2), each block with its no-cache and its decode
+branch.  The blocks are attention-free: PASA does not apply here, and
+they run in plain PyTorch on every device.
 
 Dtypes follow the reference: the projections run at the compute dtype
 (bf16) through ``layers.matmuls``; the convolution and the whole SSM run
-in fp32 (``a_log``, ``dt_bias``, ``d_skip`` and the SSM state are fp32);
-the conv window is cached at the cache dtype (bf16).  The decode branch
-writes the layer's cache in place.
+in fp32 (``a_log``, ``dt_bias``, ``d_skip``, Mamba-1's ``dt_proj`` and the
+SSM state are fp32); the conv window is cached at the cache dtype
+(bf16).  The decode branches write the layer's cache in place.
 
 Batch invariance of the decode step (each row's result independent of
 how many rows share the step, as ``layers.MIN_ROWS`` keeps it for the
 GEMMs and norms): the convolution is a sum of K elementwise products in
-tap order; the decode readout ``C . h`` and the transcendental steps
-(silu, softplus, exp) run on the batch zero-padded to ``MIN_ROWS`` rows -
-a CPU kernel takes its vectorized or its scalar code for an element by
-the element's offset in the tensor, and the two may round differently.
+tap order; the readout ``C . h`` and the transcendental steps (silu,
+softplus, exp) run on the batch zero-padded to ``MIN_ROWS`` rows - a CPU
+kernel takes its vectorized or its scalar code for an element by the
+element's offset in the tensor, and the two may round differently.
 """
 
 from __future__ import annotations
@@ -30,6 +32,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+
+
+def _dt_rank(cfg: ModelConfig) -> int:
+    return max(cfg.d_model // 16, 1)
 
 
 def d_inner(cfg: ModelConfig) -> int:
@@ -60,6 +66,104 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     window = torch.stack([xp[:, i:i + s] for i in range(k)], dim=2)
     return _conv_taps(window, w, b).to(x.dtype)
 
+
+def _padded(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """fn(*xs) computed on the batch (the leading dim of each x)
+    zero-padded to ``L.MIN_ROWS`` rows."""
+    n = xs[0].shape[0]
+    if n >= L.MIN_ROWS:
+        return fn(*xs)
+    pad = lambda x: torch.cat([x, x.new_zeros((L.MIN_ROWS - n,) + x.shape[1:])])
+    return fn(*map(pad, xs))[:n]
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# =============================================================================
+# Mamba-1 (falcon-mamba-7b)
+# =============================================================================
+
+def _mamba1_inner(x, dt, bmat, cmat, a, d_skip, h0=None):
+    """Sequential selective scan in fp32 (the reference's scan is a loop
+    here).
+
+    x, dt: (B, S, Di); bmat, cmat: (B, S, N); a: (Di, N); d_skip: (Di,).
+    Returns y (B, S, Di) and the final state (B, Di, N)."""
+    bb, s, di = x.shape
+    n = bmat.shape[-1]
+    x, dt, bmat, cmat = (t.float() for t in (x, dt, bmat, cmat))
+    d_skip = d_skip.float()
+    h = (torch.zeros((bb, di, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    readout = lambda hh, c: (hh * c[:, None, :]).sum(-1)
+    ys = []
+    for t in range(s):
+        da = _padded(torch.exp, dt[:, t, :, None] * a)           # (B, Di, N)
+        h = da * h + (dt[:, t] * x[:, t])[..., None] * bmat[:, t, None, :]
+        ys.append(_padded(readout, h, cmat[:, t]) + d_skip * x[:, t])
+    return torch.stack(ys, dim=1), h
+
+
+def mamba1_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
+                 cache: Optional[dict] = None):
+    """x: (B, S, D) -> (y (B, S, D), cache).
+
+    Without a cache: the scan over the whole sequence (returns cache
+    None).  With ``cache = {"conv": (B, K-1, Di), "ssm": (B, Di, N)}``
+    (one layer's views): one decode step (S == 1) that rolls the conv
+    window and advances the SSM state, both written in place; returns the
+    same dict."""
+    cd = cfg.torch_compute_dtype()
+    di, n, dr = d_inner(cfg), cfg.ssm.state, _dt_rank(cfg)
+    s = x.shape[1]
+    x = x.to(cd)
+    (xz,) = L.matmuls(x, p["in_proj"].to(cd))
+    xs, z = torch.split(xz, [di, di], dim=-1)
+
+    if cache is None:
+        xs = _causal_conv(xs, p["conv_w"], p["conv_b"])
+    else:
+        if s != 1:
+            raise ValueError(f"mamba1 decode takes one token per row, got {s}")
+        window = torch.cat([cache["conv"], xs.to(cache["conv"].dtype)], dim=1)
+        xs = _conv_taps(window.float(), p["conv_w"], p["conv_b"])[:, None]
+        xs = xs.to(cd)
+        cache["conv"].copy_(window[:, 1:])
+    xs = _padded(F.silu, xs)
+
+    (dbc,) = L.matmuls(xs, p["x_proj"].to(cd))
+    dt, bmat, cmat = torch.split(dbc, [dr, n, n], dim=-1)
+    (dt,) = L.matmuls(dt.float(), p["dt_proj"].float())
+    dt = _padded(_softplus, dt + p["dt_bias"].float())           # (B, S, Di)
+    a = -torch.exp(p["a_log"].float())                          # (Di, N)
+
+    h0 = None if cache is None else cache["ssm"]
+    y, h = _mamba1_inner(xs, dt, bmat, cmat, a, p["d_skip"], h0=h0)
+    if cache is not None:
+        cache["ssm"].copy_(h)
+
+    (y,) = L.matmuls(y.to(cd) * _padded(F.silu, z), p["out_proj"].to(cd))
+    return y, cache
+
+
+def mamba1_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, *,
+                 device) -> dict:
+    """Per-layer decode state: the conv window (L, B, K-1, Di) at ``dtype``
+    and the SSM state (L, B, Di, N) in fp32."""
+    di, n, dc = d_inner(cfg), cfg.ssm.state, cfg.ssm.d_conv
+    return {
+        "conv": torch.zeros((cfg.n_layers, batch, dc - 1, di), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((cfg.n_layers, batch, di, n), dtype=torch.float32,
+                           device=device),
+    }
+
+
+# =============================================================================
+# Mamba-2 (zamba2)
+# =============================================================================
 
 def _ssd_chunked(x, dt, bmat, cmat, a, h0=None):
     """Chunked SSD (Mamba-2 dual form).
@@ -110,20 +214,6 @@ def _ssd_chunked(x, dt, bmat, cmat, a, h0=None):
     y_off = torch.einsum("bzin,bzih,bznhp->bzihp", cc, torch.exp(cum), hprev)
     y = (y_diag + y_off).reshape(bb, s, nh, p)
     return y, h.movedim(1, 2)                                   # (B,NH,N,P)
-
-
-def _padded(fn, *xs: torch.Tensor) -> torch.Tensor:
-    """fn(*xs) computed on the batch (the leading dim of each x)
-    zero-padded to ``L.MIN_ROWS`` rows."""
-    n = xs[0].shape[0]
-    if n >= L.MIN_ROWS:
-        return fn(*xs)
-    pad = lambda x: torch.cat([x, x.new_zeros((L.MIN_ROWS - n,) + x.shape[1:])])
-    return fn(*map(pad, xs))[:n]
-
-
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def mamba2_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
