@@ -211,7 +211,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      decode-vs-forward bar of ``_ssm_forward`` on the whole prompt.  In
      the kernels line the contiguous decode's G 8 entry has the vlm
      serve's count, and the three entries of ``check_vlm_cross`` their
-     modes' counts.
+     modes' counts;
+ 13. the moe family: olmoe-1b-7b at full width and depth (16 layers, d
+     2048, 16 / 16 heads of 128, qk-norm, 64 experts of width 1024,
+     top-8; random weights from seed 0).  In phase 11 ``check_groups``
+     holds each kernel at its KVH 16, G 1 (tag ``g1o``: both paged
+     kernels, also from an int8 pool, contiguous decode, shift-KV and
+     causal attention at the dense prefill).  At the published capacity
+     factor 1.25: ``serve_olmoe_<pool>`` (bf16, int8; phase 3's
+     workload) and ``serve_olmoe_dense`` (phase 4's), 16 launches a
+     call, every logit finite; the dense first step within
+     DENSE_LOGIT_ATOL of the plain versions and no farther from them at
+     fp32 than DENSE_FP32_RATIO x theirs, with the kernels' routing
+     pinned in the plain runs (the unpinned gaps reported); reported:
+     the dropped slots per layer of the first prefill and decode calls
+     and the (layer, token) top-k sets that differ from the plain
+     versions' run.  No batched == alone there: capacity drops make a
+     row depend on its call (ROADMAP C).  ``serve_olmoe_nodrop``: the
+     bf16 paged serve at capacity factor E / k = 8 (nothing dropped,
+     held): requests 0 and 3 alone == batched, async == sync
+     (``serve_async``) and token by token == ``dense_greedy_reference``
+     (prompts of 129 and 17).  In the kernels line the ``g1o`` entries
+     have the olmoe serves' counts.
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -335,7 +356,12 @@ BF16_PASA_RMSE_RATIO = 1.25
 # "throughput" under TENANT_QUOTA (its two requests need 5 + 2 pages), on
 # TENANT_SLOTS slots, so that the class rank decides who runs first
 GROUP_SHAPES = (("qwen3-4b", 8, 4), ("qwen3-14b", 8, 5), ("qwen3-32b", 8, 8),
-                ("qwen1.5-32b", 40, 1))
+                ("qwen1.5-32b", 40, 1), ("olmoe-1b-7b", 16, 1))
+# the served configs' group entries: their tag, and beside the raw pool
+# the 8-bit pools their serves run, shift-KV and the causal attention
+# kernel at their dense prefill (qwen3-4b phase 11, olmoe-1b-7b phase 13)
+SERVED_GROUPS = {"qwen3-4b": ("g4", QUANT_DTYPES),
+                 "olmoe-1b-7b": ("g1o", ("int8",))}
 QWEN3_ALONE = (0, 3)
 QWEN3_TBT_PROMPTS = (160, 129, 64, 17)
 # the dense route's first step (the fused prefill's logits, qwen2-7b and
@@ -379,6 +405,12 @@ VLM_ALONE = (0, 3)
 MAMBA_BATCH, MAMBA_PROMPT = 4, 64
 MAMBA_ALONE = (0, 3)
 MAMBA_FWD_TOL = dict(atol=0.25, rtol=0.1)
+# phase 13: olmoe-1b-7b at full width and depth (~14.1 GB in bf16 with its
+# fp32 head); at capacity factor E / k = 8 (nothing dropped) the requests
+# OLMOE_ALONE are served one at a time and the prompts OLMOE_TBT_PROMPTS
+# token by token
+OLMOE_ALONE = (0, 3)
+OLMOE_TBT_PROMPTS = (129, 17)
 
 
 def _kernel_module(name: str):
@@ -3643,12 +3675,14 @@ def check_groups(dev):
     same rows), the paged prefill kernel on the prefill fixture's rows (4
     x 512 queries of mean 1 at starts 0 / 512 / 1024 and a pad row, keys
     of mean 2), each against its plain version (DECODE_TOL / PREFILL_TOL)
-    and within RMSE_MAX of float64.  At qwen3-4b's group 4 also both paged
-    kernels from int8 and fp8_e4m3 pools (``_check_quant_policies``,
-    debris inert), shift-KV on its dense prefill's keys (4, 8, 1024, 128)
-    and the causal attention kernel at (4, 32, 8, 1024, 128) (queries of
-    mean 0, keys of mean 2).  Every entry timed beside its plain version
-    and its library call, with its bound."""
+    and within RMSE_MAX of float64.  At the served configs' groups
+    (SERVED_GROUPS: qwen3-4b's G 4, olmoe-1b-7b's G 1 over 16 kv heads)
+    also both paged kernels from the 8-bit pools their serves run
+    (``_check_quant_policies``, debris inert), shift-KV on their dense
+    prefill's keys (4, KVH, 1024, 128) and the causal attention kernel at
+    (4, KVH G, KVH, 1024, 128) (queries of mean 0, keys of mean 2).  Every
+    entry timed beside its plain version and its library call, with its
+    bound."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3666,7 +3700,7 @@ def check_groups(dev):
     rng = np.random.default_rng(11)
     entries = []
     for arch, kvh, g in GROUP_SHAPES:
-        tag = f"g{g}"
+        tag, pools = SERVED_GROUPS.get(arch, (f"g{g}", ()))
         # paged decode at the paged serve's call
         lens = SERVE_DECODE_KV
         b = len(lens)
@@ -3695,31 +3729,30 @@ def check_groups(dev):
             plain_ms=_cuda_time_ms(plain_of, 3, warmup=1),
             library_ms=_decode_library_ms(q, kview, vview, kv_len),
             **_bound(nbytes, flops)))
-        if g == 4:
-            for dtype in QUANT_DTYPES:
-                kq, vq, quant, valid = _quantize_pool(kp, vp, table, lens,
-                                                      dtype)
-                held, got_q = _check_quant_policies(
-                    f"pasa_paged_decode/{tag}", lambda p: run(p, kq, vq, quant),
-                    lambda p: plain_of(p, kq, vq, quant), gold, got, dtype,
-                    DECODE_TOL)
-                kq2, vq2, quant2 = _poison(kq, vq, quant, valid)
-                if not torch.equal(run(FP16, kq2, vq2, quant2), got_q):
-                    raise AssertionError(f"pasa_paged_decode/{tag}_{dtype}: "
-                                         f"debris changed the output")
-                live_pages = sum(math.ceil(n / page) for n in lens)
-                qbytes = (2 * live * kvh * d + 2 * live_pages * kvh * (1 + d)
-                          * 4 + 2 * q.numel() * 2 + table.numel() * 4 + b * 4)
-                entries.append(_group_entry(
-                    "pasa_paged_decode", f"{tag}_{dtype}", arch, kvh, g,
-                    max_abs_err=held["max_abs_err_fp16"],
-                    rmse=held["rmse_fp16"], detail=held,
-                    ms=_cuda_time_ms(lambda: run(FP16, kq, vq, quant), 50),
-                    plain_ms=_cuda_time_ms(
-                        lambda: plain_of(FP16, kq, vq, quant), 3, warmup=1),
-                    library_ms=_decode_library_ms(q, kq, vq, kv_len, quant,
-                                                  table),
-                    **_bound(qbytes, flops)))
+        for dtype in pools:
+            kq, vq, quant, valid = _quantize_pool(kp, vp, table, lens,
+                                                  dtype)
+            held, got_q = _check_quant_policies(
+                f"pasa_paged_decode/{tag}", lambda p: run(p, kq, vq, quant),
+                lambda p: plain_of(p, kq, vq, quant), gold, got, dtype,
+                DECODE_TOL)
+            kq2, vq2, quant2 = _poison(kq, vq, quant, valid)
+            if not torch.equal(run(FP16, kq2, vq2, quant2), got_q):
+                raise AssertionError(f"pasa_paged_decode/{tag}_{dtype}: "
+                                     f"debris changed the output")
+            live_pages = sum(math.ceil(n / page) for n in lens)
+            qbytes = (2 * live * kvh * d + 2 * live_pages * kvh * (1 + d)
+                      * 4 + 2 * q.numel() * 2 + table.numel() * 4 + b * 4)
+            entries.append(_group_entry(
+                "pasa_paged_decode", f"{tag}_{dtype}", arch, kvh, g,
+                max_abs_err=held["max_abs_err_fp16"],
+                rmse=held["rmse_fp16"], detail=held,
+                ms=_cuda_time_ms(lambda: run(FP16, kq, vq, quant), 50),
+                plain_ms=_cuda_time_ms(
+                    lambda: plain_of(FP16, kq, vq, quant), 3, warmup=1),
+                library_ms=_decode_library_ms(q, kq, vq, kv_len, quant,
+                                              table),
+                **_bound(qbytes, flops)))
         del kp, vp, kview, vview
         # contiguous decode at the dense serve's kv, == paged decode
         lens = (DENSE_PROMPT + 2,) * DENSE_BATCH
@@ -3801,37 +3834,36 @@ def check_groups(dev):
             rmse=rmse, rmse_plain=rmse_plain, ms=_cuda_time_ms(run, 20),
             plain_ms=_cuda_time_ms(plain_of, 3, warmup=1),
             library_ms=library(), **_bound(nbytes, _prefill_flops(h, d))))
-        if g == 4:
-            for dtype in QUANT_DTYPES:
-                kq, vq, quant, valid = _quantize_pool(kp, vp, table, kv_lens,
-                                                      dtype)
-                held, got_q = _check_quant_policies(
-                    f"pasa_paged_prefill/{tag}",
-                    lambda p: run(p, kq, vq, quant),
-                    lambda p: plain_of(p, kq, vq, quant), gold, got, dtype,
-                    PREFILL_TOL, rows=slice(0, 3))
-                kq2, vq2, quant2 = _poison(kq, vq, quant, valid)
-                if not torch.equal(run(FP16, kq2, vq2, quant2), got_q):
-                    raise AssertionError(f"pasa_paged_prefill/{tag}_{dtype}: "
-                                         f"debris changed the output")
-                live_pages = sum(math.ceil(n / page) for n in kv_lens)
-                qbytes = (2 * live * kvh * d + 2 * live_pages * kvh * (1 + d)
-                          * 4 + 2 * q.numel() * 2 + table.numel() * 4
-                          + 2 * b * 4)
-                entries.append(_group_entry(
-                    "pasa_paged_prefill", f"{tag}_{dtype}", arch, kvh, g,
-                    max_abs_err=held["max_abs_err_fp16"],
-                    rmse=held["rmse_fp16"], detail=held,
-                    ms=_cuda_time_ms(lambda: run(FP16, kq, vq, quant), 20),
-                    plain_ms=_cuda_time_ms(
-                        lambda: plain_of(FP16, kq, vq, quant), 3, warmup=1),
-                    library_ms=library(quant, kq, vq),
-                    **_bound(qbytes, _prefill_flops(h, d))))
+        for dtype in pools:
+            kq, vq, quant, valid = _quantize_pool(kp, vp, table, kv_lens,
+                                                  dtype)
+            held, got_q = _check_quant_policies(
+                f"pasa_paged_prefill/{tag}",
+                lambda p: run(p, kq, vq, quant),
+                lambda p: plain_of(p, kq, vq, quant), gold, got, dtype,
+                PREFILL_TOL, rows=slice(0, 3))
+            kq2, vq2, quant2 = _poison(kq, vq, quant, valid)
+            if not torch.equal(run(FP16, kq2, vq2, quant2), got_q):
+                raise AssertionError(f"pasa_paged_prefill/{tag}_{dtype}: "
+                                     f"debris changed the output")
+            live_pages = sum(math.ceil(n / page) for n in kv_lens)
+            qbytes = (2 * live * kvh * d + 2 * live_pages * kvh * (1 + d)
+                      * 4 + 2 * q.numel() * 2 + table.numel() * 4
+                      + 2 * b * 4)
+            entries.append(_group_entry(
+                "pasa_paged_prefill", f"{tag}_{dtype}", arch, kvh, g,
+                max_abs_err=held["max_abs_err_fp16"],
+                rmse=held["rmse_fp16"], detail=held,
+                ms=_cuda_time_ms(lambda: run(FP16, kq, vq, quant), 20),
+                plain_ms=_cuda_time_ms(
+                    lambda: plain_of(FP16, kq, vq, quant), 3, warmup=1),
+                library_ms=library(quant, kq, vq),
+                **_bound(qbytes, _prefill_flops(h, d))))
         del kp, vp, q
-        if g != 4:
+        if arch not in SERVED_GROUPS:
             continue
-        # shift-KV on qwen3-4b's dense-prefill keys: bf16 (B, S, KVH, D)
-        # read through strides, fp16 operands, block 128
+        # shift-KV on the served config's dense-prefill keys: bf16 (B, S,
+        # KVH, D) read through strides, fp16 operands, block 128
         b, s = DENSE_BATCH, ATTN_SHAPE[3]
         k = _randn(rng, (b, s, kvh, d), 5.0, dev,
                    torch.bfloat16).transpose(1, 2)
@@ -3853,7 +3885,7 @@ def check_groups(dev):
             library_ms=_cuda_time_ms(lambda: torch.matmul(m, kb), 50),
             **_bound(k.numel() * 2 + got.numel() * 2 + m.numel() * 2,
                      2 * page * k.numel())))
-        # causal attention at qwen3-4b's dense prefill
+        # causal attention at the served config's dense prefill
         q = _randn(rng, (b, h, s, d), 0.0, dev, torch.float16)
         k = _randn(rng, (b, kvh, s, d), 2.0, dev, torch.float16)
         v = _randn(rng, (b, kvh, s, d), 0.0, dev, torch.float16)
@@ -4581,6 +4613,223 @@ def serve_falcon_mamba(dev):
     )
 
 
+# ---------------------------------------------------------------- phase 13 --
+
+
+def build_olmoe(dev):
+    """olmoe-1b-7b at full width and depth (16 layers, d 2048, 16 / 16
+    heads of 128, qk-norm, 64 experts of width 1024, top-8, vocab 50,304)
+    with random weights from seed 0, at its capacity factor 1.25, and the
+    same model (the same weights) at capacity factor E / k, where every
+    expert can take every token of a call."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build
+
+    bundle = build(get_config("olmoe-1b-7b"))
+    moe = bundle.cfg.moe
+    nodrop = build(dataclasses.replace(bundle.cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.n_experts / moe.top_k)))
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    return bundle, nodrop, params, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _tap_routes():
+    """Inside the block every moe layer call's experts, (T, k) on the
+    device, in call order."""
+    from repro_torch.models import moe
+
+    route, seen = moe.route, []
+
+    def tapped(xf, router, k):
+        gate, top_e = route(xf, router, k)
+        seen.append(top_e)
+        return gate, top_e
+
+    moe.route = tapped
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def _pinned_routes(experts):
+    """Inside the block the i-th moe layer call routes its tokens to
+    ``experts[i]`` (a run's ``_tap_routes``), each gate from the call's
+    own router probabilities: a run's expert choices replayed, so that
+    two runs differ only in their arithmetic."""
+    import torch
+
+    from repro_torch.models import moe
+
+    route, pinned = moe.route, iter(experts)
+
+    def replay(xf, router, k):
+        top_e = next(pinned)
+        probs = torch.softmax(xf.float() @ router.float(), dim=-1)
+        gate = probs.gather(-1, top_e)
+        return gate / gate.sum(dim=-1, keepdim=True), top_e
+
+    moe.route = replay
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def _dropped(top_e, cfg) -> int:
+    """The slots of one moe call past their expert's capacity."""
+    import torch
+
+    t, k = top_e.shape
+    e = cfg.moe.n_experts
+    cap = max(math.ceil(t * k / e * cfg.moe.capacity_factor), 1)
+    counts = torch.bincount(top_e.reshape(-1), minlength=e)
+    return int((counts - cap).clamp(min=0).sum())
+
+
+def olmoe_first_step_drops(dev, bundle, params, cache_dtype="bf16"):
+    """The paged engine's first step on the paged workload (one prefill
+    call of four 512-token chunks, then the decode call of the two rows
+    whose prompt ended, beside two rows still prefilling): each call's
+    rows and dropped slots per layer."""
+    from repro_torch.runtime import ServeEngine
+
+    prompts, kw = _paged_workload(bundle.cfg, cache_dtype)
+    eng = ServeEngine(bundle, params, **kw)
+    for p in prompts:
+        eng.submit(p, SERVE_GEN)
+    with _tap_routes() as seen:
+        eng.step()
+    n = bundle.cfg.n_layers
+    if eng.prefill_calls != 1 or eng.decode_calls != 1 or len(seen) != 2 * n:
+        raise AssertionError(f"olmoe first step: {eng.prefill_calls} prefill "
+                             f"and {eng.decode_calls} decode calls, "
+                             f"{len(seen)} moe calls")
+    del eng
+    return {f"{call}_rows": seen[i * n].shape[0] for i, call in
+            enumerate(("prefill", "decode"))} | {
+        f"{call}_dropped_per_layer": [_dropped(x, bundle.cfg)
+                                      for x in seen[i * n:(i + 1) * n]]
+        for i, call in enumerate(("prefill", "decode"))}
+
+
+def olmoe_dense_first_calls(dev, bundle, params):
+    """The dense route's first prefill (the fused 4 x DENSE_PROMPT call)
+    and first decode call (fed the kernels' first tokens), through the
+    kernels and through their plain versions at the serve's policy.
+    Held: ``_first_step_gaps`` at DENSE_LOGIT_ATOL and DENSE_FP32_RATIO
+    with the kernels' routing pinned in the plain runs
+    (``_pinned_routes``).  Reported: the gaps without the pin (a top-k
+    set that flips on an attention rounding difference moves its token's
+    FFN output by a whole expert's share), each call's dropped slots per
+    layer and how many (layer, token) top-k sets differ between the two
+    unpinned runs."""
+    import torch
+
+    from repro_torch.core.precision import FP32
+    from repro_torch.launch.steps import make_serve_step
+
+    cfg, n = bundle.cfg, bundle.cfg.n_layers
+    toks = _dense_prompts(cfg, dev)
+    step = make_serve_step(bundle)
+    pos = torch.full((DENSE_BATCH,), DENSE_PROMPT, dtype=torch.int32,
+                     device=dev)
+    cache = lambda: bundle.init_cache(DENSE_BATCH, DENSE_PROMPT + 8,
+                                      device=dev)
+    first = lambda: bundle.prefill(params, toks, cache())[0]
+
+    def calls(tok=None):
+        """Both first calls: their experts and the prefill's logits."""
+        with _tap_routes() as seen:
+            logits, c = bundle.prefill(params, toks, cache())
+            tok = torch.argmax(logits, -1).to(torch.int32) if tok is None \
+                else tok
+            step(params, tok, pos, c)
+        return seen, logits, tok
+
+    kernel, kernel_logits, tok = calls()
+
+    def first_pinned():
+        with _pinned_routes(kernel[:n]):
+            return first()
+
+    rep, _ = _first_step_gaps(first_pinned, f"{cfg.arch_id} (routing "
+                              f"pinned)", DENSE_LOGIT_ATOL)
+    with _plain_attention():
+        plain, plain_logits, _ = calls(tok)
+    with _plain_attention(FP32):
+        plain32 = first()
+    gap = lambda a, b: float((a - b).abs().max())
+    sets = lambda x: x.sort(-1).values
+    rep.update(routing_pinned=True,
+               unpinned_logit_err_vs_plain=gap(kernel_logits, plain_logits),
+               unpinned_logit_err_vs_fp32_plain=gap(kernel_logits, plain32),
+               unpinned_plain_logit_err_vs_fp32_plain=gap(plain_logits,
+                                                          plain32))
+    routing = {}
+    for i, call in enumerate(("prefill", "decode")):
+        ks, ps = kernel[i * n:(i + 1) * n], plain[i * n:(i + 1) * n]
+        routing[f"{call}_rows"] = ks[0].shape[0]
+        routing[f"{call}_dropped_per_layer"] = [_dropped(x, cfg) for x in ks]
+        routing[f"{call}_topk_sets_differing_vs_plain"] = sum(
+            int((sets(a) != sets(b)).any(-1).sum()) for a, b in zip(ks, ps))
+    rep["routing"] = routing
+    return rep
+
+
+def serve_olmoe(dev, bundle, nodrop, params):
+    """olmoe-1b-7b at full width and depth.  At its capacity factor 1.25:
+    the paged workload from a bf16 and an int8 pool and the dense
+    workload, every launch counted, every logit finite, the dense first
+    step held as qwen2-7b's (DENSE_LOGIT_ATOL, DENSE_FP32_RATIO) with the
+    routing pinned (``olmoe_dense_first_calls``); the drops of the first
+    calls, the routing flips against the plain versions and the unpinned
+    first-step gaps reported.  Batched == one at a time is not a contract
+    there: a row's output depends on the rows sharing its call (ROADMAP
+    C).
+    At capacity factor E / k (``nodrop``: nothing dropped, held) on the
+    bf16 pool: batched == the requests OLMOE_ALONE one at a time, async
+    == sync (``serve_async``: streams, pool pages, launches, 0 syncs a
+    step outside the drain points) and token by token ==
+    ``dense_greedy_reference`` on OLMOE_TBT_PROMPTS.  Prints each report
+    as it is made; returns them by name."""
+    reps = {}
+    for dtype in ("bf16", "int8"):
+        rep = serve(dev, bundle, params, cache_dtype=dtype, alone=())
+        rep["capacity_factor"] = bundle.cfg.moe.capacity_factor
+        rep["first_step"] = olmoe_first_step_drops(dev, bundle, params,
+                                                   dtype)
+        reps[f"serve_olmoe_{dtype}"] = rep
+        print(f"serve_olmoe_{dtype}: " + json.dumps(rep), flush=True)
+    rep = serve_dense(dev, bundle, params, alone=())
+    rep.update(olmoe_dense_first_calls(dev, bundle, params))
+    reps["serve_olmoe_dense"] = rep
+    print("serve_olmoe_dense: " + json.dumps(rep), flush=True)
+    rep = serve(dev, nodrop, params, cache_dtype="bf16", alone=OLMOE_ALONE)
+    rep["capacity_factor"] = nodrop.cfg.moe.capacity_factor
+    rep["first_step"] = olmoe_first_step_drops(dev, nodrop, params)
+    if any(sum(rep["first_step"][f"{c}_dropped_per_layer"])
+           for c in ("prefill", "decode")):
+        raise AssertionError(f"serve_olmoe_nodrop: slots dropped at "
+                             f"capacity factor E / k: {rep['first_step']}")
+    rep_async, _ = serve_async(dev, nodrop, params, "bf16", rep["streams"])
+    rep["async"] = {key: rep_async[key] for key in (
+        "order", "tok_per_s", "decode_ms_per_step",
+        "syncs_per_step_outside_drain_points", "streams_equal_to_sync",
+        "pools_equal_to_sync")}
+    rep["tbt"] = serve_tbt(dev, nodrop, params, lens=OLMOE_TBT_PROMPTS)
+    reps["serve_olmoe_nodrop"] = rep
+    print("serve_olmoe_nodrop: " + json.dumps(rep), flush=True)
+    return reps
+
 def main() -> int:
     import torch
 
@@ -4796,6 +5045,17 @@ def main() -> int:
     print("serve_vlm: " + json.dumps(rep_vlm))
     print("serve_falcon_mamba: " + json.dumps(serve_falcon_mamba(dev)))
     print(f"phase 12: {time.perf_counter() - t_p12:.1f} s")
+    # phase 13: olmoe-1b-7b (the moe family) at full width and depth on
+    # both routes, each serve driven with the launch counts set to 0 just
+    # before it
+    t_p13 = time.perf_counter()
+    torch.cuda.empty_cache()
+    olmoe, olmoe_nodrop, olmoe_params, olmoe_init = build_olmoe(dev)
+    print(f"olmoe-1b-7b weights: {olmoe_init:.1f} s")
+    olmoe_reps = serve_olmoe(dev, olmoe, olmoe_nodrop, olmoe_params)
+    del olmoe, olmoe_nodrop, olmoe_params
+    torch.cuda.empty_cache()
+    print(f"phase 13: {time.perf_counter() - t_p13:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each mode of shift-KV has the dense serve's count of that mode (0 for
@@ -4859,9 +5119,14 @@ def main() -> int:
         line.append(_mode_entry(name, [
             k for k in kernels if "whisper_mode" in k
             and k["name"].startswith(f"{name}/d64_")], keys))
-    # the GQA group entries: at G 4 the qwen3-4b serve's count (the paged
-    # kernels that of the pool in the tag), contiguous decode at G 8 the
-    # vlm serve's count of its mode, 0 at the groups no serve runs
+    # the GQA group entries: qwen3-4b's (G 4) and olmoe-1b-7b's (G 1, KVH
+    # 16) their serves' counts (the paged kernels that of the pool in the
+    # tag), contiguous decode at G 8 the vlm serve's count of its mode, 0
+    # at the groups no serve runs
+    served = {"qwen3-4b": (q3_reps, q3_dense),
+              "olmoe-1b-7b": ({"bf16": olmoe_reps["serve_olmoe_bf16"],
+                               "int8": olmoe_reps["serve_olmoe_int8"]},
+                              olmoe_reps["serve_olmoe_dense"])}
     for k in groups:
         name, _, tag = k["name"].partition("/")
         if name == "pasa_decode" and k["group"] == 8:
@@ -4871,15 +5136,16 @@ def main() -> int:
                 raise AssertionError(f"{k['name']} was not launched on the "
                                      f"vlm serve")
             continue
-        if k["group"] != 4:
+        if k["arch"] not in served:
             k["launches"] = 0
             continue
-        rep_q3 = (q3_reps[tag.partition("_")[2] or "bf16"]
-                  if name.startswith("pasa_paged_") else q3_dense)
-        k["launches"] = rep_q3["launches"][name]
+        paged, dense = served[k["arch"]]
+        rep_g = (paged[tag.partition("_")[2] or "bf16"]
+                 if name.startswith("pasa_paged_") else dense)
+        k["launches"] = rep_g["launches"][name]
         if not k["launches"]:
             raise AssertionError(f"{k['name']} was not launched on its "
-                                 f"qwen3-4b serve")
+                                 f"{k['arch']} serve")
     line += [{key: k[key] for key in keys} for k in groups]
     # the vlm's image cross call and its self layers' decode: each entry
     # the vlm serve's count of its mode

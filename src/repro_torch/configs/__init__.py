@@ -5,7 +5,8 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-from repro_torch.configs.base import AttentionConfig, ModelConfig, SSMConfig
+from repro_torch.configs.base import (AttentionConfig, ModelConfig, MoEConfig,
+                                      SSMConfig)
 
 _ID_TO_MODULE = {
     "qwen2-7b": "qwen2_7b",
@@ -17,6 +18,8 @@ _ID_TO_MODULE = {
     "whisper-large-v3": "whisper_large_v3",
     "llama-3.2-vision-90b": "llama_3_2_vision_90b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 ALL_ARCHS: List[str] = list(_ID_TO_MODULE)
@@ -33,5 +36,5 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG.validate()
 
 
-__all__ = ["ALL_ARCHS", "AttentionConfig", "ModelConfig", "SSMConfig",
-           "get_config"]
+__all__ = ["ALL_ARCHS", "AttentionConfig", "ModelConfig", "MoEConfig",
+           "SSMConfig", "get_config"]

@@ -4,8 +4,8 @@ The fields the serving routes of the dense family (paged and dense), of
 the hybrid family (Mamba-2 + a shared attention block, dense route), of
 the vlm family (Llama-3.2-Vision: gated image cross-attention, dense
 route), of the ssm family (Mamba-1, dense route) and of the audio family
-(the Whisper encoder-decoder, dense route) read are ported; the MoE
-block arrives with its family.
+(the Whisper encoder-decoder, dense route) and of the moe family (the
+dense layer with a routed expert FFN, both routes) read are ported.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 
 IMPLS = ("pasa", "flash", "naive")
-FAMILIES = ("dense", "vlm", "hybrid", "ssm", "audio")  # ported so far
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +48,22 @@ class AttentionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """The routed expert FFN (the reference's fields and defaults): top-k
+    of ``n_experts`` per token, each expert taking at most
+    ceil(T k / E * ``capacity_factor``) of a call's T tokens.
+    ``router_jitter`` is read by no forward of either package;
+    ``dispatch`` "a2a" takes the expert-parallel path only across devices
+    (ROADMAP A13), so on one device every call takes the gspmd path."""
+
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    dispatch: str = "a2a"
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     """The state-space block's shape (the reference's fields and
     defaults): ``version`` 1 is Mamba-1 (the ssm family), 2 Mamba-2 (the
@@ -64,7 +80,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # dense | vlm | hybrid | ssm | audio
+    family: str                   # dense | moe | vlm | hybrid | ssm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -78,6 +94,7 @@ class ModelConfig:
     rope_theta: float = 1.0e6
     norm_eps: float = 1.0e-6
 
+    moe: MoEConfig = MoEConfig()
     ssm: SSMConfig = SSMConfig()
     attention: AttentionConfig = AttentionConfig()
 
@@ -95,6 +112,10 @@ class ModelConfig:
     n_encoder_layers: int = 0
     n_audio_frames: int = 0
 
+    # the reference's parameter dtype (bf16 for kimi-k2); the port stores
+    # each weight at the dtype the reference casts it to before use
+    # (models/convert.py), so only training (ROADMAP A15) would read it
+    param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
 
     def torch_compute_dtype(self) -> torch.dtype:
@@ -114,9 +135,7 @@ class ModelConfig:
 
     def validate(self) -> "ModelConfig":
         if self.family not in FAMILIES:
-            raise ValueError(
-                f"family {self.family!r} is not ported to repro_torch yet"
-            )
+            raise ValueError(f"unknown family {self.family!r}")
         if self.family == "hybrid" and (self.ssm.version != 2
                                         or self.attn_every < 1):
             raise ValueError(
@@ -125,6 +144,8 @@ class ModelConfig:
             )
         if self.family == "vlm" and self.cross_attn_every < 1:
             raise ValueError("the vlm family needs cross_attn_every >= 1")
+        if self.family == "moe" and not self.moe.n_experts:
+            raise ValueError("moe family needs moe.n_experts")
         if self.family == "ssm" and self.ssm.version != 1:
             raise ValueError(
                 "the ssm family is ported with Mamba-1 (ssm.version 1)"
@@ -149,6 +170,10 @@ class ModelConfig:
             head_dim=16,
             d_ff=128,
             vocab_size=512,
+            moe=dataclasses.replace(
+                self.moe, n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+            ) if self.moe.n_experts else self.moe,
             ssm=dataclasses.replace(
                 self.ssm, state=min(self.ssm.state, 8), head_p=8, chunk=16,
             ),

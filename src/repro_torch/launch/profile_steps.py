@@ -3,7 +3,9 @@
 Builds ``--arch`` (qwen2-7b by default; full width, ``--layers`` cuts
 depth) with random weights and profiles the device calls of its serving
 routes.  The dense family (qwen2-7b, qwen3-4b, ...; the two 32B configs
-need ``--layers`` to fit one card), both routes:
+need ``--layers`` to fit one card) and the moe family (olmoe-1b-7b; its
+expert products land in "gemm", the routing and dispatch in "other"),
+both routes:
 
   * paged: four prompts of 1000/517/300/129 tokens prefilled in 512-token
     chunks through ``prefill_step_paged`` exactly as ``ServeEngine``
@@ -73,6 +75,8 @@ Run on one card from the repository root:
       --arch llama-3.2-vision-90b --layers 20 --out build/profile_vlm
   PYTHONPATH=src python -m repro_torch.launch.profile_steps \
       --arch falcon-mamba-7b --out build/profile_ssm
+  PYTHONPATH=src python -m repro_torch.launch.profile_steps \
+      --arch olmoe-1b-7b --out build/profile_olmoe
   PYTHONPATH=src python -m repro_torch.launch.profile_steps --kv-dtype int8 \
       --out build/profile_int8
   PYTHONPATH=src python -m repro_torch.launch.profile_steps --speculate 4 \

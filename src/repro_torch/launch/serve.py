@@ -48,6 +48,8 @@ Examples (one H100, full-width qwen2-7b, random weights):
       --batch 4 --prompt-len 200 --gen 32 --max-len 240
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
       --batch 4 --prompt-len 64 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --paged --batch 4 --prompt-len 512 --gen 32 --prefill-chunk 512
 (llama-3.2-vision-90b at its 100 layers does not fit one card: serve it
 at --reduced, or profile it with ``launch.profile_steps --layers 20``.)
 CPU smoke at the reduced config:
@@ -60,6 +62,8 @@ CPU smoke at the reduced config:
       --gen 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
       --reduced --batch 2 --prompt-len 12 --gen 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --reduced --batch 2 --prompt-len 12 --gen 4 --device cpu  # + --paged
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
       --reduced --paged --page-size 8 --batch 2 --prompt-len 40 --gen 8 \
       --num-pages 9 --prefix-cache --preemption --preempt-patience 1 \

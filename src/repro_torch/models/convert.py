@@ -1,4 +1,4 @@
-"""Parameters of the dense transformer, the hybrid (zamba2) model,
+"""Parameters of the dense and moe transformers, the hybrid (zamba2) model,
 Llama-3.2-Vision, the Mamba-1 LM (falcon-mamba) and Whisper: carried
 across from the reference, or drawn at random on the device.
 
@@ -10,6 +10,9 @@ Both produce the layout of the reference's ``transformer.init_lm``::
                          "wo": (L, H*hd, D), "bq"/"bk"/"bv": (L, n),
                          "q_norm"/"k_norm": (L, hd)},
                 "mlp": {"w1"/"w3": (L, D, F), "w2": (L, F, D)}}}
+
+(the moe family: ``"moe": {"router": (L, D, E), "w1"/"w3": (L, E, D, F),
+"w2": (L, E, F, D)}`` in place of ``"mlp"``),
 
 or of its ``hybrid.init_hybrid`` (Di = expand * D, NH = Di / head_p,
 N = the SSM state, K = d_conv)::
@@ -53,7 +56,8 @@ T audio frames)::
 Each weight is stored at the dtype the reference casts it to before use,
 not at the reference's fp32 parameter dtype: the compute dtype (bf16) for
 the projections, MLP, embedding, norms and biases, and fp32 for
-``lm_head`` (the logits GEMM runs in fp32), for the Mamba weights the
+``lm_head`` (the logits GEMM runs in fp32) and the moe ``router`` (the
+reference draws it in fp32 and routes in fp32), for the Mamba weights the
 reference reads in fp32 (``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``,
 ``d_skip``, Mamba-1's ``dt_proj``) and for the vlm's cross-attention gates
 (``gate_attn``, ``gate_mlp``: the reference takes their tanh at fp32 and
@@ -63,7 +67,9 @@ memory of a full-width model (about 14 GB in bf16 for qwen2-7b, plus 2.2
 GB for the fp32 head; 2.4 GB for zamba2-1.2b, plus 0.26 GB for its head;
 3.9 GB for whisper-large-v3, plus 0.27 GB for its head; 13.5 GB for
 falcon-mamba-7b, plus 1.07 GB for its head; 1.71 GB a layer for
-llama-3.2-vision-90b, plus 2.1 GB of embedding and 4.2 GB for its head).
+llama-3.2-vision-90b, plus 2.1 GB of embedding and 4.2 GB for its head;
+13.4 GB for olmoe-1b-7b's layers, plus 0.21 GB of embedding and 0.41 GB
+for its head).
 """
 
 from __future__ import annotations
@@ -78,10 +84,10 @@ from repro_torch.configs.base import ModelConfig
 
 
 # the leaves the reference reads in fp32 whatever the compute dtype
-FP32_LEAVES = (("lm_head",), ("mamba", "conv_w"), ("mamba", "conv_b"),
-               ("mamba", "a_log"), ("mamba", "dt_bias"), ("mamba", "d_skip"),
-               ("mamba", "dt_proj"), ("cross", "gate_attn"),
-               ("cross", "gate_mlp"))
+FP32_LEAVES = (("lm_head",), ("blocks", "moe", "router"), ("mamba", "conv_w"),
+               ("mamba", "conv_b"), ("mamba", "a_log"), ("mamba", "dt_bias"),
+               ("mamba", "d_skip"), ("mamba", "dt_proj"),
+               ("cross", "gate_attn"), ("cross", "gate_mlp"))
 
 
 def _leaf_dtype(path: tuple, cfg: ModelConfig) -> torch.dtype:
@@ -177,20 +183,30 @@ class _Draw:
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
     """Random parameters with the reference's distributions: embedding
-    N(0, 1); projections N(0, 1/d_in); norm weights 1; biases 0.  The
-    generator must live on ``device``.  Different draws from the
-    reference's (jax.random vs torch), same distributions."""
+    N(0, 1); projections N(0, 1/d_in); norm weights 1; biases 0; the moe
+    family's router (fp32) and expert ``w1`` / ``w3`` N(0, 1/D), ``w2``
+    N(0, 1/F) (``moe.init_moe``).  The generator must live on
+    ``device``.  Different draws from the reference's (jax.random vs
+    torch), same distributions."""
     r = _Draw(cfg, generator, resolve_device(device))
-    nl, d = cfg.n_layers, cfg.d_model
+    nl, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     attn = r.attention(cfg, nl)        # drawn first, then the embedding
+    embed = r.normal((cfg.vocab_size, d), 1.0)
+    blocks = {"ln1": r.const((nl, d), 1.0), "ln2": r.const((nl, d), 1.0),
+              "attn": attn}
+    if cfg.family == "moe":
+        e = cfg.moe.n_experts
+        blocks["moe"] = {
+            "router": r.dense(d, e, nl, dtype=torch.float32),
+            "w1": r.normal((nl, e, d, f), 1.0 / math.sqrt(d)),
+            "w3": r.normal((nl, e, d, f), 1.0 / math.sqrt(d)),
+            "w2": r.normal((nl, e, f, d), 1.0 / math.sqrt(f)),
+        }
+    else:
+        blocks["mlp"] = r.mlp(d, f, nl)
     return {
-        "embed": r.normal((cfg.vocab_size, d), 1.0),
-        "blocks": {
-            "ln1": r.const((nl, d), 1.0),
-            "ln2": r.const((nl, d), 1.0),
-            "attn": attn,
-            "mlp": r.mlp(d, cfg.d_ff, nl),
-        },
+        "embed": embed,
+        "blocks": blocks,
         "final_norm": r.const((d,), 1.0),
         "lm_head": r.dense(d, cfg.vocab_size, dtype=torch.float32),
     }

@@ -1,10 +1,12 @@
 """build(cfg) -> ModelBundle (counterpart of ``repro.models.model_zoo``).
 
-Five families are ported.  The dense family (qwen2-7b, the qwen3 configs
-with qk-norm, qwen1.5-32b) has both serving routes: the
-dense route (``launch/serve.py``) needs ``init_cache``, ``serve_step``
-and ``prefill``; the paged engine ``init_paged_cache``,
-``paged_serve_step`` and ``paged_prefill_step``.  The hybrid family
+All six families are ported.  The dense family (qwen2-7b, the qwen3
+configs with qk-norm, qwen1.5-32b) and the moe family (olmoe-1b-7b,
+kimi-k2: the same bundle, each layer's FFN routed to experts) have both
+serving routes: the dense route (``launch/serve.py``) needs
+``init_cache``, ``serve_step`` and ``prefill``; the paged engine
+``init_paged_cache``, ``paged_serve_step`` and ``paged_prefill_step``.
+The hybrid family
 (zamba2: Mamba-2 + a shared attention block) has the dense cache only,
 served token by token: ``init_cache`` and ``serve_step``; its ``prefill``
 and the three paged fields are None (its Mamba state is O(1) per

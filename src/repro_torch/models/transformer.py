@@ -1,4 +1,5 @@
-"""Dense decoder-only transformer: dense-cache and paged serving interfaces.
+"""Decoder-only transformer (the dense and moe families): dense-cache and
+paged serving interfaces.
 
 Counterpart of ``repro.models.transformer``: the parameter layout of
 ``init_lm`` (stacked ``(L, ...)`` leaves, ``y = x @ W`` orientation);
@@ -17,6 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.runtime.paged_cache import init_paged_pool
 
 
@@ -39,7 +41,11 @@ def _blocks(x, blocks: dict, cfg: ModelConfig, *, cache: dict, pos=None,
             prefill_len=prefill_len,
         )
         x = x + h.to(x.dtype)
-        ff = L.mlp(L.rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], cd)
+        ff_in = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if cfg.family == "moe":
+            ff = moe_mod.moe_ffn(ff_in, lp["moe"], cfg)
+        else:
+            ff = L.mlp(ff_in, lp["mlp"], cd)
         x = x + ff.to(x.dtype)
     return x
 

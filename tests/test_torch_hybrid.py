@@ -79,7 +79,7 @@ def test_config_matches_reference(reduced):
     if reduced:
         rc, tc = rc.reduced(), tc.reduced()
     for f in dataclasses.fields(tc):
-        if f.name in ("attention", "ssm"):
+        if f.name in ("attention", "ssm", "moe"):
             assert dataclasses.asdict(getattr(tc, f.name)) == \
                 dataclasses.asdict(getattr(rc, f.name)), f.name
         else:

@@ -33,6 +33,7 @@ def test_the_scan_sees_the_port():
     assert any(p.name == "prefix_cache.py" for p in FILES)
     assert any(p.name == "telemetry.py" for p in FILES)
     assert any(p.name == "multimodal.py" for p in FILES)
+    assert any(p.name == "moe.py" for p in FILES)
 
 
 @pytest.mark.parametrize(
