@@ -85,8 +85,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      boundaries (``prefill_chunk_starts``), as a prefix hit starts;
   7. the hybrid family: zamba2-1.2b at full width (38 Mamba-2 layers, a
      shared attention block applied 7 times, head_dim 64; random weights
-     from seed 0) serves four 200-token prompts, 32 greedy tokens each,
-     token by token through launch/serve.py's route on a 240-row cache
+     from seed 0) serves four 100-token prompts, 32 greedy tokens each,
+     token by token through launch/serve.py's route on a 140-row cache
      (``serve_hybrid``): the contiguous decode kernel at head_dim 64 7
      times per step and no other kernel, batched == one-at-a-time
      streams, the first generated step's logits against the plain
@@ -182,7 +182,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      streams equal to the paged engine's on the same prompts up to each
      row's first flip, at a top-2 margin under STREAM_GUARD) and
      ``serve_qwen3_4b_tbt``
-     (prompts of 160 / 129 / 64 / 17 tokens token by token ==
+     (prompts of 129 / 17 tokens token by token ==
      ``dense_greedy_reference``).  In the kernels line each group entry has
      its qwen3-4b serve's count (0 at G 5, 8 and 1, which no serve runs).
  12. the vlm and ssm families, token by token.  ``check_vlm_cross``:
@@ -232,7 +232,42 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      held): requests 0 and 3 alone == batched, async == sync
      (``serve_async``) and token by token == ``dense_greedy_reference``
      (prompts of 129 and 17).  In the kernels line the ``g1o`` entries
-     have the olmoe serves' counts.
+     have the olmoe serves' counts;
+ 14. serving across devices, right after phase 3 with its weights.
+     ``serve_replicas_bf16``: phase 3's workload through an
+     ``EngineReplicaGroup`` of two replicas on cuda:0 (a 2 x 1 mesh, one
+     copy of the weights, each replica its own pool) under "least"
+     routing: streams equal phase 3's, each paged kernel launched 28
+     times per call of each replica (counted per replica), each replica's
+     non-null pages equal a one-engine serve of its subset.
+     ``serve_affinity_bf16``: eight requests sharing a 512-token system
+     prompt plus a drawn tail of 64-300 tokens, the prefix cache on: the
+     first served to its end, then the other seven as a burst - under
+     "affinity" every one lands on the warm replica and hits its four
+     system pages; routing counts, prefix hits and TTFT beside the same
+     under "rr", whose streams are equal.  ``serve_replicas_async_bf16``:
+     the group at ``pipeline_depth=1`` equals the sync group, 0
+     synchronizing calls a step outside the drain points.  The paged
+     kernels at the per-rank slice of a 1 x 2 model axis (KVH 2, G 7;
+     ``check_kvh2_slices``) against their plain versions, timed beside
+     SDPA.  ``serve_mesh_1x2_<pool>`` (bf16, int8): a gloo group of two
+     spawned processes on cuda:0, each serving qwen2-7b at full width
+     with its depth cut to MESH_LAYERS from a pool kv-head-sharded in
+     halves: tokens and the whole pool's non-null pages equal a
+     one-process serve's, each rank holds half the pool's bytes, the
+     boundary's host-staging ms per call and each process's peak device
+     memory beyond what was resident reported (the sharded engine gathers
+     the whole pool and runs the one-device step at KVH 4, so the split
+     at rest saves no peak memory and no compute); in the same group
+     (``serve_mesh_1x2_ops``) the two sharded ops on phase 2's decode and
+     prefill fixtures (each rank's kernels at KVH 2) bit-equal to the
+     unsharded kernels, and ``core.ring_pasa_attention`` on the prefill
+     fixture's first 3 kv heads within RMSE_MAX of float64 and
+     RING_RMSE_RATIO x the one-device GEMM-form PASA's RMSE, and at the
+     float64 policy within 1e-10 of it.  In the kernels line the paged
+     kernels' counts include the replica serve's and both ranks' of the
+     bf16 mesh serve; the KVH 2 slices, which no serve runs, have the
+     sharded ops' launches over both ranks.
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -317,13 +352,13 @@ CANCEL_AFTER = 8
 TELEMETRY_PROBE_EVERY = 4
 # head_dim 64 (zamba2-1.2b's shared attention block): both decode kernels
 # at zamba2's shape (KVH 32, G 1) and at a GQA group (KVH 4, G 8); the
-# hybrid serve: four 200-token prompts, 32 greedy tokens each, token by
-# token on a 240-row cache (block 128: decode crosses a block boundary),
+# hybrid serve: four 100-token prompts, 32 greedy tokens each, token by
+# token on a 140-row cache (block 128: decode crosses a block boundary),
 # and its first generated step's logits held to the same step through the
 # kernels' plain versions on the card within 0.1 (the bar of the CPU
 # parity tests between two bf16 stacks, tests/test_torch_dense_route.py)
 HD64_SHAPES = ((32, 1), (4, 8))
-HYBRID_BATCH, HYBRID_PROMPT, HYBRID_MAX_LEN = 4, 200, 240
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_MAX_LEN = 4, 100, 140
 HYBRID_ALONE = (0, 3)
 HYBRID_LOGIT_ATOL = 0.1
 # head_dim 64 of shift-KV and attention (whisper-large-v3: 20 / 20 heads
@@ -363,7 +398,7 @@ GROUP_SHAPES = (("qwen3-4b", 8, 4), ("qwen3-14b", 8, 5), ("qwen3-32b", 8, 8),
 SERVED_GROUPS = {"qwen3-4b": ("g4", QUANT_DTYPES),
                  "olmoe-1b-7b": ("g1o", ("int8",))}
 QWEN3_ALONE = (0, 3)
-QWEN3_TBT_PROMPTS = (160, 129, 64, 17)
+QWEN3_TBT_PROMPTS = (129, 17)
 # the dense route's first step (the fused prefill's logits, qwen2-7b and
 # qwen3-4b) through the kernels held within DENSE_LOGIT_ATOL of the plain
 # versions and no farther than DENSE_FP32_RATIO x the plain versions' own
@@ -4830,6 +4865,548 @@ def serve_olmoe(dev, bundle, nodrop, params):
     print("serve_olmoe_nodrop: " + json.dumps(rep), flush=True)
     return reps
 
+# ------------------------------------------------------------ phase 14 --
+# Serving across devices.  The data axis: EngineReplicaGroup, two
+# replicas of qwen2-7b on cuda:0 sharing one copy of the weights (the
+# replicas' own pools).  The model axis: a gloo group of two processes on
+# cuda:0, each serving qwen2-7b at full width with its depth cut to
+# MESH_LAYERS from a pool kv-head-sharded in halves.  The affinity burst:
+# AFFINITY_BURST requests sharing an AFFINITY_SYSTEM-token system prompt
+# (4 pages of 128) plus a drawn tail of AFFINITY_TAIL tokens, AFFINITY_GEN
+# tokens each, the prefix cache on.
+AFFINITY_SYSTEM, AFFINITY_BURST, AFFINITY_GEN = 512, 8, 16
+AFFINITY_TAIL = (64, 300)
+MESH_LAYERS = 4
+MESH_TIMEOUT_S = 600
+# ring PASA at fp16 against float64: at most this many times the RMSE of
+# the one-device GEMM-form PASA on the same K/V (each rank folds the
+# shards in its own order; tests/test_torch_ring.py's class)
+RING_RMSE_RATIO = 2.0
+
+
+def _replica_mesh():
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh((2, 1), ("data", "model"))     # both cells on cuda:0
+
+
+def _group_drive(grp):
+    """Step every replica of ``grp`` (what ``grp.step()`` does), counting
+    each replica's paged-kernel launches apart; returns the wall time (s)
+    at each step's end and the per-replica counts."""
+    import torch
+
+    per = [{"pasa_paged_prefill": 0, "pasa_paged_decode": 0}
+           for _ in grp.engines]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks = []
+    while not grp.idle:
+        for i, eng in enumerate(grp.engines):
+            before = _launch_counts()
+            eng.step()
+            after = _launch_counts()
+            for name in per[i]:
+                per[i][name] += after[name] - before[name]
+        marks.append(time.perf_counter() - t0)
+    grp.drain()
+    return marks, per
+
+
+def serve_replicas(dev, bundle, params, streams):
+    """``serve_replicas_bf16``: phase 3's workload through a group of two
+    replicas on cuda:0 under "least" routing (the burst deals i::2).  Held:
+    the streams equal phase 3's (``streams``); each replica launches each
+    paged kernel 28 times per call of its own, counted apart; each
+    replica's non-null pages equal a one-engine serve of its subset; the
+    replicas share the one copy of the weights.  Returns the report and
+    the group's streams, pools and launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import EngineReplicaGroup, ServeEngine
+
+    tag = "serve_replicas_bf16"
+    prompts, kw = _paged_workload(bundle.cfg, "bf16")
+    ops.reset_launches()
+    grp = EngineReplicaGroup(bundle, params, _replica_mesh(), routing="least",
+                             **kw)
+    reqs = [grp.submit(p, SERVE_GEN) for p in prompts]
+    marks, per = _group_drive(grp)
+    n = bundle.cfg.n_layers
+    for i, eng in enumerate(grp.engines):
+        want = {"pasa_paged_prefill": n * eng.prefill_calls,
+                "pasa_paged_decode": n * eng.decode_calls}
+        if per[i] != want or not (eng.prefill_calls and eng.decode_calls):
+            raise AssertionError(f"{tag}: replica {i} launches {per[i]} != "
+                                 f"{want}")
+        if eng.params is not params:
+            raise AssertionError(f"{tag}: replica {i} copied the weights")
+    total = _launch_counts()
+    if total["pasa_decode"] or any(
+            total[k] != sum(p[k] for p in per) for k in per[0]):
+        raise AssertionError(f"{tag}: launches {total} != the replicas' {per}")
+    got = [r.generated for r in reqs]
+    if got != streams:
+        raise AssertionError(f"{tag}: streams differ from phase 3's")
+    owners = [grp.engines.index(grp._owner[r.req_id]) for r in reqs]
+    for i, eng in enumerate(grp.engines):
+        subset = [p for p, o in zip(prompts, owners) if o == i]
+        alone = ServeEngine(bundle, params, **kw)
+        for p in subset:
+            alone.submit(p, SERVE_GEN)
+        alone.run_to_completion()
+        if not _pools_equal(eng.pool, alone.pool):
+            raise AssertionError(f"{tag}: replica {i}'s pages differ from a "
+                                 f"one-engine serve of its subset")
+    st = grp.stats()
+    pools = [{k: x.clone() for k, x in e.pool.items()} for e in grp.engines]
+    wall = marks[-1]
+    rep = dict(
+        replicas=2, routing="least", owners=owners,
+        launches_per_replica=per, prefill_calls=st["prefill_calls"],
+        decode_calls=st["decode_calls"], steps=len(marks), wall_s=wall,
+        tok_per_s=sum(len(s) for s in got) / wall,
+        ttft_ms=[1e3 * marks[r.first_token_step] for r in reqs],
+        cache_bytes=st["cache_bytes"], weights_shared=True,
+        streams_equal_to_phase3=True, pages_equal_to_subset_serves=True)
+    return rep, dict(streams=got, pools=pools, launches=total)
+
+
+def _affinity_prompts(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(14)
+    system = rng.integers(0, cfg.vocab_size, AFFINITY_SYSTEM).tolist()
+    return [system + rng.integers(0, cfg.vocab_size, int(rng.integers(
+        AFFINITY_TAIL[0], AFFINITY_TAIL[1] + 1))).tolist()
+        for _ in range(AFFINITY_BURST)]
+
+
+def serve_affinity(dev, bundle, params):
+    """``serve_affinity_bf16``: the first request served to its end on a
+    group of two replicas (its prompt pages donated to its replica's
+    prefix cache), then the other AFFINITY_BURST - 1 as one burst, under
+    "affinity" and again under "rr".  Held: under affinity every burst
+    request lands on the warm replica and hits the 4 system pages; both
+    routings give the same streams.  Reported: routing counts, prefix
+    hits, TTFT (ms from the burst's submission) under each."""
+    import numpy as np
+    import torch
+
+    from repro_torch.runtime import EngineReplicaGroup
+
+    tag = "serve_affinity_bf16"
+    prompts = _affinity_prompts(bundle.cfg)
+    longest = AFFINITY_SYSTEM + AFFINITY_TAIL[1] + AFFINITY_GEN
+    pages = math.ceil(longest / 128)
+    kw = dict(max_batch=AFFINITY_BURST, page_size=128, prefill_chunk=512,
+              num_pages=1 + AFFINITY_BURST * pages, max_seq_len=longest,
+              prefix_cache=True)
+    out, streams = {}, {}
+    for routing in ("affinity", "rr"):
+        grp = EngineReplicaGroup(bundle, params, _replica_mesh(),
+                                 routing=routing, **kw)
+        r0 = grp.submit(prompts[0], AFFINITY_GEN)
+        warm = grp.engines.index(grp._owner[r0.req_id])
+        grp.run_to_completion()
+        step0 = grp.engines[0].steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        burst = [grp.submit(p, AFFINITY_GEN) for p in prompts[1:]]
+        marks = []
+        while not grp.idle:
+            grp.step()
+            marks.append(time.perf_counter() - t0)
+        grp.drain()
+        owners = [grp.engines.index(grp._owner[r.req_id]) for r in burst]
+        hits = [e.stats()["prefix_cache"]["hits"] for e in grp.engines]
+        ttft = [1e3 * marks[r.first_token_step - step0] for r in burst]
+        streams[routing] = [r.generated for r in [r0] + burst]
+        out[routing] = dict(
+            warm_replica=warm,
+            burst_per_replica=[owners.count(i) for i in range(2)],
+            prefix_hits_per_replica=hits,
+            prefill_calls=grp.stats()["prefill_calls"],
+            ttft_ms=ttft, ttft_ms_mean=float(np.mean(ttft)),
+            burst_wall_s=marks[-1])
+        if routing == "affinity":
+            if owners != [warm] * len(burst):
+                raise AssertionError(f"{tag}: the burst went to {owners}, "
+                                     f"not all to the warm replica {warm}")
+            if hits[warm] < 4 * len(burst) or hits[1 - warm]:
+                raise AssertionError(f"{tag}: prefix hits {hits}")
+        del grp
+    if streams["affinity"] != streams["rr"]:
+        raise AssertionError(f"{tag}: routing changed a stream")
+    return dict(burst=AFFINITY_BURST, system_tokens=AFFINITY_SYSTEM,
+                tail=list(AFFINITY_TAIL), gen=AFFINITY_GEN,
+                streams_equal_across_routings=True, **out)
+
+
+def serve_replicas_async(dev, bundle, params, sync):
+    """``serve_replicas_async_bf16``: the replica group of
+    :func:`serve_replicas` at ``pipeline_depth=1``.  Held: streams, pools
+    and launches equal the sync group's (``sync``), and no synchronizing
+    call a step outside the replicas' drain points (``count_syncs``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_steps import count_syncs
+    from repro_torch.runtime import EngineReplicaGroup
+
+    tag = "serve_replicas_async_bf16"
+    prompts, kw = _paged_workload(bundle.cfg, "bf16")
+    ops.reset_launches()
+    grp = EngineReplicaGroup(bundle, params, _replica_mesh(), routing="least",
+                             pipeline_depth=1, **kw)
+    reqs = [grp.submit(p, SERVE_GEN) for p in prompts]
+    steps = 0
+    with count_syncs(*grp.engines) as syncs:
+        t0 = time.perf_counter()
+        while not grp.idle:
+            grp.step()
+            steps += 1
+        grp.drain()
+        wall = time.perf_counter() - t0
+    if [r.generated for r in reqs] != sync["streams"]:
+        raise AssertionError(f"{tag}: streams differ from the sync group's")
+    if not all(_pools_equal(e.pool, p)
+               for e, p in zip(grp.engines, sync["pools"])):
+        raise AssertionError(f"{tag}: pool bytes differ from the sync group's")
+    if _launch_counts() != sync["launches"]:
+        raise AssertionError(f"{tag}: launches {_launch_counts()} != "
+                             f"{sync['launches']}")
+    if syncs["outside"]:
+        raise AssertionError(f"{tag}: {syncs['outside']} synchronizing calls "
+                             f"outside the drain points: {syncs['where']}")
+    return dict(pipeline_depth=1, steps=steps, wall_s=wall,
+                tok_per_s=SERVE_GEN * len(prompts) / wall,
+                syncs_per_step_outside_drain_points=syncs["outside"] / steps,
+                syncs_per_step_all=syncs["all"] / steps,
+                streams_equal_to_sync=True, pools_equal_to_sync=True)
+
+
+def _mesh_model(dev):
+    """qwen2-7b at full width, depth cut to MESH_LAYERS, weights from seed
+    0 (the same draw in every process)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build
+
+    bundle = build(dataclasses.replace(get_config("qwen2-7b"),
+                                       n_layers=MESH_LAYERS))
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
+    return bundle, params
+
+
+def _mesh_serve(bundle, params, cache_dtype, mesh=None):
+    """Phase 3's workload at depth MESH_LAYERS (after a one-request warm-up
+    serve), the launches checked per call; returns the report, with the
+    device memory the serve took at its peak beyond what was resident
+    before it (per process, so per rank on the model axis)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ServeEngine
+
+    prompts, kw = _paged_workload(bundle.cfg, cache_dtype)
+    warm = ServeEngine(bundle, params, mesh=mesh, **kw)
+    warm.submit(prompts[-1][:64], 2)
+    warm.run_to_completion()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    eng = ServeEngine(bundle, params, mesh=mesh, **kw)
+    reqs = [eng.submit(p, SERVE_GEN) for p in prompts]
+    marks = _drive(eng)
+    launches = _check_engine_launches(f"mesh {cache_dtype}", eng, cache_dtype)
+    st = eng.stats()
+    io = eng.pool_io
+    return eng, dict(
+        cache_dtype=cache_dtype, streams=[r.generated for r in reqs],
+        launches=launches, prefill_calls=eng.prefill_calls,
+        decode_calls=eng.decode_calls, wall_s=marks[-1],
+        pool_bytes=st["cache_bytes"],
+        pool_bytes_per_rank=st["cache_bytes_per_device"],
+        peak_bytes_over_resident=torch.cuda.max_memory_allocated() - resident,
+        staging_calls=io.calls if io else 0,
+        staging_ms_per_call=1e3 * io.stage_s() / io.calls if io else 0.0)
+
+
+def _mesh_ops(dev, mesh):
+    """The sharded ops on phase 2's decode and prefill fixtures (KVH 4,
+    G 7: each rank runs the paged kernels on its KVH 2 slice) against the
+    unsharded kernels, bit for bit, the launch counts set to 0 just before
+    the sharded calls and read just after (``kvh2_launches``: the KVH 2
+    rows of the kernels line); and ``core.ring_pasa_attention`` over the
+    group on the prefill fixture's first 3 kv heads (live rows): at fp16
+    within RMSE_MAX of float64 attention and within RING_RMSE_RATIO x the
+    one-device GEMM-form PASA's RMSE (``core.blocked_attention``), at the
+    float64 policy within the reference's 1e-10 of the one-device
+    GEMM-form PASA at float64."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import blocked_attention, ring_pasa_attention
+    from repro_torch.core.collectives import all_gather, shard
+    from repro_torch.core.precision import F64, FP16
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.paged_cache import gather_pages
+
+    rng, kp, vp, table, kv_len, _ = _decode_fixture(dev)
+    q = torch.from_numpy(rng.standard_normal(
+        (len(DECODE_KV_LENS), 4, 7, 128)).astype(np.float32)).to(
+        device=dev, dtype=torch.float16)
+    qp, kp2, vp2, table2, start, kv_len2 = _prefill_fixture(dev)
+    whole = ops.pasa_paged_decode(q, kp, vp, table, kv_len, beta=BETA,
+                                  policy=FP16)
+    whole_p = ops.pasa_paged_prefill(qp, kp2, vp2, table2, start, kv_len2,
+                                     beta=BETA, policy=FP16)
+    ops.reset_launches()
+    split = ops.pasa_paged_decode_sharded(q, kp, vp, table, kv_len,
+                                          mesh=mesh, beta=BETA, policy=FP16)
+    split_p = ops.pasa_paged_prefill_sharded(
+        qp, kp2, vp2, table2, start, kv_len2, mesh=mesh, beta=BETA,
+        policy=FP16)
+    kvh2 = {name: getattr(ops, name).launches
+            for name in ("pasa_paged_decode", "pasa_paged_prefill")}
+    torch.cuda.synchronize()
+    if not (torch.equal(whole, split) and torch.equal(whole_p, split_p)):
+        raise AssertionError("the sharded paged ops differ from the "
+                             "unsharded kernels")
+    # the ring: 3 kv heads (21 query heads), the table padded to an even
+    # page count with the null page so each rank's KV shard is whole
+    # pages, the columns past kv_len zeroed.  The ring is the paper's
+    # GEMM-form PASA (K shifted by the rounded M over whole blocks), as
+    # the reference's is, so it is held to the one-device GEMM-form PASA
+    # on the same K/V and to float64 attention
+    q3, k3, v3 = (qp[:, :21].contiguous(), kp2[:, :, :3].contiguous(),
+                  vp2[:, :, :3].contiguous())
+    t3 = torch.cat([table2, torch.zeros_like(table2[:, :1])], 1)
+    t3 = t3[:, :t3.shape[1] - t3.shape[1] % 2]
+    b, h, cs, d = q3.shape
+    s2 = t3.shape[1] * 128
+    live = (torch.arange(s2, device=dev)[None, :]
+            < kv_len2[:, None])[:, None, None, :, None]
+    q5 = q3.reshape(b, 3, 7, cs, d)
+    kv5 = [torch.where(live, gather_pages(
+        x.reshape(x.shape[0], 128, 3 * d).half(), t3).reshape(
+        b, s2, 3, d).movedim(1, 2)[:, :, None], 0.0).half() for x in (k3, v3)]
+    r, n = mesh.axis_rank("model"), mesh.shape["model"]
+    ring, one = {}, {}
+    for policy in (FP16, F64):
+        part = ring_pasa_attention(
+            *(shard(x, 3, n, r) for x in (q5, *kv5)), group=mesh.group,
+            beta=BETA, policy=policy, block_kv=128, causal=True,
+            kv_len=kv_len2.to(torch.int32).reshape(b, 1, 1, 1, 1),
+            q_offset=start.to(torch.int32).reshape(b, 1, 1, 1, 1))
+        ring[policy.name] = all_gather(part, 3, mesh.group).reshape(
+            b, h, cs, d)[:3]
+        one[policy.name] = blocked_attention(
+            q5, *kv5, beta=BETA, policy=policy, block_kv=128, causal=True,
+            kv_len=kv_len2.reshape(b, 1, 1),
+            q_offset=start.reshape(b, 1, 1, 1)).reshape(b, h, cs, d)[:3]
+    gold = _prefill_gold(q3, k3, v3, t3)
+    rmse = _rel_rmse(ring[FP16.name], gold)
+    rmse_one = _rel_rmse(one[FP16.name], gold)
+    if not (torch.isfinite(ring[FP16.name]).all() and rmse < RMSE_MAX
+            and rmse <= RING_RMSE_RATIO * rmse_one):
+        raise AssertionError(f"ring PASA: RMSE {rmse:.4f}, one-device "
+                             f"GEMM-form PASA {rmse_one:.4f}")
+    exact = _rel_rmse(ring[F64.name], one[F64.name].double())
+    if not exact < 1e-10:
+        raise AssertionError(f"ring PASA at f64: {exact:.2e} from the "
+                             f"one-device GEMM-form PASA")
+    return dict(decode_bit_equal=True, prefill_bit_equal=True,
+                kvh2_launches=kvh2, ring_kvh=3, ring_rmse=rmse,
+                ring_rmse_one_device_gemm_form=rmse_one,
+                ring_f64_rmse_to_one_device=exact)
+
+
+def _mesh_rank(rank, store, out_dir, device):
+    """One rank of the world-2 model-axis group, both on ``device``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.collectives import all_gather
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=2)
+    try:
+        mesh = make_mesh((1, 2), ("data", "model"), devices=dev)
+        bundle, params = _mesh_model(dev)
+        res = {}
+        for dtype in ("bf16", "int8"):
+            eng, rep = _mesh_serve(bundle, params, dtype, mesh)
+            sh = eng.pool.shardings
+            rep["pool"] = {n: all_gather(x, sh[n].dim, mesh.group).cpu()
+                           for n, x in eng.pool.items()}
+            res[dtype] = rep
+            del eng
+        ops_rep = _mesh_ops(dev, mesh)
+        res["ops"] = ops_rep
+        if rank:
+            for dtype in ("bf16", "int8"):
+                del res[dtype]["pool"]
+        torch.save(res, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_mesh(dev):
+    """``serve_mesh_1x2_<pool>``: this process serves the
+    depth-MESH_LAYERS model alone, then the world-2 group of two
+    processes on ``dev`` (:func:`_mesh_rank`) serves it.  Held: each
+    rank's tokens, and the whole pool's non-null pages, equal the
+    one-process serve's; each rank's pool bytes are half of the whole;
+    the sharded ops (in the group) as :func:`_mesh_ops` holds them; every
+    child's failure fails the phase.  Reported: the boundary's
+    host-staging ms per call."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    # the one-process serves first, so that the group's staging times
+    # are taken on an otherwise idle card
+    bundle, params = _mesh_model(dev)
+    alone = {}
+    for dtype in ("bf16", "int8"):
+        eng, rep = _mesh_serve(bundle, params, dtype)
+        rep["pool"] = {n: x.cpu() for n, x in eng.pool.items()}
+        alone[dtype] = rep
+        del eng
+    del bundle, params
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    out_dir = Path(tempfile.mkdtemp(prefix="mesh", dir=ROOT / "build"))
+    ctx = mp.spawn(_mesh_rank, nprocs=2, join=False, args=(
+        str(out_dir / "store"), str(out_dir), str(dev)))
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"the mesh group ran past {MESH_TIMEOUT_S} s")
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    reps = {}
+    for dtype in ("bf16", "int8"):
+        tag = f"serve_mesh_1x2_{dtype}"
+        want = alone[dtype]
+        for r, res in enumerate(ranks):
+            got = res[dtype]
+            if got["streams"] != want["streams"]:
+                raise AssertionError(f"{tag}: rank {r}'s streams differ from "
+                                     f"the one-process serve's")
+            if got["pool_bytes_per_rank"] * 2 != got["pool_bytes"] \
+                    or got["pool_bytes"] != want["pool_bytes"]:
+                raise AssertionError(f"{tag}: pool bytes {got['pool_bytes']} "
+                                     f"/ {got['pool_bytes_per_rank']} a rank")
+        if not _pools_equal(ranks[0][dtype]["pool"], want["pool"]):
+            raise AssertionError(f"{tag}: page bytes differ from the "
+                                 f"one-process serve's")
+        reps[tag] = dict(
+            layers=MESH_LAYERS, ranks=2,
+            launches_all_ranks={name: sum(res[dtype]["launches"][name]
+                                          for res in ranks)
+                                for name in ranks[0][dtype]["launches"]},
+            **{k: v for k, v in ranks[0][dtype].items()
+               if k not in ("pool", "streams")},
+            staging_ms_per_call_rank1=ranks[1][dtype]["staging_ms_per_call"],
+            peak_bytes_over_resident_rank1=ranks[1][dtype][
+                "peak_bytes_over_resident"],
+            peak_bytes_over_resident_alone=want["peak_bytes_over_resident"],
+            wall_s_alone=want["wall_s"], streams_equal_to_one_process=True,
+            pages_equal_to_one_process=True)
+    reps["serve_mesh_1x2_ops"] = [res["ops"] for res in ranks]
+    return reps
+
+
+def check_kvh2_slices(dev):
+    """Each paged kernel on the per-rank slice of a 1x2 model axis: the
+    first 2 kv heads (G 7) of phase 2's decode and prefill fixtures, each
+    against its plain version, timed beside it and SDPA."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import FP16
+    from repro_torch.kernels import ops
+
+    kvh, g, d, page = 2, 7, 128, 128
+    rng, kp, vp, table, kv_len, _ = _decode_fixture(dev)
+    b = len(DECODE_KV_LENS)
+    kp, vp = kp[:, :, :kvh].contiguous(), vp[:, :, :kvh].contiguous()
+    q = torch.from_numpy(rng.standard_normal((b, kvh, g, d)).astype(
+        np.float32)).to(device=dev, dtype=torch.float16)
+    mod = _kernel_module("pasa_paged_decode")
+    call = lambda: ops.pasa_paged_decode(q, kp, vp, table, kv_len, beta=BETA,
+                                         policy=FP16)
+    plain = lambda: mod.paged_decode_plain(q, kp, vp, table, kv_len,
+                                           beta=BETA, policy=FP16,
+                                           block_kv=page)
+    err = _close("pasa_paged_decode/kvh2", call(), plain(), **DECODE_TOL)
+    mp = table.shape[1]
+    kg, vg = (torch.nan_to_num(x[table.long()].reshape(b, mp * page, kvh, d)
+                               .movedim(1, 2).half()).repeat_interleave(g, 1)
+              for x in (kp, vp))
+    mask = (torch.arange(mp * page, device=dev)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    qh = q.reshape(b, kvh * g, 1, d)
+    live = sum(DECODE_KV_LENS)
+    dec = dict(
+        name="pasa_paged_decode/kvh2", route="cuda",
+        source="src/repro_torch/kernels/csrc/pasa_paged_decode.cu",
+        replaces="src/repro/kernels/pasa_paged_decode.py:196",
+        max_abs_err=err, ms=_cuda_time_ms(call, 50),
+        plain_ms=_cuda_time_ms(plain, 3, warmup=1),
+        library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kg, vg, attn_mask=mask), 20),
+        **_bound(2 * live * kvh * d * 2 + 2 * q.numel() * 2
+                 + table.numel() * 4 + b * 4, 4 * g * d * live * kvh))
+    qp, kp2, vp2, table2, start, kv_len2 = _prefill_fixture(dev)
+    h = kvh * g
+    qp = qp[:, :h].contiguous()
+    kp2, vp2 = kp2[:, :, :kvh].contiguous(), vp2[:, :, :kvh].contiguous()
+    pmod = _kernel_module("pasa_paged_prefill")
+    call = lambda: ops.pasa_paged_prefill(qp, kp2, vp2, table2, start,
+                                          kv_len2, beta=BETA, policy=FP16)
+    plain = lambda: pmod.paged_prefill_plain(qp, kp2, vp2, table2, start,
+                                             kv_len2, beta=BETA, policy=FP16)
+    err = _close("pasa_paged_prefill/kvh2", call(), plain(), **PREFILL_TOL)
+    mp = table2.shape[1]
+    kg, vg = (torch.nan_to_num(x[table2.long()].reshape(4, mp * page, kvh, d)
+                               .movedim(1, 2).half()).repeat_interleave(g, 1)
+              for x in (kp2, vp2))
+    col = torch.arange(mp * page, device=dev)
+    qpos = start[:, None] + torch.arange(PREFILL_CHUNK, device=dev)[None, :]
+    pmask = (col[None, None, :] <= qpos[:, :, None]) & (
+        col[None, None, :] < kv_len2[:, None, None])
+    nbytes = (2 * sum(PREFILL_ROWS[1]) * kvh * d * 2 + 2 * qp.numel() * 2
+              + table2.numel() * 4 + 2 * 4 * 4)
+    pre = dict(
+        name="pasa_paged_prefill/kvh2", route="cuda",
+        source="src/repro_torch/kernels/csrc/pasa_paged_prefill.cu",
+        replaces="src/repro/kernels/pasa_paged_prefill.py:368",
+        max_abs_err=err, ms=_cuda_time_ms(call, 20),
+        plain_ms=_cuda_time_ms(plain, 3, warmup=1),
+        library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qp, kg, vg, attn_mask=pmask[:, None]), 10),
+        **_bound(nbytes, _prefill_flops(h, d)))
+    return [dec, pre]
+
+
 def main() -> int:
     import torch
 
@@ -4911,6 +5488,30 @@ def main() -> int:
         rq["pool_bytes_vs_bf16"] = rq["pool_bytes"] / rep["pool_bytes"]
         print(f"serve_{dtype}: " + json.dumps(rq))
         reps[dtype] = rq
+    # phase 14: serving across devices with phase 3's weights - two
+    # replicas on this card, then the model axis in a gloo group of two
+    # processes - each serve driven with the launch counts set to 0 just
+    # before it
+    t_p14 = time.perf_counter()
+    rep_replicas, replica_sync = serve_replicas(dev, bundle, params,
+                                                rep["streams"])
+    print("serve_replicas_bf16: " + json.dumps(rep_replicas))
+    print("serve_affinity_bf16: "
+          + json.dumps(serve_affinity(dev, bundle, params)))
+    print("serve_replicas_async_bf16: " + json.dumps(
+        serve_replicas_async(dev, bundle, params, replica_sync)))
+    slices = check_kvh2_slices(dev)
+    for k in slices:
+        print(f"{k['name']}: max_abs_err {k['max_abs_err']:.3e}, "
+              f"{k['ms']:.4f} ms vs plain {k['plain_ms']:.3f} ms, library "
+              f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']})")
+    del replica_sync
+    torch.cuda.empty_cache()
+    mesh_reps = serve_mesh(dev)
+    for tag, r in mesh_reps.items():
+        print(f"{tag}: " + json.dumps(r))
+    print(f"phase 14: {time.perf_counter() - t_p14:.1f} s")
     rep_dense = serve_dense(dev, bundle, params)
     rep_dense.update(dense_first_step(dev, bundle, params)[0])
     print("serve_dense: " + json.dumps(rep_dense))
@@ -5094,6 +5695,15 @@ def main() -> int:
                          else rep_dense)
             k["launches"] = serve_rep["launches"][name]
     line = [{key: k[key] for key in keys} for k in kernels if "/" not in k["name"]]
+    # the paged kernels: the replica serve's launches too, and the bf16
+    # mesh serve's of both ranks (phase 14; the sharded engine runs the
+    # one-device step at KVH 4 on the gathered pool)
+    for k in line:
+        if k["name"] in rep_replicas["launches_per_replica"][0]:
+            k["launches"] += sum(p[k["name"]] for p in
+                                 rep_replicas["launches_per_replica"])
+            k["launches"] += mesh_reps["serve_mesh_1x2_bf16"][
+                "launches_all_ranks"][k["name"]]
     for k in line:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on its serve")
@@ -5156,6 +5766,18 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was not launched on the vlm "
                                  f"serve")
     line += [{key: k[key] for key in keys} for k in cross]
+    # the per-rank KVH 2 slices: no serve runs them (the sharded engine
+    # gathers the pool and runs the one-device step at KVH 4), so each
+    # has the launches of the two sharded ops at KVH 4 over the 1x2 group,
+    # summed over its ranks (``_mesh_ops``)
+    for k in slices:
+        k["launches"] = sum(
+            rank_ops["kvh2_launches"][k["name"].partition("/")[0]]
+            for rank_ops in mesh_reps["serve_mesh_1x2_ops"])
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']} was not launched by the "
+                                 f"sharded ops")
+    line += [{key: k[key] for key in keys} for k in slices]
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

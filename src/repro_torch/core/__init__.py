@@ -1,5 +1,5 @@
-"""Numerics core: precision policies, beta, blocked PASA attention,
-numerical-quality instruments."""
+"""Numerics core: precision policies, beta, blocked PASA attention, ring
+PASA over a process group, numerical-quality instruments."""
 
 from repro_torch.core.beta import (
     DEFAULT_BETA,
@@ -45,6 +45,7 @@ from repro_torch.core.precision import (
     get_policy,
     reduce_dtype,
 )
+from repro_torch.core.ring import make_ring_attention, ring_pasa_attention
 from repro_torch.core.shifting import (
     effective_invariance,
     shift_kv_blocks,
@@ -60,9 +61,10 @@ __all__ = [
     "block_partials", "blocked_attention", "effective_invariance",
     "finalize_state", "flash_attention", "fold_partials", "get_policy",
     "ideal_invariance", "init_state", "invariance_rel_err",
-    "make_resonant_qk", "naive_attention", "optimal_beta", "overflow_stats",
-    "pasa_attention", "practical_invariance", "prepare_blocks",
-    "reduce_dtype", "resonance_index", "rmse", "score_overflow_probe",
+    "make_resonant_qk", "make_ring_attention", "naive_attention",
+    "optimal_beta", "overflow_stats", "pasa_attention",
+    "practical_invariance", "prepare_blocks", "reduce_dtype",
+    "resonance_index", "ring_pasa_attention", "rmse", "score_overflow_probe",
     "shift_kv_blocks", "shift_kv_reference", "shifting_matrix",
     "shifting_matrix_inverse", "solve_paper_betas", "update_state",
 ]

@@ -7,8 +7,10 @@ applied realizes a different invariance than the ideal beta/(1-beta) of
 the recovery step.  Appendix B solves ``argmin_beta |f(beta) -
 beta/(1-beta)|`` by the fixed-point iteration beta <- f(beta)/(1+f(beta))
 in float64 (Eq. 22).  The invariance of the port's stored M, with the
-1/sqrt(d) fold-in, is ``repro_torch.core.shifting.effective_invariance``,
-re-exported here.
+1/sqrt(d) fold-in, is ``repro_torch.core.shifting.effective_invariance``
+(the one ``repro_torch.core`` exports); this module's
+:func:`effective_invariance` is the reference's ``core.beta`` function of
+the same name, the practical invariance at ``beta``.
 """
 
 from __future__ import annotations
@@ -16,8 +18,6 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
-
-from repro_torch.core.shifting import effective_invariance  # noqa: F401
 
 # Paper Section 2.3: initial values 1-2^-4, 1-2^-5, 1-2^-6 at n = 128
 # converge to these; the paper adopts the last one for validation.
@@ -72,6 +72,13 @@ def optimal_beta(beta0: float, n: int, tol: float = 1.0e-8,
         if err <= tol:
             break
     return beta
+
+
+def effective_invariance(beta: float, n: int, tp: str = "float16") -> float:
+    """The invariance the correction step should use at this beta: the
+    practical invariance of the rounded matrix (for an optimized beta it
+    equals the ideal one, Table 3)."""
+    return practical_invariance(beta, n, tp)
 
 
 def solve_paper_betas(n: int = DEFAULT_BLOCK_N, tp: str = "float16"):

@@ -9,8 +9,10 @@ the same name as attributes of the package: reach a module through
 ``from repro_torch.kernels.<name> import ...``).
 
 ``pasa_paged_verify`` is W calls of ``pasa_paged_decode``; it needs no
-kernel of its own.  The reference's ``pasa_paged_decode_sharded`` and
-``pasa_paged_prefill_sharded`` are not ported yet.
+kernel of its own.  ``pasa_paged_decode_sharded`` and
+``pasa_paged_prefill_sharded`` run the paged kernels on each model rank's
+kv-head slice over a mesh's process group (the replicated call where the
+kv heads do not divide the model axis).
 """
 
 # ops loads every kernel module before the names below rebind them.
@@ -19,7 +21,9 @@ from repro_torch.kernels.ops import (
     pasa_attention,
     pasa_decode,
     pasa_paged_decode,
+    pasa_paged_decode_sharded,
     pasa_paged_prefill,
+    pasa_paged_prefill_sharded,
     pasa_paged_verify,
     shift_kv,
 )
@@ -29,7 +33,9 @@ __all__ = [
     "pasa_attention",
     "pasa_decode",
     "pasa_paged_decode",
+    "pasa_paged_decode_sharded",
     "pasa_paged_prefill",
+    "pasa_paged_prefill_sharded",
     "pasa_paged_verify",
     "shift_kv",
 ]

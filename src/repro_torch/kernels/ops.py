@@ -38,6 +38,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.beta import DEFAULT_BETA
+from repro_torch.core.collectives import all_gather, shard
 from repro_torch.core.precision import FP16, PrecisionPolicy
 from repro_torch.core.shifting import effective_invariance, shifting_matrix
 # the kernel modules (flash_attention's at the end of this file, as it
@@ -299,6 +300,102 @@ def pasa_paged_prefill(
 
 pasa_paged_prefill.launches = 0
 pasa_paged_prefill.launches_by_mode = {}
+
+
+# Model-axis sharded entry points.  Both paged kernels are local to a kv
+# head: the page shift, the softmax statistics and the PV product never
+# cross the KVH axis.  When the model axis divides the kv heads, every rank
+# runs the same kernel on its kv heads' slice of q and of the pool, and the
+# outputs all-gathered along KVH in rank order are the unsharded call's
+# bit for bit.  When it does not, both take the replicated call: every
+# rank runs the one-device kernel on the whole inputs.  Every rank calls
+# these with the whole inputs, as the reference's ``shard_map`` takes
+# global arrays.
+
+
+def _kv_slice(mesh, axis, x, dim):
+    """This rank's part of ``x`` along its kv-head ``dim`` (None stays
+    None)."""
+    if x is None:
+        return None
+    n = mesh.shape[axis]
+    return shard(x, dim, n, mesh.axis_rank(axis))
+
+
+def pasa_paged_decode_sharded(
+    q: torch.Tensor,           # (B, KVH, G, D)
+    k_pages: torch.Tensor,     # (P, page, KVH, D)
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_len: torch.Tensor,
+    *,
+    mesh,
+    axis: str = "model",
+    beta: float = DEFAULT_BETA,
+    policy: PrecisionPolicy = FP16,
+    k_scale: Optional[torch.Tensor] = None,
+    k_shift: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    v_shift: Optional[torch.Tensor] = None,
+    block_kv: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`pasa_paged_decode` kv-head-split over ``mesh``'s ``axis``:
+    the unsharded call's output bit for bit when ``KVH % axis_size == 0``,
+    else the replicated call."""
+    msize = mesh.shape.get(axis, 1)
+    kw = dict(beta=beta, policy=policy, block_kv=block_kv)
+    if msize <= 1 or q.shape[1] % msize:
+        return pasa_paged_decode(
+            q, k_pages, v_pages, page_table, kv_len, k_scale=k_scale,
+            k_shift=k_shift, v_scale=v_scale, v_shift=v_shift, **kw)
+    local = pasa_paged_decode(
+        _kv_slice(mesh, axis, q, 1), _kv_slice(mesh, axis, k_pages, 2),
+        _kv_slice(mesh, axis, v_pages, 2), page_table, kv_len,
+        k_scale=_kv_slice(mesh, axis, k_scale, 1),
+        k_shift=_kv_slice(mesh, axis, k_shift, 1),
+        v_scale=_kv_slice(mesh, axis, v_scale, 1),
+        v_shift=_kv_slice(mesh, axis, v_shift, 1), **kw)
+    return all_gather(local, 1, mesh.axis_group(axis))
+
+
+def pasa_paged_prefill_sharded(
+    q: torch.Tensor,            # (B, H, CS, D)
+    k_pages: torch.Tensor,      # (P, page, KVH, D)
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    chunk_start: torch.Tensor,
+    kv_len: torch.Tensor,
+    *,
+    mesh,
+    axis: str = "model",
+    beta: float = DEFAULT_BETA,
+    policy: PrecisionPolicy = FP16,
+    k_scale: Optional[torch.Tensor] = None,
+    k_shift: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    v_shift: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`pasa_paged_prefill` over ``mesh``'s ``axis``.  When the axis
+    divides KVH and H: a kv-head split (queries split along their
+    kv-head-major H axis, whole GQA groups per rank), the unsharded call's
+    output bit for bit.  Otherwise the replicated call."""
+    msize = mesh.shape.get(axis, 1)
+    quant = dict(k_scale=k_scale, k_shift=k_shift, v_scale=v_scale,
+                 v_shift=v_shift)
+    if msize <= 1:
+        return pasa_paged_prefill(q, k_pages, v_pages, page_table,
+                                  chunk_start, kv_len, beta=beta,
+                                  policy=policy, **quant)
+    if k_pages.shape[2] % msize or q.shape[1] % msize:
+        return pasa_paged_prefill(q, k_pages, v_pages, page_table,
+                                  chunk_start, kv_len, beta=beta,
+                                  policy=policy, **quant)
+    local = pasa_paged_prefill(
+        _kv_slice(mesh, axis, q, 1), _kv_slice(mesh, axis, k_pages, 2),
+        _kv_slice(mesh, axis, v_pages, 2), page_table, chunk_start,
+        kv_len, beta=beta, policy=policy,
+        **{name: _kv_slice(mesh, axis, x, 1) for name, x in quant.items()})
+    return all_gather(local, 1, mesh.axis_group(axis))
 
 
 def _check(q, k, v) -> None:

@@ -148,10 +148,10 @@ def _busy_us(prof) -> float:
 
 
 @contextlib.contextmanager
-def count_syncs(eng):
+def count_syncs(*engines):
     """Count the synchronizing CUDA calls made while the block runs, under
     ``torch.cuda.set_sync_debug_mode("warn")``: yields a dict whose
-    ``"outside"`` is the count outside the engine's drain points
+    ``"outside"`` is the count outside the drain points of ``engines``
     (``_retire_one``, ``drain`` and, with telemetry, the numerics probe),
     ``"all"`` the count in all and ``"where"`` their sites, filled when
     the block exits.  The mode flags blocking copies and readbacks
@@ -176,10 +176,12 @@ def count_syncs(eng):
                         inside["n"] += len(seen) - n0
             return run
 
-        wrapped = [(eng, "_retire_one"), (eng, "drain")]
-        probe = getattr(eng.telemetry, "probe", None)
-        if probe is not None:
-            wrapped.append((probe, "sample"))
+        wrapped = []
+        for eng in engines:
+            wrapped += [(eng, "_retire_one"), (eng, "drain")]
+            probe = getattr(eng.telemetry, "probe", None)
+            if probe is not None:
+                wrapped.append((probe, "sample"))
         for obj, name in wrapped:
             setattr(obj, name, marked(getattr(obj, name)))
         prev = torch.cuda.get_sync_debug_mode()

@@ -31,9 +31,15 @@ reference does), then serves them on one of two routes:
     each token as it is read back; ``--disconnect-after N`` cancels
     request 0 after N tokens, between steps) and telemetry (``--trace
     FILE`` with ``--trace-format chrome|jsonl``, ``--metrics``,
-    ``--numerics-probe N``; bit-neutral).  A family without a paged
-    interface (zamba2, llama-3.2-vision, falcon-mamba, whisper) refuses
-    it with the engine's ValueError.
+    ``--numerics-probe N``; bit-neutral).  ``--mesh DxM`` (default
+    ``1x1``) serves D engine replicas fed from one queue
+    (:class:`repro_torch.runtime.EngineReplicaGroup`, ``--routing
+    affinity|least|rr``), each pool kv-head-sharded over M ranks of the
+    model axis; M > 1 runs one process per rank, started with ``torchrun
+    --standalone --nproc-per-node M`` (a gloo group; without it the CLI
+    raises); the streams equal the ``1x1`` serve's.  A family without a
+    paged interface (zamba2, llama-3.2-vision, falcon-mamba, whisper)
+    refuses it with the engine's ValueError.
 
 Runs on the GPU by default (``--device cpu`` for the plain PyTorch path).
 
@@ -50,6 +56,9 @@ Examples (one H100, full-width qwen2-7b, random weights):
       --batch 4 --prompt-len 64 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
       --paged --batch 4 --prompt-len 512 --gen 32 --prefill-chunk 512
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
+      --paged --mesh 2x1 --routing affinity --prefix-cache --batch 4 \
+      --prompt-len 512 --gen 32 --prefill-chunk 512
 (llama-3.2-vision-90b at its 100 layers does not fit one card: serve it
 at --reduced, or profile it with ``launch.profile_steps --layers 20``.)
 CPU smoke at the reduced config:
@@ -78,6 +87,10 @@ CPU smoke at the reduced config:
       --reduced --paged --page-size 8 --batch 4 --prompt-len 40 --gen 12 \
       --prefix-cache --async --stream --disconnect-after 4 \
       --trace /tmp/t.json --metrics --numerics-probe 4 --device cpu
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch qwen2-7b --reduced --paged \
+      --page-size 8 --batch 4 --prompt-len 40 --gen 8 --mesh 1x2 \
+      --device cpu
 """
 
 from __future__ import annotations
@@ -85,6 +98,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import os
 import time
 
 
@@ -252,9 +266,47 @@ def build_parser() -> argparse.ArgumentParser:
                          "engine steps (0 = off) - score amplitude against "
                          "the fp16 ceiling, per-page PASA shift magnitude, "
                          "K resonance on live pages, read at drain points")
+    ap.add_argument("--mesh", default="1x1",
+                    help="paged route: DxM - D engine replicas fed from one "
+                         "queue, each pool kv-head-sharded over M ranks of "
+                         "the model axis (M > 1: start with torchrun "
+                         "--standalone --nproc-per-node M); streams equal "
+                         "the 1x1 serve's")
+    ap.add_argument("--routing", default="affinity",
+                    choices=("affinity", "least", "rr"),
+                    help="replica routing with D > 1: affinity (the "
+                         "replica holding the longest cached prompt prefix, "
+                         "least-loaded among ties; default), least "
+                         "(least-loaded, round-robin tiebreak), rr (strict "
+                         "rotation); never changes a stream")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
+
+
+def make_cli_mesh(spec: str, device):
+    """The ``--mesh DxM`` mesh.  M > 1 needs the process group of a
+    ``torchrun`` launch of M processes, joined here (gloo: it takes two
+    ranks on one card) when the launcher's environment names one."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+
+    if spec == "prod":
+        return make_production_mesh()
+    try:
+        d, m = (int(x) for x in spec.split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh must be DxM, got {spec!r}") from None
+    if m > 1 and not dist.is_initialized():
+        if int(os.environ.get("WORLD_SIZE", "1")) != m:
+            raise RuntimeError(
+                f"--mesh {spec}: a model axis of {m} runs one process per "
+                f"rank; start the CLI with torchrun --standalone "
+                f"--nproc-per-node {m}")
+        dist.init_process_group("gloo")
+    return make_mesh((d, m), ("data", "model"),
+                     devices=None if device.type == "cuda" else device)
 
 
 def main(argv=None):
@@ -271,6 +323,14 @@ def main(argv=None):
     from repro_torch.models.model_zoo import build
 
     dev = resolve_device(args.device)
+    if args.mesh != "1x1" and not args.paged:
+        ap.error("--mesh applies to the paged route (--paged)")
+    mesh = make_cli_mesh(args.mesh, dev) if args.paged else None
+    if mesh is not None:
+        # this rank's first cell: the replicas of its other cells copy
+        # the weights only onto a device that does not hold them
+        dev = mesh.devices.reshape(-1, mesh.shape["model"])[
+            0, mesh.axis_rank("model")]
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -289,7 +349,7 @@ def main(argv=None):
         0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32
     )
     if args.paged:
-        return _serve_paged(args, bundle, params, prompts, dev)
+        return _serve_paged(args, bundle, params, prompts, dev, mesh)
     return _serve_dense(args, bundle, params, prompts, dev)
 
 
@@ -385,15 +445,19 @@ def _serve_dense(args, bundle, params, prompts, dev):
     return out
 
 
-def _serve_paged(args, bundle, params, prompts, dev):
-    """The same workload through the paged-KV engine."""
+def _serve_paged(args, bundle, params, prompts, dev, mesh):
+    """The same workload through the paged-KV engine, or through a replica
+    group over ``mesh`` when it is larger than 1x1 (every rank of the
+    model axis serves; rank 0 prints)."""
     import numpy as np
 
-    from repro_torch.runtime import ServeEngine, Telemetry
+    from repro_torch.runtime import EngineReplicaGroup, ServeEngine, Telemetry
 
+    n_data, n_model = mesh.shape["data"], mesh.shape["model"]
     page_size = bundle.cfg.attention.block_kv
     total = args.prompt_len + args.gen
-    num_pages = args.num_pages or math.ceil(total / page_size) * args.batch + 1
+    batch_per = math.ceil(args.batch / n_data)
+    num_pages = args.num_pages or math.ceil(total / page_size) * batch_per + 1
     scheduler = args.scheduler
     if args.tenant_quotas is not None:
         if args.scheduler != "tenant":
@@ -418,13 +482,13 @@ def _serve_paged(args, bundle, params, prompts, dev):
     on_token = None
     if args.stream or args.disconnect_after:
         def on_token(r, idx, tok):
-            if args.stream:
+            if args.stream and not quiet:
                 print(f"[stream] req {r.req_id} #{idx}: {tok}")
             if (args.disconnect_after and r.req_id == 0
                     and idx + 1 >= args.disconnect_after and not hangup):
                 hangup.append(0)
-    eng = ServeEngine(
-        bundle, params, max_batch=args.batch, num_pages=num_pages,
+    kw = dict(
+        max_batch=batch_per, num_pages=num_pages,
         page_size=page_size, max_seq_len=total,
         chunked_prefill=args.chunked_prefill,
         prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
@@ -435,8 +499,16 @@ def _serve_paged(args, bundle, params, prompts, dev):
         temperature=args.temperature, top_k=args.top_k,
         sample_seed=args.sample_seed, speculate=args.speculate,
         draft=args.draft, pipeline_depth=1 if args.pipelined else 0,
-        on_token=on_token, telemetry=telemetry,
+        on_token=on_token,
     )
+    if n_data > 1 or n_model > 1:
+        eng = EngineReplicaGroup(bundle, params, mesh, routing=args.routing,
+                                 telemetry=telemetry, **kw)
+        placement = f"{n_data} replicas x model {n_model}"
+    else:
+        eng = ServeEngine(bundle, params, telemetry=telemetry, **kw)
+        placement = "1 device"
+    quiet = mesh.axis_rank("model") > 0
     reqs = [eng.submit(list(p), args.gen) for p in prompts]
     t0 = time.perf_counter()
     if on_token is not None:
@@ -447,8 +519,9 @@ def _serve_paged(args, bundle, params, prompts, dev):
                 rid = hangup.pop()
                 if rid not in cancelled and eng.cancel(rid):
                     cancelled.add(rid)
-                    print(f"[stream] req {rid} client disconnected -> "
-                          "cancelled (pages reclaimed)")
+                    if not quiet:
+                        print(f"[stream] req {rid} client disconnected -> "
+                              "cancelled (pages reclaimed)")
         eng.drain()       # the stream's boundary: the last tokens
     else:
         eng.run_to_completion()
@@ -466,13 +539,17 @@ def _serve_paged(args, bundle, params, prompts, dev):
             if r.first_token_step >= 0]
     mode = "chunked" if args.chunked_prefill else "token-by-token"
     mode += "/async" if args.pipelined else "/sync"
+    if quiet:
+        return out
     print(f"[paged/{mode}/{st['scheduler']}] {dev} generated "
           f"{out.shape} tokens in {dt:.3f}s "
           f"({1000 * dt / max(st['steps'], 1):.1f} ms/step, "
           f"{n_tokens / max(dt, 1e-9):.1f} tok/s wall-clock incl. first-call "
           f"set-up), {st['prefill_calls']} prefill + {st['decode_calls']} "
           f"decode + {st['verify_calls']} verify calls, pool "
-          f"{st['cache_bytes'] / 1e6:.2f} MB {st['pool_dtype']}, TTFT "
+          f"{st['cache_bytes'] / 1e6:.2f} MB {st['pool_dtype']} "
+          f"({st['cache_bytes_per_device'] / 1e6:.2f} MB a device; "
+          f"{placement}; {num_pages} pages of {page_size} a replica), TTFT "
           f"{np.mean(ttft):.1f} engine steps, {st['preemptions']} "
           f"preemptions, {st['cancellations']} cancellations")
     if args.speculate:
@@ -509,7 +586,9 @@ def _report_telemetry(args, telemetry):
     if args.metrics:
         print("[metrics]", json.dumps(telemetry.metrics_snapshot(), indent=2,
                                       sort_keys=True))
-    last = telemetry.probe.last if telemetry.probe is not None else None
+    # a replica group's probes live in its per-replica children
+    probes = [telemetry.probe] + [c.probe for c in telemetry._children]
+    last = next((p.last for p in probes if p is not None and p.last), None)
     if last is not None:
         print(f"[numerics] fp16_margin={last['fp16_margin']:.1f} "
               f"score_amp_max={last['score_amp_max']:.1f} "

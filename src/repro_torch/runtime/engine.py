@@ -125,7 +125,29 @@ accepted count.
 (threaded through the allocator and the prefix cache) and the numerics
 probe, at the reference's sites.  Bit-neutral: every hook reads host
 state the engine keeps anyway, and the probe reads the pool at a drain
-point.  The mesh branches of the reference are not ported yet.
+point.
+
+**The model axis** (``mesh=``, a :class:`~repro_torch.launch.mesh.Mesh`
+whose ``model`` axis is a ``torch.distributed`` group of M processes, one
+per rank, every rank running this same engine): the pool stays
+kv-head-sharded at rest, each rank holding its kv heads' columns of every
+leaf (``paged_cache.pool_shardings``).  Around each device call the pool
+boundary (:class:`_PoolIO`) all-gathers every sharded leaf along its split
+dim in rank order, the interior is the unchanged one-device step -
+prefill, decode or verify, sampled or greedy - on the whole pool, and
+this rank's part is sliced back, as the reference's ``shard_map`` body
+does.  Every rank computes the same full step, so the host state, the
+tokens and the decisions stay identical across ranks with no broadcast,
+and the tokens and page bytes are the one-device serve's bit for bit.
+gloo takes host tensors, so on a card the boundary stages the sharded
+leaves through pinned host memory (``core.collectives``) and counts the
+time it takes (``pool_io.stage_s()`` over ``pool_io.calls``); that copy
+waits for the device, so the model axis cannot pipeline.  The split at
+rest saves no peak memory and no compute: every rank holds the gathered
+whole pool beside its part during a call, and runs the whole step.  A
+pool whose kv heads the model axis does not divide stays whole on every
+rank, and then no call communicates.  :class:`EngineReplicaGroup` adds the data
+axis: replicas of this engine fed from one queue.
 
 **Tenants** (``submit(tenant=, priority=)``): host-only labels read by
 the tenant policy (``scheduler="tenant"``, :class:`~repro_torch.runtime
@@ -145,14 +167,20 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import all_gather
+from repro_torch.launch.mesh import Mesh
 from repro_torch.runtime.paged_cache import (
     NULL_PAGE,
     PageAllocator,
     capture_pages,
+    model_axis_size,
     paged_bytes,
+    paged_bytes_per_device,
     pool_dtype_name,
+    pool_shardings,
     resolve_pool_dtype,
     restore_pages,
+    shard_pool,
     touched_pages,
 )
 from repro_torch.runtime.prefix_cache import RadixPrefixCache
@@ -175,6 +203,25 @@ CANCELLED = "cancelled"
 #: The port adds three keys of its own, the device call counts
 #: ``prefill_calls``, ``decode_calls`` and ``verify_calls``.
 STATS_SCHEMA = 2
+
+#: How :meth:`EngineReplicaGroup.stats` aggregates each shared key of
+#: :meth:`ServeEngine.stats` (the reference's tuples): tallies and
+#: capacity totals sum, clocks and per-device peaks take the max, the
+#: uniform engine configuration passes through from replica 0.
+_STATS_SUM = (
+    "running", "waiting", "finished", "free_pages", "live_pages",
+    "cache_bytes", "preemptions", "trimmed_pages", "last_step_tokens",
+    "inflight", "cancellations",
+)
+_STATS_MAX = ("steps", "cache_bytes_per_device", "max_step_tokens")
+_STATS_CONFIG = (
+    "page_size", "pool_dtype", "chunked_prefill", "scheduler",
+    "prefill_batch", "step_token_budget", "temperature", "pipeline_depth",
+    "speculate",
+)
+
+#: Replica-routing modes of :class:`EngineReplicaGroup`.
+ROUTING_MODES = ("affinity", "least", "rr")
 
 
 @_drain_point
@@ -427,6 +474,64 @@ class _InflightStep:
         return base
 
 
+def params_to(params: dict, device) -> dict:
+    """The parameter tree on ``device``; the same tree where it already
+    lies there (no copy)."""
+    if params["embed"].device == device:
+        return params
+
+    def move(tree):
+        return {k: move(v) if isinstance(v, dict)
+                else v.to(device, non_blocking=True)
+                for k, v in tree.items()}
+    return move(params)
+
+
+class _PoolIO:
+    """The model axis's pool boundary around one device call (the
+    reference's ``_make_pool_io``): :meth:`expand` all-gathers every
+    sharded leaf of a :class:`~repro_torch.runtime.paged_cache.ShardedPool`
+    along its split dim, in rank order; the engine slices this rank's part
+    of the updated pool back (``shard_pool``).  Pure data movement: the
+    step between them is the one-device step on the whole pool.  On a card
+    gloo takes host tensors, so :meth:`expand` stages the leaves through
+    pinned host memory, and the copy to the host waits for the device:
+    every device call of a sharded engine synchronizes here, so the model
+    axis cannot pipeline (``pipeline_depth`` overlaps nothing on it).
+    ``stage_s()`` sums the staging's time over ``calls``, from a pair of
+    CUDA events around it (the first fires once the earlier device work
+    is done, so the sum holds the staging alone)."""
+
+    def __init__(self, group, device: torch.device):
+        self.group = group
+        self.device = device
+        self.calls = 0
+        self._events = []
+
+    @_drain_point
+    def expand(self, pool) -> dict:
+        cuda = self.device.type == "cuda"
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        full = {name: all_gather(x, pool.shardings[name].dim, self.group)
+                for name, x in pool.items()}
+        if cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._events.append((start, end))
+        self.calls += 1
+        return full
+
+    @_drain_point
+    def stage_s(self) -> float:
+        """Seconds spent staging, summed over every call so far (0 on the
+        CPU, where nothing is staged)."""
+        if self._events:
+            self._events[-1][1].synchronize()
+        return sum(s.elapsed_time(e) for s, e in self._events) / 1e3
+
+
 class ServeEngine:
     """Paged-KV continuous-batching engine over a ModelBundle.
 
@@ -462,9 +567,13 @@ class ServeEngine:
     index, token)`` called as each token is read back, in dispatch order
     (one step behind dispatch at depth 1; :meth:`drain` flushes);
     ``telemetry`` a :class:`~repro_torch.runtime.telemetry.Telemetry`
-    (bit-neutral).
+    (bit-neutral); ``mesh`` a :class:`~repro_torch.launch.mesh.Mesh` whose
+    axes other than ``model`` have size 1: the pool is kv-head-sharded over
+    its model axis (module doc).
 
-    The engine runs on the device its parameters live on.
+    Without a mesh the engine runs on the device its parameters live on;
+    with one, on this rank's cell of the mesh, the parameters copied there
+    if they lie elsewhere.
     """
 
     def __init__(self, bundle, params, *, max_batch: int = 4,
@@ -483,15 +592,24 @@ class ServeEngine:
                  sample_seed: int = 0, speculate: int = 0, draft="ngram",
                  pipeline_depth: int = 0,
                  on_token: Optional[Callable[[Request, int, int], None]] = None,
-                 telemetry: Optional[Telemetry] = None):
+                 telemetry: Optional[Telemetry] = None,
+                 mesh: Optional[Mesh] = None):
         if not bundle.supports_paged:
             raise ValueError(
                 f"family {bundle.cfg.family!r} has no paged serving path; "
                 "use the dense cache (launch/serve.py default)"
             )
         self.bundle = bundle
-        self.params = params
-        self.device = params["embed"].device
+        self.mesh = mesh
+        if mesh is None:
+            self.device = params["embed"].device
+        else:
+            if any(n > 1 for a, n in mesh.shape.items() if a != "model"):
+                raise ValueError(
+                    f"a ServeEngine shards over the model axis only, got "
+                    f"{mesh.shape}; EngineReplicaGroup serves the data axis")
+            self.device = mesh.devices.reshape(-1)[mesh.axis_rank("model")]
+        self.params = params_to(params, self.device)
         if page_size is None:
             page_size = bundle.cfg.attention.block_kv
         if page_size < 1:
@@ -593,6 +711,16 @@ class ServeEngine:
             self.num_pages, self.page_size, self.cache_dtype,
             device=self.device,
         )
+        # the model axis: this rank keeps its kv heads' part of the pool,
+        # and every device call goes through the pool boundary
+        self.pool_io = None
+        self.pool_kv_heads = bundle.cfg.n_kv_heads
+        if model_axis_size(mesh) > 1:
+            shardings = pool_shardings(mesh, self.pool, bundle.cfg.n_kv_heads)
+            if not next(iter(shardings.values())).is_fully_replicated:
+                self.pool = shard_pool(self.pool, shardings)
+                self.pool_io = _PoolIO(mesh.group, self.device)
+                self.pool_kv_heads //= model_axis_size(mesh)
         self.telemetry = telemetry
         metrics = telemetry.metrics if telemetry is not None else None
         self.allocator = PageAllocator(self.num_pages, metrics=metrics)
@@ -1088,6 +1216,18 @@ class ServeEngine:
             return _argmax(logits)
         return self._sampler(logits, rows[0], rows[1] + offset)
 
+    def _on_pool(self, call):
+        """Run one device call ``call(pool) -> (out, pool)`` on the whole
+        pool (through the pool boundary on a sharded pool); returns
+        ``out``."""
+        if self.pool_io is None:
+            out, self.pool = call(self.pool)
+            return out
+        sharded = self.pool
+        out, full = call(self.pool_io.expand(sharded))
+        self.pool = shard_pool(full, sharded.shardings)
+        return out
+
     def _run_prefill(self, plan, st: _InflightStep):
         """Dispatch one batched prefill call over the planned chunk rows;
         every index tensor is made before the call.  A row whose chunk
@@ -1136,9 +1276,8 @@ class ServeEngine:
         table_t = self._tensor(table)
         take_t = self._tensor(take) if take.any() else None
         src_t = self._tensor(src) if take_t is not None else None
-        logits, self.pool = self.bundle.paged_prefill_step(
-            self.params, *args, self.pool, table_t,
-        )
+        logits = self._on_pool(lambda pool: self.bundle.paged_prefill_step(
+            self.params, *args, pool, table_t))
         self.prefill_calls += 1
         first = self._pick(logits, rows_key)
         base = st.add(first)
@@ -1254,11 +1393,16 @@ class ServeEngine:
                 active[r.slot, 1:1 + n] = True
             tokens = torch.cat([feed[:, None], self._tensor(drafts)], dim=1)
             active_t = self._tensor(active)
-            nxt, g, m, self.pool = paged_verify_step(
-                self.bundle.paged_serve_step, self.params, tokens, pos_t,
-                active_t, self.pool, table_t, page_size=self.page_size,
-                choose=lambda logits, i: self._pick(logits, rows, i),
-            )
+
+            def verify(pool):
+                *out, pool = paged_verify_step(
+                    self.bundle.paged_serve_step, self.params, tokens, pos_t,
+                    active_t, pool, table_t, page_size=self.page_size,
+                    choose=lambda logits, i: self._pick(logits, rows, i),
+                )
+                return out, pool
+
+            nxt, g, m = self._on_pool(verify)
             self.verify_calls += 1
             n_draft = sum(n for _, n, _ in spec_plan)
             self.spec_proposed += n_draft
@@ -1271,9 +1415,8 @@ class ServeEngine:
             for r, n, _ in spec_plan:
                 st.spec_rows.append((r, n, at(r.slot), m_base + r.slot))
         else:
-            logits, self.pool = self.bundle.paged_serve_step(
-                self.params, feed, pos_t, self.pool, table_t
-            )
+            logits = self._on_pool(lambda pool: self.bundle.paged_serve_step(
+                self.params, feed, pos_t, pool, table_t))
             self.decode_calls += 1
             nxt = self._pick(logits, rows)
             base = st.add(nxt)
@@ -1415,10 +1558,10 @@ class ServeEngine:
         """The reference's ``stats()`` at schema :data:`STATS_SCHEMA`,
         every key always present (the prefix cache's sub-dict is None when
         it is off; ``spec`` is zeros when speculation is off;
-        ``cache_bytes_per_device`` is ``cache_bytes`` on one device), plus
+        ``cache_bytes`` is the whole pool, ``cache_bytes_per_device`` this
+        rank's part), plus
         the port's device call counts: a verify call (K + 1 decode
         sub-steps) counts in ``verify_calls``, not in ``decode_calls``."""
-        cache_bytes = paged_bytes(self.pool)
         return {
             "schema": STATS_SCHEMA,
             "steps": self.steps,
@@ -1427,8 +1570,8 @@ class ServeEngine:
             "finished": len(self.finished),
             "free_pages": self.allocator.free_pages,
             "live_pages": self.allocator.live_pages,
-            "cache_bytes": cache_bytes,
-            "cache_bytes_per_device": cache_bytes,
+            "cache_bytes": paged_bytes(self.pool),
+            "cache_bytes_per_device": paged_bytes_per_device(self.pool),
             "page_size": self.page_size,
             "pool_dtype": pool_dtype_name(self.cache_dtype),
             "chunked_prefill": self.chunked_prefill,
@@ -1458,3 +1601,196 @@ class ServeEngine:
             "decode_calls": self.decode_calls,
             "verify_calls": self.verify_calls,
         }
+
+
+class EngineReplicaGroup:
+    """Data-parallel paged serving over a ``(data, model)`` mesh (the
+    reference's group of the same name).
+
+    One :class:`ServeEngine` replica per ``data`` row, each serving from
+    its own page pool, kv-head-sharded over that row's ``model`` ranks
+    (``ServeEngine(mesh=...)``); requests from one logical queue are
+    routed across replicas.  Replicas share nothing on the device but the
+    weights: each device's cells take one copy of the parameters, made
+    only where they do not lie yet, so D replicas on one card share it.
+    A request's stream is the one-engine serve's bit for bit: routing
+    changes only which pool holds its pages, and a decode reads only its
+    own page-table row.  Every rank of the model axis runs the same
+    routing on the same host state, so the ranks agree with no message.
+
+    ``routing``:
+
+      * ``"affinity"`` (default): probe every replica's prefix trie
+        (:meth:`RadixPrefixCache.probe_len`, a pure read) and send the
+        request to a replica holding the longest cached prefix of its
+        prompt, least-loaded among those; with no cached prefix anywhere
+        (or the prefix cache off), least-loaded.  A burst that shares a
+        system prompt lands on the replica that holds its pages.
+      * ``"least"``: fewest waiting + running requests, ties broken by a
+        rotating cursor: a burst onto idle replicas deals ``i::n``
+        exactly, and after a :meth:`cancel` or an early finish the next
+        requests fill the gap.
+      * ``"rr"``: strict rotation whatever the load.
+
+    Request ids are group-global (the ids one engine serving the same
+    submission order would assign), so a sampled stream does not depend
+    on where its request lands, and :meth:`cancel` finds the owner.
+    """
+
+    def __init__(self, bundle, params, mesh: Mesh, *, telemetry=None,
+                 routing: str = "affinity", **engine_kwargs):
+        names = mesh.axis_names
+        if not set(names) <= {"data", "model"}:
+            raise ValueError(
+                f"EngineReplicaGroup needs a (data, model) mesh; got axes "
+                f"{names}")
+        if routing not in ROUTING_MODES:
+            raise ValueError(
+                f"routing must be one of {ROUTING_MODES}, got {routing!r}")
+        n_data = mesh.shape.get("data", 1)
+        n_model = mesh.shape.get("model", 1)
+        # the row-major (data, model) grid whatever the axis order
+        devs = np.array(mesh.devices, dtype=object)
+        if names and names[0] == "model" and "data" in names:
+            devs = devs.T
+        devs = devs.reshape(n_data, n_model)
+        self.meshes = [Mesh({"model": n_model}, devs[i], mesh.group)
+                       for i in range(n_data)]
+        # one copy of the weights per device
+        copies = {}
+        for m in self.meshes:
+            dev = m.devices[m.axis_rank("model")]
+            if dev not in copies:
+                copies[dev] = params_to(params, dev)
+        # per-replica telemetry children share the group's tracer (events
+        # carry the replica index) and keep their own registries;
+        # metrics_snapshot() aggregates them
+        self.telemetry = telemetry
+        self.engines = [
+            ServeEngine(
+                bundle, copies[m.devices[m.axis_rank("model")]], mesh=m,
+                telemetry=(None if telemetry is None
+                           else telemetry.for_replica(i)),
+                **engine_kwargs)
+            for i, m in enumerate(self.meshes)
+        ]
+        self.routing = routing
+        self._rr = 0
+        self._req_counter = 0
+        self._owner: Dict[int, ServeEngine] = {}
+
+    @property
+    def n_replicas(self) -> int:
+        return len(self.engines)
+
+    # ----------------------------------------------------------- routing --
+
+    def _load(self, eng: ServeEngine) -> int:
+        """A replica's outstanding work in requests: queued + holding a
+        slot."""
+        return len(eng.waiting) + eng.num_running
+
+    def _pick_least_loaded(self, cands: List[int]) -> int:
+        """The least-loaded candidate; ties go to the first at or after
+        the rotating cursor, so equal loads deal round-robin."""
+        lo = min(self._load(self.engines[i]) for i in cands)
+        tied = [i for i in cands if self._load(self.engines[i]) == lo]
+        pick = min(tied, key=lambda i: (i - self._rr) % len(self.engines))
+        self._rr = pick + 1
+        return pick
+
+    def _route(self, prompt) -> ServeEngine:
+        n = len(self.engines)
+        if self.routing == "rr":
+            pick = self._rr % n
+            self._rr += 1
+            return self.engines[pick]
+        cands = list(range(n))
+        if self.routing == "affinity":
+            probes = [0 if e.prefix_cache is None
+                      else e.prefix_cache.probe_len(prompt)
+                      for e in self.engines]
+            best = max(probes)
+            if best > 0:
+                cands = [i for i in cands if probes[i] == best]
+        return self.engines[self._pick_least_loaded(cands)]
+
+    def submit(self, prompt, max_new_tokens: int, *,
+               tenant: str = DEFAULT_TENANT,
+               priority: str = "throughput") -> Request:
+        """Route one request from the logical queue; its id is
+        group-global."""
+        prompt = [int(t) for t in prompt]
+        eng = self._route(prompt)
+        rid = self._req_counter
+        self._req_counter += 1
+        r = eng.submit(prompt, max_new_tokens, req_id=rid, tenant=tenant,
+                       priority=priority)
+        self._owner[r.req_id] = eng
+        return r
+
+    def cancel(self, req_id: int) -> bool:
+        """Cancel a request on whichever replica owns it
+        (:meth:`ServeEngine.cancel`)."""
+        eng = self._owner.get(req_id)
+        return False if eng is None else eng.cancel(req_id)
+
+    def drain(self) -> None:
+        """The pipeline barrier of every replica."""
+        for e in self.engines:
+            e.drain()
+
+    @property
+    def idle(self) -> bool:
+        return all(e.idle for e in self.engines)
+
+    def step(self) -> int:
+        """Advance every replica one engine step, idle ones included, so
+        each replica's ``steps`` clock advances on every call.  At
+        ``pipeline_depth`` 1 no replica waits for another's readback: each
+        retires its own backlog."""
+        return sum(e.step() for e in self.engines)
+
+    def run_to_completion(self, max_steps: int = 100_000):
+        """Drive every replica, interleaved, until all drain
+        (``max_steps`` bounds this call on each replica's clock); returns
+        ``{(replica, req_id): Request}`` of the finished requests."""
+        start = max(e.steps for e in self.engines)
+        while not self.idle:
+            if max(e.steps for e in self.engines) - start >= max_steps:
+                raise RuntimeError(
+                    f"replica group did not drain in {max_steps} steps")
+            self.step()
+        self.drain()
+        return {(i, rid): r for i, e in enumerate(self.engines)
+                for rid, r in e.finished.items()}
+
+    def metrics_snapshot(self) -> Optional[dict]:
+        """The replicas' metrics aggregated (counters and histograms
+        summed, gauges summed but ``*_max``); None without telemetry."""
+        if self.telemetry is None:
+            return None
+        return self.telemetry.metrics_snapshot()
+
+    def stats(self) -> dict:
+        """:meth:`ServeEngine.stats` aggregated over the replicas by
+        ``_STATS_SUM`` / ``_STATS_MAX`` / ``_STATS_CONFIG`` (the port's
+        call counts summed too), plus ``replicas`` and the per-replica
+        dicts under ``engines``."""
+        per = [e.stats() for e in self.engines]
+        out = {"schema": STATS_SCHEMA, "replicas": len(per)}
+        for key in _STATS_SUM + ("prefill_calls", "decode_calls",
+                                 "verify_calls"):
+            out[key] = sum(s[key] for s in per)
+        for key in _STATS_MAX:
+            out[key] = max(s[key] for s in per)
+        for key in _STATS_CONFIG:
+            out[key] = per[0][key]
+        out["spec"] = {k: sum(s["spec"][k] for s in per)
+                       for k in per[0]["spec"]}
+        out["prefix_cache"] = (
+            None if per[0]["prefix_cache"] is None
+            else {k: sum(s["prefix_cache"][k] for s in per)
+                  for k in per[0]["prefix_cache"]})
+        out["engines"] = per
+        return out

@@ -1,7 +1,6 @@
 """Paged KV cache: fixed-size pages + per-sequence page tables.
 
-Counterpart of ``repro.runtime.paged_cache`` (one device; the sharding
-helpers are not ported).
+Counterpart of ``repro.runtime.paged_cache``.
 
   * **Pool**: ``k``/``v`` tensors of shape ``(n_layers, num_pages,
     page_size, kv_dim)``; one physical page id addresses the same slot in
@@ -37,9 +36,12 @@ its metadata with it.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional
 
 import torch
+
+from repro_torch.core.collectives import shard
 
 NULL_PAGE = 0
 
@@ -317,6 +319,121 @@ def restore_pages(pool: dict, phys: torch.Tensor, pre: dict,
     return pool
 
 
+# Sharding over the mesh's model axis.  Every pool leaf is kv-head-major
+# in its trailing axis: ``k``/``v`` (L, P, page, kv_dim), ``*_scale``
+# (L, P, KVH) and ``*_shift`` (L, P, kv_dim).  When the model axis divides
+# the kv heads, each rank keeps its kv heads' columns of every leaf, so the
+# split lands on head boundaries and one rule covers raw and 8-bit pools;
+# otherwise every rank keeps the whole pool (replicated).
+
+#: The dim each pool leaf splits over the model axis.
+_SPLIT_DIM = {"k": 3, "v": 3, "k_scale": 2, "v_scale": 2, "k_shift": 2,
+              "v_shift": 2}
+
+
+def model_axis_size(mesh, axis: str = "model") -> int:
+    """Size of a mesh axis (1 when the axis is absent or mesh is None)."""
+    if mesh is None:
+        return 1
+    return int(dict(mesh.shape).get(axis, 1))
+
+
+def pool_model_sharded(mesh, n_kv_heads: Optional[int]) -> bool:
+    """True when the pool's leaves split over the mesh's model axis: the
+    split must land on kv-head boundaries."""
+    m = model_axis_size(mesh)
+    return m > 1 and n_kv_heads is not None and n_kv_heads % m == 0
+
+
+def pool_pspecs(mesh, pool: dict, n_kv_heads: Optional[int]) -> dict:
+    """The port's PartitionSpec of every pool leaf: the dim it splits over
+    the model axis (its trailing kv-head-major axis), or None where the
+    pool stays replicated."""
+    shard = pool_model_sharded(mesh, n_kv_heads)
+    return {name: _SPLIT_DIM[name] if shard else None for name in pool}
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSharding:
+    """Where one pool leaf lives on the model axis: split into ``parts``
+    along ``dim`` with this rank holding part ``index``, or whole on every
+    rank (``dim`` None)."""
+
+    dim: Optional[int]
+    parts: int
+    index: int
+
+    @property
+    def is_fully_replicated(self) -> bool:
+        return self.dim is None or self.parts == 1
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the whole leaf ``x`` (a contiguous copy)."""
+        if self.is_fully_replicated:
+            return x
+        return shard(x, self.dim, self.parts, self.index)
+
+
+def pool_shardings(mesh, pool: dict, n_kv_heads: Optional[int]) -> dict:
+    """:func:`pool_pspecs` as a :class:`LeafSharding` per leaf, at this
+    process's rank on the model axis."""
+    specs = pool_pspecs(mesh, pool, n_kv_heads)
+    m = model_axis_size(mesh)
+    r = mesh.axis_rank("model") if m > 1 else 0
+    return {name: LeafSharding(dim, m, r) for name, dim in specs.items()}
+
+
+class ShardedPool(dict):
+    """A page pool whose leaves hold this rank's part (``shardings``: the
+    :class:`LeafSharding` of every leaf), the one record of its layout, as
+    a jax array carries its sharding.  :func:`paged_bytes` counts the
+    whole pool, :func:`paged_bytes_per_device` this rank's part, and the
+    engine's pool boundary gathers and splits by it."""
+
+    def __init__(self, leaves: dict, shardings: dict):
+        super().__init__(leaves)
+        self.shardings = dict(shardings)
+
+
+def shard_pool(pool: dict, shardings: dict) -> ShardedPool:
+    """This rank's part of every leaf of the whole ``pool``."""
+    return ShardedPool(
+        {name: shardings[name].shard(x) for name, x in pool.items()},
+        shardings)
+
+
 def paged_bytes(pool: dict) -> int:
-    """Device footprint of the pool in bytes, sidecars included."""
+    """The pool's whole footprint in bytes, sidecars included: on every
+    rank together for a :class:`ShardedPool`."""
+    sh = getattr(pool, "shardings", {})
+    return sum(
+        x.numel() * x.element_size()
+        * (1 if name not in sh or sh[name].is_fully_replicated
+           else sh[name].parts)
+        for name, x in pool.items())
+
+
+def paged_bytes_per_device(pool: dict) -> int:
+    """The bytes this rank holds: each leaf's local part times its
+    itemsize.  Equals :func:`paged_bytes` for a one-device or replicated
+    pool, 1/M of it for the kv-head-sharded layout."""
     return sum(x.numel() * x.element_size() for x in pool.values())
+
+
+def sharded_pool_device_bytes(
+    n_layers: int, num_pages: int, page_size: int, kv_dim: int,
+    dtype, n_kv_heads: int, model_size: int,
+) -> int:
+    """Analytic per-device pool bytes under the :func:`pool_shardings`
+    layout for a model axis of ``model_size``, with no device: every leaf
+    splits its kv-head axis when ``n_kv_heads % model_size == 0``, else
+    everything is replicated."""
+    dtype = resolve_pool_dtype(dtype)
+    div = model_size if (model_size > 1
+                         and n_kv_heads % model_size == 0) else 1
+    kv_bytes = n_layers * num_pages * page_size * (kv_dim // div)
+    total = 2 * kv_bytes * torch.empty((), dtype=dtype).element_size()
+    if is_quantized_dtype(dtype):
+        total += 2 * n_layers * num_pages * (n_kv_heads // div) * 4
+        total += 2 * n_layers * num_pages * (kv_dim // div) * 4
+    return total

@@ -1,7 +1,6 @@
 """Radix prefix cache: shared prompt-prefix K/V pages over the page pool.
 
-Counterpart of ``repro.runtime.prefix_cache`` (without ``probe_len``,
-which only the replica group's routing reads).
+Counterpart of ``repro.runtime.prefix_cache``.
 
 A trie over token ids at **page granularity**: each edge is the tuple of
 ``page_size`` token ids that fills one KV page, and each node owns one
@@ -173,6 +172,16 @@ class RadixPrefixCache:
             out.append(nxt)
             node = nxt
         return out
+
+    def probe_len(self, tokens) -> int:
+        """Length in tokens of the longest cached page prefix of
+        ``tokens``: a pure read for the replica group's prefix-affinity
+        routing (:class:`~repro_torch.runtime.engine.EngineReplicaGroup`).
+        Unlike :meth:`match` it takes no reference, does not move the
+        eviction clock and counts no hit or miss: a router probes every
+        replica's trie per submission, and only the chosen replica's
+        admission counts and pins anything."""
+        return len(self._walk(tokens)) * self.page_size
 
     def match(self, tokens, max_tokens: Optional[int] = None) -> List[_Node]:
         """Longest cached page-prefix of ``tokens`` (at most ``max_tokens``

@@ -603,7 +603,7 @@ class Telemetry:
     Construct once and pass as ``ServeEngine(telemetry=...)``; any layer
     can be off (``tracing=False`` / ``metrics=False`` /
     ``numerics_every=0``), so each layer's cost is opt-in.  For replicas
-    (the reference's ``EngineReplicaGroup``; not ported yet),
+    (:class:`~repro_torch.runtime.engine.EngineReplicaGroup`),
     :meth:`for_replica` derives per-engine children that SHARE the
     parent's tracer (events carry the replica index, exported as separate
     Chrome processes) while keeping their own metrics registries; the
@@ -945,7 +945,7 @@ class Telemetry:
                     )
         pages_valid.sort()
         reading = self.probe.sample(
-            eng.pool, pages_valid, n_kv_heads=eng.bundle.cfg.n_kv_heads
+            eng.pool, pages_valid, n_kv_heads=eng.pool_kv_heads
         )
         if reading is None:
             return None

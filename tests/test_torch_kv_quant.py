@@ -688,6 +688,14 @@ def test_beta_solve_matches_reference(tp):
             ref_beta.optimal_beta(beta, 64, tp=tp)
     assert tbeta.solve_paper_betas(tp=tp) == ref_beta.solve_paper_betas(tp=tp)
     assert tbeta.PAPER_BETAS == ref_beta.PAPER_BETAS
-    # the port's GEMM-shift invariance is re-exported, not copied
+    # core.beta.effective_invariance is the reference's (beta, n, tp)
+    # function; the package exports the GEMM-shift one, as the reference's
+    # core/__init__ does
+    for beta in ref_beta.PAPER_BETAS + (0.9, 0.5):
+        assert tbeta.effective_invariance(beta, 128, tp) == \
+            ref_beta.effective_invariance(beta, 128, tp)
+    assert tbeta.effective_invariance(0.984497, 128) == pytest.approx(
+        63.5039, abs=1e-4)
+    from repro_torch import core
     from repro_torch.core import shifting
-    assert tbeta.effective_invariance is shifting.effective_invariance
+    assert core.effective_invariance is shifting.effective_invariance

@@ -34,6 +34,10 @@ def test_the_scan_sees_the_port():
     assert any(p.name == "telemetry.py" for p in FILES)
     assert any(p.name == "multimodal.py" for p in FILES)
     assert any(p.name == "moe.py" for p in FILES)
+    rel = {str(p.relative_to(ROOT)) for p in FILES}
+    assert "src/repro_torch/core/ring.py" in rel
+    assert "src/repro_torch/core/collectives.py" in rel
+    assert "src/repro_torch/launch/mesh.py" in rel
 
 
 @pytest.mark.parametrize(
