@@ -5,6 +5,9 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --train-only`` builds the two kernels phase 15
+runs and runs phase 15 alone, with no result line.
+
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card's name and power limit (nvidia-smi), then the build of every
      CUDA kernel with nvcc from the sources in the checkout, and the
@@ -268,6 +271,36 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      kernels' counts include the replica serve's and both ranks' of the
      bf16 mesh serve; the KVH 2 slices, which no serve runs, have the
      sharded ops' launches over both ranks.
+ 15. training, last: ``check_train_attention`` holds
+     ``kernels.train_attention.KernelAttention`` at qwen2-7b's training
+     call (batch 2, 28 query heads over 4, 1,024 rows, head_dim 128,
+     causal, bf16 inputs; fp16 PASA at BETA and FlashAttention-2 at
+     bf16_fp32): its output equal to the op's and its input gradients
+     equal to autograd of ``attention_plain`` bit for bit, one launch of
+     the attention kernel (and of shift-KV) a forward, the forward plus
+     backward timed beside the plain version's and SDPA's; the
+     ``shift_kv/train`` and ``pasa_attention/train`` entries of the
+     kernels line time both kernels at that call.  ``train_full_width``:
+     qwen2-7b at full width with its depth cut to TRAIN_LAYERS (8 of 28:
+     fp32 parameters, gradients and AdamW moments take 16 bytes a
+     parameter), remat on, random weights from seed 0 on the card,
+     ``DataPipeline(batch=2, seq=1024, seed=0)``; first the step-0
+     batch's loss and gradients through the kernels against the
+     whole-plain path (the plain attention forward, autograd) and both
+     against the whole-plain path with its attention at fp32, forward
+     and backward (TRAIN_* bars); then TRAIN_STEPS
+     steps of ``make_train_step`` through ``FaultTolerantLoop`` with no
+     checkpoint written: every loss and gradient norm finite, every
+     parameter leaf moved, shift-KV and attention launched 2 x
+     TRAIN_LAYERS times a step (each layer's forward and its remat
+     recompute) and no other kernel; wall ms a step, peak memory and the
+     loss trajectory reported.  ``train_restart``: ``python -m
+     repro_torch.launch.train`` on the reduced qwen3-4b at the naive
+     attention in fresh processes, one after the other: 10 steps
+     straight, and a run from the straight run's
+     step-5 checkpoint alone, their step-10 checkpoints equal leaf for
+     leaf, bit for bit.  In the kernels line the two
+     ``/train`` entries have the trainer's launches.
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -5407,9 +5440,467 @@ def check_kvh2_slices(dev):
     return [dec, pre]
 
 
-def main() -> int:
+# ------------------------------------------------------------ phase 15 --
+# the training path: qwen2-7b at full width, its depth cut so that fp32
+# parameters, gradients and AdamW moments fit the card
+TRAIN_ARCH = "qwen2-7b"
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 8
+TRAIN_HYPER = dict(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+# the attention's training call (B, H, KVH, S, D): causal over 1,024 rows
+TRAIN_ATTN_SHAPE = (TRAIN_BATCH, 28, 4, TRAIN_SEQ, 128)
+# the first step's loss and gradients through the kernels against the
+# whole-plain path (the plain attention forward, autograd) from the same
+# state: the two forwards differ by the fp16 attention's rounding only.
+# At this random init the gradients of wq / wk (and the q / k biases)
+# are small residuals of the softmax Jacobian's cancellation, which a
+# rounding-sized change of the forward moves by tens of percent (first
+# runs: cosine 0.92 between the two paths on wq / wk, 0.90 on bk, at a
+# loss gap of 2.8e-4).  So the gradients are held to a yardstick, the
+# same plain path with its attention at the fp32 policy, forward and
+# backward (a bundle at pasa_policy "fp32"; the rest of the model at its
+# bf16 compute dtype as in the other two): the kernels' distance from it,
+# over all leaves and on each leaf holding TRAIN_LEAF_SHARE of its norm,
+# no larger than TRAIN_FP32_RATIO (TRAIN_LEAF_RATIO) x the fp16 plain
+# path's distance from it
+TRAIN_LOSS_ATOL = 0.05
+TRAIN_GNORM_RTOL = 0.02
+TRAIN_FP32_RATIO = 1.25
+TRAIN_LEAF_RATIO = 1.5
+TRAIN_LEAF_SHARE = 0.01
+# restart == straight through the CLI, on the reduced config
+RESTART_ARGS = ("--arch", "qwen3-4b", "--reduced", "--attention-impl",
+                "naive", "--batch", "4", "--seq", "32", "--warmup", "2",
+                "--ckpt-every", "5", "--log-every", "1", "--seed", "0")
+RESTART_STEPS, RESTART_AT = 10, 5
+RESTART_TIMEOUT_S = 300
+
+
+def check_train_attention(dev):
+    """``kernels.train_attention.KernelAttention`` at the training call
+    (TRAIN_ATTN_SHAPE, causal, bf16 q/k/v as the model hands them): fp16
+    PASA at BETA and FlashAttention-2 at bf16_fp32.  Its output equals the
+    op's (``ops.pasa_attention`` / ``ops.flash_attention``) bit for bit,
+    and its input gradients equal ``torch.autograd.grad`` of
+    ``attention_plain`` at the same inputs bit for bit; each forward
+    launches the attention kernel once (and PASA's the shift kernel).
+    Times of the forward (the op, the plain version, SDPA) and of forward
+    plus backward (the Function, the plain version's autograd, SDPA's).
+    Returns the report and the kernels-line entries of shift-KV and the
+    attention kernel at the training call (launches filled in by the
+    trainer's run)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import BF16_FP32, FP16
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.train_attention import kernel_attention
+    amod = _kernel_module("pasa_attention")
+    smod = _kernel_module("shift_kv")
+
+    b, h, kvh, s, d = TRAIN_ATTN_SHAPE
+    rng = np.random.default_rng(15)
+    bf = torch.bfloat16
+    q = _randn(rng, (b, h, s, d), 0.0, dev, bf)
+    k = _randn(rng, (b, kvh, s, d), 2.0, dev, bf)
+    v = _randn(rng, (b, kvh, s, d), 0.0, dev, bf)
+    report = {}
+    for tag, flash, beta, policy in (("pasa_fp16", False, BETA, FP16),
+                                     ("flash_bf16_fp32", True, 0.0,
+                                      BF16_FP32)):
+        op = ops.flash_attention if flash else ops.pasa_attention
+        kw = dict(policy=policy, causal=True)
+        if not flash:
+            kw["beta"] = beta
+        ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        ops.reset_launches()
+        out = kernel_attention(*ins, flash=flash, beta=beta, policy=policy,
+                               causal=True)
+        launches = {w.__name__: w.launches for w in ops.WRAPPERS}
+        want = {w.__name__: 0 for w in ops.WRAPPERS}
+        want[op.__name__] = 1
+        if not flash:
+            want["shift_kv"] = 1
+        if launches != want:
+            raise AssertionError(f"train attention ({tag}): launches "
+                                 f"{launches} != {want}")
+        with torch.no_grad():
+            direct = op(q, k, v, **kw)
+        if not torch.equal(out, direct):
+            raise AssertionError(f"train attention ({tag}): forward differs "
+                                 f"from the op")
+        g = _randn(rng, tuple(out.shape), 0.0, dev, out.dtype)
+        grads = torch.autograd.grad(out, ins, g)
+        pins = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        plain = amod.attention_plain(*pins, beta=beta, policy=policy,
+                                     block_kv=128, causal=True)
+        want_g = torch.autograd.grad(plain, pins, g)
+        for name, a, w in zip("qkv", grads, want_g):
+            if not torch.isfinite(a.float()).all():
+                raise AssertionError(f"train attention ({tag}): d{name} "
+                                     f"not finite")
+            if not torch.equal(a, w):
+                raise AssertionError(f"train attention ({tag}): d{name} "
+                                     f"differs from the plain autograd")
+        report[f"{tag}_max_abs_err_vs_plain_forward"] = float(
+            (out.detach().float() - plain.detach().float()).abs().max())
+
+        def fwd_bwd(fn, ins=ins):
+            o = fn(*ins)
+            torch.autograd.grad(o, ins, g)
+
+        report[f"{tag}_fwd_bwd_ms"] = _cuda_time_ms(lambda: fwd_bwd(
+            lambda *x: kernel_attention(*x, flash=flash, beta=beta,
+                                        policy=policy, causal=True)), 3,
+            warmup=1)
+        report[f"{tag}_plain_fwd_bwd_ms"] = _cuda_time_ms(lambda: fwd_bwd(
+            lambda *x: amod.attention_plain(*x, beta=beta, policy=policy,
+                                            block_kv=128, causal=True)), 3,
+            warmup=1)
+        del ins, pins, out, plain, grads, want_g
+    # SDPA forward and backward at bf16 on K/V expanded to the heads: the
+    # library's fused backward, which the port does not have
+    ke, ve = (x.repeat_interleave(h // kvh, 1) for x in (k, v))
+    lins = [x.detach().requires_grad_(True) for x in (q, ke, ve)]
+    g = torch.randn((b, h, s, d), dtype=bf, device=dev)
+    report["sdpa_fwd_bwd_ms"] = _cuda_time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*lins, is_causal=True), lins, g), 5)
+    del lins
+
+    # the kernels-line entries at the training call: the PASA attention
+    # kernel on the shifted keys and the shift of the keys
+    from repro_torch.core.shifting import effective_invariance
+
+    qh, kh, vh = (x.to(torch.float16) for x in (q, k, v))
+    k_sh = ops.shift_kv(k, beta=BETA, policy=FP16)
+    inva = effective_invariance(128, d, BETA, torch.float16)
+    run = lambda: amod.kernel_call(qh, k_sh, vh, beta=BETA, inva=inva,
+                                   policy=FP16, causal=True, block_q=128,
+                                   block_kv=128)
+    got = run()
+    plain = amod.attention_plain(q, k, v, beta=BETA, policy=FP16,
+                                 block_kv=128, causal=True)
+    torch.cuda.synchronize()
+    err = _close("pasa_attention/train", got, plain, **ATTN_CAUSAL_TOL)
+    kx, vx = (x.repeat_interleave(h // kvh, 1) for x in (k_sh, vh))
+    attn = dict(
+        name="pasa_attention/train", route="cuda",
+        source=KERNEL_FILES["pasa_attention"][0],
+        replaces=KERNEL_FILES["pasa_attention"][1], max_abs_err=err,
+        ms=_cuda_time_ms(run, 20),
+        plain_ms=_cuda_time_ms(lambda: amod.attention_plain(
+            q, k, v, beta=BETA, policy=FP16, block_kv=128, causal=True), 3,
+            warmup=1),
+        library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kx, vx, is_causal=True), 20),
+        detail=report,
+        **_bound(2 * qh.numel() * 2 + 2 * kh.numel() * 2,
+                 4 * d * b * h * (s * (s + 1) // 2)),
+    )
+    m = smod.device_matrix(128, d, BETA, torch.float16, dev)
+    run_s = lambda: ops.shift_kv(k, beta=BETA, policy=FP16)
+    plain_s = lambda: smod.shift_kv_plain(m, kh, 128, out_dtype=torch.float16)
+    err_s = _close("shift_kv/train", run_s(), plain_s(), **SHIFT_TOL)
+    kb = kh.contiguous().reshape(b, kvh, s // 128, 128, d)
+    shift = dict(
+        name="shift_kv/train", route="cuda",
+        source="src/repro_torch/kernels/csrc/shift_kv.cu",
+        replaces="src/repro/kernels/shift_kv.py:48", max_abs_err=err_s,
+        ms=_cuda_time_ms(run_s, 50), plain_ms=_cuda_time_ms(plain_s, 20),
+        library_ms=_cuda_time_ms(lambda: torch.matmul(m, kb), 50),
+        **_bound(k.numel() * 2 + k.numel() * 2 + m.numel() * 2,
+                 2 * 128 * k.numel()),
+    )
+    ops.reset_launches()
+    return report, [shift, attn]
+
+
+def _grads_at(bundle, params, batch):
+    """(loss, the gradient of every leaf of ``params``) of one batch."""
     import torch
 
+    from repro_torch.optim.adamw import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = bundle.loss_fn(params, batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def train_full_width(dev):
+    """TRAIN_ARCH at full width with its depth cut to TRAIN_LAYERS, remat
+    on: random fp32 parameters from seed 0 on the card, AdamW moments in
+    fp32, ``DataPipeline(batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0)``.
+    First the step-0 batch's loss and gradients through the kernels
+    against the whole-plain path (the plain attention forward under
+    autograd) from the same parameters: the losses within
+    TRAIN_LOSS_ATOL, the gradient norms within TRAIN_GNORM_RTOL, and the
+    kernels' gradients no farther from the plain path's at fp32 than
+    TRAIN_FP32_RATIO x the fp16 plain path's (TRAIN_LEAF_RATIO on each
+    leaf holding TRAIN_LEAF_SHARE of the norm).  Then TRAIN_STEPS
+    steps of ``make_train_step`` through ``FaultTolerantLoop`` (no
+    checkpoint written), with the launch counts set to 0 just before:
+    every loss and gradient norm finite, every parameter leaf moved, and
+    shift-KV and the attention kernel launched 2 x TRAIN_LAYERS times a
+    step (each layer's forward and its remat recompute), no other kernel.
+    Returns the report."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (TrainHyper, batch_to_device,
+                                          make_train_step)
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.runtime import FaultTolerantLoop
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    if not cfg.remat:
+        raise AssertionError("the training config has remat off")
+    bundle = build(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev,
+                         dtype=cfg.torch_param_dtype())
+    torch.cuda.synchronize()
+    rep = {"init_s": time.perf_counter() - t0, "layers": cfg.n_layers,
+           "params": sum(p.numel() for p in tree_leaves(params))}
+    pipe = DataPipeline(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        vocab=cfg.vocab_size, seed=0)
+    first = batch_to_device(next(pipe), dev)
+    pipe.restore({"step": 0, "seed": 0})
+
+    # the kernels against the whole-plain path at the first batch, both
+    # against the whole-plain path at the fp32 policy (its attention
+    # forward and backward at fp32), before the optimizer state exists
+    # (three gradient sets beside the parameters)
+    at_fp32 = build(dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, pasa_policy="fp32")))
+    loss_k, grads_k = _grads_at(bundle, params, first)
+    with _plain_attention():
+        loss_p, grads_p = _grads_at(bundle, params, first)
+        loss_f, grads_f = _grads_at(at_fp32, params, first)
+    names = [k for k, _ in _flatten_with_paths(params)]
+    leaf = {}
+    for name, gk, gp, gf in zip(names, grads_k, grads_p, grads_f):
+        kk, pp, ff = _dot(gk, gk), _dot(gp, gp), _dot(gf, gf)
+        kp, kf, pf = _dot(gk, gp), _dot(gk, gf), _dot(gp, gf)
+        dist = lambda aa, bb, ab: max(aa + bb - 2 * ab, 0.0) ** 0.5
+        leaf[name] = dict(sq_k=kk, sq_p=pp, sq_f=ff,
+                          cos_kp=kp / max((kk * pp) ** 0.5, 1e-300),
+                          to_f32_k=dist(kk, ff, kf), to_f32_p=dist(pp, ff, pf),
+                          k_to_p=dist(kk, pp, kp))
+    del grads_f, grads_k, grads_p
+    torch.cuda.empty_cache()
+    total = lambda key: sum(v[key] for v in leaf.values()) ** 0.5
+    gn_k, gn_p, gn_f = total("sq_k"), total("sq_p"), total("sq_f")
+    d_k = sum(v["to_f32_k"] ** 2 for v in leaf.values()) ** 0.5
+    d_p = sum(v["to_f32_p"] ** 2 for v in leaf.values()) ** 0.5
+    d_kp = sum(v["k_to_p"] ** 2 for v in leaf.values()) ** 0.5
+    for v in leaf.values():
+        v["share"] = v["sq_f"] ** 0.5 / gn_f
+        v["ratio"] = v["to_f32_k"] / max(v["to_f32_p"], 1e-300)
+    held = {k: v for k, v in leaf.items() if v["share"] >= TRAIN_LEAF_SHARE}
+    worst = max(held, key=lambda k: held[k]["ratio"])
+    rep.update(
+        loss_kernels=float(loss_k), loss_plain=float(loss_p),
+        loss_plain_fp32=float(loss_f), grad_norm_kernels=gn_k,
+        grad_norm_plain=gn_p, grad_norm_plain_fp32=gn_f,
+        dist_to_fp32_kernels=d_k / gn_f, dist_to_fp32_plain=d_p / gn_f,
+        dist_kernels_to_plain=d_kp / gn_f,
+        worst_leaf=worst, worst_leaf_ratio=held[worst]["ratio"],
+        lowest_cos_leaves={k: {x: leaf[k][x] for x in (
+            "cos_kp", "share", "ratio")} for k in sorted(
+                leaf, key=lambda k: leaf[k]["cos_kp"])[:4]})
+    if not (abs(rep["loss_kernels"] - rep["loss_plain"]) <= TRAIN_LOSS_ATOL
+            and abs(gn_k - gn_p) <= TRAIN_GNORM_RTOL * gn_p
+            and d_k <= TRAIN_FP32_RATIO * d_p
+            and held[worst]["ratio"] <= TRAIN_LEAF_RATIO):
+        raise AssertionError(f"train_full_width: kernels vs plain {rep}")
+    torch.cuda.empty_cache()
+    state = {"params": params,
+             "opt": adamw_init(params, cfg.torch_optimizer_dtype())}
+    del params
+
+    # the training run
+    before = [p.detach().flatten()[:: max(p.numel() // 4096, 1)].clone()
+              for p in tree_leaves(state["params"])]
+    step_fn = make_train_step(bundle, TrainHyper(**TRAIN_HYPER))
+    metrics = []
+    times = []
+
+    def on_step(step, m, dt):
+        metrics.append({k: float(v) for k, v in m.items()})
+        times.append(dt)
+
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = CheckpointManager(d)
+        loop = FaultTolerantLoop(step_fn=step_fn, state=state, pipeline=pipe,
+                                 ckpt=ckpt, ckpt_every=TRAIN_STEPS + 1,
+                                 log=lambda s: print(f"  {s}"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        state = loop.run(TRAIN_STEPS, metrics_cb=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in ops.WRAPPERS}
+        by_mode = _by_mode(list(launches))
+        written = ckpt.available_steps()
+    pipe.close()
+    if written:
+        raise AssertionError(f"train_full_width wrote checkpoints {written}")
+    per_step = 2 * cfg.n_layers
+    want = {name: per_step * TRAIN_STEPS
+            if name in ("shift_kv", "pasa_attention") else 0
+            for name in launches}
+    if launches != want:
+        raise AssertionError(f"train_full_width: launches {launches} != "
+                             f"{want}")
+    for m in metrics:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"train_full_width: non-finite {m}")
+    after = [p.detach().flatten()[:: max(p.numel() // 4096, 1)]
+             for p in tree_leaves(state["params"])]
+    still = [n for n, a, b in zip(names, before, after) if torch.equal(a, b)]
+    if still:
+        raise AssertionError(f"train_full_width: leaves did not move {still}")
+    rep.update(
+        launches=launches, launches_by_mode=by_mode,
+        launches_per_step=per_step, steps=TRAIN_STEPS,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        loss=[m["loss"] for m in metrics],
+        grad_norm=[m["grad_norm"] for m in metrics],
+        lr=[m["lr"] for m in metrics],
+        step_ms=[t * 1e3 for t in times],
+        step_ms_after_first=sum(times[1:]) / max(len(times) - 1, 1) * 1e3,
+        wall_s=wall,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ * (len(times) - 1)
+        / max(sum(times[1:]), 1e-9),
+    )
+    del state, loop, step_fn
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _dot(a, b) -> float:
+    """sum(a * b) in float64, 2**24 elements at a time (bounded memory)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    n = 1 << 24
+    return float(sum((a[i:i + n].double() * b[i:i + n].double()).sum()
+                     for i in range(0, a.numel(), n)))
+
+
+def _train_cli(ckpt_dir, runs) -> str:
+    """One ``python -m repro_torch.launch.train`` process on the card
+    (RESTART_ARGS, RESTART_STEPS steps, ``--ckpt-dir ckpt_dir``): its
+    determinism settings precede its first cuBLAS call.  Appends its
+    record to ``runs``; returns its standard output."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *RESTART_ARGS,
+           "--steps", str(RESTART_STEPS), "--ckpt-dir", str(ckpt_dir)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=RESTART_TIMEOUT_S)
+    runs.append({"cmd": " ".join(cmd[2:]), "rc": proc.returncode,
+                 "s": time.perf_counter() - t0,
+                 "tail": proc.stdout.strip().splitlines()[-3:]})
+    if proc.returncode != 0:
+        raise AssertionError(f"train CLI failed ({proc.returncode}): "
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def train_restart():
+    """Restart == straight through the CLI (RESTART_ARGS: the reduced
+    qwen3-4b at the naive attention, which the card runs at head_dim 16),
+    in fresh processes on the card, one after the other: RESTART_STEPS
+    steps straight, writing checkpoints every RESTART_AT steps; then a
+    process on a directory holding only the straight run's checkpoint at
+    RESTART_AT.  Holds the resumed run to have restored at RESTART_AT
+    (``restore_latest``, the pipeline rewound) and logged only the steps
+    past it, and the two final checkpoints equal leaf for leaf, bit for
+    bit.  Returns the report."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        straight, resumed = Path(tmp) / "straight", Path(tmp) / "resumed"
+        _train_cli(straight, runs)
+        at = f"step_{RESTART_AT:010d}"
+        resumed.mkdir()
+        shutil.copytree(straight / at, resumed / at)
+        log = _train_cli(resumed, runs)
+        if f"restored step {RESTART_AT}" not in log or \
+                f"step {RESTART_AT:5d} " in log or \
+                f"step {RESTART_STEPS:5d} " not in log:
+            raise AssertionError(f"train_restart: the resumed run did not "
+                                 f"resume at {RESTART_AT}: {log[-2000:]}")
+        last = f"step_{RESTART_STEPS:010d}"
+        ma, mb = (json.loads((p / last / "manifest.json").read_text())
+                  for p in (straight, resumed))
+        if sorted(ma["leaves"]) != sorted(mb["leaves"]):
+            raise AssertionError("train_restart: leaf sets differ")
+        differ = []
+        for key, ent in ma["leaves"].items():
+            x = np.load(straight / last / "shard_00000" / ent["file"])
+            y = np.load(resumed / last / "shard_00000"
+                        / mb["leaves"][key]["file"])
+            if x.shape != y.shape or x.tobytes() != y.tobytes():
+                differ.append(key)
+        if differ:
+            raise AssertionError(f"train_restart: leaves differ {differ}")
+    return {"leaves_equal": len(ma["leaves"]), "runs": runs}
+
+
+def phase_train(dev):
+    """Phase 15, training: the Function at the training call, then
+    TRAIN_ARCH (depth TRAIN_LAYERS) trained with the launch counts set to
+    0 just before its run, then restart == straight through the CLI.
+    Prints the reports; returns (the kernels-line entries, the trainer's
+    report)."""
+    t0 = time.perf_counter()
+    train_attn, entries = check_train_attention(dev)
+    print("train_attention: " + json.dumps(train_attn))
+    for k in entries:
+        print(f"{k['name']}: max_abs_err {k['max_abs_err']:.3e}, "
+              f"{k['ms']:.4f} ms vs plain {k['plain_ms']:.3f} ms, library "
+              f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']})")
+    rep = train_full_width(dev)
+    print("train_full_width: " + json.dumps(rep))
+    print("train_restart: " + json.dumps(train_restart()))
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return entries, rep
+
+
+def main(argv=None) -> int:
+    """The whole smoke; ``--train-only``: the build of the two kernels
+    phase 15 runs, and phase 15 alone, with no result line."""
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--train-only"]):
+        print(f"usage: chip_smoke.py [--train-only], got {argv}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -5427,9 +5918,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    built = _build.build()
+    built = _build.build(("shift_kv", "pasa_attention") if argv else None)
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)} "
           f"into {_build.build_dir()}")
+    if argv:
+        phase_train(dev)
+        return 0
     # ptxas: each kernel instance's registers, stack and spills
     for name in _build.SOURCES:
         log = _build.library_path(name).with_suffix(".log")
@@ -5657,6 +6151,7 @@ def main() -> int:
     del olmoe, olmoe_nodrop, olmoe_params
     torch.cuda.empty_cache()
     print(f"phase 13: {time.perf_counter() - t_p13:.1f} s")
+    train_entries, rep_train = phase_train(dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each mode of shift-KV has the dense serve's count of that mode (0 for
@@ -5778,6 +6273,13 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was not launched by the "
                                  f"sharded ops")
     line += [{key: k[key] for key in keys} for k in slices]
+    # the training call's shift-KV and attention: the trainer's counts
+    for k in train_entries:
+        k["launches"] = rep_train["launches"][k["name"].partition("/")[0]]
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']} was not launched by the "
+                                 f"trainer")
+    line += [{key: k[key] for key in keys} for k in train_entries]
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

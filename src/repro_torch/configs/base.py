@@ -1,11 +1,12 @@
 """Model/config schema (counterpart of ``repro.configs.base``).
 
-The fields the serving routes of the dense family (paged and dense), of
-the hybrid family (Mamba-2 + a shared attention block, dense route), of
-the vlm family (Llama-3.2-Vision: gated image cross-attention, dense
-route), of the ssm family (Mamba-1, dense route) and of the audio family
-(the Whisper encoder-decoder, dense route) and of the moe family (the
-dense layer with a routed expert FFN, both routes) read are ported.
+Every field of the reference's ``ModelConfig`` is ported: those the
+serving routes of the six families read, and the training fields
+(``param_dtype``, ``optimizer_dtype``, ``remat``, ``loss_chunk``) that
+``launch.steps`` and the families' ``loss_fn`` read.  ``tie_embeddings``
+and ``supports_long_context`` are carried as the reference carries them:
+no forward of either package reads the first, and the second marks the
+families the reference's dry-run takes to its 500k decode cell.
 """
 
 from __future__ import annotations
@@ -93,6 +94,7 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 1.0e6
     norm_eps: float = 1.0e-6
+    tie_embeddings: bool = False
 
     moe: MoEConfig = MoEConfig()
     ssm: SSMConfig = SSMConfig()
@@ -112,14 +114,29 @@ class ModelConfig:
     n_encoder_layers: int = 0
     n_audio_frames: int = 0
 
-    # the reference's parameter dtype (bf16 for kimi-k2); the port stores
-    # each weight at the dtype the reference casts it to before use
-    # (models/convert.py), so only training (ROADMAP A15) would read it
+    # the dtype of the trained (master) parameters, bf16 for kimi-k2:
+    # training keeps every leaf at it (launch.steps.init_train_state); a
+    # serve stores each weight at the dtype the reference casts it to
+    # before use instead (models/convert.py)
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # AdamW moment dtype (bf16 for kimi-k2)
+    optimizer_dtype: str = "float32"
+
+    remat: bool = True            # recompute each layer in the backward
+    loss_chunk: int = 1024        # sequence chunk of the cross-entropy
+
+    # the reference's dry-run takes only these to its 500k decode cell
+    supports_long_context: bool = False
 
     def torch_compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
+
+    def torch_param_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def torch_optimizer_dtype(self) -> torch.dtype:
+        return getattr(torch, self.optimizer_dtype)
 
     @property
     def q_dim(self) -> int:
@@ -185,4 +202,6 @@ class ModelConfig:
             n_encoder_layers=min(self.n_encoder_layers, 2)
             if self.n_encoder_layers else 0,
             n_audio_frames=min(self.n_audio_frames, 16) or 0,
+            loss_chunk=32,
+            remat=False,
         )

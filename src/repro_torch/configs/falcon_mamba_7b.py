@@ -19,4 +19,5 @@ CONFIG = ModelConfig(
     d_ff=0,
     vocab_size=65024,
     ssm=SSMConfig(state=16, d_conv=4, expand=2, version=1),
+    supports_long_context=True,
 )

@@ -24,4 +24,5 @@ CONFIG = ModelConfig(
     rope_theta=5.0e4,
     moe=MoEConfig(n_experts=384, top_k=8, capacity_factor=1.25),
     param_dtype="bfloat16",
+    optimizer_dtype="bfloat16",
 )

@@ -22,4 +22,5 @@ CONFIG = ModelConfig(
     rope_theta=1.0e4,
     ssm=SSMConfig(state=64, d_conv=4, expand=2, version=2, head_p=64),
     attn_every=6,
+    supports_long_context=True,
 )

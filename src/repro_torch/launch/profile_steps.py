@@ -1,4 +1,5 @@
-"""Where the device time of the serving calls goes, on the card.
+"""Where the device time of the serving calls and of a train step goes,
+on the card.
 
 Builds ``--arch`` (qwen2-7b by default; full width, ``--layers`` cuts
 depth) with random weights and profiles the device calls of its serving
@@ -56,6 +57,20 @@ quantized page pool (the quantized mode of the paged kernels; the
 quantize-on-write and tail-page re-quantization ops land in "other");
 the dense route, which has no quantized cache, is then left out.
 
+``--train`` profiles one training step instead (``launch.steps.
+make_train_step`` at the smoke's phase 15 shape: ``--arch`` at full
+width, ``--layers`` 8 by default, remat on, fp32 parameters and AdamW
+moments, batch 2 x 1,024 tokens from ``DataPipeline``): after two warm
+steps, one step timed without the profiler (wall, peak memory), then one
+under it, its device time split into GEMMs, the PASA kernels (shift-KV
+and attention, the forward and its remat recompute), the plain
+attention's backward (every kernel run inside
+``KernelAttention.backward``: the plain version's recompute and its
+autograd, GEMMs included), the AdamW update (every kernel inside
+``adamw_update``) and the rest; in the unprofiled step each annotated
+window is also timed with CUDA events around it (the device's time from
+the window's first queued kernel to its last, idle gaps included).
+
 The first prefill call and ``--decode-calls`` decode calls of each route
 run under ``torch.profiler`` (CPU + CUDA activities, after a warm-up of
 each).  For each call type it prints the wall time per call (timed once
@@ -83,6 +98,8 @@ Run on one card from the repository root:
       --out build/profile_verify
   PYTHONPATH=src python -m repro_torch.launch.profile_steps \
       --engine-steps 16 --pipeline-depth 0 1 --out build/profile_engine
+  PYTHONPATH=src python -m repro_torch.launch.profile_steps --train \
+      --out build/profile_train
 """
 
 from __future__ import annotations
@@ -105,6 +122,11 @@ DENSE_BATCH, DENSE_PROMPT = 4, 1000
 # token-by-token families: (batch, prompt tokens, cache rows) of each
 TOKEN_BY_TOKEN = {"hybrid": (4, 200, 240), "audio": (4, 64, 104),
                   "vlm": (4, 32, 72), "ssm": (4, 64, 104)}
+
+# --train: the smoke's phase 15 shape
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 2, 1024
+# the windows of a train step profiled apart (record_function labels)
+TRAIN_WINDOWS = ("plain_attention_backward", "adamw_update")
 
 # kernel-name fragment -> category, first match wins
 _KERNELS = (
@@ -133,9 +155,13 @@ def _busy_us(prof) -> float:
     (one stream: they do not overlap)."""
     import torch
 
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return _busy_us_of([e for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA])
+
+
+def _busy_us_of(events) -> float:
+    """The union of the events' device intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, end = 0.0, -math.inf
     for s, e in spans:
         if s >= end:
@@ -259,6 +285,9 @@ def main(argv=None):
                     help="profile the paged engine's first step and N "
                          "steady decode steps instead of bare calls "
                          "(the dense family)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one train step (the smoke's phase 15 "
+                         "shape) instead of the serving calls")
     ap.add_argument("--pipeline-depth", type=int, nargs="+", default=[0, 1],
                     choices=(0, 1),
                     help="--engine-steps: the engine's pipeline depths "
@@ -278,6 +307,10 @@ def main(argv=None):
 
     dev = resolve_device("cuda")
     cfg = get_config(args.arch)
+    if args.train:
+        report = _profile_train(args, cfg, dev, Path(args.out))
+        print(json.dumps(report))
+        return report
     if args.layers:
         if cfg.family == "vlm" and args.layers % cfg.cross_attn_every:
             ap.error(f"--layers must be a multiple of cross_attn_every "
@@ -564,6 +597,121 @@ def _profile_token_by_token(args, bundle, params, rng, dev, out: Path) -> dict:
                                         out / f"trace_{name}_decode.json")
     report[f"{name}_decode"]["kv_len_at_first_call"] = [kv] * batch
     return report
+
+
+
+@contextlib.contextmanager
+def _train_windows(marks: dict):
+    """``KernelAttention.backward`` and the trainer's ``adamw_update``
+    run inside ``torch.profiler.record_function`` ranges named after
+    TRAIN_WINDOWS, and between two CUDA events each, appended to
+    ``marks[label]``."""
+    import torch
+
+    from repro_torch.kernels.train_attention import KernelAttention
+    from repro_torch.launch import steps
+
+    def wrap(fn, label):
+        def run(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with torch.profiler.record_function(label):
+                out = fn(*a, **kw)
+            end.record()
+            marks.setdefault(label, []).append((start, end))
+            return out
+        return run
+
+    backward, update = KernelAttention.backward, steps.adamw_update
+    KernelAttention.backward = staticmethod(
+        wrap(backward, "plain_attention_backward"))
+    steps.adamw_update = wrap(update, "adamw_update")
+    try:
+        yield
+    finally:
+        KernelAttention.backward = staticmethod(backward)
+        steps.adamw_update = update
+
+
+def _profile_train(args, cfg, dev, out: Path) -> dict:
+    """One train step at the smoke's phase 15 shape (see the module
+    docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.model_zoo import build
+
+    layers = args.layers or TRAIN_LAYERS
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    bundle = build(cfg)
+    state = steps.init_train_state(
+        bundle, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    out.mkdir(parents=True, exist_ok=True)
+    pipe = DataPipeline(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        vocab=cfg.vocab_size, seed=args.seed)
+    step = steps.make_train_step(bundle, steps.TrainHyper(
+        peak_lr=3e-4, warmup_steps=2, total_steps=8))
+    for _ in range(2):                                # warm-up
+        state, m = step(state, next(pipe))
+    float(m["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    marks = {}
+    with _train_windows(marks):
+        t0 = time.perf_counter()
+        state, m = step(state, next(pipe))
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    launches = {w.__name__: w.launches for w in ops.WRAPPERS}
+    with _train_windows({}), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, next(pipe))
+        float(m["loss"])
+        torch.cuda.synchronize()
+    pipe.close()
+    trace = out / "trace_train_step.json"
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    windows = {label: [] for label in TRAIN_WINDOWS}
+    kernels = []
+    for e in events:
+        if e.name in windows:
+            windows[e.name].append((e.time_range.start, e.time_range.end))
+        else:
+            kernels.append(e)
+    by_cat = {}
+    for e in kernels:
+        cat = next((label for label, spans in windows.items()
+                    if any(s <= e.time_range.start < t for s, t in spans)),
+                   None)
+        if cat is None:
+            cat = _category(e.name)
+            if cat in ("shift_kv", "pasa_attention"):
+                cat = "pasa_kernels"
+        by_cat[cat] = by_cat.get(cat, 0.0) + e.time_range.elapsed_us()
+    busy = _busy_us_of(kernels)
+    return {
+        "arch": cfg.arch_id, "layers": layers, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "remat": cfg.remat,
+        "device": torch.cuda.get_device_name(0), "loss": loss,
+        "wall_ms": wall_us / 1e3,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "device_busy_ms": busy / 1e3,
+        "device_idle_share": 1.0 - busy / wall_us,
+        "device_ms": {k: v / 1e3 for k, v in sorted(by_cat.items())},
+        "window_event_ms": {label: sum(a.elapsed_time(b) for a, b in ms)
+                            for label, ms in marks.items()},
+        "annotated_windows": {k: len(v) for k, v in windows.items()},
+        "launches": launches,
+        "trace": str(trace),
+    }
 
 
 if __name__ == "__main__":

@@ -35,7 +35,10 @@ the card:
     asked.  Not causal, nothing hides the pad rows: the op gets
     ``kv_valid = S2`` and masks the pad columns after the row
     pseudo-average, which counts them, as the reference's
-    ``blocked_attention`` does with its own zero pad.  One query row (a
+    ``blocked_attention`` does with its own zero pad.  The op runs
+    inside ``kernels.train_attention.KernelAttention``: the same kernels
+    forward; under autograd (training) the plain version's gradient
+    backward.  One query row (a
     decode step's cross-attention) is padded to 64 rows only; the rows do
     not interact.  Cross K/V are projected one sequence at a time (1,500
     rows each for Whisper), so that a sequence's K/V do not depend on how
@@ -79,6 +82,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.naive import naive_attention
 from repro_torch.core.precision import PrecisionPolicy, get_policy
 from repro_torch.kernels import ops
+from repro_torch.kernels.train_attention import kernel_attention
 from repro_torch.models.layers import apply_rope, matmuls, rms_norm, rope_angles
 from repro_torch.runtime.paged_cache import (
     NULL_PAGE,
@@ -213,11 +217,9 @@ def _dense_prefill(q, k, v, cfg: ModelConfig, cache: Optional[dict], *,
     # causal, no real row sees a pad column; otherwise the op masks them
     blocks = dict(block_q=block_q, block_kv=ac.block_kv, causal=causal,
                   kv_valid=None if causal else s2)
-    if ac.impl == "flash":
-        out = ops.flash_attention(*args, policy=policy, **blocks)
-    else:
-        out = ops.pasa_attention(*args, beta=beta, policy=policy, **blocks)
-    # (B, H, S_pad, hd)
+    # the kernels forward; under autograd the plain version's gradient
+    out = kernel_attention(*args, flash=ac.impl == "flash", beta=beta,
+                           policy=policy, **blocks)    # (B, H, S_pad, hd)
     return out[:, :, :s].movedim(1, 2).reshape(b, s, h * hd)
 
 

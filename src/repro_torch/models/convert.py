@@ -1,6 +1,9 @@
 """Parameters of the dense and moe transformers, the hybrid (zamba2) model,
 Llama-3.2-Vision, the Mamba-1 LM (falcon-mamba) and Whisper: carried
-across from the reference, or drawn at random on the device.
+across from the reference, or drawn at random on the device - for a
+serve, or for training with every leaf at the parameter dtype
+(``dtype=`` of the ``init_*`` draws; ``train_state_from_numpy`` carries
+the reference's whole training state, optimizer moments included).
 
 Both produce the layout of the reference's ``transformer.init_lm``::
 
@@ -113,6 +116,39 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     return conv(tree, ())
 
 
+def train_state_from_numpy(state, cfg: ModelConfig, device) -> dict:
+    """The reference's ``init_train_state`` pytree as numpy arrays -
+    ``{"params": tree, "opt": AdamWState(step, mu, nu)}`` (the optimizer
+    state as the dataclass or as a dict) - -> the port's training state
+    on ``device``: every parameter leaf at ``cfg.param_dtype`` (fp32 where
+    the reference's leaf is fp32: its init keeps the moe router and some
+    Mamba leaves at fp32 whatever the parameter dtype), ``mu`` and ``nu``
+    at ``cfg.optimizer_dtype``, ``step`` a () int32 tensor."""
+    from repro_torch.optim import AdamWState
+
+    dev = resolve_device(device)
+    opt = state["opt"]
+    field = (opt.__getitem__ if isinstance(opt, dict)
+             else lambda name: getattr(opt, name))
+
+    def conv(node, dtype, keep_fp32=False):
+        if isinstance(node, dict):
+            return {k: conv(v, dtype, keep_fp32) for k, v in node.items()}
+        fp32 = keep_fp32 and np.asarray(node).dtype == np.float32
+        arr = np.array(node, dtype=np.float32)
+        return torch.from_numpy(arr).to(
+            device=dev, dtype=torch.float32 if fp32 else dtype)
+
+    od = cfg.torch_optimizer_dtype()
+    return {
+        "params": conv(state["params"], cfg.torch_param_dtype(), True),
+        "opt": AdamWState(
+            step=torch.tensor(int(np.asarray(field("step"))),
+                              dtype=torch.int32).to(dev),
+            mu=conv(field("mu"), od), nu=conv(field("nu"), od)),
+    }
+
+
 def _normal(shape, scale, dtype, generator, device) -> torch.Tensor:
     """N(0, scale^2) drawn in fp32, stored at ``dtype``; stacked (L, ...)
     or (G, per, ...) matrices are drawn one matrix at a time to bound the
@@ -134,27 +170,47 @@ def _lead(n_stack) -> tuple:
     return tuple(n_stack) if isinstance(n_stack, tuple) else (n_stack,)
 
 
+# the dtype of the leaves the reference's init draws at fp32 whatever its
+# parameter dtype: the moe router, Mamba-1's a_log and d_skip, Mamba-2's
+# a_log, dt_bias and d_skip
+KEEP_FP32 = object()
+
+
 class _Draw:
     """Random leaves on one device from one generator, with the
     reference's distributions: N(0, scale^2) drawn in fp32 (projections
     N(0, 1/d_in)), constants for norms and biases.  ``n_stack`` is the
-    leading stacking axes: None, a layer count or a tuple of them."""
+    leading stacking axes: None, a layer count or a tuple of them.  Each
+    leaf is stored at the serving dtype of its path (the compute dtype, or
+    fp32 where asked), or every leaf at ``dtype`` when it is given (the
+    trained parameters at ``cfg.param_dtype``)."""
 
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, device,
+                 dtype=None):
         self.cd = cfg.torch_compute_dtype()
+        self.fixed = dtype
         self.gen = generator
         self.dev = device
 
+    def dt(self, dtype=None) -> torch.dtype:
+        """The dtype a leaf asked at ``dtype`` (None: compute) is stored
+        at; ``KEEP_FP32`` asks fp32 under ``dtype`` too (the leaves the
+        reference's init keeps at fp32 whatever the parameter dtype)."""
+        if dtype is KEEP_FP32:
+            return torch.float32
+        return self.fixed or dtype or self.cd
+
     def normal(self, shape, scale, dtype=None):
-        return _normal(shape, scale, dtype or self.cd, self.gen, self.dev)
+        return _normal(shape, scale, self.dt(dtype), self.gen, self.dev)
 
     def dense(self, d_in, d_out, n_stack=None, dtype=None):
         return self.normal(_lead(n_stack) + (d_in, d_out),
                            1.0 / math.sqrt(d_in), dtype)
 
     def const(self, shape, value, dtype=None):
-        return torch.full(shape, value, dtype=dtype or self.cd,
+        return torch.full(shape, value, dtype=self.dt(dtype),
                           device=self.dev)
+
 
     def attention(self, cfg: ModelConfig, n_stack=None) -> dict:
         """The reference's ``init_attention`` layout (one layer, or
@@ -181,14 +237,16 @@ class _Draw:
                 "w2": self.dense(f, d, n_stack)}
 
 
-def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
-    """Random parameters with the reference's distributions: embedding
+def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None,
+            dtype=None) -> dict:
+    """Random parameters with the reference's distributions (every leaf
+    at ``dtype`` when it is given, see :class:`_Draw`): embedding
     N(0, 1); projections N(0, 1/d_in); norm weights 1; biases 0; the moe
     family's router (fp32) and expert ``w1`` / ``w3`` N(0, 1/D), ``w2``
     N(0, 1/F) (``moe.init_moe``).  The generator must live on
     ``device``.  Different draws from the reference's (jax.random vs
     torch), same distributions."""
-    r = _Draw(cfg, generator, resolve_device(device))
+    r = _Draw(cfg, generator, resolve_device(device), dtype)
     nl, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     attn = r.attention(cfg, nl)        # drawn first, then the embedding
     embed = r.normal((cfg.vocab_size, d), 1.0)
@@ -197,7 +255,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
     if cfg.family == "moe":
         e = cfg.moe.n_experts
         blocks["moe"] = {
-            "router": r.dense(d, e, nl, dtype=torch.float32),
+            "router": r.dense(d, e, nl, dtype=KEEP_FP32),
             "w1": r.normal((nl, e, d, f), 1.0 / math.sqrt(d)),
             "w3": r.normal((nl, e, d, f), 1.0 / math.sqrt(d)),
             "w2": r.normal((nl, e, f, d), 1.0 / math.sqrt(f)),
@@ -213,14 +271,14 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
 
 
 def init_hybrid(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> dict:
+                device=None, dtype=None) -> dict:
     """Random parameters of the hybrid model with the reference's
     distributions (``hybrid.init_hybrid``, ``ssm.init_mamba2``): as
     :func:`init_lm` for the embedding, the shared block and the head;
     Mamba ``in_proj`` / ``out_proj`` N(0, 1/d_in), ``conv_w``
     N(0, 1/d_conv), ``conv_b`` and ``a_log`` 0, ``dt_bias`` -4, ``d_skip``
     and the norm weights 1."""
-    r = _Draw(cfg, generator, resolve_device(device))
+    r = _Draw(cfg, generator, resolve_device(device), dtype)
     nl, d = cfg.n_layers, cfg.d_model
     di, n, k = cfg.ssm.expand * d, cfg.ssm.state, cfg.ssm.d_conv
     nh = di // cfg.ssm.head_p
@@ -231,9 +289,9 @@ def init_hybrid(cfg: ModelConfig, generator: torch.Generator,
             "in_proj": r.dense(d, 2 * di + 2 * n + nh, nl),
             "conv_w": r.normal((nl, di, k), 1.0 / math.sqrt(k), f32),
             "conv_b": r.const((nl, di), 0.0, f32),
-            "a_log": r.const((nl, nh), 0.0, f32),
-            "dt_bias": r.const((nl, nh), -4.0, f32),
-            "d_skip": r.const((nl, nh), 1.0, f32),
+            "a_log": r.const((nl, nh), 0.0, KEEP_FP32),
+            "dt_bias": r.const((nl, nh), -4.0, KEEP_FP32),
+            "d_skip": r.const((nl, nh), 1.0, KEEP_FP32),
             "norm_w": r.const((nl, di), 1.0),
             "out_proj": r.dense(di, d, nl),
         },
@@ -250,12 +308,12 @@ def init_hybrid(cfg: ModelConfig, generator: torch.Generator,
 
 
 def init_whisper(cfg: ModelConfig, generator: torch.Generator,
-                 device=None) -> dict:
+                 device=None, dtype=None) -> dict:
     """Random parameters of Whisper with the reference's distributions
     (``multimodal.init_whisper``): as :func:`init_lm` for the embedding,
     the attention and MLP stacks of both halves and the head; the learned
     frame positions ``pos_embed`` N(0, 0.01^2)."""
-    r = _Draw(cfg, generator, resolve_device(device))
+    r = _Draw(cfg, generator, resolve_device(device), dtype)
     ne, nd, d = cfg.n_encoder_layers, cfg.n_layers, cfg.d_model
     return {
         "enc": {
@@ -281,7 +339,7 @@ def init_whisper(cfg: ModelConfig, generator: torch.Generator,
 
 
 def init_vlm(cfg: ModelConfig, generator: torch.Generator,
-             device=None) -> dict:
+             device=None, dtype=None) -> dict:
     """Random parameters of Llama-3.2-Vision with the reference's
     distributions and layout (``multimodal.init_vlm``): as
     :func:`init_lm` for the embedding, the blocks and the head;
@@ -289,7 +347,7 @@ def init_vlm(cfg: ModelConfig, generator: torch.Generator,
     (G, per, ...), the cross-attention blocks (G, ...) with their gates
     ``gate_attn`` / ``gate_mlp`` at zeros in fp32 (tanh(0) = 0: at this
     init no cross layer reaches the logits)."""
-    r = _Draw(cfg, generator, resolve_device(device))
+    r = _Draw(cfg, generator, resolve_device(device), dtype)
     d = cfg.d_model
     g = cfg.n_layers // cfg.cross_attn_every
     per = cfg.cross_attn_every - 1
@@ -314,14 +372,14 @@ def init_vlm(cfg: ModelConfig, generator: torch.Generator,
 
 
 def init_ssm(cfg: ModelConfig, generator: torch.Generator,
-             device=None) -> dict:
+             device=None, dtype=None) -> dict:
     """Random parameters of the Mamba-1 LM with the reference's
     distributions (``model_zoo._ssm_init``, ``ssm.init_mamba1``): as
     :func:`init_lm` for the embedding and the head; ``in_proj``,
     ``x_proj``, ``dt_proj``, ``out_proj`` N(0, 1/d_in), ``conv_w``
     N(0, 1/d_conv), ``conv_b`` 0, ``dt_bias`` -4, ``a_log`` log(1..N)
     along the state, ``d_skip`` and the norm weights 1."""
-    r = _Draw(cfg, generator, resolve_device(device))
+    r = _Draw(cfg, generator, resolve_device(device), dtype)
     nl, d = cfg.n_layers, cfg.d_model
     di, n, k = cfg.ssm.expand * d, cfg.ssm.state, cfg.ssm.d_conv
     dr = max(d // 16, 1)
@@ -337,7 +395,7 @@ def init_ssm(cfg: ModelConfig, generator: torch.Generator,
             "dt_proj": r.dense(dr, di, nl, dtype=f32),
             "dt_bias": r.const((nl, di), -4.0, f32),
             "a_log": a_log.expand(nl, di, n).contiguous(),
-            "d_skip": r.const((nl, di), 1.0, f32),
+            "d_skip": r.const((nl, di), 1.0, KEEP_FP32),
             "out_proj": r.dense(di, d, nl),
         },
         "ln": r.const((nl, d), 1.0),

@@ -15,7 +15,10 @@ slice, which the attention layer writes in place, as the dense family's
 per-layer cache.  The Mamba state (conv window and SSM state per layer)
 is written in place too.
 
-The family is served token by token on the dense cache (``serve_step``);
+Training (``loss_fn``) walks the whole sequence without a cache, each
+Mamba layer recomputed in the backward when ``cfg.remat`` (the shared
+block is not, as in the reference).  The family is served token by token
+on the dense cache (``serve_step``);
 the fused prefill (``prefill_cache=True``) is not ported: the reference's
 branch hands back the incoming Mamba state unchanged, so the state after
 a fused prefill would be wrong, and it would run the attention kernel at
@@ -73,11 +76,19 @@ def _walk(params: dict, cfg: ModelConfig, x, *, cache=None, pos=None):
             if cache is not None:
                 lc = {"conv": cache["mamba"]["conv"][i],
                       "ssm": cache["mamba"]["ssm"][i]}
-            y, _ = ssm.mamba2_block(
-                L.rms_norm(x, params["mamba_ln"][i], cfg.norm_eps), lp, cfg,
-                cache=lc)
-            x = x + y.to(x.dtype)
+            if lc is None:
+                x = L.remat(cfg, _mamba_layer, x, lp, params["mamba_ln"][i],
+                            cfg)
+            else:
+                x = _mamba_layer(x, lp, params["mamba_ln"][i], cfg, lc)
     return x
+
+
+def _mamba_layer(x, lp: dict, ln, cfg: ModelConfig, cache=None):
+    """One pre-norm residual Mamba-2 layer."""
+    y, _ = ssm.mamba2_block(L.rms_norm(x, ln, cfg.norm_eps), lp, cfg,
+                            cache=cache)
+    return x + y.to(x.dtype)
 
 
 def forward(params: dict, cfg: ModelConfig, tokens, *, cache=None, pos=None,
@@ -94,6 +105,16 @@ def forward(params: dict, cfg: ModelConfig, tokens, *, cache=None, pos=None,
     x = L.embed(tokens, params["embed"], cd)
     x = _walk(params, cfg, x, cache=cache, pos=pos)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S + 1)."""
+    tokens = batch["tokens"]
+    h, _ = forward(params, cfg, tokens[:, :-1])
+    return L.lm_loss_chunked(
+        h, params["lm_head"], batch.get("labels", tokens[:, 1:]),
+        chunk=cfg.loss_chunk,
+    )
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -1,4 +1,5 @@
-"""Shared building blocks: RMSNorm, RoPE, SwiGLU MLP, embedding.
+"""Shared building blocks: RMSNorm, RoPE, SwiGLU MLP, embedding, the
+chunked cross-entropy of training and per-layer remat.
 
 Counterpart of ``repro.models.layers`` with the same dtype steps: norms
 and RoPE compute in fp32 and store at the activation dtype, matmuls run at
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -94,3 +96,52 @@ def mlp(x: torch.Tensor, p: dict, compute_dtype: torch.dtype) -> torch.Tensor:
 def embed(tokens: torch.Tensor, table: torch.Tensor,
           compute_dtype: torch.dtype) -> torch.Tensor:
     return table[tokens.long()].to(compute_dtype)
+
+
+def lm_loss_chunked(h: torch.Tensor, w_out: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """Mean next-token cross-entropy of h (B, S, D) under the head w_out
+    (D, V), labels (B, S) with -1 ignored, over sequence chunks of
+    ``chunk`` rows and a remainder chunk: at most one chunk's (B, chunk,
+    V) fp32 logits at a time in the forward.  The reference's
+    ``lm_loss_chunked``: per chunk the sums of (logsumexp - gold logit)
+    over the valid labels and of their count, added chunk by chunk in
+    order; the mean over max(count, 1)."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    n_chunks = s // chunk
+    w = w_out.float()
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n_chunks)]
+    if s > n_chunks * chunk:
+        bounds.append((n_chunks * chunk, s))
+    for lo, hi in bounds:
+        logits = h[:, lo:hi].float() @ w
+        yc = labels[:, lo:hi]
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            yc.long().clamp(min=0)[..., None])[..., 0]
+        valid = (yc >= 0).float()
+        tot = tot + torch.sum((logz - gold) * valid)
+        cnt = cnt + torch.sum(valid)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_needs_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_needs_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def remat(cfg, fn, *args, **kwargs):
+    """fn(*args, **kwargs), recomputed in the backward instead of keeping
+    its activations when ``cfg.remat`` and autograd records the call (an
+    input requires grad): the reference's per-layer ``jax.checkpoint``.
+    A serve's call is a plain call."""
+    if cfg.remat and torch.is_grad_enabled() and _needs_grad(args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return fn(*args, **kwargs)

@@ -1,8 +1,11 @@
 """build(cfg) -> ModelBundle (counterpart of ``repro.models.model_zoo``).
 
-All six families are ported.  The dense family (qwen2-7b, the qwen3
-configs with qk-norm, qwen1.5-32b) and the moe family (olmoe-1b-7b,
-kimi-k2: the same bundle, each layer's FFN routed to experts) have both
+All six families are ported, each with its training loss
+(``loss_fn``; the vlm's and Whisper's batches carry the
+``extra_train_inputs``) and its serving interface.  The dense family
+(qwen2-7b, the qwen3 configs with qk-norm, qwen1.5-32b) and the moe
+family (olmoe-1b-7b, kimi-k2: the same bundle, each layer's FFN routed
+to experts) have both
 serving routes: the dense route (``launch/serve.py``) needs
 ``init_cache``, ``serve_step`` and ``prefill``; the paged engine
 ``init_paged_cache``, ``paged_serve_step`` and ``paged_prefill_step``.
@@ -26,7 +29,7 @@ reference; its layer walk, forward and serve step live here, as there.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -42,16 +45,23 @@ from repro_torch.models.transformer import _layer
 
 def _ssm_walk(params: dict, cfg: ModelConfig, x, cache=None):
     """The Mamba-1 layers, each a pre-norm residual block: without a cache
-    the whole sequence; with one, a decode step that writes every layer's
+    the whole sequence (each layer recomputed in the backward when
+    ``cfg.remat``); with one, a decode step that writes every layer's
     conv window and SSM state in place."""
     for i in range(cfg.n_layers):
-        lc = None if cache is None else {"conv": cache["conv"][i],
-                                         "ssm": cache["ssm"][i]}
-        y, _ = ssm.mamba1_block(
-            L.rms_norm(x, params["ln"][i], cfg.norm_eps),
-            _layer(params["mamba"], i), cfg, cache=lc)
-        x = x + y.to(x.dtype)
+        lp, ln = _layer(params["mamba"], i), params["ln"][i]
+        if cache is None:
+            x = L.remat(cfg, _ssm_layer, x, lp, ln, cfg)
+        else:
+            x = _ssm_layer(x, lp, ln, cfg, {"conv": cache["conv"][i],
+                                            "ssm": cache["ssm"][i]})
     return x
+
+
+def _ssm_layer(x, lp: dict, ln, cfg: ModelConfig, cache=None):
+    y, _ = ssm.mamba1_block(L.rms_norm(x, ln, cfg.norm_eps), lp, cfg,
+                            cache=cache)
+    return x + y.to(x.dtype)
 
 
 def _ssm_forward(params: dict, cfg: ModelConfig, tokens, *, cache=None):
@@ -59,6 +69,16 @@ def _ssm_forward(params: dict, cfg: ModelConfig, tokens, *, cache=None):
     x = L.embed(tokens, params["embed"], cfg.torch_compute_dtype())
     x = _ssm_walk(params, cfg, x, cache=cache)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+
+
+def _ssm_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S + 1)."""
+    tokens = batch["tokens"]
+    h, _ = _ssm_forward(params, cfg, tokens[:, :-1])
+    return L.lm_loss_chunked(
+        h, params["lm_head"], batch.get("labels", tokens[:, 1:]),
+        chunk=cfg.loss_chunk,
+    )
 
 
 def _ssm_serve_step(params: dict, cfg: ModelConfig, token, pos, cache: dict):
@@ -71,8 +91,12 @@ def _ssm_serve_step(params: dict, cfg: ModelConfig, token, pos, cache: dict):
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     cfg: ModelConfig
-    #   (generator, device) -> params
+    #   (generator, device, dtype=None) -> params (every leaf at dtype
+    #   when given: training's cfg.param_dtype)
     init: Callable[..., dict]
+    #   (params, batch) -> () fp32 mean next-token cross-entropy; batch
+    #   {"tokens": (B, S + 1)} and the family's extra_train_inputs
+    loss_fn: Callable[[dict, dict], torch.Tensor]
     #   (batch, max_len, dtype=..., device=...) -> dense cache
     init_cache: Callable[..., dict]
     #   (params, token (B,), pos (B,), cache, **extras) -> (logits (B, V),
@@ -91,6 +115,17 @@ class ModelBundle:
     #   (params, tokens (B, CS), start (B,), kv_len (B,), last_idx (B,),
     #    pool, page_table (B, mp)) -> (logits (B, V), pool)
     paged_prefill_step: Optional[Callable[..., tuple]] = None
+    #   name -> ((batch, seq) -> shape, dtype): the training batch's inputs
+    #   beside the tokens (the vlm's vision_embeds, Whisper's frame_embeds)
+    extra_train_inputs: Dict[str, tuple] = dataclasses.field(
+        default_factory=dict)
+
+    def train_inputs(self, batch: int, seq: int) -> Dict[str, tuple]:
+        """name -> (shape, dtype) of one training batch."""
+        out = {"tokens": ((batch, seq + 1), torch.int32)}
+        for name, (shape_fn, dt) in self.extra_train_inputs.items():
+            out[name] = (shape_fn(batch, seq), dt)
+        return out
 
     @property
     def supports_paged(self) -> bool:
@@ -106,9 +141,10 @@ def build(cfg: ModelConfig) -> ModelBundle:
     if cfg.family == "vlm":
         return ModelBundle(
             cfg=cfg,
-            init=lambda generator, device=None: convert.init_vlm(
-                cfg, generator, device
+            init=lambda generator, device=None, dtype=None: convert.init_vlm(
+                cfg, generator, device, dtype
             ),
+            loss_fn=lambda p, b: multimodal.vlm_loss_fn(p, cfg, b),
             init_cache=lambda batch, max_len, dtype=torch.bfloat16, *, device: (
                 multimodal.vlm_init_cache(cfg, batch, max_len, dtype,
                                           device=device)
@@ -116,13 +152,17 @@ def build(cfg: ModelConfig) -> ModelBundle:
             serve_step=lambda p, t, pos, c, *, vision_embeds: (
                 multimodal.vlm_serve_step(p, cfg, t, pos, c, vision_embeds)
             ),
+            extra_train_inputs={"vision_embeds": (
+                lambda b, s: (b, cfg.n_image_tokens, cfg.vision_dim),
+                torch.bfloat16)},
         )
     if cfg.family == "ssm":
         return ModelBundle(
             cfg=cfg,
-            init=lambda generator, device=None: convert.init_ssm(
-                cfg, generator, device
+            init=lambda generator, device=None, dtype=None: convert.init_ssm(
+                cfg, generator, device, dtype
             ),
+            loss_fn=lambda p, b: _ssm_loss(p, cfg, b),
             init_cache=lambda batch, max_len, dtype=torch.bfloat16, *, device: (
                 ssm.mamba1_cache(cfg, batch, dtype, device=device)
             ),
@@ -131,9 +171,10 @@ def build(cfg: ModelConfig) -> ModelBundle:
     if cfg.family == "hybrid":
         return ModelBundle(
             cfg=cfg,
-            init=lambda generator, device=None: convert.init_hybrid(
-                cfg, generator, device
+            init=lambda generator, device=None, dtype=None: (
+                convert.init_hybrid(cfg, generator, device, dtype)
             ),
+            loss_fn=lambda p, b: hybrid.loss_fn(p, cfg, b),
             init_cache=lambda batch, max_len, dtype=torch.bfloat16, *, device: (
                 hybrid.init_cache(cfg, batch, max_len, dtype, device=device)
             ),
@@ -144,9 +185,10 @@ def build(cfg: ModelConfig) -> ModelBundle:
     if cfg.family == "audio":
         return ModelBundle(
             cfg=cfg,
-            init=lambda generator, device=None: convert.init_whisper(
-                cfg, generator, device
+            init=lambda generator, device=None, dtype=None: (
+                convert.init_whisper(cfg, generator, device, dtype)
             ),
+            loss_fn=lambda p, b: multimodal.whisper_loss_fn(p, cfg, b),
             init_cache=lambda batch, max_len, dtype=torch.bfloat16, *, device: (
                 multimodal.whisper_init_cache(cfg, batch, max_len, dtype,
                                               device=device)
@@ -154,12 +196,16 @@ def build(cfg: ModelConfig) -> ModelBundle:
             serve_step=lambda p, t, pos, c: multimodal.whisper_serve_step(
                 p, cfg, t, pos, c
             ),
+            extra_train_inputs={"frame_embeds": (
+                lambda b, s: (b, cfg.n_audio_frames, cfg.d_model),
+                torch.bfloat16)},
         )
     return ModelBundle(
         cfg=cfg,
-        init=lambda generator, device=None: convert.init_lm(
-            cfg, generator, device
+        init=lambda generator, device=None, dtype=None: convert.init_lm(
+            cfg, generator, device, dtype
         ),
+        loss_fn=lambda p, b: transformer.loss_fn(p, cfg, b),
         init_cache=lambda batch, max_len, dtype=torch.bfloat16, *, device: (
             transformer.init_cache(cfg, batch, max_len, dtype, device=device)
         ),

@@ -38,6 +38,11 @@ into ``cache["enc_out"]``.
 
 Each decode step writes the self-attention K/V rows in place, as the
 dense family's.
+
+Training (``vlm_loss_fn``, ``whisper_loss_fn``) runs the whole sequence
+without a cache; when ``cfg.remat`` the vlm's self layers and Whisper's
+encoder and decoder layers are recomputed in the backward (the vlm's
+cross layers are not), as the reference's ``jax.checkpoint`` branches.
 """
 
 from __future__ import annotations
@@ -108,10 +113,23 @@ def vlm_forward(params: dict, cfg: ModelConfig, tokens, vision_embeds, *,
         x = _cross_block(x, _layer(params["cross"], gi), cfg, vis)
         sp = _layer(params["self"], gi)
         for j in range(cfg.cross_attn_every - 1):
-            lc = None if cache is None else {"k": cache["k"][gi, j],
-                                             "v": cache["v"][gi, j]}
+            if cache is None:
+                x = L.remat(cfg, _self_block, x, _layer(sp, j), cfg)
+                continue
+            lc = {"k": cache["k"][gi, j], "v": cache["v"][gi, j]}
             x = _self_block(x, _layer(sp, j), cfg, cache=lc, pos=pos)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+
+
+def vlm_loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S + 1)
+    given ``batch["vision_embeds"]`` (B, n_image_tokens, vision_dim)."""
+    tokens = batch["tokens"]
+    h, _ = vlm_forward(params, cfg, tokens[:, :-1], batch["vision_embeds"])
+    return L.lm_loss_chunked(
+        h, params["lm_head"], batch.get("labels", tokens[:, 1:]),
+        chunk=cfg.loss_chunk,
+    )
 
 
 def vlm_init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -145,15 +163,19 @@ def whisper_encode(params: dict, cfg: ModelConfig,
     cd = cfg.torch_compute_dtype()
     x = frames.to(cd) + params["pos_embed"].to(cd)[None]
     for i in range(cfg.n_encoder_layers):
-        lp = _layer(params["enc"], i)
-        h = attn_mod.attention(
-            L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["attn"], cfg,
-            causal=False, use_rope=False,
-        )
-        x = x + h.to(x.dtype)
-        ff = L.mlp(L.rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], cd)
-        x = x + ff.to(x.dtype)
+        x = L.remat(cfg, _enc_block, x, _layer(params["enc"], i), cfg)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _enc_block(x, lp: dict, cfg: ModelConfig):
+    cd = cfg.torch_compute_dtype()
+    h = attn_mod.attention(
+        L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["attn"], cfg,
+        causal=False, use_rope=False,
+    )
+    x = x + h.to(x.dtype)
+    ff = L.mlp(L.rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], cd)
+    return x + ff.to(x.dtype)
 
 
 def _dec_block(x, lp: dict, cfg: ModelConfig, enc_out, *, cache=None,
@@ -182,11 +204,26 @@ def whisper_decode_fwd(params: dict, cfg: ModelConfig, tokens, enc_out, *,
     cd = cfg.torch_compute_dtype()
     x = L.embed(tokens, params["embed"], cd)
     for i in range(cfg.n_layers):
-        lc = None if cache is None else {"k": cache["k"][i],
-                                         "v": cache["v"][i]}
-        x = _dec_block(x, _layer(params["dec"], i), cfg, enc_out, cache=lc,
-                       pos=pos)
+        lp = _layer(params["dec"], i)
+        if cache is None:
+            x = L.remat(cfg, _dec_block, x, lp, cfg, enc_out)
+            continue
+        lc = {"k": cache["k"][i], "v": cache["v"][i]}
+        x = _dec_block(x, lp, cfg, enc_out, cache=lc, pos=pos)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+
+
+def whisper_loss_fn(params: dict, cfg: ModelConfig,
+                    batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S + 1)
+    given ``batch["frame_embeds"]`` (B, n_audio_frames, d_model)."""
+    enc_out = whisper_encode(params, cfg, batch["frame_embeds"])
+    tokens = batch["tokens"]
+    h, _ = whisper_decode_fwd(params, cfg, tokens[:, :-1], enc_out)
+    return L.lm_loss_chunked(
+        h, params["lm_head"], batch.get("labels", tokens[:, 1:]),
+        chunk=cfg.loss_chunk,
+    )
 
 
 def whisper_init_cache(cfg: ModelConfig, batch: int, max_len: int,

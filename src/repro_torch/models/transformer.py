@@ -1,17 +1,22 @@
-"""Decoder-only transformer (the dense and moe families): dense-cache and
-paged serving interfaces.
+"""Decoder-only transformer (the dense and moe families): the training
+forward and loss, and the dense-cache and paged serving interfaces.
 
 Counterpart of ``repro.models.transformer``: the parameter layout of
 ``init_lm`` (stacked ``(L, ...)`` leaves, ``y = x @ W`` orientation);
+``forward`` without a cache (whole sequences, causal) and ``loss_fn``;
 ``init_cache``, ``forward``, ``prefill``, ``prefill_logits`` and
 ``serve_step`` on the dense cache; ``init_paged_cache``,
 ``serve_step_paged`` and ``prefill_step_paged`` on the page pool; fp32
 ``lm_head`` logits.  The reference scans the stacked layers; here a Python
-loop indexes layer ``i`` of every stacked leaf (a view).  Every step
-writes its cache in place and returns it.
+loop indexes layer ``i`` of every stacked leaf (a view).  Without a cache
+each layer is recomputed in the backward when ``cfg.remat`` (the
+reference's ``jax.checkpoint``).  Every step writes its cache in place and
+returns it.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -29,24 +34,44 @@ def _layer(tree: dict, i: int) -> dict:
     }
 
 
-def _blocks(x, blocks: dict, cfg: ModelConfig, *, cache: dict, pos=None,
-            page_table=None, prefill_cache=False, prefill_len=None):
+def _unstack(tree: dict, n: int) -> list:
+    """The n layers of a stacked tree, each a dict of (L, ...) -> (...)
+    views.  One ``unbind`` per leaf: under autograd its backward stacks
+    the layers' gradients once, where indexing layer by layer would
+    scatter each into a zero tensor of the whole stack."""
+    flat = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
+def _block(x, lp: dict, cfg: ModelConfig, *, cache=None, pos=None,
+           page_table=None, prefill_cache=False, prefill_len=None):
+    """One residual block: ln1 -> attention -> ln2 -> MLP or experts."""
     cd = cfg.torch_compute_dtype()
-    for i in range(cfg.n_layers):
-        lp = _layer(blocks, i)
-        h = attn_mod.attention(
-            L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["attn"], cfg,
-            cache={name: leaf[i] for name, leaf in cache.items()}, pos=pos,
-            page_table=page_table, prefill_cache=prefill_cache,
-            prefill_len=prefill_len,
-        )
-        x = x + h.to(x.dtype)
-        ff_in = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        if cfg.family == "moe":
-            ff = moe_mod.moe_ffn(ff_in, lp["moe"], cfg)
-        else:
-            ff = L.mlp(ff_in, lp["mlp"], cd)
-        x = x + ff.to(x.dtype)
+    h = attn_mod.attention(
+        L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["attn"], cfg,
+        cache=cache, pos=pos, page_table=page_table,
+        prefill_cache=prefill_cache, prefill_len=prefill_len,
+    )
+    x = x + h.to(x.dtype)
+    ff_in = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        ff = moe_mod.moe_ffn(ff_in, lp["moe"], cfg)
+    else:
+        ff = L.mlp(ff_in, lp["mlp"], cd)
+    return x + ff.to(x.dtype)
+
+
+def _blocks(x, blocks: dict, cfg: ModelConfig, *, cache=None, pos=None,
+            page_table=None, prefill_cache=False, prefill_len=None):
+    for i, lp in enumerate(_unstack(blocks, cfg.n_layers)):
+        if cache is None:
+            x = L.remat(cfg, _block, x, lp, cfg)
+            continue
+        x = _block(x, lp, cfg,
+                   cache={name: leaf[i] for name, leaf in cache.items()},
+                   pos=pos, page_table=page_table,
+                   prefill_cache=prefill_cache, prefill_len=prefill_len)
     return x
 
 
@@ -75,16 +100,28 @@ def _logits(h: torch.Tensor, params: dict) -> torch.Tensor:
     return L.matmuls(h.float(), params["lm_head"].float())[0]
 
 
-def forward(params, cfg: ModelConfig, tokens, *, cache: dict, pos=None,
-            prefill_cache=False):
-    """tokens (B, S) -> (final hidden states (B, S, D), cache) against the
-    dense cache: a decode step at ``pos`` or, with ``prefill_cache``, the
-    whole prompt written to rows [0, S)."""
+def forward(params, cfg: ModelConfig, tokens, *, cache: Optional[dict] = None,
+            pos=None, prefill_cache=False):
+    """tokens (B, S) -> (final hidden states (B, S, D), cache).  Without a
+    cache the whole sequences, causal (training); against the dense cache
+    a decode step at ``pos`` or, with ``prefill_cache``, the whole prompt
+    written to rows [0, S)."""
     cd = cfg.torch_compute_dtype()
     x = L.embed(tokens, params["embed"], cd)
     x = _blocks(x, params["blocks"], cfg, cache=cache, pos=pos,
                 prefill_cache=prefill_cache)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S + 1)
+    (``batch["labels"]`` (B, S), -1 ignored, if given)."""
+    tokens = batch["tokens"]
+    h, _ = forward(params, cfg, tokens[:, :-1])
+    return L.lm_loss_chunked(
+        h, params["lm_head"], batch.get("labels", tokens[:, 1:]),
+        chunk=cfg.loss_chunk,
+    )
 
 
 def serve_step(params, cfg: ModelConfig, token, pos, cache: dict):

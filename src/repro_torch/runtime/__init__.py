@@ -1,5 +1,6 @@
-"""Serving runtime of the port: paged KV cache, radix prefix cache,
-scheduler, draft proposers, telemetry, engine."""
+"""Runtime of the port: the serving side (paged KV cache, radix prefix
+cache, scheduler, draft proposers, telemetry, engine) and the training
+loop's fault tolerance."""
 
 from repro_torch.runtime.engine import (
     CANCELLED,
@@ -13,6 +14,11 @@ from repro_torch.runtime.engine import (
     ServeEngine,
     chunked_cold_reference,
     dense_greedy_reference,
+)
+from repro_torch.runtime.fault_tolerance import (
+    FaultTolerantLoop,
+    StragglerMonitor,
+    elastic_mesh_shape,
 )
 from repro_torch.runtime.paged_cache import (
     NULL_PAGE,
@@ -71,19 +77,18 @@ from repro_torch.runtime.telemetry import (
 
 __all__ = [
     "CANCELLED", "Counter", "DEFAULT_TENANT", "DRAFTERS", "DraftProposer",
-    "EngineReplicaGroup", "FCFSPolicy", "FINISHED", "Gauge", "Histogram",
-    "MetricsRegistry", "MixedPolicy", "NULL_PAGE", "NgramProposer",
-    "NumericsProbe", "POLICIES", "POOL_DTYPES", "PRIORITY_CLASSES",
-    "PageAllocator", "QMAX", "ROUTING_MODES", "RUNNING", "RadixPrefixCache",
-    "Request",
-    "RequestView", "SJFPolicy", "STATS_SCHEMA", "SchedulerPolicy",
-    "ServeEngine", "StepTracer", "Telemetry", "TenantQuota",
-    "TenantQuotaPolicy", "TraceEvent", "WAITING", "aggregate_snapshots",
-    "capture_pages", "chunked_cold_reference", "dense_greedy_reference",
-    "dequantize_kv_page", "gather_pages", "gather_pages_dequant",
-    "get_drafter", "get_scheduler", "init_paged_pool", "is_quantized_dtype",
-    "model_axis_size", "paged_bytes", "paged_bytes_per_device",
-    "pool_dtype_name", "pool_model_sharded", "pool_shardings",
-    "quantize_kv_page", "resolve_pool_dtype", "restore_pages",
-    "sharded_pool_device_bytes", "touched_pages",
+    "EngineReplicaGroup", "FCFSPolicy", "FaultTolerantLoop", "FINISHED",
+    "Gauge", "Histogram", "MetricsRegistry", "MixedPolicy", "NULL_PAGE",
+    "NgramProposer", "NumericsProbe", "POLICIES", "POOL_DTYPES",
+    "PRIORITY_CLASSES", "PageAllocator", "QMAX", "ROUTING_MODES", "RUNNING",
+    "RadixPrefixCache", "Request", "RequestView", "SJFPolicy", "STATS_SCHEMA",
+    "SchedulerPolicy", "ServeEngine", "StepTracer", "StragglerMonitor",
+    "Telemetry", "TenantQuota", "TenantQuotaPolicy", "TraceEvent", "WAITING",
+    "aggregate_snapshots", "capture_pages", "chunked_cold_reference",
+    "dense_greedy_reference", "dequantize_kv_page", "elastic_mesh_shape",
+    "gather_pages", "gather_pages_dequant", "get_drafter", "get_scheduler",
+    "init_paged_pool", "is_quantized_dtype", "model_axis_size", "paged_bytes",
+    "paged_bytes_per_device", "pool_dtype_name", "pool_model_sharded",
+    "pool_shardings", "quantize_kv_page", "resolve_pool_dtype",
+    "restore_pages", "sharded_pool_device_bytes", "touched_pages",
 ]

@@ -14,8 +14,9 @@ model)`` mesh) and its exports.
     ``cancel()`` reaches the owner; a shared-prefix burst lands on the
     warm replica; one such serve's streams equal the reference's
     one-device engine's up to a near-tie.
-  * **Exports**: the port's ``runtime``, ``core`` and ``kernels``
-    ``__all__`` hold the reference's, less the names of later items.
+  * **Exports**: the port's ``runtime``, ``core``, ``kernels``,
+    ``optim``, ``data`` and ``checkpoint`` ``__all__`` hold the
+    reference's, less the names of later items.
 """
 
 import dataclasses
@@ -25,8 +26,6 @@ import numpy as np
 import pytest
 import torch
 
-import repro.core as ref_core
-import repro.kernels as ref_kernels
 import repro.runtime as ref_runtime
 from repro.configs import get_config as ref_get_config
 from repro.models.model_zoo import build as ref_build
@@ -62,19 +61,19 @@ KW = dict(max_batch=3, num_pages=24, page_size=PAGE, max_seq_len=64,
 # a differing greedy token is accepted only where the reference's own
 # top-1 / top-2 logit gap is below the two stacks' logit agreement
 LOGIT_ATOL = 0.1
-# names of the reference's __all__ that later items port: A15b's fault
-# tolerance (runtime)
-LATER = {"FaultTolerantLoop", "StragglerMonitor", "elastic_mesh_shape"}
+# names of the reference's __all__ that later items port: the int8
+# gradient compression of data-parallel training (optim, A15b)
+LATER = {"CompressionState", "compressed_psum", "compression_init"}
 
 
 # ------------------------------------------------------------ exports --
 
-@pytest.mark.parametrize("pkg", ["runtime", "core", "kernels"])
+@pytest.mark.parametrize("pkg", ["runtime", "core", "kernels", "optim",
+                                 "data", "checkpoint"])
 def test_exports_hold_the_references(pkg):
     import importlib
 
-    ref = {"runtime": ref_runtime, "core": ref_core,
-           "kernels": ref_kernels}[pkg]
+    ref = importlib.import_module(f"repro.{pkg}")
     port = importlib.import_module(f"repro_torch.{pkg}")
     missing = set(ref.__all__) - set(port.__all__) - LATER
     assert not missing, sorted(missing)
