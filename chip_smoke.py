@@ -5,8 +5,11 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py --train-only`` builds the two kernels phase 15
-runs and runs phase 15 alone, with no result line.
+``python3 chip_smoke.py --train-only`` (``--multi-only``) builds the two
+kernels phase 15 (16) runs and runs that phase alone, with no result
+line.  ``--multi-only --half-batch`` feeds every rank of phase 16's
+data-parallel runs slice 0 of the batch, prints the readings and fails
+unless the gates refuse them.
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card's name and power limit (nvidia-smi), then the build of every
@@ -281,9 +284,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      backward timed beside the plain version's and SDPA's; the
      ``shift_kv/train`` and ``pasa_attention/train`` entries of the
      kernels line time both kernels at that call.  ``train_full_width``:
-     qwen2-7b at full width with its depth cut to TRAIN_LAYERS (8 of 28:
-     fp32 parameters, gradients and AdamW moments take 16 bytes a
-     parameter), remat on, random weights from seed 0 on the card,
+     qwen2-7b at full width with its depth cut to TRAIN_LAYERS (4 of 28,
+     to keep the smoke in its time with phase 16; fp32 parameters,
+     gradients and AdamW moments take 16 bytes a parameter), remat on, random weights from seed 0 on the card,
      ``DataPipeline(batch=2, seq=1024, seed=0)``; first the step-0
      batch's loss and gradients through the kernels against the
      whole-plain path (the plain attention forward, autograd) and both
@@ -301,6 +304,34 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      step-5 checkpoint alone, their step-10 checkpoints equal leaf for
      leaf, bit for bit.  In the kernels line the two
      ``/train`` entries have the trainer's launches.
+ 16. training across processes, after phase 15: the one-device steps
+     first (freed before the group starts), then two processes on the
+     card in a gloo group, each with the trainer CLI's determinism
+     settings.  16a, expert parallel (olmoe-1b-7b at full width, 2 of 16
+     layers, capacity factor E / k, a 1 x 2 mesh): ``moe_ffn``'s a2a
+     dispatch on each rank's 32 experts against ``moe_ffn_gspmd`` on all
+     64, one layer, B 2 x S 1024 bf16 tokens, the output and every
+     leaf's gradient within EP_FFN_TOL of their largest; then one train
+     step of the whole model against the one-device step (loss within
+     MULTI_LOSS_ATOL, gradient norm MULTI_GNORM_RTOL), the replicated
+     leaves the same bits on both ranks.  16b, data parallel (qwen3-4b,
+     2 of 36 layers, a 2 x 1 mesh, global batch 2 x 1,024): 3 steps
+     against 3 one-device steps on the whole batch (the same bars), the
+     card's peak (both ranks' and what this process holds) at most
+     MULTI_PEAK_GB.  16c: the same from the same state through the
+     compressed step on a pod axis of 2: the losses and gradient norms
+     within the bars of 16b and within COMP_LOSS_ATOL of the one-device
+     steps', every parameter within COMP_PARAM_ATOL of 16b's, every
+     parameter leaf crossing as int16 once a step (bytes counted); and
+     ``compressed_psum`` on one leaf (COMP_LEAF_SHAPE), two rounds of
+     error feedback, bit for bit the reference's leaf formula on the
+     gathered gradients and residuals.  16d: ``row_parallel_matmul`` at
+     qwen3-4b's w2 call, forward and weight gradient within ROWP_TOL of
+     the plain product's largest, one bf16 sum on the wire.  Every
+     rank's launches of shift-KV and attention are gated exactly (2 a
+     layer a step: forward and remat recompute); the ``/train_dp`` and
+     ``/train_ep`` entries of the kernels line time both kernels at the
+     ranks' call shapes and carry every rank's launches.
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -5167,7 +5198,7 @@ def _mesh_serve(bundle, params, cache_dtype, mesh=None):
         pool_bytes_per_rank=st["cache_bytes_per_device"],
         peak_bytes_over_resident=torch.cuda.max_memory_allocated() - resident,
         staging_calls=io.calls if io else 0,
-        staging_ms_per_call=1e3 * io.stage_s() / io.calls if io else 0.0)
+        staging_ms_per_call=1e3 * io.stage_s / io.calls if io else 0.0)
 
 
 def _mesh_ops(dev, mesh):
@@ -5230,14 +5261,15 @@ def _mesh_ops(dev, mesh):
         x.reshape(x.shape[0], 128, 3 * d).half(), t3).reshape(
         b, s2, 3, d).movedim(1, 2)[:, :, None], 0.0).half() for x in (k3, v3)]
     r, n = mesh.axis_rank("model"), mesh.shape["model"]
+    group = mesh.axis_group("model")
     ring, one = {}, {}
     for policy in (FP16, F64):
         part = ring_pasa_attention(
-            *(shard(x, 3, n, r) for x in (q5, *kv5)), group=mesh.group,
+            *(shard(x, 3, n, r) for x in (q5, *kv5)), group=group,
             beta=BETA, policy=policy, block_kv=128, causal=True,
             kv_len=kv_len2.to(torch.int32).reshape(b, 1, 1, 1, 1),
             q_offset=start.to(torch.int32).reshape(b, 1, 1, 1, 1))
-        ring[policy.name] = all_gather(part, 3, mesh.group).reshape(
+        ring[policy.name] = all_gather(part, 3, group).reshape(
             b, h, cs, d)[:3]
         one[policy.name] = blocked_attention(
             q5, *kv5, beta=BETA, policy=policy, block_kv=128, causal=True,
@@ -5282,7 +5314,8 @@ def _mesh_rank(rank, store, out_dir, device):
         for dtype in ("bf16", "int8"):
             eng, rep = _mesh_serve(bundle, params, dtype, mesh)
             sh = eng.pool.shardings
-            rep["pool"] = {n: all_gather(x, sh[n].dim, mesh.group).cpu()
+            group = mesh.axis_group("model")
+            rep["pool"] = {n: all_gather(x, sh[n].dim, group).cpu()
                            for n, x in eng.pool.items()}
             res[dtype] = rep
             del eng
@@ -5442,9 +5475,10 @@ def check_kvh2_slices(dev):
 
 # ------------------------------------------------------------ phase 15 --
 # the training path: qwen2-7b at full width, its depth cut so that fp32
-# parameters, gradients and AdamW moments fit the card
+# parameters, gradients and AdamW moments fit the card, and the whole
+# smoke, phase 16 included, its time
 TRAIN_ARCH = "qwen2-7b"
-TRAIN_LAYERS = 8
+TRAIN_LAYERS = 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 8
 TRAIN_HYPER = dict(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
 # the attention's training call (B, H, KVH, S, D): causal over 1,024 rows
@@ -5568,10 +5602,36 @@ def check_train_attention(dev):
         F.scaled_dot_product_attention(*lins, is_causal=True), lins, g), 5)
     del lins
 
-    # the kernels-line entries at the training call: the PASA attention
-    # kernel on the shifted keys and the shift of the keys
-    from repro_torch.core.shifting import effective_invariance
+    entries = _train_call_entries(dev, TRAIN_ATTN_SHAPE, "train", q, k, v)
+    entries[1]["detail"] = report
+    return report, entries
 
+
+def _train_call_entries(dev, shape, tag, q=None, k=None, v=None):
+    """The kernels-line entries of shift-KV and the PASA attention kernel
+    at a training call ``shape`` (B, H, KVH, S, D), causal, fp16 at BETA:
+    each held against its plain version (bf16 q / k / v drawn with keys of
+    mean 2 unless given), timed beside it and beside the library call
+    (SDPA on the shifted keys expanded to the heads; ``torch.matmul`` for
+    the shift), with its bound.  Names ``<kernel>/<tag>``; launches are
+    filled in by the caller."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import FP16
+    from repro_torch.core.shifting import effective_invariance
+    from repro_torch.kernels import ops
+    amod = _kernel_module("pasa_attention")
+    smod = _kernel_module("shift_kv")
+
+    b, h, kvh, s, d = shape
+    if q is None:
+        rng = np.random.default_rng(16)
+        bf = torch.bfloat16
+        q = _randn(rng, (b, h, s, d), 0.0, dev, bf)
+        k = _randn(rng, (b, kvh, s, d), 2.0, dev, bf)
+        v = _randn(rng, (b, kvh, s, d), 0.0, dev, bf)
     qh, kh, vh = (x.to(torch.float16) for x in (q, k, v))
     k_sh = ops.shift_kv(k, beta=BETA, policy=FP16)
     inva = effective_invariance(128, d, BETA, torch.float16)
@@ -5582,10 +5642,10 @@ def check_train_attention(dev):
     plain = amod.attention_plain(q, k, v, beta=BETA, policy=FP16,
                                  block_kv=128, causal=True)
     torch.cuda.synchronize()
-    err = _close("pasa_attention/train", got, plain, **ATTN_CAUSAL_TOL)
+    err = _close(f"pasa_attention/{tag}", got, plain, **ATTN_CAUSAL_TOL)
     kx, vx = (x.repeat_interleave(h // kvh, 1) for x in (k_sh, vh))
     attn = dict(
-        name="pasa_attention/train", route="cuda",
+        name=f"pasa_attention/{tag}", route="cuda",
         source=KERNEL_FILES["pasa_attention"][0],
         replaces=KERNEL_FILES["pasa_attention"][1], max_abs_err=err,
         ms=_cuda_time_ms(run, 20),
@@ -5594,17 +5654,16 @@ def check_train_attention(dev):
             warmup=1),
         library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
             qh, kx, vx, is_causal=True), 20),
-        detail=report,
         **_bound(2 * qh.numel() * 2 + 2 * kh.numel() * 2,
                  4 * d * b * h * (s * (s + 1) // 2)),
     )
     m = smod.device_matrix(128, d, BETA, torch.float16, dev)
     run_s = lambda: ops.shift_kv(k, beta=BETA, policy=FP16)
     plain_s = lambda: smod.shift_kv_plain(m, kh, 128, out_dtype=torch.float16)
-    err_s = _close("shift_kv/train", run_s(), plain_s(), **SHIFT_TOL)
+    err_s = _close(f"shift_kv/{tag}", run_s(), plain_s(), **SHIFT_TOL)
     kb = kh.contiguous().reshape(b, kvh, s // 128, 128, d)
     shift = dict(
-        name="shift_kv/train", route="cuda",
+        name=f"shift_kv/{tag}", route="cuda",
         source="src/repro_torch/kernels/csrc/shift_kv.cu",
         replaces="src/repro/kernels/shift_kv.py:48", max_abs_err=err_s,
         ms=_cuda_time_ms(run_s, 50), plain_ms=_cuda_time_ms(plain_s, 20),
@@ -5613,7 +5672,7 @@ def check_train_attention(dev):
                  2 * 128 * k.numel()),
     )
     ops.reset_launches()
-    return report, [shift, attn]
+    return [shift, attn]
 
 
 def _grads_at(bundle, params, batch):
@@ -5891,15 +5950,614 @@ def phase_train(dev):
     return entries, rep
 
 
+# ------------------------------------------------------------ phase 16 --
+# training across processes: two ranks on cuda:0 in a gloo group (NCCL
+# will not put two ranks on one card), one process a rank
+MULTI_TIMEOUT_S = 900
+EP_ARCH, EP_LAYERS = "olmoe-1b-7b", 2
+DP_ARCH, DP_LAYERS = "qwen3-4b", 2
+MULTI_BATCH, MULTI_SEQ, MULTI_STEPS = 2, 1024, 3
+# the hyper-parameters of the reference's compressed-step test
+# (tests/test_launch.py): lr 0, 1e-5, 2e-5 over the three steps
+MULTI_HYPER = dict(peak_lr=1e-3)
+# moe_ffn_a2a against moe_ffn_gspmd on one layer: tests/test_torch_moe.py's
+# bf16 bar, of each output's and each gradient's largest magnitude
+EP_FFN_TOL = 2e-2
+# a whole step across the ranks (16a, 16b, 16c) against the one-device
+# step: between the sound runs' largest readings (|loss difference|
+# 8.7e-5, gradient norm 0.17 % low: PR 28's chip runs) and a run whose
+# every rank takes slice 0 of the batch (``--multi-only --half-batch``)
+MULTI_LOSS_ATOL = 1e-3
+MULTI_GNORM_RTOL = 5e-3
+# the compressed step against the plain step: the reference's bars (at
+# these learning rates they cannot fail: Adam moves an element by at most
+# lr a step; the gradient norm above and the leaf check below can)
+COMP_LOSS_ATOL, COMP_PARAM_ATOL = 0.05, 1e-3
+# compressed_psum on one leaf of qwen3-4b's shape (an MLP w1), two rounds
+# of error feedback, against the leaf formula of
+# src/repro/optim/compression.py on the gathered gradients and residuals:
+# the same operations on the same card, so bit for bit
+COMP_LEAF_SHAPE = (2560, 9728)
+# qwen3-4b's w2 call (rows x K) @ (K x N) at bf16: the sum of two bf16
+# partial products rounds once more than the plain product
+ROWP_SHAPE = (2048, 9728, 2560)
+ROWP_TOL = 1e-2
+MULTI_PEAK_GB = 70.0
+# the attention's call in each rank: qwen3-4b's batch row (2 x 1), all of
+# olmoe's batch (1 x 2: the model axis replicates the attention)
+DP_ATTN_SHAPE = (MULTI_BATCH // 2, 32, 8, MULTI_SEQ, 128)
+EP_ATTN_SHAPE = (MULTI_BATCH, 16, 16, MULTI_SEQ, 128)
+
+
+def _multi_cfg(arch, layers):
+    """``arch`` at full width with its depth cut to ``layers``; a moe at
+    capacity factor E / k (nothing dropped, so the per-shard caps of the
+    a2a dispatch and the one-device cap drop the same: nothing)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    return cfg
+
+
+def _multi_batch(cfg, step, index=0, count=1):
+    """Slice ``index`` of ``count`` of the global batch of ``step`` (seed
+    0)."""
+    from repro_torch.data import synthetic_batch
+
+    return synthetic_batch(0, step, MULTI_BATCH, MULTI_SEQ, cfg.vocab_size,
+                           index, count)
+
+
+def _one_device_steps(dev, arch, layers, steps):
+    """``steps`` one-device train steps of ``_multi_cfg(arch, layers)``
+    from seed 0 on the whole batch: their losses, gradient norms, ms and
+    the peak GB; the state is freed."""
+    import torch
+
+    from repro_torch.launch.steps import (TrainHyper, init_train_state,
+                                          make_train_step)
+    from repro_torch.models.model_zoo import build
+
+    cfg = _multi_cfg(arch, layers)
+    bundle = build(cfg)
+    state = init_train_state(bundle, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    step_fn = make_train_step(bundle, TrainHyper(**MULTI_HYPER))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"loss": [], "grad_norm": [], "step_ms": []}
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, _multi_batch(cfg, i))
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def _digests(leaves):
+    """A fingerprint of each leaf's bits, computed on its device: the
+    sums, wrapping in int64, of its 32-bit (16-bit) words, plain and
+    weighted by their position mod 65,521 (plus one).  Two ranks' leaves
+    that differ in a bit differ in one of the sums but for a vanishing
+    share of patterns; equal leaves always agree."""
+    import torch
+
+    out = []
+    for p in leaves:
+        w = p.detach().reshape(-1)
+        w = w.view(torch.int32 if w.element_size() == 4 else torch.int16)
+        sums = torch.zeros(2, dtype=torch.int64, device=w.device)
+        for a in range(0, w.numel(), 1 << 24):
+            c = w[a:a + (1 << 24)].long()
+            pos = torch.arange(a, a + c.numel(), device=c.device) % 65521 + 1
+            sums += torch.stack([c.sum(), (c * pos).sum()])
+        out.append(sums.tolist())
+    return out
+
+
+def _wire_report(wire):
+    return {f"{op}/{dt}": v for (op, dt), v in wire.totals().items()}
+
+
+def _launches():
+    from repro_torch.kernels import ops
+
+    return {w.__name__: w.launches for w in ops.WRAPPERS}
+
+
+def _ep_rank(dev):
+    """16a in one rank of the 1 x 2 mesh: olmoe-1b-7b's first moe layer
+    through ``moe_ffn`` (the a2a dispatch, this rank's 32 of 64 experts)
+    against ``moe_ffn_gspmd`` on every expert, on the same bf16 tokens (B
+    x S), forward and the gradient of sum(out^2) of each leaf; then one
+    train step of the whole model (EP_LAYERS layers, the kernels
+    forward) with the launch counts set to 0 just before it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.collectives import WIRE
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.launch.sharding import set_mesh
+    from repro_torch.launch.steps import TrainHyper, make_train_step
+    from repro_torch.models import moe
+    from repro_torch.models.convert import shard_dims, shard_params
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.kernels import ops
+
+    cfg = _multi_cfg(EP_ARCH, EP_LAYERS)
+    bundle = build(cfg)
+    mesh = make_train_mesh((1, 2), ("data", "model"), devices=dev)
+    mi = mesh.axis_rank("model")
+    e_loc = cfg.moe.n_experts // 2
+    full = bundle.init(torch.Generator(device=dev).manual_seed(0), dev,
+                       dtype=cfg.torch_param_dtype())
+    x = _randn(np.random.default_rng(16),
+               (MULTI_BATCH, MULTI_SEQ, cfg.d_model), 0.0, dev,
+               torch.bfloat16)
+    layer = {k: v[0].detach() for k, v in full["blocks"]["moe"].items()}
+
+    def run(fn, p):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        y = fn(x, leaves)
+        g = torch.autograd.grad(y.float().square().sum(),
+                                list(leaves.values()))
+        return y.detach(), dict(zip(leaves, g))
+
+    y_ref, g_ref = run(lambda x_, p: moe.moe_ffn_gspmd(x_, p, cfg), layer)
+    local = shard_params({"moe": layer}, cfg, mesh)["moe"]
+    set_mesh(mesh)
+    WIRE.reset()
+    t0 = time.perf_counter()
+    y, g = run(lambda x_, p: moe.moe_ffn(x_, p, cfg), local)
+    torch.cuda.synchronize()
+    layer_s = time.perf_counter() - t0
+    set_mesh(None)
+    rel = lambda a, b: float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max())
+    errs = {"out": rel(y, y_ref)}
+    for k, gk in g.items():
+        want = g_ref[k] if k == "router" else g_ref[k][mi * e_loc:
+                                                       (mi + 1) * e_loc]
+        errs[k] = rel(gk, want)
+    rep = {"coords": dict(mesh.coords), "layer": dict(
+        err_of_max=errs, wire=_wire_report(WIRE), fwd_bwd_s=layer_s,
+        stage_s=WIRE.stage_s, wire_s=WIRE.wire_s,
+        experts=tuple(local["w1"].shape))}
+    del y, g, y_ref, g_ref, layer, local, x
+
+    params = shard_params(full, cfg, mesh)
+    del full
+    torch.cuda.empty_cache()
+    state = {"params": params,
+             "opt": adamw_init(params, cfg.torch_optimizer_dtype())}
+    del params
+    step_fn = make_train_step(bundle, TrainHyper(**MULTI_HYPER))
+    set_mesh(mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    WIRE.reset()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, _multi_batch(cfg, 0))
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = _launches()
+    set_mesh(None)
+    leaves = tree_leaves(state["params"])
+    dims = shard_dims(state["params"], cfg, mesh)
+    rep["step"] = dict(
+        loss=loss, grad_norm=gnorm, step_ms=step_s * 1e3,
+        launches=launches, wire=_wire_report(WIRE), wait_s=WIRE.wait_s,
+        stage_s=WIRE.stage_s, wire_s=WIRE.wire_s,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        params=sum(p.numel() for p in leaves),
+        replicated_digests=_digests(
+            [p for p, d in zip(leaves, dims) if d is None]),
+        sharded_leaves=sum(d is not None for d in dims))
+    del state, leaves, step_fn
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _drive_steps(dev, cfg, mesh, step_fn, state, half_batch=False):
+    """MULTI_STEPS steps of ``step_fn`` on this rank's slices of the
+    global batches (slice 0 on every rank with ``half_batch``), the
+    launch counts and the wire log set to 0 just before: (state, report
+    with each step's loss, gradient norm, wall ms and its split - host
+    seconds waiting for the device before a staging copy (compute),
+    staging, gloo - the launches and the peak GB)."""
+    import torch
+
+    from repro_torch.core.collectives import WIRE
+    from repro_torch.kernels import ops
+
+    n = mesh.axis_size(mesh.dp_axes())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    WIRE.reset()
+    rep = {k: [] for k in ("loss", "grad_norm", "step_ms", "wait_ms",
+                           "stage_ms", "wire_ms")}
+    for i in range(MULTI_STEPS):
+        before = (WIRE.wait_s, WIRE.stage_s, WIRE.wire_s)
+        t0 = time.perf_counter()
+        index = 0 if half_batch else mesh.dp_rank()
+        state, m = step_fn(state, _multi_batch(cfg, i, index, n))
+        rep["loss"].append(float(m["loss"]))
+        rep["grad_norm"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        rep["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        for key, b, a in zip(("wait_ms", "stage_ms", "wire_ms"), before,
+                             (WIRE.wait_s, WIRE.stage_s, WIRE.wire_s)):
+            rep[key].append((a - b) * 1e3)
+    rep["launches"] = _launches()
+    rep["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rep["wire"] = _wire_report(WIRE)
+    return state, rep
+
+
+def _dp_rank(dev, half_batch=False):
+    """16b and 16c in one rank: DP_ARCH (DP_LAYERS layers) from seed 0,
+    MULTI_STEPS plain data-parallel steps on a 2 x 1 mesh, then the same
+    from the same state through the compressed step on a pod axis of 2;
+    the compressed run's parameters against the plain run's (kept on the
+    host); then :func:`_comp_leaf` over the pod group."""
+    import torch
+
+    from repro_torch.core.collectives import WIRE
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.launch.sharding import set_mesh
+    from repro_torch.launch.steps import (TrainHyper, init_train_state,
+                                          make_compressed_train_step,
+                                          make_train_step)
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = _multi_cfg(DP_ARCH, DP_LAYERS)
+    bundle = build(cfg)
+    hyper = TrainHyper(**MULTI_HYPER)
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)
+
+    mesh = make_train_mesh((2, 1), ("data", "model"), devices=dev)
+    set_mesh(mesh)
+    state = init_train_state(bundle, gen(), dev, mesh=mesh)
+    state, plain = _drive_steps(dev, cfg, mesh, make_train_step(bundle, hyper),
+                                state, half_batch)
+    set_mesh(None)
+    leaves = tree_leaves(state["params"])
+    plain["params"] = sum(p.numel() for p in leaves)
+    plain["digests"] = _digests(leaves)
+    kept = [p.detach().cpu() for p in leaves]
+    del state, leaves
+    torch.cuda.empty_cache()
+
+    mesh = make_train_mesh((2, 1, 1), ("pod", "data", "model"),
+                           devices=dev)
+    step_fn = make_compressed_train_step(bundle, hyper, mesh)
+    state = init_train_state(bundle, gen(), dev)
+    state["comp"] = step_fn.init_comp(state["params"])
+    state, comp = _drive_steps(dev, cfg, mesh, step_fn, state, half_batch)
+    leaves = tree_leaves(state["params"])
+    int16 = [e for e in WIRE.entries if e[1] == "int16"]
+    comp.update(
+        n_leaves=len(leaves), int16_calls=len(int16),
+        int16_bytes=sum(e[2] for e in int16),
+        int16_bytes_want=2 * sum(p.numel() for p in leaves) * MULTI_STEPS,
+        max_param_diff_vs_plain=max(
+            float((p.detach() - q.to(dev)).abs().max())
+            for p, q in zip(leaves, kept)),
+        digests=_digests(leaves))
+    del state, leaves, kept
+    torch.cuda.empty_cache()
+    comp["leaf"] = _comp_leaf(dev, mesh.axis_group("pod"))
+    return {"dp": plain, "comp": comp}
+
+
+def _comp_leaf(dev, group):
+    """``compressed_psum`` on one fp32 leaf of COMP_LEAF_SHAPE, a
+    different gradient on each rank (seeded by round and rank), two
+    rounds with the residual carried, against the reference's leaf
+    formula computed here from every rank's gradient and residual
+    (gathered): the largest differences of the average and of this rank's
+    residual (0: bit for bit), and the wire's int16 bytes."""
+    import torch
+
+    from repro_torch.core.collectives import (WIRE, all_gather, group_rank,
+                                              group_size)
+    from repro_torch.optim import compressed_psum, compression_init
+
+    n, rank = group_size(group), group_rank(group)
+    const = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
+    g = {"w": torch.zeros(COMP_LEAF_SHAPE, device=dev)}
+    st = compression_init(g)
+    out = {"avg_diff": [], "residual_diff": [], "int16_bytes": 0}
+    for t in range(2):
+        gen = torch.Generator(device=dev).manual_seed(100 * t + rank)
+        g["w"] = torch.randn(COMP_LEAF_SHAPE, generator=gen, device=dev) * (
+            1e-3 * (1 + rank))
+        # every rank's gradient and residual, before the call writes
+        # them in place
+        gs = all_gather(g["w"][None], 0, group)
+        rs = all_gather(st.residual["w"][None], 0, group)
+        WIRE.reset()
+        avg, st = compressed_psum(g, st, group)
+        out["int16_bytes"] += sum(e[2] for e in WIRE.entries
+                                  if e[1] == "int16")
+        gf = gs + rs
+        scale = gf.abs().max() / const(127.0) + 1e-12
+        q = torch.clamp(torch.round(gf / scale), -127, 127)
+        want = q.to(torch.int32).sum(0).float() * scale / const(n)
+        out["avg_diff"].append(float((avg["w"] - want).abs().max()))
+        out["residual_diff"].append(float(
+            (st.residual["w"] - (gf[rank] - q[rank] * scale)).abs().max()))
+    out["int16_bytes_want"] = 2 * 2 * g["w"].numel()   # 2 rounds
+    return out
+
+
+def _rowp_rank(dev):
+    """16d in one rank: ``row_parallel_matmul`` at qwen3-4b's w2 call
+    (ROWP_SHAPE, bf16) on a 1 x 2 mesh, this rank's K / 2 rows of w,
+    forward and the weight gradient, against the plain product on the
+    whole w in this process."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.collectives import WIRE
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.launch.sharding import set_mesh
+    from repro_torch.models.layers import row_parallel_matmul
+
+    rows, kdim, n = ROWP_SHAPE
+    bf = torch.bfloat16
+    rng = np.random.default_rng(17)
+    x = _randn(rng, (rows, kdim), 0.0, dev, bf)
+    w = (_randn(rng, (kdim, n), 0.0, dev, torch.float32)
+         / math.sqrt(kdim)).to(bf)
+    g = _randn(rng, (rows, n), 0.0, dev, bf)
+    mesh = make_train_mesh((1, 2), ("data", "model"), devices=dev)
+    mi, kk = mesh.axis_rank("model"), kdim // 2
+    wp = w.clone().requires_grad_(True)
+    y_p = x @ wp
+    (gw_p,) = torch.autograd.grad(y_p, wp, g)
+    w_loc = w[mi * kk:(mi + 1) * kk].clone().requires_grad_(True)
+    set_mesh(mesh)
+    WIRE.reset()
+    y = row_parallel_matmul(x, w_loc, bf)
+    (gw,) = torch.autograd.grad(y, w_loc, g)
+    wire = _wire_report(WIRE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        row_parallel_matmul(x, w_loc, bf)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 5 * 1e3
+    set_mesh(None)
+    rel = lambda a, b: float((a.detach().float() - b.detach().float()).abs()
+                             .max() / b.detach().float().abs().max())
+    x_loc = x[:, mi * kk:(mi + 1) * kk].contiguous()
+    return dict(
+        err_out_of_max=rel(y, y_p),
+        err_grad_of_max=rel(gw, gw_p[mi * kk:(mi + 1) * kk]),
+        wire=wire, wall_ms=wall_ms,
+        local_ms=_cuda_time_ms(lambda: x_loc @ w_loc.detach(), 20),
+        plain_ms=_cuda_time_ms(lambda: x @ w, 20))
+
+
+def _multi_rank(rank, store, out_dir, device, half_batch):
+    """One rank of the world-2 group of phase 16, on ``device``: the
+    determinism settings of the trainer CLI, then 16a, 16b / 16c (every
+    rank on slice 0 of the batch with ``half_batch``), 16d."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    # before the first cuBLAS call, as the trainer CLI sets them
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=2)
+    try:
+        res = {"ep": _ep_rank(dev)}
+        res.update(_dp_rank(dev, half_batch))
+        res["rowp"] = _rowp_rank(dev)
+        torch.save(res, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _readings(one, ranks):
+    """The largest |loss difference| and relative gradient-norm
+    difference of each rank's steps from the one-device steps', for 16a,
+    16b and 16c: {"16a": [(loss, norm) a rank], ...}."""
+    def worst(rep, ref):
+        return (max(abs(a - b) for a, b in zip(rep["loss"], ref["loss"])),
+                max(abs(a - b) / b for a, b in zip(rep["grad_norm"],
+                                                   ref["grad_norm"])))
+
+    ep = lambda res: {k: [res["ep"]["step"][k]] for k in
+                      ("loss", "grad_norm")}
+    return {"16a": [worst(ep(res), one["ep"]) for res in ranks],
+            "16b": [worst(res["dp"], one["dp"]) for res in ranks],
+            "16c": [worst(res["comp"], one["dp"]) for res in ranks]}
+
+
+def _check_multi(one, ranks, resident_gb):
+    """Phase 16's gates over the ranks' reports; returns the reports."""
+    per_step = lambda layers: 2 * layers   # each layer's forward + remat
+    want = lambda n: {name: n if name in ("shift_kv", "pasa_attention")
+                      else 0 for name in ranks[0]["ep"]["step"]["launches"]}
+    ep_steps = [r["ep"]["step"] for r in ranks]
+    # every step of 16a / 16b / 16c against the one-device steps
+    for tag, per_rank in _readings(one, ranks).items():
+        for r, (dl, dn) in enumerate(per_rank):
+            if not (dl <= MULTI_LOSS_ATOL and dn <= MULTI_GNORM_RTOL):
+                raise AssertionError(
+                    f"{tag} rank {r}: loss {dl:.3e} off (bar "
+                    f"{MULTI_LOSS_ATOL}), gradient norm {dn:.3e} off (bar "
+                    f"{MULTI_GNORM_RTOL}) from the one-device steps")
+    for r, res in enumerate(ranks):
+        lay, st = res["ep"]["layer"], res["ep"]["step"]
+        bad = {k: v for k, v in lay["err_of_max"].items() if v > EP_FFN_TOL}
+        if bad or not lay["wire"].get("all_to_all/bfloat16"):
+            raise AssertionError(f"16a rank {r}: a2a vs gspmd {lay}")
+        if st["launches"] != want(per_step(EP_LAYERS)):
+            raise AssertionError(f"16a rank {r}: launches {st['launches']}")
+        for tag in ("dp", "comp"):
+            rep = res[tag]
+            if rep["launches"] != want(per_step(DP_LAYERS) * MULTI_STEPS):
+                raise AssertionError(f"16{'b' if tag == 'dp' else 'c'} rank "
+                                     f"{r}: launches {rep['launches']}")
+        comp, leaf = res["comp"], res["comp"]["leaf"]
+        for i in range(MULTI_STEPS):
+            if not abs(comp["loss"][i] - one["dp"]["loss"][i]) \
+                    < COMP_LOSS_ATOL:
+                raise AssertionError(f"16c rank {r} step {i}: {comp} vs "
+                                     f"one device {one['dp']}")
+        if not (comp["max_param_diff_vs_plain"] < COMP_PARAM_ATOL
+                and comp["int16_calls"] == comp["n_leaves"] * MULTI_STEPS
+                and comp["int16_bytes"] == comp["int16_bytes_want"]):
+            raise AssertionError(f"16c rank {r}: {comp}")
+        if not (max(leaf["avg_diff"] + leaf["residual_diff"]) == 0.0
+                and leaf["int16_bytes"] == leaf["int16_bytes_want"]):
+            raise AssertionError(f"16c rank {r}: compressed_psum vs the "
+                                 f"leaf formula {leaf}")
+        rp = res["rowp"]
+        if not (rp["err_out_of_max"] <= ROWP_TOL
+                and rp["err_grad_of_max"] <= ROWP_TOL
+                and rp["wire"] == {"all_gather/bfloat16": {
+                    "calls": 1,
+                    "bytes": ROWP_SHAPE[0] * ROWP_SHAPE[2] * 2}}):
+            raise AssertionError(f"16d rank {r}: {rp}")
+    # the same bits on both ranks: the replicated leaves, the losses
+    for key, a, b in (
+            ("16a replicated leaves", ep_steps[0]["replicated_digests"],
+             ep_steps[1]["replicated_digests"]),
+            ("16a loss", ep_steps[0]["loss"], ep_steps[1]["loss"]),
+            ("16b parameters", ranks[0]["dp"]["digests"],
+             ranks[1]["dp"]["digests"]),
+            ("16c parameters", ranks[0]["comp"]["digests"],
+             ranks[1]["comp"]["digests"])):
+        if a != b:
+            raise AssertionError(f"{key} differ between the ranks")
+    peak = sum(res["dp"]["peak_gb"] for res in ranks) + resident_gb
+    if peak > MULTI_PEAK_GB:
+        raise AssertionError(f"16b: {peak:.2f} GB on the card")
+    for res in ranks:
+        for tag in ("dp", "comp"):
+            res[tag].pop("digests")
+        res["ep"]["step"].pop("replicated_digests")
+    return {
+        "multi_ep": dict(one_device=one["ep"], ranks=[
+            res["ep"] for res in ranks]),
+        "multi_dp": dict(one_device=one["dp"], ranks=[
+            res["dp"] for res in ranks], peak_gb_card=peak,
+            resident_gb=resident_gb),
+        "multi_comp": dict(ranks=[res["comp"] for res in ranks]),
+        "multi_rowp": dict(shape=ROWP_SHAPE, ranks=[
+            res["rowp"] for res in ranks]),
+    }
+
+
+def phase_multi(dev, half_batch=False):
+    """Phase 16, training across processes, two ranks on ``dev`` in a
+    gloo group (:func:`_multi_rank`): the one-device steps first (and
+    freed), then the group's 16a (expert parallel: olmoe-1b-7b's a2a
+    layer and a whole step on a 1 x 2 mesh), 16b (data parallel:
+    qwen3-4b, 3 steps on a 2 x 1 mesh), 16c (the compressed sync on a pod
+    axis of 2) and 16d (the row-parallel w2 product), each gated
+    (``_check_multi``); a failing rank fails the phase.  Then the kernels
+    at the ranks' call shapes.  Prints the reports; returns the
+    kernels-line entries (launches: every rank's, summed).
+
+    ``half_batch``: every rank of 16b / 16c takes slice 0 of the global
+    batch, as a wrong data rank would; the phase then fails unless the
+    gates refuse the run, and returns no entries."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    one = {"ep": _one_device_steps(dev, EP_ARCH, EP_LAYERS, 1),
+           "dp": _one_device_steps(dev, DP_ARCH, DP_LAYERS, MULTI_STEPS)}
+    torch.cuda.empty_cache()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    (ROOT / "build").mkdir(exist_ok=True)
+    out_dir = Path(tempfile.mkdtemp(prefix="multi", dir=ROOT / "build"))
+    t_group = time.perf_counter()
+    ctx = mp.spawn(_multi_rank, nprocs=2, join=False, args=(
+        str(out_dir / "store"), str(out_dir), str(dev), half_batch))
+    deadline = time.monotonic() + MULTI_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"the phase-16 group ran past "
+                                 f"{MULTI_TIMEOUT_S} s")
+    group_s = time.perf_counter() - t_group
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print("multi_readings: " + json.dumps(_readings(one, ranks)))
+    if half_batch:
+        try:
+            _check_multi(one, ranks, resident_gb)
+        except AssertionError as e:
+            print(f"half batch refused: {e}")
+            return []
+        raise AssertionError("the phase-16 gates let a half batch through")
+    reps = _check_multi(one, ranks, resident_gb)
+    reps["multi_dp"]["group_s"] = group_s
+    for tag, r in reps.items():
+        print(f"{tag}: " + json.dumps(r))
+    entries = (_train_call_entries(dev, DP_ATTN_SHAPE, "train_dp")
+               + _train_call_entries(dev, EP_ATTN_SHAPE, "train_ep"))
+    for k in entries:
+        name, _, tag = k["name"].partition("/")
+        k["launches"] = sum(
+            res["ep"]["step"]["launches"][name] if tag == "train_ep"
+            else res["dp"]["launches"][name] + res["comp"]["launches"][name]
+            for res in ranks)
+        print(f"{k['name']}: max_abs_err {k['max_abs_err']:.3e}, "
+              f"{k['ms']:.4f} ms vs plain {k['plain_ms']:.3f} ms, library "
+              f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']}), launches {k['launches']}")
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s (the group "
+          f"{group_s:.1f} s)")
+    return entries
+
+
 def main(argv=None) -> int:
-    """The whole smoke; ``--train-only``: the build of the two kernels
-    phase 15 runs, and phase 15 alone, with no result line."""
+    """The whole smoke; ``--train-only`` / ``--multi-only``: the build of
+    the two kernels phase 15 / 16 runs, and that phase alone, with no
+    result line."""
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--train-only"]):
-        print(f"usage: chip_smoke.py [--train-only], got {argv}",
-              file=sys.stderr)
+    if argv not in ([], ["--train-only"], ["--multi-only"],
+                    ["--multi-only", "--half-batch"]):
+        print(f"usage: chip_smoke.py [--train-only | --multi-only "
+              f"[--half-batch]], got {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5921,8 +6579,11 @@ def main(argv=None) -> int:
     built = _build.build(("shift_kv", "pasa_attention") if argv else None)
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)} "
           f"into {_build.build_dir()}")
-    if argv:
+    if argv == ["--train-only"]:
         phase_train(dev)
+        return 0
+    if argv[:1] == ["--multi-only"]:
+        phase_multi(dev, half_batch="--half-batch" in argv)
         return 0
     # ptxas: each kernel instance's registers, stack and spills
     for name in _build.SOURCES:
@@ -6152,6 +6813,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"phase 13: {time.perf_counter() - t_p13:.1f} s")
     train_entries, rep_train = phase_train(dev)
+    # phase 16: training across processes, two ranks on this card, each
+    # path driven with the launch counts set to 0 just before it
+    multi_entries = phase_multi(dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each mode of shift-KV has the dense serve's count of that mode (0 for
@@ -6280,6 +6944,12 @@ def main(argv=None) -> int:
             raise AssertionError(f"{k['name']} was not launched by the "
                                  f"trainer")
     line += [{key: k[key] for key in keys} for k in train_entries]
+    # the per-rank training calls of phase 16: every rank's launches
+    for k in multi_entries:
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']} was not launched by the "
+                                 f"ranks")
+    line += [{key: k[key] for key in keys} for k in multi_entries]
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

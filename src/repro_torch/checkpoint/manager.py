@@ -18,6 +18,12 @@
   * **Layout**: ``step_%010d/shard_00000/<key>.npy`` plus
     ``manifest.json`` ({"step", "time", "leaves": {key: {"file", "shape",
     "dtype", "sha256"}}, "meta"}), one shard per process.
+  * **Multi-process** (``process_count`` > 1, the reference's multi-host
+    layout): process i writes only ``step_%010d/shard_%05d`` with its own
+    ``manifest.json`` inside, built in ``step_%010d.shard_%05d.tmp`` and
+    renamed into the step directory; a step is available once every
+    process's shard is in place, and each process restores its own
+    shard and removes its own old ones.
 
 A leaf's key is its path in the state tree as the reference's
 ``_flatten_with_paths`` spells it: dict keys in sorted order, a
@@ -106,9 +112,12 @@ def _from_host(arr: np.ndarray, ent: dict) -> torch.Tensor:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, *,
+                 process_index: int = 0, process_count: int = 1):
         self.dir = directory
         self.keep = keep
+        self.process_index, self.process_count = process_index, process_count
+        self._shard = f"shard_{process_index:05d}"
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -135,8 +144,9 @@ class CheckpointManager:
 
     def _write_sync(self, step: int, host, extra_meta: dict) -> None:
         final = os.path.join(self.dir, f"step_{step:010d}")
-        tmp = final + ".tmp"
-        shard_dir = os.path.join(tmp, "shard_00000")
+        multi = self.process_count > 1
+        tmp = f"{final}.{self._shard}.tmp" if multi else final + ".tmp"
+        shard_dir = tmp if multi else os.path.join(tmp, self._shard)
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(shard_dir)
@@ -159,7 +169,14 @@ class CheckpointManager:
             json.dump(manifest, f)
             f.flush()
             os.fsync(f.fileno())
-        os.replace(tmp, final)  # atomic publish
+        if multi:
+            os.makedirs(final, exist_ok=True)
+            mine = os.path.join(final, self._shard)
+            if os.path.exists(mine):
+                shutil.rmtree(mine)
+            os.replace(tmp, mine)  # atomic publish of this shard
+        else:
+            os.replace(tmp, final)  # atomic publish
         self._gc()
 
     def wait(self) -> None:
@@ -174,21 +191,49 @@ class CheckpointManager:
             raise RuntimeError("async checkpoint save failed") from err
 
     def _gc(self) -> None:
-        steps = sorted(self.available_steps())
-        for s in steps[: -self.keep] if self.keep else []:
-            shutil.rmtree(os.path.join(self.dir, f"step_{s:010d}"),
+        if self.process_count == 1:
+            steps = sorted(self.available_steps())
+            for s in steps[: -self.keep] if self.keep else []:
+                shutil.rmtree(os.path.join(self.dir, f"step_{s:010d}"),
+                              ignore_errors=True)
+            return
+        # each process keeps its newest ``keep`` shards; processes that
+        # save in step (a training run's) leave the newest ``keep`` - 1
+        # steps complete at every moment
+        mine = sorted(s for s in self._step_dirs() if os.path.exists(
+            os.path.join(self.dir, f"step_{s:010d}", self._shard)))
+        for s in mine[: -self.keep] if self.keep else []:
+            step_dir = os.path.join(self.dir, f"step_{s:010d}")
+            shutil.rmtree(os.path.join(step_dir, self._shard),
                           ignore_errors=True)
+            try:
+                os.rmdir(step_dir)  # the last process's removal
+            except OSError:
+                pass
 
     # --------------------------------------------------------------- restore
-    def available_steps(self):
-        out = []
+    def _step_dirs(self):
         for name in os.listdir(self.dir):
             if name.startswith("step_") and not name.endswith(".tmp"):
                 try:
-                    out.append(int(name[5:]))
+                    yield int(name[5:])
                 except ValueError:
                     continue
-        return sorted(out)
+
+    def available_steps(self):
+        """The steps whose every shard is in place."""
+        return sorted(
+            s for s in self._step_dirs() if self.process_count == 1 or all(
+                os.path.exists(os.path.join(
+                    self.dir, f"step_{s:010d}", f"shard_{i:05d}",
+                    "manifest.json"))
+                for i in range(self.process_count)))
+
+    def _manifest_path(self, step: int) -> str:
+        final = os.path.join(self.dir, f"step_{step:010d}")
+        if self.process_count > 1:
+            return os.path.join(final, self._shard, "manifest.json")
+        return os.path.join(final, "manifest.json")
 
     def restore(
         self, template: Any, step: Optional[int] = None
@@ -213,9 +258,9 @@ class CheckpointManager:
 
     def _read_sync(self, template: Any, step: int) -> Any:
         final = os.path.join(self.dir, f"step_{step:010d}")
-        with open(os.path.join(final, "manifest.json")) as f:
+        with open(self._manifest_path(step)) as f:
             manifest = json.load(f)
-        shard_dir = os.path.join(final, "shard_00000")
+        shard_dir = os.path.join(final, self._shard)
         read = {}
         for key, leaf in _flatten_with_paths(template):
             ent = manifest["leaves"].get(key)
@@ -237,6 +282,5 @@ class CheckpointManager:
         return _unflatten(template, read)
 
     def meta(self, step: int) -> dict:
-        final = os.path.join(self.dir, f"step_{step:010d}")
-        with open(os.path.join(final, "manifest.json")) as f:
+        with open(self._manifest_path(step)) as f:
             return json.load(f).get("meta", {})

@@ -101,8 +101,14 @@ class TokenFileDataset:
 class DataPipeline:
     """Prefetching iterator over deterministic steps.
 
-    ``state()``/``restore()`` are trivially (step,) - everything else is
-    stateless, which is the whole point.
+    ``state()``/``restore()`` are trivially (step, seed) - everything else
+    is stateless, which is the whole point.
+
+    Each prefetched batch carries the generation it was made for (bumped
+    by ``restore()``) with its seed and step, read together under one
+    lock: a batch the producer was making when ``restore()`` ran belongs
+    to an older generation and is dropped, so the batch after
+    ``restore(s)`` is always ``synthetic_batch(s["seed"], s["step"], ...)``.
     """
 
     def __init__(
@@ -126,61 +132,71 @@ class DataPipeline:
         self.backend = backend
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
+        # guards (_gen, seed, step, _next_to_produce) between the
+        # producer thread and the caller's __next__ / restore
+        self._lock = threading.Lock()
+        self._gen = 0
         self._next_to_produce = start_step
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
 
-    def _make(self, step: int):
+    def _make(self, seed: int, step: int):
         if self.backend is not None:
             return self.backend.batch(
-                self.seed, step, self.batch, self.process_index,
+                seed, step, self.batch, self.process_index,
                 self.process_count,
             )
         return synthetic_batch(
-            self.seed, step, self.batch, self.seq, self.vocab,
+            seed, step, self.batch, self.seq, self.vocab,
             self.process_index, self.process_count, self.extras,
         )
 
     def _producer(self):
+        item = None
         while not self._stop.is_set():
-            step = self._next_to_produce
+            if item is None:
+                with self._lock:
+                    gen, seed, step = (self._gen, self.seed,
+                                       self._next_to_produce)
+                item = (gen, step, self._make(seed, step))
             try:
-                self._q.put((step, self._make(step)), timeout=0.2)
-                self._next_to_produce = step + 1
+                self._q.put(item, timeout=0.2)
             except queue.Full:
+                with self._lock:
+                    if item[0] != self._gen:
+                        item = None  # restored meanwhile: make anew
                 continue
+            with self._lock:
+                if item[0] == self._gen:
+                    self._next_to_produce = item[1] + 1
+            item = None
 
     def __next__(self):
         while True:
-            step, data = self._q.get()
-            if step == self.step:  # drop stale prefetches after restore()
-                self.step += 1
-                return data
-            if step > self.step:
-                # producer is ahead of a rewound step counter; regenerate
-                return self._regen()
-
-    def _regen(self):
-        data = self._make(self.step)
-        self.step += 1
-        return data
+            gen, step, data = self._q.get()
+            with self._lock:
+                # one generation's batches arrive in step order from the
+                # step restore() set; an older generation's are stale
+                if gen == self._gen:
+                    assert step == self.step, (step, self.step)
+                    self.step = step + 1
+                    return data
 
     def __iter__(self) -> Iterator:
         return self
 
     def state(self) -> dict:
-        return {"step": self.step, "seed": self.seed}
+        with self._lock:
+            return {"step": self.step, "seed": self.seed}
 
     def restore(self, state: dict) -> None:
-        self.step = int(state["step"])
-        self.seed = int(state["seed"])
-        self._next_to_produce = self.step
-        # drain stale queue
-        try:
-            while True:
-                self._q.get_nowait()
-        except queue.Empty:
-            pass
+        with self._lock:
+            self._gen += 1
+            self.step = int(state["step"])
+            self.seed = int(state["seed"])
+            self._next_to_produce = self.step
+        # the queue is not drained here: a batch of the new generation may
+        # already be in it, and __next__ drops the older ones
 
     def close(self):
         self._stop.set()

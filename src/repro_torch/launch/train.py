@@ -12,8 +12,21 @@ kernels do not take, so on the card it needs ``--attention-impl naive``.
 On CUDA the step is made deterministic (``torch.use_deterministic_
 algorithms`` and cuBLAS's fixed workspace, set before the first cuBLAS
 call), so that a restarted run equals a straight one bit for bit.
-Training runs on one device: ``--mesh`` other than ``1x1`` raises
-(data-parallel training is ROADMAP A15b).
+
+``--mesh DxM`` other than ``1x1`` trains across D x M processes, one a
+mesh cell, started by torchrun (a gloo group; on one card every process
+shares it)::
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch qwen3-4b --reduced --steps 6 \
+      --mesh 2x1 --device cpu
+
+Each process takes its data rank's slice of the global batch, holds its
+model rank's part of the state (``models.convert.shard_params``: the moe
+experts and the MLPs' ``w2`` split over M), averages the gradients over
+D, and writes and restores its own checkpoint shard (the reference's
+multi-host layout).  Only rank 0 prints.  ``--mesh prod`` / ``prod2``
+(the reference's TPU pod meshes) raise, naming ROADMAP A16.
 """
 
 from __future__ import annotations
@@ -36,7 +49,8 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-test-sized config of the same family")
     ap.add_argument("--mesh", default="1x1",
-                    help='"DxM" data x model; only "1x1" is ported')
+                    help='"DxM" data x model (D x M processes under '
+                         'torchrun); "prod" / "prod2" raise (ROADMAP A16)')
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0)
@@ -47,26 +61,47 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh != "1x1":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; "
-            "data-parallel training across processes is ROADMAP A15b"
-        )
-
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from repro_torch import resolve_device
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.data import DataPipeline
     from repro_torch.kernels.pasa_attention import HEAD_DIMS
+    from repro_torch.launch.mesh import make_production_mesh, make_train_mesh
+    from repro_torch.launch.sharding import set_mesh
     from repro_torch.launch.steps import (TrainHyper, init_train_state,
                                           make_train_step)
     from repro_torch.models.model_zoo import build
     from repro_torch.runtime import FaultTolerantLoop
 
+    if args.mesh in ("prod", "prod2"):
+        make_production_mesh(multi_pod=args.mesh == "prod2")
+    try:
+        d, m = (int(x) for x in args.mesh.split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh must be DxM, got {args.mesh!r}") from None
     dev = resolve_device(args.device)
+    mesh = None
+    own_group = False
+    if d * m > 1:
+        if not dist.is_initialized():
+            if "RANK" not in os.environ:
+                raise RuntimeError(
+                    f"--mesh {args.mesh} trains across {d * m} processes: "
+                    f"start it with torchrun --standalone --nproc-per-node "
+                    f"{d * m}")
+            own_group = True
+            dist.init_process_group("gloo")
+        grid = ("cpu" if dev.type == "cpu" else None)
+        mesh = make_train_mesh((d, m), ("data", "model"), devices=grid)
+        dev = mesh.local_device()
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+    rank = dist.get_rank() if mesh is not None else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -91,13 +126,14 @@ def main(argv=None):
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)
 
+    set_mesh(mesh)
     bundle = build(cfg)
     hyper = TrainHyper(
         peak_lr=args.lr, warmup_steps=args.warmup, total_steps=args.steps
     )
     step_fn_raw = make_train_step(bundle, hyper)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    state = init_train_state(bundle, gen, dev)
+    state = init_train_state(bundle, gen, dev, mesh=mesh)
 
     extras = {}
     if cfg.family == "vlm":
@@ -108,9 +144,12 @@ def main(argv=None):
         extras["frame_embeds"] = (
             (args.batch, cfg.n_audio_frames, cfg.d_model), np.float32
         )
+    n_dp = 1 if mesh is None else mesh.axis_size(mesh.dp_axes())
     pipe = DataPipeline(
         batch=args.batch, seq=args.seq, vocab=cfg.vocab_size,
         seed=args.seed, extras=extras or None,
+        process_index=0 if mesh is None else mesh.dp_rank(),
+        process_count=n_dp,
     )
 
     def step_fn(state, batch):
@@ -120,14 +159,14 @@ def main(argv=None):
     ckpt = CheckpointManager(
         args.ckpt_dir or os.path.join(tempfile.gettempdir(),
                                       f"repro_torch_ckpt_{args.arch}"),
-        keep=3,
+        keep=3, process_index=rank, process_count=d * m,
     )
     losses = []
 
     def metrics_cb(step, metrics, dt):
         losses.append(metrics["loss"])
         if step % args.log_every == 0:
-            print(
+            say(
                 f"step {step:5d}  loss {metrics['loss']:.4f}  "
                 f"lr {metrics['lr']:.2e}  gnorm {metrics['grad_norm']:.3f}"
                 f"  {dt*1000:.0f} ms"
@@ -135,19 +174,24 @@ def main(argv=None):
 
     loop = FaultTolerantLoop(
         step_fn=step_fn, state=state, pipeline=pipe, ckpt=ckpt,
-        ckpt_every=args.ckpt_every, install_signal_handlers=True,
+        ckpt_every=args.ckpt_every, install_signal_handlers=True, log=say,
     )
     loop.restore_latest()
     t0 = time.time()
-    loop.run(args.steps, metrics_cb=metrics_cb)
-    pipe.close()
+    try:
+        loop.run(args.steps, metrics_cb=metrics_cb)
+    finally:
+        pipe.close()
+        set_mesh(None)
+        if own_group:
+            dist.destroy_process_group()
     if losses:
-        print(
+        say(
             f"done: {args.steps} steps in {time.time()-t0:.1f}s; "
             f"loss {losses[0]:.4f} -> {losses[-1]:.4f}"
         )
     else:
-        print(f"done: restored at step {loop.step}, nothing to run")
+        say(f"done: restored at step {loop.step}, nothing to run")
     return losses
 
 

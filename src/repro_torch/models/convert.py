@@ -78,6 +78,7 @@ for its head).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -147,6 +148,55 @@ def train_state_from_numpy(state, cfg: ModelConfig, device) -> dict:
                               dtype=torch.int32).to(dev),
             mu=conv(field("mu"), od), nu=conv(field("nu"), od)),
     }
+
+
+def shard_dim(path: tuple, cfg: ModelConfig, mesh) -> Optional[int]:
+    """The dim along which the leaf at ``path`` (a tuple of keys) is
+    split over ``mesh``'s "model" axis, or None (replicated): the moe
+    experts on E (``models.moe.experts_sharded``), every MLP's ``w2`` on
+    its rows (``models.layers.rows_sharded``)."""
+    from repro_torch.models.layers import rows_sharded
+    from repro_torch.models.moe import experts_sharded
+
+    if (path[-2:-1] == ("moe",) and path[-1] in ("w1", "w3", "w2")
+            and experts_sharded(cfg, mesh)):
+        return -3
+    if path[-2:] == ("mlp", "w2") and rows_sharded(cfg.d_ff, mesh):
+        return -2
+    return None
+
+
+def shard_dims(tree: dict, cfg: ModelConfig, mesh) -> list:
+    """:func:`shard_dim` of every leaf of a parameter-shaped tree, in the
+    order of ``optim.adamw.tree_leaves`` (sorted keys)."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return [d for k in sorted(node) for d in walk(node[k], path + (k,))]
+        return [shard_dim(path, cfg, mesh)]
+
+    return walk(tree, ())
+
+
+def shard_params(tree: dict, cfg: ModelConfig, mesh) -> dict:
+    """This process's part of a parameter-shaped tree (the parameters,
+    or a gradient or moment tree of theirs) on ``mesh``: each leaf that
+    :func:`shard_dim` splits narrowed to the rank's equal part along the
+    model axis (a contiguous copy; experts mi E / M onwards, ``w2`` rows
+    mi F / M onwards), the others as they are.  So a rank's state is
+    built from :func:`init_lm` and the other ``init_*`` draws, or from
+    the reference's parameters (:func:`params_from_numpy`)."""
+    from repro_torch.core.collectives import shard
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        dim = shard_dim(path, cfg, mesh)
+        if dim is None:
+            return node
+        return shard(node, dim % node.dim(), mesh.shape["model"],
+                     mesh.axis_rank("model"))
+
+    return walk(tree, ())
 
 
 def _normal(shape, scale, dtype, generator, device) -> torch.Tensor:

@@ -3,10 +3,11 @@ chunked cross-entropy of training and per-layer remat.
 
 Counterpart of ``repro.models.layers`` with the same dtype steps: norms
 and RoPE compute in fp32 and store at the activation dtype, matmuls run at
-the compute dtype.  The reference's sharding hooks (``shard``,
-``row_parallel_matmul``) reduce to plain matmuls on one device.  Norms and
-products over a few rows run padded to ``MIN_ROWS`` rows, so that each
-row's result does not depend on how many rows share the call.
+the compute dtype.  The reference's placement hints (``shard``) have no
+counterpart (``launch.sharding``); its ``row_parallel_matmul`` is the
+MLP's ``w2`` product across the mesh's model axis.  Norms and products
+over a few rows run padded to ``MIN_ROWS`` rows, so that each row's
+result does not depend on how many rows share the call.
 """
 
 from __future__ import annotations
@@ -14,6 +15,41 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core import collectives as C
+from repro_torch.launch.sharding import get_mesh, in_manual_region
+
+
+def rows_sharded(k_dim: int, mesh) -> bool:
+    """True when ``mesh`` (or None) splits a row-parallel weight of
+    ``k_dim`` rows over its "model" axis: M > 1 divides K."""
+    m = 1 if mesh is None else mesh.shape.get("model", 1)
+    return m > 1 and k_dim % m == 0
+
+
+def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor,
+                        compute_dtype: torch.dtype) -> torch.Tensor:
+    """y = x @ w with the contraction dim K split over the active mesh's
+    "model" axis (the reference's bf16-wire row-parallel matmul).
+
+    x (..., K) is replicated across the model axis; under a mesh whose
+    model axis M > 1 divides K (outside a manual region), ``w`` holds this
+    rank's K / M rows at rest (``models.convert.shard_params``).  Each
+    rank multiplies its K / M columns of x by them, accumulating in fp32
+    and storing at the compute dtype, and the M partial products are
+    summed at that dtype over the group (the reference's bf16 wire).
+    Otherwise the plain product."""
+    mesh = get_mesh()
+    k_dim = x.shape[-1]
+    if not rows_sharded(k_dim, mesh) or in_manual_region():
+        return x.to(compute_dtype) @ w.to(compute_dtype)
+    m = mesh.shape["model"]
+    if w.shape[0] != k_dim // m:
+        raise ValueError(f"row-parallel w has {w.shape[0]} rows; this rank "
+                         f"holds {k_dim // m} of {k_dim}")
+    group = mesh.axis_group("model")
+    x_loc = C.slice_replicated(x.to(compute_dtype), x.dim() - 1, group)
+    return C.sum_replicated(x_loc @ w.to(compute_dtype), group)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -85,12 +121,13 @@ def matmuls(x: torch.Tensor, *ws: torch.Tensor):
 
 
 def mlp(x: torch.Tensor, p: dict, compute_dtype: torch.dtype) -> torch.Tensor:
-    """SwiGLU: (silu(x W1) * (x W3)) W2 at the compute dtype."""
+    """SwiGLU: (silu(x W1) * (x W3)) W2 at the compute dtype, W2
+    row-parallel (:func:`row_parallel_matmul`)."""
     x = x.to(compute_dtype)
     xr = _rows(x)
     h = F.silu(xr @ p["w1"].to(compute_dtype))
     h = h * (xr @ p["w3"].to(compute_dtype))
-    return _unrows(h @ p["w2"].to(compute_dtype), x)
+    return _unrows(row_parallel_matmul(h, p["w2"], compute_dtype), x)
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor,

@@ -15,10 +15,15 @@ The reference's single-device path, step for step:
 T counts every row of the call, dead decode slots and prefill pad
 positions included, so a row's output depends on the other rows of its
 call whenever a slot is dropped (ROADMAP C); with ``capacity_factor >=
-E / k`` nothing is.  The reference's ``moe_ffn`` takes its
-expert-parallel ``moe_ffn_a2a`` only under a mesh whose "model" axis is
-larger than 1, so on one device every call is ``moe_ffn_gspmd``; the
-port has no mesh yet (ROADMAP A13).
+E / k`` nothing is.
+
+``moe_ffn`` takes the expert-parallel ``moe_ffn_a2a`` under the
+reference's conditions: an active mesh (``launch.sharding``) whose
+"model" axis M > 1 divides E, outside a manual region (the sharded
+serving step is one: serving keeps ``moe_ffn_gspmd``), and tokens that
+split evenly.  There each model rank holds E / M experts at rest
+(``models.convert.shard_params``), routes its T / M of the call's
+tokens, and the experts' tokens travel by ``all_to_all``.
 
 Where the port differs in form, not in value: the buffer is filled by a
 gather (each expert's run of the sorted slots) rather than a scatter,
@@ -38,11 +43,36 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
+from repro_torch.launch.sharding import get_mesh, in_manual_region
 from repro_torch.models import layers as L
 
 
+def experts_sharded(cfg: ModelConfig, mesh) -> bool:
+    """True when ``mesh`` (or None) puts E / M experts on each model
+    rank: a "model" axis M > 1 that divides E, the a2a dispatch."""
+    m = 1 if mesh is None else mesh.shape.get("model", 1)
+    return (cfg.moe.dispatch == "a2a" and m > 1
+            and cfg.moe.n_experts % m == 0)
+
+
 def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D).  One device: the gspmd dispatch."""
+    """x: (B, S, D) -> (B, S, D), this process's rows.  The dispatch per
+    the reference's switch (see the module docstring); its batch
+    condition reads the global batch, B times the data axes' size."""
+    mesh = get_mesh()
+    if experts_sharded(cfg, mesh) and not in_manual_region():
+        nm = mesh.shape["model"]
+        dp_n = mesh.axis_size(mesh.dp_axes())
+        b, s, d = x.shape
+        if b * s % nm == 0 and d % dp_n == 0:
+            return moe_ffn_a2a(x, p, cfg, mesh)
+    if p["w1"].shape[0] != cfg.moe.n_experts:
+        raise ValueError(
+            f"this rank holds {p['w1'].shape[0]} of {cfg.moe.n_experts} "
+            f"experts, and the call ({tuple(x.shape)}) does not take the "
+            f"expert-parallel dispatch: the one-device dispatch needs "
+            f"every expert")
     return moe_ffn_gspmd(x, p, cfg)
 
 
@@ -117,6 +147,115 @@ def moe_ffn_gspmd(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     for j in range(k):
         out = out + contrib[:, j]
     return out.reshape(b, s, d)
+
+
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    """The inverse of a permutation, by a sort (deterministic on the card
+    under ``torch.use_deterministic_algorithms``)."""
+    return torch.argsort(perm, stable=True)
+
+
+def _run_rows(sorted_keys: torch.Tensor, n_keys: int, rows: int, cap: int):
+    """For each key i < n_keys and row c < rows: the index into the
+    sorted keys of the c-th element of key i's run, and whether it is one
+    (c < cap, inside the run)."""
+    dev = sorted_keys.device
+    n = sorted_keys.shape[0]
+    keys = torch.arange(n_keys, device=dev)
+    c = torch.arange(rows, device=dev)
+    idx = torch.searchsorted(sorted_keys, keys)[:, None] + c[None, :]
+    idx_c = idx.clamp(max=n - 1)
+    valid = (c[None, :] < cap) & (idx < n) & (sorted_keys[idx_c]
+                                              == keys[:, None])
+    return idx_c, valid
+
+
+def moe_ffn_a2a(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                mesh) -> torch.Tensor:
+    """Explicit expert parallelism over the mesh's "model" axis: the
+    reference's two-level dispatch, in one process per model rank.
+
+    ``x`` (B, S, D) is this process's rows, replicated across the model
+    axis; model rank mi routes the mi-th T / M of them (T = B S).  p's
+    ``w1`` / ``w3`` / ``w2`` hold this rank's E / M experts (experts
+    mi E / M onwards), ``router`` all of them (replicated: its gradient
+    is summed over the model group).
+      level 1 - each (token, slot) pair goes to the rank owning its
+        expert: pairs stably sorted by destination, at most ``cap =
+        ceil((T / M) k / M * capacity_factor)`` per destination, packed
+        into (M, cap, D) and exchanged with one ``all_to_all``, with each
+        slot's local expert;
+      level 2 - the received rows sorted by local expert, at most
+        ``cap2 = ceil(M cap / (E / M) * capacity_factor)`` each, packed
+        into the (E / M, cap2, D) GEMM buffer.
+    The return path unpacks level 2, sends the rows back with one more
+    ``all_to_all``, combines each token's k contributions in ascending
+    expert order (as ``moe_ffn_gspmd``) and gathers the M parts of the
+    output (one ``all_gather``).  Buffers are built by gathers, so the
+    dispatch is deterministic on the card too."""
+    cd = cfg.torch_compute_dtype()
+    b, s, d = x.shape
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    group = mesh.axis_group("model")
+    nm = mesh.shape["model"]
+    e_loc = e // nm
+    t = b * s // nm
+    dev = x.device
+    xf = C.slice_replicated(x.reshape(b * s, d), 0, group).to(cd)  # (t, D)
+
+    gate, top_e = route(xf, C.sum_grad(p["router"], group), k)
+
+    # ---- level 1: pack by destination rank ------------------------------
+    flat_e = top_e.reshape(-1)                                  # (t k,)
+    flat_tgt = torch.div(flat_e, e_loc, rounding_mode="floor")
+    order = torch.argsort(flat_tgt, stable=True)
+    s_tgt = flat_tgt[order]
+    slot = _sorted_slots(s_tgt)
+    cap = max(int(math.ceil(t * k / nm * cfg.moe.capacity_factor)), 1)
+    idx, valid = _run_rows(s_tgt, nm, cap, cap)                 # (M, cap)
+    src = order[idx]
+    tok = torch.where(valid, torch.div(src, k, rounding_mode="floor"), t)
+    send_x = torch.cat([xf, xf.new_zeros(1, d)])[tok]           # (M, cap, D)
+    send_le = torch.where(valid, flat_e[src] % e_loc, e_loc)
+    recv_x = C.all_to_all_autograd(send_x, group)
+    recv_le = C.all_to_all(send_le, group)
+
+    # ---- level 2: pack by local expert ------------------------------------
+    n_recv = nm * cap
+    rx = torch.cat([recv_x.reshape(n_recv, d), recv_x.new_zeros(1, d)])
+    rle = recv_le.reshape(n_recv)
+    order2 = torch.argsort(rle, stable=True)                    # invalid last
+    s2_le = rle[order2]
+    slot2 = _sorted_slots(s2_le)
+    cap2 = max(int(math.ceil(n_recv / e_loc * cfg.moe.capacity_factor)), 1)
+    rows = max(cap2, L.MIN_ROWS)
+    idx2, valid2 = _run_rows(s2_le, e_loc, rows, cap2)          # (E/M, rows)
+    buf = rx[torch.where(valid2, order2[idx2], n_recv)]
+
+    h = F.silu(torch.bmm(buf, p["w1"].to(cd)))
+    h = h * torch.bmm(buf, p["w3"].to(cd))
+    y = torch.bmm(h, p["w2"].to(cd))                            # (E/M, rows, D)
+
+    # unpack level 2 into receive-slot order
+    pos2 = slot2[_inverse(order2)]
+    keep2 = (rle < e_loc) & (pos2 < cap2)
+    y_recv = y[rle.clamp(max=e_loc - 1), pos2.clamp(max=rows - 1)]
+    y_recv = y_recv * keep2.to(cd)[:, None]
+
+    # ---- return all_to_all and the combine, in token order ---------------
+    y_back = C.all_to_all_autograd(y_recv.reshape(nm, cap, d), group)
+    pos1 = slot[_inverse(order)]                                # (t k,)
+    keep = pos1 < cap
+    contrib = y_back.reshape(n_recv, d)[
+        flat_tgt * cap + pos1.clamp(max=cap - 1)]
+    contrib = contrib * (gate.reshape(-1) * keep).to(cd)[:, None]
+    asc = torch.argsort(top_e, dim=-1)       # a token's experts ascending
+    contrib = torch.gather(contrib.view(t, k, d), 1,
+                           asc[..., None].expand(t, k, d))
+    out = torch.zeros((t, d), dtype=cd, device=dev)
+    for j in range(k):
+        out = out + contrib[:, j]
+    return C.gather_replicated(out, 0, group).reshape(b, s, d)
 
 
 def aux_load_balance_loss(logits: torch.Tensor, top_e: torch.Tensor,

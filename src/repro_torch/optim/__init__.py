@@ -1,9 +1,6 @@
-"""AdamW and its learning-rate schedule (counterpart of ``repro.optim``).
-
-The reference's int8 error-feedback gradient compression
-(``compression.py``: ``CompressionState``, ``compression_init``,
-``compressed_psum``) syncs gradients across data-parallel processes; it
-waits for the port's data-parallel trainer (ROADMAP A15b)."""
+"""AdamW, its learning-rate schedule and the int8 error-feedback
+gradient compression of the cross-pod sync (counterpart of
+``repro.optim``)."""
 
 from repro_torch.optim.adamw import (
     AdamWState,
@@ -12,9 +9,15 @@ from repro_torch.optim.adamw import (
     clip_by_global_norm,
     global_norm,
 )
+from repro_torch.optim.compression import (
+    CompressionState,
+    compressed_psum,
+    compression_init,
+)
 from repro_torch.optim.schedule import cosine_warmup
 
 __all__ = [
-    "AdamWState", "adamw_init", "adamw_update", "clip_by_global_norm",
+    "AdamWState", "CompressionState", "adamw_init", "adamw_update",
+    "clip_by_global_norm", "compressed_psum", "compression_init",
     "cosine_warmup", "global_norm",
 ]

@@ -81,11 +81,15 @@ def adamw_update(
     eps: float = 1.0e-8,
     weight_decay: float = 0.1,
     max_grad_norm: Optional[float] = 1.0,
+    grad_norm: Optional[torch.Tensor] = None,
 ):
     """One AdamW step, written into ``params`` and the moments in place.
-    ``lr`` is a float or a () tensor.  Returns (params, new state,
-    {"grad_norm": the norm before clipping})."""
-    gnorm = global_norm(grads)
+    ``lr`` is a float or a () tensor; ``grad_norm`` the global norm of
+    ``grads`` where the caller computed it (a tree split across
+    processes: the squares of its parts summed over their group), else
+    :func:`global_norm`.  Returns (params, new state, {"grad_norm": the
+    norm before clipping})."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = None
     if max_grad_norm is not None:
         # clip_by_global_norm's scale, applied leaf by leaf below

@@ -141,7 +141,7 @@ tokens and the decisions stay identical across ranks with no broadcast,
 and the tokens and page bytes are the one-device serve's bit for bit.
 gloo takes host tensors, so on a card the boundary stages the sharded
 leaves through pinned host memory (``core.collectives``) and counts the
-time it takes (``pool_io.stage_s()`` over ``pool_io.calls``); that copy
+time it takes (``pool_io.stage_s`` over ``pool_io.calls``); that copy
 waits for the device, so the model axis cannot pipeline.  The split at
 rest saves no peak memory and no compute: every rank holds the gathered
 whole pool beside its part during a call, and runs the whole step.  A
@@ -167,8 +167,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.collectives import all_gather
+from repro_torch.core.collectives import WIRE, all_gather
 from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.sharding import manual_region
 from repro_torch.runtime.paged_cache import (
     NULL_PAGE,
     PageAllocator,
@@ -498,38 +499,24 @@ class _PoolIO:
     pinned host memory, and the copy to the host waits for the device:
     every device call of a sharded engine synchronizes here, so the model
     axis cannot pipeline (``pipeline_depth`` overlaps nothing on it).
-    ``stage_s()`` sums the staging's time over ``calls``, from a pair of
-    CUDA events around it (the first fires once the earlier device work
-    is done, so the sum holds the staging alone)."""
+    ``stage_s`` sums over ``calls`` the seconds spent staging and in
+    gloo, as ``collectives.WIRE`` times them on the host (the wait for
+    the device's earlier work is not in it)."""
 
     def __init__(self, group, device: torch.device):
         self.group = group
         self.device = device
         self.calls = 0
-        self._events = []
+        self.stage_s = 0.0
 
     @_drain_point
     def expand(self, pool) -> dict:
-        cuda = self.device.type == "cuda"
-        if cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
+        before = WIRE.stage_s + WIRE.wire_s
         full = {name: all_gather(x, pool.shardings[name].dim, self.group)
                 for name, x in pool.items()}
-        if cuda:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            self._events.append((start, end))
+        self.stage_s += WIRE.stage_s + WIRE.wire_s - before
         self.calls += 1
         return full
-
-    @_drain_point
-    def stage_s(self) -> float:
-        """Seconds spent staging, summed over every call so far (0 on the
-        CPU, where nothing is staged)."""
-        if self._events:
-            self._events[-1][1].synchronize()
-        return sum(s.elapsed_time(e) for s, e in self._events) / 1e3
 
 
 class ServeEngine:
@@ -719,7 +706,8 @@ class ServeEngine:
             shardings = pool_shardings(mesh, self.pool, bundle.cfg.n_kv_heads)
             if not next(iter(shardings.values())).is_fully_replicated:
                 self.pool = shard_pool(self.pool, shardings)
-                self.pool_io = _PoolIO(mesh.group, self.device)
+                self.pool_io = _PoolIO(mesh.axis_group("model"),
+                                      self.device)
                 self.pool_kv_heads //= model_axis_size(mesh)
         self.telemetry = telemetry
         metrics = telemetry.metrics if telemetry is not None else None
@@ -1219,12 +1207,14 @@ class ServeEngine:
     def _on_pool(self, call):
         """Run one device call ``call(pool) -> (out, pool)`` on the whole
         pool (through the pool boundary on a sharded pool); returns
-        ``out``."""
-        if self.pool_io is None:
-            out, self.pool = call(self.pool)
-            return out
-        sharded = self.pool
-        out, full = call(self.pool_io.expand(sharded))
+        ``out``.  The call is a manual region (``launch.sharding``): every
+        rank runs the one-device step, whatever mesh is active."""
+        with manual_region():
+            if self.pool_io is None:
+                out, self.pool = call(self.pool)
+                return out
+            sharded = self.pool
+            out, full = call(self.pool_io.expand(sharded))
         self.pool = shard_pool(full, sharded.shardings)
         return out
 
@@ -1654,7 +1644,8 @@ class EngineReplicaGroup:
         if names and names[0] == "model" and "data" in names:
             devs = devs.T
         devs = devs.reshape(n_data, n_model)
-        self.meshes = [Mesh({"model": n_model}, devs[i], mesh.group)
+        self.meshes = [Mesh({"model": n_model}, devs[i], groups=mesh.groups,
+                            coords=mesh.coords)
                        for i in range(n_data)]
         # one copy of the weights per device
         copies = {}

@@ -2,9 +2,13 @@
 numpy-only reference module) against the reference's ``repro.data``:
 ``synthetic_batch`` bit for bit at several seeds, steps, shapes, process
 slices and with float extras; ``DataPipeline`` batches, ``state()`` /
-``restore()`` and prefetching; ``TokenFileDataset`` on a local token
+``restore()`` (a batch in production during a restore is dropped) and
+prefetching; ``TokenFileDataset`` on a local token
 file; and the port's versions of the reference's data tests
 (tests/test_substrate.py)."""
+
+import queue
+import threading
 
 import numpy as np
 import pytest
@@ -44,25 +48,136 @@ def test_extras_and_process_slices_equal_reference():
 
 
 def test_pipeline_equals_reference_across_restore():
+    """Every batch the port's pipeline yields, before and after two
+    restores, is the reference's stateless ``synthetic_batch`` at the
+    pipeline's (seed, step).  (The reference's ``DataPipeline`` has the
+    restore race that the port's repaired, so it is not the oracle.)"""
     extras = {"frame_embeds": ((2, 4, 8), np.float32)}
-    kw = dict(batch=2, seq=8, vocab=100, seed=5, extras=extras)
-    port, ref = DataPipeline(**kw), RefPipeline(**kw)
+    kw = dict(batch=2, seq=8, vocab=100, extras=extras)
+    port = DataPipeline(seed=5, **kw)
+
+    def expect(seed, step):
+        return ref_batch(seed, step, kw["batch"], kw["seq"], kw["vocab"],
+                         extras=extras)
+
     try:
-        for _ in range(4):
-            _equal(next(port), next(ref))
-        assert port.state() == ref.state() == {"step": 4, "seed": 5}
-        for p in (port, ref):
-            p.restore({"step": 1, "seed": 5})
-        for _ in range(3):
-            _equal(next(port), next(ref))
+        for step in range(4):
+            _equal(next(port), expect(5, step))
+        assert port.state() == {"step": 4, "seed": 5}
+        port.restore({"step": 1, "seed": 5})
+        for step in range(1, 4):
+            _equal(next(port), expect(5, step))
         # rewound past the prefetched steps and forward again
-        for p in (port, ref):
-            p.restore({"step": 10, "seed": 6})
-        _equal(next(port), next(ref))
-        assert port.state() == ref.state() == {"step": 11, "seed": 6}
+        port.restore({"step": 10, "seed": 6})
+        _equal(next(port), expect(6, 10))
+        assert port.state() == {"step": 11, "seed": 6}
     finally:
         port.close()
-        ref.close()
+
+
+class _BlockingBackend:
+    """``synthetic_batch`` that blocks in ``batch()`` at (seed 5, step
+    10) until ``release`` is set, signalling ``entered`` first."""
+
+    def __init__(self, **kw):
+        self.kw = kw
+        self.entered = threading.Event()
+        self.release = threading.Event()
+
+    def batch(self, seed, step, batch, process_index, process_count):
+        if (seed, step) == (5, 10):
+            self.entered.set()
+            assert self.release.wait(timeout=30)
+        return synthetic_batch(seed, step, batch, self.kw["seq"],
+                               self.kw["vocab"], process_index,
+                               process_count)
+
+
+def test_restore_drops_the_batch_in_production():
+    """The producer is inside ``batch()`` for (seed 5, step 10) when
+    ``restore({"step": 10, "seed": 6})`` runs; it then puts that stale
+    batch in the queue.  The next batch is ``synthetic_batch(6, 10)``
+    all the same, and the step counter is what restore set, plus one."""
+    backend = _BlockingBackend(seq=8, vocab=100)
+    pipe = DataPipeline(batch=2, seq=8, vocab=100, seed=5, start_step=10,
+                        backend=backend)
+    try:
+        assert backend.entered.wait(timeout=30)
+        pipe.restore({"step": 10, "seed": 6})
+        backend.release.set()
+        _equal(next(pipe), ref_batch(6, 10, 2, 8, 100))
+        assert pipe.state() == {"step": 11, "seed": 6}
+        _equal(next(pipe), ref_batch(6, 11, 2, 8, 100))
+    finally:
+        backend.release.set()
+        pipe.close()
+
+
+class _SeedBackend:
+    """``synthetic_batch``, setting ``made_new`` once it has made a batch
+    at seed 6."""
+
+    def __init__(self, **kw):
+        self.kw = kw
+        self.made_new = threading.Event()
+
+    def batch(self, seed, step, batch, process_index, process_count):
+        out = synthetic_batch(seed, step, batch, self.kw["seq"],
+                              self.kw["vocab"], process_index,
+                              process_count)
+        if seed == 6:
+            self.made_new.set()
+        return out
+
+
+def _stalling_queue(backend):
+    """A ``queue.Queue`` whose ``get_nowait`` - after taking its item -
+    waits for the producer's next ``put``, until a put has carried a
+    batch made at seed 6: whoever empties the queue with ``get_nowait``
+    during a restore lets the producer put the new seed's first batch
+    before it is done."""
+
+    class Stalling(queue.Queue):
+        def __init__(self, maxsize=0):
+            super().__init__(maxsize)
+            self.put_seen = threading.Event()
+            self.fresh_put = threading.Event()
+
+        def put(self, item, block=True, timeout=None):
+            super().put(item, block, timeout)
+            if backend.made_new.is_set():
+                self.fresh_put.set()
+            self.put_seen.set()
+
+        def get_nowait(self):
+            self.put_seen.clear()
+            item = super().get_nowait()
+            if not self.fresh_put.is_set():
+                assert self.put_seen.wait(timeout=30)
+            return item
+
+    return Stalling
+
+
+def test_restore_keeps_the_new_seeds_first_batch(monkeypatch):
+    """The producer puts the first batch of ``restore({"step": 10,
+    "seed": 6})`` into the queue before ``restore`` has returned (the
+    queue's ``get_nowait`` stalls until it has, should ``restore`` empty
+    the queue with it).  The next batch is ``synthetic_batch(6, 10)`` all
+    the same, and the step counter is 11."""
+    backend = _SeedBackend(seq=8, vocab=100)
+    with monkeypatch.context() as m:
+        m.setattr(queue, "Queue", _stalling_queue(backend))
+        pipe = DataPipeline(batch=2, seq=8, vocab=100, seed=5, start_step=10,
+                            prefetch=1, backend=backend)
+    try:
+        assert pipe._q.put_seen.wait(timeout=30)   # the queue holds a batch
+        pipe.restore({"step": 10, "seed": 6})
+        _equal(next(pipe), ref_batch(6, 10, 2, 8, 100))
+        assert pipe.state() == {"step": 11, "seed": 6}
+        _equal(next(pipe), ref_batch(6, 11, 2, 8, 100))
+    finally:
+        pipe.close()
 
 
 def test_pipeline_start_step_and_process_slice():

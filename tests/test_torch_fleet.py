@@ -61,9 +61,6 @@ KW = dict(max_batch=3, num_pages=24, page_size=PAGE, max_seq_len=64,
 # a differing greedy token is accepted only where the reference's own
 # top-1 / top-2 logit gap is below the two stacks' logit agreement
 LOGIT_ATOL = 0.1
-# names of the reference's __all__ that later items port: the int8
-# gradient compression of data-parallel training (optim, A15b)
-LATER = {"CompressionState", "compressed_psum", "compression_init"}
 
 
 # ------------------------------------------------------------ exports --
@@ -75,7 +72,7 @@ def test_exports_hold_the_references(pkg):
 
     ref = importlib.import_module(f"repro.{pkg}")
     port = importlib.import_module(f"repro_torch.{pkg}")
-    missing = set(ref.__all__) - set(port.__all__) - LATER
+    missing = set(ref.__all__) - set(port.__all__)
     assert not missing, sorted(missing)
     for name in port.__all__:
         assert hasattr(port, name), name

@@ -40,7 +40,8 @@ def test_the_scan_sees_the_port():
     assert "src/repro_torch/launch/mesh.py" in rel
     for new in ("optim/adamw.py", "optim/schedule.py", "data/pipeline.py",
                 "checkpoint/manager.py", "runtime/fault_tolerance.py",
-                "kernels/train_attention.py", "launch/train.py"):
+                "kernels/train_attention.py", "launch/train.py",
+                "optim/compression.py", "launch/sharding.py"):
         assert f"src/repro_torch/{new}" in rel, new
 
 

@@ -303,7 +303,12 @@ def test_train_cli_equals_the_reference_cli_first_steps(tmp_path):
 
 @pytest.mark.parametrize("mesh", ["2x1", "1x2", "prod"])
 def test_train_cli_mesh_raises(mesh, tmp_path):
-    with pytest.raises(NotImplementedError, match="A15b"):
+    """A mesh of several processes outside torchrun raises, naming
+    torchrun (the group is tests/test_torch_data_parallel.py's); the
+    reference's TPU pod meshes raise, naming ROADMAP A16."""
+    err, match = ((NotImplementedError, "A16") if mesh == "prod"
+                  else (RuntimeError, "torchrun"))
+    with pytest.raises(err, match=match):
         train_cli.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
                         "--mesh", mesh, "--ckpt-dir", str(tmp_path)])
 
