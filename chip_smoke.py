@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 
 ``python3 chip_smoke.py --train-only`` (``--multi-only``) builds the two
 kernels phase 15 (16) runs and runs that phase alone, with no result
-line.  ``--multi-only --half-batch`` feeds every rank of phase 16's
+line; ``--tools-only`` does so for phase 17.  ``--multi-only --half-batch`` feeds every rank of phase 16's
 data-parallel runs slice 0 of the batch, prints the readings and fails
 unless the gates refuse them.
 
@@ -200,12 +200,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      kv_valid inert, timed beside its library call; and contiguous
      decode at G 8 at the self layers' call (kv 48 of a 72-row cache).
      ``serve_vlm``:
-     llama-3.2-vision-90b at full width with its depth cut to 20 of its
-     100 layers (4 groups of one cross and 4 self layers; random weights
+     llama-3.2-vision-90b at full width with its depth cut to 10 of its
+     100 layers (2 groups of one cross and 4 self layers; random weights
      from seed 0, the tanh gates set to 0.5 - at the reference's init, 0,
      no cross layer would reach the logits), four 32-token prompts with
      their images (vision_embeds (4, 1601, 1280) from seed 0), 32 greedy
-     tokens each: per step 16 contiguous decodes at G 8, 4 shift-KV and 4
+     tokens each: per step 8 contiguous decodes at G 8, 2 shift-KV and 2
      attention launches and no other kernel; batched == one-at-a-time
      streams; the first generated step within HYBRID_LOGIT_ATOL of the
      plain versions and no farther from them at fp32 than
@@ -218,14 +218,14 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the kernels line the contiguous decode's G 8 entry has the vlm
      serve's count, and the three entries of ``check_vlm_cross`` their
      modes' counts;
- 13. the moe family: olmoe-1b-7b at full width and depth (16 layers, d
-     2048, 16 / 16 heads of 128, qk-norm, 64 experts of width 1024,
-     top-8; random weights from seed 0).  In phase 11 ``check_groups``
+ 13. the moe family: olmoe-1b-7b at full width with its depth cut to 8
+     of its 16 layers (d 2048, 16 / 16 heads of 128, qk-norm, 64 experts
+     of width 1024, top-8; random weights from seed 0).  In phase 11 ``check_groups``
      holds each kernel at its KVH 16, G 1 (tag ``g1o``: both paged
      kernels, also from an int8 pool, contiguous decode, shift-KV and
      causal attention at the dense prefill).  At the published capacity
      factor 1.25: ``serve_olmoe_<pool>`` (bf16, int8; phase 3's
-     workload) and ``serve_olmoe_dense`` (phase 4's), 16 launches a
+     workload) and ``serve_olmoe_dense`` (phase 4's), 8 launches a
      call, every logit finite; the dense first step within
      DENSE_LOGIT_ATOL of the plain versions and no farther from them at
      fp32 than DENSE_FP32_RATIO x theirs, with the kernels' routing
@@ -332,6 +332,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      layer a step: forward and remat recompute); the ``/train_dp`` and
      ``/train_ep`` entries of the kernels line time both kernels at the
      ranks' call shapes and carry every rank's launches.
+ 17. the dry run's accounting held against the card
+     (``launch.op_analysis``, ``launch.dryrun``, ``launch.roofline``), in
+     two parts: ``tools_decode`` with phase 4's weights before they are
+     freed (one dense decode call, batch 4, kv 1002 in a 1040-row cache)
+     and ``tools_train`` after phase 16 (phase 15's cell).  The FLOPs the
+     card's run counts equal the dry run's count of the same cell on the
+     meta device, exactly; the state's bytes on the card, before the
+     first step, within TOOLS_STATE_RTOL of the dry run's parameter and
+     moment bytes; every share of a published H100 peak (the decode's
+     byte bound over its time, the step's MFU and counted FLOPs over its
+     time) below TOOLS_SHARE_MAX; each reading printed beside the card's
+     name and power limit.  ``--tools-only`` builds the three kernels the
+     phase runs, qwen2-7b's serving weights, and runs phase 17 alone.
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -349,9 +362,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+# the kernel bound and the attention ops' FLOP / byte formulas
+from repro_torch.launch import roofline as R  # noqa: E402
+
 BETA = 0.984497
-H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
-H100_FP16_FLOPS = 989e12        # dense fp16/bf16 tensor-core peak
 SPIN_CYCLES_PER_S = 1.98e9      # H100 SXM boost clock: cycles of torch.cuda._sleep
 DECODE_KV_LENS = (1, 127, 128, 1000, 4095)
 PREFILL_STARTS = (0, 512, 1024)
@@ -481,8 +495,9 @@ TENANT_LATENCY = (0, 2)
 TENANT_QUOTA = dict(max_pages=6, max_step_tokens=256)
 TENANT_SLOTS = 2
 # phase 12: llama-3.2-vision-90b at full width with its depth cut to
-# VLM_LAYERS of 100 (4 groups: 4 cross + 16 self layers, ~40.5 GB of bf16
-# weights and fp32 head; 100 layers would be ~180 GB), its gates set to
+# VLM_LAYERS of 100 (2 groups: 2 cross + 8 self layers, bf16 weights and
+# an fp32 head; 20 layers until the smoke's time outgrew its aim, 100
+# would be ~180 GB), its gates set to
 # VLM_GATE (at the reference's init, 0, no cross layer reaches the
 # logits); its image cross call: one query row padded to 64, 64 query
 # heads over 8 kv heads (G 8), VLM_IMAGE_TOKENS keys in VLM_S2 rows.  The
@@ -497,17 +512,18 @@ TENANT_SLOTS = 2
 # the last prompt step's logits through the decode within MAMBA_FWD_TOL
 # (the reference's test_ssm_decode_matches_forward) of _ssm_forward on
 # the whole prompt
-VLM_LAYERS, VLM_GATE = 20, 0.5
+VLM_LAYERS, VLM_GATE = 10, 0.5
 VLM_IMAGE_TOKENS, VLM_S2 = 1601, 1664
 VLM_BATCH, VLM_PROMPT, VLM_MAX_LEN = 4, 32, 72
 VLM_ALONE = (0, 3)
 MAMBA_BATCH, MAMBA_PROMPT = 4, 64
 MAMBA_ALONE = (0, 3)
 MAMBA_FWD_TOL = dict(atol=0.25, rtol=0.1)
-# phase 13: olmoe-1b-7b at full width and depth (~14.1 GB in bf16 with its
-# fp32 head); at capacity factor E / k = 8 (nothing dropped) the requests
-# OLMOE_ALONE are served one at a time and the prompts OLMOE_TBT_PROMPTS
-# token by token
+# phase 13: olmoe-1b-7b at full width with its depth cut to OLMOE_LAYERS
+# of 16 (16 until the smoke's time outgrew its aim); at capacity factor
+# E / k = 8 (nothing dropped) the requests OLMOE_ALONE are served one at
+# a time and the prompts OLMOE_TBT_PROMPTS token by token
+OLMOE_LAYERS = 8
 OLMOE_ALONE = (0, 3)
 OLMOE_TBT_PROMPTS = (129, 17)
 
@@ -656,7 +672,7 @@ def _new_mode_entries(name, run, plain, gold, tol, rmse_max, library_of,
             ms_pasa=_cuda_time_ms(lambda: run(policy, BETA), 20),
             plain_ms=_cuda_time_ms(lambda: plain(policy, 0.0), 3, warmup=1),
             library_ms=_cuda_time_ms(lambda: library_of(policy), 20),
-            **_bound(nbytes, flops),
+            **R.bound(nbytes, flops),
         ))
     return entries
 
@@ -824,11 +840,8 @@ def check_decode(dev):
     lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qh, kg, vg, attn_mask=mask
     ), 20)
-    live = sum(DECODE_KV_LENS)
-    nbytes = (2 * live * kvh * d * 2          # live K and V rows, bf16
-              + 2 * q.numel() * 2             # q in, out
-              + table.numel() * 4 + b * 4)
-    flops = 4 * g * d * live * kvh
+    nbytes, flops = R.paged_decode_cost(b, kvh, g, d, DECODE_KV_LENS,
+                                        table.numel())
     main = dict(
         name="pasa_paged_decode", route="cuda",
         source="src/repro_torch/kernels/csrc/pasa_paged_decode.cu",
@@ -836,7 +849,7 @@ def check_decode(dev):
         max_abs_err=max_err, rmse=rmse, rmse_plain=rmse_plain,
         max_abs_err_cpu_plain=err_cpu, stress=stress,
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        **_serve_shape_decode(dev, "bf16"), **_bound(nbytes, flops),
+        **_serve_shape_decode(dev, "bf16"), **R.bound(nbytes, flops),
     )
     modes = _new_mode_entries(
         "pasa_paged_decode",
@@ -956,9 +969,8 @@ def check_prefill(dev):
     lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
         q, kg, vg, attn_mask=mask[:, None]
     ), 10)
-    live = sum(kv_lens)
-    nbytes = (2 * live * kvh * d * 2 + 2 * q.numel() * 2
-              + table.numel() * 4 + 2 * b * 4)
+    nbytes, flops = R.paged_prefill_cost(b, h, cs, d, kvh, starts, kv_lens,
+                                         table.numel())
     main = dict(
         name="pasa_paged_prefill", route="cuda",
         source="src/repro_torch/kernels/csrc/pasa_paged_prefill.cu",
@@ -966,7 +978,7 @@ def check_prefill(dev):
         max_abs_err=max_err, rmse=rmse, rmse_plain=rmse_plain,
         max_abs_err_cpu_plain=err_cpu,
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        **_bound(nbytes, _prefill_flops(h, d)),
+        **R.bound(nbytes, flops),
     )
 
     def pad_row_zero(policy):
@@ -987,18 +999,8 @@ def check_prefill(dev):
             policy=policy),
         gold, PREFILL_TOL, RMSE_MAX,
         _sdpa_at((q, kg, vg), attn_mask=mask[:, None]), nbytes,
-        _prefill_flops(h, d), rows=slice(0, 3), extra=pad_row_zero)
+        flops, rows=slice(0, 3), extra=pad_row_zero)
     return [main, *modes]
-
-
-def _prefill_flops(h, d) -> int:
-    """Both GEMMs over the causally visible (query, key) pairs of the
-    prefill fixture's rows."""
-    visible = 0
-    for s0, n in zip(*PREFILL_ROWS):
-        if n > 0:
-            visible += sum(min(s0 + i + 1, n) for i in range(PREFILL_CHUNK))
-    return 4 * d * h * visible
 
 
 def _quantize_pool(kp, vp, table, kv_lens, dtype):
@@ -1063,7 +1065,7 @@ def _quant_mode_entry(name, dtype, held, ms, plain_ms, lib_ms, nbytes, flops):
         replaces=replaces,
         max_abs_err=held["max_abs_err_fp16"], rmse=held["rmse_fp16"],
         detail=held, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        **_bound(nbytes, flops),
+        **R.bound(nbytes, flops),
     )
 
 
@@ -1147,13 +1149,11 @@ def check_decode_quant(dev, dtype):
     lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
         q.reshape(b, kvh * g, 1, d), kg, vg, attn_mask=mask[:, None, None, :]
     ), 20)
-    live = sum(DECODE_KV_LENS)
-    live_pages = sum(math.ceil(n / page) for n in DECODE_KV_LENS)
-    nbytes = (2 * live * kvh * d                      # live K and V codes
-              + 2 * live_pages * kvh * (1 + d) * 4    # their sidecars
-              + 2 * q.numel() * 2 + table.numel() * 4 + b * 4)
+    nbytes, flops = R.paged_decode_cost(b, kvh, g, d, DECODE_KV_LENS,
+                                        table.numel(), kv_itemsize=1,
+                                        page=page)
     entry = _quant_mode_entry("pasa_paged_decode", dtype, held, ms, plain_ms,
-                              lib_ms, nbytes, 4 * g * d * live * kvh)
+                              lib_ms, nbytes, flops)
     entry.update(_serve_shape_decode(dev, dtype))
     return entry
 
@@ -1207,12 +1207,11 @@ def check_prefill_quant(dev, dtype):
         col[None, None, :] < kv_len[:, None, None])
     lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
         q, kg, vg, attn_mask=mask[:, None]), 10)
-    live = sum(kv_lens)
-    live_pages = sum(math.ceil(n / page) for n in kv_lens)
-    nbytes = (2 * live * kvh * d + 2 * live_pages * kvh * (1 + d) * 4
-              + 2 * q.numel() * 2 + table.numel() * 4 + 2 * b * 4)
+    nbytes, flops = R.paged_prefill_cost(b, h, cs, d, kvh, starts, kv_lens,
+                                         table.numel(), kv_itemsize=1,
+                                         page=page)
     return _quant_mode_entry("pasa_paged_prefill", dtype, held, ms, plain_ms,
-                             lib_ms, nbytes, _prefill_flops(h, d))
+                             lib_ms, nbytes, flops)
 
 
 def _randn(rng, shape, mean, dev, dtype):
@@ -1275,16 +1274,15 @@ def check_shift_kv(dev):
             ms = _cuda_time_ms(run, 50)
             plain_ms = _cuda_time_ms(plain_of, 20)
             lib_ms = _cuda_time_ms(lambda m=m, kb=kb: torch.matmul(m, kb), 50)
-            # keys in, K' out at the operand dtype, M
-            nbytes = k.numel() * k.element_size() + got.numel() * 2 \
-                + m.numel() * 2
+            nbytes, flops = R.shift_kv_cost(k.numel(), k.element_size(),
+                                            block)
             modes.append(dict(
                 name=name, mode=mod.mode_name(kdt, op, block), route="cuda",
                 source="src/repro_torch/kernels/csrc/shift_kv.cu",
                 replaces="src/repro/kernels/shift_kv.py:48",
                 max_abs_err=max_err, rmse=rmse, rmse_algebraic=rmse_alg,
                 rmse_algebraic_plain=rmse_alg_plain, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, **_bound(nbytes, 2 * block * k.numel()),
+                library_ms=lib_ms, **R.bound(nbytes, flops),
             ))
     return modes
 
@@ -1396,8 +1394,7 @@ def check_attention(dev):
     ke, ve = (x.repeat_interleave(h // kvh, 1) for x in (k_sh, v))
     lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
         q, ke, ve, is_causal=True), 20)
-    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2   # q, out, K', V at fp16
-    flops = 4 * d * b * h * (s * (s + 1) // 2)        # causal: visible pairs
+    nbytes, flops = R.attention_cost(b, h, s, kvh, s, d, causal=True)
     main = dict(
         name="pasa_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/pasa_attention.cu",
@@ -1405,7 +1402,7 @@ def check_attention(dev):
         max_abs_err=report["max_abs_err_causal"], rmse=report["rmse_causal"],
         rmse_plain=report["rmse_plain_causal"], detail=report,
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        **_bound(nbytes, flops),
+        **R.bound(nbytes, flops),
     )
 
     # the new modes on the causal prefill, queries of mean 0: q, K, V
@@ -1553,9 +1550,7 @@ def check_contiguous_decode(dev):
         qh, ke, ve, attn_mask=mask[:, None, None, :]), 20)
     walk_ms = _cuda_time_ms(lambda: mod._walk_call(
         q, kview, vview, kv_len, beta=BETA, policy=FP16, block_kv=block), 50)
-    live = sum(lens)
-    nbytes = 2 * live * kvh * d * 2 + 2 * q.numel() * 2 + b * 4
-    flops = 4 * g * d * live * kvh
+    nbytes, flops = R.decode_cost(b, kvh, g, d, lens)
     main = dict(
         name="pasa_decode", route="cuda",
         source="src/repro_torch/kernels/csrc/pasa_decode.cu",
@@ -1563,7 +1558,7 @@ def check_contiguous_decode(dev):
         max_abs_err=max_err, walk_and_paged_bit_equal=True, ms=ms,
         walk_ms=walk_ms, plain_ms=plain_ms, library_ms=lib_ms,
         detail=report.pop("block_256"), **report,
-        **_serve_shape_contiguous_decode(dev), **_bound(nbytes, flops),
+        **_serve_shape_contiguous_decode(dev), **R.bound(nbytes, flops),
     )
 
     def bit_equal(policy):
@@ -1746,9 +1741,7 @@ def check_decode_hd64(dev):
         mask = (torch.arange(n, device=dev)[None, :] < kv_len[:, None])
         lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
             qh, ke, ve, attn_mask=mask[:, None, None, :]), 20)
-        live = sum(lens)
-        nbytes = 2 * live * kvh * d * 2 + 2 * q.numel() * 2 + b * 4
-        bound = _bound(nbytes, 4 * g * d * live * kvh)
+        bound = R.bound(*R.decode_cost(b, kvh, g, d, lens))
         timed = {
             "pasa_decode": dict(
                 ms=_cuda_time_ms(lambda: ops.pasa_decode(
@@ -1860,8 +1853,8 @@ def check_shift_kv_hd64(dev):
                     op == torch.float16 and not rmse_alg < SHIFT_RMSE_MAX):
                 raise AssertionError(f"{name} RMSE {rmse:.2e} vs float64 "
                                      f"(algebraic shift {rmse_alg:.2e})")
-            nbytes = k.numel() * k.element_size() + got.numel() * 2 \
-                + m.numel() * 2
+            nbytes, flops = R.shift_kv_cost(k.numel(), k.element_size(),
+                                            block)
             modes.append(dict(
                 name=name, whisper_mode=("shift_kv", mod.mode_name(
                     kdt, op, block, d)),
@@ -1872,7 +1865,7 @@ def check_shift_kv_hd64(dev):
                 ms=_cuda_time_ms(run, 50), plain_ms=_cuda_time_ms(plain_of, 20),
                 library_ms=_cuda_time_ms(lambda m=m, kb=kb: torch.matmul(m, kb),
                                          50),
-                **_bound(nbytes, 2 * block * k.numel()),
+                **R.bound(nbytes, flops),
             ))
     return modes
 
@@ -1980,11 +1973,12 @@ def check_attention_hd64(dev):
                       for x, n in ((q, rows), (k, valid), (v, valid)))
         lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs), 20)
-        bh = q.shape[0] * q.shape[1]
         # q and out over the real rows, K' and V over the valid ones, fp16
-        nbytes = 2 * 2 * bh * 64 * (rows + valid)
+        b, h, _, d = q.shape
         return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    **_bound(nbytes, 4 * 64 * bh * rows * valid))
+                    **R.bound(*R.attention_cost(b, h, rows, k.shape[1],
+                                                k.shape[2], d, causal=False,
+                                                kv_valid=valid)))
 
     enc, cross = timed("encoder"), timed("cross")
     source, replaces = KERNEL_FILES["pasa_attention"]
@@ -2040,16 +2034,6 @@ def _leaves(tree):
     """Every tensor of a (nested) parameter dict."""
     return [x for v in tree.values() for x in (
         _leaves(v) if isinstance(v, dict) else [v])]
-
-
-def _bound(nbytes: int, flops: int) -> dict:
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP16_FLOPS * 1e3
-    return dict(
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        bytes=nbytes, flops=flops,
-    )
 
 
 def build_model(dev):
@@ -3818,16 +3802,13 @@ def check_groups(dev):
         if not (rmse < RMSE_MAX and rmse_plain < RMSE_MAX):
             raise AssertionError(f"pasa_paged_decode/{tag} RMSE {rmse:.4f} / "
                                  f"plain {rmse_plain:.4f}")
-        live = sum(lens)
-        flops = 4 * g * d * live * kvh
-        nbytes = (2 * live * kvh * d * 2 + 2 * q.numel() * 2
-                  + table.numel() * 4 + b * 4)
+        nbytes, flops = R.paged_decode_cost(b, kvh, g, d, lens, table.numel())
         entries.append(_group_entry(
             "pasa_paged_decode", tag, arch, kvh, g, max_abs_err=err,
             rmse=rmse, rmse_plain=rmse_plain, ms=_cuda_time_ms(run, 50),
             plain_ms=_cuda_time_ms(plain_of, 3, warmup=1),
             library_ms=_decode_library_ms(q, kview, vview, kv_len),
-            **_bound(nbytes, flops)))
+            **R.bound(nbytes, flops)))
         for dtype in pools:
             kq, vq, quant, valid = _quantize_pool(kp, vp, table, lens,
                                                   dtype)
@@ -3839,9 +3820,9 @@ def check_groups(dev):
             if not torch.equal(run(FP16, kq2, vq2, quant2), got_q):
                 raise AssertionError(f"pasa_paged_decode/{tag}_{dtype}: "
                                      f"debris changed the output")
-            live_pages = sum(math.ceil(n / page) for n in lens)
-            qbytes = (2 * live * kvh * d + 2 * live_pages * kvh * (1 + d)
-                      * 4 + 2 * q.numel() * 2 + table.numel() * 4 + b * 4)
+            qbytes, _ = R.paged_decode_cost(
+                b, kvh, g, d, lens, table.numel(),
+                kv_itemsize=kq.element_size(), page=page)
             entries.append(_group_entry(
                 "pasa_paged_decode", f"{tag}_{dtype}", arch, kvh, g,
                 max_abs_err=held["max_abs_err_fp16"],
@@ -3851,7 +3832,7 @@ def check_groups(dev):
                     lambda: plain_of(FP16, kq, vq, quant), 3, warmup=1),
                 library_ms=_decode_library_ms(q, kq, vq, kv_len, quant,
                                               table),
-                **_bound(qbytes, flops)))
+                **R.bound(qbytes, flops)))
         del kp, vp, kview, vview
         # contiguous decode at the dense serve's kv, == paged decode
         lens = (DENSE_PROMPT + 2,) * DENSE_BATCH
@@ -3874,15 +3855,13 @@ def check_groups(dev):
         if not (rmse < RMSE_MAX and rmse_plain < RMSE_MAX):
             raise AssertionError(f"pasa_decode/{tag} RMSE {rmse:.4f} / "
                                  f"plain {rmse_plain:.4f}")
-        live = sum(lens)
         entries.append(_group_entry(
             "pasa_decode", tag, arch, kvh, g, max_abs_err=err, rmse=rmse,
             rmse_plain=rmse_plain, paged_bit_equal=True,
             ms=_cuda_time_ms(run, 50),
             plain_ms=_cuda_time_ms(plain_of, 3, warmup=1),
             library_ms=_decode_library_ms(q, kview, vview, kv_len),
-            **_bound(2 * live * kvh * d * 2 + 2 * q.numel() * 2 + b * 4,
-                     4 * g * d * live * kvh)))
+            **R.bound(*R.decode_cost(b, kvh, g, d, lens))))
         del kp, vp, kview, vview
         # paged prefill on the prefill fixture's rows
         h, cs = kvh * g, PREFILL_CHUNK
@@ -3925,14 +3904,13 @@ def check_groups(dev):
             return _cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 q, kg, vg, attn_mask=mask), 10)
 
-        live = sum(kv_lens)
-        nbytes = (2 * live * kvh * d * 2 + 2 * q.numel() * 2
-                  + table.numel() * 4 + 2 * b * 4)
+        nbytes, flops = R.paged_prefill_cost(b, h, cs, d, kvh, starts,
+                                             kv_lens, table.numel())
         entries.append(_group_entry(
             "pasa_paged_prefill", tag, arch, kvh, g, max_abs_err=err,
             rmse=rmse, rmse_plain=rmse_plain, ms=_cuda_time_ms(run, 20),
             plain_ms=_cuda_time_ms(plain_of, 3, warmup=1),
-            library_ms=library(), **_bound(nbytes, _prefill_flops(h, d))))
+            library_ms=library(), **R.bound(nbytes, flops)))
         for dtype in pools:
             kq, vq, quant, valid = _quantize_pool(kp, vp, table, kv_lens,
                                                   dtype)
@@ -3945,10 +3923,9 @@ def check_groups(dev):
             if not torch.equal(run(FP16, kq2, vq2, quant2), got_q):
                 raise AssertionError(f"pasa_paged_prefill/{tag}_{dtype}: "
                                      f"debris changed the output")
-            live_pages = sum(math.ceil(n / page) for n in kv_lens)
-            qbytes = (2 * live * kvh * d + 2 * live_pages * kvh * (1 + d)
-                      * 4 + 2 * q.numel() * 2 + table.numel() * 4
-                      + 2 * b * 4)
+            qbytes, _ = R.paged_prefill_cost(
+                b, h, cs, d, kvh, starts, kv_lens, table.numel(),
+                kv_itemsize=kq.element_size(), page=page)
             entries.append(_group_entry(
                 "pasa_paged_prefill", f"{tag}_{dtype}", arch, kvh, g,
                 max_abs_err=held["max_abs_err_fp16"],
@@ -3957,7 +3934,7 @@ def check_groups(dev):
                 plain_ms=_cuda_time_ms(
                     lambda: plain_of(FP16, kq, vq, quant), 3, warmup=1),
                 library_ms=library(quant, kq, vq),
-                **_bound(qbytes, _prefill_flops(h, d))))
+                **R.bound(qbytes, flops)))
         del kp, vp, q
         if arch not in SERVED_GROUPS:
             continue
@@ -3982,8 +3959,7 @@ def check_groups(dev):
             "shift_kv", tag, arch, kvh, g, max_abs_err=err, rmse=rmse,
             ms=_cuda_time_ms(run, 50), plain_ms=_cuda_time_ms(plain_of, 20),
             library_ms=_cuda_time_ms(lambda: torch.matmul(m, kb), 50),
-            **_bound(k.numel() * 2 + got.numel() * 2 + m.numel() * 2,
-                     2 * page * k.numel())))
+            **R.bound(*R.shift_kv_cost(k.numel(), k.element_size(), page))))
         # causal attention at the served config's dense prefill
         q = _randn(rng, (b, h, s, d), 0.0, dev, torch.float16)
         k = _randn(rng, (b, kvh, s, d), 2.0, dev, torch.float16)
@@ -4013,8 +3989,7 @@ def check_groups(dev):
                 3, warmup=1),
             library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 q, ke, ve, is_causal=True), 20),
-            **_bound(2 * q.numel() * 2 + 2 * k.numel() * 2,
-                     4 * d * b * h * (s * (s + 1) // 2))))
+            **R.bound(*R.attention_cost(b, h, s, kvh, s, d, causal=True))))
         del q, k, v, k_sh, ke, ve
     torch.cuda.empty_cache()
     return entries
@@ -4377,8 +4352,7 @@ def check_vlm_cross(dev):
         rmse=rmse, ms=_cuda_time_ms(run, 50),
         plain_ms=_cuda_time_ms(plain_of, 20),
         library_ms=_cuda_time_ms(lambda: torch.matmul(m, kb), 50),
-        **_bound(keys.numel() * 2 + got.numel() * 2 + m.numel() * 2,
-                 2 * 128 * keys.numel()))]
+        **R.bound(*R.shift_kv_cost(keys.numel(), keys.element_size(), 128)))]
     del got, plain, kb
     # the attention kernel at the cross call
     q = F.pad(_randn(rng, (b, h, 1, d), 0.0, dev, torch.float16),
@@ -4428,8 +4402,8 @@ def check_vlm_cross(dev):
         library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
             q1, ke, ve), 50),
         # the real query row and its output, K' and V over the image tokens
-        **_bound(2 * 2 * b * h * d + 2 * 2 * b * kvh * n * d,
-                 4 * d * b * h * n)))
+        **R.bound(*R.attention_cost(b, h, 1, kvh, s2, d, causal=False,
+                                    kv_valid=n))))
     del q, k, v, k_sh, ke, ve, gold
     # contiguous decode at the self layers' call
     live = VLM_PROMPT + SERVE_GEN // 2
@@ -4464,8 +4438,7 @@ def check_vlm_cross(dev):
         ms=_cuda_time_ms(run, 50), plain_ms=_cuda_time_ms(plain_of, 3,
                                                           warmup=1),
         library_ms=_decode_library_ms(q, kview, vview, kv_len),
-        **_bound(2 * b * live * kvh * d * 2 + 2 * q.numel() * 2 + b * 4,
-                 4 * g * d * b * live * kvh)))
+        **R.bound(*R.decode_cost(b, kvh, g, d, (live,) * b))))
     del ck, cv, kview, vview, kk, vv, gold
     torch.cuda.empty_cache()
     return entries
@@ -4473,14 +4446,14 @@ def check_vlm_cross(dev):
 
 def serve_vlm(dev):
     """llama-3.2-vision-90b at full width (d 8192, 64 / 8 heads of 128, G
-    8, d_ff 28672, vocab 128,256) with its depth cut to VLM_LAYERS (4
+    8, d_ff 28672, vocab 128,256) with its depth cut to VLM_LAYERS (2
     groups of one image cross-attention layer and 4 self layers), random
     weights from seed 0 (bf16, an fp32 head and fp32 gates), the gates set
     to VLM_GATE.  VLM_BATCH prompts of VLM_PROMPT tokens and images
     (vision_embeds (B, 1601, 1280) in bf16, N(0, 1) from seed 0),
     SERVE_GEN greedy tokens each, token by token through launch/serve.py's
-    route on a VLM_MAX_LEN-row cache: per step 16 contiguous decodes (the
-    self layers, G 8), 4 shift-KV and 4 attention launches (the cross
+    route on a VLM_MAX_LEN-row cache: per step 8 contiguous decodes (the
+    self layers, G 8), 2 shift-KV and 2 attention launches (the cross
     layers: one query row padded to 64, 1,601 keys in 1,664 rows), all
     fp16 PASA over bf16 at head_dim 128, and no other kernel.  Every logit
     finite; the prompts VLM_ALONE served alone from their images give
@@ -4716,9 +4689,10 @@ def serve_falcon_mamba(dev):
 
 
 def build_olmoe(dev):
-    """olmoe-1b-7b at full width and depth (16 layers, d 2048, 16 / 16
-    heads of 128, qk-norm, 64 experts of width 1024, top-8, vocab 50,304)
-    with random weights from seed 0, at its capacity factor 1.25, and the
+    """olmoe-1b-7b at full width (d 2048, 16 / 16 heads of 128, qk-norm,
+    64 experts of width 1024, top-8, vocab 50,304) with its depth cut to
+    OLMOE_LAYERS, random weights from seed 0, at its capacity factor 1.25,
+    and the
     same model (the same weights) at capacity factor E / k, where every
     expert can take every token of a call."""
     import dataclasses
@@ -4728,7 +4702,8 @@ def build_olmoe(dev):
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import build
 
-    bundle = build(get_config("olmoe-1b-7b"))
+    bundle = build(dataclasses.replace(get_config("olmoe-1b-7b"),
+                                       n_layers=OLMOE_LAYERS))
     moe = bundle.cfg.moe
     nodrop = build(dataclasses.replace(bundle.cfg, moe=dataclasses.replace(
         moe, capacity_factor=moe.n_experts / moe.top_k)))
@@ -4885,7 +4860,8 @@ def olmoe_dense_first_calls(dev, bundle, params):
 
 
 def serve_olmoe(dev, bundle, nodrop, params):
-    """olmoe-1b-7b at full width and depth.  At its capacity factor 1.25:
+    """olmoe-1b-7b at full width, OLMOE_LAYERS deep.  At its capacity
+    factor 1.25:
     the paged workload from a bf16 and an int8 pool and the dense
     workload, every launch counted, every logit finite, the dense first
     step held as qwen2-7b's (DENSE_LOGIT_ATOL, DENSE_FP32_RATIO) with the
@@ -5430,7 +5406,6 @@ def check_kvh2_slices(dev):
     mask = (torch.arange(mp * page, device=dev)[None, :]
             < kv_len[:, None])[:, None, None, :]
     qh = q.reshape(b, kvh * g, 1, d)
-    live = sum(DECODE_KV_LENS)
     dec = dict(
         name="pasa_paged_decode/kvh2", route="cuda",
         source="src/repro_torch/kernels/csrc/pasa_paged_decode.cu",
@@ -5439,8 +5414,8 @@ def check_kvh2_slices(dev):
         plain_ms=_cuda_time_ms(plain, 3, warmup=1),
         library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
             qh, kg, vg, attn_mask=mask), 20),
-        **_bound(2 * live * kvh * d * 2 + 2 * q.numel() * 2
-                 + table.numel() * 4 + b * 4, 4 * g * d * live * kvh))
+        **R.bound(*R.paged_decode_cost(b, kvh, g, d, DECODE_KV_LENS,
+                                       table.numel())))
     qp, kp2, vp2, table2, start, kv_len2 = _prefill_fixture(dev)
     h = kvh * g
     qp = qp[:, :h].contiguous()
@@ -5459,8 +5434,9 @@ def check_kvh2_slices(dev):
     qpos = start[:, None] + torch.arange(PREFILL_CHUNK, device=dev)[None, :]
     pmask = (col[None, None, :] <= qpos[:, :, None]) & (
         col[None, None, :] < kv_len2[:, None, None])
-    nbytes = (2 * sum(PREFILL_ROWS[1]) * kvh * d * 2 + 2 * qp.numel() * 2
-              + table2.numel() * 4 + 2 * 4 * 4)
+    nbytes, flops = R.paged_prefill_cost(len(PREFILL_ROWS[0]), h,
+                                         PREFILL_CHUNK, d, kvh, *PREFILL_ROWS,
+                                         table2.numel())
     pre = dict(
         name="pasa_paged_prefill/kvh2", route="cuda",
         source="src/repro_torch/kernels/csrc/pasa_paged_prefill.cu",
@@ -5469,7 +5445,7 @@ def check_kvh2_slices(dev):
         plain_ms=_cuda_time_ms(plain, 3, warmup=1),
         library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
             qp, kg, vg, attn_mask=pmask[:, None]), 10),
-        **_bound(nbytes, _prefill_flops(h, d)))
+        **R.bound(nbytes, flops))
     return [dec, pre]
 
 
@@ -5654,8 +5630,7 @@ def _train_call_entries(dev, shape, tag, q=None, k=None, v=None):
             warmup=1),
         library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
             qh, kx, vx, is_causal=True), 20),
-        **_bound(2 * qh.numel() * 2 + 2 * kh.numel() * 2,
-                 4 * d * b * h * (s * (s + 1) // 2)),
+        **R.bound(*R.attention_cost(b, h, s, kvh, s, d, causal=True)),
     )
     m = smod.device_matrix(128, d, BETA, torch.float16, dev)
     run_s = lambda: ops.shift_kv(k, beta=BETA, policy=FP16)
@@ -5668,8 +5643,7 @@ def _train_call_entries(dev, shape, tag, q=None, k=None, v=None):
         replaces="src/repro/kernels/shift_kv.py:48", max_abs_err=err_s,
         ms=_cuda_time_ms(run_s, 50), plain_ms=_cuda_time_ms(plain_s, 20),
         library_ms=_cuda_time_ms(lambda: torch.matmul(m, kb), 50),
-        **_bound(k.numel() * 2 + k.numel() * 2 + m.numel() * 2,
-                 2 * 128 * k.numel()),
+        **R.bound(*R.shift_kv_cost(k.numel(), k.element_size(), 128)),
     )
     ops.reset_launches()
     return [shift, attn]
@@ -6547,6 +6521,204 @@ def phase_multi(dev, half_batch=False):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the dry run's accounting held against the card.  The FLOPs of
+# one step (phase 15's qwen2-7b training step: TRAIN_LAYERS of 28 layers,
+# TRAIN_BATCH x TRAIN_SEQ, fp32 state, remat) and of one dense decode call
+# (phase 4's: full depth, batch 4, kv 1002 in the dense serve's 1040-row
+# cache) counted by ``launch.op_analysis`` on the card equal the dry run's
+# counts of the same cells on the meta device, exactly; the state's bytes
+# on the card, after it is built and before the first step, are within
+# TOOLS_STATE_RTOL of the dry run's parameter and moment bytes; and every
+# share of a published H100 peak is below TOOLS_SHARE_MAX (a reading above
+# it means a count is wrong).
+TOOLS_DECODE_BATCH, TOOLS_DECODE_ROWS, TOOLS_DECODE_KV = 4, 1040, 1002
+TOOLS_STATE_RTOL = 0.01
+TOOLS_SHARE_MAX = 1.05
+TOOLS_TIMED = 3
+
+
+def _check_shares(tag, shares):
+    bad = {k: v for k, v in shares.items() if not 0.0 < v < TOOLS_SHARE_MAX}
+    if bad:
+        raise AssertionError(f"{tag}: shares of a published peak out of "
+                             f"(0, {TOOLS_SHARE_MAX}): {bad}")
+
+
+def _count_fields(c) -> dict:
+    return {"flops": c.flops, "bytes": c.bytes,
+            "flops_by_op": c.flops_by_op, "calls_by_op": c.calls_by_op}
+
+
+def tools_decode(dev, bundle, params):
+    """Phase 17a: one dense decode call of ``bundle`` (qwen2-7b at full
+    depth, serving weights ``params``) counted on the card against the dry
+    run's count on meta (FLOPs and bytes by op, exactly); its wall ms and
+    its device busy ms (``torch.profiler``: the union of its kernels'
+    intervals); the shares of the byte bound (the counted bytes at 3.35
+    TB/s) and of the analytic memory model's
+    (``roofline.analytic_memory_bytes``, the weights at the dtype they
+    are served at) in them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.dryrun import count_decode
+    from repro_torch.launch.profile_steps import _busy_us
+
+    b, rows, kv = TOOLS_DECODE_BATCH, TOOLS_DECODE_ROWS, TOOLS_DECODE_KV
+    cfg = bundle.cfg
+    cache = bundle.init_cache(b, rows, device=dev)
+    card = count_decode(bundle, params, b, rows, kv, dev, cache=cache)
+    meta = count_decode(bundle, bundle.init(None, "meta"), b, rows, kv,
+                        "meta")
+    if card.as_dict() != meta.as_dict():
+        raise AssertionError(f"tools_decode: the card's count "
+                             f"{_count_fields(card)} != the dry run's "
+                             f"{_count_fields(meta)}")
+    token = torch.zeros((b,), dtype=torch.int32, device=dev)
+    pos = torch.full((b,), kv - 1, dtype=torch.int32, device=dev)
+
+    def call():
+        with torch.no_grad():
+            bundle.serve_step(params, token, pos, cache)
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TOOLS_TIMED):
+        call()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / TOOLS_TIMED * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TOOLS_TIMED):
+            call()
+        torch.cuda.synchronize()
+    device_ms = _busy_us(prof) / TOOLS_TIMED / 1e3
+    bound = R.bound(card.bytes, card.flops)
+    analytic = R.analytic_memory_bytes(cfg, "decode", b, kv, 1, 1,
+                                       param_dtype=R.held_dtype(params))
+    analytic_ms = analytic["bytes"] / R.HBM_BW * 1e3
+    rep = dict(flops=card.flops, bytes=card.bytes,
+               flops_equal_dry_run=True, bound_ms=bound["bound_ms"],
+               bound_by=bound["bound_by"], wall_ms=wall_ms,
+               device_ms=device_ms, analytic_bytes=analytic["bytes"],
+               calls_by_op=card.calls_by_op)
+    shares = {"memory_roofline_of_device_ms": bound["bound_ms"] / device_ms,
+              "memory_roofline_of_wall_ms": bound["bound_ms"] / wall_ms,
+              "analytic_memory_of_device_ms": analytic_ms / device_ms}
+    _check_shares("tools_decode", shares)
+    rep["shares"] = shares
+    del cache
+    torch.cuda.empty_cache()
+    return rep
+
+
+def tools_train(dev):
+    """Phase 17b: phase 15's training cell.  The state built on the card
+    (parameters from seed 0, AdamW moments) against the dry run's
+    per-device parameter and moment bytes (``dryrun.state_bytes`` on a 1 x
+    1 mesh, before any gradient exists); one step counted on the card
+    against the dry run's count of the same step on meta (FLOPs exactly);
+    then TOOLS_TIMED steps timed: the MFU (``roofline.model_flops`` 6 N T
+    over the step's seconds at 989 TFLOP/s) and the counted FLOPs' share
+    of the same peak."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch.dryrun import count_train_step, state_bytes
+    from repro_torch.launch.steps import (TrainHyper, batch_to_device,
+                                          make_train_step)
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    bundle = build(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev,
+                         dtype=cfg.torch_param_dtype())
+    state = {"params": params,
+             "opt": adamw_init(params, cfg.torch_optimizer_dtype())}
+    del params
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    meta_params = bundle.init(None, "meta", dtype=cfg.torch_param_dtype())
+    plan = state_bytes(cfg, meta_params, {"data": 1, "model": 1})["held"]
+    want = plan["params"] + plan["moments"]
+    if abs(held - want) > TOOLS_STATE_RTOL * want:
+        raise AssertionError(f"tools_train: state {held} B on the card vs "
+                             f"the dry run's {want} B")
+    pipe = DataPipeline(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        vocab=cfg.vocab_size, seed=0)
+    batches = [batch_to_device(next(pipe), dev)
+               for _ in range(1 + TOOLS_TIMED)]
+    pipe.close()
+    step = make_train_step(bundle, TrainHyper(**TRAIN_HYPER))
+    with op_analysis.count() as card:
+        state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    meta_state = {"params": meta_params, "opt": adamw_init(
+        meta_params, cfg.torch_optimizer_dtype())}
+    meta = count_train_step(bundle, meta_state, TRAIN_BATCH, TRAIN_SEQ,
+                            "meta")
+    if card.flops != meta.flops or card.flops_by_op != meta.flops_by_op:
+        raise AssertionError(f"tools_train: the card's count "
+                             f"{_count_fields(card)} != the dry run's "
+                             f"{_count_fields(meta)}")
+    times = []
+    for batch in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = sum(times) / len(times)
+    pc = R.count_params(meta_params)
+    mf = R.model_flops(pc["total"], pc["expert"], cfg.moe.top_k,
+                       cfg.moe.n_experts, TRAIN_BATCH * TRAIN_SEQ,
+                       kind="train")
+    shares = {"mfu": mf / (step_s * R.PEAK_FLOPS),
+              "counted_flops_share": card.flops / (step_s * R.PEAK_FLOPS)}
+    _check_shares("tools_train", shares)
+    rep = dict(layers=cfg.n_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               params=pc["total"], state_bytes_on_card=held,
+               state_bytes_dry_run=want,
+               state_rel_gap=(held - want) / want, flops=card.flops,
+               flops_equal_dry_run=True, flops_by_op=card.flops_by_op,
+               model_flops=mf, step_ms=[t * 1e3 for t in times],
+               loss=float(m["loss"]), shares=shares)
+    del state, batches
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_tools(dev, bundle=None, params=None, parts=("decode", "train")):
+    """Phase 17 (``--tools-only``: both parts, the serving weights built
+    here): the readings printed beside the card's name and power limit."""
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    t0 = time.perf_counter()
+    if "decode" in parts:
+        if bundle is None:
+            bundle, params, _ = build_model(dev)
+        rep = tools_decode(dev, bundle, params)
+        print(f"tools_decode ({smi}): " + json.dumps(rep))
+        del bundle, params
+        torch.cuda.empty_cache()
+    if "train" in parts:
+        print(f"tools_train ({smi}): " + json.dumps(tools_train(dev)))
+    print(f"phase 17 ({', '.join(parts)}): {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     """The whole smoke; ``--train-only`` / ``--multi-only``: the build of
     the two kernels phase 15 / 16 runs, and that phase alone, with no
@@ -6555,9 +6727,9 @@ def main(argv=None) -> int:
 
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--train-only"], ["--multi-only"],
-                    ["--multi-only", "--half-batch"]):
+                    ["--multi-only", "--half-batch"], ["--tools-only"]):
         print(f"usage: chip_smoke.py [--train-only | --multi-only "
-              f"[--half-batch]], got {argv}", file=sys.stderr)
+              f"[--half-batch] | --tools-only], got {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6576,7 +6748,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    built = _build.build(("shift_kv", "pasa_attention") if argv else None)
+    built = _build.build(
+        None if not argv else ("shift_kv", "pasa_attention", "pasa_decode")
+        if argv == ["--tools-only"] else ("shift_kv", "pasa_attention"))
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)} "
           f"into {_build.build_dir()}")
     if argv == ["--train-only"]:
@@ -6584,6 +6758,9 @@ def main(argv=None) -> int:
         return 0
     if argv[:1] == ["--multi-only"]:
         phase_multi(dev, half_batch="--half-batch" in argv)
+        return 0
+    if argv == ["--tools-only"]:
+        phase_tools(dev)
         return 0
     # ptxas: each kernel instance's registers, stack and spills
     for name in _build.SOURCES:
@@ -6740,6 +6917,9 @@ def main(argv=None) -> int:
     tenant_s = time.perf_counter() - t_tenant
     # the hybrid family (zamba2-1.2b) on the token-by-token dense route,
     # driven with the launch counts set to 0 just before it
+    # phase 17, first part: the dense decode call's count against the dry
+    # run's, with phase 4's weights
+    phase_tools(dev, bundle, params, parts=("decode",))
     t_hybrid = time.perf_counter()
     del bundle, params, flash
     torch.cuda.empty_cache()
@@ -6786,7 +6966,7 @@ def main(argv=None) -> int:
     print(f"phase 11: {tenant_s + time.perf_counter() - t_q3:.1f} s "
           f"(tenant {tenant_s:.1f} s)")
     # phase 12: the kernels at the vlm's image cross call, then
-    # llama-3.2-vision-90b (depth 20) and falcon-mamba-7b token by token,
+    # llama-3.2-vision-90b (depth VLM_LAYERS) and falcon-mamba-7b token by token,
     # each serve driven with the launch counts set to 0 just before it
     t_p12 = time.perf_counter()
     cross = check_vlm_cross(dev)
@@ -6801,7 +6981,7 @@ def main(argv=None) -> int:
     print("serve_vlm: " + json.dumps(rep_vlm))
     print("serve_falcon_mamba: " + json.dumps(serve_falcon_mamba(dev)))
     print(f"phase 12: {time.perf_counter() - t_p12:.1f} s")
-    # phase 13: olmoe-1b-7b (the moe family) at full width and depth on
+    # phase 13: olmoe-1b-7b (the moe family) at full width, 8 layers, on
     # both routes, each serve driven with the launch counts set to 0 just
     # before it
     t_p13 = time.perf_counter()
@@ -6816,6 +6996,9 @@ def main(argv=None) -> int:
     # phase 16: training across processes, two ranks on this card, each
     # path driven with the launch counts set to 0 just before it
     multi_entries = phase_multi(dev)
+    # phase 17, second part: the training step's count and state bytes
+    # against the dry run's
+    phase_tools(dev, parts=("train",))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each mode of shift-KV has the dense serve's count of that mode (0 for

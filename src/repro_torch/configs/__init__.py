@@ -1,12 +1,12 @@
-"""Architecture registry for the configs ported so far."""
+"""Architecture registry: one module per arch (the reference's eleven)."""
 
 from __future__ import annotations
 
 import importlib
 from typing import List
 
-from repro_torch.configs.base import (AttentionConfig, ModelConfig, MoEConfig,
-                                      SSMConfig)
+from repro_torch.configs.base import (SHAPES, AttentionConfig, ModelConfig,
+                                      MoEConfig, SSMConfig, shape_supported)
 
 _ID_TO_MODULE = {
     "qwen2-7b": "qwen2_7b",
@@ -23,6 +23,12 @@ _ID_TO_MODULE = {
 }
 
 ALL_ARCHS: List[str] = list(_ID_TO_MODULE)
+# the reference's assigned archs: every one but the paper's own qwen2-7b
+ASSIGNED_ARCHS: List[str] = [
+    "qwen3-14b", "qwen3-32b", "qwen1.5-32b", "qwen3-4b", "olmoe-1b-7b",
+    "kimi-k2-1t-a32b", "llama-3.2-vision-90b", "zamba2-1.2b",
+    "falcon-mamba-7b", "whisper-large-v3",
+]
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -36,5 +42,6 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG.validate()
 
 
-__all__ = ["ALL_ARCHS", "AttentionConfig", "ModelConfig", "MoEConfig",
-           "SSMConfig", "get_config"]
+__all__ = ["ALL_ARCHS", "ASSIGNED_ARCHS", "SHAPES", "AttentionConfig",
+           "ModelConfig", "MoEConfig", "SSMConfig", "get_config",
+           "shape_supported"]

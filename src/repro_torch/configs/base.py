@@ -12,6 +12,7 @@ families the reference's dry-run takes to its 500k decode cell.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -205,3 +206,24 @@ class ModelConfig:
             loss_chunk=32,
             remat=False,
         )
+
+
+# The dry run's shape cells, the reference's (``repro.configs.base.SHAPES``)
+# key for key: every arch at each, unless :func:`shape_supported` refuses.
+SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
+
+
+def shape_supported(cfg: ModelConfig, shape_name: str) -> Tuple[bool, str]:
+    """Is this (arch x shape) cell runnable?  (False, reason) if skipped:
+    the 500k decode runs only for the archs with a sub-quadratic path."""
+    if shape_name == "long_500k" and not cfg.supports_long_context:
+        return False, (
+            "full-attention arch: 500k decode needs a sub-quadratic path "
+            "(run only for ssm/hybrid; DESIGN.md section 4)"
+        )
+    return True, ""

@@ -43,9 +43,37 @@ import torch.distributed as dist
 LOCAL = "local"
 
 
+class AbstractGroup:
+    """A group of ``size`` ranks that exist as shapes only: an axis of the
+    dry run's production mesh (``launch.mesh.make_production_mesh``), on
+    which this process plays rank 0 on the ``meta`` device.  A collective
+    over it takes ``meta`` tensors (anything else raises), logs in
+    :data:`WIRE` what rank 0 of a real group would put on the wire, and
+    returns empty results of the real shapes."""
+
+    def __init__(self, size: int):
+        self.size = int(size)
+
+    def __repr__(self) -> str:
+        return f"AbstractGroup({self.size})"
+
+
+def _abstract(x: torch.Tensor, group) -> bool:
+    """True for a collective over an :class:`AbstractGroup` (whose tensors
+    must lie on ``meta``)."""
+    if not isinstance(group, AbstractGroup):
+        return False
+    if x.device.type != "meta":
+        raise ValueError(f"a collective over {group} takes meta tensors, "
+                         f"got one on {x.device}")
+    return True
+
+
 def group_size(group=None) -> int:
     """Ranks in ``group`` (None: the default group; 1 when no process
     group was initialized, and for ``LOCAL``)."""
+    if isinstance(group, AbstractGroup):
+        return group.size
     if group is LOCAL or (group is None and not dist.is_initialized()):
         return 1
     return dist.get_world_size(group)
@@ -53,8 +81,10 @@ def group_size(group=None) -> int:
 
 def group_rank(group=None) -> int:
     """This process's rank in ``group`` (None: the default group; 0 when
-    no process group was initialized, and for ``LOCAL``)."""
-    if group is LOCAL or (group is None and not dist.is_initialized()):
+    no process group was initialized, and for ``LOCAL`` and an
+    :class:`AbstractGroup`)."""
+    if group is LOCAL or isinstance(group, AbstractGroup) or (
+            group is None and not dist.is_initialized()):
         return 0
     return dist.get_rank(group)
 
@@ -160,7 +190,10 @@ WIRE_PIECE = 1 << 26
 
 def _gather_parts(x: torch.Tensor, group) -> List[torch.Tensor]:
     """Every rank's ``x`` (one shape on every rank) on the host, in rank
-    order."""
+    order (``x`` itself for each rank of an :class:`AbstractGroup`)."""
+    if _abstract(x, group):
+        WIRE.add("all_gather", x.dtype, x.numel() * x.element_size())
+        return [x] * group.size
     host = _to_host(x)
     n, nb = group_size(group), host.numel()
     parts = list(_host_empty(n * nb, x).view(n, nb))
@@ -204,6 +237,10 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
         raise ValueError(f"all_to_all of {tuple(x.shape)} over {n} ranks")
     if n == 1:
         return x
+    if _abstract(x, group):
+        nbytes = x.numel() * x.element_size()
+        WIRE.add("all_to_all", x.dtype, nbytes * (n - 1) // n)
+        return torch.empty_like(x)
     host = _to_host(x)
     out = _host_empty(host.numel(), x)
     WIRE.add("all_to_all", x.dtype, host.numel() * (n - 1) // n)

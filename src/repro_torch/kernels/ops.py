@@ -23,6 +23,13 @@ it are padding (zero rows the caller added to reach a whole block), which
 the row pseudo-average counts and the softmax masks, as the reference's
 ``blocked_attention`` pads and masks.
 
+A tensor on the ``meta`` device (the dry run's shapes) gets an empty
+output of the right shape and dtype and runs no loop of the plain
+version: it is no fallback, since a CUDA tensor still goes to the kernel
+or raises.  Under ``launch.op_analysis.count()`` each op's call adds its
+FLOP / byte formula (``kernels.cost``) and nothing of what runs inside
+it, on every device; outside a count the op runs its body directly.
+
 The reference's ``interpret`` and ``use_kernel`` switches have no
 counterpart: the plain versions live beside each kernel in its module.
 The paged ops take a quantized pool (int8 or float8_e4m3fn codes) with
@@ -41,6 +48,8 @@ from repro_torch.core.beta import DEFAULT_BETA
 from repro_torch.core.collectives import all_gather, shard
 from repro_torch.core.precision import FP16, PrecisionPolicy
 from repro_torch.core.shifting import effective_invariance, shifting_matrix
+from repro_torch.kernels import cost
+from repro_torch.kernels.cost import host_lengths, run_op
 # the kernel modules (flash_attention's at the end of this file, as it
 # imports an op from here): imported while the package initialises, before
 # its __init__ binds these names to the ops below, so that a later import
@@ -169,13 +178,31 @@ def pasa_paged_decode(
         raise ValueError(
             f"q has {q.shape[1]} kv heads, the pages {k_pages.shape[2]}"
         )
+    block_kv = k_pages.shape[1] if block_kv is None else int(block_kv)
+    return run_op("pasa_paged_decode", _paged_decode_cost, _paged_decode,
+                  q, k_pages, v_pages, page_table, kv_len, beta, policy,
+                  block_kv, quant)
+
+
+def _paged_decode_cost(q, k_pages, v_pages, page_table, kv_len, beta,
+                       policy, block_kv, quant):
+    b, kvh, g, d = q.shape
+    return cost.paged_decode_cost(
+        b, kvh, g, d, host_lengths("kv_len", kv_len), page_table.numel(),
+        kv_itemsize=k_pages.element_size(), q_itemsize=q.element_size(),
+        page=k_pages.shape[1] if quant else None)
+
+
+def _paged_decode(q, k_pages, v_pages, page_table, kv_len, beta, policy,
+                  block_kv, quant):
     page = k_pages.shape[1]
-    block_kv = page if block_kv is None else int(block_kv)
     if q.device.type == "cpu":
         return _decode.paged_decode_plain(
             q, k_pages, v_pages, page_table, kv_len,
             beta=beta, policy=policy, block_kv=block_kv, **quant,
         )
+    if q.device.type == "meta":
+        return q.new_empty(q.shape, dtype=policy.out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"no pasa_paged_decode for device {q.device}")
     if block_kv != page:
@@ -272,11 +299,31 @@ def pasa_paged_prefill(
             f"q heads {q.shape[1]} not a multiple of kv heads "
             f"{k_pages.shape[2]}"
         )
+    return run_op("pasa_paged_prefill", _paged_prefill_cost, _paged_prefill,
+                  q, k_pages, v_pages, page_table, chunk_start, kv_len, beta,
+                  policy, quant)
+
+
+def _paged_prefill_cost(q, k_pages, v_pages, page_table, chunk_start, kv_len,
+                        beta, policy, quant):
+    b, h, cs, d = q.shape
+    return cost.paged_prefill_cost(
+        b, h, cs, d, k_pages.shape[2],
+        host_lengths("chunk_start", chunk_start),
+        host_lengths("kv_len", kv_len), page_table.numel(),
+        kv_itemsize=k_pages.element_size(), q_itemsize=q.element_size(),
+        page=k_pages.shape[1] if quant else None)
+
+
+def _paged_prefill(q, k_pages, v_pages, page_table, chunk_start, kv_len,
+                   beta, policy, quant):
     if q.device.type == "cpu":
         return _prefill.paged_prefill_plain(
             q, k_pages, v_pages, page_table, chunk_start, kv_len,
             beta=beta, policy=policy, **quant,
         )
+    if q.device.type == "meta":
+        return q.new_empty(q.shape, dtype=policy.out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"no pasa_paged_prefill for device {q.device}")
     if k_pages.shape[1] % 16:
@@ -443,11 +490,23 @@ def shift_kv(
         raise ValueError("k must be (B, KVH, S2, D)")
     if k.shape[2] % block_kv:
         raise ValueError(f"S2={k.shape[2]} not divisible by block_kv={block_kv}")
+    return run_op("shift_kv", _shift_kv_cost, _shift_kv, k, beta, block_kv,
+                  policy)
+
+
+def _shift_kv_cost(k, beta, block_kv, policy):
+    return cost.shift_kv_cost(k.numel(), k.element_size(), block_kv,
+                              out_itemsize=policy.input_dtype.itemsize)
+
+
+def _shift_kv(k, beta, block_kv, policy):
     d = k.shape[-1]
     if k.device.type == "cpu":
         m = shifting_matrix(block_kv, d, beta, policy.input_dtype)
         return _shift.shift_kv_plain(m, k.to(policy.input_dtype), block_kv,
                                      out_dtype=policy.input_dtype)
+    if k.device.type == "meta":
+        return k.new_empty(k.shape, dtype=policy.input_dtype)
     if k.device.type != "cuda":
         raise ValueError(f"no shift_kv for device {k.device}")
     op = policy.input_dtype
@@ -487,10 +546,49 @@ def _attention(q, k, v, *, beta, policy, block_q, block_kv, causal,
             f"kv_valid={kv_valid} must pad less than one block: "
             f"{s2 - block_kv} < kv_valid <= S2={s2}"
         )
+    return run_op(wrapper.__name__, _attention_cost, _attention_call, q, k,
+                  v, beta=beta, policy=policy, block_q=block_q,
+                  block_kv=block_kv, causal=causal, kv_valid=kv_valid,
+                  wrapper=wrapper)
+
+
+def _attention_cost(q, k, v, *, beta, policy, block_q, block_kv, causal,
+                    kv_valid, wrapper):
+    return attention_op_cost(q, k, beta=beta, policy=policy,
+                             block_kv=block_kv, causal=causal,
+                             kv_valid=kv_valid)
+
+
+def attention_op_cost(q, k, *, beta, policy, block_kv, causal, kv_valid,
+                      backward=False):
+    """(bytes, flops) of one attention op call (``kernels.cost``): the
+    sweep over K' and V, and the shift-KV pass when beta > 0; for the
+    plain-version backward of ``kernels.train_attention``,
+    ``cost.BACKWARD_FACTOR`` times the sweep's FLOPs, reading q, K, V and
+    the output's gradient and writing their gradients."""
+    b, h, s1, d = q.shape
+    kvh, s2 = k.shape[1], k.shape[2]
+    item = policy.input_dtype.itemsize
+    nbytes, flops = cost.attention_cost(b, h, s1, kvh, s2, d, causal=causal,
+                                        kv_valid=kv_valid, itemsize=item)
+    if backward:   # q, K, V, dO in; dQ, dK, dV out
+        return ((3 * q.numel() + 4 * k.numel()) * item,
+                int(cost.BACKWARD_FACTOR * flops))
+    if beta > 0.0:
+        sb, sf = cost.shift_kv_cost(k.numel(), k.element_size(), block_kv,
+                                    out_itemsize=item)
+        nbytes, flops = nbytes + sb, flops + sf
+    return nbytes, flops
+
+
+def _attention_call(q, k, v, *, beta, policy, block_q, block_kv, causal,
+                    kv_valid, wrapper):
     if q.device.type == "cpu":
         return _attn.attention_plain(q, k, v, beta=beta, policy=policy,
                                      block_kv=block_kv, causal=causal,
                                      kv_valid=kv_valid)
+    if q.device.type == "meta":
+        return q.new_empty(q.shape, dtype=policy.out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     for name, block in (("block_q", block_q), ("block_kv", block_kv)):
@@ -589,9 +687,24 @@ def pasa_decode(
             f"caches must be (B, KVH, S2, D) matching q {tuple(q.shape)}; "
             f"got {tuple(k_cache.shape)} / {tuple(v_cache.shape)}"
         )
+    return run_op("pasa_decode", _contiguous_decode_cost, _contiguous_decode,
+                  q, k_cache, v_cache, kv_len, beta, policy, block_kv)
+
+
+def _contiguous_decode_cost(q, k_cache, v_cache, kv_len, beta, policy,
+                            block_kv):
+    b, kvh, g, d = q.shape
+    return cost.decode_cost(b, kvh, g, d, host_lengths("kv_len", kv_len),
+                            kv_itemsize=k_cache.element_size(),
+                            q_itemsize=q.element_size())
+
+
+def _contiguous_decode(q, k_cache, v_cache, kv_len, beta, policy, block_kv):
     if q.device.type == "cpu":
         return _cdecode.decode_plain(q, k_cache, v_cache, kv_len, beta=beta,
                                      policy=policy, block_kv=block_kv)
+    if q.device.type == "meta":
+        return q.new_empty(q.shape, dtype=policy.out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"no pasa_decode for device {q.device}")
     _cuda_block("block_kv", block_kv, _cdecode.MAX_BLOCK)

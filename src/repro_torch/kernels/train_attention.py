@@ -11,7 +11,10 @@ its inputs.  Its backward runs ``attention_plain`` again on the saved
 inputs under autograd and returns that recompute's gradients, so the
 input gradients are those of the plain version's autograd, bit for bit.
 Causal and non-causal (``kv_valid``) calls, PASA at any beta and
-FlashAttention-2 (beta 0) alike.
+FlashAttention-2 (beta 0) alike.  On the ``meta`` device (the dry run)
+the backward returns empty gradients and recomputes nothing; under
+``launch.op_analysis.count()`` it adds ``cost.BACKWARD_FACTOR`` times
+its forward sweep's FLOPs, on every device.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels import ops
 from repro_torch.kernels.pasa_attention import attention_plain
+from repro_torch.kernels.cost import run_op
 
 
 class KernelAttention(torch.autograd.Function):
@@ -49,18 +53,33 @@ class KernelAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v)
         ctx.plain = dict(beta=beta, policy=policy, block_kv=block_kv,
                          causal=causal, kv_valid=kv_valid)
+        ctx.op = "flash_attention" if flash else "pasa_attention"
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
+        saved = ctx.saved_tensors           # unpacked once (remat)
+        return run_op(f"{ctx.op}.backward", _backward_cost,
+                      KernelAttention._plain_backward, ctx, saved, grad_out)
+
+    @staticmethod
+    def _plain_backward(ctx, saved, grad_out):
         need = ctx.needs_input_grad[:3]
+        if grad_out.device.type == "meta":
+            return tuple(torch.empty_like(t) if n else None
+                         for t, n in zip(saved, need)) + (None,) * 7
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, need)]
+                   for t, n in zip(saved, need)]
             out = attention_plain(*ins, **ctx.plain)
             grads = iter(torch.autograd.grad(
                 out, [t for t, n in zip(ins, need) if n], grad_out))
         return tuple(next(grads) if n else None for n in need) + (None,) * 7
+
+
+def _backward_cost(ctx, saved, grad_out):
+    return ops.attention_op_cost(saved[0], saved[1], backward=True,
+                                 **ctx.plain)
 
 
 def kernel_attention(q, k, v, *, flash: bool = False, beta: float = 0.0,

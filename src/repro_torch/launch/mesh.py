@@ -16,6 +16,9 @@ across processes larger than 1 (``axis_group``).
     mesh coordinates of r in row-major order, and every axis larger than
     1 has its group (and the data axes together, ``dp_group()``, the
     group the gradients are averaged over).
+  * The dry run (:func:`make_production_mesh`, :func:`make_abstract_mesh`):
+    a mesh of shapes only, on the ``meta`` device, whose axes' groups are
+    ``collectives.AbstractGroup`` - no process and no process group.
 
 Constructing a mesh starts no process: the default process group is the
 caller's (``torchrun`` or ``torch.multiprocessing.spawn`` and
@@ -30,7 +33,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
-from repro_torch.core.collectives import LOCAL, group_rank, group_size
+from repro_torch.core.collectives import (LOCAL, AbstractGroup, group_rank,
+                                         group_size)
 
 MODEL = "model"
 DP_AXES = ("pod", "data")
@@ -211,9 +215,53 @@ def make_train_mesh(shape, axes=("data", MODEL), devices=None) -> Mesh:
                 coords=coords)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16 x 16 (and 2 x 16 x 16) TPU pod meshes have no
-    counterpart on the card yet (ROADMAP A16)."""
-    raise NotImplementedError(
-        "production meshes are TPU pod layouts; their H100 counterpart is "
-        "ROADMAP A16")
+def make_abstract_mesh(shape, axes) -> Mesh:
+    """A mesh of ``shape`` over ``axes`` that exists as shapes only: every
+    cell the ``meta`` device, no process started and no process group
+    made.  Each axis larger than 1 (and the data axes together) has a
+    ``collectives.AbstractGroup`` of its size, this process rank 0 of
+    each: run on meta tensors under it (``launch.sharding.set_mesh``), a
+    step is rank 0's program - its shapes, FLOPs and, in
+    ``collectives.WIRE``, its collective bytes - with nothing computed."""
+    shape, sizes = _sizes(shape, axes)
+    keys = [(a,) for a in sizes if sizes[a] > 1]
+    dp = tuple(a for a in DP_AXES if sizes.get(a, 1) > 1)
+    if len(dp) > 1:
+        keys.append(dp)
+    groups = {key: AbstractGroup(int(np.prod([sizes[a] for a in key])))
+              for key in keys}
+    return Mesh(sizes, _device_grid(shape, "meta"), groups=groups,
+                coords={a: 0 for a in sizes})
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The dry run's production mesh, abstract (:func:`make_abstract_mesh`):
+    ``data`` 32 x ``model`` 8 (256 cards), or ``pod`` 2 x ``data`` 32 x
+    ``model`` 8 (512).
+
+    The reference's TPU meshes are 16 x 16 and 2 x 16 x 16: its 16-wide
+    model axis stays inside one pod's ICI torus.  On H100s the domain that
+    holds a tensor-parallel axis is one 8-card NVLink node, so the model
+    axis is 8 wide and the data axis 32 (across nodes, over InfiniBand);
+    the device counts stay the reference's.  Serving or training on such a
+    mesh runs one process per card under ``torchrun`` (``make_mesh``,
+    ``make_train_mesh``); this mesh runs nothing."""
+    shape = (2, 32, 8) if multi_pod else (32, 8)
+    axes = ("pod", "data", MODEL) if multi_pod else ("data", MODEL)
+    return make_abstract_mesh(shape, axes)
+
+
+def refuse_production_mesh(spec: str, multi_pod: bool = False):
+    """Raise, before any work, for a CLI's ``--mesh prod`` / ``prod2``: the
+    production mesh runs one process per card under ``torchrun``, 256 (or
+    512) of them, and one process does not stand in for them; the dry
+    run (``python -m repro_torch.launch.dryrun``) reckons that mesh on the
+    meta device."""
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    n = int(np.prod(list(mesh.shape.values())))
+    dims = " x ".join(f"{a} {k}" for a, k in mesh.shape.items())
+    raise RuntimeError(
+        f"--mesh {spec}: the production mesh ({dims}) runs one process per "
+        f"card, {n} processes under torchrun; this is one process (the dry "
+        f"run, python -m repro_torch.launch.dryrun, reckons the mesh on the "
+        f"meta device)")

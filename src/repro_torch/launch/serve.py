@@ -290,10 +290,10 @@ def make_cli_mesh(spec: str, device):
     ranks on one card) when the launcher's environment names one."""
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    from repro_torch.launch.mesh import make_mesh, refuse_production_mesh
 
     if spec == "prod":
-        return make_production_mesh()
+        refuse_production_mesh(spec)
     try:
         d, m = (int(x) for x in spec.split("x"))
     except ValueError:

@@ -26,7 +26,8 @@ model rank's part of the state (``models.convert.shard_params``: the moe
 experts and the MLPs' ``w2`` split over M), averages the gradients over
 D, and writes and restores its own checkpoint shard (the reference's
 multi-host layout).  Only rank 0 prints.  ``--mesh prod`` / ``prod2``
-(the reference's TPU pod meshes) raise, naming ROADMAP A16.
+(the production meshes, 256 / 512 cards: ``launch.mesh``) raise before
+any work: each needs that many processes under torchrun.
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ def main(argv=None):
                     help="use the smoke-test-sized config of the same family")
     ap.add_argument("--mesh", default="1x1",
                     help='"DxM" data x model (D x M processes under '
-                         'torchrun); "prod" / "prod2" raise (ROADMAP A16)')
+                         'torchrun); "prod" / "prod2" raise: they need 256 / 512 '
+                         'processes under torchrun')
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0)
@@ -70,7 +72,7 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.data import DataPipeline
     from repro_torch.kernels.pasa_attention import HEAD_DIMS
-    from repro_torch.launch.mesh import make_production_mesh, make_train_mesh
+    from repro_torch.launch.mesh import make_train_mesh, refuse_production_mesh
     from repro_torch.launch.sharding import set_mesh
     from repro_torch.launch.steps import (TrainHyper, init_train_state,
                                           make_train_step)
@@ -78,7 +80,7 @@ def main(argv=None):
     from repro_torch.runtime import FaultTolerantLoop
 
     if args.mesh in ("prod", "prod2"):
-        make_production_mesh(multi_pod=args.mesh == "prod2")
+        refuse_production_mesh(args.mesh, multi_pod=args.mesh == "prod2")
     try:
         d, m = (int(x) for x in args.mesh.split("x"))
     except ValueError:

@@ -202,8 +202,11 @@ def shard_params(tree: dict, cfg: ModelConfig, mesh) -> dict:
 def _normal(shape, scale, dtype, generator, device) -> torch.Tensor:
     """N(0, scale^2) drawn in fp32, stored at ``dtype``; stacked (L, ...)
     or (G, per, ...) matrices are drawn one matrix at a time to bound the
-    fp32 temporary."""
+    fp32 temporary.  On the ``meta`` device (the dry run's shapes) the
+    leaf is left empty and nothing is drawn."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta":
+        return out
     parts = out.view(-1, *shape[-2:]) if len(shape) >= 3 else out[None]
     for part in parts:
         part.copy_(

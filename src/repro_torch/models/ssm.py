@@ -90,11 +90,22 @@ def _mamba1_inner(x, dt, bmat, cmat, a, d_skip, h0=None):
     here).
 
     x, dt: (B, S, Di); bmat, cmat: (B, S, N); a: (Di, N); d_skip: (Di,).
-    Returns y (B, S, Di) and the final state (B, Di, N)."""
+    Returns y (B, S, Di) and the final state (B, Di, N).  On the ``meta``
+    device (the dry run's shapes) the S steps are not walked: y and the
+    state come from one elementwise expression of every input, with the
+    scan's shapes, dtypes and autograd graph (the scan has no product
+    that ``launch.op_analysis`` counts)."""
     bb, s, di = x.shape
     n = bmat.shape[-1]
     x, dt, bmat, cmat = (t.float() for t in (x, dt, bmat, cmat))
     d_skip = d_skip.float()
+    if x.device.type == "meta":
+        h = dt[:, -1, :, None] * a + bmat[:, -1, None, :]
+        if h0 is not None:
+            h = h + h0.float()
+        y = (dt * x + (bmat + cmat).sum(-1, keepdim=True) + d_skip * x
+             + a.float().sum(-1))
+        return y, h
     h = (torch.zeros((bb, di, n), dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
     readout = lambda hh, c: (hh * c[:, None, :]).sum(-1)

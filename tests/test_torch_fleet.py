@@ -66,7 +66,7 @@ LOGIT_ATOL = 0.1
 # ------------------------------------------------------------ exports --
 
 @pytest.mark.parametrize("pkg", ["runtime", "core", "kernels", "optim",
-                                 "data", "checkpoint"])
+                                 "data", "checkpoint", "configs"])
 def test_exports_hold_the_references(pkg):
     import importlib
 
@@ -218,8 +218,12 @@ def test_routing_and_mesh_validation(model):
         make_mesh((2,), ("data", "model"), devices="cpu")
     with pytest.raises(RuntimeError, match="nproc-per-node 2"):
         make_mesh((1, 2), ("data", "model"), devices="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
-        make_production_mesh()
+    # the production mesh is abstract: shapes on meta, no process group
+    prod = make_production_mesh()
+    assert prod.shape == {"data": 32, "model": 8}
+    assert {d.type for d in prod.devices.ravel()} == {"meta"}
+    assert make_production_mesh(multi_pod=True).axis_size(
+        ("pod", "data")) == 64
     # a ServeEngine serves the model axis only
     with pytest.raises(ValueError):
         ServeEngine(bundle, params, mesh=_mesh(2), **KW)
@@ -417,7 +421,7 @@ def test_cli_replicas_equal_one_engine(capsys):
     assert "2 replicas x model 1" in capsys.readouterr().out
     with pytest.raises(RuntimeError, match="torchrun"):
         serve_cli.main(argv + ["--mesh", "1x2"])
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(RuntimeError, match="256 processes under torchrun"):
         serve_cli.main(argv + ["--mesh", "prod"])
     with pytest.raises(SystemExit):
         serve_cli.main([a for a in argv if a != "--paged"]

@@ -41,7 +41,14 @@ def test_the_scan_sees_the_port():
     for new in ("optim/adamw.py", "optim/schedule.py", "data/pipeline.py",
                 "checkpoint/manager.py", "runtime/fault_tolerance.py",
                 "kernels/train_attention.py", "launch/train.py",
-                "optim/compression.py", "launch/sharding.py"):
+                "optim/compression.py", "launch/sharding.py",
+                "kernels/cost.py", "launch/roofline.py",
+                "launch/op_analysis.py", "launch/params.py", "launch/dryrun.py", "analysis/core.py",
+                "analysis/runner.py", "analysis/report.py",
+                "analysis/baseline.py", "analysis/__main__.py",
+                "analysis/rules_readback.py", "analysis/rules_random.py",
+                "analysis/rules_accum.py", "analysis/rules_device.py",
+                "analysis/rules_determ.py"):
         assert f"src/repro_torch/{new}" in rel, new
 
 
@@ -51,3 +58,15 @@ def test_the_scan_sees_the_port():
 def test_module_imports_neither_jax_nor_the_reference(path):
     bad = sorted({m for m in _imported_modules(path) if _forbidden(m)})
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_kernel_layer_imports_nothing_of_launch():
+    """The ops and their cost formulas sit below the launch layer:
+    ``launch.roofline`` / ``launch.op_analysis`` import ``kernels.cost``,
+    never the other way round."""
+    kernels = [p for p in FILES if p.parent.name == "kernels"]
+    assert any(p.name == "cost.py" for p in kernels)
+    for path in kernels:
+        up = sorted(m for m in _imported_modules(path)
+                    if m.startswith("repro_torch.launch"))
+        assert not up, f"{path.relative_to(ROOT)} imports {up}"

@@ -305,9 +305,9 @@ def test_train_cli_equals_the_reference_cli_first_steps(tmp_path):
 def test_train_cli_mesh_raises(mesh, tmp_path):
     """A mesh of several processes outside torchrun raises, naming
     torchrun (the group is tests/test_torch_data_parallel.py's); the
-    reference's TPU pod meshes raise, naming ROADMAP A16."""
-    err, match = ((NotImplementedError, "A16") if mesh == "prod"
-                  else (RuntimeError, "torchrun"))
+    production mesh raises too, naming its 256 processes."""
+    err, match = ((RuntimeError, "256 processes under torchrun")
+                  if mesh == "prod" else (RuntimeError, "torchrun"))
     with pytest.raises(err, match=match):
         train_cli.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
                         "--mesh", mesh, "--ckpt-dir", str(tmp_path)])
