@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 ``python3 chip_smoke.py --train-only`` (``--multi-only``) builds the two
 kernels phase 15 (16) runs and runs that phase alone, with no result
-line; ``--tools-only`` does so for phase 17.  ``--multi-only --half-batch`` feeds every rank of phase 16's
+line; ``--tools-only`` does so for phase 17, ``--modes-only`` (every
+kernel built) for phase 18.  ``--multi-only --half-batch`` feeds every rank of phase 16's
 data-parallel runs slice 0 of the batch, prints the readings and fails
 unless the gates refuse them.
 
@@ -178,10 +179,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      G 4 also their 8-bit pools, shift-KV on 8 kv heads and the causal
      attention kernel (4, 32, 8, 1024, 128); each timed beside its plain
      version and library call.
-     Then qwen3-4b at full width and depth (36 layers, d 2560, 32 / 8
-     heads, qk-norm, vocab 151,936; random weights from seed 0):
+     Then qwen3-4b at full width with its depth cut to QWEN3_LAYERS (12
+     of its 36 layers since the smoke's time outgrew its aim; d 2560, 32
+     / 8 heads, qk-norm, vocab 151,936; random weights from seed 0):
      ``serve_qwen3_4b_<pool>`` (bf16, int8, fp8_e4m3: phase 3's workload,
-     36 launches a call, requests 0 and 3 alone == batched, every logit
+     one launch a layer a call, requests 0 and 3 alone == batched, every logit
      finite), ``serve_qwen3_4b_dense`` (phase 4's workload; its first
      step within DENSE_LOGIT_ATOL of the plain versions and no farther
      from them at fp32 than theirs, as qwen2-7b's in phase 4; its
@@ -345,6 +347,23 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      time) below TOOLS_SHARE_MAX; each reading printed beside the card's
      name and power limit.  ``--tools-only`` builds the three kernels the
      phase runs, qwen2-7b's serving weights, and runs phase 17 alone.
+ 18. the kernels' other head widths, right after phase 2: head_dim 32 in
+     all five kernels and head_dim 64 in paged prefill, at the reference's
+     kernel-test shapes (``MODES_*``): attention (1, 5, 5, 384, 32),
+     blocks 128 / 128, PASA and FlashAttention-2, causal and not, the four
+     policies; shift-KV on those keys in its six modes; contiguous decode
+     (2, 2, 512, 32) at kv 300 / 77, G 1 and 4, blocks 128 and 256, bit
+     for bit its walk; paged decode (KVH 2, G 4, page 64, kv 100 / 37,
+     shuffled pages) bit for bit contiguous decode on the same rows, from
+     raw, int8 and fp8_e4m3 pools; paged prefill at head_dim 32 (H 4 over
+     KVH 2, chunks of 64 at starts 32 and 0, page 16) and at 64 (phase 2's
+     prefill fixture), raw and 8-bit pools.  Every case is launched once
+     with the launch counts set to 0 just before and read just after,
+     then held to its plain version (PERF.md §2's bars) and float64, stale
+     pool bytes inert; each entry timed beside its plain version, one
+     library call and its bound.  In the kernels line each entry has its
+     launches in that pass (``/d32``, ``/d64`` modes), which no serve runs.
+     ``--modes-only`` builds every kernel and runs phase 18 alone.
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -462,8 +481,10 @@ WHISPER_ALONE = (0, 3)
 BF16_PASA_RMSE_RATIO = 1.25
 # phase 11: the GQA groups of the dense configs at head_dim 128, (arch,
 # KVH, G): qwen3-4b's 4, qwen3-14b's 5, qwen3-32b's 8, qwen1.5-32b's 1
-# (KVH 40); qwen3-4b served at full width and depth on both routes, the
-# requests QWEN3_ALONE one at a time, token by token on QWEN3_TBT_PROMPTS;
+# (KVH 40); qwen3-4b served at full width on both routes with its depth
+# cut to QWEN3_LAYERS of 36 (36 until the smoke's time outgrew its aim),
+# the requests QWEN3_ALONE one at a time, token by token on
+# QWEN3_TBT_PROMPTS;
 # the tenant serve (qwen2-7b): requests TENANT_LATENCY are tenant
 # "interactive" at class "latency", the others tenant "bulk" at
 # "throughput" under TENANT_QUOTA (its two requests need 5 + 2 pages), on
@@ -475,6 +496,7 @@ GROUP_SHAPES = (("qwen3-4b", 8, 4), ("qwen3-14b", 8, 5), ("qwen3-32b", 8, 8),
 # kernel at their dense prefill (qwen3-4b phase 11, olmoe-1b-7b phase 13)
 SERVED_GROUPS = {"qwen3-4b": ("g4", QUANT_DTYPES),
                  "olmoe-1b-7b": ("g1o", ("int8",))}
+QWEN3_LAYERS = 12
 QWEN3_ALONE = (0, 3)
 QWEN3_TBT_PROMPTS = (129, 17)
 # the dense route's first step (the fused prefill's logits, qwen2-7b and
@@ -3996,14 +4018,18 @@ def check_groups(dev):
 
 
 def build_qwen3(dev):
-    """qwen3-4b at full width and depth (36 layers, d 2560, 32 / 8 heads
-    of 128, qk-norm, vocab 151,936) with random weights from seed 0."""
+    """qwen3-4b at full width (d 2560, 32 / 8 heads of 128, qk-norm,
+    vocab 151,936) with its depth cut to QWEN3_LAYERS of 36, random
+    weights from seed 0."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import build
 
-    bundle = build(get_config("qwen3-4b"))
+    bundle = build(dataclasses.replace(get_config("qwen3-4b"),
+                                       n_layers=QWEN3_LAYERS))
     t0 = time.perf_counter()
     params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
@@ -6697,6 +6723,505 @@ def tools_train(dev):
     return rep
 
 
+# phase 18: head_dim 32 in every kernel and head_dim 64 in paged prefill,
+# at the reference's kernel-test shapes: attention (B, H, KVH, S, D) of
+# tests/test_kernels.py (blocks 128 / 128, queries of mean 0 and keys of
+# mean 2); contiguous decode (B, KVH, S2, D) of tests/test_paged.py at kv
+# 300 / 77, its one query head per kv head and a group of 4; paged decode
+# (KVH, G, page, kv) of tests/test_paged.py; paged prefill (H, KVH, chunk,
+# page, starts) of tests/test_prefix_cache.py; paged prefill at head_dim
+# 64 on phase 2's prefill fixture (PREFILL_ROWS, 28 heads over KVH 4, page
+# 128).  PASA runs on queries of mean 1 in the prefill cases and FA2 on
+# queries of mean 0 (FA2 stores the raw scores at fp16 before its scale,
+# as the card tests of the prefill kernel say)
+MODES_ATTN_SHAPE = (1, 5, 5, 384, 32)
+MODES_DECODE_SHAPE = (2, 2, 512, 32)
+MODES_DECODE_KV = (300, 77)
+MODES_DECODE_GROUPS = (1, 4)
+MODES_PAGED = (2, 4, 64, (100, 37))
+MODES_PREFILL = (4, 2, 64, 16, (32, 0))
+MODES_POLICIES = ("fp16", "fp16_fp32", "fp32", "bf16_fp32")
+
+
+def _modes_cases(dev):
+    """Phase 18's cases: {(kernel entry, case): dict(run, plain, gold,
+    tol, rmse_max, rows, same)}: ``run()`` a call of the op (a launch),
+    ``plain()`` its plain version on the same inputs, ``gold`` float64 on
+    the unquantized K/V over ``rows``, ``same()`` (optional) a second
+    kernel whose output must equal run's bit for bit (the walk, contiguous
+    decode on the paged rows).  Quantized pools are held by
+    ``_check_quant_policies`` and listed under ``quant`` instead.  Also
+    returns the timing inputs of each entry."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.precision import FP16, get_policy
+    from repro_torch.kernels import ops
+    amod = _kernel_module("pasa_attention")
+    cmod = _kernel_module("pasa_decode")
+    dmod = _kernel_module("pasa_paged_decode")
+    pmod = _kernel_module("pasa_paged_prefill")
+    smod = _kernel_module("shift_kv")
+
+    rng = np.random.default_rng(18)
+    cases, quant, timing = {}, {}, {}
+
+    # attention and shift-KV at (1, 5, 5, 384, 32)
+    b, h, kvh, s, d = MODES_ATTN_SHAPE
+    q = _randn(rng, (b, h, s, d), 0.0, dev, torch.float16)
+    k = _randn(rng, (b, kvh, s, d), 2.0, dev, torch.float16)
+    v = _randn(rng, (b, kvh, s, d), 0.0, dev, torch.float16)
+    for causal in (False, True):
+        gold = _gold_attention(q, k, v, causal)
+        for tag in MODES_POLICIES:
+            policy = get_policy(tag)
+            for beta in (0.0, BETA):
+                op = (functools.partial(ops.pasa_attention, beta=BETA)
+                      if beta else ops.flash_attention)
+                args = (q, k, v)
+                cases[("pasa_attention/d32", f"causal {causal} {tag} "
+                       f"beta {beta}")] = dict(
+                    run=lambda a=args, op=op, policy=policy, causal=causal:
+                        op(*a, policy=policy, causal=causal),
+                    plain=lambda a=args, beta=beta, policy=policy,
+                    causal=causal: amod.attention_plain(
+                        *a, beta=beta, policy=policy, block_kv=128,
+                        causal=causal),
+                    gold=gold, tol=ATTN_CAUSAL_TOL if causal else ATTN_TOL,
+                    rmse_max=ATTN_RMSE_MAX,
+                    # PASA at bf16 operands: within the ratio of the plain
+                    # version's RMSE (check_attention_hd64's note)
+                    rmse_ratio=BF16_PASA_RMSE_RATIO
+                    if tag == "bf16_fp32" and beta else None)
+    timing["pasa_attention/d32"] = dict(q=q, k=k, v=v)
+    keys = _randn(rng, (b, s, kvh, d), 2.0, dev, torch.float32)
+    for block in (128, 64):
+        for ktag, kdt, tag in (("", torch.bfloat16, "fp16"),
+                               ("fp16_keys", torch.float16, "fp16"),
+                               ("bf16_fp32", torch.bfloat16, "bf16_fp32")):
+            policy = get_policy(tag)
+            op = policy.input_dtype
+            kk = keys.to(kdt).transpose(1, 2)
+            m = smod.device_matrix(block, d, BETA, op, dev)
+            kb = kk.to(op).contiguous().reshape(b, kvh, s // block, block, d)
+            name = "_".join(x for x in ("d32", ktag, "" if block == 128
+                                        else f"block{block}") if x)
+            cases[(f"shift_kv/{name}", "")] = dict(
+                run=lambda kk=kk, block=block, policy=policy: ops.shift_kv(
+                    kk, beta=BETA, block_kv=block, policy=policy),
+                plain=lambda kk=kk, m=m, block=block, op=op:
+                    smod.shift_kv_plain(m, kk.to(op), block, out_dtype=op),
+                gold=torch.matmul(m.double(), kb.double()).reshape(
+                    b, kvh, s, d),
+                tol=SHIFT_TOL, rmse_max=SHIFT_RMSE_MAX)
+            timing[f"shift_kv/{name}"] = dict(
+                k=kk, m=m, kb=kb, block=block, policy=policy,
+                mode=smod.mode_name(kdt, op, block, d))
+
+    # contiguous decode at (2, 2, 512, 32), kv 300 / 77, NaN past kv_len
+    b, kvh, s2, d = MODES_DECODE_SHAPE
+    lens = MODES_DECODE_KV
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    live = (torch.arange(s2, device=dev)[None, :] < kv_len[:, None])[
+        ..., None, None]
+    kc = torch.where(live, _randn(rng, (b, s2, kvh, d), 2.0, dev,
+                                  torch.float32), math.nan).to(torch.bfloat16)
+    vc = torch.where(live, _randn(rng, (b, s2, kvh, d), 0.0, dev,
+                                  torch.float32), math.nan).to(torch.bfloat16)
+    kview, vview = kc.transpose(1, 2), vc.transpose(1, 2)
+    for g in MODES_DECODE_GROUPS:
+        qd = _randn(rng, (b, kvh, g, d), 1.0, dev, torch.float16)
+        gold = torch.stack([
+            torch.softmax(qd[i].double() @ kview[i, :, :n].double()
+                          .transpose(-1, -2) / math.sqrt(d), -1)
+            @ vview[i, :, :n].double() for i, n in enumerate(lens)])
+        for tag in MODES_POLICIES:
+            policy = get_policy(tag)
+            qp = qd.to(policy.input_dtype)
+            for beta in (0.0, BETA):
+                for block in (128, 256):
+                    kw = dict(beta=beta, policy=policy, block_kv=block)
+                    args = (qd, kview, vview, kv_len)
+                    cases[("pasa_decode/d32", f"g{g} {tag} beta {beta} block "
+                           f"{block}")] = dict(
+                        run=lambda a=args, kw=kw: ops.pasa_decode(*a, **kw),
+                        plain=lambda a=args, kw=kw: cmod.decode_plain(*a, **kw),
+                        same=lambda a=(qp, *args[1:]), kw=kw: cmod._walk_call(
+                            *a, **kw),
+                        gold=gold, tol=DECODE_TOL, rmse_max=RMSE_MAX)
+        timing[f"pasa_decode/d32 g{g}"] = dict(q=qd)
+    timing["pasa_decode/d32"] = dict(k=kview, v=vview, kv_len=kv_len,
+                                     lens=lens)
+
+    # paged decode: KVH 2, G 4, page 64, kv 100 / 37, shuffled pages, NaN
+    # past kv_len and on unreferenced pages; raw, int8 and fp8_e4m3 pools
+    kvh, g, page, lens = MODES_PAGED
+    b = len(lens)
+    kp, vp, table = _paged_pool(rng, lens, kvh, d, page, 2.0, 3, dev)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qd = _randn(rng, (b, kvh, g, d), 1.0, dev, torch.float16)
+    gold = torch.stack([
+        torch.softmax(qd[i].double() @ _gathered(kp, table[i], n)
+                      .transpose(-1, -2) / math.sqrt(d), -1)
+        @ _gathered(vp, table[i], n) for i, n in enumerate(lens)])
+    n_rows = table.shape[1] * page
+    kcp = kp[table.long()].reshape(b, n_rows, kvh, d).transpose(1, 2)
+    vcp = vp[table.long()].reshape(b, n_rows, kvh, d).transpose(1, 2)
+    args = (qd, kp, vp, table, kv_len)
+    for tag in MODES_POLICIES:
+        policy = get_policy(tag)
+        for beta in (0.0, BETA):
+            kw = dict(beta=beta, policy=policy)
+            cases[("pasa_paged_decode/d32", f"{tag} beta {beta}")] = dict(
+                run=lambda a=args, kw=kw: ops.pasa_paged_decode(*a, **kw),
+                plain=lambda a=args, kw=kw, page=page:
+                    dmod.paged_decode_plain(*a, block_kv=page, **kw),
+                same=lambda a=(qd, kcp, vcp, kv_len), kw=kw, page=page:
+                    ops.pasa_decode(*a, block_kv=page, **kw),
+                gold=gold, tol=DECODE_TOL, rmse_max=RMSE_MAX)
+    timing["pasa_paged_decode/d32"] = dict(q=qd, kp=kp, vp=vp, table=table,
+                                           kv_len=kv_len, lens=lens)
+    raw = lambda a=args: ops.pasa_paged_decode(*a, beta=BETA, policy=FP16)
+    for dtype in QUANT_DTYPES:
+        kq, vq, side, valid = _quantize_pool(kp, vp, table, lens, dtype)
+        args_q = (qd, kq, vq, table, kv_len)
+        quant[f"pasa_paged_decode/d32_{dtype}"] = dict(
+            base="pasa_paged_decode/d32", dtype=dtype, raw=raw, gold=gold,
+            tol=DECODE_TOL,
+            rows=slice(None), pools=(kq, vq, side, valid),
+            run=lambda policy, a=args_q, side=side: ops.pasa_paged_decode(
+                *a, beta=BETA, policy=policy, **side),
+            plain=lambda policy, a=args_q, side=side, page=page:
+                dmod.paged_decode_plain(*a, beta=BETA, policy=policy,
+                                        block_kv=page, **side))
+
+    # paged prefill at head_dim 32 (H 4 over KVH 2, chunks of 64 at starts
+    # 32 and 0, page 16) and 64 (phase 2's fixture)
+    h, kvh, cs, page, starts = MODES_PREFILL
+    for d, rows in ((32, (starts, [st + cs for st in starts])),
+                    (64, PREFILL_ROWS)):
+        if d == 64:
+            h, kvh, cs, page = 28, 4, PREFILL_CHUNK, 128
+        st_l, lens = rows
+        b = len(st_l)
+        kp, vp, table = _paged_pool(rng, lens, kvh, d, page, 2.0, 2, dev)
+        if d == 64:
+            table[3] = 0                      # the pad row: all-null table
+        start = torch.tensor(st_l, dtype=torch.int32, device=dev)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        live_rows = [i for i, n in enumerate(lens) if n]
+        qs = {BETA: _randn(rng, (b, h, cs, d), 1.0, dev, torch.float16),
+              0.0: _randn(rng, (b, h, cs, d), 0.0, dev, torch.float16)}
+        golds = {beta: _modes_prefill_gold(qq, kp, vp, table, st_l, lens,
+                                           live_rows)
+                 for beta, qq in qs.items()}
+        name = f"pasa_paged_prefill/d{d}"
+        for tag in MODES_POLICIES:
+            policy = get_policy(tag)
+            for beta, qq in qs.items():
+                kw = dict(beta=beta, policy=policy)
+                args = (qq, kp, vp, table, start, kv_len)
+                cases[(name, f"{tag} beta {beta}")] = dict(
+                    run=lambda a=args, kw=kw: ops.pasa_paged_prefill(*a, **kw),
+                    plain=lambda a=args, kw=kw: pmod.paged_prefill_plain(
+                        *a, **kw),
+                    gold=golds[beta], tol=PREFILL_TOL, rmse_max=RMSE_MAX,
+                    rows=live_rows, zero_rows=[
+                        i for i in range(b) if i not in live_rows])
+        timing[name] = dict(q=qs[BETA], kp=kp, vp=vp, table=table,
+                            start=start, kv_len=kv_len, starts=st_l,
+                            lens=lens)
+        args = (qs[BETA], kp, vp, table, start, kv_len)
+        raw = lambda a=args: ops.pasa_paged_prefill(*a, beta=BETA,
+                                                    policy=FP16)
+        for dtype in QUANT_DTYPES:
+            kq, vq, side, valid = _quantize_pool(kp, vp, table, lens, dtype)
+            args_q = (qs[BETA], kq, vq, table, start, kv_len)
+            quant[f"{name}_{dtype}"] = dict(
+                base=name, dtype=dtype, raw=raw, gold=golds[BETA],
+                tol=PREFILL_TOL,
+                rows=live_rows, pools=(kq, vq, side, valid),
+                run=lambda policy, a=args_q, side=side:
+                    ops.pasa_paged_prefill(*a, beta=BETA, policy=policy,
+                                           **side),
+                plain=lambda policy, a=args_q, side=side:
+                    pmod.paged_prefill_plain(*a, beta=BETA, policy=policy,
+                                             **side))
+    return cases, quant, timing
+
+
+def _modes_prefill_gold(q, kp, vp, table, starts, kv_lens, live_rows):
+    """float64 causal attention of the live rows of a prefill case over
+    the pool's K/V."""
+    import torch
+
+    _, h, cs, d = q.shape
+    g = h // kp.shape[2]
+    golds = []
+    for i in live_rows:
+        n = kv_lens[i]
+        kk = _gathered(kp, table[i], n).repeat_interleave(g, 0)
+        vv = _gathered(vp, table[i], n).repeat_interleave(g, 0)
+        sc = q[i].double() @ kk.transpose(-1, -2) / math.sqrt(d)
+        qpos = starts[i] + torch.arange(cs, device=q.device)[:, None]
+        sc = sc.masked_fill(qpos < torch.arange(n, device=q.device)[None, :],
+                            -math.inf)
+        golds.append(torch.softmax(sc, -1) @ vv)
+    return torch.stack(golds)
+
+
+def _modes_timed(dev, name, t):
+    """Kernel, plain and library ms of a phase 18 entry at the fp16 PASA
+    policy (shift-KV: its entry's mode), and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import FP16
+    from repro_torch.core.shifting import effective_invariance
+    from repro_torch.kernels import ops
+
+    kernel = name.partition("/")[0]
+    if kernel == "pasa_attention":
+        q, k, v = t["q"], t["k"], t["v"]
+        amod = _kernel_module("pasa_attention")
+        b, h, s, d = q.shape
+        k_sh = ops.shift_kv(k, beta=BETA, policy=FP16)
+        inva = effective_invariance(128, d, BETA, torch.float16)
+        return dict(
+            ms=_cuda_time_ms(lambda: amod.kernel_call(
+                q, k_sh, v, beta=BETA, inva=inva, policy=FP16, causal=False,
+                block_q=128, block_kv=128), 50),
+            plain_ms=_cuda_time_ms(lambda: amod.attention_plain(
+                q, k, v, beta=BETA, policy=FP16, block_kv=128), 3, warmup=1),
+            library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k.repeat_interleave(h // k.shape[1], 1),
+                v.repeat_interleave(h // k.shape[1], 1)), 50),
+            **R.bound(*R.attention_cost(b, h, s, k.shape[1], s, d,
+                                        causal=False)))
+    if kernel == "shift_kv":
+        smod = _kernel_module("shift_kv")
+        k, m, kb, block, policy = (t[x] for x in ("k", "m", "kb", "block",
+                                                   "policy"))
+        op = policy.input_dtype
+        return dict(
+            ms=_cuda_time_ms(lambda: ops.shift_kv(
+                k, beta=BETA, block_kv=block, policy=policy), 50),
+            plain_ms=_cuda_time_ms(lambda: smod.shift_kv_plain(
+                m, k.to(op), block, out_dtype=op), 20),
+            library_ms=_cuda_time_ms(lambda: torch.matmul(m, kb), 50),
+            **R.bound(*R.shift_kv_cost(k.numel(), k.element_size(), block,
+                                       out_itemsize=op.itemsize)))
+    if kernel == "pasa_decode":
+        cmod = _kernel_module("pasa_decode")
+        k, v, kv_len, lens = t["k"], t["v"], t["kv_len"], t["lens"]
+        q = t["q"]
+        b, kvh, g, d = q.shape
+        mask = torch.arange(k.shape[2], device=dev)[None, :] < kv_len[:, None]
+        ke, ve = (torch.nan_to_num(x.half()).repeat_interleave(g, 1)
+                  for x in (k, v))
+        return dict(
+            ms=_cuda_time_ms(lambda: ops.pasa_decode(
+                q, k, v, kv_len, beta=BETA, policy=FP16, block_kv=128), 50),
+            walk_ms=_cuda_time_ms(lambda: cmod._walk_call(
+                q, k, v, kv_len, beta=BETA, policy=FP16, block_kv=128), 50),
+            plain_ms=_cuda_time_ms(lambda: cmod.decode_plain(
+                q, k, v, kv_len, beta=BETA, policy=FP16, block_kv=128), 3,
+                warmup=1),
+            library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q.reshape(b, kvh * g, 1, d), ke, ve,
+                attn_mask=mask[:, None, None, :]), 50),
+            **R.bound(*R.decode_cost(b, kvh, g, d, lens)))
+    if kernel == "pasa_paged_decode":
+        dmod = _kernel_module("pasa_paged_decode")
+        q, kp, vp, table, kv_len = (t[x] for x in ("q", "kp", "vp", "table",
+                                                   "kv_len"))
+        side = t.get("side", {})
+        b, kvh, g, d = q.shape
+        page = kp.shape[1]
+        n = table.shape[1] * page
+        kg, vg = (torch.nan_to_num(dmod._gather_dequant(
+            x, side.get(f"{s}_scale"), side.get(f"{s}_shift"), table,
+            torch.float16).reshape(b, n, kvh, d).movedim(1, 2))
+            .repeat_interleave(g, 1) for s, x in (("k", kp), ("v", vp)))
+        mask = torch.arange(n, device=dev)[None, :] < kv_len[:, None]
+        return dict(
+            ms=_cuda_time_ms(lambda: ops.pasa_paged_decode(
+                q, kp, vp, table, kv_len, beta=BETA, policy=FP16, **side),
+                50),
+            plain_ms=_cuda_time_ms(lambda: dmod.paged_decode_plain(
+                q, kp, vp, table, kv_len, beta=BETA, policy=FP16,
+                block_kv=page, **side), 3, warmup=1),
+            library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q.reshape(b, kvh * g, 1, d), kg, vg,
+                attn_mask=mask[:, None, None, :]), 50),
+            **R.bound(*R.paged_decode_cost(
+                b, kvh, g, d, t["lens"], table.numel(),
+                kv_itemsize=kp.element_size(),
+                page=page if side else None)))
+    pmod = _kernel_module("pasa_paged_prefill")
+    q, kp, vp, table, start, kv_len = (t[x] for x in (
+        "q", "kp", "vp", "table", "start", "kv_len"))
+    side = t.get("side", {})
+    b, h, cs, d = q.shape
+    kvh, page = kp.shape[2], kp.shape[1]
+    n = table.shape[1] * page
+    kg, vg = (torch.nan_to_num(_kernel_module("pasa_paged_decode")
+                               ._gather_dequant(
+        x, side.get(f"{s}_scale"), side.get(f"{s}_shift"), table,
+        torch.float16).reshape(b, n, kvh, d).movedim(1, 2))
+        .repeat_interleave(h // kvh, 1) for s, x in (("k", kp), ("v", vp)))
+    col = torch.arange(n, device=dev)
+    qpos = start[:, None] + torch.arange(cs, device=dev)[None, :]
+    mask = (col[None, None, :] <= qpos[:, :, None]) & (
+        col[None, None, :] < kv_len[:, None, None])
+    return dict(
+        ms=_cuda_time_ms(lambda: ops.pasa_paged_prefill(
+            q, kp, vp, table, start, kv_len, beta=BETA, policy=FP16, **side),
+            20),
+        plain_ms=_cuda_time_ms(lambda: pmod.paged_prefill_plain(
+            q, kp, vp, table, start, kv_len, beta=BETA, policy=FP16, **side),
+            3, warmup=1),
+        library_ms=_cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, kg, vg, attn_mask=mask[:, None]), 20),
+        **R.bound(*R.paged_prefill_cost(
+            b, h, cs, d, kvh, t["starts"], t["lens"], table.numel(),
+            kv_itemsize=kp.element_size(), page=page if side else None)))
+
+
+def phase_modes(dev):
+    """Phase 18 (``--modes-only``: this phase alone): head_dim 32 in every
+    kernel and head_dim 64 in paged prefill (``MODES_*``).  Every case is
+    launched once through its op with every launch count set to 0 just
+    before the pass and read just after; then each output is held to its
+    plain version on the card (the kernel's bar of PERF.md §2), to float64
+    (RMSE_MAX, ATTN_RMSE_MAX, SHIFT_RMSE_MAX; the 8-bit pools by
+    ``_check_quant_policies``), contiguous decode to its walk and paged
+    decode to contiguous decode bit for bit; stale pool bytes inert (a raw
+    pool's NaN past kv_len and on unreferenced pages replaced by 1e4, an
+    8-bit pool's ``_poison``).  Each entry is timed at the fp16 PASA
+    policy beside its plain version and one library call, with its bound;
+    ``launches`` is the pass's count of the entry's kernel over its
+    ``/d32`` (``/d64``) modes.  Returns the kernels-line entries."""
+    import torch
+
+    from repro_torch.core.precision import FP16, get_policy
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    cases, quant, timing = _modes_cases(dev)
+    torch.cuda.synchronize()
+    # the driven pass: every case once, the counts read just after
+    ops.reset_launches()
+    outs = {key: c["run"]() for key, c in cases.items()}
+    for c in quant.values():
+        c["outs"] = {tag: c["run"](get_policy(tag)) for tag in MODES_POLICIES}
+    torch.cuda.synchronize()
+    counts = {w.__name__: dict(w.launches_by_mode) for w in ops.WRAPPERS}
+
+    errs, rmses, detail = {}, {}, {}
+    for key, c in cases.items():
+        name, label = key
+        got, plain = outs[key], c["plain"]()
+        torch.cuda.synchronize()
+        if "same" in c and not torch.equal(got, c["same"]()):
+            raise AssertionError(f"{name} ({label}): the kernels differ")
+        if got.dtype != plain.dtype:
+            raise AssertionError(f"{name} ({label}): output {got.dtype}")
+        if any(got[i].any() for i in c.get("zero_rows", ())):
+            raise AssertionError(f"{name} ({label}): a pad row is not zero")
+        errs[name] = max(errs.get(name, 0.0), _close(
+            f"{name} ({label})", got, plain, **c["tol"]))
+        rows = c.get("rows", slice(None))
+        r, rp = _rel_rmse(got[rows], c["gold"]), _rel_rmse(plain[rows],
+                                                           c["gold"])
+        held = (r <= c["rmse_ratio"] * rp if c.get("rmse_ratio")
+                else r < c["rmse_max"] and rp < c["rmse_max"])
+        if not held:
+            raise AssertionError(f"{name} ({label}) RMSE {r:.4f} / plain "
+                                 f"{rp:.4f}")
+        rmses.setdefault(name, {})[label] = r
+    # stale bytes of raw pools: NaN past kv_len and on unreferenced pages
+    # replaced by 1e4, bit for bit the same outputs
+    for name in ("pasa_paged_decode/d32", "pasa_paged_prefill/d32",
+                 "pasa_paged_prefill/d64"):
+        t = timing[name]
+        junk = [torch.nan_to_num(x, nan=1e4) for x in (t["kp"], t["vp"])]
+        if name == "pasa_paged_decode/d32":
+            run = lambda kp, vp: ops.pasa_paged_decode(
+                t["q"], kp, vp, t["table"], t["kv_len"], beta=BETA,
+                policy=FP16)
+        else:
+            run = lambda kp, vp: ops.pasa_paged_prefill(
+                t["q"], kp, vp, t["table"], t["start"], t["kv_len"],
+                beta=BETA, policy=FP16)
+        if not torch.equal(run(t["kp"], t["vp"]), run(*junk)):
+            raise AssertionError(f"{name}: stale pool bytes changed the "
+                                 f"output")
+        detail.setdefault(name, {})["stale_bytes_inert"] = True
+    for name, c in quant.items():
+        outs_q = c["outs"]
+        held, got = _check_quant_policies(
+            name, lambda policy: outs_q[policy.name], c["plain"], c["gold"],
+            c["raw"](), c["dtype"], c["tol"], rows=c["rows"])
+        kq, vq, side, valid = c["pools"]
+        kq2, vq2, side2 = _poison(kq, vq, side, valid)
+        t = timing[c["base"]]
+        if name.startswith("pasa_paged_decode"):
+            dirty = ops.pasa_paged_decode(t["q"], kq2, vq2, t["table"],
+                                          t["kv_len"], beta=BETA,
+                                          policy=FP16, **side2)
+        else:
+            dirty = ops.pasa_paged_prefill(t["q"], kq2, vq2, t["table"],
+                                           t["start"], t["kv_len"],
+                                           beta=BETA, policy=FP16, **side2)
+        if not torch.equal(dirty, got):
+            raise AssertionError(f"{name}: debris past kv_len or dead-page "
+                                 f"sidecars changed the output")
+        held["debris_inert"] = True
+        errs[name] = held["max_abs_err_fp16"]
+        rmses[name] = {"fp16": held["rmse_fp16"]}
+        detail[name] = held
+        timing[name] = dict(t, kp=kq, vp=vq, side=side)
+    check_s = time.perf_counter() - t0
+
+    entries = []
+    names = list(dict.fromkeys([key[0] for key in cases] + list(quant)))
+    for name in names:
+        kernel, _, tag = name.partition("/")
+        width = tag.partition("_")[0]         # d32 / d64
+        t = dict(timing.get(name) or timing[f"{kernel}/{width}"])
+        if kernel == "pasa_decode":
+            t.update(timing[f"pasa_decode/d32 g{MODES_DECODE_GROUPS[-1]}"])
+        if kernel == "shift_kv":
+            launches = counts["shift_kv"].get(t["mode"], 0)
+        elif kernel == "pasa_attention":
+            launches = sum(n for op in ("pasa_attention", "flash_attention")
+                           for mode, n in counts[op].items()
+                           if mode.endswith(f"/{width}"))
+        else:     # the modes of the pool or cache the entry reads
+            pool = str(t["kp"].dtype if "kp" in t else t["k"].dtype)
+            launches = sum(n for mode, n in counts[kernel].items()
+                           if mode.endswith(f"/{width}")
+                           and mode.split("/")[1] == pool.split(".")[1])
+        if not launches:
+            raise AssertionError(f"{name} was not launched in phase 18")
+        source, replaces = (
+            ("src/repro_torch/kernels/csrc/shift_kv.cu",
+             "src/repro/kernels/shift_kv.py:48") if kernel == "shift_kv"
+            else KERNEL_FILES[kernel])
+        entries.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches, max_abs_err=errs[name],
+            rmse=max(rmses[name].values()), detail=detail.get(name, {}),
+            **_modes_timed(dev, name, t)))
+    print("phase 18 launches by mode: " + json.dumps(counts))
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s (checks "
+          f"{check_s:.1f} s)")
+    return entries
+
+
 def phase_tools(dev, bundle=None, params=None, parts=("decode", "train")):
     """Phase 17 (``--tools-only``: both parts, the serving weights built
     here): the readings printed beside the card's name and power limit."""
@@ -6719,17 +7244,30 @@ def phase_tools(dev, bundle=None, params=None, parts=("decode", "train")):
     print(f"phase 17 ({', '.join(parts)}): {time.perf_counter() - t0:.1f} s")
 
 
+def _print_entry(k) -> None:
+    """A phase's kernel entry on one line, its detail on the next."""
+    print(f"{k['name']}: launches {k['launches']}, max_abs_err "
+          f"{k['max_abs_err']:.3e}, rmse {k['rmse']:.2e}, {k['ms']:.4f} ms "
+          f"vs plain {k['plain_ms']:.3f} ms, library {k['library_ms']:.4f} "
+          f"ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']})"
+          + (f"; its walk {k['walk_ms']:.4f} ms" if "walk_ms" in k else ""))
+    if k.get("detail"):
+        print(f"  {k['name']} detail: {json.dumps(k['detail'])}")
+
+
 def main(argv=None) -> int:
-    """The whole smoke; ``--train-only`` / ``--multi-only``: the build of
-    the two kernels phase 15 / 16 runs, and that phase alone, with no
-    result line."""
+    """The whole smoke; ``--train-only`` / ``--multi-only`` /
+    ``--tools-only`` / ``--modes-only``: the build of the kernels phase 15
+    / 16 / 17 / 18 runs, and that phase alone, with no result line."""
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--train-only"], ["--multi-only"],
-                    ["--multi-only", "--half-batch"], ["--tools-only"]):
+                    ["--multi-only", "--half-batch"], ["--tools-only"],
+                    ["--modes-only"]):
         print(f"usage: chip_smoke.py [--train-only | --multi-only "
-              f"[--half-batch] | --tools-only], got {argv}", file=sys.stderr)
+              f"[--half-batch] | --tools-only | --modes-only], got {argv}",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6749,10 +7287,13 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     built = _build.build(
-        None if not argv else ("shift_kv", "pasa_attention", "pasa_decode")
+        None if argv in ([], ["--modes-only"])
+        else ("shift_kv", "pasa_attention", "pasa_decode")
         if argv == ["--tools-only"] else ("shift_kv", "pasa_attention"))
-    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)} "
-          f"into {_build.build_dir()}")
+    print(f"build: {time.perf_counter() - t0:.1f} s into "
+          f"{_build.build_dir()}; seconds per source (one nvcc each, all "
+          f"started together) " + json.dumps(
+              {name: round(sec, 1) for name, sec in sorted(built.items())}))
     if argv == ["--train-only"]:
         phase_train(dev)
         return 0
@@ -6761,6 +7302,11 @@ def main(argv=None) -> int:
         return 0
     if argv == ["--tools-only"]:
         phase_tools(dev)
+        return 0
+    if argv == ["--modes-only"]:
+        for k in phase_modes(dev):
+            _print_entry(k)
+        print(smi)
         return 0
     # ptxas: each kernel instance's registers, stack and spills
     for name in _build.SOURCES:
@@ -6804,6 +7350,11 @@ def main(argv=None) -> int:
         for key in ("stress", "detail"):
             if k.get(key):
                 print(f"  {k['name']} {key}: {json.dumps(k[key])}")
+    # phase 18: head_dim 32 in every kernel, head_dim 64 in paged prefill,
+    # driven with the launch counts set to 0 just before its pass
+    modes = phase_modes(dev)
+    for k in modes:
+        _print_entry(k)
 
     bundle, params, init_s = build_model(dev)
     print(f"weights: {init_s:.1f} s")
@@ -7133,6 +7684,13 @@ def main(argv=None) -> int:
             raise AssertionError(f"{k['name']} was not launched by the "
                                  f"ranks")
     line += [{key: k[key] for key in keys} for k in multi_entries]
+    # phase 18's entries, each with its pass's launches: shift-KV's path
+    # mode (bf16 keys, fp16 operands, block 128) alone, its other d32
+    # modes in one entry
+    shift_other = [k for k in modes if k["name"].startswith("shift_kv/d32_")]
+    line += [{key: k[key] for key in keys} for k in modes
+             if k not in shift_other]
+    line.append(_mode_entry("shift_kv", shift_other, keys))
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

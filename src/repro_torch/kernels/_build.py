@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("pasa_paged_decode", "pasa_paged_prefill", "pasa_decode",
-           "shift_kv", "pasa_attention")
+           "pasa_decode_walk", "shift_kv", "pasa_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -3,6 +3,22 @@
 // memory descriptors (fp16 and bf16 operands), the fp16-pair steps of the
 // all-fp16 policy, and the host-side tensor-map encoding.  Included by pasa_attention.cu,
 // pasa_paged_prefill.cu and shift_kv.cu.
+//
+// Head widths.  The three wgmma kernels take the head width D (32, 64 or
+// 128) as a template parameter and lay every 2-byte tile out in 64-column
+// halves of 128-byte rows, 128-byte swizzled (tile_width(D) columns).  A
+// 32-wide head is boxed at 64 columns all the same: its tensor map ends
+// at column 32, so TMA fills columns 32..63 of each box with zeros (and
+// counts their bytes on the barrier) and clips them off a store.  So the
+// D 32 instances keep the D 64 instances' shared-memory layout, swizzle,
+// ldmatrix / stmatrix addressing and descriptors, and only the products
+// that read the head dim as their depth shorten to its D / 16 live k16
+// steps (the score GEMM over K = 32 is two).  The 64-byte swizzle would
+// halve those tiles' bytes at D 32, for a second layout of every tile and
+// descriptor; the price of the padded half is shared memory (the D 64
+// instances' own, which fits) and, in the products that run over the
+// head dim as a row or column count (P V's N, shift-KV's K'^T rows), MMA
+// work on zeros that no store keeps.
 #pragma once
 
 #include <cuda.h>
@@ -299,6 +315,10 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
 #undef PASA_WGMMA_R32
 #undef PASA_WGMMA_R64
 
+// Columns of a head's 2-byte tiles in shared memory: whole 64-column
+// halves, so D 32 takes one half whose upper 32 columns are zero.
+__host__ __device__ constexpr int tile_width(int d) { return d < 64 ? 64 : d; }
+
 template <int BKV, bool BF16>
 __device__ __forceinline__ void wgmma_scores(float* s, uint64_t da, uint64_t db,
                                              int accumulate) {
@@ -306,12 +326,14 @@ __device__ __forceinline__ void wgmma_scores(float* s, uint64_t da, uint64_t db,
   else wgmma_ss_n64<BF16>(s, da, db, accumulate);
 }
 
-// P V at head width D (64 or 128): P the register A operand, V MN-major
-// from shared memory.
-template <int D, bool BF16>
+// P V over a V tile W columns wide (tile_width: 64 or 128; at D 32 the
+// zero-padded 64): P the register A operand, V MN-major from shared
+// memory.
+template <int W, bool BF16>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* p,
                                          uint64_t dv, int accumulate) {
-  if constexpr (D == 128) wgmma_rs_n128<BF16>(o, p, dv, accumulate);
+  static_assert(W == 64 || W == 128, "P V tile width");
+  if constexpr (W == 128) wgmma_rs_n128<BF16>(o, p, dv, accumulate);
   else wgmma_rs_n64<BF16, 1>(o, p, dv, accumulate);
 }
 
@@ -412,15 +434,13 @@ constexpr CUtensorMapDataType tma_dtype() {
 }
 
 // Rank-4 map of a (B, heads, rows, head_dim) tensor of 2-byte elements
-// (fp16 unless `dtype` says otherwise) read through its element strides;
-// boxes of `box_rows` x 64 columns, 128-byte swizzle.  A box reaching past
-// `rows` is filled with zeros there (and still counts its full bytes on
-// the barrier).
+// of type `dtype` read through its element strides; boxes of `box_rows` x
+// 64 columns, 128-byte swizzle.  A box reaching past `rows`, or past
+// `head_dim` (32), is filled with zeros there (and still counts its full
+// bytes on the barrier); a store of it writes only what lies inside.
 static bool make_map(CUtensorMap* map, const void* ptr, int batch, int heads,
                      int rows, long long sb, long long sh, long long ss,
-                     int box_rows,
-                     CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-                     int head_dim = HEAD_DIM) {
+                     int box_rows, CUtensorMapDataType dtype, int head_dim) {
   // a dimension of extent 1 may carry any stride (0 for an expanded
   // view): give it a valid one
   if (heads == 1) sh = (long long)rows * ss;

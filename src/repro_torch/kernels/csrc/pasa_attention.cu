@@ -6,8 +6,9 @@
 //
 // What it computes: full-head queries q (B, H, S1, D) against keys
 // K' = M K already shifted and scaled by the shift kernel (B, KVH, S2, D)
-// and values v (B, KVH, S2, D), head width D 64 or 128 (a template
-// parameter), all at the policy's input dtype
+// and values v (B, KVH, S2, D), head width D 32, 64 or 128 (a template
+// parameter; D 32 in the D 64 tiles, zero-padded: hopper.cuh, "Head
+// widths"), all at the policy's input dtype
 // (fp16, or bf16 under bf16_fp32) and read through their strides; GQA maps query head h to kv head h / (H / KVH), so K'/V are
 // never expanded.  One CTA per (b * H + h, query tile of block_q rows)
 // walks the key tiles IN ORDER - the F-bar recurrence is order-dependent
@@ -66,8 +67,11 @@
 //     swizzle) with mbarriers: the next tile arrives while the current
 //     one is computed;
 //   * both GEMMs are wgmma (m64n{block_kv}k16 for S from shared memory,
-//     m64n{D}k16 for P V with P as the register operand and V read
-//     MN-major); S stays in registers, block_kv / 2 per thread, and each
+//     D / 16 steps of k16; m64n{W}k16 for P V with P as the register
+//     operand and V read MN-major, W = tile_width(D): at D 32 the P V
+//     product runs N = 64 over V's zero-padded half and the accumulator
+//     keeps its first 32 columns); S stays in registers, block_kv / 2 per
+//     thread, and each
 //     row's
 //     statistics are reduced over the 4 threads that hold it; row_update
 //     runs redundantly in those 4 threads;
@@ -109,10 +113,11 @@ __device__ __forceinline__ void tile_scores(float* s, float* ssum, float* mx,
 
 template <int NWG, int BKV, int D>
 struct AttnLayout {
-  static constexpr int NH = D / 64;                      // 64-col halves
+  static constexpr int W = tile_width(D);                // tile columns
+  static constexpr int NH = W / 64;                      // 64-col halves
   static constexpr int BQ = 64 * NWG;
-  static constexpr int Q_BYTES = BQ * D * 2;             // NH 64-col halves
-  static constexpr int KV_BYTES = BKV * D * 2;           // one K' or V tile
+  static constexpr int Q_BYTES = BQ * W * 2;             // NH 64-col halves
+  static constexpr int KV_BYTES = BKV * W * 2;           // one K' or V tile
   static constexpr int Q_OFF = 0;
   static constexpr int K_OFF = Q_OFF + Q_BYTES;
   static constexpr int V_OFF = K_OFF + AT_STAGES * KV_BYTES;
@@ -312,21 +317,22 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
       }
 
       // 5. P V into a fresh fp32 sum (V MN-major: at D 128 its two
-      // 64-column halves are the descriptor's leading-dimension step),
+      // 64-column halves are the descriptor's leading-dimension step; at
+      // D 32 pv[D / 2 ..] hold the padded half's zero columns),
       // issued before the row statistics' recovery so that the two overlap
-      float pv[D / 2];
+      float pv[L::W / 2];
       mbar_wait(bar_v + 8 * st, phase);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
-        wgmma_pv<D, M::kBF16>(pv, &pa[4 * kk],
+        wgmma_pv<L::W, M::kBF16>(pv, &pa[4 * kk],
                               gmma_desc(v_addr + kk * 16 * AT_HALF_BYTES,
                                         BKV * AT_HALF_BYTES, 1024),
                               kk > 0);
       if constexpr (SPLIT_P) {      // + (P - hi) V, bf16_fp32
 #pragma unroll
         for (int kk = 0; kk < BKV / 16; ++kk)
-          wgmma_pv<D, M::kBF16>(pv, &pa_lo[4 * kk],
+          wgmma_pv<L::W, M::kBF16>(pv, &pa_lo[4 * kk],
                                 gmma_desc(v_addr + kk * 16 * AT_HALF_BYTES,
                                           BKV * AT_HALF_BYTES, 1024),
                                 1);
@@ -350,7 +356,7 @@ pasa_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,S1,D)
       }
 
       wgmma_wait_all();
-      fence_regs<D / 2>(pv);
+      fence_regs<L::W / 2>(pv);
       fence_regs<NS / 2>(pa);
       if constexpr (SPLIT_P) fence_regs<NS / 2>(pa_lo);
       if (lane == 0) mbar_arrive(bar_e + 8 * st);   // the stage is consumed
@@ -459,7 +465,7 @@ static int launch_kind(int kind, const void* q, const void* k, const void* v,
 
 // Plain C entry point (bound with ctypes).  Strides are in elements, for
 // the (batch, head, row) dims of q, K' and v (each a multiple of 8, the
-// rows of head_dim (64 or 128) unit-stride values, 16-byte aligned
+// rows of head_dim (32, 64 or 128) unit-stride values, 16-byte aligned
 // starts); q, K', v and out are at the policy's input dtype (bf16 if
 // op_bf16, else fp16), scores at fp16 if score_half (else fp32); block_q
 // and block_kv are 64 or 128; columns at or past kv_valid (s2 - block_kv
@@ -480,7 +486,7 @@ extern "C" int pasa_attention_launch(
             (block_q == 64 || block_q == 128) &&
             (block_kv == 64 || block_kv == 128) && s1 >= block_q &&
             !(s1 % block_q) && s2 >= block_kv && !(s2 % block_kv) &&
-            (head_dim == 64 || head_dim == 128) && kv_valid <= s2 &&
+            head_dim_built(head_dim) && kv_valid <= s2 &&
             kv_valid > s2 - block_kv &&
             !(reinterpret_cast<uintptr_t>(q) % 16) &&
             !(reinterpret_cast<uintptr_t>(k) % 16) &&
@@ -491,19 +497,23 @@ extern "C" int pasa_attention_launch(
                                acc_half);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int kind = wgmma_kind(mode, P);
-  const int cfg = (head_dim == 128) * 4 + (block_q == 128) * 2 +
-                  (block_kv == 128);
+  const int cfg = (head_dim == 32 ? 0 : head_dim == 64 ? 1 : 2) * 4 +
+                  (block_q == 128) * 2 + (block_kv == 128);
 #define PASA_ATTN_SHAPE(NWG, BKV, D)                                       \
   launch_kind<NWG, BKV, D>(kind, q, k, v, out, batch, heads, kv_heads, s1, \
                            s2, kv_valid, causal, st, P, s)
   switch (cfg) {
-    case 0: return PASA_ATTN_SHAPE(1, 64, 64);
-    case 1: return PASA_ATTN_SHAPE(1, 128, 64);
-    case 2: return PASA_ATTN_SHAPE(2, 64, 64);
-    case 3: return PASA_ATTN_SHAPE(2, 128, 64);
-    case 4: return PASA_ATTN_SHAPE(1, 64, 128);
-    case 5: return PASA_ATTN_SHAPE(1, 128, 128);
-    case 6: return PASA_ATTN_SHAPE(2, 64, 128);
+    case 0: return PASA_ATTN_SHAPE(1, 64, 32);
+    case 1: return PASA_ATTN_SHAPE(1, 128, 32);
+    case 2: return PASA_ATTN_SHAPE(2, 64, 32);
+    case 3: return PASA_ATTN_SHAPE(2, 128, 32);
+    case 4: return PASA_ATTN_SHAPE(1, 64, 64);
+    case 5: return PASA_ATTN_SHAPE(1, 128, 64);
+    case 6: return PASA_ATTN_SHAPE(2, 64, 64);
+    case 7: return PASA_ATTN_SHAPE(2, 128, 64);
+    case 8: return PASA_ATTN_SHAPE(1, 64, 128);
+    case 9: return PASA_ATTN_SHAPE(1, 128, 128);
+    case 10: return PASA_ATTN_SHAPE(2, 64, 128);
     default: return PASA_ATTN_SHAPE(2, 128, 128);
   }
 #undef PASA_ATTN_SHAPE

@@ -28,10 +28,12 @@
 namespace pasa {
 
 constexpr float NEG_BIG = -30000.0f;   // finite -inf stand-in, exact in fp16
-// The head width of the wgmma kernels (attention, shift-KV, paged
-// prefill); the decode kernels take it as a template parameter D (64 or
-// 128, pasa_decode_block.cuh).
-constexpr int HEAD_DIM = 128;
+
+// The head widths every kernel is built for (one instance each): the C
+// entries refuse any other.
+__host__ __device__ constexpr bool head_dim_built(int d) {
+  return d == 32 || d == 64 || d == 128;
+}
 
 struct Policy {
   float beta;         // PASA shifting fraction (0 = FlashAttention-2)

@@ -24,9 +24,11 @@
 // are independent and each shared load is used G times - each chain keeps
 // its own order of operations.
 //
-// The head width D (64 or 128) is a template parameter of the block tile
-// (DecodeSmem): a block runs D threads, one per head-dim column, so D 64
-// runs two warps where D 128 runs four.  Per block a thread at D 64 owns
+// The head width D (32, 64 or 128) is a template parameter of the block
+// tile (DecodeSmem): a block runs D threads, one per head-dim column, so D
+// 32 runs one warp, D 64 two and D 128 four (every cross-warp step - the
+// row statistics, the fold's rows - strides by kWarps, one at D 32).  Per
+// block a thread at D 64 owns
 // the same number of score products as at D 128 (twice the key rows, dot
 // products half as long) and the same P V column sum, so a block's
 // latency changes little (two warps hide less of it than four) while its
@@ -58,17 +60,18 @@ constexpr int DEC_MAX_BLOCK = 256;   // rows of a contiguous-cache block
 // One block of up to MAXB rows of head width D at operand type OpT (fp16
 // or bf16, both two bytes): at D 128 78,848 bytes at 128 rows (pages) and
 // 153,088 at 256 (the contiguous cache's default block); at D 64 44,032
-// and 85,504; in every mode.  The block runs kThreads = D threads.
+// and 85,504; at D 32 26,624 and 51,712; in every mode.  The block runs
+// kThreads = D threads.
 template <typename OpT, int MAXB, int D>
 struct DecodeSmem {
-  static_assert(D == 64 || D == 128, "decode head width");
+  static_assert(head_dim_built(D), "decode head width");
   static constexpr int kRows = MAXB;
   static constexpr int kD = D;
   static constexpr int kThreads = D;          // one per head-dim column
   static constexpr int kWarps = D / 32;
-  // K row stride in halves: D / 2 + 1 words (65 at D 128, 33 at D 64), an
-  // odd count, so thread c reading word w of row c hits bank (c + w) mod
-  // 32: distinct across a warp.
+  // K row stride in halves: D / 2 + 1 words (65 at D 128, 33 at D 64, 17
+  // at D 32), an odd count, so thread c reading word w of row c hits bank
+  // (c + w) mod 32: distinct across a warp.
   static constexpr int kLd = D + 2;
   OpT q[DEC_MAX_G][D];
   OpT k[MAXB][kLd];                   // raw K on entry, shifted K after

@@ -21,7 +21,8 @@
 //      nor the sidecar -> code dependency stands in the block's path;
 //   2. a cluster barrier (release / acquire at cluster scope);
 //   3. rank r folds head-dim columns [D r / 8, D (r + 1) / 8) of every
-//      row (16 columns at D 128, 8 at D 64) over j = 0 .. n_live - 1 in
+//      row (16 columns at D 128, 8 at D 64, 4 at D 32) over j = 0 ..
+//      n_live - 1 in
 //      order (decode_fold_step: row_update, run redundantly by each of
 //      the row's threads, then acc_update), and writes O = acc / l.
 // Step 3 performs the floating-point operations of the sequential walk
@@ -42,13 +43,15 @@
 // and one set of partials per block, as the walk computes them.  Shared
 // memory at D 128: 78,848 + 66,568 bytes per CTA over pages (bf16),
 // 153,088 + 66,568 over the contiguous cache; at D 64: 44,032 + 33,288
-// and 85,504 + 33,288; in every policy mode (the block tile holds its
-// operands at two bytes, and fp32 probabilities overwrite their scores:
-// DecodeSmem).
+// and 85,504 + 33,288; at D 32: 26,624 + 16,648 and 51,712 + 16,648; in
+// every policy mode (the block tile holds its operands at two bytes, and
+// fp32 probabilities overwrite their scores: DecodeSmem).
 //
-// The head width D (64 or 128) is a template parameter of the addressing
-// (PagedBlocks, StridedBlocks), and through it of the block tile, the
-// staging buffer and the kernel's D threads.
+// The head width D (32, 64 or 128) is a template parameter of the
+// addressing (PagedBlocks, StridedBlocks), and through it of the block
+// tile, the staging buffer and the kernel's D threads.  A staged row is
+// D / 8 16-byte chunks of 2-byte values (four at D 32), D / 16 of 8-bit
+// codes (two at D 32); the sidecar shifts D / 4 chunks a side.
 //
 // The kernel template takes the policy's mode (pasa_common.cuh Mode): q,
 // the block's K and V, and the output at the operand type (fp16, or bf16

@@ -10,7 +10,7 @@
 // Policies: fp16 and fp16_fp32, fp32 (fp32 scores) and bf16_fp32 (bf16
 // operands and output, fp32 scores), each an instance of the template
 // (pasa_common.cuh Mode); pages convert or dequantize once to the input
-// dtype.  Head widths 64 and 128, each an instance too (D threads per
+// dtype.  Head widths 32, 64 and 128, each an instance too (D threads per
 // CTA, one per head-dim column: pasa_decode_block.cuh).
 //
 // Design: the cluster kernel of pasa_decode_cluster.cuh with block j =
@@ -61,18 +61,21 @@ static int launch(const void* q, const void* k_pages, const void* v_pages,
                   const void* kv_len, void* out, void* workspace, int batch,
                   int kv_heads, int G, int head_dim, int page, int max_pages,
                   int mode, const Policy& P, cudaStream_t stream) {
-  if (head_dim == 64)
-    return launch_at<PoolT, 64>(q, k_pages, v_pages, sc, page_table, kv_len,
-                                out, workspace, batch, kv_heads, G, page,
-                                max_pages, mode, P, stream);
-  return launch_at<PoolT, 128>(q, k_pages, v_pages, sc, page_table, kv_len,
-                               out, workspace, batch, kv_heads, G, page,
-                               max_pages, mode, P, stream);
+#define PASA_PAGED_AT(D)                                                     \
+  launch_at<PoolT, D>(q, k_pages, v_pages, sc, page_table, kv_len, out,      \
+                      workspace, batch, kv_heads, G, page, max_pages, mode, \
+                      P, stream)
+  switch (head_dim) {
+    case 32: return PASA_PAGED_AT(32);
+    case 64: return PASA_PAGED_AT(64);
+    default: return PASA_PAGED_AT(128);
+  }
+#undef PASA_PAGED_AT
 }
 
 }  // namespace pasa
 
-// Plain C entry point (bound with ctypes).  head_dim is 64 or 128.  The
+// Plain C entry point (bound with ctypes).  head_dim is 32, 64 or 128.  The
 // four sidecar pointers are read only for an 8-bit pool_kind (PoolKind).
 // q and out are at the policy's input dtype (bf16 if op_bf16, else fp16),
 // scores at fp16 if score_half (else fp32).  `workspace` holds
@@ -91,8 +94,7 @@ extern "C" int pasa_paged_decode_launch(
   const int mode = mode_id(score_half, op_bf16);
   if (group < 1 || group > DEC_MAX_G || page < 1 || page > DEC_PAGE_ROWS ||
       batch < 1 || batch > 65535 || kv_heads < 1 || kv_heads > 65535 ||
-      max_pages < 1 || !workspace || mode < 0 ||
-      (head_dim != 64 && head_dim != 128))
+      max_pages < 1 || !workspace || mode < 0 || !head_dim_built(head_dim))
     return (int)cudaErrorInvalidValue;
   const bool quant = pool_kind == POOL_INT8 || pool_kind == POOL_FP8;
   if (quant && !(k_scale && k_shift && v_scale && v_shift))

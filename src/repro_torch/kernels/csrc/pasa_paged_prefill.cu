@@ -23,9 +23,15 @@
 //    depends only on its own live pages and is invariant to the chunk
 //    schedule (the reference's update_state(dead_rows_noop=True)).
 //
+// Head widths D 32, 64 and 128, each an instance of the templates: every
+// 2-byte tile is tile_width(D) columns of 64-column halves, D 32 in one
+// half zero-padded past column 32 (hopper.cuh, "Head widths"); 8-bit
+// codes land D bytes a row; the score GEMM runs D / 16 k16 steps, P V
+// N = tile_width(D).
+//
 // What bounds it on an H100: operations.  A tile of 128 query rows reads
 // each visible page once, so for a 512-token chunk the bytes are a few
-// MB per layer while the two GEMMs are ~4 x rows x cols x 128 flops.
+// MB per layer while the two GEMMs are ~4 x rows x cols x D flops.
 // The design is the attention kernel's Hopper shape (pasa_attention.cu),
 // with a conversion stage in front of the GEMMs:
 //  * a CTA is one converter warpgroup and two consumer warpgroups of 64
@@ -51,8 +57,8 @@
 //    it runs a page ahead of the consumers, so the conversion overlaps
 //    the previous page's GEMMs;
 //  * both GEMMs are wgmma (m64n{64|128}k16 for S from shared memory,
-//    m64n128k16 for P V with P as the register operand and V read
-//    MN-major): pages of up to 64 rows run at N = 64, larger ones at
+//    m64n{tile_width(D)}k16 for P V with P as the register operand and V
+//    read MN-major): pages of up to 64 rows run at N = 64, larger ones at
 //    N = 128, the surplus columns masked like columns past `valid`.  S
 //    stays in registers and is stored at the score dtype before anything
 //    reads it (fp16, or the fp32 wgmma sum itself under fp32 and
@@ -60,8 +66,8 @@
 //    type, fp16 or bf16, while l sums the fp32 P - a deviation from the
 //    reference's fp32 P V held to its prefill bar (atol 1e-2, rtol
 //    3e-2); the attention kernel's two-term bf16 P (pasa_attention.cu)
-//    costs 32 registers the consumers here do not have: ptxas spills at
-//    224, and the converter at 40);
+//    costs 32 registers the consumers here do not have at D 128: ptxas
+//    spills at 224, and the converter at 40);
 //    each row's statistics are reduced over the 4 threads that hold it,
 //    each row keeps its own block count and live flag; under the
 //    all-fp16 policy the per-element softmax and accumulator steps run on
@@ -79,23 +85,25 @@ constexpr int PF_THREADS = 128 * (PF_NWG + 1);
 constexpr int PF_HALF = 64 * 2;                 // a 64-column half-row (2 B)
 constexpr int PF_MAX_PAGE = 128;
 
-template <typename PoolT, int BKV>
+template <typename PoolT, int BKV, int D>
 struct PrefillLayout {
   static constexpr bool CODE = kIsCode<PoolT>;
+  static constexpr int W = tile_width(D);          // 2-byte tile columns
+  static constexpr int NH = W / 64;                // 64-column halves
   // 2-byte values land by TMA in an operand stage and are converted in
   // place (three stages: one computed, one converted, one loading);
   // 8-bit codes land in a buffer of their own (two operand stages)
   static constexpr int STAGES = CODE ? 2 : 3;
-  static constexpr int Q_BYTES = PF_BQ * HEAD_DIM * 2;   // two 64-col halves
-  static constexpr int OP_BYTES = BKV * HEAD_DIM * 2;    // one K' or V tile
-  static constexpr int CODE_BYTES = BKV * HEAD_DIM;      // one K or V page
+  static constexpr int Q_BYTES = PF_BQ * W * 2;          // NH 64-col halves
+  static constexpr int OP_BYTES = BKV * W * 2;           // one K' or V tile
+  static constexpr int CODE_BYTES = BKV * D;             // one K or V page
   static constexpr int Q_OFF = 0;
   static constexpr int K_OFF = Q_OFF + Q_BYTES;               // + stage
   static constexpr int V_OFF = K_OFF + STAGES * OP_BYTES;     // + stage
   static constexpr int CODE_OFF = V_OFF + STAGES * OP_BYTES;  // K then V codes
   static constexpr int SHIFT_OFF = CODE_OFF + (CODE ? 2 * CODE_BYTES : 0);
-  static constexpr int KM_OFF = SHIFT_OFF + (CODE ? 2 * HEAD_DIM * 4 : 0);
-  static constexpr int BAR_OFF = KM_OFF + HEAD_DIM * 4;
+  static constexpr int KM_OFF = SHIFT_OFF + (CODE ? 2 * D * 4 : 0);
+  static constexpr int BAR_OFF = KM_OFF + D * 4;
   // barriers: Q full; raw page full (per stage, or the code buffer's);
   // operands full and empty per stage
   static constexpr int N_RAW = CODE ? 1 : STAGES;
@@ -103,8 +111,8 @@ struct PrefillLayout {
 };
 
 // Byte offset of the 16-byte chunk of columns [c8, c8 + 8) of row r in a
-// [rows][128] fp16 (or bf16) tile of BKV-row 64-column halves, 128-byte
-// swizzle: the layout TMA writes and the wgmma descriptors read.
+// fp16 (or bf16) tile of BKV-row 64-column halves, 128-byte swizzle: the
+// layout TMA writes and the wgmma descriptors read.
 template <int BKV>
 __device__ __forceinline__ uint32_t swz(int r, int c8) {
   return (c8 >> 6) * BKV * PF_HALF + r * PF_HALF +
@@ -112,14 +120,14 @@ __device__ __forceinline__ uint32_t swz(int r, int c8) {
 }
 
 // Raw element (r, c) of a staged K or V page (`tile`: 2-byte values in
-// the operand layout, or codes [BKV][128]) at the operand type OpT
+// the operand layout, or codes [BKV][D]) at the operand type OpT
 // (returned widened): the value load_pool8 gives it.
-template <typename OpT, typename PoolT, int BKV>
+template <typename OpT, typename PoolT, int BKV, int D>
 __device__ __forceinline__ float raw_elem(const unsigned char* tile, int r,
                                           int c, float scale,
                                           const float* shift) {
   if constexpr (kIsCode<PoolT>) {
-    const PoolT code = reinterpret_cast<const PoolT*>(tile)[r * HEAD_DIM + c];
+    const PoolT code = reinterpret_cast<const PoolT*>(tile)[r * D + c];
     return to_float(from_float<OpT>(
         __fadd_rn(__fmul_rn(code_to_float(code), scale), shift[c])));
   } else {
@@ -129,13 +137,13 @@ __device__ __forceinline__ float raw_elem(const unsigned char* tile, int r,
 }
 
 // Raw elements (r, c8 .. c8 + 7) of a staged page as eight OpT values.
-template <typename OpT, typename PoolT, int BKV>
+template <typename OpT, typename PoolT, int BKV, int D>
 __device__ __forceinline__ uint4 raw_chunk(const unsigned char* tile, int r,
                                            int c8, float scale,
                                            const float* shift) {
   if constexpr (kIsCode<PoolT>) {
     return load8_dequant<OpT>(
-        reinterpret_cast<const PoolT*>(tile + r * HEAD_DIM + c8), scale,
+        reinterpret_cast<const PoolT*>(tile + r * D + c8), scale,
         shift + c8);
   } else {
     return load8_op<OpT>(reinterpret_cast<const PoolT*>(tile + swz<BKV>(r, c8)));
@@ -174,8 +182,8 @@ __device__ __forceinline__ void page_scores(float* s, float* ssum, float* mx,
 
 // M: the policy's mode (operand type, score store).  H16 (only with
 // ModeF16): statistics and accumulator at fp16 (the paper's policy): the
-// softmax and accumulator steps run on fp16 pairs.
-template <typename PoolT, int BKV, bool H16, typename M>
+// softmax and accumulator steps run on fp16 pairs.  D: the head width.
+template <typename PoolT, int BKV, int D, bool H16, typename M>
 __global__ void __launch_bounds__(PF_THREADS, 1)
 paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
                      const __grid_constant__ CUtensorMap tk,  // (P,page,KVH,D)
@@ -189,7 +197,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
                      int max_pages, Policy P) {
   static_assert(!H16 || M::kScoreHalf, "the fp16 pair steps need fp16 scores");
   using OpT = typename M::Op;
-  using L = PrefillLayout<PoolT, BKV>;
+  using L = PrefillLayout<PoolT, BKV, D>;
   constexpr int NS = BKV / 2;            // score registers per thread
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled tiles want 1024-byte aligned bases
@@ -233,7 +241,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
     const float* shift = reinterpret_cast<const float*>(sm + L::SHIFT_OFF);
     float* km_s = reinterpret_cast<float*>(sm + L::KM_OFF);
     const uint32_t page_bytes =
-        L::CODE ? 2 * page * HEAD_DIM + 2 * HEAD_DIM * 4 : 2 * 2 * page * PF_HALF;
+        L::CODE ? 2 * page * D + 2 * D * 4 : 2 * L::NH * page * PF_HALF;
     // request page j's raw K and V of kv head kvh: 2-byte values into
     // operand stage j % NST, codes (and the sidecar shifts) into the code
     // buffer
@@ -246,15 +254,15 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
         mbar_expect_tx(bar_raw, page_bytes);
         tma_load_4d(dst, mk, bar_raw, 0, kvh, 0, pid);
         tma_load_4d(dst + L::CODE_BYTES, mv, bar_raw, 0, kvh, 0, pid);
-        const size_t ph = ((size_t)pid * kv_heads + kvh) * HEAD_DIM;
-        bulk_load(s_base + L::SHIFT_OFF, sc.shift[0] + ph, HEAD_DIM * 4, bar_raw);
-        bulk_load(s_base + L::SHIFT_OFF + HEAD_DIM * 4, sc.shift[1] + ph,
-                  HEAD_DIM * 4, bar_raw);
+        const size_t ph = ((size_t)pid * kv_heads + kvh) * D;
+        bulk_load(s_base + L::SHIFT_OFF, sc.shift[0] + ph, D * 4, bar_raw);
+        bulk_load(s_base + L::SHIFT_OFF + D * 4, sc.shift[1] + ph, D * 4,
+                  bar_raw);
       } else {
         const int st = j % NST;
         const uint32_t bar = bar_raw + 8 * st;
         mbar_expect_tx(bar, page_bytes);
-        for (int half = 0; half < 2; ++half) {
+        for (int half = 0; half < L::NH; ++half) {
           tma_load_4d(s_base + L::K_OFF + st * L::OP_BYTES + half * BKV * PF_HALF,
                       mk, bar, 64 * half, kvh, 0, pid);
           tma_load_4d(s_base + L::V_OFF + st * L::OP_BYTES + half * BKV * PF_HALF,
@@ -264,7 +272,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
     };
     if (ct == 0 && n_live > 0) {
       mbar_expect_tx(bar_q, L::Q_BYTES);
-      for (int half = 0; half < 2; ++half)
+      for (int half = 0; half < L::NH; ++half)
         tma_load_4d(s_base + L::Q_OFF + half * PF_BQ * PF_HALF, &tq, bar_q,
                     64 * half, tile * PF_BQ, bh % heads, b);
       // in place: pages 0 .. NST - 2 ahead; codes: one page
@@ -280,7 +288,9 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
         scv = __ldg(sc.scale[1] + ph);
       }
     }
-    const int c8 = (ct & 15) * 8;             // this thread's 8 columns
+    // this thread's 8 columns: a row is CPR chunks of 8, RPS rows a step
+    constexpr int CPR = D / 8, RPS = 128 / CPR;
+    const int c8 = (ct % CPR) * 8;
     for (int j = 0; j < n_live; ++j) {
       const int valid = min(page, L_kv - j * page);
       const int st = j % NST;
@@ -301,10 +311,10 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
       else
         mbar_wait(bar_raw + 8 * st, (j / NST) & 1);
       // 1. km of column ct over the valid rows, an fp32 sum in row order
-      if (P.beta > 0.0f) {
+      if (P.beta > 0.0f && ct < D) {
         float sum = 0.0f;
         for (int r = 0; r < valid; ++r)
-          sum += raw_elem<OpT, PoolT, BKV>(rk, r, ct, sck, shift);
+          sum += raw_elem<OpT, PoolT, BKV, D>(rk, r, ct, sck, shift);
         km_s[ct] = __fdiv_rn(sum, (float)valid);
       }
       named_sync(1, 128);
@@ -316,16 +326,19 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
       // 2. K' = (K - beta km) / sqrt(d) and V at the operand type into
       //    stage st (in place for 2-byte pools; for codes once the
       //    consumers release the stage); rows past `valid` (and past the
-      //    page) become zeros
+      //    page) become zeros; at D 32 the padded half's columns are
+      //    TMA's zeros (2-byte pools) or left as they are (codes): K's
+      //    are past the score GEMM's depth, V's feed only P V columns the
+      //    epilogue never reads
       //    (one row per step: the converter runs at 56 registers, and
       //    unrolled steps spill)
       if constexpr (L::CODE) mbar_wait(bar_e + 8 * st, ((j / NST) & 1) ^ 1);
 #pragma unroll 1
-      for (int r = ct >> 4; r < BKV; r += 128 / 16) {
+      for (int r = ct / CPR; r < BKV; r += RPS) {
         uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
         if (r < valid) {
-          kk = raw_chunk<OpT, PoolT, BKV>(rk, r, c8, sck, shift);
-          vv = raw_chunk<OpT, PoolT, BKV>(rv, r, c8, scv, shift + HEAD_DIM);
+          kk = raw_chunk<OpT, PoolT, BKV, D>(rk, r, c8, sck, shift);
+          vv = raw_chunk<OpT, PoolT, BKV, D>(rv, r, c8, scv, shift + D);
           if (P.beta > 0.0f) {
             OpT* kh = reinterpret_cast<OpT*>(&kk);
 #pragma unroll
@@ -371,15 +384,15 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
 
     float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.0f, 0.0f}, f[2] = {0.0f, 0.0f};
     int cnt[2] = {0, 0};
-    // the accumulator: s[]'s layout over the 128 head-dim columns, as
-    // fp32 values or (H16) fp16 pairs (acc2[2 g + r] = the pair acc[4 g +
-    // 2 r], acc[4 g + 2 r + 1])
-    float acc[H16 ? 1 : 64];
-    uint32_t acc2[H16 ? 32 : 1];
+    // the accumulator: s[]'s layout over the D head-dim columns, as fp32
+    // values or (H16) fp16 pairs (acc2[2 g + r] = the pair acc[4 g + 2 r],
+    // acc[4 g + 2 r + 1])
+    float acc[H16 ? 1 : D / 2];
+    uint32_t acc2[H16 ? D / 4 : 1];
 #pragma unroll
-    for (int e = 0; e < (H16 ? 1 : 64); ++e) acc[e] = 0.0f;
+    for (int e = 0; e < (H16 ? 1 : D / 2); ++e) acc[e] = 0.0f;
 #pragma unroll
-    for (int e = 0; e < (H16 ? 32 : 1); ++e) acc2[e] = 0u;
+    for (int e = 0; e < (H16 ? D / 4 : 1); ++e) acc2[e] = 0u;
 
     const uint32_t q_addr = s_base + L::Q_OFF + cw * 64 * PF_HALF;
     if (n_live > 0) mbar_wait(bar_q, 0);
@@ -394,11 +407,11 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
         const uint32_t k_addr = s_base + L::K_OFF + st * L::OP_BYTES;
         const uint32_t v_addr = s_base + L::V_OFF + st * L::OP_BYTES;
 
-        // 1. S = Q K'^T (8 steps of k16 over the two 64-column halves)
+        // 1. S = Q K'^T (D / 16 steps of k16 over the 64-column halves)
         float s[NS];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < HEAD_DIM / 16; ++kk) {
+        for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t off = (kk >> 2), in = (kk & 3) * 32;
           wgmma_scores<BKV, M::kBF16>(
               s, gmma_desc(q_addr + off * PF_BQ * PF_HALF + in, 16, 1024),
@@ -462,17 +475,18 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
           }
         }
 
-        // 5. P V into a fresh fp32 sum (V MN-major: its two 64-column
-        // halves are the descriptor's leading-dimension step), issued
+        // 5. P V into a fresh fp32 sum (V MN-major: at D 128 its two
+        // 64-column halves are the descriptor's leading-dimension step; at
+        // D 32 pv[D / 2 ..] hold the padded half's columns), issued
         // before the rows' recovery so that the two overlap
-        float pv[64];
+        float pv[L::W / 2];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BKV / 16; ++kk)
-          wgmma_rs_n128<M::kBF16>(pv, &pa[4 * kk],
-                        gmma_desc(v_addr + kk * 16 * PF_HALF, BKV * PF_HALF,
-                                  1024),
-                        kk > 0);
+          wgmma_pv<L::W, M::kBF16>(pv, &pa[4 * kk],
+                                   gmma_desc(v_addr + kk * 16 * PF_HALF,
+                                             BKV * PF_HALF, 1024),
+                                   kk > 0);
         wgmma_commit();
 
 #pragma unroll
@@ -500,7 +514,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
         }
 
         wgmma_wait_all();
-        fence_regs<64>(pv);
+        fence_regs<L::W / 2>(pv);
         fence_regs<NS / 2>(pa);
         if (lane == 0) mbar_arrive(bar_e + 8 * st);   // the stage is consumed
 
@@ -510,7 +524,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
           const uint32_t ep[2] = {h2_splat(rs[0].e_prev), h2_splat(rs[1].e_prev)};
           const uint32_t ec[2] = {h2_splat(rs[0].e_cur), h2_splat(rs[1].e_cur)};
 #pragma unroll
-          for (int i2 = 0; i2 < 32; ++i2) {
+          for (int i2 = 0; i2 < D / 4; ++i2) {
             const int r = i2 & 1;
             const uint32_t pv2 =
                 h2_bits(__floats2half2_rn(pv[2 * i2], pv[2 * i2 + 1]));
@@ -519,7 +533,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
           }
         } else {
 #pragma unroll
-          for (int e = 0; e < 64; ++e) {
+          for (int e = 0; e < D / 2; ++e) {
             const int r = (e >> 1) & 1;
             if (live[r])
               acc[e] = acc_update(acc[e], rnd(pv[e], ah), rs[r].e_prev,
@@ -538,9 +552,9 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
       if (tile * PF_BQ + rl[r] >= chunk) continue;
       const float lr = l[r] > 0.0f ? l[r] : 1.0f;
       OpT* orow =
-          out + ((size_t)bh * chunk + tile * PF_BQ + rl[r]) * HEAD_DIM + 2 * quad;
+          out + ((size_t)bh * chunk + tile * PF_BQ + rl[r]) * D + 2 * quad;
 #pragma unroll
-      for (int g = 0; g < 16; ++g) {
+      for (int g = 0; g < D / 8; ++g) {
         float a0, a1;
         if constexpr (H16) {
           const float2 a = __half22float2(h2_of(acc2[2 * g + r]));
@@ -566,41 +580,42 @@ constexpr CUtensorMapDataType kMapType =
     : std::is_same<PoolT, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
-// Rank-4 map of a contiguous (P, page, KVH, 128) pool, innermost first:
+// Rank-4 map of a contiguous (P, page, KVH, D) pool, innermost first:
 // boxes of one kv head's `page` rows of one page, 64 columns with the
-// 128-byte swizzle for 2-byte values, all 128 unswizzled for 8-bit codes.
-template <typename PoolT>
+// 128-byte swizzle for 2-byte values (at D 32 zero past column 32), all D
+// unswizzled for 8-bit codes.
+template <typename PoolT, int D>
 static bool make_pool_map(CUtensorMap* map, const void* pool, int num_pages,
                           int page, int kv_heads) {
   constexpr int ES = sizeof(PoolT);
-  const cuuint64_t dims[4] = {(cuuint64_t)HEAD_DIM, (cuuint64_t)kv_heads,
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)kv_heads,
                               (cuuint64_t)page, (cuuint64_t)num_pages};
-  const cuuint64_t row = (cuuint64_t)HEAD_DIM * ES;
+  const cuuint64_t row = (cuuint64_t)D * ES;
   const cuuint64_t strides[3] = {row, row * kv_heads, row * kv_heads * page};
-  const cuuint32_t box[4] = {(cuuint32_t)(ES == 1 ? HEAD_DIM : 64), 1,
+  const cuuint32_t box[4] = {(cuuint32_t)(ES == 1 ? D : 64), 1,
                              (cuuint32_t)page, 1};
   return encode_map(map, kMapType<PoolT>, pool, dims, strides, box,
                     ES == 1 ? CU_TENSOR_MAP_SWIZZLE_NONE
                             : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <typename PoolT, int BKV, bool H16, typename M>
+template <typename PoolT, int BKV, int D, bool H16, typename M>
 static int launch(const void* q, const void* k_pages, const void* v_pages,
                   const SidecarPtrs& sc, const void* page_table,
                   const void* chunk_start, const void* kv_len, void* out,
                   int batch, int heads, int kv_heads, int chunk, int page,
                   int max_pages, int num_pages, const Policy& P,
                   cudaStream_t stream) {
-  using L = PrefillLayout<PoolT, BKV>;
+  using L = PrefillLayout<PoolT, BKV, D>;
   using OpT = typename M::Op;
   CUtensorMap tq, tk, tv;
-  const long long sh = (long long)chunk * HEAD_DIM;
-  if (!make_map(&tq, q, batch, heads, chunk, heads * sh, sh, HEAD_DIM, PF_BQ,
-                tma_dtype<OpT>()) ||
-      !make_pool_map<PoolT>(&tk, k_pages, num_pages, page, kv_heads) ||
-      !make_pool_map<PoolT>(&tv, v_pages, num_pages, page, kv_heads))
+  const long long sh = (long long)chunk * D;
+  if (!make_map(&tq, q, batch, heads, chunk, heads * sh, sh, D, PF_BQ,
+                tma_dtype<OpT>(), D) ||
+      !make_pool_map<PoolT, D>(&tk, k_pages, num_pages, page, kv_heads) ||
+      !make_pool_map<PoolT, D>(&tv, v_pages, num_pages, page, kv_heads))
     return (int)cudaErrorInvalidValue;
-  auto kernel = paged_prefill_kernel<PoolT, BKV, H16, M>;
+  auto kernel = paged_prefill_kernel<PoolT, BKV, D, H16, M>;
   const int smem = L::BYTES + 1024;       // + the 1024-byte alignment
   static OncePerDevice ready;             // the attribute, per device
   bool* set = ready.current();
@@ -619,7 +634,7 @@ static int launch(const void* q, const void* k_pages, const void* v_pages,
   return (int)cudaGetLastError();
 }
 
-template <typename PoolT>
+template <typename PoolT, int D>
 static int launch_pool(const void* q, const void* k_pages, const void* v_pages,
                        const SidecarPtrs& sc, const void* page_table,
                        const void* chunk_start, const void* kv_len, void* out,
@@ -627,10 +642,11 @@ static int launch_pool(const void* q, const void* k_pages, const void* v_pages,
                        int max_pages, int num_pages, int mode,
                        const Policy& P, cudaStream_t stream) {
   const int cfg = (page > 64) * 4 + wgmma_kind(mode, P);
-#define PASA_PREFILL_LAUNCH(BKV, H16, M)                                      \
-  launch<PoolT, BKV, H16, M>(q, k_pages, v_pages, sc, page_table, chunk_start, \
-                             kv_len, out, batch, heads, kv_heads, chunk, page, \
-                             max_pages, num_pages, P, stream)
+#define PASA_PREFILL_LAUNCH(BKV, H16, M)                                     \
+  launch<PoolT, BKV, D, H16, M>(q, k_pages, v_pages, sc, page_table,         \
+                                chunk_start, kv_len, out, batch, heads,      \
+                                kv_heads, chunk, page, max_pages, num_pages, \
+                                P, stream)
   switch (cfg) {
     case 0: return PASA_PREFILL_LAUNCH(64, true, ModeF16);
     case 1: return PASA_PREFILL_LAUNCH(64, false, ModeF16);
@@ -647,7 +663,8 @@ static int launch_pool(const void* q, const void* k_pages, const void* v_pages,
 }  // namespace pasa
 
 // Plain C entry point (bound with ctypes).  q, the pools and the sidecars
-// are contiguous (pools (num_pages, page, kv_heads, 128)); the four
+// are contiguous (pools (num_pages, page, kv_heads, head_dim), head_dim
+// 32, 64 or 128); the four
 // sidecar pointers are read only for an 8-bit pool_kind (PoolKind).  q
 // and out are at the policy's input dtype (bf16 if op_bf16, else fp16),
 // scores at fp16 if score_half (else fp32).  Returns the cudaError_t of
@@ -657,7 +674,8 @@ extern "C" int pasa_paged_prefill_launch(
     const void* k_scale, const void* k_shift, const void* v_scale,
     const void* v_shift, const void* page_table, const void* chunk_start,
     const void* kv_len, void* out, int batch, int heads, int kv_heads,
-    int chunk, int page, int max_pages, int num_pages, int pool_kind,
+    int head_dim, int chunk, int page, int max_pages, int num_pages,
+    int pool_kind,
     float beta, float inva, float shift_scale, float post_scale,
     int stat_half, int acc_half, int score_half, int op_bf16, void* stream) {
   using namespace pasa;
@@ -665,7 +683,7 @@ extern "C" int pasa_paged_prefill_launch(
   if (batch < 1 || heads < 1 || kv_heads < 1 || heads % kv_heads ||
       chunk < 1 || page < 16 || page > PF_MAX_PAGE || page % 16 ||
       max_pages < 1 || num_pages < 1 || (chunk + PF_BQ - 1) / PF_BQ > 65535 ||
-      mode < 0)
+      mode < 0 || !head_dim_built(head_dim))
     return (int)cudaErrorInvalidValue;
   const bool quant = pool_kind == POOL_INT8 || pool_kind == POOL_FP8;
   if (quant && !(k_scale && k_shift && v_scale && v_shift))
@@ -675,16 +693,21 @@ extern "C" int pasa_paged_prefill_launch(
       {static_cast<const float*>(k_scale), static_cast<const float*>(v_scale)},
       {static_cast<const float*>(k_shift), static_cast<const float*>(v_shift)}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PASA_PREFILL_POOL(T)                                                  \
-  launch_pool<T>(q, k_pages, v_pages, sc, page_table, chunk_start, kv_len,    \
-                 out, batch, heads, kv_heads, chunk, page, max_pages,         \
-                 num_pages, mode, P, s)
+#define PASA_PREFILL_POOL(T, D)                                               \
+  launch_pool<T, D>(q, k_pages, v_pages, sc, page_table, chunk_start, kv_len, \
+                    out, batch, heads, kv_heads, chunk, page, max_pages,      \
+                    num_pages, mode, P, s)
+#define PASA_PREFILL_WIDTH(T)                               \
+  (head_dim == 32   ? PASA_PREFILL_POOL(T, 32)              \
+   : head_dim == 64 ? PASA_PREFILL_POOL(T, 64)              \
+                    : PASA_PREFILL_POOL(T, 128))
   switch (pool_kind) {
-    case POOL_FP16: return PASA_PREFILL_POOL(__half);
-    case POOL_BF16: return PASA_PREFILL_POOL(__nv_bfloat16);
-    case POOL_INT8: return PASA_PREFILL_POOL(int8_t);
-    case POOL_FP8: return PASA_PREFILL_POOL(__nv_fp8_e4m3);
+    case POOL_FP16: return PASA_PREFILL_WIDTH(__half);
+    case POOL_BF16: return PASA_PREFILL_WIDTH(__nv_bfloat16);
+    case POOL_INT8: return PASA_PREFILL_WIDTH(int8_t);
+    case POOL_FP8: return PASA_PREFILL_WIDTH(__nv_fp8_e4m3);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef PASA_PREFILL_WIDTH
 #undef PASA_PREFILL_POOL
 }

@@ -7,7 +7,7 @@
 // What it computes: for every (batch, kv-head) and every block of `block`
 // (64 or 128) key rows, the product of the shifting matrix M (block x
 // block, the 1/sqrt(d) scale folded in) with the block's keys (block x D,
-// head width D 64 or 128), as the matrix engine does it: operands at M's dtype (fp16, or
+// head width D 32, 64 or 128), as the matrix engine does it: operands at M's dtype (fp16, or
 // bf16 under the bf16_fp32 policy), an fp32 sum, ONE rounding to M's
 // dtype on the store.  Keys are read through their strides (the prefill's
 // (B, S, KVH, D) projection is read where it lies); bf16 keys under an
@@ -22,10 +22,16 @@
 // between a key half's arrival and its product but registers:
 //   * M is symmetric (a I - b J, Eq. 10, rounded entrywise), so the block
 //     is computed transposed: K'^T = K^T M.  One CTA per (b * kvh, block
-//     j) of D / 64 warpgroups (two at D 128, one at 64); warpgroup w owns
-//     head-dim columns [64 w, 64 w + 64), i.e. 64 rows of K'^T, and needs
-//     only its own 64-column half of the key block;
-//   * thread 0 issues every load by TMA at once: the key block's D / 64
+//     j) of one warpgroup per 64-column half of the head (two at D 128,
+//     one at 64 and at 32); warpgroup w owns head-dim columns [64 w, 64 w
+//     + 64), i.e. 64 rows of K'^T, and needs only its own 64-column half
+//     of the key block.  At D 32 the half is the 32 columns and 32 zero
+//     ones TMA fills in past the keys' map (hopper.cuh, "Head widths"):
+//     K'^T's rows 32..63 are products of zeros, and the store's map, 32
+//     columns wide, drops them.  wgmma's M is 64, so the zero rows cost
+//     the product half its work - on a kernel bound by bytes, whose bytes
+//     stay the keys' own;
+//   * thread 0 issues every load by TMA at once: the key block's NH
 //     64-column halves (each on its own mbarrier, through a tensor map
 //     over the strided keys) and M (block rows x 64-column halves, from
 //     L2), all 128-byte swizzled;
@@ -38,8 +44,9 @@
 //     (stmatrix .trans) into a swizzled 64 x 64 box of K', which one
 //     thread of the warpgroup stores by TMA; the first product's rounding
 //     and store overlap the second product (block 128);
-//   * shared memory: M block^2 x 2 bytes, keys and output block x 2 D
-//     bytes each (96 KB at block 128 and D 128), so two CTAs fit on an SM.
+//   * shared memory: M block^2 x 2 bytes, keys and output block x 2 W
+//     bytes each (W = tile_width(D); 96 KB at block 128 and D 128), so two
+//     CTAs fit on an SM.
 
 #include "hopper.cuh"
 
@@ -47,10 +54,11 @@ namespace pasa {
 
 constexpr int SK_HALF_BYTES = 64 * 2;     // one 64-column half-row
 
-// One warpgroup per 64-column half of the head width D.
+// One warpgroup per 64-column half of the head width D (D 32: one half,
+// zero past column 32).
 template <int BLOCK, int D>
 struct ShiftLayout {
-  static constexpr int NH = D / 64;                         // head-dim halves
+  static constexpr int NH = tile_width(D) / 64;             // head-dim halves
   static constexpr int THREADS = 128 * NH;
   static constexpr int NB = BLOCK / 64;                     // 64-row blocks
   static constexpr int M_BYTES = BLOCK * BLOCK * 2;         // NB halves
@@ -89,7 +97,7 @@ __device__ __forceinline__ uint32_t pack2(float a, float b, __nv_bfloat16) {
 // OpT: the operand and output dtype (M's); KeyT: the keys as stored; D:
 // the head width.
 template <typename OpT, typename KeyT, int BLOCK, int D>
-__global__ void __launch_bounds__(128 * (D / 64))
+__global__ void __launch_bounds__(ShiftLayout<BLOCK, D>::THREADS)
 shift_kv_kernel(const __grid_constant__ CUtensorMap tm,  // M (block, block)
                 const __grid_constant__ CUtensorMap tk,  // K (B, KVH, S2, D)
                 const __grid_constant__ CUtensorMap to,  // K' (B, KVH, S2, D)
@@ -245,7 +253,10 @@ static int launch_block(const void* m, const void* k, void* out, int batch,
   if (head_dim == 128)
     return block == 128 ? PASA_SHIFT_LAUNCH(128, 128)
                         : PASA_SHIFT_LAUNCH(64, 128);
-  return block == 128 ? PASA_SHIFT_LAUNCH(128, 64) : PASA_SHIFT_LAUNCH(64, 64);
+  if (head_dim == 64)
+    return block == 128 ? PASA_SHIFT_LAUNCH(128, 64)
+                        : PASA_SHIFT_LAUNCH(64, 64);
+  return block == 128 ? PASA_SHIFT_LAUNCH(128, 32) : PASA_SHIFT_LAUNCH(64, 32);
 #undef PASA_SHIFT_LAUNCH
 }
 
@@ -258,8 +269,8 @@ static int launch_block(const void* m, const void* k, void* out, int batch,
 // are bf16 or fp16 (bf16 keys need no conversion under a bf16 M; fp16
 // keys under a bf16 M are not taken), read through the element strides
 // sb, sh, ss (multiples of 8, unit stride on the head dim, 16-byte
-// aligned start); block is 64 or 128 and divides s2; head_dim is 64 or
-// 128.  The output is (B, KVH, S2, head_dim) at M's dtype, contiguous.
+// aligned start); block is 64 or 128 and divides s2; head_dim is 32, 64
+// or 128.  The output is (B, KVH, S2, head_dim) at M's dtype, contiguous.
 // Returns the cudaError_t of the launch (0: queued on `stream`).
 extern "C" int shift_kv_launch(const void* m, const void* k, void* out,
                                int batch, int kv_heads, int s2, int block,
@@ -268,7 +279,7 @@ extern "C" int shift_kv_launch(const void* m, const void* k, void* out,
                                void* stream) {
   using namespace pasa;
   bool ok = batch >= 1 && kv_heads >= 1 && (block == 64 || block == 128) &&
-            (head_dim == 64 || head_dim == 128) &&
+            head_dim_built(head_dim) &&
             s2 >= block && !(s2 % block) && s2 / block <= 65535 &&
             !(m_is_bf16 && !k_is_bf16) &&
             !(reinterpret_cast<uintptr_t>(m) % 16) &&

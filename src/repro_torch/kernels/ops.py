@@ -14,11 +14,10 @@ ops keyed by the policy and the dtype of the pool or cache they read
 shift op by its own modes (``shift_kv.mode_name``).  The four attention
 kernels run the fp16, fp16_fp32, fp32 and bf16_fp32 policies, with the
 output at the policy's output dtype; the float64 oracle policy raises on
-the card.  The decode, attention and shift ops take head_dim 64 or 128
-on the card and count a launch at 64 under a mode of its own
-(``"fp16/bfloat16/d64"``, ``"bf16_keys/fp16_ops/block128/d64"``); the
-paged prefill op takes 128; each raises before any launch for another
-width.  The attention ops take ``kv_valid``: the keys' columns at or past
+the card.  Every op takes head_dim 32, 64 or 128 on the card and counts
+a launch at 32 or 64 under a mode of its own (``"fp16/bfloat16/d64"``,
+``"bf16_keys/fp16_ops/block128/d32"``); each raises before any launch
+for another width.  The attention ops take ``kv_valid``: the keys' columns at or past
 it are padding (zero rows the caller added to reach a whole block), which
 the row pseudo-average counts and the softmax masks, as the reference's
 ``blocked_attention`` pads and masks.
@@ -217,7 +216,7 @@ def _paged_decode(q, k_pages, v_pages, page_table, kv_len, beta, policy,
     q, ints = _cuda_inputs(
         "paged decode", q, k_pages, v_pages,
         {"page_table": page_table, "kv_len": kv_len}, policy, quant,
-        _decode.DECODE_HEAD_DIMS,
+        _decode.HEAD_DIMS,
     )
     out = _decode.kernel_call(
         q, k_pages, v_pages, ints["page_table"], ints["kv_len"],
@@ -335,13 +334,14 @@ def _paged_prefill(q, k_pages, v_pages, page_table, chunk_start, kv_len,
         "paged prefill", q, k_pages, v_pages,
         {"page_table": page_table, "chunk_start": chunk_start,
          "kv_len": kv_len},
-        policy, quant, (_decode.HEAD_DIM,),
+        policy, quant, _decode.HEAD_DIMS,
     )
     out = _prefill.kernel_call(
         q, k_pages, v_pages, ints["page_table"], ints["chunk_start"],
         ints["kv_len"], beta=beta, policy=policy, quant=quant,
     )
-    _count(pasa_paged_prefill, _decode.mode_name(policy, k_pages.dtype))
+    _count(pasa_paged_prefill,
+           _decode.mode_name(policy, k_pages.dtype, q.shape[-1]))
     return out
 
 
@@ -516,7 +516,7 @@ def _shift_kv(k, beta, block_kv, policy):
     if block_kv not in (64, 128):
         raise NotImplementedError(
             f"the CUDA shift kernel takes block_kv 64 or 128, got {block_kv}")
-    _head_dim("shift", d, _shift.HEAD_DIMS)
+    _head_dim("shift", d, _decode.HEAD_DIMS)
     # bf16 keys under fp16 operands are rounded on chip
     if k.dtype != op and not (op == torch.float16 and k.dtype == torch.bfloat16):
         k = k.to(op)
@@ -597,7 +597,7 @@ def _attention_call(q, k, v, *, beta, policy, block_q, block_kv, causal,
                 f"the CUDA attention kernel takes {name} 64 or 128, got {block}"
             )
     d = q.shape[-1]
-    _head_dim("attention", d, _attn.HEAD_DIMS)
+    _head_dim("attention", d, _decode.HEAD_DIMS)
     op = policy.input_dtype
     # the recovery multiplier of the GEMM shift is the invariance the
     # rounded M realizes, not the ideal beta/(1-beta)
@@ -708,7 +708,7 @@ def _contiguous_decode(q, k_cache, v_cache, kv_len, beta, policy, block_kv):
     if q.device.type != "cuda":
         raise ValueError(f"no pasa_decode for device {q.device}")
     _cuda_block("block_kv", block_kv, _cdecode.MAX_BLOCK)
-    _head_dim("decode", q.shape[-1], _decode.DECODE_HEAD_DIMS)
+    _head_dim("decode", q.shape[-1], _decode.HEAD_DIMS)
     if q.shape[2] > _decode.MAX_GROUP:
         raise NotImplementedError(f"GQA group {q.shape[2]} > {_decode.MAX_GROUP}")
     if k_cache.dtype not in (torch.bfloat16, torch.float16) \

@@ -4,7 +4,7 @@ plain version.
 Counterpart of ``repro.kernels.pasa_attention`` (Algorithm 1 lines 8-23).
 
   * :func:`kernel_call` launches ``csrc/pasa_attention.cu`` (head width
-    64 or 128): one CTA per
+    32, 64 or 128): one CTA per
     (b * head, query tile) walks the key tiles in order with the state at
     the policy's dtypes - a producer warp loads K'/V tiles by TMA into a
     two-stage ring, consumer warpgroups of 64 query rows run both GEMMs
@@ -38,8 +38,6 @@ from repro_torch.core.pasa import blocked_attention
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels import _build
 from repro_torch.kernels.pasa_paged_decode import policy_scalars
-
-HEAD_DIMS = (64, 128)      # the head widths of the kernel's instances
 
 
 def _expand_kv(x: torch.Tensor, h: int) -> torch.Tensor:
@@ -93,7 +91,8 @@ def kernel_call(
     block_kv: int,
     kv_valid: Optional[int] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (D 64 or 128; columns
+    """Launch the CUDA kernel on the current stream (D in
+    ``pasa_paged_decode.HEAD_DIMS``; columns
     at or past ``kv_valid``, default S2, are padding).  Each input is read
     through its strides (unit stride on the head dim; the tensor maps need
     the others to be multiples of 8 elements).  Arguments are validated by

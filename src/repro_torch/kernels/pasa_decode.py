@@ -12,10 +12,11 @@ Counterpart of ``repro.kernels.pasa_decode``.
     bit when page == block.  The cache is read in its stored layout and
     dtype (bf16) through its strides; rows at or past ``kv_len`` are never
     read.
-  * :func:`_walk_call` launches the same source's sequential walk (one CTA
-    per (sequence, kv-head), blocks in order): the on-card oracle that
-    both cluster kernels equal bit for bit.  Only the card tests and
-    ``chip_smoke.py`` call it; no wrapper does.
+  * :func:`_walk_call` launches the sequential walk of
+    ``csrc/pasa_decode_walk.cu`` (one CTA per (sequence, kv-head), blocks
+    in order): the on-card oracle that both cluster kernels equal bit for
+    bit.  Only the card tests and ``chip_smoke.py`` call it; no wrapper
+    does.
   * :func:`decode_plain` is what the dense decode layer runs:
     ``core.pasa.blocked_attention`` at the ``shift_mask_valid``
     convention over the cache (``paged_decode_plain`` without the
@@ -24,7 +25,8 @@ Counterpart of ``repro.kernels.pasa_decode``.
 
 Both compute one new token per sequence with the GQA group as rows: q
 (B, KVH, G, D) against k/v (B, KVH, S2, D), ``kv_len`` (B,) valid rows.
-The kernel takes D 64 or 128 (one instance per width).
+The kernel takes D 32, 64 or 128 (one instance per width, the walk's
+too).
 """
 
 from __future__ import annotations
@@ -63,8 +65,10 @@ def decode_plain(
 
 
 def _entry(name: str = "pasa_decode_launch") -> ctypes._CFuncPtr:
-    fn = getattr(_build.load("pasa_decode"), name)
-    n_ptrs = 6 if name == "pasa_decode_launch" else 5   # + the workspace
+    walk = name == "pasa_decode_walk_launch"
+    fn = getattr(_build.load("pasa_decode_walk" if walk else "pasa_decode"),
+                 name)
+    n_ptrs = 5 if walk else 6   # the cluster kernel's + the workspace
     fn.argtypes = (
         [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
         + [ctypes.c_longlong] * 3 + [ctypes.c_int] + [ctypes.c_float] * 4
@@ -84,7 +88,7 @@ def kernel_call(
     policy: PrecisionPolicy,
     block_kv: int,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (D 64 or 128).
+    """Launch the CUDA kernel on the current stream (D 32, 64 or 128).
     Arguments are validated by :func:`repro_torch.kernels.ops.pasa_decode`."""
     b, kvh, g, d = q.shape
     n_blocks = -(-k_cache.shape[2] // block_kv)

@@ -20,7 +20,7 @@ bf16 or fp16; quantized pools (``runtime/paged_cache.py``) are int8 or
 float8_e4m3fn codes with per-(page, kv-head) sidecars ``scale`` (P, KVH)
 and ``shift`` (P, KVH, D), f32, dequantized as ``codes * scale + shift``
 in f32 and rounded once to the policy's input dtype.  The kernel takes
-D 64 or 128 (``DECODE_HEAD_DIMS``; one instance per width).
+D 32, 64 or 128 (:data:`HEAD_DIMS`; one instance per width).
 """
 
 from __future__ import annotations
@@ -38,8 +38,10 @@ from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels import _build
 from repro_torch.runtime.paged_cache import gather_pages, gather_pages_dequant
 
-HEAD_DIM = 128       # the head width of the wgmma kernels
-DECODE_HEAD_DIMS = (64, 128)   # the head widths of both decode kernels
+HEAD_DIM = 128       # the served head width: launch modes name any other
+# the head widths every CUDA kernel is built for (csrc/pasa_common.cuh
+# head_dim_built), one instance each
+HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16       # query heads per kv head the decode kernel holds
 MAX_PAGE = 128       # rows per page the kernels hold in shared memory
 
@@ -174,8 +176,9 @@ def kernel_call(
     policy: PrecisionPolicy,
     quant: Optional[dict] = None,   # 8-bit pools: the four f32 sidecars
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (D 64 or 128).
-    Arguments are validated by :func:`repro_torch.kernels.ops.pasa_paged_decode`."""
+    """Launch the CUDA kernel on the current stream (D in
+    :data:`HEAD_DIMS`).  Arguments are validated by
+    :func:`repro_torch.kernels.ops.pasa_paged_decode`."""
     b, kvh, g, d = q.shape
     _, page, _, _ = k_pages.shape
     max_pages = page_table.shape[1]

@@ -7,6 +7,7 @@ Counterpart of ``repro.kernels.pasa_paged_prefill``.
     visible page arrives by TMA, a converter warpgroup turns it into the
     shifted operands (at the policy's input dtype) one page ahead, two consumer warpgroups run both
     GEMMs as wgmma with the scores in registers (see the source's note).
+    One instance per head width in ``pasa_paged_decode.HEAD_DIMS``.
   * :func:`paged_prefill_plain` is the port of the reference's
     ``paged_prefill_xla``: a gather of the pages (dequantized for 8-bit
     pools, as in ``pasa_paged_decode``), then
@@ -74,7 +75,7 @@ def paged_prefill_plain(
 def _entry() -> ctypes._CFuncPtr:
     fn = _build.load("pasa_paged_prefill").pasa_paged_prefill_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float] * 4
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -82,8 +83,8 @@ def _entry() -> ctypes._CFuncPtr:
 
 
 def kernel_call(
-    q: torch.Tensor,            # (B, H, CS, 128) input dtype, contiguous
-    k_pages: torch.Tensor,      # (P, page, KVH, 128) bf16/fp16 values or
+    q: torch.Tensor,            # (B, H, CS, D) input dtype, contiguous
+    k_pages: torch.Tensor,      # (P, page, KVH, D) bf16/fp16 values or
     v_pages: torch.Tensor,      #   int8/fp8 codes, contiguous
     page_table: torch.Tensor,   # (B, max_pages) int32, contiguous
     chunk_start: torch.Tensor,  # (B,) int32
@@ -93,8 +94,9 @@ def kernel_call(
     policy: PrecisionPolicy,
     quant: Optional[dict] = None,   # 8-bit pools: the four f32 sidecars
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream.  Arguments are
-    validated by :func:`repro_torch.kernels.ops.pasa_paged_prefill`."""
+    """Launch the CUDA kernel on the current stream (D in
+    ``pasa_paged_decode.HEAD_DIMS``).  Arguments are validated by
+    :func:`repro_torch.kernels.ops.pasa_paged_prefill`."""
     b, h, cs, d = q.shape
     _, page, kvh, _ = k_pages.shape
     out = torch.empty_like(q)
@@ -103,7 +105,7 @@ def kernel_call(
         *sidecar_ptrs(quant),
         page_table.data_ptr(), chunk_start.data_ptr(), kv_len.data_ptr(),
         out.data_ptr(),
-        b, h, kvh, cs, page, page_table.shape[1], k_pages.shape[0],
+        b, h, kvh, d, cs, page, page_table.shape[1], k_pages.shape[0],
         POOL_KINDS[k_pages.dtype],
         *policy_scalars(beta, policy, d),
         torch.cuda.current_stream(q.device).cuda_stream,

@@ -4,9 +4,10 @@ plain version.
 Counterpart of ``repro.kernels.shift_kv``.
 
   * :func:`kernel_call` launches ``csrc/shift_kv.cu``: ``K'_j = M K_j``
-    per block of ``block_kv`` (64 or 128) rows at head width 64 or 128,
-    one CTA per (b * kv-head, block) of one warpgroup per 64-column half
-    of the head: TMA loads of M and of the block's key halves, wgmma
+    per block of ``block_kv`` (64 or 128) rows at head width 32, 64 or
+    128, one CTA per (b * kv-head, block) of one warpgroup per 64-column
+    half of the head (at 32 one half, zero past column 32): TMA loads of
+    M and of the block's key halves, wgmma
     with operands at M's dtype (fp16, or bf16 under the bf16_fp32 policy),
     fp32 sums in registers, one rounding to M's dtype, TMA stores.  It
     reads K through its strides (bf16 or fp16; bf16 keys under an fp16 M
@@ -26,8 +27,6 @@ import torch
 
 from repro_torch.core.shifting import shift_kv_blocks, shifting_matrix
 from repro_torch.kernels import _build
-
-HEAD_DIMS = (64, 128)      # the head widths of the kernel's instances
 
 
 def shift_kv_plain(m: torch.Tensor, k: torch.Tensor, block_kv: int,
@@ -75,8 +74,9 @@ def kernel_call(m: torch.Tensor, k: torch.Tensor, *,
 
     m: (block_kv, block_kv) fp16 or bf16, contiguous and symmetric (the
     kernel computes K'^T = K^T M; :func:`device_matrix` builds and checks
-    it); k: (B, KVH, S2, D) bf16 or fp16 (bf16 under a bf16 m), D 64 or
-    128, unit stride on the last dim, other strides multiples of 8.
+    it); k: (B, KVH, S2, D) bf16 or fp16 (bf16 under a bf16 m), D in
+    ``pasa_paged_decode.HEAD_DIMS``, unit stride on the last dim, other strides
+    multiples of 8.
     Returns (B, KVH, S2, D) at m's dtype, contiguous.  Arguments are validated by
     :func:`repro_torch.kernels.ops.shift_kv`."""
     b, kvh, s2, d = k.shape

@@ -18,7 +18,14 @@ this, other, on the same seeded inputs at ``chip_smoke.py``'s fixtures:
     the same pool quantized per page to int8 and fp8_e4m3;
   * ``shift_kv`` at fp16 operands on the dense prefill's keys (4, 4,
     1024, 128), bf16 (B, S, KVH, D) read through strides, blocks 128 and
-    64, and the same keys at fp16.
+    64, and the same keys at fp16;
+  * head_dim 64 (``/d64``): both decodes on the decode rows at KVH 4, G 8
+    (paged also from an int8 pool), ``shift_kv`` on whisper's encoder keys
+    (4, 20, 1536, 64) and ``pasa_attention`` / ``flash_attention`` at
+    fp16_fp32 on that shape with kv_valid 1500.
+
+Each worker also saves ``_build.build()``'s seconds per source (empty for
+a tree already built).
 
 It prints one line per kernel: the ms of each run (CUDA events around
 warm calls queued behind a spin kernel, as ``chip_smoke.py`` times them)
@@ -172,6 +179,64 @@ def _cases(dev):
                             ("shift_kv/fp16_keys", keys16, 128)):
         cases[name] = (lambda kk=kk, block=block: ops.shift_kv(
             kk, beta=BETA, block_kv=block, policy=FP16), 50)
+    cases.update(_hd64_cases(dev, randn))
+    return cases
+
+
+def _hd64_cases(dev, randn):
+    """The head_dim 64 cases of :func:`_cases`."""
+    import torch
+
+    from repro_torch.core.precision import FP16, FP16_FP32
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.paged_cache import quantize_kv_page
+
+    cases = {}
+    kvh, g, d, page = 4, 8, 64, 128
+    lens = DECODE_KV_LENS
+    b, n_pages = len(lens), [math.ceil(n / page) for n in lens]
+    s2 = max(n_pages) * page
+    kc = randn((b, s2, kvh, d), 30.0, torch.bfloat16)
+    vc = randn((b, s2, kvh, d), 0.0, torch.bfloat16)
+    valid = torch.arange(s2, device=dev)[None, :] < torch.tensor(
+        lens, device=dev)[:, None]
+    kc = torch.where(valid[..., None, None], kc, float("nan")).to(kc.dtype)
+    vc = torch.where(valid[..., None, None], vc, float("nan")).to(vc.dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qd = randn((b, kvh, g, d), 0.0)
+    cases["pasa_decode/d64"] = (lambda: ops.pasa_decode(
+        qd, kc.transpose(1, 2), vc.transpose(1, 2), kv_len, beta=BETA,
+        block_kv=page), 50)
+    # the same rows as pages in table order (page j of row i is page
+    # i * max_pages + j + 1; page 0 is never read)
+    mp = max(n_pages)
+    table = (torch.arange(b * mp, dtype=torch.int32, device=dev)
+             .reshape(b, mp) + 1)
+    kp = torch.cat([torch.zeros_like(kc[:1, :page]),
+                    kc.reshape(b * mp, page, kvh, d)])
+    vp = torch.cat([torch.zeros_like(vc[:1, :page]),
+                    vc.reshape(b * mp, page, kvh, d)])
+    cases["pasa_paged_decode/d64"] = (lambda: ops.pasa_paged_decode(
+        qd, kp, vp, table, kv_len, beta=BETA), 50)
+    pvalid = torch.cat([torch.zeros_like(valid[:1, :page]),
+                        valid.reshape(b * mp, page)])
+    kq, ks, kh = quantize_kv_page(kp, pvalid, "int8")
+    vq, vs, vh = quantize_kv_page(vp, pvalid, "int8")
+    cases["pasa_paged_decode/d64_int8"] = (lambda: ops.pasa_paged_decode(
+        qd, kq, vq, table, kv_len, beta=BETA, k_scale=ks, k_shift=kh,
+        v_scale=vs, v_shift=vh), 50)
+
+    keys = randn((4, 1536, 20, d), 5.0, torch.bfloat16).transpose(1, 2)
+    cases["shift_kv/d64"] = (lambda: ops.shift_kv(
+        keys, beta=BETA, block_kv=128, policy=FP16), 50)
+    rows = lambda x: torch.nn.functional.pad(x[:, :, :1500], (0, 0, 0, 36))
+    q = rows(randn((4, 20, 1536, d), 0.0))
+    k = rows(randn((4, 20, 1536, d), 2.0))
+    v = rows(randn((4, 20, 1536, d), 0.0))
+    cases["pasa_attention/d64"] = (lambda: ops.pasa_attention(
+        q, k, v, beta=BETA, policy=FP16, kv_valid=1500), 20)
+    cases["flash_attention/d64_fp16_fp32"] = (lambda: ops.flash_attention(
+        q, k, v, policy=FP16_FP32, kv_valid=1500), 20)
     return cases
 
 
@@ -184,13 +249,14 @@ def worker(tree: Path, save: Path) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    _build.build()
+    built = _build.build()
     outs, times = {}, {}
     for name, (call, iters) in _cases(dev).items():
         outs[name] = call().cpu()
         times[name] = _time_ms(call, iters)
     torch.save(outs, save.with_suffix(".pt"))
     save.with_suffix(".json").write_text(json.dumps(times))
+    save.with_suffix(".build.json").write_text(json.dumps(built))
 
 
 def main(argv=None) -> int:
@@ -222,6 +288,10 @@ def main(argv=None) -> int:
                        cwd=tree, check=True,
                        env={**os.environ, "PYTHONPATH": str(tree / "src")})
         times.append(json.loads(save.with_suffix(".json").read_text()))
+        built = json.loads(save.with_suffix(".build.json").read_text())
+        if built:
+            print(f"build ({tag}): " + ", ".join(
+                f"{name} {sec:.1f} s" for name, sec in sorted(built.items())))
     a = torch.load(out / "run0_other.pt")
     b = torch.load(out / "run1_this.pt")
     for name in times[0]:

@@ -71,7 +71,7 @@ def main(argv=None):
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.data import DataPipeline
-    from repro_torch.kernels.pasa_attention import HEAD_DIMS
+    from repro_torch.kernels.pasa_paged_decode import HEAD_DIMS
     from repro_torch.launch.mesh import make_train_mesh, refuse_production_mesh
     from repro_torch.launch.sharding import set_mesh
     from repro_torch.launch.steps import (TrainHyper, init_train_state,

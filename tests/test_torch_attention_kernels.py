@@ -191,12 +191,14 @@ def test_flash_attention_policies(pols):
 
 @pytest.mark.parametrize("pols", [(FP16, R_FP16), (BF16_FP32, R_BF16_FP32)],
                          ids=["fp16", "bf16_fp32"])
-def test_shift_kv_matches_reference_kernel(pols):
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_shift_kv_matches_reference_kernel(d, pols):
     """M and K' at the policy's input dtype: fp16, or bf16 under
-    bf16_fp32 (the modes of the CUDA shift kernel)."""
+    bf16_fp32 (the modes of the CUDA shift kernel), at each head width
+    the kernel is built for."""
     pol, rpol = pols
     rng = np.random.default_rng(3)
-    k = (rng.standard_normal((2, 4, 512, 64)) + 5.0).astype(np.float32)
+    k = (rng.standard_normal((2, 4, 512, d)) + 5.0).astype(np.float32)
     want = RK.shift_kv(jnp.asarray(k), beta=BETA, block_kv=128,
                        policy=rpol, **I)
     got = ops.shift_kv(torch.from_numpy(k), beta=BETA, block_kv=128,
@@ -205,8 +207,8 @@ def test_shift_kv_matches_reference_kernel(pols):
     np.testing.assert_allclose(_np(got), _np(want), atol=SHIFT_ATOL)
 
 
-def _decode_case(kv_lens, seed=4, stale=0.0, kvh=2, g=4):
-    b, d, s2 = 2, 64, 512
+def _decode_case(kv_lens, seed=4, stale=0.0, kvh=2, g=4, d=64):
+    b, s2 = 2, 512
     rng = np.random.default_rng(seed)
     q = (rng.standard_normal((b, kvh, g, d)) + 1.0).astype(np.float32)
     k = (rng.standard_normal((b, kvh, s2, d)) + 2.0).astype(np.float32)
@@ -217,13 +219,15 @@ def _decode_case(kv_lens, seed=4, stale=0.0, kvh=2, g=4):
     return q, k, v, np.asarray(kv_lens, np.int32)
 
 
+@pytest.mark.parametrize("d", [32, 64])
 @pytest.mark.parametrize("block_kv", [128, 256])
 @pytest.mark.parametrize("kv_lens", [[300, 77], [512, 512]])
 @pytest.mark.parametrize("beta", [0.0, 0.9375])
-def test_pasa_decode_matches_reference(kv_lens, beta, block_kv):
+def test_pasa_decode_matches_reference(kv_lens, beta, block_kv, d):
     """At block 128 (the served block) and 256 (the op's default, as the
-    reference's)."""
-    q, k, v, kv_len = _decode_case(kv_lens)
+    reference's), at head widths 32 (the reference's kernel tests') and
+    64."""
+    q, k, v, kv_len = _decode_case(kv_lens, d=d)
     (jq, jk, jv, jl), (tq, tk, tv, tl) = _both(q, k, v, kv_len)
     got = ops.pasa_decode(tq, tk, tv, tl, beta=beta, policy=FP16,
                           block_kv=block_kv)

@@ -123,9 +123,12 @@ def test_unsupported_inputs_raise_instead_of_falling_back():
         ops.pasa_paged_decode(q, kp, vp, table, kvl, policy=F64)
     with pytest.raises(ValueError):
         ops.pasa_paged_decode(q, kp, vp, table, kvl, block_kv=64)
+    # a head width no instance is built for (48) raises before any launch
+    ops.reset_launches()
     with pytest.raises(NotImplementedError):
-        ops.pasa_paged_decode(q[..., :32], kp[..., :32].contiguous(),
-                              vp[..., :32].contiguous(), table, kvl)
+        ops.pasa_paged_decode(q[..., :48], kp[..., :48].contiguous(),
+                              vp[..., :48].contiguous(), table, kvl)
+    assert ops.pasa_paged_decode.launches == 0
 
 
 def _quantized(kp, vp, table, seq_lens, dtype):
@@ -371,7 +374,7 @@ def test_unsupported_dense_inputs_raise_before_any_launch():
     with pytest.raises(NotImplementedError):
         ops.pasa_attention(q2, k2, k2, block_q=256, block_kv=256)
     with pytest.raises(NotImplementedError):
-        ops.pasa_attention(q[..., :32], k[..., :32], k[..., :32])
+        ops.pasa_attention(q[..., :48], k[..., :48], k[..., :48])
     with pytest.raises(ValueError):
         ops.pasa_attention(q[:, :, :100], k, k)
     with pytest.raises(ValueError):                 # a pad of a whole block
@@ -385,23 +388,22 @@ def test_unsupported_dense_inputs_raise_before_any_launch():
     for block in (32, 256):         # the shift kernel takes 64 or 128
         with pytest.raises(NotImplementedError):
             ops.shift_kv(k2, block_kv=block)
-    # head widths: the decodes, attention and shift-KV take 64 and 128;
-    # paged prefill 128 only
+    # head widths: every kernel is built for 32, 64 and 128; 48 (a
+    # multiple of 16 that no instance takes) raises in every op
     with pytest.raises(NotImplementedError):
-        ops.shift_kv(k[..., :32].contiguous())
+        ops.shift_kv(k[..., :48].contiguous())
     with pytest.raises(NotImplementedError):
-        ops.flash_attention(q[..., :32], k[..., :32], k[..., :32])
-    pool = torch.zeros((2, 128, 2, 64), dtype=torch.bfloat16, device=dev)
+        ops.flash_attention(q[..., :48], k[..., :48], k[..., :48])
+    pool = torch.zeros((2, 128, 2, 48), dtype=torch.bfloat16, device=dev)
     table = torch.ones((1, 1), dtype=torch.int32, device=dev)
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(NotImplementedError):
-        ops.pasa_paged_prefill(q[:, :, :16, :64].contiguous(), pool, pool,
+        ops.pasa_paged_prefill(q[:, :, :16, :48].contiguous(), pool, pool,
                                table, zero, kvl)
     with pytest.raises(NotImplementedError):
-        ops.pasa_decode(qd[..., :32], k[..., :32], k[..., :32], kvl)
+        ops.pasa_decode(qd[..., :48], k[..., :48], k[..., :48], kvl)
     with pytest.raises(NotImplementedError):
-        ops.pasa_paged_decode(qd[..., :32], pool[..., :32].contiguous(),
-                              pool[..., :32].contiguous(), table, kvl)
+        ops.pasa_paged_decode(qd[..., :48], pool, pool, table, kvl)
     assert ops.shift_kv.launches == ops.pasa_attention.launches == 0
     assert ops.flash_attention.launches == ops.pasa_paged_prefill.launches == 0
     assert ops.pasa_decode.launches == ops.pasa_paged_decode.launches == 0
@@ -657,10 +659,10 @@ def test_attention_kernel_overflow_headline():
     assert torch.isfinite(good.float()).all()
 
 
-def _prefill_pool(rng, seq_lens, kvh, page, dev, pool):
+def _prefill_pool(rng, seq_lens, kvh, page, dev, pool, d=128):
     """A shuffled pool for prefill rows (NaN past each length), raw bf16
     or quantized per page to ``pool``; returns (k, v, table, sidecars)."""
-    kp, vp, table = _pool(rng, seq_lens, kvh, page, dev)
+    kp, vp, table = _pool(rng, seq_lens, kvh, page, dev, d=d)
     if pool == "bf16":
         return kp, vp, table, {}
     kq, vq, quant, _ = _quantized(kp, vp, table, seq_lens, pool)
@@ -1312,3 +1314,208 @@ def test_whisper_on_card_batched_equals_one_at_a_time():
     for i in range(3):
         alone = run(prompts[i:i + 1], enc[i:i + 1])
         np.testing.assert_array_equal(alone[0], streams[i])
+
+
+# head_dim 32, every kernel, at the reference's kernel-test shapes
+# (tests/test_kernels.py, tests/test_paged.py, tests/test_prefix_cache.py,
+# tests/test_kv_quant.py), and head_dim 64 of paged prefill; each launch
+# counted under its ``/d32`` (``/d64``) mode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ALL_MODES, ids=lambda p: p.name)
+def test_decodes_at_head_dim_32(policy):
+    """Contiguous decode at (2, 2, G 4, 512, 32), kv 300 / 77, blocks 128
+    and 256: the cluster kernel == its walk bit for bit, each within the
+    decode bar of its plain version and relative RMSE 0.03 of float64;
+    paged decode at page 64 (b 2, KVH 2, G 4, kv 100 / 37, shuffled pages,
+    NaN past kv_len) == contiguous decode at block 64 on the same rows,
+    bit for bit, and within the bar of its plain version."""
+    dev = _card()
+    rng = np.random.default_rng(51)
+    d, kvh, g = 32, 2, 4
+    kc = _randn(rng, (2, 512, kvh, d), 2.0, dev, torch.bfloat16)
+    vc = _randn(rng, (2, 512, kvh, d), 0.0, dev, torch.bfloat16)
+    q = _randn(rng, (2, kvh, g, d), 1.0, dev)
+    qp = q.to(policy.input_dtype)
+    kv_lens = [300, 77]
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    gold = _decode_gold(q, kc, vc, kv_lens)
+    kview, vview = kc.transpose(1, 2), vc.transpose(1, 2)
+    mode = dmod.mode_name(policy, torch.bfloat16, d)
+    assert mode.endswith("/d32")
+    for beta in (0.0, BETA):
+        for block in (128, 256):
+            ops.reset_launches()
+            got = ops.pasa_decode(q, kview, vview, kvl, beta=beta,
+                                  policy=policy, block_kv=block)
+            assert ops.pasa_decode.launches_by_mode == {mode: 1}
+            walk = cmod._walk_call(qp, kview, vview, kvl, beta=beta,
+                                   policy=policy, block_kv=block)
+            assert got.dtype == policy.out_dtype
+            assert torch.equal(got, walk), (beta, block)
+            plain = cmod.decode_plain(q, kview, vview, kvl, beta=beta,
+                                      policy=policy, block_kv=block)
+            torch.testing.assert_close(got.float(), plain.float(),
+                                       **DECODE_TOL)
+            assert _rel_rmse(got, gold) < 0.03
+    page, lens = 64, [100, 37]
+    kp, vp, table = _pool(rng, lens, kvh, page, dev, d=d)
+    n = table.shape[1] * page
+    kcp = kp[table.long()].reshape(2, n, kvh, d)
+    vcp = vp[table.long()].reshape(2, n, kvh, d)
+    kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for beta in (0.0, BETA):
+        ops.reset_launches()
+        paged = ops.pasa_paged_decode(q, kp, vp, table, kvl, beta=beta,
+                                      policy=policy)
+        assert ops.pasa_paged_decode.launches_by_mode == {mode: 1}
+        contiguous = ops.pasa_decode(q, kcp.transpose(1, 2),
+                                     vcp.transpose(1, 2), kvl, beta=beta,
+                                     policy=policy, block_kv=page)
+        assert torch.equal(paged, contiguous), beta
+        plain = dmod.paged_decode_plain(q, kp, vp, table, kvl, beta=beta,
+                                        policy=policy, block_kv=page)
+        torch.testing.assert_close(paged.float(), plain.float(), **DECODE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("policy", ALL_MODES, ids=lambda p: p.name)
+def test_quantized_paged_decode_at_head_dim_32(policy, dtype):
+    """The quantized mode of paged decode at head_dim 32 (b 2, KVH 2, G 4,
+    page 64, kv 100 / 37): within the decode bar of its plain version on
+    the same codes and sidecars, within the dtype's RMSE bound of float64
+    on the unquantized K/V (fp16: max(2 x the raw pool's, the bound)),
+    NaN debris past kv_len and NaN sidecars on dead pages inert."""
+    dev = _card()
+    rng = np.random.default_rng(52)
+    kvh, g, d, page, lens = 2, 4, 32, 64, [100, 37]
+    kp, vp, table = _pool(rng, lens, kvh, page, dev, d=d)
+    kq, vq, quant, valid = _quantized(kp, vp, table, lens, dtype)
+    q = _randn(rng, (2, kvh, g, d), 0.0, dev)
+    kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    gold = _paged_gold(q, kp, vp, table, [0] * 2, lens, causal=False)
+    raw = ops.pasa_paged_decode(q, kp, vp, table, kvl, beta=BETA, policy=FP16)
+    ops.reset_launches()
+    got = ops.pasa_paged_decode(q, kq, vq, table, kvl, beta=BETA,
+                                policy=policy, **quant)
+    assert ops.pasa_paged_decode.launches_by_mode == {
+        dmod.mode_name(policy, kq.dtype, d): 1}
+    want = dmod.paged_decode_plain(q, kq, vq, table, kvl, beta=BETA,
+                                   policy=policy, block_kv=page, **quant)
+    torch.testing.assert_close(got.float(), want.float(), **DECODE_TOL)
+    bound = QUANT_RMSE_BOUND[dtype]
+    if policy is FP16:
+        bound = max(2.0 * _rel_rmse(raw, gold), bound)
+    assert _rel_rmse(got, gold) <= bound
+    bad = float("nan") if dtype == "fp8_e4m3" else 127.0
+    stale = ~valid[..., None, None]
+    kq2, vq2 = (torch.where(stale, bad, x.float()).to(x.dtype) for x in (kq, vq))
+    dead = ~valid.any(1)
+    quant2 = {n: torch.where(dead.reshape((-1,) + (1,) * (x.dim() - 1)),
+                             float("nan"), x) for n, x in quant.items()}
+    dirty = ops.pasa_paged_decode(q, kq2, vq2, table, kvl, beta=BETA,
+                                  policy=policy, **quant2)
+    assert torch.equal(got, dirty)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fp16", "bf16_keys", "bf16_fp32"])
+@pytest.mark.parametrize("block", [64, 128])
+def test_shift_kernel_at_head_dim_32(block, mode):
+    """The shift kernel at head_dim 32 (one warpgroup over a zero-padded
+    64-column half) against its plain version and the float64 product
+    with the same M, on keys of mean 2 at (1, 5, 384, 32) read through the
+    (B, S, KVH, D) strides of a projection, and on contiguous keys;
+    launches counted under the ``/d32`` mode."""
+    dev = _card()
+    rng = np.random.default_rng(53)
+    policy = BF16_FP32 if mode == "bf16_fp32" else FP16
+    kdt = torch.float16 if mode == "fp16" else torch.bfloat16
+    op, d = policy.input_dtype, 32
+    for b, kvh, s, strided in ((1, 5, 384, True), (2, 3, 3 * block, False)):
+        k = _randn(rng, (b, s, kvh, d), 2.0, dev, kdt).transpose(1, 2)
+        if not strided:
+            k = k.contiguous()
+        ops.reset_launches()
+        got = ops.shift_kv(k, beta=BETA, block_kv=block, policy=policy)
+        assert ops.shift_kv.launches_by_mode == {
+            smod.mode_name(kdt, op, block, d): 1}
+        assert got.dtype == op and got.is_contiguous()
+        assert got.shape == (b, kvh, s, d)
+        m = smod.device_matrix(block, d, BETA, op, dev)
+        want = smod.shift_kv_plain(m, k.to(op), block, out_dtype=op)
+        torch.testing.assert_close(got.float(), want.float(), **SHIFT_TOL)
+        gold = torch.matmul(m.double(), k.to(op).double().reshape(
+            b, kvh, s // block, block, d)).reshape(b, kvh, s, d)
+        assert float((got.double() - gold).norm() / gold.norm()) \
+            < SHIFT_RMSE_MAX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("policy", ALL_MODES, ids=lambda p: p.name)
+def test_attention_kernel_at_head_dim_32(policy, causal):
+    """The attention kernel at the reference's kernel-test shape (1, 5, 5,
+    384, 32), blocks 128 / 128, keys of mean 2, PASA at BETA and
+    FlashAttention-2, against the plain version, whole keys and keys
+    zero-padded past kv_valid 300; launches counted under ``/d32``."""
+    dev = _card()
+    rng = np.random.default_rng(54)
+    d, s = 32, 384
+    for valid in (None, 300):
+        n = s if valid is None else valid
+        q = _padded_rows(_randn(rng, (1, 5, n, d), 0.0, dev), s)
+        k = _padded_rows(_randn(rng, (1, 5, n, d), 2.0, dev), s)
+        v = _padded_rows(_randn(rng, (1, 5, n, d), 0.0, dev), s)
+        for beta in (0.0, BETA):
+            ops.reset_launches()
+            fn = ops.flash_attention if beta == 0.0 else \
+                functools.partial(ops.pasa_attention, beta=BETA)
+            got = fn(q, k, v, policy=policy, causal=causal, kv_valid=valid)
+            want = amod.attention_plain(q, k, v, beta=beta, policy=policy,
+                                        block_kv=128, causal=causal,
+                                        kv_valid=valid)
+            assert got.dtype == policy.out_dtype
+            torch.testing.assert_close(got[:, :, :n].float(),
+                                       want[:, :, :n].float(),
+                                       **ATTN_TOL[causal or beta == 0.0])
+            wrapper = ops.flash_attention if beta == 0.0 \
+                else ops.pasa_attention
+            assert wrapper.launches_by_mode == {
+                dmod.mode_name(policy, torch.float16, d): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("d,page", [(32, 16), (64, 16), (64, 128)])
+def test_prefill_kernel_at_head_dims_32_and_64(d, page, pool):
+    """The paged prefill kernel at head_dim 32 and 64 against its plain
+    version: b 2 + a pad row, H 4 over KVH 2, chunks of 64 queries at
+    starts 0 and 48 (off the page), raw and 8-bit pools, the four
+    policies, PASA and FlashAttention-2; launches under ``/d32`` (``/d64``)."""
+    dev = _card()
+    rng = np.random.default_rng(55)
+    kvh, h, cs = 2, 4, 64
+    start, plen = [0, 48, 0], [64, 112, 0]
+    kp, vp, table, quant = _prefill_pool(rng, plen, kvh, page, dev, pool,
+                                         d=d)
+    table[2] = 0
+    q = _randn(rng, (3, h, cs, d), 1.0, dev)
+    st = torch.tensor(start, dtype=torch.int32, device=dev)
+    pl = torch.tensor(plen, dtype=torch.int32, device=dev)
+    for policy in ALL_MODES:
+        for beta in (0.0, BETA):
+            ops.reset_launches()
+            got = ops.pasa_paged_prefill(q, kp, vp, table, st, pl, beta=beta,
+                                         policy=policy, **quant)
+            assert ops.pasa_paged_prefill.launches_by_mode == {
+                dmod.mode_name(policy, kp.dtype, d): 1}
+            want = pmod.paged_prefill_plain(q, kp, vp, table, st, pl,
+                                            beta=beta, policy=policy, **quant)
+            assert got.dtype == policy.out_dtype
+            assert torch.isfinite(got.float()).all()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **PREFILL_TOL)
+            assert not got[2].any()

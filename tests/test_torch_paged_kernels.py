@@ -64,11 +64,11 @@ def _decode_case(seed=0, kvh=2, g=3, d=32):
     return q, k, v, table, kv_len
 
 
-def _prefill_case(seed=1):
+def _prefill_case(seed=1, d=32):
     """Rows at chunk starts 0 / 16 / 32 with a ragged last chunk, plus a
     dead pad row (kv_len 0, all-null table)."""
     rng = np.random.default_rng(seed)
-    h, kvh, cs, d, page = 4, 2, 16, 32, 16
+    h, kvh, cs, page = 4, 2, 16, 16
     start = np.array([0, 16, 32, 0], np.int32)
     kv_len = np.array([16, 32, 41, 0], np.int32)
     k, v, table = _pool(rng, kv_len, kvh, d, page)
@@ -107,10 +107,13 @@ def _check_decode_plain(case, ref_route, beta):
     np.testing.assert_allclose(got, np.asarray(ref, np.float32), **DECODE_TOL)
 
 
+@pytest.mark.parametrize("d", [32, 64])
 @pytest.mark.parametrize("beta", [0.0, BETA])
 @pytest.mark.parametrize("ref_route", ["xla", "pallas_interpret"])
-def test_prefill_plain_matches_reference(ref_route, beta):
-    q, k, v, table, start, kv_len = _prefill_case()
+def test_prefill_plain_matches_reference(ref_route, beta, d):
+    """At head widths 32 (the reference's kernel tests') and 64, both
+    built into the CUDA prefill kernel."""
+    q, k, v, table, start, kv_len = _prefill_case(d=d)
     kw = (dict(use_kernel=False) if ref_route == "xla"
           else dict(interpret=True, block_q=16))
     ref = RK.pasa_paged_prefill(
