@@ -8,7 +8,8 @@ Run from the repository root on a machine with one CUDA card:
 ``python3 chip_smoke.py --train-only`` (``--multi-only``) builds the two
 kernels phase 15 (16) runs and runs that phase alone, with no result
 line; ``--tools-only`` does so for phase 17, ``--modes-only`` (every
-kernel built) for phase 18.  ``--multi-only --half-batch`` feeds every rank of phase 16's
+kernel built) for phase 18, ``--pages-only`` (every kernel built) for
+phase 19.  ``--multi-only --half-batch`` feeds every rank of phase 16's
 data-parallel runs slice 0 of the batch, prints the readings and fails
 unless the gates refuse them.
 
@@ -179,7 +180,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      G 4 also their 8-bit pools, shift-KV on 8 kv heads and the causal
      attention kernel (4, 32, 8, 1024, 128); each timed beside its plain
      version and library call.
-     Then qwen3-4b at full width with its depth cut to QWEN3_LAYERS (12
+     Then qwen3-4b at full width with its depth cut to QWEN3_LAYERS (6
      of its 36 layers since the smoke's time outgrew its aim; d 2560, 32
      / 8 heads, qk-norm, vocab 151,936; random weights from seed 0):
      ``serve_qwen3_4b_<pool>`` (bf16, int8, fp8_e4m3: phase 3's workload,
@@ -202,13 +203,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      kv_valid inert, timed beside its library call; and contiguous
      decode at G 8 at the self layers' call (kv 48 of a 72-row cache).
      ``serve_vlm``:
-     llama-3.2-vision-90b at full width with its depth cut to 10 of its
-     100 layers (2 groups of one cross and 4 self layers; random weights
+     llama-3.2-vision-90b at full width with its depth cut to 5 of its
+     100 layers (a group of one cross and 4 self layers; random weights
      from seed 0, the tanh gates set to 0.5 - at the reference's init, 0,
      no cross layer would reach the logits), four 32-token prompts with
      their images (vision_embeds (4, 1601, 1280) from seed 0), 32 greedy
-     tokens each: per step 8 contiguous decodes at G 8, 2 shift-KV and 2
-     attention launches and no other kernel; batched == one-at-a-time
+     tokens each: per step 4 contiguous decodes at G 8, 1 shift-KV and 1
+     attention launch and no other kernel; batched == one-at-a-time
      streams; the first generated step within HYBRID_LOGIT_ATOL of the
      plain versions and no farther from them at fp32 than
      DENSE_FP32_RATIO x theirs; another image moves those logits.
@@ -220,7 +221,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the kernels line the contiguous decode's G 8 entry has the vlm
      serve's count, and the three entries of ``check_vlm_cross`` their
      modes' counts;
- 13. the moe family: olmoe-1b-7b at full width with its depth cut to 8
+ 13. the moe family: olmoe-1b-7b at full width with its depth cut to 4
      of its 16 layers (d 2048, 16 / 16 heads of 128, qk-norm, 64 experts
      of width 1024, top-8; random weights from seed 0).  In phase 11 ``check_groups``
      holds each kernel at its KVH 16, G 1 (tag ``g1o``: both paged
@@ -317,8 +318,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      step of the whole model against the one-device step (loss within
      MULTI_LOSS_ATOL, gradient norm MULTI_GNORM_RTOL), the replicated
      leaves the same bits on both ranks.  16b, data parallel (qwen3-4b,
-     2 of 36 layers, a 2 x 1 mesh, global batch 2 x 1,024): 3 steps
-     against 3 one-device steps on the whole batch (the same bars), the
+     2 of 36 layers, a 2 x 1 mesh, global batch 2 x 1,024): MULTI_STEPS
+     (2) steps against as many one-device steps on the whole batch (the
+     same bars), the
      card's peak (both ranks' and what this process holds) at most
      MULTI_PEAK_GB.  16c: the same from the same state through the
      compressed step on a pod axis of 2: the losses and gradient norms
@@ -364,6 +366,35 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      library call and its bound.  In the kernels line each entry has its
      launches in that pass (``/d32``, ``/d64`` modes), which no serve runs.
      ``--modes-only`` builds every kernel and runs phase 18 alone.
+ 19. every page size the reference serves, right after phase 3 with its
+     weights: the paged decode kernel at pages 1, 8, 16, 48, 128 and 256
+     and blocks 128 and 256 of the page-table view (PAGES_*), head_dim
+     128 (KVH 4, G 7) and 64 (KVH 4, G 8), bf16, int8 and fp8_e4m3
+     pools, fp16 PASA at BETA and bf16_fp32 FlashAttention-2, on a paged
+     serve's decode rows (kv 1002 / 519 / 302 / 131): bit for bit
+     contiguous decode at the same block on the same rows (an 8-bit
+     pool's dequantized as the kernel loads them) and its walk, within
+     the decode bars of the plain version; the paged prefill kernel at
+     pages 8, 16, 48 and 256 (256: pasa_paged_prefill_wide.cu) on phase
+     2's prefill rows from each pool in both modes, within the prefill
+     bars of the plain version and the float64 RMSE bars, a pad row of
+     zeros, bit-invariant to a page-aligned chunk cut; stale bytes (NaN
+     past kv_len, 8-bit debris, NaN sidecars on dead pages) inert.  The
+     cases run page by page, every launch count set to 0 just before a
+     page's pass and read just after.  Then ``serve_pages``: qwen2-7b at
+     full width with its depth cut to PAGES_LAYERS, block_kv 128, phase
+     3's workload at page 16 and at page 128 from a bf16 and an int8 pool
+     (requests 0 and 3 alone == batched, every launch counted, tok/s,
+     TTFT and decode ms side by side), the prefix cache at page 16 (hits
+     == ``chunked_cold_reference``), and the page-16 first step (the
+     first prefill call's logits) within DENSE_LOGIT_ATOL of the plain
+     paged versions and no farther from them at fp32 than
+     DENSE_FP32_RATIO x theirs.  Both paged kernels are timed at the
+     serve's call shapes at pages 16 and 8 (prefill also 256) beside the
+     plain version, SDPA and the bound.  In the kernels line each page
+     entry has the page-16 serve's count (page 16) or its pass's count
+     (page 8, 256).  ``--pages-only`` builds every kernel and runs phase
+     19 alone, the weights built at its depth.
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -482,7 +513,8 @@ BF16_PASA_RMSE_RATIO = 1.25
 # phase 11: the GQA groups of the dense configs at head_dim 128, (arch,
 # KVH, G): qwen3-4b's 4, qwen3-14b's 5, qwen3-32b's 8, qwen1.5-32b's 1
 # (KVH 40); qwen3-4b served at full width on both routes with its depth
-# cut to QWEN3_LAYERS of 36 (36 until the smoke's time outgrew its aim),
+# cut to QWEN3_LAYERS of 36 (36 until the smoke's time outgrew its aim,
+# 12 until phase 19 came),
 # the requests QWEN3_ALONE one at a time, token by token on
 # QWEN3_TBT_PROMPTS;
 # the tenant serve (qwen2-7b): requests TENANT_LATENCY are tenant
@@ -496,7 +528,7 @@ GROUP_SHAPES = (("qwen3-4b", 8, 4), ("qwen3-14b", 8, 5), ("qwen3-32b", 8, 8),
 # kernel at their dense prefill (qwen3-4b phase 11, olmoe-1b-7b phase 13)
 SERVED_GROUPS = {"qwen3-4b": ("g4", QUANT_DTYPES),
                  "olmoe-1b-7b": ("g1o", ("int8",))}
-QWEN3_LAYERS = 12
+QWEN3_LAYERS = 6
 QWEN3_ALONE = (0, 3)
 QWEN3_TBT_PROMPTS = (129, 17)
 # the dense route's first step (the fused prefill's logits, qwen2-7b and
@@ -517,9 +549,9 @@ TENANT_LATENCY = (0, 2)
 TENANT_QUOTA = dict(max_pages=6, max_step_tokens=256)
 TENANT_SLOTS = 2
 # phase 12: llama-3.2-vision-90b at full width with its depth cut to
-# VLM_LAYERS of 100 (2 groups: 2 cross + 8 self layers, bf16 weights and
-# an fp32 head; 20 layers until the smoke's time outgrew its aim, 100
-# would be ~180 GB), its gates set to
+# VLM_LAYERS of 100 (one group: a cross and 4 self layers, bf16 weights
+# and an fp32 head; 20, then 10 layers until the smoke's time outgrew its
+# aim, 100 would be ~180 GB), its gates set to
 # VLM_GATE (at the reference's init, 0, no cross layer reaches the
 # logits); its image cross call: one query row padded to 64, 64 query
 # heads over 8 kv heads (G 8), VLM_IMAGE_TOKENS keys in VLM_S2 rows.  The
@@ -534,7 +566,7 @@ TENANT_SLOTS = 2
 # the last prompt step's logits through the decode within MAMBA_FWD_TOL
 # (the reference's test_ssm_decode_matches_forward) of _ssm_forward on
 # the whole prompt
-VLM_LAYERS, VLM_GATE = 10, 0.5
+VLM_LAYERS, VLM_GATE = 5, 0.5
 VLM_IMAGE_TOKENS, VLM_S2 = 1601, 1664
 VLM_BATCH, VLM_PROMPT, VLM_MAX_LEN = 4, 32, 72
 VLM_ALONE = (0, 3)
@@ -542,10 +574,11 @@ MAMBA_BATCH, MAMBA_PROMPT = 4, 64
 MAMBA_ALONE = (0, 3)
 MAMBA_FWD_TOL = dict(atol=0.25, rtol=0.1)
 # phase 13: olmoe-1b-7b at full width with its depth cut to OLMOE_LAYERS
-# of 16 (16 until the smoke's time outgrew its aim); at capacity factor
+# of 16 (16 until the smoke's time outgrew its aim, 8 until phase 19
+# came); at capacity factor
 # E / k = 8 (nothing dropped) the requests OLMOE_ALONE are served one at
 # a time and the prompts OLMOE_TBT_PROMPTS token by token
-OLMOE_LAYERS = 8
+OLMOE_LAYERS = 4
 OLMOE_ALONE = (0, 3)
 OLMOE_TBT_PROMPTS = (129, 17)
 
@@ -614,6 +647,25 @@ KERNEL_FILES = {
     "pasa_attention": ("src/repro_torch/kernels/csrc/pasa_attention.cu",
                        "src/repro/kernels/pasa_attention.py:218"),
 }
+
+
+def _kernel_source(entry: str):
+    """(source, replaces) of a kernels-line entry named ``kernel/tag``:
+    paged decode builds one source a pool type, paged prefill one for bf16
+    / fp16 and one for 8-bit pools, each again for the 256-row tile
+    (pages over 128 rows, tag ``page256``)."""
+    kernel, _, tag = entry.partition("/")
+    if kernel == "shift_kv":
+        return ("src/repro_torch/kernels/csrc/shift_kv.cu",
+                "src/repro/kernels/shift_kv.py:48")
+    source, replaces = KERNEL_FILES[kernel]
+    pool = next((p for p in ("int8", "fp8") if p in tag), None)
+    if kernel == "pasa_paged_decode" and pool:
+        source = source.replace(".cu", f"_{pool}.cu")
+    elif kernel == "pasa_paged_prefill":
+        source = source.replace(".cu", ("_wide" if "page256" in tag else "")
+                                + ("_q8" if pool else "") + ".cu")
+    return source, replaces
 
 
 def _caster(*tensors):
@@ -1081,7 +1133,7 @@ def _mode_entry(name, per_mode, keys):
 
 
 def _quant_mode_entry(name, dtype, held, ms, plain_ms, lib_ms, nbytes, flops):
-    source, replaces = KERNEL_FILES[name]
+    source, replaces = _kernel_source(f"{name}/{dtype}")
     return dict(
         name=f"{name}/{dtype}", route="cuda", source=source,
         replaces=replaces,
@@ -2124,26 +2176,27 @@ def _finite_bundle(bundle, finite):
         if getattr(bundle, name) is not None})
 
 
-def _paged_workload(cfg, cache_dtype):
-    """The paged phase's four prompts (seed 0) and engine arguments."""
+def _paged_workload(cfg, cache_dtype, page=128):
+    """The paged phase's four prompts (seed 0) and engine arguments, at
+    ``page``-row pages."""
     import numpy as np
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in SERVE_PROMPTS]
-    kw = dict(max_batch=4, page_size=128, prefill_chunk=512, prefill_batch=4,
-              num_pages=1 + sum(math.ceil((n + SERVE_GEN - 1) / 128)
+    kw = dict(max_batch=4, page_size=page, prefill_chunk=512, prefill_batch=4,
+              num_pages=1 + sum(math.ceil((n + SERVE_GEN - 1) / page)
                                 for n in SERVE_PROMPTS),
               max_seq_len=max(SERVE_PROMPTS) + SERVE_GEN,
               cache_dtype=cache_dtype)
     return prompts, kw
 
 
-def serve(dev, bundle, params, cache_dtype="bf16", alone=None):
+def serve(dev, bundle, params, cache_dtype="bf16", alone=None, page=128):
     """The bundle's model (qwen2-7b, qwen3-4b) at full width through the
-    engine from a ``cache_dtype`` page pool (the attention impl and
-    policy of ``bundle.cfg``); the requests ``alone`` (default: all)
-    served one at a time give their batched streams; returns the
-    report."""
+    engine from a ``cache_dtype`` pool of ``page``-row pages (the
+    attention impl, policy and block of ``bundle.cfg``); the requests
+    ``alone`` (default: all) served one at a time give their batched
+    streams; returns the report."""
     import torch
 
     from repro_torch.kernels import ops
@@ -2151,7 +2204,7 @@ def serve(dev, bundle, params, cache_dtype="bf16", alone=None):
 
     cfg = bundle.cfg
     torch.cuda.reset_peak_memory_stats()
-    prompts, kw = _paged_workload(cfg, cache_dtype)
+    prompts, kw = _paged_workload(cfg, cache_dtype, page)
 
     finite = []
     bundle = _finite_bundle(bundle, finite)
@@ -2219,7 +2272,8 @@ def serve(dev, bundle, params, cache_dtype="bf16", alone=None):
     n_tok = sum(len(s) for s in streams)
     return dict(
         arch=cfg.arch_id, layers=n_layers, d_model=cfg.d_model,
-        impl=cfg.attention.impl, cache_dtype=cache_dtype,
+        impl=cfg.attention.impl, cache_dtype=cache_dtype, page=page,
+        block_kv=cfg.attention.block_kv,
         pool_bytes=pool_bytes, prompts=list(SERVE_PROMPTS), gen=SERVE_GEN,
         steps=len(marks), prefill_calls=n_prefill, decode_calls=n_decode,
         served_alone=list(range(len(prompts)) if alone is None else alone),
@@ -2507,13 +2561,14 @@ def _page_bytes(pool, pages):
             for name, x in pool.items()}
 
 
-def serve_prefix(dev, bundle, params, cache_dtype):
-    """The prefix cache at full width from a ``cache_dtype`` pool: three
-    prompts sharing a 768-token prefix (suffixes 232, 105, 40; 16 tokens
-    each).  The first is served cold and donates its seven full prompt
-    pages; the other two hit six of them together (prefill chunks starting
-    at 768, a page multiple but not a chunk multiple); the first again hits
-    seven.  Every stream equals ``chunked_cold_reference`` (a fresh engine,
+def serve_prefix(dev, bundle, params, cache_dtype, page=128):
+    """The prefix cache at full width from a ``cache_dtype`` pool of
+    ``page``-row pages: three prompts sharing a 768-token prefix (suffixes
+    232, 105, 40; 16 tokens each).  The first is served cold and donates
+    its full prompt pages (seven at page 128); the other two hit the
+    shared prefix's pages together (six at page 128: prefill chunks
+    starting at 768, a page multiple but not a chunk multiple); the first
+    again hits all of its own.  Every stream equals ``chunked_cold_reference`` (a fresh engine,
     cache off), and the cached pages' bytes, sidecars included, are the
     same after the hits as after the cold serve."""
     import numpy as np
@@ -2529,10 +2584,9 @@ def serve_prefix(dev, bundle, params, cache_dtype):
     shared = rng.integers(0, cfg.vocab_size, PREFIX_SHARED).tolist()
     prompts = [shared + rng.integers(0, cfg.vocab_size, n).tolist()
                for n in PREFIX_SUFFIXES]
-    page = 128
     kw = dict(page_size=page, prefill_chunk=512, cache_dtype=cache_dtype)
     ops.reset_launches()
-    eng = ServeEngine(bundle, params, max_batch=2, num_pages=40,
+    eng = ServeEngine(bundle, params, max_batch=2, num_pages=40 * 128 // page,
                       max_seq_len=max(len(p) for p in prompts) + PREFIX_GEN,
                       prefix_cache=True, **kw)
     cold = eng.submit(prompts[0], PREFIX_GEN)
@@ -2579,7 +2633,7 @@ def serve_prefix(dev, bundle, params, cache_dtype):
     n_tok = PREFIX_GEN * len(reqs)
     wall = m_cold[-1] + m_hits[-1] + m_again[-1]
     return dict(
-        cache_dtype=cache_dtype, shared=PREFIX_SHARED,
+        cache_dtype=cache_dtype, page=page, shared=PREFIX_SHARED,
         prompts=[len(p) for p in prompts], gen=PREFIX_GEN,
         cached_len=[r.cached_len for r in reqs],
         ttft_cold_ms=ttft(m_cold, cold, 0),
@@ -3764,9 +3818,7 @@ def _decode_library_ms(q, kview, vview, kv_len, quant=None, table=None):
 
 
 def _group_entry(name, tag, arch, kvh, g, **fields):
-    source, replaces = KERNEL_FILES.get(name, (
-        "src/repro_torch/kernels/csrc/shift_kv.cu",
-        "src/repro/kernels/shift_kv.py:48"))
+    source, replaces = _kernel_source(f"{name}/{tag}")
     return dict(name=f"{name}/{tag}", route="cuda", source=source,
                 replaces=replaces, arch=arch, kvh=kvh, group=g, **fields)
 
@@ -4046,21 +4098,23 @@ def _dense_prompts(cfg, dev):
         0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT), dtype=np.int32)).to(dev)
 
 
-def _first_step_gaps(first, tag, atol):
+def _first_step_gaps(first, tag, atol, plain_ops=None):
     """``first()`` (a first step's logits from fresh state) through the
     kernels, through their plain versions at the serve's policy and
-    through the plain versions at fp32.  Held: the kernels within
-    ``atol`` of the plain versions, and no farther from the fp32 ones
-    than DENSE_FP32_RATIO x the plain versions' own distance.  Returns
-    the report and the kernels' logits."""
+    through the plain versions at fp32 (``plain_ops``, the dense route's
+    ``_plain_attention`` by default).  Held: the kernels within ``atol``
+    of the plain versions, and no farther from the fp32 ones than
+    DENSE_FP32_RATIO x the plain versions' own distance.  Returns the
+    report and the kernels' logits."""
     import torch
 
     from repro_torch.core.precision import FP32
 
+    plain_ops = plain_ops or _plain_attention
     kernel = first()
-    with _plain_attention():
+    with plain_ops():
         plain = first()
-    with _plain_attention(FP32):
+    with plain_ops(FP32):
         plain32 = first()
     gap = lambda a, b: float((a - b).abs().max())
     rep = dict(first_step_logit_err_vs_plain=gap(kernel, plain),
@@ -4472,14 +4526,14 @@ def check_vlm_cross(dev):
 
 def serve_vlm(dev):
     """llama-3.2-vision-90b at full width (d 8192, 64 / 8 heads of 128, G
-    8, d_ff 28672, vocab 128,256) with its depth cut to VLM_LAYERS (2
-    groups of one image cross-attention layer and 4 self layers), random
+    8, d_ff 28672, vocab 128,256) with its depth cut to VLM_LAYERS (a
+    group of one image cross-attention layer and 4 self layers), random
     weights from seed 0 (bf16, an fp32 head and fp32 gates), the gates set
     to VLM_GATE.  VLM_BATCH prompts of VLM_PROMPT tokens and images
     (vision_embeds (B, 1601, 1280) in bf16, N(0, 1) from seed 0),
     SERVE_GEN greedy tokens each, token by token through launch/serve.py's
-    route on a VLM_MAX_LEN-row cache: per step 8 contiguous decodes (the
-    self layers, G 8), 2 shift-KV and 2 attention launches (the cross
+    route on a VLM_MAX_LEN-row cache: per step 4 contiguous decodes (the
+    self layers, G 8), 1 shift-KV and 1 attention launch (the cross
     layers: one query row padded to 64, 1,601 keys in 1,664 rows), all
     fp16 PASA over bf16 at head_dim 128, and no other kernel.  Every logit
     finite; the prompts VLM_ALONE served alone from their images give
@@ -5956,9 +6010,9 @@ def phase_train(dev):
 MULTI_TIMEOUT_S = 900
 EP_ARCH, EP_LAYERS = "olmoe-1b-7b", 2
 DP_ARCH, DP_LAYERS = "qwen3-4b", 2
-MULTI_BATCH, MULTI_SEQ, MULTI_STEPS = 2, 1024, 3
+MULTI_BATCH, MULTI_SEQ, MULTI_STEPS = 2, 1024, 2   # 3 until phase 19 came
 # the hyper-parameters of the reference's compressed-step test
-# (tests/test_launch.py): lr 0, 1e-5, 2e-5 over the three steps
+# (tests/test_launch.py): lr 0, 1e-5, 2e-5 over its three steps
 MULTI_HYPER = dict(peak_lr=1e-3)
 # moe_ffn_a2a against moe_ffn_gspmd on one layer: tests/test_torch_moe.py's
 # bf16 bar, of each output's and each gradient's largest magnitude
@@ -6482,8 +6536,8 @@ def phase_multi(dev, half_batch=False):
     gloo group (:func:`_multi_rank`): the one-device steps first (and
     freed), then the group's 16a (expert parallel: olmoe-1b-7b's a2a
     layer and a whole step on a 1 x 2 mesh), 16b (data parallel:
-    qwen3-4b, 3 steps on a 2 x 1 mesh), 16c (the compressed sync on a pod
-    axis of 2) and 16d (the row-parallel w2 product), each gated
+    qwen3-4b, MULTI_STEPS steps on a 2 x 1 mesh), 16c (the compressed
+    sync on a pod axis of 2) and 16d (the row-parallel w2 product), each gated
     (``_check_multi``); a failing rank fails the phase.  Then the kernels
     at the ranks' call shapes.  Prints the reports; returns the
     kernels-line entries (launches: every rank's, summed).
@@ -7207,10 +7261,7 @@ def phase_modes(dev):
                            and mode.split("/")[1] == pool.split(".")[1])
         if not launches:
             raise AssertionError(f"{name} was not launched in phase 18")
-        source, replaces = (
-            ("src/repro_torch/kernels/csrc/shift_kv.cu",
-             "src/repro/kernels/shift_kv.py:48") if kernel == "shift_kv"
-            else KERNEL_FILES[kernel])
+        source, replaces = _kernel_source(name)
         entries.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=errs[name],
@@ -7219,6 +7270,520 @@ def phase_modes(dev):
     print("phase 18 launches by mode: " + json.dumps(counts))
     print(f"phase 18: {time.perf_counter() - t0:.1f} s (checks "
           f"{check_s:.1f} s)")
+    return entries
+
+
+# ---- phase 19: every page size the reference serves -------------------
+
+PAGES_DECODE = (1, 8, 16, 48, 128, 256)
+PAGES_BLOCKS = (128, 256)
+PAGES_DECODE_SHAPES = ((128, 4, 7), (64, 4, 8))   # head_dim, KVH, G
+PAGES_PREFILL = (8, 16, 48, 256)
+PAGES_PREFILL_HEADS = (28, 4)   # qwen2-7b's H and KVH at head_dim 128
+PAGES_POOLS = ("bf16", *QUANT_DTYPES)
+# the paper's fp16 PASA, and FlashAttention-2 at the flash impl's policy
+PAGES_MODES = (("fp16", BETA), ("bf16_fp32", 0.0))
+PAGES_LAYERS = 8          # of qwen2-7b's 28: the page-16 serve's depth
+PAGES_SERVE = 16          # the serve's page (block_kv stays 128)
+PAGES_TIMED = (16, 8)     # the pages timed at the serve's call shapes
+PAGES_ALONE = (0, 3)      # requests served alone beside the batch
+PAGES_PREFILL_ROWS = ((0, 0, 0, 0), (512, 512, 300, 129))  # the first call
+
+
+def _rows_to_pages(kc, vc, lens, page, rng, n_extra=2):
+    """The rows of (B, S, KVH, D) K and V (NaN past each length) in a
+    shuffled bf16 pool of ``page``-row pages, page 0 and ``n_extra``
+    pages unreferenced and NaN.  Returns the pools (P, page, KVH, D), the
+    table (B, max_pages) and the valid rows (P, page)."""
+    import numpy as np
+    import torch
+
+    b, s, kvh, d = kc.shape
+    n_pages = [math.ceil(max(n, 1) / page) for n in lens]
+    total = 1 + sum(n_pages) + n_extra
+    ids = rng.permutation(np.arange(1, total))
+    table = np.zeros((b, max(n_pages)), np.int32)
+    nxt = 0
+    for i, npg in enumerate(n_pages):
+        for j in range(npg):
+            table[i, j] = ids[nxt]
+            nxt += 1
+    dev = kc.device
+    table = torch.from_numpy(table).to(dev)
+    # view row r of sequence i lands at row r % page of page table[i, r // page]
+    rows = torch.arange(max(n_pages) * page, device=dev)
+    pid = table.long()[:, rows // page]                    # (B, rows)
+    live = rows[None, :] < torch.tensor([npg * page for npg in n_pages],
+                                        device=dev)[:, None]
+    kp = torch.full((total, page, kvh, d), float("nan"), dtype=torch.bfloat16,
+                    device=dev)
+    vp = kp.clone()
+    valid = torch.zeros((total, page), dtype=torch.bool, device=dev)
+    pad = lambda x: torch.nn.functional.pad(
+        x.float(), (0, 0, 0, 0, 0, rows.numel() - s), value=float("nan")
+    ).to(torch.bfloat16) if rows.numel() > s else x[:, :rows.numel()]
+    kcp, vcp = pad(kc), pad(vc)
+    slot = (rows % page)[None, :].expand_as(pid)
+    kp[pid[live], slot[live]] = kcp[live]
+    vp[pid[live], slot[live]] = vcp[live]
+    lens_t = torch.tensor(list(lens), device=dev)
+    inside = live & (rows[None, :] < lens_t[:, None])
+    valid[pid[inside], slot[inside]] = True
+    return kp, vp, table, valid
+
+
+def _pool_kinds(kp, vp, valid):
+    """{pool: (K, V, sidecars)}: the bf16 pool and the same rows quantized
+    per page to each 8-bit dtype (valid rows only)."""
+    from repro_torch.runtime.paged_cache import quantize_kv_page
+
+    kinds = {"bf16": (kp, vp, {})}
+    for dtype in QUANT_DTYPES:
+        kq, ks, kh = quantize_kv_page(kp, valid, dtype)
+        vq, vs, vh = quantize_kv_page(vp, valid, dtype)
+        kinds[dtype] = (kq, vq, dict(k_scale=ks, k_shift=kh, v_scale=vs,
+                                     v_shift=vh))
+    return kinds
+
+
+def _view_rows(kp, vp, side, table, dtype):
+    """A pool's rows in page-table order as (B, KVH, n, D) K and V: a bf16
+    pool's as stored, an 8-bit pool's dequantized as the kernels load them
+    (f32 product and sum, one rounding to ``dtype``)."""
+    dmod = _kernel_module("pasa_paged_decode")
+    return [dmod._gather_dequant(x, side.get(f"{s}_scale"),
+                                 side.get(f"{s}_shift"), table,
+                                 dtype if side else x.dtype).transpose(1, 2)
+            for s, x in (("k", kp), ("v", vp))]
+
+
+def _junk(kp, vp, side, valid):
+    """The pool with stale bytes: a bf16 pool's NaN rows (past kv_len,
+    unreferenced pages) at 1e4; an 8-bit pool's ``_poison``."""
+    import torch
+
+    if not side:
+        return [torch.nan_to_num(x, nan=1e4) for x in (kp, vp)] + [{}]
+    return list(_poison(kp, vp, side, valid))
+
+
+def _pages_cases(dev):
+    """Phase 19's cases, {key: dict(run, check)} with key (kernel, page,
+    label): paged decode at every page of PAGES_DECODE, block of
+    PAGES_BLOCKS, head width, pool and mode (PAGES_MODES); paged prefill at
+    PAGES_PREFILL (head_dim 128) from each pool in each mode.  ``run()``
+    is one call of the op (a launch); ``check(out)`` holds it and returns
+    its max abs error against the plain version.  Also returns the pairs
+    of calls that must give the same bits: each (kernel, page, pool)
+    clean and with stale bytes, and prefill in one chunk and in two."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.precision import FP16, get_policy
+    from repro_torch.kernels import ops
+    cmod = _kernel_module("pasa_decode")
+    dmod = _kernel_module("pasa_paged_decode")
+    pmod = _kernel_module("pasa_paged_prefill")
+
+    rng = np.random.default_rng(19)
+    cases, pairs = {}, {}
+    lens = SERVE_DECODE_KV
+    kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    b, s = len(lens), max(lens)
+    for d, kvh, g in PAGES_DECODE_SHAPES:
+        live = (torch.arange(s, device=dev)[None, :] < kvl[:, None])[
+            ..., None, None]
+        kc = torch.where(live, _randn(rng, (b, s, kvh, d), 2.0, dev,
+                                      torch.float32), math.nan)
+        vc = torch.where(live, _randn(rng, (b, s, kvh, d), 0.0, dev,
+                                      torch.float32), math.nan)
+        kc, vc = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+        q = _randn(rng, (b, kvh, g, d), 1.0, dev, torch.float16)
+        for page in PAGES_DECODE:
+            kp, vp, table, valid = _rows_to_pages(kc, vc, lens, page, rng)
+            for pool, (k_, v_, side) in _pool_kinds(kp, vp, valid).items():
+                for tag, beta in PAGES_MODES:
+                    policy = get_policy(tag)
+                    for block in PAGES_BLOCKS:
+                        kw = dict(beta=beta, policy=policy, block_kv=block)
+                        args = (q, k_, v_, table, kvl)
+
+                        def check(out, args=args, kw=kw, side=side,
+                                  label=f"d{d} page {page} {pool} {tag} "
+                                        f"block {block}"):
+                            q_, k_, v_, table_, kvl_ = args
+                            op = kw["policy"].input_dtype
+                            kview, vview = _view_rows(k_, v_, side, table_, op)
+                            qq = q_.to(op)
+                            for other in (ops.pasa_decode,
+                                          cmod._walk_call):
+                                if not torch.equal(out, other(
+                                        qq, kview, vview, kvl_, **kw)):
+                                    raise AssertionError(
+                                        f"pasa_paged_decode ({label}): "
+                                        f"{other.__name__} differs")
+                            return _close(
+                                f"pasa_paged_decode ({label})", out,
+                                dmod.paged_decode_plain(*args, **kw, **side),
+                                **DECODE_TOL)
+                        cases[("pasa_paged_decode", page,
+                               f"d{d} {pool} {tag} block {block}")] = dict(
+                            run=lambda args=args, kw=kw, side=side:
+                                ops.pasa_paged_decode(*args, **kw, **side),
+                            check=check)
+                pairs[("pasa_paged_decode", page, f"d{d} {pool}")] = (
+                    lambda k_=k_, v_=v_, side=side, valid=valid, table=table,
+                    q=q, kvl=kvl: [
+                        ops.pasa_paged_decode(q, kk, vv, table, kvl,
+                                              beta=BETA, policy=FP16,
+                                              block_kv=128, **sd)
+                        for kk, vv, sd in ((k_, v_, side),
+                                           _junk(k_, v_, side, valid))])
+
+    # prefill: phase 2's rows (4 x 28 heads x 512 queries at starts 0, 512,
+    # 1024 and a pad row), float64 gold on the unquantized rows
+    starts, lens = PREFILL_ROWS
+    (h, kvh), cs, d = PAGES_PREFILL_HEADS, PREFILL_CHUNK, 128
+    b, s = len(lens), max(lens)
+    kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    live = (torch.arange(s, device=dev)[None, :] < kvl[:, None])[..., None,
+                                                                 None]
+    kc = torch.where(live, _randn(rng, (b, s, kvh, d), 2.0, dev,
+                                  torch.float32), math.nan).to(torch.bfloat16)
+    vc = torch.where(live, _randn(rng, (b, s, kvh, d), 0.0, dev,
+                                  torch.float32), math.nan).to(torch.bfloat16)
+    q = _randn(rng, (b, h, cs, d), 1.0, dev, torch.float16)
+    q_all = _randn(rng, (1, h, lens[1], d), 1.0, dev, torch.float16)
+    live_rows = [i for i, n in enumerate(lens) if n]
+    gold = _pages_prefill_gold(q, kc, vc, starts, lens, live_rows)
+    raw_rmse = {}
+    for page in PAGES_PREFILL:
+        kp, vp, table, valid = _rows_to_pages(kc, vc, lens, page, rng)
+        table[3] = 0                          # the pad row: all-null table
+        for pool, (k_, v_, side) in _pool_kinds(kp, vp, valid).items():
+            for tag, beta in PAGES_MODES:
+                policy = get_policy(tag)
+                kw = dict(beta=beta, policy=policy)
+                args = (q, k_, v_, table, st, kvl)
+
+                def check(out, args=args, kw=kw, side=side, pool=pool,
+                          key=(page, tag), label=f"page {page} {pool} {tag}"):
+                    name = f"pasa_paged_prefill ({label})"
+                    plain = pmod.paged_prefill_plain(*args, **kw, **side)
+                    err = _close(name, out, plain, **PREFILL_TOL)
+                    if out[3].any():
+                        raise AssertionError(f"{name}: the pad row is not 0")
+                    r, rp = (_rel_rmse(x[live_rows], gold)
+                             for x in (out, plain))
+                    if pool == "bf16":
+                        raw_rmse[key] = r
+                        limit = RMSE_MAX
+                    else:
+                        limit = max(2.0 * raw_rmse[key],
+                                    QUANT_RMSE_BOUND[pool])
+                    if not (r < limit and rp < limit):
+                        raise AssertionError(f"{name}: RMSE {r:.4f} / plain "
+                                             f"{rp:.4f} >= {limit:.4f}")
+                    return err
+                cases[("pasa_paged_prefill", page, f"{pool} {tag}")] = dict(
+                    run=lambda args=args, kw=kw, side=side:
+                        ops.pasa_paged_prefill(*args, **kw, **side),
+                    check=check)
+            pairs[("pasa_paged_prefill", page, pool)] = (
+                lambda k_=k_, v_=v_, side=side, valid=valid, table=table: [
+                    ops.pasa_paged_prefill(q, kk, vv, table, st, kvl,
+                                           beta=BETA, policy=FP16, **sd)
+                    for kk, vv, sd in ((k_, v_, side),
+                                       _junk(k_, v_, side, valid))])
+            # the chunk schedule: row 1's positions (1,024) in one chunk,
+            # or in two cut at the last page boundary at or below the chunk
+            # width (512)
+            one = lambda c0, c1, k_=k_, v_=v_, side=side, table=table: (
+                ops.pasa_paged_prefill(
+                    q_all[:, :, c0:c1], k_, v_, table[1:2],
+                    torch.tensor([c0], dtype=torch.int32, device=dev),
+                    torch.tensor([c1], dtype=torch.int32, device=dev),
+                    beta=BETA, policy=FP16, **side))
+            pairs[("chunks", page, pool)] = (
+                lambda one=one, cut=max(cs // page, 1) * page: [
+                    one(0, lens[1]),
+                    torch.cat([one(0, cut), one(cut, lens[1])], 2)])
+    return cases, pairs
+
+
+def _pages_prefill_gold(q, kc, vc, starts, lens, live_rows):
+    """float64 causal attention of the live rows of the prefill case over
+    the (B, S, KVH, D) rows."""
+    import torch
+
+    _, h, cs, d = q.shape
+    g = h // kc.shape[2]
+    golds = []
+    for i in live_rows:
+        n = lens[i]
+        kk = kc[i, :n].movedim(1, 0).double().repeat_interleave(g, 0)
+        vv = vc[i, :n].movedim(1, 0).double().repeat_interleave(g, 0)
+        sc = q[i].double() @ kk.transpose(-1, -2) / math.sqrt(d)
+        qpos = starts[i] + torch.arange(cs, device=q.device)[:, None]
+        sc = sc.masked_fill(qpos < torch.arange(n, device=q.device)[None, :],
+                            -math.inf)
+        golds.append(torch.softmax(sc, -1) @ vv)
+    return torch.stack(golds)
+
+
+def check_pages(dev):
+    """Phase 19's kernel checks: every case of ``_pages_cases`` launched
+    once, page by page, with every launch count set to 0 just before each
+    page's pass and read just after; then each held (paged decode bit for
+    bit equal to contiguous decode and its walk on the same rows, and
+    within the decode bars of its plain version; paged prefill within the
+    prefill bars of its plain version and the float64 RMSE bars, a pad
+    row of zeros), stale bytes inert and the prefill bit-invariant to a
+    page-aligned chunk cut.  Returns {page: launch counts by op and mode}
+    and the report."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    cases, pairs = _pages_cases(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts, outs = {}, {}
+    for page in sorted({key[1] for key in cases}):
+        ops.reset_launches()
+        outs.update({key: c["run"]() for key, c in cases.items()
+                     if key[1] == page})
+        torch.cuda.synchronize()
+        counts[page] = {w.__name__: dict(w.launches_by_mode)
+                        for w in ops.WRAPPERS if w.launches}
+    errs = {}
+    for key, c in cases.items():
+        name = f"{key[0]}/page{key[1]}"
+        errs[name] = max(errs.get(name, 0.0), c["check"](outs[key]))
+    for key, fn in pairs.items():
+        a, b = fn()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{key}: stale bytes or the chunk schedule "
+                                 f"changed the output")
+    report = dict(cases=len(cases), stale_and_chunk_checks=len(pairs),
+                  max_abs_err=errs, fixtures_s=build_s,
+                  checks_s=time.perf_counter() - t0 - build_s)
+    return counts, report
+
+
+@contextlib.contextmanager
+def _plain_paged(at=None):
+    """``ops.pasa_paged_prefill`` and ``ops.pasa_paged_decode`` replaced by
+    their plain versions (on any device) inside the block, at the policy
+    ``at`` if one is given: the paged route then runs the plain PyTorch
+    attention on the card."""
+    from repro_torch.kernels import ops
+    dmod = _kernel_module("pasa_paged_decode")
+    pmod = _kernel_module("pasa_paged_prefill")
+
+    ops_before = ops.pasa_paged_prefill, ops.pasa_paged_decode
+    ops.pasa_paged_prefill = lambda *a, beta, policy, **side: \
+        pmod.paged_prefill_plain(*a, beta=beta, policy=at or policy, **side)
+    ops.pasa_paged_decode = lambda *a, beta, policy, block_kv, **side: \
+        dmod.paged_decode_plain(*a, beta=beta, policy=at or policy,
+                                block_kv=block_kv, **side)
+    try:
+        yield
+    finally:
+        ops.pasa_paged_prefill, ops.pasa_paged_decode = ops_before
+
+
+def _depth_cut(bundle, params, layers):
+    """The bundle's model with its first ``layers`` layers (the same
+    weights: views of the stacked blocks)."""
+    import dataclasses
+
+    from repro_torch.models.model_zoo import build
+
+    cut = build(dataclasses.replace(bundle.cfg, n_layers=layers))
+    blocks = lambda t: {k: blocks(v) if isinstance(v, dict) else v[:layers]
+                        for k, v in t.items()}
+    return cut, dict(params, blocks=blocks(params["blocks"]))
+
+
+def _paged_first_step(dev, bundle, params, cache_dtype, page):
+    """The paged route's first call (4 rows x 512 queries at start 0, the
+    serve's prompts) from a fresh ``page``-row pool, held by
+    ``_first_step_gaps`` against the plain paged versions at
+    DENSE_LOGIT_ATOL."""
+    import numpy as np
+    import torch
+
+    cfg = bundle.cfg
+    prompts, _ = _paged_workload(cfg, cache_dtype)
+    lens = [min(len(p), PREFILL_CHUNK) for p in prompts]
+    toks = torch.zeros((len(prompts), PREFILL_CHUNK), dtype=torch.int32)
+    for i, (p, n) in enumerate(zip(prompts, lens)):
+        toks[i, :n] = torch.tensor(p[:n])
+    n_pages = PREFILL_CHUNK // page
+    table = (torch.arange(len(prompts) * n_pages, dtype=torch.int32)
+             .reshape(len(prompts), n_pages) + 1).to(dev)
+    ints = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+    first = lambda: bundle.paged_prefill_step(
+        params, toks.to(dev), ints([0] * len(lens)), ints(lens),
+        ints([n - 1 for n in lens]),
+        bundle.init_paged_cache(1 + table.numel(), page, cache_dtype,
+                                device=dev), table)[0]
+    rep, _ = _first_step_gaps(first, f"page {page} {cache_dtype}",
+                              DENSE_LOGIT_ATOL, plain_ops=_plain_paged)
+    return rep
+
+
+def serve_pages(dev, bundle, params):
+    """qwen2-7b at full width with its depth cut to PAGES_LAYERS, block_kv
+    128: phase 3's workload through the engine at page PAGES_SERVE and at
+    page 128, from a bf16 and an int8 pool (requests PAGES_ALONE alone ==
+    batched, every launch counted, tok/s, TTFT and decode ms side by
+    side); the prefix cache at page PAGES_SERVE (hits == cold); the first
+    step at page PAGES_SERVE within the plain versions' bars.  Returns the
+    report."""
+    import torch
+
+    cut, cut_params = _depth_cut(bundle, params, PAGES_LAYERS)
+    rep = {}
+    for dtype in ("bf16", "int8"):
+        for page in (PAGES_SERVE, 128):
+            rep[f"page{page}_{dtype}"] = serve(
+                dev, cut, cut_params, cache_dtype=dtype, alone=PAGES_ALONE,
+                page=page)
+        rep[f"prefix_page{PAGES_SERVE}_{dtype}"] = serve_prefix(
+            dev, cut, cut_params, dtype, page=PAGES_SERVE)
+        rep[f"first_step_page{PAGES_SERVE}_{dtype}"] = _paged_first_step(
+            dev, cut, cut_params, dtype, PAGES_SERVE)
+    del cut_params
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _pages_timed(dev, page, pool, kernel):
+    """Kernel, plain and library (SDPA) ms of a paged kernel at a serve's
+    call shape (decode: batch 4 at kv 1002 / 519 / 302 / 131; prefill: the
+    first call, 4 rows x 512 queries at start 0 of prompts 1000 / 517 /
+    300 / 129), qwen2-7b's heads, ``page``-row pages of ``pool``, fp16
+    PASA (decode at block 128), and the bound of this run's data."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import FP16
+    from repro_torch.kernels import ops
+    dmod = _kernel_module("pasa_paged_decode")
+    pmod = _kernel_module("pasa_paged_prefill")
+
+    rng = np.random.default_rng(20 + page)
+    (h, kvh), d = PAGES_PREFILL_HEADS, 128
+    if kernel == "pasa_paged_decode":
+        starts, lens = None, SERVE_DECODE_KV
+    else:
+        starts, lens = PAGES_PREFILL_ROWS
+    b, s = len(lens), max(lens)
+    kc = _randn(rng, (b, s, kvh, d), 2.0, dev, torch.bfloat16)
+    vc = _randn(rng, (b, s, kvh, d), 0.0, dev, torch.bfloat16)
+    kp, vp, table, valid = _rows_to_pages(kc, vc, lens, page, rng)
+    k_, v_, side = _pool_kinds(kp, vp, valid)[pool]
+    kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kview, vview = (x.to(torch.float16).nan_to_num()
+                    .repeat_interleave(h // kvh, 1)
+                    for x in _view_rows(k_, v_, side, table, torch.float16))
+    col = torch.arange(kview.shape[2], device=dev)
+    item = k_.element_size()
+    if kernel == "pasa_paged_decode":
+        q = _randn(rng, (b, kvh, h // kvh, d), 1.0, dev, torch.float16)
+        args = (q, k_, v_, table, kvl)
+        kw = dict(beta=BETA, policy=FP16, block_kv=128, **side)
+        run = lambda: ops.pasa_paged_decode(*args, **kw)
+        plain = lambda: dmod.paged_decode_plain(*args, **kw)
+        mask = (col[None, :] < kvl[:, None])[:, None, None, :]
+        lib = lambda: F.scaled_dot_product_attention(
+            q.reshape(b, h, 1, d), kview, vview, attn_mask=mask)
+        cost = R.paged_decode_cost(b, kvh, h // kvh, d, lens, table.numel(),
+                                   kv_itemsize=item,
+                                   page=page if side else None)
+        iters = 50
+    else:
+        q = _randn(rng, (b, h, PREFILL_CHUNK, d), 1.0, dev, torch.float16)
+        st = torch.tensor(starts, dtype=torch.int32, device=dev)
+        args = (q, k_, v_, table, st, kvl)
+        kw = dict(beta=BETA, policy=FP16, **side)
+        run = lambda: ops.pasa_paged_prefill(*args, **kw)
+        plain = lambda: pmod.paged_prefill_plain(*args, **kw)
+        qpos = st[:, None] + torch.arange(PREFILL_CHUNK, device=dev)[None, :]
+        mask = (col[None, None, :] <= qpos[:, :, None]) & (
+            col[None, None, :] < kvl[:, None, None])
+        lib = lambda: F.scaled_dot_product_attention(q, kview, vview,
+                                                     attn_mask=mask[:, None])
+        cost = R.paged_prefill_cost(b, h, PREFILL_CHUNK, d, kvh, starts, lens,
+                                    table.numel(), kv_itemsize=item,
+                                    page=page if side else None)
+        iters = 20
+    out = run()
+    err = _close(f"{kernel} page {page} {pool} (serve shape)", out, plain(),
+                 **(DECODE_TOL if kernel == "pasa_paged_decode"
+                    else PREFILL_TOL))
+    return dict(ms=_cuda_time_ms(run, iters),
+                plain_ms=_cuda_time_ms(plain, 3, warmup=1),
+                library_ms=_cuda_time_ms(lib, iters), serve_shape_err=err,
+                **R.bound(*cost))
+
+
+def phase_pages(dev, bundle=None, params=None):
+    """Phase 19 (``--pages-only``: this phase alone, the serving weights
+    built at its depth): ``check_pages``, ``serve_pages`` and both paged
+    kernels timed at the serve's call shapes at pages PAGES_TIMED.
+    Returns the kernels-line entries: each paged kernel at page
+    PAGES_SERVE from a bf16 and an int8 pool (the page-16 serves'
+    launches), at page 8 and paged prefill at page 256 (the 256-row tile
+    of ``pasa_paged_prefill_wide.cu``; both with check_pages' launches at
+    that page)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build
+
+    t0 = time.perf_counter()
+    counts, rep = check_pages(dev)
+    print("pages_kernels: " + json.dumps(rep))
+    if bundle is None:
+        import dataclasses
+
+        bundle = build(dataclasses.replace(get_config("qwen2-7b"),
+                                           n_layers=PAGES_LAYERS))
+        params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
+    serves = serve_pages(dev, bundle, params)
+    for tag, r in serves.items():
+        print(f"serve_pages_{tag}: " + json.dumps(r))
+    entries = []
+    for name in ("pasa_paged_decode", "pasa_paged_prefill"):
+        for page, pool in ((PAGES_SERVE, "bf16"), (PAGES_SERVE, "int8"),
+                           (8, "bf16"), (256, "bf16")):
+            if name == "pasa_paged_decode" and page == 256:
+                continue
+            tag = f"page{page}" + ("" if pool == "bf16" else f"_{pool}")
+            source, replaces = _kernel_source(f"{name}/{tag}")
+            if page == PAGES_SERVE:
+                launches = serves[f"page{page}_{pool}"]["launches"][name]
+            else:
+                launches = sum(counts[page].get(name, {}).values())
+            if not launches:
+                raise AssertionError(f"{name}/{tag} was not launched")
+            entry = dict(
+                name=f"{name}/{tag}", route="cuda", source=source,
+                replaces=replaces, launches=launches,
+                max_abs_err=rep["max_abs_err"][f"{name}/page{page}"],
+                **_pages_timed(dev, page, pool, name))
+            if page == PAGES_SERVE:    # page 128 at the same call, beside it
+                at128 = _pages_timed(dev, 128, pool, name)
+                entry["detail"] = {f"{key}_page128": at128[key] for key in
+                                   ("ms", "plain_ms", "library_ms")}
+            entries.append(entry)
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s")
     return entries
 
 
@@ -7246,8 +7811,9 @@ def phase_tools(dev, bundle=None, params=None, parts=("decode", "train")):
 
 def _print_entry(k) -> None:
     """A phase's kernel entry on one line, its detail on the next."""
+    rmse = f", rmse {k['rmse']:.2e}" if "rmse" in k else ""
     print(f"{k['name']}: launches {k['launches']}, max_abs_err "
-          f"{k['max_abs_err']:.3e}, rmse {k['rmse']:.2e}, {k['ms']:.4f} ms "
+          f"{k['max_abs_err']:.3e}{rmse}, {k['ms']:.4f} ms "
           f"vs plain {k['plain_ms']:.3f} ms, library {k['library_ms']:.4f} "
           f"ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']})"
           + (f"; its walk {k['walk_ms']:.4f} ms" if "walk_ms" in k else ""))
@@ -7257,17 +7823,18 @@ def _print_entry(k) -> None:
 
 def main(argv=None) -> int:
     """The whole smoke; ``--train-only`` / ``--multi-only`` /
-    ``--tools-only`` / ``--modes-only``: the build of the kernels phase 15
-    / 16 / 17 / 18 runs, and that phase alone, with no result line."""
+    ``--tools-only`` / ``--modes-only`` / ``--pages-only``: the build of
+    the kernels phase 15 / 16 / 17 / 18 / 19 runs, and that phase alone,
+    with no result line."""
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--train-only"], ["--multi-only"],
                     ["--multi-only", "--half-batch"], ["--tools-only"],
-                    ["--modes-only"]):
+                    ["--modes-only"], ["--pages-only"]):
         print(f"usage: chip_smoke.py [--train-only | --multi-only "
-              f"[--half-batch] | --tools-only | --modes-only], got {argv}",
-              file=sys.stderr)
+              f"[--half-batch] | --tools-only | --modes-only | "
+              f"--pages-only], got {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7287,7 +7854,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     built = _build.build(
-        None if argv in ([], ["--modes-only"])
+        None if argv in ([], ["--modes-only"], ["--pages-only"])
         else ("shift_kv", "pasa_attention", "pasa_decode")
         if argv == ["--tools-only"] else ("shift_kv", "pasa_attention"))
     print(f"build: {time.perf_counter() - t0:.1f} s into "
@@ -7305,6 +7872,11 @@ def main(argv=None) -> int:
         return 0
     if argv == ["--modes-only"]:
         for k in phase_modes(dev):
+            _print_entry(k)
+        print(smi)
+        return 0
+    if argv == ["--pages-only"]:
+        for k in phase_pages(dev):
             _print_entry(k)
         print(smi)
         return 0
@@ -7371,6 +7943,11 @@ def main(argv=None) -> int:
         rq["pool_bytes_vs_bf16"] = rq["pool_bytes"] / rep["pool_bytes"]
         print(f"serve_{dtype}: " + json.dumps(rq))
         reps[dtype] = rq
+    # phase 19: every page size, with phase 3's weights cut to PAGES_LAYERS;
+    # each serve driven with the launch counts set to 0 just before it
+    pages = phase_pages(dev, bundle, params)
+    for k in pages:
+        _print_entry(k)
     # phase 14: serving across devices with phase 3's weights - two
     # replicas on this card, then the model axis in a gloo group of two
     # processes - each serve driven with the launch counts set to 0 just
@@ -7691,6 +8268,10 @@ def main(argv=None) -> int:
     line += [{key: k[key] for key in keys} for k in modes
              if k not in shift_other]
     line.append(_mode_entry("shift_kv", shift_other, keys))
+    # phase 19's entries: the paged kernels at page 16 with the page-16
+    # serves' launches, at page 8 (and prefill at page 256) with the
+    # launches of check_pages' pass at that page
+    line += [{key: k[key] for key in keys} for k in pages]
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

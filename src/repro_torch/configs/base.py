@@ -33,7 +33,8 @@ class AttentionConfig:
     beta: float = 0.984497        # paper's adopted optimal-accuracy beta
     policy: str = "bf16_fp32"     # precision policy when impl == "flash"
     pasa_policy: str = "fp16"     # policy when impl == "pasa" (paper: fully fp16)
-    block_kv: int = 128           # PASA shift block == KV page size
+    block_kv: int = 128           # PASA shift block (decode, dense prefill);
+                                  # the default KV page size
     # The dense prefill shifts K with the paper's batched-GEMM M (the
     # algebraic shift there has no kernel: False raises, ROADMAP A12b), and
     # its plain version attends with K/V expanded to the query heads

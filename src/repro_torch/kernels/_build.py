@@ -26,8 +26,12 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("pasa_paged_decode", "pasa_paged_prefill", "pasa_decode",
-           "pasa_decode_walk", "shift_kv", "pasa_attention")
+SOURCES = ("pasa_paged_decode", "pasa_paged_decode_fp16",
+           "pasa_paged_decode_int8", "pasa_paged_decode_fp8",
+           "pasa_paged_prefill", "pasa_paged_prefill_q8",
+           "pasa_paged_prefill_wide", "pasa_paged_prefill_wide_q8",
+           "pasa_decode", "pasa_decode_walk",
+           "shift_kv", "pasa_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -70,8 +74,9 @@ def library_path(name: str) -> Path:
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile the named kernels that are not built yet, one nvcc each, all
-    started together.  Returns {name: seconds} for the ones compiled;
-    raises RuntimeError with the compiler's output if any build fails."""
+    started together.  Returns {name: seconds from the start to that
+    source's end} for the ones compiled; raises RuntimeError with the
+    compiler's output if any build fails."""
     names = list(SOURCES if names is None else names)
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -86,18 +91,24 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
+        log = open(target.with_suffix(".log"), "w")
         procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ), tmp, target)
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True,
+        ), tmp, target, log)
+    # each source's own seconds to its end
     times, errors = {}, []
-    for name, (proc, tmp, target) in procs.items():
-        log, _ = proc.communicate()
-        times[name] = time.perf_counter() - t0
-        target.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
-        os.replace(tmp, target)
+    while len(times) < len(procs):
+        for name, (proc, tmp, target, log) in procs.items():
+            if name in times or proc.poll() is None:
+                continue
+            times[name] = time.perf_counter() - t0
+            log.close()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu:\n"
+                              + target.with_suffix(".log").read_text())
+                continue
+            os.replace(tmp, target)
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("\n".join(errors))
     return times

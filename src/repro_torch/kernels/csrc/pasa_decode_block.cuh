@@ -10,13 +10,13 @@
 //  * the fold: row_update (the order-dependent F-bar recurrence) and
 //    acc_update of pasa_common.cuh, block after block in order.
 //
-// decode_block_update is the two in sequence.  The contiguous decode
-// kernel walks its blocks through it; the paged decode kernel spreads the
-// pages of a sequence over a CTA cluster, reduces each to its partials and
-// folds them in page order with decode_fold_step (the same row_update and
-// acc_update calls on the same values), so paged == contiguous holds bit
-// for bit, as the reference's shared masked_block_update makes it hold
-// there.  What bounds a block on an H100 is latency, not bytes: per block
+// decode_block_update is the two in sequence.  The sequential walk
+// (pasa_decode_walk.cu) runs its blocks through it; both cluster kernels
+// spread the blocks of a sequence over a CTA cluster, reduce each to its
+// partials and fold them in block order with decode_fold_step (the same
+// row_update and acc_update calls on the same values), so paged ==
+// contiguous == walk holds bit for bit, as the reference's shared
+// masked_block_update makes it hold there.  What bounds a block on an H100 is latency, not bytes: per block
 // each thread runs G dot products of D for each of its block / D key rows
 // and G sums of `block` products out of shared memory, plus the barriers
 // between the steps; the loops below run every row of the group in one
@@ -54,12 +54,12 @@
 namespace pasa {
 
 constexpr int DEC_MAX_G = 16;
-constexpr int DEC_PAGE_ROWS = 128;   // rows of a page (and of a staged load)
-constexpr int DEC_MAX_BLOCK = 256;   // rows of a contiguous-cache block
+constexpr int DEC_PAGE_ROWS = 128;   // rows of a staged piece of a block
+constexpr int DEC_MAX_BLOCK = 256;   // rows of a block
 
 // One block of up to MAXB rows of head width D at operand type OpT (fp16
-// or bf16, both two bytes): at D 128 78,848 bytes at 128 rows (pages) and
-// 153,088 at 256 (the contiguous cache's default block); at D 64 44,032
+// or bf16, both two bytes): at D 128 78,848 bytes at 128 rows and
+// 153,088 at 256 (the tile both decode kernels use); at D 64 44,032
 // and 85,504; at D 32 26,624 and 51,712; in every mode.  The block runs
 // kThreads = D threads.
 template <typename OpT, int MAXB, int D>
@@ -117,8 +117,10 @@ __device__ __forceinline__ void decode_state_init(Smem& S, float* acc) {
 // pv[g] = P V of row g at head-dim column t (thread t), rounded to the
 // accumulator dtype (G <= NG).  The last step reads S.v and the
 // probabilities after the last barrier: the caller syncs before it
-// overwrites them.
-template <int NG, typename M, typename Smem>
+// overwrites them.  UNROLL unrolls the score pass over the tile's column
+// groups (at D 32 a 256-row tile's eight); the paged kernel's 256-row
+// tile keeps it rolled, to keep its build short (the same operations).
+template <int NG, typename M, bool UNROLL = true, typename Smem>
 __device__ __forceinline__ void decode_block_partials(Smem& S, int valid,
                                                       int block, int G,
                                                       const Policy& P,
@@ -147,7 +149,7 @@ __device__ __forceinline__ void decode_block_partials(Smem& S, int valid,
   // 2. scores: thread t computes columns c = t, t + D, ... (those below
   //    `block`) for all G rows in one pass over each key row (per row: an
   //    fp32 sum of exact products in d order, stored at the score dtype).
-#pragma unroll
+#pragma unroll (UNROLL ? Smem::kRows / Smem::kThreads : 1)
   for (int c0 = 0; c0 < Smem::kRows; c0 += Smem::kThreads) {
     const int c = c0 + t;
     if (c >= block) break;

@@ -1,11 +1,11 @@
 // PASA flash-decode with a sequence's KV blocks spread over a CTA cluster
 // and folded exactly in order (sm_90a), shared by the paged decode kernel
-// (pasa_paged_decode.cu: block j is page table[b, j] of a pool) and the
-// contiguous decode kernel (pasa_decode.cu: block j is rows [j * block,
-// (j + 1) * block) of a cache read through strides).  The two differ only
-// in the addressing parameter of the kernel template: PagedBlocks or
-// StridedBlocks give the address of a block's first row and its row
-// stride.
+// (pasa_paged_decode.cu: block j is rows [j * block, (j + 1) * block) of
+// a sequence's page-table view) and the contiguous decode kernel
+// (pasa_decode.cu: block j is the same rows of a cache read through
+// strides).  The two differ only in the addressing parameter of the
+// kernel template: PagedBlocks (each row in its own page) or
+// StridedBlocks (a block's first row and a row stride).
 //
 // The F-bar recurrence of PASA is order-dependent, so the usual split-KV
 // log-sum-exp combine would be a new convention.  But what a block
@@ -15,10 +15,10 @@
 // cluster of DEC_CLUSTER CTAs:
 //   1. rank r reduces the live blocks j = r, r + 8, ... to their partials
 //      and writes them to a workspace in device memory (the wrapper's
-//      torch.empty); inside the CTA the next block's K/V bytes - and, for
-//      8-bit pools, its sidecars - arrive by cp.async into a staging
-//      buffer while the current block is computed, so neither the load
-//      nor the sidecar -> code dependency stands in the block's path;
+//      torch.empty); inside the CTA the next piece's K/V bytes - and, for
+//      8-bit pools, its pages' sidecars - arrive by cp.async into a
+//      staging buffer while the current block is computed, so neither the
+//      load nor the sidecar -> code dependency stands in the block's path;
 //   2. a cluster barrier (release / acquire at cluster scope);
 //   3. rank r folds head-dim columns [D r / 8, D (r + 1) / 8) of every
 //      row (16 columns at D 128, 8 at D 64, 4 at D 32) over j = 0 ..
@@ -27,23 +27,41 @@
 //      the row's threads, then acc_update), and writes O = acc / l.
 // Step 3 performs the floating-point operations of the sequential walk
 // (decode_block_update, block after block) on the same values, so the
-// result equals the walk's bit for bit; pasa_decode.cu keeps the walk as
-// a second entry point, the on-card oracle of both cluster kernels.
+// result equals the walk's bit for bit; pasa_decode_walk.cu keeps the
+// walk as the on-card oracle of both cluster kernels.
 //
 // Rules kept from the walk: blocks past kv_len are never read; K and V
 // rows past `valid` are not loaded (both enter shared memory as zeros);
 // a dead page's sidecars are never read; a rank with no live block still
 // arrives at the cluster barrier.
 //
-// Block sizes: a page holds at most 128 rows; a block of the contiguous
-// cache up to 256 (DEC_MAX_BLOCK, the reference's default).  The staging
-// buffer holds 128 rows, so a block of more rows arrives as pieces of 128
-// that land one after another in the block's shared-memory tile; the
-// block's math then runs once over all its rows - one key mean, one s-bar
-// and one set of partials per block, as the walk computes them.  Shared
-// memory at D 128: 78,848 + 66,568 bytes per CTA over pages (bf16),
-// 153,088 + 66,568 over the contiguous cache; at D 64: 44,032 + 33,288
-// and 85,504 + 33,288; at D 32: 26,624 + 16,648 and 51,712 + 16,648; in
+// Blocks and pages: a block of either kernel holds up to 256 rows
+// (DEC_MAX_BLOCK, the reference's default).  The staging buffer holds a
+// piece of up to 128 rows, so a block of more rows arrives as pieces that
+// land one after another in the block's shared-memory tile; the block's
+// math then runs once over all its rows - one key mean, one s-bar and one
+// set of partials per block, as the walk computes them.  The paged
+// kernel's block is independent of the page (the reference shifts its
+// served decode in blocks of block_kv over the gathered view, whatever
+// the page size): a page of any size of 1 row or more, bigger or smaller
+// than the block, need not divide it.  A piece inside one page reads its
+// id once; a piece over several first stages the ids of the pages its
+// rows lie in (one load each), then each row's address comes from its own
+// page; an 8-bit piece stages the sidecar set of each
+// of those pages (at most DEC_SC_SETS: a piece of an 8-bit pool with
+// pages under 4 rows is cut to 32 pages' rows) and each row dequantizes
+// with its own page's set - the f32 product and sum, then one rounding,
+// of gather_pages_dequant.  The paged kernel's tile is 128 rows for
+// blocks of up to 128 and 256 above; an 8-bit pool takes the 128-row
+// tile only where every block lies inside one page (one staged sidecar
+// set, so that the served page = block keeps its two CTAs an SM at D
+// 128), else the 256-row tile with DEC_SC_SETS sets.  Shared memory a
+// CTA at D 128: 78,848 (256-row tile 153,088) + 67,104 over a bf16 pool;
+// 8-bit codes 153,088 + 67,616 (several pages a block) or 78,848 +
+// 34,336 (one); the contiguous cache 153,088 + 66,568.  At D 64: 44,032
+// (85,504) + 33,824; codes 85,504 + 34,336 or 44,032 + 17,440;
+// contiguous 85,504 + 33,288.  At D 32: 26,624 (51,712) + 17,184; codes
+// 51,712 + 17,696 or 26,624 + 8,992; contiguous 51,712 + 16,648.  In
 // every policy mode (the block tile holds its operands at two bytes, and
 // fp32 probabilities overwrite their scores: DecodeSmem).
 //
@@ -64,26 +82,44 @@
 namespace pasa {
 
 constexpr int DEC_CLUSTER = 8;                             // CTAs per (b, h)
+// sidecar sets a staged piece of an 8-bit pool holds: one per page its
+// rows touch, so a piece holds at most (DEC_SC_SETS - 1) pages' rows
+constexpr int DEC_SC_SETS = 33;
+
+// The ids of the pages a piece's rows lie in (paged blocks only: a
+// strided stage has none, and the empty base takes no bytes; 132 ints,
+// so that the rows behind them stay 16-byte aligned for cp.async).
+template <bool PAGED>
+struct alignas(16) PiecePages {
+  int pid[DEC_PAGE_ROWS + 4];
+};
+template <>
+struct PiecePages<false> {};
+
+// A staged page's sidecar set, 16-byte aligned in an array of them.
+template <int D>
+struct alignas(16) SidecarSet : PageSidecars<D> {};
 
 // One piece of a block (up to 128 rows) of head width D as it arrives
-// from device memory, before conversion to the operand type.
-template <typename T, int D>
-struct PageStage {
+// from device memory, before conversion to the operand type: the rows,
+// and the sidecar sets of the SETS pages they may lie in (8-bit pools
+// only; one set: the piece lies inside one page).
+template <typename T, int D, bool PAGED, int SETS>
+struct PageStage : PiecePages<PAGED> {
+  static constexpr int kSets = SETS;
   T k[DEC_PAGE_ROWS][D];
   T v[DEC_PAGE_ROWS][D];
-  PageSidecars<D> sc;   // 8-bit pools only
+  std::conditional_t<(SETS > 1), SidecarSet<D>[SETS], PageSidecars<D>[1]> sc;
 };
+
+template <typename Blocks>
+using StageOf = PageStage<typename Blocks::Elem, Blocks::kD, Blocks::kPaged,
+                          Blocks::kSets>;
 
 // Byte offset of the staging buffer behind a block tile of MAXB rows.
 template <typename OpT, int MAXB, int D>
 __host__ __device__ constexpr size_t dec_stage_off() {
   return (sizeof(DecodeSmem<OpT, MAXB, D>) + 127) / 128 * 128;
-}
-
-// Rows of piece `piece` (rows [128 piece, 128 piece + 128) of a block) that
-// lie before the block's `valid`.
-__device__ __forceinline__ int piece_valid(int valid, int piece) {
-  return max(0, min(DEC_PAGE_ROWS, valid - piece * DEC_PAGE_ROWS));
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -107,31 +143,44 @@ __device__ __forceinline__ void cluster_sync_release_acquire() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Block j of (b, h) is page table[b, j] of a (P, page, KVH, D) pool of
-// raw values or 8-bit codes (with per-(page, kv-head) sidecars).
-template <typename T, int D>
+// Block j of (b, h) is rows [j * block, (j + 1) * block) of the
+// sequence's page-table view: view row r is row r % page of page
+// table[b, r / page] of a (P, page, KVH, D) pool of raw values or 8-bit
+// codes (with per-(page, kv-head) sidecars).  A block may span pages,
+// share a page with its neighbours or start inside one.
+template <typename T, int D, int MAXB>
 struct PagedBlocks {
   using Elem = T;
-  static constexpr int kMaxBlock = DEC_PAGE_ROWS;
+  static constexpr bool kPaged = true;
+  static constexpr int kMaxBlock = MAXB;    // 128, or 256 for wider blocks
+  // an 8-bit piece's sidecar sets: in the 128-row tile one (the launcher
+  // sends an 8-bit pool there only when every block lies inside one page,
+  // as at the 2-CTA-an-SM occupancy of the served page = block), in the
+  // 256-row tile DEC_SC_SETS
+  static constexpr int kSets =
+      kIsCode<T> && MAXB > DEC_PAGE_ROWS ? DEC_SC_SETS : 1;
+  // the fewest rows of a piece (piece_rows at 1-row pages)
+  static constexpr int kMinPiece = kSets > 1 ? kSets - 1 : DEC_PAGE_ROWS;
   static constexpr int kD = D;
   const T* k;
   const T* v;
   SidecarPtrs sc;        // 8-bit pools only
-  const int* table;      // (B, max_blocks)
-  int block, max_blocks, kv_heads;
+  const int* table;      // (B, max_pages)
+  int block, max_blocks, page, max_pages, kv_heads;
 
-  __device__ int length(int b, const int* kv_len) const { return kv_len[b]; }
-  __device__ int count(int L) const {
-    return L > 0 ? min(max_blocks, (L + block - 1) / block) : 0;
+  // the view holds max_pages * page rows
+  __device__ int length(int b, const int* kv_len) const {
+    return max(0, min(kv_len[b], max_pages * page));
   }
-  __device__ int page_id(int b, int j) const {
-    return table[(size_t)b * max_blocks + j];
+  __device__ int count(int L) const { return (L + block - 1) / block; }
+  // rows of a staged piece: 128, or for 8-bit pools no more than keep the
+  // pages the piece touches within DEC_SC_SETS
+  __device__ int piece_rows() const {
+    return kSets > 1 ? min(DEC_PAGE_ROWS, (kSets - 1) * page) : DEC_PAGE_ROWS;
   }
-  // element offset of the block's first row, and the row stride
-  __device__ size_t offset(int b, int h, int j) const {
-    return ((size_t)page_id(b, j) * block * kv_heads + h) * D;
-  }
-  __device__ long long row_stride() const { return (long long)kv_heads * D; }
+  // rows of a page, and the row of view row r0 inside its page
+  __device__ int page_rows() const { return page; }
+  __device__ int page_offset(int r0) const { return r0 % page; }
 };
 
 // Block j of (b, h) is rows [j * block, (j + 1) * block) of a (B, KVH, S2,
@@ -139,7 +188,10 @@ struct PagedBlocks {
 template <typename T, int D>
 struct StridedBlocks {
   using Elem = T;
+  static constexpr bool kPaged = false;
   static constexpr int kMaxBlock = DEC_MAX_BLOCK;
+  static constexpr int kSets = 1;
+  static constexpr int kMinPiece = DEC_PAGE_ROWS;
   static constexpr int kD = D;
   const T* k;
   const T* v;
@@ -150,60 +202,112 @@ struct StridedBlocks {
     return max(0, min(kv_len[b], s2));
   }
   __device__ int count(int L) const { return (L + block - 1) / block; }
+  __device__ int piece_rows() const { return DEC_PAGE_ROWS; }
+  __device__ int page_rows() const { return 1; }     // (no pages)
+  __device__ int page_offset(int) const { return 0; }
   __device__ size_t offset(int b, int h, int j) const {
     return (size_t)(b * sb + h * sh + (long long)j * block * ss);
   }
-  __device__ long long row_stride() const { return ss; }
 };
 
-// Start the copy of `valid` K and V rows of live block j of (b, h), from
-// its row `row0` on (and, for 8-bit pools, its page's sidecars) into `st`.
+// Start the copy of the `valid` K and V rows of live block j of (b, h)
+// from its row `row0` on (and, for 8-bit pools, their pages' sidecars)
+// into `st`.  Paged blocks stage the piece's page ids first: every thread
+// calls this (it synchronizes the CTA).
 template <typename Blocks>
-__device__ __forceinline__ void issue_block(
-    PageStage<typename Blocks::Elem, Blocks::kD>& st, const Blocks& A, int b,
-    int h, int j, int row0, int valid) {
+__device__ __forceinline__ void issue_block(StageOf<Blocks>& st,
+                                            const Blocks& A, int b, int h,
+                                            int j, int row0, int valid) {
   using T = typename Blocks::Elem;
   constexpr int D = Blocks::kD;                  // also the thread count
   constexpr int EPC = 16 / sizeof(T);            // elements per 16 bytes
   constexpr int CPR = D / EPC;                   // 16-byte chunks per row
+  constexpr int RPI = D / CPR;                   // rows per pass of D threads
   const int t = threadIdx.x;
-  const long long rs = A.row_stride();
-  const size_t off = A.offset(b, h, j) + (size_t)(row0 * rs);
-  for (int i = t; i < valid * CPR; i += D) {
-    const int r = i / CPR, c = (i % CPR) * EPC;
-    cp_async16(&st.k[r][c], A.k + off + r * rs + c);
-    cp_async16(&st.v[r][c], A.v + off + r * rs + c);
-  }
-  if constexpr (kIsCode<T>) {
-    const size_t ph = (size_t)A.page_id(b, j) * A.kv_heads + h;
-    // (the side is picked by a select: a runtime index into the pointer
-    // arrays would copy them to local memory)
-    if (t < 2 * D / 4) {
-      const int side = t / (D / 4), c = (t % (D / 4)) * 4;
-      const float* shift = side ? A.sc.shift[1] : A.sc.shift[0];
-      cp_async16(&st.sc.shift[side][c], shift + ph * D + c);
-    } else if (t < 2 * D / 4 + 2) {
-      const int side = t - 2 * D / 4;
-      cp_async4(&st.sc.scale[side], (side ? A.sc.scale[1] : A.sc.scale[0]) + ph);
+  const int c = (t % CPR) * EPC;
+  if constexpr (Blocks::kPaged) {
+    // the piece's view rows r0 .. r0 + valid - 1 lie in pages p0 ..
+    // p0 + np - 1 of the row's table, from row `off` of page p0 on
+    const int r0 = j * A.block + row0;
+    const int p0 = r0 / A.page, off = r0 - p0 * A.page;
+    const int np = valid > 0 ? (off + valid - 1) / A.page + 1 : 0;
+    const int* tab = A.table + (size_t)b * A.max_pages + p0;
+    const size_t rs = (size_t)A.kv_heads * D;    // pool row stride
+    // a piece inside one page: every thread reads its id (one cached
+    // load) and the rows follow at one stride; over several pages their
+    // ids are staged first (np is the same in every thread)
+    const int pid0 = np == 1 ? tab[0] : 0;
+    if (np == 1) {
+      const size_t off0 = ((size_t)pid0 * A.page + off) * rs + (size_t)h * D;
+      for (int i = t; i < valid * CPR; i += D) {
+        const int r = i / CPR;
+        cp_async16(&st.k[r][c], A.k + off0 + r * rs + c);
+        cp_async16(&st.v[r][c], A.v + off0 + r * rs + c);
+      }
+    } else if (np > 1) {
+      for (int i = t; i < np; i += D) st.pid[i] = tab[i];
+      __syncthreads();
+      int r = t / CPR;
+      int s = (off + r) / A.page;                // the row's page (set)
+      int pr = off + r - s * A.page;             // its row in that page
+      for (; r < valid; r += RPI) {
+        const size_t src = ((size_t)st.pid[s] * A.page + pr) * rs +
+                           (size_t)h * D + c;
+        cp_async16(&st.k[r][c], A.k + src);
+        cp_async16(&st.v[r][c], A.v + src);
+        for (pr += RPI; pr >= A.page; pr -= A.page) ++s;
+      }
+    }
+    if constexpr (kIsCode<T>) {
+      // each page's set: D / 4 16-byte shift chunks a side, two scales
+      // (the side is picked by a select: a runtime index into the pointer
+      // arrays would copy them to local memory)
+      constexpr int PER = 2 * D / 4 + 2;
+      for (int i = t; i < np * PER; i += D) {
+        const int set = i / PER, u = i - set * PER;
+        const int id = np == 1 ? pid0 : st.pid[set];
+        const size_t ph = (size_t)id * A.kv_heads + h;
+        if (u < 2 * D / 4) {
+          const int side = u / (D / 4), cc = (u % (D / 4)) * 4;
+          const float* shift = side ? A.sc.shift[1] : A.sc.shift[0];
+          cp_async16(&st.sc[set].shift[side][cc], shift + ph * D + cc);
+        } else {
+          const int side = u - 2 * D / 4;
+          cp_async4(&st.sc[set].scale[side],
+                    (side ? A.sc.scale[1] : A.sc.scale[0]) + ph);
+        }
+      }
+    }
+  } else {
+    const long long rs = A.ss;
+    const size_t off = A.offset(b, h, j) + (size_t)(row0 * rs);
+    for (int i = t; i < valid * CPR; i += D) {
+      const int r = i / CPR;
+      cp_async16(&st.k[r][c], A.k + off + r * rs + c);
+      cp_async16(&st.v[r][c], A.v + off + r * rs + c);
     }
   }
   cp_async_commit();
 }
 
 // Staged piece -> rows [row0, row0 + rows) of S.k / S.v at the operand
-// type OpT: raw values convert, 8-bit codes dequantize with the staged
-// sidecars; rows past the piece's `valid` become zeros.
+// type OpT: raw values convert, 8-bit codes dequantize with the sidecar
+// set of their page (the piece's first row is row `off` of its first
+// page); rows past the piece's `valid` become zeros.
 template <typename OpT, typename Smem, typename Stage>
 __device__ __forceinline__ void convert_block(Smem& S, const Stage& st,
-                                              int row0, int rows, int valid) {
+                                              int row0, int rows, int valid,
+                                              int off, int page) {
   constexpr int C8 = Smem::kD / 8;     // 8-element segments per row
+  constexpr bool SETS = Stage::kSets > 1;    // the piece may span pages
   const int t = threadIdx.x;
   const int c8 = (t % C8) * 8;
   for (int r = t / C8; r < rows; r += Smem::kThreads / C8) {
     uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
     if (r < valid) {
-      kk = load_pool8<OpT>(&st.k[r][c8], 0, c8, st.sc);
-      vv = load_pool8<OpT>(&st.v[r][c8], 1, c8, st.sc);
+      const auto& sc = st.sc[SETS ? (off + r) / page : 0];
+      kk = load_pool8<OpT>(&st.k[r][c8], 0, c8, sc);
+      vv = load_pool8<OpT>(&st.v[r][c8], 1, c8, sc);
     }
     // (K rows are 2 D + 4 bytes apart: four 4-byte stores)
     const uint32_t* k2 = reinterpret_cast<const uint32_t*>(&kk);
@@ -224,7 +328,6 @@ cluster_decode_kernel(const typename M::Op* __restrict__ q,  // (B, KVH, G, D)
                       float* __restrict__ ws_pv,     // (B, KVH, max_blocks, G, D)
                       float* __restrict__ ws_stats,  // (B, KVH, max_blocks, 3, G)
                       int kv_heads, int G, Policy P) {
-  using T = typename Blocks::Elem;
   using OpT = typename M::Op;
   constexpr int D = Blocks::kD;
   constexpr int FC = D / DEC_CLUSTER;    // columns each rank folds
@@ -232,7 +335,7 @@ cluster_decode_kernel(const typename M::Op* __restrict__ q,  // (B, KVH, G, D)
   using Smem = DecodeSmem<OpT, Blocks::kMaxBlock, D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
-  PageStage<T, D>& st = *reinterpret_cast<PageStage<T, D>*>(
+  StageOf<Blocks>& st = *reinterpret_cast<StageOf<Blocks>*>(
       smem_raw + dec_stage_off<OpT, Blocks::kMaxBlock, D>());
   const int rank = blockIdx.x;            // == the CTA's rank in its cluster
   const int b = blockIdx.y;
@@ -243,34 +346,40 @@ cluster_decode_kernel(const typename M::Op* __restrict__ q,  // (B, KVH, G, D)
 
   const int L = A.length(b, kv_len);
   const int n_live = A.count(L);
+  const int PR = A.piece_rows();
 
-  // 1. this rank's blocks to partials, the next block's first piece in
-  //    flight meanwhile
-  constexpr int MAX_PIECES = Blocks::kMaxBlock / DEC_PAGE_ROWS;
+  // 1. this rank's blocks to partials, the next piece in flight meanwhile
   if (rank < n_live) {
-    issue_block(st, A, b, h, rank, 0, piece_valid(min(block, L - rank * block), 0));
+    issue_block(st, A, b, h, rank, 0, min(PR, min(block, L - rank * block)));
     const OpT* qbh = q + bh * G * D;
     for (int g = 0; g < G; ++g) S.q[g][t] = qbh[g * D + t];
   }
+  constexpr int MAX_PIECES = Blocks::kMaxBlock / Blocks::kMinPiece;
+  // the paged kernel's 256-row tile compiles rolled (build time; the
+  // served page = block runs the 128-row tile)
+  constexpr bool kUnroll =
+      !(Blocks::kPaged && Blocks::kMaxBlock > DEC_PAGE_ROWS);
   for (int j = rank; j < n_live; j += DEC_CLUSTER) {
     const int valid = min(block, L - j * block);
-#pragma unroll
+#pragma unroll (kUnroll && MAX_PIECES <= 2 ? MAX_PIECES : 1)
     for (int pc = 0; pc < MAX_PIECES; ++pc) {
-      const int row0 = pc * DEC_PAGE_ROWS;
+      const int row0 = pc * PR;
       if (row0 >= block) break;
       cp_async_wait_all();
       __syncthreads();   // the piece is staged; the previous block's math is done
-      convert_block<OpT>(S, st, row0, min(DEC_PAGE_ROWS, block - row0),
-                         piece_valid(valid, pc));
+      convert_block<OpT>(S, st, row0, min(PR, block - row0),
+                         max(0, min(PR, valid - row0)),
+                         A.page_offset(j * block + row0), A.page_rows());
       __syncthreads();   // the staging buffer is free again
       const int jn = j + DEC_CLUSTER;
-      if (pc + 1 < MAX_PIECES && row0 + DEC_PAGE_ROWS < block)
-        issue_block(st, A, b, h, j, row0 + DEC_PAGE_ROWS, piece_valid(valid, pc + 1));
+      if (row0 + PR < block)
+        issue_block(st, A, b, h, j, row0 + PR,
+                    max(0, min(PR, valid - row0 - PR)));
       else if (jn < n_live)
-        issue_block(st, A, b, h, jn, 0, piece_valid(min(block, L - jn * block), 0));
+        issue_block(st, A, b, h, jn, 0, min(PR, min(block, L - jn * block)));
     }
     float pv[NG];
-    decode_block_partials<NG, M>(S, valid, block, G, P, pv);
+    decode_block_partials<NG, M, kUnroll>(S, valid, block, G, P, pv);
     float* pvj = ws_pv + ((bh * max_blocks + j) * G) * D + t;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
@@ -330,7 +439,7 @@ static int launch_cluster_rows(const void* q, const Blocks& A,
   using OpT = typename M::Op;
   constexpr int D = Blocks::kD;
   const size_t smem = dec_stage_off<OpT, Blocks::kMaxBlock, D>() +
-                      sizeof(PageStage<typename Blocks::Elem, D>);
+                      sizeof(StageOf<Blocks>);
   auto kernel = cluster_decode_kernel<Blocks, NG, M>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(DEC_CLUSTER, batch, kv_heads);

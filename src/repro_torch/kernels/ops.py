@@ -130,10 +130,6 @@ def _cuda_inputs(op, q, k_pages, v_pages, ints, policy, quant, head_dims):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
     _head_dim(op, q.shape[-1], head_dims)
-    if k_pages.shape[1] > _decode.MAX_PAGE:
-        raise NotImplementedError(
-            f"page size {k_pages.shape[1]} > {_decode.MAX_PAGE}"
-        )
     b = q.shape[0]
     for name, x in ints.items():
         want = 2 if name == "page_table" else 1
@@ -164,10 +160,11 @@ def pasa_paged_decode(
     """GQA flash-decode over a paged KV pool (``shift_mask_valid``).
 
     ``block_kv`` is the PASA shift-block length (default: the page size).
-    The plain version shifts in blocks of ``block_kv`` over the gathered
-    view, as the reference's attention layer does; the CUDA kernel shifts
-    per page and raises unless ``block_kv`` is the page size.  The four
-    sidecars select the quantized mode (codes dequantized at
+    Both versions shift in blocks of ``block_kv`` rows of the page-table
+    view, whatever the page size, as the reference's attention layer
+    does; the CUDA kernel takes ``block_kv`` a multiple of 16 up to 256
+    (as the contiguous decode) and a page of any size.  The four sidecars
+    select the quantized mode (codes dequantized at
     ``policy.input_dtype``)."""
     if q.dim() != 4:
         raise ValueError("q must be (B, KVH, G, D)")
@@ -194,7 +191,6 @@ def _paged_decode_cost(q, k_pages, v_pages, page_table, kv_len, beta,
 
 def _paged_decode(q, k_pages, v_pages, page_table, kv_len, beta, policy,
                   block_kv, quant):
-    page = k_pages.shape[1]
     if q.device.type == "cpu":
         return _decode.paged_decode_plain(
             q, k_pages, v_pages, page_table, kv_len,
@@ -204,11 +200,7 @@ def _paged_decode(q, k_pages, v_pages, page_table, kv_len, beta, policy,
         return q.new_empty(q.shape, dtype=policy.out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"no pasa_paged_decode for device {q.device}")
-    if block_kv != page:
-        raise ValueError(
-            f"the CUDA decode kernel shifts per page: page size {page} must "
-            f"equal block_kv {block_kv}"
-        )
+    _cuda_block("block_kv", block_kv, _cdecode.MAX_BLOCK)
     if q.shape[2] > _decode.MAX_GROUP:
         raise NotImplementedError(
             f"GQA group {q.shape[2]} > {_decode.MAX_GROUP}"
@@ -220,7 +212,7 @@ def _paged_decode(q, k_pages, v_pages, page_table, kv_len, beta, policy,
     )
     out = _decode.kernel_call(
         q, k_pages, v_pages, ints["page_table"], ints["kv_len"],
-        beta=beta, policy=policy, quant=quant,
+        beta=beta, policy=policy, block_kv=block_kv, quant=quant,
     )
     _count(pasa_paged_decode,
            _decode.mode_name(policy, k_pages.dtype, q.shape[-1]))
@@ -288,7 +280,8 @@ def pasa_paged_prefill(
 
     The chunk's K/V must already be written into its pages; the B rows may
     belong to different requests, and a pad row (``kv_len == 0``) emits
-    zeros.  The four sidecars select the quantized mode."""
+    zeros.  A page is one PASA block; the CUDA kernel takes pages of 1 to
+    256 rows.  The four sidecars select the quantized mode."""
     if q.dim() != 4:
         raise ValueError("q must be (B, H, CS, D)")
     _check_pages(k_pages, v_pages)
@@ -325,10 +318,10 @@ def _paged_prefill(q, k_pages, v_pages, page_table, chunk_start, kv_len,
         return q.new_empty(q.shape, dtype=policy.out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"no pasa_paged_prefill for device {q.device}")
-    if k_pages.shape[1] % 16:
+    if k_pages.shape[1] > _prefill.MAX_PAGE:
         raise NotImplementedError(
-            f"the CUDA prefill kernel needs a page size that is a multiple "
-            f"of 16, got {k_pages.shape[1]}"
+            f"the CUDA prefill kernel takes pages of 1 to {_prefill.MAX_PAGE} "
+            f"rows (one PASA block a page), got {k_pages.shape[1]}"
         )
     q, ints = _cuda_inputs(
         "paged prefill", q, k_pages, v_pages,

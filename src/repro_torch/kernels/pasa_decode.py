@@ -9,7 +9,7 @@ Counterpart of ``repro.kernels.pasa_decode``.
     ``kv_len`` to partials in parallel, then folds them exactly in block
     order, into a workspace the wrapper allocates - the paged decode
     kernel's template over a strided cache, so paged == contiguous bit for
-    bit when page == block.  The cache is read in its stored layout and
+    bit at the same block, whatever the page size.  The cache is read in its stored layout and
     dtype (bf16) through its strides; rows at or past ``kv_len`` are never
     read.
   * :func:`_walk_call` launches the sequential walk of
@@ -40,7 +40,7 @@ from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels import _build
 from repro_torch.kernels.pasa_paged_decode import policy_scalars
 
-MAX_BLOCK = 256      # rows per block the kernels hold (pages: MAX_PAGE)
+MAX_BLOCK = 256      # rows per block both decode kernels hold
 
 
 def decode_plain(

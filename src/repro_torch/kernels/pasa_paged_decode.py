@@ -2,10 +2,15 @@
 
 Counterpart of ``repro.kernels.pasa_paged_decode``.
 
-  * :func:`kernel_call` launches ``csrc/pasa_paged_decode.cu``: a cluster
-    of 8 CTAs per (sequence, kv-head) reduces the live pages to per-page
-    partials in parallel, then folds them exactly in page order (see the
-    source's note), into a workspace the wrapper allocates.
+  * :func:`kernel_call` launches ``csrc/pasa_paged_decode.cu`` (bf16
+    pools) or its sibling source of the pool's type (``_fp16``,
+    ``_int8``, ``_fp8``), one template (``csrc/pasa_paged_decode.cuh``):
+    a cluster
+    of 8 CTAs per (sequence, kv-head) reduces the live blocks of
+    ``block_kv`` rows of the page-table view (any page size: a block may
+    span pages or share one) to partials in parallel, then folds them
+    exactly in block order (see the source's note), into a workspace the
+    wrapper allocates.
   * :func:`paged_decode_plain` is the port of the reference's
     ``paged_decode_xla``: a gather of the pages (dequantized for 8-bit
     pools by :func:`_gather_dequant`), then
@@ -43,11 +48,15 @@ HEAD_DIM = 128       # the served head width: launch modes name any other
 # head_dim_built), one instance each
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16       # query heads per kv head the decode kernel holds
-MAX_PAGE = 128       # rows per page the kernels hold in shared memory
 
 # The kernels' pool-kind launch argument (csrc/pasa_common.cuh PoolKind).
 POOL_KINDS = {torch.float16: 0, torch.bfloat16: 1, torch.int8: 2,
               torch.float8_e4m3fn: 3}
+# the library (csrc source) of each pool type's paged decode instances
+DECODE_SOURCES = {torch.bfloat16: "pasa_paged_decode",
+                  torch.float16: "pasa_paged_decode_fp16",
+                  torch.int8: "pasa_paged_decode_int8",
+                  torch.float8_e4m3fn: "pasa_paged_decode_fp8"}
 
 
 def _gather_dequant(pages: torch.Tensor, scale: Optional[torch.Tensor],
@@ -83,8 +92,8 @@ def paged_decode_plain(
     v_shift: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Gather-then-attend at the ``shift_mask_valid`` convention, with the
-    shift computed in blocks of ``block_kv`` over the gathered view (the
-    kernel's per-page shift equals it when ``block_kv`` is the page)."""
+    shift computed in blocks of ``block_kv`` over the gathered view,
+    whatever the page size (the reference's ``paged_decode_xla``)."""
     b = q.shape[0]
     dt = policy.input_dtype
     ks = _gather_dequant(k_pages, k_scale, k_shift, page_table, dt).movedim(2, 1)
@@ -155,10 +164,10 @@ def sidecar_ptrs(quant: Optional[dict]) -> list:
             for n in ("k_scale", "k_shift", "v_scale", "v_shift")]
 
 
-def _entry() -> ctypes._CFuncPtr:
-    fn = _build.load("pasa_paged_decode").pasa_paged_decode_launch
+def _entry(name: str) -> ctypes._CFuncPtr:
+    fn = getattr(_build.load(name), f"{name}_launch")
     fn.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -174,28 +183,32 @@ def kernel_call(
     *,
     beta: float,
     policy: PrecisionPolicy,
+    block_kv: int,
     quant: Optional[dict] = None,   # 8-bit pools: the four f32 sidecars
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (D in
-    :data:`HEAD_DIMS`).  Arguments are validated by
+    :data:`HEAD_DIMS`, ``block_kv`` rows of the page-table view a block).
+    Arguments are validated by
     :func:`repro_torch.kernels.ops.pasa_paged_decode`."""
     b, kvh, g, d = q.shape
     _, page, _, _ = k_pages.shape
     max_pages = page_table.shape[1]
+    n_blocks = -(-max_pages * page // block_kv)
     out = torch.empty_like(q)
-    # the pages' partials: P V (B, KVH, max_pages, G, D) then the row
-    # statistics (B, KVH, max_pages, 3, G), f32
-    workspace = torch.empty(b * kvh * max_pages * g * (d + 3),
+    # the blocks' partials: P V (B, KVH, n_blocks, G, D) then the row
+    # statistics (B, KVH, n_blocks, 3, G), f32
+    workspace = torch.empty(b * kvh * n_blocks * g * (d + 3),
                             dtype=torch.float32, device=q.device)
-    err = _entry()(
+    name = DECODE_SOURCES[k_pages.dtype]
+    err = _entry(name)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         *sidecar_ptrs(quant),
         page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
         workspace.data_ptr(),
-        b, kvh, g, d, page, max_pages, POOL_KINDS[k_pages.dtype],
+        b, kvh, g, d, page, max_pages, block_kv, POOL_KINDS[k_pages.dtype],
         *policy_scalars(beta, policy, d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"pasa_paged_decode launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
     return out

@@ -2,12 +2,16 @@
 
 Counterpart of ``repro.kernels.pasa_paged_prefill``.
 
-  * :func:`kernel_call` launches ``csrc/pasa_paged_prefill.cu``: one CTA
-    per (row * head, 128-query tile), longest causal tiles first; each
-    visible page arrives by TMA, a converter warpgroup turns it into the
-    shifted operands (at the policy's input dtype) one page ahead, two consumer warpgroups run both
-    GEMMs as wgmma with the scores in registers (see the source's note).
-    One instance per head width in ``pasa_paged_decode.HEAD_DIMS``.
+  * :func:`kernel_call` launches ``csrc/pasa_paged_prefill.cu`` (pages of
+    1 to 128 rows) or ``csrc/pasa_paged_prefill_wide.cu`` (129 to 256),
+    or their ``_q8`` siblings for 8-bit pools, one template
+    (``csrc/pasa_paged_prefill.cuh``): one CTA per (row *
+    head, 128-query tile), longest causal tiles first; each visible page
+    arrives by TMA, a converter warpgroup turns it into the shifted
+    operands (at the policy's input dtype) one page ahead, two consumer
+    warpgroups run both GEMMs as wgmma with the scores in registers (see
+    the source's note).  One instance per head width in
+    ``pasa_paged_decode.HEAD_DIMS``.
   * :func:`paged_prefill_plain` is the port of the reference's
     ``paged_prefill_xla``: a gather of the pages (dequantized for 8-bit
     pools, as in ``pasa_paged_decode``), then
@@ -38,6 +42,9 @@ from repro_torch.kernels.pasa_paged_decode import (
     policy_scalars,
     sidecar_ptrs,
 )
+
+MAX_PAGE = 256       # rows of a page (one PASA block) the kernel holds
+WIDE_PAGE = 128      # pages over this many rows build in the wide source
 
 
 def paged_prefill_plain(
@@ -72,8 +79,8 @@ def paged_prefill_plain(
     return out.reshape(b, h, cs, d)
 
 
-def _entry() -> ctypes._CFuncPtr:
-    fn = _build.load("pasa_paged_prefill").pasa_paged_prefill_launch
+def _entry(name: str) -> ctypes._CFuncPtr:
+    fn = getattr(_build.load(name), f"{name}_launch")
     fn.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float] * 4
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -95,12 +102,15 @@ def kernel_call(
     quant: Optional[dict] = None,   # 8-bit pools: the four f32 sidecars
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (D in
-    ``pasa_paged_decode.HEAD_DIMS``).  Arguments are validated by
+    ``pasa_paged_decode.HEAD_DIMS``, pages of 1 to :data:`MAX_PAGE` rows).
+    Arguments are validated by
     :func:`repro_torch.kernels.ops.pasa_paged_prefill`."""
     b, h, cs, d = q.shape
     _, page, kvh, _ = k_pages.shape
     out = torch.empty_like(q)
-    err = _entry()(
+    name = ("pasa_paged_prefill" + ("" if page <= WIDE_PAGE else "_wide")
+            + ("_q8" if quant else ""))
+    err = _entry(name)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         *sidecar_ptrs(quant),
         page_table.data_ptr(), chunk_start.data_ptr(), kv_len.data_ptr(),
@@ -111,5 +121,5 @@ def kernel_call(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"pasa_paged_prefill launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
     return out

@@ -22,7 +22,13 @@ this, other, on the same seeded inputs at ``chip_smoke.py``'s fixtures:
   * head_dim 64 (``/d64``): both decodes on the decode rows at KVH 4, G 8
     (paged also from an int8 pool), ``shift_kv`` on whisper's encoder keys
     (4, 20, 1536, 64) and ``pasa_attention`` / ``flash_attention`` at
-    fp16_fp32 on that shape with kv_valid 1500.
+    fp16_fp32 on that shape with kv_valid 1500;
+  * pages of 16 and 8 rows (``/page16``, ``/page8``): ``pasa_paged_decode``
+    at block 128 on a paged serve's decode rows (batch 4, kv 1002 / 519 /
+    302 / 131) and ``pasa_paged_prefill`` on the prefill rows above, from
+    bf16 pools.  A tree whose kernels do not take a fixture (a decode
+    block other than the page, a prefill page under 16 rows) reports it
+    as not taken.
 
 Each worker also saves ``_build.build()``'s seconds per source (empty for
 a tree already built).
@@ -180,6 +186,69 @@ def _cases(dev):
         cases[name] = (lambda kk=kk, block=block: ops.shift_kv(
             kk, beta=BETA, block_kv=block, policy=FP16), 50)
     cases.update(_hd64_cases(dev, randn))
+    cases.update(_page_cases(dev))
+    return cases
+
+
+def _repaged(rng, kc, vc, lens, page):
+    """The rows of (B, S, KVH, D) K and V in a shuffled pool of
+    ``page``-row pages, page 0 and the positions past each length NaN:
+    (k_pages, v_pages, table)."""
+    import numpy as np
+    import torch
+
+    b, s, kvh, d = kc.shape
+    n_pages = [math.ceil(max(n, 1) / page) for n in lens]
+    ids = rng.permutation(np.arange(1, 1 + sum(n_pages)))
+    table = torch.zeros((b, max(n_pages)), dtype=torch.int32)
+    kp = torch.full((1 + sum(n_pages), page, kvh, d), float("nan"),
+                    dtype=kc.dtype, device=kc.device)
+    vp = kp.clone()
+    nxt = 0
+    for i, (n, npg) in enumerate(zip(lens, n_pages)):
+        for j in range(npg):
+            pid = int(ids[nxt])
+            nxt += 1
+            table[i, j] = pid
+            rows = max(0, min(page, n - j * page))
+            kp[pid, :rows] = kc[i, j * page:j * page + rows]
+            vp[pid, :rows] = vc[i, j * page:j * page + rows]
+    return kp, vp, table.to(kc.device)
+
+
+def _page_cases(dev):
+    """The page-16 and page-8 cases of :func:`_cases` (their own seed)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(1)
+    randn = lambda shape, mean, dt=torch.float16: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32) + mean).to(dev, dt)
+    cases = {}
+    kvh, g, d = 4, 7, 128
+    lens = (1002, 519, 302, 131)
+    kc = randn((len(lens), max(lens), kvh, d), 2.0, torch.bfloat16)
+    vc = randn((len(lens), max(lens), kvh, d), 0.0, torch.bfloat16)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qd = randn((len(lens), kvh, g, d), 0.0)
+    starts, plens = PREFILL_ROWS
+    pk = randn((len(plens), max(plens), kvh, d), 2.0, torch.bfloat16)
+    pv = randn((len(plens), max(plens), kvh, d), 0.0, torch.bfloat16)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    pl = torch.tensor(plens, dtype=torch.int32, device=dev)
+    qp = randn((len(plens), 28, 512, d), 1.0)
+    for page in (16, 8):
+        kp, vp, table = _repaged(rng, kc, vc, lens, page)
+        cases[f"pasa_paged_decode/page{page}"] = (
+            lambda kp=kp, vp=vp, table=table: ops.pasa_paged_decode(
+                qd, kp, vp, table, kv_len, beta=BETA, block_kv=128), 50)
+        kp, vp, table = _repaged(rng, pk, pv, plens, page)
+        table[3] = 0
+        cases[f"pasa_paged_prefill/page{page}"] = (
+            lambda kp=kp, vp=vp, table=table: ops.pasa_paged_prefill(
+                qp, kp, vp, table, st, pl, beta=BETA), 20)
     return cases
 
 
@@ -252,7 +321,11 @@ def worker(tree: Path, save: Path) -> None:
     built = _build.build()
     outs, times = {}, {}
     for name, (call, iters) in _cases(dev).items():
-        outs[name] = call().cpu()
+        try:
+            outs[name] = call().cpu()
+        except (NotImplementedError, ValueError):
+            times[name] = None        # a mode this tree's kernels do not take
+            continue
         times[name] = _time_ms(call, iters)
     torch.save(outs, save.with_suffix(".pt"))
     save.with_suffix(".json").write_text(json.dumps(times))
@@ -295,6 +368,13 @@ def main(argv=None) -> int:
     a = torch.load(out / "run0_other.pt")
     b = torch.load(out / "run1_this.pt")
     for name in times[0]:
+        if name not in a or name not in b:
+            taken = [t[name] is not None for t in times]
+            ms = " / ".join("not taken" if t[name] is None else
+                            f"{t[name]:.4f}" for t in times)
+            print(f"{name}: ms other, this, this, other = {ms}"
+                  + ("" if all(taken) else "; no bit comparison"))
+            continue
         same = torch.equal(a[name], b[name])
         diff = "bits equal" if same else (
             f"{int((a[name] != b[name]).sum())} of {a[name].numel()} differ, "

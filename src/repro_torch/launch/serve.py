@@ -151,7 +151,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--page-size", type=int, default=None,
                     help="tokens per KV page (default: the PASA block "
-                         "length; the CUDA decode kernel requires it)")
+                         "length); decode shifts in blocks of the config's "
+                         "block_kv whatever the page size")
     ap.add_argument("--num-pages", type=int, default=None,
                     help="physical pages in the pool (default: sized to "
                          "fit the requested batch exactly)")
@@ -334,10 +335,6 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if args.paged and args.page_size is not None \
-            and args.page_size != cfg.attention.block_kv:
-        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
-            cfg.attention, block_kv=args.page_size))
     if args.kv_quant_scale != cfg.attention.kv_quant_scale:
         cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
             cfg.attention, kv_quant_scale=args.kv_quant_scale))
@@ -454,7 +451,13 @@ def _serve_paged(args, bundle, params, prompts, dev, mesh):
     from repro_torch.runtime import EngineReplicaGroup, ServeEngine, Telemetry
 
     n_data, n_model = mesh.shape["data"], mesh.shape["model"]
-    page_size = bundle.cfg.attention.block_kv
+    # the page size goes to the engine alone: decode shifts in blocks of
+    # the config's block_kv, prefill in one block a page, as the
+    # reference's CLI serves them
+    page_size = (args.page_size if args.page_size is not None
+                 else bundle.cfg.attention.block_kv)
+    if page_size < 1:
+        raise ValueError(f"--page-size must be >= 1, got {page_size}")
     total = args.prompt_len + args.gen
     batch_per = math.ceil(args.batch / n_data)
     num_pages = args.num_pages or math.ceil(total / page_size) * batch_per + 1

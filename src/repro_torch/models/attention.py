@@ -26,9 +26,12 @@ the card:
   * paged prefill (``prefill_cache=True`` with a page table): a prompt
     chunk per row at absolute positions ``pos + [0, S)``; positions at or
     past ``prefill_len`` write to the null page.  Chunk-exact convention
-    with shift blocks == pages (``ops.pasa_paged_prefill``).
+    with one shift block a page, whatever ``block_kv`` is
+    (``ops.pasa_paged_prefill``), as the reference's ``chunk_block =
+    page``.
   * paged decode: one token per row written at ``pos``, attending over
-    ``pos + 1`` positions (``ops.pasa_paged_decode``).
+    ``pos + 1`` positions, shifted in blocks of ``block_kv`` rows of the
+    page-table view whatever the page size (``ops.pasa_paged_decode``).
   * no cache (``cache=None``: the hybrid family's whole-sequence forward,
     the Whisper encoder, every cross-attention): the dense prefill's
     attention over the fresh K/V with nothing written, causal or not as

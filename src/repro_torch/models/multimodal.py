@@ -37,7 +37,11 @@ real audio encodes it with :func:`whisper_encode` and writes the result
 into ``cache["enc_out"]``.
 
 Each decode step writes the self-attention K/V rows in place, as the
-dense family's.
+dense family's.  With ``prefill_cache=True`` ``vlm_forward`` and
+``whisper_decode_fwd`` run the whole prompt in one pass that writes rows
+[0, S) of every self layer's cache (the reference's argument of the same
+name); the bundles keep ``prefill=None``, as the reference's, so both
+families still serve token by token.
 
 Training (``vlm_loss_fn``, ``whisper_loss_fn``) runs the whole sequence
 without a cache; when ``cfg.remat`` the vlm's self layers and Whisper's
@@ -63,11 +67,12 @@ def _n_groups(cfg: ModelConfig) -> int:
     return cfg.n_layers // cfg.cross_attn_every
 
 
-def _self_block(x, p: dict, cfg: ModelConfig, *, cache=None, pos=None):
+def _self_block(x, p: dict, cfg: ModelConfig, *, cache=None, pos=None,
+                prefill_cache=False):
     cd = cfg.torch_compute_dtype()
     h = attn_mod.attention(
         L.rms_norm(x, p["ln1"], cfg.norm_eps), p["attn"], cfg,
-        causal=True, cache=cache, pos=pos,
+        causal=True, cache=cache, pos=pos, prefill_cache=prefill_cache,
     )
     x = x + h.to(x.dtype)
     x = x + L.mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cd).to(
@@ -100,12 +105,15 @@ def project_vision(params: dict, cfg: ModelConfig,
 
 
 def vlm_forward(params: dict, cfg: ModelConfig, tokens, vision_embeds, *,
-                cache=None, pos=None):
+                cache=None, pos=None, prefill_cache=False):
     """tokens (B, S), vision_embeds (B, n_image_tokens, vision_dim) ->
     (final hidden states (B, S, D), cache): the whole sequence without a
-    cache (causal self-attention over the fresh K/V), or one decode step
-    at ``pos`` that writes every self layer's K/V row of ``cache`` ({"k",
-    "v"} of (G, per, B, max_len, kv_dim)) in place."""
+    cache (causal self-attention over the fresh K/V), one decode step at
+    ``pos`` that writes every self layer's K/V row of ``cache`` ({"k",
+    "v"} of (G, per, B, max_len, kv_dim)) in place, or with
+    ``prefill_cache`` the whole prompt in one pass that writes every self
+    layer's rows [0, S) of ``cache`` (the reference's fused prompt pass;
+    remat is skipped under it, as there)."""
     cd = cfg.torch_compute_dtype()
     x = L.embed(tokens, params["embed"], cd)
     vis = project_vision(params, cfg, vision_embeds)
@@ -113,11 +121,13 @@ def vlm_forward(params: dict, cfg: ModelConfig, tokens, vision_embeds, *,
         x = _cross_block(x, _layer(params["cross"], gi), cfg, vis)
         sp = _layer(params["self"], gi)
         for j in range(cfg.cross_attn_every - 1):
-            if cache is None:
+            if cache is None and not prefill_cache:
                 x = L.remat(cfg, _self_block, x, _layer(sp, j), cfg)
                 continue
-            lc = {"k": cache["k"][gi, j], "v": cache["v"][gi, j]}
-            x = _self_block(x, _layer(sp, j), cfg, cache=lc, pos=pos)
+            lc = (None if cache is None
+                  else {"k": cache["k"][gi, j], "v": cache["v"][gi, j]})
+            x = _self_block(x, _layer(sp, j), cfg, cache=lc, pos=pos,
+                            prefill_cache=prefill_cache)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
 
@@ -179,11 +189,11 @@ def _enc_block(x, lp: dict, cfg: ModelConfig):
 
 
 def _dec_block(x, lp: dict, cfg: ModelConfig, enc_out, *, cache=None,
-               pos=None):
+               pos=None, prefill_cache=False):
     cd = cfg.torch_compute_dtype()
     h = attn_mod.attention(
         L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["self_attn"], cfg,
-        causal=True, cache=cache, pos=pos,
+        causal=True, cache=cache, pos=pos, prefill_cache=prefill_cache,
     )
     x = x + h.to(x.dtype)
     h = attn_mod.attention(
@@ -196,20 +206,24 @@ def _dec_block(x, lp: dict, cfg: ModelConfig, enc_out, *, cache=None,
 
 
 def whisper_decode_fwd(params: dict, cfg: ModelConfig, tokens, enc_out, *,
-                       cache=None, pos=None):
+                       cache=None, pos=None, prefill_cache=False):
     """tokens (B, S) -> (final hidden states (B, S, D), cache): the whole
     sequence without a cache (causal self-attention over the fresh K/V),
-    or one decode step at ``pos`` that writes every layer's K/V row of
-    ``cache`` ({"k", "v"} of (L, B, max_len, kv_dim)) in place."""
+    one decode step at ``pos`` that writes every layer's K/V row of
+    ``cache`` ({"k", "v"} of (L, B, max_len, kv_dim)) in place, or with
+    ``prefill_cache`` the whole prompt in one pass that writes every
+    layer's rows [0, S) of ``cache`` (remat skipped under it, as in the
+    reference)."""
     cd = cfg.torch_compute_dtype()
     x = L.embed(tokens, params["embed"], cd)
     for i in range(cfg.n_layers):
         lp = _layer(params["dec"], i)
-        if cache is None:
+        if cache is None and not prefill_cache:
             x = L.remat(cfg, _dec_block, x, lp, cfg, enc_out)
             continue
-        lc = {"k": cache["k"][i], "v": cache["v"][i]}
-        x = _dec_block(x, lp, cfg, enc_out, cache=lc, pos=pos)
+        lc = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
+        x = _dec_block(x, lp, cfg, enc_out, cache=lc, pos=pos,
+                       prefill_cache=prefill_cache)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
 

@@ -86,10 +86,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      dtype=torch.bfloat16, *, device) -> dict:
     """Physical page pool for all layers: (L, num_pages, page_size, kv_dim).
-    Keep ``page_size == cfg.attention.block_kv`` (one page = one PASA
-    shift block; the CUDA decode kernel requires it).  ``dtype`` may be a
-    quantized pool dtype ("fp8_e4m3", "int8"): the pool then carries the
-    per-(page, kv-head) scale/shift sidecars."""
+    Any page size of 1 or more: paged decode shifts in blocks of
+    ``cfg.attention.block_kv`` over the page-table view, paged prefill in
+    one block a page (chunk-exact; the CUDA kernel takes pages of up to
+    256 rows).  ``dtype`` may be a quantized pool dtype ("fp8_e4m3",
+    "int8"): the pool then carries the per-(page, kv-head) scale/shift
+    sidecars."""
     return init_paged_pool(
         cfg.n_layers, num_pages, page_size, cfg.kv_dim, dtype,
         n_kv_heads=cfg.n_kv_heads, device=device,

@@ -20,8 +20,9 @@ that is expressed.
 Pages are recycled without scrubbing: the attention kernels take the
 per-page key shift and row pseudo-average over the valid (pos < kv_len)
 columns only and zero V there, so stale bytes past ``kv_len`` never reach
-an output.  Keeping ``page_size == attention.block_kv`` makes a page one
-PASA shift block.
+an output.  The page size is free of ``attention.block_kv``: decode shifts
+in blocks of ``block_kv`` rows of the page-table view (a block may span
+pages), prefill in one block a page, as the reference serves them.
 
 Quantized pools (``"fp8_e4m3"``, ``"int8"``) store **shift-centered**
 8-bit codes plus per-page, per-kv-head sidecars: ``*_shift`` (the page's

@@ -121,8 +121,9 @@ def test_unsupported_inputs_raise_instead_of_falling_back():
     kvl = torch.tensor([10], dtype=torch.int32, device=dev)
     with pytest.raises(NotImplementedError):
         ops.pasa_paged_decode(q, kp, vp, table, kvl, policy=F64)
-    with pytest.raises(ValueError):
-        ops.pasa_paged_decode(q, kp, vp, table, kvl, block_kv=64)
+    # a block the decode kernels do not take: not a multiple of 16
+    with pytest.raises(NotImplementedError):
+        ops.pasa_paged_decode(q, kp, vp, table, kvl, block_kv=8)
     # a head width no instance is built for (48) raises before any launch
     ops.reset_launches()
     with pytest.raises(NotImplementedError):
@@ -147,7 +148,8 @@ def _quantized(kp, vp, table, seq_lens, dtype):
 def test_quantized_pool_mode_raises_before_any_launch():
     """A quantized call the kernels do not take raises, and nothing is
     launched: the float64 oracle policy, sidecars with a raw pool, an
-    8-bit pool without sidecars, a page over 128 rows."""
+    8-bit pool without sidecars, a prefill page over 256 rows (one PASA
+    block a page; decode takes any page)."""
     dev = _card()
     rng = np.random.default_rng(12)
     kp, vp, table = _pool(rng, [10], 4, 128, dev)
@@ -165,13 +167,12 @@ def test_quantized_pool_mode_raises_before_any_launch():
         ops.pasa_paged_decode(q, kp, vp, table, kvl, **quant)
     with pytest.raises(NotImplementedError):
         ops.pasa_paged_decode(q, kq, vq, table, kvl)
-    big = torch.zeros((2, 256, 4, 128), dtype=torch.int8, device=dev)
+    big = torch.zeros((2, 257, 4, 128), dtype=torch.int8, device=dev)
     side = dict(k_scale=torch.ones(2, 4, device=dev),
                 k_shift=torch.zeros(2, 4, 128, device=dev))
     side.update(v_scale=side["k_scale"], v_shift=side["k_shift"])
     with pytest.raises(NotImplementedError):
-        ops.pasa_paged_decode(q, big, big, table[:, :1], kvl, block_kv=256,
-                              **side)
+        ops.pasa_paged_prefill(qp, big, big, table[:, :1], st, kvl, **side)
     assert ops.pasa_paged_decode.launches == ops.pasa_paged_prefill.launches == 0
 
 
@@ -1519,3 +1520,136 @@ def test_prefill_kernel_at_head_dims_32_and_64(d, page, pool):
             torch.testing.assert_close(got.float(), want.float(),
                                        **PREFILL_TOL)
             assert not got[2].any()
+
+
+# ---- every page size the reference serves --------------------------------
+#
+# Paged decode shifts in blocks of block_kv rows of the page-table view
+# whatever the page: at (page p, block b) it equals contiguous decode at
+# block b on the same rows, and the walk, bit for bit, for every p; an
+# 8-bit pool equals contiguous decode on its dequantized rows (each row
+# with its own page's sidecars).  Paged prefill takes pages of 1 to 256
+# rows, one PASA block a page.
+
+PAGE_SIZES = [1, 8, 48, 256]
+
+
+def _view_rows(kp, vp, quant, table, dtype):
+    """The pool's rows in page-table order, (B, n, KVH, D) K and V: a raw
+    pool's as stored, an 8-bit pool's dequantized as the kernels load
+    them (f32 product and sum, one rounding to ``dtype``)."""
+    return [dmod._gather_dequant(x, quant.get(f"{s}_scale"),
+                                 quant.get(f"{s}_shift"), table,
+                                 dtype if quant else x.dtype)
+            for s, x in (("k", kp), ("v", vp))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("page", PAGE_SIZES)
+def test_paged_decode_at_any_page_equals_contiguous(page, block, pool):
+    """Paged decode at page ``page`` and block ``block`` (the view's blocks
+    span pages, share them, start inside them) against contiguous decode
+    at ``block`` on the same rows and its walk, bit for bit, at fp16 PASA
+    and bf16_fp32 FlashAttention-2; within the decode bars of the plain
+    version; stale bytes past kv_len (NaN, or 8-bit debris and NaN
+    sidecars on dead pages) inert."""
+    dev = _card()
+    rng = np.random.default_rng(31)
+    kvh, g = 2, 7
+    kv_len = [300, 77, 1000]
+    kp, vp, table = _pool(rng, kv_len, kvh, page, dev)
+    quant = {}
+    if pool != "bf16":
+        kp, vp, quant, valid = _quantized(kp, vp, table, kv_len, pool)
+    q = _randn(rng, (len(kv_len), kvh, g, 128), 1.0, dev)
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    run = lambda kp, vp, quant, policy=FP16, beta=BETA: ops.pasa_paged_decode(
+        q, kp, vp, table, kvl, beta=beta, policy=policy, block_kv=block,
+        **quant)
+    for policy, beta in ((FP16, BETA), (BF16_FP32, 0.0)):
+        got = run(kp, vp, quant, policy, beta)
+        kc, vc = (x.transpose(1, 2) for x in _view_rows(
+            kp, vp, quant, table, policy.input_dtype))
+        qq = q.to(policy.input_dtype)
+        kw = dict(beta=beta, policy=policy, block_kv=block)
+        assert torch.isfinite(got.float()).all()
+        assert torch.equal(got, ops.pasa_decode(qq, kc, vc, kvl, **kw))
+        assert torch.equal(got, cmod._walk_call(qq, kc, vc, kvl, **kw))
+        want = dmod.paged_decode_plain(q, kp, vp, table, kvl, **kw, **quant)
+        torch.testing.assert_close(got.float(), want.float(), **DECODE_TOL)
+    if pool == "bf16":
+        junk = [torch.nan_to_num(x, nan=1e4) for x in (kp, vp)]
+        junk_quant = {}
+    else:
+        bad = float("nan") if pool == "fp8_e4m3" else 127.0
+        stale = ~valid[..., None, None]
+        junk = [torch.where(stale, bad, x.float()).to(x.dtype)
+                for x in (kp, vp)]
+        dead = ~valid.any(1)
+        junk_quant = {
+            n: torch.where(dead.reshape((-1,) + (1,) * (x.dim() - 1)),
+                           float("nan"), x) for n, x in quant.items()}
+    assert torch.equal(run(*junk, junk_quant), run(kp, vp, quant))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
+def test_decode_at_256_row_pages_matches_plain_version(dtype):
+    """256-row pages of an 8-bit pool (the page limit of the 128-row
+    staging buffer before the block was freed from the page), at blocks
+    256 and 128 (two blocks a page): the plain version's values within
+    the decode bars, one launch a call."""
+    dev = _card()
+    rng = np.random.default_rng(12)
+    kv_len = [600, 10]
+    kp, vp, table = _pool(rng, kv_len, 4, 256, dev)
+    kq, vq, quant, _ = _quantized(kp, vp, table, kv_len, dtype)
+    q = _randn(rng, (2, 4, 7, 128), 0.0, dev)
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    for block in (256, 128):
+        ops.reset_launches()
+        got = ops.pasa_paged_decode(q, kq, vq, table, kvl, beta=BETA,
+                                    block_kv=block, **quant)
+        assert ops.pasa_paged_decode.launches == 1
+        want = dmod.paged_decode_plain(q, kq, vq, table, kvl, beta=BETA,
+                                       policy=FP16, block_kv=block, **quant)
+        torch.testing.assert_close(got.float(), want.float(), **DECODE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("page", [1, 8, 48, 200, 256])
+def test_prefill_kernel_at_any_page(page, pool):
+    """Paged prefill at pages of 1, 8 and 48 rows (the 64-row tile,
+    surplus columns masked and zeroed), 200 and 256 (the 256-row tile's
+    two halves): within the prefill bars of the plain version at fp16 PASA
+    and bf16_fp32 FlashAttention-2, a pad row of zeros; the chunk after a
+    page-aligned cut bit for bit the same rows of the whole prompt's
+    single chunk."""
+    dev = _card()
+    rng = np.random.default_rng(32)
+    kvh, g = 2, 7
+    cut = 2 * page if page < 200 else page      # row 1's page-aligned start
+    start, plen = [0, cut, 0], [100, cut + 77, 0]
+    kp, vp, table, quant = _prefill_pool(rng, plen, kvh, page, dev, pool)
+    table[2] = 0
+    q = _randn(rng, (3, kvh * g, 100, 128), 1.0, dev)
+    st = torch.tensor(start, dtype=torch.int32, device=dev)
+    pl = torch.tensor(plen, dtype=torch.int32, device=dev)
+    for policy, beta in ((FP16, BETA), (BF16_FP32, 0.0)):
+        got = ops.pasa_paged_prefill(q, kp, vp, table, st, pl, beta=beta,
+                                     policy=policy, **quant)
+        want = pmod.paged_prefill_plain(q, kp, vp, table, st, pl, beta=beta,
+                                        policy=policy, **quant)
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), **PREFILL_TOL)
+        assert not got[2].any()
+    n, cut = plen[1], start[1]
+    qw = _randn(rng, (1, kvh * g, n, 128), 1.0, dev)
+    run = lambda c0: ops.pasa_paged_prefill(
+        qw[:, :, c0:], kp, vp, table[1:2],
+        torch.tensor([c0], dtype=torch.int32, device=dev), pl[1:2],
+        beta=BETA, **quant)
+    assert torch.equal(run(0)[:, :, cut:], run(cut))
