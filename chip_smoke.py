@@ -10,8 +10,8 @@ kernels phase 15 (16) runs and runs that phase alone, with no result
 line; ``--tools-only`` does so for phase 17, ``--modes-only`` (every
 kernel built) for phase 18, ``--pages-only`` (every kernel built) for
 phase 19.  ``--multi-only --half-batch`` feeds every rank of phase 16's
-data-parallel runs slice 0 of the batch, prints the readings and fails
-unless the gates refuse them.
+data-parallel runs (16b, 16c, 16e) slice 0 of the batch, prints the
+readings and fails unless the gates refuse each of them.
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card's name and power limit (nvidia-smi), then the build of every
@@ -73,9 +73,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      streams; how many greedy tokens equal the PASA serve's is reported.
      In the kernels line each new mode has its flash serve's count (0 for
      the fp32 modes, which no serve runs);
-  6. the engine's other modes with the same weights, each phase on a
-     line of its own, every launch checked (28 per call, on the paged
-     kernels only) and every stream held exactly: token-by-token mode
+  6. the engine's other modes on the same weights' first FEATURE_LAYERS
+     (8) of 28 layers (phases 6, 9, 10 and the tenant serve; first the
+     paged phase's serve of that depth from each pool,
+     ``serve_features_<pool>``, whose streams they are held to), each
+     phase on a line of its own, every launch checked (one a layer per
+     call, on the paged kernels only) and every stream held exactly:
+     token-by-token mode
      (``serve_tbt``: prompts of 257 and 129 tokens through the paged
      decode kernel, no prefill call) against ``dense_greedy_reference``
      (the dense B=1 cache through the contiguous decode kernel); the
@@ -122,7 +126,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      whisper serve's count (its encode included), and one entry each
      gathers their other d64 modes;
   9. sampling and self-speculative decoding on the paged engine, qwen2-7b
-     with the same weights.  In phase 2, ``check_verify`` holds
+     at FEATURE_LAYERS as phase 6.  In phase 2, ``check_verify`` holds
      ``pasa_paged_verify`` at W = K + 1 = 5 columns on the serve-shape
      decode pools (bf16, int8, fp8_e4m3): five decode-kernel launches a
      call, each column bit-equal to a one-token kernel decode at its
@@ -139,13 +143,15 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      draft accepted) and a wrong one (every draft rolled back), streams
      and every non-null page of the pool equal the plain serve's bit for
      bit; on bf16 a sampled serve with speculation equals its serve
-     without.  Every serve's launches are checked: 28 per prefill call,
-     28 per decode call, 28 per verify sub-step (K + 1 per call);
- 10. async pipelining and telemetry on the paged engine, qwen2-7b with the
-     same weights.  ``serve_async_<pool>`` (bf16, int8, fp8_e4m3): the
+     without.  Every serve's launches are checked: one a layer per
+     prefill call, per decode call and per verify sub-step (K + 1 per
+     call);
+ 10. async pipelining and telemetry on the paged engine, qwen2-7b at
+     FEATURE_LAYERS as phase 6.  ``serve_async_<pool>`` (bf16, int8, fp8_e4m3): the
      paged workload served sync, async (``pipeline_depth=1``), async,
      sync, each timed (tok/s, decode ms a step): every stream equal to
-     phase 3's, every non-null pool page equal between the depths,
+     ``serve_features_<pool>``'s, every non-null pool page equal between
+     the depths,
      launches equal per kernel and per call, ``on_token`` in order and
      gapless, lagging the host's count at depth 1 only; every serve under
      ``torch.cuda.set_sync_debug_mode("warn")``, its synchronizing calls
@@ -163,12 +169,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      counted; each probe reading on the card equal to the numpy probe on
      the same pages copied out);
  11. the tenant policy and the qwen3 dense configs.  Right after phase
-     10, with qwen2-7b's weights, ``serve_tenant_bf16``: the paged
+     10, qwen2-7b at FEATURE_LAYERS, ``serve_tenant_bf16``: the paged
      workload on 2 slots under TenantQuotaPolicy (requests 0 and 2
      tenant "interactive" at class "latency", 1 and 3 tenant "bulk" at
      "throughput", submitted first, with a page quota below their joint
      need and a prefill token cap a step; preemption armed): streams
-     equal phase 3's FCFS streams, the latency requests admitted and
+     equal the FCFS streams of its depth, the latency requests admitted and
      given their first token before the bulk ones, the cap and the quota
      never exceeded, the quota made a bulk request wait with a slot free
      and caused no preemption, the per-tenant series sum to
@@ -315,14 +321,29 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      dispatch on each rank's 32 experts against ``moe_ffn_gspmd`` on all
      64, one layer, B 2 x S 1024 bf16 tokens, the output and every
      leaf's gradient within EP_FFN_TOL of their largest; then one train
-     step of the whole model against the one-device step (loss within
+     step of the whole model, its state placed by the plan (the experts,
+     the attention's 8 of 16 heads, the embedding and head split over the
+     model axis), against the one-device step (loss within
      MULTI_LOSS_ATOL, gradient norm MULTI_GNORM_RTOL), the replicated
-     leaves the same bits on both ranks.  16b, data parallel (qwen3-4b,
-     2 of 36 layers, a 2 x 1 mesh, global batch 2 x 1,024): MULTI_STEPS
-     (2) steps against as many one-device steps on the whole batch (the
-     same bars), the
-     card's peak (both ranks' and what this process holds) at most
-     MULTI_PEAK_GB.  16c: the same from the same state through the
+     leaves the same bits on both ranks, each rank's bytes at rest the
+     plan's.  16b, data parallel of whole replicated state (qwen3-4b, 2
+     of 36 layers, a 2 x 1 mesh, global batch 2 x 1,024; the model run
+     without a mesh on each rank's slice, every gradient all-reduced):
+     MULTI_STEPS (2) steps against as many one-device steps on the whole
+     batch (the same bars), the card's peak (both ranks' and what this
+     process holds) at most MULTI_PEAK_GB.  16e, FSDP on the same 2 x 1
+     mesh from the same seed: the state placed by the plan (ZeRO over
+     the data axis: each layer gathered before it runs, the gradients
+     reduce-scattered), step 1's loss the bits of 16b's and its gradient
+     norm within FSDP_GNORM_RTOL of 16b's, every step within the bars of
+     the one-device steps, each rank's bytes at rest the plan's count
+     exactly.  16f, column-parallel on a 1 x 2 mesh (qwen3-4b as 16b,
+     each rank 4 of 8 kv heads and their 16 query heads, 4,864 of 9,728
+     MLP columns, the embedding and head split on V): MULTI_STEPS steps
+     against the one-device steps at the same bars, the replicated
+     leaves the same bits on both ranks, each rank's bytes at rest the
+     plan's; 16b, 16e and 16f each report their peak GB a rank.  16c: the
+     same as 16b from the same state through the
      compressed step on a pod axis of 2: the losses and gradient norms
      within the bars of 16b and within COMP_LOSS_ATOL of the one-device
      steps', every parameter within COMP_PARAM_ATOL of 16b's, every
@@ -333,9 +354,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      qwen3-4b's w2 call, forward and weight gradient within ROWP_TOL of
      the plain product's largest, one bf16 sum on the wire.  Every
      rank's launches of shift-KV and attention are gated exactly (2 a
-     layer a step: forward and remat recompute); the ``/train_dp`` and
-     ``/train_ep`` entries of the kernels line time both kernels at the
-     ranks' call shapes and carry every rank's launches.
+     layer a step: forward and remat recompute); the ``/train_dp``,
+     ``/train_ep`` and ``/train_col`` entries of the kernels line time
+     both kernels at the ranks' call shapes (16b / 16c / 16e, 16a, 16f)
+     and carry every rank's launches.
  17. the dry run's accounting held against the card
      (``launch.op_analysis``, ``launch.dryrun``, ``launch.roofline``), in
      two parts: ``tools_decode`` with phase 4's weights before they are
@@ -464,6 +486,11 @@ TBT_PROMPTS, TBT_GEN = (257, 129), 16
 PREFIX_SHARED, PREFIX_SUFFIXES, PREFIX_GEN = 768, (232, 105, 40), 16
 PREEMPT_PROMPTS, PREEMPT_GEN, PREEMPT_PAGES = (1000, 900), 32, 12
 POLICY_SERVES = (("sjf", None), ("mixed", 640))
+# the depth of qwen2-7b (of 28 layers) the engine's other modes run at
+# (phases 6, 9, 10 and the tenant serve), each against a paged serve of
+# that depth: every contract they hold is a bit-equality at any depth
+# (28 until phase 16 gained 16e and 16f)
+FEATURE_LAYERS = 8
 # sampling and speculation on the paged engine: the verify op at
 # W = SPEC_K + 1 columns on the serve-shape decode pools; the sampled
 # serves at SAMPLE_KW on the paged workload; the speculative serves at
@@ -4996,7 +5023,7 @@ def serve_olmoe(dev, bundle, nodrop, params):
 # tokens each, the prefix cache on.
 AFFINITY_SYSTEM, AFFINITY_BURST, AFFINITY_GEN = 512, 8, 16
 AFFINITY_TAIL = (64, 300)
-MESH_LAYERS = 4
+MESH_LAYERS = 2   # 4 until phase 16 gained 16e and 16f
 MESH_TIMEOUT_S = 600
 # ring PASA at fp16 against float64: at most this many times the RMSE of
 # the one-device GEMM-form PASA on the same K/V (each rank folds the
@@ -6037,10 +6064,17 @@ COMP_LEAF_SHAPE = (2560, 9728)
 ROWP_SHAPE = (2048, 9728, 2560)
 ROWP_TOL = 1e-2
 MULTI_PEAK_GB = 70.0
-# the attention's call in each rank: qwen3-4b's batch row (2 x 1), all of
-# olmoe's batch (1 x 2: the model axis replicates the attention)
+# 16e against 16b from one state on one batch: the same forward, so step
+# 1's loss is the same bits; the gradient norm sums the same squares in
+# another order (bucketed by the axes that split each leaf)
+FSDP_GNORM_RTOL = 1e-6
+# the attention's call in each rank (B, H, KVH, S, D): qwen3-4b's batch
+# row (2 x 1); olmoe's whole batch at this rank's 8 of 16 heads (1 x 2:
+# column-parallel, G 1); qwen3-4b's whole batch at this rank's 4 of 8 kv
+# heads and their 16 query heads (1 x 2)
 DP_ATTN_SHAPE = (MULTI_BATCH // 2, 32, 8, MULTI_SEQ, 128)
-EP_ATTN_SHAPE = (MULTI_BATCH, 16, 16, MULTI_SEQ, 128)
+EP_ATTN_SHAPE = (MULTI_BATCH, 8, 8, MULTI_SEQ, 128)
+COL_ATTN_SHAPE = (MULTI_BATCH, 16, 4, MULTI_SEQ, 128)
 
 
 def _multi_cfg(arch, layers):
@@ -6123,6 +6157,67 @@ def _wire_report(wire):
     return {f"{op}/{dt}": v for (op, dt), v in wire.totals().items()}
 
 
+def _whole_on(plan, mesh):
+    """True for a leaf whose plan splits it over no axis of ``mesh``
+    larger than 1 (every rank holds all of it)."""
+    return not any(mesh.shape[a] > 1 for axes in plan if axes for a in axes)
+
+
+def _rest_bytes(state):
+    """This rank's bytes at rest of the parameters and both moments."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    opt = state["opt"]
+    return sum(x.numel() * x.element_size() for tree in (
+        state["params"], opt.mu, opt.nu) for x in tree_leaves(tree))
+
+
+def _plan_bytes(cfg, mesh):
+    """The bytes of a device's parameters and both moments under
+    ``launch.params.param_plan`` on ``mesh``'s shape: each leaf of the
+    model's init on the meta device (its whole shape and dtype) over the
+    plan's split count, the moments at ``cfg.optimizer_dtype``."""
+    import torch
+
+    from repro_torch.launch.params import param_plan, split_count
+    from repro_torch.models.convert import _walk
+    from repro_torch.models.model_zoo import build
+
+    odt = torch.empty((), dtype=cfg.torch_optimizer_dtype()).element_size()
+    total = 0
+    for path, x in _walk(build(cfg).init(None, "meta",
+                                         dtype=cfg.torch_param_dtype())):
+        n = x.numel() // split_count(param_plan(path, x.shape, mesh.shape),
+                                     mesh.shape)
+        total += n * (x.element_size() + 2 * odt)
+    return total
+
+
+def _data_parallel_step(bundle, hyper, mesh):
+    """The data-parallel step of whole replicated state (16b): the model
+    run without a mesh on this rank's slice of the batch, every gradient
+    summed over the data axes in rank order and averaged, AdamW on the
+    whole leaves - the step FSDP (16e) is held to."""
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.sharding import set_mesh
+
+    grads_of = S._grads_fn(bundle, hyper)
+
+    def step(state, batch):
+        params, opt = state["params"], state["opt"]
+        set_mesh(None)
+        try:
+            loss, grads = grads_of(params, S._leaves_for_grad(params),
+                                   S.batch_to_device(batch, opt.step.device))
+        finally:
+            set_mesh(mesh)
+        loss, grads = S._group_mean(loss, grads, mesh, mesh.dp_axes())
+        params, opt, m = S._apply(hyper, params, opt, grads, None)
+        return {"params": params, "opt": opt}, {"loss": loss, **m}
+
+    return step
+
+
 def _launches():
     from repro_torch.kernels import ops
 
@@ -6135,7 +6230,8 @@ def _ep_rank(dev):
     against ``moe_ffn_gspmd`` on every expert, on the same bf16 tokens (B
     x S), forward and the gradient of sum(out^2) of each leaf; then one
     train step of the whole model (EP_LAYERS layers, the kernels
-    forward) with the launch counts set to 0 just before it."""
+    forward), its state placed by the plan, with the launch counts set to
+    0 just before it."""
     import numpy as np
     import torch
 
@@ -6169,7 +6265,11 @@ def _ep_rank(dev):
         return y.detach(), dict(zip(leaves, g))
 
     y_ref, g_ref = run(lambda x_, p: moe.moe_ffn_gspmd(x_, p, cfg), layer)
-    local = shard_params({"moe": layer}, cfg, mesh)["moe"]
+    # this rank's experts and the whole router, as the layer computes
+    # with them
+    experts = {k: v for k, v in layer.items() if k != "router"}
+    local = dict(shard_params({"moe": experts}, mesh)["moe"],
+                 router=layer["router"])
     set_mesh(mesh)
     WIRE.reset()
     t0 = time.perf_counter()
@@ -6190,7 +6290,7 @@ def _ep_rank(dev):
         experts=tuple(local["w1"].shape))}
     del y, g, y_ref, g_ref, layer, local, x
 
-    params = shard_params(full, cfg, mesh)
+    params = shard_params(full, mesh)
     del full
     torch.cuda.empty_cache()
     state = {"params": params,
@@ -6210,16 +6310,18 @@ def _ep_rank(dev):
     launches = _launches()
     set_mesh(None)
     leaves = tree_leaves(state["params"])
-    dims = shard_dims(state["params"], cfg, mesh)
+    whole = [_whole_on(plan, mesh)
+             for plan in shard_dims(state["params"], cfg, mesh)]
     rep["step"] = dict(
         loss=loss, grad_norm=gnorm, step_ms=step_s * 1e3,
         launches=launches, wire=_wire_report(WIRE), wait_s=WIRE.wait_s,
         stage_s=WIRE.stage_s, wire_s=WIRE.wire_s,
         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
         params=sum(p.numel() for p in leaves),
+        rest_bytes=_rest_bytes(state), plan_bytes=_plan_bytes(cfg, mesh),
         replicated_digests=_digests(
-            [p for p, d in zip(leaves, dims) if d is None]),
-        sharded_leaves=sum(d is not None for d in dims))
+            [p for p, w in zip(leaves, whole) if w]),
+        sharded_leaves=whole.count(False))
     del state, leaves, step_fn
     torch.cuda.empty_cache()
     return rep
@@ -6263,11 +6365,13 @@ def _drive_steps(dev, cfg, mesh, step_fn, state, half_batch=False):
 
 
 def _dp_rank(dev, half_batch=False):
-    """16b and 16c in one rank: DP_ARCH (DP_LAYERS layers) from seed 0,
-    MULTI_STEPS plain data-parallel steps on a 2 x 1 mesh, then the same
-    from the same state through the compressed step on a pod axis of 2;
-    the compressed run's parameters against the plain run's (kept on the
-    host); then :func:`_comp_leaf` over the pod group."""
+    """16b, 16e and 16c in one rank: DP_ARCH (DP_LAYERS layers) from seed
+    0, MULTI_STEPS data-parallel steps of whole replicated state on a
+    2 x 1 mesh, then as many FSDP steps (the state placed by the plan)
+    on it, then the same from the same state through the compressed step
+    on a pod axis of 2; the compressed run's parameters against the
+    plain run's (kept on the host); then :func:`_comp_leaf` over the pod
+    group."""
     import torch
 
     from repro_torch.core.collectives import WIRE
@@ -6286,21 +6390,31 @@ def _dp_rank(dev, half_batch=False):
 
     mesh = make_train_mesh((2, 1), ("data", "model"), devices=dev)
     set_mesh(mesh)
-    state = init_train_state(bundle, gen(), dev, mesh=mesh)
-    state, plain = _drive_steps(dev, cfg, mesh, make_train_step(bundle, hyper),
+    state = init_train_state(bundle, gen(), dev)
+    state, plain = _drive_steps(dev, cfg, mesh,
+                                _data_parallel_step(bundle, hyper, mesh),
                                 state, half_batch)
-    set_mesh(None)
     leaves = tree_leaves(state["params"])
     plain["params"] = sum(p.numel() for p in leaves)
+    plain["rest_bytes"] = _rest_bytes(state)
     plain["digests"] = _digests(leaves)
     kept = [p.detach().cpu() for p in leaves]
     del state, leaves
     torch.cuda.empty_cache()
 
+    state = init_train_state(bundle, gen(), dev, mesh=mesh)
+    fsdp_rest = _rest_bytes(state)
+    state, fsdp = _drive_steps(dev, cfg, mesh, make_train_step(bundle, hyper),
+                               state, half_batch)
+    set_mesh(None)
+    fsdp.update(rest_bytes=fsdp_rest, plan_bytes=_plan_bytes(cfg, mesh))
+    del state
+    torch.cuda.empty_cache()
+
     mesh = make_train_mesh((2, 1, 1), ("pod", "data", "model"),
                            devices=dev)
     step_fn = make_compressed_train_step(bundle, hyper, mesh)
-    state = init_train_state(bundle, gen(), dev)
+    state = init_train_state(bundle, gen(), dev, mesh=step_fn.mesh)
     state["comp"] = step_fn.init_comp(state["params"])
     state, comp = _drive_steps(dev, cfg, mesh, step_fn, state, half_batch)
     leaves = tree_leaves(state["params"])
@@ -6316,7 +6430,45 @@ def _dp_rank(dev, half_batch=False):
     del state, leaves, kept
     torch.cuda.empty_cache()
     comp["leaf"] = _comp_leaf(dev, mesh.axis_group("pod"))
-    return {"dp": plain, "comp": comp}
+    return {"dp": plain, "fsdp": fsdp, "comp": comp}
+
+
+def _col_rank(dev):
+    """16f in one rank: DP_ARCH (DP_LAYERS layers) from seed 0 on a 1 x 2
+    mesh, its state placed by the plan (column-parallel attention and
+    MLP, the embedding and head split on V), MULTI_STEPS steps on the
+    whole global batch."""
+    import torch
+
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.launch.sharding import set_mesh
+    from repro_torch.launch.steps import (TrainHyper, init_train_state,
+                                          make_train_step)
+    from repro_torch.models.convert import shard_dims
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = _multi_cfg(DP_ARCH, DP_LAYERS)
+    bundle = build(cfg)
+    mesh = make_train_mesh((1, 2), ("data", "model"), devices=dev)
+    set_mesh(mesh)
+    state = init_train_state(bundle, torch.Generator(device=dev).manual_seed(0),
+                             dev, mesh=mesh)
+    rest = _rest_bytes(state)
+    state, col = _drive_steps(dev, cfg, mesh,
+                              make_train_step(bundle, TrainHyper(**MULTI_HYPER)),
+                              state)
+    set_mesh(None)
+    leaves = tree_leaves(state["params"])
+    whole = [_whole_on(plan, mesh)
+             for plan in shard_dims(state["params"], cfg, mesh)]
+    col.update(rest_bytes=rest, plan_bytes=_plan_bytes(cfg, mesh),
+               sharded_leaves=whole.count(False),
+               replicated_digests=_digests(
+                   [p for p, w in zip(leaves, whole) if w]))
+    del state, leaves
+    torch.cuda.empty_cache()
+    return col
 
 
 def _comp_leaf(dev, group):
@@ -6413,8 +6565,9 @@ def _rowp_rank(dev):
 
 def _multi_rank(rank, store, out_dir, device, half_batch):
     """One rank of the world-2 group of phase 16, on ``device``: the
-    determinism settings of the trainer CLI, then 16a, 16b / 16c (every
-    rank on slice 0 of the batch with ``half_batch``), 16d."""
+    determinism settings of the trainer CLI, then 16a, 16b / 16e / 16c
+    (every rank on slice 0 of the batch with ``half_batch``), 16f,
+    16d."""
     import os
 
     import torch
@@ -6432,6 +6585,7 @@ def _multi_rank(rank, store, out_dir, device, half_batch):
     try:
         res = {"ep": _ep_rank(dev)}
         res.update(_dp_rank(dev, half_batch))
+        res["col"] = _col_rank(dev)
         res["rowp"] = _rowp_rank(dev)
         torch.save(res, f"{out_dir}/rank{rank}.pt")
     finally:
@@ -6441,7 +6595,7 @@ def _multi_rank(rank, store, out_dir, device, half_batch):
 def _readings(one, ranks):
     """The largest |loss difference| and relative gradient-norm
     difference of each rank's steps from the one-device steps', for 16a,
-    16b and 16c: {"16a": [(loss, norm) a rank], ...}."""
+    16b, 16c, 16e and 16f: {"16a": [(loss, norm) a rank], ...}."""
     def worst(rep, ref):
         return (max(abs(a - b) for a, b in zip(rep["loss"], ref["loss"])),
                 max(abs(a - b) / b for a, b in zip(rep["grad_norm"],
@@ -6451,7 +6605,17 @@ def _readings(one, ranks):
                       ("loss", "grad_norm")}
     return {"16a": [worst(ep(res), one["ep"]) for res in ranks],
             "16b": [worst(res["dp"], one["dp"]) for res in ranks],
-            "16c": [worst(res["comp"], one["dp"]) for res in ranks]}
+            "16c": [worst(res["comp"], one["dp"]) for res in ranks],
+            "16e": [worst(res["fsdp"], one["dp"]) for res in ranks],
+            "16f": [worst(res["col"], one["dp"]) for res in ranks]}
+
+
+def _refused(readings):
+    """The tags of ``_readings`` whose steps leave the one-device bars on
+    some rank."""
+    return sorted(tag for tag, per_rank in readings.items()
+                  if any(not (dl <= MULTI_LOSS_ATOL and dn <= MULTI_GNORM_RTOL)
+                         for dl, dn in per_rank))
 
 
 def _check_multi(one, ranks, resident_gb):
@@ -6460,14 +6624,15 @@ def _check_multi(one, ranks, resident_gb):
     want = lambda n: {name: n if name in ("shift_kv", "pasa_attention")
                       else 0 for name in ranks[0]["ep"]["step"]["launches"]}
     ep_steps = [r["ep"]["step"] for r in ranks]
-    # every step of 16a / 16b / 16c against the one-device steps
-    for tag, per_rank in _readings(one, ranks).items():
-        for r, (dl, dn) in enumerate(per_rank):
-            if not (dl <= MULTI_LOSS_ATOL and dn <= MULTI_GNORM_RTOL):
-                raise AssertionError(
-                    f"{tag} rank {r}: loss {dl:.3e} off (bar "
-                    f"{MULTI_LOSS_ATOL}), gradient norm {dn:.3e} off (bar "
-                    f"{MULTI_GNORM_RTOL}) from the one-device steps")
+    # every step of 16a / 16b / 16c / 16e / 16f against the one-device
+    # steps
+    readings = _readings(one, ranks)
+    bad = _refused(readings)
+    if bad:
+        raise AssertionError(
+            f"{', '.join(bad)}: off the one-device steps (bars: loss "
+            f"{MULTI_LOSS_ATOL}, gradient norm {MULTI_GNORM_RTOL}): "
+            f"{json.dumps({t: readings[t] for t in bad})}")
     for r, res in enumerate(ranks):
         lay, st = res["ep"]["layer"], res["ep"]["step"]
         bad = {k: v for k, v in lay["err_of_max"].items() if v > EP_FFN_TOL}
@@ -6475,11 +6640,26 @@ def _check_multi(one, ranks, resident_gb):
             raise AssertionError(f"16a rank {r}: a2a vs gspmd {lay}")
         if st["launches"] != want(per_step(EP_LAYERS)):
             raise AssertionError(f"16a rank {r}: launches {st['launches']}")
-        for tag in ("dp", "comp"):
+        for tag, name in (("dp", "16b"), ("comp", "16c"), ("fsdp", "16e"),
+                          ("col", "16f")):
             rep = res[tag]
             if rep["launches"] != want(per_step(DP_LAYERS) * MULTI_STEPS):
-                raise AssertionError(f"16{'b' if tag == 'dp' else 'c'} rank "
-                                     f"{r}: launches {rep['launches']}")
+                raise AssertionError(f"{name} rank {r}: launches "
+                                     f"{rep['launches']}")
+        # the state placed by the plan: each rank's bytes at rest
+        for name, rep in (("16a", st), ("16e", res["fsdp"]),
+                          ("16f", res["col"])):
+            if rep["rest_bytes"] != rep["plan_bytes"]:
+                raise AssertionError(f"{name} rank {r}: {rep['rest_bytes']} "
+                                     f"bytes at rest, the plan "
+                                     f"{rep['plan_bytes']}")
+        fsdp, dp = res["fsdp"], res["dp"]
+        if not (fsdp["loss"][0] == dp["loss"][0]
+                and abs(fsdp["grad_norm"][0] - dp["grad_norm"][0])
+                <= FSDP_GNORM_RTOL * dp["grad_norm"][0]):
+            raise AssertionError(f"16e rank {r} against 16b: loss "
+                                 f"{fsdp['loss']} / {dp['loss']}, norm "
+                                 f"{fsdp['grad_norm']} / {dp['grad_norm']}")
         comp, leaf = res["comp"], res["comp"]["leaf"]
         for i in range(MULTI_STEPS):
             if not abs(comp["loss"][i] - one["dp"]["loss"][i]) \
@@ -6509,7 +6689,9 @@ def _check_multi(one, ranks, resident_gb):
             ("16b parameters", ranks[0]["dp"]["digests"],
              ranks[1]["dp"]["digests"]),
             ("16c parameters", ranks[0]["comp"]["digests"],
-             ranks[1]["comp"]["digests"])):
+             ranks[1]["comp"]["digests"]),
+            ("16f replicated leaves", ranks[0]["col"]["replicated_digests"],
+             ranks[1]["col"]["replicated_digests"])):
         if a != b:
             raise AssertionError(f"{key} differ between the ranks")
     peak = sum(res["dp"]["peak_gb"] for res in ranks) + resident_gb
@@ -6519,6 +6701,7 @@ def _check_multi(one, ranks, resident_gb):
         for tag in ("dp", "comp"):
             res[tag].pop("digests")
         res["ep"]["step"].pop("replicated_digests")
+        res["col"].pop("replicated_digests")
     return {
         "multi_ep": dict(one_device=one["ep"], ranks=[
             res["ep"] for res in ranks]),
@@ -6526,6 +6709,10 @@ def _check_multi(one, ranks, resident_gb):
             res["dp"] for res in ranks], peak_gb_card=peak,
             resident_gb=resident_gb),
         "multi_comp": dict(ranks=[res["comp"] for res in ranks]),
+        "multi_fsdp": dict(one_device=one["dp"], ranks=[
+            res["fsdp"] for res in ranks]),
+        "multi_col": dict(one_device=one["dp"], ranks=[
+            res["col"] for res in ranks]),
         "multi_rowp": dict(shape=ROWP_SHAPE, ranks=[
             res["rowp"] for res in ranks]),
     }
@@ -6536,15 +6723,16 @@ def phase_multi(dev, half_batch=False):
     gloo group (:func:`_multi_rank`): the one-device steps first (and
     freed), then the group's 16a (expert parallel: olmoe-1b-7b's a2a
     layer and a whole step on a 1 x 2 mesh), 16b (data parallel:
-    qwen3-4b, MULTI_STEPS steps on a 2 x 1 mesh), 16c (the compressed
-    sync on a pod axis of 2) and 16d (the row-parallel w2 product), each gated
+    qwen3-4b, MULTI_STEPS steps on a 2 x 1 mesh), 16e (FSDP on it), 16c
+    (the compressed sync on a pod axis of 2), 16f (column-parallel on a
+    1 x 2 mesh) and 16d (the row-parallel w2 product), each gated
     (``_check_multi``); a failing rank fails the phase.  Then the kernels
     at the ranks' call shapes.  Prints the reports; returns the
     kernels-line entries (launches: every rank's, summed).
 
-    ``half_batch``: every rank of 16b / 16c takes slice 0 of the global
-    batch, as a wrong data rank would; the phase then fails unless the
-    gates refuse the run, and returns no entries."""
+    ``half_batch``: every rank of 16b / 16c / 16e takes slice 0 of the
+    global batch, as a wrong data rank would; the phase then fails unless
+    the gates refuse each of the three, and returns no entries."""
     import shutil
     import tempfile
 
@@ -6572,26 +6760,29 @@ def phase_multi(dev, half_batch=False):
     ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
              for r in range(2)]
     shutil.rmtree(out_dir, ignore_errors=True)
-    print("multi_readings: " + json.dumps(_readings(one, ranks)))
+    readings = _readings(one, ranks)
+    print("multi_readings: " + json.dumps(readings))
     if half_batch:
-        try:
-            _check_multi(one, ranks, resident_gb)
-        except AssertionError as e:
-            print(f"half batch refused: {e}")
-            return []
-        raise AssertionError("the phase-16 gates let a half batch through")
+        refused = _refused(readings)
+        print(f"half batch refused at {', '.join(refused)}")
+        if not {"16b", "16c", "16e"} <= set(refused):
+            raise AssertionError("the phase-16 gates let a half batch "
+                                 "through")
+        return []
     reps = _check_multi(one, ranks, resident_gb)
     reps["multi_dp"]["group_s"] = group_s
     for tag, r in reps.items():
         print(f"{tag}: " + json.dumps(r))
     entries = (_train_call_entries(dev, DP_ATTN_SHAPE, "train_dp")
-               + _train_call_entries(dev, EP_ATTN_SHAPE, "train_ep"))
+               + _train_call_entries(dev, EP_ATTN_SHAPE, "train_ep")
+               + _train_call_entries(dev, COL_ATTN_SHAPE, "train_col"))
+    runs = {"train_dp": lambda res: (res["dp"], res["comp"], res["fsdp"]),
+            "train_ep": lambda res: (res["ep"]["step"],),
+            "train_col": lambda res: (res["col"],)}
     for k in entries:
         name, _, tag = k["name"].partition("/")
-        k["launches"] = sum(
-            res["ep"]["step"]["launches"][name] if tag == "train_ep"
-            else res["dp"]["launches"][name] + res["comp"]["launches"][name]
-            for res in ranks)
+        k["launches"] = sum(rep["launches"][name] for res in ranks
+                            for rep in runs[tag](res))
         print(f"{k['name']}: max_abs_err {k['max_abs_err']:.3e}, "
               f"{k['ms']:.4f} ms vs plain {k['plain_ms']:.3f} ms, library "
               f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
@@ -7991,27 +8182,39 @@ def main(argv=None) -> int:
     print("serve_dense_flash: " + json.dumps(rep_fd))
     # the engine's token-by-token mode, prefix cache, preemption and
     # policies, each driven with the launch counts set to 0 just before it
+    # the engine's other modes (phases 6, 9 and 10 and the tenant policy)
+    # on FEATURE_LAYERS of qwen2-7b's 28 layers (the same weights' first
+    # layers), each held against the paged serve of that model from each
+    # pool (batched == alone is phase 3's)
+    feat, feat_params = _depth_cut(bundle, params, FEATURE_LAYERS)
+    feat_reps = {}
+    for dtype in ("bf16", *QUANT_DTYPES):
+        feat_reps[dtype] = serve(dev, feat, feat_params, cache_dtype=dtype,
+                                 alone=())
+        print(f"serve_features_{dtype}: " + json.dumps(
+            {k: feat_reps[dtype][k] for k in ("tok_per_s", "launches")}))
     t_new = time.perf_counter()
-    print("serve_tbt: " + json.dumps(serve_tbt(dev, bundle, params)))
+    print("serve_tbt: " + json.dumps(serve_tbt(dev, feat, feat_params)))
     for dtype in ("bf16", *QUANT_DTYPES):
         print(f"serve_prefix_{dtype}: "
-              + json.dumps(serve_prefix(dev, bundle, params, dtype)))
+              + json.dumps(serve_prefix(dev, feat, feat_params, dtype)))
     for dtype in ("bf16", "int8"):
         print(f"serve_preempt_{dtype}: "
-              + json.dumps(serve_preempt(dev, bundle, params, dtype)))
+              + json.dumps(serve_preempt(dev, feat, feat_params, dtype)))
     for scheduler, budget in POLICY_SERVES:
         print(f"serve_{scheduler}: " + json.dumps(serve_policy(
-            dev, bundle, params, scheduler, budget, rep["streams"])))
+            dev, feat, feat_params, scheduler, budget,
+            feat_reps["bf16"]["streams"])))
     print(f"engine features: {time.perf_counter() - t_new:.1f} s")
     # sampling and speculation on the paged engine, each serve driven with
     # the launch counts set to 0 just before it and checked just after
     t_spec = time.perf_counter()
     for dtype in ("bf16", "int8"):
         print(f"serve_sample_{dtype}: " + json.dumps(serve_sample(
-            dev, bundle, params, dtype, reps[dtype]["streams"])))
+            dev, feat, feat_params, dtype, feat_reps[dtype]["streams"])))
     for dtype in ("bf16", *QUANT_DTYPES):
         print(f"serve_spec_{dtype}: " + json.dumps(serve_spec(
-            dev, bundle, params, dtype,
+            dev, feat, feat_params, dtype,
             drafters=("oracle", "wrong") if dtype != "fp8_e4m3" else (),
             sampled=dtype == "bf16")))
     print(f"sampling and speculation: {time.perf_counter() - t_spec:.1f} s")
@@ -8022,17 +8225,18 @@ def main(argv=None) -> int:
     async_pools = {}
     for dtype in ("bf16", *QUANT_DTYPES):
         rep_async, async_pools[dtype] = serve_async(
-            dev, bundle, params, dtype, reps[dtype]["streams"])
+            dev, feat, feat_params, dtype, feat_reps[dtype]["streams"])
         print(f"serve_async_{dtype}: " + json.dumps(rep_async))
     print("serve_async_spec_bf16: "
-          + json.dumps(serve_async_spec(dev, bundle, params)))
+          + json.dumps(serve_async_spec(dev, feat, feat_params)))
     print("serve_async_preempt_bf16: "
-          + json.dumps(serve_preempt(dev, bundle, params, "bf16", depth=1)))
+          + json.dumps(serve_preempt(dev, feat, feat_params, "bf16",
+                                     depth=1)))
     print("serve_cancel_bf16: " + json.dumps(
-        serve_cancel(dev, bundle, params, reps["bf16"]["streams"])))
+        serve_cancel(dev, feat, feat_params, feat_reps["bf16"]["streams"])))
     for dtype in ("bf16", "int8"):
         print(f"serve_telemetry_{dtype}: " + json.dumps(serve_telemetry(
-            dev, bundle, params, dtype, reps[dtype]["streams"],
+            dev, feat, feat_params, dtype, feat_reps[dtype]["streams"],
             async_pools[dtype])))
     del async_pools
     torch.cuda.empty_cache()
@@ -8041,7 +8245,7 @@ def main(argv=None) -> int:
     # driven with the launch counts set to 0 just before each serve
     t_tenant = time.perf_counter()
     print("serve_tenant_bf16: " + json.dumps(serve_tenant(
-        dev, bundle, params, reps["bf16"]["streams"])))
+        dev, feat, feat_params, feat_reps["bf16"]["streams"])))
     tenant_s = time.perf_counter() - t_tenant
     # the hybrid family (zamba2-1.2b) on the token-by-token dense route,
     # driven with the launch counts set to 0 just before it
@@ -8049,7 +8253,7 @@ def main(argv=None) -> int:
     # run's, with phase 4's weights
     phase_tools(dev, bundle, params, parts=("decode",))
     t_hybrid = time.perf_counter()
-    del bundle, params, flash
+    del bundle, params, flash, feat, feat_params
     torch.cuda.empty_cache()
     rep_hybrid = serve_hybrid(dev)
     print("serve_hybrid: " + json.dumps(rep_hybrid))

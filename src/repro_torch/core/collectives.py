@@ -14,18 +14,24 @@ for bit.
 Reductions (:func:`all_reduce`) are an ``all_gather`` followed by a sum
 (or max) in rank order at the tensor's dtype: deterministic, bit-equal
 on every rank, and exact on integers (gloo's own ``all_reduce`` refuses
-int16).  :data:`WIRE` counts what each call put on the wire.
+int16).  :func:`reduce_scatter` sends each rank only its block (one
+``all_to_all``) and folds the blocks in the same order, so its result is
+the bits of ``all_reduce``'s on that block.  :data:`WIRE` counts what
+each call put on the wire.
 
 The autograd Functions carry the reference's transposes, with the
 convention that a replicated tensor's cotangent is whole on every rank:
 the backward of :func:`all_to_all` is ``all_to_all``; of a tiled gather
 whose output is replicated (:func:`gather_replicated`) this rank's slice
-of the cotangent; of taking this rank's slice of a replicated input
-(:func:`slice_replicated`) the slices' cotangents gathered (a scatter
-into zeros summed over the group, without the zeros on the wire); of a
-sum whose output is replicated (:func:`sum_replicated`) the identity;
-and :func:`sum_grad` (a replicated parameter used on this rank's part of
-the data) sums its gradient over the group.
+of the cotangent; of a tiled gather of a parameter's blocks that each
+rank then uses on its own part of the data (:func:`gather_sharded`) the
+group's sum of the cotangents, this rank's block of it
+(:func:`reduce_scatter`); of taking this rank's slice of a replicated
+input (:func:`slice_replicated`) the slices' cotangents gathered (a
+scatter into zeros summed over the group, without the zeros on the
+wire); of a sum whose output is replicated (:func:`sum_replicated`) the
+identity; and :func:`sum_grad` (a replicated parameter used on this
+rank's part of the data) sums its gradient over the group.
 """
 
 from __future__ import annotations
@@ -228,6 +234,52 @@ def all_reduce(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     return out
 
 
+def reduce_scatter(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """This rank's block along ``dim`` (equal blocks in rank order) of the
+    group's sum of ``x``, folded in rank order at ``x``'s dtype: the bits
+    :func:`all_reduce` gives on that block.  Each rank receives only its
+    block from every other (``all_to_all_single`` on the host, in pieces
+    of ``WIRE_PIECE`` bytes a peer, all in flight at once); :data:`WIRE`
+    logs the bytes that leave this rank, (n - 1) / n of ``x``'s."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter of dim {dim} of {tuple(x.shape)} "
+                         f"over {n} ranks")
+    blocks = x.unflatten(dim, (n, x.shape[dim] // n)).movedim(dim, 0)
+    me = group_rank(group)
+    like = blocks[me]
+    nb = like.numel() * like.element_size()
+    WIRE.add("reduce_scatter", x.dtype, nb * (n - 1))
+    if _abstract(x, group):
+        return torch.empty(like.shape, dtype=x.dtype, device=x.device)
+    sent = _to_host(blocks).view(n, nb)
+    recv = _host_empty(n * nb, x).view(n, nb)
+
+    def exchange():
+        # one all_to_all_single a piece of every block (gloo has no
+        # list-form all_to_all), the pieces' columns copied contiguous
+        works = []
+        for a in range(0, nb, WIRE_PIECE):
+            dst = recv[:, a:a + WIRE_PIECE]
+            src = sent[:, a:a + WIRE_PIECE].contiguous()
+            out = dst if dst.is_contiguous() else torch.empty_like(src)
+            works.append((dst, out, dist.all_to_all_single(
+                out, src, group=group, async_op=True)))
+        for dst, out, w in works:
+            w.wait()
+            if out is not dst:
+                dst.copy_(out)
+
+    _wire(exchange)
+    out = None
+    for r in range(n):
+        part = like if r == me else _from_host(recv[r], like)
+        out = part if out is None else out + part
+    return out.contiguous()
+
+
 def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     """The reference's untiled ``all_to_all`` over axis 0 (split 0,
     concat 0): ``x`` (n, ...) with n the group's size; row j goes to rank
@@ -307,6 +359,17 @@ class _GatherReplicated(torch.autograd.Function):
                       group_rank(ctx.group)), None, None)
 
 
+class _GatherSharded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
 class _SliceReplicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
@@ -352,6 +415,14 @@ def gather_replicated(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """Tiled ``all_gather`` along ``dim`` whose output is replicated: the
     backward is this rank's slice of the cotangent."""
     return _GatherReplicated.apply(x, dim, group) if _active(group) else x
+
+
+def gather_sharded(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Tiled ``all_gather`` along ``dim`` of a parameter's blocks (ZeRO
+    over the data axes): each rank uses the whole on its own part of the
+    data, so the backward is the group's sum of the cotangents, this
+    rank's block of it (:func:`reduce_scatter`)."""
+    return _GatherSharded.apply(x, dim, group) if _active(group) else x
 
 
 def slice_replicated(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:

@@ -13,8 +13,8 @@ allocated or computed, and no card is needed.  Per cell:
   * ``params`` (``roofline.count_params``, total and expert);
   * the per-device state - parameters, gradients and AdamW moments at
     ``cfg.optimizer_dtype`` - under the placement plan (``launch.params``)
-    and under the layout the port holds (``models.convert.shard_dims``),
-    each against the card's 80 GB;
+    and under the placement the port holds (``models.convert.shard_dims``,
+    which is the plan), each against the card's 80 GB;
   * ``hbm_bytes_per_device`` (``roofline.analytic_memory_bytes``);
   * ``flops_per_device``: ``launch.op_analysis`` over the step as run
     (train: ``make_train_step`` on this rank's batch slice under the
@@ -111,8 +111,9 @@ def count_decode(bundle, params, batch: int, cache_rows: int, kv_len: int,
 def state_bytes(cfg, params, mesh_shape: Dict[str, int]) -> dict:
     """Per-device bytes of the training state (parameters and gradients at
     the parameters' dtype, two AdamW moments at ``cfg.optimizer_dtype``)
-    under the placement plan and under the held layout, each against the
-    card's 80 GB."""
+    under the placement plan and under the placement the port holds
+    (``launch.params.held_split``: the same), each against the card's 80
+    GB."""
     from repro_torch.launch import params as P
     from repro_torch.launch.roofline import _walk
 
@@ -183,7 +184,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         else:
             set_mesh(mesh)
             try:
-                local = shard_params(params, cfg, mesh)
+                local = shard_params(params, mesh)
                 if kind == "train":
                     state = {"params": local, "opt": adamw_init(
                         local, cfg.torch_optimizer_dtype())}
@@ -194,7 +195,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             finally:
                 set_mesh(None)
             coll = R.collective_bytes(cfg, kind, batch, seq, mesh.shape,
-                                      params=params)
+                                      params=params,
+                                      microbatches=microbatches)
             n_tokens = batch * seq
         # the reckoning against what the run put on WIRE (the decode
         # cell runs no collective: the pool gather is the engine's)

@@ -93,6 +93,19 @@ class Mesh:
             idx = idx * self.shape[a] + self.axis_rank(a)
         return idx
 
+    def drop(self, axis: str) -> "Mesh":
+        """This mesh without ``axis``, at this process's index along it:
+        the other axes' sizes, cells, groups and coordinates.  A step
+        whose collectives over ``axis`` are its own (the compressed step's
+        pods) runs the model and places the state on it."""
+        i = self.axis_names.index(axis)
+        return Mesh({a: k for a, k in self.shape.items() if a != axis},
+                    np.take(self.devices, self.axis_rank(axis), axis=i),
+                    groups={k: g for k, g in self.groups.items()
+                            if axis not in k},
+                    coords={a: c for a, c in self.coords.items()
+                            if a != axis})
+
     def local_device(self) -> torch.device:
         """This process's cell (a training mesh)."""
         return self.devices[tuple(self.coords.get(a, 0)

@@ -1,19 +1,20 @@
 """The placement plan of parameters and serve caches (counterpart of
-``repro.launch.params``), as accounting.
+``repro.launch.params``).
 
 The reference places every leaf with a GSPMD sharding: rules by leaf
 name, *right-aligned* over the trailing dims (stacked-layer leading dims
 replicated), filtered through ``shard_if_divisible`` so that an axis that
 does not divide its dim drops out.  The port has no partitioner, so the
 plan here is a pure function from (path, shape, mesh shape) to the axes
-along which each dim splits; it places nothing.  The dry run
-(``launch.dryrun``) reads it to reckon each device's state.
-
-Beside it stands the layout the port holds today on a training mesh,
-``models.convert.shard_dims``: the moe experts split on E and every
-MLP's ``w2`` on its rows over the model axis, everything else
-replicated (the attention and the MLP's input projections included);
-:func:`held_split` reads it the same way.
+along which each dim splits, and the port places its training state by
+it explicitly: ``models.convert.shard_params`` gives each process the
+block of every parameter (and so of its gradient and AdamW moments) that
+the reference's ``NamedSharding`` gives the device at the same mesh
+coordinates, and ``models.convert.gather_params`` gathers a layer's
+blocks before the layer runs.  The dry run (``launch.dryrun``) reads the
+plan to reckon each device's state, and :func:`held_split` reads the
+placement the port holds (``models.convert.shard_dim``), which is the
+plan.
 
 Placement summary (the reference's):
   * column-parallel weights (wq/wk/wv/w1/w3/in_proj/...):  (..., FSDP, "model")
@@ -154,12 +155,11 @@ def split_count(plan: tuple, mesh_shape: Dict[str, int]) -> int:
 
 
 def held_split(path: Sequence[str], cfg, mesh_shape: Dict[str, int]) -> int:
-    """Into how many parts the port's held layout
-    (``models.convert.shard_dim``) splits the leaf at ``path``: the
-    model axis's size for the moe experts and the MLPs' ``w2``, else 1."""
+    """Into how many parts the port's placement
+    (``models.convert.shard_dim``) splits the parameter leaf at ``path``
+    of ``cfg``'s model on a mesh of ``mesh_shape``."""
     from repro_torch.launch.roofline import ShapeOnlyMesh
     from repro_torch.models.convert import shard_dim
 
-    if shard_dim(tuple(path), cfg, ShapeOnlyMesh(mesh_shape)) is None:
-        return 1
-    return mesh_shape.get("model", 1)
+    return split_count(shard_dim(tuple(path), cfg, ShapeOnlyMesh(mesh_shape)),
+                       mesh_shape)

@@ -41,6 +41,10 @@ from repro_torch.kernels.cost import (  # noqa: F401  (re-exported)
     shift_kv_cost,
     visible_pairs,
 )
+from repro_torch.models.convert import (  # noqa: F401  (_walk re-exported)
+    _walk,
+    computes_split,
+)
 
 NVLINK_BW = 450e9          # bytes/s a direction a card, NVLink 4 in a node
 IB_BW = 50e9               # bytes/s a card, InfiniBand NDR across nodes
@@ -180,16 +184,6 @@ def analytic_memory_bytes(
             "optimizer": 0.0, "cache": 0.0, "ce": ce / 2}
 
 
-def _walk(tree, path=()):
-    """(path, leaf) of every tensor of a nested dict, in sorted key order
-    (``optim.adamw.tree_leaves``'s order)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _walk(tree[k], path + (str(k),))
-    else:
-        yield path, tree
-
-
 def held_dtype(params) -> str:
     """The dtype, by name (``"bfloat16"``), that holds most elements of a
     parameter tree."""
@@ -235,25 +229,37 @@ def model_flops(
 #
 # What ``core.collectives`` logs in ``WIRE`` for one call: an
 # ``all_gather`` (and an ``all_reduce``, which is one) this rank's bytes;
-# an ``all_to_all`` the bytes that leave this rank, (n - 1) / n of its
-# buffer.
+# an ``all_to_all`` and a ``reduce_scatter`` the bytes that leave this
+# rank, (n - 1) / n of its buffer.
 
 def _a2a(nbytes: int, n: int) -> int:
     return nbytes * (n - 1) // n
 
 
-def _rank_leaves(params_shapes, cfg, mesh_shape: Dict[str, int]):
-    """(numel on this rank, itemsize, dtype name, split over the model
-    axis) of every parameter leaf under the held layout
-    (``models.convert.shard_dim``)."""
-    from repro_torch.models.convert import shard_dim
+# the stacks whose layers run under ``layers.remat`` (recomputed in the
+# backward, their weights gathered again): every family's layer stack
+# but the vlm's cross layers and the hybrid's shared block
+_REMAT_STACKS = ("blocks", "mamba", "self", "enc", "dec")
 
-    mesh = ShapeOnlyMesh(mesh_shape)
-    m = mesh_shape.get(MODEL, 1)
-    for path, leaf in _walk(params_shapes):
-        split = shard_dim(path, cfg, mesh) is not None
-        yield (leaf.numel() // (m if split else 1), leaf.element_size(),
-               _dt(leaf.dtype), split)
+
+def _axis_name(axes) -> str:
+    """The ``by_axis`` key of a collective over ``axes``."""
+    return "+".join(axes)
+
+
+def _placed_leaves(params, cfg, mesh_shape: Dict[str, int]):
+    """(path, plan with the axes of size 1 dropped, numel on this rank,
+    itemsize, dtype name) of every parameter leaf under the placement
+    (``models.convert.shard_dim``: the plan on ``mesh_shape``)."""
+    from repro_torch.launch.params import param_plan, split_count
+
+    for path, leaf in _walk(params):
+        plan = tuple(tuple(a for a in axes if mesh_shape[a] > 1) or None
+                     if axes else None
+                     for axes in param_plan(path, leaf.shape, mesh_shape))
+        yield (path, plan,
+               leaf.numel() // split_count(plan, mesh_shape),
+               leaf.element_size(), _dt(leaf.dtype))
 
 
 class ShapeOnlyMesh:
@@ -296,20 +302,59 @@ def _moe_wire(cfg, tokens: int, m: int, grad: bool, remat: bool) -> dict:
     return out
 
 
-def _w2_wire(cfg, tokens: int, m: int, grad: bool, remat: bool) -> dict:
-    """{(op, dtype): bytes} of one row-parallel ``w2`` product over ``m``
-    ranks: forward the (rows, D) partial sums' gather at the compute
-    dtype; backward the gather of the (rows, F / M) input slice's
-    gradient.  A remat recompute stops before the sum (nothing after the
-    product is saved)."""
+def _w2_wire(cfg, tokens: int, grad: bool) -> dict:
+    """{(op, dtype): bytes} of one column-parallel MLP (``layers.mlp``):
+    forward the (rows, D) partial sums of the
+    row-parallel ``w2`` at the compute dtype, on the rows padded to
+    MIN_ROWS; backward the sum of the input's gradient (``sum_grad``).
+    A remat recompute stops before the sum (nothing after the product is
+    saved)."""
     from repro_torch.models.layers import MIN_ROWS
 
     cd = _itemsize(cfg.compute_dtype)
-    rows = max(tokens, MIN_ROWS)
-    nbytes = rows * cfg.d_model * cd
+    nbytes = max(tokens, MIN_ROWS) * cfg.d_model * cd
     if grad:
-        nbytes += rows * (cfg.d_ff // m) * cd
+        nbytes += tokens * cfg.d_model * cd
     return {("all_gather", _dt(cfg.compute_dtype)): nbytes}
+
+
+def _attn_wire(cfg, rows: int, cross_rows: int, grad: bool,
+               recompute: bool) -> dict:
+    """{(op, dtype): bytes} of one column-parallel attention
+    (``attention.heads_sharded``): forward the sum of ``wo``'s partial
+    products on the (rows, D) output at the compute dtype, again in a
+    remat recompute; backward the sums of the input's gradient, of a
+    cross-attention's keys' source (``cross_rows``) and, with qk-norm,
+    of the two norm weights' (at the parameter dtype)."""
+    cd, dt = _itemsize(cfg.compute_dtype), _dt(cfg.compute_dtype)
+    out = {("all_gather", dt): (1 + recompute) * rows * cfg.d_model * cd}
+    if grad:
+        out[("all_gather", dt)] += (rows + cross_rows) * cfg.d_model * cd
+        if cfg.qk_norm:
+            out[("all_gather", _dt(cfg.param_dtype))] = (
+                2 * cfg.head_dim * _itemsize(cfg.param_dtype))
+    return out
+
+
+def _attn_calls(cfg, b_loc: int, seq: int, remat: bool) -> list:
+    """(rows, cross-attention key-source rows, recomputed) of each
+    attention call one pass runs."""
+    tokens = b_loc * seq
+    if cfg.family in ("dense", "moe"):
+        return [(tokens, 0, remat)] * cfg.n_layers
+    if cfg.family == "hybrid":
+        return [(tokens, 0, False)] * ((cfg.n_layers + cfg.attn_every - 1)
+                                       // cfg.attn_every)
+    if cfg.family == "vlm":
+        g = cfg.n_layers // cfg.cross_attn_every
+        return ([(tokens, 0, remat)] * (g * (cfg.cross_attn_every - 1))
+                + [(tokens, b_loc * cfg.n_image_tokens, False)] * g)
+    if cfg.family == "audio":
+        frames = b_loc * cfg.n_audio_frames
+        return ([(frames, 0, remat)] * cfg.n_encoder_layers
+                + [(tokens, 0, remat), (tokens, frames, remat)]
+                * cfg.n_layers)
+    return []
 
 
 def _mlp_rows(cfg, b_loc: int, seq: int) -> list:
@@ -329,6 +374,7 @@ def _mlp_rows(cfg, b_loc: int, seq: int) -> list:
 
 def collective_bytes(cfg, kind: str, batch: int, seq: int,
                      mesh_shape: Dict[str, int], *, params=None,
+                     microbatches: int = 1,
                      num_pages: Optional[int] = None,
                      page_size: Optional[int] = None,
                      pool_dtype="bf16") -> Dict:
@@ -338,30 +384,36 @@ def collective_bytes(cfg, kind: str, batch: int, seq: int,
     ``batch`` is the global batch; each data rank takes batch / (pod x
     data) rows of ``seq`` tokens.  Kinds:
 
-      * ``"train"``: ``launch.steps.make_train_step`` - the model axis's
-        collectives in the forward (twice with remat) and backward
-        (``moe_ffn_a2a``'s ``all_to_all`` and gathers, the row-parallel
-        ``w2``'s sum), then the gradient sync over pod x data (every
-        gradient leaf of this rank and the loss) and, where the model
-        axis splits leaves, the gradient norm's partial sum;
+      * ``"train"``: ``launch.steps.make_train_step`` on the state placed
+        by the plan - each leaf's gather before its layer (over the data
+        axes its plan splits it on, then over ``model`` unless its layer
+        computes on the model block; again in a remat recompute) and its
+        gradient's reduce-scatter onto the blocks; the model axis's
+        collectives in the forward and backward (``moe_ffn_a2a``'s
+        ``all_to_all`` and gathers, the column-parallel attention's and
+        MLP's sums); then the gradient sync over pod x data of each leaf
+        over the data axes its plan keeps whole, the loss's mean, and
+        the gradient norm's partial sums (one a group of splitting
+        axes); ``microbatches`` passes of the forward and backward;
       * ``"train_compressed"``: ``make_compressed_train_step`` - as
-        ``"train"``, with the sync across ``pod`` as int16 codes and one
-        f32 max a leaf (``optim.compressed_psum``);
-      * ``"prefill"``: the forward alone (``loss_fn`` without grad);
+        ``"train"`` with the plan over data and model only (the
+        parameters pod-replicated), the sync across ``pod`` as int16
+        codes and one f32 max a leaf (``optim.compressed_psum``);
+      * ``"prefill"``: the forward alone (``loss_fn`` without grad), its
+        gathers included;
       * ``"decode"``: one call of the serving engine with the pool
         kv-head-sharded over the model axis (``ServeEngine(mesh=)``),
         which gathers every pool leaf at every call: ``num_pages`` pages
         of ``page_size`` rows (default: each replica's rows at ``seq``,
         plus the null page).
 
-    ``params`` (a parameter tree, on ``meta`` or not, at the trained
-    dtype) is needed for the train kinds.  Returns ``{"bytes": {kind of
+    ``params`` (the whole parameter tree, on ``meta`` or not, at the
+    trained dtype) is needed for the train and prefill kinds.  Returns ``{"bytes": {kind of
     collective: bytes}, "by_axis": {axis: bytes}, "total_bytes": n,
     "by_op": {(op, dtype): bytes}}``."""
     m = mesh_shape.get(MODEL, 1)
     n_dp = int(math.prod(mesh_shape.get(a, 1) for a in DP_AXES))
     b_loc = max(batch // n_dp, 1)
-    tokens = b_loc * seq
     kinds: Dict[str, int] = {}
     by_axis: Dict[str, int] = {}
     by_op: Dict[tuple, int] = {}
@@ -390,47 +442,89 @@ def collective_bytes(cfg, kind: str, batch: int, seq: int,
 
     if kind not in ("train", "train_compressed", "prefill"):
         raise ValueError(f"unknown step kind {kind!r}")
+    if params is None:
+        raise ValueError("the train and prefill kinds need the parameter "
+                         "tree")
     grad = kind != "prefill"
     remat = grad and cfg.remat
+    mb = microbatches if grad else 1
+    b_mb = max(b_loc // mb, 1)
     if m > 1:
+        from repro_torch.models.attention import heads_sharded
         from repro_torch.models.layers import rows_sharded
         from repro_torch.models.moe import experts_sharded
 
         mesh = ShapeOnlyMesh(mesh_shape)
         if cfg.family == "moe" and experts_sharded(cfg, mesh) \
-                and tokens % m == 0:
-            for key, nbytes in _moe_wire(cfg, tokens, m, grad,
+                and b_mb * seq % m == 0:
+            for key, nbytes in _moe_wire(cfg, b_mb * seq, m, grad,
                                          remat).items():
-                add("moe_a2a", MODEL, key, nbytes * cfg.n_layers)
+                add("moe_a2a", MODEL, key, nbytes * cfg.n_layers * mb)
+        if heads_sharded(cfg, mesh):
+            for rows, cross, again in _attn_calls(cfg, b_mb, seq, remat):
+                for key, nbytes in _attn_wire(cfg, rows, cross, grad,
+                                              again).items():
+                    add("column_parallel_attention", MODEL, key,
+                        nbytes * mb)
         if rows_sharded(cfg.d_ff, mesh):
-            for rows in _mlp_rows(cfg, b_loc, seq):
-                for key, nbytes in _w2_wire(cfg, rows, m, grad,
-                                            remat).items():
-                    add("row_parallel_w2", MODEL, key, nbytes)
+            for rows in _mlp_rows(cfg, b_mb, seq):
+                for key, nbytes in _w2_wire(cfg, rows, grad).items():
+                    add("column_parallel_mlp", MODEL, key, nbytes * mb)
+
+    # the placement: the compressed step's parameters are pod-replicated
+    # (the plan over data and model only)
+    place = ({a: k for a, k in mesh_shape.items() if a != "pod"}
+             if kind == "train_compressed" else mesh_shape)
+    leaves = list(_placed_leaves(params, cfg, place))
+    place_mesh = ShapeOnlyMesh(place)
+    for path, plan, numel, size, dt in leaves:
+        passes = mb * (1 + (remat and path[0] in _REMAT_STACKS))
+        split = [a for axes in plan if axes for a in axes]
+        dp = tuple(a for a in split if a != MODEL)
+        d = int(math.prod(place[a] for a in dp))
+        if dp:
+            add("param_gather", _axis_name(dp), ("all_gather", dt),
+                passes * numel * size)
+            if grad:
+                add("grad_reduce_scatter", _axis_name(dp),
+                    ("reduce_scatter", dt), mb * (d - 1) * numel * size)
+        if MODEL in split and not computes_split(path, cfg, place_mesh):
+            add("param_gather", MODEL, ("all_gather", dt),
+                passes * d * numel * size)
     if not grad:
         return _collective_report(kinds, by_axis, by_op)
-    if params is None:
-        raise ValueError("the train kinds need the parameter tree")
-    leaves = list(_rank_leaves(params, cfg, mesh_shape))
-    if m > 1 and any(split for *_, split in leaves):
-        add("grad_norm", MODEL, ("all_gather", "float32"), 4)
 
-    def plain_sync(axis):
-        add("dp_grad_sync", axis, ("all_gather", "float32"), 4)
-        for numel, size, dt, _ in leaves:
-            add("dp_grad_sync", axis, ("all_gather", dt), numel * size)
+    # the gradient norm: a sum over each group of axes that splits leaves
+    for key in {tuple(a for a in place if any(
+            a in (axes or ()) for axes in plan)) for _, plan, *_ in leaves}:
+        if MODEL in key:
+            add("grad_norm", MODEL, ("all_gather", "float32"), 4)
+        dp = tuple(a for a in key if a != MODEL)
+        if dp:
+            add("grad_norm", _axis_name(dp), ("all_gather", "float32"), 4)
+
+    def plain_sync(axes):
+        """The mean over ``axes`` (sizes above 1) of the loss and of each
+        gradient leaf over the axes its plan does not split it on."""
+        axes = tuple(a for a in axes if mesh_shape.get(a, 1) > 1)
+        if not axes:
+            return
+        add("dp_grad_sync", _axis_name(axes), ("all_gather", "float32"), 4)
+        for _, plan, numel, size, dt in leaves:
+            rest = tuple(a for a in axes
+                         if not any(a in (p or ()) for p in plan))
+            if rest:
+                add("dp_grad_sync", _axis_name(rest), ("all_gather", dt),
+                    numel * size)
 
     if kind == "train":
-        if n_dp > 1:
-            plain_sync("pod+data" if mesh_shape.get("pod", 1) > 1
-                       else "data")
+        plain_sync(DP_AXES)
         return _collective_report(kinds, by_axis, by_op)
     # compressed: a plain mean over data inside the pod, then int16 codes
     # across pods (one f32 max a leaf), then the loss's mean across pods
-    if mesh_shape.get("data", 1) > 1:
-        plain_sync("data")
+    plain_sync(("data",))
     if mesh_shape.get("pod", 1) > 1:
-        for numel, *_ in leaves:
+        for _, _, numel, *_ in leaves:
             add("pod_int16_sync", "pod", ("all_gather", "float32"), 4)
             add("pod_int16_sync", "pod", ("all_gather", "int16"), numel * 2)
         add("pod_int16_sync", "pod", ("all_gather", "float32"), 4)

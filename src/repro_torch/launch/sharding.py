@@ -2,7 +2,10 @@
 
 Models never hold a mesh: the trainer (``launch/train.py``) activates
 one with :func:`set_mesh`, and the model code that has a distributed
-form asks :func:`get_mesh` - ``models.moe.moe_ffn`` (the expert-parallel
+form asks :func:`get_mesh` - ``models.convert.gather_params`` (each
+layer's weights gathered from this process's blocks),
+``models.attention.attention`` and ``models.layers.mlp`` (column-parallel
+on the model axis), ``models.moe.moe_ffn`` (the expert-parallel
 dispatch) and ``models.layers.row_parallel_matmul`` - and takes its
 one-device form when no mesh is active or inside :func:`manual_region`.
 
@@ -20,9 +23,9 @@ path.  A process is one mesh cell.
 The reference's ``shard`` and ``shard_if_divisible`` are GSPMD placement
 hints (sharding constraints on intermediates and at the jit boundary);
 the port has no GSPMD partitioner, so they have no counterpart: a
-process holds its part of the state explicitly
-(``models.convert.shard_params``) and the collectives are written out
-(``core.collectives``).
+process holds its blocks of the state explicitly, by the reference's
+plan (``models.convert.shard_params``), and the collectives are written
+out (``core.collectives``).
 """
 
 from __future__ import annotations

@@ -12,11 +12,20 @@ the reference's trainer donates its state to the jitted step.
 
 Across processes (a training mesh active through ``launch.sharding``,
 one process per cell): each process runs its slice of the global batch
-and holds its part of the state (``models.convert.shard_params``); the
-gradients are averaged over the data axes before AdamW, the loss is
-their mean, and the gradient norm counts each model-sharded leaf's
-parts once.  Every reduction folds the ranks in order, so the
-replicated state stays the same bits on every process.
+and holds, at rest, exactly its block of every parameter, gradient and
+AdamW moment under the reference's plan (``launch.params.param_plan``:
+ZeRO over the data axes, the attention's and MLPs' projections, the
+embeddings and the SSM channels over the model axis;
+``models.convert.shard_params``).  Each layer gathers its weights just
+before it runs (``models.convert.gather_params``), and the backward
+reduce-scatters their gradients onto the blocks, so a gradient comes
+out of the backward already summed over the data axes its leaf is split
+over; the step sums the rest over the data axes (the leaves the plan
+keeps whole there), averages, and runs AdamW on the blocks.  The loss is
+the data ranks' mean, and the gradient norm sums each leaf's squares
+over the group of axes that split it, each element once.  Every
+reduction folds the ranks in order, so a block held by several
+processes stays the same bits on each.
 """
 
 from __future__ import annotations
@@ -56,7 +65,7 @@ def init_train_state(bundle: ModelBundle, generator: torch.Generator,
     """Random parameters at ``cfg.param_dtype`` (from ``generator``, which
     lives on ``device``) and a fresh AdamW state with moments at
     ``cfg.optimizer_dtype``: ``{"params": tree, "opt": AdamWState}``.
-    Under a training ``mesh``, this process's part of them
+    Under a training ``mesh``, this process's blocks of them
     (``models.convert.shard_params``; every process draws the whole
     model from the same seed first)."""
     from repro_torch.models.convert import shard_params
@@ -65,7 +74,7 @@ def init_train_state(bundle: ModelBundle, generator: torch.Generator,
     params = bundle.init(generator, resolve_device(device),
                          dtype=cfg.torch_param_dtype())
     if mesh is not None:
-        params = shard_params(params, cfg, mesh)
+        params = shard_params(params, mesh)
     return {"params": params,
             "opt": adamw_init(params, cfg.torch_optimizer_dtype())}
 
@@ -112,39 +121,58 @@ def _grads_fn(bundle: ModelBundle, hyper: TrainHyper) -> Callable:
     return grads_of
 
 
-def _group_mean(loss, grads, mesh, axes):
+def _split_axes(plan) -> tuple:
+    """The mesh axes a leaf's plan splits it over."""
+    return tuple(a for axes in plan if axes for a in axes)
+
+
+def _group_mean(loss, grads, mesh, axes, plans=None):
     """(loss, grads) averaged over ``mesh``'s ``axes`` (no-op at size
     1): each summed in rank order, then divided by the group's size; the
-    gradients in place, one leaf's sum alive at a time."""
+    gradients in place, one leaf's sum alive at a time.  A leaf whose
+    plan (``plans``, one per gradient) splits it over some of ``axes``
+    came out of the backward summed over them already (the
+    reduce-scatter of its gather), so it is summed over the others
+    only."""
     n = mesh.axis_size(axes)
     if n == 1:
         return loss, grads
-    group = mesh.axis_group(axes)
-    return (all_reduce(loss, "sum", group) / n,
-            [g.copy_(all_reduce(g, "sum", group)).div_(n) for g in grads])
+    out = []
+    for i, g in enumerate(grads):
+        split = () if plans is None else _split_axes(plans[i])
+        rest = tuple(a for a in axes if a not in split)
+        if mesh.axis_size(rest) > 1:
+            g.copy_(all_reduce(g, "sum", mesh.axis_group(rest)))
+        out.append(g.div_(n))
+    return all_reduce(loss, "sum", mesh.axis_group(axes)) / n, out
 
 
-def _grad_norm(bundle: ModelBundle, mesh, params, grads):
-    """The global norm of ``grads`` when the model axis splits some of
-    them (each part's squares summed over the model group, added to the
-    replicated leaves'), else None (AdamW's own ``global_norm``)."""
-    from repro_torch.models.convert import shard_dims
-
-    if mesh is None or mesh.axis_size("model") == 1:
+def _grad_norm(mesh, plans, grads):
+    """The global norm of ``grads`` when the mesh splits some of them,
+    else None (AdamW's own ``global_norm``): each leaf's squares summed
+    on this process's block, the leaves bucketed by the axes that split
+    them, each bucket's sum reduced over those axes (the model group,
+    then the data axes' group), so every element counts once."""
+    if mesh is None:
         return None
-    dims = shard_dims(params, bundle.cfg, mesh)
-    if not any(d is not None for d in dims):
+    keys = [tuple(a for a in mesh.axis_names
+                  if a in _split_axes(plan) and mesh.shape[a] > 1)
+            for plan in plans]
+    if not any(keys):
         return None
-    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    rep, part = zero, zero
-    for g, d in zip(grads, dims):
+    buckets = {}
+    for g, key in zip(grads, keys):
         sq = torch.sum(torch.square(g.float()))
-        if d is None:
-            rep = rep + sq
-        else:
-            part = part + sq
-    part = all_reduce(part, "sum", mesh.axis_group("model"))
-    return torch.sqrt(rep + part)
+        buckets[key] = sq if key not in buckets else buckets[key] + sq
+    total = None
+    for key, sq in buckets.items():
+        if "model" in key:
+            sq = all_reduce(sq, "sum", mesh.axis_group("model"))
+        dp = tuple(a for a in key if a != "model")
+        if dp:
+            sq = all_reduce(sq, "sum", mesh.axis_group(dp))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 def _apply(hyper: TrainHyper, params, opt, grads, gnorm):
@@ -181,8 +209,11 @@ def make_train_step(bundle: ModelBundle, hyper: TrainHyper) -> Callable:
     Under an active training mesh (``launch.sharding.get_mesh()`` at the
     call) ``batch`` is this process's slice of the global batch (the
     pipeline's ``process_index`` slice, by ``mesh.dp_rank()``) and
-    ``state`` its part of the state; the gradients and the loss are
-    averaged over the data axes (``pod`` and ``data``) before AdamW."""
+    ``state`` its blocks of the state (``init_train_state(...,
+    mesh=)``); the gradients and the loss are averaged over the data
+    axes (``pod`` and ``data``) before AdamW."""
+    from repro_torch.models.convert import shard_dims
+
     grads_of = _grads_fn(bundle, hyper)
 
     def train_step(state, batch):
@@ -191,10 +222,13 @@ def make_train_step(bundle: ModelBundle, hyper: TrainHyper) -> Callable:
         batch = batch_to_device(batch, opt.step.device)
         leaves = _leaves_for_grad(params)
         loss, grads = grads_of(params, leaves, batch)
+        plans = None
         if mesh is not None:
-            loss, grads = _group_mean(loss, grads, mesh, mesh.dp_axes())
+            plans = shard_dims(params, bundle.cfg, mesh)
+            loss, grads = _group_mean(loss, grads, mesh, mesh.dp_axes(),
+                                      plans)
         params, opt, m = _apply(hyper, params, opt, grads,
-                                _grad_norm(bundle, mesh, params, grads))
+                                _grad_norm(mesh, plans, grads))
         return {"params": params, "opt": opt}, {"loss": loss, **m}
 
     return train_step
@@ -203,24 +237,32 @@ def make_train_step(bundle: ModelBundle, hyper: TrainHyper) -> Callable:
 def make_compressed_train_step(bundle: ModelBundle, hyper: TrainHyper,
                                mesh) -> Callable:
     """Train step with int8 error-feedback gradient sync across "pod"
-    (the reference's cross-pod topology): each process's gradients are
-    averaged plainly over ``data`` within its pod, then across pods with
+    (the reference's cross-pod topology): the parameters are
+    pod-replicated, placed by the plan over ``data`` and ``model`` only
+    (FSDP over ``data``: the mesh without its pod axis,
+    ``train_step.mesh = mesh.drop("pod")``, on which the model runs and
+    ``init_train_state(..., mesh=train_step.mesh)`` places the state);
+    each process's gradients are averaged plainly over ``data`` within
+    its pod, then across pods on its data block with
     :func:`repro_torch.optim.compressed_psum`; the loss is the mean over
     both.  ``mesh`` is the training mesh of this process; ``batch`` this
     process's slice of the global batch.
 
     ``state = {"params", "opt", "comp": residual tree}``;
-    ``train_step.init_comp(params)`` makes the residual tree.  The
-    reference's residual tree has a leading (n_pod,) dim sharded over
-    "pod"; here each process holds its own residual tree (its pod's
-    row), a difference in form only.  Returns ``train_step(state, batch)
-    -> (state, metrics)``."""
+    ``train_step.init_comp(params)`` makes the residual tree (of the
+    blocks).  The reference's residual tree has a leading (n_pod,) dim
+    sharded over "pod"; here each process holds its own residual tree
+    (its pod's row), a difference in form only.  Returns
+    ``train_step(state, batch) -> (state, metrics)``."""
+    from repro_torch.launch.sharding import set_mesh
+    from repro_torch.models.convert import shard_dims
     from repro_torch.optim.compression import (CompressionState,
                                                compressed_psum)
 
     if "pod" not in mesh.axis_names:
         raise ValueError("compressed train step needs a 'pod' mesh axis")
     grads_of = _grads_fn(bundle, hyper)
+    inner = mesh.drop("pod")
 
     def init_comp(params):
         return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -230,8 +272,14 @@ def make_compressed_train_step(bundle: ModelBundle, hyper: TrainHyper,
         params, opt = state["params"], state["opt"]
         batch = batch_to_device(batch, opt.step.device)
         leaves = _leaves_for_grad(params)
-        loss, grads = grads_of(params, leaves, batch)
-        loss, grads = _group_mean(loss, grads, mesh, ("data",))
+        outer = get_mesh()
+        set_mesh(inner)
+        try:
+            loss, grads = grads_of(params, leaves, batch)
+        finally:
+            set_mesh(outer)
+        plans = shard_dims(params, bundle.cfg, inner)
+        loss, grads = _group_mean(loss, grads, mesh, ("data",), plans)
         it = iter(grads)
         grads, comp = compressed_psum(
             tree_map(lambda _: next(it), params),
@@ -240,11 +288,12 @@ def make_compressed_train_step(bundle: ModelBundle, hyper: TrainHyper,
         loss, _ = _group_mean(loss, [], mesh, ("pod",))
         grads = tree_leaves(grads)
         params, opt, m = _apply(hyper, params, opt, grads,
-                                _grad_norm(bundle, mesh, params, grads))
+                                _grad_norm(inner, plans, grads))
         return ({"params": params, "opt": opt, "comp": comp.residual},
                 {"loss": loss, **m})
 
     train_step.init_comp = init_comp
+    train_step.mesh = inner
     return train_step
 
 

@@ -21,11 +21,14 @@ shares it)::
       -m repro_torch.launch.train --arch qwen3-4b --reduced --steps 6 \
       --mesh 2x1 --device cpu
 
-Each process takes its data rank's slice of the global batch, holds its
-model rank's part of the state (``models.convert.shard_params``: the moe
-experts and the MLPs' ``w2`` split over M), averages the gradients over
-D, and writes and restores its own checkpoint shard (the reference's
-multi-host layout).  Only rank 0 prints.  ``--mesh prod`` / ``prod2``
+Each process takes its data rank's slice of the global batch, holds at
+rest its block of every parameter and AdamW moment under the reference's
+plan (``models.convert.shard_params``: ZeRO over D; the attention's and
+MLPs' projections, the embeddings, the head and the moe experts over M),
+gathers each layer's weights before it runs, averages the gradients
+over D (reduce-scattered onto its blocks), and writes and restores its
+own checkpoint shard of its blocks (the reference's multi-host layout).
+Only rank 0 prints.  ``--mesh prod`` / ``prod2``
 (the production meshes, 256 / 512 cards: ``launch.mesh``) raise before
 any work: each needs that many processes under torchrun.
 """

@@ -82,10 +82,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
 from repro_torch.core.naive import naive_attention
 from repro_torch.core.precision import PrecisionPolicy, get_policy
 from repro_torch.kernels import ops
 from repro_torch.kernels.train_attention import kernel_attention
+from repro_torch.launch.sharding import get_mesh
 from repro_torch.models.layers import apply_rope, matmuls, rms_norm, rope_angles
 from repro_torch.runtime.paged_cache import (
     NULL_PAGE,
@@ -94,6 +96,15 @@ from repro_torch.runtime.paged_cache import (
     gather_pages_dequant,
     quantize_kv_page,
 )
+
+
+def heads_sharded(cfg: ModelConfig, mesh) -> bool:
+    """True when ``mesh`` (or None) splits the attention's kv heads over
+    its "model" axis: M > 1 divides KVH, so each model rank holds the
+    ``wq`` / ``wk`` / ``wv`` columns and ``wo`` rows of KVH / M kv heads
+    and their query heads at rest, and attends them column-parallel."""
+    m = 1 if mesh is None else mesh.shape.get("model", 1)
+    return m > 1 and cfg.n_kv_heads > 0 and cfg.n_kv_heads % m == 0
 
 
 def attention(
@@ -117,10 +128,21 @@ def attention(
 ) -> torch.Tensor:
     cd = cfg.torch_compute_dtype()
     b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     x = x.to(cd)
 
     wq, wk, wv = (p[name].to(cd) for name in ("wq", "wk", "wv"))
+    # column-parallel on the model axis (a training mesh's placement,
+    # ``models.convert.gather_params``): this rank's kv heads and their
+    # query heads, the input's gradient summed over the model group and
+    # ``wo`` row-parallel over the heads
+    split = wq.shape[-1] != cfg.q_dim
+    if split:
+        group = get_mesh().axis_group("model")
+        x = C.sum_grad(x, group)
+        if cross_x is not None:
+            cross_x = C.sum_grad(cross_x.to(cd), group)
+    h, kvh = wq.shape[-1] // hd, wk.shape[-1] // hd
     if cross_x is None:
         q, k, v = matmuls(x, wq, wk, wv)
     else:
@@ -137,8 +159,11 @@ def attention(
     k = k.reshape(b, s_kv, kvh, hd)
     v = v.reshape(b, s_kv, kvh, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q_norm, k_norm = p["q_norm"], p["k_norm"]
+        if split:   # replicated weights used on this rank's heads only
+            q_norm, k_norm = (C.sum_grad(w, group) for w in (q_norm, k_norm))
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
 
     # RoPE at per-row absolute positions pos + [0, S)
     if pos is None:
@@ -158,7 +183,8 @@ def attention(
         out = _dense_prefill(q, k, v, cfg, cache)
     else:
         out = _dense_decode(q, k, v, cfg, cache, pos)
-    return matmuls(out.to(cd), p["wo"].to(cd))[0]
+    y = matmuls(out.to(cd), p["wo"].to(cd))[0]
+    return C.sum_replicated(y, group) if split else y
 
 
 def _policy_beta(cfg: ModelConfig) -> tuple[PrecisionPolicy, float]:

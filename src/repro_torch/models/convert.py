@@ -73,18 +73,24 @@ falcon-mamba-7b, plus 1.07 GB for its head; 1.71 GB a layer for
 llama-3.2-vision-90b, plus 2.1 GB of embedding and 4.2 GB for its head;
 13.4 GB for olmoe-1b-7b's layers, plus 0.21 GB of embedding and 0.41 GB
 for its head).
+
+On a training mesh each process holds its block of every leaf under the
+reference's plan (``launch.params.param_plan``; :func:`shard_params`,
+:func:`shard_dim`), and each layer gathers its blocks before it runs
+(:func:`gather_params`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.params import param_plan
 
 
 # the leaves the reference reads in fp32 whatever the compute dtype
@@ -150,53 +156,152 @@ def train_state_from_numpy(state, cfg: ModelConfig, device) -> dict:
     }
 
 
-def shard_dim(path: tuple, cfg: ModelConfig, mesh) -> Optional[int]:
-    """The dim along which the leaf at ``path`` (a tuple of keys) is
-    split over ``mesh``'s "model" axis, or None (replicated): the moe
-    experts on E (``models.moe.experts_sharded``), every MLP's ``w2`` on
-    its rows (``models.layers.rows_sharded``)."""
-    from repro_torch.models.layers import rows_sharded
-    from repro_torch.models.moe import experts_sharded
+# the attention leaves that a column-parallel attention (its kv heads
+# split over the model axis, ``attention.heads_sharded``) computes with
+# as they lie at rest
+_HEAD_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+_ATTENTIONS = ("attn", "self_attn", "cross_attn")
 
-    if (path[-2:-1] == ("moe",) and path[-1] in ("w1", "w3", "w2")
-            and experts_sharded(cfg, mesh)):
-        return -3
-    if path[-2:] == ("mlp", "w2") and rows_sharded(cfg.d_ff, mesh):
-        return -2
-    return None
+
+def _walk(tree, path=()):
+    """(path, leaf) of every tensor of a nested dict, in sorted key order
+    (``optim.adamw.tree_leaves``'s order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+@functools.lru_cache(maxsize=None)
+def param_shapes(cfg: ModelConfig) -> dict:
+    """{path (a tuple of keys): whole shape} of every parameter leaf of
+    ``cfg``'s model (its init on the ``meta`` device: nothing drawn)."""
+    from repro_torch.models.model_zoo import build
+
+    params = build(cfg).init(None, "meta", dtype=cfg.torch_param_dtype())
+    return {path: tuple(leaf.shape) for path, leaf in _walk(params)}
+
+
+def shard_dim(path: tuple, cfg: ModelConfig, mesh) -> tuple:
+    """The placement of the parameter leaf at ``path`` (a tuple of keys)
+    of ``cfg``'s model on ``mesh`` (its gradient and AdamW moments share
+    it): per dim the mesh axes it splits over, in the plan's order (None:
+    whole) - ``launch.params.param_plan`` of the leaf's whole shape."""
+    return param_plan(path, param_shapes(cfg)[tuple(path)], mesh.shape)
 
 
 def shard_dims(tree: dict, cfg: ModelConfig, mesh) -> list:
-    """:func:`shard_dim` of every leaf of a parameter-shaped tree, in the
-    order of ``optim.adamw.tree_leaves`` (sorted keys)."""
-    def walk(node, path):
-        if isinstance(node, dict):
-            return [d for k in sorted(node) for d in walk(node[k], path + (k,))]
-        return [shard_dim(path, cfg, mesh)]
-
-    return walk(tree, ())
+    """:func:`shard_dim` of every leaf of a parameter-shaped tree of
+    ``cfg``'s model (whole or this process's blocks), in the order of
+    ``optim.adamw.tree_leaves`` (sorted keys)."""
+    return [shard_dim(path, cfg, mesh) for path, _ in _walk(tree)]
 
 
-def shard_params(tree: dict, cfg: ModelConfig, mesh) -> dict:
-    """This process's part of a parameter-shaped tree (the parameters,
-    or a gradient or moment tree of theirs) on ``mesh``: each leaf that
-    :func:`shard_dim` splits narrowed to the rank's equal part along the
-    model axis (a contiguous copy; experts mi E / M onwards, ``w2`` rows
-    mi F / M onwards), the others as they are.  So a rank's state is
+def _block_index(axes: tuple, mesh) -> tuple:
+    """(parts, index) of a dim split over ``axes``: the product of their
+    sizes, and this process's block - its coordinates along them, the
+    first axis major (the block ``NamedSharding`` gives the device at the
+    same mesh coordinates)."""
+    parts, index = 1, 0
+    for a in axes:
+        parts *= mesh.shape[a]
+        index = index * mesh.shape[a] + mesh.axis_rank(a)
+    return parts, index
+
+
+def shard_params(tree: dict, mesh) -> dict:
+    """This process's blocks of a parameter-shaped tree (the parameters,
+    or a gradient or moment tree of theirs), whole on entry, on ``mesh``:
+    each leaf narrowed along every dim its plan splits
+    (``launch.params.param_plan`` of the leaf's shape) to the block of
+    this process's coordinates (:func:`_block_index`), as a contiguous
+    copy; a leaf the plan keeps whole as it is.  So a rank's state is
     built from :func:`init_lm` and the other ``init_*`` draws, or from
-    the reference's parameters (:func:`params_from_numpy`)."""
-    from repro_torch.core.collectives import shard
-
+    the reference's arrays (:func:`params_from_numpy`,
+    :func:`train_state_from_numpy`)."""
     def walk(node, path):
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
-        dim = shard_dim(path, cfg, mesh)
-        if dim is None:
+        plan = param_plan(path, node.shape, mesh.shape)
+        if not any(plan):
             return node
-        return shard(node, dim % node.dim(), mesh.shape["model"],
-                     mesh.axis_rank("model"))
+        for dim, axes in enumerate(plan):
+            if axes:
+                parts, index = _block_index(axes, mesh)
+                size = node.shape[dim] // parts
+                node = node.narrow(dim, index * size, size)
+        return node.contiguous()
 
     return walk(tree, ())
+
+
+def computes_split(path: tuple, cfg: ModelConfig, mesh) -> bool:
+    """True for a leaf whose layer computes on its model-axis block as it
+    lies at rest (column- or row-parallel, or expert-parallel): the
+    attention's projections and biases where M divides the kv heads
+    (``attention.heads_sharded``), every MLP's ``w1`` / ``w3`` / ``w2``
+    where M divides the hidden width (``layers.rows_sharded``), the moe
+    experts under the a2a dispatch (``moe.experts_sharded``).  Every
+    other leaf the plan splits over ``model`` is gathered before use."""
+    from repro_torch.models.attention import heads_sharded
+    from repro_torch.models.layers import rows_sharded
+    from repro_torch.models.moe import experts_sharded
+
+    name, parent = path[-1], path[-2] if len(path) > 1 else None
+    if parent in _ATTENTIONS and name in _HEAD_LEAVES:
+        return heads_sharded(cfg, mesh)
+    if parent == "mlp" and name in ("w1", "w3", "w2"):
+        return rows_sharded(cfg.d_ff, mesh)
+    if parent == "moe" and name in ("w1", "w3", "w2"):
+        return experts_sharded(cfg, mesh)
+    return False
+
+
+def gather_params(tree, path: tuple, cfg: ModelConfig, lead: int = 0):
+    """The parameters under ``path`` (a subtree or one leaf of ``cfg``'s
+    model; with ``lead`` stacking dims sliced off: one layer of a stack)
+    as their layer computes with them, from this process's blocks: under
+    an active training mesh (``launch.sharding``), outside a manual
+    region, each leaf gathered over the data axes its plan splits
+    (``collectives.gather_sharded``: the backward reduce-scatters the
+    gradient onto the blocks), then over ``model`` unless its layer
+    computes on the model block (:func:`computes_split`;
+    ``gather_replicated``: the backward takes this rank's slice).
+    Otherwise (no mesh: one device or a serve) the tree as it is.
+
+    Called inside the layer's function, so that under ``layers.remat``
+    the gather is redone in the backward and no layer's whole weights
+    outlive its own forward and backward."""
+    from repro_torch.core import collectives as C
+    from repro_torch.launch.sharding import get_mesh, in_manual_region
+
+    mesh = get_mesh()
+    if mesh is None or in_manual_region():
+        return tree
+    shapes = param_shapes(cfg)
+
+    def leaf(x, p):
+        plan = param_plan(p, shapes[p], mesh.shape)
+        if any(plan[:lead]):
+            raise ValueError(f"{p}: the plan {plan} splits a stacking dim")
+        plan = plan[lead:]
+        for dim, axes in enumerate(plan):
+            dp = tuple(a for a in axes or () if a != "model")
+            if dp:
+                x = C.gather_sharded(x, dim, mesh.axis_group(dp))
+        if not computes_split(p, cfg, mesh):
+            for dim, axes in enumerate(plan):
+                if axes and "model" in axes:
+                    x = C.gather_replicated(x, dim, mesh.axis_group("model"))
+        return x
+
+    def walk(node, p):
+        if isinstance(node, dict):
+            return {k: walk(v, p + (k,)) for k, v in node.items()}
+        return leaf(node, p)
+
+    return walk(tree, tuple(path))
 
 
 def _normal(shape, scale, dtype, generator, device) -> torch.Tensor:

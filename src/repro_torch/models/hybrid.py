@@ -33,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
+from repro_torch.models.convert import gather_params
 from repro_torch.models.transformer import _layer
 
 
@@ -47,9 +48,8 @@ def _shared_block(x, p: dict, cfg: ModelConfig, *, cache=None, pos=None):
         cache=cache, pos=pos,
     )
     x = x + h.to(x.dtype)
-    x = x + L.mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cd).to(
-        x.dtype
-    )
+    x = x + L.mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cd,
+                  cfg.d_ff).to(x.dtype)
     return x
 
 
@@ -63,13 +63,15 @@ def _walk(params: dict, cfg: ModelConfig, x, *, cache=None, pos=None):
     """The layer walk: without a cache the whole sequence (causal
     attention over the fresh K/V, chunked SSD); with one, a decode step at
     ``pos`` that writes every application's K/V row and every layer's
-    Mamba state in place."""
+    Mamba state in place.  The shared block is gathered once
+    (``convert.gather_params``), each Mamba layer inside its own call."""
+    shared = gather_params(params["shared"], ("shared",), cfg)
     for app_idx, (lo, hi) in enumerate(_segments(cfg)):
         ac = None
         if cache is not None:
             ac = {"k": cache["attn"]["k"][app_idx],
                   "v": cache["attn"]["v"][app_idx]}
-        x = _shared_block(x, params["shared"], cfg, cache=ac, pos=pos)
+        x = _shared_block(x, shared, cfg, cache=ac, pos=pos)
         for i in range(lo, hi):
             lp = _layer(params["mamba"], i)
             lc = None
@@ -85,7 +87,9 @@ def _walk(params: dict, cfg: ModelConfig, x, *, cache=None, pos=None):
 
 
 def _mamba_layer(x, lp: dict, ln, cfg: ModelConfig, cache=None):
-    """One pre-norm residual Mamba-2 layer."""
+    """One pre-norm residual Mamba-2 layer (``lp``: this process's blocks,
+    gathered here)."""
+    lp = gather_params(lp, ("mamba",), cfg, lead=1)
     y, _ = ssm.mamba2_block(L.rms_norm(x, ln, cfg.norm_eps), lp, cfg,
                             cache=cache)
     return x + y.to(x.dtype)
@@ -102,7 +106,7 @@ def forward(params: dict, cfg: ModelConfig, tokens, *, cache=None, pos=None,
             "state); serve it token by token through serve_step"
         )
     cd = cfg.torch_compute_dtype()
-    x = L.embed(tokens, params["embed"], cd)
+    x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg), cd)
     x = _walk(params, cfg, x, cache=cache, pos=pos)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
@@ -112,8 +116,8 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     tokens = batch["tokens"]
     h, _ = forward(params, cfg, tokens[:, :-1])
     return L.lm_loss_chunked(
-        h, params["lm_head"], batch.get("labels", tokens[:, 1:]),
-        chunk=cfg.loss_chunk,
+        h, gather_params(params["lm_head"], ("lm_head",), cfg),
+        batch.get("labels", tokens[:, 1:]), chunk=cfg.loss_chunk,
     )
 
 

@@ -5,7 +5,8 @@ Counterpart of ``repro.models.layers`` with the same dtype steps: norms
 and RoPE compute in fp32 and store at the activation dtype, matmuls run at
 the compute dtype.  The reference's placement hints (``shard``) have no
 counterpart (``launch.sharding``); its ``row_parallel_matmul`` is the
-MLP's ``w2`` product across the mesh's model axis.  Norms and products
+MLP's ``w2`` product across the mesh's model axis, after the
+column-parallel ``w1`` / ``w3``.  Norms and products
 over a few rows run padded to ``MIN_ROWS`` rows, so that each row's
 result does not depend on how many rows share the call.
 """
@@ -28,27 +29,35 @@ def rows_sharded(k_dim: int, mesh) -> bool:
 
 
 def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor,
-                        compute_dtype: torch.dtype) -> torch.Tensor:
+                        compute_dtype: torch.dtype,
+                        x_split: bool = False) -> torch.Tensor:
     """y = x @ w with the contraction dim K split over the active mesh's
     "model" axis (the reference's bf16-wire row-parallel matmul).
 
-    x (..., K) is replicated across the model axis; under a mesh whose
-    model axis M > 1 divides K (outside a manual region), ``w`` holds this
-    rank's K / M rows at rest (``models.convert.shard_params``).  Each
-    rank multiplies its K / M columns of x by them, accumulating in fp32
-    and storing at the compute dtype, and the M partial products are
-    summed at that dtype over the group (the reference's bf16 wire).
-    Otherwise the plain product."""
+    ``w`` holds this rank's K / M rows at rest
+    (``models.convert.shard_params``).  With ``x_split`` x (..., K / M)
+    is this rank's K / M columns already (a column-parallel product's
+    output: the MLP's hidden units, the attention's heads); otherwise x
+    (..., K) is replicated across the model axis and, under a mesh whose
+    model axis M > 1 divides K (outside a manual region), each rank takes
+    its K / M columns.  Each rank multiplies its columns by its rows,
+    accumulating in fp32 and storing at the compute dtype, and the M
+    partial products are summed at that dtype over the group (the
+    reference's bf16 wire).  Otherwise the plain product."""
     mesh = get_mesh()
+    x = x.to(compute_dtype)
+    if x_split:
+        return C.sum_replicated(x @ w.to(compute_dtype),
+                                mesh.axis_group("model"))
     k_dim = x.shape[-1]
     if not rows_sharded(k_dim, mesh) or in_manual_region():
-        return x.to(compute_dtype) @ w.to(compute_dtype)
+        return x @ w.to(compute_dtype)
     m = mesh.shape["model"]
     if w.shape[0] != k_dim // m:
         raise ValueError(f"row-parallel w has {w.shape[0]} rows; this rank "
                          f"holds {k_dim // m} of {k_dim}")
     group = mesh.axis_group("model")
-    x_loc = C.slice_replicated(x.to(compute_dtype), x.dim() - 1, group)
+    x_loc = C.slice_replicated(x, x.dim() - 1, group)
     return C.sum_replicated(x_loc @ w.to(compute_dtype), group)
 
 
@@ -120,14 +129,22 @@ def matmuls(x: torch.Tensor, *ws: torch.Tensor):
     return tuple(_unrows(xr @ w, x) for w in ws)
 
 
-def mlp(x: torch.Tensor, p: dict, compute_dtype: torch.dtype) -> torch.Tensor:
-    """SwiGLU: (silu(x W1) * (x W3)) W2 at the compute dtype, W2
-    row-parallel (:func:`row_parallel_matmul`)."""
+def mlp(x: torch.Tensor, p: dict, compute_dtype: torch.dtype,
+        d_ff: int) -> torch.Tensor:
+    """SwiGLU: (silu(x W1) * (x W3)) W2 at the compute dtype.  Where a
+    training mesh's placement leaves this rank F / M of the ``d_ff``
+    hidden units (``models.convert.gather_params``), column-parallel:
+    its ``w1`` / ``w3`` columns give its hidden units, which go straight
+    into its rows of the row-parallel ``w2`` (:func:`row_parallel_matmul`),
+    and the input's gradient is summed over the model group."""
     x = x.to(compute_dtype)
+    split = p["w1"].shape[-1] != d_ff
+    if split:
+        x = C.sum_grad(x, get_mesh().axis_group("model"))
     xr = _rows(x)
     h = F.silu(xr @ p["w1"].to(compute_dtype))
     h = h * (xr @ p["w3"].to(compute_dtype))
-    return _unrows(row_parallel_matmul(h, p["w2"], compute_dtype), x)
+    return _unrows(row_parallel_matmul(h, p["w2"], compute_dtype, split), x)
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor,

@@ -36,6 +36,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import convert, hybrid, multimodal, ssm, transformer
 from repro_torch.models import layers as L
+from repro_torch.models.convert import gather_params
 from repro_torch.models.transformer import _layer
 
 
@@ -59,6 +60,7 @@ def _ssm_walk(params: dict, cfg: ModelConfig, x, cache=None):
 
 
 def _ssm_layer(x, lp: dict, ln, cfg: ModelConfig, cache=None):
+    lp = gather_params(lp, ("mamba",), cfg, lead=1)
     y, _ = ssm.mamba1_block(L.rms_norm(x, ln, cfg.norm_eps), lp, cfg,
                             cache=cache)
     return x + y.to(x.dtype)
@@ -66,7 +68,8 @@ def _ssm_layer(x, lp: dict, ln, cfg: ModelConfig, cache=None):
 
 def _ssm_forward(params: dict, cfg: ModelConfig, tokens, *, cache=None):
     """tokens (B, S) -> (final hidden states (B, S, D), cache)."""
-    x = L.embed(tokens, params["embed"], cfg.torch_compute_dtype())
+    x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg),
+                cfg.torch_compute_dtype())
     x = _ssm_walk(params, cfg, x, cache=cache)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
@@ -76,8 +79,8 @@ def _ssm_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     tokens = batch["tokens"]
     h, _ = _ssm_forward(params, cfg, tokens[:, :-1])
     return L.lm_loss_chunked(
-        h, params["lm_head"], batch.get("labels", tokens[:, 1:]),
-        chunk=cfg.loss_chunk,
+        h, gather_params(params["lm_head"], ("lm_head",), cfg),
+        batch.get("labels", tokens[:, 1:]), chunk=cfg.loss_chunk,
     )
 
 

@@ -56,6 +56,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models.convert import gather_params
 from repro_torch.models.transformer import _layer
 
 
@@ -70,14 +71,14 @@ def _n_groups(cfg: ModelConfig) -> int:
 def _self_block(x, p: dict, cfg: ModelConfig, *, cache=None, pos=None,
                 prefill_cache=False):
     cd = cfg.torch_compute_dtype()
+    p = gather_params(p, ("self",), cfg, lead=2)
     h = attn_mod.attention(
         L.rms_norm(x, p["ln1"], cfg.norm_eps), p["attn"], cfg,
         causal=True, cache=cache, pos=pos, prefill_cache=prefill_cache,
     )
     x = x + h.to(x.dtype)
-    x = x + L.mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cd).to(
-        x.dtype
-    )
+    x = x + L.mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cd,
+                  cfg.d_ff).to(x.dtype)
     return x
 
 
@@ -86,12 +87,14 @@ def _cross_block(x, p: dict, cfg: ModelConfig, vis: torch.Tensor):
     d_model), its attention and MLP residuals gated by tanh of the fp32
     gates."""
     cd = cfg.torch_compute_dtype()
+    p = gather_params(p, ("cross",), cfg, lead=1)
     h = attn_mod.attention(
         L.rms_norm(x, p["ln1"], cfg.norm_eps), p["attn"], cfg,
         causal=False, cross_x=vis, use_rope=False,
     )
     x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * h.to(x.dtype)
-    ff = L.mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cd)
+    ff = L.mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cd,
+               cfg.d_ff)
     return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * ff.to(x.dtype)
 
 
@@ -100,7 +103,7 @@ def project_vision(params: dict, cfg: ModelConfig,
     """vision_embeds (B, n_image_tokens, vision_dim) @ vision_proj at the
     compute dtype, one sequence at a time -> (B, n_image_tokens, d_model)."""
     cd = cfg.torch_compute_dtype()
-    w = params["vision_proj"].to(cd)
+    w = gather_params(params["vision_proj"], ("vision_proj",), cfg).to(cd)
     return torch.stack([L.matmuls(v.to(cd), w)[0] for v in vision_embeds])
 
 
@@ -115,7 +118,7 @@ def vlm_forward(params: dict, cfg: ModelConfig, tokens, vision_embeds, *,
     layer's rows [0, S) of ``cache`` (the reference's fused prompt pass;
     remat is skipped under it, as there)."""
     cd = cfg.torch_compute_dtype()
-    x = L.embed(tokens, params["embed"], cd)
+    x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg), cd)
     vis = project_vision(params, cfg, vision_embeds)
     for gi in range(_n_groups(cfg)):
         x = _cross_block(x, _layer(params["cross"], gi), cfg, vis)
@@ -137,8 +140,8 @@ def vlm_loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     tokens = batch["tokens"]
     h, _ = vlm_forward(params, cfg, tokens[:, :-1], batch["vision_embeds"])
     return L.lm_loss_chunked(
-        h, params["lm_head"], batch.get("labels", tokens[:, 1:]),
-        chunk=cfg.loss_chunk,
+        h, gather_params(params["lm_head"], ("lm_head",), cfg),
+        batch.get("labels", tokens[:, 1:]), chunk=cfg.loss_chunk,
     )
 
 
@@ -171,7 +174,8 @@ def whisper_encode(params: dict, cfg: ModelConfig,
     """frames (B, n_audio_frames, d_model) -> encoder output (B, frames,
     d_model) at the compute dtype."""
     cd = cfg.torch_compute_dtype()
-    x = frames.to(cd) + params["pos_embed"].to(cd)[None]
+    pos_embed = gather_params(params["pos_embed"], ("pos_embed",), cfg)
+    x = frames.to(cd) + pos_embed.to(cd)[None]
     for i in range(cfg.n_encoder_layers):
         x = L.remat(cfg, _enc_block, x, _layer(params["enc"], i), cfg)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
@@ -179,18 +183,21 @@ def whisper_encode(params: dict, cfg: ModelConfig,
 
 def _enc_block(x, lp: dict, cfg: ModelConfig):
     cd = cfg.torch_compute_dtype()
+    lp = gather_params(lp, ("enc",), cfg, lead=1)
     h = attn_mod.attention(
         L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["attn"], cfg,
         causal=False, use_rope=False,
     )
     x = x + h.to(x.dtype)
-    ff = L.mlp(L.rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], cd)
+    ff = L.mlp(L.rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], cd,
+               cfg.d_ff)
     return x + ff.to(x.dtype)
 
 
 def _dec_block(x, lp: dict, cfg: ModelConfig, enc_out, *, cache=None,
                pos=None, prefill_cache=False):
     cd = cfg.torch_compute_dtype()
+    lp = gather_params(lp, ("dec",), cfg, lead=1)
     h = attn_mod.attention(
         L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["self_attn"], cfg,
         causal=True, cache=cache, pos=pos, prefill_cache=prefill_cache,
@@ -201,7 +208,8 @@ def _dec_block(x, lp: dict, cfg: ModelConfig, enc_out, *, cache=None,
         causal=False, cross_x=enc_out, use_rope=False,
     )
     x = x + h.to(x.dtype)
-    ff = L.mlp(L.rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], cd)
+    ff = L.mlp(L.rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], cd,
+               cfg.d_ff)
     return x + ff.to(x.dtype)
 
 
@@ -215,7 +223,7 @@ def whisper_decode_fwd(params: dict, cfg: ModelConfig, tokens, enc_out, *,
     layer's rows [0, S) of ``cache`` (remat skipped under it, as in the
     reference)."""
     cd = cfg.torch_compute_dtype()
-    x = L.embed(tokens, params["embed"], cd)
+    x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg), cd)
     for i in range(cfg.n_layers):
         lp = _layer(params["dec"], i)
         if cache is None and not prefill_cache:
@@ -235,8 +243,8 @@ def whisper_loss_fn(params: dict, cfg: ModelConfig,
     tokens = batch["tokens"]
     h, _ = whisper_decode_fwd(params, cfg, tokens[:, :-1], enc_out)
     return L.lm_loss_chunked(
-        h, params["lm_head"], batch.get("labels", tokens[:, 1:]),
-        chunk=cfg.loss_chunk,
+        h, gather_params(params["lm_head"], ("lm_head",), cfg),
+        batch.get("labels", tokens[:, 1:]), chunk=cfg.loss_chunk,
     )
 
 

@@ -24,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models.convert import gather_params
 from repro_torch.runtime.paged_cache import init_paged_pool
 
 
@@ -46,8 +47,11 @@ def _unstack(tree: dict, n: int) -> list:
 
 def _block(x, lp: dict, cfg: ModelConfig, *, cache=None, pos=None,
            page_table=None, prefill_cache=False, prefill_len=None):
-    """One residual block: ln1 -> attention -> ln2 -> MLP or experts."""
+    """One residual block: ln1 -> attention -> ln2 -> MLP or experts;
+    ``lp`` is this process's blocks of the layer's parameters, gathered
+    here (``convert.gather_params``)."""
     cd = cfg.torch_compute_dtype()
+    lp = gather_params(lp, ("blocks",), cfg, lead=1)
     h = attn_mod.attention(
         L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["attn"], cfg,
         cache=cache, pos=pos, page_table=page_table,
@@ -58,7 +62,7 @@ def _block(x, lp: dict, cfg: ModelConfig, *, cache=None, pos=None,
     if cfg.family == "moe":
         ff = moe_mod.moe_ffn(ff_in, lp["moe"], cfg)
     else:
-        ff = L.mlp(ff_in, lp["mlp"], cd)
+        ff = L.mlp(ff_in, lp["mlp"], cd, cfg.d_ff)
     return x + ff.to(x.dtype)
 
 
@@ -109,7 +113,7 @@ def forward(params, cfg: ModelConfig, tokens, *, cache: Optional[dict] = None,
     a decode step at ``pos`` or, with ``prefill_cache``, the whole prompt
     written to rows [0, S)."""
     cd = cfg.torch_compute_dtype()
-    x = L.embed(tokens, params["embed"], cd)
+    x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg), cd)
     x = _blocks(x, params["blocks"], cfg, cache=cache, pos=pos,
                 prefill_cache=prefill_cache)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
@@ -121,8 +125,8 @@ def loss_fn(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     tokens = batch["tokens"]
     h, _ = forward(params, cfg, tokens[:, :-1])
     return L.lm_loss_chunked(
-        h, params["lm_head"], batch.get("labels", tokens[:, 1:]),
-        chunk=cfg.loss_chunk,
+        h, gather_params(params["lm_head"], ("lm_head",), cfg),
+        batch.get("labels", tokens[:, 1:]), chunk=cfg.loss_chunk,
     )
 
 

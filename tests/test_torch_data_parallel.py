@@ -11,7 +11,8 @@ CLI across two processes.
     per-rank gradients, bit for bit, over two rounds; the residual is the
     quantization error and every leaf crosses as int16, once a round;
   * the data-parallel step (``make_train_step`` under a 2 x 1 and a
-    4 x 1 mesh, each rank its slice of the global batch) against the
+    4 x 1 mesh, each rank its slice of the global batch and its block of
+    the state placed by the plan, gathered whole to compare) against the
     one-device step on the whole batch, 3 steps of reduced qwen3-4b at
     fp32 compute and the naive attention (see ``_qwen3_fp32``): the
     losses within 1e-5, the first step's moments (the averaged
@@ -29,15 +30,14 @@ CLI across two processes.
     moments within 5e-2 of each leaf's largest;
   * a whole train step of reduced olmoe-1b-7b (nothing dropped: capacity
     factor E / k) on a 1 x 2 and a 2 x 2 mesh - the expert-parallel
-    dispatch and the row-parallel ``w2`` inside the model, data
+    dispatch and the column-parallel attention inside the model, data
     parallelism around it - against the one-device step: loss within
-    1e-3, the first step's moments of every leaf (the sharded ones
-    gathered) within the bf16 bar of tests/test_torch_moe.py (2e-2); the
-    replicated leaves' state the same bits on every rank, each sharded
-    leaf's on the ranks that share its model index;
+    1e-3, the first step's moments of every leaf (gathered whole) within
+    the bf16 bar of tests/test_torch_moe.py (2e-2); the whole state the
+    same bits on every rank;
   * ``launch/train.py --mesh 2x1``: a run restarted from its step-3
     checkpoints equals a straight 6-step run, every leaf of every
-    process's shard bit for bit.
+    process's shard bit for bit; the two shards hold different blocks.
 
 Each world size spawns one group; the one-device runs they are held to
 run in this process meanwhile.  The spawned ranks import this module and
@@ -128,17 +128,44 @@ def _state_numpy(state):
     return out
 
 
-def _run_steps(bundle, step_fn, state, batches):
+def _run_steps(bundle, step_fn, state, batches, mesh=None):
     """Each batch through ``step_fn``: (losses, grad norms, the state
-    after the first step, the state at the end)."""
+    after the first step, the state at the end), the state gathered
+    whole from the blocks placed on ``mesh``."""
     losses, norms, first = [], [], None
     for b in batches:
         state, m = step_fn(state, {"tokens": torch.from_numpy(b)})
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         if first is None:
-            first = _state_numpy(state)
-    return losses, norms, first, _state_numpy(state)
+            first = _state_numpy(_whole(state, bundle.cfg, mesh))
+    return losses, norms, first, _state_numpy(_whole(state, bundle.cfg,
+                                                     mesh))
+
+
+def _whole(state, cfg, mesh):
+    """The whole state from every process's blocks on ``mesh`` (plain
+    gathers along each split dim over its axes' group; None: as it
+    is)."""
+    from repro_torch.core.collectives import all_gather
+    from repro_torch.models.convert import shard_dim
+    from repro_torch.optim import AdamWState
+
+    if mesh is None:
+        return state
+
+    def tree(t, path=()):
+        if isinstance(t, dict):
+            return {k: tree(v, path + (k,)) for k, v in t.items()}
+        for dim, axes in enumerate(shard_dim(path, cfg, mesh)):
+            if axes:
+                t = all_gather(t.detach(), dim, mesh.axis_group(axes))
+        return t
+
+    opt = state["opt"]
+    return {"params": tree(state["params"]),
+            "opt": AdamWState(step=opt.step, mu=tree(opt.mu),
+                              nu=tree(opt.nu))}
 
 
 def _local(batch, index, count):
@@ -183,19 +210,20 @@ def _rank_checks(rank, world, tmp, grads):
                              "cpu", mesh=mesh)
     out["dp"] = _run_steps(fbundle, make_train_step(fbundle, hyper), state,
                            [_local(b, mesh.dp_rank(), world)
-                            for b in batches])
+                            for b in batches], mesh)
     set_mesh(None)
 
     # compressed: pods (x data within a pod)
     shape = COMP_MESH[world]
     mesh = make_train_mesh(shape, ("pod", "data", "model"), devices="cpu")
     step = make_compressed_train_step(bundle, hyper, mesh)
-    state = init_train_state(bundle, torch.Generator().manual_seed(0), "cpu")
+    state = init_train_state(bundle, torch.Generator().manual_seed(0), "cpu",
+                             mesh=step.mesh)
     state["comp"] = step.init_comp(state["params"])
     WIRE.reset()
     out["comp"] = _run_steps(bundle, step, state,
                              [_local(b, mesh.dp_rank(), shape[0] * shape[1])
-                              for b in batches])
+                              for b in batches], step.mesh)
     out["comp_wire"] = list(WIRE.entries)
     out["n_leaves"] = len(tree_leaves(state["params"]))
 
@@ -209,7 +237,8 @@ def _rank_checks(rank, world, tmp, grads):
                              "cpu", mesh=mesh)
     WIRE.reset()
     out["ep"] = _run_steps(obundle, make_train_step(obundle, hyper), state,
-                           [_local(_batch(ocfg, 9), mesh.dp_rank(), d)])
+                           [_local(_batch(ocfg, 9), mesh.dp_rank(), d)],
+                           mesh)
     out["ep_wire"] = WIRE.totals()
     set_mesh(None)
     out["coords"] = dict(mesh.coords)
@@ -274,7 +303,6 @@ def runs(tmp_path_factory):
     olmoe = _run_steps(obundle, make_train_step(obundle,
                                                 TrainHyper(**HYPER)),
                        state, [_batch(ocfg, 9)])
-    olmoe_dims = _ep_dims(ocfg, state["params"])
     out = {}
     for w, ctx in ctxs.items():
         deadline = time.monotonic() + SPAWN_TIMEOUT_S
@@ -286,20 +314,7 @@ def runs(tmp_path_factory):
                             f"{SPAWN_TIMEOUT_S} s")
         out[w] = [torch.load(dirs[w] / f"rank{r}.pt", weights_only=False)
                   for r in range(w)]
-    return grads, plain, olmoe, olmoe_dims, out
-
-
-def _ep_dims(cfg, params):
-    """{state key: the model-sharded dim or None} for a 2-way model
-    axis."""
-    from types import SimpleNamespace
-
-    from repro_torch.models.convert import shard_dims
-
-    dims = shard_dims(params, cfg,
-                      SimpleNamespace(shape={"data": 1, "model": 2}))
-    return {f"{name}/{i}": d for name in ("params", "mu", "nu")
-            for i, d in enumerate(dims)}
+    return grads, plain, olmoe, out
 
 
 def test_compressed_psum_one_pod_equals_reference():
@@ -369,7 +384,7 @@ def _formula(gs, rs):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_compressed_psum_equals_reference_formula(runs, world):
-    grads, _, _, _, out = runs
+    grads, _, _, out = runs
     grads, ranks = grads[world], out[world]
     res = {k: np.zeros((world,) + v.shape, np.float32)
            for k, v in grads[0, 0].items()}
@@ -391,7 +406,7 @@ def test_compressed_psum_equals_reference_formula(runs, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_data_parallel_step_equals_one_device(runs, world):
-    _, plain, _, _, out = runs
+    _, plain, _, out = runs
     p_loss, p_norm, p_first, p_last = plain["fp32"]
     ranks = out[world]
     for r in ranks:
@@ -411,7 +426,7 @@ def test_data_parallel_step_equals_one_device(runs, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_compressed_step_tracks_plain_step(runs, world):
-    _, plain, _, _, out = runs
+    _, plain, _, out = runs
     p_loss, _, _, p_last = plain["bf16"]
     _, p_norm, p_first, _ = plain["bf16"]
     for r in out[world]:
@@ -443,39 +458,31 @@ def test_compressed_step_tracks_plain_step(runs, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_model_axis_train_step_equals_one_device(runs, world):
-    _, _, olmoe, dims, out = runs
+    _, _, olmoe, out = runs
     p_loss, _, p_first, _ = olmoe
-    d, m = EP_MESH[world]
     ranks = out[world]
     for r in ranks:
         wire = r["ep_wire"]
         assert wire[("all_to_all", "bfloat16")]["calls"] > 0   # a2a taken
-        assert wire[("all_gather", "bfloat16")]["calls"] > 0   # w2's sum
+        assert wire[("all_gather", "bfloat16")]["calls"] > 0   # heads' sum
         np.testing.assert_allclose(r["ep"][0], p_loss, atol=1e-3)
     for k, want in p_first.items():
         if not k.startswith("mu/"):
             continue
-        dim = dims[k]
-        if dim is None:
-            got = ranks[0]["ep"][2][k]
-        else:
-            parts = [next(r for r in ranks if r["coords"]["model"] == i
-                          and r["coords"].get("data", 0) == 0)["ep"][2][k]
-                     for i in range(m)]
-            got = np.concatenate(parts, axis=dim)
+        got = ranks[0]["ep"][2][k]
         scale = max(float(np.abs(want).max()), 1e-12)
         np.testing.assert_allclose(got / scale, want / scale, atol=2e-2,
                                    err_msg=k)
+    # the whole state gathered from the blocks: the same bits on every
+    # rank
     for k in p_first:
         for r in ranks:
-            twin = next(q for q in ranks if dims[k] is None
-                        or q["coords"]["model"] == r["coords"]["model"])
-            np.testing.assert_array_equal(r["ep"][3][k], twin["ep"][3][k],
+            np.testing.assert_array_equal(r["ep"][3][k], ranks[0]["ep"][3][k],
                                           err_msg=k)
 
 
 def test_train_cli_mesh_2x1_restart_equals_straight(runs):
-    _, _, _, _, out = runs
+    _, _, _, out = runs
     ranks = out[2]
     assert ranks[0]["cli_shards"] == ["shard_00000", "shard_00001"]
     for r in ranks:
@@ -483,8 +490,10 @@ def test_train_cli_mesh_2x1_restart_equals_straight(runs):
         assert sorted(a) == sorted(b) and len(a) > 10
         differ = [k for k in a if a[k] != b[k]]
         assert not differ, differ
-    # the two processes hold one replicated state
-    assert ranks[0]["cli"]["straight"] == ranks[1]["cli"]["straight"]
+    # the two processes hold their own blocks of the state (ZeRO over
+    # the data axis), of one tree
+    a, b = ranks[0]["cli"]["straight"], ranks[1]["cli"]["straight"]
+    assert sorted(a) == sorted(b) and a != b
 
 
 def test_checkpoint_shards_of_two_processes(tmp_path):

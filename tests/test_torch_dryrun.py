@@ -333,16 +333,18 @@ def _rank_runs(rank, world):
         bundle = build(cfg)
         set_mesh(mesh)
         try:
-            state = init_train_state(bundle, torch.Generator().manual_seed(0),
-                                     "cpu", mesh=mesh)
             n_dp = mesh.axis_size(mesh.dp_axes())
             rows = BATCH // n_dp
             local = tokens[mesh.dp_rank() * rows:(mesh.dp_rank() + 1) * rows]
             if compressed:
                 step = make_compressed_train_step(bundle, TrainHyper(), mesh)
-                state["comp"] = step.init_comp(state["params"])
             else:
                 step = make_train_step(bundle, TrainHyper())
+            # the compressed step's state is placed without the pod axis
+            state = init_train_state(bundle, torch.Generator().manual_seed(0),
+                                     "cpu", mesh=getattr(step, "mesh", mesh))
+            if compressed:
+                state["comp"] = step.init_comp(state["params"])
             WIRE.reset()
             step(state, {"tokens": local})
             out[name] = _totals(WIRE.totals())
@@ -451,6 +453,9 @@ def test_dryrun_cli_writes_meta_records(tmp_path):
     assert rec["roofline"]["dominant"] in ("compute", "memory",
                                            "collective")
     assert set(rec["state_bytes_per_device"]) == {"plan", "held"}
+    # the state is placed by the plan: the held layout is the plan's
+    assert rec["state_bytes_per_device"]["held"] == \
+        rec["state_bytes_per_device"]["plan"]
     skip = json.loads((tmp_path / "qwen3-4b__long_500k__pod1.json")
                       .read_text())
     assert skip["status"] == "skipped"

@@ -19,8 +19,11 @@ and world 4 (2 x 2, the reference's ``mesh4``):
     holding E / M experts whose call cannot split raises;
   * ``row_parallel_matmul`` (each rank K / M rows of w) equals x @ w at
     atol 1e-4, its weight gradient at 5e-4;
-  * ``models.convert.shard_params`` gives each rank its experts and
-    ``w2`` rows of the reference's ``init_lm`` parameters.
+  * ``models.convert.shard_params`` gives each rank its block of every
+    leaf of the reference's ``init_lm`` parameters under the plan
+    (``launch.params.param_plan``: the experts on E over the model axis
+    and on D over the data axis, the router, the attention and the
+    embeddings as the plan splits them).
 
 Each world size spawns one group (``torch.multiprocessing`` with a
 ``file://`` store under the test's temporary directory) that runs every
@@ -74,7 +77,11 @@ def _rank_checks(world, fx):
     dp = mesh.dp_group()
     cfg = _port_cfg()
     full = _tensors(fx["moe_p"])
-    local = shard_params({"moe": full}, cfg, mesh)["moe"]
+    # each rank's E / M experts, whole over the data axis and with the
+    # whole router, as the layer computes with them
+    experts = {k: v for k, v in full.items() if k != "router"}
+    local = dict(shard_params({"moe": experts}, mesh.drop("data"))["moe"],
+                 router=full["router"])
     x = torch.from_numpy(fx["moe_x"])
     rows = x.shape[0] // d
     x_loc = x[mesh.dp_rank() * rows:(mesh.dp_rank() + 1) * rows]
@@ -125,7 +132,7 @@ def _rank_checks(world, fx):
     out["no_mesh_y"] = moe.moe_ffn(x_loc, full, cfg).numpy()
 
     # shard_params on a whole init_lm tree (the moe family)
-    lm = shard_params(_tensors_tree(fx["lm"]), cfg, mesh)
+    lm = shard_params(_tensors_tree(fx["lm"]), mesh)
     out["lm_shapes"] = {k: tuple(v.shape) for k, v in _flat(lm).items()}
     out["lm_w1"] = lm["blocks"]["moe"]["w1"].numpy()
     return out
@@ -280,20 +287,27 @@ def test_row_parallel_matmul_equals_plain(runs, world):
 
 @pytest.mark.parametrize("world", sorted(WORLDS))
 def test_shard_params_slices_init_lm(runs, world):
+    from repro_torch.launch.params import param_plan
+
     fx, _, out = runs
     d, m = WORLDS[world]
+    sizes = {"data": d, "model": m}
     full = _flat(fx["lm"])
-    e = MOE["n_experts"]
+    e, dm = MOE["n_experts"], MOE_KW["d_model"]
     for r in out[world]:
         mi = r["coords"].get("model", 0)
+        di = r["coords"].get("data", 0)
         for k, shape in r["lm_shapes"].items():
-            if k.startswith("blocks/moe/w"):
-                assert shape[1] == e // m, k
-            else:
-                assert shape == full[k].shape, k
+            plan = param_plan(tuple(k.split("/")), full[k].shape, sizes)
+            assert shape == tuple(
+                n // int(np.prod([sizes[a] for a in axes or ()]))
+                for n, axes in zip(full[k].shape, plan)), k
+        # the experts: E over the model axis, D over the data axis
         np.testing.assert_array_equal(
             r["lm_w1"], full["blocks/moe/w1"][:, mi * e // m:
-                                              (mi + 1) * e // m])
+                                              (mi + 1) * e // m,
+                                              di * dm // d:
+                                              (di + 1) * dm // d])
 
 
 def test_mesh_registry_is_the_processs():
