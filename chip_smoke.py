@@ -95,12 +95,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      Before the serves, the paged prefill kernel is held bit for bit to
      itself across chunk starts at page boundaries that are not chunk
      boundaries (``prefill_chunk_starts``), as a prefix hit starts;
-  7. the hybrid family: zamba2-1.2b at full width (38 Mamba-2 layers, a
-     shared attention block applied 7 times, head_dim 64; random weights
-     from seed 0) serves four 100-token prompts, 32 greedy tokens each,
-     token by token through launch/serve.py's route on a 140-row cache
-     (``serve_hybrid``): the contiguous decode kernel at head_dim 64 7
-     times per step and no other kernel, batched == one-at-a-time
+  7. the hybrid family: zamba2-1.2b at full width (HYBRID_LAYERS = 12 of
+     its 38 Mamba-2 layers, a shared attention block applied twice,
+     head_dim 64; random weights from seed 0) serves four 100-token
+     prompts, 32 greedy tokens each, token by token through
+     launch/serve.py's route on a 140-row cache (``serve_hybrid``): the
+     contiguous decode kernel at head_dim 64 twice per step and no other
+     kernel, batched == one-at-a-time
      streams, the first generated step's logits against the plain
      versions' on the card.  Before it, in phase 2, ``check_decode_hd64``
      holds both decode kernels at head_dim 64 (KVH 32, G 1 and KVH 4, G 8;
@@ -108,13 +109,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      to their plain versions and float64, contiguous == paged == walk bit
      for bit; in the kernels line each decode kernel has a ``/d64`` entry
      with the hybrid serve's count (0 for paged decode);
-  8. the audio family: whisper-large-v3 at full width and depth (32
-     encoder and 32 decoder layers, d 1280, 20 / 20 heads of 64; random
-     weights from seed 0) encodes four clips of 1,500 frame embeddings
-     once into the cache's ``enc_out``, then serves four 64-token
-     prompts, 32 greedy tokens each, token by token (``serve_whisper``):
-     per step 32 contiguous decodes, 32 shift-KV and 32 attention
-     launches (the cross-attention), per encode 32 + 32, all at head_dim
+  8. the audio family: whisper-large-v3 at full width (32 encoder and
+     WHISPER_LAYERS = 8 of 32 decoder layers, d 1280, 20 / 20 heads of
+     64; random weights from seed 0) encodes four clips of 1,500 frame
+     embeddings once into the cache's ``enc_out``, then serves four
+     64-token prompts, 32 greedy tokens each, token by token
+     (``serve_whisper``): per step 8 contiguous decodes, 8 shift-KV and 8
+     attention launches (the cross-attention), per encode 32 + 32, all at head_dim
      64 and no other kernel; batched == one-at-a-time streams; the first
      generated step's logits against the plain versions' on the card.
      Before it, in phase 2, ``check_shift_kv_hd64`` (every shift mode at
@@ -219,8 +220,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      streams; the first generated step within HYBRID_LOGIT_ATOL of the
      plain versions and no farther from them at fp32 than
      DENSE_FP32_RATIO x theirs; another image moves those logits.
-     ``serve_falcon_mamba``: falcon-mamba-7b at full width and depth (64
-     Mamba-1 layers; random weights from seed 0), four 64-token prompts,
+     ``serve_falcon_mamba``: falcon-mamba-7b at full width (MAMBA_LAYERS
+     = 16 of its 64 Mamba-1 layers; random weights from seed 0), four 64-token prompts,
      32 greedy tokens each: no kernel launched, batched == one-at-a-time,
      the last prompt step's decode logits within the reference's
      decode-vs-forward bar of ``_ssm_forward`` on the whole prompt.  In
@@ -339,10 +340,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the one-device steps, each rank's bytes at rest the plan's count
      exactly.  16f, column-parallel on a 1 x 2 mesh (qwen3-4b as 16b,
      each rank 4 of 8 kv heads and their 16 query heads, 4,864 of 9,728
-     MLP columns, the embedding and head split on V): MULTI_STEPS steps
-     against the one-device steps at the same bars, the replicated
-     leaves the same bits on both ranks, each rank's bytes at rest the
-     plan's; 16b, 16e and 16f each report their peak GB a rank.  16c: the
+     MLP columns, the vocab-parallel embedding and loss on its 75,968 of
+     151,936 rows and columns): MULTI_STEPS steps against the one-device
+     steps at the same bars, the replicated leaves the same bits on both
+     ranks, each rank's bytes at rest the plan's, its wire the bytes
+     ``launch.roofline.collective_bytes`` reckons (no model-axis gather
+     of the embedding or head).  16g, falcon-mamba-7b (2 of 64 layers,
+     no attention) and 16h, zamba2-1.2b (2 of 38 layers and one
+     application of the shared block, 16 of 32 kv heads a rank), the
+     same on a 1 x 2 mesh with every Mamba layer on its rank's half of
+     the channels and the vocab-parallel embedding and loss; 16b, 16e,
+     16f, 16g and 16h each report their peak GB a rank.  16c: the
      same as 16b from the same state through the
      compressed step on a pod axis of 2: the losses and gradient norms
      within the bars of 16b and within COMP_LOSS_ATOL of the one-device
@@ -354,10 +362,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      qwen3-4b's w2 call, forward and weight gradient within ROWP_TOL of
      the plain product's largest, one bf16 sum on the wire.  Every
      rank's launches of shift-KV and attention are gated exactly (2 a
-     layer a step: forward and remat recompute); the ``/train_dp``,
-     ``/train_ep`` and ``/train_col`` entries of the kernels line time
-     both kernels at the ranks' call shapes (16b / 16c / 16e, 16a, 16f)
-     and carry every rank's launches.
+     layer a step: forward and remat recompute; 1 a step in 16h, whose
+     shared block runs outside remat; none in 16g); the ``/train_dp``,
+     ``/train_ep``, ``/train_col`` and ``/train_col_d64`` entries of the
+     kernels line time both kernels at the ranks' call shapes (16b / 16c
+     / 16e, 16a, 16f, 16h) and carry every rank's launches.
  17. the dry run's accounting held against the card
      (``launch.op_analysis``, ``launch.dryrun``, ``launch.roofline``), in
      two parts: ``tools_decode`` with phase 4's weights before they are
@@ -424,6 +433,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -515,6 +525,9 @@ TELEMETRY_PROBE_EVERY = 4
 HD64_SHAPES = ((32, 1), (4, 8))
 HYBRID_BATCH, HYBRID_PROMPT, HYBRID_MAX_LEN = 4, 100, 140
 HYBRID_ALONE = (0, 3)
+# of zamba2's 38 layers: two applications of the shared block (38 and 7
+# until phase 16 gained 16g and 16h)
+HYBRID_LAYERS = 12
 HYBRID_LOGIT_ATOL = 0.1
 # head_dim 64 of shift-KV and attention (whisper-large-v3: 20 / 20 heads
 # of 64): the encoder's shape, (B 4, H 20, 1536 rows, D 64) with the
@@ -527,6 +540,9 @@ HYBRID_LOGIT_ATOL = 0.1
 WHISPER_BATCH, WHISPER_FRAMES, WHISPER_S2 = 4, 1500, 1536
 WHISPER_PROMPT, WHISPER_MAX_LEN = 64, 104
 WHISPER_ALONE = (0, 3)
+# of whisper's 32 decoder layers (the encoder keeps its 32; all 32 until
+# phase 16 gained 16g and 16h)
+WHISPER_LAYERS = 8
 # PASA at bf16 operands (bf16_fp32, beta 0.984497) on the non-causal
 # whisper fixtures: the reference's algorithm itself (the plain version)
 # is 0.027 from float64 at the encoder's shape (queries of mean 0, keys of
@@ -599,6 +615,8 @@ VLM_BATCH, VLM_PROMPT, VLM_MAX_LEN = 4, 32, 72
 VLM_ALONE = (0, 3)
 MAMBA_BATCH, MAMBA_PROMPT = 4, 64
 MAMBA_ALONE = (0, 3)
+# of falcon-mamba-7b's 64 layers (all 64 until phase 16 gained 16g and 16h)
+MAMBA_LAYERS = 16
 MAMBA_FWD_TOL = dict(atol=0.25, rtol=0.1)
 # phase 13: olmoe-1b-7b at full width with its depth cut to OLMOE_LAYERS
 # of 16 (16 until the smoke's time outgrew its aim, 8 until phase 19
@@ -3514,13 +3532,15 @@ def _plain_decode(at=None):
 
 
 def serve_hybrid(dev):
-    """zamba2-1.2b at full width (38 Mamba-2 layers, the shared attention
-    block applied 7 times, head_dim 64) with random weights (seed 0): bf16
+    """zamba2-1.2b at full width (HYBRID_LAYERS of its 38 Mamba-2 layers,
+    the shared attention block applied once every 6, head_dim 64) with
+    random weights (seed 0): bf16
     weights, an fp32 lm_head and fp32 Mamba conv / SSM parameters.
     HYBRID_BATCH prompts of HYBRID_PROMPT tokens, SERVE_GEN greedy tokens
     each, through launch/serve.py's token-by-token route on a
     HYBRID_MAX_LEN-row cache.  Every logit finite; the contiguous decode
-    kernel launched 7 times per step, all at head_dim 64, and no other
+    kernel launched once per application per step, all at head_dim 64,
+    and no other
     kernel; the prompts HYBRID_ALONE served alone give their batched
     streams; the first generated step's logits within HYBRID_LOGIT_ATOL of
     the same step through the kernels' plain versions on the card from the
@@ -3537,7 +3557,8 @@ def serve_hybrid(dev):
     from repro_torch.models.hybrid import n_shared_apps
     from repro_torch.models.model_zoo import build
 
-    cfg = get_config("zamba2-1.2b")
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"),
+                              n_layers=HYBRID_LAYERS)
     bundle = build(cfg)
     t0 = time.perf_counter()
     params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -3648,16 +3669,18 @@ def _plain_attention(at=None):
 
 
 def serve_whisper(dev):
-    """whisper-large-v3 at full width and depth (32 encoder and 32 decoder
-    layers, d 1280, 20 / 20 heads of 64) with random weights (seed 0):
+    """whisper-large-v3 at full width (32 encoder and WHISPER_LAYERS of 32
+    decoder layers, d 1280, 20 / 20 heads of 64) with random weights
+    (seed 0):
     bf16 weights, an fp32 lm_head.  WHISPER_BATCH clips of WHISPER_FRAMES
     frame embeddings (d_model wide, drawn from seed 0) encoded once into
     the cache's ``enc_out`` (shift-KV and the attention kernel at head_dim
     64 with kv_valid 1500 of 1536 rows, 32 each); then WHISPER_PROMPT-token
     prompts and SERVE_GEN greedy tokens each, token by token through
-    launch/serve.py's route on a WHISPER_MAX_LEN-row cache: per step 32
-    contiguous decodes (self-attention), 32 shift-KV and 32 attention
-    launches (the cross-attention: one query row padded to 64, 1,500 keys
+    launch/serve.py's route on a WHISPER_MAX_LEN-row cache: per step and
+    decoder layer a contiguous decode (self-attention), a shift-KV and an
+    attention launch (the cross-attention: one query row padded to 64,
+    1,500 keys
     in 1,536 rows), all in the d64 modes, and no other kernel.  Every
     logit finite; the prompts WHISPER_ALONE served alone from their rows
     of ``enc_out`` give their batched streams; the first generated step's
@@ -3677,7 +3700,8 @@ def serve_whisper(dev):
     from repro_torch.models.model_zoo import build
     from repro_torch.models.multimodal import whisper_encode
 
-    cfg = get_config("whisper-large-v3")
+    cfg = dataclasses.replace(get_config("whisper-large-v3"),
+                              n_layers=WHISPER_LAYERS)
     bundle = build(cfg)
     t0 = time.perf_counter()
     params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -4692,8 +4716,9 @@ def serve_vlm(dev):
 
 
 def serve_falcon_mamba(dev):
-    """falcon-mamba-7b at full width and depth (64 Mamba-1 layers, d 4096,
-    d_inner 8192, state 16, vocab 65,024; no attention) with random
+    """falcon-mamba-7b at full width (MAMBA_LAYERS of its 64 Mamba-1
+    layers, d 4096, d_inner 8192, state 16, vocab 65,024; no attention)
+    with random
     weights from seed 0 (bf16, fp32 head, fp32 conv / dt / SSM
     parameters).  MAMBA_BATCH prompts of MAMBA_PROMPT tokens, SERVE_GEN
     greedy tokens each, token by token through launch/serve.py's route
@@ -4711,7 +4736,8 @@ def serve_falcon_mamba(dev):
     from repro_torch.models import layers as L
     from repro_torch.models.model_zoo import _ssm_forward, build
 
-    cfg = get_config("falcon-mamba-7b")
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              n_layers=MAMBA_LAYERS)
     bundle = build(cfg)
     t0 = time.perf_counter()
     params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -6037,6 +6063,11 @@ def phase_train(dev):
 MULTI_TIMEOUT_S = 900
 EP_ARCH, EP_LAYERS = "olmoe-1b-7b", 2
 DP_ARCH, DP_LAYERS = "qwen3-4b", 2
+# 16g / 16h: the Mamba-1 LM and the hybrid on a 1 x 2 mesh, each layer on
+# its model-axis channels (zamba2's 2 layers hold one application of the
+# shared block)
+SSM_ARCH, SSM_LAYERS = "falcon-mamba-7b", 2
+HYB_ARCH, HYB_LAYERS = "zamba2-1.2b", 2
 MULTI_BATCH, MULTI_SEQ, MULTI_STEPS = 2, 1024, 2   # 3 until phase 19 came
 # the hyper-parameters of the reference's compressed-step test
 # (tests/test_launch.py): lr 0, 1e-5, 2e-5 over its three steps
@@ -6075,6 +6106,8 @@ FSDP_GNORM_RTOL = 1e-6
 DP_ATTN_SHAPE = (MULTI_BATCH // 2, 32, 8, MULTI_SEQ, 128)
 EP_ATTN_SHAPE = (MULTI_BATCH, 8, 8, MULTI_SEQ, 128)
 COL_ATTN_SHAPE = (MULTI_BATCH, 16, 4, MULTI_SEQ, 128)
+# zamba2's shared block at a rank's 16 of 32 kv heads (16h)
+HYB_ATTN_SHAPE = (MULTI_BATCH, 16, 16, MULTI_SEQ, 64)
 
 
 def _multi_cfg(arch, layers):
@@ -6433,13 +6466,16 @@ def _dp_rank(dev, half_batch=False):
     return {"dp": plain, "fsdp": fsdp, "comp": comp}
 
 
-def _col_rank(dev):
-    """16f in one rank: DP_ARCH (DP_LAYERS layers) from seed 0 on a 1 x 2
-    mesh, its state placed by the plan (column-parallel attention and
-    MLP, the embedding and head split on V), MULTI_STEPS steps on the
-    whole global batch."""
+def _col_rank(dev, arch, layers):
+    """16f / 16g / 16h in one rank: ``arch`` (``layers`` layers) from seed
+    0 on a 1 x 2 mesh, its state placed by the plan and each layer on its
+    model-axis block (column-parallel attention and MLP, the
+    vocab-parallel embedding and loss, the Mamba channels), MULTI_STEPS
+    steps on the whole global batch; the wire log beside what
+    ``launch.roofline.collective_bytes`` reckons for those steps."""
     import torch
 
+    from repro_torch.launch import roofline
     from repro_torch.launch.mesh import make_train_mesh
     from repro_torch.launch.sharding import set_mesh
     from repro_torch.launch.steps import (TrainHyper, init_train_state,
@@ -6448,7 +6484,7 @@ def _col_rank(dev):
     from repro_torch.models.model_zoo import build
     from repro_torch.optim.adamw import tree_leaves
 
-    cfg = _multi_cfg(DP_ARCH, DP_LAYERS)
+    cfg = _multi_cfg(arch, layers)
     bundle = build(cfg)
     mesh = make_train_mesh((1, 2), ("data", "model"), devices=dev)
     set_mesh(mesh)
@@ -6462,8 +6498,14 @@ def _col_rank(dev):
     leaves = tree_leaves(state["params"])
     whole = [_whole_on(plan, mesh)
              for plan in shard_dims(state["params"], cfg, mesh)]
+    reckoned = roofline.collective_bytes(
+        cfg, "train", MULTI_BATCH, MULTI_SEQ, dict(mesh.shape),
+        params=bundle.init(None, "meta", dtype=cfg.torch_param_dtype()))
     col.update(rest_bytes=rest, plan_bytes=_plan_bytes(cfg, mesh),
                sharded_leaves=whole.count(False),
+               wire_reckoned={f"{op}/{dt}": n * MULTI_STEPS for (op, dt), n
+                              in reckoned["by_op"].items()},
+               wire_reckoned_by_kind=reckoned["bytes"],
                replicated_digests=_digests(
                    [p for p, w in zip(leaves, whole) if w]))
     del state, leaves
@@ -6566,8 +6608,8 @@ def _rowp_rank(dev):
 def _multi_rank(rank, store, out_dir, device, half_batch):
     """One rank of the world-2 group of phase 16, on ``device``: the
     determinism settings of the trainer CLI, then 16a, 16b / 16e / 16c
-    (every rank on slice 0 of the batch with ``half_batch``), 16f,
-    16d."""
+    (every rank on slice 0 of the batch with ``half_batch``), 16f, 16g,
+    16h, 16d."""
     import os
 
     import torch
@@ -6585,7 +6627,9 @@ def _multi_rank(rank, store, out_dir, device, half_batch):
     try:
         res = {"ep": _ep_rank(dev)}
         res.update(_dp_rank(dev, half_batch))
-        res["col"] = _col_rank(dev)
+        res["col"] = _col_rank(dev, DP_ARCH, DP_LAYERS)
+        res["ssm"] = _col_rank(dev, SSM_ARCH, SSM_LAYERS)
+        res["hyb"] = _col_rank(dev, HYB_ARCH, HYB_LAYERS)
         res["rowp"] = _rowp_rank(dev)
         torch.save(res, f"{out_dir}/rank{rank}.pt")
     finally:
@@ -6595,7 +6639,8 @@ def _multi_rank(rank, store, out_dir, device, half_batch):
 def _readings(one, ranks):
     """The largest |loss difference| and relative gradient-norm
     difference of each rank's steps from the one-device steps', for 16a,
-    16b, 16c, 16e and 16f: {"16a": [(loss, norm) a rank], ...}."""
+    16b, 16c, 16e, 16f, 16g and 16h: {"16a": [(loss, norm) a rank],
+    ...}."""
     def worst(rep, ref):
         return (max(abs(a - b) for a, b in zip(rep["loss"], ref["loss"])),
                 max(abs(a - b) / b for a, b in zip(rep["grad_norm"],
@@ -6607,7 +6652,9 @@ def _readings(one, ranks):
             "16b": [worst(res["dp"], one["dp"]) for res in ranks],
             "16c": [worst(res["comp"], one["dp"]) for res in ranks],
             "16e": [worst(res["fsdp"], one["dp"]) for res in ranks],
-            "16f": [worst(res["col"], one["dp"]) for res in ranks]}
+            "16f": [worst(res["col"], one["dp"]) for res in ranks],
+            "16g": [worst(res["ssm"], one["ssm"]) for res in ranks],
+            "16h": [worst(res["hyb"], one["hyb"]) for res in ranks]}
 
 
 def _refused(readings):
@@ -6640,19 +6687,35 @@ def _check_multi(one, ranks, resident_gb):
             raise AssertionError(f"16a rank {r}: a2a vs gspmd {lay}")
         if st["launches"] != want(per_step(EP_LAYERS)):
             raise AssertionError(f"16a rank {r}: launches {st['launches']}")
-        for tag, name in (("dp", "16b"), ("comp", "16c"), ("fsdp", "16e"),
-                          ("col", "16f")):
+        # the hybrid's shared block (one application) runs outside remat;
+        # the Mamba-1 LM runs no kernel
+        for tag, name, n in (
+                ("dp", "16b", per_step(DP_LAYERS)),
+                ("comp", "16c", per_step(DP_LAYERS)),
+                ("fsdp", "16e", per_step(DP_LAYERS)),
+                ("col", "16f", per_step(DP_LAYERS)), ("ssm", "16g", 0),
+                ("hyb", "16h", 1)):
             rep = res[tag]
-            if rep["launches"] != want(per_step(DP_LAYERS) * MULTI_STEPS):
+            if rep["launches"] != want(n * MULTI_STEPS):
                 raise AssertionError(f"{name} rank {r}: launches "
                                      f"{rep['launches']}")
         # the state placed by the plan: each rank's bytes at rest
         for name, rep in (("16a", st), ("16e", res["fsdp"]),
-                          ("16f", res["col"])):
+                          ("16f", res["col"]), ("16g", res["ssm"]),
+                          ("16h", res["hyb"])):
             if rep["rest_bytes"] != rep["plan_bytes"]:
                 raise AssertionError(f"{name} rank {r}: {rep['rest_bytes']} "
                                      f"bytes at rest, the plan "
                                      f"{rep['plan_bytes']}")
+        # each layer on its model-axis block: the wire carries what the
+        # roofline reckons, which gathers no embedding, head or SSM
+        # channel leaf over the model axis
+        for name, tag in (("16f", "col"), ("16g", "ssm"), ("16h", "hyb")):
+            rep = res[tag]
+            got = {k: v["bytes"] for k, v in rep["wire"].items()}
+            if got != rep["wire_reckoned"]:
+                raise AssertionError(f"{name} rank {r}: wire {got}, the "
+                                     f"roofline {rep['wire_reckoned']}")
         fsdp, dp = res["fsdp"], res["dp"]
         if not (fsdp["loss"][0] == dp["loss"][0]
                 and abs(fsdp["grad_norm"][0] - dp["grad_norm"][0])
@@ -6691,7 +6754,11 @@ def _check_multi(one, ranks, resident_gb):
             ("16c parameters", ranks[0]["comp"]["digests"],
              ranks[1]["comp"]["digests"]),
             ("16f replicated leaves", ranks[0]["col"]["replicated_digests"],
-             ranks[1]["col"]["replicated_digests"])):
+             ranks[1]["col"]["replicated_digests"]),
+            ("16g replicated leaves", ranks[0]["ssm"]["replicated_digests"],
+             ranks[1]["ssm"]["replicated_digests"]),
+            ("16h replicated leaves", ranks[0]["hyb"]["replicated_digests"],
+             ranks[1]["hyb"]["replicated_digests"])):
         if a != b:
             raise AssertionError(f"{key} differ between the ranks")
     peak = sum(res["dp"]["peak_gb"] for res in ranks) + resident_gb
@@ -6701,7 +6768,8 @@ def _check_multi(one, ranks, resident_gb):
         for tag in ("dp", "comp"):
             res[tag].pop("digests")
         res["ep"]["step"].pop("replicated_digests")
-        res["col"].pop("replicated_digests")
+        for tag in ("col", "ssm", "hyb"):
+            res[tag].pop("replicated_digests")
     return {
         "multi_ep": dict(one_device=one["ep"], ranks=[
             res["ep"] for res in ranks]),
@@ -6713,6 +6781,10 @@ def _check_multi(one, ranks, resident_gb):
             res["fsdp"] for res in ranks]),
         "multi_col": dict(one_device=one["dp"], ranks=[
             res["col"] for res in ranks]),
+        "multi_ssm": dict(one_device=one["ssm"], ranks=[
+            res["ssm"] for res in ranks]),
+        "multi_hyb": dict(one_device=one["hyb"], ranks=[
+            res["hyb"] for res in ranks]),
         "multi_rowp": dict(shape=ROWP_SHAPE, ranks=[
             res["rowp"] for res in ranks]),
     }
@@ -6724,8 +6796,9 @@ def phase_multi(dev, half_batch=False):
     freed), then the group's 16a (expert parallel: olmoe-1b-7b's a2a
     layer and a whole step on a 1 x 2 mesh), 16b (data parallel:
     qwen3-4b, MULTI_STEPS steps on a 2 x 1 mesh), 16e (FSDP on it), 16c
-    (the compressed sync on a pod axis of 2), 16f (column-parallel on a
-    1 x 2 mesh) and 16d (the row-parallel w2 product), each gated
+    (the compressed sync on a pod axis of 2), 16f / 16g / 16h (qwen3-4b,
+    falcon-mamba-7b and zamba2-1.2b, each layer on its model-axis block
+    of a 1 x 2 mesh) and 16d (the row-parallel w2 product), each gated
     (``_check_multi``); a failing rank fails the phase.  Then the kernels
     at the ranks' call shapes.  Prints the reports; returns the
     kernels-line entries (launches: every rank's, summed).
@@ -6741,7 +6814,9 @@ def phase_multi(dev, half_batch=False):
 
     t0 = time.perf_counter()
     one = {"ep": _one_device_steps(dev, EP_ARCH, EP_LAYERS, 1),
-           "dp": _one_device_steps(dev, DP_ARCH, DP_LAYERS, MULTI_STEPS)}
+           "dp": _one_device_steps(dev, DP_ARCH, DP_LAYERS, MULTI_STEPS),
+           "ssm": _one_device_steps(dev, SSM_ARCH, SSM_LAYERS, MULTI_STEPS),
+           "hyb": _one_device_steps(dev, HYB_ARCH, HYB_LAYERS, MULTI_STEPS)}
     torch.cuda.empty_cache()
     resident_gb = torch.cuda.memory_allocated() / 1e9
     (ROOT / "build").mkdir(exist_ok=True)
@@ -6775,10 +6850,12 @@ def phase_multi(dev, half_batch=False):
         print(f"{tag}: " + json.dumps(r))
     entries = (_train_call_entries(dev, DP_ATTN_SHAPE, "train_dp")
                + _train_call_entries(dev, EP_ATTN_SHAPE, "train_ep")
-               + _train_call_entries(dev, COL_ATTN_SHAPE, "train_col"))
+               + _train_call_entries(dev, COL_ATTN_SHAPE, "train_col")
+               + _train_call_entries(dev, HYB_ATTN_SHAPE, "train_col_d64"))
     runs = {"train_dp": lambda res: (res["dp"], res["comp"], res["fsdp"]),
             "train_ep": lambda res: (res["ep"]["step"],),
-            "train_col": lambda res: (res["col"],)}
+            "train_col": lambda res: (res["col"],),
+            "train_col_d64": lambda res: (res["hyb"],)}
     for k in entries:
         name, _, tag = k["name"].partition("/")
         k["launches"] = sum(rep["launches"][name] for res in ranks

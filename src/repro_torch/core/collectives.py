@@ -30,8 +30,12 @@ group's sum of the cotangents, this rank's block of it
 input (:func:`slice_replicated`) the slices' cotangents gathered (a
 scatter into zeros summed over the group, without the zeros on the
 wire); of a sum whose output is replicated (:func:`sum_replicated`) the
-identity; and :func:`sum_grad` (a replicated parameter used on this
-rank's part of the data) sums its gradient over the group.
+identity; :func:`sum_grad` (a replicated parameter used on this rank's
+part of the data) sums its gradient over the group; a sum of partial
+terms that each rank then uses on its own channels (:func:`sum_split`)
+sums both ways; and a tiled gather of which each rank keeps its own
+segments (:func:`gather_segments`) gathers every rank's segments'
+cotangents and keeps its block of their sum.
 """
 
 from __future__ import annotations
@@ -402,6 +406,27 @@ class _SumGrad(torch.autograd.Function):
         return all_reduce(g.contiguous(), "sum", ctx.group), None
 
 
+class _GatherSegments(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, segments, group):
+        ctx.segments, ctx.group, ctx.width = segments, group, x.shape[-1]
+        full = all_gather(x, x.dim() - 1, group)
+        return torch.cat([full[..., a:a + n]
+                          for a, n in segments[group_rank(group)]], dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, me = group_size(ctx.group), group_rank(ctx.group)
+        parts = all_gather(g.contiguous()[None], 0, ctx.group)
+        full = g.new_zeros(g.shape[:-1] + (ctx.width * n,))
+        for r in range(n):              # rank order: the same bits everywhere
+            off = 0
+            for a, k in ctx.segments[r]:
+                full[..., a:a + k] += parts[r][..., off:off + k]
+                off += k
+        return shard(full, full.dim() - 1, n, me), None, None
+
+
 def _active(group) -> bool:
     return group_size(group) > 1
 
@@ -441,3 +466,23 @@ def sum_grad(x: torch.Tensor, group=None) -> torch.Tensor:
     """``x`` forward; its gradient summed over the group backward (a
     replicated parameter that each rank uses on its part of the data)."""
     return _SumGrad.apply(x, group) if _active(group) else x
+
+
+def sum_split(x: torch.Tensor, group=None) -> torch.Tensor:
+    """:func:`all_reduce` (sum) forward and backward: the partial sums of
+    a contraction split over the group whose result each rank then uses
+    on its own channels, so that its cotangent is a partial sum too."""
+    return sum_grad(sum_replicated(x, group), group)
+
+
+def gather_segments(x: torch.Tensor, segments, group=None) -> torch.Tensor:
+    """Every rank's block ``x`` (..., W / n) gathered along the last dim
+    into the whole (..., W), of which this rank keeps its ``segments``
+    (``segments[r]``: the ``(start, length)`` column runs that rank ``r``
+    keeps, concatenated in order; every rank keeps as many columns).
+    The backward gathers every rank's cotangent of its segments, adds
+    them into the whole width in rank order (a column two ranks keep gets
+    both) and returns this rank's block of the sum: a column-parallel
+    product whose output columns do not fall on the ranks that use them
+    exchanges activations, not its weight."""
+    return _GatherSegments.apply(x, segments, group)

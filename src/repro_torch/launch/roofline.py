@@ -336,6 +336,50 @@ def _attn_wire(cfg, rows: int, cross_rows: int, grad: bool,
     return out
 
 
+def _vocab_wire(cfg, b: int, seq: int, grad: bool) -> dict:
+    """{(op, dtype): bytes} of one pass's vocab-parallel embedding and
+    loss (``layers.embed``, ``layers.lm_loss_chunked`` on V / M columns)
+    over ``b`` rows of ``seq`` tokens: forward the lookup's sum at the
+    compute dtype and, per token, the loss's fp32 row max and its stacked
+    sum of exp and gold logit; backward the sum of h's fp32 gradient."""
+    cd = _itemsize(cfg.compute_dtype)
+    tokens = b * seq
+    out = {("all_gather", _dt(cfg.compute_dtype)): tokens * cfg.d_model * cd,
+           ("all_gather", "float32"): 3 * tokens * 4}
+    if grad:
+        out[("all_gather", "float32")] += tokens * cfg.d_model * 4
+    return out
+
+
+def _ssm_wire(cfg, rows: int, m: int, grad: bool, remat: bool) -> dict:
+    """{(op, dtype): bytes} of one Mamba layer on its model-axis channels
+    (``ssm.channels_sharded``) over ``rows`` tokens: forward the exchange
+    of ``in_proj``'s column blocks and (Mamba-1) ``x_proj``'s fp32 sum or
+    (Mamba-2) the gated norm's fp32 sum of squares, both again in a remat
+    recompute, and ``out_proj``'s sum at the compute dtype (after the
+    recompute's last saved tensor); backward the exchange of this rank's
+    channels' gradients, the fp32 sum again and the input's gradient's
+    sum."""
+    from repro_torch.models.ssm import _dt_rank, d_inner, mamba2_heads
+
+    cd, dt = _itemsize(cfg.compute_dtype), _dt(cfg.compute_dtype)
+    di, n = d_inner(cfg), cfg.ssm.state
+    if cfg.ssm.version == 1:
+        width, kept = 2 * di, 2 * di // m
+        f32 = _dt_rank(cfg) + 2 * n
+    else:
+        nh = mamba2_heads(cfg)
+        width, kept = 2 * di + 2 * n + nh, (2 * di + nh) // m + 2 * n
+        f32 = 1
+    passes = 1 + (grad and remat)
+    out = {("all_gather", dt): (passes * width // m + cfg.d_model) * rows * cd,
+           ("all_gather", "float32"): passes * rows * f32 * 4}
+    if grad:
+        out[("all_gather", dt)] += (kept + cfg.d_model) * rows * cd
+        out[("all_gather", "float32")] += rows * f32 * 4
+    return out
+
+
 def _attn_calls(cfg, b_loc: int, seq: int, remat: bool) -> list:
     """(rows, cross-attention key-source rows, recomputed) of each
     attention call one pass runs."""
@@ -391,8 +435,10 @@ def collective_bytes(cfg, kind: str, batch: int, seq: int,
         gradient's reduce-scatter onto the blocks; the model axis's
         collectives in the forward and backward (``moe_ffn_a2a``'s
         ``all_to_all`` and gathers, the column-parallel attention's and
-        MLP's sums); then the gradient sync over pod x data of each leaf
-        over the data axes its plan keeps whole, the loss's mean, and
+        MLP's sums, the vocab-parallel embedding's and loss's sums, the
+        Mamba layers' activation exchanges and sums); then the
+        gradient sync over pod x data of each leaf over the data axes
+        its plan keeps whole, the loss's mean, and
         the gradient norm's partial sums (one a group of splitting
         axes); ``microbatches`` passes of the forward and backward;
       * ``"train_compressed"``: ``make_compressed_train_step`` - as
@@ -453,8 +499,16 @@ def collective_bytes(cfg, kind: str, batch: int, seq: int,
         from repro_torch.models.attention import heads_sharded
         from repro_torch.models.layers import rows_sharded
         from repro_torch.models.moe import experts_sharded
+        from repro_torch.models.ssm import channels_sharded
 
         mesh = ShapeOnlyMesh(mesh_shape)
+        if rows_sharded(cfg.vocab_size, mesh):
+            for key, nbytes in _vocab_wire(cfg, b_mb, seq, grad).items():
+                add("vocab_parallel", MODEL, key, nbytes * mb)
+        if cfg.family in ("ssm", "hybrid") and channels_sharded(cfg, mesh):
+            for key, nbytes in _ssm_wire(cfg, b_mb * seq, m, grad,
+                                         remat).items():
+                add("ssm_channels", MODEL, key, nbytes * cfg.n_layers * mb)
         if cfg.family == "moe" and experts_sharded(cfg, mesh) \
                 and b_mb * seq % m == 0:
             for key, nbytes in _moe_wire(cfg, b_mb * seq, m, grad,

@@ -5,8 +5,10 @@ one with :func:`set_mesh`, and the model code that has a distributed
 form asks :func:`get_mesh` - ``models.convert.gather_params`` (each
 layer's weights gathered from this process's blocks),
 ``models.attention.attention`` and ``models.layers.mlp`` (column-parallel
-on the model axis), ``models.moe.moe_ffn`` (the expert-parallel
-dispatch) and ``models.layers.row_parallel_matmul`` - and takes its
+on the model axis), ``models.layers.embed`` and ``lm_loss_chunked``
+(vocab-parallel), ``models.ssm``'s blocks (their channels on the model
+axis), ``models.moe.moe_ffn`` (the expert-parallel dispatch) and
+``models.layers.row_parallel_matmul`` - and takes its
 one-device form when no mesh is active or inside :func:`manual_region`.
 
 A manual region is the reference's ``shard_map`` body: there the step's

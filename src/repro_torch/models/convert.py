@@ -161,6 +161,10 @@ def train_state_from_numpy(state, cfg: ModelConfig, device) -> dict:
 # as they lie at rest
 _HEAD_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 _ATTENTIONS = ("attn", "self_attn", "cross_attn")
+# the Mamba-1 / Mamba-2 leaves that a layer on its model-axis channels
+# (``ssm.channels_sharded``) computes with as they lie at rest
+_SSM_LEAVES = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
+               "dt_bias", "a_log", "d_skip", "norm_w", "out_proj")
 
 
 def _walk(tree, path=()):
@@ -238,15 +242,21 @@ def shard_params(tree: dict, mesh) -> dict:
 
 def computes_split(path: tuple, cfg: ModelConfig, mesh) -> bool:
     """True for a leaf whose layer computes on its model-axis block as it
-    lies at rest (column- or row-parallel, or expert-parallel): the
-    attention's projections and biases where M divides the kv heads
-    (``attention.heads_sharded``), every MLP's ``w1`` / ``w3`` / ``w2``
-    where M divides the hidden width (``layers.rows_sharded``), the moe
-    experts under the a2a dispatch (``moe.experts_sharded``).  Every
-    other leaf the plan splits over ``model`` is gathered before use."""
+    lies at rest (column- or row-parallel, vocab-parallel or
+    expert-parallel): the attention's projections and biases where M
+    divides the kv heads (``attention.heads_sharded``), every MLP's
+    ``w1`` / ``w3`` / ``w2`` where M divides the hidden width
+    (``layers.rows_sharded``), the embedding and ``lm_head`` where M
+    divides V (``layers.embed``, ``layers.lm_loss_chunked``), the Mamba
+    channel leaves where M divides the channels
+    (``ssm.channels_sharded``), the moe experts under the a2a dispatch
+    (``moe.experts_sharded``).  Every other leaf the plan splits over
+    ``model`` is gathered before use: the moe router, the vlm's
+    ``vision_proj`` and a ``wk`` split inside a head."""
     from repro_torch.models.attention import heads_sharded
     from repro_torch.models.layers import rows_sharded
     from repro_torch.models.moe import experts_sharded
+    from repro_torch.models.ssm import channels_sharded
 
     name, parent = path[-1], path[-2] if len(path) > 1 else None
     if parent in _ATTENTIONS and name in _HEAD_LEAVES:
@@ -255,6 +265,10 @@ def computes_split(path: tuple, cfg: ModelConfig, mesh) -> bool:
         return rows_sharded(cfg.d_ff, mesh)
     if parent == "moe" and name in ("w1", "w3", "w2"):
         return experts_sharded(cfg, mesh)
+    if tuple(path) in (("embed",), ("lm_head",)):
+        return rows_sharded(cfg.vocab_size, mesh)
+    if parent == "mamba" and name in _SSM_LEAVES:
+        return channels_sharded(cfg, mesh)
     return False
 
 

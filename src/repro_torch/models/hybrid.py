@@ -106,7 +106,8 @@ def forward(params: dict, cfg: ModelConfig, tokens, *, cache=None, pos=None,
             "state); serve it token by token through serve_step"
         )
     cd = cfg.torch_compute_dtype()
-    x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg), cd)
+    x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg), cd,
+                cfg.vocab_size)
     x = _walk(params, cfg, x, cache=cache, pos=pos)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
@@ -118,6 +119,7 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return L.lm_loss_chunked(
         h, gather_params(params["lm_head"], ("lm_head",), cfg),
         batch.get("labels", tokens[:, 1:]), chunk=cfg.loss_chunk,
+        vocab=cfg.vocab_size,
     )
 
 

@@ -6,7 +6,9 @@ and RoPE compute in fp32 and store at the activation dtype, matmuls run at
 the compute dtype.  The reference's placement hints (``shard``) have no
 counterpart (``launch.sharding``); its ``row_parallel_matmul`` is the
 MLP's ``w2`` product across the mesh's model axis, after the
-column-parallel ``w1`` / ``w3``.  Norms and products
+column-parallel ``w1`` / ``w3``, and its chunk logits sharded vocab-wise
+are the vocab-parallel ``embed`` and ``lm_loss_chunked`` on this rank's
+V / M rows and columns.  Norms and products
 over a few rows run padded to ``MIN_ROWS`` rows, so that each row's
 result does not depend on how many rows share the call.
 """
@@ -147,35 +149,99 @@ def mlp(x: torch.Tensor, p: dict, compute_dtype: torch.dtype,
     return _unrows(row_parallel_matmul(h, p["w2"], compute_dtype, split), x)
 
 
+def _vocab_block(rows: int, vocab: int):
+    """(model group, first vocabulary row) of this rank's ``rows`` of the
+    ``vocab`` rows of a table split on V over the active mesh's model
+    axis (``models.convert.computes_split``)."""
+    mesh = get_mesh()
+    m = 1 if mesh is None else mesh.shape.get("model", 1)
+    if rows * m != vocab or in_manual_region():
+        raise ValueError(f"a vocabulary block of {rows} of {vocab} rows "
+                         f"outside a training mesh's model axis of {m}")
+    return mesh.axis_group("model"), mesh.axis_rank("model") * rows
+
+
 def embed(tokens: torch.Tensor, table: torch.Tensor,
-          compute_dtype: torch.dtype) -> torch.Tensor:
-    return table[tokens.long()].to(compute_dtype)
+          compute_dtype: torch.dtype, vocab=None) -> torch.Tensor:
+    """The rows of ``table`` (V, D) at ``tokens``, at the compute dtype.
+
+    Given the whole vocabulary size ``vocab``, a table of fewer rows is
+    this rank's block of V / M rows (the plan splits V over the model
+    axis): vocab-parallel, each rank looks up the tokens that fall in its
+    rows, writes zero rows elsewhere, and the rows are summed over the
+    model group - one term of each sum is not zero, so the result is the
+    whole table's lookup bit for bit; the backward leaves each rank the
+    gradient of its own rows."""
+    if vocab is None or table.shape[0] == vocab:
+        return table[tokens.long()].to(compute_dtype)
+    group, v0 = _vocab_block(table.shape[0], vocab)
+    local = tokens.long() - v0
+    own = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)].to(compute_dtype)
+    zero = torch.zeros((), dtype=compute_dtype, device=rows.device)
+    return C.sum_replicated(torch.where(own[..., None], rows, zero), group)
+
+
+def _split_logz_gold(logits: torch.Tensor, yc: torch.Tensor, v0: int,
+                     group):
+    """(logsumexp, gold logit) of each row of a chunk's logits whose
+    columns [v0, v0 + V / M) this rank holds: the row max all-reduced
+    (max, no gradient through it), the sum of exp(logit - max) and the
+    gold logit (from the rank that owns its column, 0 elsewhere) summed
+    over the group in fp32; both are replicated, so the sum's backward is
+    the identity."""
+    mx = C.all_reduce(logits.detach().amax(-1), "max", group)
+    local = yc.long() - v0
+    own = (local >= 0) & (local < logits.shape[-1])
+    pick = torch.gather(logits, -1,
+                        local.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+    zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    sums = C.sum_replicated(torch.stack([
+        torch.exp(logits - mx[..., None]).sum(-1),
+        torch.where(own, pick, zero)]), group)
+    return mx + torch.log(sums[0]), sums[1]
 
 
 def lm_loss_chunked(h: torch.Tensor, w_out: torch.Tensor,
-                    labels: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+                    labels: torch.Tensor, chunk: int = 1024,
+                    vocab=None) -> torch.Tensor:
     """Mean next-token cross-entropy of h (B, S, D) under the head w_out
     (D, V), labels (B, S) with -1 ignored, over sequence chunks of
     ``chunk`` rows and a remainder chunk: at most one chunk's (B, chunk,
     V) fp32 logits at a time in the forward.  The reference's
     ``lm_loss_chunked``: per chunk the sums of (logsumexp - gold logit)
     over the valid labels and of their count, added chunk by chunk in
-    order; the mean over max(count, 1)."""
+    order; the mean over max(count, 1).
+
+    Given the whole vocabulary size ``vocab``, a head of fewer columns
+    is this rank's block of V / M columns (the plan splits V over the
+    model axis): vocab-parallel, each rank computes its chunk's (B,
+    chunk, V / M) logits, the log-partition and the gold logit come from
+    fp32 reductions over the model group (:func:`_split_logz_gold`), and
+    each chunk of h enters through ``collectives.sum_grad`` (its gradient
+    summed over the group, in fp32)."""
     b, s, _ = h.shape
     chunk = min(chunk, s)
     n_chunks = s // chunk
     w = w_out.float()
+    split = vocab is not None and w.shape[-1] != vocab
+    if split:
+        group, v0 = _vocab_block(w.shape[-1], vocab)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     bounds = [(i * chunk, (i + 1) * chunk) for i in range(n_chunks)]
     if s > n_chunks * chunk:
         bounds.append((n_chunks * chunk, s))
     for lo, hi in bounds:
-        logits = h[:, lo:hi].float() @ w
         yc = labels[:, lo:hi]
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            yc.long().clamp(min=0)[..., None])[..., 0]
+        if split:
+            logits = C.sum_grad(h[:, lo:hi].float(), group) @ w
+            logz, gold = _split_logz_gold(logits, yc, v0, group)
+        else:
+            logits = h[:, lo:hi].float() @ w
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                yc.long().clamp(min=0)[..., None])[..., 0]
         valid = (yc >= 0).float()
         tot = tot + torch.sum((logz - gold) * valid)
         cnt = cnt + torch.sum(valid)

@@ -69,7 +69,7 @@ def _ssm_layer(x, lp: dict, ln, cfg: ModelConfig, cache=None):
 def _ssm_forward(params: dict, cfg: ModelConfig, tokens, *, cache=None):
     """tokens (B, S) -> (final hidden states (B, S, D), cache)."""
     x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg),
-                cfg.torch_compute_dtype())
+                cfg.torch_compute_dtype(), cfg.vocab_size)
     x = _ssm_walk(params, cfg, x, cache=cache)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
@@ -81,6 +81,7 @@ def _ssm_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return L.lm_loss_chunked(
         h, gather_params(params["lm_head"], ("lm_head",), cfg),
         batch.get("labels", tokens[:, 1:]), chunk=cfg.loss_chunk,
+        vocab=cfg.vocab_size,
     )
 
 

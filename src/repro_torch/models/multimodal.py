@@ -118,7 +118,8 @@ def vlm_forward(params: dict, cfg: ModelConfig, tokens, vision_embeds, *,
     layer's rows [0, S) of ``cache`` (the reference's fused prompt pass;
     remat is skipped under it, as there)."""
     cd = cfg.torch_compute_dtype()
-    x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg), cd)
+    x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg), cd,
+                cfg.vocab_size)
     vis = project_vision(params, cfg, vision_embeds)
     for gi in range(_n_groups(cfg)):
         x = _cross_block(x, _layer(params["cross"], gi), cfg, vis)
@@ -142,6 +143,7 @@ def vlm_loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return L.lm_loss_chunked(
         h, gather_params(params["lm_head"], ("lm_head",), cfg),
         batch.get("labels", tokens[:, 1:]), chunk=cfg.loss_chunk,
+        vocab=cfg.vocab_size,
     )
 
 
@@ -223,7 +225,8 @@ def whisper_decode_fwd(params: dict, cfg: ModelConfig, tokens, enc_out, *,
     layer's rows [0, S) of ``cache`` (remat skipped under it, as in the
     reference)."""
     cd = cfg.torch_compute_dtype()
-    x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg), cd)
+    x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg), cd,
+                cfg.vocab_size)
     for i in range(cfg.n_layers):
         lp = _layer(params["dec"], i)
         if cache is None and not prefill_cache:
@@ -245,6 +248,7 @@ def whisper_loss_fn(params: dict, cfg: ModelConfig,
     return L.lm_loss_chunked(
         h, gather_params(params["lm_head"], ("lm_head",), cfg),
         batch.get("labels", tokens[:, 1:]), chunk=cfg.loss_chunk,
+        vocab=cfg.vocab_size,
     )
 
 

@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
+from repro_torch.launch.sharding import get_mesh, in_manual_region
 from repro_torch.models import layers as L
 
 
@@ -81,6 +83,61 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def channels_sharded(cfg: ModelConfig, mesh) -> bool:
+    """True when ``mesh`` (or None) puts Di / M of the SSM channels on
+    each model rank and the layer computes on them: a "model" axis M > 1
+    that divides Di (Mamba-1) or the heads NH and ``in_proj``'s width
+    (Mamba-2), so that the plan splits every channel leaf and ``in_proj``'s
+    columns over it.  Otherwise the layer's leaves are gathered whole."""
+    m = 1 if mesh is None else mesh.shape.get("model", 1)
+    if m == 1:
+        return False
+    di = d_inner(cfg)
+    if cfg.ssm.version == 1:
+        return di % m == 0
+    nh = mamba2_heads(cfg)
+    return nh % m == 0 and (2 * di + 2 * cfg.ssm.state + nh) % m == 0
+
+
+def _channel_split(local: int, whole: int, cache):
+    """(model group, M) when the layer holds ``local`` of its ``whole``
+    channels (its model-axis block, ``channels_sharded``), None when it
+    holds them all (the group itself is None where it is the default
+    group)."""
+    if local == whole:
+        return None
+    mesh = get_mesh()
+    m = 1 if mesh is None else mesh.shape.get("model", 1)
+    if local * m != whole or in_manual_region():
+        raise ValueError(f"an SSM layer holding {local} of {whole} channels "
+                         f"outside a training mesh's model axis of {m}")
+    if cache is not None:
+        raise ValueError("an SSM decode step runs on the whole layer")
+    return mesh.axis_group("model"), m
+
+
+def _in_proj(x: torch.Tensor, w: torch.Tensor, cd, split, segments):
+    """x @ in_proj at the compute dtype -> the columns this rank uses.
+    On the model axis (``split``): x enters through ``sum_grad``, this
+    rank's contiguous block of columns is computed and the blocks are
+    exchanged (``collectives.gather_segments``), rank r keeping the
+    column runs ``segments(r)`` of its channels."""
+    if split is None:
+        return L.matmuls(x, w.to(cd))[0]
+    group, m = split
+    (blk,) = L.matmuls(C.sum_grad(x, group), w.to(cd))
+    return C.gather_segments(blk, tuple(segments(r) for r in range(m)),
+                             group)
+
+
+def _out_proj(y: torch.Tensor, w: torch.Tensor, cd, split) -> torch.Tensor:
+    """y @ out_proj at the compute dtype; on the model axis row-parallel
+    (y: this rank's channels, w: their rows) into a replicated output."""
+    if split is None:
+        return L.matmuls(y, w.to(cd))[0]
+    return L.row_parallel_matmul(y, w, cd, x_split=True)
+
+
 # =============================================================================
 # Mamba-1 (falcon-mamba-7b)
 # =============================================================================
@@ -125,13 +182,23 @@ def mamba1_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     None).  With ``cache = {"conv": (B, K-1, Di), "ssm": (B, Di, N)}``
     (one layer's views): one decode step (S == 1) that rolls the conv
     window and advances the SSM state, both written in place; returns the
-    same dict."""
+    same dict.
+
+    Given this rank's model-axis block of the layer (``channels_sharded``:
+    Di / M channels), the training pass computes on it: ``in_proj``'s
+    column block, its output exchanged for this rank's x and z channels;
+    the conv, the scan and the gate on them; ``x_proj`` row-parallel (the
+    partial products summed in fp32 both ways, rounded once);
+    ``dt_proj``'s columns; ``out_proj`` row-parallel."""
     cd = cfg.torch_compute_dtype()
     di, n, dr = d_inner(cfg), cfg.ssm.state, _dt_rank(cfg)
+    dl = p["conv_w"].shape[0]
+    split = _channel_split(dl, di, cache)
     s = x.shape[1]
     x = x.to(cd)
-    (xz,) = L.matmuls(x, p["in_proj"].to(cd))
-    xs, z = torch.split(xz, [di, di], dim=-1)
+    xz = _in_proj(x, p["in_proj"], cd, split,
+                  lambda r: ((r * dl, dl), (di + r * dl, dl)))
+    xs, z = torch.split(xz, [dl, dl], dim=-1)
 
     if cache is None:
         xs = _causal_conv(xs, p["conv_w"], p["conv_b"])
@@ -144,7 +211,11 @@ def mamba1_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         cache["conv"].copy_(window[:, 1:])
     xs = _padded(F.silu, xs)
 
-    (dbc,) = L.matmuls(xs, p["x_proj"].to(cd))
+    if split is None:
+        (dbc,) = L.matmuls(xs, p["x_proj"].to(cd))
+    else:
+        dbc = C.sum_split(xs.float() @ p["x_proj"].to(cd).float(),
+                          split[0]).to(cd)
     dt, bmat, cmat = torch.split(dbc, [dr, n, n], dim=-1)
     (dt,) = L.matmuls(dt.float(), p["dt_proj"].float())
     dt = _padded(_softplus, dt + p["dt_bias"].float())           # (B, S, Di)
@@ -155,7 +226,7 @@ def mamba1_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     if cache is not None:
         cache["ssm"].copy_(h)
 
-    (y,) = L.matmuls(y.to(cd) * _padded(F.silu, z), p["out_proj"].to(cd))
+    y = _out_proj(y.to(cd) * _padded(F.silu, z), p["out_proj"], cd, split)
     return y, cache
 
 
@@ -235,14 +306,26 @@ def mamba2_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     cache None).  With ``cache = {"conv": (B, K-1, Di), "ssm": (B, NH, N,
     P)}`` (one layer's views): one decode step (S == 1) that rolls the conv
     window and advances the SSM state, both written in place; returns the
-    same dict."""
+    same dict.
+
+    Given this rank's model-axis block of the layer (``channels_sharded``:
+    NH / M heads, their Di / M channels), the training pass computes on
+    it: ``in_proj``'s column block, its output exchanged for this rank's
+    z and x channels, its dt heads and the whole B and C; the conv and
+    the chunked SSD on them; the gated RMSNorm over the whole Di (the sum
+    of squares all-reduced in fp32 both ways); ``out_proj``
+    row-parallel."""
     cd = cfg.torch_compute_dtype()
     di, n = d_inner(cfg), cfg.ssm.state
-    nh, hp = mamba2_heads(cfg), cfg.ssm.head_p
+    hp = cfg.ssm.head_p
+    dl, nh = p["conv_w"].shape[0], p["a_log"].shape[-1]
+    split = _channel_split(dl, di, cache)
     bsz, s, _ = x.shape
     x = x.to(cd)
-    (proj,) = L.matmuls(x, p["in_proj"].to(cd))
-    z, xs, bmat, cmat, dt = torch.split(proj, [di, di, n, n, nh], dim=-1)
+    proj = _in_proj(x, p["in_proj"], cd, split, lambda r: (
+        (r * dl, dl), (di + r * dl, dl), (2 * di, 2 * n),
+        (2 * di + 2 * n + r * nh, nh)))
+    z, xs, bmat, cmat, dt = torch.split(proj, [dl, dl, n, n, nh], dim=-1)
 
     if cache is None:
         xs = _causal_conv(xs, p["conv_w"], p["conv_b"])
@@ -275,10 +358,23 @@ def mamba2_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         cache["ssm"].copy_(h)
 
     y = y + p["d_skip"].float()[None, None, :, None] * xh
-    y = y.reshape(bsz, s, di).to(cd)
-    y = L.rms_norm(y * _padded(F.silu, z), p["norm_w"], cfg.norm_eps)
-    (y,) = L.matmuls(y, p["out_proj"].to(cd))
-    return y, cache
+    y = y.reshape(bsz, s, dl).to(cd) * _padded(F.silu, z)
+    if split is None:
+        y = L.rms_norm(y, p["norm_w"], cfg.norm_eps)
+    else:
+        y = _rms_norm_split(y, p["norm_w"], cfg.norm_eps, di, split[0])
+    return _out_proj(y, p["out_proj"], cd, split), cache
+
+
+def _rms_norm_split(y: torch.Tensor, w: torch.Tensor, eps: float,
+                    width: int, group) -> torch.Tensor:
+    """``layers.rms_norm`` over a last dim of ``width`` of which this rank
+    holds y's columns and w's entries: the rows' sums of squares
+    all-reduced in fp32 both ways (``collectives.sum_split``)."""
+    dt = y.dtype
+    yf = y.float()
+    ss = C.sum_split((yf * yf).sum(-1, keepdim=True), group)
+    return (yf * torch.rsqrt(ss / width + eps)).to(dt) * w.to(dt)
 
 
 def mamba2_cache(cfg: ModelConfig, n_layers: int, batch: int,

@@ -113,7 +113,8 @@ def forward(params, cfg: ModelConfig, tokens, *, cache: Optional[dict] = None,
     a decode step at ``pos`` or, with ``prefill_cache``, the whole prompt
     written to rows [0, S)."""
     cd = cfg.torch_compute_dtype()
-    x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg), cd)
+    x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg), cd,
+                cfg.vocab_size)
     x = _blocks(x, params["blocks"], cfg, cache=cache, pos=pos,
                 prefill_cache=prefill_cache)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
@@ -127,6 +128,7 @@ def loss_fn(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return L.lm_loss_chunked(
         h, gather_params(params["lm_head"], ("lm_head",), cfg),
         batch.get("labels", tokens[:, 1:]), chunk=cfg.loss_chunk,
+        vocab=cfg.vocab_size,
     )
 
 
