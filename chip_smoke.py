@@ -9,7 +9,8 @@ Run from the repository root on a machine with one CUDA card:
 kernels phase 15 (16) runs and runs that phase alone, with no result
 line; ``--tools-only`` does so for phase 17, ``--modes-only`` (every
 kernel built) for phase 18, ``--pages-only`` (every kernel built) for
-phase 19.  ``--multi-only --half-batch`` feeds every rank of phase 16's
+phase 19, ``--algebraic-only`` (shift-KV, attention and contiguous
+decode built) for phase 20.  ``--multi-only --half-batch`` feeds every rank of phase 16's
 data-parallel runs (16b, 16c, 16e) slice 0 of the batch, prints the
 readings and fails unless the gates refuse each of them.
 
@@ -406,26 +407,44 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      contiguous decode at the same block on the same rows (an 8-bit
      pool's dequantized as the kernel loads them) and its walk, within
      the decode bars of the plain version; the paged prefill kernel at
-     pages 8, 16, 48 and 256 (256: pasa_paged_prefill_wide.cu) on phase
-     2's prefill rows from each pool in both modes, within the prefill
-     bars of the plain version and the float64 RMSE bars, a pad row of
-     zeros, bit-invariant to a page-aligned chunk cut; stale bytes (NaN
-     past kv_len, 8-bit debris, NaN sidecars on dead pages) inert.  The
+     pages 8, 16, 48, 256, 257, 300, 512 and 1024 (256 and over:
+     pasa_paged_prefill_wide.cu, over 256 in pieces of 256 rows) on phase
+     2's prefill rows from each pool in both modes (pages over 256 also
+     at head_dim 64 and 32, PAGES_WIDE_SHAPES), within the prefill bars
+     of the plain version and the float64 RMSE bars, a pad row of zeros,
+     bit-invariant to a page-aligned chunk cut; stale bytes (NaN past
+     kv_len, 8-bit debris, NaN sidecars on dead pages) inert.  The
      cases run page by page, every launch count set to 0 just before a
      page's pass and read just after.  Then ``serve_pages``: qwen2-7b at
      full width with its depth cut to PAGES_LAYERS, block_kv 128, phase
-     3's workload at page 16 and at page 128 from a bf16 and an int8 pool
-     (requests 0 and 3 alone == batched, every launch counted, tok/s,
-     TTFT and decode ms side by side), the prefix cache at page 16 (hits
-     == ``chunked_cold_reference``), and the page-16 first step (the
-     first prefill call's logits) within DENSE_LOGIT_ATOL of the plain
-     paged versions and no farther from them at fp32 than
-     DENSE_FP32_RATIO x theirs.  Both paged kernels are timed at the
-     serve's call shapes at pages 16 and 8 (prefill also 256) beside the
-     plain version, SDPA and the bound.  In the kernels line each page
-     entry has the page-16 serve's count (page 16) or its pass's count
-     (page 8, 256).  ``--pages-only`` builds every kernel and runs phase
-     19 alone, the weights built at its depth.
+     3's workload at pages 16, 128 and 512 (chunk 512) from a bf16 and an
+     int8 pool (requests 0 and 3 alone == batched, every launch counted,
+     tok/s, TTFT and decode ms side by side), the prefix cache at pages
+     16 and 512 (hits == ``chunked_cold_reference``), the engine's chunk
+     schedule at page 512 (chunks of 512 and 1024 rows, the same
+     streams), and the page-16 and page-512 first steps (the first
+     prefill call's logits) within DENSE_LOGIT_ATOL of the plain paged
+     versions and no farther from them at fp32 than DENSE_FP32_RATIO x
+     theirs.  Both paged kernels are timed at the serve's call shapes at
+     pages 16 and 8 (prefill also 256 and 512, beside 128 and 1024)
+     beside the plain version, SDPA and the bound.  In the kernels line
+     each page entry has the page-16 / page-512 serve's count or its
+     pass's count (page 8, 256).  ``--pages-only`` builds every kernel
+     and runs phase 19 alone, the weights built at its depth.
+ 20. the algebraic-shift dense attention (``use_gemm_shift=False``), right
+     after phase 19 with phase 3's weights: the shift kernel's algebraic
+     mode at head_dim 128 / 64 / 32, blocks 128 / 64, each key / operand
+     mode, against its plain version and the float64 algebraic shift; the
+     attention kernel on its K' under the four policies, causal at the
+     dense prefill's shape and with the column limit at whisper's encoder
+     shape, against the plain ``blocked_attention(use_gemm_shift=False)``
+     and float64; qwen2-7b's dense route at ALG_LAYERS of 28 layers with
+     the flag (batched == alone, every launch counted, the first step's
+     logits within DENSE_LOGIT_ATOL of the plain versions' and no farther
+     from fp32 than DENSE_FP32_RATIO x theirs); one training step of
+     phase 15's configuration with the flag (its gradients no farther from
+     the fp32 plain path's than TRAIN_FP32_RATIO x the fp16 plain
+     path's).  ``--algebraic-only`` runs phase 20 alone.
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -698,7 +717,7 @@ def _kernel_source(entry: str):
     """(source, replaces) of a kernels-line entry named ``kernel/tag``:
     paged decode builds one source a pool type, paged prefill one for bf16
     / fp16 and one for 8-bit pools, each again for the 256-row tile
-    (pages over 128 rows, tag ``page256``)."""
+    (pages over 128 rows, tags ``page256``, ``page512``)."""
     kernel, _, tag = entry.partition("/")
     if kernel == "shift_kv":
         return ("src/repro_torch/kernels/csrc/shift_kv.cu",
@@ -708,7 +727,8 @@ def _kernel_source(entry: str):
     if kernel == "pasa_paged_decode" and pool:
         source = source.replace(".cu", f"_{pool}.cu")
     elif kernel == "pasa_paged_prefill":
-        source = source.replace(".cu", ("_wide" if "page256" in tag else "")
+        page = int(tag[4:].partition("_")[0]) if tag.startswith("page") else 0
+        source = source.replace(".cu", ("_wide" if page > 128 else "")
                                 + ("_q8" if pool else "") + ".cu")
     return source, replaces
 
@@ -2611,9 +2631,9 @@ def serve_prefix(dev, bundle, params, cache_dtype, page=128):
     ``page``-row pages: three prompts sharing a 768-token prefix (suffixes
     232, 105, 40; 16 tokens each).  The first is served cold and donates
     its full prompt pages (seven at page 128); the other two hit the
-    shared prefix's pages together (six at page 128: prefill chunks
-    starting at 768, a page multiple but not a chunk multiple); the first
-    again hits all of its own.  Every stream equals ``chunked_cold_reference`` (a fresh engine,
+    shared prefix's whole pages together (six at page 128: prefill chunks
+    starting at 768, a page multiple but not a chunk multiple; one at page
+    512); the first again hits all of its own.  Every stream equals ``chunked_cold_reference`` (a fresh engine,
     cache off), and the cached pages' bytes, sidecars included, are the
     same after the hits as after the cold serve."""
     import numpy as np
@@ -2654,7 +2674,8 @@ def serve_prefix(dev, bundle, params, cache_dtype, page=128):
         if not torch.equal(before[name], after[name]):
             raise AssertionError(f"serve_prefix_{cache_dtype}: cached pages' "
                                  f"{name} bytes changed under the hits")
-    want_cached = [0, PREFIX_SHARED, PREFIX_SHARED,
+    shared_pages = PREFIX_SHARED // page * page
+    want_cached = [0, shared_pages, shared_pages,
                    (len(prompts[0]) - 1) // page * page]
     reqs = [cold, *hits, again]
     if [r.cached_len for r in reqs] != want_cached:
@@ -3658,9 +3679,9 @@ def _plain_attention(at=None):
 
     kernel_op = ops.pasa_attention
     ops.pasa_attention = lambda q, k, v, *, beta, policy, block_q, block_kv, \
-        causal, kv_valid: amod.attention_plain(
+        causal, kv_valid, gemm_shift=True: amod.attention_plain(
             q, k, v, beta=beta, policy=at or policy, block_kv=block_kv,
-            causal=causal, kv_valid=kv_valid)
+            causal=causal, kv_valid=kv_valid, gemm_shift=gemm_shift)
     try:
         with _plain_decode(at):
             yield
@@ -5795,17 +5816,84 @@ def _grads_at(bundle, params, batch):
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
+def _grads_vs_plain(bundle, params, batch, tag):
+    """One batch's loss and gradients through the kernels (the launch
+    counts set to 0 just before that pass, read just after) against the
+    whole-plain path (the plain attention forward under autograd), both
+    against the whole-plain path at the fp32 policy (its attention
+    forward and backward at fp32), with no optimizer state beside the
+    parameters (three gradient sets).  Held: the losses within
+    TRAIN_LOSS_ATOL, the gradient norms within TRAIN_GNORM_RTOL, and the
+    kernels' gradients no farther from the fp32 path's than
+    TRAIN_FP32_RATIO x the fp16 plain path's (TRAIN_LEAF_RATIO on each
+    leaf holding TRAIN_LEAF_SHARE of the norm).  Returns the report, the
+    leaves' names and the kernels' pass launches by op and mode."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_zoo import build
+
+    cfg = bundle.cfg
+    at_fp32 = build(dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, pasa_policy="fp32")))
+    ops.reset_launches()
+    loss_k, grads_k = _grads_at(bundle, params, batch)
+    torch.cuda.synchronize()
+    launches = {w.__name__: dict(w.launches_by_mode) for w in ops.WRAPPERS
+                if w.launches}
+    with _plain_attention():
+        loss_p, grads_p = _grads_at(bundle, params, batch)
+        loss_f, grads_f = _grads_at(at_fp32, params, batch)
+    names = [k for k, _ in _flatten_with_paths(params)]
+    leaf = {}
+    for name, gk, gp, gf in zip(names, grads_k, grads_p, grads_f):
+        kk, pp, ff = _dot(gk, gk), _dot(gp, gp), _dot(gf, gf)
+        kp, kf, pf = _dot(gk, gp), _dot(gk, gf), _dot(gp, gf)
+        dist = lambda aa, bb, ab: max(aa + bb - 2 * ab, 0.0) ** 0.5
+        leaf[name] = dict(sq_k=kk, sq_p=pp, sq_f=ff,
+                          cos_kp=kp / max((kk * pp) ** 0.5, 1e-300),
+                          to_f32_k=dist(kk, ff, kf), to_f32_p=dist(pp, ff, pf),
+                          k_to_p=dist(kk, pp, kp))
+    del grads_f, grads_k, grads_p
+    torch.cuda.empty_cache()
+    total = lambda key: sum(v[key] for v in leaf.values()) ** 0.5
+    gn_k, gn_p, gn_f = total("sq_k"), total("sq_p"), total("sq_f")
+    d_k = sum(v["to_f32_k"] ** 2 for v in leaf.values()) ** 0.5
+    d_p = sum(v["to_f32_p"] ** 2 for v in leaf.values()) ** 0.5
+    d_kp = sum(v["k_to_p"] ** 2 for v in leaf.values()) ** 0.5
+    for v in leaf.values():
+        v["share"] = v["sq_f"] ** 0.5 / gn_f
+        v["ratio"] = v["to_f32_k"] / max(v["to_f32_p"], 1e-300)
+    held = {k: v for k, v in leaf.items() if v["share"] >= TRAIN_LEAF_SHARE}
+    worst = max(held, key=lambda k: held[k]["ratio"])
+    rep = dict(
+        loss_kernels=float(loss_k), loss_plain=float(loss_p),
+        loss_plain_fp32=float(loss_f), grad_norm_kernels=gn_k,
+        grad_norm_plain=gn_p, grad_norm_plain_fp32=gn_f,
+        dist_to_fp32_kernels=d_k / gn_f, dist_to_fp32_plain=d_p / gn_f,
+        dist_kernels_to_plain=d_kp / gn_f,
+        worst_leaf=worst, worst_leaf_ratio=held[worst]["ratio"],
+        lowest_cos_leaves={k: {x: leaf[k][x] for x in (
+            "cos_kp", "share", "ratio")} for k in sorted(
+                leaf, key=lambda k: leaf[k]["cos_kp"])[:4]})
+    if not (abs(rep["loss_kernels"] - rep["loss_plain"]) <= TRAIN_LOSS_ATOL
+            and abs(gn_k - gn_p) <= TRAIN_GNORM_RTOL * gn_p
+            and d_k <= TRAIN_FP32_RATIO * d_p
+            and held[worst]["ratio"] <= TRAIN_LEAF_RATIO):
+        raise AssertionError(f"{tag}: kernels vs plain {rep}")
+    return rep, names, launches
+
+
 def train_full_width(dev):
     """TRAIN_ARCH at full width with its depth cut to TRAIN_LAYERS, remat
     on: random fp32 parameters from seed 0 on the card, AdamW moments in
     fp32, ``DataPipeline(batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0)``.
     First the step-0 batch's loss and gradients through the kernels
-    against the whole-plain path (the plain attention forward under
-    autograd) from the same parameters: the losses within
-    TRAIN_LOSS_ATOL, the gradient norms within TRAIN_GNORM_RTOL, and the
-    kernels' gradients no farther from the plain path's at fp32 than
-    TRAIN_FP32_RATIO x the fp16 plain path's (TRAIN_LEAF_RATIO on each
-    leaf holding TRAIN_LEAF_SHARE of the norm).  Then TRAIN_STEPS
+    against the whole-plain path from the same parameters
+    (``_grads_vs_plain``).  Then TRAIN_STEPS
     steps of ``make_train_step`` through ``FaultTolerantLoop`` (no
     checkpoint written), with the launch counts set to 0 just before:
     every loss and gradient norm finite, every parameter leaf moved, and
@@ -5818,7 +5906,6 @@ def train_full_width(dev):
     import torch
 
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.checkpoint.manager import _flatten_with_paths
     from repro_torch.configs import get_config
     from repro_torch.data import DataPipeline
     from repro_torch.kernels import ops
@@ -5843,53 +5930,10 @@ def train_full_width(dev):
     first = batch_to_device(next(pipe), dev)
     pipe.restore({"step": 0, "seed": 0})
 
-    # the kernels against the whole-plain path at the first batch, both
-    # against the whole-plain path at the fp32 policy (its attention
-    # forward and backward at fp32), before the optimizer state exists
-    # (three gradient sets beside the parameters)
-    at_fp32 = build(dataclasses.replace(cfg, attention=dataclasses.replace(
-        cfg.attention, pasa_policy="fp32")))
-    loss_k, grads_k = _grads_at(bundle, params, first)
-    with _plain_attention():
-        loss_p, grads_p = _grads_at(bundle, params, first)
-        loss_f, grads_f = _grads_at(at_fp32, params, first)
-    names = [k for k, _ in _flatten_with_paths(params)]
-    leaf = {}
-    for name, gk, gp, gf in zip(names, grads_k, grads_p, grads_f):
-        kk, pp, ff = _dot(gk, gk), _dot(gp, gp), _dot(gf, gf)
-        kp, kf, pf = _dot(gk, gp), _dot(gk, gf), _dot(gp, gf)
-        dist = lambda aa, bb, ab: max(aa + bb - 2 * ab, 0.0) ** 0.5
-        leaf[name] = dict(sq_k=kk, sq_p=pp, sq_f=ff,
-                          cos_kp=kp / max((kk * pp) ** 0.5, 1e-300),
-                          to_f32_k=dist(kk, ff, kf), to_f32_p=dist(pp, ff, pf),
-                          k_to_p=dist(kk, pp, kp))
-    del grads_f, grads_k, grads_p
-    torch.cuda.empty_cache()
-    total = lambda key: sum(v[key] for v in leaf.values()) ** 0.5
-    gn_k, gn_p, gn_f = total("sq_k"), total("sq_p"), total("sq_f")
-    d_k = sum(v["to_f32_k"] ** 2 for v in leaf.values()) ** 0.5
-    d_p = sum(v["to_f32_p"] ** 2 for v in leaf.values()) ** 0.5
-    d_kp = sum(v["k_to_p"] ** 2 for v in leaf.values()) ** 0.5
-    for v in leaf.values():
-        v["share"] = v["sq_f"] ** 0.5 / gn_f
-        v["ratio"] = v["to_f32_k"] / max(v["to_f32_p"], 1e-300)
-    held = {k: v for k, v in leaf.items() if v["share"] >= TRAIN_LEAF_SHARE}
-    worst = max(held, key=lambda k: held[k]["ratio"])
-    rep.update(
-        loss_kernels=float(loss_k), loss_plain=float(loss_p),
-        loss_plain_fp32=float(loss_f), grad_norm_kernels=gn_k,
-        grad_norm_plain=gn_p, grad_norm_plain_fp32=gn_f,
-        dist_to_fp32_kernels=d_k / gn_f, dist_to_fp32_plain=d_p / gn_f,
-        dist_kernels_to_plain=d_kp / gn_f,
-        worst_leaf=worst, worst_leaf_ratio=held[worst]["ratio"],
-        lowest_cos_leaves={k: {x: leaf[k][x] for x in (
-            "cos_kp", "share", "ratio")} for k in sorted(
-                leaf, key=lambda k: leaf[k]["cos_kp"])[:4]})
-    if not (abs(rep["loss_kernels"] - rep["loss_plain"]) <= TRAIN_LOSS_ATOL
-            and abs(gn_k - gn_p) <= TRAIN_GNORM_RTOL * gn_p
-            and d_k <= TRAIN_FP32_RATIO * d_p
-            and held[worst]["ratio"] <= TRAIN_LEAF_RATIO):
-        raise AssertionError(f"train_full_width: kernels vs plain {rep}")
+    # the kernels against the whole-plain path at the first batch
+    grads_rep, names, _ = _grads_vs_plain(bundle, params, first,
+                                          "train_full_width")
+    rep.update(grads_rep)
     torch.cuda.empty_cache()
     state = {"params": params,
              "opt": adamw_init(params, cfg.torch_optimizer_dtype())}
@@ -7546,13 +7590,18 @@ def phase_modes(dev):
 PAGES_DECODE = (1, 8, 16, 48, 128, 256)
 PAGES_BLOCKS = (128, 256)
 PAGES_DECODE_SHAPES = ((128, 4, 7), (64, 4, 8))   # head_dim, KVH, G
-PAGES_PREFILL = (8, 16, 48, 256)
+PAGES_PREFILL = (8, 16, 48, 256, 257, 300, 512, 1024)
 PAGES_PREFILL_HEADS = (28, 4)   # qwen2-7b's H and KVH at head_dim 128
+# pages over 256 rows (the 256-row tile in pieces) also at head_dim 64 and
+# 32: (head_dim, H, KVH)
+PAGES_WIDE = (257, 300, 512, 1024)
+PAGES_WIDE_SHAPES = ((64, 16, 4), (32, 8, 2))
 PAGES_POOLS = ("bf16", *QUANT_DTYPES)
 # the paper's fp16 PASA, and FlashAttention-2 at the flash impl's policy
 PAGES_MODES = (("fp16", BETA), ("bf16_fp32", 0.0))
 PAGES_LAYERS = 8          # of qwen2-7b's 28: the page-16 serve's depth
 PAGES_SERVE = 16          # the serve's page (block_kv stays 128)
+PAGES_SERVE_WIDE = 512    # the wide page's serve (chunk 512, block 128)
 PAGES_TIMED = (16, 8)     # the pages timed at the serve's call shapes
 PAGES_ALONE = (0, 3)      # requests served alone beside the batch
 PAGES_PREFILL_ROWS = ((0, 0, 0, 0), (512, 512, 300, 129))  # the first call
@@ -7639,7 +7688,8 @@ def _pages_cases(dev):
     """Phase 19's cases, {key: dict(run, check)} with key (kernel, page,
     label): paged decode at every page of PAGES_DECODE, block of
     PAGES_BLOCKS, head width, pool and mode (PAGES_MODES); paged prefill at
-    PAGES_PREFILL (head_dim 128) from each pool in each mode.  ``run()``
+    PAGES_PREFILL (head_dim 128), and at PAGES_WIDE also at the head
+    widths of PAGES_WIDE_SHAPES, from each pool in each mode.  ``run()``
     is one call of the op (a launch); ``check(out)`` holds it and returns
     its max abs error against the plain version.  Also returns the pairs
     of calls that must give the same bits: each (kernel, page, pool)
@@ -7651,7 +7701,6 @@ def _pages_cases(dev):
     from repro_torch.kernels import ops
     cmod = _kernel_module("pasa_decode")
     dmod = _kernel_module("pasa_paged_decode")
-    pmod = _kernel_module("pasa_paged_prefill")
 
     rng = np.random.default_rng(19)
     cases, pairs = {}, {}
@@ -7709,9 +7758,31 @@ def _pages_cases(dev):
                                            _junk(k_, v_, side, valid))])
 
     # prefill: phase 2's rows (4 x 28 heads x 512 queries at starts 0, 512,
-    # 1024 and a pad row), float64 gold on the unquantized rows
+    # 1024 and a pad row), float64 gold on the unquantized rows; pages over
+    # 256 rows also at the narrower heads of PAGES_WIDE_SHAPES
     starts, lens = PREFILL_ROWS
-    (h, kvh), cs, d = PAGES_PREFILL_HEADS, PREFILL_CHUNK, 128
+    shapes = [(PAGES_PREFILL_HEADS, 128, PAGES_PREFILL)] + [
+        ((h, kvh), d, PAGES_WIDE) for d, h, kvh in PAGES_WIDE_SHAPES]
+    for (h, kvh), d, pages in shapes:
+        _pages_prefill_cases(dev, rng, cases, pairs, h, kvh, d, pages,
+                             starts, lens)
+    return cases, pairs
+
+
+def _pages_prefill_cases(dev, rng, cases, pairs, h, kvh, d, pages, starts,
+                         lens):
+    """``_pages_cases``' paged prefill at head width ``d`` (``h`` query
+    heads over ``kvh``), at each page of ``pages``, from each pool in
+    each mode; the chunk-schedule pair cuts row 1 at the last page
+    boundary at or below the chunk width (none where that is its end).
+    Keys carry the head width unless it is 128."""
+    import torch
+
+    from repro_torch.core.precision import FP16, get_policy
+    from repro_torch.kernels import ops
+    pmod = _kernel_module("pasa_paged_prefill")
+
+    cs = PREFILL_CHUNK
     b, s = len(lens), max(lens)
     kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
@@ -7725,8 +7796,9 @@ def _pages_cases(dev):
     q_all = _randn(rng, (1, h, lens[1], d), 1.0, dev, torch.float16)
     live_rows = [i for i, n in enumerate(lens) if n]
     gold = _pages_prefill_gold(q, kc, vc, starts, lens, live_rows)
+    width = "" if d == 128 else f"d{d} "
     raw_rmse = {}
-    for page in PAGES_PREFILL:
+    for page in pages:
         kp, vp, table, valid = _rows_to_pages(kc, vc, lens, page, rng)
         table[3] = 0                          # the pad row: all-null table
         for pool, (k_, v_, side) in _pool_kinds(kp, vp, valid).items():
@@ -7736,7 +7808,8 @@ def _pages_cases(dev):
                 args = (q, k_, v_, table, st, kvl)
 
                 def check(out, args=args, kw=kw, side=side, pool=pool,
-                          key=(page, tag), label=f"page {page} {pool} {tag}"):
+                          key=(page, tag),
+                          label=f"page {page} {width}{pool} {tag}"):
                     name = f"pasa_paged_prefill ({label})"
                     plain = pmod.paged_prefill_plain(*args, **kw, **side)
                     err = _close(name, out, plain, **PREFILL_TOL)
@@ -7754,11 +7827,12 @@ def _pages_cases(dev):
                         raise AssertionError(f"{name}: RMSE {r:.4f} / plain "
                                              f"{rp:.4f} >= {limit:.4f}")
                     return err
-                cases[("pasa_paged_prefill", page, f"{pool} {tag}")] = dict(
+                cases[("pasa_paged_prefill", page,
+                       f"{width}{pool} {tag}")] = dict(
                     run=lambda args=args, kw=kw, side=side:
                         ops.pasa_paged_prefill(*args, **kw, **side),
                     check=check)
-            pairs[("pasa_paged_prefill", page, pool)] = (
+            pairs[("pasa_paged_prefill", page, f"{width}{pool}")] = (
                 lambda k_=k_, v_=v_, side=side, valid=valid, table=table: [
                     ops.pasa_paged_prefill(q, kk, vv, table, st, kvl,
                                            beta=BETA, policy=FP16, **sd)
@@ -7767,17 +7841,19 @@ def _pages_cases(dev):
             # the chunk schedule: row 1's positions (1,024) in one chunk,
             # or in two cut at the last page boundary at or below the chunk
             # width (512)
+            cut = max(cs // page, 1) * page
+            if cut >= lens[1]:
+                continue
             one = lambda c0, c1, k_=k_, v_=v_, side=side, table=table: (
                 ops.pasa_paged_prefill(
                     q_all[:, :, c0:c1], k_, v_, table[1:2],
                     torch.tensor([c0], dtype=torch.int32, device=dev),
                     torch.tensor([c1], dtype=torch.int32, device=dev),
                     beta=BETA, policy=FP16, **side))
-            pairs[("chunks", page, pool)] = (
-                lambda one=one, cut=max(cs // page, 1) * page: [
+            pairs[("chunks", page, f"{width}{pool}")] = (
+                lambda one=one, cut=cut: [
                     one(0, lens[1]),
                     torch.cat([one(0, cut), one(cut, lens[1])], 2)])
-    return cases, pairs
 
 
 def _pages_prefill_gold(q, kc, vc, starts, lens, live_rows):
@@ -7904,27 +7980,62 @@ def _paged_first_step(dev, bundle, params, cache_dtype, page):
     return rep
 
 
+def serve_chunks(dev, bundle, params, cache_dtype, page):
+    """The engine's chunk schedule at ``page``-row pages: phase 3's
+    workload with prefill chunks of ``page`` rows and of twice that, every
+    launch counted; the greedy streams equal (the paged prefill is
+    bit-invariant to page-aligned chunk boundaries, and a decode row to
+    its batch).  Returns the report."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ServeEngine
+
+    finite = []
+    bundle = _finite_bundle(bundle, finite)
+    prompts, kw = _paged_workload(bundle.cfg, cache_dtype, page)
+    streams, calls = {}, {}
+    for chunk in (page, 2 * page):
+        ops.reset_launches()
+        eng = ServeEngine(bundle, params, **dict(kw, prefill_chunk=chunk))
+        reqs = [eng.submit(p, SERVE_GEN) for p in prompts]
+        _drive(eng)
+        _check_engine_launches(f"serve_chunks_{cache_dtype}", eng,
+                               cache_dtype)
+        streams[chunk] = [r.generated for r in reqs]
+        calls[chunk] = eng.prefill_calls
+        del eng
+    _all_finite(f"serve_chunks_{cache_dtype}", finite)
+    if streams[page] != streams[2 * page]:
+        raise AssertionError(f"serve_chunks_{cache_dtype}: chunks of {page} "
+                             f"and {2 * page} rows give other streams")
+    return dict(cache_dtype=cache_dtype, page=page, chunks=list(calls),
+                prefill_calls=list(calls.values()), streams_equal=True)
+
+
 def serve_pages(dev, bundle, params):
     """qwen2-7b at full width with its depth cut to PAGES_LAYERS, block_kv
-    128: phase 3's workload through the engine at page PAGES_SERVE and at
-    page 128, from a bf16 and an int8 pool (requests PAGES_ALONE alone ==
-    batched, every launch counted, tok/s, TTFT and decode ms side by
-    side); the prefix cache at page PAGES_SERVE (hits == cold); the first
-    step at page PAGES_SERVE within the plain versions' bars.  Returns the
-    report."""
+    128: phase 3's workload through the engine at page PAGES_SERVE, at
+    page 128 and at page PAGES_SERVE_WIDE, from a bf16 and an int8 pool
+    (requests PAGES_ALONE alone == batched, every launch counted, tok/s,
+    TTFT and decode ms side by side); the prefix cache at pages
+    PAGES_SERVE and PAGES_SERVE_WIDE (hits == cold); the chunk schedule at
+    page PAGES_SERVE_WIDE; the first step at both pages within the plain
+    versions' bars.  Returns the report."""
     import torch
 
     cut, cut_params = _depth_cut(bundle, params, PAGES_LAYERS)
     rep = {}
     for dtype in ("bf16", "int8"):
-        for page in (PAGES_SERVE, 128):
+        for page in (PAGES_SERVE, 128, PAGES_SERVE_WIDE):
             rep[f"page{page}_{dtype}"] = serve(
                 dev, cut, cut_params, cache_dtype=dtype, alone=PAGES_ALONE,
                 page=page)
-        rep[f"prefix_page{PAGES_SERVE}_{dtype}"] = serve_prefix(
-            dev, cut, cut_params, dtype, page=PAGES_SERVE)
-        rep[f"first_step_page{PAGES_SERVE}_{dtype}"] = _paged_first_step(
-            dev, cut, cut_params, dtype, PAGES_SERVE)
+        for page in (PAGES_SERVE, PAGES_SERVE_WIDE):
+            rep[f"prefix_page{page}_{dtype}"] = serve_prefix(
+                dev, cut, cut_params, dtype, page=page)
+            rep[f"first_step_page{page}_{dtype}"] = _paged_first_step(
+                dev, cut, cut_params, dtype, page)
+        rep[f"chunks_page{PAGES_SERVE_WIDE}_{dtype}"] = serve_chunks(
+            dev, cut, cut_params, dtype, PAGES_SERVE_WIDE)
     del cut_params
     torch.cuda.empty_cache()
     return rep
@@ -8009,7 +8120,8 @@ def phase_pages(dev, bundle=None, params=None):
     PAGES_SERVE from a bf16 and an int8 pool (the page-16 serves'
     launches), at page 8 and paged prefill at page 256 (the 256-row tile
     of ``pasa_paged_prefill_wide.cu``; both with check_pages' launches at
-    that page)."""
+    that page), and paged prefill at page PAGES_SERVE_WIDE from both pools
+    (the page-512 serves' launches; that tile in pieces)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -8028,14 +8140,17 @@ def phase_pages(dev, bundle=None, params=None):
     for tag, r in serves.items():
         print(f"serve_pages_{tag}: " + json.dumps(r))
     entries = []
+    served = (PAGES_SERVE, PAGES_SERVE_WIDE)
     for name in ("pasa_paged_decode", "pasa_paged_prefill"):
         for page, pool in ((PAGES_SERVE, "bf16"), (PAGES_SERVE, "int8"),
-                           (8, "bf16"), (256, "bf16")):
-            if name == "pasa_paged_decode" and page == 256:
+                           (8, "bf16"), (256, "bf16"),
+                           (PAGES_SERVE_WIDE, "bf16"),
+                           (PAGES_SERVE_WIDE, "int8")):
+            if name == "pasa_paged_decode" and page > 128:
                 continue
             tag = f"page{page}" + ("" if pool == "bf16" else f"_{pool}")
             source, replaces = _kernel_source(f"{name}/{tag}")
-            if page == PAGES_SERVE:
+            if page in served:
                 launches = serves[f"page{page}_{pool}"]["launches"][name]
             else:
                 launches = sum(counts[page].get(name, {}).values())
@@ -8046,13 +8161,282 @@ def phase_pages(dev, bundle=None, params=None):
                 replaces=replaces, launches=launches,
                 max_abs_err=rep["max_abs_err"][f"{name}/page{page}"],
                 **_pages_timed(dev, page, pool, name))
-            if page == PAGES_SERVE:    # page 128 at the same call, beside it
-                at128 = _pages_timed(dev, 128, pool, name)
-                entry["detail"] = {f"{key}_page128": at128[key] for key in
-                                   ("ms", "plain_ms", "library_ms")}
+            # page 128 at the same call, beside it (the wide page: and
+            # page 1024)
+            if page in served:
+                entry["detail"] = {}
+                for other in (128, 1024) if page > 256 else (128,):
+                    at = _pages_timed(dev, other, pool, name)
+                    entry["detail"].update(
+                        {f"{key}_page{other}": at[key] for key in
+                         ("ms", "plain_ms", "library_ms", "bound_ms")})
             entries.append(entry)
     print(f"phase 19: {time.perf_counter() - t0:.1f} s")
     return entries
+
+
+# ---- phase 20: the algebraic-shift dense attention ------------------------
+
+ALG_LAYERS = 8            # of qwen2-7b's 28: the algebraic dense serve's depth
+ALG_ALONE = (0, 3)        # requests served alone beside the batch
+ALG_SHIFT_SHAPES = ((4, 4, 1024, 128), (4, 4, 1024, 64), (4, 4, 1024, 32))
+
+
+def _algebraic(cfg):
+    """``cfg`` with ``attention.use_gemm_shift`` off (the reference's
+    algebraic shift)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, use_gemm_shift=False))
+
+
+def check_algebraic_shift(dev):
+    """The shift kernel's algebraic mode (``gemm_shift=False``) in each
+    of its key / operand modes at the dense prefill's keys (4, 4, 1024,
+    128) and at head widths 64 and 32, blocks 128 and 64, bf16 (B, S,
+    KVH, D) keys of mean 5 read through strides (fp16 in the fp16-keys
+    mode): each against its plain version (SHIFT_TOL) and within relative
+    RMSE SHIFT_RMSE_MAX of the float64 algebraic shift.  Returns the
+    path's entry (bf16 keys, fp16 operands, block 128, head_dim 128),
+    timed beside torch.matmul(M, K blocks) (the same function as the
+    GEMM) and the bytes bound, every mode's error in its detail."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.precision import BF16_FP32, FP16
+    from repro_torch.core.shifting import shift_kv_reference
+    from repro_torch.kernels import ops
+    mod = _kernel_module("shift_kv")
+
+    rng = np.random.default_rng(20)
+    detail, main = {}, None
+    for b, kvh, s, d in ALG_SHIFT_SHAPES:
+        keys = _randn(rng, (b, s, kvh, d), 5.0, dev, torch.float32)
+        for block in (128, 64):
+            for kdt, policy in ((torch.bfloat16, FP16), (torch.float16, FP16),
+                                (torch.bfloat16, BF16_FP32)):
+                op = policy.input_dtype
+                k = keys.to(kdt).transpose(1, 2)
+                run = lambda k=k, block=block, policy=policy: ops.shift_kv(
+                    k, beta=BETA, block_kv=block, policy=policy,
+                    gemm_shift=False)
+                plain_of = lambda k=k, block=block, policy=policy: \
+                    mod.shift_kv_mean_plain(k, BETA, block, policy)
+                got, plain = run(), plain_of()
+                torch.cuda.synchronize()
+                mode = mod.mode_name(kdt, op, block, d, gemm_shift=False)
+                name = f"shift_kv ({mode})"
+                err = _close(name, got, plain, **SHIFT_TOL)
+                ref = shift_kv_reference(k.to(op), d, BETA, block)
+                rmse, rmse_plain = _rel_rmse(got, ref), _rel_rmse(plain, ref)
+                if not (rmse < SHIFT_RMSE_MAX and rmse_plain < SHIFT_RMSE_MAX):
+                    raise AssertionError(f"{name} RMSE {rmse:.2e} / plain "
+                                         f"{rmse_plain:.2e} vs float64")
+                detail[mode] = dict(max_abs_err=err, rmse=rmse,
+                                    differing=int((got != plain).sum()),
+                                    of=got.numel())
+                if main is None:
+                    m = mod.device_matrix(block, d, BETA, op, dev)
+                    kb = k.to(op).contiguous().reshape(b, kvh, s // block,
+                                                       block, d)
+                    nbytes, flops = R.shift_kv_cost(
+                        k.numel(), k.element_size(), block,
+                        out_itemsize=op.itemsize, gemm_shift=False)
+                    main = dict(
+                        name="shift_kv/algebraic", mode=mode, route="cuda",
+                        source="src/repro_torch/kernels/csrc/shift_kv.cu",
+                        replaces="src/repro/kernels/shift_kv.py:48",
+                        ms=_cuda_time_ms(run, 50),
+                        plain_ms=_cuda_time_ms(plain_of, 20),
+                        library_ms=_cuda_time_ms(
+                            lambda m=m, kb=kb: torch.matmul(m, kb), 50),
+                        **R.bound(nbytes, flops))
+    main.update(max_abs_err=max(x["max_abs_err"] for x in detail.values()),
+                rmse=max(x["rmse"] for x in detail.values()), detail=detail)
+    return main
+
+
+def check_algebraic_attention(dev):
+    """``ops.pasa_attention(..., gemm_shift=False)`` - the shift kernel's
+    algebraic mode, then the attention kernel on its K' at the ideal
+    invariance beta / (1 - beta) - against the plain
+    ``blocked_attention(use_gemm_shift=False)`` under the four policies:
+    causal at the dense prefill's shape ATTN_SHAPE and not causal with
+    the column limit at whisper's encoder shape (``_hd64_cases``' encoder:
+    1,500 valid of 1,536 rows, the rest zero), queries of mean 0 and keys
+    of mean 2 (check_attention's held fixture).  Each within
+    ATTN_CAUSAL_TOL / ATTN_TOL of the plain version on the real rows, and
+    within relative RMSE ATTN_RMSE_MAX of float64 attention (bf16_fp32:
+    no more than BF16_PASA_RMSE_RATIO x the plain version's).  Timed at
+    the causal call at fp16: the attention kernel alone on the algebraic
+    K', the plain version (with its shift) and SDPA on K'.  Returns the
+    entry."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.beta import ideal_invariance
+    from repro_torch.core.precision import FP16, get_policy
+    from repro_torch.kernels import ops
+    mod = _kernel_module("pasa_attention")
+
+    rng = np.random.default_rng(21)
+    b, h, kvh, s, d = ATTN_SHAPE
+    causal_case = (_randn(rng, (b, h, s, d), 0.0, dev, torch.float16),
+                   _randn(rng, (b, kvh, s, d), 2.0, dev, torch.float16),
+                   _randn(rng, (b, kvh, s, d), 0.0, dev, torch.float16),
+                   None, True, s)
+    q, k, v, valid, _, _ = _hd64_cases(rng, dev)["encoder"]
+    cases = {"causal": causal_case, "encoder": (q, k, v, valid, False, valid)}
+    errs, rmse = {}, {}
+    for case, (q, k, v, valid, causal, n) in cases.items():
+        gold = _gold_attention(q[:, :, :n], k[:, :, :n], v[:, :, :n], causal)
+        tol = ATTN_CAUSAL_TOL if causal else ATTN_TOL
+        for tag in ("fp16", "fp16_fp32", "fp32", "bf16_fp32"):
+            kw = dict(beta=BETA, policy=get_policy(tag), causal=causal,
+                      kv_valid=valid, gemm_shift=False)
+            got = ops.pasa_attention(q, k, v, **kw)
+            plain = mod.attention_plain(q, k, v, block_kv=128, **kw)
+            torch.cuda.synchronize()
+            label = f"pasa_attention/algebraic ({case}, {tag})"
+            errs[f"{case} {tag}"] = _close(label, got[:, :, :n],
+                                           plain[:, :, :n], **tol)
+            r = _rel_rmse(got[:, :, :n], gold)
+            rp = _rel_rmse(plain[:, :, :n], gold)
+            held = (r <= BF16_PASA_RMSE_RATIO * rp if tag == "bf16_fp32"
+                    else r < ATTN_RMSE_MAX and rp < ATTN_RMSE_MAX)
+            if not held:
+                raise AssertionError(f"{label} RMSE {r:.4f} / plain {rp:.4f}")
+            rmse[f"{case} {tag}"], rmse[f"{case} {tag} plain"] = r, rp
+        del gold
+    q, k, v = causal_case[:3]
+    k_sh = ops.shift_kv(k, beta=BETA, policy=FP16, gemm_shift=False)
+    ms = _cuda_time_ms(lambda: mod.kernel_call(
+        q, k_sh, v, beta=BETA, inva=ideal_invariance(BETA), policy=FP16,
+        causal=True, block_q=128, block_kv=128), 20)
+    plain_ms = _cuda_time_ms(lambda: mod.attention_plain(
+        q, k, v, beta=BETA, policy=FP16, block_kv=128, causal=True,
+        gemm_shift=False), 3, warmup=1)
+    ke, ve = (x.repeat_interleave(h // kvh, 1) for x in (k_sh, v))
+    lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, ke, ve, is_causal=True), 20)
+    source, replaces = KERNEL_FILES["pasa_attention"]
+    return dict(
+        name="pasa_attention/algebraic", route="cuda", source=source,
+        replaces=replaces, max_abs_err=max(errs.values()),
+        rmse=rmse["causal fp16"], detail=dict(max_abs_err=errs, rmse=rmse),
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        **R.bound(*R.attention_cost(b, h, s, kvh, s, d, causal=True)))
+
+
+def serve_algebraic(dev, bundle, params):
+    """qwen2-7b at full width with its depth cut to ALG_LAYERS and
+    ``use_gemm_shift=False``: serve_dense's workload (requests ALG_ALONE
+    alone == batched, every launch counted: the shift kernel ALG_LAYERS
+    times in its algebraic mode), and the first step's logits held by
+    ``_first_step_gaps`` (within DENSE_LOGIT_ATOL of the plain versions
+    and no farther than DENSE_FP32_RATIO x their distance from fp32).
+    Returns the report."""
+    import torch
+
+    from repro_torch.models.model_zoo import build
+    smod = _kernel_module("shift_kv")
+
+    cut, cut_params = _depth_cut(bundle, params, ALG_LAYERS)
+    alg = build(_algebraic(cut.cfg))
+    rep = serve_dense(dev, alg, cut_params, alone=ALG_ALONE)
+    mode = smod.mode_name(torch.bfloat16, torch.float16, 128,
+                          alg.cfg.head_dim, gemm_shift=False)
+    if rep["shift_kv_launches_by_mode"] != {mode: ALG_LAYERS}:
+        raise AssertionError(f"serve_dense_algebraic: shift launches "
+                             f"{rep['shift_kv_launches_by_mode']} != "
+                             f"{{{mode!r}: {ALG_LAYERS}}}")
+    gaps, _ = dense_first_step(dev, alg, cut_params)
+    rep.update(gaps, shift_mode=mode)
+    del cut_params
+    torch.cuda.empty_cache()
+    return rep
+
+
+def train_algebraic(dev):
+    """Phase 15's configuration (TRAIN_ARCH at TRAIN_LAYERS, remat on,
+    random fp32 parameters from seed 0, the DataPipeline's first batch)
+    with ``use_gemm_shift=False``: one step's loss and gradients through
+    the kernels against the whole-plain path, both against it at fp32
+    (``_grads_vs_plain``), the kernels' pass launching the shift kernel
+    (its algebraic mode) and the attention kernel 2 x TRAIN_LAYERS times
+    (each layer's forward and its remat recompute), no other kernel.
+    Returns the report."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.steps import batch_to_device
+    from repro_torch.models.model_zoo import build
+
+    cfg = _algebraic(dataclasses.replace(get_config(TRAIN_ARCH),
+                                         n_layers=TRAIN_LAYERS))
+    if not cfg.remat:
+        raise AssertionError("the training config has remat off")
+    bundle = build(cfg)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev,
+                         dtype=cfg.torch_param_dtype())
+    pipe = DataPipeline(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        vocab=cfg.vocab_size, seed=0)
+    batch = batch_to_device(next(pipe), dev)
+    pipe.close()
+    rep, _, launches = _grads_vs_plain(bundle, params, batch,
+                                       "train_algebraic")
+    want = 2 * cfg.n_layers
+    counts = {name: sum(by_mode.values()) for name, by_mode in launches.items()}
+    if counts != {"shift_kv": want, "pasa_attention": want} or not all(
+            "algebraic" in mode for mode in launches["shift_kv"]):
+        raise AssertionError(f"train_algebraic: launches {launches}")
+    rep.update(layers=cfg.n_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               launches=counts, launches_by_mode=launches)
+    del params, batch
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_algebraic(dev, bundle=None, params=None):
+    """Phase 20 (``--algebraic-only``: this phase alone, the serving
+    weights built at its depth): ``check_algebraic_shift``,
+    ``check_algebraic_attention``, ``serve_algebraic`` (driven with the
+    launch counts set to 0 just before it) and ``train_algebraic``.
+    Returns the kernels-line entries ``shift_kv/algebraic`` and
+    ``pasa_attention/algebraic``, each with the algebraic serve's launches
+    (the training pass's in its detail)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build
+
+    t0 = time.perf_counter()
+    shift, attn = check_algebraic_shift(dev), check_algebraic_attention(dev)
+    if bundle is None:
+        bundle = build(dataclasses.replace(get_config("qwen2-7b"),
+                                           n_layers=ALG_LAYERS))
+        params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
+    rep = serve_algebraic(dev, bundle, params)
+    print("serve_dense_algebraic: " + json.dumps(rep))
+    rep_train = train_algebraic(dev)
+    print("train_algebraic: " + json.dumps(rep_train))
+    shift["detail"]["mode"] = shift.pop("mode")
+    shift["launches"] = rep["shift_kv_launches_by_mode"][rep["shift_mode"]]
+    attn["launches"] = rep["launches"]["pasa_attention"]
+    for k in (shift, attn):
+        name = k["name"].partition("/")[0]
+        k["detail"]["launches_train_step"] = rep_train["launches"][name]
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']} was not launched")
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    return [shift, attn]
 
 
 def phase_tools(dev, bundle=None, params=None, parts=("decode", "train")):
@@ -8091,18 +8475,20 @@ def _print_entry(k) -> None:
 
 def main(argv=None) -> int:
     """The whole smoke; ``--train-only`` / ``--multi-only`` /
-    ``--tools-only`` / ``--modes-only`` / ``--pages-only``: the build of
-    the kernels phase 15 / 16 / 17 / 18 / 19 runs, and that phase alone,
-    with no result line."""
+    ``--tools-only`` / ``--modes-only`` / ``--pages-only`` /
+    ``--algebraic-only``: the build of the kernels phase 15 / 16 / 17 / 18
+    / 19 / 20 runs, and that phase alone, with no result line."""
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--train-only"], ["--multi-only"],
                     ["--multi-only", "--half-batch"], ["--tools-only"],
-                    ["--modes-only"], ["--pages-only"]):
+                    ["--modes-only"], ["--pages-only"],
+                    ["--algebraic-only"]):
         print(f"usage: chip_smoke.py [--train-only | --multi-only "
               f"[--half-batch] | --tools-only | --modes-only | "
-              f"--pages-only], got {argv}", file=sys.stderr)
+              f"--pages-only | --algebraic-only], got {argv}",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -8124,7 +8510,8 @@ def main(argv=None) -> int:
     built = _build.build(
         None if argv in ([], ["--modes-only"], ["--pages-only"])
         else ("shift_kv", "pasa_attention", "pasa_decode")
-        if argv == ["--tools-only"] else ("shift_kv", "pasa_attention"))
+        if argv in (["--tools-only"], ["--algebraic-only"])
+        else ("shift_kv", "pasa_attention"))
     print(f"build: {time.perf_counter() - t0:.1f} s into "
           f"{_build.build_dir()}; seconds per source (one nvcc each, all "
           f"started together) " + json.dumps(
@@ -8145,6 +8532,11 @@ def main(argv=None) -> int:
         return 0
     if argv == ["--pages-only"]:
         for k in phase_pages(dev):
+            _print_entry(k)
+        print(smi)
+        return 0
+    if argv == ["--algebraic-only"]:
+        for k in phase_algebraic(dev):
             _print_entry(k)
         print(smi)
         return 0
@@ -8215,6 +8607,12 @@ def main(argv=None) -> int:
     # each serve driven with the launch counts set to 0 just before it
     pages = phase_pages(dev, bundle, params)
     for k in pages:
+        _print_entry(k)
+    # phase 20: the algebraic-shift dense attention, the serve on phase
+    # 3's weights cut to ALG_LAYERS, driven with the launch counts set to
+    # 0 just before it
+    algebraic = phase_algebraic(dev, bundle, params)
+    for k in algebraic:
         _print_entry(k)
     # phase 14: serving across devices with phase 3's weights - two
     # replicas on this card, then the model axis in a gloo group of two
@@ -8551,8 +8949,12 @@ def main(argv=None) -> int:
     line.append(_mode_entry("shift_kv", shift_other, keys))
     # phase 19's entries: the paged kernels at page 16 with the page-16
     # serves' launches, at page 8 (and prefill at page 256) with the
-    # launches of check_pages' pass at that page
+    # launches of check_pages' pass at that page, prefill at page 512 with
+    # the page-512 serves'
     line += [{key: k[key] for key in keys} for k in pages]
+    # phase 20's entries: the algebraic shift and the attention on its K'
+    # with the algebraic dense serve's launches
+    line += [{key: k[key] for key in keys} for k in algebraic]
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

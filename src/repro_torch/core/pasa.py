@@ -353,6 +353,34 @@ class BlockedProblem:
         )
 
 
+def algebraic_shift(k: torch.Tensor, beta: float, block_kv: int,
+                    policy: PrecisionPolicy,
+                    limit_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The algebraic key shift (the reference's ``use_gemm_shift=False``)
+    of k (..., S2, D) at the policy's input dtype, S2 a multiple of
+    ``block_kv``: per block, ``(k - beta * mean) / sqrt(d)`` one level
+    wide (``reduce_dtype``), rounded once to the input dtype.  The mean
+    is over all the block's rows, or with ``limit_b`` (the valid-column
+    limit, (..., 1, 1)) over its rows below it (``shift_mask_valid``)."""
+    *lead, s2, d = k.shape
+    dev = k.device
+    n_blocks = s2 // block_kv
+    wide = reduce_dtype(policy.stat_dtype)
+    scale = _scalar(1.0 / math.sqrt(d), wide, dev)
+    kb = k.reshape(*lead, n_blocks, block_kv, d).to(wide)
+    if limit_b is not None:
+        cols = torch.arange(
+            s2, dtype=torch.int32, device=dev
+        ).reshape(n_blocks, block_kv)
+        vmask = (cols < limit_b)[..., None]              # (..., nb, bkv, 1)
+        cnt = torch.clamp(vmask.to(wide).sum(-2, keepdim=True), min=1.0)
+        mean = torch.where(vmask, kb, 0.0).sum(-2, keepdim=True) / cnt
+    else:
+        mean = kb.mean(-2, keepdim=True)
+    kb = (kb - _scalar(beta, wide, dev) * mean) * scale
+    return kb.reshape(k.shape).to(policy.input_dtype)
+
+
 def prepare_blocks(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -405,20 +433,8 @@ def prepare_blocks(
         m_mat = shifting_matrix(block_kv, d, beta, policy.input_dtype)
         k = shift_kv_blocks(k, m_mat.to(dev), block_kv).to(policy.input_dtype)
     elif beta > 0.0:
-        wide = reduce_dtype(policy.stat_dtype)
-        scale = _scalar(1.0 / math.sqrt(d), wide, dev)
-        kb = k.reshape(*k.shape[:-2], n_blocks, block_kv, d).to(wide)
-        if shift_mask_valid:
-            cols = torch.arange(
-                s2_pad, dtype=torch.int32, device=dev
-            ).reshape(n_blocks, block_kv)
-            vmask = (cols < limit_b)[..., None]          # (..., nb, bkv, 1)
-            cnt = torch.clamp(vmask.to(wide).sum(-2, keepdim=True), min=1.0)
-            mean = torch.where(vmask, kb, 0.0).sum(-2, keepdim=True) / cnt
-        else:
-            mean = kb.mean(-2, keepdim=True)
-        kb = (kb - _scalar(beta, wide, dev) * mean) * scale
-        k = kb.reshape(k.shape).to(policy.input_dtype)
+        k = algebraic_shift(k, beta, block_kv, policy,
+                            limit_b if shift_mask_valid else None)
     else:
         # faithful plain-FA allocation: raw QK^T at score precision, the
         # 1/sqrt(d) applied after (Eqs. 1-2)

@@ -104,13 +104,16 @@ def decode_cost(b: int, kvh: int, g: int, d: int, kv_lens: Sequence[int],
 
 
 def shift_kv_cost(k_numel: int, k_itemsize: int, block: int, *,
-                  out_itemsize: int = 2) -> tuple:
+                  out_itemsize: int = 2, gemm_shift: bool = True) -> tuple:
     """(bytes, flops) of one shift-KV call: the keys in, K' out at the
-    operand dtype, the (block, block) shifting matrix; one product per
-    block."""
-    nbytes = k_numel * k_itemsize + k_numel * out_itemsize \
-        + block * block * out_itemsize
-    return nbytes, 2 * block * k_numel
+    operand dtype, and the (block, block) shifting matrix with one product
+    per block; the algebraic mode (``gemm_shift=False``) reads no matrix
+    and does 3 operations an element (the column sum, the subtraction of
+    beta * mean, the scale)."""
+    nbytes = k_numel * k_itemsize + k_numel * out_itemsize
+    if not gemm_shift:
+        return nbytes, 3 * k_numel
+    return nbytes + block * block * out_itemsize, 2 * block * k_numel
 
 
 def attention_cost(b: int, h: int, s1: int, kvh: int, s2: int, d: int, *,

@@ -2,8 +2,8 @@
 // kernel template, shared by four sources so that they compile in
 // parallel - pasa_paged_prefill.cu and pasa_paged_prefill_q8.cu (pages of
 // 1 to 128 rows of bf16 / fp16 and of 8-bit pools),
-// pasa_paged_prefill_wide.cu and pasa_paged_prefill_wide_q8.cu (129 to
-// 256 rows).
+// pasa_paged_prefill_wide.cu and pasa_paged_prefill_wide_q8.cu (129 rows
+// or more).
 //
 // Replaces the TPU kernel repro/kernels/pasa_paged_prefill.py
 // (_paged_prefill_kernel / _chunk_block_update, launched by
@@ -81,19 +81,34 @@
 //    all-fp16 policy the per-element softmax and accumulator steps run on
 //    fp16 pairs with the same bits (hopper.cuh).
 //
-// Pages of 129 to 256 rows (BKV 256): one block is wider than a ring stage
-// of 128 rows, and its key mean and pseudo-average need all its valid rows
-// before its first score is final.  The design is a single stage of 256
-// rows (the converter's TMA for page j + 1 waits for the consumers to
-// release page j: no overlap of a page's load with the previous page's
-// math) and the page's scores in two halves of 128 columns: a first pass
-// over both halves takes the rows' sum over the valid columns and their
-// max over the visible ones; a second computes each half's scores again
-// (the same bits) and its probabilities at the page's max; then one P V
-// over both halves into one fp32 sum - one softmax per page, as the plain
-// version computes it, with one extra score GEMM a page (the page's
-// probabilities take 32 more registers a thread than a 128-row page's,
-// the score registers are reused).  Shared memory at D 128: 165,408
+// Pages of 129 rows or more (BKV 256): one block is wider than a ring
+// stage of 128 rows, and its key mean and pseudo-average need all its
+// valid rows before its first score is final.  The design is a single
+// stage of 256 rows (the converter's TMA for the next hand-off waits for
+// the consumers to release the stage: no overlap of a load with the
+// previous page's math), the page's scores in quarters of 64 columns, and
+// one softmax per page, as the plain version computes it:
+//  * a first pass over the quarters takes the rows' sum over the valid
+//    columns and their max over the visible ones;
+//  * then, per 64-column half of V (one at D 32 and 64, two at 128), each
+//    quarter's scores again (the same bits), its P at the page's max, and
+//    P V over the half's columns into one fp32 sum over the page; after
+//    the first half the rows' step, the dead-row no-op and the block
+//    count, once a page; then that half of the accumulator.  A half at a
+//    time keeps the consumers' live state at 32 P V sums, 32 scores and 16
+//    P fragments beside the accumulator (a whole page's P and P V do not
+//    fit the registers beside a second path of that size: ptxas spills).
+// A page of at most 256 rows is one hand-off that serves every pass.  A
+// wider page (any page: a TMA box holds at most 256 rows) whose valid rows
+// span npc > 1 pieces of 256 streams through the stage piece by piece,
+// each piece's box at its row offset inside the page (rows past the
+// page's end filled with zeros by the map, rows past `valid` zeroed by
+// the converter), once for each pass: pass 0, the converter alone (beta >
+// 0), takes km as fp32 column sums over the pieces' K in row order,
+// rounded once (the bits of one sum over the page); the first pass hands
+// over K' alone, each V half's pass K' (the same bits) and V.  An 8-bit
+// page's sidecars come once, with its first piece.  K is read 2 + NH times
+// a page and query tile, V NH times.  Shared memory at D 128: 165,408
 // bytes over a bf16 pool, 231,968 over 8-bit codes (a 256-row code buffer
 // beside the two operand tiles); at D 64 and 32 less.
 
@@ -109,7 +124,7 @@ constexpr int PF_NWG = 2;                       // consumer warpgroups
 constexpr int PF_BQ = 64 * PF_NWG;              // query rows per CTA
 constexpr int PF_THREADS = 128 * (PF_NWG + 1);
 constexpr int PF_HALF = 64 * 2;                 // a 64-column half-row (2 B)
-constexpr int PF_MAX_PAGE = 256;
+constexpr int PF_BOX = 256;                     // most rows of a TMA box
 constexpr int PF_BN = 128;                      // score columns of one GEMM
 
 template <typename PoolT, int BKV, int D>
@@ -280,6 +295,68 @@ __device__ __forceinline__ void quad_reduce(float* ssum, float* mx) {
   }
 }
 
+// Step 5 of a page, the rows' part: the sums of P over the 4 threads that
+// hold each row, then each row's recovery step (Algorithm 1 lines 14-18)
+// at the page's pseudo-average and max.  A row is live on the page iff the
+// page's first (valid) column is visible to it; dead rows keep their state
+// and count.
+__device__ __forceinline__ void page_rows(const float* ssum, const float* mx,
+                                          float* lsum, int valid, int col0,
+                                          const int* rowpos, float* m, float* l,
+                                          float* f, int* cnt, bool* live,
+                                          RowStep* rs, const Policy& P) {
+  const bool sh = P.stat_half;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1)
+      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], o);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    live[r] = rowpos[r] >= col0;
+    const float sbar = rnd(__fdiv_rn(ssum[r], (float)valid), sh);
+    rs[r] = row_update(m[r], l[r], f[r], cnt[r], sbar, mx[r], rnd(lsum[r], sh),
+                       P);
+    if (live[r]) {
+      m[r] = rs[r].m;
+      l[r] = rs[r].l;
+      f[r] = rs[r].f;
+      cnt[r] += 1;
+    }
+  }
+}
+
+// Step 6 of a page: acc <- e_prev * acc + e_cur * pv at the accumulator
+// dtype, on live rows only (H16: on fp16 pairs, acc2), over N of the
+// thread's fp32 P V sums (N = D / 2: the whole head; 32: a 64-column half,
+// acc and acc2 then pointing at that half's first sum and pair).
+template <int N, bool H16>
+__device__ __forceinline__ void page_acc(float* acc, uint32_t* acc2,
+                                         const float* pv, const bool* live,
+                                         const RowStep* rs, bool ah) {
+  if constexpr (H16) {
+    const uint32_t ep[2] = {h2_splat(rs[0].e_prev), h2_splat(rs[1].e_prev)};
+    const uint32_t ec[2] = {h2_splat(rs[0].e_cur), h2_splat(rs[1].e_cur)};
+#pragma unroll
+    for (int i2 = 0; i2 < N / 2; ++i2) {
+      const int r = i2 & 1;
+      const uint32_t pv2 =
+          h2_bits(__floats2half2_rn(pv[2 * i2], pv[2 * i2 + 1]));
+      const uint32_t nw = h2_add(h2_mul(ep[r], acc2[i2]), h2_mul(ec[r], pv2));
+      acc2[i2] = live[r] ? nw : acc2[i2];
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const int r = (e >> 1) & 1;
+      if (live[r])
+        acc[e] = acc_update(acc[e], rnd(pv[e], ah), rs[r].e_prev, rs[r].e_cur,
+                            ah);
+    }
+  }
+}
+
 // M: the policy's mode (operand type, score store).  H16 (only with
 // ModeF16): statistics and accumulator at fp16 (the paper's policy): the
 // softmax and accumulator steps run on fp16 pairs.  D: the head width.
@@ -298,10 +375,9 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
   static_assert(!H16 || M::kScoreHalf, "the fp16 pair steps need fp16 scores");
   using OpT = typename M::Op;
   using L = PrefillLayout<PoolT, BKV, D>;
-  // a page's scores in NHALF GEMMs of BN columns (two halves at BKV 256)
-  constexpr int BN = BKV > PF_BN ? PF_BN : BKV;
-  constexpr int NHALF = BKV / BN;
-  constexpr int NS = BN / 2;             // score registers per thread
+  // a page's scores in one GEMM of BKV columns (the 64- and 128-row
+  // tiles); the 256-row tile's in quarters of 64
+  constexpr int NS = BKV > PF_BN ? 32 : BKV / 2;   // score registers a thread
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled tiles want 1024-byte aligned bases
   unsigned char* sm = reinterpret_cast<unsigned char*>(
@@ -343,137 +419,251 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
     const int ct = threadIdx.x;
     const float* shift = reinterpret_cast<const float*>(sm + L::SHIFT_OFF);
     float* km_s = reinterpret_cast<float*>(sm + L::KM_OFF);
-    const uint32_t page_bytes =
-        L::CODE ? 2 * page * D + 2 * D * 4 : 2 * L::NH * page * PF_HALF;
-    // request page j's raw K and V of kv head kvh: 2-byte values into
-    // operand stage j % NST, codes (and the sidecar shifts) into the code
-    // buffer
     const CUtensorMap* mk = &tk;
     const CUtensorMap* mv = &tv;
-    auto issue = [&](int j) {
-      const int pid = table[j];
-      if constexpr (L::CODE) {
-        const uint32_t dst = s_base + L::CODE_OFF;
-        mbar_expect_tx(bar_raw, page_bytes);
-        tma_load_4d(dst, mk, bar_raw, 0, kvh, 0, pid);
-        tma_load_4d(dst + L::CODE_BYTES, mv, bar_raw, 0, kvh, 0, pid);
-        const size_t ph = ((size_t)pid * kv_heads + kvh) * D;
-        bulk_load(s_base + L::SHIFT_OFF, sc.shift[0] + ph, D * 4, bar_raw);
-        bulk_load(s_base + L::SHIFT_OFF + D * 4, sc.shift[1] + ph, D * 4,
-                  bar_raw);
-      } else {
-        const int st = j % NST;
-        const uint32_t bar = bar_raw + 8 * st;
-        mbar_expect_tx(bar, page_bytes);
-        for (int half = 0; half < L::NH; ++half) {
-          tma_load_4d(s_base + L::K_OFF + st * L::OP_BYTES + half * BKV * PF_HALF,
-                      mk, bar, 64 * half, kvh, 0, pid);
-          tma_load_4d(s_base + L::V_OFF + st * L::OP_BYTES + half * BKV * PF_HALF,
-                      mv, bar, 64 * half, kvh, 0, pid);
-        }
-      }
-    };
     if (ct == 0 && n_live > 0) {
       mbar_expect_tx(bar_q, L::Q_BYTES);
       for (int half = 0; half < L::NH; ++half)
         tma_load_4d(s_base + L::Q_OFF + half * PF_BQ * PF_HALF, &tq, bar_q,
                     64 * half, tile * PF_BQ, bh % heads, b);
-      // in place: pages 0 .. NST - 2 ahead (one stage: page 0); codes:
-      // one page
-      for (int p = 0; p < min(n_live, L::CODE ? 1 : max(NST - 1, 1)); ++p)
-        issue(p);
-    }
-    // 8-bit pools: the page's two scales, loaded one page ahead (live
-    // pages only: a dead page's sidecars may be NaN)
-    float sck = 0.0f, scv = 0.0f;
-    if constexpr (L::CODE) {
-      if (n_live > 0) {
-        const size_t ph = (size_t)table[0] * kv_heads + kvh;
-        sck = __ldg(sc.scale[0] + ph);
-        scv = __ldg(sc.scale[1] + ph);
-      }
     }
     // this thread's 8 columns: a row is CPR chunks of 8, RPS rows a step
     constexpr int CPR = D / 8, RPS = 128 / CPR;
     const int c8 = (ct % CPR) * 8;
-    for (int j = 0; j < n_live; ++j) {
-      const int valid = min(page, L_kv - j * page);
-      const int st = j % NST;
-      float sck_n = 0.0f, scv_n = 0.0f;
-      if constexpr (L::CODE) {
-        if (j + 1 < n_live) {
-          const size_t ph = (size_t)table[j + 1] * kv_heads + kvh;
-          sck_n = __ldg(sc.scale[0] + ph);
-          scv_n = __ldg(sc.scale[1] + ph);
-        }
-      }
-      unsigned char* opk = sm + L::K_OFF + st * L::OP_BYTES;
-      unsigned char* opv = sm + L::V_OFF + st * L::OP_BYTES;
+    // 8-bit pools: the page's two scales (live pages only: a dead page's
+    // sidecars may be NaN)
+    float sck = 0.0f, scv = 0.0f;
+    if constexpr (BKV > PF_BN) {
+      // ---- the 256-row tile: one stage, a page in pieces of 256 rows ----
+      const int box = min(page, BKV);            // rows of a piece's box
+      unsigned char* opk = sm + L::K_OFF;
+      unsigned char* opv = sm + L::V_OFF;
       const unsigned char* rk = L::CODE ? sm + L::CODE_OFF : opk;
       const unsigned char* rv = L::CODE ? sm + L::CODE_OFF + L::CODE_BYTES : opv;
-      if constexpr (L::CODE)
-        mbar_wait(bar_raw, j & 1);
-      else
-        mbar_wait(bar_raw + 8 * st, (j / NST) & 1);
-      // 1. km of column ct over the valid rows, an fp32 sum in row order
-      if (P.beta > 0.0f && ct < D) {
-        float sum = 0.0f;
-        for (int r = 0; r < valid; ++r)
-          sum += raw_elem<OpT, PoolT, BKV, D>(rk, r, ct, sck, shift);
-        km_s[ct] = __fdiv_rn(sum, (float)valid);
-      }
-      named_sync(1, 128);
-      // beta * km of this thread's columns (shift_key's first product)
-      float bkm[8];
+      int loads = 0, handoffs = 0;
+      // rows [row0, row0 + box) of page pid's K (and V) into the stage,
+      // once the consumers release it (2-byte values), or into the code
+      // buffer (and the page's shift sidecars if `side`); every converter
+      // thread is done with the previous load
+      auto load = [&](int pid, int row0, bool with_v, bool side) {
+        if (ct == 0) {
+          if constexpr (L::CODE) {
+            mbar_expect_tx(bar_raw, (with_v ? 2 : 1) * box * D +
+                                        (side ? 2 * D * 4 : 0));
+            tma_load_4d(s_base + L::CODE_OFF, mk, bar_raw, 0, kvh, row0, pid);
+            if (with_v)
+              tma_load_4d(s_base + L::CODE_OFF + L::CODE_BYTES, mv, bar_raw, 0,
+                          kvh, row0, pid);
+            if (side) {
+              const size_t ph = ((size_t)pid * kv_heads + kvh) * D;
+              bulk_load(s_base + L::SHIFT_OFF, sc.shift[0] + ph, D * 4,
+                        bar_raw);
+              bulk_load(s_base + L::SHIFT_OFF + D * 4, sc.shift[1] + ph,
+                        D * 4, bar_raw);
+            }
+          } else {
+            mbar_wait(bar_e, (handoffs & 1) ^ 1);
+            mbar_expect_tx(bar_raw, (with_v ? 2 : 1) * L::NH * box * PF_HALF);
+            for (int half = 0; half < L::NH; ++half) {
+              tma_load_4d(s_base + L::K_OFF + half * BKV * PF_HALF, mk,
+                          bar_raw, 64 * half, kvh, row0, pid);
+              if (with_v)
+                tma_load_4d(s_base + L::V_OFF + half * BKV * PF_HALF, mv,
+                            bar_raw, 64 * half, kvh, row0, pid);
+            }
+          }
+        }
+        mbar_wait(bar_raw, loads & 1);
+        ++loads;
+      };
+      // the staged rows [0, vp) as operands (K', and V if with_v) at the
+      // operand type, zeros past vp (one row per step, as below); then
+      // the stage goes to the consumers
+      auto hand = [&](int vp, bool with_v) {
+        float bkm[8];                  // beta * km of this thread's columns
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        bkm[e] = P.beta > 0.0f ? __fmul_rn(P.beta, km_s[c8 + e]) : 0.0f;
-      // 2. K' = (K - beta km) / sqrt(d) and V at the operand type into
-      //    stage st (in place for 2-byte pools; for codes once the
-      //    consumers release the stage); rows past `valid` (and past the
-      //    page) become zeros; at D 32 the padded half's columns are
-      //    TMA's zeros (2-byte pools) or left as they are (codes): K's
-      //    are past the score GEMM's depth, V's feed only P V columns the
-      //    epilogue never reads
-      //    (one row per step: the converter runs at 56 registers, and
-      //    unrolled steps spill)
-      if constexpr (L::CODE) mbar_wait(bar_e + 8 * st, ((j / NST) & 1) ^ 1);
+        for (int e = 0; e < 8; ++e)
+          bkm[e] = P.beta > 0.0f ? __fmul_rn(P.beta, km_s[c8 + e]) : 0.0f;
+        if constexpr (L::CODE) mbar_wait(bar_e, (handoffs & 1) ^ 1);
 #pragma unroll 1
-      for (int r = ct / CPR; r < BKV; r += RPS) {
-        uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
-        if (r < valid) {
-          kk = raw_chunk<OpT, PoolT, BKV, D>(rk, r, c8, sck, shift);
-          vv = raw_chunk<OpT, PoolT, BKV, D>(rv, r, c8, scv, shift + D);
-          if (P.beta > 0.0f) {
-            OpT* kh = reinterpret_cast<OpT*>(&kk);
+        for (int r = ct / CPR; r < BKV; r += RPS) {
+          uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
+          if (r < vp) {
+            kk = raw_chunk<OpT, PoolT, BKV, D>(rk, r, c8, sck, shift);
+            if (with_v)
+              vv = raw_chunk<OpT, PoolT, BKV, D>(rv, r, c8, scv, shift + D);
+            if (P.beta > 0.0f) {
+              OpT* kh = reinterpret_cast<OpT*>(&kk);
 #pragma unroll
-            for (int e = 0; e < 8; ++e)
-              kh[e] = from_float<OpT>(__fmul_rn(
-                  __fsub_rn(to_float(kh[e]), bkm[e]), P.shift_scale));
+              for (int e = 0; e < 8; ++e)
+                kh[e] = from_float<OpT>(__fmul_rn(
+                    __fsub_rn(to_float(kh[e]), bkm[e]), P.shift_scale));
+            }
           }
+          *reinterpret_cast<uint4*>(opk + swz<BKV>(r, c8)) = kk;
+          if (with_v) *reinterpret_cast<uint4*>(opv + swz<BKV>(r, c8)) = vv;
         }
-        *reinterpret_cast<uint4*>(opk + swz<BKV>(r, c8)) = kk;
-        *reinterpret_cast<uint4*>(opv + swz<BKV>(r, c8)) = vv;
-      }
-      fence_proxy_async();            // the operands are for wgmma
-      mbar_arrive(bar_f + 8 * st);
-      named_sync(1, 128);             // the raw page and km are consumed
-      if (ct == 0) {
+        fence_proxy_async();            // the operands are for wgmma
+        mbar_arrive(bar_f);
+        named_sync(1, 128);             // the staged rows are consumed
+        ++handoffs;
+      };
+      for (int j = 0; j < n_live; ++j) {
+        const int valid = min(page, L_kv - j * page);
+        const int pid = table[j];
+        const int npc = (valid + BKV - 1) / BKV;   // pieces with valid rows
         if constexpr (L::CODE) {
-          if (j + 1 < n_live) issue(j + 1);
+          const size_t ph = (size_t)pid * kv_heads + kvh;
+          sck = __ldg(sc.scale[0] + ph);
+          scv = __ldg(sc.scale[1] + ph);
+        }
+        // 1. km of column ct over the valid rows, an fp32 sum in row order
+        //    (over the pieces: pass 0)
+        float sum = 0.0f;
+        const int km_loads = npc == 1 ? 1 : P.beta > 0.0f ? npc : 0;
+        for (int i = 0; i < km_loads; ++i) {
+          load(pid, i * BKV, npc == 1, i == 0);
+          if (P.beta > 0.0f && ct < D) {
+            for (int r = 0; r < min(BKV, valid - i * BKV); ++r)
+              sum += raw_elem<OpT, PoolT, BKV, D>(rk, r, ct, sck, shift);
+          }
+          if (npc > 1) named_sync(1, 128);   // the piece is summed
+        }
+        if (P.beta > 0.0f && ct < D) km_s[ct] = __fdiv_rn(sum, (float)valid);
+        named_sync(1, 128);
+        // 2. the operands: a page of one piece from the load above; a
+        //    wider page 1 + NH times over its pieces, K' alone (pass 1),
+        //    then K' and V (a pass per 64-column half of V)
+        if (npc == 1) {
+          hand(valid, true);
         } else {
-          // page p into stage p % NST, once the consumers release page
-          // p - NST (NST - 1 pages ahead; one stage: the next page, behind
-          // this one's math)
-          const int p = j + max(NST - 1, 1);
-          if (p < n_live) {
-            if (p >= NST) mbar_wait(bar_e + 8 * ((p - NST) % NST), ((p - NST) / NST) & 1);
-            issue(p);
+          for (int pass = 1; pass <= 1 + L::NH; ++pass) {
+            for (int i = 0; i < npc; ++i) {
+              load(pid, i * BKV, pass > 1,
+                   P.beta == 0.0f && pass == 1 && i == 0);
+              hand(min(BKV, valid - i * BKV), pass > 1);
+            }
           }
         }
       }
-      sck = sck_n;
-      scv = scv_n;
+    } else {
+      const uint32_t page_bytes =
+          L::CODE ? 2 * page * D + 2 * D * 4 : 2 * L::NH * page * PF_HALF;
+      // request page j's raw K and V of kv head kvh: 2-byte values into
+      // operand stage j % NST, codes (and the sidecar shifts) into the code
+      // buffer
+      auto issue = [&](int j) {
+        const int pid = table[j];
+        if constexpr (L::CODE) {
+          const uint32_t dst = s_base + L::CODE_OFF;
+          mbar_expect_tx(bar_raw, page_bytes);
+          tma_load_4d(dst, mk, bar_raw, 0, kvh, 0, pid);
+          tma_load_4d(dst + L::CODE_BYTES, mv, bar_raw, 0, kvh, 0, pid);
+          const size_t ph = ((size_t)pid * kv_heads + kvh) * D;
+          bulk_load(s_base + L::SHIFT_OFF, sc.shift[0] + ph, D * 4, bar_raw);
+          bulk_load(s_base + L::SHIFT_OFF + D * 4, sc.shift[1] + ph, D * 4,
+                    bar_raw);
+        } else {
+          const int st = j % NST;
+          const uint32_t bar = bar_raw + 8 * st;
+          mbar_expect_tx(bar, page_bytes);
+          for (int half = 0; half < L::NH; ++half) {
+            tma_load_4d(s_base + L::K_OFF + st * L::OP_BYTES + half * BKV * PF_HALF,
+                        mk, bar, 64 * half, kvh, 0, pid);
+            tma_load_4d(s_base + L::V_OFF + st * L::OP_BYTES + half * BKV * PF_HALF,
+                        mv, bar, 64 * half, kvh, 0, pid);
+          }
+        }
+      };
+      // in place: pages 0 .. NST - 2 ahead; codes: one page
+      if (ct == 0) {
+        for (int p = 0; p < min(n_live, L::CODE ? 1 : NST - 1); ++p) issue(p);
+      }
+      if constexpr (L::CODE) {
+        if (n_live > 0) {
+          const size_t ph = (size_t)table[0] * kv_heads + kvh;
+          sck = __ldg(sc.scale[0] + ph);
+          scv = __ldg(sc.scale[1] + ph);
+        }
+      }
+      for (int j = 0; j < n_live; ++j) {
+        const int valid = min(page, L_kv - j * page);
+        const int st = j % NST;
+        float sck_n = 0.0f, scv_n = 0.0f;
+        if constexpr (L::CODE) {
+          if (j + 1 < n_live) {
+            const size_t ph = (size_t)table[j + 1] * kv_heads + kvh;
+            sck_n = __ldg(sc.scale[0] + ph);
+            scv_n = __ldg(sc.scale[1] + ph);
+          }
+        }
+        unsigned char* opk = sm + L::K_OFF + st * L::OP_BYTES;
+        unsigned char* opv = sm + L::V_OFF + st * L::OP_BYTES;
+        const unsigned char* rk = L::CODE ? sm + L::CODE_OFF : opk;
+        const unsigned char* rv = L::CODE ? sm + L::CODE_OFF + L::CODE_BYTES : opv;
+        if constexpr (L::CODE)
+          mbar_wait(bar_raw, j & 1);
+        else
+          mbar_wait(bar_raw + 8 * st, (j / NST) & 1);
+        // 1. km of column ct over the valid rows, an fp32 sum in row order
+        if (P.beta > 0.0f && ct < D) {
+          float sum = 0.0f;
+          for (int r = 0; r < valid; ++r)
+            sum += raw_elem<OpT, PoolT, BKV, D>(rk, r, ct, sck, shift);
+          km_s[ct] = __fdiv_rn(sum, (float)valid);
+        }
+        named_sync(1, 128);
+        // beta * km of this thread's columns (shift_key's first product)
+        float bkm[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          bkm[e] = P.beta > 0.0f ? __fmul_rn(P.beta, km_s[c8 + e]) : 0.0f;
+        // 2. K' = (K - beta km) / sqrt(d) and V at the operand type into
+        //    stage st (in place for 2-byte pools; for codes once the
+        //    consumers release the stage); rows past `valid` (and past the
+        //    page) become zeros; at D 32 the padded half's columns are
+        //    TMA's zeros (2-byte pools) or left as they are (codes): K's
+        //    are past the score GEMM's depth, V's feed only P V columns the
+        //    epilogue never reads
+        //    (one row per step: the converter runs at 56 registers, and
+        //    unrolled steps spill)
+        if constexpr (L::CODE) mbar_wait(bar_e + 8 * st, ((j / NST) & 1) ^ 1);
+#pragma unroll 1
+        for (int r = ct / CPR; r < BKV; r += RPS) {
+          uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
+          if (r < valid) {
+            kk = raw_chunk<OpT, PoolT, BKV, D>(rk, r, c8, sck, shift);
+            vv = raw_chunk<OpT, PoolT, BKV, D>(rv, r, c8, scv, shift + D);
+            if (P.beta > 0.0f) {
+              OpT* kh = reinterpret_cast<OpT*>(&kk);
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                kh[e] = from_float<OpT>(__fmul_rn(
+                    __fsub_rn(to_float(kh[e]), bkm[e]), P.shift_scale));
+            }
+          }
+          *reinterpret_cast<uint4*>(opk + swz<BKV>(r, c8)) = kk;
+          *reinterpret_cast<uint4*>(opv + swz<BKV>(r, c8)) = vv;
+        }
+        fence_proxy_async();            // the operands are for wgmma
+        mbar_arrive(bar_f + 8 * st);
+        named_sync(1, 128);             // the raw page and km are consumed
+        if (ct == 0) {
+          if constexpr (L::CODE) {
+            if (j + 1 < n_live) issue(j + 1);
+          } else {
+            // page p into stage p % NST, once the consumers release page
+            // p - NST (NST - 1 pages ahead)
+            const int p = j + NST - 1;
+            if (p < n_live) {
+              if (p >= NST) mbar_wait(bar_e + 8 * ((p - NST) % NST), ((p - NST) / NST) & 1);
+              issue(p);
+            }
+          }
+        }
+        sck = sck_n;
+        scv = scv_n;
+      }
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
@@ -506,67 +696,137 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
 
     const uint32_t q_addr = s_base + L::Q_OFF + cw * 64 * PF_HALF;
     if (n_live > 0) mbar_wait(bar_q, 0);
+    bool live[2];
+    RowStep rs[2];
+    int h = 0;     // stage hand-offs taken
     for (int j = 0; j < n_live; ++j) {
-      const int st = j % NST;
       const int col0 = j * page;
       const int valid = min(page, L_kv - col0);
-      mbar_wait(bar_f + 8 * st, (j / NST) & 1);
       // a page wholly in the future of the warpgroup's rows (or a
       // warpgroup past the chunk) changes none of its rows
-      if (wg_first <= wg_last && col0 <= wg_last) {
+      const bool act = wg_first <= wg_last && col0 <= wg_last;
+      if constexpr (BKV > PF_BN) {
+        // ---- the 256-row tile: a page of npc pieces (the note above);
+        // one hand-off serves every pass of a page of one piece ----
+        const int npc = (valid + BKV - 1) / BKV;
+        const bool whole = npc == 1;
+        if (!act) {
+          for (int u = 0; u < (whole ? 1 : (1 + L::NH) * npc); ++u, ++h) {
+            mbar_wait(bar_f, h & 1);
+            if (lane == 0) mbar_arrive(bar_e);
+          }
+          continue;
+        }
+        const uint32_t k_addr = s_base + L::K_OFF;
+        const uint32_t v_addr = s_base + L::V_OFF;
+        constexpr int NQ = BKV / 64;      // 64-column quarters of a piece
+        constexpr int NV = D < 64 ? D / 2 : 32;   // P V sums of a V half
+        float ssum[2] = {0.0f, 0.0f}, mx[2] = {-INFINITY, -INFINITY};
+        float lsum[2] = {0.0f, 0.0f};
+        float s[NS];
+        uint32_t pa[16];
+        // 1-3. the page's sums over the valid columns and maxima over the
+        // visible ones (the scores themselves are not kept)
+        for (int i = 0; i < npc; ++i) {
+          mbar_wait(bar_f, h & 1);
+#pragma unroll 1
+          for (int qt = 0; qt < NQ; ++qt) {
+            const int c = i * BKV + 64 * qt;   // the quarter's page column
+            page_gemm_scores<BKV, 64, D, M::kBF16>(
+                s, q_addr, k_addr + 64 * qt * PF_HALF);
+            page_scores<NS, true, M::kScoreHalf>(s, ssum, mx, 2 * quad,
+                                                 valid - c, col0 + c,
+                                                 rowpos, P);
+          }
+          if (!whole) {
+            if (lane == 0) mbar_arrive(bar_e);
+            ++h;
+          }
+        }
+        quad_reduce(ssum, mx);
+        // 4-6. per 64-column half vh of V: each quarter's scores again
+        // (the same bits), its P at the page's maxima, and P V into one
+        // fp32 sum over the page; after the first half the rows' step;
+        // then the half's accumulator columns
+#pragma unroll
+        for (int vh = 0; vh < L::NH; ++vh) {
+          float pv[32];
+          for (int i = 0; i < npc; ++i) {
+            if (!whole) mbar_wait(bar_f, h & 1);
+#pragma unroll 1
+            for (int qt = 0; qt < NQ; ++qt) {
+              const int c = i * BKV + 64 * qt;
+              page_gemm_scores<BKV, 64, D, M::kBF16>(
+                  s, q_addr, k_addr + 64 * qt * PF_HALF);
+              float ssum_q[2] = {0.0f, 0.0f}, mx_q[2] = {0.0f, 0.0f};
+              float lsum_q[2] = {0.0f, 0.0f};
+              page_scores<NS, true, M::kScoreHalf>(s, ssum_q, mx_q, 2 * quad,
+                                                   valid - c, col0 + c,
+                                                   rowpos, P);
+              page_probs<NS, H16, M>(s, mx, sh, vh ? lsum_q : lsum, pa);
+              wgmma_fence();
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                wgmma_pv<64, M::kBF16>(
+                    pv, &pa[4 * kk],
+                    gmma_desc(v_addr + vh * BKV * PF_HALF +
+                                  (64 * qt + 16 * kk) * PF_HALF,
+                              BKV * PF_HALF, 1024),
+                    (i | qt | kk) != 0);
+              wgmma_commit();
+              wgmma_wait_all();
+              fence_regs<32>(pv);
+              fence_regs<16>(pa);
+            }
+            if (!whole) {
+              if (lane == 0) mbar_arrive(bar_e);
+              ++h;
+            }
+          }
+          if (vh == 0)
+            page_rows(ssum, mx, lsum, valid, col0, rowpos, m, l, f, cnt,
+                      live, rs, P);
+          page_acc<NV, H16>(acc + 32 * vh, acc2 + 16 * vh, pv, live, rs, ah);
+        }
+        if (whole) {
+          if (lane == 0) mbar_arrive(bar_e);   // the stage is consumed
+          ++h;
+        }
+      } else {
+        // ---- the 64- and 128-row tiles: a page in one stage ----
+        const int st = h % NST;
+        mbar_wait(bar_f + 8 * st, (h / NST) & 1);
+        ++h;
+        if (!act) {
+          if (lane == 0) mbar_arrive(bar_e + 8 * st);
+          continue;
+        }
         const uint32_t k_addr = s_base + L::K_OFF + st * L::OP_BYTES;
         const uint32_t v_addr = s_base + L::V_OFF + st * L::OP_BYTES;
 
         float ssum[2] = {0.0f, 0.0f}, mx[2] = {-INFINITY, -INFINITY};
         float lsum[2] = {0.0f, 0.0f};
         // the page's P as the P V product's A fragments (k16 step kk:
-        // pa[4 kk ..], the halves' steps one after the other)
+        // pa[4 kk ..])
         uint32_t pa[BKV / 4];
         float pv[L::W / 2];
         float s[NS];
-        if constexpr (NHALF == 1) {
-          // 1. S = Q K'^T
-          page_gemm_scores<BKV, BN, D, M::kBF16>(s, q_addr, k_addr);
+        // 1. S = Q K'^T
+        page_gemm_scores<BKV, BKV, D, M::kBF16>(s, q_addr, k_addr);
 
-          // 2-3. score store, pseudo-average over the valid columns, then
-          // the causal mask and the local max (masks only where a column
-          // is invalid or in some row's future)
-          if (valid < BKV || col0 + valid - 1 > wg_first)
-            page_scores<NS, true, M::kScoreHalf>(s, ssum, mx, 2 * quad, valid,
-                                                 col0, rowpos, P);
-          else
-            page_scores<NS, false, M::kScoreHalf>(s, ssum, mx, 2 * quad,
-                                                  valid, col0, rowpos, P);
-          quad_reduce(ssum, mx);
-          // 4. local softmax at the statistic dtype, P at the score dtype,
-          // then at the operand type packed as the P V product's A operand
-          page_probs<NS, H16, M>(s, mx, sh, lsum, pa);
-        } else {
-          // 1-3. the page's statistics over both halves: sums over the
-          // valid columns, maxima over the visible ones (the scores
-          // themselves are not kept)
-#pragma unroll
-          for (int hf = 0; hf < NHALF; ++hf) {
-            page_gemm_scores<BKV, BN, D, M::kBF16>(
-                s, q_addr, k_addr + hf * BN * PF_HALF);
-            page_scores<NS, true, M::kScoreHalf>(s, ssum, mx, 2 * quad,
-                                                 valid - hf * BN,
-                                                 col0 + hf * BN, rowpos, P);
-          }
-          quad_reduce(ssum, mx);
-          // 4. each half's scores again (the same bits) and its P at the
-          // page's maxima
-#pragma unroll
-          for (int hf = 0; hf < NHALF; ++hf) {
-            page_gemm_scores<BKV, BN, D, M::kBF16>(
-                s, q_addr, k_addr + hf * BN * PF_HALF);
-            float ssum_h[2] = {0.0f, 0.0f}, mx_h[2] = {0.0f, 0.0f};
-            page_scores<NS, true, M::kScoreHalf>(s, ssum_h, mx_h, 2 * quad,
-                                                 valid - hf * BN,
-                                                 col0 + hf * BN, rowpos, P);
-            page_probs<NS, H16, M>(s, mx, sh, lsum, &pa[hf * (NS / 2)]);
-          }
-        }
+        // 2-3. score store, pseudo-average over the valid columns, then
+        // the causal mask and the local max (masks only where a column
+        // is invalid or in some row's future)
+        if (valid < BKV || col0 + valid - 1 > wg_first)
+          page_scores<NS, true, M::kScoreHalf>(s, ssum, mx, 2 * quad, valid,
+                                               col0, rowpos, P);
+        else
+          page_scores<NS, false, M::kScoreHalf>(s, ssum, mx, 2 * quad,
+                                                valid, col0, rowpos, P);
+        quad_reduce(ssum, mx);
+        // 4. local softmax at the statistic dtype, P at the score dtype,
+        // then at the operand type packed as the P V product's A operand
+        page_probs<NS, H16, M>(s, mx, sh, lsum, pa);
 
         // 5. P V into a fresh fp32 sum (V MN-major: at D 128 its two
         // 64-column halves are the descriptor's leading-dimension step; at
@@ -580,30 +840,8 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
                                              BKV * PF_HALF, 1024),
                                    kk > 0);
         wgmma_commit();
-
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-#pragma unroll
-          for (int o = 1; o <= 2; o <<= 1)
-            lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], o);
-        }
-        // a row is live on the page iff the page's first (valid) column
-        // is visible to it; dead rows keep their state and count
-        bool live[2];
-        RowStep rs[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          live[r] = rowpos[r] >= col0;
-          const float sbar = rnd(__fdiv_rn(ssum[r], (float)valid), sh);
-          rs[r] = row_update(m[r], l[r], f[r], cnt[r], sbar, mx[r],
-                             rnd(lsum[r], sh), P);
-          if (live[r]) {
-            m[r] = rs[r].m;
-            l[r] = rs[r].l;
-            f[r] = rs[r].f;
-            cnt[r] += 1;
-          }
-        }
+        page_rows(ssum, mx, lsum, valid, col0, rowpos, m, l, f, cnt, live, rs,
+                  P);
 
         wgmma_wait_all();
         fence_regs<L::W / 2>(pv);
@@ -612,28 +850,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
 
         // 6. acc <- e_prev * acc + e_cur * pv at the accumulator dtype,
         // on live rows only
-        if constexpr (H16) {
-          const uint32_t ep[2] = {h2_splat(rs[0].e_prev), h2_splat(rs[1].e_prev)};
-          const uint32_t ec[2] = {h2_splat(rs[0].e_cur), h2_splat(rs[1].e_cur)};
-#pragma unroll
-          for (int i2 = 0; i2 < D / 4; ++i2) {
-            const int r = i2 & 1;
-            const uint32_t pv2 =
-                h2_bits(__floats2half2_rn(pv[2 * i2], pv[2 * i2 + 1]));
-            const uint32_t nw = h2_add(h2_mul(ep[r], acc2[i2]), h2_mul(ec[r], pv2));
-            acc2[i2] = live[r] ? nw : acc2[i2];
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < D / 2; ++e) {
-            const int r = (e >> 1) & 1;
-            if (live[r])
-              acc[e] = acc_update(acc[e], rnd(pv[e], ah), rs[r].e_prev,
-                                  rs[r].e_cur, ah);
-          }
-        }
-      } else if (lane == 0) {
-        mbar_arrive(bar_e + 8 * st);
+        page_acc<D / 2, H16>(acc, acc2, pv, live, rs, ah);
       }
     }
 
@@ -673,7 +890,8 @@ constexpr CUtensorMapDataType kMapType =
                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
 // Rank-4 map of a contiguous (P, page, KVH, D) pool, innermost first:
-// boxes of one kv head's `page` rows of one page, 64 columns with the
+// boxes of one kv head's `page` rows of one page (at most PF_BOX: a wider
+// page comes in pieces, zero past its last row), 64 columns with the
 // 128-byte swizzle for 2-byte values (at D 32 zero past column 32), all D
 // unswizzled for 8-bit codes.
 template <typename PoolT, int D>
@@ -685,7 +903,7 @@ static bool make_pool_map(CUtensorMap* map, const void* pool, int num_pages,
   const cuuint64_t row = (cuuint64_t)D * ES;
   const cuuint64_t strides[3] = {row, row * kv_heads, row * kv_heads * page};
   const cuuint32_t box[4] = {(cuuint32_t)(ES == 1 ? D : 64), 1,
-                             (cuuint32_t)page, 1};
+                             (cuuint32_t)min(page, PF_BOX), 1};
   return encode_map(map, kMapType<PoolT>, pool, dims, strides, box,
                     ES == 1 ? CU_TENSOR_MAP_SWIZZLE_NONE
                             : CU_TENSOR_MAP_SWIZZLE_128B);
@@ -749,8 +967,8 @@ static int launch_kind(const void* q, const void* k_pages, const void* v_pages,
 }
 
 // Pages of up to 64 rows run in the 64-row tile, up to 128 in the
-// 128-row one (pasa_paged_prefill.cu); WIDE: 129 to 256 in the 256-row
-// one (pasa_paged_prefill_wide.cu).
+// 128-row one (pasa_paged_prefill.cu); WIDE: 129 rows or more in the
+// 256-row one (pasa_paged_prefill_wide.cu).
 template <typename PoolT, int D, bool WIDE>
 static int launch_pool(const void* q, const void* k_pages, const void* v_pages,
                        const SidecarPtrs& sc, const void* page_table,
@@ -770,7 +988,7 @@ static int launch_pool(const void* q, const void* k_pages, const void* v_pages,
 
 // The body of the C entry points (bound with ctypes): q, the pools and
 // the sidecars are contiguous (pools (num_pages, page, kv_heads,
-// head_dim), head_dim 32, 64 or 128; page 1 to 128, or WIDE 129 to 256);
+// head_dim), head_dim 32, 64 or 128; page 1 to 128, or WIDE 129 or more);
 // the four sidecar pointers are read only for an 8-bit pool_kind
 // (PoolKind), which RAW (bf16, fp16) or CODES (int8, fp8) must admit.  q
 // and out are at the policy's input dtype (bf16 if op_bf16, else fp16),
@@ -787,9 +1005,9 @@ static int prefill_entry(
     float post_scale, int stat_half, int acc_half, int score_half,
     int op_bf16, void* stream) {
   const int mode = mode_id(score_half, op_bf16);
-  const int page_lo = WIDE ? PF_BN + 1 : 1, page_hi = WIDE ? PF_MAX_PAGE : PF_BN;
+  const bool page_ok = WIDE ? page > PF_BN : page >= 1 && page <= PF_BN;
   if (batch < 1 || heads < 1 || kv_heads < 1 || heads % kv_heads ||
-      chunk < 1 || page < page_lo || page > page_hi || max_pages < 1 ||
+      chunk < 1 || !page_ok || max_pages < 1 ||
       num_pages < 1 || (chunk + PF_BQ - 1) / PF_BQ > 65535 || mode < 0 ||
       !head_dim_built(head_dim))
     return (int)cudaErrorInvalidValue;

@@ -47,6 +47,21 @@
 //   * shared memory: M block^2 x 2 bytes, keys and output block x 2 W
 //     bytes each (W = tile_width(D); 96 KB at block 128 and D 128), so two
 //     CTAs fit on an SM.
+//
+// The algebraic mode (shift_kv_mean_launch; the reference's
+// use_gemm_shift=False, repro/core/pasa.py blocked_attention, which
+// computes it in XLA beside this kernel's GEMM): per block, the key mean
+// km is an fp32 column sum over all `block` rows in row order divided by
+// `block` (the zero rows that pad S2 to whole blocks count, as the
+// reference's mean over the padded block counts them), then K' =
+// OpT((k - beta km) / sqrt(d)) in fp32 rounded once (shift_key, the
+// decode and prefill converters' arithmetic), the attention kernel
+// recovering with the ideal beta / (1 - beta).  bf16 keys under fp16
+// operands are rounded to fp16 first.  Also bound by bytes (a few
+// operations an element); one CTA of 256 threads per (b * kvh, block)
+// stages the block at the operand dtype in shared memory by 16-byte
+// loads, D threads sum its columns, and every thread shifts and stores
+// its 16-byte row segments.
 
 #include "hopper.cuh"
 
@@ -260,6 +275,87 @@ static int launch_block(const void* m, const void* k, void* out, int batch,
 #undef PASA_SHIFT_LAUNCH
 }
 
+constexpr int SKM_THREADS = 256;
+
+// The algebraic mode: K' = OpT((k - beta km) / sqrt(d)) per block of BLOCK
+// rows, km the block's column mean (the note above).  k is read through
+// its element strides; out is (B, KVH, S2, D) contiguous.
+template <typename OpT, typename KeyT, int BLOCK, int D>
+__global__ void __launch_bounds__(SKM_THREADS)
+shift_kv_mean_kernel(const KeyT* __restrict__ k, OpT* __restrict__ out,
+                     int kv_heads, int s2, long long sb, long long sh,
+                     long long ss, Policy P) {
+  constexpr int CPR = D / 8, RPS = SKM_THREADS / CPR;   // 16-byte segments
+  __shared__ __align__(16) OpT tile[BLOCK * D];
+  __shared__ float km[D];
+  const int bh = blockIdx.x, j = blockIdx.y;
+  const int b = bh / kv_heads, h = bh % kv_heads;
+  const int t = threadIdx.x, c8 = (t % CPR) * 8;
+  const KeyT* src = k + b * sb + h * sh + (long long)j * BLOCK * ss;
+  for (int r = t / CPR; r < BLOCK; r += RPS)
+    *reinterpret_cast<uint4*>(&tile[r * D + c8]) =
+        load8_op<OpT>(src + r * ss + c8);
+  __syncthreads();
+  if (t < D) {
+    float sum = 0.0f;
+    for (int r = 0; r < BLOCK; ++r) sum += to_float(tile[r * D + t]);
+    km[t] = __fdiv_rn(sum, (float)BLOCK);
+  }
+  __syncthreads();
+  OpT* dst = out + ((long long)bh * s2 + (long long)j * BLOCK) * D;
+  for (int r = t / CPR; r < BLOCK; r += RPS) {
+    uint4 x = *reinterpret_cast<const uint4*>(&tile[r * D + c8]);
+    OpT* e8 = reinterpret_cast<OpT*>(&x);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      e8[e] = shift_key<OpT>(to_float(e8[e]), km[c8 + e], P);
+    *reinterpret_cast<uint4*>(dst + r * D + c8) = x;
+  }
+}
+
+template <typename OpT, typename KeyT>
+static int launch_mean(const void* k, void* out, int batch, int kv_heads,
+                       int s2, int block, int head_dim, long long sb,
+                       long long sh, long long ss, const Policy& P,
+                       cudaStream_t stream) {
+  const dim3 grid(batch * kv_heads, s2 / block);
+  const KeyT* kk = static_cast<const KeyT*>(k);
+  OpT* o = static_cast<OpT*>(out);
+#define PASA_SHIFT_MEAN(BLOCK, D)                                          \
+  shift_kv_mean_kernel<OpT, KeyT, BLOCK, D><<<grid, SKM_THREADS, 0, stream>>>( \
+      kk, o, kv_heads, s2, sb, sh, ss, P)
+  if (head_dim == 128) {
+    if (block == 128) PASA_SHIFT_MEAN(128, 128);
+    else PASA_SHIFT_MEAN(64, 128);
+  } else if (head_dim == 64) {
+    if (block == 128) PASA_SHIFT_MEAN(128, 64);
+    else PASA_SHIFT_MEAN(64, 64);
+  } else {
+    if (block == 128) PASA_SHIFT_MEAN(128, 32);
+    else PASA_SHIFT_MEAN(64, 32);
+  }
+#undef PASA_SHIFT_MEAN
+  return (int)cudaGetLastError();
+}
+
+// The arguments both entry points check: sizes, block, head width,
+// dtypes (fp16 keys under bf16 operands are not taken), 16-byte aligned
+// pointers, strides multiples of 8.
+static bool shift_args_ok(const void* k, const void* out, int batch,
+                          int kv_heads, int s2, int block, int head_dim,
+                          long long sb, long long sh, long long ss,
+                          int op_is_bf16, int k_is_bf16) {
+  bool ok = batch >= 1 && kv_heads >= 1 && (block == 64 || block == 128) &&
+            head_dim_built(head_dim) &&
+            s2 >= block && !(s2 % block) && s2 / block <= 65535 &&
+            !(op_is_bf16 && !k_is_bf16) &&
+            !(reinterpret_cast<uintptr_t>(k) % 16) &&
+            !(reinterpret_cast<uintptr_t>(out) % 16);
+  const long long st[3] = {sb, sh, ss};
+  for (int n = 0; n < 3; ++n) ok = ok && st[n] >= 0 && !(st[n] % 8);
+  return ok;
+}
+
 }  // namespace pasa
 
 // Plain C entry point (bound with ctypes).  M is (block, block)
@@ -278,16 +374,10 @@ extern "C" int shift_kv_launch(const void* m, const void* k, void* out,
                                long long ss, int m_is_bf16, int k_is_bf16,
                                void* stream) {
   using namespace pasa;
-  bool ok = batch >= 1 && kv_heads >= 1 && (block == 64 || block == 128) &&
-            head_dim_built(head_dim) &&
-            s2 >= block && !(s2 % block) && s2 / block <= 65535 &&
-            !(m_is_bf16 && !k_is_bf16) &&
-            !(reinterpret_cast<uintptr_t>(m) % 16) &&
-            !(reinterpret_cast<uintptr_t>(k) % 16) &&
-            !(reinterpret_cast<uintptr_t>(out) % 16);
-  const long long st[3] = {sb, sh, ss};
-  for (int n = 0; n < 3; ++n) ok = ok && st[n] >= 0 && !(st[n] % 8);
-  if (!ok) return (int)cudaErrorInvalidValue;
+  if (!shift_args_ok(k, out, batch, kv_heads, s2, block, head_dim, sb, sh, ss,
+                     m_is_bf16, k_is_bf16) ||
+      reinterpret_cast<uintptr_t>(m) % 16)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m_is_bf16)
     return launch_block<__nv_bfloat16, __nv_bfloat16>(
@@ -297,4 +387,32 @@ extern "C" int shift_kv_launch(const void* m, const void* k, void* out,
                                                block, head_dim, sb, sh, ss, s);
   return launch_block<__half, __half>(m, k, out, batch, kv_heads, s2, block,
                                       head_dim, sb, sh, ss, s);
+}
+
+// Plain C entry point of the algebraic mode (bound with ctypes): keys as
+// for shift_kv_launch, operands bf16 if op_is_bf16 (else fp16), beta in
+// [0, 1) and shift_scale the fp32 1/sqrt(head_dim).  The output is (B, KVH,
+// S2, head_dim) at the operand dtype, contiguous.  Returns the
+// cudaError_t of the launch (0: queued on `stream`).
+extern "C" int shift_kv_mean_launch(const void* k, void* out, int batch,
+                                    int kv_heads, int s2, int block,
+                                    int head_dim, long long sb, long long sh,
+                                    long long ss, int op_is_bf16,
+                                    int k_is_bf16, float beta,
+                                    float shift_scale, void* stream) {
+  using namespace pasa;
+  if (!shift_args_ok(k, out, batch, kv_heads, s2, block, head_dim, sb, sh, ss,
+                     op_is_bf16, k_is_bf16) ||
+      !(beta >= 0.0f && beta < 1.0f))
+    return (int)cudaErrorInvalidValue;
+  const Policy P = make_policy(beta, 0.0f, shift_scale, 0.0f, 0, 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (op_is_bf16)
+    return launch_mean<__nv_bfloat16, __nv_bfloat16>(
+        k, out, batch, kv_heads, s2, block, head_dim, sb, sh, ss, P, s);
+  if (k_is_bf16)
+    return launch_mean<__half, __nv_bfloat16>(k, out, batch, kv_heads, s2,
+                                              block, head_dim, sb, sh, ss, P, s);
+  return launch_mean<__half, __half>(k, out, batch, kv_heads, s2, block,
+                                     head_dim, sb, sh, ss, P, s);
 }

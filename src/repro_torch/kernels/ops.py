@@ -43,7 +43,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.beta import DEFAULT_BETA
+from repro_torch.core.beta import DEFAULT_BETA, ideal_invariance
 from repro_torch.core.collectives import all_gather, shard
 from repro_torch.core.precision import FP16, PrecisionPolicy
 from repro_torch.core.shifting import effective_invariance, shifting_matrix
@@ -280,8 +280,9 @@ def pasa_paged_prefill(
 
     The chunk's K/V must already be written into its pages; the B rows may
     belong to different requests, and a pad row (``kv_len == 0``) emits
-    zeros.  A page is one PASA block; the CUDA kernel takes pages of 1 to
-    256 rows.  The four sidecars select the quantized mode."""
+    zeros.  A page is one PASA block, of any size (the CUDA kernel streams
+    a page over 256 rows through its stage in pieces).  The four sidecars
+    select the quantized mode."""
     if q.dim() != 4:
         raise ValueError("q must be (B, H, CS, D)")
     _check_pages(k_pages, v_pages)
@@ -318,11 +319,6 @@ def _paged_prefill(q, k_pages, v_pages, page_table, chunk_start, kv_len,
         return q.new_empty(q.shape, dtype=policy.out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"no pasa_paged_prefill for device {q.device}")
-    if k_pages.shape[1] > _prefill.MAX_PAGE:
-        raise NotImplementedError(
-            f"the CUDA prefill kernel takes pages of 1 to {_prefill.MAX_PAGE} "
-            f"rows (one PASA block a page), got {k_pages.shape[1]}"
-        )
     q, ints = _cuda_inputs(
         "paged prefill", q, k_pages, v_pages,
         {"page_table": page_table, "chunk_start": chunk_start,
@@ -476,25 +472,32 @@ def shift_kv(
     beta: float = DEFAULT_BETA,
     block_kv: int = 128,
     policy: PrecisionPolicy = FP16,
+    gemm_shift: bool = True,
 ) -> torch.Tensor:
     """Standalone K pre-processing (Algorithm 1 lines 5-7): K'_j = M K_j
-    with the shifting matrix at ``policy.input_dtype``."""
+    with the shifting matrix at ``policy.input_dtype``; with
+    ``gemm_shift=False`` the algebraic (K_j - beta * mean(K_j)) / sqrt(d),
+    the mean over all the block's rows (the reference's
+    ``use_gemm_shift=False``)."""
     if k.dim() != 4:
         raise ValueError("k must be (B, KVH, S2, D)")
     if k.shape[2] % block_kv:
         raise ValueError(f"S2={k.shape[2]} not divisible by block_kv={block_kv}")
     return run_op("shift_kv", _shift_kv_cost, _shift_kv, k, beta, block_kv,
-                  policy)
+                  policy, gemm_shift)
 
 
-def _shift_kv_cost(k, beta, block_kv, policy):
+def _shift_kv_cost(k, beta, block_kv, policy, gemm_shift):
     return cost.shift_kv_cost(k.numel(), k.element_size(), block_kv,
-                              out_itemsize=policy.input_dtype.itemsize)
+                              out_itemsize=policy.input_dtype.itemsize,
+                              gemm_shift=gemm_shift)
 
 
-def _shift_kv(k, beta, block_kv, policy):
+def _shift_kv(k, beta, block_kv, policy, gemm_shift):
     d = k.shape[-1]
     if k.device.type == "cpu":
+        if not gemm_shift:
+            return _shift.shift_kv_mean_plain(k, beta, block_kv, policy)
         m = shifting_matrix(block_kv, d, beta, policy.input_dtype)
         return _shift.shift_kv_plain(m, k.to(policy.input_dtype), block_kv,
                                      out_dtype=policy.input_dtype)
@@ -514,9 +517,16 @@ def _shift_kv(k, beta, block_kv, policy):
     if k.dtype != op and not (op == torch.float16 and k.dtype == torch.bfloat16):
         k = k.to(op)
     _cuda_rows("k", k, k.device)
-    m = _shift.device_matrix(block_kv, d, float(beta), op, k.device)
-    out = _shift.kernel_call(m, k, block_kv=block_kv)
-    _count(shift_kv, _shift.mode_name(k.dtype, op, block_kv, d))
+    if gemm_shift:
+        m = _shift.device_matrix(block_kv, d, float(beta), op, k.device)
+        out = _shift.kernel_call(m, k, block_kv=block_kv)
+    else:
+        if not 0.0 <= beta < 1.0:
+            raise ValueError(f"beta must be in [0, 1), got {beta}")
+        out = _shift.kernel_call_mean(
+            k, beta=beta, block_kv=block_kv, op_dtype=op,
+            shift_scale=_decode.policy_scalars(beta, policy, d)[2])
+    _count(shift_kv, _shift.mode_name(k.dtype, op, block_kv, d, gemm_shift))
     return out
 
 
@@ -525,7 +535,7 @@ shift_kv.launches_by_mode = {}
 
 
 def _attention(q, k, v, *, beta, policy, block_q, block_kv, causal,
-               kv_valid, wrapper):
+               kv_valid, wrapper, gemm_shift=True):
     """The shift-KV pass (beta > 0) then the fused attention sweep."""
     _check(q, k, v)
     s2 = k.shape[2]
@@ -542,18 +552,18 @@ def _attention(q, k, v, *, beta, policy, block_q, block_kv, causal,
     return run_op(wrapper.__name__, _attention_cost, _attention_call, q, k,
                   v, beta=beta, policy=policy, block_q=block_q,
                   block_kv=block_kv, causal=causal, kv_valid=kv_valid,
-                  wrapper=wrapper)
+                  wrapper=wrapper, gemm_shift=gemm_shift)
 
 
 def _attention_cost(q, k, v, *, beta, policy, block_q, block_kv, causal,
-                    kv_valid, wrapper):
+                    kv_valid, wrapper, gemm_shift):
     return attention_op_cost(q, k, beta=beta, policy=policy,
                              block_kv=block_kv, causal=causal,
-                             kv_valid=kv_valid)
+                             kv_valid=kv_valid, gemm_shift=gemm_shift)
 
 
 def attention_op_cost(q, k, *, beta, policy, block_kv, causal, kv_valid,
-                      backward=False):
+                      backward=False, gemm_shift=True):
     """(bytes, flops) of one attention op call (``kernels.cost``): the
     sweep over K' and V, and the shift-KV pass when beta > 0; for the
     plain-version backward of ``kernels.train_attention``,
@@ -569,17 +579,17 @@ def attention_op_cost(q, k, *, beta, policy, block_kv, causal, kv_valid,
                 int(cost.BACKWARD_FACTOR * flops))
     if beta > 0.0:
         sb, sf = cost.shift_kv_cost(k.numel(), k.element_size(), block_kv,
-                                    out_itemsize=item)
+                                    out_itemsize=item, gemm_shift=gemm_shift)
         nbytes, flops = nbytes + sb, flops + sf
     return nbytes, flops
 
 
 def _attention_call(q, k, v, *, beta, policy, block_q, block_kv, causal,
-                    kv_valid, wrapper):
+                    kv_valid, wrapper, gemm_shift):
     if q.device.type == "cpu":
         return _attn.attention_plain(q, k, v, beta=beta, policy=policy,
                                      block_kv=block_kv, causal=causal,
-                                     kv_valid=kv_valid)
+                                     kv_valid=kv_valid, gemm_shift=gemm_shift)
     if q.device.type == "meta":
         return q.new_empty(q.shape, dtype=policy.out_dtype)
     if q.device.type != "cuda":
@@ -593,16 +603,21 @@ def _attention_call(q, k, v, *, beta, policy, block_q, block_kv, causal,
     _head_dim("attention", d, _decode.HEAD_DIMS)
     op = policy.input_dtype
     # the recovery multiplier of the GEMM shift is the invariance the
-    # rounded M realizes, not the ideal beta/(1-beta)
-    inva = (effective_invariance(block_kv, d, beta, op)
-            if beta > 0.0 else 0.0)
+    # rounded M realizes; the algebraic shift's the ideal beta/(1-beta)
+    if beta == 0.0:
+        inva = 0.0
+    elif gemm_shift:
+        inva = effective_invariance(block_kv, d, beta, op)
+    else:
+        inva = ideal_invariance(beta)
     _decode.policy_scalars(beta, policy, d, inva)   # raises before a launch
     mode = _decode.mode_name(policy, k.dtype, d)
     q, v = q.to(op), v.to(op)
     for name, x in (("q", q), ("v", v)):
         _cuda_rows(name, x, q.device)
     if beta > 0.0:
-        k_sh = shift_kv(k, beta=beta, block_kv=block_kv, policy=policy)
+        k_sh = shift_kv(k, beta=beta, block_kv=block_kv, policy=policy,
+                        gemm_shift=gemm_shift)
     else:
         k_sh = k.to(op)
         _cuda_rows("k", k_sh, q.device)
@@ -624,13 +639,17 @@ def pasa_attention(
     block_kv: int = 128,
     causal: bool = False,
     kv_valid: Optional[int] = None,
+    gemm_shift: bool = True,
 ) -> torch.Tensor:
     """Fused PASA attention: shift-KV GEMM pass + online-recovery sweep.
     S1 % block_q == 0 and S2 % block_kv == 0, else ValueError; key columns
-    at or past ``kv_valid`` (S2 - block_kv < kv_valid <= S2) are padding."""
+    at or past ``kv_valid`` (S2 - block_kv < kv_valid <= S2) are padding.
+    ``gemm_shift=False``: the algebraic shift (its mean over the whole
+    block, pad rows included) and the ideal invariance beta/(1-beta), the
+    reference's ``blocked_attention(use_gemm_shift=False)``."""
     return _attention(q, k, v, beta=beta, policy=policy, block_q=block_q,
                       block_kv=block_kv, causal=causal, kv_valid=kv_valid,
-                      wrapper=pasa_attention)
+                      wrapper=pasa_attention, gemm_shift=gemm_shift)
 
 
 pasa_attention.launches = 0

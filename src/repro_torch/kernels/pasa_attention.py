@@ -19,7 +19,8 @@ Counterpart of ``repro.kernels.pasa_attention`` (Algorithm 1 lines 8-23).
     scores P enters the P V product rounded to that dtype (the source's
     note).
   * :func:`attention_plain` is the port of the reference's
-    ``ref.attention_ref``: RAW keys, the GEMM shift and
+    ``ref.attention_ref``: RAW keys, the GEMM shift (or, with
+    ``gemm_shift=False``, the algebraic one) and
     ``core.pasa.blocked_attention`` on K/V expanded to the H query heads,
     with ``kv_valid`` as its ``kv_len``: on keys padded with zero rows that
     is the reference's ``blocked_attention`` on the unpadded keys.
@@ -56,15 +57,18 @@ def attention_plain(
     block_kv: int,
     causal: bool = False,
     kv_valid: Optional[int] = None,
+    gemm_shift: bool = True,
 ) -> torch.Tensor:
-    """GEMM-shift PASA (FlashAttention-2 at beta = 0) on expanded K/V;
-    columns at or past ``kv_valid`` are masked."""
+    """GEMM-shift PASA (algebraic with ``gemm_shift=False``;
+    FlashAttention-2 at beta = 0) on expanded K/V; columns at or past
+    ``kv_valid`` are masked."""
     h = q.shape[1]
     kv_len = (None if kv_valid is None else
               torch.tensor(kv_valid, dtype=torch.int32, device=q.device))
     return blocked_attention(
         q, _expand_kv(k, h), _expand_kv(v, h), beta=beta, policy=policy,
-        block_kv=block_kv, causal=causal, kv_len=kv_len, use_gemm_shift=True,
+        block_kv=block_kv, causal=causal, kv_len=kv_len,
+        use_gemm_shift=gemm_shift,
     )
 
 

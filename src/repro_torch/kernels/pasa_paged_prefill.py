@@ -3,8 +3,10 @@
 Counterpart of ``repro.kernels.pasa_paged_prefill``.
 
   * :func:`kernel_call` launches ``csrc/pasa_paged_prefill.cu`` (pages of
-    1 to 128 rows) or ``csrc/pasa_paged_prefill_wide.cu`` (129 to 256),
-    or their ``_q8`` siblings for 8-bit pools, one template
+    1 to 128 rows) or ``csrc/pasa_paged_prefill_wide.cu`` (129 or more: a
+    page over 256 rows streams through its 256-row stage in pieces, one
+    PASA block a page still), or their ``_q8`` siblings for 8-bit pools,
+    one template
     (``csrc/pasa_paged_prefill.cuh``): one CTA per (row *
     head, 128-query tile), longest causal tiles first; each visible page
     arrives by TMA, a converter warpgroup turns it into the shifted
@@ -43,7 +45,6 @@ from repro_torch.kernels.pasa_paged_decode import (
     sidecar_ptrs,
 )
 
-MAX_PAGE = 256       # rows of a page (one PASA block) the kernel holds
 WIDE_PAGE = 128      # pages over this many rows build in the wide source
 
 
@@ -102,7 +103,7 @@ def kernel_call(
     quant: Optional[dict] = None,   # 8-bit pools: the four f32 sidecars
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (D in
-    ``pasa_paged_decode.HEAD_DIMS``, pages of 1 to :data:`MAX_PAGE` rows).
+    ``pasa_paged_decode.HEAD_DIMS``, pages of any size).
     Arguments are validated by
     :func:`repro_torch.kernels.ops.pasa_paged_prefill`."""
     b, h, cs, d = q.shape

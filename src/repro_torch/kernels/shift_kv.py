@@ -16,6 +16,14 @@ Counterpart of ``repro.kernels.shift_kv``.
   * :func:`shift_kv_plain` is the port of the reference's
     ``ref.shift_kv_ref`` (``core.shifting.shift_kv_blocks``): the kernel's
     oracle and the path every CPU tensor takes.
+
+The algebraic mode (the reference's ``use_gemm_shift=False``, which it
+computes in XLA inside ``blocked_attention``): :func:`kernel_call_mean`
+launches the same source's ``shift_kv_mean_launch`` - per block, the
+key mean over all its rows (an fp32 sum in row order; zero pad rows
+count) and K' = (k - beta * mean) / sqrt(d) in fp32, rounded once to the
+operand dtype - and :func:`shift_kv_mean_plain` is its plain version
+(``core.pasa.algebraic_shift``).
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ import functools
 
 import torch
 
+from repro_torch.core.pasa import algebraic_shift
+from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.shifting import shift_kv_blocks, shifting_matrix
 from repro_torch.kernels import _build
 
@@ -35,13 +45,25 @@ def shift_kv_plain(m: torch.Tensor, k: torch.Tensor, block_kv: int,
     return shift_kv_blocks(k, m, block_kv).to(out_dtype)
 
 
+def shift_kv_mean_plain(k: torch.Tensor, beta: float, block_kv: int,
+                        policy: PrecisionPolicy) -> torch.Tensor:
+    """The algebraic mode: (k - beta * blockmean) / sqrt(d) per block of
+    ``block_kv`` rows, k rounded to the policy's input dtype first; K' at
+    that dtype."""
+    return algebraic_shift(k.to(policy.input_dtype), beta, block_kv, policy)
+
+
 def mode_name(key_dtype: torch.dtype, op_dtype: torch.dtype,
-              block_kv: int, head_dim: int = 128) -> str:
+              block_kv: int, head_dim: int = 128,
+              gemm_shift: bool = True) -> str:
     """The kernel mode a launch runs, e.g. ``"bf16_keys/fp16_ops/block128"``:
     the keys' dtype as the kernel reads them, the operand dtype, the block,
-    and a head width other than 128 after them (``".../block128/d64"``)."""
+    ``algebraic`` for the algebraic mode, and a head width other than 128
+    last (``".../block128/d64"``, ``".../block128/algebraic/d64"``)."""
     short = {torch.float16: "fp16", torch.bfloat16: "bf16"}
     name = f"{short[key_dtype]}_keys/{short[op_dtype]}_ops/block{block_kv}"
+    if not gemm_shift:
+        name += "/algebraic"
     return name if head_dim == 128 else f"{name}/d{head_dim}"
 
 
@@ -89,4 +111,35 @@ def kernel_call(m: torch.Tensor, k: torch.Tensor, *,
     )
     if err != 0:
         raise RuntimeError(f"shift_kv launch failed: cudaError {err}")
+    return out
+
+
+def _mean_entry() -> ctypes._CFuncPtr:
+    fn = _build.load("shift_kv").shift_kv_mean_launch
+    fn.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
+        + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_call_mean(k: torch.Tensor, *, beta: float, block_kv: int,
+                     op_dtype: torch.dtype, shift_scale: float) -> torch.Tensor:
+    """Launch the algebraic mode on the current stream: k as for
+    :func:`kernel_call` (bf16 keys under bf16 operands), ``op_dtype`` fp16
+    or bf16, ``shift_scale`` the fp32 1/sqrt(D).  Returns (B, KVH, S2, D)
+    at ``op_dtype``, contiguous.  Arguments are validated by
+    :func:`repro_torch.kernels.ops.shift_kv`."""
+    b, kvh, s2, d = k.shape
+    out = torch.empty((b, kvh, s2, d), dtype=op_dtype, device=k.device)
+    err = _mean_entry()(
+        k.data_ptr(), out.data_ptr(), b, kvh, s2, block_kv, d,
+        k.stride(0), k.stride(1), k.stride(2),
+        int(op_dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
+        float(beta), float(shift_scale),
+        torch.cuda.current_stream(k.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"shift_kv_mean launch failed: cudaError {err}")
     return out

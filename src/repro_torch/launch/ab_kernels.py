@@ -26,9 +26,14 @@ this, other, on the same seeded inputs at ``chip_smoke.py``'s fixtures:
   * pages of 16 and 8 rows (``/page16``, ``/page8``): ``pasa_paged_decode``
     at block 128 on a paged serve's decode rows (batch 4, kv 1002 / 519 /
     302 / 131) and ``pasa_paged_prefill`` on the prefill rows above, from
-    bf16 pools.  A tree whose kernels do not take a fixture (a decode
-    block other than the page, a prefill page under 16 rows) reports it
-    as not taken.
+    bf16 pools; ``pasa_paged_prefill`` also at pages of 200, 256 (the
+    256-row tile; 256 also from an int8 pool) and 512 rows;
+  * the algebraic shift (``/algebraic``): ``shift_kv`` on the dense
+    prefill's keys above and ``pasa_attention`` causal at fp16 on the
+    first fixture, both with ``gemm_shift=False``.
+A tree whose kernels do not take a fixture (a decode block other than
+the page, a prefill page under 16 or over 256 rows, the algebraic shift)
+reports it as not taken.
 
 Each worker also saves ``_build.build()``'s seconds per source (empty for
 a tree already built).
@@ -185,6 +190,10 @@ def _cases(dev):
                             ("shift_kv/fp16_keys", keys16, 128)):
         cases[name] = (lambda kk=kk, block=block: ops.shift_kv(
             kk, beta=BETA, block_kv=block, policy=FP16), 50)
+    cases["shift_kv/algebraic"] = (lambda: ops.shift_kv(
+        keys, beta=BETA, block_kv=128, policy=FP16, gemm_shift=False), 50)
+    cases["pasa_attention/algebraic"] = (lambda: ops.pasa_attention(
+        q, k, v, beta=BETA, policy=FP16, causal=True, gemm_shift=False), 20)
     cases.update(_hd64_cases(dev, randn))
     cases.update(_page_cases(dev))
     return cases
@@ -217,11 +226,13 @@ def _repaged(rng, kc, vc, lens, page):
 
 
 def _page_cases(dev):
-    """The page-16 and page-8 cases of :func:`_cases` (their own seed)."""
+    """The page-16 and page-8 cases of :func:`_cases` (their own seed),
+    then paged prefill at pages 200, 256 and 512."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.runtime.paged_cache import quantize_kv_page
 
     rng = np.random.default_rng(1)
     randn = lambda shape, mean, dt=torch.float16: torch.from_numpy(
@@ -249,6 +260,21 @@ def _page_cases(dev):
         cases[f"pasa_paged_prefill/page{page}"] = (
             lambda kp=kp, vp=vp, table=table: ops.pasa_paged_prefill(
                 qp, kp, vp, table, st, pl, beta=BETA), 20)
+    for page in (200, 256, 512):
+        kp, vp, table = _repaged(rng, pk, pv, plens, page)
+        table[3] = 0
+        cases[f"pasa_paged_prefill/page{page}"] = (
+            lambda kp=kp, vp=vp, table=table: ops.pasa_paged_prefill(
+                qp, kp, vp, table, st, pl, beta=BETA), 20)
+        if page == 256:
+            valid = torch.isfinite(kp[:, :, 0, 0]).to(dev)
+            kq, ks, kh = quantize_kv_page(kp, valid, "int8")
+            vq, vs, vh = quantize_kv_page(vp, valid, "int8")
+            side = dict(k_scale=ks, k_shift=kh, v_scale=vs, v_shift=vh)
+            cases["pasa_paged_prefill/page256_int8"] = (
+                lambda kq=kq, vq=vq, table=table, side=side:
+                    ops.pasa_paged_prefill(qp, kq, vq, table, st, pl,
+                                           beta=BETA, **side), 20)
     return cases
 
 
@@ -323,8 +349,10 @@ def worker(tree: Path, save: Path) -> None:
     for name, (call, iters) in _cases(dev).items():
         try:
             outs[name] = call().cpu()
-        except (NotImplementedError, ValueError):
-            times[name] = None        # a mode this tree's kernels do not take
+        except (NotImplementedError, ValueError, TypeError):
+            # a mode this tree's kernels do not take (TypeError: an
+            # argument its ops do not have)
+            times[name] = None
             continue
         times[name] = _time_ms(call, iters)
     torch.save(outs, save.with_suffix(".pt"))

@@ -218,17 +218,13 @@ def _naive(q, k, v, *, causal: bool, kv_len=None, q_offset=0) -> torch.Tensor:
 def _dense_prefill(q, k, v, cfg: ModelConfig, cache: Optional[dict], *,
                    causal: bool = True) -> torch.Tensor:
     """Write rows [0, S) of the dense cache (if any), then attention over
-    the fresh K/V, causal or not: GEMM-shift PASA, FlashAttention-2 or
+    the fresh K/V, causal or not: PASA (the GEMM or, with
+    ``use_gemm_shift=False``, the algebraic shift), FlashAttention-2 or
     naive.  q (B, S1, H, hd), k/v (B, S2, KVH, hd) (S2 != S1 only for
     cross-attention, without a cache).  ``expand_kv`` (the reference's
     K/V layout flag) changes nothing here: the op reads K/V at KVH heads
     and maps query head h to kv head h // G in either layout."""
     ac = cfg.attention
-    if not ac.use_gemm_shift:
-        raise NotImplementedError(
-            "the algebraic-shift dense prefill (use_gemm_shift=False) is not "
-            "ported: no kernel computes it (ROADMAP A12b)"
-        )
     b, s, h, hd = q.shape
     s2, kvh = k.shape[1], k.shape[2]
     if cache is not None:
@@ -248,7 +244,8 @@ def _dense_prefill(q, k, v, cfg: ModelConfig, cache: Optional[dict], *,
                   kv_valid=None if causal else s2)
     # the kernels forward; under autograd the plain version's gradient
     out = kernel_attention(*args, flash=ac.impl == "flash", beta=beta,
-                           policy=policy, **blocks)    # (B, H, S_pad, hd)
+                           policy=policy, gemm_shift=ac.use_gemm_shift,
+                           **blocks)                   # (B, H, S_pad, hd)
     return out[:, :, :s].movedim(1, 2).reshape(b, s, h * hd)
 
 

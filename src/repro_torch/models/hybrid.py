@@ -18,11 +18,13 @@ is written in place too.
 Training (``loss_fn``) walks the whole sequence without a cache, each
 Mamba layer recomputed in the backward when ``cfg.remat`` (the shared
 block is not, as in the reference).  The family is served token by token
-on the dense cache (``serve_step``);
-the fused prefill (``prefill_cache=True``) is not ported: the reference's
-branch hands back the incoming Mamba state unchanged, so the state after
-a fused prefill would be wrong, and it would run the attention kernel at
-head_dim 64, which the card does not have.
+on the dense cache (``serve_step``).  The fused prefill
+(``forward(..., prefill_cache=True)``) is the reference's branch as it
+stands: the whole sequence through every layer, each shared-block
+application writing the prompt's K/V rows into its cache slice, and the
+incoming Mamba state handed back unchanged (ROADMAP C: the state after a
+fused prefill is not the prompt's); nothing serves through it, as the
+reference's bundle has no ``prefill``.
 """
 
 from __future__ import annotations
@@ -41,11 +43,12 @@ def n_shared_apps(cfg: ModelConfig) -> int:
     return (cfg.n_layers + cfg.attn_every - 1) // cfg.attn_every
 
 
-def _shared_block(x, p: dict, cfg: ModelConfig, *, cache=None, pos=None):
+def _shared_block(x, p: dict, cfg: ModelConfig, *, cache=None, pos=None,
+                  prefill_cache: bool = False):
     cd = cfg.torch_compute_dtype()
     h = attn_mod.attention(
         L.rms_norm(x, p["ln1"], cfg.norm_eps), p["attn"], cfg,
-        cache=cache, pos=pos,
+        cache=cache, pos=pos, prefill_cache=prefill_cache,
     )
     x = x + h.to(x.dtype)
     x = x + L.mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cd,
@@ -59,29 +62,33 @@ def _segments(cfg: ModelConfig):
     return [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]
 
 
-def _walk(params: dict, cfg: ModelConfig, x, *, cache=None, pos=None):
+def _walk(params: dict, cfg: ModelConfig, x, *, cache=None, pos=None,
+          prefill_cache: bool = False):
     """The layer walk: without a cache the whole sequence (causal
     attention over the fresh K/V, chunked SSD); with one, a decode step at
     ``pos`` that writes every application's K/V row and every layer's
-    Mamba state in place.  The shared block is gathered once
-    (``convert.gather_params``), each Mamba layer inside its own call."""
+    Mamba state in place, or (``prefill_cache``) the whole sequence
+    writing every application's rows [0, S) and no Mamba state.  The
+    shared block is gathered once (``convert.gather_params``), each Mamba
+    layer inside its own call."""
     shared = gather_params(params["shared"], ("shared",), cfg)
     for app_idx, (lo, hi) in enumerate(_segments(cfg)):
         ac = None
         if cache is not None:
             ac = {"k": cache["attn"]["k"][app_idx],
                   "v": cache["attn"]["v"][app_idx]}
-        x = _shared_block(x, shared, cfg, cache=ac, pos=pos)
+        x = _shared_block(x, shared, cfg, cache=ac, pos=pos,
+                          prefill_cache=prefill_cache)
         for i in range(lo, hi):
             lp = _layer(params["mamba"], i)
-            lc = None
-            if cache is not None:
-                lc = {"conv": cache["mamba"]["conv"][i],
-                      "ssm": cache["mamba"]["ssm"][i]}
-            if lc is None:
+            if cache is None:
                 x = L.remat(cfg, _mamba_layer, x, lp, params["mamba_ln"][i],
                             cfg)
+            elif prefill_cache:
+                x = _mamba_layer(x, lp, params["mamba_ln"][i], cfg)
             else:
+                lc = {"conv": cache["mamba"]["conv"][i],
+                      "ssm": cache["mamba"]["ssm"][i]}
                 x = _mamba_layer(x, lp, params["mamba_ln"][i], cfg, lc)
     return x
 
@@ -98,17 +105,14 @@ def _mamba_layer(x, lp: dict, ln, cfg: ModelConfig, cache=None):
 def forward(params: dict, cfg: ModelConfig, tokens, *, cache=None, pos=None,
             prefill_cache: bool = False):
     """tokens (B, S) -> (final hidden states (B, S, D), cache): the whole
-    sequence without a cache, or one decode step at ``pos`` against it."""
-    if prefill_cache:
-        raise NotImplementedError(
-            "the hybrid family's fused prefill is not ported (ROADMAP.md C: "
-            "the reference's prefill_cache branch keeps the incoming Mamba "
-            "state); serve it token by token through serve_step"
-        )
+    sequence without a cache, one decode step at ``pos`` against it, or
+    (``prefill_cache``) the whole sequence writing the attention rows
+    [0, S) of the cache, its Mamba state handed back as it came."""
     cd = cfg.torch_compute_dtype()
     x = L.embed(tokens, gather_params(params["embed"], ("embed",), cfg), cd,
                 cfg.vocab_size)
-    x = _walk(params, cfg, x, cache=cache, pos=pos)
+    x = _walk(params, cfg, x, cache=cache, pos=pos,
+              prefill_cache=prefill_cache)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
 

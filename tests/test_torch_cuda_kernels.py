@@ -148,8 +148,10 @@ def _quantized(kp, vp, table, seq_lens, dtype):
 def test_quantized_pool_mode_raises_before_any_launch():
     """A quantized call the kernels do not take raises, and nothing is
     launched: the float64 oracle policy, sidecars with a raw pool, an
-    8-bit pool without sidecars, a prefill page over 256 rows (one PASA
-    block a page; decode takes any page)."""
+    8-bit pool without sidecars.  A prefill page over 256 rows (one PASA
+    block a page, streamed through the 256-row tile in pieces) runs: a
+    257-row int8 page holding 300 rows' first 257, once, within the
+    prefill bars of the plain version."""
     dev = _card()
     rng = np.random.default_rng(12)
     kp, vp, table = _pool(rng, [10], 4, 128, dev)
@@ -167,13 +169,24 @@ def test_quantized_pool_mode_raises_before_any_launch():
         ops.pasa_paged_decode(q, kp, vp, table, kvl, **quant)
     with pytest.raises(NotImplementedError):
         ops.pasa_paged_decode(q, kq, vq, table, kvl)
-    big = torch.zeros((2, 257, 4, 128), dtype=torch.int8, device=dev)
-    side = dict(k_scale=torch.ones(2, 4, device=dev),
-                k_shift=torch.zeros(2, 4, 128, device=dev))
-    side.update(v_scale=side["k_scale"], v_shift=side["k_shift"])
-    with pytest.raises(NotImplementedError):
-        ops.pasa_paged_prefill(qp, big, big, table[:, :1], st, kvl, **side)
     assert ops.pasa_paged_decode.launches == ops.pasa_paged_prefill.launches == 0
+    codes = lambda: torch.from_numpy(rng.integers(
+        -127, 128, (3, 257, 4, 128)).astype(np.int8)).to(dev)
+    kb, vb = codes(), codes()
+    side = dict(k_scale=torch.full((3, 4), 0.02, device=dev),
+                k_shift=torch.from_numpy(rng.standard_normal(
+                    (3, 4, 128)).astype(np.float32) + 2.0).to(dev))
+    side.update(v_scale=side["k_scale"], v_shift=torch.zeros_like(
+        side["k_shift"]))
+    tb = torch.tensor([[2, 1]], dtype=torch.int32, device=dev)
+    sb = torch.tensor([284], dtype=torch.int32, device=dev)
+    nb = torch.tensor([300], dtype=torch.int32, device=dev)
+    got = ops.pasa_paged_prefill(qp, kb, vb, tb, sb, nb, beta=BETA, **side)
+    assert ops.pasa_paged_prefill.launches == 1
+    want = pmod.paged_prefill_plain(qp, kb, vb, tb, sb, nb, beta=BETA,
+                                    policy=FP16, **side)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **PREFILL_TOL)
 
 
 @pytest.mark.cuda
@@ -1620,11 +1633,12 @@ def test_decode_at_256_row_pages_matches_plain_version(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pool", ["bf16", "int8"])
-@pytest.mark.parametrize("page", [1, 8, 48, 200, 256])
+@pytest.mark.parametrize("page", [1, 8, 48, 200, 256, 300, 512])
 def test_prefill_kernel_at_any_page(page, pool):
     """Paged prefill at pages of 1, 8 and 48 rows (the 64-row tile,
     surplus columns masked and zeroed), 200 and 256 (the 256-row tile's
-    two halves): within the prefill bars of the plain version at fp16 PASA
+    quarters), 300 and 512 (that tile in pieces of 256 rows, one PASA
+    block a page): within the prefill bars of the plain version at fp16 PASA
     and bf16_fp32 FlashAttention-2, a pad row of zeros; the chunk after a
     page-aligned cut bit for bit the same rows of the whole prompt's
     single chunk."""

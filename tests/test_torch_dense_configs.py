@@ -373,14 +373,34 @@ def test_grouped_dense_prefill_matches_reference():
 
 
 def test_algebraic_shift_dense_prefill_still_raises():
-    """No kernel of either package computes the algebraic-shift dense
-    prefill; the port refuses it, naming ROADMAP A12b."""
-    _, tc = _cfgs("qwen3-4b", use_gemm_shift=False)
+    """``use_gemm_shift=False`` (the reference's algebraic shift, ROADMAP
+    A12b): the port's dense prefill now computes it - prefill logits, the
+    decode step after it and the dense cache the prefill writes against
+    the reference's on the reduced qwen3-4b (deeper layers' K/V at the
+    logits' bar, as tests/test_torch_dense_route.py), and not the GEMM
+    shift's logits."""
+    rc, rp, tc, tp = _models("qwen3-4b", use_gemm_shift=False)
+    tokens = _prompts(40, 1)
+    s = tokens.shape[1]
+    want, second, _, _ = _ref_dense(rc, rp, tokens)
+    got = _port_dense(tc, tp, tokens)
+    np.testing.assert_allclose(got[0], want, atol=LOGIT_ATOL, rtol=0)
+    np.testing.assert_allclose(got[1], second, atol=LOGIT_ATOL, rtol=0)
+    _, ref_cache = jax.jit(lambda p, t, c: RT.prefill_logits(p, rc, t, c))(
+        rp, jnp.asarray(tokens), RT.init_cache(rc, BATCH, s + 8))
     bundle = build(tc)
-    params = bundle.init(torch.Generator().manual_seed(0), "cpu")
-    cache = bundle.init_cache(1, 24, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12b"):
-        bundle.prefill(params, torch.zeros((1, 16), dtype=torch.int32), cache)
+    _, cache = bundle.prefill(tp, torch.from_numpy(tokens),
+                              bundle.init_cache(BATCH, s + 8, device="cpu"))
+    for name in ("k", "v"):
+        g = cache[name].float().numpy()
+        assert not g[:, :, s:].any()
+        np.testing.assert_allclose(g, np.asarray(ref_cache[name], np.float32),
+                                   atol=LOGIT_ATOL, rtol=0, err_msg=name)
+    gemm = build(dataclasses.replace(tc, attention=dataclasses.replace(
+        tc.attention, use_gemm_shift=True)))
+    logits, _ = gemm.prefill(tp, torch.from_numpy(tokens),
+                             gemm.init_cache(BATCH, s + 8, device="cpu"))
+    assert not np.array_equal(logits.numpy(), got[0])
 
 
 # ----------------------------------------------------------- shifting --

@@ -160,19 +160,28 @@ def test_greedy_streams_equal_reference(models, s, seed):
 
 
 def test_dense_prefill_raises_for_unported_layouts(models):
-    """The algebraic-shift dense prefill has no kernel (ROADMAP A12b) and
-    raises; the grouped layout (``expand_kv=False``) is ported: the same
-    op call as the expanded one, so the same logits
-    (tests/test_torch_dense_configs.py holds it against the reference's
-    grouped layout)."""
-    _, _, tc, tp = models
+    """No layout of the dense prefill raises any more.  The algebraic
+    shift (``use_gemm_shift=False``, ROADMAP A12b) runs: prefill logits
+    and the dense cache against the reference's at the same flag.  The
+    grouped layout (``expand_kv=False``) is the same op call as the
+    expanded one, so the same logits (tests/test_torch_dense_configs.py
+    holds it against the reference's grouped layout)."""
+    rc, rp, tc, tp = models
+    alg = lambda c: dataclasses.replace(c, attention=dataclasses.replace(
+        c.attention, use_gemm_shift=False))
+    s = 40
+    tokens = _prompts(s)
+    want, ref_cache = _ref_prefill(alg(rc), rp, tokens, s + 8)
+    bundle = build(alg(tc))
+    got, cache = bundle.prefill(tp, torch.from_numpy(tokens),
+                                bundle.init_cache(BATCH, s + 8, device="cpu"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=LOGIT_ATOL, rtol=0)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(cache[name].float().numpy(),
+                                   np.asarray(ref_cache[name], np.float32),
+                                   atol=LOGIT_ATOL, rtol=0, err_msg=name)
     tokens = torch.zeros((1, 16), dtype=torch.int32)
-    cfg = dataclasses.replace(tc, attention=dataclasses.replace(
-        tc.attention, use_gemm_shift=False))
-    bundle = build(cfg)
-    cache = bundle.init_cache(1, 24, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12b"):
-        bundle.prefill(tp, tokens, cache)
     logits = {}
     for expand in (True, False):
         cfg = dataclasses.replace(tc, attention=dataclasses.replace(

@@ -161,11 +161,35 @@ def test_forward_without_cache_matches_reference(compute_dtype, atol):
 
 
 def test_prefill_cache_is_not_ported(models):
-    _, _, _, tc, tp = models
-    cache = hybrid.init_cache(tc, 1, 32, device="cpu")
-    with pytest.raises(NotImplementedError, match="Mamba state"):
-        hybrid.forward(tp, tc, torch.zeros((1, 16), dtype=torch.int32),
-                       cache=cache, prefill_cache=True)
+    """The fused prefill (``forward(..., prefill_cache=True)``), ported as
+    the reference's branch stands: on 5 layers (three shared-block
+    applications) at fp32, the hidden states and every application's K/V
+    rows [0, S) against the reference's, the rows past S untouched, and
+    the Mamba state handed back as it came (zeros here, as the
+    reference's; ROADMAP C)."""
+    rc, tc = _cfgs("float32", n_layers=5)
+    rp, _, tp = _params(rc, tc)
+    s, max_len = 24, 32
+    tokens = np.random.default_rng(4).integers(
+        0, tc.vocab_size, (BATCH, s)).astype(np.int32)
+    want, rcache = RH.forward(rp, rc, jnp.asarray(tokens),
+                              cache=RH.init_cache(rc, BATCH, max_len,
+                                                  jnp.float32),
+                              prefill_cache=True)
+    cache = hybrid.init_cache(tc, BATCH, max_len, torch.float32, device="cpu")
+    got, out = hybrid.forward(tp, tc, torch.from_numpy(tokens), cache=cache,
+                              prefill_cache=True)
+    assert out is cache
+    np.testing.assert_allclose(_np(got), _np(want), atol=F32_ATOL, rtol=0)
+    for name in ("k", "v"):
+        g = _np(cache["attn"][name])
+        assert g[:, :, :s].any() and not g[:, :, s:].any(), name
+        np.testing.assert_allclose(g, _np(rcache["attn"][name]),
+                                   atol=F32_ATOL, rtol=0, err_msg=name)
+    for name in ("conv", "ssm"):
+        assert not cache["mamba"][name].any(), name
+        np.testing.assert_array_equal(_np(cache["mamba"][name]),
+                                      _np(rcache["mamba"][name]))
 
 
 # 5 layers at attn_every 2: three applications of the shared block over

@@ -8,11 +8,14 @@ any ``--page-size`` of 1 or more without touching ``block_kv``.  Held
 here on the CPU (the plain versions): the paged decode op at pages 1, 8,
 16, 48, 128 and 256 and blocks 64 and 128 from raw, int8 and fp8_e4m3
 pools against ``paged_decode_xla``; the plain decode invariant to the page
-size at a fixed block; the paged prefill op at pages 8, 16 and 256 against
-the reference's XLA path and its Pallas kernel in interpret mode, and
-bit-invariant to the chunk schedule; the engine at page 8 (block 128)
-against the reference engine; the CLI keeping ``block_kv``; the cost
-formula counting an 8-bit pool's sidecars per page.
+size at a fixed block; the paged prefill op at pages 8, 16, 256, 300 and
+512 against the reference's XLA path and its Pallas kernel in interpret
+mode (300 and 512 also from int8 and fp8_e4m3 pools against the XLA
+path), and bit-invariant to the chunk schedule; the engine at page 8
+(block 128) against the reference engine, and at page 512 invariant to
+its chunk schedule with prefix hits equal to cold serves; the CLI keeping
+``block_kv``; the cost formula counting an 8-bit pool's sidecars per
+page.
 tests/test_torch_cuda_kernels.py holds the CUDA kernels at these pages to
 the plain versions on a card.
 """
@@ -30,6 +33,7 @@ import repro.kernels as RK
 from repro.configs import get_config as ref_get_config
 from repro.core import FP16 as REF_FP16
 from repro.kernels.pasa_paged_decode import paged_decode_xla
+from repro.kernels.pasa_paged_prefill import paged_prefill_xla
 from repro.models import transformer as RT
 from repro.models.model_zoo import build as ref_build
 from repro.runtime import ServeEngine as RefEngine
@@ -53,7 +57,8 @@ PREFILL_TOL = dict(atol=1e-2, rtol=3e-2)
 DECODE_PAGES = (1, 8, 16, 48, 128, 256)
 DECODE_BLOCKS = (64, 128)
 POOLS = ("raw", "int8", "fp8_e4m3")
-PREFILL_PAGES = (8, 16, 256)
+PREFILL_PAGES = (8, 16, 256, 300, 512)
+WIDE_PAGES = (300, 512)     # one PASA block a page over 256 rows
 KV_LENS = (300, 77)
 
 
@@ -246,7 +251,8 @@ def test_prefill_matches_reference_at_page(page, ref_route, beta):
 
 @pytest.mark.parametrize("page,cuts", [(8, (0, 24, 40, 64)),
                                        (16, (0, 32, 48, 64)),
-                                       (256, (0, 256, 300))])
+                                       (256, (0, 256, 300)),
+                                       (512, (0, 512, 700))])
 def test_prefill_is_bit_invariant_to_the_chunk_schedule(page, cuts):
     """One prompt prefilled in one chunk, or in chunks cut at page
     boundaries: every row bit for bit the same."""
@@ -264,6 +270,29 @@ def test_prefill_is_bit_invariant_to_the_chunk_schedule(page, cuts):
     whole = run(0, n)
     parts = torch.cat([run(c0, c1) for c0, c1 in zip(cuts, cuts[1:])], 2)
     assert torch.equal(whole, parts)
+
+
+@pytest.mark.parametrize("pool", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("page", WIDE_PAGES)
+def test_quantized_prefill_matches_reference_at_wide_page(page, pool):
+    """The paged prefill op from an 8-bit pool (the reference's quantizer,
+    per page) at a page over 256 rows against the reference's
+    ``paged_prefill_xla`` on the same codes and sidecars, fp16 PASA; the
+    pad row is zeros."""
+    q, kp, vp, table, start, lens = _prefill_case(page)
+    valid = np.isfinite(kp[:, :, 0, 0])
+    kq, vq, side = _quantize(kp, vp, valid, pool)
+    want = paged_prefill_xla(
+        jnp.asarray(q), kq, vq, jnp.asarray(table), jnp.asarray(start),
+        jnp.asarray(lens), beta=BETA, policy=REF_FP16, **side)
+    got = ops.pasa_paged_prefill(
+        *_t(q), _to_torch(kq), _to_torch(vq), *_t(table, start, lens),
+        beta=BETA, policy=FP16,
+        **{name: _to_torch(x) for name, x in side.items()}).float().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got[2], 0.0)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                               **PREFILL_TOL)
 
 
 # --------------------------------------------------------------- engine --
@@ -373,6 +402,48 @@ def test_engine_decodes_in_blocks_of_block_kv(engines):
     in blocks of the config's 128 rows."""
     assert engines["calls"]
     assert set(engines["calls"]) == {(ENGINE_PAGE, 128)}
+
+
+WIDE_ENGINE_PAGE = 512
+WIDE_SHARED, WIDE_SUFFIXES, WIDE_GEN = 600, (150, 40), 4
+
+
+def test_engine_at_page_512_chunk_schedule_and_prefix_hits():
+    """The reduced qwen2-7b engine at 512-row pages (one PASA block a page,
+    block_kv 128): requests of 750 and 640 tokens give the same greedy
+    streams with prefill chunks of 512 and 1024 rows; with the prefix
+    cache on, two prompts sharing a 600-token prefix hit its one full page
+    (cached_len 512) and every stream, cold and hit, equals
+    ``chunked_cold_reference`` (a fresh engine, cache off)."""
+    from repro_torch.runtime import chunked_cold_reference
+
+    tc = get_config("qwen2-7b").reduced()
+    bundle = build(tc)
+    params = bundle.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(12)
+    shared = rng.integers(0, tc.vocab_size, WIDE_SHARED).tolist()
+    prompts = [shared + rng.integers(0, tc.vocab_size, n).tolist()
+               for n in WIDE_SUFFIXES]
+    kw = dict(page_size=WIDE_ENGINE_PAGE, prefill_chunk=WIDE_ENGINE_PAGE)
+    streams = {}
+    for chunk in (WIDE_ENGINE_PAGE, 2 * WIDE_ENGINE_PAGE):
+        eng = ServeEngine(bundle, params, max_batch=2, num_pages=8,
+                          prefill_batch=2, **dict(kw, prefill_chunk=chunk))
+        reqs = [eng.submit(p, WIDE_GEN) for p in prompts]
+        eng.run_to_completion()
+        streams[chunk] = [r.generated for r in reqs]
+    assert streams[WIDE_ENGINE_PAGE] == streams[2 * WIDE_ENGINE_PAGE]
+    eng = ServeEngine(bundle, params, max_batch=1, num_pages=8,
+                      prefix_cache=True, **kw)
+    reqs = []
+    for p in prompts:
+        reqs.append(eng.submit(p, WIDE_GEN))
+        eng.run_to_completion()
+    assert [r.cached_len for r in reqs] == [0, WIDE_ENGINE_PAGE]
+    for p, r in zip(prompts, reqs):
+        assert r.generated == chunked_cold_reference(bundle, params, p,
+                                                     WIDE_GEN, **kw)
+    assert streams[WIDE_ENGINE_PAGE] == [r.generated for r in reqs]
 
 
 # ------------------------------------------------------------------ CLI --

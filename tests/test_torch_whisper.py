@@ -167,6 +167,26 @@ def test_encode_matches_reference(compute_dtype, frames):
     np.testing.assert_allclose(_np(got), _np(want), atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"],
+                         ids=["f32", "bf16"])
+def test_encode_with_the_algebraic_shift_matches_reference(compute_dtype):
+    """The bidirectional encoder with ``use_gemm_shift=False`` (ROADMAP
+    A12b) on 200 frames (a full block and a ragged one, padded with zero
+    rows that count in the block means of both packages) against the
+    reference's at the same flag, at the bars of
+    test_encode_matches_reference."""
+    rc, tc = _cfgs(compute_dtype, n_audio_frames=200)
+    alg = lambda c: dataclasses.replace(c, attention=dataclasses.replace(
+        c.attention, use_gemm_shift=False))
+    rc, tc = alg(rc), alg(tc)
+    rp, _, tp = _params(rc, tc)
+    fr = _frames(2, 200, tc.d_model)
+    want = RM.whisper_encode(rp, rc, jnp.asarray(fr))
+    got = multimodal.whisper_encode(tp, tc, torch.from_numpy(fr))
+    atol = F32_ATOL if compute_dtype == "float32" else BF16_ENC_ATOL
+    np.testing.assert_allclose(_np(got), _np(want), atol=atol, rtol=0)
+
+
 @pytest.mark.parametrize("impl", ["pasa", "flash", "naive"])
 def test_cross_attention_layer_matches_reference(impl):
     """One decoder query row per sequence attending over 200 encoder
