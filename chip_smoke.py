@@ -706,7 +706,9 @@ KERNEL_FILES = {
                           "src/repro/kernels/pasa_paged_decode.py:196"),
     "pasa_paged_prefill": ("src/repro_torch/kernels/csrc/pasa_paged_prefill.cu",
                            "src/repro/kernels/pasa_paged_prefill.py:368"),
-    "pasa_decode": ("src/repro_torch/kernels/csrc/pasa_decode.cu",
+    # contiguous decode: the paged decode's instances over the cache (the
+    # bf16 caches' entry)
+    "pasa_decode": ("src/repro_torch/kernels/csrc/pasa_paged_decode.cu",
                     "src/repro/kernels/pasa_decode.py:268"),
     "pasa_attention": ("src/repro_torch/kernels/csrc/pasa_attention.cu",
                        "src/repro/kernels/pasa_attention.py:218"),
@@ -911,7 +913,33 @@ def _serve_shape_decode(dev, dtype):
     lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
         q.reshape(b, kvh * g, 1, d), kg, vg, attn_mask=mask[:, None, None, :]
     ), 20)
-    return dict(serve_shape_ms=ms, serve_shape_library_ms=lib_ms)
+    bound = R.bound(*R.paged_decode_cost(
+        b, kvh, g, d, SERVE_DECODE_KV, table.numel(),
+        kv_itemsize=kp.element_size(), page=page if quant else None))
+    return dict(serve_shape_ms=ms, serve_shape_library_ms=lib_ms,
+                serve_shape_bound_ms=bound["bound_ms"])
+
+
+def _decode_occupancy():
+    """{"<pool>/d<D>/g<rows>": [shared-memory bytes, CTAs an SM]} of the
+    decode instances that serve blocks of up to 128 rows (fp16 policy
+    mode; the modes share their bytes), held to at least 2 CTAs an SM at
+    head_dim 128 and 3 at 64."""
+    import torch
+
+    from repro_torch.core.precision import FP16
+    pmod = _kernel_module("pasa_paged_decode")
+    table = {}
+    for pool in (torch.bfloat16, torch.float16, torch.int8,
+                 torch.float8_e4m3fn):
+        for d in (32, 64, 128):
+            for g, rows in ((1, 8), (12, 16)):
+                nbytes, ctas = pmod.occupancy(pool, d, g, 128, 128, FP16)
+                key = f"{str(pool).removeprefix('torch.')}/d{d}/g{rows}"
+                table[key] = [nbytes, ctas]
+                if ctas < {128: 2, 64: 3}.get(d, 1):
+                    raise AssertionError(f"decode {key}: {ctas} CTAs an SM")
+    return table
 
 
 def check_decode(dev):
@@ -988,6 +1016,7 @@ def check_decode(dev):
         max_abs_err=max_err, rmse=rmse, rmse_plain=rmse_plain,
         max_abs_err_cpu_plain=err_cpu, stress=stress,
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        ctas_an_sm=_decode_occupancy(),
         **_serve_shape_decode(dev, "bf16"), **R.bound(nbytes, flops),
     )
     modes = _new_mode_entries(
@@ -1692,8 +1721,8 @@ def check_contiguous_decode(dev):
     nbytes, flops = R.decode_cost(b, kvh, g, d, lens)
     main = dict(
         name="pasa_decode", route="cuda",
-        source="src/repro_torch/kernels/csrc/pasa_decode.cu",
-        replaces="src/repro/kernels/pasa_decode.py:268",
+        source=KERNEL_FILES["pasa_decode"][0],
+        replaces=KERNEL_FILES["pasa_decode"][1],
         max_abs_err=max_err, walk_and_paged_bit_equal=True, ms=ms,
         walk_ms=walk_ms, plain_ms=plain_ms, library_ms=lib_ms,
         detail=report.pop("block_256"), **report,
@@ -1759,7 +1788,9 @@ def _serve_shape_contiguous_decode(dev):
     ke, ve = (x[:, :, :n].half().repeat_interleave(g, 1) for x in (kc, vc))
     lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
         q.reshape(b, kvh * g, 1, d), ke, ve), 20)
-    return dict(serve_shape_ms=ms, serve_shape_library_ms=lib_ms)
+    bound = R.bound(*R.decode_cost(b, kvh, g, d, (n,) * b))
+    return dict(serve_shape_ms=ms, serve_shape_library_ms=lib_ms,
+                serve_shape_bound_ms=bound["bound_ms"])
 
 
 def check_decode_hd64(dev):
@@ -1776,8 +1807,10 @@ def check_decode_hd64(dev):
     inert.  Times at zamba2's shape (fp16 policy, BETA): both kernels,
     their plain versions, SDPA at the same shape, and the contiguous kernel
     at the hybrid serve's decode call (batch 4, kv HYBRID_PROMPT + 1 in a
-    HYBRID_MAX_LEN-row cache, block 128).  Returns the two kernels'
-    ``/d64`` entries."""
+    HYBRID_MAX_LEN-row cache, block 128) and at Whisper's (KVH 20, batch
+    WHISPER_BATCH, kv WHISPER_PROMPT + 2 in a WHISPER_MAX_LEN-row cache),
+    each beside SDPA and its bound.  Returns the two kernels' ``/d64``
+    entries."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1896,7 +1929,12 @@ def check_decode_hd64(dev):
                     q, kview, vview, kv_len, beta=BETA, policy=FP16,
                     block_kv=page), 3, warmup=1),
                 rmse=rmse[f"pasa_decode@{page} fp16 beta {BETA}"],
-                **_serve_shape_hybrid_decode(dev), **bound),
+                **_serve_shape_hybrid_decode(dev),
+                # Whisper's decoder self call (KVH 20, G 1)
+                **_serve_shape_hybrid_decode(
+                    dev, "whisper_shape", kvh=20, b=WHISPER_BATCH,
+                    n=WHISPER_PROMPT + 2, rows=WHISPER_MAX_LEN, seed=10),
+                **bound),
             "pasa_paged_decode": dict(
                 ms=_cuda_time_ms(lambda: ops.pasa_paged_decode(
                     q, kp, vp, table, kv_len, beta=BETA, policy=FP16), 50),
@@ -1916,11 +1954,14 @@ def check_decode_hd64(dev):
     return entries
 
 
-def _serve_shape_hybrid_decode(dev):
-    """The contiguous decode kernel at head_dim 64 at the hybrid serve's
-    decode call: batch HYBRID_BATCH at kv HYBRID_PROMPT + 1 in a
-    HYBRID_MAX_LEN-row cache (bf16 (B, S2, KVH, D) read through strides),
-    KVH 32, G 1, block 128; kernel and SDPA ms."""
+def _serve_shape_hybrid_decode(dev, prefix="serve_shape", kvh=32,
+                               b=HYBRID_BATCH, n=HYBRID_PROMPT + 1,
+                               rows=HYBRID_MAX_LEN, seed=9):
+    """The contiguous decode kernel at head_dim 64, G 1 at a token-by-token
+    serve's decode call: by default the hybrid's (batch HYBRID_BATCH at kv
+    HYBRID_PROMPT + 1 in a HYBRID_MAX_LEN-row cache, KVH 32), bf16 (B, S2,
+    KVH, D) read through strides, block 128; kernel and SDPA ms and the
+    call's bound (keys ``<prefix>_ms``, ``_library_ms``, ``_bound_ms``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1928,9 +1969,9 @@ def _serve_shape_hybrid_decode(dev):
     from repro_torch.core.precision import FP16
     from repro_torch.kernels import ops
 
-    kvh, d, b, n = 32, 64, HYBRID_BATCH, HYBRID_PROMPT + 1
-    rng = np.random.default_rng(9)
-    shape = (b, HYBRID_MAX_LEN, kvh, d)
+    d = 64
+    rng = np.random.default_rng(seed)
+    shape = (b, rows, kvh, d)
     kc = _randn(rng, shape, 2.0, dev, torch.bfloat16).transpose(1, 2)
     vc = _randn(rng, shape, 0.0, dev, torch.bfloat16).transpose(1, 2)
     q = _randn(rng, (b, kvh, 1, d), 0.0, dev, torch.float16)
@@ -1940,7 +1981,9 @@ def _serve_shape_hybrid_decode(dev):
     ke, ve = (x[:, :, :n].half() for x in (kc, vc))
     lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
         q.reshape(b, kvh, 1, d), ke, ve), 20)
-    return dict(serve_shape_ms=ms, serve_shape_library_ms=lib_ms)
+    bound = R.bound(*R.decode_cost(b, kvh, 1, d, (n,) * b))
+    return {f"{prefix}_ms": ms, f"{prefix}_library_ms": lib_ms,
+            f"{prefix}_bound_ms": bound["bound_ms"]}
 
 
 def check_shift_kv_hd64(dev):
@@ -8509,7 +8552,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = _build.build(
         None if argv in ([], ["--modes-only"], ["--pages-only"])
-        else ("shift_kv", "pasa_attention", "pasa_decode")
+        else ("shift_kv", "pasa_attention", "pasa_paged_decode")
         if argv in (["--tools-only"], ["--algebraic-only"])
         else ("shift_kv", "pasa_attention"))
     print(f"build: {time.perf_counter() - t0:.1f} s into "
@@ -8567,9 +8610,12 @@ def main(argv=None) -> int:
             extra += f"; its sequential walk {k['walk_ms']:.4f} ms"
         if "ms_block_256" in k:
             extra += f"; at block 256 {k['ms_block_256']:.4f} ms"
-        if "serve_shape_ms" in k:
-            extra += (f"; at the serve's decode shape {k['serve_shape_ms']:.4f}"
-                      f" ms, library {k['serve_shape_library_ms']:.4f} ms")
+        for shape, what in (("serve_shape", "the serve's decode shape"),
+                            ("whisper_shape", "Whisper's decode shape")):
+            if f"{shape}_ms" in k:
+                extra += (f"; at {what} {k[f'{shape}_ms']:.4f} ms, library "
+                          f"{k[f'{shape}_library_ms']:.4f} ms, bound "
+                          f"{k[f'{shape}_bound_ms']:.5f} ms")
         if "ms_pasa" in k:
             extra += f"; at beta {BETA} {k['ms_pasa']:.4f} ms"
         if "rmse_algebraic" in k:

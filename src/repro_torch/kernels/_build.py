@@ -30,7 +30,7 @@ SOURCES = ("pasa_paged_decode", "pasa_paged_decode_fp16",
            "pasa_paged_decode_int8", "pasa_paged_decode_fp8",
            "pasa_paged_prefill", "pasa_paged_prefill_q8",
            "pasa_paged_prefill_wide", "pasa_paged_prefill_wide_q8",
-           "pasa_decode", "pasa_decode_walk",
+           "pasa_decode_walk",
            "shift_kv", "pasa_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

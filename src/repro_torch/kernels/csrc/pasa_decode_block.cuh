@@ -11,10 +11,10 @@
 //    acc_update of pasa_common.cuh, block after block in order.
 //
 // decode_block_update is the two in sequence.  The sequential walk
-// (pasa_decode_walk.cu) runs its blocks through it; both cluster kernels
-// spread the blocks of a sequence over a CTA cluster, reduce each to its
-// partials and fold them in block order with decode_fold_step (the same
-// row_update and acc_update calls on the same values), so paged ==
+// (pasa_decode_walk.cu) runs its blocks through it; the split kernel of
+// both decode ops (pasa_decode_split.cuh) reduces each block of a sequence
+// to its partials in a CTA of its own and folds them in block order (the
+// same row_update and acc_update calls on the same values), so paged ==
 // contiguous == walk holds bit for bit, as the reference's shared
 // masked_block_update makes it hold there.  What bounds a block on an H100 is latency, not bytes: per block
 // each thread runs G dot products of D for each of its block / D key rows
@@ -58,22 +58,26 @@ constexpr int DEC_PAGE_ROWS = 128;   // rows of a staged piece of a block
 constexpr int DEC_MAX_BLOCK = 256;   // rows of a block
 
 // One block of up to MAXB rows of head width D at operand type OpT (fp16
-// or bf16, both two bytes): at D 128 78,848 bytes at 128 rows and
-// 153,088 at 256 (the tile both decode kernels use); at D 64 44,032
-// and 85,504; at D 32 26,624 and 51,712; in every mode.  The block runs
-// kThreads = D threads.
-template <typename OpT, int MAXB, int D>
+// or bf16, both two bytes) for a group of up to NG rows (dec_rows: 8 or
+// 16; the query, score and statistic arrays are sized by it): at D 128
+// 72,448 / 78,848 bytes (NG 8 / 16) at 128 rows and 142,592 / 153,088 at
+// 256; at D 64 38,656 / 44,032 and 76,032 / 85,504; at D 32 21,760 /
+// 26,624 and 42,752 / 51,712; in every mode.  The block runs kThreads = D
+// threads.
+template <typename OpT, int MAXB, int D, int NG>
 struct DecodeSmem {
   static_assert(head_dim_built(D), "decode head width");
+  static_assert(NG <= DEC_MAX_G && NG <= D, "decode group rows");
   static constexpr int kRows = MAXB;
   static constexpr int kD = D;
+  static constexpr int kNG = NG;
   static constexpr int kThreads = D;          // one per head-dim column
   static constexpr int kWarps = D / 32;
   // K row stride in halves: D / 2 + 1 words (65 at D 128, 33 at D 64, 17
   // at D 32), an odd count, so thread c reading word w of row c hits bank
   // (c + w) mod 32: distinct across a warp.
   static constexpr int kLd = D + 2;
-  OpT q[DEC_MAX_G][D];
+  OpT q[NG][D];
   OpT k[MAXB][kLd];                   // raw K on entry, shifted K after
   OpT v[MAXB][D];                     // rows >= valid zeroed by the caller
   // the rows' scores (masked: NEG_BIG) and probabilities: at fp16 two
@@ -82,16 +86,16 @@ struct DecodeSmem {
   // buffer)
   union {
     struct {
-      __half s[DEC_MAX_G][MAXB];
-      __half p[DEC_MAX_G][MAXB];
+      __half s[NG][MAXB];
+      __half p[NG][MAXB];
     } h;
-    float f[DEC_MAX_G][MAXB];
+    float f[NG][MAXB];
   } sc;
-  float m[DEC_MAX_G], l[DEC_MAX_G], f[DEC_MAX_G];
-  float e_prev[DEC_MAX_G], e_cur[DEC_MAX_G];
+  float m[NG], l[NG], f[NG];
+  float e_prev[NG], e_cur[NG];
   // the block's partials per row: s-bar, local max, local sum (each at
   // the statistic dtype)
-  float sbar[DEC_MAX_G], m_loc[DEC_MAX_G], l_loc[DEC_MAX_G];
+  float sbar[NG], m_loc[NG], l_loc[NG];
 };
 
 // Row capacity of a launch: the group padded to 8 or 16 rows, a
@@ -102,7 +106,7 @@ __host__ __device__ constexpr int dec_rows(int G) { return G <= 8 ? 8 : DEC_MAX_
 template <int NG, typename Smem>
 __device__ __forceinline__ void decode_state_init(Smem& S, float* acc) {
   const int t = threadIdx.x;
-  if (t < DEC_MAX_G) {
+  if (t < NG) {
     S.m[t] = NEG_BIG;
     S.l[t] = 0.0f;
     S.f[t] = 0.0f;

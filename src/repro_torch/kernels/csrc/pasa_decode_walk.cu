@@ -1,11 +1,11 @@
 // The sequential walk of PASA flash-decode over a CONTIGUOUS KV cache,
-// for Hopper (sm_90a): the on-card oracle of both cluster decode kernels
-// (pasa_decode.cu over a strided cache, pasa_paged_decode.cu over a page
-// pool), which equal it bit for bit.  Only the card tests and
+// for Hopper (sm_90a): the on-card oracle of both decode ops' split kernel
+// (pasa_decode_split.cuh, over a strided cache or a page pool), which
+// equals it bit for bit.  Only the card tests and
 // chip_smoke.py reach it (kernels.pasa_decode._walk_call); no wrapper
 // calls it or falls back to it.  It replaces no TPU kernel of its own: it
 // is the reference's sequential grid over the blocks (repro/kernels/
-// pasa_decode.py, _decode_kernel), kept to hold the cluster split, and
+// pasa_decode.py, _decode_kernel), kept to hold the split over blocks, and
 // sits in a source of its own so that its instances build beside the
 // main path's, not after them.
 //
@@ -13,7 +13,7 @@
 // kv_len in order through decode_block_update (pasa_decode_block.cuh):
 // the block's partials, then the fold.  Inputs, policies, head widths
 // (32, 64 and 128: D threads per CTA) and rules (rows at or past kv_len
-// never read) are pasa_decode.cu's.
+// never read) are contiguous decode's (pasa_paged_decode.cuh).
 
 #include "pasa_decode_block.cuh"
 
@@ -29,7 +29,7 @@ contiguous_decode_kernel(const typename M::Op* __restrict__ q,  // (B,KVH,G,D)
                          int kv_heads, int G, int s2, int block,
                          long long sb, long long sh, long long ss, Policy P) {
   using OpT = typename M::Op;
-  using Smem = DecodeSmem<OpT, DEC_MAX_BLOCK, D>;
+  using Smem = DecodeSmem<OpT, DEC_MAX_BLOCK, D, NG>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   const int b = blockIdx.x;
@@ -88,7 +88,7 @@ static int walk_rows(const void* q, const void* k, const void* v,
                      int G, int s2, int block, long long sb, long long sh,
                      long long ss, const Policy& P, cudaStream_t stream) {
   using OpT = typename M::Op;
-  const size_t smem = sizeof(DecodeSmem<OpT, DEC_MAX_BLOCK, D>);
+  const size_t smem = sizeof(DecodeSmem<OpT, DEC_MAX_BLOCK, D, NG>);
   cudaError_t err = cudaFuncSetAttribute(
       contiguous_decode_kernel<CacheT, NG, M, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -135,7 +135,8 @@ static int walk(const void* q, const void* k, const void* v,
 }  // namespace pasa
 
 // Plain C entry point (bound with ctypes): the arguments of
-// pasa_decode_launch (pasa_decode.cu) without the workspace.  Returns the
+// pasa_decode_launch (pasa_paged_decode.cu) without the workspace and the
+// tickets.  Returns the
 // cudaError_t of the launch (0: queued on `stream`).
 extern "C" int pasa_decode_walk_launch(
     const void* q, const void* k, const void* v, const void* kv_len,

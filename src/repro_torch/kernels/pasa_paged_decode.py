@@ -4,13 +4,13 @@ Counterpart of ``repro.kernels.pasa_paged_decode``.
 
   * :func:`kernel_call` launches ``csrc/pasa_paged_decode.cu`` (bf16
     pools) or its sibling source of the pool's type (``_fp16``,
-    ``_int8``, ``_fp8``), one template (``csrc/pasa_paged_decode.cuh``):
-    a cluster
-    of 8 CTAs per (sequence, kv-head) reduces the live blocks of
-    ``block_kv`` rows of the page-table view (any page size: a block may
-    span pages or share one) to partials in parallel, then folds them
-    exactly in block order (see the source's note), into a workspace the
-    wrapper allocates.
+    ``_int8``, ``_fp8``), one template (``csrc/pasa_paged_decode.cuh``,
+    ``csrc/pasa_decode_split.cuh``): each live block of ``block_kv`` rows
+    of a (sequence, kv-head)'s page-table view (any page size: a block may
+    span pages or share one) is reduced to its partials by a CTA of its
+    own, into a workspace the wrapper allocates, and the last CTA of the
+    pair to finish (an int32 ticket a pair, :func:`tickets`) folds them
+    exactly in block order (see the source's note).
   * :func:`paged_decode_plain` is the port of the reference's
     ``paged_decode_xla``: a gather of the pages (dequantized for 8-bit
     pools by :func:`_gather_dequant`), then
@@ -167,11 +167,49 @@ def sidecar_ptrs(quant: Optional[dict]) -> list:
 def _entry(name: str) -> ctypes._CFuncPtr:
     fn = getattr(_build.load(name), f"{name}_launch")
     fn.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
+
+
+# The decode kernels' tickets: an int32 counter a (sequence, kv-head) pair
+# that the pair's CTAs take when their blocks are written (the last one
+# folds and resets it), one buffer a (device, stream), zeroed when it is
+# made or grown.  Every launch leaves its counters at 0, so calls in order
+# on one stream share a buffer; calls on two streams have two.
+_TICKETS: dict = {}
+
+
+def tickets(device: torch.device, pairs: int) -> torch.Tensor:
+    """The current stream's ticket buffer on ``device``, of at least
+    ``pairs`` counters (all 0 between launches)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    buf = _TICKETS.get((device.index, stream))
+    if buf is None or buf.numel() < pairs:
+        buf = torch.zeros(pairs, dtype=torch.int32, device=device)
+        _TICKETS[(device.index, stream)] = buf
+    return buf
+
+
+def occupancy(pool_dtype: torch.dtype, head_dim: int, group: int, page: int,
+              block: int, policy: PrecisionPolicy) -> tuple:
+    """(dynamic shared-memory bytes, resident CTAs an SM on the current
+    card) of the decode instance a call at these arguments launches - a
+    paged call from a pool of ``pool_dtype``, or a contiguous call from a
+    bf16 / fp16 cache.  Launches nothing."""
+    name = DECODE_SOURCES[pool_dtype]
+    fn = getattr(_build.load(name), f"{name}_occupancy")
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    score_half, op_bf16 = policy_scalars(0.0, policy, head_dim)[6:]
+    err = fn(head_dim, group, page, block, score_half, op_bf16,
+             ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"{name}_occupancy failed: cudaError {err}")
+    return out[0], out[1]
 
 
 def kernel_call(
@@ -204,7 +242,7 @@ def kernel_call(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         *sidecar_ptrs(quant),
         page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        workspace.data_ptr(),
+        workspace.data_ptr(), tickets(q.device, b * kvh).data_ptr(),
         b, kvh, g, d, page, max_pages, block_kv, POOL_KINDS[k_pages.dtype],
         *policy_scalars(beta, policy, d),
         torch.cuda.current_stream(q.device).cuda_stream,

@@ -30,7 +30,17 @@ this, other, on the same seeded inputs at ``chip_smoke.py``'s fixtures:
     256-row tile; 256 also from an int8 pool) and 512 rows;
   * the algebraic shift (``/algebraic``): ``shift_kv`` on the dense
     prefill's keys above and ``pasa_attention`` causal at fp16 on the
-    first fixture, both with ``gemm_shift=False``.
+    first fixture, both with ``gemm_shift=False``;
+  * the decodes at the serves' calls with many kv heads and small groups
+    (``/g1_*``), fp16 PASA, block 128, bf16 caches of (B, S2, KVH, D)
+    read through strides: contiguous decode at the hybrid's call (batch
+    4, KVH 32, G 1, D 64, kv 101 in 140 rows), Whisper's (KVH 20, G 1, D
+    64, kv 66 in 104 rows) and the vlm's self call (KVH 8, G 8, D 128, kv
+    48 in 72 rows); paged decode at a paged serve's call (batch 4, kv
+    1002 / 519 / 302 / 131, page 128, a shuffled pool) at olmoe's KVH 16,
+    G 1 (from bf16 and int8 pools) and qwen1.5-32b's KVH 40, G 1, and at
+    qwen2-7b's KVH 4, G 7 (``pasa_paged_decode/serve_shape``, also from
+    int8 and fp8_e4m3 pools).
 A tree whose kernels do not take a fixture (a decode block other than
 the page, a prefill page under 16 or over 256 rows, the algebraic shift)
 reports it as not taken.
@@ -196,6 +206,56 @@ def _cases(dev):
         q, k, v, beta=BETA, policy=FP16, causal=True, gemm_shift=False), 20)
     cases.update(_hd64_cases(dev, randn))
     cases.update(_page_cases(dev))
+    cases.update(_g1_cases(dev))
+    return cases
+
+
+def _g1_cases(dev):
+    """The ``/g1_*`` decode cases of :func:`_cases` (their own seed) and
+    paged decode at qwen2-7b's serve call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.paged_cache import quantize_kv_page
+
+    rng = np.random.default_rng(2)
+    randn = lambda shape, mean, dt=torch.float16: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32) + mean).to(dev, dt)
+    cases = {}
+    for tag, kvh, g, d, kv, s2 in (("g1_hybrid", 32, 1, 64, 101, 140),
+                                   ("g1_whisper", 20, 1, 64, 66, 104),
+                                   ("g1_vlm", 8, 8, 128, 48, 72)):
+        kc = randn((4, s2, kvh, d), 2.0, torch.bfloat16).transpose(1, 2)
+        vc = randn((4, s2, kvh, d), 0.0, torch.bfloat16).transpose(1, 2)
+        qd = randn((4, kvh, g, d), 0.0)
+        kv_len = torch.full((4,), kv, dtype=torch.int32, device=dev)
+        cases[f"pasa_decode/{tag}"] = (
+            lambda qd=qd, kc=kc, vc=vc, kv_len=kv_len: ops.pasa_decode(
+                qd, kc, vc, kv_len, beta=BETA, block_kv=128), 50)
+    lens = (1002, 519, 302, 131)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for tag, kvh, g, pools in (("g1_olmoe", 16, 1, ("bf16", "int8")),
+                               ("g1_qwen15", 40, 1, ("bf16",)),
+                               ("serve_shape", 4, 7,
+                                ("bf16", "int8", "fp8_e4m3"))):
+        kc = randn((len(lens), max(lens), kvh, 128), 30.0, torch.bfloat16)
+        vc = randn((len(lens), max(lens), kvh, 128), 0.0, torch.bfloat16)
+        qd = randn((len(lens), kvh, g, 128), 0.0)
+        kp, vp, table = _repaged(rng, kc, vc, lens, 128)
+        valid = torch.isfinite(kp[:, :, 0, 0]).to(dev)
+        for pool in pools:
+            kq, vq, side = kp, vp, {}
+            if pool != "bf16":
+                kq, ks, kh = quantize_kv_page(kp, valid, pool)
+                vq, vs, vh = quantize_kv_page(vp, valid, pool)
+                side = dict(k_scale=ks, k_shift=kh, v_scale=vs, v_shift=vh)
+            name = f"pasa_paged_decode/{tag}" + ("" if pool == "bf16"
+                                                 else f"_{pool}")
+            cases[name] = (
+                lambda qd=qd, kq=kq, vq=vq, table=table, side=side:
+                    ops.pasa_paged_decode(qd, kq, vq, table, kv_len,
+                                          beta=BETA, block_kv=128, **side), 50)
     return cases
 
 

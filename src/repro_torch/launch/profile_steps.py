@@ -130,8 +130,9 @@ TRAIN_WINDOWS = ("plain_attention_backward", "adamw_update")
 
 # kernel-name fragment -> category, first match wins
 _KERNELS = (
-    ("pagedblocks", "pasa_paged_decode"),         # cluster_decode_kernel<
-    ("stridedblocks", "pasa_decode"),             #   PagedBlocks | Strided..>
+    # split_decode_kernel<DecodeBlocks..>: the instances of both decode
+    # ops (paged and contiguous), told apart by the call profiled
+    ("split_decode_kernel", "pasa_decode"),
     ("paged_prefill_kernel", "pasa_paged_prefill"),
     ("contiguous_decode_kernel", "pasa_decode"),  # the walk (not on a path)
     ("shift_kv_kernel", "shift_kv"),

@@ -438,7 +438,7 @@ def _decode_gold(q, kc, vc, kv_lens):
 @pytest.mark.parametrize("g", [7, 12])
 def test_contiguous_decode_runs_at_the_default_block(g):
     """ops.pasa_decode(q, k, v, kv_len) at its default block of 256 rows
-    (the reference's): a block reaches the cluster kernel in two pieces of
+    (the reference's): a block reaches the 256-row tile in two pieces of
     128 rows and its math runs once over all 256.  Within the decode bar
     of the plain version at block 256, within relative RMSE 0.03 of
     float64 attention, and equal bit for bit to the sequential walk at
@@ -467,15 +467,15 @@ def test_contiguous_decode_runs_at_the_default_block(g):
     assert float((got.double() - gold).norm() / gold.norm()) < 0.03
     for policy in (FP16, FP16_FP32):
         for beta in (0.0, BETA):
-            cluster = ops.pasa_decode(q, kview, vview, kvl, beta=beta,
-                                      policy=policy, block_kv=256)
+            split = ops.pasa_decode(q, kview, vview, kvl, beta=beta,
+                                    policy=policy, block_kv=256)
             walk = cmod._walk_call(q, kview, vview, kvl, beta=beta,
                                    policy=policy, block_kv=256)
-            assert torch.isfinite(cluster.float()).all()
-            assert torch.equal(cluster, walk), (policy.name, beta)
+            assert torch.isfinite(split.float()).all()
+            assert torch.equal(split, walk), (policy.name, beta)
             plain = cmod.decode_plain(q, kview, vview, kvl, beta=beta,
                                       policy=policy, block_kv=256)
-            torch.testing.assert_close(cluster.float(), plain.float(),
+            torch.testing.assert_close(split.float(), plain.float(),
                                        **DECODE_TOL)
 
 
@@ -566,10 +566,10 @@ def test_dense_route_on_card_batched_equals_one_at_a_time():
 @pytest.mark.parametrize("g", [7, 12])
 @pytest.mark.parametrize("page", [64, 128])
 def test_paged_decode_equals_contiguous_at_cluster_boundaries(page, g):
-    """Both decode kernels spread a sequence's blocks over a cluster of 8
-    CTAs and fold their partials in order - the paged one over a page
-    pool, the contiguous one over a strided cache; the contiguous
-    source's sequential walk folds the same rows one block after another.
+    """Both decode ops reduce each live block in a CTA of its own and fold
+    the partials in order - paged decode over a page pool, contiguous
+    decode over a strided cache; the sequential walk folds the same rows
+    one block after another.
     All three bit for bit equal at 1, 7, 8, 9, 16, 17 and 33 live blocks
     (full and ragged last blocks), at both policies, PASA and
     FlashAttention-2, for groups of up to 8 and of up to 16 rows (the
@@ -1340,7 +1340,7 @@ def test_whisper_on_card_batched_equals_one_at_a_time():
 @pytest.mark.parametrize("policy", ALL_MODES, ids=lambda p: p.name)
 def test_decodes_at_head_dim_32(policy):
     """Contiguous decode at (2, 2, G 4, 512, 32), kv 300 / 77, blocks 128
-    and 256: the cluster kernel == its walk bit for bit, each within the
+    and 256: the split kernel == its walk bit for bit, each within the
     decode bar of its plain version and relative RMSE 0.03 of float64;
     paged decode at page 64 (b 2, KVH 2, G 4, kv 100 / 37, shuffled pages,
     NaN past kv_len) == contiguous decode at block 64 on the same rows,
@@ -1667,3 +1667,132 @@ def test_prefill_kernel_at_any_page(page, pool):
         torch.tensor([c0], dtype=torch.int32, device=dev), pl[1:2],
         beta=BETA, **quant)
     assert torch.equal(run(0)[:, :, cut:], run(cut))
+
+
+# ---- many kv heads and small groups -----------------------------------------
+#
+# Both decode ops reduce each live block of a (sequence, kv-head) in a CTA
+# of its own, several CTAs an SM, and the last of the pair's CTAs folds
+# the blocks in order behind an int32 ticket that every launch leaves at
+# 0 (one buffer a device and stream).
+
+# (tag, B, KVH, G, D, kv lengths, cache rows): the serves' decode calls
+SMALL_GROUP_SHAPES = [
+    ("hybrid", 4, 32, 1, 64, (101,) * 4, 140),
+    ("whisper", 4, 20, 1, 64, (66,) * 4, 104),
+    ("vlm", 4, 8, 8, 128, (48,) * 4, 72),
+    ("olmoe", 4, 16, 1, 128, (1002, 519, 302, 131), 1002),
+    ("qwen1.5", 4, 40, 1, 128, (1002, 519, 302, 131), 1002),
+]
+
+
+def _bits(x):
+    """x's bits (NaN outputs of empty rows compare equal)."""
+    return x.contiguous().view(torch.int16)
+
+
+def _decode_rows(rng, lens, kvh, g, d, rows, page, dev):
+    """q, kv_len, a shuffled bf16 pool of ``page``-row pages with its
+    table, and the same rows as a strided (B, KVH, rows, D) cache view
+    (NaN past each length)."""
+    b = len(lens)
+    kp, vp, table = _pool(rng, lens, kvh, page, dev, d=d)
+    n = table.shape[1] * page
+    kc, vc = (x[table.long()].reshape(b, n, kvh, d)[:, :rows].transpose(1, 2)
+              for x in (kp, vp))
+    q = _randn(rng, (b, kvh, g, d), 0.0, dev)
+    kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kvl, kp, vp, table, kc, vc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SMALL_GROUP_SHAPES, ids=lambda s: s[0])
+def test_small_group_decodes_equal_walk_and_paged(shape):
+    """At the serves' calls with many kv heads and small groups: contiguous
+    decode == its walk == paged decode on the same rows, bit for bit, at
+    fp16 PASA and bf16_fp32 FlashAttention-2; within the decode bars of
+    the plain version."""
+    dev = _card()
+    _, b, kvh, g, d, lens, rows = shape
+    rng = np.random.default_rng(35)
+    q, kvl, kp, vp, table, kc, vc = _decode_rows(rng, lens, kvh, g, d, rows,
+                                                 128, dev)
+    for policy, beta in ((FP16, BETA), (BF16_FP32, 0.0)):
+        kw = dict(beta=beta, policy=policy, block_kv=128)
+        qq = q.to(policy.input_dtype)
+        got = ops.pasa_decode(qq, kc, vc, kvl, **kw)
+        assert torch.isfinite(got.float()).all()
+        assert torch.equal(got, cmod._walk_call(qq, kc, vc, kvl, **kw))
+        assert torch.equal(got, ops.pasa_paged_decode(q, kp, vp, table, kvl,
+                                                      **kw))
+        want = cmod.decode_plain(q, kc, vc, kvl, **kw)
+        torch.testing.assert_close(got.float(), want.float(), **DECODE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 7, 12])
+def test_decode_rows_of_0_1_2_and_9_live_blocks(g):
+    """One batch whose rows hold 0, 1, 2 and 9 live blocks (block 128, and
+    block 256 at pages of 48 rows): contiguous == walk == paged bit for
+    bit, the empty row included (the walk's 0 / 0), at both group
+    layouts; the live rows within the decode bars of the plain version."""
+    dev = _card()
+    rng = np.random.default_rng(36)
+    lens = [0, 100, 200, 9 * 128 - 3]
+    for block, page in ((128, 128), (256, 48)):
+        q, kvl, kp, vp, table, kc, vc = _decode_rows(rng, lens, 4, g, 128,
+                                                     9 * 128, page, dev)
+        kw = dict(beta=BETA, policy=FP16, block_kv=block)
+        got = ops.pasa_decode(q, kc, vc, kvl, **kw)
+        assert torch.equal(_bits(got), _bits(cmod._walk_call(q, kc, vc, kvl,
+                                                             **kw)))
+        assert torch.equal(_bits(got), _bits(ops.pasa_paged_decode(
+            q, kp, vp, table, kvl, **kw)))
+        want = cmod.decode_plain(q, kc, vc, kvl, **kw)
+        assert torch.isfinite(got[1:].float()).all()
+        torch.testing.assert_close(got[1:].float(), want[1:].float(),
+                                   **DECODE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SMALL_GROUP_SHAPES[::3], ids=lambda s: s[0])
+def test_decode_tickets_reset_across_calls_and_streams(shape):
+    """Calls in a row on one stream, then calls queued on two streams at
+    once: each output bit for bit the first call's (a launch leaves its
+    tickets at 0; each stream has buffers of its own)."""
+    dev = _card()
+    _, b, kvh, g, d, lens, rows = shape
+    rng = np.random.default_rng(37)
+    q, kvl, kp, vp, table, kc, vc = _decode_rows(rng, lens, kvh, g, d, rows,
+                                                 128, dev)
+    for run in (lambda: ops.pasa_decode(q, kc, vc, kvl, beta=BETA,
+                                        block_kv=128),
+                lambda: ops.pasa_paged_decode(q, kp, vp, table, kvl,
+                                              beta=BETA, block_kv=128)):
+        first = run()
+        outs = [run() for _ in range(3)]
+        streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream(dev))
+        for _ in range(3):
+            for s in streams:
+                with torch.cuda.stream(s):
+                    outs.append(run())
+        torch.cuda.synchronize(dev)
+        for out in outs:
+            assert torch.equal(out, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [torch.bfloat16, torch.float16, torch.int8,
+                                  torch.float8_e4m3fn])
+def test_decode_ctas_an_sm(pool):
+    """The decode instances that serve blocks of up to 128 rows keep at
+    least 2 CTAs an SM at head_dim 128 and 3 at 64, in both group
+    layouts and every policy mode."""
+    _card()
+    for d, least in ((128, 2), (64, 3)):
+        for g in (1, 12):
+            for policy in ALL_MODES:
+                _, ctas = dmod.occupancy(pool, d, g, 128, 128, policy)
+                assert ctas >= least, (d, g, policy.name, ctas)

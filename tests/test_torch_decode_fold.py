@@ -1,15 +1,16 @@
-"""The exact in-order fold behind the decode kernels' cluster split.
+"""The exact in-order fold behind the decode kernels' split over blocks.
 
 The CUDA paged decode kernel reduces the pages of one (sequence, kv head)
 to per-page partials in parallel - row pseudo-average, local max, local
 sum and P V at the accumulator dtype, none of which reads the running
 state - and then folds them strictly in page order.  On the CPU the same
 split is ``core.pasa.block_partials`` / ``fold_partials``: here every
-page's partials are computed first, in the order the kernel's CTAs of a
-cluster take them (page j on rank j mod 8), then folded in page order.
+page's partials are computed first, in the order the kernel's CTAs take
+them when a pair's blocks outnumber its 8 CTAs (page j on CTA j mod 8),
+then folded in page order.
 The result must equal the sequential walk of ``paged_decode_plain`` bit
 for bit, at three policies, from a bf16 and an int8 pool, at kv_len on
-either side of a page and of the cluster's 8 pages; and it must agree
+either side of a page and of 8 pages; and it must agree
 with the reference's gather fallback at the decode tolerance.  The
 contiguous decode kernel's split over a strided dense cache is held the
 same way against ``decode_plain`` and the reference's contiguous decode
@@ -45,13 +46,13 @@ torch.set_num_threads(1)
 
 BETA = 0.984497
 PAGE = 16
-CLUSTER = 8          # CTAs per (sequence, kv head) in the CUDA kernel
+CTAS = 8             # CTAs of a (sequence, kv head), each taking every 8th block
 KVH, G, D = 2, 3, 32
 # the reference's kernel-vs-oracle bar for decode (tests/test_paged.py)
 DECODE_TOL = dict(atol=3e-3, rtol=3e-2)
 POLICIES = {"fp16": (FP16, REF_FP16), "fp16_fp32": (FP16_FP32, REF_FP16_FP32),
             "fp32": (FP32, REF_FP32)}
-KV_LENS = [1, PAGE - 1, PAGE, PAGE + 1, CLUSTER * PAGE, CLUSTER * PAGE + 1]
+KV_LENS = [1, PAGE - 1, PAGE, PAGE + 1, CTAS * PAGE, CTAS * PAGE + 1]
 
 
 def _case(kv_len, pool, seed=0):
@@ -90,7 +91,7 @@ def _case(kv_len, pool, seed=0):
 
 def _fold_of_partials(q, kp, vp, table, kv_len, policy, quant):
     """paged_decode_plain with its block loop split in two: every page's
-    partials first (rank by rank, as the kernel's cluster takes them),
+    partials first (CTA by CTA, as the kernel's CTAs take them),
     then the fold in page order."""
     dt = policy.input_dtype
     scales = lambda side: (quant.get(f"{side}_scale"), quant.get(f"{side}_shift"))
@@ -103,8 +104,8 @@ def _fold_of_partials(q, kp, vp, table, kv_len, policy, quant):
     )
     n = prob.n_blocks
     parts = {}
-    for rank in range(CLUSTER):
-        for j in range(rank, n, CLUSTER):
+    for cta in range(CTAS):
+        for j in range(cta, n, CTAS):
             parts[j] = block_partials(policy=policy, **prob.block_args(j))
     state = prob.init_state(policy)
     for j in range(n):
@@ -134,7 +135,7 @@ def test_fold_of_page_partials_equals_sequential_walk(policy, pool, kv_len):
                                np.asarray(ref, np.float32), **DECODE_TOL)
 
 
-# The contiguous decode kernel runs the same cluster split over a strided
+# The contiguous decode kernel runs the same split over a strided
 # (B, KVH, S2, D) view of the dense route's (B, S2, KVH, D) cache: block j
 # is rows [j * block, (j + 1) * block), only the live blocks (j * block <
 # kv_len) are reduced, and S2 need not be a multiple of the block.
@@ -160,8 +161,8 @@ def _strided_case(kv_len, seed=0):
 
 def _fold_of_block_partials(q, kc, vc, kv_len, policy, block):
     """decode_plain with its block loop split in two, over the live blocks
-    only: every block's partials first (rank by rank, as the kernel's
-    cluster takes them), then the fold in block order."""
+    only: every block's partials first (CTA by CTA, as the kernel's CTAs
+    take them), then the fold in block order."""
     dt = policy.input_dtype
     cast = lambda x: x.to(dt).contiguous()
     prob = prepare_blocks(
@@ -171,8 +172,8 @@ def _fold_of_block_partials(q, kc, vc, kv_len, policy, block):
     )
     n_live = math.ceil(int(kv_len[0]) / block)
     parts = {}
-    for rank in range(CLUSTER):
-        for j in range(rank, n_live, CLUSTER):
+    for cta in range(CTAS):
+        for j in range(cta, n_live, CTAS):
             parts[j] = block_partials(policy=policy, **prob.block_args(j))
     state = prob.init_state(policy)
     for j in range(n_live):
