@@ -407,8 +407,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      contiguous decode at the same block on the same rows (an 8-bit
      pool's dequantized as the kernel loads them) and its walk, within
      the decode bars of the plain version; the paged prefill kernel at
-     pages 8, 16, 48, 256, 257, 300, 512 and 1024 (256 and over:
-     pasa_paged_prefill_wide.cu, over 256 in pieces of 256 rows) on phase
+     pages 1, 8, 16, 24 (several pages a 128-row stage), 48 and 64, 256,
+     257, 300, 512 and 1024 (256 and over: pasa_paged_prefill_wide.cu,
+     over 256 in pieces of 256 rows) on phase
      2's prefill rows from each pool in both modes (pages over 256 also
      at head_dim 64 and 32, PAGES_WIDE_SHAPES), within the prefill bars
      of the plain version and the float64 RMSE bars, a pad row of zeros,
@@ -426,10 +427,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      prefill call's logits) within DENSE_LOGIT_ATOL of the plain paged
      versions and no farther from them at fp32 than DENSE_FP32_RATIO x
      theirs.  Both paged kernels are timed at the serve's call shapes at
-     pages 16 and 8 (prefill also 256 and 512, beside 128 and 1024)
-     beside the plain version, SDPA and the bound.  In the kernels line
-     each page entry has the page-16 / page-512 serve's count or its
-     pass's count (page 8, 256).  ``--pages-only`` builds every kernel
+     pages 16 and 8 from a bf16 and an int8 pool, each beside page 128
+     from the same pool (prefill also 256 and 512, beside 128 and 1024),
+     the plain version, SDPA and the bound.  In the kernels line each
+     page entry has the page-16 / page-512 serve's count or the count of
+     its page and pool's pass (page 8, 256), and the max abs error of
+     that page and pool.  ``--pages-only`` builds every kernel
      and runs phase 19 alone, the weights built at its depth.
  20. the algebraic-shift dense attention (``use_gemm_shift=False``), right
      after phase 19 with phase 3's weights: the shift kernel's algebraic
@@ -7633,7 +7636,7 @@ def phase_modes(dev):
 PAGES_DECODE = (1, 8, 16, 48, 128, 256)
 PAGES_BLOCKS = (128, 256)
 PAGES_DECODE_SHAPES = ((128, 4, 7), (64, 4, 8))   # head_dim, KVH, G
-PAGES_PREFILL = (8, 16, 48, 256, 257, 300, 512, 1024)
+PAGES_PREFILL = (1, 8, 16, 24, 48, 64, 256, 257, 300, 512, 1024)
 PAGES_PREFILL_HEADS = (28, 4)   # qwen2-7b's H and KVH at head_dim 128
 # pages over 256 rows (the 256-row tile in pieces) also at head_dim 64 and
 # 32: (head_dim, H, KVH)
@@ -7645,7 +7648,8 @@ PAGES_MODES = (("fp16", BETA), ("bf16_fp32", 0.0))
 PAGES_LAYERS = 8          # of qwen2-7b's 28: the page-16 serve's depth
 PAGES_SERVE = 16          # the serve's page (block_kv stays 128)
 PAGES_SERVE_WIDE = 512    # the wide page's serve (chunk 512, block 128)
-PAGES_TIMED = (16, 8)     # the pages timed at the serve's call shapes
+PAGES_TIMED = (16, 8)     # the pages timed at the serve's call shapes,
+#                           each from a bf16 and an int8 pool beside page 128
 PAGES_ALONE = (0, 3)      # requests served alone beside the batch
 PAGES_PREFILL_ROWS = ((0, 0, 0, 0), (512, 512, 300, 129))  # the first call
 
@@ -7728,15 +7732,16 @@ def _junk(kp, vp, side, valid):
 
 
 def _pages_cases(dev):
-    """Phase 19's cases, {key: dict(run, check)} with key (kernel, page,
-    label): paged decode at every page of PAGES_DECODE, block of
+    """Phase 19's cases, {key: dict(run, check, pool)} with key (kernel,
+    page, label): paged decode at every page of PAGES_DECODE, block of
     PAGES_BLOCKS, head width, pool and mode (PAGES_MODES); paged prefill at
     PAGES_PREFILL (head_dim 128), and at PAGES_WIDE also at the head
     widths of PAGES_WIDE_SHAPES, from each pool in each mode.  ``run()``
     is one call of the op (a launch); ``check(out)`` holds it and returns
-    its max abs error against the plain version.  Also returns the pairs
-    of calls that must give the same bits: each (kernel, page, pool)
-    clean and with stale bytes, and prefill in one chunk and in two."""
+    its max abs error against the plain version; ``pool`` names the pool.
+    Also returns the pairs of calls that must give the same bits: each
+    (kernel, page, pool) clean and with stale bytes, and prefill in one
+    chunk and in two."""
     import numpy as np
     import torch
 
@@ -7790,7 +7795,7 @@ def _pages_cases(dev):
                                f"d{d} {pool} {tag} block {block}")] = dict(
                             run=lambda args=args, kw=kw, side=side:
                                 ops.pasa_paged_decode(*args, **kw, **side),
-                            check=check)
+                            check=check, pool=pool)
                 pairs[("pasa_paged_decode", page, f"d{d} {pool}")] = (
                     lambda k_=k_, v_=v_, side=side, valid=valid, table=table,
                     q=q, kvl=kvl: [
@@ -7874,7 +7879,7 @@ def _pages_prefill_cases(dev, rng, cases, pairs, h, kvh, d, pages, starts,
                        f"{width}{pool} {tag}")] = dict(
                     run=lambda args=args, kw=kw, side=side:
                         ops.pasa_paged_prefill(*args, **kw, **side),
-                    check=check)
+                    check=check, pool=pool)
             pairs[("pasa_paged_prefill", page, f"{width}{pool}")] = (
                 lambda k_=k_, v_=v_, side=side, valid=valid, table=table: [
                     ops.pasa_paged_prefill(q, kk, vv, table, st, kvl,
@@ -7919,16 +7924,23 @@ def _pages_prefill_gold(q, kc, vc, starts, lens, live_rows):
     return torch.stack(golds)
 
 
+def _page_tag(page, pool):
+    """A page's name in phase 19's entries: ``page<page>``, with
+    ``_<pool>`` for an 8-bit pool."""
+    return f"page{page}" + ("" if pool == "bf16" else f"_{pool}")
+
+
 def check_pages(dev):
     """Phase 19's kernel checks: every case of ``_pages_cases`` launched
-    once, page by page, with every launch count set to 0 just before each
-    page's pass and read just after; then each held (paged decode bit for
+    once, page by page and pool by pool, with every launch count set to 0
+    just before each (page, pool) pass and read just after; then each held (paged decode bit for
     bit equal to contiguous decode and its walk on the same rows, and
     within the decode bars of its plain version; paged prefill within the
     prefill bars of its plain version and the float64 RMSE bars, a pad
     row of zeros), stale bytes inert and the prefill bit-invariant to a
-    page-aligned chunk cut.  Returns {page: launch counts by op and mode}
-    and the report."""
+    page-aligned chunk cut.  Returns {(page, pool): launch counts by op
+    and mode} and the report (max abs errors by ``<op>/<tag>``, tag
+    ``page<page>``, with ``_<pool>`` for an 8-bit pool)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -7938,16 +7950,17 @@ def check_pages(dev):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     counts, outs = {}, {}
-    for page in sorted({key[1] for key in cases}):
+    for page, pool in sorted({(key[1], c["pool"])
+                              for key, c in cases.items()}):
         ops.reset_launches()
         outs.update({key: c["run"]() for key, c in cases.items()
-                     if key[1] == page})
+                     if key[1] == page and c["pool"] == pool})
         torch.cuda.synchronize()
-        counts[page] = {w.__name__: dict(w.launches_by_mode)
-                        for w in ops.WRAPPERS if w.launches}
+        counts[page, pool] = {w.__name__: dict(w.launches_by_mode)
+                              for w in ops.WRAPPERS if w.launches}
     errs = {}
     for key, c in cases.items():
-        name = f"{key[0]}/page{key[1]}"
+        name = f"{key[0]}/{_page_tag(key[1], c['pool'])}"
         errs[name] = max(errs.get(name, 0.0), c["check"](outs[key]))
     for key, fn in pairs.items():
         a, b = fn()
@@ -8159,12 +8172,14 @@ def phase_pages(dev, bundle=None, params=None):
     """Phase 19 (``--pages-only``: this phase alone, the serving weights
     built at its depth): ``check_pages``, ``serve_pages`` and both paged
     kernels timed at the serve's call shapes at pages PAGES_TIMED.
-    Returns the kernels-line entries: each paged kernel at page
-    PAGES_SERVE from a bf16 and an int8 pool (the page-16 serves'
-    launches), at page 8 and paged prefill at page 256 (the 256-row tile
-    of ``pasa_paged_prefill_wide.cu``; both with check_pages' launches at
-    that page), and paged prefill at page PAGES_SERVE_WIDE from both pools
-    (the page-512 serves' launches; that tile in pieces)."""
+    Returns the kernels-line entries: each paged kernel at the pages of
+    PAGES_TIMED from a bf16 and an int8 pool, each beside page 128 from
+    the same pool and SDPA (page PAGES_SERVE with the page-16 serves'
+    launches, page 8 with check_pages' launches at that page), paged
+    prefill at page 256 (the 256-row tile of
+    ``pasa_paged_prefill_wide.cu``, check_pages' launches), and at page
+    PAGES_SERVE_WIDE from both pools (the page-512 serves' launches; that
+    tile in pieces)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -8185,28 +8200,28 @@ def phase_pages(dev, bundle=None, params=None):
     entries = []
     served = (PAGES_SERVE, PAGES_SERVE_WIDE)
     for name in ("pasa_paged_decode", "pasa_paged_prefill"):
-        for page, pool in ((PAGES_SERVE, "bf16"), (PAGES_SERVE, "int8"),
-                           (8, "bf16"), (256, "bf16"),
-                           (PAGES_SERVE_WIDE, "bf16"),
-                           (PAGES_SERVE_WIDE, "int8")):
+        timed = [(page, pool) for page in PAGES_TIMED
+                 for pool in ("bf16", "int8")]
+        for page, pool in timed + [(256, "bf16"), (PAGES_SERVE_WIDE, "bf16"),
+                                   (PAGES_SERVE_WIDE, "int8")]:
             if name == "pasa_paged_decode" and page > 128:
                 continue
-            tag = f"page{page}" + ("" if pool == "bf16" else f"_{pool}")
+            tag = _page_tag(page, pool)
             source, replaces = _kernel_source(f"{name}/{tag}")
             if page in served:
                 launches = serves[f"page{page}_{pool}"]["launches"][name]
             else:
-                launches = sum(counts[page].get(name, {}).values())
+                launches = sum(counts[page, pool].get(name, {}).values())
             if not launches:
                 raise AssertionError(f"{name}/{tag} was not launched")
             entry = dict(
                 name=f"{name}/{tag}", route="cuda", source=source,
                 replaces=replaces, launches=launches,
-                max_abs_err=rep["max_abs_err"][f"{name}/page{page}"],
+                max_abs_err=rep["max_abs_err"][f"{name}/{tag}"],
                 **_pages_timed(dev, page, pool, name))
             # page 128 at the same call, beside it (the wide page: and
             # page 1024)
-            if page in served:
+            if page in served or page in PAGES_TIMED:
                 entry["detail"] = {}
                 for other in (128, 1024) if page > 256 else (128,):
                     at = _pages_timed(dev, other, pool, name)
@@ -8993,10 +9008,10 @@ def main(argv=None) -> int:
     line += [{key: k[key] for key in keys} for k in modes
              if k not in shift_other]
     line.append(_mode_entry("shift_kv", shift_other, keys))
-    # phase 19's entries: the paged kernels at page 16 with the page-16
-    # serves' launches, at page 8 (and prefill at page 256) with the
-    # launches of check_pages' pass at that page, prefill at page 512 with
-    # the page-512 serves'
+    # phase 19's entries: the paged kernels at page 16 from bf16 and int8
+    # pools with the page-16 serves' launches, at page 8 from both pools
+    # (and prefill at page 256) with the launches of check_pages' pass at
+    # that page and pool, prefill at page 512 with the page-512 serves'
     line += [{key: k[key] for key in keys} for k in pages]
     # phase 20's entries: the algebraic shift and the attention on its K'
     # with the algebraic dense serve's launches

@@ -42,44 +42,84 @@
 //  * a CTA is one converter warpgroup and two consumer warpgroups of 64
 //    query rows each (setmaxnreg moves registers to the consumers); one
 //    (b, head, 128-row tile) per CTA, the longest causal tiles first;
-//  * the converter's thread 0 loads Q once, and each visible page's raw
-//    K and V (one kv head) by TMA from a 4-D map of the pool with the
-//    page id as a coordinate.  2-byte values land straight in a ring of
-//    three operand stages, already in the 128-byte-swizzled layout the
-//    wgmma descriptors read, and are converted in place (each element
-//    keeps its address): one stage is computed, one converted, one
-//    loading, so a page's bytes arrive behind two pages of math.  8-bit
-//    codes land row by row in a buffer of their own, with the page's two
-//    shift sidecars by bulk copy, and are dequantized into two operand
-//    stages; the next page's codes are requested as soon as the current
-//    page is converted;
-//  * the converter warpgroup turns the raw page into the operands at the
-//    policy's input dtype (fp16, or bf16 under bf16_fp32): km per column
-//    in row order (an fp32 sum rounded once), then K' = (K - beta km) /
-//    sqrt(d) and V at the input dtype (shift_key's arithmetic), rows past
-//    `valid` zeroed; for 8-bit pools the dequantization is load_pool8's
-//    (code * scale + shift in fp32, one rounding to the input dtype);
-//    it runs a page ahead of the consumers, so the conversion overlaps
-//    the previous page's GEMMs;
-//  * both GEMMs are wgmma (m64n{64|128}k16 for S from shared memory,
+//  * pages of 1 to 128 rows share one tile of 128 key rows: a ring stage
+//    holds npt = pages_per_stage(page) pages, page p at rows p * slot
+//    (slot = page_slot(page), the page's rows rounded up to 16: whole k16
+//    steps of P V, so every page starts 2,048-byte aligned and no step
+//    holds two pages' columns) - pages of 1 to 16 rows 8 a stage, 17 to
+//    32 rows 4, a page of 33 or more rows alone (two pages of 33 to 64
+//    rows a stage ran page 64 3 % slower than one);
+//  * the converter's thread 0 loads Q once, and each stage's pages' raw K
+//    and V (one kv head) by TMA from a 4-D map of the pool with the page
+//    id as a coordinate, one box a page at its slot and one barrier a
+//    stage.  2-byte values land straight in a ring of three operand
+//    stages, already in the 128-byte-swizzled layout the wgmma
+//    descriptors read, and are converted in place (each element keeps its
+//    address): one stage is computed, one converted, one loading.  8-bit
+//    codes land at their slots in a buffer of their own, each page's two
+//    shift sidecars beside them by bulk copy (its scales read a stage
+//    ahead), and are dequantized into two operand stages; the next
+//    stage's codes are requested as soon as the current one is converted;
+//  * the converter warpgroup turns each page of the stage into the
+//    operands at the policy's input dtype (fp16, or bf16 under
+//    bf16_fp32), page by page: km per column over the page's valid rows
+//    in row order (an fp32 sum rounded once; two km buffers, so a page's
+//    sum runs while the previous page's rows are converted), then K' = (K
+//    - beta km) / sqrt(d) and V at the input dtype (shift_key's
+//    arithmetic) at the page's slot, rows past `valid` and past the
+//    stage's pages zeroed; for 8-bit pools the dequantization is
+//    load_pool8's with the page's own scale and shift (code * scale +
+//    shift in fp32, one rounding to the input dtype); one hand-off a
+//    stage, a stage ahead of the consumers, so the conversion overlaps
+//    the previous stage's GEMMs;
+//  * both GEMMs are wgmma (m64n128k16 for S from shared memory,
 //    m64n{tile_width(D)}k16 for P V with P as the register operand and V
-//    read MN-major): pages of up to 64 rows run at N = 64, up to 128 at
-//    N = 128, the surplus columns masked like columns past `valid` (the
-//    converter writes zeros into every tile row past `valid`, so the rows
-//    a short page's TMA box leaves untouched never reach P V: any page of
-//    1 row or more runs, a page of 8 at 8x the tile's useful width); S
-//    stays in registers and is stored at the score dtype before anything
-//    reads it (fp16, or the fp32 wgmma sum itself under fp32 and
-//    bf16_fp32; there P enters the P V wgmma rounded once to the operand
-//    type, fp16 or bf16, while l sums the fp32 P - a deviation from the
-//    reference's fp32 P V held to its prefill bar (atol 1e-2, rtol
-//    3e-2); the attention kernel's two-term bf16 P (pasa_attention.cu)
-//    costs 32 registers the consumers here do not have at D 128: ptxas
-//    spills at 224, and the converter at 40);
-//    each row's statistics are reduced over the 4 threads that hold it,
-//    each row keeps its own block count and live flag; under the
-//    all-fp16 policy the per-element softmax and accumulator steps run on
-//    fp16 pairs with the same bits (hopper.cuh).
+//    read MN-major).  One score GEMM covers the stage; S stays in
+//    registers and is stored at the score dtype before anything reads it
+//    (fp16, or the fp32 wgmma sum itself under fp32 and bf16_fp32; there
+//    P enters the P V wgmma rounded once to the operand type, fp16 or
+//    bf16, while l sums the fp32 P - a deviation from the reference's
+//    fp32 P V held to its prefill bar (atol 1e-2, rtol 3e-2); the
+//    attention kernel's two-term bf16 P (pasa_attention.cu) costs 32
+//    registers the consumers here do not have at D 128: ptxas spills at
+//    224, and the converter at 40).  Then, page by page in page order,
+//    each its own PASA block: the rows' sums over the page's valid
+//    columns and maxima over its visible ones, reduced over the 4 threads
+//    that hold each row; P at the page's maxima (in place of its scores,
+//    as the P V product's A fragments) and l; P V of the page's columns
+//    only into a fresh fp32 sum - the k16 steps of its slot, the V
+//    descriptor starting at its first row - issued, then the rows' step
+//    (row_update: the page's own count and live flag; the dead-row no-op)
+//    and the next page's statistics while it runs; then that sum rounded
+//    to the accumulator dtype and folded by acc_update.  No log-sum-exp
+//    combine and no single P V over pre-scaled P: each page's P V is
+//    rounded on its own, as the fp16 policy's reference rounds it.  A
+//    page's columns sit at the same k positions of its k16 steps as in a
+//    stage of its own, so every page keeps the bits of a page a stage.
+//    Every step of a page is one wgmma call site over the same registers
+//    whatever page it serves: a step whose operands were one register set
+//    or another (a slot of 8 rows, its step's second half zero) made
+//    ptxas serialize every wgmma of the kernel ("insufficient register
+//    resources"), the one-page path's too.
+//    Registers (224 a consumer thread): the stage's scores stay live over
+//    its pages - fp16 pairs under fp16 scores (32 registers), fp32 under
+//    fp32 and bf16_fp32 (64) - beside P V's sum and the accumulator; at D
+//    128 with fp32 scores P V runs in two 64-column parts, one after the
+//    other.  The next page's P V does not overlap this page's fold at any
+//    width: the fold waits for the sum it folds, and a second sum does
+//    not fit beside the scores at D 128; at 64 and 32 it would, but no
+//    served path runs paged prefill there (the head_dim-64 families, the
+//    hybrid and Whisper, have no paged interface), so the kernel keeps
+//    one order and one instance body for every width.  Each row keeps its
+//    own block count and live flag; under the all-fp16 policy the
+//    per-element softmax and accumulator steps run on fp16 pairs with the
+//    same bits (hopper.cuh).  A page of 33 to 128 rows runs instances of
+//    their own (PACK false: the one-page path, converter and consumers as
+//    before several pages shared a stage): a page a stage, an 8-bit
+//    page's scales read a page ahead before its codes are waited for and
+//    its km summed before the operand stage is, the score masks skipped
+//    where every column is valid and visible, P V overlapping the rows'
+//    step.
 //
 // Pages of 129 rows or more (BKV 256): one block is wider than a ring
 // stage of 128 rows, and its key mean and pseudo-average need all its
@@ -127,6 +167,50 @@ constexpr int PF_HALF = 64 * 2;                 // a 64-column half-row (2 B)
 constexpr int PF_BOX = 256;                     // most rows of a TMA box
 constexpr int PF_BN = 128;                      // score columns of one GEMM
 
+// Cycle spans of the 128-row tile's phases (launch/prefill_spans.py builds
+// with -DPASA_PREFILL_SPANS; otherwise the marks are empty): the
+// converter's thread 0 (who 0) and the first consumer warpgroup's thread
+// 0 (who 1) each add the clock64 cycles since their previous mark to
+// span k of their row, and PASA_TALLY counts a stage (k 14) or a page (k
+// 15).
+#ifdef PASA_PREFILL_SPANS
+__device__ unsigned long long pasa_prefill_spans[2][16];
+#define PASA_SPAN_INIT long long span_t = clock64()
+#define PASA_SPAN(who, k)                                                    \
+  do {                                                                       \
+    if (threadIdx.x == 128 * (who)) {                                        \
+      const long long span_now = clock64();                                  \
+      atomicAdd(&pasa_prefill_spans[who][k],                                 \
+                (unsigned long long)(span_now - span_t));                    \
+      span_t = span_now;                                                     \
+    }                                                                        \
+  } while (0)
+#define PASA_TALLY(who, k)                                                   \
+  do {                                                                       \
+    if (threadIdx.x == 128 * (who)) atomicAdd(&pasa_prefill_spans[who][k], 1ull); \
+  } while (0)
+#else
+#define PASA_SPAN_INIT
+#define PASA_SPAN(who, k)
+#define PASA_TALLY(who, k)
+#endif
+
+// The rows a page takes in a stage of the 128-row tile: its rows rounded
+// up to a multiple of 16, whole k16 steps of P V, so that every page
+// starts on two 128-byte-swizzle atoms (2,048 bytes; its TMA box lands
+// straight at its row offset and its P V descriptor starts there) and no
+// k16 step holds two pages' columns.
+__host__ __device__ constexpr int page_slot(int page) {
+  return (page + 15) & ~15;
+}
+
+// The pages a stage of the 128-row tile holds (pages of 1-16 rows: 8,
+// 17-32: 4); a page of more than PF_PACK rows takes a stage alone.
+constexpr int PF_PACK = 32;
+__host__ __device__ constexpr int pages_per_stage(int page) {
+  return PF_BN / page_slot(page);
+}
+
 template <typename PoolT, int BKV, int D>
 struct PrefillLayout {
   static constexpr bool CODE = kIsCode<PoolT>;
@@ -137,16 +221,23 @@ struct PrefillLayout {
   // 8-bit codes land in a buffer of their own (two operand stages); a
   // 256-row page has one stage
   static constexpr int STAGES = BKV > PF_BN ? 1 : CODE ? 2 : 3;
+  // most pages a stage (8, pages of 1-16 rows)
+  static constexpr int NPS = BKV > PF_BN ? 1 : pages_per_stage(1);
   static constexpr int Q_BYTES = PF_BQ * W * 2;          // NH 64-col halves
   static constexpr int OP_BYTES = BKV * W * 2;           // one K' or V tile
-  static constexpr int CODE_BYTES = BKV * D;             // one K or V page
+  static constexpr int CODE_BYTES = BKV * D;             // a stage's K or V
   static constexpr int Q_OFF = 0;
   static constexpr int K_OFF = Q_OFF + Q_BYTES;               // + stage
   static constexpr int V_OFF = K_OFF + STAGES * OP_BYTES;     // + stage
   static constexpr int CODE_OFF = V_OFF + STAGES * OP_BYTES;  // K then V codes
+  // 8-bit pools: per page of the stage its K and V shifts, then its K and
+  // V scales
   static constexpr int SHIFT_OFF = CODE_OFF + (CODE ? 2 * CODE_BYTES : 0);
-  static constexpr int KM_OFF = SHIFT_OFF + (CODE ? 2 * D * 4 : 0);
-  static constexpr int BAR_OFF = KM_OFF + D * 4;
+  static constexpr int SCALE_OFF = SHIFT_OFF + (CODE ? NPS * 2 * D * 4 : 0);
+  static constexpr int KM_OFF =
+      SCALE_OFF + (CODE && BKV <= PF_BN ? NPS * 2 * 4 : 0);
+  // km: two buffers in the 128-row tile (page by page), one in the 256
+  static constexpr int BAR_OFF = KM_OFF + (BKV > PF_BN ? 1 : 2) * D * 4;
   // barriers: Q full; raw page full (per stage, or the code buffer's);
   // operands full and empty per stage
   static constexpr int N_RAW = CODE ? 1 : STAGES;
@@ -357,10 +448,213 @@ __device__ __forceinline__ void page_acc(float* acc, uint32_t* acc2,
   }
 }
 
+// ---- a stage of several pages (pages of at most PF_PACK rows) -----------
+//
+// The stage's scores s[NS] (32-bit registers) hold, for each of the
+// thread's pairs (8-column group g, row r: columns 8 g + 2 quad, + 1), the
+// pair in s[4 g + 2 r] as one fp16 pair (SH) or in s[4 g + 2 r], s[4 g +
+// 2 r + 1] as the bits of two fp32 values, and later the pair's P (at the
+// operand type) in s[4 g + 2 r]: the P V product's A fragment of group g.
+// A page is the groups [g0, g0 + gpp), g0 a runtime value: the switches
+// below keep every register index static.
+
+// The scores sf of the score GEMM stored at the score dtype (store_score)
+// as s's pairs.
+template <int NS, bool SH>
+__device__ __forceinline__ void tile_store(const float* sf, uint32_t* s,
+                                           const Policy& P) {
+#pragma unroll
+  for (int e = 0; e < NS; e += 2) {
+    const float v0 = store_score<SH>(sf[e], P);
+    const float v1 = store_score<SH>(sf[e + 1], P);
+    if constexpr (SH) {
+      s[e] = h2_bits(__floats2half2_rn(v0, v1));
+    } else {
+      s[e] = __float_as_uint(v0);
+      s[e + 1] = __float_as_uint(v1);
+    }
+  }
+}
+
+template <bool SH>
+__device__ __forceinline__ float2 pair_of(const uint32_t* s, int e) {
+  if constexpr (SH) return __half22float2(h2_of(s[e]));
+  else return make_float2(__uint_as_float(s[e]), __uint_as_float(s[e + 1]));
+}
+
+// A page's groups: a switch enters the unrolled groups at g0 and falls
+// through to the page's end, so that a page runs only its own groups'
+// code, in one straight run (a branch on every group of the stage ran
+// page 16 at 1.3x this time).
+#define PASA_SLOT_GROUPS(X)                                              \
+  X(0) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12)  \
+  X(13) X(14) X(15)
+
+// page_scores over group G of a page (its page columns lc + {0, 1};
+// without `mask` every column is valid and visible to every row).
+template <int G, bool SH>
+__device__ __forceinline__ void group_scores(const uint32_t* s, float* ssum,
+                                             float* mx, bool mask, int lc,
+                                             int valid, int col0,
+                                             const int* rowpos) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float2 v = pair_of<SH>(s, 4 * G + 2 * r);
+    if (mask) {
+      if (lc < valid) ssum[r] += v.x;
+      if (lc + 1 < valid) ssum[r] += v.y;
+      const bool vis0 = lc < valid && col0 + lc <= rowpos[r];
+      const bool vis1 = lc + 1 < valid && col0 + lc + 1 <= rowpos[r];
+      mx[r] = fmaxf(mx[r], vis0 ? v.x : NEG_BIG);
+      mx[r] = fmaxf(mx[r], vis1 ? v.y : NEG_BIG);
+    } else {
+      ssum[r] += v.x;
+      ssum[r] += v.y;
+      mx[r] = fmaxf(fmaxf(mx[r], v.x), v.y);
+    }
+  }
+}
+
+// page_scores over one page of the stage (lc0: the lanes' first page
+// column), then reduced over the 4 threads of each row.  It only reads s:
+// it runs while the previous page's P V reads s's registers.
+template <bool SH>
+__device__ __forceinline__ void slot_scores(const uint32_t* s, float* ssum,
+                                            float* mx, int g0, int gpp,
+                                            bool mask, int lc0, int valid,
+                                            int col0, const int* rowpos) {
+  ssum[0] = ssum[1] = 0.0f;
+  mx[0] = mx[1] = -INFINITY;
+  const int end = g0 + gpp;
+  switch (g0) {
+#define PASA_SLOT_SCORES(G)                                               \
+  case G:                                                                 \
+    if (G >= end) break;                                                  \
+    group_scores<G, SH>(s, ssum, mx, mask, lc0 + 8 * (G - g0), valid, col0, \
+                        rowpos);                                          \
+    [[fallthrough]];
+    PASA_SLOT_GROUPS(PASA_SLOT_SCORES)
+#undef PASA_SLOT_SCORES
+    default:
+      break;
+  }
+  quad_reduce(ssum, mx);
+}
+
+// page_probs over group G of a page (masked columns, as group_scores
+// finds them, get P = 0: page_scores' -inf scores): P in place as the A
+// fragments.
+template <int G, bool H16, typename M>
+__device__ __forceinline__ void group_probs(uint32_t* s, bool mask, int lc,
+                                            int valid, int col0,
+                                            const int* rowpos,
+                                            const float* mx,
+                                            const uint32_t* mx2, bool sh,
+                                            float* lsum) {
+  using OpT = typename M::Op;
+  constexpr bool SH = M::kScoreHalf;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int e = 4 * G + 2 * r;
+    const bool vis0 = !mask || (lc < valid && col0 + lc <= rowpos[r]);
+    const bool vis1 = !mask || (lc + 1 < valid && col0 + lc + 1 <= rowpos[r]);
+    if constexpr (H16) {
+      const float2 d = __half22float2(h2_of(h2_sub(s[e], mx2[r])));
+      const __half2 pp = __floats2half2_rn(vis0 ? expf(d.x) : 0.0f,
+                                           vis1 ? expf(d.y) : 0.0f);
+      lsum[r] += __low2float(pp);
+      lsum[r] += __high2float(pp);
+      s[e] = h2_bits(pp);
+    } else {
+      const float2 v = pair_of<SH>(s, e);
+      const float p0 =
+          vis0 ? rnd(expf(rnd(__fsub_rn(v.x, mx[r]), sh)), sh) : 0.0f;
+      const float p1 =
+          vis1 ? rnd(expf(rnd(__fsub_rn(v.y, mx[r]), sh)), sh) : 0.0f;
+      if constexpr (SH) {   // P stored at fp16
+        const __half h0 = __float2half_rn(p0), h1 = __float2half_rn(p1);
+        lsum[r] += h2f(h0);
+        lsum[r] += h2f(h1);
+        s[e] = h2_bits(__halves2half2(h0, h1));
+      } else {
+        lsum[r] += p0;
+        lsum[r] += p1;
+        s[e] = pack2<OpT>(p0, p1);
+      }
+    }
+  }
+}
+
+// page_probs over one page of the stage.
+template <bool H16, typename M>
+__device__ __forceinline__ void slot_probs(uint32_t* s, int g0, int gpp,
+                                           bool mask, int lc0, int valid,
+                                           int col0, const int* rowpos,
+                                           const float* mx, bool sh,
+                                           float* lsum) {
+  const uint32_t mx2[2] = {H16 ? h2_splat(mx[0]) : 0u,
+                           H16 ? h2_splat(mx[1]) : 0u};
+  const int end = g0 + gpp;
+  switch (g0) {
+#define PASA_SLOT_PROBS(G)                                                \
+  case G:                                                                 \
+    if (G >= end) break;                                                  \
+    group_probs<G, H16, M>(s, mask, lc0 + 8 * (G - g0), valid, col0,      \
+                           rowpos, mx, mx2, sh, lsum);                    \
+    [[fallthrough]];
+    PASA_SLOT_GROUPS(PASA_SLOT_PROBS)
+#undef PASA_SLOT_PROBS
+    default:
+      break;
+  }
+}
+
+// P V of one page of the stage into a fresh fp32 sum, issued (not waited
+// for): the k16 steps of its slot (groups g0, g0 + 2, ...; g0 even), V's
+// rows from the same row (v_addr: the part's first column; PW columns:
+// wgmma_pv).  Each step takes the same registers (s, whatever page it
+// belongs to): ptxas serializes every wgmma of a kernel where one step's
+// operands could be one register set or another.
+template <int PW, int BKV, bool BF16>
+__device__ __forceinline__ void slot_pv(float* pv, const uint32_t* s, int g0,
+                                        int gpp, uint32_t v_addr) {
+  const int end = g0 + gpp;
+  switch (g0 >> 1) {
+#define PASA_SLOT_PV(I)                                                   \
+  case I:                                                                 \
+    if (2 * I >= end) break;                                              \
+    {                                                                     \
+      const uint32_t a[4] = {s[8 * I], s[8 * I + 2], s[8 * I + 4],        \
+                             s[8 * I + 6]};                               \
+      wgmma_pv<PW, BF16>(                                                 \
+          pv, a,                                                          \
+          gmma_desc(v_addr + 16 * I * PF_HALF, BKV * PF_HALF, 1024),      \
+          2 * I != g0);                                                   \
+    }                                                                     \
+    [[fallthrough]];
+    PASA_SLOT_PV(0) PASA_SLOT_PV(1) PASA_SLOT_PV(2) PASA_SLOT_PV(3)
+    PASA_SLOT_PV(4) PASA_SLOT_PV(5) PASA_SLOT_PV(6) PASA_SLOT_PV(7)
+#undef PASA_SLOT_PV
+    default:
+      break;
+  }
+}
+#undef PASA_SLOT_GROUPS
+
+// Keep the A fragments (the even registers of s) unreused until the wait.
+template <int NS>
+__device__ __forceinline__ void fence_pairs(uint32_t* s) {
+#pragma unroll
+  for (int e = 0; e < NS; e += 2) asm volatile("" : "+r"(s[e])::"memory");
+}
+
 // M: the policy's mode (operand type, score store).  H16 (only with
 // ModeF16): statistics and accumulator at fp16 (the paper's policy): the
 // softmax and accumulator steps run on fp16 pairs.  D: the head width.
-template <typename PoolT, int BKV, int D, bool H16, typename M>
+// PACK (the 128-row tile): pages of at most PF_PACK rows, several a stage;
+// else one page a stage, its loops known while compiling (with the
+// pages a stage a runtime value, pages of 128 rows ran 7 % slower).
+template <typename PoolT, int BKV, bool PACK, int D, bool H16, typename M>
 __global__ void __launch_bounds__(PF_THREADS, 1)
 paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
                      const __grid_constant__ CUtensorMap tk,  // (P,page,KVH,D)
@@ -375,8 +669,8 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
   static_assert(!H16 || M::kScoreHalf, "the fp16 pair steps need fp16 scores");
   using OpT = typename M::Op;
   using L = PrefillLayout<PoolT, BKV, D>;
-  // a page's scores in one GEMM of BKV columns (the 64- and 128-row
-  // tiles); the 256-row tile's in quarters of 64
+  // a stage's scores in one GEMM of BKV columns (the 128-row tile); the
+  // 256-row tile's in quarters of 64
   constexpr int NS = BKV > PF_BN ? 32 : BKV / 2;   // score registers a thread
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled tiles want 1024-byte aligned bases
@@ -417,6 +711,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
     // ---- converter warpgroup (its thread 0 issues every load) ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     const int ct = threadIdx.x;
+    PASA_SPAN_INIT;
     const float* shift = reinterpret_cast<const float*>(sm + L::SHIFT_OFF);
     float* km_s = reinterpret_cast<float*>(sm + L::KM_OFF);
     const CUtensorMap* mk = &tk;
@@ -546,7 +841,8 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
           }
         }
       }
-    } else {
+    } else if constexpr (!PACK) {
+      // ---- pages of 33 to 128 rows: a page a stage ----
       const uint32_t page_bytes =
           L::CODE ? 2 * page * D + 2 * D * 4 : 2 * L::NH * page * PF_HALF;
       // request page j's raw K and V of kv head kvh: 2-byte values into
@@ -605,6 +901,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
           mbar_wait(bar_raw, j & 1);
         else
           mbar_wait(bar_raw + 8 * st, (j / NST) & 1);
+        PASA_SPAN(0, 0);                // waiting for the page
         // 1. km of column ct over the valid rows, an fp32 sum in row order
         if (P.beta > 0.0f && ct < D) {
           float sum = 0.0f;
@@ -613,6 +910,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
           km_s[ct] = __fdiv_rn(sum, (float)valid);
         }
         named_sync(1, 128);
+        PASA_SPAN(0, 1);                // km
         // beta * km of this thread's columns (shift_key's first product)
         float bkm[8];
 #pragma unroll
@@ -628,6 +926,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
         //    (one row per step: the converter runs at 56 registers, and
         //    unrolled steps spill)
         if constexpr (L::CODE) mbar_wait(bar_e + 8 * st, ((j / NST) & 1) ^ 1);
+        PASA_SPAN(0, 2);                // waiting for the operand stage
 #pragma unroll 1
         for (int r = ct / CPR; r < BKV; r += RPS) {
           uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
@@ -645,6 +944,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
           *reinterpret_cast<uint4*>(opk + swz<BKV>(r, c8)) = kk;
           *reinterpret_cast<uint4*>(opv + swz<BKV>(r, c8)) = vv;
         }
+        PASA_SPAN(0, 3);                // K' and V
         fence_proxy_async();            // the operands are for wgmma
         mbar_arrive(bar_f + 8 * st);
         named_sync(1, 128);             // the raw page and km are consumed
@@ -663,6 +963,166 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
         }
         sck = sck_n;
         scv = scv_n;
+        PASA_SPAN(0, 4);                // the hand-off
+        PASA_TALLY(0, 14);
+        PASA_TALLY(0, 15);
+      }
+    } else {
+      // ---- pages of at most PF_PACK rows: a stage of npt pages, page p
+      // at rows p * slot ----
+      const int slot = page_slot(page);
+      const int npt = pages_per_stage(page);
+      const int n_st = (n_live + npt - 1) / npt;
+      const uint32_t page_bytes =
+          L::CODE ? 2 * page * D + 2 * D * 4 : 2 * L::NH * page * PF_HALF;
+      float* scale_s = reinterpret_cast<float*>(sm + L::SCALE_OFF);
+      // request stage sg's pages of kv head kvh: 2-byte values into
+      // operand stage sg % NST, codes (and the sidecar shifts) into the
+      // code buffer; one barrier for the stage
+      auto issue = [&](int sg) {
+        const int n_in = min(npt, n_live - sg * npt);
+        const uint32_t bar = L::CODE ? bar_raw : bar_raw + 8 * (sg % NST);
+        mbar_expect_tx(bar, n_in * page_bytes);
+        for (int p = 0; p < n_in; ++p) {
+          const int pid = table[sg * npt + p];
+          if constexpr (L::CODE) {
+            const uint32_t dst = s_base + L::CODE_OFF + p * slot * D;
+            tma_load_4d(dst, mk, bar, 0, kvh, 0, pid);
+            tma_load_4d(dst + L::CODE_BYTES, mv, bar, 0, kvh, 0, pid);
+            const size_t ph = ((size_t)pid * kv_heads + kvh) * D;
+            const uint32_t sd = s_base + L::SHIFT_OFF + p * 2 * D * 4;
+            bulk_load(sd, sc.shift[0] + ph, D * 4, bar);
+            bulk_load(sd + D * 4, sc.shift[1] + ph, D * 4, bar);
+          } else {
+            const uint32_t off =
+                (sg % NST) * L::OP_BYTES + p * slot * PF_HALF;
+            for (int half = 0; half < L::NH; ++half) {
+              tma_load_4d(s_base + L::K_OFF + off + half * BKV * PF_HALF, mk,
+                          bar, 64 * half, kvh, 0, pid);
+              tma_load_4d(s_base + L::V_OFF + off + half * BKV * PF_HALF, mv,
+                          bar, 64 * half, kvh, 0, pid);
+            }
+          }
+        }
+      };
+      // in place: stages 0 .. NST - 2 ahead; codes: one stage
+      if (ct == 0) {
+        for (int sg = 0; sg < min(n_st, L::CODE ? 1 : NST - 1); ++sg)
+          issue(sg);
+      }
+      // 8-bit pools: the two scales of page ct of stage sg (live pages
+      // only: a dead page's sidecars may be NaN)
+      auto scales = [&](int sg) {
+        if (ct < min(npt, n_live - sg * npt)) {
+          const size_t ph = (size_t)table[sg * npt + ct] * kv_heads + kvh;
+          sck = __ldg(sc.scale[0] + ph);
+          scv = __ldg(sc.scale[1] + ph);
+        }
+      };
+      if constexpr (L::CODE) {
+        if (n_st > 0) scales(0);
+      }
+      for (int sg = 0; sg < n_st; ++sg) {
+        const int n_in = min(npt, n_live - sg * npt);
+        const int st = sg % NST;
+        unsigned char* opk = sm + L::K_OFF + st * L::OP_BYTES;
+        unsigned char* opv = sm + L::V_OFF + st * L::OP_BYTES;
+        const unsigned char* rk = L::CODE ? sm + L::CODE_OFF : opk;
+        const unsigned char* rv = L::CODE ? sm + L::CODE_OFF + L::CODE_BYTES : opv;
+        if constexpr (L::CODE) {
+          // this stage's scales (read a stage ahead), then the next
+          // stage's, read before the codes are waited for
+          const float sk = sck, sv = scv;
+          if (sg + 1 < n_st) scales(sg + 1);
+          mbar_wait(bar_raw, sg & 1);
+          if (ct < n_in) {
+            scale_s[2 * ct] = sk;
+            scale_s[2 * ct + 1] = sv;
+          }
+          named_sync(1, 128);             // the scales are seen
+        } else {
+          mbar_wait(bar_raw + 8 * st, (sg / NST) & 1);
+        }
+        PASA_SPAN(0, 0);                // waiting for the stage's pages
+        for (int p = 0; p < n_in; ++p) {
+          const int valid = min(page, L_kv - (sg * npt + p) * page);
+          const int r0 = p * slot;
+          const float* shp = shift + p * 2 * D;
+          const float sk_p = L::CODE ? scale_s[2 * p] : 0.0f;
+          const float sv_p = L::CODE ? scale_s[2 * p + 1] : 0.0f;
+          // 1. km of column ct over the page's valid rows, an fp32 sum in
+          //    row order (two buffers: a page's km is written while the
+          //    previous page's rows are converted)
+          float* km = km_s + (p & 1) * D;
+          if (P.beta > 0.0f) {
+            if (ct < D) {
+              float sum = 0.0f;
+              for (int r = r0; r < r0 + valid; ++r)
+                sum += raw_elem<OpT, PoolT, BKV, D>(rk, r, ct, sk_p, shp);
+              km[ct] = __fdiv_rn(sum, (float)valid);
+            }
+            named_sync(1, 128);
+          }
+          PASA_SPAN(0, 1);              // km
+          // beta * km of this thread's columns (shift_key's first product)
+          float bkm[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            bkm[e] = P.beta > 0.0f ? __fmul_rn(P.beta, km[c8 + e]) : 0.0f;
+          // 8-bit pools: the consumers release the operand stage (the
+          // first page's km was summed meanwhile)
+          if constexpr (L::CODE) {
+            if (p == 0) mbar_wait(bar_e + 8 * st, ((sg / NST) & 1) ^ 1);
+          }
+          PASA_SPAN(0, 2);              // waiting for the operand stage
+          // 2. K' = (K - beta km) / sqrt(d) and V at the operand type into
+          //    the page's slot of stage st (in place for 2-byte pools);
+          //    rows past `valid` become zeros (as in a page a stage)
+#pragma unroll 1
+          for (int r = r0 + ct / CPR; r < r0 + slot; r += RPS) {
+            uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
+            if (r - r0 < valid) {
+              kk = raw_chunk<OpT, PoolT, BKV, D>(rk, r, c8, sk_p, shp);
+              vv = raw_chunk<OpT, PoolT, BKV, D>(rv, r, c8, sv_p, shp + D);
+              if (P.beta > 0.0f) {
+                OpT* kh = reinterpret_cast<OpT*>(&kk);
+#pragma unroll
+                for (int e = 0; e < 8; ++e)
+                  kh[e] = from_float<OpT>(__fmul_rn(
+                      __fsub_rn(to_float(kh[e]), bkm[e]), P.shift_scale));
+              }
+            }
+            *reinterpret_cast<uint4*>(opk + swz<BKV>(r, c8)) = kk;
+            *reinterpret_cast<uint4*>(opv + swz<BKV>(r, c8)) = vv;
+          }
+          PASA_SPAN(0, 3);              // K' and V
+          PASA_TALLY(0, 15);
+        }
+        // the stage's rows past its pages: zeros
+#pragma unroll 1
+        for (int r = n_in * slot + ct / CPR; r < BKV; r += RPS) {
+          *reinterpret_cast<uint4*>(opk + swz<BKV>(r, c8)) = make_uint4(0u, 0u, 0u, 0u);
+          *reinterpret_cast<uint4*>(opv + swz<BKV>(r, c8)) = make_uint4(0u, 0u, 0u, 0u);
+        }
+        fence_proxy_async();            // the operands are for wgmma
+        mbar_arrive(bar_f + 8 * st);
+        named_sync(1, 128);             // the raw pages and km are consumed
+        if (ct == 0) {
+          if constexpr (L::CODE) {
+            if (sg + 1 < n_st) issue(sg + 1);
+          } else {
+            // stage sp into operand stage sp % NST, once the consumers
+            // release stage sp - NST (NST - 1 stages ahead)
+            const int sp = sg + NST - 1;
+            if (sp < n_st) {
+              if (sp >= NST)
+                mbar_wait(bar_e + 8 * ((sp - NST) % NST), ((sp - NST) / NST) & 1);
+              issue(sp);
+            }
+          }
+        }
+        PASA_SPAN(0, 4);                // the hand-off
+        PASA_TALLY(0, 14);
       }
     }
   } else {
@@ -696,10 +1156,113 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
 
     const uint32_t q_addr = s_base + L::Q_OFF + cw * 64 * PF_HALF;
     if (n_live > 0) mbar_wait(bar_q, 0);
+    PASA_SPAN_INIT;
     bool live[2];
     RowStep rs[2];
     int h = 0;     // stage hand-offs taken
-    for (int j = 0; j < n_live; ++j) {
+    if constexpr (PACK) {
+      // ---- pages of at most PF_PACK rows: npt pages a stage, one score
+      // GEMM over the stage, then page by page in page order (the note
+      // above)
+      constexpr bool SH = M::kScoreHalf;
+      // P V in two 64-column parts where fp32 scores leave no room for a
+      // 128-column sum beside the tile's scores and an fp32 accumulator
+      constexpr int NPV = L::W == 128 && !SH ? 2 : 1;
+      constexpr int PW = L::W / NPV;
+      const int slot = page_slot(page), gpp = slot / 8;
+      const int npt = pages_per_stage(page);
+      const int n_st = (n_live + npt - 1) / npt;
+      for (int sg = 0; sg < n_st; ++sg) {
+        const int st = h % NST;
+        mbar_wait(bar_f + 8 * st, (h / NST) & 1);
+        ++h;
+        PASA_SPAN(1, 0);                // waiting for the stage
+        PASA_TALLY(1, 14);
+        const int c_first = sg * npt * page;   // the stage's first column
+        // the stage's pages that some row of the warpgroup sees (pages
+        // wholly in the rows' future, or a warpgroup past the chunk,
+        // change none of its rows)
+        const int n_act =
+            wg_first > wg_last || c_first > wg_last
+                ? 0
+                : min(min(npt, n_live - sg * npt),
+                      (wg_last - c_first) / page + 1);
+        if (n_act > 0) {
+          const uint32_t k_addr = s_base + L::K_OFF + st * L::OP_BYTES;
+          const uint32_t v_addr = s_base + L::V_OFF + st * L::OP_BYTES;
+          // 1. S = Q K'^T over the stage, stored at the score dtype
+          uint32_t s[NS];
+          {
+            float sf[NS];
+            page_gemm_scores<BKV, BKV, D, M::kBF16>(sf, q_addr, k_addr);
+            tile_store<NS, SH>(sf, s, P);
+          }
+          PASA_SPAN(1, 1);              // the score GEMM
+          // 2-3. a page's sums and maxima (masks only where a column is
+          // invalid or in some row's future), a page ahead of its P V
+          float ssum[2], mx[2];
+          int col0 = c_first, valid = min(page, L_kv - col0);
+          bool mask = valid < slot || col0 + valid - 1 > wg_first;
+          slot_scores<SH>(s, ssum, mx, 0, gpp, mask, 2 * quad, valid,
+                              col0, rowpos);
+          PASA_SPAN(1, 2);              // sums and maxima
+          for (int q = 0; q < n_act; ++q) {
+            // the lanes' first column and V's address as values of this
+            // page, so that what the unrolled group loops derive from them
+            // is computed a page at a time, not held over the stage
+            int lc0 = 2 * quad;
+            uint32_t va = v_addr;
+            asm volatile("" : "+r"(lc0), "+r"(va));
+            // 4. the page's P at its maxima, in place
+            float lsum[2] = {0.0f, 0.0f};
+            slot_probs<H16, M>(s, q * gpp, gpp, mask, lc0, valid, col0,
+                                   rowpos, mx, sh, lsum);
+            PASA_SPAN(1, 3);            // P
+            // 5. P V of the page's columns into a fresh fp32 sum, issued
+            // before the rows' recovery and the next page's statistics so
+            // that they overlap
+            float pv[PW / 2];
+            wgmma_fence();
+            slot_pv<PW, BKV, M::kBF16>(pv, s, q * gpp, gpp, va);
+            wgmma_commit();
+            PASA_SPAN(1, 4);            // P V issued
+            page_rows(ssum, mx, lsum, valid, col0, rowpos, m, l, f, cnt,
+                      live, rs, P);
+            PASA_SPAN(1, 5);            // the rows' step
+            col0 += page;
+            valid = min(page, L_kv - col0);
+            mask = valid < slot || col0 + valid - 1 > wg_first;
+            if (q + 1 < n_act)
+              slot_scores<SH>(s, ssum, mx, (q + 1) * gpp, gpp, mask,
+                                  lc0, valid, col0, rowpos);
+            PASA_SPAN(1, 2);            // sums and maxima
+            wgmma_wait_all();
+            fence_regs<PW / 2>(pv);
+            fence_pairs<NS>(s);
+            PASA_SPAN(1, 6);            // waiting for P V
+            // 6. the page's fold at the accumulator dtype (live rows)
+            page_acc<NPV == 1 ? D / 2 : 32, H16>(acc, acc2, pv, live, rs,
+                                                 ah);
+            if constexpr (NPV == 2) {
+              wgmma_fence();
+              slot_pv<PW, BKV, M::kBF16>(pv, s, q * gpp, gpp,
+                                             va + BKV * PF_HALF);
+              wgmma_commit();
+              wgmma_wait_all();
+              fence_regs<PW / 2>(pv);
+              fence_pairs<NS>(s);
+                page_acc<32, H16>(acc + (H16 ? 0 : 32), acc2 + (H16 ? 16 : 0),
+                                  pv, live, rs, ah);
+            }
+            PASA_SPAN(1, 7);            // the fold
+            PASA_TALLY(1, 15);
+          }
+        }
+        if (lane == 0) mbar_arrive(bar_e + 8 * st);   // the stage is consumed
+        PASA_SPAN(1, 8);                // the rest
+      }
+    }
+    for (int j = 0; j < (PACK ? 0 : n_live); ++j) {
       const int col0 = j * page;
       const int valid = min(page, L_kv - col0);
       // a page wholly in the future of the warpgroup's rows (or a
@@ -793,10 +1356,12 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
           ++h;
         }
       } else {
-        // ---- the 64- and 128-row tiles: a page in one stage ----
+        // ---- pages of 33 to 128 rows: a page a stage ----
         const int st = h % NST;
         mbar_wait(bar_f + 8 * st, (h / NST) & 1);
         ++h;
+        PASA_SPAN(1, 0);                // waiting for the stage
+        PASA_TALLY(1, 14);
         if (!act) {
           if (lane == 0) mbar_arrive(bar_e + 8 * st);
           continue;
@@ -813,6 +1378,7 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
         float s[NS];
         // 1. S = Q K'^T
         page_gemm_scores<BKV, BKV, D, M::kBF16>(s, q_addr, k_addr);
+        PASA_SPAN(1, 1);                // the score GEMM
 
         // 2-3. score store, pseudo-average over the valid columns, then
         // the causal mask and the local max (masks only where a column
@@ -824,9 +1390,11 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
           page_scores<NS, false, M::kScoreHalf>(s, ssum, mx, 2 * quad,
                                                 valid, col0, rowpos, P);
         quad_reduce(ssum, mx);
+        PASA_SPAN(1, 2);                // sums and maxima
         // 4. local softmax at the statistic dtype, P at the score dtype,
         // then at the operand type packed as the P V product's A operand
         page_probs<NS, H16, M>(s, mx, sh, lsum, pa);
+        PASA_SPAN(1, 3);                // P
 
         // 5. P V into a fresh fp32 sum (V MN-major: at D 128 its two
         // 64-column halves are the descriptor's leading-dimension step; at
@@ -840,17 +1408,22 @@ paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,  // (B,H,CS,D)
                                              BKV * PF_HALF, 1024),
                                    kk > 0);
         wgmma_commit();
+        PASA_SPAN(1, 4);                // P V issued
         page_rows(ssum, mx, lsum, valid, col0, rowpos, m, l, f, cnt, live, rs,
                   P);
+        PASA_SPAN(1, 5);                // the rows' step
 
         wgmma_wait_all();
         fence_regs<L::W / 2>(pv);
         fence_regs<BKV / 4>(pa);
         if (lane == 0) mbar_arrive(bar_e + 8 * st);   // the stage is consumed
+        PASA_SPAN(1, 6);                // waiting for P V
 
         // 6. acc <- e_prev * acc + e_cur * pv at the accumulator dtype,
         // on live rows only
         page_acc<D / 2, H16>(acc, acc2, pv, live, rs, ah);
+        PASA_SPAN(1, 7);                // the fold
+        PASA_TALLY(1, 15);
       }
     }
 
@@ -909,7 +1482,7 @@ static bool make_pool_map(CUtensorMap* map, const void* pool, int num_pages,
                             : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <typename PoolT, int BKV, int D, bool H16, typename M>
+template <typename PoolT, int BKV, bool PACK, int D, bool H16, typename M>
 static int launch(const void* q, const void* k_pages, const void* v_pages,
                   const SidecarPtrs& sc, const void* page_table,
                   const void* chunk_start, const void* kv_len, void* out,
@@ -925,7 +1498,7 @@ static int launch(const void* q, const void* k_pages, const void* v_pages,
       !make_pool_map<PoolT, D>(&tk, k_pages, num_pages, page, kv_heads) ||
       !make_pool_map<PoolT, D>(&tv, v_pages, num_pages, page, kv_heads))
     return (int)cudaErrorInvalidValue;
-  auto kernel = paged_prefill_kernel<PoolT, BKV, D, H16, M>;
+  auto kernel = paged_prefill_kernel<PoolT, BKV, PACK, D, H16, M>;
   const int smem = L::BYTES + 1024;       // + the 1024-byte alignment
   static OncePerDevice ready;             // the attribute, per device
   bool* set = ready.current();
@@ -945,7 +1518,7 @@ static int launch(const void* q, const void* k_pages, const void* v_pages,
 }
 
 // The instance of the policy's wgmma kind (wgmma_kind) at page tile BKV.
-template <typename PoolT, int D, int BKV>
+template <typename PoolT, int D, int BKV, bool PACK>
 static int launch_kind(const void* q, const void* k_pages, const void* v_pages,
                        const SidecarPtrs& sc, const void* page_table,
                        const void* chunk_start, const void* kv_len, void* out,
@@ -953,7 +1526,7 @@ static int launch_kind(const void* q, const void* k_pages, const void* v_pages,
                        int max_pages, int num_pages, int mode,
                        const Policy& P, cudaStream_t stream) {
 #define PASA_PREFILL_LAUNCH(H16, M)                                          \
-  launch<PoolT, BKV, D, H16, M>(q, k_pages, v_pages, sc, page_table,         \
+  launch<PoolT, BKV, PACK, D, H16, M>(q, k_pages, v_pages, sc, page_table,   \
                                 chunk_start, kv_len, out, batch, heads,      \
                                 kv_heads, chunk, page, max_pages, num_pages, \
                                 P, stream)
@@ -966,9 +1539,9 @@ static int launch_kind(const void* q, const void* k_pages, const void* v_pages,
 #undef PASA_PREFILL_LAUNCH
 }
 
-// Pages of up to 64 rows run in the 64-row tile, up to 128 in the
-// 128-row one (pasa_paged_prefill.cu); WIDE: 129 rows or more in the
-// 256-row one (pasa_paged_prefill_wide.cu).
+// Pages of up to PF_PACK rows run in the 128-row tile several to a stage,
+// of 33 to 128 one a stage (pasa_paged_prefill.cu); WIDE: 129 rows or
+// more in the 256-row one (pasa_paged_prefill_wide.cu).
 template <typename PoolT, int D, bool WIDE>
 static int launch_pool(const void* q, const void* k_pages, const void* v_pages,
                        const SidecarPtrs& sc, const void* page_table,
@@ -976,13 +1549,14 @@ static int launch_pool(const void* q, const void* k_pages, const void* v_pages,
                        int batch, int heads, int kv_heads, int chunk, int page,
                        int max_pages, int num_pages, int mode,
                        const Policy& P, cudaStream_t stream) {
-#define PASA_PREFILL_TILE(BKV)                                                \
-  launch_kind<PoolT, D, BKV>(q, k_pages, v_pages, sc, page_table,             \
+#define PASA_PREFILL_TILE(BKV, PACK)                                          \
+  launch_kind<PoolT, D, BKV, PACK>(q, k_pages, v_pages, sc, page_table,       \
                              chunk_start, kv_len, out, batch, heads, kv_heads, \
                              chunk, page, max_pages, num_pages, mode, P,      \
                              stream)
-  if constexpr (WIDE) return PASA_PREFILL_TILE(256);
-  else return page > 64 ? PASA_PREFILL_TILE(128) : PASA_PREFILL_TILE(64);
+  if constexpr (WIDE) return PASA_PREFILL_TILE(256, false);
+  else if (page > PF_PACK) return PASA_PREFILL_TILE(128, false);
+  else return PASA_PREFILL_TILE(128, true);
 #undef PASA_PREFILL_TILE
 }
 

@@ -4,8 +4,10 @@
 // Replaces the TPU kernel repro/kernels/pasa_paged_prefill.py
 // (_paged_prefill_kernel, launched by paged_prefill_kernel_call through
 // pl.pallas_call) at those pages; the kernel, its design and what bounds
-// it are pasa_paged_prefill.cuh's.  Its instances: the 64- and 128-row
-// page tiles x four wgmma kinds x three head widths x two pools (48),
+// it are pasa_paged_prefill.cuh's.  Its instances: the 128-row page
+// tile in two modes (several pages a stage up to 32 rows a page, one page
+// a stage over 32) x four wgmma kinds x three head widths x two pools
+// (48),
 // built beside pasa_paged_prefill.cu's.
 
 #include "pasa_paged_prefill.cuh"
@@ -27,3 +29,15 @@ extern "C" int pasa_paged_prefill_q8_launch(
       max_pages, num_pages, pool_kind, beta, inva, shift_scale, post_scale,
       stat_half, acc_half, score_half, op_bf16, stream);
 }
+
+#ifdef PASA_PREFILL_SPANS
+// The kernel's cycle spans (pasa_paged_prefill.cuh, 2 x 16 counters)
+// copied to `host`, then zeroed; launch/prefill_spans.py reads them.
+extern "C" int pasa_paged_prefill_q8_spans(unsigned long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, pasa::pasa_prefill_spans,
+                                         sizeof(pasa::pasa_prefill_spans));
+  if (err != cudaSuccess) return (int)err;
+  static const unsigned long long zero[2][16] = {};
+  return (int)cudaMemcpyToSymbol(pasa::pasa_prefill_spans, zero, sizeof zero);
+}
+#endif

@@ -8,12 +8,17 @@ Counterpart of ``repro.kernels.pasa_paged_prefill``.
     PASA block a page still), or their ``_q8`` siblings for 8-bit pools,
     one template
     (``csrc/pasa_paged_prefill.cuh``): one CTA per (row *
-    head, 128-query tile), longest causal tiles first; each visible page
-    arrives by TMA, a converter warpgroup turns it into the shifted
-    operands (at the policy's input dtype) one page ahead, two consumer
-    warpgroups run both GEMMs as wgmma with the scores in registers (see
-    the source's note).  One instance per head width in
-    ``pasa_paged_decode.HEAD_DIMS``.
+    head, 128-query tile), longest causal tiles first; the visible pages
+    arrive by TMA into stages of 128 key rows - pages of up to 32 rows
+    several to a stage, each at a row offset rounded up to 16 (pages of
+    1 to 16 rows: 8 a stage), a page of 33 to 128 rows alone - a converter
+    warpgroup turns each page into the shifted operands (at the policy's
+    input dtype, the key mean over that page's valid rows) a stage ahead,
+    and two consumer warpgroups run one score GEMM a stage as wgmma with
+    the scores in registers, then each page in page order as its own
+    PASA block: its statistics, P, P V of its columns alone into a fresh
+    sum, the rows' step and the fold (see the source's note).  One
+    instance per head width in ``pasa_paged_decode.HEAD_DIMS``.
   * :func:`paged_prefill_plain` is the port of the reference's
     ``paged_prefill_xla``: a gather of the pages (dequantized for 8-bit
     pools, as in ``pasa_paged_decode``), then

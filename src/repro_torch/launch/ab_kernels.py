@@ -40,7 +40,11 @@ this, other, on the same seeded inputs at ``chip_smoke.py``'s fixtures:
     1002 / 519 / 302 / 131, page 128, a shuffled pool) at olmoe's KVH 16,
     G 1 (from bf16 and int8 pools) and qwen1.5-32b's KVH 40, G 1, and at
     qwen2-7b's KVH 4, G 7 (``pasa_paged_decode/serve_shape``, also from
-    int8 and fp8_e4m3 pools).
+    int8 and fp8_e4m3 pools);
+  * paged prefill at the paged serve's first call (``/serve_page*``: 4
+    rows x 28 heads x 512 queries at start 0, kv 512 / 512 / 300 / 129)
+    at pages 16 and 8 from bf16 and int8 pools, 24, 64 and 128 from bf16
+    pools.
 A tree whose kernels do not take a fixture (a decode block other than
 the page, a prefill page under 16 or over 256 rows, the algebraic shift)
 reports it as not taken.
@@ -207,6 +211,47 @@ def _cases(dev):
     cases.update(_hd64_cases(dev, randn))
     cases.update(_page_cases(dev))
     cases.update(_g1_cases(dev))
+    cases.update(_serve_call_cases(dev))
+    return cases
+
+
+def _serve_call_cases(dev):
+    """Paged prefill at the paged serve's first call (its own seed): 4
+    rows x 28 heads x 512 queries at start 0, kv 512 / 512 / 300 / 129,
+    KVH 4, D 128, fp16 PASA, shuffled pools at pages 16 and 8 (bf16 and
+    int8), 24, 64 and 128 (bf16)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.paged_cache import quantize_kv_page
+
+    rng = np.random.default_rng(3)
+    randn = lambda shape, mean, dt=torch.float16: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32) + mean).to(dev, dt)
+    kvh, d, lens = 4, 128, (512, 512, 300, 129)
+    kc = randn((len(lens), max(lens), kvh, d), 2.0, torch.bfloat16)
+    vc = randn((len(lens), max(lens), kvh, d), 0.0, torch.bfloat16)
+    q = randn((len(lens), 28, 512, d), 1.0)
+    st = torch.zeros(len(lens), dtype=torch.int32, device=dev)
+    pl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cases = {}
+    for page, pools in ((16, ("bf16", "int8")), (8, ("bf16", "int8")),
+                        (24, ("bf16",)), (64, ("bf16",)), (128, ("bf16",))):
+        kp, vp, table = _repaged(rng, kc, vc, lens, page)
+        valid = torch.isfinite(kp[:, :, 0, 0]).to(dev)
+        for pool in pools:
+            kq, vq, side = kp, vp, {}
+            if pool != "bf16":
+                kq, ks, kh = quantize_kv_page(kp, valid, pool)
+                vq, vs, vh = quantize_kv_page(vp, valid, pool)
+                side = dict(k_scale=ks, k_shift=kh, v_scale=vs, v_shift=vh)
+            name = f"pasa_paged_prefill/serve_page{page}" + (
+                "" if pool == "bf16" else f"_{pool}")
+            cases[name] = (
+                lambda kq=kq, vq=vq, table=table, side=side:
+                    ops.pasa_paged_prefill(q, kq, vq, table, st, pl,
+                                           beta=BETA, **side), 20)
     return cases
 
 

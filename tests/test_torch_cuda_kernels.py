@@ -689,7 +689,7 @@ def _prefill_pool(rng, seq_lens, kvh, page, dev, pool, d=128):
 @pytest.mark.parametrize("page", [16, 64, 128])
 def test_prefill_kernel_matches_plain_version(page, group, pool):
     """The paged prefill kernel against its plain version at pages 16, 64
-    and 128 (wgmma at N = 64 and 128, surplus columns masked), GQA
+    (several pages a 128-row stage) and 128 (one page a stage), GQA
     groups 1 and 7, raw and 8-bit pools, both policies, PASA and
     FlashAttention-2, with chunks that start off the kernel's 128-row
     query tiles (37, 130), a chunk of 100 queries and a pad row.  Keys
@@ -1635,8 +1635,8 @@ def test_decode_at_256_row_pages_matches_plain_version(dtype):
 @pytest.mark.parametrize("pool", ["bf16", "int8"])
 @pytest.mark.parametrize("page", [1, 8, 48, 200, 256, 300, 512])
 def test_prefill_kernel_at_any_page(page, pool):
-    """Paged prefill at pages of 1, 8 and 48 rows (the 64-row tile,
-    surplus columns masked and zeroed), 200 and 256 (the 256-row tile's
+    """Paged prefill at pages of 1, 8 and 48 rows (several pages a 128-row
+    stage, surplus columns masked and zeroed), 200 and 256 (the 256-row tile's
     quarters), 300 and 512 (that tile in pieces of 256 rows, one PASA
     block a page): within the prefill bars of the plain version at fp16 PASA
     and bf16_fp32 FlashAttention-2, a pad row of zeros; the chunk after a
@@ -1668,6 +1668,72 @@ def test_prefill_kernel_at_any_page(page, pool):
         beta=BETA, **quant)
     assert torch.equal(run(0)[:, :, cut:], run(cut))
 
+
+
+# Pages of at most 64 rows share a 128-row stage of the prefill kernel,
+# each page at a row offset rounded up to 16 and still its own PASA block,
+# folded in page order; (policy, beta): the four wgmma kinds, PASA and
+# FlashAttention-2 (FA2 where the scores stay fp32: the fp16 store of a
+# raw 128-wide score parts the two summation orders past the bar).
+SMALL_PAGES = [1, 8, 16, 24, 48, 64]
+SMALL_PAGE_MODES = [(FP16, BETA), (FP16_FP32, BETA), (FP32, BETA),
+                    (FP32, 0.0), (BF16_FP32, 0.0), (BF16_FP32, BETA)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("page", SMALL_PAGES)
+def test_prefill_kernel_at_small_pages(page, pool, d):
+    """Paged prefill at pages of 1 to 64 rows (several pages a stage up
+    to 32 rows, one a stage over 32): within the prefill bars of the
+    plain version in the four policies, a pad row of zeros; the chunk
+    after a page-aligned cut bit for bit the same rows as the whole
+    prompt in one chunk; stale bytes (a bf16 pool's NaN rows at 1e4, an
+    8-bit pool's debris and the NaN sidecars of its dead pages) inert."""
+    dev = _card()
+    rng = np.random.default_rng(37)
+    kvh, g = 2, 7
+    cut = page * math.ceil(150 / page)     # row 1's page-aligned start
+    start, plen = [0, cut, 0], [130, cut + 77, 0]
+    kp, vp, table = _pool(rng, plen, kvh, page, dev, d=d)
+    quant, valid = {}, None
+    if pool != "bf16":
+        kp, vp, quant, valid = _quantized(kp, vp, table, plen, pool)
+    table[2] = 0
+    q = _randn(rng, (3, kvh * g, 130, d), 1.0, dev)
+    st = torch.tensor(start, dtype=torch.int32, device=dev)
+    pl = torch.tensor(plen, dtype=torch.int32, device=dev)
+    for policy, beta in SMALL_PAGE_MODES:
+        got = ops.pasa_paged_prefill(q, kp, vp, table, st, pl, beta=beta,
+                                     policy=policy, **quant)
+        want = pmod.paged_prefill_plain(q, kp, vp, table, st, pl, beta=beta,
+                                        policy=policy, **quant)
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), **PREFILL_TOL)
+        assert not got[2].any()
+    n = plen[1]
+    qw = _randn(rng, (1, kvh * g, n, d), 1.0, dev)
+    run = lambda c0: ops.pasa_paged_prefill(
+        qw[:, :, c0:], kp, vp, table[1:2],
+        torch.tensor([c0], dtype=torch.int32, device=dev), pl[1:2],
+        beta=BETA, **quant)
+    assert torch.equal(run(0)[:, :, cut:], run(cut))
+    if pool == "bf16":
+        junk = [torch.nan_to_num(x, nan=1e4) for x in (kp, vp)]
+        junk_quant = {}
+    else:
+        stale = ~valid[..., None, None]
+        junk = [torch.where(stale, 127.0, x.float()).to(x.dtype)
+                for x in (kp, vp)]
+        dead = ~valid.any(1)
+        junk_quant = {
+            k: torch.where(dead.reshape((-1,) + (1,) * (x.dim() - 1)),
+                           float("nan"), x) for k, x in quant.items()}
+    clean = ops.pasa_paged_prefill(q, kp, vp, table, st, pl, beta=BETA,
+                                   **quant)
+    assert torch.equal(ops.pasa_paged_prefill(q, *junk, table, st, pl,
+                                              beta=BETA, **junk_quant), clean)
 
 # ---- many kv heads and small groups -----------------------------------------
 #

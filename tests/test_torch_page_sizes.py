@@ -8,10 +8,10 @@ any ``--page-size`` of 1 or more without touching ``block_kv``.  Held
 here on the CPU (the plain versions): the paged decode op at pages 1, 8,
 16, 48, 128 and 256 and blocks 64 and 128 from raw, int8 and fp8_e4m3
 pools against ``paged_decode_xla``; the plain decode invariant to the page
-size at a fixed block; the paged prefill op at pages 8, 16, 256, 300 and
-512 against the reference's XLA path and its Pallas kernel in interpret
-mode (300 and 512 also from int8 and fp8_e4m3 pools against the XLA
-path), and bit-invariant to the chunk schedule; the engine at page 8
+size at a fixed block; the paged prefill op at pages 1, 8, 16, 24, 256,
+300 and 512 against the reference's XLA path and its Pallas kernel in
+interpret mode (300 and 512 also from int8 and fp8_e4m3 pools against the
+XLA path), and bit-invariant to the chunk schedule; the engine at page 8
 (block 128) against the reference engine, and at page 512 invariant to
 its chunk schedule with prefix hits equal to cold serves; the CLI keeping
 ``block_kv``; the cost formula counting an 8-bit pool's sidecars per
@@ -57,7 +57,7 @@ PREFILL_TOL = dict(atol=1e-2, rtol=3e-2)
 DECODE_PAGES = (1, 8, 16, 48, 128, 256)
 DECODE_BLOCKS = (64, 128)
 POOLS = ("raw", "int8", "fp8_e4m3")
-PREFILL_PAGES = (8, 16, 256, 300, 512)
+PREFILL_PAGES = (1, 8, 16, 24, 256, 300, 512)
 WIDE_PAGES = (300, 512)     # one PASA block a page over 256 rows
 KV_LENS = (300, 77)
 
@@ -249,8 +249,10 @@ def test_prefill_matches_reference_at_page(page, ref_route, beta):
                                **PREFILL_TOL)
 
 
-@pytest.mark.parametrize("page,cuts", [(8, (0, 24, 40, 64)),
+@pytest.mark.parametrize("page,cuts", [(1, (0, 5, 17, 40)),
+                                       (8, (0, 24, 40, 64)),
                                        (16, (0, 32, 48, 64)),
+                                       (24, (0, 24, 72, 100)),
                                        (256, (0, 256, 300)),
                                        (512, (0, 512, 700))])
 def test_prefill_is_bit_invariant_to_the_chunk_schedule(page, cuts):
